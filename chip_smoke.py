@@ -16,16 +16,32 @@ Phases, one line each:
    ``build_fused_rollout`` (B=65,536, T=256, tiny-2ag) and
    ``build_fused_collect`` (B=16,384, T=128, hidden (128, 128)), timed with
    CUDA events beside the plain versions, with launch counters reset just
-   before and read just after.
+   before and read just after;
+6. the fused PPO gradient kernel (K4) against its plain version on the card:
+   random data on tiny-2ag, tiny-16ag and sensor ranges 3 and 5 at B=1000,
+   windows that wrap; gradients within 1e-2 of each block's largest |plain|,
+   metrics within rtol 1e-3; two launches bit-equal;
+7. the whole-update-phase kernel (K3) against its plain version: E=4, M=4,
+   B=4096; parameters within 0.05 * lr * P, moments within 2e-2 of each
+   block's largest |plain|, metrics within rtol 1e-2; two launches
+   bit-equal;
+8. the training main path at full width through
+   ``rware_tpu_torch.models.ippo_fused.build_fused_train_step``: tiny-2ag,
+   B=16,384, T=128, E=4, M=4, hidden (128, 128), three updates after one
+   warm-up with launch counters reset before and read after, the time of an
+   update split into collect (K2a), GAE and last value, and update phase
+   (K3), one update of the per-pass path (K4 and the optimizer), and each
+   PPO kernel timed and compared at that shape beside its plain version.
 
 Then the card's name and power limit, one JSON line describing each kernel,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits non-zero without that line.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py [--phases 6,7]   (all phases by default)
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -49,6 +65,12 @@ K2_CONFIGS = (
     ("rware-large-8ag-v2", {"max_steps": 20}),
     ("rware-tiny-16ag-v2", {"max_steps": 20}),
 )
+# Sensor range 5 reads dense_0's weights from device memory (too long for
+# shared memory); the others keep them in shared memory.
+K4_CONFIGS = ("rware-tiny-2ag-v2", "rware-tiny-16ag-v2", "rware-3s-tiny-2ag-v2",
+              "rware-5s-tiny-2ag-v2")
+GRAD_FRAC = 1e-2  # of each block's largest |plain gradient|
+MOMENT_FRAC = 2e-2  # of each block's largest |plain moment|
 
 
 def log(msg: str) -> None:
@@ -182,34 +204,93 @@ def compare_k2(env_id, dev, b, t, deterministic, seed, policy=None, **overrides)
     return env, ks, ktraj, agree, err
 
 
-def main() -> int:
-    import torch
+def check_blocks(dims, got, want, frac, what):
+    """Each of the six blocks of ``got`` within ``frac`` of the largest
+    |value| of ``want``'s block; returns the largest absolute difference."""
+    for k, (g, w) in enumerate(zip(dims.split(got), dims.split(want))):
+        err = float((g - w).abs().max())
+        bound = frac * max(float(w.abs().max()), 1e-12)
+        require(err <= bound, f"{what}: block {k} differs by {err} > {bound}")
+    return float((got - want).abs().max())
 
-    # ---- phase 1: device --------------------------------------------------------
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
+
+def check_metric_sums(got, want, n, rtol, what):
+    """The metrics of (..., 4) window sums over ``n`` samples within ``rtol``
+    (and 1e-5: pg_loss is a mean of normalised advantages, near 0)."""
+    import torch
+    from rware_tpu_torch.ops.fused_update import metric_means
+
+    g, w = metric_means(got, n), metric_means(want, n)
+    for k in g:
+        a, b = g[k].double(), w[k].double()
+        ok = bool(((a - b).abs() <= rtol * b.abs() + 1e-5).all() and torch.isfinite(a).all())
+        require(ok, f"{what}: metric {k} {a.tolist()} vs {b.tolist()}")
+
+
+def compare_k4(env_id, dev, b, t_full, t_mb, starts, seed):
+    """K4 kernel vs plain at each window start; returns max |grad diff|."""
+    import torch
+    from rware_tpu_torch.ops.fused_update import build_fused_ppo_grads
+    from rware_tpu_torch.testing import random_ppo_case
+
+    dims, params, data = random_ppo_case(env_id, b, t_full, seed, dev)
+    k4 = build_fused_ppo_grads(dims, t_mb, clip_eps=0.2, vf_coef=0.5, ent_coef=0.01)
+    n = t_mb * b * data[1].shape[2]
+    err = 0.0
+    for start in starts:
+        kg, ks = k4(params, data, start)
+        kg2, ks2 = k4(params, data, start)
+        pg, ps = k4.plain(params, data, start)
+        torch.cuda.synchronize()
+        require(torch.equal(kg, kg2) and torch.equal(ks, ks2),
+                f"K4 {env_id} start {start}: two launches differ")
+        err = max(err, check_blocks(dims, kg, pg, GRAD_FRAC, f"K4 {env_id} start {start}"))
+        check_metric_sums(ks, ps, n, 1e-3, f"K4 {env_id} start {start}")
+    return k4, err
+
+
+def compare_k3(dev, b, t_full, epochs, minibatches, seed, data=None, dims=None, params=None):
+    """K3 kernel vs plain on one update phase (random data, or ``data`` with
+    ``dims`` and ``params``); returns (kernel ms, plain ms, max |param diff|)."""
+    import torch
+    from rware_tpu_torch.models import ippo
+    from rware_tpu_torch.models.ippo_fused import phase_advstats, phase_window_starts
+    from rware_tpu_torch.ops.fused_update import build_fused_ppo_update_phase
+    from rware_tpu_torch.testing import random_ppo_case
+
+    if data is None:
+        dims, params, data = random_ppo_case("rware-tiny-2ag-v2", b, t_full, seed, dev)
+    cfg = ippo.IPPOConfig(epochs=epochs, minibatches=minibatches)
+    k3 = build_fused_ppo_update_phase(dims, t_full, epochs, minibatches, cfg.clip_eps,
+                                      cfg.vf_coef, cfg.ent_coef, cfg.max_grad_norm)
+    starts = phase_window_starts(cfg, t_full, k3.time_block,
+                                 torch.Generator().manual_seed(seed)).to(dev)
+    advstats = phase_advstats(data[4], starts, t_full // minibatches)
+    p = epochs * minibatches
+    hyper = ippo.adam_hyper(cfg, 0, p).to(dev)
+    zero = torch.zeros_like(params)
+    args = (params, zero, zero, data, starts, advstats, hyper)
+    w, mu, nu, mets = k3(*args)
+    k_ms, (w2, mu2, nu2, mets2) = cuda_ms(lambda: k3(*args))
+    plain_ms, (pw, pmu, pnu, pmets) = cuda_ms(lambda: k3.plain(*args))
+    require(all(torch.equal(a, c) for a, c in zip((w, mu, nu, mets), (w2, mu2, nu2, mets2))),
+            "K3: two launches differ")
+    err = float((w - pw).abs().max())
+    require(err <= 0.05 * cfg.lr * p, f"K3: params differ by {err} > {0.05 * cfg.lr * p}")
+    check_blocks(dims, mu, pmu, MOMENT_FRAC, "K3 mu")
+    check_blocks(dims, nu, pnu, MOMENT_FRAC, "K3 nu")
+    check_metric_sums(mets, pmets, t_full // minibatches * data[1].shape[1] * data[1].shape[2],
+                      1e-2, "K3")
+    return k_ms, plain_ms, err
+
+
+def phase3(dev):
+    """K1 against its plain version; returns the main shape's max |error|."""
+    import torch
     import rware_tpu_torch
-    from rware_tpu_torch.models import ActorCritic
-    from rware_tpu_torch.ops._build import load_library
-    from rware_tpu_torch.ops.fused_rollout import build_fused_collect, build_fused_rollout
+    from rware_tpu_torch.ops.fused_rollout import build_fused_rollout
     from rware_tpu_torch.parallel import batched_reset
 
-    dev = torch.device("cuda:0")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    log(f"phase 1 device: {kind} | nvidia-smi: {card} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}")
-
-    # ---- phase 2: build ---------------------------------------------------------
-    start = time.perf_counter()
-    lib = load_library()
-    ptxas = [l.strip() for l in lib.build_log.splitlines() if "registers" in l or "spill" in l]
-    log(f"phase 2 build: nvcc sm_90a {lib.build_seconds:.1f} s (load {time.perf_counter() - start:.1f} s); "
-        + " ; ".join(ptxas))
-
-    # ---- phase 3: K1 vs plain ---------------------------------------------------
     for env_id in K1_CONFIGS:
         for scripted in (True, False):
             env, ks, kr, ke, _ = compare_k1(env_id, dev, 1000, 64, scripted, 7, max_steps=50)
@@ -225,8 +306,11 @@ def main() -> int:
     _, ks, kr, ke, k1_err = compare_k1("rware-tiny-2ag-v2", dev, 65536, 256, False, 11)
     log(f"phase 3 K1 main shape B=65536 T=256 random: bit-exact, max_abs_err {k1_err} "
         f"(reward sum {float(kr.sum())}, episodes {int(ke.sum())}); card == CPU plain at B=256")
+    return k1_err
 
-    # ---- phase 4: K2a vs plain --------------------------------------------------
+
+def phase4(dev):
+    """K2a against its plain version; returns the main shape's max |error|."""
     for env_id, overrides in K2_CONFIGS:
         for deterministic in (True, False):
             _, _, traj, agree, err = compare_k2(env_id, dev, 1000, 32, deterministic, 5, **overrides)
@@ -235,8 +319,17 @@ def main() -> int:
     _, _, traj, agree, k2_err = compare_k2("rware-tiny-2ag-v2", dev, 16384, 128, False, 13)
     log(f"phase 4 K2a main shape B=16384 T=128 random: obs/reward/done exact, "
         f"actions {agree:.6f}, value/logp max_abs_err {k2_err}")
+    return k2_err
 
-    # ---- phase 5: the main path at full size ------------------------------------
+
+def phase5(dev, kind, card, k1_err, k2_err):
+    """The PR-1 main path (K1, K2a) at full size; returns their kernel entries."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ActorCritic
+    from rware_tpu_torch.ops.fused_rollout import build_fused_collect, build_fused_rollout
+    from rware_tpu_torch.parallel import batched_reset
+
     env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
     b1, t1 = 65536, 256
     states, obs = batched_reset(env, 0, b1)
@@ -287,8 +380,7 @@ def main() -> int:
     log(f"phase 5 main path K2a tiny-2ag B={b2} T={t2} hidden (128, 128): {k2_ms:.3f} ms/launch = "
         f"{b2 * t2 / k2_ms * 1e3:.4g} env-steps/s (plain {k2_plain_ms:.1f} ms), "
         f"reward checksum {float(traj['reward'].sum())}, launches {launches} [{kind}, {card}]")
-
-    kernels = [
+    return [
         {"name": "fused_rollout", "route": "cuda",
          "source": "rware_tpu_torch/csrc/fused_rollout.cu",
          "replaces": "rware_tpu/ops/pallas_rollout.py:657",
@@ -300,6 +392,150 @@ def main() -> int:
          "launches": launches["fused_collect"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
     ]
+
+
+def phase6(dev, kind, card):
+    """K4 against its plain version on four observation lengths and agent counts."""
+    for env_id in K4_CONFIGS:
+        k4, err = compare_k4(env_id, dev, 1000, 8, 4, (0, 3, 7), seed=21)
+        log(f"phase 6 K4 {env_id} B=1000 T=8 window 4 at starts 0, 3, 7: within "
+            f"{GRAD_FRAC} of each block, max_abs_err {err}, two launches bit-equal "
+            f"(tile {k4.tile}, dense_0 in shared memory {k4.w0_smem}) [{kind}, {card}]")
+
+
+def phase7(dev, kind, card):
+    """K3 against its plain version."""
+    k_ms, plain_ms, err = compare_k3(dev, 4096, 16, 4, 4, seed=31)
+    log(f"phase 7 K3 tiny-2ag B=4096 T=16 E=4 M=4: params max_abs_err {err}, moments and "
+        f"metrics within bounds, two launches bit-equal; {k_ms:.3f} ms (plain {plain_ms:.1f} ms) "
+        f"[{kind}, {card}]")
+
+
+def phase8(dev, kind, card, n_envs=16384, rollout_len=128):
+    """The training main path at full width; returns the K4 and K3 entries."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ippo
+    from rware_tpu_torch.models.ippo_fused import build_fused_train_step
+
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
+    cfg = ippo.IPPOConfig(n_envs=n_envs, rollout_len=rollout_len, epochs=4, minibatches=4)
+    n_passes = cfg.epochs * cfg.minibatches
+    runner, dims = ippo.init_runner(env, cfg, seed=0)
+    step = build_fused_train_step(env, dims, cfg)
+    runner, _ = step(runner)  # warm-up
+    torch.cuda.synchronize()
+    params0 = runner.params.clone()
+    step.collect.launches = step.update_phase.launches = step.grads.launches = 0
+    runs = []
+
+    def update():
+        nonlocal runner
+        runner, metrics = step(runner)
+        runs.append(metrics)
+
+    update_ms, _ = cuda_ms(update, repeats=3)
+    launches = {"fused_collect": step.collect.launches,
+                "fused_ppo_update_phase": step.update_phase.launches}
+    require(min(launches.values()) > 0, f"the train step launched no kernel: {launches}")
+    for metrics in runs:
+        for k, v in metrics.items():
+            require(bool(torch.isfinite(v.float())), f"train step metric {k} is {float(v)}")
+    moved = float((runner.params - params0).abs().max())
+    require(moved > 0, "the train step did not move the parameters")
+    rewards = [float(m["reward_per_env"]) for m in runs]
+    require(sum(rewards) > 0, f"no reward in three updates: {rewards}")
+    last = {k: round(float(v), 5) for k, v in runs[-1].items()}
+    log(f"phase 8 train step tiny-2ag B={cfg.n_envs} T={cfg.rollout_len} E=4 M=4 hidden "
+        f"(128, 128): {update_ms:.3f} ms/update = {cfg.n_envs * cfg.rollout_len / update_ms * 1e3:.4g} "
+        f"env-steps/s over 3 updates, launches {launches}, params moved {moved}, "
+        f"reward_per_env {rewards}, last metrics {last} [{kind}, {card}]")
+
+    # The same update, phase by phase.
+    collect_ms, (states, traj) = cuda_ms(lambda: step.rollout(runner))
+    gae_ms, (obs, adv, targets) = cuda_ms(lambda: step.advantages(runner, states, traj))
+    dataset = (traj["obs"], traj["action"], traj["logp"], traj["value"], adv, targets)
+    phase_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    log(f"phase 8 breakdown of one update: collect (K2a) {collect_ms:.3f} ms, GAE and last value "
+        f"{gae_ms:.3f} ms, update phase (K3, 16 passes) {phase_ms:.3f} ms [{kind}, {card}]")
+
+    # The per-pass path: K4 and the optimizer step, one update.
+    step4 = build_fused_train_step(env, dims, cfg, fused_update_phase=False)
+    step4.grads.launches = 0
+    per_pass_ms, (_, m4) = cuda_ms(lambda: step4(runner))
+    k4_launches = step4.grads.launches
+    require(k4_launches == n_passes, f"K4 launched {k4_launches} times")
+    for k, v in m4.items():
+        require(bool(torch.isfinite(v.float())), f"per-pass train step metric {k} is {float(v)}")
+    per_pass_update_ms, _ = cuda_ms(lambda: step4.update(runner, dataset))
+    log(f"phase 8 per-pass path (K4 + optimizer): {per_pass_ms:.3f} ms/update, of which the "
+        f"update passes {per_pass_update_ms:.3f} ms; K4 launches {k4_launches} "
+        f"[{kind}, {card}]")
+
+    # Each PPO kernel at the main path's shapes, beside its plain version.
+    k4 = step.grads
+    k4(runner.params, dataset, 0)
+    k4_ms, (kg, ks) = cuda_ms(lambda: k4(runner.params, dataset, 0), repeats=3)
+    k4_plain_ms, (pg, ps) = cuda_ms(lambda: k4.plain(runner.params, dataset, 0))
+    k4_err = check_blocks(dims, kg, pg, GRAD_FRAC, "K4 at the main shape")
+    check_metric_sums(ks, ps, cfg.rollout_len // cfg.minibatches * cfg.n_envs * env.n_agents, 1e-3,
+                      "K4 at the main shape")
+    k3_ms, k3_plain_ms, k3_err = compare_k3(dev, cfg.n_envs, cfg.rollout_len, cfg.epochs,
+                                            cfg.minibatches, 3, dataset, dims, runner.params)
+    log(f"phase 8 kernels at the main shape: K4 {k4_ms:.3f} ms/launch (plain {k4_plain_ms:.1f} "
+        f"ms, max_abs_err {k4_err}); K3 {k3_ms:.3f} ms/launch (plain {k3_plain_ms:.1f} ms, "
+        f"params max_abs_err {k3_err}) [{kind}, {card}]")
+    return [
+        {"name": "fused_ppo_grads", "route": "cuda",
+         "source": "rware_tpu_torch/csrc/fused_ppo_grads.cu",
+         "replaces": "rware_tpu/ops/pallas_update.py:293",
+         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms},
+        {"name": "fused_ppo_update_phase", "route": "cuda",
+         "source": "rware_tpu_torch/csrc/fused_ppo_update.cu",
+         "replaces": "rware_tpu/ops/pallas_update.py:901",
+         "launches": launches["fused_ppo_update_phase"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+    ]
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+                        help="comma-separated phases to run (1 and 2 always run)")
+    phases = {int(x) for x in parser.parse_args().phases.split(",")} | {1, 2}
+
+    # ---- phase 1: device --------------------------------------------------------
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
+    from rware_tpu_torch.ops._build import load_library
+
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"phase 1 device: {kind} | nvidia-smi: {card} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}")
+
+    # ---- phase 2: build ---------------------------------------------------------
+    start = time.perf_counter()
+    lib = load_library()
+    ptxas = [l.strip() for l in lib.build_log.splitlines() if "registers" in l or "spill" in l]
+    log(f"phase 2 build: nvcc sm_90a {lib.build_seconds:.1f} s (load {time.perf_counter() - start:.1f} s); "
+        + " ; ".join(ptxas))
+
+    k1_err = phase3(dev) if 3 in phases else None
+    k2_err = phase4(dev) if 4 in phases else None
+    kernels = phase5(dev, kind, card, k1_err, k2_err) if 5 in phases else []
+    if 6 in phases:
+        phase6(dev, kind, card)
+    if 7 in phases:
+        phase7(dev, kind, card)
+    if 8 in phases:
+        kernels += phase8(dev, kind, card)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,6 +5,11 @@
 * a ``WarehouseState``'s fields as numpy arrays (batched, leading env axis)
   <->  :class:`WarehouseState`.  The JAX state's per-env ``key`` has no
   counterpart and is dropped; callers keep their own.
+* flax params pytree  <->  the learners' flat parameter vector
+  (:class:`~rware_tpu_torch.models.networks.BlockDims` layout), and the
+  optax state of ``chain(clip_by_global_norm, adam(...))`` (``count``,
+  ``mu``, ``nu``, and the schedule's ``count`` when the lr anneals)  <->
+  :class:`~rware_tpu_torch.models.ippo.AdamState`.
 
 Nothing here imports jax: the JAX side is handed over as numpy arrays.
 """
@@ -16,7 +21,8 @@ import numpy as np
 import torch
 
 from rware_tpu_torch.core.state import WarehouseState, state_field_names
-from rware_tpu_torch.models.networks import ActorCritic
+from rware_tpu_torch.models.ippo import AdamState
+from rware_tpu_torch.models.networks import ActorCritic, BlockDims, pack_arrays
 
 _STATE_DTYPES = {
     "agent_has_delivered": torch.bool,
@@ -76,3 +82,56 @@ def state_from_numpy(fields: Any, device="cpu") -> WarehouseState:
 def state_to_numpy(state: WarehouseState) -> Dict[str, np.ndarray]:
     """Field name -> numpy array (int32 / bool / float32, as in JAX)."""
     return {name: getattr(state, name).cpu().numpy() for name in state_field_names()}
+
+
+def _tree(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    return params["params"] if "params" in params else params
+
+
+def params_from_flax(params: Mapping[str, Any], device="cpu") -> torch.Tensor:
+    """The flat parameter vector of a flax ActorCritic params pytree (or of
+    an optax moment pytree of the same structure)."""
+    p = _tree(params)
+    blocks = [
+        p["dense_0"]["kernel"], np.asarray(p["dense_0"]["bias"])[None, :],
+        p["dense_1"]["kernel"], np.asarray(p["dense_1"]["bias"])[None, :],
+        np.concatenate([p["policy"]["kernel"], p["value"]["kernel"]], axis=1),
+        np.concatenate([p["policy"]["bias"], p["value"]["bias"]])[None, :],
+    ]
+    arrays = [torch.from_numpy(np.array(b, dtype=np.float32)) for b in blocks]
+    return pack_arrays(arrays).to(device)
+
+
+def params_to_flax(flat: torch.Tensor, dims: BlockDims) -> Dict[str, Any]:
+    """The flax params pytree (numpy float32 leaves) of a flat vector."""
+    w0, b0, w1, b1, wc, bc = (a.detach().cpu().numpy() for a in dims.split(flat))
+    a = dims.n_actions
+    return {
+        "params": {
+            "dense_0": {"kernel": w0.copy(), "bias": b0[0].copy()},
+            "dense_1": {"kernel": w1.copy(), "bias": b1[0].copy()},
+            "policy": {"kernel": wc[:, :a].copy(), "bias": bc[0, :a].copy()},
+            "value": {"kernel": wc[:, a:].copy(), "bias": bc[0, a:].copy()},
+        }
+    }
+
+
+def adam_state_from_optax(opt_state: Any, device="cpu") -> AdamState:
+    """:class:`AdamState` of the optax state of the learners' optimizer
+    (``rware_tpu/models/ippo.py:241-246``), its leaves as numpy arrays."""
+    adam = opt_state[1][0]
+    return AdamState(int(adam.count), params_from_flax(adam.mu, device),
+                     params_from_flax(adam.nu, device))
+
+
+def adam_state_to_optax(state: AdamState, dims: BlockDims, like: Any) -> Any:
+    """The optax state of ``state``, in the structure of ``like`` (an optax
+    state of the same optimizer); the schedule's count, where ``like`` has
+    one, advances with Adam's."""
+    count = np.asarray(state.count, dtype=np.int32)
+    adam = like[1][0]._replace(count=count, mu=params_to_flax(state.mu, dims),
+                               nu=params_to_flax(state.nu, dims))
+    sched = like[1][1]
+    if "count" in getattr(sched, "_fields", ()):
+        sched = sched._replace(count=count)
+    return (like[0], (adam, sched))

@@ -1,5 +1,4 @@
-"""Policy/value network (the counterpart of ``rware_tpu/models/networks.py``,
-forward only).
+"""Policy/value network (the counterpart of ``rware_tpu/models/networks.py``).
 
 ``ActorCritic`` follows the numerics recipe of the fused collector
 (``rware_tpu/ops/pallas_rollout.py::_policy_forward``): bf16 inputs and
@@ -10,11 +9,20 @@ Every product is accumulated in one fixed order — input feature 0 first,
 one rounded multiply and one rounded add per term, no fused multiply-add —
 which is the order the fused collector kernel (``csrc/fused_collect.cu``)
 uses, so on the card the two agree bit for bit.
+
+The learners train on :func:`train_forward`: the same recipe
+(``rware_tpu/models/ippo_pallas.py::_native_trunk``) with ``torch.matmul``
+products, differentiable, on the six kernel-layout parameter blocks of
+:func:`params_to_arrays` packed into one flat float32 vector
+(:class:`BlockDims`).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import dataclasses
+import math
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -86,3 +94,145 @@ def sample_action(
     lse = mx + torch.log(torch.exp(logits - mx).sum(dim=-1, keepdim=True))
     logp = (logits.gather(-1, action[..., None]) - lse)[..., 0]
     return action.to(torch.int32), logp
+
+
+# ---------------------------------------------------------------------------
+# Training forward on the kernel-layout parameter blocks.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockDims:
+    """Sizes of the six kernel-layout blocks of a two-layer ActorCritic
+    (``ippo_pallas.py:340-355``): ``W0 (L, H1)``, ``b0 (1, H1)``,
+    ``W1 (H1, H2)``, ``b1 (1, H2)``, ``Wc = [policy | value] (H2, A+1)``,
+    ``bc (1, A+1)``.  Packed in that order into one flat vector, each weight
+    block followed by its bias row is the stacked ``(fan_in + 1, fan_out)``
+    matrix the CUDA kernels address (``csrc/ppo_core.cuh``)."""
+
+    obs_len: int
+    h1: int
+    h2: int
+    n_actions: int = 5
+
+    @property
+    def shapes(self) -> List[Tuple[int, int]]:
+        ac = self.n_actions + 1
+        return [(self.obs_len, self.h1), (1, self.h1), (self.h1, self.h2), (1, self.h2),
+                (self.h2, ac), (1, ac)]
+
+    @property
+    def n_params(self) -> int:
+        return sum(r * c for r, c in self.shapes)
+
+    def split(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """The six blocks as views of ``flat``."""
+        sizes = [r * c for r, c in self.shapes]
+        return [p.view(s) for p, s in zip(torch.split(flat, sizes), self.shapes)]
+
+    @staticmethod
+    def of(model: "ActorCritic") -> "BlockDims":
+        if len(model.hidden) != 2:
+            raise ValueError("the learners take two hidden layers")
+        return BlockDims(model.obs_dim, model.hidden[0], model.hidden[1], model.n_actions)
+
+
+def pack_arrays(arrays: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One flat float32 vector of the six blocks."""
+    return torch.cat([a.reshape(-1).to(torch.float32) for a in arrays])
+
+
+def params_to_arrays(model: "ActorCritic") -> List[torch.Tensor]:
+    """The six kernel-layout blocks of ``model`` (``_params_to_arrays`` of
+    ``ippo_pallas.py:340``); ``nn.Linear`` keeps (out, in), the blocks
+    (in, out)."""
+    d0, d1 = model.dense
+    return [
+        d0.weight.t(), d0.bias[None, :], d1.weight.t(), d1.bias[None, :],
+        torch.cat([model.policy.weight, model.value.weight], 0).t(),
+        torch.cat([model.policy.bias, model.value.bias], 0)[None, :],
+    ]
+
+
+@torch.no_grad()
+def arrays_to_params(arrays: Sequence[torch.Tensor],
+                     model: Optional["ActorCritic"] = None) -> "ActorCritic":
+    """Copy the six blocks into ``model`` (a new one on the blocks' device
+    if None) and return it (``_arrays_to_params`` of ``ippo_pallas.py:358``)."""
+    w0, b0, w1, b1, wc, bc = arrays
+    a = wc.shape[1] - 1
+    if model is None:
+        model = ActorCritic(w0.shape[0], a, (w0.shape[1], w1.shape[1])).to(w0.device)
+    d0, d1 = model.dense
+    d0.weight.copy_(w0.t())
+    d0.bias.copy_(b0[0])
+    d1.weight.copy_(w1.t())
+    d1.bias.copy_(b1[0])
+    model.policy.weight.copy_(wc[:, :a].t())
+    model.policy.bias.copy_(bc[0, :a])
+    model.value.weight.copy_(wc[:, a:].t())
+    model.value.bias.copy_(bc[0, a:])
+    return model
+
+
+def init_actor_critic(obs_dim: int, n_actions: int = 5, hidden: Sequence[int] = (128, 128),
+                      seed: int = 0) -> "ActorCritic":
+    """An :class:`ActorCritic` with flax ``Dense``'s default init: kernels
+    LeCun-normal (truncated at two deviations, unit variance after the
+    truncation), biases zero.  The draws come from numpy's generator, so a
+    seed gives the same parameters under every torch version."""
+    rng = np.random.default_rng(seed)
+    model = ActorCritic(obs_dim, n_actions, hidden)
+    bound = math.erf(2.0 / math.sqrt(2.0))  # truncation at +-2 in erf units
+    with torch.no_grad():
+        for layer in list(model.dense) + [model.policy, model.value]:
+            std = 1.0 / math.sqrt(layer.weight.shape[1]) / 0.87962566103423978
+            u = torch.from_numpy(rng.uniform(-bound, bound, tuple(layer.weight.shape)))
+            w = torch.erfinv(u) * (std * math.sqrt(2.0))
+            layer.weight.copy_(w.clamp(-2 * std, 2 * std))
+            layer.bias.zero_()
+    return model
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (as float32), with the identity as gradient."""
+    return x + (x.to(torch.bfloat16).to(torch.float32) - x).detach()
+
+
+class _Bf16Tanh(torch.autograd.Function):
+    """``h = bf16(tanh(u))`` of a bf16-exact ``u``.  Its gradient follows
+    the fused update kernels (``pallas_update.py:1134-1139``):
+    ``bf16(bf16(g) * bf16(1 - bf16(h * h)))``."""
+
+    @staticmethod
+    def forward(ctx, u):
+        h = torch.tanh(u).to(torch.bfloat16).to(torch.float32)
+        ctx.save_for_backward(h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        (h,) = ctx.saved_tensors
+
+        def rnd(v):
+            return v.to(torch.bfloat16).to(torch.float32)
+
+        return rnd(rnd(g) * rnd(1.0 - rnd(h * h)))
+
+
+def train_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable ActorCritic forward on the six blocks: obs (..., L)
+    -> (logits (..., A), value (...,)), all float32.
+
+    The ``_native_trunk`` recipe: bf16 inputs and hidden weights, f32 sums
+    (``torch.matmul`` on bf16-exact float32 values), the f32 bias added and
+    the sum rounded to bf16, tanh rounded to bf16, f32 heads."""
+    w0, b0, w1, b1, wc, bc = arrays
+    lead = obs.shape[:-1]
+    x = obs.reshape(-1, obs.shape[-1]).to(torch.bfloat16).to(torch.float32)
+    h = _Bf16Tanh.apply(bf16_round(x @ bf16_round(w0) + b0))
+    h = _Bf16Tanh.apply(bf16_round(h @ bf16_round(w1) + b1))
+    hcat = h @ wc + bc
+    a = wc.shape[1] - 1
+    return hcat[:, :a].reshape(lead + (a,)), hcat[:, a].reshape(lead)

@@ -1,7 +1,8 @@
 """Builds the CUDA kernels of ``rware_tpu_torch/csrc`` and loads them.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface for Hopper (``sm_90a``); ``ctypes`` loads it.  The library lands in
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process per
+source, all started together, and links the objects into one shared library
+with a plain C interface; ``ctypes`` loads it.  The library lands in
 ``build/rware_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one is
 reused.  Nothing here runs at import: the first kernel launch builds.
@@ -22,12 +23,16 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rware_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _DIMS = [_I] * 9 + [ctypes.c_ulonglong]  # n s r g h w reward max_steps max_inactive, seed
+# L H1 H2 A T_full T_mb B N | clip_eps vf_coef ent_coef inv_n |
+# tile grid smem w0_smem chunk n_chunks
+_PPO_DIMS = [_I] * 8 + [_F] * 4 + [_I] * 6
 _SIGNATURES = {
     # ... scripted T B | layout state_in state_out actions rewards episodes stream
     "rw_fused_rollout": _DIMS + [_I] * 3 + [_P] * 7,
@@ -35,6 +40,13 @@ _SIGNATURES = {
     # layout state_in state_out w0 b0 w1 b1 wp bp wv bv obs action logp value
     # reward done stream
     "rw_fused_collect": _DIMS + [_I] * 11 + [_P] * 18,
+    # ... | start stats obs action logp value adv target params h1 h2 dz1 dz2
+    # dcat partial part_mets grads mets stream
+    "rw_fused_ppo_grads": _PPO_DIMS + [_P] * 19,
+    # ... max_grad_norm n_passes | starts advstats hyper obs action logp value
+    # adv target params mu nu h1 h2 dz1 dz2 dcat partial part_mets grads mets
+    # stream
+    "rw_fused_ppo_update_phase": _PPO_DIMS + [_F, _I] + [_P] * 22,
 }
 
 
@@ -69,17 +81,27 @@ def load_library() -> ctypes.CDLL:
     log_path = BUILD_DIR / f"nvcc-{tag}.log"
     seconds = 0.0
     if not lib_path.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, f"{src.stem}.o") for src in cu]
+            cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for src, obj in zip(cu, objs)]
+            link = [_nvcc(), "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in cmds]
+            outs = [proc.communicate()[0] for proc in procs]
+            log = [" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs)]
+            for proc, out in zip(procs, outs):
+                if proc.returncode != 0:
+                    log_path.write_text("\n".join(log))
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out[-4000:]}")
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            log_path.write_text("\n".join(log))
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            os.replace(os.path.join(tmp, "lib.so"), lib_path)
         seconds = time.perf_counter() - start
-        log_path.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

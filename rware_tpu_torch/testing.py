@@ -92,6 +92,34 @@ def make_state(
     )
 
 
+def random_ppo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device="cpu"):
+    """``(dims, params, data)`` of random inputs for the PPO kernels at
+    ``env_id``'s observation length and agent count: flax-initialised
+    parameters at hidden (128, 128), and a ``(T, B, N, ...)`` trajectory of
+    bf16 0/1 features, actions, logp near log(1/5), and normal values,
+    advantages and targets (``torch.Generator`` seeded on ``device``)."""
+    from rware_tpu_torch.models.networks import (
+        BlockDims,
+        init_actor_critic,
+        pack_arrays,
+        params_to_arrays,
+    )
+    from rware_tpu_torch.registry import parse_env_id
+
+    cfg = parse_env_id(env_id)
+    l_obs, shape = cfg.flattened_obs_length, (t_full, n_envs, cfg.n_agents)
+    model = init_actor_critic(l_obs, 5, (128, 128), seed)
+    params = pack_arrays(params_to_arrays(model)).detach().to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    data = (
+        (torch.rand(shape + (l_obs,), generator=gen, device=device) < 0.3).to(torch.bfloat16),
+        torch.randint(0, 5, shape, generator=gen, device=device, dtype=torch.int32),
+        torch.randn(shape, generator=gen, device=device) * 0.1 - 1.6,
+        *(torch.randn(shape, generator=gen, device=device) for _ in range(3)),
+    )
+    return BlockDims(l_obs, 128, 128, 5), params, data
+
+
 UP = Direction.UP
 DOWN = Direction.DOWN
 LEFT = Direction.LEFT

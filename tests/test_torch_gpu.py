@@ -12,8 +12,15 @@ import torch
 
 import rware_tpu_torch
 from rware_tpu_torch.models import ActorCritic
+from rware_tpu_torch.models import ippo
+from rware_tpu_torch.models.ippo_fused import phase_advstats, phase_window_starts
 from rware_tpu_torch.ops.fused_rollout import build_fused_collect, build_fused_rollout
+from rware_tpu_torch.ops.fused_update import (
+    build_fused_ppo_grads,
+    build_fused_ppo_update_phase,
+)
 from rware_tpu_torch.parallel import batched_reset
+from rware_tpu_torch.testing import random_ppo_case
 
 torch.set_num_threads(1)
 pytestmark = [
@@ -51,7 +58,7 @@ def test_fused_collect_kernel_matches_plain(deterministic):
     env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=DEV, max_steps=20)
     states, _ = batched_reset(env, 1, 1000)
     torch.manual_seed(0)
-    policy = ActorCritic(env.config.flattened_obs_length).to()
+    policy = ActorCritic(env.config.flattened_obs_length).to(DEV)
     collect = build_fused_collect(env.config, 32, deterministic=deterministic)
     ks, ktraj = collect(states, policy, 2)
     ps, ptraj = collect.plain(states, policy, 2)
@@ -85,3 +92,38 @@ def test_kernels_reject_unsupported_devices_and_sizes():
         roll(states, 0, torch.zeros((4, 8, 2), dtype=torch.int32))  # actions on the CPU
     with pytest.raises(ValueError):
         build_fused_collect(rware_tpu_torch.parse_env_id("rware-5s-tiny-2ag-v2"), 4)
+
+
+@pytest.mark.parametrize("env_id", ["rware-tiny-2ag-v2", "rware-3s-tiny-2ag-v2"])
+def test_fused_ppo_grads_kernel_matches_plain(env_id):
+    """K4: gradients within 1e-2 of each block's largest |plain value| on a
+    window that wraps; two launches give the same bits."""
+    dims, params, data = random_ppo_case(env_id, 1000, 8, device=DEV)
+    k4 = build_fused_ppo_grads(dims, 4, clip_eps=0.2, vf_coef=0.5, ent_coef=0.01)
+    kg, ks = k4(params, data, 7)
+    kg2, ks2 = k4(params, data, 7)
+    pg, ps = k4.plain(params, data, 7)
+    assert k4.launches == 2
+    assert torch.equal(kg, kg2) and torch.equal(ks, ks2)
+    for g, p in zip(dims.split(kg), dims.split(pg)):
+        assert float((g - p).abs().max()) <= 1e-2 * float(p.abs().max())
+    torch.testing.assert_close(ks, ps, rtol=1e-3, atol=1e-2)
+
+
+def test_fused_ppo_update_phase_kernel_matches_plain():
+    """K3: E=2, M=2 passes; parameters within 0.05 * lr * P of the plain
+    version, two launches bit-equal."""
+    dims, params, data = random_ppo_case("rware-tiny-2ag-v2", 1024, 8, device=DEV)
+    cfg = ippo.IPPOConfig(epochs=2, minibatches=2)
+    k3 = build_fused_ppo_update_phase(dims, 8, 2, 2, clip_eps=0.2, vf_coef=0.5, ent_coef=0.01,
+                                      max_grad_norm=0.5)
+    starts = phase_window_starts(cfg, 8, k3.time_block, torch.Generator().manual_seed(0)).to(DEV)
+    args = (params, torch.zeros_like(params), torch.zeros_like(params), data, starts,
+            phase_advstats(data[4], starts, 4), ippo.adam_hyper(cfg, 0, 4).to(DEV))
+    out = k3(*args)
+    again = k3(*args)
+    plain = k3.plain(*args)
+    assert k3.launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert float((out[0] - plain[0]).abs().max()) <= 0.05 * cfg.lr * 4
+    assert float((out[0] - params).abs().max()) > 0

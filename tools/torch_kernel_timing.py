@@ -8,10 +8,13 @@ B=16,384, T=128.  Each timing is the median of ``--repeats`` launches timed
 with CUDA events after one warm-up launch, with the spread (min, max) beside
 it.  ``--profile`` adds one torch.profiler window per kernel on tiny-2ag:
 device time by kernel name and the device-busy share of the call's wall
-time.  Prints one JSON object per line, each with the card's name and power
-limit; ``--out`` also writes them to a file.
+time.  ``--train-step`` times ``--repeats`` updates of the fused learner
+(``models/ippo_fused.build_fused_train_step``, tiny-2ag, B=16,384, T=128,
+E=4, M=4) and profiles one.  Prints one JSON object per line, each with the
+card's name and power limit; ``--out`` also writes them to a file.
 
-Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--out FILE]
+Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-step]
+       [--out FILE]
 """
 import argparse
 import json
@@ -71,17 +74,18 @@ def profile(fn):
             name = evt.key[:80]
             by_name[name] = by_name.get(name, 0.0) + dev_us / 1e3
     busy = sum(by_name.values())
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
     return top, busy, wall_ms
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--configs", nargs="+", default=[
+    ap.add_argument("--configs", nargs="*", default=[
         "rware-tiny-2ag-v2", "rware-small-4ag-v2", "rware-medium-6ag-hard-v2",
         "rware-large-8ag-v2", "rware-tiny-16ag-v2"])
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--train-step", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
 
@@ -132,6 +136,27 @@ def main():
         collect = build_fused_collect(env.config, 128)
         top, busy, wall = profile(lambda: collect(states, policy, 1))
         emit({"profile": "fused_collect call", "device_ms_by_kernel": top,
+              "device_busy_ms": busy, "wall_ms": wall})
+    if args.train_step:
+        from rware_tpu_torch.models import ippo
+        from rware_tpu_torch.models.ippo_fused import build_fused_train_step
+
+        env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
+        cfg = ippo.IPPOConfig(n_envs=16384, rollout_len=128, epochs=4, minibatches=4)
+        runner, dims = ippo.init_runner(env, cfg, 0)
+        step = build_fused_train_step(env, dims, cfg)
+        box = [runner]
+
+        def update():
+            box[0], _ = step(box[0])
+
+        med, lo, hi = time_launches(update, args.repeats)
+        steps = cfg.n_envs * cfg.rollout_len
+        emit({"train_step": "fused, tiny-2ag", "B": cfg.n_envs, "T": cfg.rollout_len,
+              "epochs": cfg.epochs, "minibatches": cfg.minibatches, "ms_median": med,
+              "ms_min": lo, "ms_max": hi, "env_steps_per_s": steps / med * 1e3})
+        top, busy, wall = profile(update)
+        emit({"profile": "fused train step", "device_ms_by_kernel": top,
               "device_busy_ms": busy, "wall_ms": wall})
     emit({"nvidia_smi_after": card()})
     if args.out:
