@@ -37,11 +37,10 @@ Then the card's name and power limit, one JSON line describing each kernel,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits non-zero without that line.
 
-Usage: python3 chip_smoke.py [--phases 6,7]   (all phases by default)
+Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -501,12 +500,6 @@ def phase8(dev, kind, card, n_envs=16384, rollout_len=128):
 def main() -> int:
     import torch
 
-    parser = argparse.ArgumentParser(description=__doc__,
-                                     formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8",
-                        help="comma-separated phases to run (1 and 2 always run)")
-    phases = {int(x) for x in parser.parse_args().phases.split(",")} | {1, 2}
-
     # ---- phase 1: device --------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -527,15 +520,12 @@ def main() -> int:
     log(f"phase 2 build: nvcc sm_90a {lib.build_seconds:.1f} s (load {time.perf_counter() - start:.1f} s); "
         + " ; ".join(ptxas))
 
-    k1_err = phase3(dev) if 3 in phases else None
-    k2_err = phase4(dev) if 4 in phases else None
-    kernels = phase5(dev, kind, card, k1_err, k2_err) if 5 in phases else []
-    if 6 in phases:
-        phase6(dev, kind, card)
-    if 7 in phases:
-        phase7(dev, kind, card)
-    if 8 in phases:
-        kernels += phase8(dev, kind, card)
+    k1_err = phase3(dev)
+    k2_err = phase4(dev)
+    kernels = phase5(dev, kind, card, k1_err, k2_err)
+    phase6(dev, kind, card)
+    phase7(dev, kind, card)
+    kernels += phase8(dev, kind, card)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

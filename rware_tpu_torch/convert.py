@@ -9,7 +9,7 @@
   (:class:`~rware_tpu_torch.models.networks.BlockDims` layout), and the
   optax state of ``chain(clip_by_global_norm, adam(...))`` (``count``,
   ``mu``, ``nu``, and the schedule's ``count`` when the lr anneals)  <->
-  :class:`~rware_tpu_torch.models.ippo.AdamState`.
+  :class:`~rware_tpu_torch.models.ppo.AdamState`.
 
 Nothing here imports jax: the JAX side is handed over as numpy arrays.
 """
@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from rware_tpu_torch.core.state import WarehouseState, state_field_names
-from rware_tpu_torch.models.ippo import AdamState
 from rware_tpu_torch.models.networks import ActorCritic, BlockDims, pack_arrays
+from rware_tpu_torch.models.ppo import AdamState
 
 _STATE_DTYPES = {
     "agent_has_delivered": torch.bool,

@@ -8,18 +8,15 @@ flat Adam moments of the same layout, so the plain learner here, the
 per-pass learner and the whole-update-phase kernel of
 :mod:`rware_tpu_torch.models.ippo_fused` share one representation.
 
-The optimizer is optax's ``chain(clip_by_global_norm(max_grad_norm),
-adam(lr, eps=1e-5))`` written as the fused update kernel writes it
-(``rware_tpu/ops/pallas_update.py:1014-1033``): ``g * scale`` after the
-global-norm clip, then Adam with the bias corrections ``1 / (1 - b^t)``
-multiplied in.  Every random choice (minibatch permutations, epoch
+The loss and the optimizer step are those of
+:mod:`rware_tpu_torch.models.ppo`.  Every random choice (minibatch permutations, epoch
 rotations) comes from the runner's ``torch.Generator``; the collector's
 random stream is keyed by :func:`collect_seed`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -27,15 +24,22 @@ from rware_tpu_torch.core.env import Warehouse
 from rware_tpu_torch.core.state import WarehouseState
 from rware_tpu_torch.models.networks import (
     BlockDims,
+    apply_forward,
     arrays_to_params,
     init_actor_critic,
     pack_arrays,
     params_to_arrays,
     train_forward,
 )
-
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
-METRIC_KEYS = ("pg_loss", "v_loss", "entropy", "approx_kl")
+from rware_tpu_torch.models.ppo import (
+    ADAM_B1,
+    ADAM_B2,
+    METRIC_KEYS,
+    AdamState,
+    clip_adam,
+    clipped_ppo_terms,
+    loss_grads,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,16 +62,6 @@ class IPPOConfig:
     # "shuffle": random-permutation minibatches; "block": a random per-epoch
     # offset then contiguous slices (time-bands over all envs)
     minibatch_mode: str = "shuffle"
-
-
-@dataclasses.dataclass
-class AdamState:
-    """Adam moments in the flat parameter layout; ``count`` is the optax
-    count (steps taken), which the lr schedule reads too."""
-
-    count: int
-    mu: torch.Tensor
-    nu: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -119,50 +113,12 @@ def compute_gae(cfg: IPPOConfig, rewards, values, dones, last_value):
     return advantages, advantages + values
 
 
-def clipped_ppo_terms(cfg: IPPOConfig, logits, value, action, old_logp, old_value, adv,
-                      target, advstats: Optional[torch.Tensor] = None):
-    """The clipped-PPO objective (surrogate, clipped value loss, entropy
-    bonus) from policy logits and values of any source; returns
-    ``(total, metrics)`` with the metrics as means.
-
-    ``advstats`` [mean, 1/std] normalises the advantages as the fused
-    kernels do; None takes the mean and population std of ``adv`` itself."""
-    if advstats is None:
-        advn = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-    else:
-        advn = (adv - advstats[0]) * advstats[1]
-    logp_all = torch.log_softmax(logits, dim=-1)
-    logp = logp_all.gather(-1, action.long()[..., None])[..., 0]
-    ratio = torch.exp(logp - old_logp)
-    pg1 = ratio * advn
-    pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * advn
-    pg_loss = -torch.minimum(pg1, pg2).mean()
-    v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
-    v_loss = 0.5 * torch.maximum((value - target) ** 2, (v_clipped - target) ** 2).mean()
-    entropy = (-(torch.exp(logp_all) * logp_all).sum(-1)).mean()
-    total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
-    with torch.no_grad():
-        approx_kl = ((ratio - 1) - (logp - old_logp)).mean()
-    metrics = {"pg_loss": pg_loss.detach(), "v_loss": v_loss.detach(),
-               "entropy": entropy.detach(), "approx_kl": approx_kl}
-    return total, metrics
-
-
 def ppo_loss(cfg: IPPOConfig, dims: BlockDims, params: torch.Tensor, batch):
     """Clipped-PPO loss on a flat (M, N, ...) minibatch
     ``(obs, action, old_logp, old_value, adv, target)``."""
     obs, action, old_logp, old_value, adv, target = batch
     logits, value = train_forward(dims.split(params), obs)
     return clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, target)
-
-
-def loss_grads(loss_fn: Callable, params: torch.Tensor):
-    """(grads, metrics) of ``loss_fn(params) -> (total, metrics)``."""
-    with torch.enable_grad():
-        p = params.detach().requires_grad_(True)
-        total, metrics = loss_fn(p)
-        (grads,) = torch.autograd.grad(total, p)
-    return grads, metrics
 
 
 def make_lr_schedule(cfg: IPPOConfig) -> Callable[[int], torch.Tensor]:
@@ -191,20 +147,6 @@ def adam_hyper(cfg: IPPOConfig, count: int, n: int) -> torch.Tensor:
     bc1 = 1.0 / (1.0 - torch.pow(torch.tensor(ADAM_B1, dtype=torch.float32), t))
     bc2 = 1.0 / (1.0 - torch.pow(torch.tensor(ADAM_B2, dtype=torch.float32), t))
     return torch.stack([lr, bc1, bc2], dim=1)
-
-
-def clip_adam(params, grads, mu, nu, hyper: torch.Tensor, max_grad_norm: float):
-    """One global-norm clip + Adam step on flat tensors with the hyper row
-    ``[lr_t, bc1, bc2]``; returns new (params, mu, nu)."""
-    gn = torch.sqrt((grads * grads).sum())
-    scale = torch.where(gn >= max_grad_norm, max_grad_norm / torch.clamp(gn, min=1e-30),
-                        torch.ones_like(gn))
-    g = grads * scale
-    mu = ADAM_B1 * mu + (1.0 - ADAM_B1) * g
-    nu = ADAM_B2 * nu + (1.0 - ADAM_B2) * g * g
-    lr, bc1, bc2 = hyper[0], hyper[1], hyper[2]
-    params = params - lr * (mu * bc1) / (torch.sqrt(nu * bc2) + ADAM_EPS)
-    return params, mu, nu
 
 
 def optimizer_init(params: torch.Tensor) -> AdamState:
@@ -276,9 +218,10 @@ def policy_of(dims: BlockDims, params: torch.Tensor, model=None):
 
 
 def last_values(dims: BlockDims, params: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
-    """(B, N) values of the observations after the rollout."""
+    """(B, N) values of the observations after the rollout, by the JAX
+    package's ``model.apply`` recipe (:func:`apply_forward`)."""
     with torch.no_grad():
-        return train_forward(dims.split(params), obs)[1]
+        return apply_forward(dims.split(params), obs)[1]
 
 
 def update_metrics(cfg: IPPOConfig, traj: Dict[str, torch.Tensor], ppo_metrics) -> dict:

@@ -18,11 +18,9 @@ import torch
 
 from rware_tpu_torch.core.env import Warehouse
 from rware_tpu_torch.models.ippo import (
-    AdamState,
     IPPOConfig,
     RunnerState,
     adam_hyper,
-    clipped_ppo_terms,
     collect_seed,
     compute_gae,
     last_values,
@@ -31,7 +29,8 @@ from rware_tpu_torch.models.ippo import (
     policy_of,
     update_metrics,
 )
-from rware_tpu_torch.models.networks import BlockDims, train_forward
+from rware_tpu_torch.models.networks import BlockDims
+from rware_tpu_torch.models.ppo import AdamState, clipped_ppo_terms, ppo_loss_native
 from rware_tpu_torch.ops.fused_rollout import build_fused_collect
 from rware_tpu_torch.ops.fused_update import (
     build_fused_ppo_grads,
@@ -44,17 +43,6 @@ __all__ = [
     "FusedTrainStep", "build_fused_train_step", "clipped_ppo_terms", "phase_window_starts",
     "ppo_loss_native", "ppo_update_epochs_native", "ppo_update_phase_fused",
 ]
-
-
-def ppo_loss_native(cfg: IPPOConfig, dims: BlockDims, params: torch.Tensor, batch,
-                    advstats: Optional[torch.Tensor] = None):
-    """Clipped-PPO loss on a ``(T, B, N, ...)`` minibatch ``(obs, action,
-    old_logp, old_value, adv, target)``; ``advstats`` as in
-    :func:`clipped_ppo_terms`.  Returns (total, metrics)."""
-    obs, action, old_logp, old_value, adv, target = batch
-    logits, value = train_forward(dims.split(params), obs)
-    return clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, target,
-                             advstats)
 
 
 def epoch_offsets(cfg: IPPOConfig, t_full: int, tb: int,
@@ -79,9 +67,9 @@ def ppo_update_epochs_native(cfg: IPPOConfig, params, opt_state: AdamState, data
     """E epochs x M minibatches, one optimizer step per pass.
 
     ``grads_fn(params, dataset, start) -> (grads, sums)`` takes the full
-    trajectory and a window start (:class:`FusedPPOGrads` or its plain
-    version); it normalises the advantages by each window's own mean and
-    std.  Returns ((params, opt_state), metrics)."""
+    trajectory and a window start (:class:`FusedPPOGrads`); it normalises
+    the advantages by each window's own mean and std.  Returns ((params,
+    opt_state), metrics)."""
     t_len = dataset[1].shape[0]
     if t_len % cfg.minibatches:
         raise ValueError(f"minibatches={cfg.minibatches} must divide rollout_len={t_len}")
@@ -138,10 +126,7 @@ class FusedTrainStep:
     can time them: :meth:`rollout`, :meth:`advantages`, :meth:`update`."""
 
     def __init__(self, env: Warehouse, dims: BlockDims, cfg: IPPOConfig,
-                 deterministic_collect: bool = False, fused_update: bool = True,
-                 fused_update_phase: Optional[bool] = None):
-        if fused_update_phase is None:
-            fused_update_phase = fused_update and env.config.msg_bits == 0
+                 deterministic_collect: bool = False, fused_update_phase: bool = True):
         self.env, self.dims, self.cfg = env, dims, cfg
         self.collect = build_fused_collect(env.config, cfg.rollout_len, (dims.h1, dims.h2),
                                            deterministic=deterministic_collect)
@@ -152,7 +137,6 @@ class FusedTrainStep:
             self.update_phase = build_fused_ppo_update_phase(
                 dims, cfg.rollout_len, cfg.epochs, cfg.minibatches, cfg.clip_eps,
                 cfg.vf_coef, cfg.ent_coef, cfg.max_grad_norm)
-        self.grads_fn = self.grads if fused_update else self.grads.plain
         self._policy = None
 
     def rollout(self, runner: RunnerState):
@@ -176,7 +160,7 @@ class FusedTrainStep:
             return ppo_update_phase_fused(self.cfg, runner.params, runner.opt_state, dataset,
                                           runner.generator, self.update_phase, starts)
         return ppo_update_epochs_native(self.cfg, runner.params, runner.opt_state, dataset,
-                                        runner.generator, self.grads_fn, starts)
+                                        runner.generator, self.grads, starts)
 
     def __call__(self, runner: RunnerState, starts: Optional[torch.Tensor] = None
                  ) -> Tuple[RunnerState, dict]:
@@ -191,16 +175,14 @@ class FusedTrainStep:
 
 
 def build_fused_train_step(env: Warehouse, dims: BlockDims, cfg: IPPOConfig,
-                           deterministic_collect: bool = False, fused_update: bool = True,
-                           fused_update_phase: Optional[bool] = None) -> FusedTrainStep:
+                           deterministic_collect: bool = False,
+                           fused_update_phase: bool = True) -> FusedTrainStep:
     """The fused learner (``build_pallas_train_step`` with ``native=True``,
     ``ippo_pallas.py:488-598``): K2a collect, GAE, then the update phase.
 
-    ``fused_update_phase`` (default: on when ``fused_update``) runs all E x M
-    passes in the K3 kernel; otherwise each pass takes the K4 gradient
-    (``fused_update=True``) or its plain autograd version, then the
-    optimizer step.  ``starts`` of a call overrides the (P,) window starts
-    drawn from the runner's generator.  On a CUDA runner every kernel runs on
+    ``fused_update_phase`` (default) runs all E x M passes in the K3 kernel;
+    otherwise each pass takes the K4 gradient, then the optimizer step.
+    ``starts`` of a call overrides the (P,) window starts drawn from the
+    runner's generator.  On a CUDA runner every kernel runs on
     the card; on a CPU runner every wrapper runs its plain version."""
-    return FusedTrainStep(env, dims, cfg, deterministic_collect, fused_update,
-                          fused_update_phase)
+    return FusedTrainStep(env, dims, cfg, deterministic_collect, fused_update_phase)

@@ -14,7 +14,8 @@ The learners train on :func:`train_forward`: the same recipe
 (``rware_tpu/models/ippo_pallas.py::_native_trunk``) with ``torch.matmul``
 products, differentiable, on the six kernel-layout parameter blocks of
 :func:`params_to_arrays` packed into one flat float32 vector
-(:class:`BlockDims`).
+(:class:`BlockDims`).  Their bootstrap value reads :func:`apply_forward`,
+the recipe of the JAX package's flax ``ActorCritic`` itself.
 """
 from __future__ import annotations
 
@@ -218,6 +219,29 @@ class _Bf16Tanh(torch.autograd.Function):
             return v.to(torch.bfloat16).to(torch.float32)
 
         return rnd(rnd(g) * rnd(1.0 - rnd(h * h)))
+
+
+def apply_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``ActorCritic.__call__`` on the six blocks (flax
+    ``Dense`` with ``dtype=bfloat16``): each hidden layer's product rounded
+    to bf16, the bias rounded to bf16 and added in bf16, tanh rounded to
+    bf16; float32 heads on the bf16 hidden.  It differs from
+    :func:`train_forward` once the biases are nonzero: there the f32 bias
+    joins the f32 sum before the one rounding.  The learners' bootstrap
+    value (``model.apply`` at ``ippo_pallas.py:612``) reads it."""
+    w0, b0, w1, b1, wc, bc = arrays
+
+    def rnd(v):
+        return v.to(torch.bfloat16).to(torch.float32)
+
+    lead = obs.shape[:-1]
+    h = rnd(obs.reshape(-1, obs.shape[-1]))
+    for w, b in ((w0, b0), (w1, b1)):
+        h = rnd(torch.tanh(rnd(rnd(h @ rnd(w)) + rnd(b))))
+    hcat = h @ wc + bc
+    a = wc.shape[1] - 1
+    return hcat[:, :a].reshape(lead + (a,)), hcat[:, a].reshape(lead)
 
 
 def train_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor

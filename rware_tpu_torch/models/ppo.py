@@ -1,0 +1,104 @@
+"""The clipped-PPO loss and the clip + Adam step on flat parameter vectors:
+what the learners of :mod:`rware_tpu_torch.models.ippo` and
+:mod:`rware_tpu_torch.models.ippo_fused` and the plain versions of the PPO
+kernels (:mod:`rware_tpu_torch.ops.fused_update`) share.
+
+The optimizer is optax's ``chain(clip_by_global_norm(max_grad_norm),
+adam(lr, eps=1e-5))`` written as the fused update kernel writes it
+(``rware_tpu/ops/pallas_update.py:1014-1033``): ``g * scale`` after the
+global-norm clip, then Adam with the bias corrections ``1 / (1 - b^t)``
+multiplied in.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from rware_tpu_torch.models.networks import BlockDims, train_forward
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
+METRIC_KEYS = ("pg_loss", "v_loss", "entropy", "approx_kl")
+
+
+class LossCoefs(NamedTuple):
+    """The loss's coefficients; an ``IPPOConfig`` serves as well."""
+
+    clip_eps: float = 0.2
+    vf_coef: float = 0.5
+    ent_coef: float = 0.01
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam moments in the flat parameter layout; ``count`` is the optax
+    count (steps taken), which the lr schedule reads too."""
+
+    count: int
+    mu: torch.Tensor
+    nu: torch.Tensor
+
+
+def clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, target,
+                      advstats: Optional[torch.Tensor] = None):
+    """The clipped-PPO objective (surrogate, clipped value loss, entropy
+    bonus) from policy logits and values of any source; returns
+    ``(total, metrics)`` with the metrics as means.  ``cfg`` holds
+    ``clip_eps``, ``vf_coef`` and ``ent_coef``.
+
+    ``advstats`` [mean, 1/std] normalises the advantages as the fused
+    kernels do; None takes the mean and population std of ``adv`` itself."""
+    if advstats is None:
+        advn = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    else:
+        advn = (adv - advstats[0]) * advstats[1]
+    logp_all = torch.log_softmax(logits, dim=-1)
+    logp = logp_all.gather(-1, action.long()[..., None])[..., 0]
+    ratio = torch.exp(logp - old_logp)
+    pg1 = ratio * advn
+    pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * advn
+    pg_loss = -torch.minimum(pg1, pg2).mean()
+    v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
+    v_loss = 0.5 * torch.maximum((value - target) ** 2, (v_clipped - target) ** 2).mean()
+    entropy = (-(torch.exp(logp_all) * logp_all).sum(-1)).mean()
+    total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
+    with torch.no_grad():
+        approx_kl = ((ratio - 1) - (logp - old_logp)).mean()
+    metrics = {"pg_loss": pg_loss.detach(), "v_loss": v_loss.detach(),
+               "entropy": entropy.detach(), "approx_kl": approx_kl}
+    return total, metrics
+
+
+def ppo_loss_native(cfg, dims: BlockDims, params: torch.Tensor, batch,
+                    advstats: Optional[torch.Tensor] = None):
+    """Clipped-PPO loss on a ``(T, B, N, ...)`` minibatch ``(obs, action,
+    old_logp, old_value, adv, target)``; ``advstats`` as in
+    :func:`clipped_ppo_terms`.  Returns (total, metrics)."""
+    obs, action, old_logp, old_value, adv, target = batch
+    logits, value = train_forward(dims.split(params), obs)
+    return clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, target,
+                             advstats)
+
+
+def loss_grads(loss_fn: Callable, params: torch.Tensor):
+    """(grads, metrics) of ``loss_fn(params) -> (total, metrics)``."""
+    with torch.enable_grad():
+        p = params.detach().requires_grad_(True)
+        total, metrics = loss_fn(p)
+        (grads,) = torch.autograd.grad(total, p)
+    return grads, metrics
+
+
+def clip_adam(params, grads, mu, nu, hyper: torch.Tensor, max_grad_norm: float):
+    """One global-norm clip + Adam step on flat tensors with the hyper row
+    ``[lr_t, bc1, bc2]``; returns new (params, mu, nu)."""
+    gn = torch.sqrt((grads * grads).sum())
+    scale = torch.where(gn >= max_grad_norm, max_grad_norm / torch.clamp(gn, min=1e-30),
+                        torch.ones_like(gn))
+    g = grads * scale
+    mu = ADAM_B1 * mu + (1.0 - ADAM_B1) * g
+    nu = ADAM_B2 * nu + (1.0 - ADAM_B2) * g * g
+    lr, bc1, bc2 = hyper[0], hyper[1], hyper[2]
+    params = params - lr * (mu * bc1) / (torch.sqrt(nu * bc2) + ADAM_EPS)
+    return params, mu, nu

@@ -3,7 +3,7 @@
 * :class:`FusedPPOGrads` replaces
   ``rware_tpu/ops/pallas_update.py::build_fused_ppo_grads`` in zero-copy mode
   (no message head): the gradient of the clipped-PPO loss of
-  :func:`rware_tpu_torch.models.ippo_fused.ppo_loss_native` over one
+  :func:`rware_tpu_torch.models.ppo.ppo_loss_native` over one
   minibatch window — rows ``(start + t) % T_full``, ``t < T_mb``, of the
   ``(T_full, B, N, ...)`` trajectory, read in place — plus the window's four
   metric sums.
@@ -25,8 +25,14 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from rware_tpu_torch.models.ippo import METRIC_KEYS, IPPOConfig, clip_adam, loss_grads
 from rware_tpu_torch.models.networks import BlockDims
+from rware_tpu_torch.models.ppo import (
+    METRIC_KEYS,
+    LossCoefs,
+    clip_adam,
+    loss_grads,
+    ppo_loss_native,
+)
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 SMEM_PER_SM = 233472
@@ -92,7 +98,7 @@ class FusedPPOGrads:
                              f"and at most {HEAD_ROWS - 1} actions")
         self.dims = dims
         self.t_mb = t_mb
-        self.cfg = IPPOConfig(clip_eps=clip_eps, vf_coef=vf_coef, ent_coef=ent_coef)
+        self.cfg = LossCoefs(clip_eps, vf_coef, ent_coef)
         # dense_0's weights stay in shared memory where they fit (up to
         # sensor range 4 at hidden (128, 128)); else they are read from
         # device memory
@@ -134,8 +140,6 @@ class FusedPPOGrads:
     def plain(self, params, data, start, advstats: Optional[torch.Tensor] = None):
         """The plain PyTorch version: autograd of ``ppo_loss_native`` on the
         window, with the kernel's rounding in the tanh backward."""
-        from rware_tpu_torch.models.ippo_fused import ppo_loss_native
-
         self.check(params, data)
         if advstats is None:
             advstats = window_advstats(data[4], start, self.t_mb)

@@ -32,6 +32,7 @@ from rware_tpu_torch.models import ippo
 from rware_tpu_torch.models.ippo_fused import ppo_loss_native
 from rware_tpu_torch.models.networks import (
     BlockDims,
+    apply_forward,
     arrays_to_params,
     pack_arrays,
     params_to_arrays,
@@ -110,6 +111,24 @@ def test_gae_matches_jax():
         jnp.asarray(done.reshape(T, 1, RB, LANE).astype(np.int32)),
         jnp.asarray(last.reshape(RB, LANE, N).transpose(2, 0, 1)))
     np.testing.assert_allclose(to_native(adv.numpy()), np.asarray(nadv), atol=1e-6)
+
+
+def test_bootstrap_value_follows_flax_apply():
+    """``last_values`` (the bootstrap value of GAE) against flax's
+    ``model.apply``, with the biases moved off zero as training moves them:
+    flax rounds the product and then the bf16 sum with the bias."""
+    rng = np.random.default_rng(3)
+    params = jax.tree.map(
+        lambda x: np.asarray(x) + 0.05 * rng.standard_normal(x.shape).astype(np.float32),
+        flax_params(4))
+    obs = rng.standard_normal((B, N, L)).astype(np.float32)
+    jlogits, jvalue = jit_bf16_exact(FlaxActorCritic(n_actions=5).apply, params, obs)
+    theta = params_from_flax(params)
+    logits, value = apply_forward(DIMS.split(theta), torch.from_numpy(obs))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=1e-5)
+    np.testing.assert_allclose(value.numpy(), np.asarray(jvalue), atol=1e-5)
+    np.testing.assert_array_equal(ippo.last_values(DIMS, theta, torch.from_numpy(obs)).numpy(),
+                                  value.numpy())
 
 
 def test_ppo_loss_native_matches_jax(case):

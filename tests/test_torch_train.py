@@ -1,14 +1,16 @@
 """The slice as a whole: one update of the port's fused learner against the
 JAX package's ``build_pallas_train_step(interpret=True,
 deterministic_collect=True)``, from the same env states, parameters and
-optimizer state, with the JAX update's window starts injected; and the
-port's ``train`` / ``evaluate`` entry points on the CPU.
+optimizer state, with the JAX update's window starts injected; several
+chained updates of both, each carrying its own runner across episode ends;
+and the port's ``train`` / ``evaluate`` entry points on the CPU.
 """
 import jax
 import numpy as np
 import pytest
 import torch
 
+import rware_tpu
 import rware_tpu_torch
 from rware_tpu.models import IPPOConfig as JaxConfig
 from rware_tpu.models import ippo as jax_ippo
@@ -20,11 +22,20 @@ from rware_tpu_torch.convert import adam_state_from_optax, params_from_flax
 from rware_tpu_torch.models import ActorCritic, ippo
 from rware_tpu_torch.models.ippo_fused import build_fused_train_step
 from rware_tpu_torch.models.networks import BlockDims
-from tests.torch_ref import jit_bf16_exact, make_pair, to_port
+from tests.torch_ref import (
+    ALL_FIELDS,
+    assert_fields_equal,
+    compile_bf16_exact,
+    jit_bf16_exact,
+    make_pair,
+    to_port,
+)
 
 torch.set_num_threads(1)
 
 T_LEN, EPOCHS, MINIBATCHES = 8, 2, 2
+# chained updates: episodes of MAX_STEPS end inside the 2nd and 3rd updates
+N_UPDATES, MAX_STEPS = 3, 12
 
 
 @pytest.fixture(scope="module")
@@ -109,6 +120,67 @@ def test_update_moved_params_and_runner_is_new(step_pair):
     assert float((new.params - runner.params).abs().max()) > 0
     assert runner.update_idx == 0 and runner.opt_state.count == 0  # the input is untouched
     assert step_pair["step"].update_phase.launches == 0  # CPU: the plain version
+
+
+@pytest.fixture(scope="module")
+def chained_pair():
+    """N_UPDATES updates of each learner, each carrying its own runner (env
+    states, observations, parameters, optimizer state, update index) from
+    one update to the next; only the window starts go from JAX to the port.
+    """
+    jenv, env = make_pair(rware_tpu.make("rware-tiny-2ag-v2", max_steps=MAX_STEPS).config)
+    jcfg = JaxConfig(n_envs=ENV_BLOCK, rollout_len=T_LEN, epochs=EPOCHS,
+                     minibatches=MINIBATCHES)
+    jrunner, model, tx = jax_native.init_pallas_runner(jenv, jcfg, jax.random.key(1))
+    ts = compile_bf16_exact(
+        jax_native.build_pallas_train_step(jenv, model, tx, jcfg, interpret=True,
+                                           deterministic_collect=True), jrunner)
+    cfg = ippo.IPPOConfig(n_envs=ENV_BLOCK, rollout_len=T_LEN, epochs=EPOCHS,
+                          minibatches=MINIBATCHES)
+    runner = ippo.RunnerState(
+        params=params_from_flax(jax.tree.map(np.asarray, jrunner.params)),
+        opt_state=adam_state_from_optax(jax.tree.map(np.asarray, jrunner.opt_state)),
+        env_states=to_port(jrunner.env_states), obs=None, generator=torch.Generator(),
+        update_idx=0, seed=0)
+    step = build_fused_train_step(env, BlockDims(env.config.flattened_obs_length, 128, 128, 5),
+                                  cfg, deterministic_collect=True)
+    history = []
+    for _ in range(N_UPDATES):
+        k_perm = jax.random.split(jrunner.key, 2)[1]
+        starts = jax_native.phase_window_starts(
+            jcfg, T_LEN, jax_time_block(T_LEN // MINIBATCHES), k_perm)
+        jrunner, jmetrics = ts(jrunner)
+        runner, metrics = step(runner, torch.from_numpy(np.array(starts)).to(torch.int64))
+        history.append((jrunner, jmetrics, runner, metrics))
+    return cfg, history
+
+
+def test_chained_updates_cross_episode_ends(chained_pair):
+    _, history = chained_pair
+    done = [int(h[3]["episodes_done"]) for h in history]
+    assert done == [int(h[1]["episodes_done"]) for h in history]
+    assert done[0] == 0 and min(done[1:]) == ENV_BLOCK, done
+
+
+@pytest.mark.parametrize("u", range(N_UPDATES))
+def test_chained_update_matches_jax(chained_pair, u):
+    """After each update: env states and observations equal, parameters
+    within the K3 bounds, optimizer count and update index equal, metrics
+    within rtol 1e-2."""
+    cfg, history = chained_pair
+    jrunner, jmetrics, runner, metrics = history[u]
+    assert_fields_equal(runner.env_states, jrunner.env_states, ALL_FIELDS)
+    np.testing.assert_array_equal(runner.obs.float().numpy(),
+                                  np.asarray(jrunner.obs, dtype=np.float32))
+    p = cfg.epochs * cfg.minibatches
+    want = params_from_flax(jax.tree.map(np.asarray, jrunner.params))
+    np.testing.assert_allclose(runner.params.numpy(), want.numpy(), atol=0.05 * cfg.lr * p,
+                               rtol=1e-3)
+    assert runner.opt_state.count == int(jrunner.opt_state[1][0].count) == p * (u + 1)
+    assert runner.update_idx == int(jrunner.update_idx) == u + 1
+    for k, v in metrics.items():
+        np.testing.assert_allclose(float(v), float(jmetrics[k]), rtol=1e-2, atol=1e-6,
+                                   err_msg=k)
 
 
 def test_train_and_evaluate_entry_points(tmp_path):

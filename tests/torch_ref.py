@@ -75,10 +75,14 @@ def cpu_generator(seed=0):
     return torch.Generator().manual_seed(seed)
 
 
-def jit_bf16_exact(fn, *args):
-    """``jax.jit(fn)(*args)`` compiled without XLA's excess precision, so
-    the JAX side rounds to bf16 wherever its code casts (by default XLA on
-    the CPU may keep a bf16 intermediate in float32)."""
-    compiled = jax.jit(fn).lower(*args).compile(
+def compile_bf16_exact(fn, *args):
+    """``jax.jit(fn)`` compiled for ``args`` without XLA's excess precision,
+    so the JAX side rounds to bf16 wherever its code casts (by default XLA
+    on the CPU may keep a bf16 intermediate in float32)."""
+    return jax.jit(fn).lower(*args).compile(
         compiler_options={"xla_allow_excess_precision": False})
-    return compiled(*args)
+
+
+def jit_bf16_exact(fn, *args):
+    """``fn(*args)`` through :func:`compile_bf16_exact`."""
+    return compile_bf16_exact(fn, *args)(*args)
