@@ -31,10 +31,34 @@ Phases, one line each:
    warm-up with launch counters reset before and read after, the time of an
    update split into collect (K2a), GAE and last value, and update phase
    (K3), one update of the per-pass path (K4 and the optimizer), and each
-   PPO kernel timed and compared at that shape beside its plain version.
+   PPO kernel timed and compared at that shape beside its plain version;
+9. the critic-values kernel (K6) and the MAPPO gradient kernel (K5, with and
+   without the actor) against their plain versions: random data on tiny-2ag,
+   small-4ag, sensor range 3 and tiny-16ag (whose critic dense_0 is read from
+   device memory) at B=1000, windows that wrap; values within 2e-2 (mean
+   1e-4), gradients within 1e-2 of each block's largest |plain|, metrics
+   within rtol 1e-3; the actor's local value head exactly zero; two launches
+   bit-equal;
+10. the whole-MAPPO-phase kernel (K7) against its plain version: E=4, M=4,
+    B=4096, T=16; both parts' parameters within 0.05 * lr * P, moments within
+    2e-2 of each block's largest |plain|, metrics within rtol 1e-2; two
+    launches bit-equal;
+11. the MAPPO training main path at full width through
+    ``rware_tpu_torch.models.mappo.build_mappo_train_step`` on an env made
+    with ``make``'s default device (the card): tiny-2ag, B=16,384, T=128,
+    E=4, M=4, actor and critic hidden (128, 128), with ``fused_critic_phase``
+    (K7) and without (K5 per pass), each three updates after one warm-up with
+    launch counters reset before and read after; the time of an update split
+    into collect (K2a), critic values (K6), GAE and bootstrap, and update
+    phase; K5, K6 and K7 timed and compared at that shape beside their plain
+    versions.
 
-Then the card's name and power limit, one JSON line describing each kernel,
-and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
+Then the card's name and power limit, one JSON line describing each kernel
+(its time beside its plain version's and beside ``bound_ms``, the least time
+the card could take: the larger of the bytes the function must move once over
+the memory rate and its operations over the peak rate of their type; no
+single PyTorch call computes any of these functions, so ``library_ms`` is
+null), and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
 and the script exits non-zero without that line.
 
 Usage: python3 chip_smoke.py
@@ -68,8 +92,95 @@ K2_CONFIGS = (
 # shared memory); the others keep them in shared memory.
 K4_CONFIGS = ("rware-tiny-2ag-v2", "rware-tiny-16ag-v2", "rware-3s-tiny-2ag-v2",
               "rware-5s-tiny-2ag-v2")
+VALUE_MEAN_ATOL = 1e-4  # K6: mean |value diff|; a bf16 step of a hidden unit is rare
 GRAD_FRAC = 1e-2  # of each block's largest |plain gradient|
 MOMENT_FRAC = 2e-2  # of each block's largest |plain moment|
+K5_CONFIGS = ("rware-tiny-2ag-v2", "rware-small-4ag-v2", "rware-3s-tiny-2ag-v2",
+              "rware-tiny-16ag-v2")
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).
+PEAK_BYTES = 3.35e12  # device memory, bytes/s
+PEAK_BF16 = 989e12  # tensor cores, FLOP/s on bf16 values
+PEAK_F32 = 67e12  # FP32 FLOP/s outside the tensor cores
+# The data sheet has no 32-bit integer row: integer work is charged at the
+# FP32 instruction rate (a multiply-add counts as two FLOPs, an integer
+# operation as one instruction).
+PEAK_INT32 = PEAK_F32 / 2
+
+
+def bound(n_bytes, bf16_flops=0.0, f32_flops=0.0, int_ops=0.0):
+    """(bound_ms, bound_by): the least time the card could take for work of
+    ``n_bytes`` moved once and the given operations, and which of the two
+    limits it."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = bf16_flops / PEAK_BF16 + f32_flops / PEAK_F32 + int_ops / PEAK_INT32
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mlp_flops(k0, h1, h2, heads, samples, train):
+    """(bf16 FLOPs, f32 FLOPs) of the two-hidden-layer MLP of the kernels on
+    ``samples`` inputs of ``k0`` features: the hidden layers' products are on
+    bf16 values, the ``heads`` columns in float32.  ``train`` adds the
+    backward to the first hidden layer (dh2 = dcat Wc^T, dh1 = dz2 W1^T) and
+    the three weight-gradient products."""
+    hidden, head = k0 * h1 + h1 * h2, h2 * heads
+    bf, f32 = hidden, head
+    if train:
+        bf += h1 * h2 + hidden
+        f32 += 2 * head
+    return 2.0 * samples * bf, 2.0 * samples * f32
+
+
+def env_int_ops(env, n_steps, philox_blocks):
+    """A floor on the integer operations of ``n_steps`` env steps: about 100
+    per Philox4x32-10 block drawn (ten rounds of two wide multiplies, xors and
+    key bumps) and about 8 per (agent, agent) and (agent, shelf) pair of the
+    resolver and the shelf scans."""
+    n, s = env.n_agents, env.layout.n_shelves
+    return float(n_steps) * (100 * philox_blocks + 8 * n * (n + s))
+
+
+def tensor_bytes(*tensors):
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def state_bytes(states):
+    from rware_tpu_torch.core.state import state_field_names
+
+    return tensor_bytes(*(getattr(states, f) for f in state_field_names()))
+
+
+def ppo_bound(dims, cdims, data, t_mb, n_passes, whole_phase, with_actor=True):
+    """``bound`` of the PPO kernels on the trajectory ``data``: ``n_passes``
+    windows of ``t_mb`` rows for the actor ``dims`` (unless None or not
+    ``with_actor``) and the critic ``cdims`` (unless None).  A gradient kernel
+    reads its window once and moves parameters in and gradients out; a whole
+    phase reads the whole trajectory once and moves parameters and both
+    moments in and out."""
+    t_full, b, n = data[1].shape
+    rows = t_full if whole_phase else t_mb
+    n_params = (dims.n_params if with_actor and dims is not None else 0) \
+        + (cdims.n_params if cdims is not None else 0)
+    n_bytes = tensor_bytes(*data) * rows / t_full + 4.0 * n_params * (6 if whole_phase else 2) \
+        + 16.0 * n_passes
+    bf = f32 = 0.0
+    if with_actor and dims is not None:
+        # MAPPO's actor has no value column in its loss
+        heads = dims.n_actions + (cdims is None)
+        a_bf, a_f32 = mlp_flops(dims.obs_len, dims.h1, dims.h2, heads, t_mb * b * n, True)
+        bf, f32 = bf + a_bf, f32 + a_f32
+    if cdims is not None:
+        c_bf, c_f32 = mlp_flops(cdims.joint_len, cdims.h1, cdims.h2, n, t_mb * b, True)
+        bf, f32 = bf + c_bf, f32 + c_f32
+    return bound(n_bytes, n_passes * bf, n_passes * f32)
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms_by):
+    """One entry of the ``kernels`` line.  ``library_ms`` is null: no single
+    PyTorch call computes any of these functions."""
+    return {"name": name, "route": "cuda", "source": f"rware_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
+            "library_ms": None}
 
 
 def log(msg: str) -> None:
@@ -283,6 +394,114 @@ def compare_k3(dev, b, t_full, epochs, minibatches, seed, data=None, dims=None, 
     return k_ms, plain_ms, err
 
 
+def value_head_grad(dims, agrads):
+    """The largest |gradient| of the actor's local value head (its column of
+    the head block and its bias)."""
+    blocks = dims.split(agrads)
+    return max(float(blocks[4][:, dims.n_actions].abs().max()),
+               float(blocks[5][0, dims.n_actions].abs()))
+
+
+def compare_k6(dev, cdims, cparams, obs):
+    """K6 kernel vs plain on ``obs``; returns (k6, max |value diff|)."""
+    import torch
+    from rware_tpu_torch.ops.fused_mappo import build_fused_critic_values
+
+    k6 = build_fused_critic_values(cdims)
+    kv = k6(cparams, obs)
+    pv = k6.plain(cparams, obs)
+    torch.cuda.synchronize()
+    diff = (kv - pv).abs()
+    err, mean = float(diff.max()), float(diff.mean())
+    require(tuple(kv.shape) == tuple(obs.shape[:3]) and bool(torch.isfinite(kv).all()),
+            "K6: wrong shape or non-finite values")
+    require(err <= VALUE_LOGP_ATOL and mean <= VALUE_MEAN_ATOL,
+            f"K6: values differ by max {err}, mean {mean}")
+    return k6, err
+
+
+def compare_k5(env_id, dev, b, t_full, t_mb, starts, seed):
+    """K6, and K5 with and without the actor, vs their plain versions at each
+    window start; returns (k5, max |value diff|, max |grad diff|)."""
+    import torch
+    from rware_tpu_torch.ops.fused_mappo import build_fused_mappo_grads
+    from rware_tpu_torch.testing import random_mappo_case
+
+    dims, cdims, params, data = random_mappo_case(env_id, b, t_full, seed, dev)
+    _, v_err = compare_k6(dev, cdims, params["critic"], data[0])
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01)
+    k5 = build_fused_mappo_grads(dims, cdims, t_mb, **kw)
+    k5c = build_fused_mappo_grads(None, cdims, t_mb, with_actor=False, **kw)
+    cdata = (data[0], data[3], data[5])
+    n = t_mb * b * cdims.n_agents
+    err = 0.0
+    for start in starts:
+        what = f"K5 {env_id} start {start}"
+        kg, ks = k5(params, data, start)
+        kg2, ks2 = k5(params, data, start)
+        pg, ps = k5.plain(params, data, start)
+        cg, cs = k5c(params["critic"], cdata, start)
+        cg2, cs2 = k5c(params["critic"], cdata, start)
+        pcg, pcs = k5c.plain(params["critic"], cdata, start)
+        torch.cuda.synchronize()
+        same = all(torch.equal(kg[k], kg2[k]) for k in kg) and torch.equal(ks, ks2) \
+            and torch.equal(cg, cg2) and torch.equal(cs, cs2)
+        require(same, f"{what}: two launches differ")
+        require(value_head_grad(dims, kg["actor"]) == 0.0 and
+                value_head_grad(dims, pg["actor"]) == 0.0,
+                f"{what}: the actor's local value head has a gradient")
+        err = max(err, check_blocks(dims, kg["actor"], pg["actor"], GRAD_FRAC, what + " actor"),
+                  check_blocks(cdims, kg["critic"], pg["critic"], GRAD_FRAC, what + " critic"),
+                  check_blocks(cdims, cg, pcg, GRAD_FRAC, what + " critic only"))
+        check_metric_sums(ks, ps, n, 1e-3, what)
+        check_metric_sums(cs, pcs, n, 1e-3, what + " critic only")
+        require(torch.equal(cg, kg["critic"]), f"{what}: critic-only gradient differs from the "
+                "combined launch's")
+    return k5, v_err, err
+
+
+def compare_k7(dev, b, t_full, epochs, minibatches, seed, data=None, dims=None, cdims=None,
+               params=None):
+    """K7 kernel vs plain on one update phase (random data, or ``data`` with
+    ``dims``, ``cdims`` and ``params``); returns (kernel ms, plain ms,
+    max |param diff|)."""
+    import torch
+    from rware_tpu_torch.models import ippo
+    from rware_tpu_torch.models.ippo_fused import phase_advstats, phase_window_starts
+    from rware_tpu_torch.ops.fused_mappo import build_fused_mappo_update_phase
+    from rware_tpu_torch.testing import random_mappo_case
+
+    if data is None:
+        dims, cdims, params, data = random_mappo_case("rware-tiny-2ag-v2", b, t_full, seed, dev)
+    cfg = ippo.IPPOConfig(epochs=epochs, minibatches=minibatches)
+    k7 = build_fused_mappo_update_phase(dims, cdims, t_full, epochs, minibatches, cfg.clip_eps,
+                                        cfg.vf_coef, cfg.ent_coef, cfg.max_grad_norm)
+    starts = phase_window_starts(cfg, t_full, k7.time_block,
+                                 torch.Generator().manual_seed(seed)).to(dev)
+    advstats = phase_advstats(data[4], starts, t_full // minibatches)
+    p = epochs * minibatches
+    hyper = ippo.adam_hyper(cfg, 0, p).to(dev)
+    zero = {k: torch.zeros_like(v) for k, v in params.items()}
+    args = (params, zero, zero, data, starts, advstats, hyper)
+    w, mu, nu, mets = k7(*args)
+    k_ms, (w2, mu2, nu2, mets2) = cuda_ms(lambda: k7(*args))
+    plain_ms, (pw, pmu, pnu, pmets) = cuda_ms(lambda: k7.plain(*args))
+    err = 0.0
+    for part, d in (("actor", dims), ("critic", cdims)):
+        same = all(torch.equal(a[part], c[part]) for a, c in ((w, w2), (mu, mu2), (nu, nu2)))
+        require(same and torch.equal(mets, mets2), f"K7 {part}: two launches differ")
+        perr = float((w[part] - pw[part]).abs().max())
+        require(perr <= 0.05 * cfg.lr * p,
+                f"K7 {part}: params differ by {perr} > {0.05 * cfg.lr * p}")
+        require(float((w[part] - params[part]).abs().max()) > 0, f"K7 {part}: params did not move")
+        check_blocks(d, mu[part], pmu[part], MOMENT_FRAC, f"K7 {part} mu")
+        check_blocks(d, nu[part], pnu[part], MOMENT_FRAC, f"K7 {part} nu")
+        err = max(err, perr)
+    check_metric_sums(mets, pmets, t_full // minibatches * data[1].shape[1] * data[1].shape[2],
+                      1e-2, "K7")
+    return k_ms, plain_ms, err
+
+
 def phase3(dev):
     """K1 against its plain version; returns the main shape's max |error|."""
     import torch
@@ -379,17 +598,22 @@ def phase5(dev, kind, card, k1_err, k2_err):
     log(f"phase 5 main path K2a tiny-2ag B={b2} T={t2} hidden (128, 128): {k2_ms:.3f} ms/launch = "
         f"{b2 * t2 / k2_ms * 1e3:.4g} env-steps/s (plain {k2_plain_ms:.1f} ms), "
         f"reward checksum {float(traj['reward'].sum())}, launches {launches} [{kind}, {card}]")
+    # K1 moves the state in and out and writes reward sums and counts; each
+    # step draws one Philox block per agent.  K2a also writes the trajectory
+    # and runs the policy on every agent; its Gumbel noise takes two blocks
+    # per agent.
+    n = env.n_agents
+    k1_bound = bound(2 * state_bytes(states) + tensor_bytes(chain[-1][1], chain[-1][2]),
+                     int_ops=env_int_ops(env, b1 * t1, n))
+    bf, f32 = mlp_flops(env.config.flattened_obs_length, 128, 128, 6, b2 * t2 * n, False)
+    k2_bound = bound(2 * state_bytes(states2) + tensor_bytes(*traj.values())
+                     + tensor_bytes(*policy.parameters()), bf, f32,
+                     env_int_ops(env, b2 * t2, 2 * n))
     return [
-        {"name": "fused_rollout", "route": "cuda",
-         "source": "rware_tpu_torch/csrc/fused_rollout.cu",
-         "replaces": "rware_tpu/ops/pallas_rollout.py:657",
-         "launches": launches["fused_rollout"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "fused_collect", "route": "cuda",
-         "source": "rware_tpu_torch/csrc/fused_collect.cu",
-         "replaces": "rware_tpu/ops/pallas_rollout.py:1798",
-         "launches": launches["fused_collect"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        kernel_entry("fused_rollout", "fused_rollout.cu", "rware_tpu/ops/pallas_rollout.py:657",
+                     launches["fused_rollout"], k1_err, k1_ms, k1_plain_ms, k1_bound),
+        kernel_entry("fused_collect", "fused_collect.cu", "rware_tpu/ops/pallas_rollout.py:1798",
+                     launches["fused_collect"], k2_err, k2_ms, k2_plain_ms, k2_bound),
     ]
 
 
@@ -484,16 +708,135 @@ def phase8(dev, kind, card, n_envs=16384, rollout_len=128):
     log(f"phase 8 kernels at the main shape: K4 {k4_ms:.3f} ms/launch (plain {k4_plain_ms:.1f} "
         f"ms, max_abs_err {k4_err}); K3 {k3_ms:.3f} ms/launch (plain {k3_plain_ms:.1f} ms, "
         f"params max_abs_err {k3_err}) [{kind}, {card}]")
+    t_mb = cfg.rollout_len // cfg.minibatches
     return [
-        {"name": "fused_ppo_grads", "route": "cuda",
-         "source": "rware_tpu_torch/csrc/fused_ppo_grads.cu",
-         "replaces": "rware_tpu/ops/pallas_update.py:293",
-         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms},
-        {"name": "fused_ppo_update_phase", "route": "cuda",
-         "source": "rware_tpu_torch/csrc/fused_ppo_update.cu",
-         "replaces": "rware_tpu/ops/pallas_update.py:901",
-         "launches": launches["fused_ppo_update_phase"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        kernel_entry("fused_ppo_grads", "fused_ppo_grads.cu", "rware_tpu/ops/pallas_update.py:293",
+                     k4_launches, k4_err, k4_ms, k4_plain_ms,
+                     ppo_bound(dims, None, dataset, t_mb, 1, False)),
+        kernel_entry("fused_ppo_update_phase", "fused_ppo_update.cu",
+                     "rware_tpu/ops/pallas_update.py:901", launches["fused_ppo_update_phase"],
+                     k3_err, k3_ms, k3_plain_ms,
+                     ppo_bound(dims, None, dataset, t_mb, n_passes, True)),
+    ]
+
+
+def phase9(dev, kind, card):
+    """K6 and K5 (with and without the actor) against their plain versions."""
+    for env_id in K5_CONFIGS:
+        k5, v_err, err = compare_k5(env_id, dev, 1000, 8, 4, (0, 3, 7), seed=21)
+        log(f"phase 9 K6, K5 {env_id} B=1000 T=8 window 4 at starts 0, 3, 7: values "
+            f"max_abs_err {v_err}; gradients (combined and critic-only) within {GRAD_FRAC} of "
+            f"each block, max_abs_err {err}; the actor's value head exactly 0; two launches "
+            f"bit-equal (critic tile {k5.tile}, its dense_0 in shared memory {k5.w0_smem}) "
+            f"[{kind}, {card}]")
+
+
+def phase10(dev, kind, card):
+    """K7 against its plain version."""
+    k_ms, plain_ms, err = compare_k7(dev, 4096, 16, 4, 4, seed=31)
+    log(f"phase 10 K7 tiny-2ag B=4096 T=16 E=4 M=4: both parts' params max_abs_err {err}, "
+        f"moments and metrics within bounds, two launches bit-equal; {k_ms:.3f} ms "
+        f"(plain {plain_ms:.1f} ms) [{kind}, {card}]")
+
+
+def phase11(dev, kind, card, n_envs=16384, rollout_len=128):
+    """The MAPPO training main path at full width; returns the K5, K6 and K7
+    entries."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ippo, mappo
+
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2")  # no device named: the card
+    require(env.device.type == "cuda", f"make's default device is {env.device}")
+    cfg = ippo.IPPOConfig(n_envs=n_envs, rollout_len=rollout_len, epochs=4, minibatches=4)
+    n_passes = cfg.epochs * cfg.minibatches
+    steps = cfg.n_envs * cfg.rollout_len
+    runner0, dims, cdims = mappo.init_mappo_runner(env, cfg, seed=0)
+    launches = {}
+    for phase in (True, False):
+        step = mappo.build_mappo_train_step(env, dims, cdims, cfg, fused_critic_phase=phase)
+        runner, _ = step(runner0)  # warm-up
+        torch.cuda.synchronize()
+        params0 = {k: v.clone() for k, v in runner.params.items()}
+        counted = {"fused_collect": step.collect, "fused_critic_values": step.critic_values,
+                   "fused_mappo_update_phase" if phase else "fused_mappo_grads":
+                   step.update_phase if phase else step.grads}
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        runs = []
+
+        def update():
+            nonlocal runner
+            runner, metrics = step(runner)
+            runs.append(metrics)
+
+        update_ms, _ = cuda_ms(update, repeats=3)
+        got = {k: w.launches for k, w in counted.items()}
+        require(min(got.values()) > 0, f"the MAPPO train step launched no kernel: {got}")
+        want = 3 * (1 if phase else n_passes)
+        require(list(got.values())[-1] == want, f"update kernels launched {got}, not {want}")
+        launches.update(got)
+        for metrics in runs:
+            for k, v in metrics.items():
+                require(bool(torch.isfinite(v.float())), f"MAPPO metric {k} is {float(v)}")
+        moved = {k: float((runner.params[k] - params0[k]).abs().max()) for k in params0}
+        require(min(moved.values()) > 0, f"the MAPPO train step did not move a part: {moved}")
+        require(value_head_grad(dims, runner.params["actor"] - runner0.params["actor"]) == 0.0,
+                "the actor's local value head moved")
+        rewards = [float(m["reward_per_env"]) for m in runs]
+        require(sum(rewards) > 0, f"no reward in three MAPPO updates: {rewards}")
+        last = {k: round(float(v), 5) for k, v in runs[-1].items()}
+        log(f"phase 11 MAPPO train step tiny-2ag B={cfg.n_envs} T={cfg.rollout_len} E=4 M=4 "
+            f"hidden (128, 128) fused_critic_phase={phase}: {update_ms:.3f} ms/update = "
+            f"{steps / update_ms * 1e3:.4g} env-steps/s over 3 updates, launches {got}, params "
+            f"moved {moved}, reward_per_env {rewards}, last metrics {last} [{kind}, {card}]")
+
+        # The same update, phase by phase.
+        collect_ms, (states, traj) = cuda_ms(lambda: step.rollout(runner))
+        k6_ms, values = cuda_ms(lambda: step.values(runner, traj))
+        gae_ms, (obs, adv, targets) = cuda_ms(
+            lambda: step.advantages(runner, states, traj, values))
+        dataset = (traj["obs"], traj["action"], traj["logp"], values, adv, targets)
+        phase_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+        log(f"phase 11 breakdown of one update (fused_critic_phase={phase}): collect (K2a) "
+            f"{collect_ms:.3f} ms, critic values (K6) {k6_ms:.3f} ms, GAE and bootstrap "
+            f"{gae_ms:.3f} ms, update phase ({'K7' if phase else 'K5 + optimizer'}, "
+            f"{n_passes} passes) {phase_ms:.3f} ms [{kind}, {card}]")
+
+    # Each MAPPO kernel at the main path's shapes, beside its plain version.
+    params, t_mb = runner.params, cfg.rollout_len // cfg.minibatches
+    k6 = step.critic_values
+    k6_ms, kv = cuda_ms(lambda: k6(params["critic"], traj["obs"]), repeats=3)
+    k6_plain_ms, _ = cuda_ms(lambda: k6.plain(params["critic"], traj["obs"]))
+    _, k6_err = compare_k6(dev, cdims, params["critic"], traj["obs"])
+    k5 = step.grads
+    k5(params, dataset, 0)
+    k5_ms, (kg, ks) = cuda_ms(lambda: k5(params, dataset, 0), repeats=3)
+    k5_plain_ms, (pg, ps) = cuda_ms(lambda: k5.plain(params, dataset, 0))
+    k5_err = max(check_blocks(dims, kg["actor"], pg["actor"], GRAD_FRAC, "K5 actor, main shape"),
+                 check_blocks(cdims, kg["critic"], pg["critic"], GRAD_FRAC,
+                              "K5 critic, main shape"))
+    require(value_head_grad(dims, kg["actor"]) == 0.0, "K5: the value head has a gradient")
+    check_metric_sums(ks, ps, t_mb * cfg.n_envs * env.n_agents, 1e-3, "K5 at the main shape")
+    k7_ms, k7_plain_ms, k7_err = compare_k7(dev, cfg.n_envs, cfg.rollout_len, cfg.epochs,
+                                            cfg.minibatches, 3, dataset, dims, cdims, params)
+    log(f"phase 11 kernels at the main shape: K6 {k6_ms:.3f} ms/launch (plain {k6_plain_ms:.1f} "
+        f"ms, max_abs_err {k6_err}); K5 {k5_ms:.3f} ms/launch (plain {k5_plain_ms:.1f} ms, "
+        f"max_abs_err {k5_err}); K7 {k7_ms:.3f} ms/launch (plain {k7_plain_ms:.1f} ms, params "
+        f"max_abs_err {k7_err}) [{kind}, {card}]")
+    bf, f32 = mlp_flops(cdims.joint_len, cdims.h1, cdims.h2, cdims.n_agents, steps, False)
+    k6_bound = bound(tensor_bytes(traj["obs"], kv) + 4.0 * cdims.n_params, bf, f32)
+    return [
+        kernel_entry("fused_mappo_grads", "fused_mappo_grads.cu",
+                     "rware_tpu/ops/pallas_update.py:1498", launches["fused_mappo_grads"],
+                     k5_err, k5_ms, k5_plain_ms, ppo_bound(dims, cdims, dataset, t_mb, 1, False)),
+        kernel_entry("fused_critic_values", "fused_critic_values.cu",
+                     "rware_tpu/ops/pallas_update.py:1759", launches["fused_critic_values"],
+                     k6_err, k6_ms, k6_plain_ms, k6_bound),
+        kernel_entry("fused_mappo_update_phase", "fused_mappo_update.cu",
+                     "rware_tpu/ops/pallas_update.py:1852",
+                     launches["fused_mappo_update_phase"], k7_err, k7_ms, k7_plain_ms,
+                     ppo_bound(dims, cdims, dataset, t_mb, n_passes, True)),
     ]
 
 
@@ -526,6 +869,9 @@ def main() -> int:
     phase6(dev, kind, card)
     phase7(dev, kind, card)
     kernels += phase8(dev, kind, card)
+    phase9(dev, kind, card)
+    phase10(dev, kind, card)
+    kernels += phase11(dev, kind, card)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

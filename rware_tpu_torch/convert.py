@@ -10,6 +10,11 @@
   optax state of ``chain(clip_by_global_norm, adam(...))`` (``count``,
   ``mu``, ``nu``, and the schedule's ``count`` when the lr anneals)  <->
   :class:`~rware_tpu_torch.models.ppo.AdamState`.
+* MAPPO: the flax ``CentralCritic`` pytree  <->  :class:`CentralCritic`
+  weights and the critic's flat vector
+  (:class:`~rware_tpu_torch.models.networks.CriticDims` layout; dense_0 keeps
+  flax's agent-major row order), and the split optimizer state
+  ``{"actor", "critic"}`` of ``make_mappo_optimizer``  <->  two ``AdamState``.
 
 Nothing here imports jax: the JAX side is handed over as numpy arrays.
 """
@@ -21,7 +26,14 @@ import numpy as np
 import torch
 
 from rware_tpu_torch.core.state import WarehouseState, state_field_names
-from rware_tpu_torch.models.networks import ActorCritic, BlockDims, pack_arrays
+from rware_tpu_torch.models.networks import (
+    ActorCritic,
+    BlockDims,
+    CentralCritic,
+    CriticDims,
+    arrays_to_critic,
+    pack_arrays,
+)
 from rware_tpu_torch.models.ppo import AdamState
 
 _STATE_DTYPES = {
@@ -116,21 +128,68 @@ def params_to_flax(flat: torch.Tensor, dims: BlockDims) -> Dict[str, Any]:
     }
 
 
-def adam_state_from_optax(opt_state: Any, device="cpu") -> AdamState:
+def critic_params_from_flax(params: Mapping[str, Any], device="cpu") -> torch.Tensor:
+    """The flat parameter vector of a flax CentralCritic params pytree (or of
+    an optax moment pytree of the same structure)."""
+    p = _tree(params)
+    blocks = [np.asarray(p[name][leaf]) for name in ("dense_0", "dense_1", "value")
+              for leaf in ("kernel", "bias")]
+    return pack_arrays([torch.from_numpy(np.array(b, dtype=np.float32)) for b in blocks]).to(device)
+
+
+def critic_params_to_flax(flat: torch.Tensor, cdims: CriticDims) -> Dict[str, Any]:
+    """The flax CentralCritic params pytree (numpy float32 leaves) of a flat vector."""
+    c0, cb0, c1, cb1, cv, cbv = (a.detach().cpu().numpy() for a in cdims.split(flat))
+    return {
+        "params": {
+            "dense_0": {"kernel": c0.copy(), "bias": cb0[0].copy()},
+            "dense_1": {"kernel": c1.copy(), "bias": cb1[0].copy()},
+            "value": {"kernel": cv.copy(), "bias": cbv[0].copy()},
+        }
+    }
+
+
+def central_critic_from_flax(params: Mapping[str, Any], device="cpu") -> CentralCritic:
+    """Build a :class:`CentralCritic` from a flax params pytree
+    (``{"params": {"dense_0", "dense_1", "value"}}``)."""
+    p = _tree(params)
+    joint, n = np.shape(p["dense_0"]["kernel"])[0], np.shape(p["value"]["kernel"])[1]
+    cdims = CriticDims(n, joint // n, *(np.shape(p[f"dense_{i}"]["kernel"])[1] for i in range(2)))
+    return arrays_to_critic(cdims.split(critic_params_from_flax(params))).to(device)
+
+
+def adam_state_from_optax(opt_state: Any, device="cpu", from_flax=params_from_flax) -> AdamState:
     """:class:`AdamState` of the optax state of the learners' optimizer
-    (``rware_tpu/models/ippo.py:241-246``), its leaves as numpy arrays."""
+    (``rware_tpu/models/ippo.py:241-246``), its leaves as numpy arrays;
+    ``from_flax`` flattens the moment pytrees."""
     adam = opt_state[1][0]
-    return AdamState(int(adam.count), params_from_flax(adam.mu, device),
-                     params_from_flax(adam.nu, device))
+    return AdamState(int(adam.count), from_flax(adam.mu, device), from_flax(adam.nu, device))
 
 
-def adam_state_to_optax(state: AdamState, dims: BlockDims, like: Any) -> Any:
+def mappo_opt_state_from_optax(opt_state: Mapping[str, Any], device="cpu") -> Dict[str, AdamState]:
+    """``{"actor", "critic"}`` :class:`AdamState` of the split optax state of
+    ``make_mappo_optimizer`` (``rware_tpu/models/mappo.py:120-150``)."""
+    return {"actor": adam_state_from_optax(opt_state["actor"], device),
+            "critic": adam_state_from_optax(opt_state["critic"], device,
+                                            critic_params_from_flax)}
+
+
+def mappo_opt_state_to_optax(state: Mapping[str, AdamState], dims: BlockDims,
+                             cdims: CriticDims, like: Mapping[str, Any]) -> Dict[str, Any]:
+    """The split optax state of ``state``, in the structure of ``like``."""
+    return {"actor": adam_state_to_optax(state["actor"], dims, like["actor"]),
+            "critic": adam_state_to_optax(state["critic"], cdims, like["critic"],
+                                          critic_params_to_flax)}
+
+
+def adam_state_to_optax(state: AdamState, dims, like: Any, to_flax=params_to_flax) -> Any:
     """The optax state of ``state``, in the structure of ``like`` (an optax
     state of the same optimizer); the schedule's count, where ``like`` has
-    one, advances with Adam's."""
+    one, advances with Adam's.  ``to_flax(flat, dims)`` rebuilds the moment
+    pytrees."""
     count = np.asarray(state.count, dtype=np.int32)
-    adam = like[1][0]._replace(count=count, mu=params_to_flax(state.mu, dims),
-                               nu=params_to_flax(state.nu, dims))
+    adam = like[1][0]._replace(count=count, mu=to_flax(state.mu, dims),
+                               nu=to_flax(state.nu, dims))
     sched = like[1][1]
     if "count" in getattr(sched, "_fields", ()):
         sched = sched._replace(count=count)

@@ -29,6 +29,16 @@ from rware_tpu_torch.core.engine import (
 from rware_tpu_torch.core.state import WarehouseState
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist.  Nothing
+    in the package picks the CPU for a caller who did not ask for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is available "
+                           "(pass device=\"cpu\" to run on the CPU)")
+    return dev
+
+
 def _bits(generator: torch.Generator, shape) -> torch.Tensor:
     """Raw uint32 draws (held in int64) from ``generator``."""
     return torch.randint(
@@ -38,9 +48,10 @@ def _bits(generator: torch.Generator, shape) -> torch.Tensor:
 
 
 class Warehouse:
-    """Batched warehouse environment for one static config on one device."""
+    """Batched warehouse environment for one static config on one device:
+    the card unless the caller names another (``device="cpu"``)."""
 
-    def __init__(self, config: Optional[WarehouseConfig] = None, device="cpu", **kwargs):
+    def __init__(self, config: Optional[WarehouseConfig] = None, device="cuda", **kwargs):
         if config is None:
             config = WarehouseConfig(**kwargs)
         elif kwargs:
@@ -48,7 +59,7 @@ class Warehouse:
         if config.msg_bits:
             raise NotImplementedError("message bits are not ported yet")
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.layout = config.compile_layout()
         self._obs_fn = build_obs_fn(config)
         self._reset_fn = build_reset_fn(config)

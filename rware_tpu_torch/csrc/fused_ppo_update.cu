@@ -22,12 +22,17 @@
 
 // Formulas of pallas_update.py:1014-1033, with the constants as float32
 // roundings of the Python doubles the plain version uses; products and sums
-// rounded one by one as torch's elementwise kernels round them.
+// rounded one by one as torch's elementwise kernels round them.  Block b
+// steps parts.part[b] with that part's own global norm.
 __global__ void __launch_bounds__(ADAM_THREADS)
-    ppo_clip_adam_kernel(float* __restrict__ params, float* __restrict__ mu,
-                         float* __restrict__ nu, const float* __restrict__ grads, long long n,
-                         const float* __restrict__ hyper, float max_grad_norm) {
+    ppo_clip_adam_kernel(AdamParts parts, const float* __restrict__ hyper, float max_grad_norm) {
   __shared__ float red[ADAM_THREADS];
+  const AdamPart& q = parts.part[blockIdx.x];
+  float* __restrict__ params = q.params;
+  float* __restrict__ mu = q.mu;
+  float* __restrict__ nu = q.nu;
+  const float* __restrict__ grads = q.grads;
+  const long long n = q.n;
   const int tid = threadIdx.x;
   float acc = 0.f;
   for (long long e = tid; e < n; e += ADAM_THREADS)
@@ -54,6 +59,12 @@ __global__ void __launch_bounds__(ADAM_THREADS)
   }
 }
 
+int ppo_clip_adam_launch(const AdamParts& parts, int n_parts, const float* hyper,
+                         float max_grad_norm, cudaStream_t stream) {
+  ppo_clip_adam_kernel<<<n_parts, ADAM_THREADS, 0, stream>>>(parts, hyper, max_grad_norm);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int rw_fused_ppo_update_phase(
     int L, int H1, int H2, int A, int T_full, int T_mb, int B, int N, float clip_eps,
     float vf_coef, float ent_coef, float inv_n, int tile, int grid, int smem, int w0_smem,
@@ -67,19 +78,19 @@ extern "C" int rw_fused_ppo_update_phase(
   const PpoData data = {(const __nv_bfloat16*)obs, (const int*)action, (const float*)logp,
                         (const float*)value, (const float*)adv, (const float*)target};
   const PpoScratch ws = {(__nv_bfloat16*)h1, (__nv_bfloat16*)h2, (__nv_bfloat16*)dz1,
-                         (__nv_bfloat16*)dz2, (float*)dcat, (float*)partial, (float*)part_mets};
+                         (__nv_bfloat16*)dz2, (float*)dcat, (float*)partial, (float*)part_mets,
+                         nullptr};
   const cudaStream_t st = (cudaStream_t)stream;
-  const long long n = ppo_offsets(d).n;
+  AdamParts parts = {};
+  parts.part[0] = {(float*)params, (float*)mu, (float*)nu, (const float*)grads,
+                   ppo_offsets(d).n};
   for (int p = 0; p < n_passes; ++p) {
-    const int err = ppo_grads_enqueue(d, (const int*)starts + p, (const float*)advstats + 2 * p,
-                                      data, (const float*)params, ws, (float*)grads,
-                                      (float*)mets + 4 * p, st);
+    int err = ppo_grads_enqueue(d, (const int*)starts + p, (const float*)advstats + 2 * p, data,
+                                (const float*)params, ws, (float*)grads, (float*)mets + 4 * p,
+                                st);
     if (err != 0) return err;
-    ppo_clip_adam_kernel<<<1, ADAM_THREADS, 0, st>>>((float*)params, (float*)mu, (float*)nu,
-                                                     (const float*)grads, n,
-                                                     (const float*)hyper + 3 * p, max_grad_norm);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    err = ppo_clip_adam_launch(parts, 1, (const float*)hyper + 3 * p, max_grad_norm, st);
+    if (err != 0) return err;
   }
   return 0;
 }

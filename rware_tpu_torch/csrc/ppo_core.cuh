@@ -1,6 +1,7 @@
 // Shared definitions of the clipped-PPO gradient kernels (K4,
-// fused_ppo_grads.cu) and the whole-update-phase entry point (K3,
-// fused_ppo_update.cu).
+// fused_ppo_grads.cu), the whole-update-phase entry point (K3,
+// fused_ppo_update.cu) and their MAPPO counterparts (K5 fused_mappo_grads.cu,
+// K6 fused_critic_values.cu, K7 fused_mappo_update.cu).
 //
 // Parameters, gradients and Adam moments are one flat float32 vector of the
 // six kernel-layout blocks of rware_tpu_torch/models/networks.py::BlockDims:
@@ -12,6 +13,14 @@
 //
 // A sample is one (t, b, n) of a minibatch window: rows (start + t) % T_full,
 // t < T_mb, of the (T_full, B, N, ...) trajectory, read in place.
+//
+// MAPPO's central critic has the same six blocks with other sizes,
+//   [C0 (N*L, CH1) | cb0 | C1 (CH1, CH2) | cb1 | Cv (CH2, N) | cbv (N)],
+// and a sample of it is one (t, b): the joint observation obs[t, b] is the
+// contiguous (N, L) rows of that env, which is the agent-major feature order
+// n * L + l of C0's rows.  So the critic is described by a PpoDims with
+// L = N*L, N = 1 and `heads` = the number of agents; its per-agent old values
+// and targets sit at [row * heads + n].
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,9 +33,12 @@
 #define PPO_TW 64        // weight-gradient output tile, rows and columns
 
 struct PpoDims {
-  int L, H1, H2, A;        // obs length, hidden widths, actions
-  int T_full, T_mb, B, N;  // trajectory length, window length, envs, agents
-  float clip_eps, vf_coef, ent_coef, inv_n;  // inv_n = 1 / (T_mb * B * N)
+  int L, H1, H2, A;        // input length, hidden widths, actions (actor)
+  int heads;               // head columns: A + 1 (actor) or the agents (critic)
+  int hc;                  // head rows kept per sample (>= heads)
+  int value_head;          // actor: the local value head takes part in the loss
+  int T_full, T_mb, B, N;  // trajectory length, window length, envs, agents per row
+  float clip_eps, vf_coef, ent_coef, inv_n;  // inv_n = 1 / (T_mb * B * agents)
   int tile;                // samples per tile of the per-sample kernel
   int grid;                // blocks of the per-sample kernel
   int smem;                // its dynamic shared memory, bytes
@@ -42,9 +54,10 @@ struct PpoData {  // the (T_full, B, N, ...) trajectory
 
 struct PpoScratch {
   __nv_bfloat16 *h1, *h2, *dz1, *dz2;  // (S, H) per sample
-  float* dcat;                         // (S, PPO_HC): [dlogits | dvalue | 0]
+  float* dcat;                         // (S, hc): [dlogits | dvalue | 0], or dvalue per agent
   float* partial;                      // (n_chunks, n_params)
   float* part_mets;                    // (grid, 4)
+  float* values;                       // K6 only: (T_full, B, agents) output
 };
 
 struct PpoOffsets {
@@ -53,7 +66,7 @@ struct PpoOffsets {
 
 static inline __host__ __device__ PpoOffsets ppo_offsets(const PpoDims& d) {
   PpoOffsets o;
-  const long long ac = d.A + 1;
+  const long long ac = d.heads;
   o.b0 = (long long)d.L * d.H1;
   o.w1 = o.b0 + d.H1;
   o.b1 = o.w1 + (long long)d.H1 * d.H2;
@@ -79,7 +92,43 @@ int ppo_grads_enqueue(const PpoDims& d, const int* start, const float* stats,
                       const PpoData& data, const float* params, const PpoScratch& ws,
                       float* grads, float* mets, cudaStream_t stream);
 
-// PpoDims from the flat C arguments shared by both entry points.
+// The pieces of that gradient, for callers that combine two networks (K5):
+// the actor's per-sample kernel (d.value_head = 0 leaves the local value
+// head out of loss and gradient: its dcat row is exactly zero); the three
+// weight-gradient products and their fixed-order reduction into `grads`, for
+// the activations that a per-sample kernel left in `ws`; and the metric sums
+// of one or two per-block partial buffers (b may be null).
+int ppo_actor_sample_launch(const PpoDims& d, const int* start, const float* stats,
+                            const PpoData& data, const float* params, const PpoScratch& ws,
+                            cudaStream_t stream);
+int ppo_wgrads_launch(const PpoDims& d, const int* start, const __nv_bfloat16* obs,
+                      const PpoScratch& ws, float* grads, cudaStream_t stream);
+int ppo_metrics_launch(const float* part_a, int n_a, const float* part_b, int n_b, float* mets,
+                       cudaStream_t stream);
+
+// One clip + Adam step of up to two parameter vectors, each with its own
+// global norm, from the hyper row [lr_t, 1/(1-b1^t), 1/(1-b2^t)] on the device.
+struct AdamPart {
+  float *params, *mu, *nu;
+  const float* grads;
+  long long n;
+};
+struct AdamParts {
+  AdamPart part[2];
+};
+int ppo_clip_adam_launch(const AdamParts& parts, int n_parts, const float* hyper,
+                         float max_grad_norm, cudaStream_t stream);
+
+// Enqueues the MAPPO gradients of one window (K5): the actor's (policy and
+// entropy terms, `da`) unless with_actor is 0, and the central critic's
+// (clipped value loss, `dc`), and mets = [sum obj, sum 0.5 max(e1^2, e2^2),
+// sum entropy, sum (ratio - 1) - log ratio] (critic only: [0, v, 0, 0]).
+int mappo_grads_enqueue(const PpoDims& da, const PpoDims& dc, int with_actor, const int* start,
+                        const float* stats, const PpoData& data, const float* aparams,
+                        const float* cparams, const PpoScratch& wsa, const PpoScratch& wsc,
+                        float* agrads, float* cgrads, float* mets, cudaStream_t stream);
+
+// PpoDims of the actor from the flat C arguments shared by the entry points.
 static inline PpoDims ppo_dims(int L, int H1, int H2, int A, int T_full, int T_mb, int B, int N,
                                float clip_eps, float vf_coef, float ent_coef, float inv_n,
                                int tile, int grid, int smem, int w0_smem, int chunk,
@@ -89,6 +138,9 @@ static inline PpoDims ppo_dims(int L, int H1, int H2, int A, int T_full, int T_m
   d.H1 = H1;
   d.H2 = H2;
   d.A = A;
+  d.heads = A + 1;
+  d.hc = PPO_HC;
+  d.value_head = 1;
   d.T_full = T_full;
   d.T_mb = T_mb;
   d.B = B;
@@ -103,5 +155,17 @@ static inline PpoDims ppo_dims(int L, int H1, int H2, int A, int T_full, int T_m
   d.w0_smem = w0_smem;
   d.chunk = chunk;
   d.n_chunks = n_chunks;
+  return d;
+}
+
+// PpoDims of the central critic (see the top of this file) from flat C
+// arguments: K0 = agents * obs length.
+static inline PpoDims critic_dims(int K0, int CH1, int CH2, int agents, int T_full, int T_mb,
+                                  int B, float clip_eps, float vf_coef, float inv_n, int tile,
+                                  int grid, int smem, int w0_smem, int chunk, int n_chunks) {
+  PpoDims d = ppo_dims(K0, CH1, CH2, 0, T_full, T_mb, B, 1, clip_eps, vf_coef, 0.f, inv_n, tile,
+                       grid, smem, w0_smem, chunk, n_chunks);
+  d.heads = agents;
+  d.hc = agents;
   return d;
 }

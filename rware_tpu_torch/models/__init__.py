@@ -1,4 +1,4 @@
-"""Policy networks."""
-from rware_tpu_torch.models.networks import ActorCritic, sample_action
+"""Policy and value networks."""
+from rware_tpu_torch.models.networks import ActorCritic, CentralCritic, sample_action
 
-__all__ = ["ActorCritic", "sample_action"]
+__all__ = ["ActorCritic", "CentralCritic", "sample_action"]

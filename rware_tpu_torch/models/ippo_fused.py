@@ -63,13 +63,14 @@ def phase_window_starts(cfg: IPPOConfig, t_full: int, tb: int,
 
 def ppo_update_epochs_native(cfg: IPPOConfig, params, opt_state: AdamState, dataset,
                              generator: torch.Generator, grads_fn,
-                             starts: Optional[torch.Tensor] = None):
+                             starts: Optional[torch.Tensor] = None, step_fn=optimizer_step):
     """E epochs x M minibatches, one optimizer step per pass.
 
     ``grads_fn(params, dataset, start) -> (grads, sums)`` takes the full
     trajectory and a window start (:class:`FusedPPOGrads`); it normalises
-    the advantages by each window's own mean and std.  Returns ((params,
-    opt_state), metrics)."""
+    the advantages by each window's own mean and std.  ``step_fn(cfg,
+    params, grads, opt_state) -> (params, opt_state)`` is the optimizer
+    step.  Returns ((params, opt_state), metrics)."""
     t_len = dataset[1].shape[0]
     if t_len % cfg.minibatches:
         raise ValueError(f"minibatches={cfg.minibatches} must divide rollout_len={t_len}")
@@ -80,7 +81,7 @@ def ppo_update_epochs_native(cfg: IPPOConfig, params, opt_state: AdamState, data
     per_pass = []
     for start in starts.tolist():
         grads, sums = grads_fn(params, dataset, start)
-        params, opt_state = optimizer_step(cfg, params, grads, opt_state)
+        params, opt_state = step_fn(cfg, params, grads, opt_state)
         per_pass.append(metric_means(sums, n))
     return (params, opt_state), mean_metrics(per_pass)
 

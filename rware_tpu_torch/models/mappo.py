@@ -1,0 +1,218 @@
+"""MAPPO: centralized-critic PPO on the fused kernels — the counterpart of
+``rware_tpu/models/mappo.py`` on its combined path (``fused_critic_update``).
+
+Decentralized shared-parameter actors (the MLP the fused collector K2a runs;
+its local value head is unused) and a :class:`~rware_tpu_torch.models.networks.
+CentralCritic` on the joint observation.  One update (``mappo.py:580-682``):
+
+1. K2a collects the trajectory with the actor's parameters;
+2. K6 (:class:`~rware_tpu_torch.ops.fused_mappo.FusedCriticValues`) gives the
+   critic's values of every stored step, in the kernels' rounding;
+3. the bootstrap value is the critic on the post-rollout joint observation
+   in flax's rounding (:func:`~rware_tpu_torch.models.networks.critic_apply_forward`);
+4. GAE on the critic's values;
+5. the update phase over ``(obs, action, logp, critic values, adv, target)``:
+   the whole-phase kernel K7, or E x M passes of K5 each followed by the split
+   optimizer step.
+
+Parameters and optimizer state are ``{"actor", "critic"}`` dicts of flat
+vectors and :class:`~rware_tpu_torch.models.ppo.AdamState`: each part has its
+own global-norm clip and Adam chain (``make_mappo_optimizer``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from rware_tpu_torch.core.env import Warehouse
+from rware_tpu_torch.models.ippo import (
+    IPPOConfig,
+    RunnerState,
+    adam_hyper,
+    collect_seed,
+    compute_gae,
+    optimizer_init,
+    optimizer_step,
+    policy_of,
+    update_metrics,
+)
+from rware_tpu_torch.models.ippo_fused import (
+    phase_advstats,
+    phase_window_starts,
+    ppo_update_epochs_native,
+)
+from rware_tpu_torch.models.networks import (
+    BlockDims,
+    CriticDims,
+    critic_apply_forward,
+    critic_to_arrays,
+    init_actor_critic,
+    init_central_critic,
+    joint_obs,
+    pack_arrays,
+    params_to_arrays,
+)
+from rware_tpu_torch.models.ppo import AdamState
+from rware_tpu_torch.ops.fused_mappo import (
+    build_fused_critic_values,
+    build_fused_mappo_grads,
+    build_fused_mappo_update_phase,
+)
+from rware_tpu_torch.ops.fused_rollout import build_fused_collect
+from rware_tpu_torch.ops.fused_update import metric_means
+
+PARTS = ("actor", "critic")
+
+__all__ = [
+    "MappoTrainStep", "build_mappo_train_step", "critic_last_values", "init_mappo_runner",
+    "mappo_optimizer_step", "mappo_update_phase_fused",
+]
+
+
+def init_mappo_runner(env: Warehouse, cfg: IPPOConfig, seed: int,
+                      hidden: Tuple[int, int] = (128, 128),
+                      critic_hidden: Tuple[int, int] = (128, 128)
+                      ) -> Tuple[RunnerState, BlockDims, CriticDims]:
+    """Actor and central-critic parameters (flax's default init: the actor
+    from ``seed``, the critic from the stream ``(seed, 1)``), the split
+    optimizer state and a fresh batch of ``cfg.n_envs`` env states on
+    ``env.device``; ``runner.params`` and ``runner.opt_state`` are
+    ``{"actor", "critic"}`` dicts."""
+    from rware_tpu_torch.parallel import batched_reset
+
+    l_obs, n = env.config.flattened_obs_length, env.n_agents
+    actor = init_actor_critic(l_obs, env.n_actions, hidden, seed)
+    critic = init_central_critic(n * l_obs, n, critic_hidden, (seed, 1))
+    params = {"actor": pack_arrays(params_to_arrays(actor)).detach().to(env.device),
+              "critic": pack_arrays(critic_to_arrays(critic)).detach().to(env.device)}
+    env_states, obs = batched_reset(env, seed, cfg.n_envs)
+    runner = RunnerState(
+        params=params, opt_state={k: optimizer_init(params[k]) for k in PARTS},
+        env_states=env_states, obs=obs, generator=torch.Generator().manual_seed(seed),
+        update_idx=0, seed=seed,
+    )
+    return runner, BlockDims.of(actor), CriticDims.of(critic)
+
+
+def critic_last_values(cdims: CriticDims, cparams: torch.Tensor, obs: torch.Tensor
+                       ) -> torch.Tensor:
+    """(B, N) bootstrap values of the observations (B, N, L) after the
+    rollout, by flax's ``critic.apply`` recipe (``mappo.py:604-607``)."""
+    with torch.no_grad():
+        return critic_apply_forward(cdims.split(cparams), joint_obs(obs))
+
+
+def mappo_optimizer_step(cfg: IPPOConfig, params, grads, opt_state: Dict[str, AdamState]):
+    """The split optimizer (``mappo.py:120-150``): each part is clipped by its
+    own global norm and takes its own Adam step."""
+    new = {k: optimizer_step(cfg, params[k], grads[k], opt_state[k]) for k in PARTS}
+    return {k: new[k][0] for k in PARTS}, {k: new[k][1] for k in PARTS}
+
+
+def mappo_update_phase_fused(cfg: IPPOConfig, params, opt_state: Dict[str, AdamState], dataset,
+                             generator: torch.Generator, update_fn,
+                             starts: Optional[torch.Tensor] = None):
+    """The whole update phase through ``update_fn``
+    (:class:`~rware_tpu_torch.ops.fused_mappo.FusedMappoUpdatePhase`): window
+    starts, advantage stats (from per-time-row moments) and Adam hyper rows
+    (from the actor's count, which drives both parts: ``mappo.py:1083-1098``)
+    are computed here, the kernel does the rest; both counts advance by P.
+    Returns ((params, opt_state), metrics)."""
+    action = dataset[1]
+    dev = action.device
+    t_full = action.shape[0]
+    mb_t = t_full // cfg.minibatches
+    n_passes = cfg.epochs * cfg.minibatches
+    if starts is None:
+        starts = phase_window_starts(cfg, t_full, update_fn.time_block, generator)
+    starts = torch.as_tensor(starts, device=dev).to(torch.int64)
+    advstats = phase_advstats(dataset[4], starts, mb_t)
+    hyper = adam_hyper(cfg, opt_state["actor"].count, n_passes).to(dev)
+    mu = {k: opt_state[k].mu for k in PARTS}
+    nu = {k: opt_state[k].nu for k in PARTS}
+    params, mu, nu, mets = update_fn(params, mu, nu, dataset, starts, advstats, hyper)
+    n = mb_t * action.shape[1] * action.shape[2]
+    metrics = {k: v.mean() for k, v in metric_means(mets, n).items()}
+    new_opt = {k: AdamState(opt_state[k].count + n_passes, mu[k], nu[k]) for k in PARTS}
+    return (params, new_opt), metrics
+
+
+class MappoTrainStep:
+    """``train_step(runner, starts=None) -> (runner, metrics)``; see
+    :func:`build_mappo_train_step`.  The phases are methods so that callers
+    can time them: :meth:`rollout`, :meth:`values`, :meth:`advantages`,
+    :meth:`update`."""
+
+    def __init__(self, env: Warehouse, dims: BlockDims, cdims: CriticDims, cfg: IPPOConfig,
+                 deterministic_collect: bool = False, fused_critic_phase: bool = False):
+        self.env, self.dims, self.cdims, self.cfg = env, dims, cdims, cfg
+        self.collect = build_fused_collect(env.config, cfg.rollout_len, (dims.h1, dims.h2),
+                                           deterministic=deterministic_collect)
+        self.critic_values = build_fused_critic_values(cdims)
+        self.grads = build_fused_mappo_grads(dims, cdims, cfg.rollout_len // cfg.minibatches,
+                                             cfg.clip_eps, cfg.vf_coef, cfg.ent_coef)
+        self.update_phase = None
+        if fused_critic_phase:
+            self.update_phase = build_fused_mappo_update_phase(
+                dims, cdims, cfg.rollout_len, cfg.epochs, cfg.minibatches, cfg.clip_eps,
+                cfg.vf_coef, cfg.ent_coef, cfg.max_grad_norm)
+        self._policy = None
+
+    def rollout(self, runner: RunnerState):
+        """(env_states, traj) of one collector launch with the actor's
+        parameters and this update's key."""
+        actor = runner.params["actor"]
+        self._policy = policy_of(self.dims, actor,
+                                 None if self._policy is None else self._policy.to(actor.device))
+        seed = collect_seed(runner.seed, runner.update_idx)
+        return self.collect(runner.env_states, self._policy, seed)
+
+    def values(self, runner: RunnerState, traj: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(T, B, N) values of the central critic over the stored trajectory."""
+        return self.critic_values(runner.params["critic"], traj["obs"])
+
+    def advantages(self, runner: RunnerState, env_states, traj, values):
+        """(obs after the rollout, advantages, targets) on the critic's values."""
+        obs = self.env._obs_fn(env_states)
+        last = critic_last_values(self.cdims, runner.params["critic"], obs)
+        adv, targets = compute_gae(self.cfg, traj["reward"], values, traj["done"], last)
+        return obs, adv, targets
+
+    def update(self, runner: RunnerState, dataset, starts: Optional[torch.Tensor] = None):
+        """((params, opt_state), metrics) of the E x M update passes."""
+        if self.update_phase is not None:
+            return mappo_update_phase_fused(self.cfg, runner.params, runner.opt_state, dataset,
+                                            runner.generator, self.update_phase, starts)
+        return ppo_update_epochs_native(self.cfg, runner.params, runner.opt_state, dataset,
+                                        runner.generator, self.grads, starts,
+                                        step_fn=mappo_optimizer_step)
+
+    def __call__(self, runner: RunnerState, starts: Optional[torch.Tensor] = None
+                 ) -> Tuple[RunnerState, dict]:
+        env_states, traj = self.rollout(runner)
+        values = self.values(runner, traj)
+        obs, adv, targets = self.advantages(runner, env_states, traj, values)
+        dataset = (traj["obs"], traj["action"], traj["logp"], values, adv, targets)
+        (params, opt_state), ppo = self.update(runner, dataset, starts)
+        new = dataclasses.replace(runner, params=params, opt_state=opt_state,
+                                  env_states=env_states, obs=obs,
+                                  update_idx=runner.update_idx + 1)
+        return new, update_metrics(self.cfg, traj, ppo)
+
+
+def build_mappo_train_step(env: Warehouse, dims: BlockDims, cdims: CriticDims, cfg: IPPOConfig,
+                           deterministic_collect: bool = False,
+                           fused_critic_phase: bool = False) -> MappoTrainStep:
+    """The MAPPO learner on the combined path of ``build_mappo_train_step``
+    (``mappo.py:192-235``): K2a collect, K6 critic values, GAE, then the
+    update phase.
+
+    ``fused_critic_phase`` runs all E x M passes for both parts and both
+    clip -> Adam chains in the K7 kernel; otherwise (default) each pass takes
+    the K5 gradients, then the split optimizer step.  ``starts`` of a call
+    overrides the (P,) window starts drawn from the runner's generator.  On a
+    CUDA runner every kernel runs on the card; on a CPU runner every wrapper
+    runs its plain version."""
+    return MappoTrainStep(env, dims, cdims, cfg, deterministic_collect, fused_critic_phase)

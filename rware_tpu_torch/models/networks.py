@@ -102,8 +102,21 @@ def sample_action(
 # ---------------------------------------------------------------------------
 
 
+class _FlatBlocks:
+    """Six ``(rows, cols)`` blocks (``shapes``) packed into one flat vector."""
+
+    @property
+    def n_params(self) -> int:
+        return sum(r * c for r, c in self.shapes)
+
+    def split(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """The six blocks as views of ``flat``."""
+        sizes = [r * c for r, c in self.shapes]
+        return [p.view(s) for p, s in zip(torch.split(flat, sizes), self.shapes)]
+
+
 @dataclasses.dataclass(frozen=True)
-class BlockDims:
+class BlockDims(_FlatBlocks):
     """Sizes of the six kernel-layout blocks of a two-layer ActorCritic
     (``ippo_pallas.py:340-355``): ``W0 (L, H1)``, ``b0 (1, H1)``,
     ``W1 (H1, H2)``, ``b1 (1, H2)``, ``Wc = [policy | value] (H2, A+1)``,
@@ -121,15 +134,6 @@ class BlockDims:
         ac = self.n_actions + 1
         return [(self.obs_len, self.h1), (1, self.h1), (self.h1, self.h2), (1, self.h2),
                 (self.h2, ac), (1, ac)]
-
-    @property
-    def n_params(self) -> int:
-        return sum(r * c for r, c in self.shapes)
-
-    def split(self, flat: torch.Tensor) -> List[torch.Tensor]:
-        """The six blocks as views of ``flat``."""
-        sizes = [r * c for r, c in self.shapes]
-        return [p.view(s) for p, s in zip(torch.split(flat, sizes), self.shapes)]
 
     @staticmethod
     def of(model: "ActorCritic") -> "BlockDims":
@@ -182,17 +186,22 @@ def init_actor_critic(obs_dim: int, n_actions: int = 5, hidden: Sequence[int] = 
     LeCun-normal (truncated at two deviations, unit variance after the
     truncation), biases zero.  The draws come from numpy's generator, so a
     seed gives the same parameters under every torch version."""
-    rng = np.random.default_rng(seed)
     model = ActorCritic(obs_dim, n_actions, hidden)
-    bound = math.erf(2.0 / math.sqrt(2.0))  # truncation at +-2 in erf units
-    with torch.no_grad():
-        for layer in list(model.dense) + [model.policy, model.value]:
-            std = 1.0 / math.sqrt(layer.weight.shape[1]) / 0.87962566103423978
-            u = torch.from_numpy(rng.uniform(-bound, bound, tuple(layer.weight.shape)))
-            w = torch.erfinv(u) * (std * math.sqrt(2.0))
-            layer.weight.copy_(w.clamp(-2 * std, 2 * std))
-            layer.bias.zero_()
+    _flax_dense_init(list(model.dense) + [model.policy, model.value],
+                     np.random.default_rng(seed))
     return model
+
+
+@torch.no_grad()
+def _flax_dense_init(layers, rng: np.random.Generator) -> None:
+    """flax ``Dense``'s default init of ``nn.Linear`` layers, drawn from ``rng``."""
+    bound = math.erf(2.0 / math.sqrt(2.0))  # truncation at +-2 in erf units
+    for layer in layers:
+        std = 1.0 / math.sqrt(layer.weight.shape[1]) / 0.87962566103423978
+        u = torch.from_numpy(rng.uniform(-bound, bound, tuple(layer.weight.shape)))
+        w = torch.erfinv(u) * (std * math.sqrt(2.0))
+        layer.weight.copy_(w.clamp(-2 * std, 2 * std))
+        layer.bias.zero_()
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -230,18 +239,33 @@ def apply_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor
     :func:`train_forward` once the biases are nonzero: there the f32 bias
     joins the f32 sum before the one rounding.  The learners' bootstrap
     value (``model.apply`` at ``ippo_pallas.py:612``) reads it."""
+    hcat = _apply_heads(arrays, obs)
+    a = hcat.shape[-1] - 1
+    return hcat[..., :a], hcat[..., a]
+
+
+def _apply_heads(arrays: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Two flax bf16 ``Dense`` + tanh layers and the float32 head block on
+    ``x`` (..., K): the head outputs (..., J)."""
     w0, b0, w1, b1, wc, bc = arrays
 
     def rnd(v):
         return v.to(torch.bfloat16).to(torch.float32)
 
-    lead = obs.shape[:-1]
-    h = rnd(obs.reshape(-1, obs.shape[-1]))
+    h = rnd(x.reshape(-1, x.shape[-1]))
     for w, b in ((w0, b0), (w1, b1)):
         h = rnd(torch.tanh(rnd(rnd(h @ rnd(w)) + rnd(b))))
-    hcat = h @ wc + bc
-    a = wc.shape[1] - 1
-    return hcat[:, :a].reshape(lead + (a,)), hcat[:, a].reshape(lead)
+    return (h @ wc + bc).reshape(x.shape[:-1] + (wc.shape[1],))
+
+
+def _train_heads(arrays: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """The ``_native_trunk`` recipe and the float32 head block on ``x``
+    (..., K), differentiable: the head outputs (..., J)."""
+    w0, b0, w1, b1, wc, bc = arrays
+    h = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).to(torch.float32)
+    h = _Bf16Tanh.apply(bf16_round(h @ bf16_round(w0) + b0))
+    h = _Bf16Tanh.apply(bf16_round(h @ bf16_round(w1) + b1))
+    return (h @ wc + bc).reshape(x.shape[:-1] + (wc.shape[1],))
 
 
 def train_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor
@@ -252,11 +276,112 @@ def train_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor
     The ``_native_trunk`` recipe: bf16 inputs and hidden weights, f32 sums
     (``torch.matmul`` on bf16-exact float32 values), the f32 bias added and
     the sum rounded to bf16, tanh rounded to bf16, f32 heads."""
-    w0, b0, w1, b1, wc, bc = arrays
-    lead = obs.shape[:-1]
-    x = obs.reshape(-1, obs.shape[-1]).to(torch.bfloat16).to(torch.float32)
-    h = _Bf16Tanh.apply(bf16_round(x @ bf16_round(w0) + b0))
-    h = _Bf16Tanh.apply(bf16_round(h @ bf16_round(w1) + b1))
-    hcat = h @ wc + bc
-    a = wc.shape[1] - 1
-    return hcat[:, :a].reshape(lead + (a,)), hcat[:, a].reshape(lead)
+    hcat = _train_heads(arrays, obs)
+    a = hcat.shape[-1] - 1
+    return hcat[..., :a], hcat[..., a]
+
+
+# ---------------------------------------------------------------------------
+# MAPPO's central critic.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CriticDims(_FlatBlocks):
+    """Sizes of the six blocks of a two-layer :class:`CentralCritic`, packed
+    in this order into one flat vector: ``C0 (N*L, CH1)``, ``cb0 (1, CH1)``,
+    ``C1 (CH1, CH2)``, ``cb1 (1, CH2)``, ``Cv (CH2, N)``, ``cbv (1, N)``.
+    ``C0``'s rows are in flax's agent-major order ``n * L + l``: the order
+    of ``obs[t, b]`` (N, L) flattened, so no permutation is needed."""
+
+    n_agents: int
+    obs_len: int
+    h1: int
+    h2: int
+
+    @property
+    def joint_len(self) -> int:
+        return self.n_agents * self.obs_len
+
+    @property
+    def shapes(self) -> List[Tuple[int, int]]:
+        return [(self.joint_len, self.h1), (1, self.h1), (self.h1, self.h2), (1, self.h2),
+                (self.h2, self.n_agents), (1, self.n_agents)]
+
+    @staticmethod
+    def of(model: "CentralCritic") -> "CriticDims":
+        if len(model.hidden) != 2:
+            raise ValueError("the learners take two hidden layers")
+        return CriticDims(model.n_agents, model.joint_dim // model.n_agents, *model.hidden)
+
+
+class CentralCritic(nn.Module):
+    """Centralized value function: joint obs (..., N*L) -> (..., N) float32
+    values, one per agent (the counterpart of the flax ``CentralCritic``,
+    in its rounding: :func:`critic_apply_forward`)."""
+
+    def __init__(self, joint_dim: int, n_agents: int, hidden: Sequence[int] = (128, 128)):
+        super().__init__()
+        if joint_dim % n_agents:
+            raise ValueError(f"joint_dim={joint_dim} is not a multiple of n_agents={n_agents}")
+        self.joint_dim = joint_dim
+        self.n_agents = n_agents
+        self.hidden = tuple(hidden)
+        widths = (joint_dim,) + self.hidden
+        self.dense = nn.ModuleList(
+            nn.Linear(widths[i], widths[i + 1]) for i in range(len(self.hidden))
+        )
+        self.value = nn.Linear(widths[-1], n_agents)
+
+    def forward(self, joint_obs: torch.Tensor) -> torch.Tensor:
+        return critic_apply_forward(critic_to_arrays(self), joint_obs)
+
+
+def critic_to_arrays(model: "CentralCritic") -> List[torch.Tensor]:
+    """The six :class:`CriticDims` blocks of ``model``."""
+    d0, d1 = model.dense
+    return [d0.weight.t(), d0.bias[None, :], d1.weight.t(), d1.bias[None, :],
+            model.value.weight.t(), model.value.bias[None, :]]
+
+
+@torch.no_grad()
+def arrays_to_critic(arrays: Sequence[torch.Tensor],
+                     model: Optional["CentralCritic"] = None) -> "CentralCritic":
+    """Copy the six blocks into ``model`` (a new one on the blocks' device
+    if None) and return it."""
+    c0, cb0, c1, cb1, cv, cbv = arrays
+    if model is None:
+        model = CentralCritic(c0.shape[0], cv.shape[1], (c0.shape[1], c1.shape[1])).to(c0.device)
+    layers = list(model.dense) + [model.value]
+    for layer, w, b in zip(layers, (c0, c1, cv), (cb0, cb1, cbv)):
+        layer.weight.copy_(w.t())
+        layer.bias.copy_(b[0])
+    return model
+
+
+def init_central_critic(joint_dim: int, n_agents: int, hidden: Sequence[int] = (128, 128),
+                        seed=0) -> "CentralCritic":
+    """A :class:`CentralCritic` with flax ``Dense``'s default init, drawn
+    from ``numpy.random.default_rng(seed)`` (see :func:`init_actor_critic`)."""
+    model = CentralCritic(joint_dim, n_agents, hidden)
+    _flax_dense_init(list(model.dense) + [model.value], np.random.default_rng(seed))
+    return model
+
+
+def joint_obs(obs: torch.Tensor) -> torch.Tensor:
+    """(..., N, L) per-agent observations -> (..., N*L) joint observation,
+    agent-major: a view, since each env's (N, L) rows are contiguous."""
+    return obs.reshape(obs.shape[:-2] + (obs.shape[-2] * obs.shape[-1],))
+
+
+def critic_train_forward(arrays: Sequence[torch.Tensor], joint: torch.Tensor) -> torch.Tensor:
+    """Differentiable critic forward in the kernels' rounding
+    (``pallas_update.py:1350-1366``): joint obs (..., N*L) -> (..., N)."""
+    return _train_heads(arrays, joint)
+
+
+def critic_apply_forward(arrays: Sequence[torch.Tensor], joint: torch.Tensor) -> torch.Tensor:
+    """The flax ``CentralCritic.__call__`` on the six blocks, in flax's
+    rounding (see :func:`apply_forward`); MAPPO's bootstrap value
+    (``critic.apply`` at ``mappo.py:604-607``) reads it."""
+    return _apply_heads(arrays, joint)

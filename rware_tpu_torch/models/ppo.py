@@ -1,7 +1,9 @@
-"""The clipped-PPO loss and the clip + Adam step on flat parameter vectors:
-what the learners of :mod:`rware_tpu_torch.models.ippo` and
-:mod:`rware_tpu_torch.models.ippo_fused` and the plain versions of the PPO
-kernels (:mod:`rware_tpu_torch.ops.fused_update`) share.
+"""The clipped-PPO losses (IPPO's, MAPPO's, the critic-only value loss) and
+the clip + Adam step on flat parameter vectors: what the learners of
+:mod:`rware_tpu_torch.models.ippo`, :mod:`rware_tpu_torch.models.ippo_fused`
+and :mod:`rware_tpu_torch.models.mappo` and the plain versions of the PPO
+kernels (:mod:`rware_tpu_torch.ops.fused_update`,
+:mod:`rware_tpu_torch.ops.fused_mappo`) share.
 
 The optimizer is optax's ``chain(clip_by_global_norm(max_grad_norm),
 adam(lr, eps=1e-5))`` written as the fused update kernel writes it
@@ -16,7 +18,13 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from rware_tpu_torch.models.networks import BlockDims, train_forward
+from rware_tpu_torch.models.networks import (
+    BlockDims,
+    CriticDims,
+    critic_train_forward,
+    joint_obs,
+    train_forward,
+)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
 METRIC_KEYS = ("pg_loss", "v_loss", "entropy", "approx_kl")
@@ -81,12 +89,44 @@ def ppo_loss_native(cfg, dims: BlockDims, params: torch.Tensor, batch,
                              advstats)
 
 
-def loss_grads(loss_fn: Callable, params: torch.Tensor):
-    """(grads, metrics) of ``loss_fn(params) -> (total, metrics)``."""
+def mappo_loss_native(cfg, dims: BlockDims, cdims: CriticDims, params, batch,
+                      advstats: Optional[torch.Tensor] = None):
+    """Clipped MAPPO loss (``mappo.py:100-117``) on a ``(T, B, N, ...)``
+    minibatch ``(obs, action, old_logp, old_value, adv, target)``: the
+    policy terms from the actor ``params["actor"]``, the value term from the
+    central critic ``params["critic"]`` on the joint observation.
+    ``old_value``, ``adv`` and ``target`` are the critic's; the actor's
+    local value head takes no part.  Returns (total, metrics)."""
+    obs, action, old_logp, old_value, adv, target = batch
+    logits, _ = train_forward(dims.split(params["actor"]), obs)
+    value = critic_train_forward(cdims.split(params["critic"]), joint_obs(obs))
+    return clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, target,
+                             advstats)
+
+
+def critic_value_loss(cfg, cdims: CriticDims, cparams: torch.Tensor, batch):
+    """The critic-only clipped value loss (``mappo.py:870-879``) on
+    ``(obs (T, B, N, L), old_value, target (T, B, N))``: returns
+    (``vf_coef * v_loss``, {"v_loss"})."""
+    obs, old_value, target = batch
+    value = critic_train_forward(cdims.split(cparams), joint_obs(obs))
+    v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
+    v_loss = 0.5 * torch.maximum((value - target) ** 2, (v_clipped - target) ** 2).mean()
+    return cfg.vf_coef * v_loss, {"v_loss": v_loss.detach()}
+
+
+def loss_grads(loss_fn: Callable, params):
+    """(grads, metrics) of ``loss_fn(params) -> (total, metrics)``;
+    ``params`` is a flat tensor, or a dict of them (grads likewise)."""
     with torch.enable_grad():
-        p = params.detach().requires_grad_(True)
-        total, metrics = loss_fn(p)
-        (grads,) = torch.autograd.grad(total, p)
+        if isinstance(params, dict):
+            p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            total, metrics = loss_fn(p)
+            grads = dict(zip(p, torch.autograd.grad(total, list(p.values()))))
+        else:
+            p = params.detach().requires_grad_(True)
+            total, metrics = loss_fn(p)
+            (grads,) = torch.autograd.grad(total, p)
     return grads, metrics
 
 

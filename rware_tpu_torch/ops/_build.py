@@ -33,6 +33,8 @@ _DIMS = [_I] * 9 + [ctypes.c_ulonglong]  # n s r g h w reward max_steps max_inac
 # L H1 H2 A T_full T_mb B N | clip_eps vf_coef ent_coef inv_n |
 # tile grid smem w0_smem chunk n_chunks
 _PPO_DIMS = [_I] * 8 + [_F] * 4 + [_I] * 6
+# ... | c_tile c_grid c_smem c_w0_smem c_chunk c_n_chunks CH1 CH2 (the critic's)
+_MAPPO_DIMS = _PPO_DIMS + [_I] * 8
 _SIGNATURES = {
     # ... scripted T B | layout state_in state_out actions rewards episodes stream
     "rw_fused_rollout": _DIMS + [_I] * 3 + [_P] * 7,
@@ -47,6 +49,16 @@ _SIGNATURES = {
     # adv target params mu nu h1 h2 dz1 dz2 dcat partial part_mets grads mets
     # stream
     "rw_fused_ppo_update_phase": _PPO_DIMS + [_F, _I] + [_P] * 22,
+    # K0 CH1 CH2 agents T B tile grid smem w0_smem | obs cparams values stream
+    "rw_fused_critic_values": [_I] * 10 + [_P] * 4,
+    # ... with_actor | start stats obs action logp value adv target aparams
+    # cparams, the actor's then the critic's h1 h2 dz1 dz2 dcat partial
+    # part_mets, agrads cgrads mets stream
+    "rw_fused_mappo_grads": _MAPPO_DIMS + [_I] + [_P] * 28,
+    # ... max_grad_norm n_passes | starts advstats hyper obs action logp value
+    # adv target aparams amu anu cparams cmu cnu, the two workspaces, agrads
+    # cgrads mets stream
+    "rw_fused_mappo_update_phase": _MAPPO_DIMS + [_F, _I] + [_P] * 33,
 }
 
 

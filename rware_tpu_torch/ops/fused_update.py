@@ -49,20 +49,62 @@ def phase_time_block(t_mb: int) -> int:
     return 1
 
 
-def sample_smem_bytes(dims: BlockDims, tile: int, w0_smem: bool = True) -> int:
+def sample_smem(k0: int, h1: int, h2: int, heads: int, hc: int, tile: int,
+                w0_smem: bool = True) -> int:
     """Dynamic shared memory of one block of the per-sample kernel
-    (``ppo_sample_kernel`` in ``csrc/fused_ppo_grads.cu``); ``w0_smem``
-    keeps dense_0's weights there too."""
+    (``ppo_sample_kernel`` in ``csrc/ppo_sample.cuh``) for an input of
+    ``k0`` features, ``heads`` head columns and ``hc`` head rows kept per
+    sample; ``w0_smem`` keeps dense_0's weights there too."""
 
     def align16(n):
         return (n + 15) // 16 * 16
 
-    l_obs, h1, h2, ac = dims.obs_len, dims.h1, dims.h2, dims.n_actions + 1
     ld = tile + 4
-    f32 = align16(4 * (h1 + h2 + h2 * ac + ac))
-    bf16 = align16(2 * (l_obs * h1 * w0_smem + h1 * h2))
-    act = 4 * ((l_obs + h1 + max(h1, h2) + h2 + HEAD_ROWS) * ld + 4 * tile) + 8 * tile
+    f32 = align16(4 * (h1 + h2 + h2 * heads + heads))
+    bf16 = align16(2 * (k0 * h1 * w0_smem + h1 * h2))
+    act = 4 * ((k0 + h1 + max(h1, h2) + h2 + hc) * ld + 4 * tile) + 8 * tile
     return f32 + bf16 + act
+
+
+def sample_smem_bytes(dims: BlockDims, tile: int, w0_smem: bool = True) -> int:
+    """:func:`sample_smem` of the actor ``dims``."""
+    return sample_smem(dims.obs_len, dims.h1, dims.h2, dims.n_actions + 1, HEAD_ROWS, tile,
+                       w0_smem)
+
+
+def pick_tile(k0: int, h1: int, h2: int, heads: int, hc: int) -> Tuple[int, bool]:
+    """(samples per tile, dense_0 in shared memory) of the per-sample
+    kernel: dense_0's weights stay in shared memory where they fit, else they
+    are read from device memory; the largest tile that fits."""
+    for w0_smem in (True, False):
+        for tile in (32, 16, 8):
+            if sample_smem(k0, h1, h2, heads, hc, tile, w0_smem) <= SMEM_LIMIT:
+                return tile, w0_smem
+    raise ValueError("observation too long for the PPO kernel's shared memory")
+
+
+def launch_config(device, n_samples: int, smem: int, tile: int, w0_smem: bool) -> list:
+    """[tile, grid, smem, w0_smem, chunk, n_chunks] of the per-sample and
+    weight-gradient kernels for ``n_samples`` samples per window."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = max(1, min(4, SMEM_PER_SM // (smem + 1024)))
+    grid = min(-(-n_samples // tile), n_sm * per_sm)
+    return [tile, grid, smem, int(w0_smem), WGRAD_CHUNK, -(-n_samples // WGRAD_CHUNK)]
+
+
+def workspace(n_samples: int, h1: int, h2: int, hc: int, n_params: int, cfg: list,
+              device) -> list:
+    """The scratch tensors of one network's window: per-sample h1, h2, dz1,
+    dz2 (bf16) and head gradients (f32), weight-gradient partials, and the
+    per-block metric partials."""
+    bf = dict(dtype=torch.bfloat16, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return [
+        torch.empty((n_samples, h1), **bf), torch.empty((n_samples, h2), **bf),
+        torch.empty((n_samples, h1), **bf), torch.empty((n_samples, h2), **bf),
+        torch.empty((n_samples, hc), **f32), torch.empty((cfg[5], n_params), **f32),
+        torch.empty((cfg[1], 4), **f32),
+    ]
 
 
 def window_rows(start, t_mb: int, t_full: int, device) -> torch.Tensor:
@@ -99,14 +141,10 @@ class FusedPPOGrads:
         self.dims = dims
         self.t_mb = t_mb
         self.cfg = LossCoefs(clip_eps, vf_coef, ent_coef)
-        # dense_0's weights stay in shared memory where they fit (up to
-        # sensor range 4 at hidden (128, 128)); else they are read from
-        # device memory
-        fits = [(t, w) for w in (True, False) for t in (32, 16, 8)
-                if sample_smem_bytes(dims, t, w) <= SMEM_LIMIT]
-        if not fits:
-            raise ValueError("observation too long for the PPO kernel's shared memory")
-        self.tile, self.w0_smem = fits[0]
+        # dense_0's weights fit in shared memory up to sensor range 4 at
+        # hidden (128, 128)
+        self.tile, self.w0_smem = pick_tile(dims.obs_len, dims.h1, dims.h2,
+                                            dims.n_actions + 1, HEAD_ROWS)
         self.launches = 0
 
     def check(self, params: torch.Tensor, data: Sequence[torch.Tensor]) -> None:
@@ -153,14 +191,9 @@ class FusedPPOGrads:
         return grads, sums
 
     def launch_config(self, device, n_samples: int) -> list:
-        """[tile, grid, smem, w0_smem, chunk, n_chunks] of the kernels for
-        ``n_samples`` samples per window."""
+        """:func:`launch_config` of this kernel for ``n_samples`` samples."""
         smem = sample_smem_bytes(self.dims, self.tile, self.w0_smem)
-        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        per_sm = max(1, min(4, SMEM_PER_SM // (smem + 1024)))
-        grid = min(-(-n_samples // self.tile), n_sm * per_sm)
-        n_chunks = -(-n_samples // WGRAD_CHUNK)
-        return [self.tile, grid, smem, int(self.w0_smem), WGRAD_CHUNK, n_chunks]
+        return launch_config(device, n_samples, smem, self.tile, self.w0_smem)
 
     def kernel_args(self, data, device) -> Tuple[list, list]:
         """(leading C arguments, workspace tensors) of one window."""
@@ -170,15 +203,7 @@ class FusedPPOGrads:
         cfg = self.launch_config(device, s)
         args = [d.obs_len, d.h1, d.h2, d.n_actions, t_full, self.t_mb, b, n,
                 self.cfg.clip_eps, self.cfg.vf_coef, self.cfg.ent_coef, 1.0 / s, *cfg]
-        bf = dict(dtype=torch.bfloat16, device=device)
-        f32 = dict(dtype=torch.float32, device=device)
-        workspace = [
-            torch.empty((s, d.h1), **bf), torch.empty((s, d.h2), **bf),
-            torch.empty((s, d.h1), **bf), torch.empty((s, d.h2), **bf),
-            torch.empty((s, HEAD_ROWS), **f32), torch.empty((cfg[5], d.n_params), **f32),
-            torch.empty((cfg[1], 4), **f32),
-        ]
-        return args, workspace
+        return args, workspace(s, d.h1, d.h2, HEAD_ROWS, d.n_params, cfg, device)
 
     def _launch(self, params, data, start, advstats):
         from rware_tpu_torch.ops._build import check, load_library

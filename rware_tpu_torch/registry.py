@@ -12,8 +12,6 @@ import dataclasses
 import re
 from typing import Dict
 
-import torch
-
 from rware_tpu_torch.config import WarehouseConfig
 from rware_tpu_torch.types import ObservationType, RewardType
 
@@ -92,8 +90,10 @@ def parse_env_id(env_id: str) -> WarehouseConfig:
     )
 
 
-def make(env_id_or_config, device="cpu", **overrides):
-    """Create a :class:`~rware_tpu_torch.core.env.Warehouse` on ``device``.
+def make(env_id_or_config, device="cuda", **overrides):
+    """Create a :class:`~rware_tpu_torch.core.env.Warehouse` on ``device``:
+    the card by default, and an error where there is none (pass
+    ``device="cpu"`` to run on the CPU).
 
     Accepts a reference-style env id string or a :class:`WarehouseConfig`;
     keyword overrides are applied on top of the parsed config.
@@ -108,4 +108,4 @@ def make(env_id_or_config, device="cpu", **overrides):
         raise TypeError(f"Expected env id or WarehouseConfig, got {env_id_or_config!r}")
     if overrides:
         config = dataclasses.replace(config, **overrides)
-    return Warehouse(config, device=torch.device(device))
+    return Warehouse(config, device=device)

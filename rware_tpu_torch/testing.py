@@ -120,6 +120,25 @@ def random_ppo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device
     return BlockDims(l_obs, 128, 128, 5), params, data
 
 
+def random_mappo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device="cpu"):
+    """``(dims, cdims, params, data)``: :func:`random_ppo_case` plus a
+    flax-initialised central critic at hidden (128, 128); ``params`` is the
+    ``{"actor", "critic"}`` dict of flat vectors."""
+    from rware_tpu_torch.models.networks import (
+        CriticDims,
+        critic_to_arrays,
+        init_central_critic,
+        pack_arrays,
+    )
+
+    dims, actor, data = random_ppo_case(env_id, n_envs, t_full, seed, device)
+    n = data[1].shape[2]
+    critic = init_central_critic(n * dims.obs_len, n, (128, 128), (seed, 1))
+    params = {"actor": actor,
+              "critic": pack_arrays(critic_to_arrays(critic)).detach().to(device)}
+    return dims, CriticDims.of(critic), params, data
+
+
 UP = Direction.UP
 DOWN = Direction.DOWN
 LEFT = Direction.LEFT

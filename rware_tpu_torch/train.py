@@ -1,18 +1,23 @@
-"""Train IPPO with the shared MLP policy on a warehouse config — the port's
-counterpart of ``train.py`` (algo ``ippo``, net ``mlp``).
+"""Train IPPO or MAPPO with the shared MLP policy on a warehouse config — the
+port's counterpart of ``train.py`` (algos ``ippo`` and ``mappo``, net ``mlp``).
 
 Examples::
 
     python -m rware_tpu_torch.train --device cuda --env rware-tiny-2ag-v2 \\
         --n-envs 4096 --updates 300 --checkpoint-dir ckpts/run1
+    python -m rware_tpu_torch.train --device cuda --algo mappo --n-envs 4096 --updates 400
     python -m rware_tpu_torch.train --device cpu --n-envs 128 --rollout-len 8 --updates 2
 
-``--collect fused`` (default) trains through the fused collector (K2a) and
-the whole-update-phase kernel (K3) on a GPU, and through their plain
-versions on the CPU; ``--collect plain`` runs the plain learner
+``--collect fused`` (default) trains through the fused collector (K2a) and,
+for ``--algo ippo``, the whole-update-phase kernel (K3); for ``--algo mappo``
+through the critic-values kernel (K6) and one combined actor + critic gradient
+kernel launch (K5) per pass, or with ``--fused-critic-phase`` the
+whole-MAPPO-phase kernel (K7).  On the CPU each runs its plain version.
+``--collect plain`` runs the plain IPPO learner
 (``models/ippo.build_train_step``).  The device is never chosen for you:
 ``--device cuda`` without a GPU raises.  The final policy is written with
-``torch.save`` to ``<checkpoint-dir>/policy.pt``.
+``torch.save`` to ``<checkpoint-dir>/policy.pt``; a MAPPO run adds its
+central critic under the key ``critic``.
 """
 from __future__ import annotations
 
@@ -22,7 +27,10 @@ import time
 
 import torch
 
-NOT_PORTED = "not ported yet: the port trains --algo ippo --net mlp"
+from rware_tpu_torch.core.env import resolve_device
+
+NOT_PORTED = ("not ported yet: the port trains --algo ippo and --algo mappo with --net mlp "
+              "(mappo only with --collect fused)")
 
 
 def parse_args(argv=None):
@@ -32,7 +40,10 @@ def parse_args(argv=None):
     p.add_argument("--algo", choices=["ippo", "mappo", "seac", "seac-ppo"], default="ippo")
     p.add_argument("--net", choices=["mlp", "gru"], default="mlp")
     p.add_argument("--collect", choices=["fused", "plain"], default="fused",
-                   help="fused = K2a collector + K3 update phase; plain = the plain learner")
+                   help="fused = K2a collector + fused update kernels; plain = the plain "
+                        "IPPO learner")
+    p.add_argument("--fused-critic-phase", action="store_true",
+                   help="mappo: the whole update phase in the K7 kernel (default: K5 per pass)")
     p.add_argument("--minibatch-mode", choices=["shuffle", "block"], default="shuffle",
                    help="minibatches of the plain learner (the fused path takes time windows)")
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
@@ -47,22 +58,22 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def resolve_device(name: str) -> torch.device:
-    """The requested device; a CUDA device must exist."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available")
-    return dev
-
-
-def save_policy(path: str, env_id: str, dims, params: torch.Tensor, updates: int) -> None:
-    """``torch.save`` of the policy: its ``ActorCritic`` state dict and sizes."""
+def save_policy(path: str, env_id: str, dims, params: torch.Tensor, updates: int,
+                cdims=None, cparams=None) -> None:
+    """``torch.save`` of the policy: its ``ActorCritic`` state dict and
+    sizes, and under ``critic`` those of MAPPO's ``CentralCritic``."""
     from rware_tpu_torch.models.ippo import policy_of
+    from rware_tpu_torch.models.networks import arrays_to_critic
 
     model = policy_of(dims, params.cpu())
-    torch.save({"env": env_id, "obs_dim": dims.obs_len, "n_actions": dims.n_actions,
-                "hidden": (dims.h1, dims.h2), "updates": updates,
-                "state_dict": model.state_dict()}, path)
+    ckpt = {"env": env_id, "obs_dim": dims.obs_len, "n_actions": dims.n_actions,
+            "hidden": (dims.h1, dims.h2), "updates": updates,
+            "state_dict": model.state_dict()}
+    if cdims is not None:
+        critic = arrays_to_critic(cdims.split(cparams.detach().cpu()))
+        ckpt["critic"] = {"n_agents": cdims.n_agents, "joint_dim": cdims.joint_len,
+                          "hidden": (cdims.h1, cdims.h2), "state_dict": critic.state_dict()}
+    torch.save(ckpt, path)
 
 
 def load_policy(path: str, device="cpu"):
@@ -75,27 +86,48 @@ def load_policy(path: str, device="cpu"):
     return ckpt["env"], model.to(device)
 
 
+def load_critic(path: str, device="cpu"):
+    """The ``CentralCritic`` of a file written by a MAPPO run."""
+    from rware_tpu_torch.models.networks import CentralCritic
+
+    c = torch.load(path, map_location="cpu")["critic"]
+    model = CentralCritic(c["joint_dim"], c["n_agents"], tuple(c["hidden"]))
+    model.load_state_dict(c["state_dict"])
+    return model.to(device)
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.algo != "ippo" or args.net != "mlp":
-        raise NotImplementedError(f"--algo {args.algo} --net {args.net}: {NOT_PORTED}")
+    mappo = args.algo == "mappo"
+    if args.algo not in ("ippo", "mappo") or args.net != "mlp" \
+            or (mappo and args.collect != "fused") or (args.fused_critic_phase and not mappo):
+        raise NotImplementedError(
+            f"--algo {args.algo} --net {args.net} --collect {args.collect}"
+            f"{' --fused-critic-phase' * args.fused_critic_phase}: {NOT_PORTED}")
     dev = resolve_device(args.device)
 
     import rware_tpu_torch
     from rware_tpu_torch.models.ippo import IPPOConfig, build_train_step, init_runner
     from rware_tpu_torch.models.ippo_fused import build_fused_train_step
+    from rware_tpu_torch.models.mappo import build_mappo_train_step, init_mappo_runner
 
     env = rware_tpu_torch.make(args.env, device=dev)
     cfg = IPPOConfig(n_envs=args.n_envs, rollout_len=args.rollout_len, lr=args.lr,
                      ent_coef=args.ent_coef, minibatch_mode=args.minibatch_mode)
-    runner, dims = init_runner(env, cfg, args.seed)
-    if args.collect == "fused":
-        train_step = build_fused_train_step(env, dims, cfg)
+    cdims = None
+    if mappo:
+        runner, dims, cdims = init_mappo_runner(env, cfg, args.seed)
+        train_step = build_mappo_train_step(env, dims, cdims, cfg,
+                                            fused_critic_phase=args.fused_critic_phase)
     else:
-        train_step = build_train_step(env, dims, cfg)
+        runner, dims = init_runner(env, cfg, args.seed)
+        if args.collect == "fused":
+            train_step = build_fused_train_step(env, dims, cfg)
+        else:
+            train_step = build_train_step(env, dims, cfg)
     env_steps_per_update = cfg.n_envs * cfg.rollout_len
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"training {args.env} on {dev} ({card}): {args.updates} updates x "
+    print(f"training {args.algo} on {args.env} on {dev} ({card}): {args.updates} updates x "
           f"{env_steps_per_update} env-steps, collect {args.collect}", flush=True)
     log_every = max(1, args.log_every)
     t0 = last_t = time.perf_counter()
@@ -120,7 +152,11 @@ def main(argv=None) -> dict:
     if args.checkpoint_dir:
         os.makedirs(args.checkpoint_dir, exist_ok=True)
         path = os.path.join(args.checkpoint_dir, "policy.pt")
-        save_policy(path, args.env, dims, runner.params, args.updates)
+        if mappo:
+            save_policy(path, args.env, dims, runner.params["actor"], args.updates, cdims,
+                        runner.params["critic"])
+        else:
+            save_policy(path, args.env, dims, runner.params, args.updates)
         print(f"saved {path}", flush=True)
     print("done:", {k: round(v, 4) for k, v in entry.items()
                     if "loss" in k or "reward" in k or "env_steps" in k}, flush=True)

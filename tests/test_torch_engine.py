@@ -89,12 +89,12 @@ def test_string_layout_and_bad_ids():
 
 
 def test_make_accepts_config_and_overrides():
-    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=7)
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=7, device="cpu")
     assert env.config.max_steps == 7 and env.device == torch.device("cpu")
-    env2 = rware_tpu_torch.make(env.config)
+    env2 = rware_tpu_torch.make(env.config, device="cpu")
     assert env2.config == env.config
     with pytest.raises(NotImplementedError):
-        rware_tpu_torch.make("rware-tiny-2ag-v2", msg_bits=1)
+        rware_tpu_torch.make("rware-tiny-2ag-v2", msg_bits=1, device="cpu")
 
 
 # --- state ----------------------------------------------------------------------
@@ -369,7 +369,7 @@ def test_golden_scenario_matches_jax(name):
     cfg_kw, agents, state_kw, steps, expect = SCENARIOS[name]
     cfg_kw = {"request_queue_size": 1, **cfg_kw}
     jenv = _jax_env(rware_tpu.WarehouseConfig(**cfg_kw))
-    env = rware_tpu_torch.make(rware_tpu_torch.WarehouseConfig(**cfg_kw))
+    env = rware_tpu_torch.make(rware_tpu_torch.WarehouseConfig(**cfg_kw), device="cpu")
     jstate = jax_make_state(jenv.config, agents, **state_kw)
     state = make_state(env.config, agents, **state_kw)
     gen = cpu_generator(0)
@@ -459,7 +459,7 @@ def test_flattened_obs_bit_exact(overrides):
 
 
 def test_reset_draws_and_scripted_respawn():
-    env = rware_tpu_torch.make("rware-small-4ag-v2")
+    env = rware_tpu_torch.make("rware-small-4ag-v2", device="cpu")
     reset = build_reset_fn(env.config)
     zeros = reset(torch.zeros((3, n_reset_draws(env.config)), dtype=torch.int64))
     w = env.grid_size[1]
@@ -474,7 +474,7 @@ def test_reset_draws_and_scripted_respawn():
 
 
 def test_step_autoreset_replaces_finished_envs():
-    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=2)
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=2, device="cpu")
     gen = cpu_generator(2)
     state, _ = env.reset(gen, 32)
     state = state.replace(cur_steps=torch.arange(32, dtype=torch.int32) % 2)

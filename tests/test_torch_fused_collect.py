@@ -139,7 +139,7 @@ def test_obs_bit_exact_sensor_range_2():
 
 
 def test_random_mode_plain_trajectory():
-    env = rware_tpu_torch.make("rware-small-4ag-v2", max_steps=10)
+    env = rware_tpu_torch.make("rware-small-4ag-v2", max_steps=10, device="cpu")
     states, obs0 = batched_reset(env, 0, 64)
     torch.manual_seed(0)
     policy = ActorCritic(env.config.flattened_obs_length)
@@ -156,7 +156,7 @@ def test_random_mode_plain_trajectory():
 
 
 def test_wrapper_checks_policy_and_shared_memory():
-    env = rware_tpu_torch.make("rware-tiny-2ag-v2")
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device="cpu")
     states, _ = batched_reset(env, 0, 4)
     collect = build_fused_collect(env.config, 2)
     with pytest.raises(ValueError):

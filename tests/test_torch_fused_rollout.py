@@ -174,7 +174,7 @@ def test_scripted_plain_matches_pallas_deliveries():
 
 
 def test_wrapper_routes_cpu_to_plain_and_checks_arguments():
-    env = rware_tpu_torch.make("rware-tiny-2ag-v2")
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device="cpu")
     states, _ = batched_reset(env, 0, 37)
     roll = build_fused_rollout(env.config, 5)
     s1, r1, e1 = roll(states, 3)
@@ -189,7 +189,7 @@ def test_wrapper_routes_cpu_to_plain_and_checks_arguments():
         roll(states, -1)
     with pytest.raises(ValueError):
         build_fused_rollout(rware_tpu_torch.parse_env_id("rware-tiny-40ag-v2"), 5)
-    other, _ = batched_reset(rware_tpu_torch.make("rware-tiny-4ag-v2"), 0, 37)
+    other, _ = batched_reset(rware_tpu_torch.make("rware-tiny-4ag-v2", device="cpu"), 0, 37)
     with pytest.raises(ValueError):
         roll(other, 3)  # a state of another config
     with pytest.raises(ValueError):
@@ -197,7 +197,7 @@ def test_wrapper_routes_cpu_to_plain_and_checks_arguments():
 
 
 def test_pack_unpack_round_trip_and_layout_buffer():
-    env = rware_tpu_torch.make("rware-medium-6ag-hard-v2")
+    env = rware_tpu_torch.make("rware-medium-6ag-hard-v2", device="cpu")
     states, _ = batched_reset(env, 4, 9)
     packed = pack_state(states)
     n, s, r = 6, env.layout.n_shelves, env.config.request_queue_size
@@ -213,7 +213,7 @@ def test_pack_unpack_round_trip_and_layout_buffer():
 def test_plain_random_draws_do_not_depend_on_the_batch():
     """Counter-based draws: two envs' streams do not depend on the batch
     they run in, so a sub-batch reproduces its rows of the full batch."""
-    env = rware_tpu_torch.make("rware-small-4ag-v2", max_steps=20)
+    env = rware_tpu_torch.make("rware-small-4ag-v2", max_steps=20, device="cpu")
     states, _ = batched_reset(env, 1, 16)
     roll = build_fused_rollout(env.config, 30)
     _, rew, epis = roll(states, 9)

@@ -14,13 +14,18 @@ import rware_tpu_torch
 from rware_tpu_torch.models import ActorCritic
 from rware_tpu_torch.models import ippo
 from rware_tpu_torch.models.ippo_fused import phase_advstats, phase_window_starts
+from rware_tpu_torch.ops.fused_mappo import (
+    build_fused_critic_values,
+    build_fused_mappo_grads,
+    build_fused_mappo_update_phase,
+)
 from rware_tpu_torch.ops.fused_rollout import build_fused_collect, build_fused_rollout
 from rware_tpu_torch.ops.fused_update import (
     build_fused_ppo_grads,
     build_fused_ppo_update_phase,
 )
 from rware_tpu_torch.parallel import batched_reset
-from rware_tpu_torch.testing import random_ppo_case
+from rware_tpu_torch.testing import random_mappo_case, random_ppo_case
 
 torch.set_num_threads(1)
 pytestmark = [
@@ -127,3 +132,70 @@ def test_fused_ppo_update_phase_kernel_matches_plain():
     assert all(torch.equal(a, b) for a, b in zip(out, again))
     assert float((out[0] - plain[0]).abs().max()) <= 0.05 * cfg.lr * 4
     assert float((out[0] - params).abs().max()) > 0
+
+
+# tiny-16ag: the critic's dense_0 does not fit a block's shared memory
+@pytest.mark.parametrize("env_id", ["rware-tiny-2ag-v2", "rware-tiny-16ag-v2"])
+def test_fused_critic_values_kernel_matches_plain(env_id):
+    """K6: a flipped bf16 rounding of a hidden unit is the largest allowed
+    difference (2e-2, as for the collector's values), and rare (mean 1e-4)."""
+    _, cdims, params, data = random_mappo_case(env_id, 1000, 8, device=DEV)
+    k6 = build_fused_critic_values(cdims)
+    kv = k6(params["critic"], data[0])
+    pv = k6.plain(params["critic"], data[0])
+    assert k6.launches == 1 and kv.shape == data[1].shape
+    diff = (kv - pv).abs()
+    assert float(diff.max()) <= ATOL and float(diff.mean()) <= 1e-4
+
+
+@pytest.mark.parametrize("env_id", ["rware-tiny-2ag-v2", "rware-tiny-16ag-v2"])
+def test_fused_mappo_grads_kernel_matches_plain(env_id):
+    """K5, with and without the actor: gradients within 1e-2 of each block's
+    largest |plain value| on a window that wraps; two launches give the same
+    bits; the actor's local value head gets exactly zero."""
+    dims, cdims, params, data = random_mappo_case(env_id, 1000, 8, device=DEV)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01)
+    k5 = build_fused_mappo_grads(dims, cdims, 4, **kw)
+    kg, ks = k5(params, data, 7)
+    kg2, ks2 = k5(params, data, 7)
+    pg, ps = k5.plain(params, data, 7)
+    assert k5.launches == 2
+    assert all(torch.equal(kg[k], kg2[k]) for k in kg) and torch.equal(ks, ks2)
+    for part, d in (("actor", dims), ("critic", cdims)):
+        for g, p in zip(d.split(kg[part]), d.split(pg[part])):
+            assert float((g - p).abs().max()) <= 1e-2 * float(p.abs().max()) + 1e-12
+    torch.testing.assert_close(ks, ps, rtol=1e-3, atol=1e-2)
+    head = dims.split(kg["actor"])
+    assert float(head[4][:, dims.n_actions].abs().max()) == 0.0
+    assert float(head[5][0, dims.n_actions].abs()) == 0.0
+    k5c = build_fused_mappo_grads(None, cdims, 4, with_actor=False, **kw)
+    cg, cs = k5c(params["critic"], (data[0], data[3], data[5]), 7)
+    assert k5c.launches == 1
+    assert torch.equal(cg, kg["critic"]) and float(cs[0]) == float(cs[2]) == 0.0
+    torch.testing.assert_close(cs[1], ps[1], rtol=1e-3, atol=1e-2)
+
+
+def test_fused_mappo_update_phase_kernel_matches_plain():
+    """K7: E=2, M=2 passes; both parts' parameters within 0.05 * lr * P of
+    the plain version, two launches bit-equal."""
+    dims, cdims, params, data = random_mappo_case("rware-tiny-2ag-v2", 1024, 8, device=DEV)
+    cfg = ippo.IPPOConfig(epochs=2, minibatches=2)
+    k7 = build_fused_mappo_update_phase(dims, cdims, 8, 2, 2, clip_eps=0.2, vf_coef=0.5,
+                                        ent_coef=0.01, max_grad_norm=0.5)
+    starts = phase_window_starts(cfg, 8, k7.time_block, torch.Generator().manual_seed(0)).to(DEV)
+    zero = {k: torch.zeros_like(v) for k, v in params.items()}
+    args = (params, zero, zero, data, starts, phase_advstats(data[4], starts, 4),
+            ippo.adam_hyper(cfg, 0, 4).to(DEV))
+    out = k7(*args)
+    again = k7(*args)
+    plain = k7.plain(*args)
+    assert k7.launches == 2
+    for part in ("actor", "critic"):
+        assert all(torch.equal(a[part], b[part]) for a, b in zip(out[:3], again[:3]))
+        assert float((out[0][part] - plain[0][part]).abs().max()) <= 0.05 * cfg.lr * 4
+        assert float((out[0][part] - params[part]).abs().max()) > 0
+    assert torch.equal(out[3], again[3])
+
+
+def test_make_builds_on_the_card_by_default():
+    assert rware_tpu_torch.make("rware-tiny-2ag-v2").device.type == "cuda"

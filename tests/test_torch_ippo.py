@@ -225,7 +225,7 @@ def test_collect_seed_keys_are_disjoint():
 
 @pytest.mark.parametrize("mode", ["shuffle", "block"])
 def test_plain_learner_trains(mode):
-    env = rware_tpu_torch.make("rware-tiny-2ag-v2")
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device="cpu")
     cfg = ippo.IPPOConfig(n_envs=32, rollout_len=8, epochs=2, minibatches=2,
                           minibatch_mode=mode)
     runner, dims = ippo.init_runner(env, cfg, seed=0)

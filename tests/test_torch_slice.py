@@ -49,7 +49,7 @@ Z_BOUND = 5.0
 @pytest.fixture(scope="module")
 def rollouts():
     jenv = rware_tpu.make(rware_tpu.WarehouseConfig(**CONFIG))
-    env = rware_tpu_torch.make(rware_tpu_torch.WarehouseConfig(**CONFIG))
+    env = rware_tpu_torch.make(rware_tpu_torch.WarehouseConfig(**CONFIG), device="cpu")
     _, jtraj = jax.jit(jax_rollout_fn(jenv, n_steps=T))(
         jax_states(jenv, B, seed=0), jax.random.split(jax.random.key(1), B)
     )

@@ -192,7 +192,7 @@ def test_train_and_evaluate_entry_points(tmp_path):
         assert np.isfinite(out[k]), k
     env_id, policy = train.load_policy(str(tmp_path / "policy.pt"))
     assert env_id == "rware-tiny-2ag-v2"
-    runner, dims = ippo.init_runner(rware_tpu_torch.make(env_id), ippo.IPPOConfig(n_envs=1), 0)
+    runner, dims = ippo.init_runner(rware_tpu_torch.make(env_id, device="cpu"), ippo.IPPOConfig(n_envs=1), 0)
     assert not torch.equal(ippo.policy_of(dims, runner.params).dense[0].weight,
                            policy.dense[0].weight)  # trained away from the init
     stats = evaluate.main(["--device", "cpu", "--checkpoint-dir", str(tmp_path),
@@ -202,7 +202,7 @@ def test_train_and_evaluate_entry_points(tmp_path):
 
 
 def test_mean_return_counts_until_the_first_episode_end():
-    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=10)
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=10, device="cpu")
     policy = ActorCritic(env.config.flattened_obs_length)
     stats = evaluate.mean_return(env, policy, episodes=4, max_steps=25)
     assert stats["mean_length"] == 10 and stats["unfinished"] == 0
@@ -210,7 +210,9 @@ def test_mean_return_counts_until_the_first_episode_end():
 
 def test_entry_points_refuse_what_is_not_there():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["--algo", "mappo", "--device", "cpu"])
+        train.main(["--algo", "seac", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        train.main(["--algo", "mappo", "--net", "gru", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train.main(["--net", "gru", "--device", "cpu"])
     if not torch.cuda.is_available():

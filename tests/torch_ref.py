@@ -27,13 +27,13 @@ def make_pair(env_id_or_config):
     """(JAX env, port env) of one config; a config object is taken from the
     JAX package and rebuilt field by field for the port."""
     if isinstance(env_id_or_config, str):
-        return rware_tpu.make(env_id_or_config), rware_tpu_torch.make(env_id_or_config)
+        return rware_tpu.make(env_id_or_config), rware_tpu_torch.make(env_id_or_config, device="cpu")
     import dataclasses
 
     fields = dataclasses.asdict(env_id_or_config)
     return (
         rware_tpu.make(env_id_or_config),
-        rware_tpu_torch.make(rware_tpu_torch.WarehouseConfig(**fields)),
+        rware_tpu_torch.make(rware_tpu_torch.WarehouseConfig(**fields), device="cpu"),
     )
 
 

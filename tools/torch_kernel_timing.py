@@ -10,11 +10,13 @@ it.  ``--profile`` adds one torch.profiler window per kernel on tiny-2ag:
 device time by kernel name and the device-busy share of the call's wall
 time.  ``--train-step`` times ``--repeats`` updates of the fused learner
 (``models/ippo_fused.build_fused_train_step``, tiny-2ag, B=16,384, T=128,
-E=4, M=4) and profiles one.  Prints one JSON object per line, each with the
+E=4, M=4) and profiles one; with ``--algo mappo`` the learner is
+``models/mappo.build_mappo_train_step``, per pass (K5) and, with
+``--fused-critic-phase``, whole phase (K7).  Prints one JSON object per line, each with the
 card's name and power limit; ``--out`` also writes them to a file.
 
 Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-step]
-       [--out FILE]
+       [--algo ippo|mappo] [--fused-critic-phase] [--out FILE]
 """
 import argparse
 import json
@@ -86,6 +88,8 @@ def main():
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--train-step", action="store_true")
+    ap.add_argument("--algo", choices=["ippo", "mappo"], default="ippo")
+    ap.add_argument("--fused-critic-phase", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
 
@@ -143,8 +147,17 @@ def main():
 
         env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
         cfg = ippo.IPPOConfig(n_envs=16384, rollout_len=128, epochs=4, minibatches=4)
-        runner, dims = ippo.init_runner(env, cfg, 0)
-        step = build_fused_train_step(env, dims, cfg)
+        if args.algo == "mappo":
+            from rware_tpu_torch.models import mappo
+
+            runner, dims, cdims = mappo.init_mappo_runner(env, cfg, 0)
+            step = mappo.build_mappo_train_step(env, dims, cdims, cfg,
+                                                fused_critic_phase=args.fused_critic_phase)
+            what = "mappo, " + ("whole phase (K7)" if args.fused_critic_phase else "per pass (K5)")
+        else:
+            runner, dims = ippo.init_runner(env, cfg, 0)
+            step = build_fused_train_step(env, dims, cfg)
+            what = "fused"
         box = [runner]
 
         def update():
@@ -152,11 +165,11 @@ def main():
 
         med, lo, hi = time_launches(update, args.repeats)
         steps = cfg.n_envs * cfg.rollout_len
-        emit({"train_step": "fused, tiny-2ag", "B": cfg.n_envs, "T": cfg.rollout_len,
+        emit({"train_step": f"{what}, tiny-2ag", "B": cfg.n_envs, "T": cfg.rollout_len,
               "epochs": cfg.epochs, "minibatches": cfg.minibatches, "ms_median": med,
               "ms_min": lo, "ms_max": hi, "env_steps_per_s": steps / med * 1e3})
         top, busy, wall = profile(update)
-        emit({"profile": "fused train step", "device_ms_by_kernel": top,
+        emit({"profile": f"{what} train step", "device_ms_by_kernel": top,
               "device_busy_ms": busy, "wall_ms": wall})
     emit({"nvidia_smi_after": card()})
     if args.out:
