@@ -86,16 +86,6 @@ def load_policy(path: str, device="cpu"):
     return ckpt["env"], model.to(device)
 
 
-def load_critic(path: str, device="cpu"):
-    """The ``CentralCritic`` of a file written by a MAPPO run."""
-    from rware_tpu_torch.models.networks import CentralCritic
-
-    c = torch.load(path, map_location="cpu")["critic"]
-    model = CentralCritic(c["joint_dim"], c["n_agents"], tuple(c["hidden"]))
-    model.load_state_dict(c["state_dict"])
-    return model.to(device)
-
-
 def main(argv=None) -> dict:
     args = parse_args(argv)
     mappo = args.algo == "mappo"

@@ -255,8 +255,10 @@ def test_train_mappo_and_evaluate_entry_points(tmp_path, phase):
     path = str(tmp_path / "policy.pt")
     env_id, policy = train.load_policy(path)
     assert env_id == "rware-tiny-2ag-v2"
-    critic = train.load_critic(path)
-    assert isinstance(critic, CentralCritic) and critic.n_agents == 2
+    saved = torch.load(path, map_location="cpu")["critic"]
+    critic = CentralCritic(saved["joint_dim"], saved["n_agents"], tuple(saved["hidden"]))
+    critic.load_state_dict(saved["state_dict"])
+    assert critic.n_agents == 2
     fresh = mappo.init_mappo_runner(rware_tpu_torch.make(env_id, device="cpu"),
                                     ippo.IPPOConfig(n_envs=1), 0)[0]
     assert not torch.equal(CriticDims.of(critic).split(fresh.params["critic"])[0].t(),
