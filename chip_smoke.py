@@ -51,7 +51,27 @@ Phases, one line each:
     launch counters reset before and read after; the time of an update split
     into collect (K2a), critic values (K6), GAE and bootstrap, and update
     phase; K5, K6 and K7 timed and compared at that shape beside their plain
-    versions.
+    versions;
+12. the recurrent collector kernel (K2c) against its plain version on the
+    card, from a nonzero carry: deterministic and random mode on tiny-2ag,
+    small-4ag and tiny-16ag at B=1000, and the main shape; obs, rewards, done
+    and the final state exact, value and logp within 2e-2, at least 99.9% of
+    actions equal and of carry entries within one bf16 step (7.8e-3);
+13. the GRU sequence kernels (K9 forward, K10 backward) against their plain
+    versions: random data with ``done`` at 20% and a nonzero initial hidden on
+    tiny-2ag, sensor range 3 (351 features: like every width, the embed
+    weights are read from device memory) and tiny-16ag, env bands that wrap;
+    ``hseq`` within one bf16 step on at least 99.9% of the entries, gradients
+    and ``dh0`` within 1e-2 of each block's largest |plain|; two launches
+    bit-equal;
+14. the recurrent training main path at full width through
+    ``rware_tpu_torch.models.ippo_rnn.build_rnn_fused_train_step`` on an env
+    made with ``make``'s default device: tiny-2ag, B=16,384, T=128, E=4, M=4,
+    embed 128, GRU hidden 128, three updates after one warm-up with launch
+    counters reset before and read after (exactly 3 K2c, 48 K9, 48 K10); the
+    time of an update split into collect (K2c), bootstrap and GAE, and the 16
+    band passes; K2c, K9 and K10 timed and compared at that shape beside
+    their plain versions.
 
 Then the card's name and power limit, one JSON line describing each kernel
 (its time beside its plain version's and beside ``bound_ms``, the least time
@@ -72,6 +92,7 @@ import time
 
 VALUE_LOGP_ATOL = 2e-2  # bf16 hidden layers; the same bound as the JAX tests
 ACTION_AGREEMENT = 0.999
+BF16_STEP = 2.0 ** -7  # one bf16 step of a hidden unit, |h| <= 1
 K1_CONFIGS = (
     "rware-tiny-2ag-v2",
     "rware-small-4ag-v2",
@@ -493,6 +514,116 @@ def compare_k7(dev, b, t_full, epochs, minibatches, seed, data=None, dims=None, 
     return k_ms, plain_ms, err
 
 
+def compare_k2c(env_id, dev, b, t, deterministic, seed, policy=None, hidden=(128, 128),
+                **overrides):
+    """K2c kernel vs its plain version on the card, from a nonzero carry;
+    returns (env, state, new_h, traj, action agreement, value/logp error,
+    share of carry entries within one bf16 step)."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models.networks import init_recurrent_actor_critic
+    from rware_tpu_torch.ops.fused_rollout import build_fused_collect_gru
+    from rware_tpu_torch.parallel import batched_reset
+
+    env = rware_tpu_torch.make(env_id, device=dev, **overrides)
+    states, _ = batched_reset(env, seed, b)
+    gen = torch.Generator().manual_seed(seed)
+    if policy is None:
+        policy = init_recurrent_actor_critic(env.config.flattened_obs_length, 5, hidden[1],
+                                             hidden[0], seed).to(dev)
+        with torch.no_grad():  # nonzero biases: a zero bias hides where it is rounded
+            for p in policy.parameters():
+                if p.dim() == 1:
+                    p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    h0 = torch.rand((b, env.n_agents, hidden[1]), generator=gen) * 2 - 1
+    h0 = h0.to(torch.bfloat16).to(dev)
+    collect = build_fused_collect_gru(env.config, t, hidden, deterministic=deterministic)
+    ks, kh, ktraj = collect(states, policy, seed + 1, h0)
+    ps, ph, ptraj = collect.plain(states, policy, seed + 1, h0)
+    torch.cuda.synchronize()
+    what = f"K2c {env_id} deterministic={deterministic}"
+    for k in ("obs", "reward", "done"):
+        require(torch.equal(ktraj[k], ptraj[k]), f"{what}: {k} differs")
+    bad = state_diff(ks, ps)
+    require(not bad, f"{what}: final state differs in {bad}")
+    agree = float((ktraj["action"] == ptraj["action"]).float().mean())
+    err = max(float((ktraj[k] - ptraj[k]).abs().max()) for k in ("value", "logp"))
+    h_ok = float(((kh.float() - ph.float()).abs() <= BF16_STEP).float().mean())
+    require(agree >= ACTION_AGREEMENT and err <= VALUE_LOGP_ATOL and h_ok >= ACTION_AGREEMENT,
+            f"{what}: action agreement {agree}, value/logp err {err}, carry within a bf16 step "
+            f"{h_ok}")
+    for k, v in ktraj.items():
+        require(not v.is_floating_point() or bool(torch.isfinite(v.float()).all()),
+                f"{what}: non-finite {k}")
+    require(tuple(kh.shape) == tuple(h0.shape) and kh.dtype == torch.bfloat16,
+            f"{what}: carry shape")
+    last_done = ktraj["done"][-1]
+    require(float(kh[last_done].float().abs().max()) == 0.0 if bool(last_done.any()) else True,
+            f"{what}: the carry of an env whose episode just ended is not zero")
+    check_invariants(env, ks)
+    return env, ks, kh, ktraj, agree, err, h_ok
+
+
+def random_gru_case(env_id, b, t_len, seed, dev, done_rate=0.2, hidden=(128, 128)):
+    """(dims, weights, obs, done, h0) for the GRU sequence kernels: random
+    weights with nonzero biases, 0/0.5/1 observations of the config's length,
+    ``done`` at ``done_rate``, a nonzero carry."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models.networks import GruDims
+
+    cfg = rware_tpu_torch.parse_env_id(env_id)
+    dims = GruDims(cfg.flattened_obs_length, hidden[0], hidden[1], 5)
+    gen = torch.Generator().manual_seed(seed)
+    weights = [(torch.randn(s, generator=gen) * (0.1 if s[0] == 1 else s[0] ** -0.5)).to(dev)
+               for s in dims.shapes[:6]]
+    obs = (torch.randint(0, 3, (t_len, b, cfg.n_agents, dims.obs_len), generator=gen) * 0.5)
+    done = torch.rand((t_len, b), generator=gen) < done_rate
+    h0 = torch.rand((b, cfg.n_agents, dims.hidden), generator=gen) * 2 - 1
+    return (dims, weights, obs.to(torch.bfloat16).to(dev), done.to(dev),
+            h0.to(torch.bfloat16).to(dev))
+
+
+def compare_gru(dev, dims, weights, obs, done, h0, bands, seed, fwd=None, bwd=None, what="K9/K10"):
+    """K9 and K10 kernels vs their plain versions on each band (start_env,
+    n_env); returns (fwd, bwd, max |hseq diff|, max |grad diff|)."""
+    import torch
+    from rware_tpu_torch.ops.fused_gru import build_fused_gru_obs_bwd, build_fused_gru_obs_fwd
+
+    fwd = fwd or build_fused_gru_obs_fwd(dims)
+    bwd = bwd or build_fused_gru_obs_bwd(dims)
+    h_err = g_err = 0.0
+    for start, n_env in bands:
+        tag = f"{what} band ({start}, {n_env})"
+        kh = fwd(weights, obs, done, h0, start, n_env)
+        kh2 = fwd(weights, obs, done, h0, start, n_env)
+        ph = fwd.plain(weights, obs, done, h0, start, n_env)
+        torch.cuda.synchronize()
+        require(torch.equal(kh, kh2), f"{tag}: two K9 launches differ")
+        diff = (kh.float() - ph.float()).abs()
+        require(bool(torch.isfinite(kh.float()).all()), f"{tag}: non-finite hseq")
+        share = float((diff <= BF16_STEP).float().mean())
+        require(share >= ACTION_AGREEMENT and float(diff.max()) <= 8 * BF16_STEP,
+                f"{tag}: hseq within a bf16 step on {share}, max {float(diff.max())}")
+        h_err = max(h_err, float(diff.max()))
+        gen = torch.Generator().manual_seed(seed)
+        dh = (torch.randn(ph.shape, generator=gen) * 1e-3).to(torch.bfloat16).to(dev)
+        # both sides from the plain hseq, so that the comparison is of K10 alone
+        kg, kd = bwd(weights, obs, done, h0, ph, dh, start, n_env)
+        kg2, kd2 = bwd(weights, obs, done, h0, ph, dh, start, n_env)
+        pg, pd = bwd.plain(weights, obs, done, h0, ph, dh, start, n_env)
+        torch.cuda.synchronize()
+        require(torch.equal(kg, kg2) and torch.equal(kd, kd2), f"{tag}: two K10 launches differ")
+        for name, g, w in zip(("dWe", "dbe", "dWi", "dbi", "dWh", "dbhn"), bwd.split(kg),
+                              bwd.split(pg)):
+            err, top = float((g - w).abs().max()), max(float(w.abs().max()), 1e-12)
+            require(err <= GRAD_FRAC * top, f"{tag}: {name} differs by {err} > {GRAD_FRAC} * {top}")
+            g_err = max(g_err, err)
+        err, top = float((kd - pd).abs().max()), max(float(pd.abs().max()), 1e-12)
+        require(err <= GRAD_FRAC * top, f"{tag}: dh0 differs by {err} > {GRAD_FRAC} * {top}")
+    return fwd, bwd, h_err, g_err
+
+
 def phase3(dev):
     """K1 against its plain version; returns the main shape's max |error|."""
     import torch
@@ -830,6 +961,161 @@ def phase11(dev, kind, card, n_envs=16384, rollout_len=128):
     ]
 
 
+K2C_CONFIGS = ("rware-tiny-2ag-v2", "rware-small-4ag-v2", "rware-tiny-16ag-v2")
+# (env id, envs, steps, bands (first env, envs)): bands that wrap past the last env
+GRU_CASES = (
+    ("rware-tiny-2ag-v2", 1000, 8, ((0, 1000), (900, 500))),
+    ("rware-3s-tiny-2ag-v2", 300, 4, ((250, 100),)),
+    ("rware-tiny-16ag-v2", 100, 4, ((60, 80),)),
+)
+
+
+def gru_cell_flops(dims, forward_only):
+    """bf16 multiply-adds x 2 of one sequence-step of the GRU sequence kernels:
+    the forward (embed, input gates, hidden gates) and, for the backward, the
+    forward again plus dh, de and the three weight gradients."""
+    e, hg = dims.embed, dims.hidden
+    fwd = dims.obs_len * e + e * 3 * hg + hg * 3 * hg
+    return 2.0 * (fwd if forward_only else 2 * fwd + hg * 3 * hg + e * 3 * hg)
+
+
+def phase12(dev, kind, card):
+    """K2c against its plain version; returns the main shape's max |error|."""
+    for env_id in K2C_CONFIGS:
+        for deterministic in (True, False):
+            _, _, _, _, agree, err, h_ok = compare_k2c(env_id, dev, 1000, 32, deterministic, 5,
+                                                       max_steps=20)
+            log(f"phase 12 K2c {env_id} max_steps=20 B=1000 T=32 deterministic={deterministic}: "
+                f"obs/reward/done/state exact, actions {agree:.6f}, value/logp err {err}, carry "
+                f"within a bf16 step {h_ok:.6f}")
+    _, _, _, _, agree, err, h_ok = compare_k2c("rware-tiny-2ag-v2", dev, 16384, 128, False, 13)
+    log(f"phase 12 K2c main shape B=16384 T=128 random: obs/reward/done/state exact, actions "
+        f"{agree:.6f}, value/logp max_abs_err {err}, carry within a bf16 step {h_ok:.6f} "
+        f"[{kind}, {card}]")
+    return err
+
+
+def phase13(dev, kind, card):
+    """K9 and K10 against their plain versions."""
+    for env_id, b, t_len, bands in GRU_CASES:
+        dims, weights, obs, done, h0 = random_gru_case(env_id, b, t_len, 17, dev)
+        _, _, h_err, g_err = compare_gru(dev, dims, weights, obs, done, h0, bands, 19,
+                                         what=f"K9/K10 {env_id}")
+        log(f"phase 13 K9, K10 {env_id} (L={dims.obs_len}, N={obs.shape[2]}) B={b} T={t_len} "
+            f"bands {bands}: hseq max_abs_err {h_err}, gradients and dh0 within {GRAD_FRAC} of "
+            f"each block, max_abs_err {g_err}, two launches bit-equal [{kind}, {card}]")
+
+
+def phase14(dev, kind, card, k2c_err, n_envs=16384, rollout_len=128):
+    """The recurrent training main path at full width; returns the K2c, K9
+    and K10 entries."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ippo, ippo_rnn
+
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2")  # no device named: the card
+    require(env.device.type == "cuda", f"make's default device is {env.device}")
+    cfg = ippo.IPPOConfig(n_envs=n_envs, rollout_len=rollout_len, epochs=4, minibatches=4)
+    n_passes, steps = cfg.epochs * cfg.minibatches, cfg.n_envs * cfg.rollout_len
+    runner, dims = ippo_rnn.init_rnn_runner(env, cfg, seed=0)
+    step = ippo_rnn.build_rnn_fused_train_step(env, dims, cfg)
+    runner, _ = step(runner)  # warm-up
+    torch.cuda.synchronize()
+    params0 = runner.params.clone()
+    counted = {"fused_collect_gru": step.collect, "fused_gru_obs_fwd": step.gru_fwd,
+               "fused_gru_obs_bwd": step.gru_bwd}
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    runs = []
+
+    def update():
+        nonlocal runner
+        runner, metrics = step(runner)
+        runs.append(metrics)
+
+    update_ms, _ = cuda_ms(update, repeats=3)
+    launches = {k: w.launches for k, w in counted.items()}
+    want = {"fused_collect_gru": 3, "fused_gru_obs_fwd": 3 * n_passes,
+            "fused_gru_obs_bwd": 3 * n_passes}
+    require(launches == want, f"three recurrent updates launched {launches}, not {want}")
+    for metrics in runs:
+        for k, v in metrics.items():
+            require(bool(torch.isfinite(v.float())), f"recurrent metric {k} is {float(v)}")
+    moved = [float((a - b).abs().max())
+             for a, b in zip(dims.split(runner.params), dims.split(params0))]
+    require(min(moved) > 0, f"the recurrent train step left a block unmoved: {moved}")
+    rewards = [float(m["reward_per_env"]) for m in runs]
+    require(sum(rewards) > 0, f"no reward in three recurrent updates: {rewards}")
+    require(tuple(runner.carry.shape) == (n_envs, env.n_agents, dims.hidden)
+            and bool(torch.isfinite(runner.carry.float()).all()), "the carry is off")
+    last = {k: round(float(v), 5) for k, v in runs[-1].items()}
+    log(f"phase 14 recurrent train step tiny-2ag B={cfg.n_envs} T={cfg.rollout_len} E=4 M=4 "
+        f"embed {dims.embed} hidden {dims.hidden}: {update_ms:.3f} ms/update = "
+        f"{steps / update_ms * 1e3:.4g} env-steps/s over 3 updates, launches {launches}, params "
+        f"moved {max(moved)}, reward_per_env {rewards}, last metrics {last} [{kind}, {card}]")
+
+    # The same update, phase by phase.
+    collect_ms, (states, new_carry, traj) = cuda_ms(lambda: step.rollout(runner))
+    gae_ms, (obs, adv, targets) = cuda_ms(
+        lambda: step.advantages(runner, states, new_carry, traj))
+    dataset = (traj["obs"], traj["done"], traj["action"], traj["logp"], traj["value"], adv,
+               targets, runner.carry)
+    passes_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    log(f"phase 14 breakdown of one update: collect (K2c) {collect_ms:.3f} ms, bootstrap and GAE "
+        f"{gae_ms:.3f} ms, {n_passes} band passes (K9 + loss + K10 + optimizer) {passes_ms:.3f} "
+        f"ms [{kind}, {card}]")
+
+    # Each kernel at the main path's shapes, beside its plain version.
+    policy = ippo_rnn.rnn_policy_of(dims, runner.params)
+    k2c = step.collect
+    args = (runner.env_states, policy, 7, runner.carry)
+    k2c_ms, _ = cuda_ms(lambda: k2c(*args), repeats=2)
+    k2c_plain_ms, _ = cuda_ms(lambda: k2c.plain(*args))
+    weights = dims.split(runner.params)[:6]
+    n_env, starts = ippo_rnn.epoch_band_starts(cfg, 5)
+    band = (starts[0], n_env)  # rows 27..31 and 0..2: a band that wraps
+    seq = (weights, traj["obs"], traj["done"], runner.carry)
+    fwd, bwd = step.gru_fwd, step.gru_bwd
+    k9_ms, hseq = cuda_ms(lambda: fwd(*seq, *band), repeats=3)
+    k9_plain_ms, _ = cuda_ms(lambda: fwd.plain(*seq, *band))
+    dh = (torch.randn(hseq.shape, device=dev) * 1e-3).to(torch.bfloat16)
+    k10_ms, (grads, dh0) = cuda_ms(lambda: bwd(*seq, hseq, dh, *band), repeats=3)
+    k10_plain_ms, _ = cuda_ms(lambda: bwd.plain(*seq, hseq, dh, *band))
+    _, _, k9_err, k10_err = compare_gru(dev, dims, *seq, (band,), 23, fwd, bwd,
+                                        what="K9/K10 at the main shape")
+    log(f"phase 14 kernels at the main shape: K2c {k2c_ms:.3f} ms/launch (plain "
+        f"{k2c_plain_ms:.1f} ms, value/logp max_abs_err {k2c_err}); K9 {k9_ms:.3f} ms/launch "
+        f"(plain {k9_plain_ms:.1f} ms, hseq max_abs_err {k9_err}); K10 {k10_ms:.3f} ms/launch "
+        f"(plain {k10_plain_ms:.1f} ms, max_abs_err {k10_err}), band {band} [{kind}, {card}]")
+
+    # Bounds.  K2c moves the state and the carry in and out, writes the
+    # trajectory and runs the cell on every agent-step (the env step's integer
+    # work is charged nothing, as for K2a).  K9 reads its band's obs, done and
+    # initial hidden and writes hseq; K10 also reads hseq and its cotangent and
+    # writes the gradients and dh0.
+    agent_steps = float(steps * env.n_agents)
+    n_w = 4.0 * sum(r * c for r, c in dims.shapes[:6])
+    k2c_bound = bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
+                      + 2 * tensor_bytes(runner.carry) + 4.0 * dims.n_params,
+                      agent_steps * gru_cell_flops(dims, True),
+                      agent_steps * 2.0 * dims.hidden * (dims.n_actions + 1))
+    share = n_env / cfg.n_envs
+    seq_steps = float(rollout_len * n_env * env.n_agents)
+    seq_in = share * tensor_bytes(traj["obs"], traj["done"], runner.carry) + n_w / 2
+    k9_bound = bound(seq_in + tensor_bytes(hseq), seq_steps * gru_cell_flops(dims, True))
+    k10_bound = bound(seq_in + 2 * tensor_bytes(hseq) + n_w + tensor_bytes(dh0),
+                      seq_steps * gru_cell_flops(dims, False))
+    return [
+        kernel_entry("fused_collect_gru", "fused_collect_gru.cu",
+                     "rware_tpu/ops/pallas_rollout.py:1798", launches["fused_collect_gru"],
+                     k2c_err, k2c_ms, k2c_plain_ms, k2c_bound),
+        kernel_entry("fused_gru_obs_fwd", "fused_gru_fwd.cu", "rware_tpu/ops/pallas_gru.py:385",
+                     launches["fused_gru_obs_fwd"], k9_err, k9_ms, k9_plain_ms, k9_bound),
+        kernel_entry("fused_gru_obs_bwd", "fused_gru_bwd.cu", "rware_tpu/ops/pallas_gru.py:547",
+                     launches["fused_gru_obs_bwd"], k10_err, k10_ms, k10_plain_ms, k10_bound),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -862,6 +1148,9 @@ def main() -> int:
     phase9(dev, kind, card)
     phase10(dev, kind, card)
     kernels += phase11(dev, kind, card)
+    k2c_err = phase12(dev, kind, card)
+    phase13(dev, kind, card)
+    kernels += phase14(dev, kind, card, k2c_err)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -15,6 +15,10 @@
   (:class:`~rware_tpu_torch.models.networks.CriticDims` layout; dense_0 keeps
   flax's agent-major row order), and the split optimizer state
   ``{"actor", "critic"}`` of ``make_mappo_optimizer``  <->  two ``AdamState``.
+* recurrent IPPO: the flax ``RecurrentActorCritic`` pytree (``embed``, the
+  ``gru`` cell's ``ir iz in hr hz hn``, ``policy``, ``value``)  <->
+  :class:`RecurrentActorCritic` weights and the flat vector in the
+  :class:`~rware_tpu_torch.models.networks.GruDims` layout.
 
 Nothing here imports jax: the JAX side is handed over as numpy arrays.
 """
@@ -31,7 +35,10 @@ from rware_tpu_torch.models.networks import (
     BlockDims,
     CentralCritic,
     CriticDims,
+    GruDims,
+    RecurrentActorCritic,
     arrays_to_critic,
+    arrays_to_gru,
     pack_arrays,
 )
 from rware_tpu_torch.models.ppo import AdamState
@@ -126,6 +133,53 @@ def params_to_flax(flat: torch.Tensor, dims: BlockDims) -> Dict[str, Any]:
             "value": {"kernel": wc[:, a:].copy(), "bias": bc[0, a:].copy()},
         }
     }
+
+
+def gru_params_from_flax(params: Mapping[str, Any], device="cpu") -> torch.Tensor:
+    """The flat parameter vector (:class:`GruDims` layout) of a flax
+    RecurrentActorCritic params pytree (or of an optax moment pytree of the
+    same structure)."""
+    p = _tree(params)
+    g = p["gru"]
+    blocks = [
+        p["embed"]["kernel"], np.asarray(p["embed"]["bias"])[None, :],
+        np.concatenate([g[k]["kernel"] for k in ("ir", "iz", "in")], axis=1),
+        np.concatenate([g[k]["bias"] for k in ("ir", "iz", "in")])[None, :],
+        np.concatenate([g[k]["kernel"] for k in ("hr", "hz", "hn")], axis=1),
+        np.asarray(g["hn"]["bias"])[None, :],
+        np.concatenate([p["policy"]["kernel"], p["value"]["kernel"]], axis=1),
+        np.concatenate([p["policy"]["bias"], p["value"]["bias"]])[None, :],
+    ]
+    return pack_arrays([torch.from_numpy(np.array(b, dtype=np.float32)) for b in blocks]).to(device)
+
+
+def gru_params_to_flax(flat: torch.Tensor, dims: GruDims) -> Dict[str, Any]:
+    """The flax RecurrentActorCritic params pytree (numpy float32 leaves) of
+    a flat vector."""
+    we, be, wi, bi, wh, bhn, wc, bc = (a.detach().cpu().numpy() for a in dims.split(flat))
+    hg, a = dims.hidden, dims.n_actions
+    gru = {}
+    for q, (ki, kh) in enumerate((("ir", "hr"), ("iz", "hz"), ("in", "hn"))):
+        cols = slice(q * hg, (q + 1) * hg)
+        gru[ki] = {"kernel": wi[:, cols].copy(), "bias": bi[0, cols].copy()}
+        gru[kh] = {"kernel": wh[:, cols].copy()}
+    gru["hn"]["bias"] = bhn[0].copy()
+    return {
+        "params": {
+            "embed": {"kernel": we.copy(), "bias": be[0].copy()},
+            "gru": gru,
+            "policy": {"kernel": wc[:, :a].copy(), "bias": bc[0, :a].copy()},
+            "value": {"kernel": wc[:, a:].copy(), "bias": bc[0, a:].copy()},
+        }
+    }
+
+
+def recurrent_from_flax(params: Mapping[str, Any], device="cpu") -> RecurrentActorCritic:
+    """Build a :class:`RecurrentActorCritic` from a flax params pytree."""
+    p = _tree(params)
+    dims = GruDims(np.shape(p["embed"]["kernel"])[0], np.shape(p["embed"]["kernel"])[1],
+                   np.shape(p["gru"]["hr"]["kernel"])[0], np.shape(p["policy"]["kernel"])[1])
+    return arrays_to_gru(dims.split(gru_params_from_flax(params))).to(device)
 
 
 def critic_params_from_flax(params: Mapping[str, Any], device="cpu") -> torch.Tensor:

@@ -25,69 +25,13 @@
 // shared-memory reads feeding it; eight outputs share each input read.
 // The trajectory writes (about 300 bytes per env-step at tiny-2ag) are the
 // device-memory traffic.
-#include <cuda_bf16.h>
-
-#include "env_core.cuh"
-
-#define RW_MAX_A 8
-#define RW_JB 8  // hidden outputs computed together per input read
+#include "collect_core.cuh"
 
 struct MlpDims {
   int L, H1, H2, A;
-  int sensor_range, normalised, deterministic;
+  int deterministic;
+  ObsDims obs;
 };
-
-// FLATTENED observation of agent i into this thread's column of `xs`
-// (rware_tpu_torch/core/observations.py; empty cells read dir [1,0,0,0]).
-static __device__ void build_obs(const EnvState& st, const EnvDims& d, const EnvLayout& lay,
-                                 const MlpDims& m, int i, __nv_bfloat16* xs, int TB, int tid) {
-  const int N = d.n, S = d.s, R = d.r, W = d.w, sr = m.sensor_range;
-  const int side = 2 * sr + 1, w2 = side * side;
-  const __nv_bfloat16 one = __float2bfloat16_rn(1.f), zero = __float2bfloat16_rn(0.f);
-#define X(k) xs[(size_t)(k) * TB + tid]
-  float fx = (float)st.ax[i], fy = (float)st.ay[i];
-  if (m.normalised) {
-    fx = __fdiv_rn(fx, (float)(W - 1));
-    fy = __fdiv_rn(fy, (float)(d.h - 1));
-  }
-  X(0) = __float2bfloat16_rn(fx);
-  X(1) = __float2bfloat16_rn(fy);
-  X(2) = st.carry[i] >= 0 ? one : zero;
-  for (int k = 0; k < 4; ++k) X(3 + k) = st.ad[i] == k ? one : zero;
-  X(7) = lay.highway[st.ay[i] * W + st.ax[i]] ? one : zero;
-  for (int c = 0; c < w2; ++c) {
-    const int b = 8 + 7 * c;
-    X(b) = zero;
-    X(b + 1) = one;
-    X(b + 2) = zero;
-    X(b + 3) = zero;
-    X(b + 4) = zero;
-    X(b + 5) = zero;
-    X(b + 6) = zero;
-  }
-  for (int j = 0; j < N; ++j) {
-    const int rx = st.ax[j] - st.ax[i] + sr, ry = st.ay[j] - st.ay[i] + sr;
-    if (rx < 0 || rx >= side || ry < 0 || ry >= side) continue;
-    const int b = 8 + 7 * (ry * side + rx);
-    X(b) = one;
-    X(b + 1) = zero;
-    X(b + 1 + st.ad[j]) = one;
-  }
-  for (int s = 0; s < S; ++s) {
-    const int rx = st.scell[s] % W - st.ax[i] + sr, ry = st.scell[s] / W - st.ay[i] + sr;
-    if (rx < 0 || rx >= side || ry < 0 || ry >= side) continue;
-    const int b = 8 + 7 * (ry * side + rx);
-    X(b + 5) = one;
-    bool inq = false;
-    for (int r = 0; r < R; ++r) inq |= st.q[r] == s;
-    if (inq) X(b + 6) = one;
-  }
-#undef X
-}
-
-static __device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
                                      const int* __restrict__ layout,
@@ -141,7 +85,7 @@ __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
   for (int t = 0; t < T; ++t) {
     for (int i = 0; i < N; ++i) {
       const size_t row = ((size_t)t * B + e) * N + i;
-      build_obs(st, d, lay, m, i, xs, TB, tid);
+      build_obs(st, d, lay, m.obs, i, xs, TB, tid);
       for (int k = 0; k < L; ++k) obs[row * L + k] = xs[(size_t)k * TB + tid];
 
       // dense_0 + tanh -> hs (bf16)
@@ -185,29 +129,11 @@ __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
       for (int a = 0; a < A; ++a) lg[a] = __fadd_rn(lg[a], sbp[a]);
       val = __fadd_rn(val, sbv[0]);
 
-      // Gumbel-argmax over 23-bit uniforms (argmax in deterministic mode);
-      // ties go to the lowest action.
-      int act = 0;
-      float best = 0.f;
-      for (int a = 0; a < A; ++a) {
-        float score = lg[a];
-        if (!m.deterministic) {
-          const uint32_t bits = draw_bits(d, e, t, RW_ACTION, i * A + a);
-          const float u = (float)(bits & 0x7FFFFFu) * (1.0f / 8388608.0f);
-          score = __fsub_rn(lg[a], logf(__fadd_rn(-logf(__fadd_rn(u, 1e-10f)), 1e-10f)));
-        }
-        if (a == 0 || score > best) {
-          best = score;
-          act = a;
-        }
-      }
-      float mx = lg[0];
-      for (int a = 1; a < A; ++a) mx = fmaxf(mx, lg[a]);
-      float ssum = 0.f;
-      for (int a = 0; a < A; ++a) ssum += expf(lg[a] - mx);
+      float lp;
+      const int act = sample_gumbel(lg, A, m.deterministic, d, e, t, i, &lp);
       acts[i] = act;
       action[row] = act;
-      logp[row] = lg[act] - (mx + logf(ssum));
+      logp[row] = lp;
       value[row] = val;
     }
     const bool done = env_step(st, acts, rew, d, lay, e, t);
@@ -244,9 +170,10 @@ extern "C" int rw_fused_collect(int n, int s, int r, int g, int h, int w, int re
   m.H1 = H1;
   m.H2 = H2;
   m.A = A;
-  m.sensor_range = sensor_range;
-  m.normalised = normalised;
   m.deterministic = deterministic;
+  m.obs.L = L;
+  m.obs.sensor_range = sensor_range;
+  m.obs.normalised = normalised;
   cudaError_t err = cudaFuncSetAttribute(
       fused_collect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

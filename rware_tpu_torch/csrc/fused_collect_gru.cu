@@ -1,0 +1,231 @@
+// K2c: the fused recurrent collector — per step: FLATTENED observation, embed
+// + GRU cell + f32 heads of the shared RecurrentActorCritic, Gumbel-argmax
+// sample, env step, autoreset; the hidden carry stays on the card for the
+// whole rollout and is zeroed where an episode ends.  The trajectory (obs
+// bf16, action, logp, value, reward, done) is streamed out.
+//
+// Replaces rware_tpu/ops/pallas_rollout.py::build_pallas_collect in mode
+// policy="gru", FLATTENED observations, msg_bits=0 (_gru_forward, and the
+// carry handling of _make_collect_kernel).  The TPU kernel feeds (L, N*1024)
+// feature tiles to the MXU and keeps the (Hg, N, 8, 128) carry in VMEM
+// scratch; here one thread owns one env (K2a's design) and runs its agents'
+// cells with scalar loops.  The three weight matrices (We, Wi = [ir|iz|in],
+// Wh = [hr|hz|hn], bf16, 210 KB at L=71, E=Hg=128) do not fit beside the
+// per-thread tiles in a block's 227 KB of shared memory, so they are read
+// from device memory through the read-only cache: every thread of a warp
+// reads the same 16 bytes (eight outputs of one input row), one broadcast
+// load per 8 x 32 multiply-adds, and the matrices stay in L1/L2.  Each thread
+// keeps its observation, embedding and previous hidden as bf16 columns of
+// shared-memory tiles; the carry of all agents lives in a (N, Hg, B) bf16
+// buffer in device memory (coalesced over envs), updated in place.
+//
+// Numerics follow _gru_forward (pallas_rollout.py:1472-1486): bf16 inputs and
+// weights, f32 sums; e = tanh(bf16(x We + be)); r, z = bf16(sigmoid(e Wi + h
+// Wh + b)) with the two sums added in f32; n = tanh(bf16(e Win + bin) + r *
+// bf16(h Whn + bhn)) in bf16 arithmetic; new_h = (1 - z) * n + z * h in bf16
+// arithmetic; f32 heads on f32 weights.  Sums run over the input features in
+// ascending order with separately rounded multiplies and adds (no FMA) and
+// the sigmoid is 1 / (1 + expf(-x)) with one rounded add and one rounded
+// division: the order and formulas of
+// rware_tpu_torch/models/networks.py::gru_collect_step, so the plain version
+// reproduces the kernel on the card and a rounding difference cannot feed
+// back through the recurrence into later actions.
+//
+// Bound on the card: the cell's FP32 multiply/add throughput, about 108k
+// multiply-adds per agent-step at L=71, E=Hg=128 (embed 9k, input gates 49k,
+// hidden gates 49k, heads 0.8k), four times K2a's MLP.
+#include "collect_core.cuh"
+#include "gru_core.cuh"  // gru_load8, gru_sigmoid
+
+struct GruCollectDims {
+  int L, E, Hg, A;
+  int deterministic;
+  ObsDims obs;
+};
+
+__global__ void __launch_bounds__(128)
+    fused_collect_gru_kernel(EnvDims d, GruCollectDims m, int T, int B,
+                             const int* __restrict__ layout, const int* __restrict__ state_in,
+                             int* __restrict__ state_out, const __nv_bfloat16* __restrict__ we,
+                             const float* __restrict__ be, const __nv_bfloat16* __restrict__ wi,
+                             const float* __restrict__ bi, const __nv_bfloat16* __restrict__ wh,
+                             const float* __restrict__ bhn, const float* __restrict__ wc,
+                             const float* __restrict__ bc, __nv_bfloat16* __restrict__ hbuf,
+                             __nv_bfloat16* __restrict__ obs, int* __restrict__ action,
+                             float* __restrict__ logp, float* __restrict__ value,
+                             float* __restrict__ reward, uint8_t* __restrict__ done_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int L = m.L, E = m.E, Hg = m.Hg, A = m.A, AC = m.A + 1, N = d.n;
+  const int TB = blockDim.x, tid = threadIdx.x;
+
+  // Shared memory: f32 [be E | bi 3Hg | bhn Hg | wc Hg*AC | bc AC], padded to
+  // 16 bytes, then bf16 tiles [xs L*TB | es E*TB | hs Hg*TB].
+  float* sbe = (float*)smem;
+  float* sbi = sbe + E;
+  float* sbhn = sbi + 3 * Hg;
+  float* swc = sbhn + Hg;
+  float* sbc = swc + Hg * AC;
+  const size_t fbytes = ((size_t)(E + 4 * Hg + Hg * AC + AC) * 4 + 15) & ~(size_t)15;
+  __nv_bfloat16* xs = (__nv_bfloat16*)(smem + fbytes);
+  __nv_bfloat16* es = xs + (size_t)L * TB;
+  __nv_bfloat16* hs = es + (size_t)E * TB;
+  for (int k = tid; k < E; k += TB) sbe[k] = be[k];
+  for (int k = tid; k < 3 * Hg; k += TB) sbi[k] = bi[k];
+  for (int k = tid; k < Hg; k += TB) sbhn[k] = bhn[k];
+  for (int k = tid; k < Hg * AC; k += TB) swc[k] = wc[k];
+  for (int k = tid; k < AC; k += TB) sbc[k] = bc[k];
+  __syncthreads();
+
+  const int e = blockIdx.x * TB + tid;
+  if (e >= B) return;
+  const EnvLayout lay = make_layout(d, layout);
+  EnvState st;
+  load_state(st, d, state_in, e, B);
+  int acts[RW_MAX_N];
+  float rew[RW_MAX_N];
+
+  for (int t = 0; t < T; ++t) {
+    for (int i = 0; i < N; ++i) {
+      const size_t row = ((size_t)t * B + e) * N + i;
+      build_obs(st, d, lay, m.obs, i, xs, TB, tid);
+      for (int k = 0; k < L; ++k) obs[row * L + k] = xs[(size_t)k * TB + tid];
+
+      // embed: es = bf16(tanh(bf16(x We + be)))
+      for (int j0 = 0; j0 < E; j0 += RW_JB) {
+        float acc[RW_JB];
+#pragma unroll
+        for (int jj = 0; jj < RW_JB; ++jj) acc[jj] = 0.f;
+        for (int k = 0; k < L; ++k) {
+          const float xv = __bfloat162float(xs[(size_t)k * TB + tid]);
+          float w[RW_JB];
+          gru_load8(we + (size_t)k * E + j0, w);
+#pragma unroll
+          for (int jj = 0; jj < RW_JB; ++jj) acc[jj] = __fadd_rn(acc[jj], __fmul_rn(xv, w[jj]));
+        }
+#pragma unroll
+        for (int jj = 0; jj < RW_JB; ++jj) {
+          const float v = bf16_round(__fadd_rn(acc[jj], sbe[j0 + jj]));
+          es[(size_t)(j0 + jj) * TB + tid] = __float2bfloat16_rn(tanhf(v));
+        }
+      }
+      // this agent's carry -> hs
+      __nv_bfloat16* hrow = hbuf + (size_t)i * Hg * B + e;
+      for (int k = 0; k < Hg; ++k) hs[(size_t)k * TB + tid] = hrow[(size_t)k * B];
+
+      // the cell, eight hidden units at a time, folded into the f32 heads in
+      // hidden order
+      float lg[RW_MAX_A];
+      for (int a = 0; a < A; ++a) lg[a] = 0.f;
+      float val = 0.f;
+      for (int j0 = 0; j0 < Hg; j0 += RW_JB) {
+        float ai[3][RW_JB], ah[3][RW_JB];
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+#pragma unroll
+          for (int jj = 0; jj < RW_JB; ++jj) ai[g][jj] = ah[g][jj] = 0.f;
+        for (int k = 0; k < E; ++k) {
+          const float ev = __bfloat162float(es[(size_t)k * TB + tid]);
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            float w[RW_JB];
+            gru_load8(wi + (size_t)k * 3 * Hg + g * Hg + j0, w);
+#pragma unroll
+            for (int jj = 0; jj < RW_JB; ++jj)
+              ai[g][jj] = __fadd_rn(ai[g][jj], __fmul_rn(ev, w[jj]));
+          }
+        }
+        for (int k = 0; k < Hg; ++k) {
+          const float hv = __bfloat162float(hs[(size_t)k * TB + tid]);
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            float w[RW_JB];
+            gru_load8(wh + (size_t)k * 3 * Hg + g * Hg + j0, w);
+#pragma unroll
+            for (int jj = 0; jj < RW_JB; ++jj)
+              ah[g][jj] = __fadd_rn(ah[g][jj], __fmul_rn(hv, w[jj]));
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < RW_JB; ++jj) {
+          const int j = j0 + jj;
+          const float r = bf16_round(gru_sigmoid(__fadd_rn(__fadd_rn(ai[0][jj], ah[0][jj]), sbi[j])));
+          const float z =
+              bf16_round(gru_sigmoid(__fadd_rn(__fadd_rn(ai[1][jj], ah[1][jj]), sbi[Hg + j])));
+          const float in_b = bf16_round(__fadd_rn(ai[2][jj], sbi[2 * Hg + j]));
+          const float hn_b = bf16_round(__fadd_rn(ah[2][jj], sbhn[j]));
+          const float nn =
+              bf16_round(tanhf(bf16_round(__fadd_rn(in_b, bf16_round(__fmul_rn(r, hn_b))))));
+          const float hp = __bfloat162float(hs[(size_t)j * TB + tid]);
+          const float nh = bf16_round(__fadd_rn(bf16_round(__fmul_rn(bf16_round(__fsub_rn(1.f, z)), nn)),
+                                                bf16_round(__fmul_rn(z, hp))));
+          hrow[(size_t)j * B] = __float2bfloat16_rn(nh);
+          for (int a = 0; a < A; ++a) lg[a] = __fadd_rn(lg[a], __fmul_rn(nh, swc[j * AC + a]));
+          val = __fadd_rn(val, __fmul_rn(nh, swc[j * AC + A]));
+        }
+      }
+      for (int a = 0; a < A; ++a) lg[a] = __fadd_rn(lg[a], sbc[a]);
+      val = __fadd_rn(val, sbc[A]);
+
+      float lp;
+      const int act = sample_gumbel(lg, A, m.deterministic, d, e, t, i, &lp);
+      acts[i] = act;
+      action[row] = act;
+      logp[row] = lp;
+      value[row] = val;
+    }
+    const bool done = env_step(st, acts, rew, d, lay, e, t);
+    for (int i = 0; i < N; ++i) reward[((size_t)t * B + e) * N + i] = rew[i];
+    done_out[(size_t)t * B + e] = done ? 1 : 0;
+    if (done) {  // the carry restarts with the episode
+      const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+      for (int k = 0; k < N * Hg; ++k) hbuf[(size_t)k * B + e] = zero;
+    }
+  }
+  store_state(st, d, state_out, e, B);
+}
+
+extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, int reward_type,
+                                    int max_steps, int max_inactive, unsigned long long seed,
+                                    int deterministic, int T, int B, int sensor_range,
+                                    int normalised, int L, int E, int Hg, int A, int threads,
+                                    int smem_bytes, const void* layout, const void* state_in,
+                                    void* state_out, const void* we, const void* be,
+                                    const void* wi, const void* bi, const void* wh,
+                                    const void* bhn, const void* wc, const void* bc, void* hbuf,
+                                    void* obs, void* action, void* logp, void* value,
+                                    void* reward, void* done, void* stream) {
+  EnvDims d;
+  d.n = n;
+  d.s = s;
+  d.r = r;
+  d.g = g;
+  d.h = h;
+  d.w = w;
+  d.reward_type = reward_type;
+  d.max_steps = max_steps;
+  d.max_inactive = max_inactive;
+  d.scripted = deterministic;
+  d.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
+  d.seed_hi = (uint32_t)(seed >> 32);
+  GruCollectDims m;
+  m.L = L;
+  m.E = E;
+  m.Hg = Hg;
+  m.A = A;
+  m.deterministic = deterministic;
+  m.obs.L = L;
+  m.obs.sensor_range = sensor_range;
+  m.obs.normalised = normalised;
+  if (threads > 128 || A > RW_MAX_A || E % RW_JB || Hg % RW_JB) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_collect_gru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + threads - 1) / threads;
+  fused_collect_gru_kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
+      d, m, T, B, (const int*)layout, (const int*)state_in, (int*)state_out,
+      (const __nv_bfloat16*)we, (const float*)be, (const __nv_bfloat16*)wi, (const float*)bi,
+      (const __nv_bfloat16*)wh, (const float*)bhn, (const float*)wc, (const float*)bc,
+      (__nv_bfloat16*)hbuf, (__nv_bfloat16*)obs, (int*)action, (float*)logp, (float*)value,
+      (float*)reward, (uint8_t*)done);
+  return (int)cudaGetLastError();
+}

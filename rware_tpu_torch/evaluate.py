@@ -1,5 +1,7 @@
 """Evaluate a policy saved by ``rware_tpu_torch.train`` — the port's
-counterpart of ``evaluate.py`` for IPPO MLP policies.
+counterpart of ``evaluate.py`` for the nets the port trains: the shared MLP
+(``ActorCritic``; IPPO's, and MAPPO's actor) and the shared GRU
+(``RecurrentActorCritic``; recurrent IPPO's).  The checkpoint names its kind.
 
 Examples::
 
@@ -7,9 +9,11 @@ Examples::
     python -m rware_tpu_torch.evaluate --device cpu --env rware-tiny-2ag-v2 --random
 
 One episode per env: the env runs ``--max-steps`` steps of the sampled
-policy through the fused collector (the K2a kernel on a GPU, its plain
-version on the CPU), and an env's return is its reward summed over agents
-until its first episode end (``evaluate.py:176-214``).
+policy through the fused collector of its kind (the K2a or K2c kernel on a
+GPU, its plain version on the CPU), and an env's return is its reward summed
+over agents until its first episode end (``evaluate.py:176-214``).  A GRU
+policy starts from the zero carry, which the collector threads through the
+steps and zeroes at episode ends (``evaluate.py:119-192``).
 """
 from __future__ import annotations
 
@@ -18,20 +22,26 @@ import os
 
 import torch
 
-from rware_tpu_torch.models.networks import ActorCritic
+from rware_tpu_torch.models.networks import ActorCritic, RecurrentActorCritic
 
 
-def mean_return(env, policy: ActorCritic, episodes: int, max_steps: int = 500,
-                seed: int = 0) -> dict:
+def mean_return(env, policy, episodes: int, max_steps: int = 500, seed: int = 0) -> dict:
     """Return statistics of ``episodes`` envs, each run for ``max_steps``
-    steps from a fresh reset: mean and std of the returns, the mean episode
-    length and the number of envs whose episode had not ended."""
-    from rware_tpu_torch.ops.fused_rollout import build_fused_collect
+    steps of ``policy`` (an ``ActorCritic`` or a ``RecurrentActorCritic``)
+    from a fresh reset: mean and std of the returns, the mean episode length
+    and the number of envs whose episode had not ended."""
+    from rware_tpu_torch.ops.fused_rollout import build_fused_collect, build_fused_collect_gru
     from rware_tpu_torch.parallel import batched_reset
 
     states, _ = batched_reset(env, seed, episodes)
-    collect = build_fused_collect(env.config, max_steps, policy.hidden)
-    _, traj = collect(states, policy.to(env.device), seed)
+    policy = policy.to(env.device)
+    if isinstance(policy, RecurrentActorCritic):
+        collect = build_fused_collect_gru(env.config, max_steps, (policy.embed_dim, policy.hidden))
+        carry = policy.initialize_carry((episodes, env.n_agents), env.device)
+        _, _, traj = collect(states, policy, seed, carry)
+    else:
+        collect = build_fused_collect(env.config, max_steps, policy.hidden)
+        _, traj = collect(states, policy, seed)
     done = traj["done"].to(torch.float32)  # (T, B)
     alive = torch.cumprod(torch.cat([torch.ones_like(done[:1]), 1.0 - done[:-1]]), dim=0)
     returns = (traj["reward"].sum(-1) * alive).sum(0)

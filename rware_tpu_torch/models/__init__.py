@@ -1,4 +1,9 @@
 """Policy and value networks."""
-from rware_tpu_torch.models.networks import ActorCritic, CentralCritic, sample_action
+from rware_tpu_torch.models.networks import (
+    ActorCritic,
+    CentralCritic,
+    RecurrentActorCritic,
+    sample_action,
+)
 
-__all__ = ["ActorCritic", "CentralCritic", "sample_action"]
+__all__ = ["ActorCritic", "CentralCritic", "RecurrentActorCritic", "sample_action"]

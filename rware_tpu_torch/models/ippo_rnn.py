@@ -1,0 +1,289 @@
+"""Recurrent IPPO: GRU policies over partial observations (the counterpart
+of ``rware_tpu/models/ippo_rnn.py``, without message bits).
+
+The GRU carry ``(B, N, Hg)`` bf16 lives in the runner next to the env states;
+an episode's end zeroes it.  The PPO epochs keep whole sequences: a minibatch
+is a set of envs, and the GRU is run again over the stored trajectory from
+the carry at the rollout's start.
+
+* :func:`build_rnn_train_step` is the plain learner
+  (``ippo_rnn.py:79-245``): the plain version of the recurrent collector,
+  env-shuffled minibatches, a per-step replay under autograd.
+* :func:`build_rnn_fused_train_step` is the learner on the kernels
+  (``build_rnn_pallas_train_step`` with ``native=True, fused_loss=False``,
+  ``ippo_rnn.py:745-937``): the recurrent collector (K2c), then E epochs of M
+  **env-band** minibatches, each one launch of the GRU forward kernel (K9)
+  and one of its backward kernel (K10) around the head product and the loss,
+  which autograd differentiates as XLA does there.
+
+Parameters are one flat float32 vector in the
+:class:`~rware_tpu_torch.models.networks.GruDims` layout, so the optimizer of
+:mod:`rware_tpu_torch.models.ppo` serves unchanged.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from rware_tpu_torch.core.env import Warehouse
+from rware_tpu_torch.core.state import WarehouseState
+from rware_tpu_torch.models.ippo import (
+    IPPOConfig,
+    collect_seed,
+    compute_gae,
+    mean_metrics,
+    optimizer_init,
+    optimizer_step,
+    update_metrics,
+)
+from rware_tpu_torch.models.networks import (
+    GruDims,
+    arrays_to_gru,
+    gru_apply_step,
+    gru_replay_heads,
+    gru_replay_step,
+    gru_to_arrays,
+    init_recurrent_actor_critic,
+    pack_arrays,
+)
+from rware_tpu_torch.models.ppo import AdamState, clipped_ppo_terms, loss_grads
+from rware_tpu_torch.ops.fused_gru import (
+    GruObsScan,
+    build_fused_gru_obs_bwd,
+    build_fused_gru_obs_fwd,
+)
+from rware_tpu_torch.ops.fused_rollout import build_fused_collect_gru
+
+LANE = 128  # envs per row of a band (the JAX package's tile width)
+
+
+@dataclasses.dataclass
+class RNNRunnerState:
+    """Everything the recurrent train loop carries between updates.
+    ``generator`` (a CPU ``torch.Generator``) is advanced in place."""
+
+    params: torch.Tensor  # flat float32, GruDims layout
+    opt_state: AdamState
+    env_states: WarehouseState  # env-batched (B, ...)
+    obs: torch.Tensor  # (B, N, L)
+    carry: torch.Tensor  # (B, N, Hg) bf16 GRU hidden
+    generator: torch.Generator
+    update_idx: int
+    seed: int  # the run seed: keys the collector's streams (collect_seed)
+
+
+def init_rnn_runner(env: Warehouse, cfg: IPPOConfig, seed: int, hidden: int = 128,
+                    embed: int = 128) -> Tuple[RNNRunnerState, GruDims]:
+    """Parameters (flax's default init, from ``seed``), optimizer, a fresh
+    batch of ``cfg.n_envs`` env states and the zero carry on ``env.device``."""
+    from rware_tpu_torch.parallel import batched_reset
+
+    model = init_recurrent_actor_critic(env.config.flattened_obs_length, env.n_actions, hidden,
+                                        embed, seed)
+    params = pack_arrays(gru_to_arrays(model)).detach().to(env.device)
+    env_states, obs = batched_reset(env, seed, cfg.n_envs)
+    runner = RNNRunnerState(
+        params=params, opt_state=optimizer_init(params), env_states=env_states, obs=obs,
+        carry=model.initialize_carry((cfg.n_envs, env.n_agents), env.device),
+        generator=torch.Generator().manual_seed(seed), update_idx=0, seed=seed,
+    )
+    return runner, GruDims.of(model)
+
+
+def rnn_policy_of(dims: GruDims, params: torch.Tensor, model=None):
+    """The :class:`RecurrentActorCritic` holding ``params`` (copied into
+    ``model`` when given) — what the collectors run."""
+    return arrays_to_gru(dims.split(params.detach()), model)
+
+
+def rnn_last_values(dims: GruDims, params: torch.Tensor, carry: torch.Tensor,
+                    obs: torch.Tensor) -> torch.Tensor:
+    """(B, N) values of the observations after the rollout from the carry
+    after it, by the JAX package's ``model.apply`` recipe
+    (:func:`gru_apply_step`; ``ippo_rnn.py:823-825``)."""
+    with torch.no_grad():
+        return gru_apply_step(dims.split(params), carry, obs)[2]
+
+
+def band_slice(x: torch.Tensor, start_env: int, n_env: int) -> torch.Tensor:
+    """Envs ``(start_env + i) % B``, ``i < n_env``, of a (T, B, ...) tensor:
+    a view unless the band wraps."""
+    b = x.shape[1]
+    if start_env + n_env <= b:
+        return x[:, start_env:start_env + n_env]
+    return torch.cat([x[:, start_env:], x[:, :start_env + n_env - b]], dim=1)
+
+
+def gru_native_replay(dims: GruDims, params: torch.Tensor, obs, done, h0, start_env: int,
+                      n_env: int, fwd, bwd):
+    """(logits (T, n_env, N, A), value (T, n_env, N)) of the GRU run again
+    over an env band of the stored trajectory (``_gru_native_replay``,
+    ``ippo_rnn.py:473-560``): the hidden sequence by :class:`GruObsScan`
+    (K9, and K10 on the way back), then the head product on the bf16 hidden
+    with bf16-rounded head weights and float32 sums."""
+    we, be, wi, bi, wh, bhn, wc, bc = dims.split(params)
+    hseq = GruObsScan.apply(we, be, wi, bi, wh, bhn, obs, done, h0, start_env, n_env, fwd, bwd)
+    return gru_replay_heads(wc, bc, hseq)
+
+
+def rnn_ppo_loss_native(cfg, dims: GruDims, params: torch.Tensor, dataset, band, fwd, bwd):
+    """Clipped-PPO loss of one env band ``(start_env, n_env)`` of the dataset
+    ``(obs, done, action, logp, value, adv, target, h0)`` in the ``(T, B, N,
+    ...)`` layout (``ippo_rnn.py:574-597``); the advantages are normalised
+    over the band.  Returns (total, metrics)."""
+    obs, done, action, logp, value_old, adv, target, h0 = dataset
+    logits, value = gru_native_replay(dims, params, obs, done, h0, *band, fwd, bwd)
+    action, logp, value_old, adv, target = (
+        band_slice(x, *band) for x in (action, logp, value_old, adv, target))
+    return clipped_ppo_terms(cfg, logits, value, action, logp, value_old, adv, target)
+
+
+def band_rows(cfg: IPPOConfig) -> Tuple[int, int]:
+    """(envs per row, rows) of the env bands: rows of :data:`LANE` envs, M
+    dividing their number (``ippo_rnn.py:849-854``).  A batch that small
+    that it has fewer than M such rows (the JAX collector cannot run one: it
+    takes multiples of 1,024 envs) is cut in rows of B / M envs."""
+    b, m = cfg.n_envs, cfg.minibatches
+    if b % (LANE * m) == 0:
+        return LANE, b // LANE
+    if b < LANE * m and b % m == 0:
+        return b // m, m
+    raise ValueError(f"minibatches={m} must divide the {b // LANE} env rows (n_envs / {LANE})")
+
+
+def epoch_band_starts(cfg: IPPOConfig, off: int) -> Tuple[int, list]:
+    """(envs per band, the M bands' first envs) of an epoch with row offset
+    ``off``: pass i takes rows ``(i * mb - off) % rb`` onwards, wrapping
+    (``ippo_rnn.py:870-878``)."""
+    lane, rb = band_rows(cfg)
+    mb = rb // cfg.minibatches
+    return mb * lane, [((i * mb - off) % rb) * lane for i in range(cfg.minibatches)]
+
+
+class RnnFusedTrainStep:
+    """``train_step(runner, offsets=None) -> (runner, metrics)``; see
+    :func:`build_rnn_fused_train_step`.  The phases are methods so that
+    callers can time them: :meth:`rollout`, :meth:`advantages`,
+    :meth:`update`."""
+
+    def __init__(self, env: Warehouse, dims: GruDims, cfg: IPPOConfig,
+                 deterministic_collect: bool = False):
+        band_rows(cfg)
+        self.env, self.dims, self.cfg = env, dims, cfg
+        self.collect = build_fused_collect_gru(env.config, cfg.rollout_len,
+                                               (dims.embed, dims.hidden),
+                                               deterministic=deterministic_collect)
+        self.gru_fwd = build_fused_gru_obs_fwd(dims)
+        self.gru_bwd = build_fused_gru_obs_bwd(dims)
+        self._policy = None
+
+    def rollout(self, runner: RNNRunnerState):
+        """(env_states, new_carry, traj) of one collector launch from the
+        runner's carry with this update's key."""
+        self._policy = rnn_policy_of(self.dims, runner.params,
+                                     None if self._policy is None
+                                     else self._policy.to(runner.params.device))
+        seed = collect_seed(runner.seed, runner.update_idx)
+        return self.collect(runner.env_states, self._policy, seed, runner.carry)
+
+    def advantages(self, runner: RNNRunnerState, env_states, new_carry,
+                   traj: Dict[str, torch.Tensor]):
+        """(obs after the rollout, advantages, targets)."""
+        obs = self.env._obs_fn(env_states)
+        last = rnn_last_values(self.dims, runner.params, new_carry, obs)
+        adv, targets = compute_gae(self.cfg, traj["reward"], traj["value"], traj["done"], last)
+        return obs, adv, targets
+
+    def update(self, runner: RNNRunnerState, dataset, offsets: Optional[torch.Tensor] = None):
+        """((params, opt_state), metrics) of the E x M band passes: one K9 and
+        one K10 launch and one optimizer step each."""
+        cfg = self.cfg
+        if offsets is None:
+            offsets = torch.randint(0, band_rows(cfg)[1], (cfg.epochs,),
+                                    generator=runner.generator)
+        params, opt_state = runner.params, runner.opt_state
+        per_pass = []
+        for off in torch.as_tensor(offsets).tolist():
+            n_env, starts = epoch_band_starts(cfg, int(off))
+            for start in starts:
+                grads, metrics = loss_grads(
+                    lambda p: rnn_ppo_loss_native(cfg, self.dims, p, dataset, (start, n_env),
+                                                  self.gru_fwd, self.gru_bwd), params)
+                params, opt_state = optimizer_step(cfg, params, grads, opt_state)
+                per_pass.append(metrics)
+        return (params, opt_state), mean_metrics(per_pass)
+
+    def __call__(self, runner: RNNRunnerState, offsets: Optional[torch.Tensor] = None
+                 ) -> Tuple[RNNRunnerState, dict]:
+        env_states, new_carry, traj = self.rollout(runner)
+        obs, adv, targets = self.advantages(runner, env_states, new_carry, traj)
+        dataset = (traj["obs"], traj["done"], traj["action"], traj["logp"], traj["value"], adv,
+                   targets, runner.carry)
+        (params, opt_state), ppo = self.update(runner, dataset, offsets)
+        new = dataclasses.replace(runner, params=params, opt_state=opt_state,
+                                  env_states=env_states, obs=obs, carry=new_carry,
+                                  update_idx=runner.update_idx + 1)
+        return new, update_metrics(self.cfg, traj, ppo)
+
+
+def build_rnn_fused_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig,
+                               deterministic_collect: bool = False) -> RnnFusedTrainStep:
+    """The recurrent learner on the kernels: K2c collect from the runner's
+    carry, the bootstrap value by the flax-rounding forward on the new carry,
+    GAE, then per epoch one row offset in ``[0, rb)`` and M env-band passes
+    (:func:`epoch_band_starts`), each a K9 forward, the loss, a K10 backward
+    and one clip + Adam step.  ``offsets`` of a call overrides the (E,) row
+    offsets drawn from the runner's generator.  On a CUDA runner every kernel
+    runs on the card; on a CPU runner every wrapper runs its plain version."""
+    return RnnFusedTrainStep(env, dims, cfg, deterministic_collect)
+
+
+def build_rnn_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig
+                         ) -> Callable[[RNNRunnerState], Tuple[RNNRunnerState, dict]]:
+    """The plain recurrent learner: ``train_step(runner) -> (runner,
+    metrics)``.  Collects with the plain version of the recurrent collector
+    (Philox draws keyed by :func:`collect_seed`, the carry zeroed at episode
+    ends), then GAE and E epochs of M minibatches of shuffled envs, each the
+    per-step replay (:func:`gru_replay_step`) from the carry at the rollout's
+    start, under autograd."""
+    collect = build_fused_collect_gru(env.config, cfg.rollout_len, (dims.embed, dims.hidden))
+    model = rnn_policy_of(dims, torch.zeros(dims.n_params))
+    mb_envs = cfg.n_envs // cfg.minibatches
+
+    def loss_fn(params, traj, adv, targets, h0, idx):
+        arrays = dims.split(params)
+        h = h0[idx].float()
+        hseq = []
+        for t in range(cfg.rollout_len):
+            new_h = gru_replay_step(arrays[:6], h, traj["obs"][t, idx])
+            hseq.append(new_h)
+            h = torch.where(traj["done"][t, idx][:, None, None], torch.zeros_like(new_h), new_h)
+        logits, value = gru_replay_heads(arrays[6], arrays[7], torch.stack(hseq))
+        return clipped_ppo_terms(cfg, logits, value, traj["action"][:, idx], traj["logp"][:, idx],
+                                 traj["value"][:, idx], adv[:, idx], targets[:, idx])
+
+    def train_step(runner: RNNRunnerState):
+        policy = rnn_policy_of(dims, runner.params, model.to(runner.params.device))
+        seed = collect_seed(runner.seed, runner.update_idx)
+        env_states, new_carry, traj = collect.plain(runner.env_states, policy, seed, runner.carry)
+        obs = env._obs_fn(env_states)
+        adv, targets = compute_gae(cfg, traj["reward"], traj["value"], traj["done"],
+                                   rnn_last_values(dims, runner.params, new_carry, obs))
+        params, opt_state = runner.params, runner.opt_state
+        per_pass = []
+        for _ in range(cfg.epochs):
+            perm = torch.randperm(cfg.n_envs, generator=runner.generator)
+            for idx in perm[: mb_envs * cfg.minibatches].reshape(cfg.minibatches, mb_envs):
+                idx = idx.to(params.device)
+                grads, metrics = loss_grads(
+                    lambda p: loss_fn(p, traj, adv, targets, runner.carry, idx), params)
+                params, opt_state = optimizer_step(cfg, params, grads, opt_state)
+                per_pass.append(metrics)
+        new = dataclasses.replace(runner, params=params, opt_state=opt_state,
+                                  env_states=env_states, obs=obs, carry=new_carry,
+                                  update_idx=runner.update_idx + 1)
+        return new, update_metrics(cfg, traj, mean_metrics(per_pass))
+
+    return train_step

@@ -10,6 +10,12 @@ one rounded multiply and one rounded add per term, no fused multiply-add —
 which is the order the fused collector kernel (``csrc/fused_collect.cu``)
 uses, so on the card the two agree bit for bit.
 
+The recurrent policy (:class:`RecurrentActorCritic`, embed + GRU cell + f32
+heads) is at the end of this file, in the three roundings the JAX package
+gives one cell: the fused collector's (:func:`gru_collect_step`), the
+sequence kernels' (:func:`gru_replay_step`, :func:`gru_replay_heads`) and
+flax's own (:func:`gru_apply_step`).
+
 The learners train on :func:`train_forward`: the same recipe
 (``rware_tpu/models/ippo_pallas.py::_native_trunk``) with ``torch.matmul``
 products, differentiable, on the six kernel-layout parameter blocks of
@@ -103,14 +109,14 @@ def sample_action(
 
 
 class _FlatBlocks:
-    """Six ``(rows, cols)`` blocks (``shapes``) packed into one flat vector."""
+    """``(rows, cols)`` blocks (``shapes``) packed into one flat vector."""
 
     @property
     def n_params(self) -> int:
         return sum(r * c for r, c in self.shapes)
 
     def split(self, flat: torch.Tensor) -> List[torch.Tensor]:
-        """The six blocks as views of ``flat``."""
+        """The blocks as views of ``flat``."""
         sizes = [r * c for r, c in self.shapes]
         return [p.view(s) for p, s in zip(torch.split(flat, sizes), self.shapes)]
 
@@ -143,7 +149,7 @@ class BlockDims(_FlatBlocks):
 
 
 def pack_arrays(arrays: Sequence[torch.Tensor]) -> torch.Tensor:
-    """One flat float32 vector of the six blocks."""
+    """One flat float32 vector of the blocks."""
     return torch.cat([a.reshape(-1).to(torch.float32) for a in arrays])
 
 
@@ -385,3 +391,271 @@ def critic_apply_forward(arrays: Sequence[torch.Tensor], joint: torch.Tensor) ->
     rounding (see :func:`apply_forward`); MAPPO's bootstrap value
     (``critic.apply`` at ``mappo.py:604-607``) reads it."""
     return _apply_heads(arrays, joint)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent actor-critic: embed + GRU cell + float32 heads.
+# ---------------------------------------------------------------------------
+
+
+def rnd_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16, as float32 (no gradient)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def ordered_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in float32 for ``x`` (M, K) and ``w`` (K, J), summed over k
+    in ascending order with separately rounded multiplies and adds: the
+    order of the collector kernels (see :func:`ordered_linear`)."""
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+    for k in range(x.shape[1]):
+        acc = acc + x[:, k : k + 1] * w[k]
+    return acc
+
+
+def sigmoid_f32(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))`` in float32, written out so that the CUDA kernels
+    evaluate the same formula (``expf``, one rounded add, one rounded
+    division)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+class _Bf16Param(torch.autograd.Function):
+    """A float32 weight cast to bf16 for a product, as JAX's
+    ``w.astype(bfloat16)`` is differentiated: the gradient arrives in bf16."""
+
+    @staticmethod
+    def forward(ctx, w):
+        return rnd_bf16(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return rnd_bf16(g)
+
+
+def bf16_param(w: torch.Tensor) -> torch.Tensor:
+    """``w`` rounded to bf16 (as float32); its gradient is rounded to bf16."""
+    return _Bf16Param.apply(w)
+
+
+@dataclasses.dataclass(frozen=True)
+class GruDims(_FlatBlocks):
+    """Sizes of the eight blocks of a :class:`RecurrentActorCritic`, packed
+    in this order into one flat vector: ``We (L, E)``, ``be (1, E)``,
+    ``Wi = [ir | iz | in] (E, 3Hg)``, ``bi (1, 3Hg)``,
+    ``Wh = [hr | hz | hn] (Hg, 3Hg)``, ``bhn (1, Hg)``,
+    ``Wc = [policy | value] (Hg, A+1)``, ``bc (1, A+1)``: the fused gate
+    matrices of ``ippo_rnn.py:494-512``, each kernel (in, out) as flax keeps it."""
+
+    obs_len: int
+    embed: int
+    hidden: int
+    n_actions: int = 5
+
+    @property
+    def shapes(self) -> List[Tuple[int, int]]:
+        e, hg, ac = self.embed, self.hidden, self.n_actions + 1
+        return [(self.obs_len, e), (1, e), (e, 3 * hg), (1, 3 * hg), (hg, 3 * hg), (1, hg),
+                (hg, ac), (1, ac)]
+
+    @staticmethod
+    def of(model: "RecurrentActorCritic") -> "GruDims":
+        return GruDims(model.obs_dim, model.embed_dim, model.hidden, model.n_actions)
+
+
+GRU_INPUT_GATES, GRU_HIDDEN_GATES = ("ir", "iz", "in"), ("hr", "hz", "hn")
+
+
+class RecurrentActorCritic(nn.Module):
+    """GRU actor-critic (the counterpart of the flax ``RecurrentActorCritic``
+    without message bits): ``forward(carry, obs) -> (carry, (logits,
+    value))`` consumes one timestep of obs (..., L) with the carry (...,
+    hidden) in bf16, in flax's rounding (:func:`gru_apply_step`).
+
+    The GRU's six matrices are kept as flax's ``GRUCell`` names them:
+    ``ir``, ``iz``, ``in`` with a bias, ``hr``, ``hz`` without, ``hn`` with."""
+
+    def __init__(self, obs_dim: int, n_actions: int = 5, hidden: int = 128, embed: int = 128):
+        super().__init__()
+        self.obs_dim, self.n_actions = obs_dim, n_actions
+        self.hidden, self.embed_dim = hidden, embed
+        self.embed = nn.Linear(obs_dim, embed)
+        self.gru = nn.ModuleDict({
+            **{k: nn.Linear(embed, hidden) for k in GRU_INPUT_GATES},
+            **{k: nn.Linear(hidden, hidden, bias=(k == "hn")) for k in GRU_HIDDEN_GATES},
+        })
+        self.policy = nn.Linear(hidden, n_actions)
+        self.value = nn.Linear(hidden, 1)
+
+    def initialize_carry(self, batch_shape: Tuple[int, ...], device=None) -> torch.Tensor:
+        """The zero carry ``batch_shape + (hidden,)`` in bf16."""
+        device = self.embed.weight.device if device is None else device
+        return torch.zeros(tuple(batch_shape) + (self.hidden,), dtype=torch.bfloat16,
+                           device=device)
+
+    def forward(self, carry: torch.Tensor, obs: torch.Tensor):
+        new_h, logits, value = gru_apply_step(gru_to_arrays(self), carry, obs)
+        return new_h, (logits, value)
+
+
+def gru_to_arrays(model: "RecurrentActorCritic") -> List[torch.Tensor]:
+    """The eight :class:`GruDims` blocks of ``model``."""
+    g = model.gru
+    return [
+        model.embed.weight.t(), model.embed.bias[None, :],
+        torch.cat([g[k].weight.t() for k in GRU_INPUT_GATES], 1),
+        torch.cat([g[k].bias for k in GRU_INPUT_GATES])[None, :],
+        torch.cat([g[k].weight.t() for k in GRU_HIDDEN_GATES], 1), g["hn"].bias[None, :],
+        torch.cat([model.policy.weight, model.value.weight], 0).t(),
+        torch.cat([model.policy.bias, model.value.bias], 0)[None, :],
+    ]
+
+
+@torch.no_grad()
+def arrays_to_gru(arrays: Sequence[torch.Tensor],
+                  model: Optional["RecurrentActorCritic"] = None) -> "RecurrentActorCritic":
+    """Copy the eight blocks into ``model`` (a new one on the blocks' device
+    if None) and return it."""
+    we, be, wi, bi, wh, bhn, wc, bc = arrays
+    hg, a = wh.shape[0], wc.shape[1] - 1
+    if model is None:
+        model = RecurrentActorCritic(we.shape[0], a, hg, we.shape[1]).to(we.device)
+    model.embed.weight.copy_(we.t())
+    model.embed.bias.copy_(be[0])
+    for q, (ki, kh) in enumerate(zip(GRU_INPUT_GATES, GRU_HIDDEN_GATES)):
+        model.gru[ki].weight.copy_(wi[:, q * hg:(q + 1) * hg].t())
+        model.gru[ki].bias.copy_(bi[0, q * hg:(q + 1) * hg])
+        model.gru[kh].weight.copy_(wh[:, q * hg:(q + 1) * hg].t())
+    model.gru["hn"].bias.copy_(bhn[0])
+    model.policy.weight.copy_(wc[:, :a].t())
+    model.policy.bias.copy_(bc[0, :a])
+    model.value.weight.copy_(wc[:, a:].t())
+    model.value.bias.copy_(bc[0, a:])
+    return model
+
+
+def init_recurrent_actor_critic(obs_dim: int, n_actions: int = 5, hidden: int = 128,
+                                embed: int = 128, seed: int = 0) -> "RecurrentActorCritic":
+    """A :class:`RecurrentActorCritic` with flax's default init, drawn from
+    ``numpy.random.default_rng(seed)``: LeCun-normal kernels for ``embed``,
+    ``ir``, ``iz``, ``in`` and the heads (see :func:`init_actor_critic`),
+    orthogonal ``hr``, ``hz``, ``hn`` (the Q of a normal matrix's QR with the
+    signs of R's diagonal, as ``jax.nn.initializers.orthogonal``), biases
+    zero.  The same distributions as flax's, not the same numbers."""
+    model = RecurrentActorCritic(obs_dim, n_actions, hidden, embed)
+    rng = np.random.default_rng(seed)
+    g = model.gru
+    _flax_dense_init([model.embed] + [g[k] for k in GRU_INPUT_GATES]
+                     + [model.policy, model.value], rng)
+    with torch.no_grad():
+        for k in GRU_HIDDEN_GATES:
+            q, r = np.linalg.qr(rng.standard_normal((hidden, hidden)))
+            q = q * np.sign(np.diag(r))[None, :]
+            g[k].weight.copy_(torch.from_numpy(q.T.copy()))
+        g["hn"].bias.zero_()
+    return model
+
+
+def split_gates(x: torch.Tensor):
+    hg = x.shape[-1] // 3
+    return x[..., :hg], x[..., hg:2 * hg], x[..., 2 * hg:]
+
+
+def gru_collect_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch.Tensor):
+    """One step in the fused collector's rounding
+    (``pallas_rollout.py::_gru_forward``): ``h`` (M, Hg) and ``obs`` (M, L)
+    hold bf16 values; returns (logits (M, A) f32, value (M,) f32, new_h (M,
+    Hg) float32 holding bf16 values).
+
+    Input and hidden products are summed separately in float32 and added
+    before the sigmoid; the candidate adds two bf16-rounded terms in bf16;
+    the heads are float32 on float32 weights.  Every product runs in the
+    fixed order of :func:`ordered_matmul` and the sigmoid is
+    :func:`sigmoid_f32`, so the collector kernel reproduces it bit for bit."""
+    we, be, wi, bi, wh, bhn, wc, bc = (a.float() for a in arrays)
+    hb = h.float()
+    e = bf16_tanh(ordered_matmul(rnd_bf16(obs.float()), rnd_bf16(we)) + be)
+    gi_r, gi_z, gi_n = split_gates(ordered_matmul(e, rnd_bf16(wi)))
+    gh_r, gh_z, gh_n = split_gates(ordered_matmul(hb, rnd_bf16(wh)))
+    bi_r, bi_z, bi_n = split_gates(bi)
+    r = rnd_bf16(sigmoid_f32((gi_r + gh_r) + bi_r))
+    z = rnd_bf16(sigmoid_f32((gi_z + gh_z) + bi_z))
+    n = rnd_bf16(torch.tanh(rnd_bf16(rnd_bf16(gi_n + bi_n) + rnd_bf16(r * rnd_bf16(gh_n + bhn)))))
+    new_h = rnd_bf16(rnd_bf16(rnd_bf16(1.0 - z) * n) + rnd_bf16(z * hb))
+    heads = ordered_matmul(new_h, wc) + bc
+    a = heads.shape[-1] - 1
+    return heads[:, :a], heads[:, a], new_h
+
+
+def gru_embed_gates(arrays: Sequence[torch.Tensor], obs: torch.Tensor):
+    """The time-parallel half of the sequence kernels' cell
+    (``pallas_gru.py:451-463``): ``e = bf16(tanh(bf16(obs We + be)))`` and the
+    fused input gates ``iall = bf16(e Wi + bi)`` of obs (..., L), both as
+    float32 holding bf16 values.  Differentiable; the roundings pass the
+    gradient through."""
+    we, be, wi, bi = arrays[:4]
+    e = bf16_round(torch.tanh(bf16_round(obs.float() @ bf16_round(we) + be[0])))
+    return e, bf16_round(e @ bf16_round(wi) + bi[0])
+
+
+def gru_replay_cell(wh: torch.Tensor, bhn: torch.Tensor, h: torch.Tensor, iall: torch.Tensor):
+    """The sequential half (``pallas_gru.py:467-486``): the new hidden (...,
+    Hg) from the previous one and the bf16 input gates.  ``iall`` is rounded
+    to bf16 BEFORE the gate sums (the collector's cell rounds after), and r,
+    z and the candidate's terms are bf16."""
+    hh_r, hh_z, hh_n = split_gates(h @ bf16_round(wh))
+    ia_r, ia_z, ia_n = split_gates(iall)
+    r = bf16_round(sigmoid_f32(ia_r + hh_r))
+    z = bf16_round(sigmoid_f32(ia_z + hh_z))
+    n = bf16_round(torch.tanh(bf16_round(ia_n + bf16_round(r * bf16_round(hh_n + bhn[0])))))
+    return bf16_round(bf16_round(bf16_round(1.0 - z) * n) + bf16_round(z * h))
+
+
+def gru_replay_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch.Tensor):
+    """One step in the sequence kernels' rounding: new hidden (..., Hg) as
+    float32 holding bf16 values, from ``h`` (..., Hg) and ``obs`` (..., L).
+    Differentiable (``arrays`` are the first six :class:`GruDims` blocks)."""
+    _, iall = gru_embed_gates(arrays, obs)
+    return gru_replay_cell(arrays[4], arrays[5], h.float(), iall)
+
+
+def gru_replay_heads(wc: torch.Tensor, bc: torch.Tensor, hseq: torch.Tensor):
+    """(logits, value) from the bf16 hidden sequence as the replay computes
+    them (``ippo_rnn.py:546-556``): head weights rounded to bf16, float32
+    sums, float32 biases.  The collector's heads keep float32 weights."""
+    heads = hseq.float() @ bf16_param(wc) + bc[0]
+    a = heads.shape[-1] - 1
+    return heads[..., :a], heads[..., a]
+
+
+def gru_apply_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch.Tensor):
+    """One step of the flax module itself (``Dense`` and ``GRUCell`` with
+    ``dtype=bfloat16``): every product, bias add, gate sum and activation
+    rounded to bf16 (the sigmoid as XLA expands it in bf16: ``exp``, the add
+    and the division each rounded), float32 heads on the bf16 hidden.  The learners'
+    bootstrap value (``model.apply`` at ``ippo_rnn.py:823-825``) and
+    ``evaluate`` read it.  Returns (new_h bf16, logits f32, value f32) with
+    the leading shape of ``obs``."""
+    we, be, wi, bi, wh, bhn, wc, bc = (a.float() for a in arrays)
+    lead = obs.shape[:-1]
+    hb = h.float().reshape(-1, h.shape[-1])
+    x = rnd_bf16(obs.float().reshape(-1, obs.shape[-1]))
+
+    def dense(v, w, b=None):
+        out = rnd_bf16(v @ rnd_bf16(w))
+        return out if b is None else rnd_bf16(out + rnd_bf16(b))
+
+    e = rnd_bf16(torch.tanh(dense(x, we, be)))
+    gi_r, gi_z, gi_n = split_gates(dense(e, wi, bi))
+    gh_r, gh_z, gh_n = split_gates(dense(hb, wh))
+    def sigmoid(v):  # XLA expands a bf16 logistic op by op: exp, add and divide each round
+        return rnd_bf16(1.0 / rnd_bf16(1.0 + rnd_bf16(torch.exp(-v))))
+
+    r = sigmoid(rnd_bf16(gi_r + gh_r))
+    z = sigmoid(rnd_bf16(gi_z + gh_z))
+    n = rnd_bf16(torch.tanh(rnd_bf16(gi_n + rnd_bf16(r * rnd_bf16(gh_n + rnd_bf16(bhn))))))
+    new_h = rnd_bf16(rnd_bf16(rnd_bf16(1.0 - z) * n) + rnd_bf16(z * hb))
+    heads = new_h @ wc + bc
+    a = heads.shape[-1] - 1
+    return (new_h.to(torch.bfloat16).reshape(lead + (new_h.shape[-1],)),
+            heads[:, :a].reshape(lead + (a,)), heads[:, a].reshape(lead))

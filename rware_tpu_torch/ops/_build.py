@@ -42,6 +42,17 @@ _SIGNATURES = {
     # layout state_in state_out w0 b0 w1 b1 wp bp wv bv obs action logp value
     # reward done stream
     "rw_fused_collect": _DIMS + [_I] * 11 + [_P] * 18,
+    # ... deterministic T B sensor_range normalised L E Hg A threads smem_bytes |
+    # layout state_in state_out we be wi bi wh bhn wc bc hbuf obs action logp
+    # value reward done stream
+    "rw_fused_collect_gru": _DIMS + [_I] * 11 + [_P] * 19,
+    # L E Hg T B N start_env n_env rows_per_thread | obs done h0 we be wi bi wh
+    # bhn hseq stream
+    "rw_fused_gru_fwd": [_I] * 9 + [_P] * 11,
+    # L E Hg T B N start_env n_env rows_per_thread chunk n_chunks | obs done h0
+    # hseq dhseq we be wi bi wh bhn wiT whT, scratch hp e dg3 dgi dpre part_bhn
+    # partial, grads dh0 stream
+    "rw_fused_gru_bwd": [_I] * 11 + [_P] * 23,
     # ... | start stats obs action logp value adv target params h1 h2 dz1 dz2
     # dcat partial part_mets grads mets stream
     "rw_fused_ppo_grads": _PPO_DIMS + [_P] * 19,

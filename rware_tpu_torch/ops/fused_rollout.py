@@ -1,4 +1,5 @@
-"""The fused rollout kernel (K1) and the fused MLP collector kernel (K2a).
+"""The fused rollout kernel (K1) and the fused collector kernels: MLP (K2a)
+and recurrent (K2c).
 
 * :func:`build_fused_rollout` replaces
   ``rware_tpu/ops/pallas_rollout.py::build_pallas_rollout``: T env steps per
@@ -9,10 +10,15 @@
   observation, the shared :class:`ActorCritic` forward, a Gumbel-argmax
   sample and the env step, with the trajectory streamed out in the
   ``(T, B, N, ...)`` layout.
+* :func:`build_fused_collect_gru` replaces ``build_pallas_collect`` in mode
+  ``policy="gru"``: the same step with the shared
+  :class:`RecurrentActorCritic` (embed + GRU cell + f32 heads), the
+  ``(B, N, Hg)`` bf16 carry kept on the card for the whole rollout and zeroed
+  where an episode ends.
 
 Each wrapper launches its CUDA kernel (``csrc/fused_rollout.cu``,
-``csrc/fused_collect.cu``) for tensors on a CUDA device, and runs its plain
-PyTorch version (``.plain``) only for tensors on the CPU; it counts its
+``csrc/fused_collect.cu``, ``csrc/fused_collect_gru.cu``) for tensors on a
+CUDA device, and runs its plain PyTorch version (``.plain``) only for tensors on the CPU; it counts its
 kernel launches in ``.launches``.  Both draw from the same Philox stream
 (:mod:`rware_tpu_torch.ops.philox`), so kernel and plain version agree bit
 for bit in every mode.  Scripted (K1) and deterministic (K2a) modes draw
@@ -39,7 +45,13 @@ from rware_tpu_torch.core.engine import (
     n_reset_draws,
 )
 from rware_tpu_torch.core.state import WarehouseState
-from rware_tpu_torch.models.networks import ActorCritic, sample_action
+from rware_tpu_torch.models.networks import (
+    ActorCritic,
+    RecurrentActorCritic,
+    gru_collect_step,
+    gru_to_arrays,
+    sample_action,
+)
 from rware_tpu_torch.ops import philox
 from rware_tpu_torch.types import ObservationType
 
@@ -251,17 +263,17 @@ def collect_smem_bytes(obs_len: int, hidden: Sequence[int], n_actions: int, thre
     return ((4 * f32 + 15) // 16) * 16 + 2 * bf16
 
 
-class FusedCollect:
-    """``collect(state, policy, seed) -> (state, traj)``; see
-    :func:`build_fused_collect`."""
+class _Collector:
+    """What the fused collectors share: the config checks, the block size
+    that fits shared memory, the plain engine, the trajectory buffers."""
 
-    def __init__(self, config: WarehouseConfig, n_steps: int,
-                 hidden: Tuple[int, int] = (128, 128), deterministic: bool = False):
+    def __init__(self, config: WarehouseConfig, n_steps: int, hidden: Tuple[int, int],
+                 deterministic: bool, smem_bytes, what: str):
         _check_config(config)
         if config.observation_type not in (ObservationType.FLATTENED, ObservationType.DICT):
             raise NotImplementedError("the fused collector takes FLATTENED observations")
         if len(hidden) != 2 or any(h % 8 for h in hidden):
-            raise ValueError("the fused collector takes two hidden layers, multiples of 8")
+            raise ValueError(f"the fused collector takes {what}, multiples of 8")
         self.config = config
         self.n_steps = n_steps
         self.hidden = tuple(hidden)
@@ -270,7 +282,7 @@ class FusedCollect:
         self.launches = 0
         self.threads = next(
             (t for t in (128, 64, 32)
-             if collect_smem_bytes(self.obs_len, self.hidden, 5, t) <= SMEM_LIMIT),
+             if smem_bytes(self.obs_len, *self.hidden, 5, t) <= SMEM_LIMIT),
             None,
         )
         if self.threads is None:
@@ -279,6 +291,33 @@ class FusedCollect:
         self._transition = build_transition_fn(config)
         self._reset = build_reset_fn(config)
         self._layouts: Dict[torch.device, torch.Tensor] = {}
+
+    def _layout(self, dev) -> torch.Tensor:
+        if dev not in self._layouts:
+            self._layouts[dev] = layout_buffer(self.config, dev)
+        return self._layouts[dev]
+
+    def _empty_traj(self, b: int, dev) -> Dict[str, torch.Tensor]:
+        t_len, n = self.n_steps, self.config.n_agents
+        return {
+            "obs": torch.empty((t_len, b, n, self.obs_len), dtype=torch.bfloat16, device=dev),
+            "action": torch.empty((t_len, b, n), dtype=torch.int32, device=dev),
+            "logp": torch.empty((t_len, b, n), dtype=torch.float32, device=dev),
+            "value": torch.empty((t_len, b, n), dtype=torch.float32, device=dev),
+            "reward": torch.empty((t_len, b, n), dtype=torch.float32, device=dev),
+            "done": torch.empty((t_len, b), dtype=torch.bool, device=dev),
+        }
+
+
+class FusedCollect(_Collector):
+    """``collect(state, policy, seed) -> (state, traj)``; see
+    :func:`build_fused_collect`."""
+
+    def __init__(self, config: WarehouseConfig, n_steps: int,
+                 hidden: Tuple[int, int] = (128, 128), deterministic: bool = False):
+        super().__init__(config, n_steps, hidden, deterministic,
+                         lambda l, h1, h2, a, t: collect_smem_bytes(l, (h1, h2), a, t),
+                         "two hidden layers")
 
     def _check_policy(self, policy: ActorCritic):
         if policy.hidden != self.hidden or policy.obs_dim != self.obs_len or policy.n_actions != 5:
@@ -327,8 +366,6 @@ class FusedCollect:
         dev = state.device
         b, n, t_len, l_obs = state.batch_size, self.config.n_agents, self.n_steps, self.obs_len
         h1, h2 = self.hidden
-        if dev not in self._layouts:
-            self._layouts[dev] = layout_buffer(self.config, dev)
         with torch.cuda.device(dev):
             packed = pack_state(state)
             out = torch.empty_like(packed)
@@ -343,20 +380,13 @@ class FusedCollect:
                 policy.value.weight.to(device=dev, dtype=torch.float32).contiguous(),
                 policy.value.bias.to(device=dev, dtype=torch.float32).contiguous(),
             ]
-            traj = {
-                "obs": torch.empty((t_len, b, n, l_obs), dtype=torch.bfloat16, device=dev),
-                "action": torch.empty((t_len, b, n), dtype=torch.int32, device=dev),
-                "logp": torch.empty((t_len, b, n), dtype=torch.float32, device=dev),
-                "value": torch.empty((t_len, b, n), dtype=torch.float32, device=dev),
-                "reward": torch.empty((t_len, b, n), dtype=torch.float32, device=dev),
-                "done": torch.empty((t_len, b), dtype=torch.bool, device=dev),
-            }
+            traj = self._empty_traj(b, dev)
             smem = collect_smem_bytes(l_obs, self.hidden, 5, self.threads)
             code = lib.rw_fused_collect(
                 *_dims(self.config), seed, int(self.deterministic), t_len, b,
                 self.config.sensor_range, int(self.config.normalised_coordinates),
                 l_obs, h1, h2, 5, self.threads, smem,
-                _ptr(self._layouts[dev]), _ptr(packed), _ptr(out),
+                _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
                 *[_ptr(w) for w in weights],
                 *[_ptr(traj[k]) for k in ("obs", "action", "logp", "value", "reward", "done")],
                 torch.cuda.current_stream(dev).cuda_stream,
@@ -376,3 +406,117 @@ def build_fused_collect(config: WarehouseConfig, n_steps: int,
     :class:`ActorCritic` with ``hidden``; ``deterministic`` takes the argmax
     action and the scripted draws."""
     return FusedCollect(config, n_steps, hidden, deterministic)
+
+
+def collect_gru_smem_bytes(obs_len: int, embed: int, hidden: int, n_actions: int,
+                           threads: int) -> int:
+    """Dynamic shared memory of one recurrent-collector block
+    (csrc/fused_collect_gru.cu)."""
+    ac = n_actions + 1
+    f32 = embed + 4 * hidden + hidden * ac + ac
+    return ((4 * f32 + 15) // 16) * 16 + 2 * (obs_len + embed + hidden) * threads
+
+
+class FusedCollectGru(_Collector):
+    """``collect(state, policy, seed, h0) -> (state, new_h, traj)``; see
+    :func:`build_fused_collect_gru`."""
+
+    def __init__(self, config: WarehouseConfig, n_steps: int, hidden: Tuple[int, int] = (128, 128),
+                 deterministic: bool = False):
+        super().__init__(config, n_steps, hidden, deterministic, collect_gru_smem_bytes,
+                         "(embed, gru_hidden)")
+
+    def _check(self, state: WarehouseState, policy: RecurrentActorCritic, h0: torch.Tensor):
+        _check_state(self.config, state)
+        if (policy.embed_dim, policy.hidden) != self.hidden or policy.obs_dim != self.obs_len \
+                or policy.n_actions != 5:
+            raise ValueError(
+                f"policy must be RecurrentActorCritic(obs_dim={self.obs_len}, n_actions=5, "
+                f"hidden={self.hidden[1]}, embed={self.hidden[0]})"
+            )
+        want = (state.batch_size, self.config.n_agents, self.hidden[1])
+        if tuple(h0.shape) != want or h0.dtype != torch.bfloat16 or h0.device != state.device:
+            raise ValueError(f"h0 must be bf16 {want} on {state.device}")
+
+    def __call__(self, state: WarehouseState, policy: RecurrentActorCritic, seed,
+                 h0: torch.Tensor):
+        self._check(state, policy, h0)
+        seed = _check_seed(seed)
+        if state.device.type == "cuda":
+            return self._launch(state, policy, seed, h0)
+        if state.device.type == "cpu":
+            return self.plain(state, policy, seed, h0)
+        raise ValueError(f"no fused collector for device {state.device}")
+
+    @torch.no_grad()
+    def plain(self, state: WarehouseState, policy: RecurrentActorCritic, seed, h0: torch.Tensor):
+        """The plain PyTorch version: observe -> the collector-rounding cell
+        (:func:`gru_collect_step`) -> sample -> step, with the kernel's
+        draws; the carry is zeroed where an episode ends."""
+        self._check(state, policy, h0)
+        seed = _check_seed(seed)
+        b, n, hg = state.batch_size, self.config.n_agents, self.hidden[1]
+        draws = _Draws(self.config, seed, self.deterministic, b, state.device)
+        arrays = [a.detach().to(state.device) for a in gru_to_arrays(policy)]
+        h = h0.to(torch.float32).reshape(b * n, hg)
+        out = {k: [] for k in ("obs", "action", "logp", "value", "reward", "done")}
+        for t in range(self.n_steps):
+            obs = self._obs(state).to(torch.bfloat16)
+            logits, value, h = gru_collect_step(arrays, h, obs.reshape(b * n, -1))
+            logits, value = logits.reshape(b, n, 5), value.reshape(b, n)
+            u = None
+            if not self.deterministic:
+                u = philox.gumbel_uniform(draws(t, philox.ACTION, n * 5).reshape(b, n, 5))
+            action, logp = sample_action(logits, u)
+            state, rewards, done, _ = self._transition(state, action, draws.queue(t))
+            state = self._reset(draws.respawn(t)).where(done, state)
+            h = torch.where(done.repeat_interleave(n)[:, None], torch.zeros_like(h), h)
+            for k, v in zip(out, (obs, action, logp, value, rewards, done)):
+                out[k].append(v)
+        new_h = h.reshape(b, n, hg).to(torch.bfloat16)
+        return state, new_h, {k: torch.stack(v) for k, v in out.items()}
+
+    @torch.no_grad()
+    def _launch(self, state, policy, seed, h0):
+        from rware_tpu_torch.ops._build import check, load_library
+
+        lib = load_library()
+        dev = state.device
+        b, n, t_len, l_obs = state.batch_size, self.config.n_agents, self.n_steps, self.obs_len
+        embed, hg = self.hidden
+        with torch.cuda.device(dev):
+            packed = pack_state(state)
+            out = torch.empty_like(packed)
+            we, be, wi, bi, wh, bhn, wc, bc = (a.detach().to(dev) for a in gru_to_arrays(policy))
+            weights = [
+                we.to(torch.bfloat16).contiguous(), be.float().contiguous(),
+                wi.to(torch.bfloat16).contiguous(), bi.float().contiguous(),
+                wh.to(torch.bfloat16).contiguous(), bhn.float().contiguous(),
+                wc.float().contiguous(), bc.float().contiguous(),
+            ]
+            hbuf = h0.permute(1, 2, 0).contiguous()  # (N, Hg, B): coalesced over envs
+            traj = self._empty_traj(b, dev)
+            smem = collect_gru_smem_bytes(l_obs, embed, hg, 5, self.threads)
+            code = lib.rw_fused_collect_gru(
+                *_dims(self.config), seed, int(self.deterministic), t_len, b,
+                self.config.sensor_range, int(self.config.normalised_coordinates),
+                l_obs, embed, hg, 5, self.threads, smem,
+                _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
+                *[_ptr(w) for w in weights], _ptr(hbuf),
+                *[_ptr(traj[k]) for k in ("obs", "action", "logp", "value", "reward", "done")],
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+            check(lib, code, "fused_collect_gru")
+            self.launches += 1
+        return unpack_state(out, state), hbuf.permute(2, 0, 1).contiguous(), traj
+
+
+def build_fused_collect_gru(config: WarehouseConfig, n_steps: int,
+                            hidden: Tuple[int, int] = (128, 128),
+                            deterministic: bool = False) -> FusedCollectGru:
+    """Returns ``collect(state, policy, seed, h0) -> (state, new_h, traj)``:
+    ``policy`` is a :class:`RecurrentActorCritic` with ``hidden`` = (embed,
+    gru_hidden), ``h0`` and ``new_h`` the (B, N, Hg) bf16 carry before and
+    after the rollout (zero after an episode's last step), ``traj`` as
+    :func:`build_fused_collect`'s (``pallas_rollout.py:1832-1836``)."""
+    return FusedCollectGru(config, n_steps, hidden, deterministic)

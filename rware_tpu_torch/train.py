@@ -1,23 +1,29 @@
-"""Train IPPO or MAPPO with the shared MLP policy on a warehouse config — the
-port's counterpart of ``train.py`` (algos ``ippo`` and ``mappo``, net ``mlp``).
+"""Train IPPO (MLP or GRU policy) or MAPPO (MLP) on a warehouse config — the
+port's counterpart of ``train.py`` (algo ``ippo`` with net ``mlp`` or ``gru``,
+algo ``mappo`` with net ``mlp``).
 
 Examples::
 
     python -m rware_tpu_torch.train --device cuda --env rware-tiny-2ag-v2 \\
         --n-envs 4096 --updates 300 --checkpoint-dir ckpts/run1
     python -m rware_tpu_torch.train --device cuda --algo mappo --n-envs 4096 --updates 400
+    python -m rware_tpu_torch.train --device cuda --net gru --n-envs 4096 --updates 800 \\
+        --ent-coef 0.03
     python -m rware_tpu_torch.train --device cpu --n-envs 128 --rollout-len 8 --updates 2
 
 ``--collect fused`` (default) trains through the fused collector (K2a) and,
 for ``--algo ippo``, the whole-update-phase kernel (K3); for ``--algo mappo``
 through the critic-values kernel (K6) and one combined actor + critic gradient
 kernel launch (K5) per pass, or with ``--fused-critic-phase`` the
-whole-MAPPO-phase kernel (K7).  On the CPU each runs its plain version.
-``--collect plain`` runs the plain IPPO learner
-(``models/ippo.build_train_step``).  The device is never chosen for you:
+whole-MAPPO-phase kernel (K7).  ``--net gru`` trains the recurrent policy
+through the recurrent collector (K2c) and, per env-band pass, the GRU
+forward and backward sequence kernels (K9, K10).  On the CPU each runs its
+plain version.  ``--collect plain`` runs the plain IPPO learner
+(``models/ippo.build_train_step``, or ``models/ippo_rnn.build_rnn_train_step``
+with ``--net gru``).  The device is never chosen for you:
 ``--device cuda`` without a GPU raises.  The final policy is written with
-``torch.save`` to ``<checkpoint-dir>/policy.pt``; a MAPPO run adds its
-central critic under the key ``critic``.
+``torch.save`` to ``<checkpoint-dir>/policy.pt`` with its net kind under
+``net``; a MAPPO run adds its central critic under the key ``critic``.
 """
 from __future__ import annotations
 
@@ -29,8 +35,8 @@ import torch
 
 from rware_tpu_torch.core.env import resolve_device
 
-NOT_PORTED = ("not ported yet: the port trains --algo ippo and --algo mappo with --net mlp "
-              "(mappo only with --collect fused)")
+NOT_PORTED = ("not ported yet: the port trains --algo ippo with --net mlp or --net gru, and "
+              "--algo mappo with --net mlp and --collect fused")
 
 
 def parse_args(argv=None):
@@ -40,8 +46,8 @@ def parse_args(argv=None):
     p.add_argument("--algo", choices=["ippo", "mappo", "seac", "seac-ppo"], default="ippo")
     p.add_argument("--net", choices=["mlp", "gru"], default="mlp")
     p.add_argument("--collect", choices=["fused", "plain"], default="fused",
-                   help="fused = K2a collector + fused update kernels; plain = the plain "
-                        "IPPO learner")
+                   help="fused = the collector and update kernels; plain = the plain IPPO "
+                        "learner of the net")
     p.add_argument("--fused-critic-phase", action="store_true",
                    help="mappo: the whole update phase in the K7 kernel (default: K5 per pass)")
     p.add_argument("--minibatch-mode", choices=["shuffle", "block"], default="shuffle",
@@ -60,15 +66,22 @@ def parse_args(argv=None):
 
 def save_policy(path: str, env_id: str, dims, params: torch.Tensor, updates: int,
                 cdims=None, cparams=None) -> None:
-    """``torch.save`` of the policy: its ``ActorCritic`` state dict and
-    sizes, and under ``critic`` those of MAPPO's ``CentralCritic``."""
+    """``torch.save`` of the policy: its net kind (``"mlp"``: an
+    ``ActorCritic``; ``"gru"``: a ``RecurrentActorCritic``), sizes and state
+    dict, and under ``critic`` those of MAPPO's ``CentralCritic``."""
     from rware_tpu_torch.models.ippo import policy_of
-    from rware_tpu_torch.models.networks import arrays_to_critic
+    from rware_tpu_torch.models.ippo_rnn import rnn_policy_of
+    from rware_tpu_torch.models.networks import GruDims, arrays_to_critic
 
-    model = policy_of(dims, params.cpu())
     ckpt = {"env": env_id, "obs_dim": dims.obs_len, "n_actions": dims.n_actions,
-            "hidden": (dims.h1, dims.h2), "updates": updates,
-            "state_dict": model.state_dict()}
+            "updates": updates}
+    if isinstance(dims, GruDims):
+        model = rnn_policy_of(dims, params.cpu())
+        ckpt.update(net="gru", hidden=dims.hidden, embed=dims.embed)
+    else:
+        model = policy_of(dims, params.cpu())
+        ckpt.update(net="mlp", hidden=(dims.h1, dims.h2))
+    ckpt["state_dict"] = model.state_dict()
     if cdims is not None:
         critic = arrays_to_critic(cdims.split(cparams.detach().cpu()))
         ckpt["critic"] = {"n_agents": cdims.n_agents, "joint_dim": cdims.joint_len,
@@ -77,20 +90,29 @@ def save_policy(path: str, env_id: str, dims, params: torch.Tensor, updates: int
 
 
 def load_policy(path: str, device="cpu"):
-    """(env id, ActorCritic) of a file written by :func:`save_policy`."""
-    from rware_tpu_torch.models.networks import ActorCritic
+    """(env id, policy) of a file written by :func:`save_policy`: an
+    ``ActorCritic`` or, for net kind ``"gru"``, a ``RecurrentActorCritic``
+    (a file without a kind is an MLP's)."""
+    from rware_tpu_torch.models.networks import ActorCritic, RecurrentActorCritic
 
     ckpt = torch.load(path, map_location="cpu")
-    model = ActorCritic(ckpt["obs_dim"], ckpt["n_actions"], tuple(ckpt["hidden"]))
+    net = ckpt.get("net", "mlp")
+    if net == "gru":
+        model = RecurrentActorCritic(ckpt["obs_dim"], ckpt["n_actions"], ckpt["hidden"],
+                                     ckpt["embed"])
+    elif net == "mlp":
+        model = ActorCritic(ckpt["obs_dim"], ckpt["n_actions"], tuple(ckpt["hidden"]))
+    else:
+        raise ValueError(f"{path}: unknown net kind {net!r}")
     model.load_state_dict(ckpt["state_dict"])
     return ckpt["env"], model.to(device)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    mappo = args.algo == "mappo"
-    if args.algo not in ("ippo", "mappo") or args.net != "mlp" \
-            or (mappo and args.collect != "fused") or (args.fused_critic_phase and not mappo):
+    mappo, gru = args.algo == "mappo", args.net == "gru"
+    if args.algo not in ("ippo", "mappo") or (mappo and (gru or args.collect != "fused")) \
+            or (args.fused_critic_phase and not mappo):
         raise NotImplementedError(
             f"--algo {args.algo} --net {args.net} --collect {args.collect}"
             f"{' --fused-critic-phase' * args.fused_critic_phase}: {NOT_PORTED}")
@@ -99,6 +121,11 @@ def main(argv=None) -> dict:
     import rware_tpu_torch
     from rware_tpu_torch.models.ippo import IPPOConfig, build_train_step, init_runner
     from rware_tpu_torch.models.ippo_fused import build_fused_train_step
+    from rware_tpu_torch.models.ippo_rnn import (
+        build_rnn_fused_train_step,
+        build_rnn_train_step,
+        init_rnn_runner,
+    )
     from rware_tpu_torch.models.mappo import build_mappo_train_step, init_mappo_runner
 
     env = rware_tpu_torch.make(args.env, device=dev)
@@ -109,6 +136,12 @@ def main(argv=None) -> dict:
         runner, dims, cdims = init_mappo_runner(env, cfg, args.seed)
         train_step = build_mappo_train_step(env, dims, cdims, cfg,
                                             fused_critic_phase=args.fused_critic_phase)
+    elif gru:
+        runner, dims = init_rnn_runner(env, cfg, args.seed)
+        if args.collect == "fused":
+            train_step = build_rnn_fused_train_step(env, dims, cfg)
+        else:
+            train_step = build_rnn_train_step(env, dims, cfg)
     else:
         runner, dims = init_runner(env, cfg, args.seed)
         if args.collect == "fused":
@@ -117,8 +150,8 @@ def main(argv=None) -> dict:
             train_step = build_train_step(env, dims, cfg)
     env_steps_per_update = cfg.n_envs * cfg.rollout_len
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"training {args.algo} on {args.env} on {dev} ({card}): {args.updates} updates x "
-          f"{env_steps_per_update} env-steps, collect {args.collect}", flush=True)
+    print(f"training {args.algo} ({args.net}) on {args.env} on {dev} ({card}): {args.updates} "
+          f"updates x {env_steps_per_update} env-steps, collect {args.collect}", flush=True)
     log_every = max(1, args.log_every)
     t0 = last_t = time.perf_counter()
     last_u, step_ms, entry = 0, [], {}

@@ -12,14 +12,20 @@ import torch
 
 import rware_tpu_torch
 from rware_tpu_torch.models import ActorCritic
-from rware_tpu_torch.models import ippo
+from rware_tpu_torch.models import ippo, ippo_rnn
 from rware_tpu_torch.models.ippo_fused import phase_advstats, phase_window_starts
 from rware_tpu_torch.ops.fused_mappo import (
     build_fused_critic_values,
     build_fused_mappo_grads,
     build_fused_mappo_update_phase,
 )
-from rware_tpu_torch.ops.fused_rollout import build_fused_collect, build_fused_rollout
+from rware_tpu_torch.models.networks import GruDims, init_recurrent_actor_critic
+from rware_tpu_torch.ops.fused_gru import build_fused_gru_obs_bwd, build_fused_gru_obs_fwd
+from rware_tpu_torch.ops.fused_rollout import (
+    build_fused_collect,
+    build_fused_collect_gru,
+    build_fused_rollout,
+)
 from rware_tpu_torch.ops.fused_update import (
     build_fused_ppo_grads,
     build_fused_ppo_update_phase,
@@ -199,3 +205,84 @@ def test_fused_mappo_update_phase_kernel_matches_plain():
 
 def test_make_builds_on_the_card_by_default():
     assert rware_tpu_torch.make("rware-tiny-2ag-v2").device.type == "cuda"
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_fused_collect_gru_kernel_matches_plain(deterministic):
+    """K2c: obs, rewards, done and the final state exact (the recurrence feeds
+    any difference back into later actions), values and logp within ATOL, the
+    carry within one bf16 step."""
+    env = rware_tpu_torch.make("rware-small-4ag-v2", device=DEV, max_steps=20)
+    states, _ = batched_reset(env, 2, 1000)
+    policy = init_recurrent_actor_critic(env.config.flattened_obs_length, 5, 128, 128, 1).to(DEV)
+    gen = torch.Generator().manual_seed(0)
+    h0 = (torch.rand((1000, 4, 128), generator=gen) * 2 - 1).to(torch.bfloat16).to(DEV)
+    collect = build_fused_collect_gru(env.config, 32, deterministic=deterministic)
+    ks, kh, ktraj = collect(states, policy, 3, h0)
+    ps, ph, ptraj = collect.plain(states, policy, 3, h0)
+    assert collect.launches == 1
+    for k in ("obs", "reward", "done"):
+        assert torch.equal(ktraj[k], ptraj[k]), k
+    for f in FIELDS:
+        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+    assert float((ktraj["action"] == ptraj["action"]).float().mean()) >= 0.999
+    for k in ("value", "logp"):
+        assert float((ktraj[k] - ptraj[k]).abs().max()) <= ATOL, k
+    assert float((kh.float() - ph.float()).abs().max()) <= 2.0 ** -7
+
+
+def _gru_case(b, t_len, seed):
+    dims = GruDims(71, 128, 128, 5)
+    gen = torch.Generator().manual_seed(seed)
+    weights = [(torch.randn(s, generator=gen) * (0.1 if s[0] == 1 else s[0] ** -0.5)).to(DEV)
+               for s in dims.shapes[:6]]
+    obs = (torch.randint(0, 3, (t_len, b, 2, 71), generator=gen) * 0.5).to(torch.bfloat16).to(DEV)
+    done = (torch.rand((t_len, b), generator=gen) < 0.2).to(DEV)
+    h0 = (torch.rand((b, 2, 128), generator=gen) * 2 - 1).to(torch.bfloat16).to(DEV)
+    return dims, weights, obs, done, h0
+
+
+@pytest.mark.parametrize("band", [(0, 600), (450, 300)])
+def test_fused_gru_kernels_match_plain(band):
+    """K9 within one bf16 step on 99.9% of the entries; K10 within 1e-2 of
+    each block's largest |plain|, two launches bit-equal; a band that wraps."""
+    dims, weights, obs, done, h0 = _gru_case(600, 8, 4)
+    fwd, bwd = build_fused_gru_obs_fwd(dims), build_fused_gru_obs_bwd(dims)
+    kh, ph = fwd(weights, obs, done, h0, *band), fwd.plain(weights, obs, done, h0, *band)
+    assert fwd.launches == 1 and kh.shape == (8, band[1], 2, 128)
+    diff = (kh.float() - ph.float()).abs()
+    assert float((diff <= 2.0 ** -7).float().mean()) >= 0.999 and float(diff.max()) <= 2.0 ** -4
+    dh = (torch.randn(ph.shape, generator=torch.Generator().manual_seed(1)) * 1e-3)
+    dh = dh.to(torch.bfloat16).to(DEV)
+    kg, kd = bwd(weights, obs, done, h0, ph, dh, *band)
+    kg2, kd2 = bwd(weights, obs, done, h0, ph, dh, *band)
+    pg, pd = bwd.plain(weights, obs, done, h0, ph, dh, *band)
+    assert bwd.launches == 2 and torch.equal(kg, kg2) and torch.equal(kd, kd2)
+    for g, w in zip(bwd.split(kg), bwd.split(pg)):
+        assert float((g - w).abs().max()) <= 1e-2 * float(w.abs().max())
+    assert float((kd - pd).abs().max()) <= 1e-2 * float(pd.abs().max())
+
+
+def test_gru_kernels_reject_unsupported_widths():
+    dims = GruDims(71, 128, 256, 5)
+    weights = [torch.zeros(s, device=DEV) for s in dims.shapes[:6]]
+    obs = torch.zeros((2, 8, 2, 71), dtype=torch.bfloat16, device=DEV)
+    done = torch.zeros((2, 8), dtype=torch.bool, device=DEV)
+    h0 = torch.zeros((8, 2, 256), dtype=torch.bfloat16, device=DEV)
+    with pytest.raises(ValueError, match="multiples of 8 up to 128"):
+        build_fused_gru_obs_fwd(dims)(weights, obs, done, h0, 0, 8)
+
+
+def test_rnn_fused_train_step_runs_on_the_card():
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=20)
+    cfg = ippo.IPPOConfig(n_envs=1024, rollout_len=16, epochs=2, minibatches=2)
+    runner, dims = ippo_rnn.init_rnn_runner(env, cfg, seed=0)
+    step = ippo_rnn.build_rnn_fused_train_step(env, dims, cfg)
+    new, metrics = step(runner)
+    new, metrics = step(new)
+    assert (step.collect.launches, step.gru_fwd.launches, step.gru_bwd.launches) == (2, 8, 8)
+    assert new.params.device.type == "cuda" and new.carry.dtype == torch.bfloat16
+    assert float((new.params - runner.params).abs().max()) > 0
+    assert int(metrics["episodes_done"]) == 1024
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v.float())), k

@@ -3,8 +3,10 @@
 call spends its device time.
 
 For each config: the fused rollout kernel (K1, random mode) at B=65,536,
-T=256, and the fused collector kernel (K2a, hidden (128, 128)) at
-B=16,384, T=128.  Each timing is the median of ``--repeats`` launches timed
+T=256, the fused collector kernel (K2a, hidden (128, 128)) and the recurrent
+collector kernel (K2c, embed 128, GRU hidden 128) at B=16,384, T=128, and the
+GRU sequence kernels (K9 forward, K10 backward) on a band of a quarter of
+that trajectory's envs.  Each timing is the median of ``--repeats`` launches timed
 with CUDA events after one warm-up launch, with the spread (min, max) beside
 it.  ``--profile`` adds one torch.profiler window per kernel on tiny-2ag:
 device time by kernel name and the device-busy share of the call's wall
@@ -12,11 +14,13 @@ time.  ``--train-step`` times ``--repeats`` updates of the fused learner
 (``models/ippo_fused.build_fused_train_step``, tiny-2ag, B=16,384, T=128,
 E=4, M=4) and profiles one; with ``--algo mappo`` the learner is
 ``models/mappo.build_mappo_train_step``, per pass (K5) and, with
-``--fused-critic-phase``, whole phase (K7).  Prints one JSON object per line, each with the
-card's name and power limit; ``--out`` also writes them to a file.
+``--fused-critic-phase``, whole phase (K7); with ``--net gru`` it is the
+recurrent learner ``models/ippo_rnn.build_rnn_fused_train_step`` (K2c, and
+K9 + K10 per band pass).  Prints
+one JSON object per line, each with the card's name and power limit; ``--out`` also writes them to a file.
 
 Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-step]
-       [--algo ippo|mappo] [--fused-critic-phase] [--out FILE]
+       [--algo ippo|mappo] [--net mlp|gru] [--fused-critic-phase] [--out FILE]
 """
 import argparse
 import json
@@ -89,6 +93,7 @@ def main():
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--train-step", action="store_true")
     ap.add_argument("--algo", choices=["ippo", "mappo"], default="ippo")
+    ap.add_argument("--net", choices=["mlp", "gru"], default="mlp")
     ap.add_argument("--fused-critic-phase", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -99,7 +104,13 @@ def main():
         raise SystemExit("needs a CUDA GPU")
     import rware_tpu_torch
     from rware_tpu_torch.models import ActorCritic
-    from rware_tpu_torch.ops.fused_rollout import build_fused_collect, build_fused_rollout
+    from rware_tpu_torch.models.networks import GruDims, gru_to_arrays, init_recurrent_actor_critic
+    from rware_tpu_torch.ops.fused_gru import build_fused_gru_obs_bwd, build_fused_gru_obs_fwd
+    from rware_tpu_torch.ops.fused_rollout import (
+        build_fused_collect,
+        build_fused_collect_gru,
+        build_fused_rollout,
+    )
     from rware_tpu_torch.parallel import batched_reset
 
     dev = torch.device("cuda:0")
@@ -127,6 +138,27 @@ def main():
         med, lo, hi = time_launches(lambda: collect(states, policy, 1), args.repeats)
         emit({"kernel": "fused_collect", "env": env_id, "B": b, "T": t, "ms_median": med,
               "ms_min": lo, "ms_max": hi, "env_steps_per_s": b * t / med * 1e3})
+        gru = init_recurrent_actor_critic(env.config.flattened_obs_length, seed=0).to(dev)
+        carry = gru.initialize_carry((b, env.n_agents))
+        collect_gru = build_fused_collect_gru(env.config, t)
+        med, lo, hi = time_launches(lambda: collect_gru(states, gru, 1, carry), args.repeats)
+        emit({"kernel": "fused_collect_gru", "env": env_id, "B": b, "T": t, "ms_median": med,
+              "ms_min": lo, "ms_max": hi, "env_steps_per_s": b * t / med * 1e3})
+        _, _, traj = collect_gru(states, gru, 1, carry)
+        gdims = GruDims.of(gru)
+        weights = [w.detach() for w in gru_to_arrays(gru)[:6]]
+        fwd, bwd = build_fused_gru_obs_fwd(gdims), build_fused_gru_obs_bwd(gdims)
+        band = (b - b // 8, b // 4)  # a quarter of the envs, wrapping
+        seq = (weights, traj["obs"], traj["done"], carry)
+        hseq = fwd(*seq, *band)
+        dh = (torch.randn(hseq.shape, device=dev) * 1e-3).to(torch.bfloat16)
+        for name, fn in (("fused_gru_obs_fwd", lambda: fwd(*seq, *band)),
+                         ("fused_gru_obs_bwd", lambda: bwd(*seq, hseq, dh, *band))):
+            med, lo, hi = time_launches(fn, args.repeats)
+            emit({"kernel": name, "env": env_id, "B": b, "T": t, "band": band, "ms_median": med,
+                  "ms_min": lo, "ms_max": hi,
+                  "sequence_steps_per_s": t * band[1] * env.n_agents / med * 1e3})
+        del traj, hseq, dh, seq
 
     if args.profile:
         env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
@@ -147,7 +179,15 @@ def main():
 
         env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
         cfg = ippo.IPPOConfig(n_envs=16384, rollout_len=128, epochs=4, minibatches=4)
-        if args.algo == "mappo":
+        if args.net == "gru":
+            if args.algo != "ippo":
+                raise SystemExit("--net gru takes --algo ippo")
+            from rware_tpu_torch.models import ippo_rnn
+
+            runner, dims = ippo_rnn.init_rnn_runner(env, cfg, 0)
+            step = ippo_rnn.build_rnn_fused_train_step(env, dims, cfg)
+            what = "recurrent ippo (K2c, K9 + K10 per pass)"
+        elif args.algo == "mappo":
             from rware_tpu_torch.models import mappo
 
             runner, dims, cdims = mappo.init_mappo_runner(env, cfg, 0)
