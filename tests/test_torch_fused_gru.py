@@ -17,7 +17,6 @@ product).  ``GruObsScan`` against autograd: 3e-2 of the block's largest, the
 bound of ``tests/test_pallas_gru.py:79``; autograd differentiates the
 unrounded gates where the kernel's algebra rounds.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
