@@ -71,7 +71,25 @@ Phases, one line each:
     counters reset before and read after (exactly 3 K2c, 48 K9, 48 K10); the
     time of an update split into collect (K2c), bootstrap and GAE, and the 16
     band passes; K2c, K9 and K10 timed and compared at that shape beside
-    their plain versions.
+    their plain versions;
+15. the per-agent collector kernel (K2d) against its plain version on the
+    card: deterministic and random mode on tiny-2ag (all agents' weights in
+    shared memory), small-4ag and large-8ag (weights read from device memory)
+    at B=1000, T=32, and the main shape B=16,384, T=128; obs, rewards, done
+    and the final state exact, every action equal, value and logp within
+    2e-2;
+16. the SEAC-PPO gradient kernel (K8) against its plain version: random data
+    on tiny-2ag (N=2) and small-4ag (N=4) at B=1000, windows that wrap,
+    seac_lambda 1 and 0.5; every agent's gradients within 1e-2 of each block's
+    largest |plain|, metrics within rtol 1e-3; two launches bit-equal;
+17. the SEAC-PPO training main path at full width through
+    ``rware_tpu_torch.models.seac.build_seac_ppo_fused_train_step`` on an env
+    made with ``make``'s default device: tiny-2ag, B=16,384, T=128, E=4, M=4,
+    hidden (128, 128), three updates after one warm-up with launch counters
+    reset before and read after (exactly 3 K2d, 48 K8); the time of an update
+    split into collect (K2d), cross values and GAE, and the 16 passes (K8 and
+    the optimizer); K2d and K8 timed and compared at that shape beside their
+    plain versions.
 
 Then the card's name and power limit, one JSON line describing each kernel
 (its time beside its plain version's and beside ``bound_ms``, the least time
@@ -118,6 +136,10 @@ GRAD_FRAC = 1e-2  # of each block's largest |plain gradient|
 MOMENT_FRAC = 2e-2  # of each block's largest |plain moment|
 K5_CONFIGS = ("rware-tiny-2ag-v2", "rware-small-4ag-v2", "rware-3s-tiny-2ag-v2",
               "rware-tiny-16ag-v2")
+# tiny-2ag keeps every agent's weights in shared memory; from 4 agents on they
+# are read from device memory
+K2D_CONFIGS = (("rware-tiny-2ag-v2", {}), ("rware-small-4ag-v2", {"max_steps": 20}),
+               ("rware-large-8ag-v2", {"max_steps": 20}))
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).
 PEAK_BYTES = 3.35e12  # device memory, bytes/s
 PEAK_BF16 = 989e12  # tensor cores, FLOP/s on bf16 values
@@ -624,6 +646,78 @@ def compare_gru(dev, dims, weights, obs, done, h0, bands, seed, fwd=None, bwd=No
     return fwd, bwd, h_err, g_err
 
 
+def compare_k2d(env_id, dev, b, t, deterministic, seed, policies=None, **overrides):
+    """K2d kernel vs its plain version on the card; returns (env, state,
+    traj, value/logp error, collector)."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models.seac import seac_policies_of
+    from rware_tpu_torch.ops.fused_rollout import build_fused_collect_per_agent
+    from rware_tpu_torch.parallel import batched_reset
+    from rware_tpu_torch.testing import random_seac_case
+
+    env = rware_tpu_torch.make(env_id, device=dev, **overrides)
+    states, _ = batched_reset(env, seed, b)
+    if policies is None:  # each agent its own network, biases off zero
+        dims, params, _ = random_seac_case(env_id, 1, 1, seed)
+        policies = seac_policies_of(dims, params).to(dev)
+    collect = build_fused_collect_per_agent(env.config, t, deterministic=deterministic)
+    ks, ktraj = collect(states, policies, seed + 1)
+    ps, ptraj = collect.plain(states, policies, seed + 1)
+    torch.cuda.synchronize()
+    what = f"K2d {env_id} deterministic={deterministic}"
+    for k in ("obs", "reward", "done", "action"):
+        require(torch.equal(ktraj[k], ptraj[k]), f"{what}: {k} differs")
+    bad = state_diff(ks, ps)
+    require(not bad, f"{what}: final state differs in {bad}")
+    err = max(float((ktraj[k] - ptraj[k]).abs().max()) for k in ("value", "logp"))
+    require(err <= VALUE_LOGP_ATOL, f"{what}: value/logp err {err}")
+    for k, v in ktraj.items():
+        require(not v.is_floating_point() or bool(torch.isfinite(v.float()).all()),
+                f"{what}: non-finite {k}")
+    check_invariants(env, ks)
+    return env, ks, ktraj, err, collect
+
+
+def compare_k8(env_id, dev, b, t_full, t_mb, starts, seed, seac_lambda, grads=None, data=None,
+               dims=None, params=None):
+    """K8 kernel vs plain at each window start (random data, or ``data`` with
+    ``dims`` and ``params``); returns (k8, max |grad diff|)."""
+    import torch
+    from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
+    from rware_tpu_torch.testing import random_seac_case
+
+    if data is None:
+        dims, params, data = random_seac_case(env_id, b, t_full, seed, dev)
+    n_agents = params.shape[0]
+    k8 = grads or build_fused_seac_grads(dims, n_agents, t_mb, clip_eps=0.2, vf_coef=0.5,
+                                         ent_coef=0.01, seac_lambda=seac_lambda)
+    n = t_mb * data[1].shape[1] * n_agents
+    err = 0.0
+    for start in starts:
+        what = f"K8 {env_id} start {start} lambda {seac_lambda}"
+        kg, ks = k8(params, data, start)
+        kg2, ks2 = k8(params, data, start)
+        pg, ps = k8.plain(params, data, start)
+        torch.cuda.synchronize()
+        require(torch.equal(kg, kg2) and torch.equal(ks, ks2), f"{what}: two launches differ")
+        for i in range(n_agents):
+            err = max(err, check_blocks(dims, kg[i], pg[i], GRAD_FRAC, f"{what} agent {i}"))
+        check_metric_sums(ks, ps, n, 1e-3, what)
+    return k8, err
+
+
+def seac_bound(dims, data, t_mb):
+    """``bound`` of K8 on one window of the trajectory ``data``: the window's
+    rows read once (obs, actions and behaviour log-probs, and the three cross
+    arrays), every agent's parameters in and gradients out; the products of
+    K4's window (forward, backward, weight gradients) once per agent."""
+    t_full, b, n = data[1].shape
+    n_bytes = tensor_bytes(*data) * t_mb / t_full + 2 * 4.0 * n * dims.n_params + 24.0
+    bf, f32 = mlp_flops(dims.obs_len, dims.h1, dims.h2, dims.n_actions + 1, t_mb * b * n, True)
+    return bound(n_bytes, n * bf, n * f32)
+
+
 def phase3(dev):
     """K1 against its plain version; returns the main shape's max |error|."""
     import torch
@@ -1116,6 +1210,117 @@ def phase14(dev, kind, card, k2c_err, n_envs=16384, rollout_len=128):
     ]
 
 
+def phase15(dev, kind, card):
+    """K2d against its plain version; returns the main shape's max |error|."""
+    for env_id, overrides in K2D_CONFIGS:
+        for deterministic in (True, False):
+            _, _, _, err, collect = compare_k2d(env_id, dev, 1000, 32, deterministic, 5,
+                                                **overrides)
+            log(f"phase 15 K2d {env_id} {overrides} B=1000 T=32 deterministic={deterministic}: "
+                f"obs/reward/done/state/actions exact, value/logp err {err} (weights "
+                f"{'in device memory' if collect.weights_global else 'in shared memory'}, "
+                f"{collect.threads} threads)")
+    _, _, _, err, _ = compare_k2d("rware-tiny-2ag-v2", dev, 16384, 128, False, 13)
+    log(f"phase 15 K2d main shape B=16384 T=128 random: obs/reward/done/state/actions exact, "
+        f"value/logp max_abs_err {err} [{kind}, {card}]")
+    return err
+
+
+def phase16(dev, kind, card):
+    """K8 against its plain version on two agent counts."""
+    for env_id, seac_lambda in (("rware-tiny-2ag-v2", 1.0), ("rware-small-4ag-v2", 0.5)):
+        k8, err = compare_k8(env_id, dev, 1000, 8, 4, (0, 3, 7), 21, seac_lambda)
+        log(f"phase 16 K8 {env_id} seac_lambda {seac_lambda} B=1000 T=8 window 4 at starts 0, 3, "
+            f"7: every agent within {GRAD_FRAC} of each block, max_abs_err {err}, metrics within "
+            f"rtol 1e-3, two launches bit-equal (tile {k8.tile}) [{kind}, {card}]")
+
+
+def phase17(dev, kind, card, k2d_err, n_envs=16384, rollout_len=128):
+    """The SEAC-PPO training main path at full width; returns the K2d and K8
+    entries."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models import seac
+
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2")  # no device named: the card
+    require(env.device.type == "cuda", f"make's default device is {env.device}")
+    cfg = seac.SEACPPOConfig(n_envs=n_envs, rollout_len=rollout_len, epochs=4, minibatches=4)
+    n_passes, steps = cfg.epochs * cfg.minibatches, cfg.n_envs * cfg.rollout_len
+    t_mb = cfg.rollout_len // cfg.minibatches
+    runner, dims = seac.init_seac_ppo(env, cfg, seed=0)
+    step = seac.build_seac_ppo_fused_train_step(env, dims, cfg)
+    runner, _ = step(runner)  # warm-up
+    torch.cuda.synchronize()
+    params0 = runner.params.clone()
+    counted = {"fused_collect_per_agent": step.collect, "fused_seac_grads": step.grads}
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    runs = []
+
+    def update():
+        nonlocal runner
+        runner, metrics = step(runner)
+        runs.append(metrics)
+
+    update_ms, _ = cuda_ms(update, repeats=3)
+    launches = {k: w.launches for k, w in counted.items()}
+    want = {"fused_collect_per_agent": 3, "fused_seac_grads": 3 * n_passes}
+    require(launches == want, f"three SEAC-PPO updates launched {launches}, not {want}")
+    for metrics in runs:
+        for k, v in metrics.items():
+            require(bool(torch.isfinite(v.float())), f"SEAC-PPO metric {k} is {float(v)}")
+    moved = [float((a - b).abs().max()) for i in range(env.n_agents)
+             for a, b in zip(dims.split(runner.params[i]), dims.split(params0[i]))]
+    require(min(moved) > 0, f"the SEAC-PPO train step left a block unmoved: {moved}")
+    rewards = [float(m["reward_per_env"]) for m in runs]
+    require(sum(rewards) > 0, f"no reward in three SEAC-PPO updates: {rewards}")
+    last = {k: round(float(v), 5) for k, v in runs[-1].items()}
+    log(f"phase 17 SEAC-PPO train step tiny-2ag B={cfg.n_envs} T={cfg.rollout_len} E=4 M=4 "
+        f"hidden (128, 128): {update_ms:.3f} ms/update = {steps / update_ms * 1e3:.4g} "
+        f"env-steps/s over 3 updates, launches {launches}, params moved {max(moved)}, "
+        f"reward_per_env {rewards}, last metrics {last} [{kind}, {card}]")
+
+    # The same update, phase by phase.
+    collect_ms, (states, traj) = cuda_ms(lambda: step.rollout(runner))
+    adv_ms, (obs, values, adv, targets) = cuda_ms(lambda: step.advantages(runner, states, traj))
+    dataset = (traj["obs"], traj["action"], traj["logp"], values, adv, targets)
+    passes_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    log(f"phase 17 breakdown of one update: collect (K2d) {collect_ms:.3f} ms, cross values, "
+        f"bootstrap and cross GAE {adv_ms:.3f} ms, {n_passes} passes (K8 + optimizer) "
+        f"{passes_ms:.3f} ms [{kind}, {card}]")
+
+    # Each kernel at the main path's shapes, beside its plain version.
+    policies = seac.seac_policies_of(dims, runner.params)
+    k2d = step.collect
+    args = (runner.env_states, policies, 7)
+    k2d_ms, _ = cuda_ms(lambda: k2d(*args), repeats=2)
+    k2d_plain_ms, _ = cuda_ms(lambda: k2d.plain(*args))
+    k8 = step.grads
+    k8_ms, _ = cuda_ms(lambda: k8(runner.params, dataset, 0), repeats=3)
+    k8_plain_ms, _ = cuda_ms(lambda: k8.plain(runner.params, dataset, 0))
+    _, k8_err = compare_k8("rware-tiny-2ag-v2", dev, 0, 0, t_mb, (0, 112), 0, cfg.seac_lambda,
+                           k8, dataset, dims, runner.params)
+    log(f"phase 17 kernels at the main shape: K2d {k2d_ms:.3f} ms/launch (plain "
+        f"{k2d_plain_ms:.1f} ms, value/logp max_abs_err {k2d_err}); K8 {k8_ms:.3f} ms/launch "
+        f"(plain {k8_plain_ms:.1f} ms, max_abs_err {k8_err}) [{kind}, {card}]")
+
+    # Bounds.  K2d moves the state in and out, writes the trajectory, reads
+    # every agent's weights and runs the policy on every agent-step (integer
+    # work charged nothing, as for K2a).  K8: seac_bound.
+    bf, f32 = mlp_flops(dims.obs_len, dims.h1, dims.h2, dims.n_actions + 1,
+                        steps * env.n_agents, False)
+    k2d_bound = bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
+                      + 4.0 * runner.params.numel(), bf, f32)
+    return [
+        kernel_entry("fused_collect_per_agent", "fused_collect.cu",
+                     "rware_tpu/ops/pallas_rollout.py:1798", launches["fused_collect_per_agent"],
+                     k2d_err, k2d_ms, k2d_plain_ms, k2d_bound),
+        kernel_entry("fused_seac_grads", "fused_seac_grads.cu",
+                     "rware_tpu/ops/pallas_update.py:719", launches["fused_seac_grads"], k8_err,
+                     k8_ms, k8_plain_ms, seac_bound(dims, dataset, t_mb)),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -1151,6 +1356,9 @@ def main() -> int:
     k2c_err = phase12(dev, kind, card)
     phase13(dev, kind, card)
     kernels += phase14(dev, kind, card, k2c_err)
+    k2d_err = phase15(dev, kind, card)
+    phase16(dev, kind, card)
+    kernels += phase17(dev, kind, card, k2d_err)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,6 +19,10 @@
   ``gru`` cell's ``ir iz in hr hz hn``, ``policy``, ``value``)  <->
   :class:`RecurrentActorCritic` weights and the flat vector in the
   :class:`~rware_tpu_torch.models.networks.GruDims` layout.
+* SEAC: the stacked flax ``ActorCritic`` pytree of ``init_seac`` (a leading
+  agent axis on every leaf)  <->  the ``(N, P)`` stack of flat vectors, and
+  the one optax chain over that stack  <->  one ``AdamState`` of ``(N, P)``
+  moments.
 
 Nothing here imports jax: the JAX side is handed over as numpy arrays.
 """
@@ -210,6 +214,46 @@ def central_critic_from_flax(params: Mapping[str, Any], device="cpu") -> Central
     joint, n = np.shape(p["dense_0"]["kernel"])[0], np.shape(p["value"]["kernel"])[1]
     cdims = CriticDims(n, joint // n, *(np.shape(p[f"dense_{i}"]["kernel"])[1] for i in range(2)))
     return arrays_to_critic(cdims.split(critic_params_from_flax(params))).to(device)
+
+
+def _agent_slice(tree: Any, i: int) -> Any:
+    """Leaf ``[i]`` of every leaf of a nested mapping of arrays."""
+    if isinstance(tree, Mapping):
+        return {k: _agent_slice(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _agent_stack(trees) -> Dict[str, Any]:
+    """The nested mappings of ``trees`` stacked leaf by leaf on a new axis 0."""
+    if isinstance(trees[0], Mapping):
+        return {k: _agent_stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def seac_params_from_flax(params: Mapping[str, Any], device="cpu") -> torch.Tensor:
+    """The (N, P) stack of flat vectors of a stacked flax ActorCritic params
+    pytree (``init_seac``: a leading agent axis on every leaf), or of an optax
+    moment pytree of the same structure."""
+    p = _tree(params)
+    n = np.shape(p["dense_0"]["kernel"])[0]
+    return torch.stack([params_from_flax(_agent_slice(p, i)) for i in range(n)]).to(device)
+
+
+def seac_params_to_flax(stack: torch.Tensor, dims: BlockDims) -> Dict[str, Any]:
+    """The stacked flax params pytree (numpy float32 leaves) of an (N, P) stack."""
+    return {"params": _agent_stack([params_to_flax(row, dims)["params"] for row in stack])}
+
+
+def seac_opt_state_from_optax(opt_state: Any, device="cpu") -> AdamState:
+    """:class:`AdamState` of (N, P) moments of the optax state of SEAC's
+    ``chain(clip_by_global_norm, adam)`` over the stacked pytree
+    (``rware_tpu/models/seac.py:78-82``)."""
+    return adam_state_from_optax(opt_state, device, seac_params_from_flax)
+
+
+def seac_opt_state_to_optax(state: AdamState, dims: BlockDims, like: Any) -> Any:
+    """The optax state of ``state``, in the structure of ``like``."""
+    return adam_state_to_optax(state, dims, like, seac_params_to_flax)
 
 
 def adam_state_from_optax(opt_state: Any, device="cpu", from_flax=params_from_flax) -> AdamState:

@@ -1,7 +1,8 @@
 // Shared definitions of the clipped-PPO gradient kernels (K4,
 // fused_ppo_grads.cu), the whole-update-phase entry point (K3,
-// fused_ppo_update.cu) and their MAPPO counterparts (K5 fused_mappo_grads.cu,
-// K6 fused_critic_values.cu, K7 fused_mappo_update.cu).
+// fused_ppo_update.cu), their MAPPO counterparts (K5 fused_mappo_grads.cu,
+// K6 fused_critic_values.cu, K7 fused_mappo_update.cu) and SEAC-PPO's per-agent
+// gradient kernel (K8 fused_seac_grads.cu).
 //
 // Parameters, gradients and Adam moments are one flat float32 vector of the
 // six kernel-layout blocks of rware_tpu_torch/models/networks.py::BlockDims:
@@ -21,6 +22,12 @@
 // n * L + l of C0's rows.  So the critic is described by a PpoDims with
 // L = N*L, N = 1 and `heads` = the number of agents; its per-agent old values
 // and targets sit at [row * heads + n].
+//
+// SEAC-PPO (K8) runs the actor's layout once per agent i: agent i's own
+// parameters, a sample (t, b, j) of the window is row (t * B + b) * N + j of the
+// trajectory as above (agent j's observation, action and behaviour log-prob),
+// and its old value, advantage and target are agent i's critic on agent j's
+// experience, at the same row of the (N_i, T_full, B, N_j) cross arrays' slab i.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +51,8 @@ struct PpoDims {
   int smem;                // its dynamic shared memory, bytes
   int w0_smem;             // dense_0's weights in shared memory (else read from params)
   int chunk, n_chunks;     // samples per weight-gradient partial, and how many
+  int agent;               // SEAC: the agent i whose network runs; sample row r holds j = r % N
+  float seac_lambda;       // SEAC: the weight of pairs i != j
 };
 
 struct PpoData {  // the (T_full, B, N, ...) trajectory
@@ -155,6 +164,8 @@ static inline PpoDims ppo_dims(int L, int H1, int H2, int A, int T_full, int T_m
   d.w0_smem = w0_smem;
   d.chunk = chunk;
   d.n_chunks = n_chunks;
+  d.agent = 0;
+  d.seac_lambda = 1.f;
   return d;
 }
 

@@ -1,4 +1,4 @@
-// The per-sample kernel of the PPO gradient kernels, as a template of three
+// The per-sample kernel of the PPO gradient kernels, as a template of four
 // modes, each instantiated in one source file:
 //
 //  PPO_ACTOR  (fused_ppo_grads.cu): the shared-parameter policy on samples
@@ -10,6 +10,11 @@
 //             backward to dz1 (pallas_update.py:1350-1388).
 //  PPO_VALUES (fused_critic_values.cu): the critic's forward alone, values
 //             written to ws.values (pallas_update.py:1786-1804).
+//  PPO_SEAC   (fused_seac_grads.cu): agent d.agent's network on samples
+//             (t, b, j) of every agent j: PPO_ACTOR's pieces with the pair
+//             weight w = 1 (j == i) or seac_lambda on the policy and value
+//             terms, and the entropy term and KL sum on the diagonal j == i
+//             only (pallas_update.py:592-599, 641-714).
 //
 // A block holds the weights in shared memory (dense_0 and dense_1 in bf16,
 // heads in f32) and walks tiles of samples with register tiles of 4 x 4
@@ -23,6 +28,7 @@
 #define PPO_ACTOR 0
 #define PPO_CRITIC 1
 #define PPO_VALUES 2
+#define PPO_SEAC 3
 
 static __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -157,8 +163,9 @@ __global__ void __launch_bounds__(PPO_THREADS)
   if (tid < AC) sbc[tid] = params[o.bc + tid];
 
   const int start = kMode == PPO_VALUES ? 0 : start_p[0];
-  const float adv_mean = kMode == PPO_ACTOR ? stats[0] : 0.f;
-  const float adv_inv_std = kMode == PPO_ACTOR ? stats[1] : 0.f;
+  const bool kPolicy = kMode == PPO_ACTOR || kMode == PPO_SEAC;
+  const float adv_mean = kPolicy ? stats[0] : 0.f;
+  const float adv_inv_std = kPolicy ? stats[1] : 0.f;
   const float eps = d.clip_eps, inv_n = d.inv_n;
   const long long S = (long long)d.T_mb * d.B * d.N;
   const long long n_tiles = (S + TS - 1) / TS;
@@ -223,6 +230,12 @@ __global__ void __launch_bounds__(PPO_THREADS)
 #pragma unroll
         for (int a = 0; a < PPO_HC; ++a) dcat[a] = 0.f;
         if (r >= 0) {
+          // pair weight and diagonal mask: 1 and 1 but in SEAC mode
+          float w = 1.f, diag = 1.f;
+          if (kMode == PPO_SEAC) {
+            diag = (int)(r % d.N) == d.agent ? 1.f : 0.f;
+            w = diag + d.seac_lambda * (1.f - diag);
+          }
           const int act = data.action[r];
           const float old_logp = data.logp[r], adv = data.adv[r];
           float lg[PPO_HC], p[PPO_HC];
@@ -248,8 +261,8 @@ __global__ void __launch_bounds__(PPO_THREADS)
           const float pg1 = ratio * advn, pg2 = ratio_c * advn;
           const bool inside = ratio > 1.f - eps && ratio < 1.f + eps;
           const float dobj = pg1 <= pg2 ? advn : (inside ? advn : 0.f);
-          const float dlogp = -inv_n * dobj * ratio;
-          const float ent_scale = d.ent_coef * inv_n;
+          const float dlogp = -(w * inv_n) * dobj * ratio;
+          const float ent_scale = d.ent_coef * inv_n * diag;
           for (int a = 0; a < A; ++a)
             dcat[a] = dlogp * ((a == act ? 1.f : 0.f) - p[a]) + ent_scale * p[a] * (lg[a] + ent);
           if (d.value_head) {
@@ -259,12 +272,12 @@ __global__ void __launch_bounds__(PPO_THREADS)
             const float v_clip = old_value + fminf(fmaxf(vdiff, -eps), eps);
             const float e1 = value - target, e2 = v_clip - target;
             const bool inside_v = vdiff > -eps && vdiff < eps;
-            dcat[A] = d.vf_coef * inv_n * (e1 * e1 >= e2 * e2 ? e1 : (inside_v ? e2 : 0.f));
-            terms[1] = 0.5f * fmaxf(e1 * e1, e2 * e2);
+            dcat[A] = d.vf_coef * inv_n * w * (e1 * e1 >= e2 * e2 ? e1 : (inside_v ? e2 : 0.f));
+            terms[1] = w * (0.5f * fmaxf(e1 * e1, e2 * e2));
           }
-          terms[0] = fminf(pg1, pg2);
-          terms[2] = ent;
-          terms[3] = (ratio - 1.f) - (logp - old_logp);
+          terms[0] = w * fminf(pg1, pg2);
+          terms[2] = diag * ent;
+          terms[3] = diag * ((ratio - 1.f) - (logp - old_logp));
           float* dg = ws.dcat + (size_t)(s0 + s) * PPO_HC;
 #pragma unroll
           for (int a = 0; a < PPO_HC; ++a) dg[a] = dcat[a];

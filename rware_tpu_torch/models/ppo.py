@@ -1,9 +1,11 @@
-"""The clipped-PPO losses (IPPO's, MAPPO's, the critic-only value loss) and
-the clip + Adam step on flat parameter vectors: what the learners of
-:mod:`rware_tpu_torch.models.ippo`, :mod:`rware_tpu_torch.models.ippo_fused`
-and :mod:`rware_tpu_torch.models.mappo` and the plain versions of the PPO
+"""The clipped-PPO losses (IPPO's, MAPPO's, the critic-only value loss,
+SEAC-PPO's) and the clip + Adam step on flat parameter vectors: what the
+learners of :mod:`rware_tpu_torch.models.ippo`,
+:mod:`rware_tpu_torch.models.ippo_fused`, :mod:`rware_tpu_torch.models.mappo`
+and :mod:`rware_tpu_torch.models.seac` and the plain versions of the PPO
 kernels (:mod:`rware_tpu_torch.ops.fused_update`,
-:mod:`rware_tpu_torch.ops.fused_mappo`) share.
+:mod:`rware_tpu_torch.ops.fused_mappo`, :mod:`rware_tpu_torch.ops.fused_seac`)
+share.
 
 The optimizer is optax's ``chain(clip_by_global_norm(max_grad_norm),
 adam(lr, eps=1e-5))`` written as the fused update kernel writes it
@@ -113,6 +115,64 @@ def critic_value_loss(cfg, cdims: CriticDims, cparams: torch.Tensor, batch):
     v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
     v_loss = 0.5 * torch.maximum((value - target) ** 2, (v_clipped - target) ** 2).mean()
     return cfg.vf_coef * v_loss, {"v_loss": v_loss.detach()}
+
+
+def seac_terms(cfg, seac_lambda: float, logits, value, action, behav_logp, old_value, adv,
+               target, i_axis: int, advstats: Optional[torch.Tensor] = None):
+    """The SEAC-PPO objective (``seac.py:443-480``) on agent i's heads over
+    agent j's samples: ``logits`` (..., A) and ``value`` with the agent axes
+    at ``i_axis`` (agent i, whose network ran) and last (agent j, whose
+    sample it is); ``action`` and ``behav_logp`` broadcast over ``i_axis``.
+    The ratio is ``pi_i / pi_j,behaviour``; the policy and value terms are
+    summed over j with pair weights ``eye + seac_lambda (1 - eye)`` and
+    averaged over the rest; entropy and ``approx_kl`` come from the diagonal.
+    ``advstats`` [mean, 1/std] as in :func:`clipped_ppo_terms` (None: the
+    mean and population std of all of ``adv``).  Returns (total, metrics)."""
+    if advstats is None:
+        advn = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    else:
+        advn = (adv - advstats[0]) * advstats[1]
+    lsm = torch.log_softmax(logits, dim=-1)
+    idx = action.long().expand(lsm.shape[:-1])[..., None]
+    logp = lsm.gather(-1, idx)[..., 0]
+    ratio = torch.exp(logp - behav_logp)
+    pg1 = ratio * advn
+    pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * advn
+    surr = -torch.minimum(pg1, pg2)
+    n = logits.shape[i_axis]
+    eye = torch.eye(n, dtype=torch.float32, device=logits.device)
+    shape = [1] * surr.ndim
+    shape[i_axis] = shape[-1] = n
+    weight = (eye + seac_lambda * (1.0 - eye)).reshape(shape)
+    pg_loss = (surr * weight).sum(-1).mean()
+    v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
+    v_err = torch.maximum((value - target) ** 2, (v_clipped - target) ** 2)
+    v_loss = 0.5 * (v_err * weight).sum(-1).mean()
+    ent_map = -(torch.exp(lsm) * lsm).sum(-1)
+    entropy = torch.diagonal(ent_map, dim1=i_axis, dim2=-1).mean()
+    total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
+    with torch.no_grad():
+        own = torch.diagonal(ratio, dim1=i_axis, dim2=-1)
+        approx_kl = ((own - 1) - torch.log(own)).mean()
+    metrics = {"pg_loss": pg_loss.detach(), "v_loss": v_loss.detach(),
+               "entropy": entropy.detach(), "approx_kl": approx_kl}
+    return total, metrics
+
+
+def seac_loss_native(cfg, seac_lambda: float, dims: BlockDims, params: torch.Tensor, batch,
+                     advstats: Optional[torch.Tensor] = None):
+    """SEAC-PPO loss in the kernels' rounding (``pallas_update.py:611-704``;
+    each agent's network is :func:`train_forward`) on a window ``(obs (T, B,
+    N, L), action, behaviour logp (T, B, N), old_value, adv, target (N_i, T,
+    B, N_j))`` for ``params`` (N, P), row i agent i's flat vector; advantages
+    normalised by ``advstats`` or by the whole window's cross advantages.
+    Returns (total, metrics)."""
+    obs, action, behav_logp, old_value, adv, target = batch
+    heads = [train_forward(dims.split(params[i]), obs) for i in range(params.shape[0])]
+    logits = torch.stack([h[0] for h in heads])  # (N_i, T, B, N_j, A)
+    value = torch.stack([h[1] for h in heads])
+    return seac_terms(cfg, seac_lambda, logits, value, action[None], behav_logp[None], old_value,
+                      adv, target, 0, advstats)
 
 
 def loss_grads(loss_fn: Callable, params):

@@ -38,10 +38,10 @@ _MAPPO_DIMS = _PPO_DIMS + [_I] * 8
 _SIGNATURES = {
     # ... scripted T B | layout state_in state_out actions rewards episodes stream
     "rw_fused_rollout": _DIMS + [_I] * 3 + [_P] * 7,
-    # ... deterministic T B sensor_range normalised L H1 H2 A threads smem_bytes |
-    # layout state_in state_out w0 b0 w1 b1 wp bp wv bv obs action logp value
-    # reward done stream
-    "rw_fused_collect": _DIMS + [_I] * 11 + [_P] * 18,
+    # ... deterministic T B sensor_range normalised L H1 H2 A threads smem_bytes
+    # n_stacks weights_global | layout state_in state_out w0 b0 w1 b1 wp bp wv bv
+    # obs action logp value reward done stream
+    "rw_fused_collect": _DIMS + [_I] * 13 + [_P] * 18,
     # ... deterministic T B sensor_range normalised L E Hg A threads smem_bytes |
     # layout state_in state_out we be wi bi wh bhn wc bc hbuf obs action logp
     # value reward done stream
@@ -56,6 +56,9 @@ _SIGNATURES = {
     # ... | start stats obs action logp value adv target params h1 h2 dz1 dz2
     # dcat partial part_mets grads mets stream
     "rw_fused_ppo_grads": _PPO_DIMS + [_P] * 19,
+    # ... seac_lambda | start stats obs action logp value adv target params h1
+    # h2 dz1 dz2 dcat partial part_mets grads mets stream
+    "rw_fused_seac_grads": _PPO_DIMS + [_F] + [_P] * 19,
     # ... max_grad_norm n_passes | starts advstats hyper obs action logp value
     # adv target params mu nu h1 h2 dz1 dz2 dcat partial part_mets grads mets
     # stream

@@ -1,5 +1,5 @@
-"""The fused rollout kernel (K1) and the fused collector kernels: MLP (K2a)
-and recurrent (K2c).
+"""The fused rollout kernel (K1) and the fused collector kernels: MLP (K2a),
+recurrent (K2c) and per-agent MLP (K2d).
 
 * :func:`build_fused_rollout` replaces
   ``rware_tpu/ops/pallas_rollout.py::build_pallas_rollout``: T env steps per
@@ -15,11 +15,14 @@ and recurrent (K2c).
   :class:`RecurrentActorCritic` (embed + GRU cell + f32 heads), the
   ``(B, N, Hg)`` bf16 carry kept on the card for the whole rollout and zeroed
   where an episode ends.
+* :func:`build_fused_collect_per_agent` replaces ``build_pallas_collect`` in
+  mode ``policy="mlp_per_agent"`` (SEAC's collector): K2a's step where agent i
+  runs its own :class:`ActorCritic` i.
 
 Each wrapper launches its CUDA kernel (``csrc/fused_rollout.cu``,
-``csrc/fused_collect.cu``, ``csrc/fused_collect_gru.cu``) for tensors on a
-CUDA device, and runs its plain PyTorch version (``.plain``) only for tensors on the CPU; it counts its
-kernel launches in ``.launches``.  Both draw from the same Philox stream
+``csrc/fused_collect.cu`` for K2a and K2d, ``csrc/fused_collect_gru.cu``) for
+tensors on a CUDA device, and runs its plain PyTorch version (``.plain``)
+only for tensors on the CPU; it counts its kernel launches in ``.launches``.  Both draw from the same Philox stream
 (:mod:`rware_tpu_torch.ops.philox`), so kernel and plain version agree bit
 for bit in every mode.  Scripted (K1) and deterministic (K2a) modes draw
 zeros: lowest-index queue replacement, agent i respawning at cell i facing
@@ -255,11 +258,14 @@ def build_fused_rollout(config: WarehouseConfig, n_steps: int, scripted: bool = 
     return FusedRollout(config, n_steps, scripted)
 
 
-def collect_smem_bytes(obs_len: int, hidden: Sequence[int], n_actions: int, threads: int) -> int:
-    """Dynamic shared memory of one collector block (csrc/fused_collect.cu)."""
+def collect_smem_bytes(obs_len: int, hidden: Sequence[int], n_actions: int, threads: int,
+                       n_stacks: int = 1) -> int:
+    """Dynamic shared memory of one collector block (csrc/fused_collect.cu)
+    holding ``n_stacks`` networks' weights (0: the weights are read from
+    device memory) beside the per-thread tiles."""
     h1, h2 = hidden
-    f32 = h1 + h2 + n_actions * h2 + n_actions + h2 + 1
-    bf16 = h1 * obs_len + h2 * h1 + (obs_len + h1) * threads
+    f32 = n_stacks * (h1 + h2 + n_actions * h2 + n_actions + h2 + 1)
+    bf16 = n_stacks * (h1 * obs_len + h2 * h1) + (obs_len + h1) * threads
     return ((4 * f32 + 15) // 16) * 16 + 2 * bf16
 
 
@@ -313,10 +319,15 @@ class FusedCollect(_Collector):
     """``collect(state, policy, seed) -> (state, traj)``; see
     :func:`build_fused_collect`."""
 
+    n_stacks = 1  # weight stacks the kernel takes: one network for all agents
+    weights_global = False  # the weights sit in shared memory
+
     def __init__(self, config: WarehouseConfig, n_steps: int,
                  hidden: Tuple[int, int] = (128, 128), deterministic: bool = False):
+        smem_stacks = 0 if self.weights_global else self.n_stacks
         super().__init__(config, n_steps, hidden, deterministic,
-                         lambda l, h1, h2, a, t: collect_smem_bytes(l, (h1, h2), a, t),
+                         lambda l, h1, h2, a, t: collect_smem_bytes(l, (h1, h2), a, t,
+                                                                    smem_stacks),
                          "two hidden layers")
 
     def _check_policy(self, policy: ActorCritic):
@@ -326,7 +337,26 @@ class FusedCollect(_Collector):
                 f"hidden={self.hidden})"
             )
 
-    def __call__(self, state: WarehouseState, policy: ActorCritic, seed):
+    def _forward(self, policy, obs: torch.Tensor):
+        """(logits (B, N, A), value (B, N)) of the observations (B, N, L)."""
+        return policy(obs)
+
+    def weights(self, policy, dev) -> list:
+        """The kernel's eight weight arrays: dense_0 and dense_1 (out, in) in
+        bf16, their biases and the heads in f32."""
+        d0, d1 = policy.dense
+        return [
+            d0.weight.to(device=dev, dtype=torch.bfloat16).contiguous(),
+            d0.bias.to(device=dev, dtype=torch.float32).contiguous(),
+            d1.weight.to(device=dev, dtype=torch.bfloat16).contiguous(),
+            d1.bias.to(device=dev, dtype=torch.float32).contiguous(),
+            policy.policy.weight.to(device=dev, dtype=torch.float32).contiguous(),
+            policy.policy.bias.to(device=dev, dtype=torch.float32).contiguous(),
+            policy.value.weight.to(device=dev, dtype=torch.float32).contiguous(),
+            policy.value.bias.to(device=dev, dtype=torch.float32).contiguous(),
+        ]
+
+    def __call__(self, state: WarehouseState, policy, seed):
         _check_state(self.config, state)
         self._check_policy(policy)
         seed = _check_seed(seed)
@@ -337,7 +367,7 @@ class FusedCollect(_Collector):
         raise ValueError(f"no fused collector for device {state.device}")
 
     @torch.no_grad()
-    def plain(self, state: WarehouseState, policy: ActorCritic, seed):
+    def plain(self, state: WarehouseState, policy, seed):
         """The plain PyTorch version: observe -> ActorCritic -> sample ->
         step, with the kernel's draws."""
         self._check_policy(policy)
@@ -347,7 +377,7 @@ class FusedCollect(_Collector):
         out = {k: [] for k in ("obs", "action", "logp", "value", "reward", "done")}
         for t in range(self.n_steps):
             obs = self._obs(state).to(torch.bfloat16)
-            logits, value = policy(obs)
+            logits, value = self._forward(policy, obs)
             u = None
             if not self.deterministic:
                 u = philox.gumbel_uniform(draws(t, philox.ACTION, n * 5).reshape(b, n, 5))
@@ -364,28 +394,19 @@ class FusedCollect(_Collector):
 
         lib = load_library()
         dev = state.device
-        b, n, t_len, l_obs = state.batch_size, self.config.n_agents, self.n_steps, self.obs_len
+        b, t_len, l_obs = state.batch_size, self.n_steps, self.obs_len
         h1, h2 = self.hidden
         with torch.cuda.device(dev):
             packed = pack_state(state)
             out = torch.empty_like(packed)
-            d0, d1 = policy.dense
-            weights = [
-                d0.weight.to(device=dev, dtype=torch.bfloat16).contiguous(),
-                d0.bias.to(device=dev, dtype=torch.float32).contiguous(),
-                d1.weight.to(device=dev, dtype=torch.bfloat16).contiguous(),
-                d1.bias.to(device=dev, dtype=torch.float32).contiguous(),
-                policy.policy.weight.to(device=dev, dtype=torch.float32).contiguous(),
-                policy.policy.bias.to(device=dev, dtype=torch.float32).contiguous(),
-                policy.value.weight.to(device=dev, dtype=torch.float32).contiguous(),
-                policy.value.bias.to(device=dev, dtype=torch.float32).contiguous(),
-            ]
+            weights = self.weights(policy, dev)
             traj = self._empty_traj(b, dev)
-            smem = collect_smem_bytes(l_obs, self.hidden, 5, self.threads)
+            smem = collect_smem_bytes(l_obs, self.hidden, 5, self.threads,
+                                      0 if self.weights_global else self.n_stacks)
             code = lib.rw_fused_collect(
                 *_dims(self.config), seed, int(self.deterministic), t_len, b,
                 self.config.sensor_range, int(self.config.normalised_coordinates),
-                l_obs, h1, h2, 5, self.threads, smem,
+                l_obs, h1, h2, 5, self.threads, smem, self.n_stacks, int(self.weights_global),
                 _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
                 *[_ptr(w) for w in weights],
                 *[_ptr(traj[k]) for k in ("obs", "action", "logp", "value", "reward", "done")],
@@ -406,6 +427,56 @@ def build_fused_collect(config: WarehouseConfig, n_steps: int,
     :class:`ActorCritic` with ``hidden``; ``deterministic`` takes the argmax
     action and the scripted draws."""
     return FusedCollect(config, n_steps, hidden, deterministic)
+
+
+class FusedCollectPerAgent(FusedCollect):
+    """``collect(state, policies, seed) -> (state, traj)``; see
+    :func:`build_fused_collect_per_agent`.  K2a's wrapper with one weight
+    stack per agent."""
+
+    def __init__(self, config: WarehouseConfig, n_steps: int,
+                 hidden: Tuple[int, int] = (128, 128), deterministic: bool = False):
+        self.n_stacks = n = config.n_agents
+        # all N networks in shared memory where they fit beside the tiles (up
+        # to 3 agents at L=71, hidden (128, 128)); else read from device memory
+        self.weights_global = not any(
+            collect_smem_bytes(config.flattened_obs_length, hidden, 5, t, n) <= SMEM_LIMIT
+            for t in (128, 64, 32))
+        super().__init__(config, n_steps, hidden, deterministic)
+
+    def _check_policy(self, policies: Sequence[ActorCritic]):
+        n = self.config.n_agents
+        if len(policies) != n or any(
+                p.hidden != self.hidden or p.obs_dim != self.obs_len or p.n_actions != 5
+                for p in policies):
+            raise ValueError(
+                f"policies must be {n} ActorCritic(obs_dim={self.obs_len}, n_actions=5, "
+                f"hidden={self.hidden}), one per agent"
+            )
+
+    def _forward(self, policies, obs: torch.Tensor):
+        """Agent i's network on agent i's observation."""
+        heads = [policy(obs[:, i]) for i, policy in enumerate(policies)]
+        return torch.stack([h[0] for h in heads], dim=1), torch.stack([h[1] for h in heads], dim=1)
+
+    def weights(self, policies, dev) -> list:
+        """The kernel's eight weight arrays, each the agents' stacks back to
+        back: dense_0 and dense_1 in bf16, as (out, in) for shared memory or
+        as (in, out) where they are read from device memory; the heads and
+        biases in f32."""
+        per_agent = [super(FusedCollectPerAgent, self).weights(p, dev) for p in policies]
+        return [torch.stack([w[k].t() if self.weights_global and k in (0, 2) else w[k]
+                             for w in per_agent]).contiguous() for k in range(8)]
+
+
+def build_fused_collect_per_agent(config: WarehouseConfig, n_steps: int,
+                                  hidden: Tuple[int, int] = (128, 128),
+                                  deterministic: bool = False) -> FusedCollectPerAgent:
+    """Returns ``collect(state, policies, seed) -> (state, traj)`` with
+    ``policies`` a sequence of N :class:`ActorCritic` with ``hidden``, agent i
+    running ``policies[i]`` (``pallas_rollout.py:1316-1373``), and ``traj`` as
+    :func:`build_fused_collect`'s."""
+    return FusedCollectPerAgent(config, n_steps, hidden, deterministic)
 
 
 def collect_gru_smem_bytes(obs_len: int, embed: int, hidden: int, n_actions: int,

@@ -112,10 +112,11 @@ def window_rows(start, t_mb: int, t_full: int, device) -> torch.Tensor:
     return (torch.arange(t_mb, device=device) + start) % t_full
 
 
-def window_advstats(adv: torch.Tensor, start, t_mb: int) -> torch.Tensor:
-    """[mean, 1/(std + 1e-8)] of the advantages of a window (population std,
-    as ``pallas_update.py:458-469``)."""
-    win = adv.index_select(0, window_rows(start, t_mb, adv.shape[0], adv.device))
+def window_advstats(adv: torch.Tensor, start, t_mb: int, time_dim: int = 0) -> torch.Tensor:
+    """[mean, 1/(std + 1e-8)] of the advantages of a window, time on
+    ``time_dim`` (population std, as ``pallas_update.py:458-469``; SEAC's
+    ``(N_i, T, B, N_j)`` cross advantages over all pairs, ``:828-829``)."""
+    win = adv.index_select(time_dim, window_rows(start, t_mb, adv.shape[time_dim], adv.device))
     return torch.stack([win.mean(), 1.0 / (win.std(correction=0) + 1e-8)]).to(torch.float32)
 
 

@@ -139,6 +139,29 @@ def random_mappo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, devi
     return dims, CriticDims.of(critic), params, data
 
 
+def random_seac_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device="cpu"):
+    """``(dims, params, data)`` of random inputs for SEAC-PPO's gradient
+    kernel: the obs, actions and behaviour log-probs of
+    :func:`random_ppo_case`, normal old values, advantages and targets as
+    ``(N_i, T, B, N_j)`` cross arrays, and N independent flax-initialised
+    networks at hidden (128, 128) stacked into ``(N, P)``, biases off zero."""
+    from rware_tpu_torch.models.networks import init_actor_critic, pack_arrays, params_to_arrays
+
+    dims, _, data = random_ppo_case(env_id, n_envs, t_full, seed, device)
+    n = data[1].shape[2]
+    params = torch.stack([
+        pack_arrays(params_to_arrays(init_actor_critic(dims.obs_len, 5, (128, 128), (seed, 2, i))))
+        for i in range(n)]).detach().to(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    for row in params:
+        for block in dims.split(row):
+            if block.shape[0] == 1:  # a bias
+                block += 0.1 * torch.randn(block.shape, generator=gen, device=device)
+    cross = tuple(torch.randn((n,) + tuple(data[1].shape), generator=gen, device=device)
+                  for _ in range(3))
+    return dims, params, data[:3] + cross
+
+
 UP = Direction.UP
 DOWN = Direction.DOWN
 LEFT = Direction.LEFT

@@ -1,6 +1,6 @@
-"""Train IPPO (MLP or GRU policy) or MAPPO (MLP) on a warehouse config — the
-port's counterpart of ``train.py`` (algo ``ippo`` with net ``mlp`` or ``gru``,
-algo ``mappo`` with net ``mlp``).
+"""Train IPPO (MLP or GRU policy), MAPPO (MLP) or SEAC-PPO (MLP) on a
+warehouse config — the port's counterpart of ``train.py`` (algo ``ippo`` with
+net ``mlp`` or ``gru``, algos ``mappo`` and ``seac-ppo`` with net ``mlp``).
 
 Examples::
 
@@ -8,6 +8,8 @@ Examples::
         --n-envs 4096 --updates 300 --checkpoint-dir ckpts/run1
     python -m rware_tpu_torch.train --device cuda --algo mappo --n-envs 4096 --updates 400
     python -m rware_tpu_torch.train --device cuda --net gru --n-envs 4096 --updates 800 \\
+        --ent-coef 0.03
+    python -m rware_tpu_torch.train --device cuda --algo seac-ppo --n-envs 4096 --updates 800 \\
         --ent-coef 0.03
     python -m rware_tpu_torch.train --device cpu --n-envs 128 --rollout-len 8 --updates 2
 
@@ -17,13 +19,17 @@ through the critic-values kernel (K6) and one combined actor + critic gradient
 kernel launch (K5) per pass, or with ``--fused-critic-phase`` the
 whole-MAPPO-phase kernel (K7).  ``--net gru`` trains the recurrent policy
 through the recurrent collector (K2c) and, per env-band pass, the GRU
-forward and backward sequence kernels (K9, K10).  On the CPU each runs its
-plain version.  ``--collect plain`` runs the plain IPPO learner
-(``models/ippo.build_train_step``, or ``models/ippo_rnn.build_rnn_train_step``
-with ``--net gru``).  The device is never chosen for you:
-``--device cuda`` without a GPU raises.  The final policy is written with
-``torch.save`` to ``<checkpoint-dir>/policy.pt`` with its net kind under
-``net``; a MAPPO run adds its central critic under the key ``critic``.
+forward and backward sequence kernels (K9, K10).  ``--algo seac-ppo`` trains
+one MLP per agent through the per-agent collector (K2d) and, per pass, the
+per-agent SEAC gradient kernel (K8).  On the CPU each runs its plain
+version.  ``--collect plain`` runs the plain learner of the algo and net
+(``models/ippo.build_train_step``, ``models/ippo_rnn.build_rnn_train_step``
+with ``--net gru``, ``models/seac.build_seac_ppo_train_step`` with ``--algo
+seac-ppo``).  The device is never chosen for you: ``--device cuda`` without a
+GPU raises.  The final policy is written with ``torch.save`` to
+``<checkpoint-dir>/policy.pt`` with its net kind under ``net``; a MAPPO run
+adds its central critic under the key ``critic``, a SEAC-PPO run holds one
+network per agent and says how many under ``per_agent``.
 """
 from __future__ import annotations
 
@@ -35,8 +41,9 @@ import torch
 
 from rware_tpu_torch.core.env import resolve_device
 
-NOT_PORTED = ("not ported yet: the port trains --algo ippo with --net mlp or --net gru, and "
-              "--algo mappo with --net mlp and --collect fused")
+NOT_PORTED = ("not ported yet: the port trains --algo ippo with --net mlp or --net gru, "
+              "--algo mappo with --net mlp and --collect fused, and --algo seac-ppo with "
+              "--net mlp (SEAC A2C, recurrent SEAC and message bits are still to come)")
 
 
 def parse_args(argv=None):
@@ -46,8 +53,8 @@ def parse_args(argv=None):
     p.add_argument("--algo", choices=["ippo", "mappo", "seac", "seac-ppo"], default="ippo")
     p.add_argument("--net", choices=["mlp", "gru"], default="mlp")
     p.add_argument("--collect", choices=["fused", "plain"], default="fused",
-                   help="fused = the collector and update kernels; plain = the plain IPPO "
-                        "learner of the net")
+                   help="fused = the collector and update kernels; plain = the plain "
+                        "learner of the algo and net")
     p.add_argument("--fused-critic-phase", action="store_true",
                    help="mappo: the whole update phase in the K7 kernel (default: K5 per pass)")
     p.add_argument("--minibatch-mode", choices=["shuffle", "block"], default="shuffle",
@@ -68,16 +75,22 @@ def save_policy(path: str, env_id: str, dims, params: torch.Tensor, updates: int
                 cdims=None, cparams=None) -> None:
     """``torch.save`` of the policy: its net kind (``"mlp"``: an
     ``ActorCritic``; ``"gru"``: a ``RecurrentActorCritic``), sizes and state
-    dict, and under ``critic`` those of MAPPO's ``CentralCritic``."""
+    dict, and under ``critic`` those of MAPPO's ``CentralCritic``.  An (N, P)
+    ``params`` stack (SEAC) is N ``ActorCritic``, one per agent, saved as one
+    ``nn.ModuleList`` with ``per_agent: N``."""
     from rware_tpu_torch.models.ippo import policy_of
     from rware_tpu_torch.models.ippo_rnn import rnn_policy_of
     from rware_tpu_torch.models.networks import GruDims, arrays_to_critic
+    from rware_tpu_torch.models.seac import seac_policies_of
 
     ckpt = {"env": env_id, "obs_dim": dims.obs_len, "n_actions": dims.n_actions,
             "updates": updates}
     if isinstance(dims, GruDims):
         model = rnn_policy_of(dims, params.cpu())
         ckpt.update(net="gru", hidden=dims.hidden, embed=dims.embed)
+    elif params.dim() == 2:
+        model = seac_policies_of(dims, params.cpu())
+        ckpt.update(net="mlp", hidden=(dims.h1, dims.h2), per_agent=params.shape[0])
     else:
         model = policy_of(dims, params.cpu())
         ckpt.update(net="mlp", hidden=(dims.h1, dims.h2))
@@ -91,8 +104,11 @@ def save_policy(path: str, env_id: str, dims, params: torch.Tensor, updates: int
 
 def load_policy(path: str, device="cpu"):
     """(env id, policy) of a file written by :func:`save_policy`: an
-    ``ActorCritic`` or, for net kind ``"gru"``, a ``RecurrentActorCritic``
-    (a file without a kind is an MLP's)."""
+    ``ActorCritic``, for net kind ``"gru"`` a ``RecurrentActorCritic``, and
+    with ``per_agent: N`` an ``nn.ModuleList`` of N ``ActorCritic``, agent i
+    running the i-th (a file without a kind is an MLP's)."""
+    from torch import nn
+
     from rware_tpu_torch.models.networks import ActorCritic, RecurrentActorCritic
 
     ckpt = torch.load(path, map_location="cpu")
@@ -100,6 +116,10 @@ def load_policy(path: str, device="cpu"):
     if net == "gru":
         model = RecurrentActorCritic(ckpt["obs_dim"], ckpt["n_actions"], ckpt["hidden"],
                                      ckpt["embed"])
+    elif net == "mlp" and "per_agent" in ckpt:
+        model = nn.ModuleList(
+            ActorCritic(ckpt["obs_dim"], ckpt["n_actions"], tuple(ckpt["hidden"]))
+            for _ in range(ckpt["per_agent"]))
     elif net == "mlp":
         model = ActorCritic(ckpt["obs_dim"], ckpt["n_actions"], tuple(ckpt["hidden"]))
     else:
@@ -110,9 +130,9 @@ def load_policy(path: str, device="cpu"):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    mappo, gru = args.algo == "mappo", args.net == "gru"
-    if args.algo not in ("ippo", "mappo") or (mappo and (gru or args.collect != "fused")) \
-            or (args.fused_critic_phase and not mappo):
+    mappo, seac, gru = args.algo == "mappo", args.algo == "seac-ppo", args.net == "gru"
+    if args.algo == "seac" or (mappo and (gru or args.collect != "fused")) \
+            or (seac and gru) or (args.fused_critic_phase and not mappo):
         raise NotImplementedError(
             f"--algo {args.algo} --net {args.net} --collect {args.collect}"
             f"{' --fused-critic-phase' * args.fused_critic_phase}: {NOT_PORTED}")
@@ -127,12 +147,27 @@ def main(argv=None) -> dict:
         init_rnn_runner,
     )
     from rware_tpu_torch.models.mappo import build_mappo_train_step, init_mappo_runner
+    from rware_tpu_torch.models.seac import (
+        SEACPPOConfig,
+        build_seac_ppo_fused_train_step,
+        build_seac_ppo_train_step,
+        init_seac_ppo,
+    )
 
     env = rware_tpu_torch.make(args.env, device=dev)
     cfg = IPPOConfig(n_envs=args.n_envs, rollout_len=args.rollout_len, lr=args.lr,
                      ent_coef=args.ent_coef, minibatch_mode=args.minibatch_mode)
     cdims = None
-    if mappo:
+    if seac:
+        # train.py:254-259: the run sets the batch, the rollout, lr and ent_coef
+        cfg = SEACPPOConfig(n_envs=args.n_envs, rollout_len=args.rollout_len, lr=args.lr,
+                            ent_coef=args.ent_coef)
+        runner, dims = init_seac_ppo(env, cfg, args.seed)
+        if args.collect == "fused":
+            train_step = build_seac_ppo_fused_train_step(env, dims, cfg)
+        else:
+            train_step = build_seac_ppo_train_step(env, dims, cfg)
+    elif mappo:
         runner, dims, cdims = init_mappo_runner(env, cfg, args.seed)
         train_step = build_mappo_train_step(env, dims, cdims, cfg,
                                             fused_critic_phase=args.fused_critic_phase)

@@ -12,7 +12,7 @@ import torch
 
 import rware_tpu_torch
 from rware_tpu_torch.models import ActorCritic
-from rware_tpu_torch.models import ippo, ippo_rnn
+from rware_tpu_torch.models import ippo, ippo_rnn, seac
 from rware_tpu_torch.models.ippo_fused import phase_advstats, phase_window_starts
 from rware_tpu_torch.ops.fused_mappo import (
     build_fused_critic_values,
@@ -24,14 +24,16 @@ from rware_tpu_torch.ops.fused_gru import build_fused_gru_obs_bwd, build_fused_g
 from rware_tpu_torch.ops.fused_rollout import (
     build_fused_collect,
     build_fused_collect_gru,
+    build_fused_collect_per_agent,
     build_fused_rollout,
 )
+from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
 from rware_tpu_torch.ops.fused_update import (
     build_fused_ppo_grads,
     build_fused_ppo_update_phase,
 )
 from rware_tpu_torch.parallel import batched_reset
-from rware_tpu_torch.testing import random_mappo_case, random_ppo_case
+from rware_tpu_torch.testing import random_mappo_case, random_ppo_case, random_seac_case
 
 torch.set_num_threads(1)
 pytestmark = [
@@ -282,6 +284,64 @@ def test_rnn_fused_train_step_runs_on_the_card():
     new, metrics = step(new)
     assert (step.collect.launches, step.gru_fwd.launches, step.gru_bwd.launches) == (2, 8, 8)
     assert new.params.device.type == "cuda" and new.carry.dtype == torch.bfloat16
+    assert float((new.params - runner.params).abs().max()) > 0
+    assert int(metrics["episodes_done"]) == 1024
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v.float())), k
+
+
+# tiny-2ag keeps both agents' weights in shared memory, large-8ag reads them
+# from device memory
+@pytest.mark.parametrize("env_id", ["rware-tiny-2ag-v2", "rware-large-8ag-v2"])
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_fused_collect_per_agent_kernel_matches_plain(env_id, deterministic):
+    """K2d: obs, actions, rewards, done and the final state exact, values and
+    logp within ATOL."""
+    env = rware_tpu_torch.make(env_id, device=DEV, max_steps=20)
+    states, _ = batched_reset(env, 1, 1000)
+    dims, params, _ = random_seac_case(env_id, 1, 1, seed=2)
+    policies = seac.seac_policies_of(dims, params).to(DEV)
+    collect = build_fused_collect_per_agent(env.config, 32, deterministic=deterministic)
+    assert collect.weights_global == (env.n_agents > 3)
+    ks, ktraj = collect(states, policies, 2)
+    ps, ptraj = collect.plain(states, policies, 2)
+    assert collect.launches == 1
+    for k in ("obs", "action", "reward", "done"):
+        assert torch.equal(ktraj[k], ptraj[k]), k
+    for k in ("value", "logp"):
+        assert float((ktraj[k] - ptraj[k]).abs().max()) <= ATOL, k
+    for f in FIELDS:
+        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+
+
+@pytest.mark.parametrize("env_id,seac_lambda", [("rware-tiny-2ag-v2", 1.0),
+                                                ("rware-small-4ag-v2", 0.5)])
+def test_fused_seac_grads_kernel_matches_plain(env_id, seac_lambda):
+    """K8: every agent's gradients within 1e-2 of each block's largest |plain
+    value| on a window that wraps; two launches give the same bits."""
+    dims, params, data = random_seac_case(env_id, 1000, 8, device=DEV)
+    k8 = build_fused_seac_grads(dims, params.shape[0], 4, clip_eps=0.2, vf_coef=0.5,
+                                ent_coef=0.01, seac_lambda=seac_lambda)
+    kg, ks = k8(params, data, 7)
+    kg2, ks2 = k8(params, data, 7)
+    pg, ps = k8.plain(params, data, 7)
+    assert k8.launches == 2 and kg.shape == params.shape
+    assert torch.equal(kg, kg2) and torch.equal(ks, ks2)
+    for i in range(params.shape[0]):
+        for g, p in zip(dims.split(kg[i]), dims.split(pg[i])):
+            assert float((g - p).abs().max()) <= 1e-2 * float(p.abs().max())
+    torch.testing.assert_close(ks, ps, rtol=1e-3, atol=1e-2)
+
+
+def test_seac_fused_train_step_runs_on_the_card():
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=20)
+    cfg = seac.SEACPPOConfig(n_envs=1024, rollout_len=16, epochs=2, minibatches=2)
+    runner, dims = seac.init_seac_ppo(env, cfg, seed=0)
+    step = seac.build_seac_ppo_fused_train_step(env, dims, cfg)
+    new, metrics = step(runner)
+    new, metrics = step(new)
+    assert (step.collect.launches, step.grads.launches) == (2, 8)
+    assert new.params.device.type == "cuda" and new.params.shape == (2, dims.n_params)
     assert float((new.params - runner.params).abs().max()) > 0
     assert int(metrics["episodes_done"]) == 1024
     for k, v in metrics.items():

@@ -16,11 +16,15 @@ E=4, M=4) and profiles one; with ``--algo mappo`` the learner is
 ``models/mappo.build_mappo_train_step``, per pass (K5) and, with
 ``--fused-critic-phase``, whole phase (K7); with ``--net gru`` it is the
 recurrent learner ``models/ippo_rnn.build_rnn_fused_train_step`` (K2c, and
-K9 + K10 per band pass).  Prints
+K9 + K10 per band pass); with ``--algo seac-ppo`` it is the SEAC-PPO learner
+``models/seac.build_seac_ppo_fused_train_step`` (K2d, and K8 per pass), and
+each config also times the per-agent collector kernel (K2d, B=16,384, T=128)
+and the SEAC-PPO gradient kernel (K8, one 32-row window of B=16,384 random
+data).  Prints
 one JSON object per line, each with the card's name and power limit; ``--out`` also writes them to a file.
 
 Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-step]
-       [--algo ippo|mappo] [--net mlp|gru] [--fused-critic-phase] [--out FILE]
+       [--algo ippo|mappo|seac-ppo] [--net mlp|gru] [--fused-critic-phase] [--out FILE]
 """
 import argparse
 import json
@@ -84,6 +88,33 @@ def profile(fn):
     return top, busy, wall_ms
 
 
+def seac_kernels(env, env_id, states, repeats, emit):
+    """K2d on ``states`` (B=16,384, T=128) and K8 on one 32-row window of
+    random data of the same batch, at ``env``'s agent count."""
+    import torch
+    from rware_tpu_torch.models.seac import seac_policies_of
+    from rware_tpu_torch.ops.fused_rollout import build_fused_collect_per_agent
+    from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
+    from rware_tpu_torch.testing import random_seac_case
+
+    b, t, t_mb = states.batch_size, 128, 32
+    dims, params, data = random_seac_case(env_id, b, t_mb, 0, env.device)
+    policies = seac_policies_of(dims, params)
+    collect = build_fused_collect_per_agent(env.config, t)
+    med, lo, hi = time_launches(lambda: collect(states, policies, 1), repeats)
+    emit({"kernel": "fused_collect_per_agent", "env": env_id, "B": b, "T": t,
+          "weights": "device memory" if collect.weights_global else "shared memory",
+          "ms_median": med, "ms_min": lo, "ms_max": hi, "env_steps_per_s": b * t / med * 1e3})
+    k8 = build_fused_seac_grads(dims, env.n_agents, t_mb, clip_eps=0.2, vf_coef=0.5,
+                                ent_coef=0.01, seac_lambda=1.0)
+    med, lo, hi = time_launches(lambda: k8(params, data, 0), repeats)
+    emit({"kernel": "fused_seac_grads", "env": env_id, "B": b, "T_mb": t_mb, "ms_median": med,
+          "ms_min": lo, "ms_max": hi,
+          "pair_samples_per_s": t_mb * b * env.n_agents ** 2 / med * 1e3})
+    del data
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", nargs="*", default=[
@@ -92,7 +123,7 @@ def main():
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--train-step", action="store_true")
-    ap.add_argument("--algo", choices=["ippo", "mappo"], default="ippo")
+    ap.add_argument("--algo", choices=["ippo", "mappo", "seac-ppo"], default="ippo")
     ap.add_argument("--net", choices=["mlp", "gru"], default="mlp")
     ap.add_argument("--fused-critic-phase", action="store_true")
     ap.add_argument("--out")
@@ -159,6 +190,8 @@ def main():
                   "ms_min": lo, "ms_max": hi,
                   "sequence_steps_per_s": t * band[1] * env.n_agents / med * 1e3})
         del traj, hseq, dh, seq
+        if args.algo == "seac-ppo":
+            seac_kernels(env, env_id, states, args.repeats, emit)
 
     if args.profile:
         env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
@@ -179,7 +212,17 @@ def main():
 
         env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
         cfg = ippo.IPPOConfig(n_envs=16384, rollout_len=128, epochs=4, minibatches=4)
-        if args.net == "gru":
+        if args.algo == "seac-ppo":
+            if args.net != "mlp":
+                raise SystemExit("--algo seac-ppo takes --net mlp")
+            from rware_tpu_torch.models import seac
+
+            scfg = seac.SEACPPOConfig(n_envs=cfg.n_envs, rollout_len=cfg.rollout_len,
+                                      epochs=cfg.epochs, minibatches=cfg.minibatches)
+            runner, dims = seac.init_seac_ppo(env, scfg, 0)
+            step = seac.build_seac_ppo_fused_train_step(env, dims, scfg)
+            what = "seac-ppo (K2d, K8 per pass)"
+        elif args.net == "gru":
             if args.algo != "ippo":
                 raise SystemExit("--net gru takes --algo ippo")
             from rware_tpu_torch.models import ippo_rnn
