@@ -89,7 +89,26 @@ Phases, one line each:
     reset before and read after (exactly 3 K2d, 48 K8); the time of an update
     split into collect (K2d), cross values and GAE, and the 16 passes (K8 and
     the optimizer); K2d and K8 timed and compared at that shape beside their
-    plain versions.
+    plain versions;
+18. message bits (``msg_bits`` M > 0): K1 (scripted and random) and the
+    collectors' message mode K2b in K2a and K2c (deterministic and random)
+    against their plain versions on the card, on tiny-2ag M=2, small-4ag M=1
+    and sensor range 2 M=3 at B=1000, T=32, then K2a with K2b at the main shape
+    B=16,384, T=128, and K1 with messages at its main shape B=65,536, T=256;
+    obs, rewards, done, the final state (messages included), bits and actions
+    exact, value and logp within 2e-2;
+19. the PPO gradient kernel with the message head (K4, M=2) against its plain
+    version: tiny-2ag and tiny-16ag at B=1000, windows that wrap; gradients
+    within 1e-2 of each block's largest |plain|, metrics within rtol 1e-3, two
+    launches bit-equal;
+20. the three learners with ``msg_bits=2`` at full width on an env made with
+    ``make``'s default device: tiny-2ag, B=16,384, T=128, E=4, M=4, IPPO and
+    MAPPO's split path with hidden (128, 128), recurrent IPPO with embed 128 +
+    GRU 128; each three updates after one warm-up with launch counters reset
+    before and read after (IPPO: 3 collector, 48 K4, 0 K3; recurrent: 3 K2c,
+    48 K9, 48 K10; MAPPO: 3 collector, 48 K4, 0 K5, 0 K7), the time of an
+    update split by phase; K2a with K2b and K4 with the message head timed at
+    that shape beside their plain versions.
 
 Then the card's name and power limit, one JSON line describing each kernel
 (its time beside its plain version's and beside ``bound_ms``, the least time
@@ -198,8 +217,8 @@ def ppo_bound(dims, cdims, data, t_mb, n_passes, whole_phase, with_actor=True):
         + 16.0 * n_passes
     bf = f32 = 0.0
     if with_actor and dims is not None:
-        # MAPPO's actor has no value column in its loss
-        heads = dims.n_actions + (cdims is None)
+        # MAPPO's actor has no value column in its loss; a message head adds M
+        heads = dims.heads - (cdims is not None)
         a_bf, a_f32 = mlp_flops(dims.obs_len, dims.h1, dims.h2, heads, t_mb * b * n, True)
         bf, f32 = bf + a_bf, f32 + a_f32
     if cdims is not None:
@@ -285,7 +304,9 @@ def check_invariants(env, state) -> None:
 
 
 def compare_k1(env_id, dev, b, t, scripted, seed, **overrides):
-    """K1 kernel vs its plain version on the card; returns max |reward diff|."""
+    """K1 kernel vs its plain version on the card (with ``msg_bits`` in
+    ``overrides``, scripted actions carry random bits); returns (env, state,
+    rewards, episodes, max |reward diff|)."""
     import torch
     import rware_tpu_torch
     from rware_tpu_torch.ops.fused_rollout import build_fused_rollout
@@ -299,6 +320,10 @@ def compare_k1(env_id, dev, b, t, scripted, seed, **overrides):
         gen = torch.Generator(device=dev).manual_seed(seed)
         actions = torch.randint(0, 5, (t, b, env.n_agents), generator=gen, device=dev,
                                 dtype=torch.int32)
+        if env.config.msg_bits:
+            bits = torch.randint(0, 2, (t, b, env.n_agents, env.config.msg_bits), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            actions = torch.cat([actions[..., None], bits], dim=-1)
     ks, kr, ke = roll(states, seed + 1, actions)
     ps, pr, pe = roll.plain(states, seed + 1, actions)
     torch.cuda.synchronize()
@@ -705,6 +730,94 @@ def compare_k8(env_id, dev, b, t_full, t_mb, starts, seed, seac_lambda, grads=No
             err = max(err, check_blocks(dims, kg[i], pg[i], GRAD_FRAC, f"{what} agent {i}"))
         check_metric_sums(ks, ps, n, 1e-3, what)
     return k8, err
+
+
+MSG_CONFIGS = (("rware-tiny-2ag-v2", 2), ("rware-small-4ag-v2", 1), ("rware-2s-tiny-2ag-v2", 3))
+
+
+def compare_k2b(env_id, dev, b, t, deterministic, seed, net="mlp", policy=None, collect=None,
+                states=None, h0=None, **overrides):
+    """The message mode K2b of the MLP (K2a) or recurrent (K2c) collector
+    against its plain version on the card (``msg_bits`` in ``overrides``;
+    from a reset and, for the GRU, a random nonzero carry unless ``states``
+    and ``h0`` are given): obs, rewards, done, bits, actions, the final state
+    and the new carry exact; returns (state, traj, collector, value/logp
+    error)."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models.networks import init_actor_critic, init_recurrent_actor_critic
+    from rware_tpu_torch.ops.fused_rollout import build_fused_collect, build_fused_collect_gru
+    from rware_tpu_torch.parallel import batched_reset
+
+    env = rware_tpu_torch.make(env_id, device=dev, **overrides)
+    m, length = env.config.msg_bits, env.config.flattened_obs_length
+    if states is None:
+        states, _ = batched_reset(env, seed, b)
+    gen = torch.Generator().manual_seed(seed)
+    if policy is None:
+        init = init_actor_critic(length, 5, (128, 128), seed, m) if net == "mlp" else \
+            init_recurrent_actor_critic(length, 5, 128, 128, seed, m)
+        with torch.no_grad():  # nonzero biases: a zero bias hides where it is rounded
+            for p in init.parameters():
+                if p.dim() == 1:
+                    p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+        policy = init.to(dev)
+    what = f"K2b ({net}) {env_id} {overrides} deterministic={deterministic}"
+    if net == "mlp":
+        collect = collect or build_fused_collect(env.config, t, deterministic=deterministic)
+        ks, ktraj = collect(states, policy, seed + 1)
+        ps, ptraj = collect.plain(states, policy, seed + 1)
+    else:
+        if h0 is None:
+            h0 = (torch.rand((b, env.n_agents, 128), generator=gen) * 2 - 1).to(torch.bfloat16)
+            h0 = h0.to(dev)
+        collect = collect or build_fused_collect_gru(env.config, t, deterministic=deterministic)
+        ks, kh, ktraj = collect(states, policy, seed + 1, h0)
+        ps, ph, ptraj = collect.plain(states, policy, seed + 1, h0)
+        torch.cuda.synchronize()
+        require(torch.equal(kh, ph), f"{what}: the new carry differs")
+    torch.cuda.synchronize()
+    for k in ("obs", "reward", "done", "action", "bits"):
+        require(torch.equal(ktraj[k], ptraj[k]), f"{what}: {k} differs")
+    bad = state_diff(ks, ps)
+    require(not bad, f"{what}: final state differs in {bad}")
+    err = max(float((ktraj[k] - ptraj[k]).abs().max()) for k in ("value", "logp"))
+    require(err <= VALUE_LOGP_ATOL, f"{what}: value/logp err {err}")
+    share = float(ktraj["bits"].float().mean())
+    require(0.0 < share < 1.0, f"{what}: every bit is {share}")
+    last = ktraj["bits"][-1].float() * (~ktraj["done"][-1]).float()[:, None, None]
+    require(torch.equal(ks.agent_message, last), f"{what}: messages are not the last bits")
+    for k, v in ktraj.items():
+        require(not v.is_floating_point() or bool(torch.isfinite(v.float()).all()),
+                f"{what}: non-finite {k}")
+    check_invariants(env, ks)
+    return ks, ktraj, collect, err
+
+
+def compare_k4m(env_id, dev, b, t_full, t_mb, starts, seed, msg_bits=2, k4=None, dims=None,
+                params=None, data=None):
+    """K4 with the message head vs its plain version at each window start
+    (random data, or ``data`` with ``dims``, ``params`` and ``k4``); returns
+    (k4, max |grad diff|)."""
+    import torch
+    from rware_tpu_torch.ops.fused_update import build_fused_ppo_grads
+    from rware_tpu_torch.testing import random_ppo_case
+
+    if data is None:
+        dims, params, data = random_ppo_case(env_id, b, t_full, seed, dev, msg_bits)
+    k4 = k4 or build_fused_ppo_grads(dims, t_mb, clip_eps=0.2, vf_coef=0.5, ent_coef=0.01)
+    n = t_mb * data[1].shape[1] * data[1].shape[2]
+    err = 0.0
+    for start in starts:
+        what = f"K4 message head {env_id} start {start}"
+        kg, ks = k4(params, data, start)
+        kg2, ks2 = k4(params, data, start)
+        pg, ps = k4.plain(params, data, start)
+        torch.cuda.synchronize()
+        require(torch.equal(kg, kg2) and torch.equal(ks, ks2), f"{what}: two launches differ")
+        err = max(err, check_blocks(dims, kg, pg, GRAD_FRAC, what))
+        check_metric_sums(ks, ps, n, 1e-3, what)
+    return k4, err
 
 
 def seac_bound(dims, data, t_mb):
@@ -1321,6 +1434,220 @@ def phase17(dev, kind, card, k2d_err, n_envs=16384, rollout_len=128):
     ]
 
 
+def phase18(dev, kind, card):
+    """K1 with messages and K2b in both collectors against their plain
+    versions; returns the K1 message-mode entry and K2b's main-shape error."""
+    import rware_tpu_torch
+    from rware_tpu_torch.ops.fused_rollout import build_fused_rollout
+    from rware_tpu_torch.parallel import batched_reset
+
+    for env_id, m in MSG_CONFIGS:
+        for scripted in (True, False):
+            _, _, kr, ke, _ = compare_k1(env_id, dev, 1000, 32, scripted, 7, msg_bits=m,
+                                         max_steps=20)
+            log(f"phase 18 K1 {env_id} M={m} B=1000 T=32 scripted={scripted}: bit-exact, "
+                f"messages included (reward sum {float(kr.sum())}, episodes {int(ke.sum())})")
+        for net in ("mlp", "gru"):
+            for deterministic in (True, False):
+                _, traj, collect, err = compare_k2b(env_id, dev, 1000, 32, deterministic, 5, net,
+                                                    msg_bits=m, max_steps=20)
+                log(f"phase 18 K2b ({net}) {env_id} M={m} B=1000 T=32 deterministic="
+                    f"{deterministic}: obs/reward/done/bits/actions/state exact, value/logp err "
+                    f"{err}, bits set {float(traj['bits'].float().mean()):.4f} "
+                    f"({collect.threads} threads)")
+    _, traj, _, k2b_err = compare_k2b("rware-tiny-2ag-v2", dev, 16384, 128, False, 13,
+                                      msg_bits=2)
+    log(f"phase 18 K2b (mlp) main shape tiny-2ag M=2 B=16384 T=128 random: obs/reward/done/"
+        f"bits/actions/state exact, value/logp max_abs_err {k2b_err} [{kind}, {card}]")
+
+    # K1 with messages at its main shape: chained launches from one reset,
+    # counted from just before to just after.
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev, msg_bits=2)
+    b1, t1 = 65536, 256
+    states, _ = batched_reset(env, 0, b1)
+    roll = build_fused_rollout(env.config, t1)
+    _, _, _, _, k1_err = compare_k1("rware-tiny-2ag-v2", dev, b1, t1, False, 11, msg_bits=2)
+    roll(states, 1)  # warm-up
+    roll.launches = 0
+    chain = [(states, None, None)]
+    k1_ms, _ = cuda_ms(lambda: chain.append(roll(chain[-1][0], 4 + len(chain))), repeats=4)
+    launches = roll.launches
+    require(launches == 4, f"K1 with messages launched {launches} times, not 4")
+    k1_plain_ms, _ = cuda_ms(lambda: roll.plain(states, 4))
+    final = chain[-1][0]
+    share = float(final.agent_message.mean())
+    require(abs(share - 0.5) < 0.01, f"K1 random message bits set {share}, not one half")
+    check_invariants(env, final)
+    log(f"phase 18 K1 with messages tiny-2ag M=2 B={b1} T={t1}: {k1_ms:.3f} ms/launch = "
+        f"{b1 * t1 / k1_ms * 1e3:.4g} env-steps/s (plain {k1_plain_ms:.1f} ms), bit-exact at "
+        f"that shape, message bits set {share:.4f}, launches {launches} [{kind}, {card}]")
+    k1_bound = bound(2 * state_bytes(states) + tensor_bytes(chain[-1][1], chain[-1][2]))
+    return k2b_err, kernel_entry("fused_rollout (message bits)", "fused_rollout.cu",
+                                 "rware_tpu/ops/pallas_rollout.py:657", launches, k1_err, k1_ms,
+                                 k1_plain_ms, k1_bound)
+
+
+def phase19(dev, kind, card):
+    """K4 with the message head against its plain version."""
+    for env_id in ("rware-tiny-2ag-v2", "rware-tiny-16ag-v2"):
+        k4, err = compare_k4m(env_id, dev, 1000, 8, 4, (0, 3, 7), 21)
+        log(f"phase 19 K4 with the message head {env_id} M=2 B=1000 T=8 window 4 at starts 0, "
+            f"3, 7: within {GRAD_FRAC} of each block, max_abs_err {err}, metrics within rtol "
+            f"1e-3, two launches bit-equal (tile {k4.tile}, head rows {k4.hc}) [{kind}, {card}]")
+
+
+def _time_learner(name, step, runner, counted, want, kind, card, cfg):
+    """Three updates after a warm-up with ``counted`` launch counters reset
+    before and read after (they must equal ``want``); returns (runner, ms per
+    update, metrics of the last update)."""
+    import torch
+
+    runner, _ = step(runner)  # warm-up
+    torch.cuda.synchronize()
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    runs = []
+
+    def update():
+        nonlocal runner
+        runner, metrics = step(runner)
+        runs.append(metrics)
+
+    update_ms, _ = cuda_ms(update, repeats=3)
+    got = {k: w.launches for k, w in counted.items()}
+    require(got == want, f"three {name} updates launched {got}, not {want}")
+    for metrics in runs:
+        for k, v in metrics.items():
+            require(bool(torch.isfinite(v.float())), f"{name} metric {k} is {float(v)}")
+    rewards = [float(m["reward_per_env"]) for m in runs]
+    require(sum(rewards) > 0, f"no reward in three {name} updates: {rewards}")
+    last = {k: round(float(v), 5) for k, v in runs[-1].items()}
+    steps = cfg.n_envs * cfg.rollout_len
+    log(f"phase 20 {name} train step with message bits tiny-2ag M=2 B={cfg.n_envs} "
+        f"T={cfg.rollout_len} E={cfg.epochs} M={cfg.minibatches}: {update_ms:.3f} ms/update = "
+        f"{steps / update_ms * 1e3:.4g} env-steps/s over 3 updates, "
+        f"launches {got}, reward_per_env {rewards}, last metrics {last} [{kind}, {card}]")
+    return runner, update_ms
+
+
+def phase20(dev, kind, card, k2b_err, n_envs=16384, rollout_len=128):
+    """The three learners with message bits at full width; returns the K2b
+    entries of both collectors and K4's message-mode entry."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ippo, ippo_rnn, mappo
+    from rware_tpu_torch.models.ippo_fused import build_fused_train_step
+
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", msg_bits=2)  # no device named: the card
+    require(env.device.type == "cuda", f"make's default device is {env.device}")
+    cfg = ippo.IPPOConfig(n_envs=n_envs, rollout_len=rollout_len, epochs=4, minibatches=4)
+    n_passes, steps = cfg.epochs * cfg.minibatches, cfg.n_envs * cfg.rollout_len
+    t_mb = cfg.rollout_len // cfg.minibatches
+
+    # IPPO: K2a with K2b, then per pass K4 with the message head (no K3).
+    runner, dims = ippo.init_runner(env, cfg, seed=0)
+    step = build_fused_train_step(env, dims, cfg)
+    require(step.update_phase is None, "IPPO with message bits built the K3 phase")
+    runner, ippo_ms = _time_learner(
+        "IPPO", step, runner, {"fused_collect": step.collect, "fused_ppo_grads": step.grads},
+        {"fused_collect": 3, "fused_ppo_grads": 3 * n_passes}, kind, card, cfg)
+    collect_launches, k4_launches = step.collect.launches, step.grads.launches
+    collect_ms, (states, traj) = cuda_ms(lambda: step.rollout(runner))
+    gae_ms, (obs, adv, targets) = cuda_ms(lambda: step.advantages(runner, states, traj))
+    dataset = (traj["obs"], traj["action"], traj["logp"], traj["value"], adv, targets,
+               traj["bits"])
+    passes_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    log(f"phase 20 IPPO breakdown of one update: collect (K2a with K2b) {collect_ms:.3f} ms, GAE "
+        f"and last value {gae_ms:.3f} ms, {n_passes} passes (K4 with the message head + "
+        f"optimizer) {passes_ms:.3f} ms [{kind}, {card}]")
+    policy = ippo.policy_of(dims, runner.params)
+    k2b = step.collect
+    k2b_ms, _ = cuda_ms(lambda: k2b(runner.env_states, policy, 7), repeats=2)
+    k2b_plain_ms, _ = cuda_ms(lambda: k2b.plain(runner.env_states, policy, 7))
+    k4 = step.grads
+    k4_ms, _ = cuda_ms(lambda: k4(runner.params, dataset, 0), repeats=3)
+    k4_plain_ms, _ = cuda_ms(lambda: k4.plain(runner.params, dataset, 0))
+    _, k4_err = compare_k4m("rware-tiny-2ag-v2", dev, 0, 0, t_mb, (0, 112), 0, k4=k4, dims=dims,
+                            params=runner.params, data=dataset)
+    log(f"phase 20 kernels at the main shape: K2a with K2b {k2b_ms:.3f} ms/launch (plain "
+        f"{k2b_plain_ms:.1f} ms, value/logp max_abs_err {k2b_err}); K4 with the message head "
+        f"{k4_ms:.3f} ms/launch (plain {k4_plain_ms:.1f} ms, max_abs_err {k4_err}) "
+        f"[{kind}, {card}]")
+    bf, f32 = mlp_flops(dims.obs_len, dims.h1, dims.h2, dims.heads, steps * env.n_agents, False)
+    k2b_bound = bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
+                      + 4.0 * dims.n_params, bf, f32)
+    entries = [
+        kernel_entry("fused_collect (message bits, K2b)", "fused_collect.cu",
+                     "rware_tpu/ops/pallas_rollout.py:1537", collect_launches, k2b_err, k2b_ms,
+                     k2b_plain_ms, k2b_bound),
+        kernel_entry("fused_ppo_grads (message head)", "fused_ppo_grads.cu",
+                     "rware_tpu/ops/pallas_update.py:293", k4_launches, k4_err, k4_ms,
+                     k4_plain_ms, ppo_bound(dims, None, dataset, t_mb, 1, False)),
+    ]
+
+    # Recurrent IPPO: K2c with K2b, per band pass K9, the heads and loss, K10.
+    runner, gdims = ippo_rnn.init_rnn_runner(env, cfg, seed=0)
+    step = ippo_rnn.build_rnn_fused_train_step(env, gdims, cfg)
+    runner, _ = _time_learner(
+        "recurrent IPPO", step, runner,
+        {"fused_collect_gru": step.collect, "fused_gru_obs_fwd": step.gru_fwd,
+         "fused_gru_obs_bwd": step.gru_bwd},
+        {"fused_collect_gru": 3, "fused_gru_obs_fwd": 3 * n_passes,
+         "fused_gru_obs_bwd": 3 * n_passes}, kind, card, cfg)
+    k2c_launches = step.collect.launches
+    collect_ms, (states, new_carry, traj) = cuda_ms(lambda: step.rollout(runner))
+    gae_ms, (obs, adv, targets) = cuda_ms(
+        lambda: step.advantages(runner, states, new_carry, traj))
+    dataset = (traj["obs"], traj["done"], traj["action"], traj["logp"], traj["value"], adv,
+               targets, runner.carry, traj["bits"])
+    passes_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    log(f"phase 20 recurrent IPPO breakdown of one update: collect (K2c with K2b) "
+        f"{collect_ms:.3f} ms, bootstrap and GAE {gae_ms:.3f} ms, {n_passes} band passes (K9 + "
+        f"loss + K10 + optimizer) {passes_ms:.3f} ms [{kind}, {card}]")
+    # K2c with K2b at the main path's shapes, from the runner's state and
+    # carry, beside its plain version.
+    rpolicy = ippo_rnn.rnn_policy_of(gdims, runner.params)
+    args = (runner.env_states, rpolicy, 7, runner.carry)
+    k2cm_ms, _ = cuda_ms(lambda: step.collect(*args), repeats=2)
+    k2cm_plain_ms, _ = cuda_ms(lambda: step.collect.plain(*args))
+    _, _, _, k2cm_err = compare_k2b("rware-tiny-2ag-v2", dev, n_envs, rollout_len, False, 6,
+                                    "gru", rpolicy, step.collect, runner.env_states,
+                                    runner.carry, msg_bits=2)
+    log(f"phase 20 K2c with K2b at the main shape B={n_envs} T={rollout_len} random, from the "
+        f"runner's state and carry: obs/reward/done/bits/actions/state/carry exact, "
+        f"{k2cm_ms:.3f} ms/launch (plain {k2cm_plain_ms:.1f} ms, value/logp max_abs_err "
+        f"{k2cm_err}) [{kind}, {card}]")
+    k2cm_bound = bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
+                       + 2 * tensor_bytes(runner.carry) + 4.0 * gdims.n_params,
+                       steps * env.n_agents * gru_cell_flops(gdims, True),
+                       steps * env.n_agents * 2.0 * gdims.hidden
+                       * (gdims.n_actions + 1 + gdims.msg_bits))
+    entries.append(kernel_entry("fused_collect_gru (message bits, K2b)", "fused_collect_gru.cu",
+                                "rware_tpu/ops/pallas_rollout.py:1537", k2c_launches, k2cm_err,
+                                k2cm_ms, k2cm_plain_ms, k2cm_bound))
+
+    # MAPPO's split path: K2a with K2b, K6, per pass K4 (vf_coef 0) and the
+    # critic by autograd, no K5 or K7.
+    runner, adims, cdims = mappo.init_mappo_runner(env, cfg, seed=0)
+    step = mappo.build_mappo_train_step(env, adims, cdims, cfg)
+    require(isinstance(step.grads, mappo.MappoSplitGrads), "MAPPO took another path")
+    runner, _ = _time_learner(
+        "MAPPO split", step, runner,
+        {"fused_collect": step.collect, "fused_critic_values": step.critic_values,
+         "fused_ppo_grads": step.grads.actor},
+        {"fused_collect": 3, "fused_critic_values": 3, "fused_ppo_grads": 3 * n_passes},
+        kind, card, cfg)
+    collect_ms, (states, traj) = cuda_ms(lambda: step.rollout(runner))
+    k6_ms, values = cuda_ms(lambda: step.values(runner, traj))
+    gae_ms, (obs, adv, targets) = cuda_ms(lambda: step.advantages(runner, states, traj, values))
+    dataset = (traj["obs"], traj["action"], traj["logp"], values, adv, targets, traj["bits"])
+    passes_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    log(f"phase 20 MAPPO split breakdown of one update: collect (K2a with K2b) {collect_ms:.3f} "
+        f"ms, critic values (K6) {k6_ms:.3f} ms, GAE and bootstrap {gae_ms:.3f} ms, {n_passes} "
+        f"passes (K4 + critic autograd + split optimizer) {passes_ms:.3f} ms [{kind}, {card}]")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1340,7 +1667,8 @@ def main() -> int:
     # ---- phase 2: build ---------------------------------------------------------
     start = time.perf_counter()
     lib = load_library()
-    ptxas = [l.strip() for l in lib.build_log.splitlines() if "registers" in l or "spill" in l]
+    ptxas = [l.strip().replace("ptxas info    : ", "") for l in lib.build_log.splitlines()
+             if "registers" in l or "spill" in l or "Function properties" in l]
     log(f"phase 2 build: nvcc sm_90a {lib.build_seconds:.1f} s (load {time.perf_counter() - start:.1f} s); "
         + " ; ".join(ptxas))
 
@@ -1359,6 +1687,9 @@ def main() -> int:
     k2d_err = phase15(dev, kind, card)
     phase16(dev, kind, card)
     kernels += phase17(dev, kind, card, k2d_err)
+    k2b_err, k1m_entry = phase18(dev, kind, card)
+    phase19(dev, kind, card)
+    kernels += [k1m_entry] + phase20(dev, kind, card, k2b_err)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

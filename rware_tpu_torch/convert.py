@@ -2,6 +2,8 @@
 
 * flax ``ActorCritic`` params pytree  <->  :class:`ActorCritic` weights.
   flax keeps a Dense kernel as (in, out); ``nn.Linear`` keeps (out, in).
+  A ``message`` Dense (``msg_bits`` > 0) joins the head block after the
+  value, in every converter of an actor (MLP or GRU).
 * a ``WarehouseState``'s fields as numpy arrays (batched, leading env axis)
   <->  :class:`WarehouseState`.  The JAX state's per-env ``key`` has no
   counterpart and is dropped; callers keep their own.
@@ -41,6 +43,7 @@ from rware_tpu_torch.models.networks import (
     CriticDims,
     GruDims,
     RecurrentActorCritic,
+    head_layers,
     arrays_to_critic,
     arrays_to_gru,
     pack_arrays,
@@ -64,9 +67,10 @@ def actor_critic_from_flax(params: Mapping[str, Any], device="cpu") -> ActorCrit
         obs_dim=kernels[0].shape[0],
         n_actions=policy_k.shape[1],
         hidden=tuple(k.shape[1] for k in kernels),
+        msg_bits=_msg_bits(p),
     )
-    layers = list(model.dense) + [model.policy, model.value]
-    names = [f"dense_{i}" for i in range(n_hidden)] + ["policy", "value"]
+    layers = list(model.dense) + head_layers(model)
+    names = [f"dense_{i}" for i in range(n_hidden)] + list(_head_names(p))
     with torch.no_grad():
         for layer, name in zip(layers, names):
             kernel = np.asarray(p[name]["kernel"], dtype=np.float32)
@@ -78,7 +82,7 @@ def actor_critic_from_flax(params: Mapping[str, Any], device="cpu") -> ActorCrit
 def actor_critic_to_flax(model: ActorCritic) -> Dict[str, Any]:
     """The flax params pytree (numpy float32 leaves) of ``model``."""
     layers = {f"dense_{i}": layer for i, layer in enumerate(model.dense)}
-    layers.update(policy=model.policy, value=model.value)
+    layers.update(zip(("policy", "value", "message"), head_layers(model)))
     return {
         "params": {
             name: {
@@ -111,6 +115,32 @@ def _tree(params: Mapping[str, Any]) -> Mapping[str, Any]:
     return params["params"] if "params" in params else params
 
 
+def _msg_bits(p: Mapping[str, Any]) -> int:
+    """Message bits of a flax actor tree: the width of its ``message`` head."""
+    return int(np.shape(p["message"]["kernel"])[1]) if "message" in p else 0
+
+
+def _head_names(p: Mapping[str, Any]):
+    return ("policy", "value") + (("message",) if "message" in p else ())
+
+
+def _head_blocks(p: Mapping[str, Any]) -> list:
+    """The head block ``[policy | value | message]`` and its bias row."""
+    names = _head_names(p)
+    return [np.concatenate([p[k]["kernel"] for k in names], axis=1),
+            np.concatenate([p[k]["bias"] for k in names])[None, :]]
+
+
+def _heads_to_flax(wc: np.ndarray, bc: np.ndarray, n_actions: int, msg_bits: int) -> dict:
+    """The flax head Denses of a head block (the inverse of :func:`_head_blocks`)."""
+    a = n_actions
+    out = {"policy": {"kernel": wc[:, :a].copy(), "bias": bc[0, :a].copy()},
+           "value": {"kernel": wc[:, a:a + 1].copy(), "bias": bc[0, a:a + 1].copy()}}
+    if msg_bits:
+        out["message"] = {"kernel": wc[:, a + 1:].copy(), "bias": bc[0, a + 1:].copy()}
+    return out
+
+
 def params_from_flax(params: Mapping[str, Any], device="cpu") -> torch.Tensor:
     """The flat parameter vector of a flax ActorCritic params pytree (or of
     an optax moment pytree of the same structure)."""
@@ -118,8 +148,7 @@ def params_from_flax(params: Mapping[str, Any], device="cpu") -> torch.Tensor:
     blocks = [
         p["dense_0"]["kernel"], np.asarray(p["dense_0"]["bias"])[None, :],
         p["dense_1"]["kernel"], np.asarray(p["dense_1"]["bias"])[None, :],
-        np.concatenate([p["policy"]["kernel"], p["value"]["kernel"]], axis=1),
-        np.concatenate([p["policy"]["bias"], p["value"]["bias"]])[None, :],
+        *_head_blocks(p),
     ]
     arrays = [torch.from_numpy(np.array(b, dtype=np.float32)) for b in blocks]
     return pack_arrays(arrays).to(device)
@@ -128,13 +157,11 @@ def params_from_flax(params: Mapping[str, Any], device="cpu") -> torch.Tensor:
 def params_to_flax(flat: torch.Tensor, dims: BlockDims) -> Dict[str, Any]:
     """The flax params pytree (numpy float32 leaves) of a flat vector."""
     w0, b0, w1, b1, wc, bc = (a.detach().cpu().numpy() for a in dims.split(flat))
-    a = dims.n_actions
     return {
         "params": {
             "dense_0": {"kernel": w0.copy(), "bias": b0[0].copy()},
             "dense_1": {"kernel": w1.copy(), "bias": b1[0].copy()},
-            "policy": {"kernel": wc[:, :a].copy(), "bias": bc[0, :a].copy()},
-            "value": {"kernel": wc[:, a:].copy(), "bias": bc[0, a:].copy()},
+            **_heads_to_flax(wc, bc, dims.n_actions, dims.msg_bits),
         }
     }
 
@@ -151,8 +178,7 @@ def gru_params_from_flax(params: Mapping[str, Any], device="cpu") -> torch.Tenso
         np.concatenate([g[k]["bias"] for k in ("ir", "iz", "in")])[None, :],
         np.concatenate([g[k]["kernel"] for k in ("hr", "hz", "hn")], axis=1),
         np.asarray(g["hn"]["bias"])[None, :],
-        np.concatenate([p["policy"]["kernel"], p["value"]["kernel"]], axis=1),
-        np.concatenate([p["policy"]["bias"], p["value"]["bias"]])[None, :],
+        *_head_blocks(p),
     ]
     return pack_arrays([torch.from_numpy(np.array(b, dtype=np.float32)) for b in blocks]).to(device)
 
@@ -161,7 +187,7 @@ def gru_params_to_flax(flat: torch.Tensor, dims: GruDims) -> Dict[str, Any]:
     """The flax RecurrentActorCritic params pytree (numpy float32 leaves) of
     a flat vector."""
     we, be, wi, bi, wh, bhn, wc, bc = (a.detach().cpu().numpy() for a in dims.split(flat))
-    hg, a = dims.hidden, dims.n_actions
+    hg = dims.hidden
     gru = {}
     for q, (ki, kh) in enumerate((("ir", "hr"), ("iz", "hz"), ("in", "hn"))):
         cols = slice(q * hg, (q + 1) * hg)
@@ -172,8 +198,7 @@ def gru_params_to_flax(flat: torch.Tensor, dims: GruDims) -> Dict[str, Any]:
         "params": {
             "embed": {"kernel": we.copy(), "bias": be[0].copy()},
             "gru": gru,
-            "policy": {"kernel": wc[:, :a].copy(), "bias": bc[0, :a].copy()},
-            "value": {"kernel": wc[:, a:].copy(), "bias": bc[0, a:].copy()},
+            **_heads_to_flax(wc, bc, dims.n_actions, dims.msg_bits),
         }
     }
 
@@ -182,8 +207,10 @@ def recurrent_from_flax(params: Mapping[str, Any], device="cpu") -> RecurrentAct
     """Build a :class:`RecurrentActorCritic` from a flax params pytree."""
     p = _tree(params)
     dims = GruDims(np.shape(p["embed"]["kernel"])[0], np.shape(p["embed"]["kernel"])[1],
-                   np.shape(p["gru"]["hr"]["kernel"])[0], np.shape(p["policy"]["kernel"])[1])
-    return arrays_to_gru(dims.split(gru_params_from_flax(params))).to(device)
+                   np.shape(p["gru"]["hr"]["kernel"])[0], np.shape(p["policy"]["kernel"])[1],
+                   _msg_bits(p))
+    return arrays_to_gru(dims.split(gru_params_from_flax(params)), msg_bits=dims.msg_bits
+                         ).to(device)
 
 
 def critic_params_from_flax(params: Mapping[str, Any], device="cpu") -> torch.Tensor:

@@ -138,11 +138,12 @@ def build_transition_fn(
     """Returns ``transition(state, actions, queue_bits=None) -> (state,
     rewards, done, info)``: the dynamics of one step without observations.
 
-    ``actions`` is (B, N) int; ``queue_bits`` (B, G) uint32 draws, one per
-    goal, or None for all-zero draws (lowest-index replacement).
+    ``actions`` is (B, N) int, or (B, N, 1 + msg_bits) with the move in
+    column 0 and the message bits after when the config has message bits:
+    the bits become every agent's message (``rware/warehouse.py:809-814``);
+    ``queue_bits`` (B, G) uint32 draws, one per goal, or None for all-zero
+    draws (lowest-index replacement).
     """
-    if config.msg_bits:
-        raise NotImplementedError("message bits are not ported yet")
     layout = config.compile_layout()
     height, width = layout.grid_size
     n = config.n_agents
@@ -162,7 +163,12 @@ def build_transition_fn(
         rot_right = torch.as_tensor(ROT_RIGHT, device=dev)
         dir_dx = torch.as_tensor(DIR_DX, device=dev)
         dir_dy = torch.as_tensor(DIR_DY, device=dev)
-        acts = actions.to(torch.int32).reshape(b, n)
+        if config.msg_bits:
+            acts = actions[..., 0].to(torch.int32).reshape(b, n)
+            message = actions[..., 1:].to(torch.float32).reshape(b, n, config.msg_bits)
+        else:
+            acts = actions.to(torch.int32).reshape(b, n)
+            message = state.agent_message
         ax, ay, adir = state.agent_x, state.agent_y, state.agent_dir
         adir_i = adir.to(torch.int64)
         carrying = state.agent_carrying
@@ -277,6 +283,7 @@ def build_transition_fn(
             agent_dir=new_dir,
             agent_carrying=new_carrying,
             agent_has_delivered=has_delivered,
+            agent_message=message,
             shelf_x=new_sx,
             shelf_y=new_sy,
             request_queue=queue,

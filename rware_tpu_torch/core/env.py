@@ -56,8 +56,6 @@ class Warehouse:
             config = WarehouseConfig(**kwargs)
         elif kwargs:
             raise TypeError("Pass either a config or kwargs, not both")
-        if config.msg_bits:
-            raise NotImplementedError("message bits are not ported yet")
         self.config = config
         self.device = resolve_device(device)
         self.layout = config.compile_layout()
@@ -110,8 +108,12 @@ class Warehouse:
         return 5
 
     def sample_actions(self, generator: torch.Generator, n_envs: int) -> torch.Tensor:
-        """Uniform random actions (B, N) int32."""
-        return torch.randint(
-            0, 5, (n_envs, self.config.n_agents), generator=generator,
-            device=generator.device, dtype=torch.int32,
-        )
+        """Uniform random actions: (B, N) int32, or (B, N, 1 + msg_bits) with
+        uniform message bits after the move when the config has message bits
+        (the shape ``step`` takes; ``rware_tpu/core/env.py:125-135``)."""
+        n, m = self.config.n_agents, self.config.msg_bits
+        kw = dict(generator=generator, device=generator.device, dtype=torch.int32)
+        acts = torch.randint(0, 5, (n_envs, n), **kw)
+        if not m:
+            return acts
+        return torch.cat([acts[..., None], torch.randint(0, 2, (n_envs, n, m), **kw)], dim=-1)

@@ -6,6 +6,7 @@ rware/warehouse.py:631-674):
   self:  [x, y, carrying, dir-onehot(4), on_highway]
   per window cell (row-major, y-outer):
          [has_agent, dir-onehot(4) — empty cells write [1,0,0,0],
+          message (msg_bits) of the agent there — 0 on empty cells,
           has_shelf, shelf_requested]
 """
 from __future__ import annotations
@@ -31,13 +32,12 @@ def build_flattened_obs_fn(
     config: WarehouseConfig,
 ) -> Callable[[WarehouseState], torch.Tensor]:
     """Returns ``obs(state) -> (B, N, L) float32``."""
-    if config.msg_bits:
-        raise NotImplementedError("message bits are not ported yet")
     layout = config.compile_layout()
     height, width = layout.grid_size
     highways_np = layout.highways.astype(np.float32)
     dy_np, dx_np = window_offsets(config.sensor_range)
     normalised = config.normalised_coordinates
+    msg_bits = config.msg_bits
 
     def obs(state: WarehouseState) -> torch.Tensor:
         dev = state.device
@@ -59,6 +59,11 @@ def build_flattened_obs_fn(
         # one-hot [1,0,0,0] (rware/warehouse.py:658-659).
         cell_dir = (agent_match * state.agent_dir[:, None, None, :]).sum(dim=-1)
         dir_onehot = F.one_hot(cell_dir.to(torch.int64), 4).to(torch.float32)
+        cell_feats = [has_agent[..., None].to(torch.float32), dir_onehot]
+        if msg_bits:
+            # the message of the agent on the cell (at most one agent per cell)
+            cell_feats.append((agent_match[..., None] * state.agent_message[:, None, None])
+                              .sum(dim=3, dtype=torch.float32))
 
         # Neighbouring shelves: (B, N, W2, S).
         shelf_match = (cx[..., None] == state.shelf_x[:, None, None, :]) & (
@@ -68,14 +73,10 @@ def build_flattened_obs_fn(
         requested = (shelf_match & state.in_queue_mask()[:, None, None, :]).any(dim=-1)
 
         per_cell = torch.cat(
-            [
-                has_agent[..., None].to(torch.float32),
-                dir_onehot,
-                has_shelf[..., None].to(torch.float32),
-                requested[..., None].to(torch.float32),
-            ],
+            cell_feats + [has_shelf[..., None].to(torch.float32),
+                          requested[..., None].to(torch.float32)],
             dim=-1,
-        )  # (B, N, W2, 7)
+        )  # (B, N, W2, 7 + msg_bits)
         sensor_part = per_cell.reshape(b, n, -1)
 
         fx = ax.to(torch.float32)

@@ -1,12 +1,14 @@
 // Pieces shared by the fused collector kernels (K2a fused_collect.cu, K2c
 // fused_collect_gru.cu): the FLATTENED observation written into a thread's
-// column of a shared-memory tile, bf16 rounding, and the Gumbel-argmax sample
-// with its log-probability.
+// column of a shared-memory tile, bf16 rounding, the Gumbel-argmax sample
+// with its log-probability, and the message mode (K2b): the Bernoulli
+// message-bit sample with its log-probability.
 #pragma once
 
 #include <cuda_bf16.h>
 
 #include "env_core.cuh"
+#include "gru_core.cuh"  // gru_sigmoid
 
 #define RW_MAX_A 8
 #define RW_JB 8  // hidden outputs computed together per input read
@@ -17,10 +19,14 @@ struct ObsDims {
 
 // FLATTENED observation of agent i into this thread's column of `xs`
 // (rware_tpu_torch/core/observations.py; empty cells read dir [1,0,0,0]).
+// A window cell holds 7 + M features: [has_agent, dir(4), message(M),
+// has_shelf, requested], the message that of the agent on the cell before
+// this step's bits are sampled; kMsg = false compiles M = 0.
+template <bool kMsg>
 static __device__ void build_obs(const EnvState& st, const EnvDims& d, const EnvLayout& lay,
                                  const ObsDims& m, int i, __nv_bfloat16* xs, int TB, int tid) {
-  const int N = d.n, S = d.s, R = d.r, W = d.w, sr = m.sensor_range;
-  const int side = 2 * sr + 1, w2 = side * side;
+  const int N = d.n, S = d.s, R = d.r, W = d.w, M = kMsg ? d.m : 0, sr = m.sensor_range;
+  const int side = 2 * sr + 1, w2 = side * side, CF = 7 + M;
   const __nv_bfloat16 one = __float2bfloat16_rn(1.f), zero = __float2bfloat16_rn(0.f);
 #define X(k) xs[(size_t)(k) * TB + tid]
   float fx = (float)st.ax[i], fy = (float)st.ay[i];
@@ -34,27 +40,22 @@ static __device__ void build_obs(const EnvState& st, const EnvDims& d, const Env
   for (int k = 0; k < 4; ++k) X(3 + k) = st.ad[i] == k ? one : zero;
   X(7) = lay.highway[st.ay[i] * W + st.ax[i]] ? one : zero;
   for (int c = 0; c < w2; ++c) {
-    const int b = 8 + 7 * c;
-    X(b) = zero;
-    X(b + 1) = one;
-    X(b + 2) = zero;
-    X(b + 3) = zero;
-    X(b + 4) = zero;
-    X(b + 5) = zero;
-    X(b + 6) = zero;
+    const int b = 8 + CF * c;
+    for (int k = 0; k < CF; ++k) X(b + k) = k == 1 ? one : zero;
   }
   for (int j = 0; j < N; ++j) {
     const int rx = st.ax[j] - st.ax[i] + sr, ry = st.ay[j] - st.ay[i] + sr;
     if (rx < 0 || rx >= side || ry < 0 || ry >= side) continue;
-    const int b = 8 + 7 * (ry * side + rx);
+    const int b = 8 + CF * (ry * side + rx);
     X(b) = one;
     X(b + 1) = zero;
     X(b + 1 + st.ad[j]) = one;
+    for (int k = 0; k < M; ++k) X(b + 5 + k) = __float2bfloat16_rn((float)st.msg[j * M + k]);
   }
   for (int s = 0; s < S; ++s) {
     const int rx = st.scell[s] % W - st.ax[i] + sr, ry = st.scell[s] / W - st.ay[i] + sr;
     if (rx < 0 || rx >= side || ry < 0 || ry >= side) continue;
-    const int b = 8 + 7 * (ry * side + rx);
+    const int b = 8 + CF * (ry * side + rx) + M;
     X(b + 5) = one;
     bool inq = false;
     for (int r = 0; r < R; ++r) inq |= st.q[r] == s;
@@ -93,4 +94,32 @@ static __device__ __forceinline__ int sample_gumbel(const float* lg, int A, int 
   for (int a = 0; a < A; ++a) ssum += expf(lg[a] - mx);
   *logp = lg[act] - (mx + logf(ssum));
   return act;
+}
+
+// K2b: agent i's M message bits from its message logits `ml`
+// (pallas_rollout.py::_sample_bernoulli): bit k is u < sigmoid(l) for the
+// 23-bit uniform u of Philox purpose MESSAGE, slot i * M + k, or l > 0 in
+// deterministic mode.  Writes the bits and returns their summed
+// log-probability, log sigmoid(+-l) = min(+-l, 0) - log(1 + exp(-|l|)).  The
+// sigmoid is gru_sigmoid's correctly rounded formula: a bit feeds back into
+// the next observation, so the plain version repeats it exactly
+// (rware_tpu_torch/models/networks.py::sample_bernoulli).
+static __device__ __forceinline__ float sample_bernoulli(const float* ml, int M, int deterministic,
+                                                         const EnvDims& d, int e, int t, int i,
+                                                         int* bits) {
+  float lp = 0.f;
+  for (int k = 0; k < M; ++k) {
+    const float l = ml[k];
+    bool bit;
+    if (deterministic) {
+      bit = l > 0.f;
+    } else {
+      const uint32_t r = draw_bits(d, e, t, RW_MESSAGE, i * M + k);
+      bit = (float)(r & 0x7FFFFFu) * (1.0f / 8388608.0f) < gru_sigmoid(l);
+    }
+    bits[k] = bit ? 1 : 0;
+    const float log1pe = logf(__fadd_rn(1.f, expf(-fabsf(l))));
+    lp = __fadd_rn(lp, __fsub_rn(fminf(bit ? l : -l, 0.f), log1pe));
+  }
+  return lp;
 }

@@ -18,6 +18,11 @@
 // bit.  In scripted mode every draw is 0: lowest-index queue replacement,
 // agent i respawns at cell i facing UP, the queue restarts as 0..R-1.
 //
+// Message bits (msg_bits = M > 0; rware/warehouse.py:809-814) ride as N * M
+// more state rows: the caller sets them before each step (K1 from the action
+// columns or from Philox purpose MESSAGE, the collectors from the sampled
+// bits) and env_step clears them where the episode ends, as autoreset does.
+//
 // What bounds it on the card: integer work per env-step (O(N^2) resolver,
 // O(S) shelf scans) and local-memory traffic of the per-env state; device
 // memory is read once and written once per launch.
@@ -29,8 +34,9 @@
 #define RW_MAX_N 32
 #define RW_MAX_S 512
 #define RW_MAX_R 64
+#define RW_MAX_M 8  // message bits per agent
 
-enum { RW_ACTION = 0, RW_QUEUE = 1, RW_RESPAWN = 2 };
+enum { RW_ACTION = 0, RW_QUEUE = 1, RW_RESPAWN = 2, RW_MESSAGE = 4 };
 enum { RW_GLOBAL = 0, RW_INDIVIDUAL = 1, RW_TWO_STAGE = 2 };
 enum { RW_NOOP = 0, RW_FORWARD = 1, RW_LEFT = 2, RW_RIGHT = 3, RW_TOGGLE = 4 };
 
@@ -39,6 +45,7 @@ struct EnvDims {
   int reward_type;
   int max_steps;     // 0 = no limit
   int max_inactive;  // 0 = no limit
+  int m;             // message bits per agent
   int scripted;      // every draw is 0
   uint32_t seed_lo, seed_hi;
 };
@@ -69,11 +76,12 @@ struct EnvState {
   int scell[RW_MAX_S];
   int q[RW_MAX_R];
   int inact, steps;
+  int msg[RW_MAX_N * RW_MAX_M];  // agent i's bit m at i * M + m
 };
 
 // Rows of the packed (ROWS, B) int32 state tensor, env index minor:
 // ax N | ay N | dir N | carrying N | has_delivered N | shelf_x S | shelf_y S |
-// queue R | inactive 1 | steps 1.
+// queue R | inactive 1 | steps 1 | message N * M (agent-major).
 static __device__ void load_state(EnvState& st, const EnvDims& d, const int* __restrict__ in,
                                   int e, int B) {
   const int N = d.n, S = d.s, R = d.r;
@@ -92,6 +100,7 @@ static __device__ void load_state(EnvState& st, const EnvDims& d, const int* __r
   for (int r = 0; r < R; ++r) st.q[r] = in[(size_t)(5 * N + 2 * S + r) * B + e];
   st.inact = in[(size_t)(5 * N + 2 * S + R) * B + e];
   st.steps = in[(size_t)(5 * N + 2 * S + R + 1) * B + e];
+  for (int k = 0; k < N * d.m; ++k) st.msg[k] = in[(size_t)(5 * N + 2 * S + R + 2 + k) * B + e];
 }
 
 static __device__ void store_state(const EnvState& st, const EnvDims& d, int* __restrict__ out,
@@ -111,6 +120,7 @@ static __device__ void store_state(const EnvState& st, const EnvDims& d, int* __
   for (int r = 0; r < R; ++r) out[(size_t)(5 * N + 2 * S + r) * B + e] = st.q[r];
   out[(size_t)(5 * N + 2 * S + R) * B + e] = st.inact;
   out[(size_t)(5 * N + 2 * S + R + 1) * B + e] = st.steps;
+  for (int k = 0; k < N * d.m; ++k) out[(size_t)(5 * N + 2 * S + R + 2 + k) * B + e] = st.msg[k];
 }
 
 // ---- Philox4x32-10 ---------------------------------------------------------
@@ -420,6 +430,7 @@ static __device__ bool env_step(EnvState& st, int* acts, float* rew, const EnvDi
     draw_distinct(d, env, step, 2 * N, R, S, st.q);
     st.inact = 0;
     st.steps = 0;
+    for (int k = 0; k < N * d.m; ++k) st.msg[k] = 0;
   }
   return done;
 }

@@ -5,8 +5,16 @@
 // Replaces rware_tpu/ops/pallas_rollout.py::build_pallas_collect in modes
 // policy="mlp" (K2a: one network shared by all agents; _policy_forward) and
 // policy="mlp_per_agent" (K2d: agent i runs its own network i;
-// _policy_forward_per_agent), FLATTENED observations, msg_bits=0 (kernel body
-// _make_collect_kernel; _build_obs_feats, _sample_gumbel).  The two modes are
+// _policy_forward_per_agent), FLATTENED observations (kernel body
+// _make_collect_kernel; _build_obs_feats, _sample_gumbel).  K2a carries the
+// message mode K2b (msg_bits M > 0, pallas_rollout.py:1537-1562, 1689-1734):
+// a float32 message head (M, H2) beside the policy and value heads, summed in
+// the same hidden order; M Bernoulli bits per agent-step (sample_bernoulli)
+// whose log-probability joins the Gumbel move's; the bits stream out as a
+// (T, B, N, M) trajectory tensor and become the agents' messages, cleared
+// where an episode ends.  K2d takes M = 0 only (the wrapper refuses more).
+// The message mode is its own instantiation (kMsg), so K2a and K2d without
+// message bits compile to the code they had before it.  The two modes are
 // one kernel: `n_stacks` weight stacks (1 or N) and agent i runs stack
 // n_stacks > 1 ? i : 0.  The TPU kernel feeds a whole (L, N*1024) feature tile
 // to the MXU (N small matmuls per agent in K2d); here one thread owns one env
@@ -42,6 +50,7 @@ struct MlpDims {
   int L, H1, H2, A;
   int deterministic;
   int n_stacks;  // weight stacks: 1 (K2a, shared) or N (K2d, agent i runs stack i)
+  int M;         // message bits per agent (K2b), 0 without the message head
   ObsDims obs;
 };
 
@@ -64,7 +73,7 @@ static __device__ __forceinline__ float load_f(const float* p) {
   return kGlobal ? __ldg(p) : *p;
 }
 
-template <bool kGlobal>
+template <bool kGlobal, bool kMsg>
 __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
                                      const int* __restrict__ layout,
                                      const int* __restrict__ state_in, int* __restrict__ state_out,
@@ -73,25 +82,31 @@ __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
                                      const __nv_bfloat16* __restrict__ w1,
                                      const float* __restrict__ b1, const float* __restrict__ wp,
                                      const float* __restrict__ bp, const float* __restrict__ wv,
-                                     const float* __restrict__ bv, __nv_bfloat16* __restrict__ obs,
-                                     int* __restrict__ action, float* __restrict__ logp,
+                                     const float* __restrict__ bv, const float* __restrict__ wm,
+                                     const float* __restrict__ bm, __nv_bfloat16* __restrict__ obs,
+                                     int* __restrict__ action, int* __restrict__ bits_out,
+                                     float* __restrict__ logp,
                                      float* __restrict__ value, float* __restrict__ reward,
                                      uint8_t* __restrict__ done_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int L = m.L, H1 = m.H1, H2 = m.H2, A = m.A, N = d.n;
+  const int L = m.L, H1 = m.H1, H2 = m.H2, A = m.A, M = kMsg ? m.M : 0, N = d.n;
   const int TB = blockDim.x, tid = threadIdx.x;
   const int WS = kGlobal ? 0 : m.n_stacks;  // stacks held in shared memory
 
   // Shared memory: f32 [b0 WS*H1 | b1 WS*H2 | wp WS*A*H2 | bp WS*A | wv WS*H2 |
-  // bv WS], padded to 16 bytes, then bf16 [w0 WS*H1*L | w1 WS*H2*H1 | xs L*TB |
-  // hs H1*TB].  Each input array is its stacks back to back.
+  // bv WS | wm WS*M*H2 | bm WS*M], padded to 16 bytes, then bf16 [w0 WS*H1*L |
+  // w1 WS*H2*H1 | xs L*TB | hs H1*TB].  Each input array is its stacks back to
+  // back.
   float* sb0 = (float*)smem;
   float* sb1 = sb0 + WS * H1;
   float* swp = sb1 + WS * H2;
   float* sbp = swp + WS * A * H2;
   float* swv = sbp + WS * A;
   float* sbv = swv + WS * H2;
-  const size_t fbytes = ((size_t)WS * (H1 + H2 + A * H2 + A + H2 + 1) * 4 + 15) & ~(size_t)15;
+  float* swm = sbv + WS;
+  float* sbm = swm + WS * M * H2;
+  const size_t fbytes =
+      ((size_t)WS * (H1 + H2 + A * H2 + A + H2 + 1 + M * H2 + M) * 4 + 15) & ~(size_t)15;
   __nv_bfloat16* sw0 = (__nv_bfloat16*)(smem + fbytes);
   __nv_bfloat16* sw1 = sw0 + (size_t)WS * H1 * L;
   __nv_bfloat16* xs = sw1 + (size_t)WS * H2 * H1;
@@ -106,6 +121,8 @@ __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
   }
   for (int k = tid; k < WS * A; k += TB) sbp[k] = bp[k];
   for (int k = tid; k < WS; k += TB) sbv[k] = bv[k];
+  for (int k = tid; k < WS * M * H2; k += TB) swm[k] = wm[k];
+  for (int k = tid; k < WS * M; k += TB) sbm[k] = bm[k];
   __syncthreads();
 
   const int e = blockIdx.x * TB + tid;
@@ -115,11 +132,12 @@ __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
   load_state(st, d, state_in, e, B);
   int acts[RW_MAX_N];
   float rew[RW_MAX_N];
+  int nmsg[RW_MAX_N * RW_MAX_M];  // this step's sampled bits, agent-major
 
   for (int t = 0; t < T; ++t) {
     for (int i = 0; i < N; ++i) {
       const size_t row = ((size_t)t * B + e) * N + i;
-      build_obs(st, d, lay, m.obs, i, xs, TB, tid);
+      build_obs<kMsg>(st, d, lay, m.obs, i, xs, TB, tid);
       for (int k = 0; k < L; ++k) obs[row * L + k] = xs[(size_t)k * TB + tid];
 
       // this agent's network: its stack in shared or device memory
@@ -132,6 +150,8 @@ __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
       const float* BP = (kGlobal ? bp : sbp) + st_i * A;
       const float* WV = (kGlobal ? wv : swv) + st_i * H2;
       const float* BV = (kGlobal ? bv : sbv) + st_i;
+      const float* WM = (kGlobal ? wm : swm) + st_i * M * H2;
+      const float* BM = (kGlobal ? bm : sbm) + st_i * M;
 
       // dense_0 + tanh -> hs (bf16)
       for (int j0 = 0; j0 < H1; j0 += RW_JB) {
@@ -152,8 +172,9 @@ __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
         }
       }
       // dense_1 + tanh, folded into the f32 heads in hidden order
-      float lg[RW_MAX_A];
+      float lg[RW_MAX_A], ml[RW_MAX_M];
       for (int a = 0; a < A; ++a) lg[a] = 0.f;
+      for (int k = 0; k < M; ++k) ml[k] = 0.f;
       float val = 0.f;
       for (int j0 = 0; j0 < H2; j0 += RW_JB) {
         float acc[RW_JB];
@@ -172,18 +193,27 @@ __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
           for (int a = 0; a < A; ++a)
             lg[a] = __fadd_rn(lg[a], __fmul_rn(h2, load_f<kGlobal>(WP + a * H2 + j)));
           val = __fadd_rn(val, __fmul_rn(h2, load_f<kGlobal>(WV + j)));
+          for (int k = 0; k < M; ++k)
+            ml[k] = __fadd_rn(ml[k], __fmul_rn(h2, load_f<kGlobal>(WM + k * H2 + j)));
         }
       }
       for (int a = 0; a < A; ++a) lg[a] = __fadd_rn(lg[a], load_f<kGlobal>(BP + a));
       val = __fadd_rn(val, load_f<kGlobal>(BV));
+      for (int k = 0; k < M; ++k) ml[k] = __fadd_rn(ml[k], load_f<kGlobal>(BM + k));
 
       float lp;
       const int act = sample_gumbel(lg, A, m.deterministic, d, e, t, i, &lp);
+      if (kMsg) {
+        lp = __fadd_rn(lp, sample_bernoulli(ml, M, m.deterministic, d, e, t, i, nmsg + i * M));
+        for (int k = 0; k < M; ++k) bits_out[row * M + k] = nmsg[i * M + k];
+      }
       acts[i] = act;
       action[row] = act;
       logp[row] = lp;
       value[row] = val;
     }
+    if (kMsg)
+      for (int k = 0; k < N * M; ++k) st.msg[k] = nmsg[k];  // env_step clears them on done
     const bool done = env_step(st, acts, rew, d, lay, e, t);
     for (int i = 0; i < N; ++i) reward[((size_t)t * B + e) * N + i] = rew[i];
     done_out[(size_t)t * B + e] = done ? 1 : 0;
@@ -194,15 +224,17 @@ __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
 // weights_global: dense_0 and dense_1 arrive as (in, out) stacks and are read
 // from device memory (kGlobal); else as (out, in) stacks, held in shared memory.
 extern "C" int rw_fused_collect(int n, int s, int r, int g, int h, int w, int reward_type,
-                                int max_steps, int max_inactive, unsigned long long seed,
+                                int max_steps, int max_inactive, int msg_bits,
+                                unsigned long long seed,
                                 int deterministic, int T, int B, int sensor_range, int normalised,
                                 int L, int H1, int H2, int A, int threads, int smem_bytes,
                                 int n_stacks, int weights_global,
                                 const void* layout, const void* state_in, void* state_out,
                                 const void* w0, const void* b0, const void* w1, const void* b1,
                                 const void* wp, const void* bp, const void* wv, const void* bv,
-                                void* obs, void* action, void* logp, void* value, void* reward,
-                                void* done, void* stream) {
+                                const void* wm, const void* bm, void* obs, void* action,
+                                void* bits, void* logp, void* value, void* reward, void* done,
+                                void* stream) {
   EnvDims d;
   d.n = n;
   d.s = s;
@@ -213,6 +245,7 @@ extern "C" int rw_fused_collect(int n, int s, int r, int g, int h, int w, int re
   d.reward_type = reward_type;
   d.max_steps = max_steps;
   d.max_inactive = max_inactive;
+  d.m = msg_bits;
   d.scripted = deterministic;
   d.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   d.seed_hi = (uint32_t)(seed >> 32);
@@ -223,12 +256,16 @@ extern "C" int rw_fused_collect(int n, int s, int r, int g, int h, int w, int re
   m.A = A;
   m.deterministic = deterministic;
   m.n_stacks = n_stacks;
+  m.M = msg_bits;
   m.obs.L = L;
   m.obs.sensor_range = sensor_range;
   m.obs.normalised = normalised;
-  if (A > RW_MAX_A || H1 % RW_JB || H2 % RW_JB || (n_stacks != 1 && n_stacks != n))
+  if (A > RW_MAX_A || H1 % RW_JB || H2 % RW_JB || (n_stacks != 1 && n_stacks != n) ||
+      n > RW_MAX_N || msg_bits > RW_MAX_M || (msg_bits > 0 && (n_stacks != 1 || weights_global)))
     return (int)cudaErrorInvalidValue;
-  const auto kernel = weights_global ? fused_collect_kernel<true> : fused_collect_kernel<false>;
+  const auto kernel =
+      msg_bits > 0 ? fused_collect_kernel<false, true>
+      : weights_global ? fused_collect_kernel<true, false> : fused_collect_kernel<false, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -236,8 +273,8 @@ extern "C" int rw_fused_collect(int n, int s, int r, int g, int h, int w, int re
   kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
       d, m, T, B, (const int*)layout, (const int*)state_in, (int*)state_out,
       (const __nv_bfloat16*)w0, (const float*)b0, (const __nv_bfloat16*)w1, (const float*)b1,
-      (const float*)wp, (const float*)bp, (const float*)wv, (const float*)bv,
-      (__nv_bfloat16*)obs, (int*)action, (float*)logp, (float*)value, (float*)reward,
-      (uint8_t*)done);
+      (const float*)wp, (const float*)bp, (const float*)wv, (const float*)bv, (const float*)wm,
+      (const float*)bm, (__nv_bfloat16*)obs, (int*)action, (int*)bits, (float*)logp,
+      (float*)value, (float*)reward, (uint8_t*)done);
   return (int)cudaGetLastError();
 }

@@ -5,9 +5,15 @@
 // bf16, action, logp, value, reward, done) is streamed out.
 //
 // Replaces rware_tpu/ops/pallas_rollout.py::build_pallas_collect in mode
-// policy="gru", FLATTENED observations, msg_bits=0 (_gru_forward, and the
-// carry handling of _make_collect_kernel).  The TPU kernel feeds (L, N*1024)
-// feature tiles to the MXU and keeps the (Hg, N, 8, 128) carry in VMEM
+// policy="gru", FLATTENED observations (_gru_forward, and the carry handling
+// of _make_collect_kernel).  It carries the message mode K2b (msg_bits M > 0):
+// the head block becomes [policy | value | message] (Hg, A + 1 + M), the M
+// message logits summed in hidden order beside the others, and the bits are
+// sampled, streamed out and fed back as in K2a (fused_collect.cu,
+// pallas_rollout.py:1487-1491).  M is a template argument (kM, one
+// instantiation per width up to RW_MAX_M): the logits stay in registers and
+// the collector without message bits (kM = 0) compiles as before it.
+// The TPU kernel feeds (L, N*1024) feature tiles to the MXU and keeps the (Hg, N, 8, 128) carry in VMEM
 // scratch; here one thread owns one env (K2a's design) and runs its agents'
 // cells with scalar loops.  The three weight matrices (We, Wi = [ir|iz|in],
 // Wh = [hr|hz|hn], bf16, 210 KB at L=71, E=Hg=128) do not fit beside the
@@ -43,6 +49,7 @@ struct GruCollectDims {
   ObsDims obs;
 };
 
+template <int kM>  // message bits per agent, 0 without the message head
 __global__ void __launch_bounds__(128)
     fused_collect_gru_kernel(EnvDims d, GruCollectDims m, int T, int B,
                              const int* __restrict__ layout, const int* __restrict__ state_in,
@@ -52,10 +59,11 @@ __global__ void __launch_bounds__(128)
                              const float* __restrict__ bhn, const float* __restrict__ wc,
                              const float* __restrict__ bc, __nv_bfloat16* __restrict__ hbuf,
                              __nv_bfloat16* __restrict__ obs, int* __restrict__ action,
-                             float* __restrict__ logp, float* __restrict__ value,
+                             int* __restrict__ bits_out, float* __restrict__ logp,
+                             float* __restrict__ value,
                              float* __restrict__ reward, uint8_t* __restrict__ done_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int L = m.L, E = m.E, Hg = m.Hg, A = m.A, AC = m.A + 1, N = d.n;
+  const int L = m.L, E = m.E, Hg = m.Hg, A = m.A, AC = m.A + 1 + kM, N = d.n;
   const int TB = blockDim.x, tid = threadIdx.x;
 
   // Shared memory: f32 [be E | bi 3Hg | bhn Hg | wc Hg*AC | bc AC], padded to
@@ -83,11 +91,12 @@ __global__ void __launch_bounds__(128)
   load_state(st, d, state_in, e, B);
   int acts[RW_MAX_N];
   float rew[RW_MAX_N];
+  int nmsg[RW_MAX_N * (kM > 0 ? kM : 1)];  // this step's sampled bits, agent-major
 
   for (int t = 0; t < T; ++t) {
     for (int i = 0; i < N; ++i) {
       const size_t row = ((size_t)t * B + e) * N + i;
-      build_obs(st, d, lay, m.obs, i, xs, TB, tid);
+      build_obs<(kM > 0)>(st, d, lay, m.obs, i, xs, TB, tid);
       for (int k = 0; k < L; ++k) obs[row * L + k] = xs[(size_t)k * TB + tid];
 
       // embed: es = bf16(tanh(bf16(x We + be)))
@@ -114,8 +123,10 @@ __global__ void __launch_bounds__(128)
 
       // the cell, eight hidden units at a time, folded into the f32 heads in
       // hidden order
-      float lg[RW_MAX_A];
+      float lg[RW_MAX_A], ml[kM > 0 ? kM : 1];
       for (int a = 0; a < A; ++a) lg[a] = 0.f;
+#pragma unroll
+      for (int k = 0; k < kM; ++k) ml[k] = 0.f;
       float val = 0.f;
       for (int j0 = 0; j0 < Hg; j0 += RW_JB) {
         float ai[3][RW_JB], ah[3][RW_JB];
@@ -161,18 +172,29 @@ __global__ void __launch_bounds__(128)
           hrow[(size_t)j * B] = __float2bfloat16_rn(nh);
           for (int a = 0; a < A; ++a) lg[a] = __fadd_rn(lg[a], __fmul_rn(nh, swc[j * AC + a]));
           val = __fadd_rn(val, __fmul_rn(nh, swc[j * AC + A]));
+#pragma unroll
+          for (int k = 0; k < kM; ++k)
+            ml[k] = __fadd_rn(ml[k], __fmul_rn(nh, swc[j * AC + A + 1 + k]));
         }
       }
       for (int a = 0; a < A; ++a) lg[a] = __fadd_rn(lg[a], sbc[a]);
       val = __fadd_rn(val, sbc[A]);
+#pragma unroll
+      for (int k = 0; k < kM; ++k) ml[k] = __fadd_rn(ml[k], sbc[A + 1 + k]);
 
       float lp;
       const int act = sample_gumbel(lg, A, m.deterministic, d, e, t, i, &lp);
+      if (kM > 0) {
+        lp = __fadd_rn(lp, sample_bernoulli(ml, kM, m.deterministic, d, e, t, i, nmsg + i * kM));
+        for (int k = 0; k < kM; ++k) bits_out[row * kM + k] = nmsg[i * kM + k];
+      }
       acts[i] = act;
       action[row] = act;
       logp[row] = lp;
       value[row] = val;
     }
+    if (kM > 0)
+      for (int k = 0; k < N * kM; ++k) st.msg[k] = nmsg[k];  // env_step clears them on done
     const bool done = env_step(st, acts, rew, d, lay, e, t);
     for (int i = 0; i < N; ++i) reward[((size_t)t * B + e) * N + i] = rew[i];
     done_out[(size_t)t * B + e] = done ? 1 : 0;
@@ -185,14 +207,15 @@ __global__ void __launch_bounds__(128)
 }
 
 extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, int reward_type,
-                                    int max_steps, int max_inactive, unsigned long long seed,
+                                    int max_steps, int max_inactive, int msg_bits,
+                                    unsigned long long seed,
                                     int deterministic, int T, int B, int sensor_range,
                                     int normalised, int L, int E, int Hg, int A, int threads,
                                     int smem_bytes, const void* layout, const void* state_in,
                                     void* state_out, const void* we, const void* be,
                                     const void* wi, const void* bi, const void* wh,
                                     const void* bhn, const void* wc, const void* bc, void* hbuf,
-                                    void* obs, void* action, void* logp, void* value,
+                                    void* obs, void* action, void* bits, void* logp, void* value,
                                     void* reward, void* done, void* stream) {
   EnvDims d;
   d.n = n;
@@ -204,6 +227,7 @@ extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, in
   d.reward_type = reward_type;
   d.max_steps = max_steps;
   d.max_inactive = max_inactive;
+  d.m = msg_bits;
   d.scripted = deterministic;
   d.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   d.seed_hi = (uint32_t)(seed >> 32);
@@ -216,16 +240,24 @@ extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, in
   m.obs.L = L;
   m.obs.sensor_range = sensor_range;
   m.obs.normalised = normalised;
-  if (threads > 128 || A > RW_MAX_A || E % RW_JB || Hg % RW_JB) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_collect_gru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (threads > 128 || A > RW_MAX_A || E % RW_JB || Hg % RW_JB || n > RW_MAX_N ||
+      msg_bits < 0 || msg_bits > RW_MAX_M)
+    return (int)cudaErrorInvalidValue;
+  static_assert(RW_MAX_M == 8, "one instantiation per message width");
+  decltype(&fused_collect_gru_kernel<0>) const kernels[] = {
+      fused_collect_gru_kernel<0>, fused_collect_gru_kernel<1>, fused_collect_gru_kernel<2>,
+      fused_collect_gru_kernel<3>, fused_collect_gru_kernel<4>, fused_collect_gru_kernel<5>,
+      fused_collect_gru_kernel<6>, fused_collect_gru_kernel<7>, fused_collect_gru_kernel<8>};
+  const auto kernel = kernels[msg_bits];
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (B + threads - 1) / threads;
-  fused_collect_gru_kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
+  kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
       d, m, T, B, (const int*)layout, (const int*)state_in, (int*)state_out,
       (const __nv_bfloat16*)we, (const float*)be, (const __nv_bfloat16*)wi, (const float*)bi,
       (const __nv_bfloat16*)wh, (const float*)bhn, (const float*)wc, (const float*)bc,
-      (__nv_bfloat16*)hbuf, (__nv_bfloat16*)obs, (int*)action, (float*)logp, (float*)value,
-      (float*)reward, (uint8_t*)done);
+      (__nv_bfloat16*)hbuf, (__nv_bfloat16*)obs, (int*)action, (int*)bits, (float*)logp,
+      (float*)value, (float*)reward, (uint8_t*)done);
   return (int)cudaGetLastError();
 }

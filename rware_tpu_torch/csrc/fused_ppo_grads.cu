@@ -2,13 +2,18 @@
 // window's four metric sums.
 //
 // Replaces rware_tpu/ops/pallas_update.py::build_fused_ppo_grads (kernel body
-// _make_update_kernel) in zero-copy mode without the message head: the
-// window is rows (start + t) % T_full of the (T_full, B, N, ...) trajectory,
-// read in place (no rolled or sliced copy).  The TPU kernel walks a
+// _make_update_kernel) in zero-copy mode, with or without the message head
+// (msg_bits M > 0: the head block [policy | value | message] of A + 1 + M
+// columns, the joint move + Bernoulli-bits log-probability and entropy, the
+// message cotangent rows dlogp (bit - sigma) + ent_coef inv_n l sigma (1 -
+// sigma) in dcat, so the weight-gradient products and bias sums cover them;
+// pallas_update.py:185-244): the window is rows (start + t) % T_full of the
+// (T_full, B, N, ...) trajectory, read in place (no rolled or sliced copy).  The TPU kernel walks a
 // sequential grid and accumulates weight gradients in VMEM; Hopper blocks
 // run in no order, so the work is split in three kernels per window:
 //
-//  1. ppo_sample_kernel (ppo_sample.cuh, mode PPO_ACTOR): a block holds the weights in shared memory (dense_0
+//  1. ppo_sample_kernel (ppo_sample.cuh, mode PPO_ACTOR, or PPO_MSG with the
+//     message head): a block holds the weights in shared memory (dense_0
 //     and dense_1 in bf16, heads in f32) and walks tiles of samples: the
 //     forward, the loss pieces and the backward down to dz1, with register
 //     tiles of 4 x 4 products on the FP32 pipes.  It writes the per-sample
@@ -143,11 +148,11 @@ static dim3 wgrad_grid(int rows, int cols, int n_chunks) {
 int ppo_actor_sample_launch(const PpoDims& d, const int* start, const float* stats,
                             const PpoData& data, const float* params, const PpoScratch& ws,
                             cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ppo_sample_kernel<PPO_ACTOR>, cudaFuncAttributeMaxDynamicSharedMemorySize, d.smem);
+  const auto kernel = d.msg_bits > 0 ? ppo_sample_kernel<PPO_MSG> : ppo_sample_kernel<PPO_ACTOR>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         d.smem);
   if (err != cudaSuccess) return (int)err;
-  ppo_sample_kernel<PPO_ACTOR><<<d.grid, PPO_THREADS, d.smem, stream>>>(d, start, stats, data,
-                                                                        params, ws);
+  kernel<<<d.grid, PPO_THREADS, d.smem, stream>>>(d, start, stats, data, params, ws);
   return (int)cudaGetLastError();
 }
 
@@ -191,17 +196,24 @@ int ppo_grads_enqueue(const PpoDims& d, const int* start, const float* stats,
 extern "C" int rw_fused_ppo_grads(int L, int H1, int H2, int A, int T_full, int T_mb, int B,
                                   int N, float clip_eps, float vf_coef, float ent_coef,
                                   float inv_n, int tile, int grid, int smem, int w0_smem,
-                                  int chunk, int n_chunks, const void* start,
-                                  const void* stats,
+                                  int chunk, int n_chunks, int msg_bits, int hc,
+                                  const void* start, const void* stats,
                                   const void* obs, const void* action, const void* logp,
                                   const void* value, const void* adv, const void* target,
-                                  const void* params, void* h1, void* h2, void* dz1, void* dz2,
+                                  const void* bits, const void* params, void* h1, void* h2,
+                                  void* dz1, void* dz2,
                                   void* dcat, void* partial, void* part_mets, void* grads,
                                   void* mets, void* stream) {
-  const PpoDims d = ppo_dims(L, H1, H2, A, T_full, T_mb, B, N, clip_eps, vf_coef, ent_coef,
-                             inv_n, tile, grid, smem, w0_smem, chunk, n_chunks);
+  PpoDims d = ppo_dims(L, H1, H2, A, T_full, T_mb, B, N, clip_eps, vf_coef, ent_coef, inv_n,
+                       tile, grid, smem, w0_smem, chunk, n_chunks);
+  d.msg_bits = msg_bits;
+  d.heads = A + 1 + msg_bits;
+  d.hc = hc;
+  if (d.heads > hc || hc > PPO_HC_MAX || (msg_bits > 0 && bits == nullptr))
+    return (int)cudaErrorInvalidValue;
   const PpoData data = {(const __nv_bfloat16*)obs, (const int*)action, (const float*)logp,
-                        (const float*)value, (const float*)adv, (const float*)target};
+                        (const float*)value, (const float*)adv, (const float*)target,
+                        (const int*)bits};
   const PpoScratch ws = {(__nv_bfloat16*)h1, (__nv_bfloat16*)h2, (__nv_bfloat16*)dz1,
                          (__nv_bfloat16*)dz2, (float*)dcat, (float*)partial, (float*)part_mets,
                          nullptr};

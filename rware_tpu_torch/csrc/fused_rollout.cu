@@ -1,5 +1,9 @@
 // K1: the fused rollout kernel — T env steps per launch, random or scripted
-// actions, autoreset, per-agent reward sums and episode counts.
+// actions, autoreset, per-agent reward sums and episode counts.  With message
+// bits (M > 0) each step also sets every agent's M message bits: from the
+// action columns 1..M in scripted mode, else rand_mod(draw, 2) of Philox
+// purpose MESSAGE, slot i * M + m; they are cleared where an episode ends
+// (pallas_rollout.py:531-642).
 //
 // Replaces rware_tpu/ops/pallas_rollout.py::build_pallas_rollout (kernel
 // body _make_kernel, core _env_step_core).  One thread per env; the env's
@@ -12,7 +16,8 @@
 //
 // Bound on the card: per-env integer work (the resolver's O(N^2) loops and
 // the O(S) shelf scans) plus local-memory traffic; it does not touch device
-// memory inside the time loop except for scripted actions.
+// memory inside the time loop except for scripted actions.  Scripted actions
+// are (T, N, 1 + M, B): agent i's move in column 0, its bits after.
 #include "env_core.cuh"
 
 __global__ void fused_rollout_kernel(EnvDims d, int T, int B, const int* __restrict__ layout,
@@ -30,10 +35,14 @@ __global__ void fused_rollout_kernel(EnvDims d, int T, int B, const int* __restr
   int epis = 0;
   int acts[RW_MAX_N];
   float rew[RW_MAX_N];
+  const int M = d.m, AW = 1 + M;
   for (int t = 0; t < T; ++t) {
     for (int i = 0; i < N; ++i) {
-      acts[i] = actions ? actions[((size_t)t * N + i) * B + e]
-                        : rand_mod(draw_bits(d, e, t, RW_ACTION, i), 5);
+      const int* col = actions ? actions + ((size_t)t * N + i) * AW * B + e : nullptr;
+      acts[i] = col ? col[0] : rand_mod(draw_bits(d, e, t, RW_ACTION, i), 5);
+      for (int k = 0; k < M; ++k)
+        st.msg[i * M + k] = col ? col[(size_t)(1 + k) * B]
+                                : rand_mod(draw_bits(d, e, t, RW_MESSAGE, i * M + k), 2);
     }
     bool done = env_step(st, acts, rew, d, lay, e, t);
     for (int i = 0; i < N; ++i) acc[i] += rew[i];
@@ -45,7 +54,7 @@ __global__ void fused_rollout_kernel(EnvDims d, int T, int B, const int* __restr
 }
 
 extern "C" int rw_fused_rollout(int n, int s, int r, int g, int h, int w, int reward_type,
-                                int max_steps, int max_inactive, unsigned long long seed,
+                                int max_steps, int max_inactive, int m, unsigned long long seed,
                                 int scripted, int T, int B, const void* layout,
                                 const void* state_in, void* state_out, const void* actions,
                                 void* rewards, void* episodes, void* stream) {
@@ -59,7 +68,9 @@ extern "C" int rw_fused_rollout(int n, int s, int r, int g, int h, int w, int re
   d.reward_type = reward_type;
   d.max_steps = max_steps;
   d.max_inactive = max_inactive;
+  d.m = m;
   d.scripted = scripted;
+  if (n > RW_MAX_N || m > RW_MAX_M) return (int)cudaErrorInvalidValue;
   d.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   d.seed_hi = (uint32_t)(seed >> 32);
   const int threads = 128;

@@ -7,7 +7,8 @@
 // Parameters, gradients and Adam moments are one flat float32 vector of the
 // six kernel-layout blocks of rware_tpu_torch/models/networks.py::BlockDims:
 //   [W0 (L, H1) | b0 (H1) | W1 (H1, H2) | b1 (H2) | Wc (H2, AC) | bc (AC)]
-// with AC = A + 1 (policy logits then the value).  Each weight block
+// with AC = A + 1 (policy logits then the value), or A + 1 + M with K4's
+// message head (M Bernoulli logits after the value; pallas_update.py:109).  Each weight block
 // followed by its bias is the stacked (fan_in + 1, fan_out) matrix, so the
 // weight-gradient products write weight and bias gradients in one pass (the
 // bias row is the product with a column of ones).
@@ -36,6 +37,7 @@
 
 #define PPO_THREADS 256  // threads of the per-sample and weight-gradient kernels
 #define PPO_HC 8         // head rows kept per sample (AC <= 8)
+#define PPO_HC_MAX 16    // the same with K4's message head (AC <= 16)
 #define PPO_SK 32        // samples per step of the weight-gradient kernel
 #define PPO_TW 64        // weight-gradient output tile, rows and columns
 
@@ -44,6 +46,7 @@ struct PpoDims {
   int heads;               // head columns: A + 1 (actor) or the agents (critic)
   int hc;                  // head rows kept per sample (>= heads)
   int value_head;          // actor: the local value head takes part in the loss
+  int msg_bits;            // actor (K4): M message bits, heads = A + 1 + M
   int T_full, T_mb, B, N;  // trajectory length, window length, envs, agents per row
   float clip_eps, vf_coef, ent_coef, inv_n;  // inv_n = 1 / (T_mb * B * agents)
   int tile;                // samples per tile of the per-sample kernel
@@ -59,6 +62,7 @@ struct PpoData {  // the (T_full, B, N, ...) trajectory
   const __nv_bfloat16* obs;  // (.., L) bf16
   const int* action;
   const float *logp, *value, *adv, *target;
+  const int* bits;  // (.., M) message bits, with msg_bits
 };
 
 struct PpoScratch {
@@ -150,6 +154,7 @@ static inline PpoDims ppo_dims(int L, int H1, int H2, int A, int T_full, int T_m
   d.heads = A + 1;
   d.hc = PPO_HC;
   d.value_head = 1;
+  d.msg_bits = 0;
   d.T_full = T_full;
   d.T_mb = T_mb;
   d.B = B;

@@ -1,10 +1,15 @@
-// The per-sample kernel of the PPO gradient kernels, as a template of four
+// The per-sample kernel of the PPO gradient kernels, as a template of five
 // modes, each instantiated in one source file:
 //
 //  PPO_ACTOR  (fused_ppo_grads.cu): the shared-parameter policy on samples
 //             (t, b, n): forward, clipped-PPO loss pieces, backward to dz1.
 //             d.value_head = 0 is MAPPO's actor: no value term, and the local
 //             value head's dcat row exactly zero.
+//  PPO_MSG    (fused_ppo_grads.cu): PPO_ACTOR with K4's message head,
+//             d.msg_bits = M > 0 Bernoulli logits after the value: the joint
+//             move + bits log-probability and entropy, and M more dcat rows
+//             (pallas_update.py:185-224).  A mode of its own, so that the
+//             other modes compile to the code they had before it.
 //  PPO_CRITIC (fused_mappo_grads.cu): MAPPO's central critic on samples
 //             (t, b) with one value per agent: forward, clipped value loss,
 //             backward to dz1 (pallas_update.py:1350-1388).
@@ -29,6 +34,7 @@
 #define PPO_CRITIC 1
 #define PPO_VALUES 2
 #define PPO_SEAC 3
+#define PPO_MSG 4
 
 static __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -163,7 +169,7 @@ __global__ void __launch_bounds__(PPO_THREADS)
   if (tid < AC) sbc[tid] = params[o.bc + tid];
 
   const int start = kMode == PPO_VALUES ? 0 : start_p[0];
-  const bool kPolicy = kMode == PPO_ACTOR || kMode == PPO_SEAC;
+  const bool kPolicy = kMode == PPO_ACTOR || kMode == PPO_SEAC || kMode == PPO_MSG;
   const float adv_mean = kPolicy ? stats[0] : 0.f;
   const float adv_inv_std = kPolicy ? stats[1] : 0.f;
   const float eps = d.clip_eps, inv_n = d.inv_n;
@@ -226,9 +232,10 @@ __global__ void __launch_bounds__(PPO_THREADS)
           hc[(size_t)n * LD + s] = dv;
         }
       } else {
-        float dcat[PPO_HC];
+        constexpr int kHC = kMode == PPO_MSG ? PPO_HC_MAX : PPO_HC;  // local head rows
+        float dcat[kHC];
 #pragma unroll
-        for (int a = 0; a < PPO_HC; ++a) dcat[a] = 0.f;
+        for (int a = 0; a < kHC; ++a) dcat[a] = 0.f;
         if (r >= 0) {
           // pair weight and diagonal mask: 1 and 1 but in SEAC mode
           float w = 1.f, diag = 1.f;
@@ -238,7 +245,7 @@ __global__ void __launch_bounds__(PPO_THREADS)
           }
           const int act = data.action[r];
           const float old_logp = data.logp[r], adv = data.adv[r];
-          float lg[PPO_HC], p[PPO_HC];
+          float lg[kHC], p[kHC];
           for (int a = 0; a < A; ++a) lg[a] = hc[(size_t)a * LD + s];
           float mx = lg[0];
           for (int a = 1; a < A; ++a) mx = fmaxf(mx, lg[a]);
@@ -255,6 +262,25 @@ __global__ void __launch_bounds__(PPO_THREADS)
             ent -= p[a] * lg[a];
             if (a == act) logp = lg[a];
           }
+          // message bits: log sigmoid(+-l) = min(+-l, 0) - log(1 + exp(-|l|))
+          // share the log term; the bits' log-probability joins the move's,
+          // their entropy the metric's (the move's gradient keeps its own).
+          const int MB = kMode == PPO_MSG ? d.msg_bits : 0;
+          float sig[kHC], bitf[kHC];
+          float ent_msg = 0.f;
+          if (kMode == PPO_MSG) {
+            float logp_msg = 0.f;
+            for (int k = 0; k < MB; ++k) {
+              const float l = hc[(size_t)(A + 1 + k) * LD + s];
+              const float log1pe = logf(1.f + expf(-fabsf(l)));
+              const float ls_p = fminf(l, 0.f) - log1pe, ls_n = fminf(-l, 0.f) - log1pe;
+              bitf[k] = (float)data.bits[r * MB + k];
+              sig[k] = 1.f / (1.f + expf(-l));
+              logp_msg += bitf[k] * ls_p + (1.f - bitf[k]) * ls_n;
+              ent_msg -= sig[k] * ls_p + (1.f - sig[k]) * ls_n;
+            }
+            logp += logp_msg;
+          }
           const float ratio = expf(logp - old_logp);
           const float advn = (adv - adv_mean) * adv_inv_std;
           const float ratio_c = fminf(fmaxf(ratio, 1.f - eps), 1.f + eps);
@@ -265,6 +291,11 @@ __global__ void __launch_bounds__(PPO_THREADS)
           const float ent_scale = d.ent_coef * inv_n * diag;
           for (int a = 0; a < A; ++a)
             dcat[a] = dlogp * ((a == act ? 1.f : 0.f) - p[a]) + ent_scale * p[a] * (lg[a] + ent);
+          // d(pg)/dl = dlogp (bit - sigma); d(-ent_coef H)/dl = ent_coef l sigma (1 - sigma)
+          for (int k = 0; k < MB; ++k) {
+            const float l = hc[(size_t)(A + 1 + k) * LD + s];
+            dcat[A + 1 + k] = dlogp * (bitf[k] - sig[k]) + ent_scale * l * sig[k] * (1.f - sig[k]);
+          }
           if (d.value_head) {
             const float value = hc[(size_t)A * LD + s];
             const float old_value = data.value[r], target = data.target[r];
@@ -276,11 +307,16 @@ __global__ void __launch_bounds__(PPO_THREADS)
             terms[1] = w * (0.5f * fmaxf(e1 * e1, e2 * e2));
           }
           terms[0] = w * fminf(pg1, pg2);
-          terms[2] = diag * ent;
+          terms[2] = diag * (kMode == PPO_MSG ? ent + ent_msg : ent);
           terms[3] = diag * ((ratio - 1.f) - (logp - old_logp));
-          float* dg = ws.dcat + (size_t)(s0 + s) * PPO_HC;
+          if (kMode == PPO_MSG) {
+            float* dg = ws.dcat + (size_t)(s0 + s) * HC;
+            for (int a = 0; a < HC; ++a) dg[a] = dcat[a];
+          } else {
+            float* dg = ws.dcat + (size_t)(s0 + s) * PPO_HC;
 #pragma unroll
-          for (int a = 0; a < PPO_HC; ++a) dg[a] = dcat[a];
+            for (int a = 0; a < PPO_HC; ++a) dg[a] = dcat[a];
+          }
         }
         for (int a = 0; a < AC; ++a) hc[(size_t)a * LD + s] = dcat[a];
       }

@@ -3,7 +3,8 @@ counterpart of ``evaluate.py`` for the nets the port trains: the shared MLP
 (``ActorCritic``; IPPO's, and MAPPO's actor), the shared GRU
 (``RecurrentActorCritic``; recurrent IPPO's) and one MLP per agent (an
 ``nn.ModuleList`` of ``ActorCritic``; SEAC-PPO's).  The checkpoint names its
-kind.
+kind and its message bits; a policy with message bits plays an env with as
+many, through the collectors' message mode (K2b).
 
 Examples::
 
@@ -97,7 +98,8 @@ def main(argv=None) -> dict:
             raise SystemExit("--checkpoint-dir required unless --random")
         env_id, policy = load_policy(os.path.join(args.checkpoint_dir, "policy.pt"))
         env_id = args.env or env_id
-    env = rware_tpu_torch.make(env_id, device=dev)
+    msg_bits = 0 if isinstance(policy, nn.ModuleList) else policy.msg_bits
+    env = rware_tpu_torch.make(env_id, device=dev, msg_bits=msg_bits)
     stats = mean_return(env, policy, args.episodes, args.max_steps, args.seed)
     print(f"episodes={stats['episodes']} mean_return={stats['mean_return']:.3f} "
           f"std={stats['std']:.3f} mean_length={stats['mean_length']:.1f} "

@@ -115,10 +115,12 @@ def compute_gae(cfg: IPPOConfig, rewards, values, dones, last_value):
 
 def ppo_loss(cfg: IPPOConfig, dims: BlockDims, params: torch.Tensor, batch):
     """Clipped-PPO loss on a flat (M, N, ...) minibatch
-    ``(obs, action, old_logp, old_value, adv, target)``."""
-    obs, action, old_logp, old_value, adv, target = batch
-    logits, value = train_forward(dims.split(params), obs)
-    return clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, target)
+    ``(obs, action, old_logp, old_value, adv, target)``, and the bits (M, N,
+    M_bits) as a 7th entry where ``dims`` has message bits."""
+    obs, action, old_logp, old_value, adv, target = batch[:6]
+    heads, value = train_forward(dims.split(params), obs, dims.msg_bits)
+    return clipped_ppo_terms(cfg, heads, value, action, old_logp, old_value, adv, target,
+                             bits=batch[6] if dims.msg_bits else None)
 
 
 def make_lr_schedule(cfg: IPPOConfig) -> Callable[[int], torch.Tensor]:
@@ -197,11 +199,13 @@ def ppo_update_epochs(cfg: IPPOConfig, dims: BlockDims, params, opt_state, datas
 
 def init_runner(env: Warehouse, cfg: IPPOConfig, seed: int,
                 hidden: Tuple[int, int] = (128, 128)) -> Tuple[RunnerState, BlockDims]:
-    """Parameters (flax's default init, from ``seed``), optimizer and a
-    fresh batch of ``cfg.n_envs`` env states on ``env.device``."""
+    """Parameters (flax's default init, from ``seed``; a message head where
+    the config has message bits), optimizer and a fresh batch of
+    ``cfg.n_envs`` env states on ``env.device``."""
     from rware_tpu_torch.parallel import batched_reset
 
-    model = init_actor_critic(env.config.flattened_obs_length, env.n_actions, hidden, seed)
+    model = init_actor_critic(env.config.flattened_obs_length, env.n_actions, hidden, seed,
+                              env.config.msg_bits)
     params = pack_arrays(params_to_arrays(model)).detach().to(env.device)
     env_states, obs = batched_reset(env, seed, cfg.n_envs)
     runner = RunnerState(
@@ -214,14 +218,14 @@ def init_runner(env: Warehouse, cfg: IPPOConfig, seed: int,
 def policy_of(dims: BlockDims, params: torch.Tensor, model=None):
     """The :class:`ActorCritic` holding ``params`` (copied into ``model``
     when given) — what the collectors run."""
-    return arrays_to_params(dims.split(params.detach()), model)
+    return arrays_to_params(dims.split(params.detach()), model, dims.msg_bits)
 
 
 def last_values(dims: BlockDims, params: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
     """(B, N) values of the observations after the rollout, by the JAX
     package's ``model.apply`` recipe (:func:`apply_forward`)."""
     with torch.no_grad():
-        return apply_forward(dims.split(params), obs)[1]
+        return apply_forward(dims.split(params), obs, dims.msg_bits)[1]
 
 
 def update_metrics(cfg: IPPOConfig, traj: Dict[str, torch.Tensor], ppo_metrics) -> dict:
@@ -257,7 +261,8 @@ def build_train_step(env: Warehouse, dims: BlockDims, cfg: IPPOConfig
             return x.reshape((-1,) + x.shape[2:])
 
         dataset = tuple(flat(x) for x in (traj["obs"].float(), traj["action"], traj["logp"],
-                                          traj["value"], adv, targets))
+                                          traj["value"], adv, targets)
+                        + ((traj["bits"],) if dims.msg_bits else ()))
         (params, opt_state), per_pass = ppo_update_epochs(
             cfg, dims, runner.params, runner.opt_state, dataset, runner.generator)
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,

@@ -1,6 +1,9 @@
 """IPPO on the fused kernels: the fused MLP collector (K2a), GAE, and the
 PPO update through the whole-update-phase kernel (K3) or the per-pass
 gradient kernel (K4) — the counterpart of ``rware_tpu/models/ippo_pallas.py``.
+With message bits the collector runs its message mode (K2b), the dataset
+carries the bits as a 7th entry and every pass takes K4 with the message head
+then the optimizer step: K3 has no message head (``ippo_pallas.py:545-598``).
 
 The collector already emits the common ``(T, B, N, ...)`` trajectory, so the
 update reads it in place: minibatches are time windows ``(start + t) % T``
@@ -134,7 +137,7 @@ class FusedTrainStep:
         self.grads = build_fused_ppo_grads(dims, cfg.rollout_len // cfg.minibatches,
                                            cfg.clip_eps, cfg.vf_coef, cfg.ent_coef)
         self.update_phase = None
-        if fused_update_phase:
+        if fused_update_phase and not dims.msg_bits:
             self.update_phase = build_fused_ppo_update_phase(
                 dims, cfg.rollout_len, cfg.epochs, cfg.minibatches, cfg.clip_eps,
                 cfg.vf_coef, cfg.ent_coef, cfg.max_grad_norm)
@@ -168,6 +171,8 @@ class FusedTrainStep:
         env_states, traj = self.rollout(runner)
         obs, adv, targets = self.advantages(runner, env_states, traj)
         dataset = (traj["obs"], traj["action"], traj["logp"], traj["value"], adv, targets)
+        if "bits" in traj:
+            dataset += (traj["bits"],)
         (params, opt_state), ppo = self.update(runner, dataset, starts)
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs,
@@ -182,7 +187,8 @@ def build_fused_train_step(env: Warehouse, dims: BlockDims, cfg: IPPOConfig,
     ``ippo_pallas.py:488-598``): K2a collect, GAE, then the update phase.
 
     ``fused_update_phase`` (default) runs all E x M passes in the K3 kernel;
-    otherwise each pass takes the K4 gradient, then the optimizer step.
+    otherwise, and always with message bits, each pass takes the K4
+    gradient, then the optimizer step.
     ``starts`` of a call overrides the (P,) window starts drawn from the
     runner's generator.  On a CUDA runner every kernel runs on
     the card; on a CPU runner every wrapper runs its plain version."""

@@ -1,5 +1,8 @@
 """Recurrent IPPO: GRU policies over partial observations (the counterpart
-of ``rware_tpu/models/ippo_rnn.py``, without message bits).
+of ``rware_tpu/models/ippo_rnn.py``).  With message bits the collector runs
+its message mode (K2b), the dataset carries the bits as a 9th entry and the
+loss is that of the joint move + Bernoulli policy (``ippo_rnn.py:574-597``);
+the heads, message head included, stay autograd around K9 and K10.
 
 The GRU carry ``(B, N, Hg)`` bf16 lives in the runner next to the env states;
 an episode's end zeroes it.  The PPO epochs keep whole sequences: a minibatch
@@ -81,7 +84,7 @@ def init_rnn_runner(env: Warehouse, cfg: IPPOConfig, seed: int, hidden: int = 12
     from rware_tpu_torch.parallel import batched_reset
 
     model = init_recurrent_actor_critic(env.config.flattened_obs_length, env.n_actions, hidden,
-                                        embed, seed)
+                                        embed, seed, env.config.msg_bits)
     params = pack_arrays(gru_to_arrays(model)).detach().to(env.device)
     env_states, obs = batched_reset(env, seed, cfg.n_envs)
     runner = RNNRunnerState(
@@ -95,7 +98,7 @@ def init_rnn_runner(env: Warehouse, cfg: IPPOConfig, seed: int, hidden: int = 12
 def rnn_policy_of(dims: GruDims, params: torch.Tensor, model=None):
     """The :class:`RecurrentActorCritic` holding ``params`` (copied into
     ``model`` when given) — what the collectors run."""
-    return arrays_to_gru(dims.split(params.detach()), model)
+    return arrays_to_gru(dims.split(params.detach()), model, dims.msg_bits)
 
 
 def rnn_last_values(dims: GruDims, params: torch.Tensor, carry: torch.Tensor,
@@ -104,7 +107,7 @@ def rnn_last_values(dims: GruDims, params: torch.Tensor, carry: torch.Tensor,
     after it, by the JAX package's ``model.apply`` recipe
     (:func:`gru_apply_step`; ``ippo_rnn.py:823-825``)."""
     with torch.no_grad():
-        return gru_apply_step(dims.split(params), carry, obs)[2]
+        return gru_apply_step(dims.split(params), carry, obs, dims.msg_bits)[2]
 
 
 def band_slice(x: torch.Tensor, start_env: int, n_env: int) -> torch.Tensor:
@@ -122,22 +125,25 @@ def gru_native_replay(dims: GruDims, params: torch.Tensor, obs, done, h0, start_
     over an env band of the stored trajectory (``_gru_native_replay``,
     ``ippo_rnn.py:473-560``): the hidden sequence by :class:`GruObsScan`
     (K9, and K10 on the way back), then the head product on the bf16 hidden
-    with bf16-rounded head weights and float32 sums."""
+    with bf16-rounded head weights and float32 sums; with message bits the
+    logits are ``(logits, msg_logits)``."""
     we, be, wi, bi, wh, bhn, wc, bc = dims.split(params)
     hseq = GruObsScan.apply(we, be, wi, bi, wh, bhn, obs, done, h0, start_env, n_env, fwd, bwd)
-    return gru_replay_heads(wc, bc, hseq)
+    return gru_replay_heads(wc, bc, hseq, dims.msg_bits)
 
 
 def rnn_ppo_loss_native(cfg, dims: GruDims, params: torch.Tensor, dataset, band, fwd, bwd):
     """Clipped-PPO loss of one env band ``(start_env, n_env)`` of the dataset
     ``(obs, done, action, logp, value, adv, target, h0)`` in the ``(T, B, N,
-    ...)`` layout (``ippo_rnn.py:574-597``); the advantages are normalised
-    over the band.  Returns (total, metrics)."""
-    obs, done, action, logp, value_old, adv, target, h0 = dataset
-    logits, value = gru_native_replay(dims, params, obs, done, h0, *band, fwd, bwd)
+    ...)`` layout, and the bits (T, B, N, M) as a 9th entry with message bits
+    (``ippo_rnn.py:574-597``); the advantages are normalised over the band.
+    Returns (total, metrics)."""
+    obs, done, action, logp, value_old, adv, target, h0 = dataset[:8]
+    heads, value = gru_native_replay(dims, params, obs, done, h0, *band, fwd, bwd)
+    bits = band_slice(dataset[8], *band) if dims.msg_bits else None
     action, logp, value_old, adv, target = (
         band_slice(x, *band) for x in (action, logp, value_old, adv, target))
-    return clipped_ppo_terms(cfg, logits, value, action, logp, value_old, adv, target)
+    return clipped_ppo_terms(cfg, heads, value, action, logp, value_old, adv, target, bits=bits)
 
 
 def band_rows(cfg: IPPOConfig) -> Tuple[int, int]:
@@ -221,6 +227,8 @@ class RnnFusedTrainStep:
         obs, adv, targets = self.advantages(runner, env_states, new_carry, traj)
         dataset = (traj["obs"], traj["done"], traj["action"], traj["logp"], traj["value"], adv,
                    targets, runner.carry)
+        if "bits" in traj:
+            dataset += (traj["bits"],)
         (params, opt_state), ppo = self.update(runner, dataset, offsets)
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs, carry=new_carry,
@@ -260,9 +268,10 @@ def build_rnn_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig
             new_h = gru_replay_step(arrays[:6], h, traj["obs"][t, idx])
             hseq.append(new_h)
             h = torch.where(traj["done"][t, idx][:, None, None], torch.zeros_like(new_h), new_h)
-        logits, value = gru_replay_heads(arrays[6], arrays[7], torch.stack(hseq))
-        return clipped_ppo_terms(cfg, logits, value, traj["action"][:, idx], traj["logp"][:, idx],
-                                 traj["value"][:, idx], adv[:, idx], targets[:, idx])
+        heads, value = gru_replay_heads(arrays[6], arrays[7], torch.stack(hseq), dims.msg_bits)
+        bits = traj["bits"][:, idx] if dims.msg_bits else None
+        return clipped_ppo_terms(cfg, heads, value, traj["action"][:, idx], traj["logp"][:, idx],
+                                 traj["value"][:, idx], adv[:, idx], targets[:, idx], bits=bits)
 
     def train_step(runner: RNNRunnerState):
         policy = rnn_policy_of(dims, runner.params, model.to(runner.params.device))

@@ -18,6 +18,15 @@ CentralCritic` on the joint observation.  One update (``mappo.py:580-682``):
 Parameters and optimizer state are ``{"actor", "critic"}`` dicts of flat
 vectors and :class:`~rware_tpu_torch.models.ppo.AdamState`: each part has its
 own global-norm clip and Adam chain (``make_mappo_optimizer``).
+
+With message bits (``msg_bits`` M > 0) the learner takes JAX's split path
+(``mappo.py:349-370, 446-505``), since the combined kernels K5 and K7 have no
+message head: K2a collects in its message mode (K2b); K6 gives the critic's
+values (the rounding of ``_critic_rowmajor_forward``, ``mappo.py:594-598``);
+each pass takes the actor's gradient from K4 with the message head and
+``vf_coef = 0``, and the critic's from autograd of its clipped value loss on
+the window's joint observations (:class:`MappoSplitGrads`), then the split
+optimizer step.
 """
 from __future__ import annotations
 
@@ -54,20 +63,20 @@ from rware_tpu_torch.models.networks import (
     pack_arrays,
     params_to_arrays,
 )
-from rware_tpu_torch.models.ppo import AdamState
+from rware_tpu_torch.models.ppo import AdamState, critic_value_loss, loss_grads
 from rware_tpu_torch.ops.fused_mappo import (
     build_fused_critic_values,
     build_fused_mappo_grads,
     build_fused_mappo_update_phase,
 )
 from rware_tpu_torch.ops.fused_rollout import build_fused_collect
-from rware_tpu_torch.ops.fused_update import metric_means
+from rware_tpu_torch.ops.fused_update import build_fused_ppo_grads, metric_means, window_rows
 
 PARTS = ("actor", "critic")
 
 __all__ = [
-    "MappoTrainStep", "build_mappo_train_step", "critic_last_values", "init_mappo_runner",
-    "mappo_optimizer_step", "mappo_update_phase_fused",
+    "MappoSplitGrads", "MappoTrainStep", "build_mappo_train_step", "critic_last_values",
+    "init_mappo_runner", "mappo_optimizer_step", "mappo_update_phase_fused",
 ]
 
 
@@ -75,7 +84,8 @@ def init_mappo_runner(env: Warehouse, cfg: IPPOConfig, seed: int,
                       hidden: Tuple[int, int] = (128, 128),
                       critic_hidden: Tuple[int, int] = (128, 128)
                       ) -> Tuple[RunnerState, BlockDims, CriticDims]:
-    """Actor and central-critic parameters (flax's default init: the actor
+    """Actor (with a message head where the config has message bits) and
+    central-critic parameters (flax's default init: the actor
     from ``seed``, the critic from the stream ``(seed, 1)``), the split
     optimizer state and a fresh batch of ``cfg.n_envs`` env states on
     ``env.device``; ``runner.params`` and ``runner.opt_state`` are
@@ -83,7 +93,7 @@ def init_mappo_runner(env: Warehouse, cfg: IPPOConfig, seed: int,
     from rware_tpu_torch.parallel import batched_reset
 
     l_obs, n = env.config.flattened_obs_length, env.n_agents
-    actor = init_actor_critic(l_obs, env.n_actions, hidden, seed)
+    actor = init_actor_critic(l_obs, env.n_actions, hidden, seed, env.config.msg_bits)
     critic = init_central_critic(n * l_obs, n, critic_hidden, (seed, 1))
     params = {"actor": pack_arrays(params_to_arrays(actor)).detach().to(env.device),
               "critic": pack_arrays(critic_to_arrays(critic)).detach().to(env.device)}
@@ -139,6 +149,33 @@ def mappo_update_phase_fused(cfg: IPPOConfig, params, opt_state: Dict[str, AdamS
     return (params, new_opt), metrics
 
 
+class MappoSplitGrads:
+    """``grads(params, dataset, start) -> ({"actor", "critic"} grads, sums
+    (4,))`` of one window on MAPPO's split path (``mappo.py:446-500``): the
+    actor's from K4 (:class:`~rware_tpu_torch.ops.fused_update.FusedPPOGrads`,
+    message head and ``vf_coef = 0``, so the local value head's gradient is
+    zero), the critic's from autograd of :func:`critic_value_loss` on the
+    window's joint observations, critic values and targets (rows ``(start +
+    t) % T``); its forward is the rounding of JAX's
+    ``_critic_rowmajor_forward`` (``mappo.py:84-97``).  The sums are K4's
+    with the critic's value loss in place of the actor's."""
+
+    def __init__(self, dims: BlockDims, cdims: CriticDims, cfg: IPPOConfig):
+        self.t_mb = cfg.rollout_len // cfg.minibatches
+        self.cdims, self.cfg = cdims, cfg
+        self.actor = build_fused_ppo_grads(dims, self.t_mb, cfg.clip_eps, 0.0, cfg.ent_coef)
+
+    def __call__(self, params, dataset, start):
+        grads, sums = self.actor(params["actor"], dataset, start)
+        obs, values, targets = dataset[0], dataset[3], dataset[5]
+        rows = window_rows(start, self.t_mb, obs.shape[0], obs.device)
+        batch = tuple(x.index_select(0, rows) for x in (obs, values, targets))
+        cgrads, cmets = loss_grads(
+            lambda p: critic_value_loss(self.cfg, self.cdims, p, batch), params["critic"])
+        sums = torch.cat([sums[:1], (cmets["v_loss"] * batch[1].numel()).reshape(1), sums[2:]])
+        return {"actor": grads, "critic": cgrads}, sums
+
+
 class MappoTrainStep:
     """``train_step(runner, starts=None) -> (runner, metrics)``; see
     :func:`build_mappo_train_step`.  The phases are methods so that callers
@@ -151,8 +188,14 @@ class MappoTrainStep:
         self.collect = build_fused_collect(env.config, cfg.rollout_len, (dims.h1, dims.h2),
                                            deterministic=deterministic_collect)
         self.critic_values = build_fused_critic_values(cdims)
-        self.grads = build_fused_mappo_grads(dims, cdims, cfg.rollout_len // cfg.minibatches,
-                                             cfg.clip_eps, cfg.vf_coef, cfg.ent_coef)
+        if dims.msg_bits:
+            if fused_critic_phase:
+                raise NotImplementedError("the whole-MAPPO-phase kernel takes no message head "
+                                          "(as mappo.py:369-393)")
+            self.grads = MappoSplitGrads(dims, cdims, cfg)
+        else:
+            self.grads = build_fused_mappo_grads(dims, cdims, cfg.rollout_len // cfg.minibatches,
+                                                 cfg.clip_eps, cfg.vf_coef, cfg.ent_coef)
         self.update_phase = None
         if fused_critic_phase:
             self.update_phase = build_fused_mappo_update_phase(
@@ -195,6 +238,8 @@ class MappoTrainStep:
         values = self.values(runner, traj)
         obs, adv, targets = self.advantages(runner, env_states, traj, values)
         dataset = (traj["obs"], traj["action"], traj["logp"], values, adv, targets)
+        if "bits" in traj:
+            dataset += (traj["bits"],)
         (params, opt_state), ppo = self.update(runner, dataset, starts)
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs,
@@ -211,7 +256,9 @@ def build_mappo_train_step(env: Warehouse, dims: BlockDims, cdims: CriticDims, c
 
     ``fused_critic_phase`` runs all E x M passes for both parts and both
     clip -> Adam chains in the K7 kernel; otherwise (default) each pass takes
-    the K5 gradients, then the split optimizer step.  ``starts`` of a call
+    the K5 gradients, then the split optimizer step.  With message bits each
+    pass takes :class:`MappoSplitGrads` (K4 and the critic's autograd)
+    instead of K5, and ``fused_critic_phase`` raises.  ``starts`` of a call
     overrides the (P,) window starts drawn from the runner's generator.  On a
     CUDA runner every kernel runs on the card; on a CPU runner every wrapper
     runs its plain version."""

@@ -16,6 +16,12 @@ gives one cell: the fused collector's (:func:`gru_collect_step`), the
 sequence kernels' (:func:`gru_replay_step`, :func:`gru_replay_heads`) and
 flax's own (:func:`gru_apply_step`).
 
+With message bits (``msg_bits`` M > 0, the reference's ``MultiDiscrete([5,
+2, ..., 2])`` action) each net gains a float32 ``message`` head of M
+Bernoulli logits beside the policy and value heads, and its forwards return
+``(logits, msg_logits)`` where they returned the logits, as flax's modules do
+(``rware_tpu/models/networks.py:24-49, 93-108``).
+
 The learners train on :func:`train_forward`: the same recipe
 (``rware_tpu/models/ippo_pallas.py::_native_trunk``) with ``torch.matmul``
 products, differentiable, on the six kernel-layout parameter blocks of
@@ -55,23 +61,28 @@ def bf16_tanh(x: torch.Tensor) -> torch.Tensor:
 
 class ActorCritic(nn.Module):
     """Shared-parameter MLP actor-critic: obs (..., L) -> (logits (..., A)
-    f32, value (...,) f32).  Parameters are float32 (as flax keeps them);
+    f32, value (...,) f32), or ``((logits, msg_logits (..., M)), value)``
+    with ``msg_bits`` M > 0.  Parameters are float32 (as flax keeps them);
     the forward casts the hidden layers' weights to bf16."""
 
     def __init__(self, obs_dim: int, n_actions: int = 5,
-                 hidden: Sequence[int] = (128, 128)):
+                 hidden: Sequence[int] = (128, 128), msg_bits: int = 0):
         super().__init__()
         self.obs_dim = obs_dim
         self.n_actions = n_actions
         self.hidden = tuple(hidden)
+        self.msg_bits = msg_bits
         widths = (obs_dim,) + self.hidden
         self.dense = nn.ModuleList(
             nn.Linear(widths[i], widths[i + 1]) for i in range(len(self.hidden))
         )
         self.policy = nn.Linear(widths[-1], n_actions)
         self.value = nn.Linear(widths[-1], 1)
+        if msg_bits:
+            self.message = nn.Linear(widths[-1], msg_bits)
 
-    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def heads(self, obs: torch.Tensor):
+        """(logits (..., A), value (...,), msg_logits (..., M) or None)."""
         lead = obs.shape[:-1]
         x = obs.reshape(-1, obs.shape[-1]).to(torch.bfloat16).to(torch.float32)
         for layer in self.dense:
@@ -79,7 +90,15 @@ class ActorCritic(nn.Module):
             x = bf16_tanh(ordered_linear(x, w, layer.bias.float()))
         logits = ordered_linear(x, self.policy.weight.float(), self.policy.bias.float())
         value = ordered_linear(x, self.value.weight.float(), self.value.bias.float())
-        return logits.reshape(lead + (self.n_actions,)), value.reshape(lead)
+        msg = None
+        if self.msg_bits:
+            msg = ordered_linear(x, self.message.weight.float(), self.message.bias.float())
+            msg = msg.reshape(lead + (self.msg_bits,))
+        return logits.reshape(lead + (self.n_actions,)), value.reshape(lead), msg
+
+    def forward(self, obs: torch.Tensor):
+        logits, value, msg = self.heads(obs)
+        return (logits if msg is None else (logits, msg)), value
 
 
 def sample_action(
@@ -101,6 +120,52 @@ def sample_action(
     lse = mx + torch.log(torch.exp(logits - mx).sum(dim=-1, keepdim=True))
     logp = (logits.gather(-1, action[..., None]) - lse)[..., 0]
     return action.to(torch.int32), logp
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``log sigmoid(x) = min(x, 0) - log(1 + exp(-|x|))`` (the kernels'
+    formula, ``pallas_rollout.py:1532-1534``)."""
+    return torch.clamp(x, max=0.0) - torch.log(1.0 + torch.exp(-x.abs()))
+
+
+def bernoulli_logp(logits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """log p(bits) (..., M) of independent Bernoullis with ``logits``."""
+    bits = bits.to(torch.float32)
+    return bits * log_sigmoid(logits) + (1.0 - bits) * log_sigmoid(-logits)
+
+
+def bernoulli_entropy(logits: torch.Tensor) -> torch.Tensor:
+    """Summed entropy (...,) of independent Bernoullis with ``logits`` (...,
+    M)."""
+    p = torch.sigmoid(logits)
+    return -(p * log_sigmoid(logits) + (1.0 - p) * log_sigmoid(-logits)).sum(-1)
+
+
+def sample_bernoulli(msg_logits: torch.Tensor, uniforms: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Message bits (..., M) int32 and their summed log-prob (...,) from
+    (..., M) logits: bit k is ``u < sigmoid(l)`` for the 23-bit uniforms
+    ``uniforms`` of :func:`rware_tpu_torch.ops.philox.gumbel_uniform`, or
+    ``l > 0`` for None (the kernels' deterministic mode); the formula of
+    ``_sample_bernoulli`` (pallas_rollout.py:1537-1562).  The sigmoid is
+    :func:`sigmoid_f32`, and the log-probs are summed over the bits in
+    order, as the collector kernels do (``sample_bernoulli`` in
+    ``csrc/collect_core.cuh``): a bit feeds back into the next observation."""
+    bit = msg_logits > 0.0 if uniforms is None else uniforms < sigmoid_f32(msg_logits)
+    logp = torch.zeros(msg_logits.shape[:-1], dtype=torch.float32, device=msg_logits.device)
+    for k in range(msg_logits.shape[-1]):
+        lk = msg_logits[..., k]
+        log1pe = torch.log(1.0 + torch.exp(-lk.abs()))
+        logp = logp + (torch.clamp(torch.where(bit[..., k], lk, -lk), max=0.0) - log1pe)
+    return bit.to(torch.int32), logp
+
+
+def split_heads(hcat: torch.Tensor, msg_bits: int = 0):
+    """(heads, value) of the head block's outputs (..., A + 1 + M): heads is
+    the logits, or ``(logits, msg_logits)`` with message bits."""
+    a = hcat.shape[-1] - 1 - msg_bits
+    logits, value = hcat[..., :a], hcat[..., a]
+    return (logits if not msg_bits else (logits, hcat[..., a + 1:])), value
 
 
 # ---------------------------------------------------------------------------
@@ -125,19 +190,26 @@ class _FlatBlocks:
 class BlockDims(_FlatBlocks):
     """Sizes of the six kernel-layout blocks of a two-layer ActorCritic
     (``ippo_pallas.py:340-355``): ``W0 (L, H1)``, ``b0 (1, H1)``,
-    ``W1 (H1, H2)``, ``b1 (1, H2)``, ``Wc = [policy | value] (H2, A+1)``,
-    ``bc (1, A+1)``.  Packed in that order into one flat vector, each weight
-    block followed by its bias row is the stacked ``(fan_in + 1, fan_out)``
-    matrix the CUDA kernels address (``csrc/ppo_core.cuh``)."""
+    ``W1 (H1, H2)``, ``b1 (1, H2)``, ``Wc = [policy | value | message]
+    (H2, A+1+M)``, ``bc (1, A+1+M)`` (``pallas_update.py:109``).  Packed in
+    that order into one flat vector, each weight block followed by its bias
+    row is the stacked ``(fan_in + 1, fan_out)`` matrix the CUDA kernels
+    address (``csrc/ppo_core.cuh``)."""
 
     obs_len: int
     h1: int
     h2: int
     n_actions: int = 5
+    msg_bits: int = 0
+
+    @property
+    def heads(self) -> int:
+        """Columns of the head block: A + 1 + M."""
+        return self.n_actions + 1 + self.msg_bits
 
     @property
     def shapes(self) -> List[Tuple[int, int]]:
-        ac = self.n_actions + 1
+        ac = self.heads
         return [(self.obs_len, self.h1), (1, self.h1), (self.h1, self.h2), (1, self.h2),
                 (self.h2, ac), (1, ac)]
 
@@ -145,7 +217,8 @@ class BlockDims(_FlatBlocks):
     def of(model: "ActorCritic") -> "BlockDims":
         if len(model.hidden) != 2:
             raise ValueError("the learners take two hidden layers")
-        return BlockDims(model.obs_dim, model.hidden[0], model.hidden[1], model.n_actions)
+        return BlockDims(model.obs_dim, model.hidden[0], model.hidden[1], model.n_actions,
+                         model.msg_bits)
 
 
 def pack_arrays(arrays: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -153,48 +226,62 @@ def pack_arrays(arrays: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([a.reshape(-1).to(torch.float32) for a in arrays])
 
 
+def head_layers(model) -> list:
+    """The float32 head layers of a net: policy, value and (if any) message."""
+    return [model.policy, model.value] + ([model.message] if model.msg_bits else [])
+
+
 def params_to_arrays(model: "ActorCritic") -> List[torch.Tensor]:
     """The six kernel-layout blocks of ``model`` (``_params_to_arrays`` of
     ``ippo_pallas.py:340``); ``nn.Linear`` keeps (out, in), the blocks
     (in, out)."""
     d0, d1 = model.dense
+    heads = head_layers(model)
     return [
         d0.weight.t(), d0.bias[None, :], d1.weight.t(), d1.bias[None, :],
-        torch.cat([model.policy.weight, model.value.weight], 0).t(),
-        torch.cat([model.policy.bias, model.value.bias], 0)[None, :],
+        torch.cat([h.weight for h in heads], 0).t(),
+        torch.cat([h.bias for h in heads], 0)[None, :],
     ]
 
 
 @torch.no_grad()
+def _copy_heads(model, wc: torch.Tensor, bc: torch.Tensor) -> None:
+    """Columns ``[policy | value | message]`` of ``wc``, ``bc`` into the heads."""
+    col = 0
+    for layer in head_layers(model):
+        width = layer.weight.shape[0]
+        layer.weight.copy_(wc[:, col:col + width].t())
+        layer.bias.copy_(bc[0, col:col + width])
+        col += width
+
+
+@torch.no_grad()
 def arrays_to_params(arrays: Sequence[torch.Tensor],
-                     model: Optional["ActorCritic"] = None) -> "ActorCritic":
-    """Copy the six blocks into ``model`` (a new one on the blocks' device
-    if None) and return it (``_arrays_to_params`` of ``ippo_pallas.py:358``)."""
+                     model: Optional["ActorCritic"] = None, msg_bits: int = 0) -> "ActorCritic":
+    """Copy the six blocks into ``model`` (a new one with ``msg_bits`` on the
+    blocks' device if None) and return it (``_arrays_to_params`` of
+    ``ippo_pallas.py:358``)."""
     w0, b0, w1, b1, wc, bc = arrays
-    a = wc.shape[1] - 1
     if model is None:
-        model = ActorCritic(w0.shape[0], a, (w0.shape[1], w1.shape[1])).to(w0.device)
+        model = ActorCritic(w0.shape[0], wc.shape[1] - 1 - msg_bits, (w0.shape[1], w1.shape[1]),
+                            msg_bits).to(w0.device)
     d0, d1 = model.dense
     d0.weight.copy_(w0.t())
     d0.bias.copy_(b0[0])
     d1.weight.copy_(w1.t())
     d1.bias.copy_(b1[0])
-    model.policy.weight.copy_(wc[:, :a].t())
-    model.policy.bias.copy_(bc[0, :a])
-    model.value.weight.copy_(wc[:, a:].t())
-    model.value.bias.copy_(bc[0, a:])
+    _copy_heads(model, wc, bc)
     return model
 
 
 def init_actor_critic(obs_dim: int, n_actions: int = 5, hidden: Sequence[int] = (128, 128),
-                      seed: int = 0) -> "ActorCritic":
+                      seed: int = 0, msg_bits: int = 0) -> "ActorCritic":
     """An :class:`ActorCritic` with flax ``Dense``'s default init: kernels
     LeCun-normal (truncated at two deviations, unit variance after the
     truncation), biases zero.  The draws come from numpy's generator, so a
     seed gives the same parameters under every torch version."""
-    model = ActorCritic(obs_dim, n_actions, hidden)
-    _flax_dense_init(list(model.dense) + [model.policy, model.value],
-                     np.random.default_rng(seed))
+    model = ActorCritic(obs_dim, n_actions, hidden, msg_bits)
+    _flax_dense_init(list(model.dense) + head_layers(model), np.random.default_rng(seed))
     return model
 
 
@@ -236,18 +323,16 @@ class _Bf16Tanh(torch.autograd.Function):
         return rnd(rnd(g) * rnd(1.0 - rnd(h * h)))
 
 
-def apply_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def apply_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor, msg_bits: int = 0):
     """The JAX package's ``ActorCritic.__call__`` on the six blocks (flax
     ``Dense`` with ``dtype=bfloat16``): each hidden layer's product rounded
     to bf16, the bias rounded to bf16 and added in bf16, tanh rounded to
     bf16; float32 heads on the bf16 hidden.  It differs from
     :func:`train_forward` once the biases are nonzero: there the f32 bias
     joins the f32 sum before the one rounding.  The learners' bootstrap
-    value (``model.apply`` at ``ippo_pallas.py:612``) reads it."""
-    hcat = _apply_heads(arrays, obs)
-    a = hcat.shape[-1] - 1
-    return hcat[..., :a], hcat[..., a]
+    value (``model.apply`` at ``ippo_pallas.py:612``) reads it.  Returns
+    (heads, value) as :func:`split_heads`."""
+    return split_heads(_apply_heads(arrays, obs), msg_bits)
 
 
 def _apply_heads(arrays: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -274,17 +359,15 @@ def _train_heads(arrays: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tenso
     return (h @ wc + bc).reshape(x.shape[:-1] + (wc.shape[1],))
 
 
-def train_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def train_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor, msg_bits: int = 0):
     """Differentiable ActorCritic forward on the six blocks: obs (..., L)
-    -> (logits (..., A), value (...,)), all float32.
+    -> (logits (..., A), value (...,)), all float32; with ``msg_bits`` the
+    logits are ``(logits, msg_logits (..., M))`` (:func:`split_heads`).
 
     The ``_native_trunk`` recipe: bf16 inputs and hidden weights, f32 sums
     (``torch.matmul`` on bf16-exact float32 values), the f32 bias added and
     the sum rounded to bf16, tanh rounded to bf16, f32 heads."""
-    hcat = _train_heads(arrays, obs)
-    a = hcat.shape[-1] - 1
-    return hcat[..., :a], hcat[..., a]
+    return split_heads(_train_heads(arrays, obs), msg_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -444,40 +527,45 @@ class GruDims(_FlatBlocks):
     in this order into one flat vector: ``We (L, E)``, ``be (1, E)``,
     ``Wi = [ir | iz | in] (E, 3Hg)``, ``bi (1, 3Hg)``,
     ``Wh = [hr | hz | hn] (Hg, 3Hg)``, ``bhn (1, Hg)``,
-    ``Wc = [policy | value] (Hg, A+1)``, ``bc (1, A+1)``: the fused gate
-    matrices of ``ippo_rnn.py:494-512``, each kernel (in, out) as flax keeps it."""
+    ``Wc = [policy | value | message] (Hg, A+1+M)``, ``bc (1, A+1+M)``: the
+    fused gate matrices of ``ippo_rnn.py:494-512``, each kernel (in, out) as
+    flax keeps it."""
 
     obs_len: int
     embed: int
     hidden: int
     n_actions: int = 5
+    msg_bits: int = 0
 
     @property
     def shapes(self) -> List[Tuple[int, int]]:
-        e, hg, ac = self.embed, self.hidden, self.n_actions + 1
+        e, hg, ac = self.embed, self.hidden, self.n_actions + 1 + self.msg_bits
         return [(self.obs_len, e), (1, e), (e, 3 * hg), (1, 3 * hg), (hg, 3 * hg), (1, hg),
                 (hg, ac), (1, ac)]
 
     @staticmethod
     def of(model: "RecurrentActorCritic") -> "GruDims":
-        return GruDims(model.obs_dim, model.embed_dim, model.hidden, model.n_actions)
+        return GruDims(model.obs_dim, model.embed_dim, model.hidden, model.n_actions,
+                       model.msg_bits)
 
 
 GRU_INPUT_GATES, GRU_HIDDEN_GATES = ("ir", "iz", "in"), ("hr", "hz", "hn")
 
 
 class RecurrentActorCritic(nn.Module):
-    """GRU actor-critic (the counterpart of the flax ``RecurrentActorCritic``
-    without message bits): ``forward(carry, obs) -> (carry, (logits,
-    value))`` consumes one timestep of obs (..., L) with the carry (...,
-    hidden) in bf16, in flax's rounding (:func:`gru_apply_step`).
+    """GRU actor-critic (the counterpart of the flax ``RecurrentActorCritic``):
+    ``forward(carry, obs) -> (carry, (logits, value))`` consumes one timestep
+    of obs (..., L) with the carry (..., hidden) in bf16, in flax's rounding
+    (:func:`gru_apply_step`); with ``msg_bits`` the logits are ``(logits,
+    msg_logits)``.
 
     The GRU's six matrices are kept as flax's ``GRUCell`` names them:
     ``ir``, ``iz``, ``in`` with a bias, ``hr``, ``hz`` without, ``hn`` with."""
 
-    def __init__(self, obs_dim: int, n_actions: int = 5, hidden: int = 128, embed: int = 128):
+    def __init__(self, obs_dim: int, n_actions: int = 5, hidden: int = 128, embed: int = 128,
+                 msg_bits: int = 0):
         super().__init__()
-        self.obs_dim, self.n_actions = obs_dim, n_actions
+        self.obs_dim, self.n_actions, self.msg_bits = obs_dim, n_actions, msg_bits
         self.hidden, self.embed_dim = hidden, embed
         self.embed = nn.Linear(obs_dim, embed)
         self.gru = nn.ModuleDict({
@@ -486,6 +574,8 @@ class RecurrentActorCritic(nn.Module):
         })
         self.policy = nn.Linear(hidden, n_actions)
         self.value = nn.Linear(hidden, 1)
+        if msg_bits:
+            self.message = nn.Linear(hidden, msg_bits)
 
     def initialize_carry(self, batch_shape: Tuple[int, ...], device=None) -> torch.Tensor:
         """The zero carry ``batch_shape + (hidden,)`` in bf16."""
@@ -494,32 +584,34 @@ class RecurrentActorCritic(nn.Module):
                            device=device)
 
     def forward(self, carry: torch.Tensor, obs: torch.Tensor):
-        new_h, logits, value = gru_apply_step(gru_to_arrays(self), carry, obs)
-        return new_h, (logits, value)
+        new_h, heads, value = gru_apply_step(gru_to_arrays(self), carry, obs, self.msg_bits)
+        return new_h, (heads, value)
 
 
 def gru_to_arrays(model: "RecurrentActorCritic") -> List[torch.Tensor]:
     """The eight :class:`GruDims` blocks of ``model``."""
     g = model.gru
+    heads = head_layers(model)
     return [
         model.embed.weight.t(), model.embed.bias[None, :],
         torch.cat([g[k].weight.t() for k in GRU_INPUT_GATES], 1),
         torch.cat([g[k].bias for k in GRU_INPUT_GATES])[None, :],
         torch.cat([g[k].weight.t() for k in GRU_HIDDEN_GATES], 1), g["hn"].bias[None, :],
-        torch.cat([model.policy.weight, model.value.weight], 0).t(),
-        torch.cat([model.policy.bias, model.value.bias], 0)[None, :],
+        torch.cat([h.weight for h in heads], 0).t(),
+        torch.cat([h.bias for h in heads], 0)[None, :],
     ]
 
 
 @torch.no_grad()
-def arrays_to_gru(arrays: Sequence[torch.Tensor],
-                  model: Optional["RecurrentActorCritic"] = None) -> "RecurrentActorCritic":
-    """Copy the eight blocks into ``model`` (a new one on the blocks' device
-    if None) and return it."""
+def arrays_to_gru(arrays: Sequence[torch.Tensor], model: Optional["RecurrentActorCritic"] = None,
+                  msg_bits: int = 0) -> "RecurrentActorCritic":
+    """Copy the eight blocks into ``model`` (a new one with ``msg_bits`` on
+    the blocks' device if None) and return it."""
     we, be, wi, bi, wh, bhn, wc, bc = arrays
-    hg, a = wh.shape[0], wc.shape[1] - 1
+    hg = wh.shape[0]
     if model is None:
-        model = RecurrentActorCritic(we.shape[0], a, hg, we.shape[1]).to(we.device)
+        model = RecurrentActorCritic(we.shape[0], wc.shape[1] - 1 - msg_bits, hg, we.shape[1],
+                                     msg_bits).to(we.device)
     model.embed.weight.copy_(we.t())
     model.embed.bias.copy_(be[0])
     for q, (ki, kh) in enumerate(zip(GRU_INPUT_GATES, GRU_HIDDEN_GATES)):
@@ -527,26 +619,23 @@ def arrays_to_gru(arrays: Sequence[torch.Tensor],
         model.gru[ki].bias.copy_(bi[0, q * hg:(q + 1) * hg])
         model.gru[kh].weight.copy_(wh[:, q * hg:(q + 1) * hg].t())
     model.gru["hn"].bias.copy_(bhn[0])
-    model.policy.weight.copy_(wc[:, :a].t())
-    model.policy.bias.copy_(bc[0, :a])
-    model.value.weight.copy_(wc[:, a:].t())
-    model.value.bias.copy_(bc[0, a:])
+    _copy_heads(model, wc, bc)
     return model
 
 
 def init_recurrent_actor_critic(obs_dim: int, n_actions: int = 5, hidden: int = 128,
-                                embed: int = 128, seed: int = 0) -> "RecurrentActorCritic":
+                                embed: int = 128, seed: int = 0,
+                                msg_bits: int = 0) -> "RecurrentActorCritic":
     """A :class:`RecurrentActorCritic` with flax's default init, drawn from
     ``numpy.random.default_rng(seed)``: LeCun-normal kernels for ``embed``,
     ``ir``, ``iz``, ``in`` and the heads (see :func:`init_actor_critic`),
     orthogonal ``hr``, ``hz``, ``hn`` (the Q of a normal matrix's QR with the
     signs of R's diagonal, as ``jax.nn.initializers.orthogonal``), biases
     zero.  The same distributions as flax's, not the same numbers."""
-    model = RecurrentActorCritic(obs_dim, n_actions, hidden, embed)
+    model = RecurrentActorCritic(obs_dim, n_actions, hidden, embed, msg_bits)
     rng = np.random.default_rng(seed)
     g = model.gru
-    _flax_dense_init([model.embed] + [g[k] for k in GRU_INPUT_GATES]
-                     + [model.policy, model.value], rng)
+    _flax_dense_init([model.embed] + [g[k] for k in GRU_INPUT_GATES] + head_layers(model), rng)
     with torch.no_grad():
         for k in GRU_HIDDEN_GATES:
             q, r = np.linalg.qr(rng.standard_normal((hidden, hidden)))
@@ -561,11 +650,13 @@ def split_gates(x: torch.Tensor):
     return x[..., :hg], x[..., hg:2 * hg], x[..., 2 * hg:]
 
 
-def gru_collect_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch.Tensor):
+def gru_collect_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch.Tensor,
+                     msg_bits: int = 0):
     """One step in the fused collector's rounding
     (``pallas_rollout.py::_gru_forward``): ``h`` (M, Hg) and ``obs`` (M, L)
     hold bf16 values; returns (logits (M, A) f32, value (M,) f32, new_h (M,
-    Hg) float32 holding bf16 values).
+    Hg) float32 holding bf16 values), the logits ``(logits, msg_logits)``
+    with ``msg_bits``.
 
     Input and hidden products are summed separately in float32 and added
     before the sigmoid; the candidate adds two bf16-rounded terms in bf16;
@@ -582,9 +673,8 @@ def gru_collect_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch
     z = rnd_bf16(sigmoid_f32((gi_z + gh_z) + bi_z))
     n = rnd_bf16(torch.tanh(rnd_bf16(rnd_bf16(gi_n + bi_n) + rnd_bf16(r * rnd_bf16(gh_n + bhn)))))
     new_h = rnd_bf16(rnd_bf16(rnd_bf16(1.0 - z) * n) + rnd_bf16(z * hb))
-    heads = ordered_matmul(new_h, wc) + bc
-    a = heads.shape[-1] - 1
-    return heads[:, :a], heads[:, a], new_h
+    heads, value = split_heads(ordered_matmul(new_h, wc) + bc, msg_bits)
+    return heads, value, new_h
 
 
 def gru_embed_gates(arrays: Sequence[torch.Tensor], obs: torch.Tensor):
@@ -619,23 +709,24 @@ def gru_replay_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch.
     return gru_replay_cell(arrays[4], arrays[5], h.float(), iall)
 
 
-def gru_replay_heads(wc: torch.Tensor, bc: torch.Tensor, hseq: torch.Tensor):
+def gru_replay_heads(wc: torch.Tensor, bc: torch.Tensor, hseq: torch.Tensor, msg_bits: int = 0):
     """(logits, value) from the bf16 hidden sequence as the replay computes
-    them (``ippo_rnn.py:546-556``): head weights rounded to bf16, float32
-    sums, float32 biases.  The collector's heads keep float32 weights."""
-    heads = hseq.float() @ bf16_param(wc) + bc[0]
-    a = heads.shape[-1] - 1
-    return heads[..., :a], heads[..., a]
+    them (``ippo_rnn.py:546-560``): head weights rounded to bf16, float32
+    sums, float32 biases; the logits are ``(logits, msg_logits)`` with
+    ``msg_bits``.  The collector's heads keep float32 weights."""
+    return split_heads(hseq.float() @ bf16_param(wc) + bc[0], msg_bits)
 
 
-def gru_apply_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch.Tensor):
+def gru_apply_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch.Tensor,
+                   msg_bits: int = 0):
     """One step of the flax module itself (``Dense`` and ``GRUCell`` with
     ``dtype=bfloat16``): every product, bias add, gate sum and activation
     rounded to bf16 (the sigmoid as XLA expands it in bf16: ``exp``, the add
     and the division each rounded), float32 heads on the bf16 hidden.  The learners'
     bootstrap value (``model.apply`` at ``ippo_rnn.py:823-825``) and
     ``evaluate`` read it.  Returns (new_h bf16, logits f32, value f32) with
-    the leading shape of ``obs``."""
+    the leading shape of ``obs``, the logits ``(logits, msg_logits)`` with
+    ``msg_bits``."""
     we, be, wi, bi, wh, bhn, wc, bc = (a.float() for a in arrays)
     lead = obs.shape[:-1]
     hb = h.float().reshape(-1, h.shape[-1])
@@ -655,7 +746,5 @@ def gru_apply_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch.T
     z = sigmoid(rnd_bf16(gi_z + gh_z))
     n = rnd_bf16(torch.tanh(rnd_bf16(gi_n + rnd_bf16(r * rnd_bf16(gh_n + rnd_bf16(bhn))))))
     new_h = rnd_bf16(rnd_bf16(rnd_bf16(1.0 - z) * n) + rnd_bf16(z * hb))
-    heads = new_h @ wc + bc
-    a = heads.shape[-1] - 1
-    return (new_h.to(torch.bfloat16).reshape(lead + (new_h.shape[-1],)),
-            heads[:, :a].reshape(lead + (a,)), heads[:, a].reshape(lead))
+    heads, value = split_heads((new_h @ wc + bc).reshape(lead + (wc.shape[1],)), msg_bits)
+    return new_h.to(torch.bfloat16).reshape(lead + (new_h.shape[-1],)), heads, value

@@ -23,6 +23,8 @@ import torch
 from rware_tpu_torch.models.networks import (
     BlockDims,
     CriticDims,
+    bernoulli_entropy,
+    bernoulli_logp,
     critic_train_forward,
     joint_obs,
     train_forward,
@@ -51,27 +53,38 @@ class AdamState:
 
 
 def clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, target,
-                      advstats: Optional[torch.Tensor] = None):
+                      advstats: Optional[torch.Tensor] = None, bits=None):
     """The clipped-PPO objective (surrogate, clipped value loss, entropy
     bonus) from policy logits and values of any source; returns
     ``(total, metrics)`` with the metrics as means.  ``cfg`` holds
     ``clip_eps``, ``vf_coef`` and ``ent_coef``.
 
     ``advstats`` [mean, 1/std] normalises the advantages as the fused
-    kernels do; None takes the mean and population std of ``adv`` itself."""
+    kernels do; None takes the mean and population std of ``adv`` itself.
+
+    ``bits`` (..., M), the message bits taken, switches to the joint move +
+    Bernoulli policy: ``logits`` is then ``(logits, msg_logits)``, and the
+    ratio and the entropy are the joint ones (``ippo_pallas.py:142-197``)."""
     if advstats is None:
         advn = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
     else:
         advn = (adv - advstats[0]) * advstats[1]
+    if bits is not None:
+        logits, msg_logits = logits
     logp_all = torch.log_softmax(logits, dim=-1)
     logp = logp_all.gather(-1, action.long()[..., None])[..., 0]
+    if bits is not None:
+        logp = logp + bernoulli_logp(msg_logits, bits).sum(-1)
     ratio = torch.exp(logp - old_logp)
     pg1 = ratio * advn
     pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * advn
     pg_loss = -torch.minimum(pg1, pg2).mean()
     v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
     v_loss = 0.5 * torch.maximum((value - target) ** 2, (v_clipped - target) ** 2).mean()
-    entropy = (-(torch.exp(logp_all) * logp_all).sum(-1)).mean()
+    entropy = -(torch.exp(logp_all) * logp_all).sum(-1)
+    if bits is not None:
+        entropy = entropy + bernoulli_entropy(msg_logits)
+    entropy = entropy.mean()
     total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
     with torch.no_grad():
         approx_kl = ((ratio - 1) - (logp - old_logp)).mean()
@@ -83,12 +96,13 @@ def clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, targ
 def ppo_loss_native(cfg, dims: BlockDims, params: torch.Tensor, batch,
                     advstats: Optional[torch.Tensor] = None):
     """Clipped-PPO loss on a ``(T, B, N, ...)`` minibatch ``(obs, action,
-    old_logp, old_value, adv, target)``; ``advstats`` as in
+    old_logp, old_value, adv, target)``, with a 7th entry, the bits (T, B, N,
+    M), where ``dims`` has message bits; ``advstats`` as in
     :func:`clipped_ppo_terms`.  Returns (total, metrics)."""
-    obs, action, old_logp, old_value, adv, target = batch
-    logits, value = train_forward(dims.split(params), obs)
-    return clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, target,
-                             advstats)
+    obs, action, old_logp, old_value, adv, target = batch[:6]
+    heads, value = train_forward(dims.split(params), obs, dims.msg_bits)
+    return clipped_ppo_terms(cfg, heads, value, action, old_logp, old_value, adv, target,
+                             advstats, batch[6] if dims.msg_bits else None)
 
 
 def mappo_loss_native(cfg, dims: BlockDims, cdims: CriticDims, params, batch,

@@ -29,7 +29,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_DIMS = [_I] * 9 + [ctypes.c_ulonglong]  # n s r g h w reward max_steps max_inactive, seed
+# n s r g h w reward max_steps max_inactive msg_bits, seed
+_DIMS = [_I] * 10 + [ctypes.c_ulonglong]
 # L H1 H2 A T_full T_mb B N | clip_eps vf_coef ent_coef inv_n |
 # tile grid smem w0_smem chunk n_chunks
 _PPO_DIMS = [_I] * 8 + [_F] * 4 + [_I] * 6
@@ -40,12 +41,12 @@ _SIGNATURES = {
     "rw_fused_rollout": _DIMS + [_I] * 3 + [_P] * 7,
     # ... deterministic T B sensor_range normalised L H1 H2 A threads smem_bytes
     # n_stacks weights_global | layout state_in state_out w0 b0 w1 b1 wp bp wv bv
-    # obs action logp value reward done stream
-    "rw_fused_collect": _DIMS + [_I] * 13 + [_P] * 18,
+    # wm bm obs action bits logp value reward done stream
+    "rw_fused_collect": _DIMS + [_I] * 13 + [_P] * 21,
     # ... deterministic T B sensor_range normalised L E Hg A threads smem_bytes |
-    # layout state_in state_out we be wi bi wh bhn wc bc hbuf obs action logp
-    # value reward done stream
-    "rw_fused_collect_gru": _DIMS + [_I] * 11 + [_P] * 19,
+    # layout state_in state_out we be wi bi wh bhn wc bc hbuf obs action bits
+    # logp value reward done stream
+    "rw_fused_collect_gru": _DIMS + [_I] * 11 + [_P] * 20,
     # L E Hg T B N start_env n_env rows_per_thread | obs done h0 we be wi bi wh
     # bhn hseq stream
     "rw_fused_gru_fwd": [_I] * 9 + [_P] * 11,
@@ -53,9 +54,9 @@ _SIGNATURES = {
     # hseq dhseq we be wi bi wh bhn wiT whT, scratch hp e dg3 dgi dpre part_bhn
     # partial, grads dh0 stream
     "rw_fused_gru_bwd": [_I] * 11 + [_P] * 23,
-    # ... | start stats obs action logp value adv target params h1 h2 dz1 dz2
-    # dcat partial part_mets grads mets stream
-    "rw_fused_ppo_grads": _PPO_DIMS + [_P] * 19,
+    # ... msg_bits hc | start stats obs action logp value adv target bits params h1
+    # h2 dz1 dz2 dcat partial part_mets grads mets stream
+    "rw_fused_ppo_grads": _PPO_DIMS + [_I] * 2 + [_P] * 20,
     # ... seac_lambda | start stats obs action logp value adv target params h1
     # h2 dz1 dz2 dcat partial part_mets grads mets stream
     "rw_fused_seac_grads": _PPO_DIMS + [_F] + [_P] * 19,

@@ -162,6 +162,9 @@ class FusedMappoGrads:
         self.t_mb = t_mb
         self.cfg = LossCoefs(clip_eps, vf_coef, ent_coef)
         # the actor's sizes, shapes and shared-memory choice are K4's
+        if dims is not None and dims.msg_bits:
+            raise NotImplementedError("the combined MAPPO kernels take no message head (as "
+                                      "mappo.py:369-393); message bits take the split path")
         self.actor = FusedPPOGrads(dims, t_mb, clip_eps, vf_coef, ent_coef) if with_actor else None
         if with_actor and dims.obs_len != cdims.obs_len:
             raise ValueError("actor and critic disagree on the observation length")
@@ -298,6 +301,9 @@ class FusedMappoUpdatePhase:
     def __init__(self, dims: BlockDims, cdims: CriticDims, dataset_len: int, epochs: int,
                  minibatches: int, clip_eps: float, vf_coef: float, ent_coef: float,
                  max_grad_norm: float):
+        if dims.msg_bits:
+            raise NotImplementedError("the whole-MAPPO-phase kernel takes no message head (as "
+                                      "mappo.py:369-393)")
         if dataset_len % minibatches:
             raise ValueError(f"minibatches={minibatches} must divide rollout_len={dataset_len}")
         self.t_full = dataset_len

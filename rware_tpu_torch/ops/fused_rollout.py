@@ -6,10 +6,9 @@ recurrent (K2c) and per-agent MLP (K2d).
   launch with random or scripted actions and autoreset, returning the final
   state, per-agent reward sums and episode counts.
 * :func:`build_fused_collect` replaces ``build_pallas_collect`` in mode
-  ``policy="mlp"``, FLATTENED observations, ``msg_bits=0``: per step the
-  observation, the shared :class:`ActorCritic` forward, a Gumbel-argmax
-  sample and the env step, with the trajectory streamed out in the
-  ``(T, B, N, ...)`` layout.
+  ``policy="mlp"``, FLATTENED observations: per step the observation, the
+  shared :class:`ActorCritic` forward, a Gumbel-argmax sample and the env
+  step, with the trajectory streamed out in the ``(T, B, N, ...)`` layout.
 * :func:`build_fused_collect_gru` replaces ``build_pallas_collect`` in mode
   ``policy="gru"``: the same step with the shared
   :class:`RecurrentActorCritic` (embed + GRU cell + f32 heads), the
@@ -18,6 +17,15 @@ recurrent (K2c) and per-agent MLP (K2d).
 * :func:`build_fused_collect_per_agent` replaces ``build_pallas_collect`` in
   mode ``policy="mlp_per_agent"`` (SEAC's collector): K2a's step where agent i
   runs its own :class:`ActorCritic` i.
+
+Message bits (``msg_bits`` M > 0) are a mode of K1 and of the MLP and
+recurrent collectors (K2b, ``_sample_bernoulli`` of ``pallas_rollout.py``):
+the state carries every agent's M bits, the observations show them, K1 sets
+them from its actions (scripted) or from Philox purpose MESSAGE (random),
+and the collectors sample them from the policy's Bernoulli message head,
+add their log-probability to the move's and return them as ``traj["bits"]``
+(T, B, N, M) int32; an episode's end clears them.  The per-agent collector
+(K2d) takes no message bits, as JAX's fused SEAC update does not.
 
 Each wrapper launches its CUDA kernel (``csrc/fused_rollout.cu``,
 ``csrc/fused_collect.cu`` for K2a and K2d, ``csrc/fused_collect_gru.cu``) for
@@ -30,8 +38,8 @@ UP, the queue restarting as 0..R-1 — the TPU kernels' scripted rules.
 
 The kernels take the state packed as one (ROWS, B) int32 tensor with the
 env index minor (rows: agent x, y, dir, carrying, has_delivered; shelf x, y;
-queue; inactive and step counters), so their loads are coalesced; the
-transposes from and to the public (B, ...) layout live here.
+queue; inactive and step counters; messages), so their loads are coalesced;
+the transposes from and to the public (B, ...) layout live here.
 """
 from __future__ import annotations
 
@@ -54,24 +62,24 @@ from rware_tpu_torch.models.networks import (
     gru_collect_step,
     gru_to_arrays,
     sample_action,
+    sample_bernoulli,
 )
 from rware_tpu_torch.ops import philox
 from rware_tpu_torch.types import ObservationType
 
 # Limits of the kernels' per-thread state arrays (csrc/env_core.cuh).
-MAX_AGENTS, MAX_SHELVES, MAX_QUEUE = 32, 512, 64
+MAX_AGENTS, MAX_SHELVES, MAX_QUEUE, MAX_MSG_BITS = 32, 512, 64, 8
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+TRAJ_KEYS = ("obs", "action", "logp", "value", "reward", "done")
 
 
 def _check_config(config: WarehouseConfig) -> None:
-    if config.msg_bits:
-        raise NotImplementedError("message bits are not ported yet")
     layout = config.compile_layout()
     if (config.n_agents > MAX_AGENTS or layout.n_shelves > MAX_SHELVES
-            or config.request_queue_size > MAX_QUEUE):
+            or config.request_queue_size > MAX_QUEUE or config.msg_bits > MAX_MSG_BITS):
         raise ValueError(
             f"the fused kernels take at most {MAX_AGENTS} agents, {MAX_SHELVES} "
-            f"shelves and a queue of {MAX_QUEUE}"
+            f"shelves, a queue of {MAX_QUEUE} and {MAX_MSG_BITS} message bits"
         )
 
 
@@ -94,12 +102,13 @@ def _check_seed(seed) -> int:
 
 
 def pack_state(state: WarehouseState) -> torch.Tensor:
-    """(ROWS, B) int32, env index minor."""
+    """(ROWS, B) int32, env index minor; the N * M message rows last,
+    agent-major."""
     rows = [
         state.agent_x, state.agent_y, state.agent_dir, state.agent_carrying,
         state.agent_has_delivered, state.shelf_x, state.shelf_y,
         state.request_queue, state.cur_inactive_steps[:, None],
-        state.cur_steps[:, None],
+        state.cur_steps[:, None], state.agent_message.reshape(state.batch_size, -1),
     ]
     return torch.cat([r.to(torch.int32) for r in rows], dim=1).t().contiguous()
 
@@ -107,16 +116,17 @@ def pack_state(state: WarehouseState) -> torch.Tensor:
 def unpack_state(packed: torch.Tensor, like: WarehouseState) -> WarehouseState:
     """Inverse of :func:`pack_state`; ``like`` gives the field shapes."""
     n, s, r = like.n_agents, like.n_shelves, like.request_queue.shape[1]
+    m = like.agent_message.shape[2]
     cols = packed.t()
-    sizes = [n, n, n, n, n, s, s, r, 1, 1]
-    ax, ay, ad, carry, hd, sx, sy, q, inact, steps = torch.split(cols, sizes, dim=1)
+    sizes = [n, n, n, n, n, s, s, r, 1, 1, n * m]
+    ax, ay, ad, carry, hd, sx, sy, q, inact, steps, msg = torch.split(cols, sizes, dim=1)
     return WarehouseState(
         agent_x=ax.contiguous(),
         agent_y=ay.contiguous(),
         agent_dir=ad.contiguous(),
         agent_carrying=carry.contiguous(),
         agent_has_delivered=hd != 0,
-        agent_message=like.agent_message,
+        agent_message=msg.to(torch.float32).reshape(msg.shape[0], n, m),
         shelf_x=sx.contiguous(),
         shelf_y=sy.contiguous(),
         request_queue=q.contiguous(),
@@ -142,7 +152,7 @@ def _dims(config: WarehouseConfig) -> list:
     return [
         config.n_agents, layout.n_shelves, config.request_queue_size,
         layout.n_goals, h, w, int(config.reward_type),
-        config.max_steps or 0, config.max_inactivity_steps or 0,
+        config.max_steps or 0, config.max_inactivity_steps or 0, config.msg_bits,
     ]
 
 
@@ -159,6 +169,7 @@ class _Draws:
         self.envs = torch.arange(b, device=device)
         self.n_goals = config.compile_layout().n_goals
         self.n_reset = n_reset_draws(config)
+        self.n_msg = config.n_agents * config.msg_bits
 
     def __call__(self, step: int, purpose: int, n: int) -> torch.Tensor:
         if self.zero:
@@ -170,6 +181,10 @@ class _Draws:
 
     def respawn(self, step):
         return self(step, philox.RESPAWN, self.n_reset)
+
+    def message(self, step):
+        """(B, N * M) draws of the message bits, agent-major."""
+        return self(step, philox.MESSAGE, self.n_msg)
 
 
 class FusedRollout:
@@ -187,10 +202,12 @@ class FusedRollout:
         self._layouts: Dict[torch.device, torch.Tensor] = {}
 
     def _check_actions(self, state, actions):
+        m = self.config.msg_bits
         if self.scripted != (actions is not None):
-            raise ValueError("scripted mode takes actions (T, B, N); random mode takes none")
+            raise ValueError("scripted mode takes actions (T, B, N), or (T, B, N, 1 + M) with "
+                             "message bits; random mode takes none")
         if actions is not None:
-            want = (self.n_steps, state.batch_size, self.config.n_agents)
+            want = (self.n_steps, state.batch_size, self.config.n_agents) + ((1 + m,) if m else ())
             if tuple(actions.shape) != want or actions.device != state.device:
                 raise ValueError(f"actions must be {want} on {state.device}")
 
@@ -218,6 +235,9 @@ class FusedRollout:
                 acts = actions[t]
             else:
                 acts = philox.rand_mod(draws(t, philox.ACTION, n), 5)
+                if self.config.msg_bits:
+                    bits = philox.rand_mod(draws.message(t), 2).reshape(b, n, -1)
+                    acts = torch.cat([acts[..., None], bits], dim=-1)
             state, rewards, done, _ = self._transition(state, acts, draws.queue(t))
             state = self._reset(draws.respawn(t)).where(done, state)
             rew = rew + rewards
@@ -237,7 +257,8 @@ class FusedRollout:
             out = torch.empty_like(packed)
             acts = None
             if actions is not None:
-                acts = actions.to(torch.int32).permute(0, 2, 1).contiguous()  # (T, N, B)
+                acts = actions.to(torch.int32).reshape(actions.shape[:3] + (-1,))
+                acts = acts.permute(0, 2, 3, 1).contiguous()  # (T, N, 1 + M, B)
             rewards = torch.empty((n, b), dtype=torch.float32, device=dev)
             episodes = torch.empty(b, dtype=torch.int32, device=dev)
             code = lib.rw_fused_rollout(
@@ -254,17 +275,19 @@ def build_fused_rollout(config: WarehouseConfig, n_steps: int, scripted: bool = 
     """Returns ``rollout(state, seed, actions=None) -> (state, rewards_sum
     (B, N) f32, episodes (B,) int32)`` (the contract of
     ``pallas_rollout.py:666-677``).  Random mode takes no actions; scripted
-    mode takes (T, B, N) int actions.  ``seed`` keys the Philox stream."""
+    mode takes (T, B, N) int actions, or (T, B, N, 1 + M) with message bits
+    (move in column 0).  ``seed`` keys the Philox stream."""
     return FusedRollout(config, n_steps, scripted)
 
 
 def collect_smem_bytes(obs_len: int, hidden: Sequence[int], n_actions: int, threads: int,
-                       n_stacks: int = 1) -> int:
+                       n_stacks: int = 1, msg_bits: int = 0) -> int:
     """Dynamic shared memory of one collector block (csrc/fused_collect.cu)
     holding ``n_stacks`` networks' weights (0: the weights are read from
-    device memory) beside the per-thread tiles."""
+    device memory) with ``msg_bits`` message logits beside the per-thread
+    tiles."""
     h1, h2 = hidden
-    f32 = n_stacks * (h1 + h2 + n_actions * h2 + n_actions + h2 + 1)
+    f32 = n_stacks * (h1 + h2 + (n_actions + 1 + msg_bits) * (h2 + 1))
     bf16 = n_stacks * (h1 * obs_len + h2 * h1) + (obs_len + h1) * threads
     return ((4 * f32 + 15) // 16) * 16 + 2 * bf16
 
@@ -303,9 +326,13 @@ class _Collector:
             self._layouts[dev] = layout_buffer(self.config, dev)
         return self._layouts[dev]
 
+    @property
+    def traj_keys(self) -> Tuple[str, ...]:
+        return TRAJ_KEYS + (("bits",) if self.config.msg_bits else ())
+
     def _empty_traj(self, b: int, dev) -> Dict[str, torch.Tensor]:
-        t_len, n = self.n_steps, self.config.n_agents
-        return {
+        t_len, n, m = self.n_steps, self.config.n_agents, self.config.msg_bits
+        traj = {
             "obs": torch.empty((t_len, b, n, self.obs_len), dtype=torch.bfloat16, device=dev),
             "action": torch.empty((t_len, b, n), dtype=torch.int32, device=dev),
             "logp": torch.empty((t_len, b, n), dtype=torch.float32, device=dev),
@@ -313,6 +340,32 @@ class _Collector:
             "reward": torch.empty((t_len, b, n), dtype=torch.float32, device=dev),
             "done": torch.empty((t_len, b), dtype=torch.bool, device=dev),
         }
+        if m:
+            traj["bits"] = torch.empty((t_len, b, n, m), dtype=torch.int32, device=dev)
+        return traj
+
+    def _sample(self, draws, t: int, logits, msg_logits):
+        """(actions for the engine, action, bits or None, logp) of one step:
+        the Gumbel move and, with message bits, the Bernoulli bits, their
+        log-probability added to the move's."""
+        b, n = logits.shape[:2]
+        u = None
+        if not self.deterministic:
+            u = philox.gumbel_uniform(draws(t, philox.ACTION, n * 5).reshape(b, n, 5))
+        action, logp = sample_action(logits, u)
+        if msg_logits is None:
+            return action, action, None, logp
+        um = None
+        if not self.deterministic:
+            um = philox.gumbel_uniform(draws.message(t).reshape(b, n, -1))
+        bits, logp_bits = sample_bernoulli(msg_logits, um)
+        return torch.cat([action[..., None], bits], dim=-1), action, bits, logp + logp_bits
+
+    def _traj_ptrs(self, traj) -> list:
+        """The trajectory outputs in the kernels' argument order; no bits
+        without message bits."""
+        return [_ptr(traj.get(k)) for k in ("obs", "action", "bits", "logp", "value", "reward",
+                                             "done")]
 
 
 class FusedCollect(_Collector):
@@ -327,34 +380,44 @@ class FusedCollect(_Collector):
         smem_stacks = 0 if self.weights_global else self.n_stacks
         super().__init__(config, n_steps, hidden, deterministic,
                          lambda l, h1, h2, a, t: collect_smem_bytes(l, (h1, h2), a, t,
-                                                                    smem_stacks),
+                                                                    smem_stacks,
+                                                                    config.msg_bits),
                          "two hidden layers")
 
     def _check_policy(self, policy: ActorCritic):
-        if policy.hidden != self.hidden or policy.obs_dim != self.obs_len or policy.n_actions != 5:
+        m = self.config.msg_bits
+        if policy.hidden != self.hidden or policy.obs_dim != self.obs_len \
+                or policy.n_actions != 5 or policy.msg_bits != m:
             raise ValueError(
                 f"policy must be ActorCritic(obs_dim={self.obs_len}, n_actions=5, "
-                f"hidden={self.hidden})"
+                f"hidden={self.hidden}, msg_bits={m})"
             )
 
     def _forward(self, policy, obs: torch.Tensor):
-        """(logits (B, N, A), value (B, N)) of the observations (B, N, L)."""
-        return policy(obs)
+        """(logits (B, N, A), value (B, N), msg_logits (B, N, M) or None) of
+        the observations (B, N, L)."""
+        return policy.heads(obs)
 
     def weights(self, policy, dev) -> list:
-        """The kernel's eight weight arrays: dense_0 and dense_1 (out, in) in
-        bf16, their biases and the heads in f32."""
+        """The kernel's ten weight arrays: dense_0 and dense_1 (out, in) in
+        bf16, their biases and the heads (policy, value, message) in f32;
+        without message bits the message head is empty."""
         d0, d1 = policy.dense
-        return [
+        heads = [policy.policy, policy.value]
+        if policy.msg_bits:
+            heads.append(policy.message)
+        out = [
             d0.weight.to(device=dev, dtype=torch.bfloat16).contiguous(),
             d0.bias.to(device=dev, dtype=torch.float32).contiguous(),
             d1.weight.to(device=dev, dtype=torch.bfloat16).contiguous(),
             d1.bias.to(device=dev, dtype=torch.float32).contiguous(),
-            policy.policy.weight.to(device=dev, dtype=torch.float32).contiguous(),
-            policy.policy.bias.to(device=dev, dtype=torch.float32).contiguous(),
-            policy.value.weight.to(device=dev, dtype=torch.float32).contiguous(),
-            policy.value.bias.to(device=dev, dtype=torch.float32).contiguous(),
         ]
+        for layer in heads:
+            out += [layer.weight.to(device=dev, dtype=torch.float32).contiguous(),
+                    layer.bias.to(device=dev, dtype=torch.float32).contiguous()]
+        if not policy.msg_bits:
+            out += [torch.empty(0, device=dev), torch.empty(0, device=dev)]
+        return out
 
     def __call__(self, state: WarehouseState, policy, seed):
         _check_state(self.config, state)
@@ -372,19 +435,16 @@ class FusedCollect(_Collector):
         step, with the kernel's draws."""
         self._check_policy(policy)
         seed = _check_seed(seed)
-        b, n = state.batch_size, self.config.n_agents
+        b = state.batch_size
         draws = _Draws(self.config, seed, self.deterministic, b, state.device)
-        out = {k: [] for k in ("obs", "action", "logp", "value", "reward", "done")}
+        out = {k: [] for k in self.traj_keys}
         for t in range(self.n_steps):
             obs = self._obs(state).to(torch.bfloat16)
-            logits, value = self._forward(policy, obs)
-            u = None
-            if not self.deterministic:
-                u = philox.gumbel_uniform(draws(t, philox.ACTION, n * 5).reshape(b, n, 5))
-            action, logp = sample_action(logits, u)
-            state, rewards, done, _ = self._transition(state, action, draws.queue(t))
+            logits, value, msg_logits = self._forward(policy, obs)
+            acts, action, bits, logp = self._sample(draws, t, logits, msg_logits)
+            state, rewards, done, _ = self._transition(state, acts, draws.queue(t))
             state = self._reset(draws.respawn(t)).where(done, state)
-            for k, v in zip(out, (obs, action, logp, value, rewards, done)):
+            for k, v in zip(out, (obs, action, logp, value, rewards, done, bits)):
                 out[k].append(v)
         return state, {k: torch.stack(v) for k, v in out.items()}
 
@@ -402,14 +462,14 @@ class FusedCollect(_Collector):
             weights = self.weights(policy, dev)
             traj = self._empty_traj(b, dev)
             smem = collect_smem_bytes(l_obs, self.hidden, 5, self.threads,
-                                      0 if self.weights_global else self.n_stacks)
+                                      0 if self.weights_global else self.n_stacks,
+                                      self.config.msg_bits)
             code = lib.rw_fused_collect(
                 *_dims(self.config), seed, int(self.deterministic), t_len, b,
                 self.config.sensor_range, int(self.config.normalised_coordinates),
                 l_obs, h1, h2, 5, self.threads, smem, self.n_stacks, int(self.weights_global),
                 _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
-                *[_ptr(w) for w in weights],
-                *[_ptr(traj[k]) for k in ("obs", "action", "logp", "value", "reward", "done")],
+                *[_ptr(w) for w in weights], *self._traj_ptrs(traj),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
             check(lib, code, "fused_collect")
@@ -423,9 +483,11 @@ def build_fused_collect(config: WarehouseConfig, n_steps: int,
     """Returns ``collect(state, policy, seed) -> (state, traj)`` with ``traj``
     = obs (T, B, N, L) bf16; action (T, B, N) int32; logp, value, reward
     (T, B, N) f32; done (T, B) bool — the ``native_traj=False`` layout of
-    ``pallas_rollout.py:1812-1815``.  ``policy`` is an
-    :class:`ActorCritic` with ``hidden``; ``deterministic`` takes the argmax
-    action and the scripted draws."""
+    ``pallas_rollout.py:1812-1815`` — and with message bits (``config.msg_bits``
+    M > 0, K2b) bits (T, B, N, M) int32, logp then being the joint move + bits
+    log-probability.  ``policy`` is an :class:`ActorCritic` with ``hidden``
+    and the config's ``msg_bits``; ``deterministic`` takes the argmax action,
+    the bits ``logit > 0`` and the scripted draws."""
     return FusedCollect(config, n_steps, hidden, deterministic)
 
 
@@ -436,6 +498,9 @@ class FusedCollectPerAgent(FusedCollect):
 
     def __init__(self, config: WarehouseConfig, n_steps: int,
                  hidden: Tuple[int, int] = (128, 128), deterministic: bool = False):
+        if config.msg_bits:
+            raise NotImplementedError("the per-agent collector with message bits is not "
+                                      "ported yet")
         self.n_stacks = n = config.n_agents
         # all N networks in shared memory where they fit beside the tiles (up
         # to 3 agents at L=71, hidden (128, 128)); else read from device memory
@@ -457,16 +522,17 @@ class FusedCollectPerAgent(FusedCollect):
     def _forward(self, policies, obs: torch.Tensor):
         """Agent i's network on agent i's observation."""
         heads = [policy(obs[:, i]) for i, policy in enumerate(policies)]
-        return torch.stack([h[0] for h in heads], dim=1), torch.stack([h[1] for h in heads], dim=1)
+        return (torch.stack([h[0] for h in heads], dim=1),
+                torch.stack([h[1] for h in heads], dim=1), None)
 
     def weights(self, policies, dev) -> list:
-        """The kernel's eight weight arrays, each the agents' stacks back to
+        """The kernel's ten weight arrays, each the agents' stacks back to
         back: dense_0 and dense_1 in bf16, as (out, in) for shared memory or
         as (in, out) where they are read from device memory; the heads and
-        biases in f32."""
+        biases in f32 (the message head empty)."""
         per_agent = [super(FusedCollectPerAgent, self).weights(p, dev) for p in policies]
         return [torch.stack([w[k].t() if self.weights_global and k in (0, 2) else w[k]
-                             for w in per_agent]).contiguous() for k in range(8)]
+                             for w in per_agent]).contiguous() for k in range(10)]
 
 
 def build_fused_collect_per_agent(config: WarehouseConfig, n_steps: int,
@@ -480,10 +546,10 @@ def build_fused_collect_per_agent(config: WarehouseConfig, n_steps: int,
 
 
 def collect_gru_smem_bytes(obs_len: int, embed: int, hidden: int, n_actions: int,
-                           threads: int) -> int:
+                           threads: int, msg_bits: int = 0) -> int:
     """Dynamic shared memory of one recurrent-collector block
-    (csrc/fused_collect_gru.cu)."""
-    ac = n_actions + 1
+    (csrc/fused_collect_gru.cu) with ``msg_bits`` message logits."""
+    ac = n_actions + 1 + msg_bits
     f32 = embed + 4 * hidden + hidden * ac + ac
     return ((4 * f32 + 15) // 16) * 16 + 2 * (obs_len + embed + hidden) * threads
 
@@ -494,16 +560,19 @@ class FusedCollectGru(_Collector):
 
     def __init__(self, config: WarehouseConfig, n_steps: int, hidden: Tuple[int, int] = (128, 128),
                  deterministic: bool = False):
-        super().__init__(config, n_steps, hidden, deterministic, collect_gru_smem_bytes,
+        super().__init__(config, n_steps, hidden, deterministic,
+                         lambda l, e, hg, a, t: collect_gru_smem_bytes(l, e, hg, a, t,
+                                                                       config.msg_bits),
                          "(embed, gru_hidden)")
 
     def _check(self, state: WarehouseState, policy: RecurrentActorCritic, h0: torch.Tensor):
         _check_state(self.config, state)
+        m = self.config.msg_bits
         if (policy.embed_dim, policy.hidden) != self.hidden or policy.obs_dim != self.obs_len \
-                or policy.n_actions != 5:
+                or policy.n_actions != 5 or policy.msg_bits != m:
             raise ValueError(
                 f"policy must be RecurrentActorCritic(obs_dim={self.obs_len}, n_actions=5, "
-                f"hidden={self.hidden[1]}, embed={self.hidden[0]})"
+                f"hidden={self.hidden[1]}, embed={self.hidden[0]}, msg_bits={m})"
             )
         want = (state.batch_size, self.config.n_agents, self.hidden[1])
         if tuple(h0.shape) != want or h0.dtype != torch.bfloat16 or h0.device != state.device:
@@ -529,20 +598,21 @@ class FusedCollectGru(_Collector):
         b, n, hg = state.batch_size, self.config.n_agents, self.hidden[1]
         draws = _Draws(self.config, seed, self.deterministic, b, state.device)
         arrays = [a.detach().to(state.device) for a in gru_to_arrays(policy)]
+        m = self.config.msg_bits
         h = h0.to(torch.float32).reshape(b * n, hg)
-        out = {k: [] for k in ("obs", "action", "logp", "value", "reward", "done")}
+        out = {k: [] for k in self.traj_keys}
         for t in range(self.n_steps):
             obs = self._obs(state).to(torch.bfloat16)
-            logits, value, h = gru_collect_step(arrays, h, obs.reshape(b * n, -1))
+            heads, value, h = gru_collect_step(arrays, h, obs.reshape(b * n, -1), m)
+            logits, msg_logits = heads if m else (heads, None)
             logits, value = logits.reshape(b, n, 5), value.reshape(b, n)
-            u = None
-            if not self.deterministic:
-                u = philox.gumbel_uniform(draws(t, philox.ACTION, n * 5).reshape(b, n, 5))
-            action, logp = sample_action(logits, u)
-            state, rewards, done, _ = self._transition(state, action, draws.queue(t))
+            if m:
+                msg_logits = msg_logits.reshape(b, n, m)
+            acts, action, bits, logp = self._sample(draws, t, logits, msg_logits)
+            state, rewards, done, _ = self._transition(state, acts, draws.queue(t))
             state = self._reset(draws.respawn(t)).where(done, state)
             h = torch.where(done.repeat_interleave(n)[:, None], torch.zeros_like(h), h)
-            for k, v in zip(out, (obs, action, logp, value, rewards, done)):
+            for k, v in zip(out, (obs, action, logp, value, rewards, done, bits)):
                 out[k].append(v)
         new_h = h.reshape(b, n, hg).to(torch.bfloat16)
         return state, new_h, {k: torch.stack(v) for k, v in out.items()}
@@ -567,14 +637,13 @@ class FusedCollectGru(_Collector):
             ]
             hbuf = h0.permute(1, 2, 0).contiguous()  # (N, Hg, B): coalesced over envs
             traj = self._empty_traj(b, dev)
-            smem = collect_gru_smem_bytes(l_obs, embed, hg, 5, self.threads)
+            smem = collect_gru_smem_bytes(l_obs, embed, hg, 5, self.threads, self.config.msg_bits)
             code = lib.rw_fused_collect_gru(
                 *_dims(self.config), seed, int(self.deterministic), t_len, b,
                 self.config.sensor_range, int(self.config.normalised_coordinates),
                 l_obs, embed, hg, 5, self.threads, smem,
                 _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
-                *[_ptr(w) for w in weights], _ptr(hbuf),
-                *[_ptr(traj[k]) for k in ("obs", "action", "logp", "value", "reward", "done")],
+                *[_ptr(w) for w in weights], _ptr(hbuf), *self._traj_ptrs(traj),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
             check(lib, code, "fused_collect_gru")
@@ -589,5 +658,6 @@ def build_fused_collect_gru(config: WarehouseConfig, n_steps: int,
     ``policy`` is a :class:`RecurrentActorCritic` with ``hidden`` = (embed,
     gru_hidden), ``h0`` and ``new_h`` the (B, N, Hg) bf16 carry before and
     after the rollout (zero after an episode's last step), ``traj`` as
-    :func:`build_fused_collect`'s (``pallas_rollout.py:1832-1836``)."""
+    :func:`build_fused_collect`'s, bits included with message bits
+    (``pallas_rollout.py:1832-1836``)."""
     return FusedCollectGru(config, n_steps, hidden, deterministic)

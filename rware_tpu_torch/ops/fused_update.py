@@ -1,15 +1,18 @@
 """The fused PPO gradient kernel (K4) and the whole-update-phase kernel (K3).
 
 * :class:`FusedPPOGrads` replaces
-  ``rware_tpu/ops/pallas_update.py::build_fused_ppo_grads`` in zero-copy mode
-  (no message head): the gradient of the clipped-PPO loss of
+  ``rware_tpu/ops/pallas_update.py::build_fused_ppo_grads`` in zero-copy mode:
+  the gradient of the clipped-PPO loss of
   :func:`rware_tpu_torch.models.ppo.ppo_loss_native` over one
   minibatch window — rows ``(start + t) % T_full``, ``t < T_mb``, of the
   ``(T_full, B, N, ...)`` trajectory, read in place — plus the window's four
-  metric sums.
+  metric sums.  With message bits (``dims.msg_bits`` M > 0) it takes the
+  message head: a 7th dataset entry holds the bits, and the loss is that of
+  the joint move + Bernoulli-bits policy (``pallas_update.py:185-244``).
 * :class:`FusedPPOUpdatePhase` replaces ``build_fused_ppo_update_phase``:
   all E x M passes, each the K4 gradient then a global-norm clip and an Adam
-  step, with parameters and moments kept on the device between passes.
+  step, with parameters and moments kept on the device between passes.  It
+  takes no message head, as JAX's does not (``ippo_pallas.py:545-556``).
 
 Parameters, gradients and moments are flat float32 vectors in the layout of
 :class:`~rware_tpu_torch.models.networks.BlockDims`.  Each wrapper launches
@@ -37,6 +40,7 @@ from rware_tpu_torch.models.ppo import (
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 SMEM_PER_SM = 233472
 HEAD_ROWS = 8  # PPO_HC of csrc/ppo_core.cuh: A + 1 <= 8
+HEAD_ROWS_MAX = 16  # PPO_HC_MAX: with K4's message head, A + 1 + M <= 16
 WGRAD_CHUNK = 4096  # samples per weight-gradient partial
 
 
@@ -66,9 +70,15 @@ def sample_smem(k0: int, h1: int, h2: int, heads: int, hc: int, tile: int,
     return f32 + bf16 + act
 
 
+def head_rows(dims: BlockDims) -> int:
+    """Head rows the per-sample kernel keeps per sample for the actor
+    ``dims``: 8, or 16 where a message head makes A + 1 + M larger."""
+    return HEAD_ROWS if dims.heads <= HEAD_ROWS else HEAD_ROWS_MAX
+
+
 def sample_smem_bytes(dims: BlockDims, tile: int, w0_smem: bool = True) -> int:
     """:func:`sample_smem` of the actor ``dims``."""
-    return sample_smem(dims.obs_len, dims.h1, dims.h2, dims.n_actions + 1, HEAD_ROWS, tile,
+    return sample_smem(dims.obs_len, dims.h1, dims.h2, dims.heads, head_rows(dims), tile,
                        w0_smem)
 
 
@@ -136,22 +146,29 @@ class FusedPPOGrads:
 
     def __init__(self, dims: BlockDims, t_mb: int, clip_eps: float, vf_coef: float,
                  ent_coef: float):
-        if dims.h1 % 4 or dims.h2 % 4 or dims.n_actions + 1 > HEAD_ROWS:
-            raise ValueError("the PPO kernels take hidden widths that are multiples of 4 "
-                             f"and at most {HEAD_ROWS - 1} actions")
+        if dims.h1 % 4 or dims.h2 % 4 or dims.n_actions + 1 > HEAD_ROWS \
+                or dims.heads > HEAD_ROWS_MAX:
+            raise ValueError("the PPO kernels take hidden widths that are multiples of 4, "
+                             f"at most {HEAD_ROWS - 1} actions and {HEAD_ROWS_MAX} head columns")
         self.dims = dims
         self.t_mb = t_mb
         self.cfg = LossCoefs(clip_eps, vf_coef, ent_coef)
+        self.hc = head_rows(dims)
         # dense_0's weights fit in shared memory up to sensor range 4 at
         # hidden (128, 128)
-        self.tile, self.w0_smem = pick_tile(dims.obs_len, dims.h1, dims.h2,
-                                            dims.n_actions + 1, HEAD_ROWS)
+        self.tile, self.w0_smem = pick_tile(dims.obs_len, dims.h1, dims.h2, dims.heads, self.hc)
         self.launches = 0
 
     def check(self, params: torch.Tensor, data: Sequence[torch.Tensor]) -> None:
-        obs, action, *rest = data
+        m = self.dims.msg_bits
+        if len(data) != 6 + bool(m):
+            raise ValueError(f"data holds {6 + bool(m)} tensors: obs, action, logp, value, adv, "
+                             f"target{', bits' if m else ''}")
+        obs, action, *rest = data[:6]
         t_full, b, n, l_obs = obs.shape
         want = (t_full, b, n)
+        if m and (tuple(data[6].shape) != want + (m,) or data[6].dtype != torch.int32):
+            raise ValueError(f"bits must be {want + (m,)} int32")
         if l_obs != self.dims.obs_len or obs.dtype != torch.bfloat16:
             raise ValueError(f"obs must be (T, B, N, {self.dims.obs_len}) bf16")
         if tuple(action.shape) != want or action.dtype != torch.int32:
@@ -204,7 +221,7 @@ class FusedPPOGrads:
         cfg = self.launch_config(device, s)
         args = [d.obs_len, d.h1, d.h2, d.n_actions, t_full, self.t_mb, b, n,
                 self.cfg.clip_eps, self.cfg.vf_coef, self.cfg.ent_coef, 1.0 / s, *cfg]
-        return args, workspace(s, d.h1, d.h2, HEAD_ROWS, d.n_params, cfg, device)
+        return args, workspace(s, d.h1, d.h2, self.hc, d.n_params, cfg, device)
 
     def _launch(self, params, data, start, advstats):
         from rware_tpu_torch.ops._build import check, load_library
@@ -219,9 +236,11 @@ class FusedPPOGrads:
             args, ws = self.kernel_args(data, dev)
             grads = torch.empty(self.dims.n_params, dtype=torch.float32, device=dev)
             sums = torch.empty(4, dtype=torch.float32, device=dev)
+            bits = data[6] if self.dims.msg_bits else None
             code = lib.rw_fused_ppo_grads(
-                *args, _ptr(start_t), _ptr(stats), *[_ptr(x) for x in data],
-                _ptr(params), *[_ptr(w) for w in ws], _ptr(grads), _ptr(sums),
+                *args, self.dims.msg_bits, self.hc, _ptr(start_t), _ptr(stats),
+                *[_ptr(x) for x in data[:6]], _ptr(bits), _ptr(params),
+                *[_ptr(w) for w in ws], _ptr(grads), _ptr(sums),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
             check(lib, code, "fused_ppo_grads")
@@ -235,9 +254,11 @@ def build_fused_ppo_grads(dims: BlockDims, rollout_len: int, clip_eps: float, vf
     sums)``: the clipped-PPO gradient of the ``rollout_len``-row window at
     ``start`` of the full trajectory ``data`` = (obs (T, B, N, L) bf16,
     action (T, B, N) int32, old logp, old value, advantage, target (T, B, N)
-    float32), and the window's sums of [min(pg1, pg2), 0.5 max(e1^2, e2^2),
-    entropy, (ratio - 1) - log ratio].  ``advstats`` [mean, 1/std] defaults
-    to the window's own (``pallas_update.py:458-469``)."""
+    float32, and with ``dims.msg_bits`` M > 0 bits (T, B, N, M) int32), and
+    the window's sums of [min(pg1, pg2), 0.5 max(e1^2, e2^2), entropy, (ratio
+    - 1) - log ratio], the log-probability and entropy those of the joint
+    move + bits policy.  ``advstats`` [mean, 1/std] defaults to the window's
+    own (``pallas_update.py:458-469``)."""
     return FusedPPOGrads(dims, rollout_len, clip_eps, vf_coef, ent_coef)
 
 
@@ -247,6 +268,9 @@ class FusedPPOUpdatePhase:
 
     def __init__(self, dims: BlockDims, dataset_len: int, epochs: int, minibatches: int,
                  clip_eps: float, vf_coef: float, ent_coef: float, max_grad_norm: float):
+        if dims.msg_bits:
+            raise NotImplementedError("the whole-update-phase kernel takes no message head "
+                                      "(as ippo_pallas.py:545-556); use the per-pass path")
         if dataset_len % minibatches:
             raise ValueError(f"minibatches={minibatches} must divide rollout_len={dataset_len}")
         self.t_full = dataset_len

@@ -35,6 +35,7 @@ ACTION = 0  # random actions (K1) and Gumbel uniforms (K2a): slot i*5 + a
 QUEUE = 1  # request-queue resample: slot = goal index
 RESPAWN = 2  # autoreset: slots [cells (N) | dirs (N) | queue (R)]
 RESET = 3  # batched_reset at step 0, same slot layout as RESPAWN
+MESSAGE = 4  # message bits (K1's random bits, K2b's Bernoulli uniforms): slot i*M + m
 
 
 def _mulhilo(a: torch.Tensor, m: int):

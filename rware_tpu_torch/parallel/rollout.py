@@ -22,7 +22,7 @@ class Trajectory(NamedTuple):
     """Stacked (T, B, ...) rollout tensors."""
 
     obs: Any  # (T, B, N, ...) observations seen BEFORE each action
-    actions: torch.Tensor  # (T, B, N) int32
+    actions: torch.Tensor  # (T, B, N) int32, or (T, B, N, 1 + M) with message bits
     rewards: torch.Tensor  # (T, B, N) float32
     dones: torch.Tensor  # (T, B) bool
     info: dict
@@ -37,13 +37,19 @@ def autoreset_select(reset_fn, state: WarehouseState, done: torch.Tensor,
 
 def random_policy(env: Warehouse) -> Callable:
     """``policy(obs, seed, step) -> (B, N)`` uniform random actions, drawn as
-    the fused rollout kernel draws them (``_rand_mod(5)`` per agent)."""
-    n = env.config.n_agents
+    the fused rollout kernel draws them (``_rand_mod(5)`` per agent); with
+    message bits ``(B, N, 1 + M)``, each bit ``_rand_mod(2)`` of purpose
+    MESSAGE, slot ``i * M + m``."""
+    n, m = env.config.n_agents, env.config.msg_bits
 
     def policy(obs: Any, seed: int, step: int) -> torch.Tensor:
         envs = torch.arange(obs.shape[0], device=obs.device)
         bits = philox.uniform_bits(seed, envs, step, philox.ACTION, n)
-        return philox.rand_mod(bits, 5).to(torch.int32)
+        acts = philox.rand_mod(bits, 5).to(torch.int32)
+        if not m:
+            return acts
+        msg = philox.rand_mod(philox.uniform_bits(seed, envs, step, philox.MESSAGE, n * m), 2)
+        return torch.cat([acts[..., None], msg.to(torch.int32).reshape(-1, n, m)], dim=-1)
 
     return policy
 

@@ -24,6 +24,7 @@ def make_state(
     queue: Optional[Sequence[int]] = None,
     carrying: Optional[Sequence[int]] = None,
     has_delivered: Optional[Sequence[bool]] = None,
+    agent_message: Optional[Sequence[Sequence[float]]] = None,
     device="cpu",
 ) -> WarehouseState:
     """Build a one-env WarehouseState for a test scenario.
@@ -36,6 +37,8 @@ def make_state(
         ``[0, 1, ..., R-1]``.
       carrying: optional per-agent carried shelf index or -1.
       has_delivered: optional per-agent TWO_STAGE delivery flags.
+      agent_message: optional per-agent message bits (N lists of msg_bits
+        values); zeros by default.
       device: where the state's tensors live.
     """
     layout = config.compile_layout()
@@ -81,8 +84,11 @@ def make_state(
         agent_has_delivered=torch.tensor(
             [list(has_delivered)], dtype=torch.bool, device=device
         ),
-        agent_message=torch.zeros(
-            (1, n, config.msg_bits), dtype=torch.float32, device=device
+        agent_message=(
+            torch.zeros((1, n, config.msg_bits), dtype=torch.float32, device=device)
+            if agent_message is None
+            else torch.tensor([list(map(list, agent_message))], dtype=torch.float32,
+                              device=device).reshape(1, n, config.msg_bits)
         ),
         shelf_x=sx,
         shelf_y=sy,
@@ -92,12 +98,17 @@ def make_state(
     )
 
 
-def random_ppo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device="cpu"):
+def random_ppo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device="cpu",
+                    msg_bits: int = 0):
     """``(dims, params, data)`` of random inputs for the PPO kernels at
     ``env_id``'s observation length and agent count: flax-initialised
     parameters at hidden (128, 128), and a ``(T, B, N, ...)`` trajectory of
     bf16 0/1 features, actions, logp near log(1/5), and normal values,
-    advantages and targets (``torch.Generator`` seeded on ``device``)."""
+    advantages and targets (``torch.Generator`` seeded on ``device``).  With
+    ``msg_bits`` M the net has a message head, logp is near log(1/5) + M
+    log(1/2) and a 7th entry holds random bits (T, B, N, M) int32."""
+    import dataclasses
+
     from rware_tpu_torch.models.networks import (
         BlockDims,
         init_actor_critic,
@@ -106,18 +117,21 @@ def random_ppo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device
     )
     from rware_tpu_torch.registry import parse_env_id
 
-    cfg = parse_env_id(env_id)
+    cfg = dataclasses.replace(parse_env_id(env_id), msg_bits=msg_bits)
     l_obs, shape = cfg.flattened_obs_length, (t_full, n_envs, cfg.n_agents)
-    model = init_actor_critic(l_obs, 5, (128, 128), seed)
+    model = init_actor_critic(l_obs, 5, (128, 128), seed, msg_bits)
     params = pack_arrays(params_to_arrays(model)).detach().to(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     data = (
         (torch.rand(shape + (l_obs,), generator=gen, device=device) < 0.3).to(torch.bfloat16),
         torch.randint(0, 5, shape, generator=gen, device=device, dtype=torch.int32),
-        torch.randn(shape, generator=gen, device=device) * 0.1 - 1.6,
+        torch.randn(shape, generator=gen, device=device) * 0.1 - 1.6 - 0.69 * msg_bits,
         *(torch.randn(shape, generator=gen, device=device) for _ in range(3)),
     )
-    return BlockDims(l_obs, 128, 128, 5), params, data
+    if msg_bits:
+        data += (torch.randint(0, 2, shape + (msg_bits,), generator=gen, device=device,
+                               dtype=torch.int32),)
+    return BlockDims.of(model), params, data
 
 
 def random_mappo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device="cpu"):

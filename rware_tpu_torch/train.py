@@ -11,6 +11,7 @@ Examples::
         --ent-coef 0.03
     python -m rware_tpu_torch.train --device cuda --algo seac-ppo --n-envs 4096 --updates 800 \\
         --ent-coef 0.03
+    python -m rware_tpu_torch.train --device cuda --msg-bits 2 --n-envs 4096 --updates 400
     python -m rware_tpu_torch.train --device cpu --n-envs 128 --rollout-len 8 --updates 2
 
 ``--collect fused`` (default) trains through the fused collector (K2a) and,
@@ -25,9 +26,15 @@ per-agent SEAC gradient kernel (K8).  On the CPU each runs its plain
 version.  ``--collect plain`` runs the plain learner of the algo and net
 (``models/ippo.build_train_step``, ``models/ippo_rnn.build_rnn_train_step``
 with ``--net gru``, ``models/seac.build_seac_ppo_train_step`` with ``--algo
-seac-ppo``).  The device is never chosen for you: ``--device cuda`` without a
-GPU raises.  The final policy is written with ``torch.save`` to
-``<checkpoint-dir>/policy.pt`` with its net kind under ``net``; a MAPPO run
+seac-ppo``).  ``--msg-bits M`` gives every agent M message bits (the env's
+``MultiDiscrete([5, 2, ..., 2])`` action; ``train.py:45-49``) and trains the
+Bernoulli message head: for ``--algo ippo`` through the collectors' message
+mode (K2b) and, per pass, the PPO gradient kernel with the message head (K4;
+K3 has none); for ``--algo mappo`` on JAX's split path (K4 for the actor, the
+critic by autograd).  The device is never chosen for you: ``--device cuda``
+without a GPU raises.  The final policy is written with ``torch.save`` to
+``<checkpoint-dir>/policy.pt`` with its net kind under ``net`` and its
+message bits under ``msg_bits``; a MAPPO run
 adds its central critic under the key ``critic``, a SEAC-PPO run holds one
 network per agent and says how many under ``per_agent``.
 """
@@ -43,7 +50,8 @@ from rware_tpu_torch.core.env import resolve_device
 
 NOT_PORTED = ("not ported yet: the port trains --algo ippo with --net mlp or --net gru, "
               "--algo mappo with --net mlp and --collect fused, and --algo seac-ppo with "
-              "--net mlp (SEAC A2C, recurrent SEAC and message bits are still to come)")
+              "--net mlp, message bits with --algo ippo and mappo (SEAC A2C, recurrent SEAC, "
+              "recurrent MAPPO and SEAC-PPO with message bits are still to come)")
 
 
 def parse_args(argv=None):
@@ -59,6 +67,9 @@ def parse_args(argv=None):
                    help="mappo: the whole update phase in the K7 kernel (default: K5 per pass)")
     p.add_argument("--minibatch-mode", choices=["shuffle", "block"], default="shuffle",
                    help="minibatches of the plain learner (the fused path takes time windows)")
+    p.add_argument("--msg-bits", type=int, default=None,
+                   help="override the env's message-channel width (ids cannot express it) "
+                        "and train the Bernoulli message head (ippo, mappo)")
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
     p.add_argument("--updates", type=int, default=100)
     p.add_argument("--n-envs", type=int, default=256)
@@ -84,7 +95,7 @@ def save_policy(path: str, env_id: str, dims, params: torch.Tensor, updates: int
     from rware_tpu_torch.models.seac import seac_policies_of
 
     ckpt = {"env": env_id, "obs_dim": dims.obs_len, "n_actions": dims.n_actions,
-            "updates": updates}
+            "msg_bits": dims.msg_bits, "updates": updates}
     if isinstance(dims, GruDims):
         model = rnn_policy_of(dims, params.cpu())
         ckpt.update(net="gru", hidden=dims.hidden, embed=dims.embed)
@@ -112,16 +123,16 @@ def load_policy(path: str, device="cpu"):
     from rware_tpu_torch.models.networks import ActorCritic, RecurrentActorCritic
 
     ckpt = torch.load(path, map_location="cpu")
-    net = ckpt.get("net", "mlp")
+    net, msg_bits = ckpt.get("net", "mlp"), ckpt.get("msg_bits", 0)
     if net == "gru":
         model = RecurrentActorCritic(ckpt["obs_dim"], ckpt["n_actions"], ckpt["hidden"],
-                                     ckpt["embed"])
+                                     ckpt["embed"], msg_bits)
     elif net == "mlp" and "per_agent" in ckpt:
         model = nn.ModuleList(
             ActorCritic(ckpt["obs_dim"], ckpt["n_actions"], tuple(ckpt["hidden"]))
             for _ in range(ckpt["per_agent"]))
     elif net == "mlp":
-        model = ActorCritic(ckpt["obs_dim"], ckpt["n_actions"], tuple(ckpt["hidden"]))
+        model = ActorCritic(ckpt["obs_dim"], ckpt["n_actions"], tuple(ckpt["hidden"]), msg_bits)
     else:
         raise ValueError(f"{path}: unknown net kind {net!r}")
     model.load_state_dict(ckpt["state_dict"])
@@ -131,11 +142,13 @@ def load_policy(path: str, device="cpu"):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     mappo, seac, gru = args.algo == "mappo", args.algo == "seac-ppo", args.net == "gru"
+    msg = bool(args.msg_bits)
     if args.algo == "seac" or (mappo and (gru or args.collect != "fused")) \
-            or (seac and gru) or (args.fused_critic_phase and not mappo):
+            or (seac and (gru or msg)) or (args.fused_critic_phase and (msg or not mappo)):
         raise NotImplementedError(
             f"--algo {args.algo} --net {args.net} --collect {args.collect}"
-            f"{' --fused-critic-phase' * args.fused_critic_phase}: {NOT_PORTED}")
+            f"{' --fused-critic-phase' * args.fused_critic_phase}"
+            f"{f' --msg-bits {args.msg_bits}' * msg}: {NOT_PORTED}")
     dev = resolve_device(args.device)
 
     import rware_tpu_torch
@@ -154,7 +167,8 @@ def main(argv=None) -> dict:
         init_seac_ppo,
     )
 
-    env = rware_tpu_torch.make(args.env, device=dev)
+    overrides = {} if args.msg_bits is None else {"msg_bits": args.msg_bits}
+    env = rware_tpu_torch.make(args.env, device=dev, **overrides)
     cfg = IPPOConfig(n_envs=args.n_envs, rollout_len=args.rollout_len, lr=args.lr,
                      ent_coef=args.ent_coef, minibatch_mode=args.minibatch_mode)
     cdims = None
@@ -185,7 +199,8 @@ def main(argv=None) -> dict:
             train_step = build_train_step(env, dims, cfg)
     env_steps_per_update = cfg.n_envs * cfg.rollout_len
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"training {args.algo} ({args.net}) on {args.env} on {dev} ({card}): {args.updates} "
+    print(f"training {args.algo} ({args.net}, {env.config.msg_bits} message bits) on {args.env} "
+          f"on {dev} ({card}): {args.updates} "
           f"updates x {env_steps_per_update} env-steps, collect {args.collect}", flush=True)
     log_every = max(1, args.log_every)
     t0 = last_t = time.perf_counter()

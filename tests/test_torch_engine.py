@@ -93,8 +93,9 @@ def test_make_accepts_config_and_overrides():
     assert env.config.max_steps == 7 and env.device == torch.device("cpu")
     env2 = rware_tpu_torch.make(env.config, device="cpu")
     assert env2.config == env.config
-    with pytest.raises(NotImplementedError):
-        rware_tpu_torch.make("rware-tiny-2ag-v2", msg_bits=1, device="cpu")
+    msg = rware_tpu_torch.make("rware-tiny-2ag-v2", msg_bits=1, device="cpu")
+    assert msg.config.msg_bits == 1 and msg.config.flattened_obs_length == 8 + 9 * (7 + 1)
+    assert msg.reset(cpu_generator(0), 2)[1].shape == (2, 2, 80)
 
 
 # --- state ----------------------------------------------------------------------

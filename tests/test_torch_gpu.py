@@ -346,3 +346,93 @@ def test_seac_fused_train_step_runs_on_the_card():
     assert int(metrics["episodes_done"]) == 1024
     for k, v in metrics.items():
         assert bool(torch.isfinite(v.float())), k
+
+
+# --- message bits: K1's message rows, K2b in both collectors, K4's message head ---
+
+MSG_FIELDS = FIELDS + ("agent_message",)
+
+
+@pytest.mark.parametrize("env_id,m", [("rware-tiny-2ag-v2", 2), ("rware-small-4ag-v2", 3)])
+@pytest.mark.parametrize("scripted", [True, False])
+def test_fused_rollout_message_rows_match_plain(env_id, m, scripted):
+    env = rware_tpu_torch.make(env_id, device=DEV, max_steps=20, msg_bits=m)
+    states, _ = batched_reset(env, 2, 1000)
+    roll = build_fused_rollout(env.config, 32, scripted=scripted)
+    actions = None
+    if scripted:
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        actions = torch.cat([
+            torch.randint(0, 5, (32, 1000, env.n_agents, 1), generator=gen, device=DEV,
+                          dtype=torch.int32),
+            torch.randint(0, 2, (32, 1000, env.n_agents, m), generator=gen, device=DEV,
+                          dtype=torch.int32)], dim=-1)
+    ks, kr, ke = roll(states, 3, actions)
+    ps, pr, pe = roll.plain(states, 3, actions)
+    assert roll.launches == 1
+    for f in MSG_FIELDS:
+        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+    assert torch.equal(kr, pr) and torch.equal(ke, pe)
+
+
+@pytest.mark.parametrize("net", ["mlp", "gru"])
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_fused_collect_message_mode_matches_plain(net, deterministic):
+    """K2b: obs, actions, bits, rewards, done and the final state (messages
+    included) exact; value and logp within 2e-2."""
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=DEV, max_steps=20, msg_bits=2)
+    states, _ = batched_reset(env, 1, 1000)
+    length = env.config.flattened_obs_length
+    if net == "mlp":
+        policy = ActorCritic(length, msg_bits=2).to(DEV)
+        collect = build_fused_collect(env.config, 32, deterministic=deterministic)
+        (ks, ktraj), (ps, ptraj) = (collect(states, policy, 2), collect.plain(states, policy, 2))
+    else:
+        policy = init_recurrent_actor_critic(length, 5, 128, 128, 0, msg_bits=2).to(DEV)
+        collect = build_fused_collect_gru(env.config, 32, deterministic=deterministic)
+        h0 = policy.initialize_carry((1000, 2))
+        (ks, kh, ktraj), (ps, ph, ptraj) = (collect(states, policy, 2, h0),
+                                            collect.plain(states, policy, 2, h0))
+        assert torch.equal(kh, ph)
+    assert collect.launches == 1
+    for k in ("obs", "action", "bits", "reward", "done"):
+        assert torch.equal(ktraj[k], ptraj[k]), k
+    for k in ("value", "logp"):
+        assert float((ktraj[k] - ptraj[k]).abs().max()) <= ATOL, k
+    for f in MSG_FIELDS:
+        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+
+
+def test_fused_ppo_grads_message_head_matches_plain():
+    """K4 with the message head (M=2): gradients within 1e-2 of each block's
+    largest |plain value| on a window that wraps; two launches bit-equal."""
+    dims, params, data = random_ppo_case("rware-tiny-2ag-v2", 1000, 8, device=DEV, msg_bits=2)
+    k4 = build_fused_ppo_grads(dims, 4, clip_eps=0.2, vf_coef=0.5, ent_coef=0.01)
+    kg, ks = k4(params, data, 7)
+    kg2, ks2 = k4(params, data, 7)
+    pg, ps = k4.plain(params, data, 7)
+    assert k4.launches == 2
+    assert torch.equal(kg, kg2) and torch.equal(ks, ks2)
+    for g, p in zip(dims.split(kg), dims.split(pg)):
+        assert float((g - p).abs().max()) <= 1e-2 * float(p.abs().max())
+    torch.testing.assert_close(ks, ps, rtol=1e-3, atol=1e-2)
+
+
+def test_message_learners_take_the_per_pass_kernels_on_the_card():
+    """IPPO and MAPPO with message bits: K4 per pass, no K3, K5 or K7."""
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=20, msg_bits=2)
+    cfg = ippo.IPPOConfig(n_envs=1024, rollout_len=16, epochs=2, minibatches=2)
+    from rware_tpu_torch.models import mappo
+    from rware_tpu_torch.models.ippo_fused import build_fused_train_step
+
+    runner, dims = ippo.init_runner(env, cfg, seed=0)
+    step = build_fused_train_step(env, dims, cfg)
+    new, metrics = step(runner)
+    assert step.update_phase is None and (step.collect.launches, step.grads.launches) == (1, 4)
+    assert float((new.params - runner.params).abs().max()) > 0
+    runner, adims, cdims = mappo.init_mappo_runner(env, cfg, seed=0)
+    step = mappo.build_mappo_train_step(env, adims, cdims, cfg)
+    new, metrics = step(runner)
+    assert (step.collect.launches, step.grads.actor.launches) == (1, 4)
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v.float())), k

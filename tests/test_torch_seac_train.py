@@ -184,8 +184,9 @@ def test_seac_entry_point_refuses_what_is_not_there():
                  ["--algo", "seac-ppo", "--fused-critic-phase"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(argv + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="message bits"):
-        rware_tpu_torch.make("rware-tiny-2ag-v2", device="cpu", msg_bits=1)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        seac.init_seac_ppo(rware_tpu_torch.make("rware-tiny-2ag-v2", device="cpu", msg_bits=1),
+                           seac.SEACPPOConfig(n_envs=8), 0)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--algo", "seac-ppo", "--updates", "1"])

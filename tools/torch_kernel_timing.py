@@ -20,11 +20,17 @@ K9 + K10 per band pass); with ``--algo seac-ppo`` it is the SEAC-PPO learner
 ``models/seac.build_seac_ppo_fused_train_step`` (K2d, and K8 per pass), and
 each config also times the per-agent collector kernel (K2d, B=16,384, T=128)
 and the SEAC-PPO gradient kernel (K8, one 32-row window of B=16,384 random
-data).  Prints
+data).  ``--msg-bits M`` gives every config M message bits: K1 and the GRU
+kernels then run on the longer observation, K2a and K2c in their message
+mode (K2b), and each config also times the PPO gradient kernel with the
+message head (K4, one 32-row window of B=16,384 random data); the train step
+is then the message-bit learner of ``--algo`` and ``--net`` (IPPO per pass,
+MAPPO's split path).  Prints
 one JSON object per line, each with the card's name and power limit; ``--out`` also writes them to a file.
 
 Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-step]
-       [--algo ippo|mappo|seac-ppo] [--net mlp|gru] [--fused-critic-phase] [--out FILE]
+       [--algo ippo|mappo|seac-ppo] [--net mlp|gru] [--fused-critic-phase] [--msg-bits M]
+       [--out FILE]
 """
 import argparse
 import json
@@ -115,6 +121,23 @@ def seac_kernels(env, env_id, states, repeats, emit):
     torch.cuda.empty_cache()
 
 
+def ppo_message_head(env_id, b, m, repeats, emit, dev):
+    """K4 with the message head on one 32-row window of B envs of random data."""
+    import torch
+    from rware_tpu_torch.ops.fused_update import build_fused_ppo_grads
+    from rware_tpu_torch.testing import random_ppo_case
+
+    t_mb = 32
+    dims, params, data = random_ppo_case(env_id, b, t_mb, 0, dev, m)
+    k4 = build_fused_ppo_grads(dims, t_mb, clip_eps=0.2, vf_coef=0.5, ent_coef=0.01)
+    med, lo, hi = time_launches(lambda: k4(params, data, 0), repeats)
+    emit({"kernel": "fused_ppo_grads (message head)", "env": env_id, "B": b, "T_mb": t_mb,
+          "ms_median": med, "ms_min": lo, "ms_max": hi,
+          "samples_per_s": t_mb * b * data[1].shape[2] / med * 1e3})
+    del data
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", nargs="*", default=[
@@ -126,6 +149,7 @@ def main():
     ap.add_argument("--algo", choices=["ippo", "mappo", "seac-ppo"], default="ippo")
     ap.add_argument("--net", choices=["mlp", "gru"], default="mlp")
     ap.add_argument("--fused-critic-phase", action="store_true")
+    ap.add_argument("--msg-bits", type=int, default=0)
     ap.add_argument("--out")
     args = ap.parse_args()
 
@@ -148,13 +172,17 @@ def main():
     device = {"kind": torch.cuda.get_device_name(0), "nvidia_smi": card()}
     lines = []
 
+    m = args.msg_bits
+
     def emit(rec):
+        if m:
+            rec["msg_bits"] = m
         rec["device"] = device
         lines.append(json.dumps(rec))
         print(lines[-1], flush=True)
 
     for env_id in args.configs:
-        env = rware_tpu_torch.make(env_id, device=dev)
+        env = rware_tpu_torch.make(env_id, device=dev, msg_bits=m)
         b, t = 65536, 256
         states, _ = batched_reset(env, 0, b)
         roll = build_fused_rollout(env.config, t)
@@ -164,12 +192,13 @@ def main():
         b, t = 16384, 128
         states, _ = batched_reset(env, 0, b)
         torch.manual_seed(0)
-        policy = ActorCritic(env.config.flattened_obs_length).to(dev)
+        policy = ActorCritic(env.config.flattened_obs_length, msg_bits=m).to(dev)
         collect = build_fused_collect(env.config, t)
         med, lo, hi = time_launches(lambda: collect(states, policy, 1), args.repeats)
         emit({"kernel": "fused_collect", "env": env_id, "B": b, "T": t, "ms_median": med,
               "ms_min": lo, "ms_max": hi, "env_steps_per_s": b * t / med * 1e3})
-        gru = init_recurrent_actor_critic(env.config.flattened_obs_length, seed=0).to(dev)
+        gru = init_recurrent_actor_critic(env.config.flattened_obs_length, seed=0,
+                                          msg_bits=m).to(dev)
         carry = gru.initialize_carry((b, env.n_agents))
         collect_gru = build_fused_collect_gru(env.config, t)
         med, lo, hi = time_launches(lambda: collect_gru(states, gru, 1, carry), args.repeats)
@@ -190,6 +219,8 @@ def main():
                   "ms_min": lo, "ms_max": hi,
                   "sequence_steps_per_s": t * band[1] * env.n_agents / med * 1e3})
         del traj, hseq, dh, seq
+        if m:
+            ppo_message_head(env_id, b, m, args.repeats, emit, dev)
         if args.algo == "seac-ppo":
             seac_kernels(env, env_id, states, args.repeats, emit)
 
@@ -210,7 +241,7 @@ def main():
         from rware_tpu_torch.models import ippo
         from rware_tpu_torch.models.ippo_fused import build_fused_train_step
 
-        env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
+        env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev, msg_bits=m)
         cfg = ippo.IPPOConfig(n_envs=16384, rollout_len=128, epochs=4, minibatches=4)
         if args.algo == "seac-ppo":
             if args.net != "mlp":
@@ -236,11 +267,12 @@ def main():
             runner, dims, cdims = mappo.init_mappo_runner(env, cfg, 0)
             step = mappo.build_mappo_train_step(env, dims, cdims, cfg,
                                                 fused_critic_phase=args.fused_critic_phase)
-            what = "mappo, " + ("whole phase (K7)" if args.fused_critic_phase else "per pass (K5)")
+            what = "mappo, " + ("whole phase (K7)" if args.fused_critic_phase else
+                                "split path (K4 + critic autograd)" if m else "per pass (K5)")
         else:
             runner, dims = ippo.init_runner(env, cfg, 0)
             step = build_fused_train_step(env, dims, cfg)
-            what = "fused"
+            what = "fused, per pass (K4 with the message head)" if m else "fused"
         box = [runner]
 
         def update():
