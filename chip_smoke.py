@@ -108,7 +108,31 @@ Phases, one line each:
     before and read after (IPPO: 3 collector, 48 K4, 0 K3; recurrent: 3 K2c,
     48 K9, 48 K10; MAPPO: 3 collector, 48 K4, 0 K5, 0 K7), the time of an
     update split by phase; K2a with K2b and K4 with the message head timed at
-    that shape beside their plain versions.
+    that shape beside their plain versions;
+21. the per-agent recurrent collector (K2d′) and its message mode (K2d′ with
+    K2b) against their plain versions on the card: tiny-2ag, small-4ag and
+    large-8ag, deterministic and random mode, M=0 and M=2 at B=1000, T=32
+    from a nonzero carry (large-8ag M=2 also with the agents' bias and head
+    blocks read from device memory), then the main shape tiny-2ag B=16,384,
+    T=128, embed 128, GRU 128 at M=0 and M=2; obs, rewards, done, bits,
+    every action, the final state and the new carry exact, value and logp
+    within 2e-2; the per-agent MLP collector's message mode (K2d with K2b) at
+    M=2 on tiny-2ag (weights in shared memory) and large-8ag (in device
+    memory) and at the main shape, held the same way;
+22. recurrent SEAC-PPO at full width through
+    ``rware_tpu_torch.models.seac.build_seac_gru_train_step`` on an env made
+    with ``make``'s default device: tiny-2ag, B=4,096, T=128, E=4, M=4,
+    embed 128, GRU 128, at M=0 and M=2 message bits; three updates after one
+    warm-up with launch counters reset before and read after (exactly 3
+    K2d′); the time of an update split into collect (K2d′), the cross replay
+    with bootstrap and cross GAE, and the 16 band passes; K2d′ timed and held
+    to its plain version at that shape from the runner's state and carry;
+23. SEAC-PPO with ``msg_bits=2`` through ``build_seac_ppo_train_step``
+    (its kernel collector on the card): tiny-2ag, B=16,384, T=128, E=4, M=4, hidden (128,
+    128); three updates after one warm-up (exactly 3 K2d with K2b launches,
+    and no K8: the learner builds none), the time of an update split into
+    collect, cross values with bootstrap and GAE, and the 16 flat minibatches;
+    K2d with K2b timed at that shape beside its plain version.
 
 Then the card's name and power limit, one JSON line describing each kernel
 (its time beside its plain version's and beside ``bound_ms``, the least time
@@ -671,27 +695,43 @@ def compare_gru(dev, dims, weights, obs, done, h0, bands, seed, fwd=None, bwd=No
     return fwd, bwd, h_err, g_err
 
 
-def compare_k2d(env_id, dev, b, t, deterministic, seed, policies=None, **overrides):
-    """K2d kernel vs its plain version on the card; returns (env, state,
-    traj, value/logp error, collector)."""
+def compare_k2d(env_id, dev, b, t, deterministic, seed, policies=None, collect=None,
+                states=None, **overrides):
+    """K2d kernel (with its message mode K2b where ``overrides`` give
+    ``msg_bits``) vs its plain version on the card, from a reset unless
+    ``states`` are given; returns (env, state, traj, value/logp error,
+    collector)."""
     import torch
     import rware_tpu_torch
+    from rware_tpu_torch.models.networks import init_actor_critic
     from rware_tpu_torch.models.seac import seac_policies_of
     from rware_tpu_torch.ops.fused_rollout import build_fused_collect_per_agent
     from rware_tpu_torch.parallel import batched_reset
     from rware_tpu_torch.testing import random_seac_case
 
     env = rware_tpu_torch.make(env_id, device=dev, **overrides)
-    states, _ = batched_reset(env, seed, b)
-    if policies is None:  # each agent its own network, biases off zero
+    m = env.config.msg_bits
+    if states is None:
+        states, _ = batched_reset(env, seed, b)
+    if policies is None and m:  # each agent its own network with a message head
+        gen = torch.Generator().manual_seed(seed)
+        policies = torch.nn.ModuleList(
+            init_actor_critic(env.config.flattened_obs_length, 5, (128, 128), (seed, 2, i), m)
+            for i in range(env.n_agents))
+        with torch.no_grad():  # nonzero biases: a zero bias hides where it is rounded
+            for p in policies.parameters():
+                if p.dim() == 1:
+                    p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+        policies = policies.to(dev)
+    elif policies is None:  # each agent its own network, biases off zero
         dims, params, _ = random_seac_case(env_id, 1, 1, seed)
         policies = seac_policies_of(dims, params).to(dev)
-    collect = build_fused_collect_per_agent(env.config, t, deterministic=deterministic)
+    collect = collect or build_fused_collect_per_agent(env.config, t, deterministic=deterministic)
     ks, ktraj = collect(states, policies, seed + 1)
     ps, ptraj = collect.plain(states, policies, seed + 1)
     torch.cuda.synchronize()
-    what = f"K2d {env_id} deterministic={deterministic}"
-    for k in ("obs", "reward", "done", "action"):
+    what = f"K2d {env_id} M={m} deterministic={deterministic}"
+    for k in ("obs", "reward", "done", "action") + (("bits",) if m else ()):
         require(torch.equal(ktraj[k], ptraj[k]), f"{what}: {k} differs")
     bad = state_diff(ks, ps)
     require(not bad, f"{what}: final state differs in {bad}")
@@ -1496,7 +1536,7 @@ def phase19(dev, kind, card):
             f"1e-3, two launches bit-equal (tile {k4.tile}, head rows {k4.hc}) [{kind}, {card}]")
 
 
-def _time_learner(name, step, runner, counted, want, kind, card, cfg):
+def _time_learner(name, step, runner, counted, want, kind, card, cfg, phase=20, msg_bits=2):
     """Three updates after a warm-up with ``counted`` launch counters reset
     before and read after (they must equal ``want``); returns (runner, ms per
     update, metrics of the last update)."""
@@ -1523,7 +1563,7 @@ def _time_learner(name, step, runner, counted, want, kind, card, cfg):
     require(sum(rewards) > 0, f"no reward in three {name} updates: {rewards}")
     last = {k: round(float(v), 5) for k, v in runs[-1].items()}
     steps = cfg.n_envs * cfg.rollout_len
-    log(f"phase 20 {name} train step with message bits tiny-2ag M=2 B={cfg.n_envs} "
+    log(f"phase {phase} {name} train step tiny-2ag, {msg_bits} message bits, B={cfg.n_envs} "
         f"T={cfg.rollout_len} E={cfg.epochs} M={cfg.minibatches}: {update_ms:.3f} ms/update = "
         f"{steps / update_ms * 1e3:.4g} env-steps/s over 3 updates, "
         f"launches {got}, reward_per_env {rewards}, last metrics {last} [{kind}, {card}]")
@@ -1648,6 +1688,210 @@ def phase20(dev, kind, card, k2b_err, n_envs=16384, rollout_len=128):
     return entries
 
 
+def compare_k2dp(env_id, dev, b, t, deterministic, seed, policies=None, collect=None,
+                 states=None, h0=None, smem_stacks=None, **overrides):
+    """K2d′ (with its message mode K2b where ``overrides`` give ``msg_bits``)
+    against its plain version on the card, from a reset and a random nonzero
+    carry unless ``states`` and ``h0`` are given; ``smem_stacks=0`` reads the
+    agents' bias and head blocks from device memory.  Obs, rewards, done,
+    bits, every action, the final state and the new carry exact; returns
+    (env, traj, collector, value/logp error)."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models.networks import init_recurrent_actor_critic
+    from rware_tpu_torch.ops.fused_rollout import build_fused_collect_gru_per_agent
+    from rware_tpu_torch.parallel import batched_reset
+
+    env = rware_tpu_torch.make(env_id, device=dev, **overrides)
+    m, n, length = env.config.msg_bits, env.n_agents, env.config.flattened_obs_length
+    gen = torch.Generator().manual_seed(seed)
+    if states is None:
+        states, _ = batched_reset(env, seed, b)
+    if h0 is None:
+        h0 = (torch.rand((b, n, 128), generator=gen) * 2 - 1).to(torch.bfloat16).to(dev)
+    if policies is None:  # each agent its own GRU, biases off zero
+        policies = torch.nn.ModuleList(
+            init_recurrent_actor_critic(length, 5, 128, 128, (seed, 2, i), m) for i in range(n))
+        with torch.no_grad():
+            for p in policies.parameters():
+                if p.dim() == 1:
+                    p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+        policies = policies.to(dev)
+    collect = collect or build_fused_collect_gru_per_agent(env.config, t,
+                                                           deterministic=deterministic)
+    if smem_stacks is not None:
+        collect.smem_stacks = smem_stacks
+    ks, kh, ktraj = collect(states, policies, seed + 1, h0)
+    ps, ph, ptraj = collect.plain(states, policies, seed + 1, h0)
+    torch.cuda.synchronize()
+    what = f"K2d′ {env_id} M={m} deterministic={deterministic}"
+    require(torch.equal(kh, ph), f"{what}: the new carry differs")
+    for k in ("obs", "reward", "done", "action") + (("bits",) if m else ()):
+        require(torch.equal(ktraj[k], ptraj[k]), f"{what}: {k} differs")
+    bad = state_diff(ks, ps)
+    require(not bad, f"{what}: final state differs in {bad}")
+    err = max(float((ktraj[k] - ptraj[k]).abs().max()) for k in ("value", "logp"))
+    require(err <= VALUE_LOGP_ATOL, f"{what}: value/logp err {err}")
+    for k, v in ktraj.items():
+        require(not v.is_floating_point() or bool(torch.isfinite(v.float()).all()),
+                f"{what}: non-finite {k}")
+    last_done = ktraj["done"][-1]
+    require(not bool(last_done.any()) or float(kh[last_done].float().abs().max()) == 0.0,
+            f"{what}: the carry of an env whose episode just ended is not zero")
+    a = ktraj["action"]
+    require(n < 2 or bool((a[..., 0] != a[..., 1]).any()), f"{what}: the agents act alike")
+    check_invariants(env, ks)
+    return env, ktraj, collect, err
+
+
+K2DP_CONFIGS = (("rware-tiny-2ag-v2", {}), ("rware-small-4ag-v2", {"max_steps": 20}),
+                ("rware-large-8ag-v2", {"max_steps": 20}))
+
+
+def phase21(dev, kind, card):
+    """K2d′, K2d′ with K2b and K2d with K2b against their plain versions;
+    returns the main shape's errors {name: max |value/logp error|}."""
+    for env_id, overrides in K2DP_CONFIGS:
+        for m in (0, 2):
+            for deterministic in (True, False):
+                _, traj, collect, err = compare_k2dp(env_id, dev, 1000, 32, deterministic, 5,
+                                                     msg_bits=m, **overrides)
+                log(f"phase 21 K2d′ {env_id} M={m} B=1000 T=32 deterministic={deterministic}: "
+                    f"obs/reward/done/bits/actions/state/carry exact, value/logp err {err} "
+                    f"(bias and head blocks in shared memory, {collect.threads} threads)")
+    _, _, collect, err = compare_k2dp("rware-large-8ag-v2", dev, 1000, 32, False, 6,
+                                      smem_stacks=0, msg_bits=2, max_steps=20)
+    log(f"phase 21 K2d′ rware-large-8ag-v2 M=2 B=1000 T=32 random, bias and head blocks read "
+        f"from device memory: obs/reward/done/bits/actions/state/carry exact, value/logp err "
+        f"{err} ({collect.threads} threads)")
+    errs = {}
+    for m in (0, 2):
+        _, _, collect, err = compare_k2dp("rware-tiny-2ag-v2", dev, 16384, 128, False, 13,
+                                          msg_bits=m)
+        errs[f"k2dp{m}"] = err
+        log(f"phase 21 K2d′ main shape tiny-2ag M={m} B=16384 T=128 random: obs/reward/done/"
+            f"bits/actions/state/carry exact, value/logp max_abs_err {err} [{kind}, {card}]")
+    for env_id, overrides in (("rware-tiny-2ag-v2", {}), ("rware-large-8ag-v2",
+                                                         {"max_steps": 20})):
+        for deterministic in (True, False):
+            _, _, _, err, collect = compare_k2d(env_id, dev, 1000, 32, deterministic, 5,
+                                                msg_bits=2, **overrides)
+            log(f"phase 21 K2d with K2b {env_id} M=2 B=1000 T=32 deterministic={deterministic}: "
+                f"obs/reward/done/bits/actions/state exact, value/logp err {err} (weights "
+                f"{'in device memory' if collect.weights_global else 'in shared memory'})")
+    _, _, _, err, _ = compare_k2d("rware-tiny-2ag-v2", dev, 16384, 128, False, 13, msg_bits=2)
+    errs["k2dm"] = err
+    log(f"phase 21 K2d with K2b main shape tiny-2ag M=2 B=16384 T=128 random: obs/reward/done/"
+        f"bits/actions/state exact, value/logp max_abs_err {err} [{kind}, {card}]")
+    return errs
+
+
+def gru_collect_bound(dims, states, traj, carry, n_params, agent_steps):
+    """``bound`` of a recurrent collector launch: the state and the carry in
+    and out, the trajectory written, the parameters read once, and the
+    cell's and heads' products of every agent-step (integer work charged
+    nothing, as for K2a)."""
+    return bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
+                 + 2 * tensor_bytes(carry) + 4.0 * n_params,
+                 agent_steps * gru_cell_flops(dims, True),
+                 agent_steps * 2.0 * dims.hidden * (dims.n_actions + 1 + dims.msg_bits))
+
+
+def phase22(dev, kind, card, errs, n_envs=4096, rollout_len=128):
+    """Recurrent SEAC-PPO at full width, without and with message bits;
+    returns the K2d′ entries."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models import seac
+
+    entries = []
+    for m in (0, 2):
+        env = rware_tpu_torch.make("rware-tiny-2ag-v2", msg_bits=m)  # no device named: the card
+        require(env.device.type == "cuda", f"make's default device is {env.device}")
+        cfg = seac.SEACPPOConfig(n_envs=n_envs, rollout_len=rollout_len, epochs=4, minibatches=4)
+        n_passes, steps = cfg.epochs * cfg.minibatches, cfg.n_envs * cfg.rollout_len
+        runner, dims = seac.init_seac_gru(env, cfg, seed=0)
+        step = seac.build_seac_gru_train_step(env, dims, cfg)
+        params0 = runner.params.clone()
+        runner, update_ms = _time_learner(
+            "recurrent SEAC-PPO", step, runner,
+            {"fused_collect_gru_per_agent": step.collect}, {"fused_collect_gru_per_agent": 3},
+            kind, card, cfg, phase=22, msg_bits=m)
+        launches = step.collect.launches
+        moved = [float((a - b).abs().max()) for i in range(env.n_agents)
+                 for a, b in zip(dims.split(runner.params[i]), dims.split(params0[i]))]
+        require(min(moved) > 0, f"recurrent SEAC-PPO left a block unmoved: {moved}")
+        require(not step.remat, "recurrent SEAC-PPO at tiny-2ag B=4096 took remat")
+        collect_ms, (states, new_carry, traj) = cuda_ms(lambda: step.rollout(runner))
+        adv_ms, (obs, values, adv, targets) = cuda_ms(
+            lambda: step.advantages(runner, states, traj))
+        dataset = (traj["obs"], traj["done"], traj["action"], traj["logp"], values, adv,
+                   targets, runner.carry) + ((traj["bits"],) if m else ())
+        passes_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+        log(f"phase 22 recurrent SEAC-PPO M={m} breakdown of one update: collect (K2d′) "
+            f"{collect_ms:.3f} ms, cross replay, bootstrap and cross GAE {adv_ms:.3f} ms, "
+            f"{n_passes} band passes (cross replay + loss by autograd + optimizer) "
+            f"{passes_ms:.3f} ms [{kind}, {card}]")
+        # K2d′ at the main path's shape, from the runner's state and carry
+        policies = seac.seac_gru_policies_of(dims, runner.params)
+        args = (runner.env_states, policies, 7, runner.carry)
+        k_ms, _ = cuda_ms(lambda: step.collect(*args), repeats=2)
+        plain_ms, _ = cuda_ms(lambda: step.collect.plain(*args))
+        _, _, _, err = compare_k2dp("rware-tiny-2ag-v2", dev, n_envs, rollout_len, False, 8,
+                                    policies, step.collect, runner.env_states, runner.carry,
+                                    msg_bits=m)
+        log(f"phase 22 K2d′ M={m} at the main path's shape B={n_envs} T={rollout_len} random, "
+            f"from the runner's state and carry: obs/reward/done/bits/actions/state/carry exact, "
+            f"{k_ms:.3f} ms/launch (plain {plain_ms:.1f} ms, value/logp max_abs_err {err}; at "
+            f"B=16384: {errs[f'k2dp{m}']}) [{kind}, {card}]")
+        k_bound = gru_collect_bound(dims, states, traj, runner.carry, runner.params.numel(),
+                                    float(steps * env.n_agents))
+        name = "fused_collect_gru_per_agent" + (" (message bits, K2b)" if m else "")
+        replaces = "rware_tpu/ops/pallas_rollout.py:" + ("1537" if m else "1376")
+        entries.append(kernel_entry(name, "fused_collect_gru.cu", replaces, launches,
+                                    max(err, errs[f"k2dp{m}"]), k_ms, plain_ms, k_bound))
+    return entries
+
+
+def phase23(dev, kind, card, errs, n_envs=16384, rollout_len=128):
+    """SEAC-PPO with two message bits at full width; returns the K2d with
+    K2b entry."""
+    import rware_tpu_torch
+    from rware_tpu_torch.models import seac
+
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", msg_bits=2)  # no device named: the card
+    require(env.device.type == "cuda", f"make's default device is {env.device}")
+    cfg = seac.SEACPPOConfig(n_envs=n_envs, rollout_len=rollout_len, epochs=4, minibatches=4)
+    n_passes, steps = cfg.epochs * cfg.minibatches, cfg.n_envs * cfg.rollout_len
+    runner, dims = seac.init_seac_ppo(env, cfg, seed=0)
+    step = seac.build_seac_ppo_train_step(env, dims, cfg)
+    require(not hasattr(step, "grads"), "SEAC-PPO with message bits built K8")
+    runner, _ = _time_learner(
+        "SEAC-PPO", step, runner, {"fused_collect_per_agent": step.collect},
+        {"fused_collect_per_agent": 3}, kind, card, cfg, phase=23)
+    launches = step.collect.launches
+    collect_ms, (states, traj) = cuda_ms(lambda: step.rollout(runner))
+    adv_ms, (obs, values, adv, targets) = cuda_ms(lambda: step.advantages(runner, states, traj))
+    dataset = (traj["obs"], traj["action"], traj["logp"], values, adv, targets, traj["bits"])
+    passes_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    log(f"phase 23 SEAC-PPO M=2 breakdown of one update: collect (K2d with K2b) "
+        f"{collect_ms:.3f} ms, cross values, bootstrap and cross GAE {adv_ms:.3f} ms, "
+        f"{n_passes} flat minibatches (cross forward + loss by autograd + optimizer) "
+        f"{passes_ms:.3f} ms; K8 launches 0 (not built) [{kind}, {card}]")
+    policies = seac.seac_policies_of(dims, runner.params)
+    args = (runner.env_states, policies, 7)
+    k_ms, _ = cuda_ms(lambda: step.collect(*args), repeats=2)
+    plain_ms, _ = cuda_ms(lambda: step.collect.plain(*args))
+    log(f"phase 23 K2d with K2b at the main shape: {k_ms:.3f} ms/launch (plain {plain_ms:.1f} "
+        f"ms, value/logp max_abs_err {errs['k2dm']}) [{kind}, {card}]")
+    bf, f32 = mlp_flops(dims.obs_len, dims.h1, dims.h2, dims.heads, steps * env.n_agents, False)
+    k_bound = bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
+                    + 4.0 * runner.params.numel(), bf, f32)
+    return [kernel_entry("fused_collect_per_agent (message bits, K2b)", "fused_collect.cu",
+                         "rware_tpu/ops/pallas_rollout.py:1537", launches, errs["k2dm"], k_ms,
+                         plain_ms, k_bound)]
+
+
 def main() -> int:
     import torch
 
@@ -1690,6 +1934,9 @@ def main() -> int:
     k2b_err, k1m_entry = phase18(dev, kind, card)
     phase19(dev, kind, card)
     kernels += [k1m_entry] + phase20(dev, kind, card, k2b_err)
+    errs = phase21(dev, kind, card)
+    kernels += phase22(dev, kind, card, errs)
+    kernels += phase23(dev, kind, card, errs)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

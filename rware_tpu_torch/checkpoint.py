@@ -1,0 +1,103 @@
+"""Checkpoint / resume (the counterpart of ``rware_tpu/checkpoint.py``).
+
+The whole training state is one runner (``RunnerState``, ``RNNRunnerState``
+or MAPPO's): parameters, Adam moments and count, the env-batch state, the
+GRU carry, the ``torch.Generator`` that draws the minibatches, the run seed
+that keys the collectors' Philox streams, and the update index.  A
+checkpoint is that runner as one nested dict of CPU tensors and Python
+scalars, written with ``torch.save`` to ``<directory>/<step>.pt``; restoring
+it into a template runner puts every tensor back on the template's device,
+so resuming a run reproduces the updates it would have taken unbroken, bit
+for bit on one device (``tests/test_torch_checkpoint.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Optional
+
+import torch
+
+_GENERATOR = "__generator_state__"
+
+
+def pack(tree: Any) -> Any:
+    """A runner (dataclasses, dicts, tuples, tensors, generators, scalars)
+    as nested dicts and lists of CPU tensors and scalars, which
+    ``torch.load(weights_only=True)`` reads back."""
+    if dataclasses.is_dataclass(tree):
+        return {f.name: pack(getattr(tree, f.name)) for f in dataclasses.fields(tree)}
+    if isinstance(tree, dict):
+        return {k: pack(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [pack(v) for v in tree]
+    if isinstance(tree, torch.Generator):
+        return {_GENERATOR: tree.get_state()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    return tree
+
+
+def unpack(saved: Any, template: Any) -> Any:
+    """Inverse of :func:`pack` in the structure of ``template``: each tensor
+    on its template tensor's device, each generator a new one in the saved
+    state."""
+    if dataclasses.is_dataclass(template):
+        return dataclasses.replace(template, **{
+            f.name: unpack(saved[f.name], getattr(template, f.name))
+            for f in dataclasses.fields(template)})
+    if isinstance(template, dict):
+        return {k: unpack(saved[k], v) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(unpack(s, t) for s, t in zip(saved, template))
+    if isinstance(template, torch.Generator):
+        gen = torch.Generator(device=template.device)
+        gen.set_state(saved[_GENERATOR])
+        return gen
+    if isinstance(template, torch.Tensor):
+        return saved.to(template.device)
+    return saved
+
+
+class Checkpointer:
+    """Numbered step checkpoints under one directory; the oldest beyond
+    ``max_to_keep`` (None: all kept) are deleted."""
+
+    def __init__(self, directory: str, max_to_keep: Optional[int] = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"{step}.pt")
+
+    def steps(self) -> list:
+        """The saved steps, in ascending order."""
+        return sorted(int(name[:-3]) for name in os.listdir(self.directory)
+                      if name.endswith(".pt") and name[:-3].isdigit())
+
+    @property
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, runner: Any) -> None:
+        """Write ``runner`` as step ``step`` (atomically: a temporary file
+        renamed into place)."""
+        tmp = self._path(step) + ".tmp"
+        torch.save(pack(runner), tmp)
+        os.replace(tmp, self._path(step))
+        if self.max_to_keep is not None:
+            for old in self.steps()[:-self.max_to_keep]:
+                os.remove(self._path(old))
+
+    def restore(self, step: Optional[int] = None, template: Any = None) -> Any:
+        """The runner saved at ``step`` (the latest if None), in the
+        structure and on the devices of ``template``; without a template,
+        the nested dicts :func:`pack` wrote, on the CPU."""
+        if step is None:
+            step = self.latest_step
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        saved = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        return saved if template is None else unpack(saved, template)

@@ -259,26 +259,30 @@ def _agent_stack(trees) -> Dict[str, Any]:
 
 def seac_params_from_flax(params: Mapping[str, Any], device="cpu") -> torch.Tensor:
     """The (N, P) stack of flat vectors of a stacked flax ActorCritic params
-    pytree (``init_seac``: a leading agent axis on every leaf), or of an optax
-    moment pytree of the same structure."""
+    pytree (``init_seac``: a leading agent axis on every leaf) or of a stacked
+    RecurrentActorCritic one (``init_seac_gru``, :class:`GruDims` rows), or of
+    an optax moment pytree of the same structure."""
     p = _tree(params)
-    n = np.shape(p["dense_0"]["kernel"])[0]
-    return torch.stack([params_from_flax(_agent_slice(p, i)) for i in range(n)]).to(device)
+    from_flax = gru_params_from_flax if "gru" in p else params_from_flax
+    n = np.shape(p["policy"]["kernel"])[0]
+    return torch.stack([from_flax(_agent_slice(p, i)) for i in range(n)]).to(device)
 
 
-def seac_params_to_flax(stack: torch.Tensor, dims: BlockDims) -> Dict[str, Any]:
-    """The stacked flax params pytree (numpy float32 leaves) of an (N, P) stack."""
-    return {"params": _agent_stack([params_to_flax(row, dims)["params"] for row in stack])}
+def seac_params_to_flax(stack: torch.Tensor, dims) -> Dict[str, Any]:
+    """The stacked flax params pytree (numpy float32 leaves) of an (N, P)
+    stack of :class:`BlockDims` or :class:`GruDims` rows."""
+    to_flax = gru_params_to_flax if isinstance(dims, GruDims) else params_to_flax
+    return {"params": _agent_stack([to_flax(row, dims)["params"] for row in stack])}
 
 
 def seac_opt_state_from_optax(opt_state: Any, device="cpu") -> AdamState:
     """:class:`AdamState` of (N, P) moments of the optax state of SEAC's
-    ``chain(clip_by_global_norm, adam)`` over the stacked pytree
-    (``rware_tpu/models/seac.py:78-82``)."""
+    ``chain(clip_by_global_norm, adam)`` over the stacked pytree, MLP or GRU,
+    message head included (``rware_tpu/models/seac.py:78-82, 783-786``)."""
     return adam_state_from_optax(opt_state, device, seac_params_from_flax)
 
 
-def seac_opt_state_to_optax(state: AdamState, dims: BlockDims, like: Any) -> Any:
+def seac_opt_state_to_optax(state: AdamState, dims, like: Any) -> Any:
     """The optax state of ``state``, in the structure of ``like``."""
     return adam_state_to_optax(state, dims, like, seac_params_to_flax)
 

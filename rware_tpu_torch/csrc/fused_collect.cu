@@ -12,11 +12,13 @@
 // the same hidden order; M Bernoulli bits per agent-step (sample_bernoulli)
 // whose log-probability joins the Gumbel move's; the bits stream out as a
 // (T, B, N, M) trajectory tensor and become the agents' messages, cleared
-// where an episode ends.  K2d takes M = 0 only (the wrapper refuses more).
-// The message mode is its own instantiation (kMsg), so K2a and K2d without
-// message bits compile to the code they had before it.  The two modes are
-// one kernel: `n_stacks` weight stacks (1 or N) and agent i runs stack
-// n_stacks > 1 ? i : 0.  The TPU kernel feeds a whole (L, N*1024) feature tile
+// where an episode ends.  K2d carries it too (SEAC-PPO with message bits,
+// pallas_rollout.py:1944-1947): agent i's (M, H2) message head is stack i's,
+// in shared memory or, where the stacks do not fit, in device memory with
+// the dense layers.  The message mode is its own instantiation (kMsg), so
+// K2a and K2d without message bits compile to the code they had before it.
+// The two modes are one kernel: `n_stacks` weight stacks (1 or N) and agent i
+// runs stack n_stacks > 1 ? i : 0.  The TPU kernel feeds a whole (L, N*1024) feature tile
 // to the MXU (N small matmuls per agent in K2d); here one thread owns one env
 // and runs its agents' MLPs with scalar loops.  The weights sit in dynamic
 // shared memory (dense_0 and dense_1 in bf16 as (out, in), the heads in f32 —
@@ -261,11 +263,12 @@ extern "C" int rw_fused_collect(int n, int s, int r, int g, int h, int w, int re
   m.obs.sensor_range = sensor_range;
   m.obs.normalised = normalised;
   if (A > RW_MAX_A || H1 % RW_JB || H2 % RW_JB || (n_stacks != 1 && n_stacks != n) ||
-      n > RW_MAX_N || msg_bits > RW_MAX_M || (msg_bits > 0 && (n_stacks != 1 || weights_global)))
+      n > RW_MAX_N || msg_bits > RW_MAX_M)
     return (int)cudaErrorInvalidValue;
-  const auto kernel =
-      msg_bits > 0 ? fused_collect_kernel<false, true>
-      : weights_global ? fused_collect_kernel<true, false> : fused_collect_kernel<false, false>;
+  const auto kernel = msg_bits > 0 ? (weights_global ? fused_collect_kernel<true, true>
+                                                      : fused_collect_kernel<false, true>)
+                                    : (weights_global ? fused_collect_kernel<true, false>
+                                                      : fused_collect_kernel<false, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -1,10 +1,11 @@
 """Evaluate a policy saved by ``rware_tpu_torch.train`` — the port's
 counterpart of ``evaluate.py`` for the nets the port trains: the shared MLP
 (``ActorCritic``; IPPO's, and MAPPO's actor), the shared GRU
-(``RecurrentActorCritic``; recurrent IPPO's) and one MLP per agent (an
-``nn.ModuleList`` of ``ActorCritic``; SEAC-PPO's).  The checkpoint names its
-kind and its message bits; a policy with message bits plays an env with as
-many, through the collectors' message mode (K2b).
+(``RecurrentActorCritic``; recurrent IPPO's), one MLP per agent (an
+``nn.ModuleList`` of ``ActorCritic``; SEAC-PPO's) and one GRU per agent (an
+``nn.ModuleList`` of ``RecurrentActorCritic``; recurrent SEAC-PPO's).  The
+checkpoint names its kind and its message bits; a policy with message bits
+plays an env with as many, through the collectors' message mode (K2b).
 
 Examples::
 
@@ -12,9 +13,9 @@ Examples::
     python -m rware_tpu_torch.evaluate --device cpu --env rware-tiny-2ag-v2 --random
 
 One episode per env: the env runs ``--max-steps`` steps of the sampled
-policy through the fused collector of its kind (the K2a, K2c or K2d kernel
-on a GPU, its plain version on the CPU; ``evaluate.py:71-132`` for the
-per-agent stack), and an env's return is its reward summed
+policy through the fused collector of its kind (the K2a, K2c, K2d or K2d′
+kernel on a GPU, its plain version on the CPU; ``evaluate.py:71-132`` for
+the per-agent stacks), and an env's return is its reward summed
 over agents until its first episode end (``evaluate.py:176-214``).  A GRU
 policy starts from the zero carry, which the collector threads through the
 steps and zeroes at episode ends (``evaluate.py:119-192``).
@@ -33,25 +34,28 @@ from rware_tpu_torch.models.networks import ActorCritic, RecurrentActorCritic
 def mean_return(env, policy, episodes: int, max_steps: int = 500, seed: int = 0) -> dict:
     """Return statistics of ``episodes`` envs, each run for ``max_steps``
     steps of ``policy`` (an ``ActorCritic``, a ``RecurrentActorCritic`` or an
-    ``nn.ModuleList`` of one ``ActorCritic`` per agent) from a fresh reset:
-    mean and std of the returns, the mean episode length and the number of
-    envs whose episode had not ended."""
+    ``nn.ModuleList`` of one of them per agent) from a fresh reset: mean and
+    std of the returns, the mean episode length and the number of envs whose
+    episode had not ended."""
     from rware_tpu_torch.ops.fused_rollout import (
         build_fused_collect,
         build_fused_collect_gru,
+        build_fused_collect_gru_per_agent,
         build_fused_collect_per_agent,
     )
     from rware_tpu_torch.parallel import batched_reset
 
     states, _ = batched_reset(env, seed, episodes)
     policy = policy.to(env.device)
-    if isinstance(policy, nn.ModuleList):
-        collect = build_fused_collect_per_agent(env.config, max_steps, policy[0].hidden)
-        _, traj = collect(states, policy, seed)
-    elif isinstance(policy, RecurrentActorCritic):
-        collect = build_fused_collect_gru(env.config, max_steps, (policy.embed_dim, policy.hidden))
-        carry = policy.initialize_carry((episodes, env.n_agents), env.device)
+    net = policy[0] if isinstance(policy, nn.ModuleList) else policy
+    if isinstance(net, RecurrentActorCritic):
+        build = build_fused_collect_gru_per_agent if net is not policy else build_fused_collect_gru
+        collect = build(env.config, max_steps, (net.embed_dim, net.hidden))
+        carry = net.initialize_carry((episodes, env.n_agents), env.device)
         _, _, traj = collect(states, policy, seed, carry)
+    elif net is not policy:
+        collect = build_fused_collect_per_agent(env.config, max_steps, net.hidden)
+        _, traj = collect(states, policy, seed)
     else:
         collect = build_fused_collect(env.config, max_steps, policy.hidden)
         _, traj = collect(states, policy, seed)
@@ -98,7 +102,7 @@ def main(argv=None) -> dict:
             raise SystemExit("--checkpoint-dir required unless --random")
         env_id, policy = load_policy(os.path.join(args.checkpoint_dir, "policy.pt"))
         env_id = args.env or env_id
-    msg_bits = 0 if isinstance(policy, nn.ModuleList) else policy.msg_bits
+    msg_bits = (policy[0] if isinstance(policy, nn.ModuleList) else policy).msg_bits
     env = rware_tpu_torch.make(env_id, device=dev, msg_bits=msg_bits)
     stats = mean_return(env, policy, args.episodes, args.max_steps, args.seed)
     print(f"episodes={stats['episodes']} mean_return={stats['mean_return']:.3f} "

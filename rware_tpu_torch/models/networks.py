@@ -304,8 +304,8 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 class _Bf16Tanh(torch.autograd.Function):
     """``h = bf16(tanh(u))`` of a bf16-exact ``u``.  Its gradient follows
-    the fused update kernels (``pallas_update.py:1134-1139``):
-    ``bf16(bf16(g) * bf16(1 - bf16(h * h)))``."""
+    the fused update kernels (``pallas_update.py:1134-1139``) and XLA's bf16
+    ``tanh``: ``bf16(bf16(g) * bf16(1 - bf16(h * h)))``."""
 
     @staticmethod
     def forward(ctx, u):
@@ -345,7 +345,9 @@ def _apply_heads(arrays: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tenso
 
     h = rnd(x.reshape(-1, x.shape[-1]))
     for w, b in ((w0, b0), (w1, b1)):
-        h = rnd(torch.tanh(rnd(rnd(h @ rnd(w)) + rnd(b))))
+        # bf16(tanh) whose gradient reads the bf16 output, as JAX's bf16
+        # tanh does: zero where a unit saturates to +-1
+        h = _Bf16Tanh.apply(rnd(rnd(h @ rnd(w)) + rnd(b)))
     return (h @ wc + bc).reshape(x.shape[:-1] + (wc.shape[1],))
 
 

@@ -132,7 +132,7 @@ def critic_value_loss(cfg, cdims: CriticDims, cparams: torch.Tensor, batch):
 
 
 def seac_terms(cfg, seac_lambda: float, logits, value, action, behav_logp, old_value, adv,
-               target, i_axis: int, advstats: Optional[torch.Tensor] = None):
+               target, i_axis: int, advstats: Optional[torch.Tensor] = None, bits=None):
     """The SEAC-PPO objective (``seac.py:443-480``) on agent i's heads over
     agent j's samples: ``logits`` (..., A) and ``value`` with the agent axes
     at ``i_axis`` (agent i, whose network ran) and last (agent j, whose
@@ -141,14 +141,22 @@ def seac_terms(cfg, seac_lambda: float, logits, value, action, behav_logp, old_v
     summed over j with pair weights ``eye + seac_lambda (1 - eye)`` and
     averaged over the rest; entropy and ``approx_kl`` come from the diagonal.
     ``advstats`` [mean, 1/std] as in :func:`clipped_ppo_terms` (None: the
-    mean and population std of all of ``adv``).  Returns (total, metrics)."""
+    mean and population std of all of ``adv``).  ``bits`` (..., M), the
+    message bits taken (broadcast over ``i_axis`` like ``action``), switches
+    to the joint move + Bernoulli policy: ``logits`` is then ``(logits,
+    msg_logits)`` and the log-prob and the entropy are the joint ones
+    (``cross_logp``, ``seac.py:415-441``).  Returns (total, metrics)."""
     if advstats is None:
         advn = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
     else:
         advn = (adv - advstats[0]) * advstats[1]
+    if bits is not None:
+        logits, msg_logits = logits
     lsm = torch.log_softmax(logits, dim=-1)
     idx = action.long().expand(lsm.shape[:-1])[..., None]
     logp = lsm.gather(-1, idx)[..., 0]
+    if bits is not None:
+        logp = logp + bernoulli_logp(msg_logits, bits).sum(-1)
     ratio = torch.exp(logp - behav_logp)
     pg1 = ratio * advn
     pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * advn
@@ -163,6 +171,8 @@ def seac_terms(cfg, seac_lambda: float, logits, value, action, behav_logp, old_v
     v_err = torch.maximum((value - target) ** 2, (v_clipped - target) ** 2)
     v_loss = 0.5 * (v_err * weight).sum(-1).mean()
     ent_map = -(torch.exp(lsm) * lsm).sum(-1)
+    if bits is not None:
+        ent_map = ent_map + bernoulli_entropy(msg_logits)
     entropy = torch.diagonal(ent_map, dim1=i_axis, dim2=-1).mean()
     total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
     with torch.no_grad():

@@ -1,32 +1,46 @@
 """SEAC-PPO: the shared-experience objective on a PPO trust region (the
-counterpart of ``build_seac_ppo_train_step`` in ``rware_tpu/models/seac.py``,
-MLP, without message bits).
+counterpart of ``build_seac_ppo_train_step`` and ``build_seac_gru_train_step``
+in ``rware_tpu/models/seac.py``), with MLP or GRU policies, with or without
+message bits.
 
 Each agent keeps its OWN actor-critic and learns from every agent's
 experience: for agent i on agent j's sample the ratio ``pi_i / pi_j,behaviour``
 is the SEAC importance weight, clipped; pair weight 1 on the diagonal and
 ``seac_lambda`` off it; the entropy bonus on each agent's own policy only.
+With message bits (``msg_bits`` M > 0) every log-probability, ratio and
+entropy is the joint one over (move, bits) (``seac.py:415-441, 961-984``).
 
 The parameters are one ``(N, P)`` float32 stack, row i agent i's flat vector
-in the :class:`~rware_tpu_torch.models.networks.BlockDims` layout, and the
+in the :class:`~rware_tpu_torch.models.networks.BlockDims` (MLP) or
+:class:`~rware_tpu_torch.models.networks.GruDims` (GRU) layout, and the
 optimizer is optax's ``chain(clip_by_global_norm, adam(lr, eps=1e-5))`` over
 the whole stack (``seac.py:78-81``): one global norm across all agents and a
 constant lr, so :class:`~rware_tpu_torch.models.ppo.AdamState` and
 :func:`~rware_tpu_torch.models.ppo.clip_adam` serve unchanged.
 
-* :func:`build_seac_ppo_fused_train_step` is the learner on the kernels
+* :func:`build_seac_ppo_fused_train_step` is the MLP learner on the kernels
   (``collect_mode="pallas", update_mode="fused"``, ``seac.py:482-605``): the
   per-agent collector (K2d), the cross values and GAE, then E x M time-window
   passes of the per-agent gradient kernel (K8), each followed by the optimizer
-  step.
-* :func:`build_seac_ppo_train_step` is the plain learner (the XLA path,
-  ``seac.py:607-728``): the plain version of the per-agent collector, cross
-  values in flax's rounding, flat minibatches over ``T * B`` rolled by a
-  random offset each epoch, autograd of :func:`seac_ppo_loss`.
+  step.  K8 has no message head, so it takes no message bits, as JAX's does
+  not (``seac.py:359-363``).
+* :func:`build_seac_ppo_train_step` is the flat learner (the XLA update,
+  ``seac.py:607-728``): the per-agent collector (K2d, with its message mode
+  K2b) or its plain version, cross values in flax's rounding, flat
+  minibatches over ``T * B`` rolled by a random offset each epoch, autograd
+  of :func:`seac_ppo_loss`.  JAX runs SEAC-PPO with message bits this way
+  (``update_mode="auto"`` picks it, ``seac.py:343-345``).
+* :func:`build_seac_gru_train_step` is the recurrent learner
+  (``seac.py:846-1173``): the per-agent recurrent collector (K2d′), the cross
+  replay of every agent's GRU over every agent's observation stream
+  (:func:`gru_cross_replay`) for the old values and the bootstrap, cross GAE,
+  then E x M env-band minibatches, each autograd of :func:`seac_gru_loss`.
 
-The cross arrays (old values, advantages, targets) of the fused learner are
-``(N_i, T, B, N_j)``: agent i's critic on agent j's experience, slab i one
-``(T, B, N)`` array in the trajectory's own layout.
+The cross arrays (old values, advantages, targets) of the time-window learner
+are ``(N_i, T, B, N_j)``: agent i's critic on agent j's experience, slab i one
+``(T, B, N)`` array in the trajectory's own layout.  The recurrent learner's
+are ``(T, B, N_i, N_j)``, JAX's layout, so that an env band is one slice of
+axis 1 of every array.
 """
 from __future__ import annotations
 
@@ -47,12 +61,17 @@ from rware_tpu_torch.models.ippo import (
     policy_of,
     update_metrics,
 )
+from rware_tpu_torch.models.ippo_rnn import RNNRunnerState, band_slice, rnn_policy_of
 from rware_tpu_torch.models.networks import (
     BlockDims,
+    GruDims,
     apply_forward,
+    gru_to_arrays,
     init_actor_critic,
+    init_recurrent_actor_critic,
     pack_arrays,
     params_to_arrays,
+    split_heads,
     train_forward,
 )
 from rware_tpu_torch.models.ppo import (
@@ -62,17 +81,21 @@ from rware_tpu_torch.models.ppo import (
     seac_loss_native,
     seac_terms,
 )
-from rware_tpu_torch.ops.fused_rollout import build_fused_collect_per_agent
+from rware_tpu_torch.ops.fused_rollout import (
+    build_fused_collect_gru_per_agent,
+    build_fused_collect_per_agent,
+)
 from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
 from rware_tpu_torch.ops.fused_update import metric_means
 
 CROSS_CHUNK = 1 << 20  # samples per chunk of the cross-value forward
 
 __all__ = [
-    "SEACPPOConfig", "SeacTrainStep", "build_seac_ppo_fused_train_step",
-    "build_seac_ppo_train_step", "cross_gae", "cross_last_values", "cross_values",
-    "init_seac_ppo", "seac_loss_native", "seac_optimizer_step", "seac_policies_of",
-    "seac_ppo_loss", "seac_window_starts",
+    "SEACPPOConfig", "SeacFlatTrainStep", "SeacGruTrainStep", "SeacTrainStep",
+    "build_seac_gru_train_step", "build_seac_ppo_fused_train_step", "build_seac_ppo_train_step",
+    "cross_gae", "cross_last_values", "cross_values", "gru_cross_replay", "init_seac_gru",
+    "init_seac_ppo", "seac_gru_loss", "seac_gru_policies_of", "seac_loss_native",
+    "seac_optimizer_step", "seac_policies_of", "seac_ppo_loss", "seac_window_starts",
 ]
 
 
@@ -97,15 +120,14 @@ class SEACPPOConfig:
 def init_seac_ppo(env: Warehouse, cfg: SEACPPOConfig, seed: int,
                   hidden: Tuple[int, int] = (128, 128)) -> Tuple[RunnerState, BlockDims]:
     """N independent flax-default inits (``seac.py:61-98``), agent i's drawn
-    from ``numpy.random.default_rng((seed, 2, i))``, stacked into ``(N, P)``;
-    the optimizer state over the stack and a fresh batch of ``cfg.n_envs``
-    env states on ``env.device``."""
+    from ``numpy.random.default_rng((seed, 2, i))`` (with a message head where
+    the config has message bits), stacked into ``(N, P)``; the optimizer
+    state over the stack and a fresh batch of ``cfg.n_envs`` env states on
+    ``env.device``."""
     from rware_tpu_torch.parallel import batched_reset
 
-    if env.config.msg_bits:
-        raise NotImplementedError("SEAC-PPO with message bits is not ported yet")
     l_obs = env.config.flattened_obs_length
-    models = [init_actor_critic(l_obs, env.n_actions, hidden, (seed, 2, i))
+    models = [init_actor_critic(l_obs, env.n_actions, hidden, (seed, 2, i), env.config.msg_bits)
               for i in range(env.n_agents)]
     params = torch.stack([pack_arrays(params_to_arrays(m)) for m in models])
     params = params.detach().to(env.device)
@@ -152,7 +174,7 @@ def cross_values(dims: BlockDims, params: torch.Tensor, obs: torch.Tensor,
         for i in range(n):
             arrays = dims.split(params[i])
             for t0 in range(0, t_len, rows):
-                out[i, t0:t0 + rows] = forward(arrays, obs[t0:t0 + rows])[1]
+                out[i, t0:t0 + rows] = forward(arrays, obs[t0:t0 + rows], dims.msg_bits)[1]
     return out
 
 
@@ -161,7 +183,7 @@ def cross_last_values(dims: BlockDims, params: torch.Tensor, obs: torch.Tensor) 
     the rollout under each agent's critic, by flax's ``model.apply`` recipe
     (``seac.py:516-521``)."""
     with torch.no_grad():
-        return torch.stack([apply_forward(dims.split(p), obs)[1] for p in params])
+        return torch.stack([apply_forward(dims.split(p), obs, dims.msg_bits)[1] for p in params])
 
 
 def cross_gae(cfg, reward: torch.Tensor, values: torch.Tensor, done: torch.Tensor,
@@ -193,17 +215,26 @@ def seac_window_starts(cfg: SEACPPOConfig, offsets) -> torch.Tensor:
 
 
 def seac_ppo_loss(cfg: SEACPPOConfig, dims: BlockDims, params: torch.Tensor, batch):
-    """The plain learner's minibatch loss in flax's rounding
+    """The flat learner's minibatch loss in flax's rounding
     (``minibatch_loss``, ``seac.py:443-480``; each agent's network is
     :func:`apply_forward`) on a flat minibatch ``(obs (M, N_j, L), action,
-    behaviour logp (M, N_j), old_value, adv, target (M, N_i, N_j))``; the
-    advantages normalised over the minibatch.  Returns (total, metrics)."""
-    obs, action, behav_logp, old_value, adv, target = batch
-    heads = [apply_forward(dims.split(params[i]), obs) for i in range(params.shape[0])]
-    logits = torch.stack([h[0] for h in heads], dim=1)  # (M, N_i, N_j, A)
-    value = torch.stack([h[1] for h in heads], dim=1)
+    behaviour logp (M, N_j), old_value, adv, target (M, N_i, N_j))``, and the
+    bits (M, N_j, M_bits) as a 7th entry where ``dims`` has message bits
+    (the joint log-prob and entropy of ``cross_logp``, ``seac.py:415-441``);
+    the advantages normalised over the minibatch.  Returns (total,
+    metrics)."""
+    obs, action, behav_logp, old_value, adv, target = batch[:6]
+    heads = [apply_forward(dims.split(params[i]), obs, dims.msg_bits)
+             for i in range(params.shape[0])]
+    value = torch.stack([h[1] for h in heads], dim=1)  # (M, N_i, N_j)
+    if dims.msg_bits:
+        logits = (torch.stack([h[0][0] for h in heads], dim=1),
+                  torch.stack([h[0][1] for h in heads], dim=1))
+    else:
+        logits = torch.stack([h[0] for h in heads], dim=1)  # (M, N_i, N_j, A)
+    bits = batch[6][:, None] if dims.msg_bits else None
     return seac_terms(cfg, cfg.seac_lambda, logits, value, action[:, None], behav_logp[:, None],
-                      old_value, adv, target, 1)
+                      old_value, adv, target, 1, bits=bits)
 
 
 class SeacTrainStep:
@@ -283,48 +314,378 @@ def build_seac_ppo_fused_train_step(env: Warehouse, dims: BlockDims, cfg: SEACPP
     return SeacTrainStep(env, dims, cfg, deterministic_collect)
 
 
-def build_seac_ppo_train_step(env: Warehouse, dims: BlockDims, cfg: SEACPPOConfig
-                              ) -> Callable[[RunnerState], Tuple[RunnerState, dict]]:
-    """The plain SEAC-PPO learner: ``train_step(runner) -> (runner,
-    metrics)``.  Collects with the plain version of the per-agent collector
-    (Philox draws keyed by :func:`collect_seed`), takes cross values and
-    bootstrap values in flax's rounding, cross GAE, then E epochs of M flat
-    minibatches over the ``T * B`` rows rolled by a random offset, each
-    autograd of :func:`seac_ppo_loss` and one optimizer step."""
-    collect = build_fused_collect_per_agent(env.config, cfg.rollout_len, (dims.h1, dims.h2))
-    box = [None]
-    d = cfg.rollout_len * cfg.n_envs
-    mb = d // cfg.minibatches
+class SeacFlatTrainStep:
+    """``train_step(runner, offsets=None) -> (runner, metrics)``; see
+    :func:`build_seac_ppo_train_step`.  The phases are methods so that
+    callers can time them: :meth:`rollout`, :meth:`advantages`,
+    :meth:`update`."""
 
-    def flat(x):  # (T, B, ...) -> (T * B, ...)
-        return x.reshape((d,) + x.shape[2:])
+    def __init__(self, env: Warehouse, dims: BlockDims, cfg: SEACPPOConfig, collect: str,
+                 deterministic_collect: bool):
+        if collect not in ("fused", "plain"):
+            raise ValueError(f"collect must be 'fused' or 'plain', got {collect!r}")
+        self.env, self.dims, self.cfg = env, dims, cfg
+        self.collect = build_fused_collect_per_agent(env.config, cfg.rollout_len,
+                                                     (dims.h1, dims.h2),
+                                                     deterministic=deterministic_collect)
+        self.plain_collect = collect == "plain"
+        self._policies = None
 
-    def cross_flat(x):  # (N_i, T, B, N_j) -> (T * B, N_i, N_j)
-        return flat(x.permute(1, 2, 0, 3))
-
-    def train_step(runner: RunnerState):
-        box[0] = seac_policies_of(dims, runner.params, box[0])
+    def rollout(self, runner: RunnerState):
+        """(env_states, traj) of the per-agent collector (or its plain
+        version) with this update's key."""
+        self._policies = seac_policies_of(self.dims, runner.params, self._policies)
         seed = collect_seed(runner.seed, runner.update_idx)
-        env_states, traj = collect.plain(runner.env_states, box[0], seed)
-        obs = env._obs_fn(env_states)
-        values = cross_values(dims, runner.params, traj["obs"].float(), apply_forward)
-        last = cross_last_values(dims, runner.params, obs)
-        adv, targets = cross_gae(cfg, traj["reward"], values, traj["done"], last)
-        dataset = (flat(traj["obs"].float()), flat(traj["action"]), flat(traj["logp"]),
-                   cross_flat(values), cross_flat(adv), cross_flat(targets))
+        collect = self.collect.plain if self.plain_collect else self.collect
+        return collect(runner.env_states, self._policies, seed)
+
+    def advantages(self, runner: RunnerState, env_states, traj):
+        """(obs after the rollout, cross values, advantages, targets), the
+        cross arrays (N_i, T, B, N_j), values and bootstrap in flax's
+        rounding (``seac.py:650-675``)."""
+        obs = self.env._obs_fn(env_states)
+        values = cross_values(self.dims, runner.params, traj["obs"], apply_forward)
+        last = cross_last_values(self.dims, runner.params, obs)
+        adv, targets = cross_gae(self.cfg, traj["reward"], values, traj["done"], last)
+        return obs, values, adv, targets
+
+    def update(self, runner: RunnerState, dataset, offsets: Optional[Sequence[int]] = None):
+        """((params, opt_state), metrics) of the E x M flat minibatches over
+        the ``T * B`` rows of ``dataset`` (obs, action, logp (T, B, N, ...),
+        the cross arrays (N_i, T, B, N_j), and the bits with message bits):
+        epoch e rolls the rows by ``offsets[e]`` in [0, T * B) (drawn from
+        the runner's generator if None), then each minibatch is one autograd
+        of :func:`seac_ppo_loss` and one optimizer step."""
+        cfg, dims = self.cfg, self.dims
+        d = cfg.rollout_len * cfg.n_envs
+        mb = d // cfg.minibatches
+        if offsets is None:
+            offsets = torch.randint(0, d, (cfg.epochs,), generator=runner.generator)
+
+        def flat(x):  # (T, B, ...) -> (T * B, ...)
+            return x.reshape((d,) + x.shape[2:])
+
+        obs, action, logp, values, adv, targets = dataset[:6]
+        # the cross arrays (N_i, T, B, N_j) -> (T * B, N_i, N_j)
+        rows = (flat(obs), flat(action), flat(logp),
+                *(flat(x.permute(1, 2, 0, 3)) for x in (values, adv, targets)),
+                *(flat(x) for x in dataset[6:]))
         params, opt_state = runner.params, runner.opt_state
         per_pass = []
-        for _ in range(cfg.epochs):
-            off = int(torch.randint(0, d, (), generator=runner.generator))
-            rolled = tuple(torch.roll(x, off, dims=0) for x in dataset)
+        for off in torch.as_tensor(offsets).tolist():
             for m in range(cfg.minibatches):
-                batch = tuple(x[m * mb:(m + 1) * mb] for x in rolled)
+                # roll(x, off)[m * mb:(m + 1) * mb], read in place unless it wraps
+                start = (m * mb - int(off)) % d
+                batch = tuple(band_slice(x[None], start, mb)[0] for x in rows)
                 grads, metrics = loss_grads(lambda p: seac_ppo_loss(cfg, dims, p, batch), params)
                 params, opt_state = seac_optimizer_step(cfg, params, grads, opt_state)
                 per_pass.append(metrics)
+        return (params, opt_state), mean_metrics(per_pass)
+
+    def __call__(self, runner: RunnerState, offsets: Optional[Sequence[int]] = None
+                 ) -> Tuple[RunnerState, dict]:
+        env_states, traj = self.rollout(runner)
+        obs, values, adv, targets = self.advantages(runner, env_states, traj)
+        dataset = (traj["obs"], traj["action"], traj["logp"], values, adv, targets)
+        if self.dims.msg_bits:
+            dataset += (traj["bits"],)
+        (params, opt_state), ppo = self.update(runner, dataset, offsets)
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs,
                                   update_idx=runner.update_idx + 1)
-        return new, update_metrics(cfg, traj, mean_metrics(per_pass))
+        return new, update_metrics(self.cfg, traj, ppo)
 
-    return train_step
+
+def build_seac_ppo_train_step(env: Warehouse, dims: BlockDims, cfg: SEACPPOConfig,
+                              collect: str = "fused", deterministic_collect: bool = False
+                              ) -> SeacFlatTrainStep:
+    """The flat SEAC-PPO learner (``build_seac_ppo_train_step`` with
+    ``update_mode="xla"``): ``train_step(runner, offsets=None) -> (runner,
+    metrics)``.  Collects with the per-agent collector, by default through
+    its kernel (K2d, and K2b with message bits, on a CUDA runner:
+    ``collect_mode="pallas"``; its plain version on a CPU runner), or with
+    ``collect="plain"`` through its plain version on any runner (the plain
+    learner of ``train --collect plain``; Philox draws keyed by
+    :func:`collect_seed`), takes cross values and bootstrap values in flax's
+    rounding, cross GAE, then E epochs of M flat minibatches over the ``T *
+    B`` rows rolled by an offset in [0, T * B) per epoch, each autograd of
+    :func:`seac_ppo_loss` and one optimizer step.  ``offsets`` of a call
+    overrides the (E,) offsets drawn from the runner's generator.  The
+    learner SEAC-PPO with message bits trains on, since K8 has no message
+    head."""
+    return SeacFlatTrainStep(env, dims, cfg, collect, deterministic_collect)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent SEAC-PPO: per-agent GRU actors with shared experience
+# (``seac.py:731-1173``).  Evaluating pi_i on agent j's experience replays
+# agent i's GRU over agent j's observation sequence, episode ends included:
+# N_i x N_j streams.  The diagonal starts from the carry stored at the
+# rollout's start, the other pairs from zeros.
+# ---------------------------------------------------------------------------
+
+
+def init_seac_gru(env: Warehouse, cfg: SEACPPOConfig, seed: int, hidden: int = 128,
+                  embed: int = 128) -> Tuple[RNNRunnerState, GruDims]:
+    """N independent flax-default inits of the recurrent actor-critic
+    (``init_seac_gru``, ``seac.py:763-803``), agent i's drawn from
+    ``numpy.random.default_rng((seed, 2, i))`` (with a message head where the
+    config has message bits), stacked into ``(N, P)``; the optimizer state
+    over the stack, a fresh batch of ``cfg.n_envs`` env states and the zero
+    carry (B, N, Hg) bf16 on ``env.device``."""
+    from rware_tpu_torch.parallel import batched_reset
+
+    l_obs = env.config.flattened_obs_length
+    models = [init_recurrent_actor_critic(l_obs, env.n_actions, hidden, embed, (seed, 2, i),
+                                          env.config.msg_bits) for i in range(env.n_agents)]
+    params = torch.stack([pack_arrays(gru_to_arrays(m)) for m in models]).detach().to(env.device)
+    env_states, obs = batched_reset(env, seed, cfg.n_envs)
+    runner = RNNRunnerState(
+        params=params, opt_state=optimizer_init(params), env_states=env_states, obs=obs,
+        carry=models[0].initialize_carry((cfg.n_envs, env.n_agents), env.device),
+        generator=torch.Generator().manual_seed(seed), update_idx=0, seed=seed,
+    )
+    return runner, GruDims.of(models[0])
+
+
+def seac_gru_policies_of(dims: GruDims, params: torch.Tensor,
+                         models: Optional[nn.ModuleList] = None) -> nn.ModuleList:
+    """The N :class:`RecurrentActorCritic` holding the rows of ``params``
+    (copied into ``models`` when given) — what the per-agent recurrent
+    collector runs."""
+    if models is None:
+        return nn.ModuleList(rnn_policy_of(dims, p) for p in params)
+    for p, model in zip(params, models):
+        rnn_policy_of(dims, p, model.to(p.device))
+    return models
+
+
+def stacked_blocks(dims, params: torch.Tensor) -> list:
+    """The blocks of an (N, P) stack, each (N, rows, cols) (views)."""
+    sizes = [r * c for r, c in dims.shapes]
+    return [b.view(params.shape[0], r, c)
+            for b, (r, c) in zip(torch.split(params, sizes, dim=1), dims.shapes)]
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16)
+
+
+def _cross_input_gates(blocks, obs: torch.Tensor) -> torch.Tensor:
+    """(N_i, R, 3Hg) bf16: every agent's embed and GRU input gates on the
+    observations ``obs`` (R, L), in flax's rounding (``Dense`` with
+    ``dtype=bfloat16``: each product, bias add and tanh rounded to bf16).
+    Time-parallel, so the replay takes them for all steps at once."""
+    we, be, wi, bi = blocks[:4]
+    e = torch.tanh(torch.matmul(_bf16(obs), _bf16(we)) + _bf16(be))
+    return torch.matmul(e, _bf16(wi)) + _bf16(bi)
+
+
+def _cross_cell(wh: torch.Tensor, bhn: torch.Tensor, h: torch.Tensor,
+                gi: torch.Tensor) -> torch.Tensor:
+    """flax's ``GRUCell`` with ``dtype=bfloat16`` (``networks.gru_apply_step``)
+    on the bf16 carries ``h`` (N_i, R, Hg) and input gates ``gi`` (N_i, R,
+    3Hg) of every agent at once: the new hidden (N_i, R, Hg) bf16.  Every op
+    rounds to bf16, the sigmoid op by op as XLA expands it (``exp``, the add
+    and the division); the weight is cast per step, so that its gradient is
+    rounded per step and summed over the steps in float32, as JAX's scan
+    sums it."""
+    hg = h.shape[-1]
+    # split, not slices: one backward op joins the parts' gradients
+    gi_rz, gi_n = gi.split([2 * hg, hg], dim=-1)
+    gh_rz, gh_n = torch.matmul(h, _bf16(wh)).split([2 * hg, hg], dim=-1)
+    r, z = (1.0 / (1.0 + torch.exp(-(gi_rz + gh_rz)))).split(hg, dim=-1)  # r and z at once
+    n = torch.tanh(gi_n + r * (gh_n + _bf16(bhn)))
+    return (1.0 - z) * n + z * h
+
+
+def _cross_heads(blocks, hseq: torch.Tensor) -> torch.Tensor:
+    """The float32 head block (..., A + 1 + M) of every agent on its bf16
+    hidden states ``hseq`` (N_i, R, Hg)."""
+    wc, bc = blocks[6:]
+    return torch.matmul(hseq.float(), wc) + bc
+
+
+def gru_cross_replay(dims: GruDims, params: torch.Tensor, obs: torch.Tensor, done: torch.Tensor,
+                     h0_diag: torch.Tensor, remat: bool = False):
+    """Every agent's GRU over every agent's observation stream
+    (``_gru_cross_replay``, ``seac.py:806-843``), in flax's rounding:
+    ``params`` (N_i, P), ``obs`` (T, B, N_j, L), ``done`` (T, B), ``h0_diag``
+    (B, N_j, Hg) bf16, each agent's own carry at the start (the diagonal's;
+    the other pairs start from zeros).  Every stream's carry is zeroed where
+    its episode ends.  The N_i agents run as one batched product per step.
+
+    ``remat`` keeps only each step's carry for the backward and computes the
+    cell again there (``torch.utils.checkpoint``, as ``jax.checkpoint`` at
+    ``seac.py:836-841``); the gradient is the same to the bit.
+
+    Returns (heads, values, last_carry): heads (T, B, N_i, N_j, A) float32,
+    ``(logits, msg_logits)`` with message bits; values (T, B, N_i, N_j);
+    last_carry (B, N_i, N_j, Hg) bf16."""
+    from torch.utils.checkpoint import checkpoint
+
+    t_len, b, n, l_obs = obs.shape
+    n_i = params.shape[0]
+    blocks = stacked_blocks(dims, params)
+    wh, bhn = blocks[4], blocks[5]
+    rows = b * n
+    gi = _cross_input_gates(blocks, obs.reshape(t_len * rows, l_obs))
+    # one view per step by unbind, whose backward stacks the steps' gradients
+    # once (indexing gi[:, t] would add a zero-filled gi-sized gradient per step)
+    gi = gi.view(n_i, t_len, rows, gi.shape[-1]).unbind(1)
+    eye = torch.eye(n_i, n, dtype=torch.bool, device=obs.device)
+    h = torch.where(eye[:, None, :, None], h0_diag[None].to(torch.bfloat16),
+                    torch.zeros((), dtype=torch.bfloat16, device=obs.device))
+    h = h.reshape(n_i, rows, -1)
+    # (T, 1, B * N_j, 1): 0 where the stream's episode ended, else 1
+    keep = (~done).repeat_interleave(n, dim=1)[:, None, :, None].to(torch.bfloat16)
+    hseq = []
+    for t in range(t_len):
+        if remat:
+            new_h = checkpoint(_cross_cell, wh, bhn, h, gi[t], use_reentrant=False)
+        else:
+            new_h = _cross_cell(wh, bhn, h, gi[t])
+        hseq.append(new_h)
+        h = new_h * keep[t]
+    hcat = _cross_heads(blocks, torch.stack(hseq, dim=1).view(n_i, t_len * rows, -1))
+    hcat = hcat.view(n_i, t_len, b, n, -1).permute(1, 2, 0, 3, 4)
+    heads, values = split_heads(hcat, dims.msg_bits)
+    return heads, values, h.view(n_i, b, n, -1).permute(1, 0, 2, 3)
+
+
+def cross_bootstrap(dims: GruDims, params: torch.Tensor, last_carry: torch.Tensor,
+                    obs: torch.Tensor) -> torch.Tensor:
+    """(B, N_i, N_j) bootstrap values: agent i's GRU one step on agent j's
+    observation after the rollout (B, N_j, L) from the last cross carry
+    (B, N_i, N_j, Hg), in flax's rounding (``seac.py:1061-1068``)."""
+    b, n, l_obs = obs.shape
+    n_i = params.shape[0]
+    blocks = stacked_blocks(dims, params)
+    with torch.no_grad():
+        gi = _cross_input_gates(blocks, obs.reshape(b * n, l_obs))
+        h = last_carry.permute(1, 0, 2, 3).reshape(n_i, b * n, -1)
+        hcat = _cross_heads(blocks, _cross_cell(blocks[4], blocks[5], h, gi))
+        return split_heads(hcat.view(n_i, b, n, -1).permute(1, 0, 2, 3), dims.msg_bits)[1]
+
+
+def seac_gru_loss(cfg: SEACPPOConfig, dims: GruDims, params: torch.Tensor, batch,
+                  remat: bool = False):
+    """The recurrent minibatch loss (``minibatch_loss``, ``seac.py:986-1021``)
+    on an env band ``(obs (T, M, N_j, L), done (T, M), action, behaviour logp
+    (T, M, N_j), old_value, adv, target (T, M, N_i, N_j), h0_diag (M, N_j,
+    Hg))``, and the bits (T, M, N_j, M_bits) as a 9th entry where ``dims`` has
+    message bits: the cross replay from the band's carries, the joint
+    log-prob and entropy (``cross_logp_ent``, ``seac.py:961-984``), the
+    SEAC-PPO objective with advantages normalised over the band.  Returns
+    (total, metrics)."""
+    obs, done, action, behav_logp, old_value, adv, target, h0_diag = batch[:8]
+    heads, values, _ = gru_cross_replay(dims, params, obs, done, h0_diag, remat)
+    bits = batch[8][:, :, None] if dims.msg_bits else None
+    return seac_terms(cfg, cfg.seac_lambda, heads, values, action[:, :, None],
+                      behav_logp[:, :, None], old_value, adv, target, 2, bits=bits)
+
+
+def seac_gru_remat(cfg: SEACPPOConfig, dims: GruDims, n_agents: int) -> bool:
+    """JAX's rule (``seac.py:899-909``) with the model's GRU width where JAX
+    has a literal 128: remat once the band replay's autodiff residuals, about
+    ``4 T (B / M) N^2 4 Hg`` elements, pass 2^31."""
+    resid = 4.0 * cfg.rollout_len * (cfg.n_envs // cfg.minibatches) * n_agents * n_agents \
+        * 4 * dims.hidden
+    return resid > 2**31
+
+
+class SeacGruTrainStep:
+    """``train_step(runner, offsets=None) -> (runner, metrics)``; see
+    :func:`build_seac_gru_train_step`.  The phases are methods so that
+    callers can time them: :meth:`rollout`, :meth:`advantages`,
+    :meth:`update`."""
+
+    def __init__(self, env: Warehouse, dims: GruDims, cfg: SEACPPOConfig,
+                 deterministic_collect: bool):
+        if cfg.n_envs % cfg.minibatches:
+            raise ValueError(f"minibatches={cfg.minibatches} must divide n_envs={cfg.n_envs} "
+                             "(env-band minibatches)")
+        self.env, self.dims, self.cfg = env, dims, cfg
+        self.collect = build_fused_collect_gru_per_agent(env.config, cfg.rollout_len,
+                                                         (dims.embed, dims.hidden),
+                                                         deterministic=deterministic_collect)
+        self.remat = seac_gru_remat(cfg, dims, env.n_agents)
+        self._policies = None
+
+    def rollout(self, runner: RNNRunnerState):
+        """(env_states, new_carry, traj) of one per-agent recurrent collector
+        launch from the runner's carry with this update's key."""
+        self._policies = seac_gru_policies_of(self.dims, runner.params, self._policies)
+        seed = collect_seed(runner.seed, runner.update_idx)
+        return self.collect(runner.env_states, self._policies, seed, runner.carry)
+
+    def advantages(self, runner: RNNRunnerState, env_states, traj):
+        """(obs after the rollout, cross values, advantages, targets), the
+        cross arrays (T, B, N_i, N_j): the old policies' cross replay from
+        the runner's carry, the bootstrap from its last carry, cross GAE
+        (``seac.py:1061-1085``)."""
+        dims, params = self.dims, runner.params
+        obs = self.env._obs_fn(env_states)
+        with torch.no_grad():
+            _, values, last_carry = gru_cross_replay(dims, params, traj["obs"], traj["done"],
+                                                     runner.carry)
+        last = cross_bootstrap(dims, params, last_carry, obs)
+        adv, targets = cross_gae(self.cfg, traj["reward"], values.permute(2, 0, 1, 3),
+                                 traj["done"], last.permute(1, 0, 2))
+        return obs, values, adv.permute(1, 2, 0, 3), targets.permute(1, 2, 0, 3)
+
+    def update(self, runner: RNNRunnerState, dataset, offsets: Optional[Sequence[int]] = None):
+        """((params, opt_state), metrics) of the E x M env bands of
+        ``dataset`` (obs, done, action, logp, values, adv, targets in the
+        ``(T, B, ...)`` layout, the carry at the rollout's start (B, N, Hg),
+        and the bits with message bits): epoch e rolls the envs by
+        ``offsets[e]`` in [0, B) (drawn from the runner's generator if None)
+        and band m takes envs ``(m * B / M - offsets[e]) % B`` onwards
+        (``seac.py:1108-1128``); each band is one autograd of
+        :func:`seac_gru_loss` and one optimizer step over the stack."""
+        cfg, dims = self.cfg, self.dims
+        b = cfg.n_envs
+        mb = b // cfg.minibatches
+        if offsets is None:
+            offsets = torch.randint(0, b, (cfg.epochs,), generator=runner.generator)
+        params, opt_state = runner.params, runner.opt_state
+        per_pass = []
+        for off in torch.as_tensor(offsets).tolist():
+            for m in range(cfg.minibatches):
+                start = (m * mb - int(off)) % b
+                band = [band_slice(x, start, mb) for x in dataset]
+                band[7] = band_slice(dataset[7][None], start, mb)[0]  # the carry: (B, N, Hg)
+                grads, metrics = loss_grads(
+                    lambda p: seac_gru_loss(cfg, dims, p, band, self.remat), params)
+                params, opt_state = seac_optimizer_step(cfg, params, grads, opt_state)
+                per_pass.append(metrics)
+        return (params, opt_state), mean_metrics(per_pass)
+
+    def __call__(self, runner: RNNRunnerState, offsets: Optional[Sequence[int]] = None
+                 ) -> Tuple[RNNRunnerState, dict]:
+        env_states, new_carry, traj = self.rollout(runner)
+        obs, values, adv, targets = self.advantages(runner, env_states, traj)
+        dataset = (traj["obs"], traj["done"], traj["action"], traj["logp"], values, adv, targets,
+                   runner.carry)
+        if self.dims.msg_bits:
+            dataset += (traj["bits"],)
+        (params, opt_state), ppo = self.update(runner, dataset, offsets)
+        new = dataclasses.replace(runner, params=params, opt_state=opt_state,
+                                  env_states=env_states, obs=obs, carry=new_carry,
+                                  update_idx=runner.update_idx + 1)
+        return new, update_metrics(self.cfg, traj, ppo)
+
+
+def build_seac_gru_train_step(env: Warehouse, dims: GruDims, cfg: SEACPPOConfig,
+                              deterministic_collect: bool = False) -> SeacGruTrainStep:
+    """The recurrent SEAC-PPO learner (``build_seac_gru_train_step``,
+    ``seac.py:846-1173``, ``collect_mode="pallas"``): K2d′ collect from the
+    runner's carry (its plain version on a CPU runner), the old policies'
+    cross replay and bootstrap, cross GAE, then per epoch one env offset in
+    [0, B) and M env bands, each autograd of the cross-replay loss
+    (:func:`seac_gru_loss`, remat where :func:`seac_gru_remat` asks for it)
+    and one clip + Adam step over the stack.  ``offsets`` of a call
+    overrides the (E,) offsets drawn from the runner's generator.  With
+    message bits the collector runs its message mode (K2b) and the loss is
+    the joint one."""
+    return SeacGruTrainStep(env, dims, cfg, deterministic_collect)

@@ -43,10 +43,10 @@ _SIGNATURES = {
     # n_stacks weights_global | layout state_in state_out w0 b0 w1 b1 wp bp wv bv
     # wm bm obs action bits logp value reward done stream
     "rw_fused_collect": _DIMS + [_I] * 13 + [_P] * 21,
-    # ... deterministic T B sensor_range normalised L E Hg A threads smem_bytes |
-    # layout state_in state_out we be wi bi wh bhn wc bc hbuf obs action bits
-    # logp value reward done stream
-    "rw_fused_collect_gru": _DIMS + [_I] * 11 + [_P] * 20,
+    # ... deterministic T B sensor_range normalised L E Hg A threads smem_bytes
+    # n_stacks smem_stacks | layout state_in state_out we be wi bi wh bhn wc bc
+    # hbuf obs action bits logp value reward done stream
+    "rw_fused_collect_gru": _DIMS + [_I] * 13 + [_P] * 20,
     # L E Hg T B N start_env n_env rows_per_thread | obs done h0 we be wi bi wh
     # bhn hseq stream
     "rw_fused_gru_fwd": [_I] * 9 + [_P] * 11,

@@ -1,5 +1,5 @@
 """The fused rollout kernel (K1) and the fused collector kernels: MLP (K2a),
-recurrent (K2c) and per-agent MLP (K2d).
+recurrent (K2c), per-agent MLP (K2d) and per-agent recurrent (K2d′).
 
 * :func:`build_fused_rollout` replaces
   ``rware_tpu/ops/pallas_rollout.py::build_pallas_rollout``: T env steps per
@@ -17,18 +17,22 @@ recurrent (K2c) and per-agent MLP (K2d).
 * :func:`build_fused_collect_per_agent` replaces ``build_pallas_collect`` in
   mode ``policy="mlp_per_agent"`` (SEAC's collector): K2a's step where agent i
   runs its own :class:`ActorCritic` i.
+* :func:`build_fused_collect_gru_per_agent` replaces ``build_pallas_collect``
+  in mode ``policy="gru_per_agent"`` (recurrent SEAC's collector, K2d′): K2c's
+  step where agent i runs its own :class:`RecurrentActorCritic` i on its own
+  slice of the carry.
 
-Message bits (``msg_bits`` M > 0) are a mode of K1 and of the MLP and
-recurrent collectors (K2b, ``_sample_bernoulli`` of ``pallas_rollout.py``):
-the state carries every agent's M bits, the observations show them, K1 sets
-them from its actions (scripted) or from Philox purpose MESSAGE (random),
-and the collectors sample them from the policy's Bernoulli message head,
-add their log-probability to the move's and return them as ``traj["bits"]``
-(T, B, N, M) int32; an episode's end clears them.  The per-agent collector
-(K2d) takes no message bits, as JAX's fused SEAC update does not.
+Message bits (``msg_bits`` M > 0) are a mode of K1 and of every collector
+(K2b, ``_sample_bernoulli`` of ``pallas_rollout.py``): the state carries
+every agent's M bits, the observations show them, K1 sets them from its
+actions (scripted) or from Philox purpose MESSAGE (random), and the
+collectors sample them from the policy's Bernoulli message head, add their
+log-probability to the move's and return them as ``traj["bits"]`` (T, B, N,
+M) int32; an episode's end clears them.
 
 Each wrapper launches its CUDA kernel (``csrc/fused_rollout.cu``,
-``csrc/fused_collect.cu`` for K2a and K2d, ``csrc/fused_collect_gru.cu``) for
+``csrc/fused_collect.cu`` for K2a and K2d, ``csrc/fused_collect_gru.cu`` for
+K2c and K2d′) for
 tensors on a CUDA device, and runs its plain PyTorch version (``.plain``)
 only for tensors on the CPU; it counts its kernel launches in ``.launches``.  Both draw from the same Philox stream
 (:mod:`rware_tpu_torch.ops.philox`), so kernel and plain version agree bit
@@ -498,38 +502,36 @@ class FusedCollectPerAgent(FusedCollect):
 
     def __init__(self, config: WarehouseConfig, n_steps: int,
                  hidden: Tuple[int, int] = (128, 128), deterministic: bool = False):
-        if config.msg_bits:
-            raise NotImplementedError("the per-agent collector with message bits is not "
-                                      "ported yet")
         self.n_stacks = n = config.n_agents
         # all N networks in shared memory where they fit beside the tiles (up
         # to 3 agents at L=71, hidden (128, 128)); else read from device memory
         self.weights_global = not any(
-            collect_smem_bytes(config.flattened_obs_length, hidden, 5, t, n) <= SMEM_LIMIT
-            for t in (128, 64, 32))
+            collect_smem_bytes(config.flattened_obs_length, hidden, 5, t, n, config.msg_bits)
+            <= SMEM_LIMIT for t in (128, 64, 32))
         super().__init__(config, n_steps, hidden, deterministic)
 
     def _check_policy(self, policies: Sequence[ActorCritic]):
-        n = self.config.n_agents
+        n, m = self.config.n_agents, self.config.msg_bits
         if len(policies) != n or any(
                 p.hidden != self.hidden or p.obs_dim != self.obs_len or p.n_actions != 5
-                for p in policies):
+                or p.msg_bits != m for p in policies):
             raise ValueError(
                 f"policies must be {n} ActorCritic(obs_dim={self.obs_len}, n_actions=5, "
-                f"hidden={self.hidden}), one per agent"
+                f"hidden={self.hidden}, msg_bits={m}), one per agent"
             )
 
     def _forward(self, policies, obs: torch.Tensor):
         """Agent i's network on agent i's observation."""
-        heads = [policy(obs[:, i]) for i, policy in enumerate(policies)]
+        heads = [policy.heads(obs[:, i]) for i, policy in enumerate(policies)]
+        msg = None if heads[0][2] is None else torch.stack([h[2] for h in heads], dim=1)
         return (torch.stack([h[0] for h in heads], dim=1),
-                torch.stack([h[1] for h in heads], dim=1), None)
+                torch.stack([h[1] for h in heads], dim=1), msg)
 
     def weights(self, policies, dev) -> list:
         """The kernel's ten weight arrays, each the agents' stacks back to
         back: dense_0 and dense_1 in bf16, as (out, in) for shared memory or
         as (in, out) where they are read from device memory; the heads and
-        biases in f32 (the message head empty)."""
+        biases in f32 (the message head empty without message bits)."""
         per_agent = [super(FusedCollectPerAgent, self).weights(p, dev) for p in policies]
         return [torch.stack([w[k].t() if self.weights_global and k in (0, 2) else w[k]
                              for w in per_agent]).contiguous() for k in range(10)]
@@ -539,18 +541,21 @@ def build_fused_collect_per_agent(config: WarehouseConfig, n_steps: int,
                                   hidden: Tuple[int, int] = (128, 128),
                                   deterministic: bool = False) -> FusedCollectPerAgent:
     """Returns ``collect(state, policies, seed) -> (state, traj)`` with
-    ``policies`` a sequence of N :class:`ActorCritic` with ``hidden``, agent i
-    running ``policies[i]`` (``pallas_rollout.py:1316-1373``), and ``traj`` as
-    :func:`build_fused_collect`'s."""
+    ``policies`` a sequence of N :class:`ActorCritic` with ``hidden`` and the
+    config's ``msg_bits``, agent i running ``policies[i]``
+    (``pallas_rollout.py:1316-1373``), and ``traj`` as
+    :func:`build_fused_collect`'s, bits included with message bits."""
     return FusedCollectPerAgent(config, n_steps, hidden, deterministic)
 
 
 def collect_gru_smem_bytes(obs_len: int, embed: int, hidden: int, n_actions: int,
-                           threads: int, msg_bits: int = 0) -> int:
+                           threads: int, msg_bits: int = 0, n_stacks: int = 1) -> int:
     """Dynamic shared memory of one recurrent-collector block
-    (csrc/fused_collect_gru.cu) with ``msg_bits`` message logits."""
+    (csrc/fused_collect_gru.cu) with ``msg_bits`` message logits, holding
+    ``n_stacks`` agents' f32 bias and head blocks (0: read from device
+    memory) beside the per-thread tiles."""
     ac = n_actions + 1 + msg_bits
-    f32 = embed + 4 * hidden + hidden * ac + ac
+    f32 = n_stacks * (embed + 4 * hidden + hidden * ac + ac)
     return ((4 * f32 + 15) // 16) * 16 + 2 * (obs_len + embed + hidden) * threads
 
 
@@ -558,28 +563,55 @@ class FusedCollectGru(_Collector):
     """``collect(state, policy, seed, h0) -> (state, new_h, traj)``; see
     :func:`build_fused_collect_gru`."""
 
+    n_stacks = 1  # weight stacks the kernel takes: one GRU for all agents
+    smem_stacks = 1  # bias and head blocks held in shared memory
+    kernel_name = "fused_collect_gru"
+
     def __init__(self, config: WarehouseConfig, n_steps: int, hidden: Tuple[int, int] = (128, 128),
                  deterministic: bool = False):
         super().__init__(config, n_steps, hidden, deterministic,
-                         lambda l, e, hg, a, t: collect_gru_smem_bytes(l, e, hg, a, t,
-                                                                       config.msg_bits),
+                         lambda l, e, hg, a, t: collect_gru_smem_bytes(
+                             l, e, hg, a, t, config.msg_bits, self.smem_stacks),
                          "(embed, gru_hidden)")
 
-    def _check(self, state: WarehouseState, policy: RecurrentActorCritic, h0: torch.Tensor):
-        _check_state(self.config, state)
-        m = self.config.msg_bits
-        if (policy.embed_dim, policy.hidden) != self.hidden or policy.obs_dim != self.obs_len \
-                or policy.n_actions != 5 or policy.msg_bits != m:
+    def _check_net(self, policy) -> bool:
+        return isinstance(policy, RecurrentActorCritic) and policy.obs_dim == self.obs_len \
+            and (policy.embed_dim, policy.hidden) == self.hidden and policy.n_actions == 5 \
+            and policy.msg_bits == self.config.msg_bits
+
+    def _check_policy(self, policy: RecurrentActorCritic):
+        if not self._check_net(policy):
             raise ValueError(
                 f"policy must be RecurrentActorCritic(obs_dim={self.obs_len}, n_actions=5, "
-                f"hidden={self.hidden[1]}, embed={self.hidden[0]}, msg_bits={m})"
+                f"hidden={self.hidden[1]}, embed={self.hidden[0]}, "
+                f"msg_bits={self.config.msg_bits})"
             )
+
+    def _check(self, state: WarehouseState, policy, h0: torch.Tensor):
+        _check_state(self.config, state)
+        self._check_policy(policy)
         want = (state.batch_size, self.config.n_agents, self.hidden[1])
         if tuple(h0.shape) != want or h0.dtype != torch.bfloat16 or h0.device != state.device:
             raise ValueError(f"h0 must be bf16 {want} on {state.device}")
 
-    def __call__(self, state: WarehouseState, policy: RecurrentActorCritic, seed,
-                 h0: torch.Tensor):
+    def _arrays(self, policy, dev) -> list:
+        """The eight :class:`GruDims` blocks of ``policy`` on ``dev``."""
+        return [a.detach().to(dev) for a in gru_to_arrays(policy)]
+
+    def _cell(self, arrays, h: torch.Tensor, obs: torch.Tensor):
+        """(logits (B, N, A), value (B, N), msg_logits (B, N, M) or None, new
+        h (B, N, Hg)) of one step of the collector-rounding cell on the carry
+        ``h`` and the observations ``obs`` (B, N, L)."""
+        b, n, hg = h.shape
+        m = self.config.msg_bits
+        heads, value, new_h = gru_collect_step(arrays, h.reshape(b * n, hg),
+                                               obs.reshape(b * n, -1), m)
+        logits, msg_logits = heads if m else (heads, None)
+        return (logits.reshape(b, n, -1), value.reshape(b, n),
+                None if msg_logits is None else msg_logits.reshape(b, n, m),
+                new_h.reshape(b, n, hg))
+
+    def __call__(self, state: WarehouseState, policy, seed, h0: torch.Tensor):
         self._check(state, policy, h0)
         seed = _check_seed(seed)
         if state.device.type == "cuda":
@@ -589,33 +621,37 @@ class FusedCollectGru(_Collector):
         raise ValueError(f"no fused collector for device {state.device}")
 
     @torch.no_grad()
-    def plain(self, state: WarehouseState, policy: RecurrentActorCritic, seed, h0: torch.Tensor):
+    def plain(self, state: WarehouseState, policy, seed, h0: torch.Tensor):
         """The plain PyTorch version: observe -> the collector-rounding cell
         (:func:`gru_collect_step`) -> sample -> step, with the kernel's
         draws; the carry is zeroed where an episode ends."""
         self._check(state, policy, h0)
         seed = _check_seed(seed)
-        b, n, hg = state.batch_size, self.config.n_agents, self.hidden[1]
-        draws = _Draws(self.config, seed, self.deterministic, b, state.device)
-        arrays = [a.detach().to(state.device) for a in gru_to_arrays(policy)]
-        m = self.config.msg_bits
-        h = h0.to(torch.float32).reshape(b * n, hg)
+        draws = _Draws(self.config, seed, self.deterministic, state.batch_size, state.device)
+        arrays = self._arrays(policy, state.device)
+        h = h0.to(torch.float32)
         out = {k: [] for k in self.traj_keys}
         for t in range(self.n_steps):
             obs = self._obs(state).to(torch.bfloat16)
-            heads, value, h = gru_collect_step(arrays, h, obs.reshape(b * n, -1), m)
-            logits, msg_logits = heads if m else (heads, None)
-            logits, value = logits.reshape(b, n, 5), value.reshape(b, n)
-            if m:
-                msg_logits = msg_logits.reshape(b, n, m)
+            logits, value, msg_logits, h = self._cell(arrays, h, obs)
             acts, action, bits, logp = self._sample(draws, t, logits, msg_logits)
             state, rewards, done, _ = self._transition(state, acts, draws.queue(t))
             state = self._reset(draws.respawn(t)).where(done, state)
-            h = torch.where(done.repeat_interleave(n)[:, None], torch.zeros_like(h), h)
+            h = torch.where(done[:, None, None], torch.zeros_like(h), h)
             for k, v in zip(out, (obs, action, logp, value, rewards, done, bits)):
                 out[k].append(v)
-        new_h = h.reshape(b, n, hg).to(torch.bfloat16)
-        return state, new_h, {k: torch.stack(v) for k, v in out.items()}
+        return state, h.to(torch.bfloat16), {k: torch.stack(v) for k, v in out.items()}
+
+    def weights(self, policy, dev) -> list:
+        """The kernel's eight weight arrays: We, Wi, Wh in bf16, the biases
+        and the head block in f32."""
+        we, be, wi, bi, wh, bhn, wc, bc = self._arrays(policy, dev)
+        return [
+            we.to(torch.bfloat16).contiguous(), be.float().contiguous(),
+            wi.to(torch.bfloat16).contiguous(), bi.float().contiguous(),
+            wh.to(torch.bfloat16).contiguous(), bhn.float().contiguous(),
+            wc.float().contiguous(), bc.float().contiguous(),
+        ]
 
     @torch.no_grad()
     def _launch(self, state, policy, seed, h0):
@@ -623,30 +659,26 @@ class FusedCollectGru(_Collector):
 
         lib = load_library()
         dev = state.device
-        b, n, t_len, l_obs = state.batch_size, self.config.n_agents, self.n_steps, self.obs_len
+        b, t_len, l_obs = state.batch_size, self.n_steps, self.obs_len
         embed, hg = self.hidden
+        m = self.config.msg_bits
         with torch.cuda.device(dev):
             packed = pack_state(state)
             out = torch.empty_like(packed)
-            we, be, wi, bi, wh, bhn, wc, bc = (a.detach().to(dev) for a in gru_to_arrays(policy))
-            weights = [
-                we.to(torch.bfloat16).contiguous(), be.float().contiguous(),
-                wi.to(torch.bfloat16).contiguous(), bi.float().contiguous(),
-                wh.to(torch.bfloat16).contiguous(), bhn.float().contiguous(),
-                wc.float().contiguous(), bc.float().contiguous(),
-            ]
+            weights = self.weights(policy, dev)
             hbuf = h0.permute(1, 2, 0).contiguous()  # (N, Hg, B): coalesced over envs
             traj = self._empty_traj(b, dev)
-            smem = collect_gru_smem_bytes(l_obs, embed, hg, 5, self.threads, self.config.msg_bits)
+            smem = collect_gru_smem_bytes(l_obs, embed, hg, 5, self.threads, m, self.smem_stacks)
             code = lib.rw_fused_collect_gru(
                 *_dims(self.config), seed, int(self.deterministic), t_len, b,
                 self.config.sensor_range, int(self.config.normalised_coordinates),
-                l_obs, embed, hg, 5, self.threads, smem,
+                l_obs, embed, hg, 5, self.threads, smem, self.n_stacks,
+                self.smem_stacks if self.n_stacks > 1 else 0,
                 _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
                 *[_ptr(w) for w in weights], _ptr(hbuf), *self._traj_ptrs(traj),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
-            check(lib, code, "fused_collect_gru")
+            check(lib, code, self.kernel_name)
             self.launches += 1
         return unpack_state(out, state), hbuf.permute(2, 0, 1).contiguous(), traj
 
@@ -661,3 +693,61 @@ def build_fused_collect_gru(config: WarehouseConfig, n_steps: int,
     :func:`build_fused_collect`'s, bits included with message bits
     (``pallas_rollout.py:1832-1836``)."""
     return FusedCollectGru(config, n_steps, hidden, deterministic)
+
+
+class FusedCollectGruPerAgent(FusedCollectGru):
+    """``collect(state, policies, seed, h0) -> (state, new_h, traj)``; see
+    :func:`build_fused_collect_gru_per_agent`.  K2c's wrapper with one weight
+    stack per agent (K2d′)."""
+
+    kernel_name = "fused_collect_gru_per_agent"
+
+    def __init__(self, config: WarehouseConfig, n_steps: int, hidden: Tuple[int, int] = (128, 128),
+                 deterministic: bool = False):
+        self.n_stacks = n = config.n_agents
+        # the N agents' f32 bias and head blocks in shared memory where they
+        # fit beside the tiles (every registered config at embed and GRU
+        # width 128 without message bits); else read from device memory
+        self.smem_stacks = n if n == 1 or any(
+            collect_gru_smem_bytes(config.flattened_obs_length, *hidden, 5, t,
+                                   config.msg_bits, n) <= SMEM_LIMIT
+            for t in (128, 64, 32)) else 0
+        super().__init__(config, n_steps, hidden, deterministic)
+
+    def _check_policy(self, policies: Sequence[RecurrentActorCritic]):
+        n = self.config.n_agents
+        if len(policies) != n or not all(self._check_net(p) for p in policies):
+            raise ValueError(
+                f"policies must be {n} RecurrentActorCritic(obs_dim={self.obs_len}, "
+                f"n_actions=5, hidden={self.hidden[1]}, embed={self.hidden[0]}, "
+                f"msg_bits={self.config.msg_bits}), one per agent"
+            )
+
+    def _arrays(self, policies, dev) -> list:
+        """The eight :class:`GruDims` blocks, each the agents' stacked on a
+        leading axis."""
+        per_agent = [super(FusedCollectGruPerAgent, self)._arrays(p, dev) for p in policies]
+        return [torch.stack(blocks) for blocks in zip(*per_agent)]
+
+    def _cell(self, arrays, h: torch.Tensor, obs: torch.Tensor):
+        """Agent i's cell (``_gru_forward_per_agent``) on agent i's slice of
+        the carry and agent i's observation."""
+        m = self.config.msg_bits
+        outs = [gru_collect_step([a[i] for a in arrays], h[:, i], obs[:, i], m)
+                for i in range(h.shape[1])]
+        logits = [o[0][0] if m else o[0] for o in outs]
+        return (torch.stack(logits, dim=1), torch.stack([o[1] for o in outs], dim=1),
+                torch.stack([o[0][1] for o in outs], dim=1) if m else None,
+                torch.stack([o[2] for o in outs], dim=1))
+
+
+def build_fused_collect_gru_per_agent(config: WarehouseConfig, n_steps: int,
+                                      hidden: Tuple[int, int] = (128, 128),
+                                      deterministic: bool = False) -> FusedCollectGruPerAgent:
+    """Returns ``collect(state, policies, seed, h0) -> (state, new_h, traj)``
+    with ``policies`` a sequence of N :class:`RecurrentActorCritic` with
+    ``hidden`` = (embed, gru_hidden) and the config's ``msg_bits``, agent i
+    running ``policies[i]`` on its own slice ``h0[:, i]`` of the carry
+    (``pallas_rollout.py:1376-1435``); ``new_h`` and ``traj`` as
+    :func:`build_fused_collect_gru`'s."""
+    return FusedCollectGruPerAgent(config, n_steps, hidden, deterministic)

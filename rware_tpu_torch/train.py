@@ -1,6 +1,7 @@
-"""Train IPPO (MLP or GRU policy), MAPPO (MLP) or SEAC-PPO (MLP) on a
+"""Train IPPO (MLP or GRU policy), MAPPO (MLP) or SEAC-PPO (MLP or GRU) on a
 warehouse config — the port's counterpart of ``train.py`` (algo ``ippo`` with
-net ``mlp`` or ``gru``, algos ``mappo`` and ``seac-ppo`` with net ``mlp``).
+net ``mlp`` or ``gru``, algo ``mappo`` with net ``mlp``, algo ``seac-ppo``
+with net ``mlp`` or ``gru``).
 
 Examples::
 
@@ -11,6 +12,8 @@ Examples::
         --ent-coef 0.03
     python -m rware_tpu_torch.train --device cuda --algo seac-ppo --n-envs 4096 --updates 800 \\
         --ent-coef 0.03
+    python -m rware_tpu_torch.train --device cuda --algo seac-ppo --net gru --n-envs 4096 \\
+        --updates 800 --ent-coef 0.03 [--msg-bits 2]
     python -m rware_tpu_torch.train --device cuda --msg-bits 2 --n-envs 4096 --updates 400
     python -m rware_tpu_torch.train --device cpu --n-envs 128 --rollout-len 8 --updates 2
 
@@ -22,36 +25,45 @@ whole-MAPPO-phase kernel (K7).  ``--net gru`` trains the recurrent policy
 through the recurrent collector (K2c) and, per env-band pass, the GRU
 forward and backward sequence kernels (K9, K10).  ``--algo seac-ppo`` trains
 one MLP per agent through the per-agent collector (K2d) and, per pass, the
-per-agent SEAC gradient kernel (K8).  On the CPU each runs its plain
-version.  ``--collect plain`` runs the plain learner of the algo and net
-(``models/ippo.build_train_step``, ``models/ippo_rnn.build_rnn_train_step``
-with ``--net gru``, ``models/seac.build_seac_ppo_train_step`` with ``--algo
-seac-ppo``).  ``--msg-bits M`` gives every agent M message bits (the env's
-``MultiDiscrete([5, 2, ..., 2])`` action; ``train.py:45-49``) and trains the
-Bernoulli message head: for ``--algo ippo`` through the collectors' message
-mode (K2b) and, per pass, the PPO gradient kernel with the message head (K4;
-K3 has none); for ``--algo mappo`` on JAX's split path (K4 for the actor, the
-critic by autograd).  The device is never chosen for you: ``--device cuda``
-without a GPU raises.  The final policy is written with ``torch.save`` to
-``<checkpoint-dir>/policy.pt`` with its net kind under ``net`` and its
-message bits under ``msg_bits``; a MAPPO run
-adds its central critic under the key ``critic``, a SEAC-PPO run holds one
-network per agent and says how many under ``per_agent``.
+per-agent SEAC gradient kernel (K8); with ``--net gru`` one GRU per agent
+through the per-agent recurrent collector (K2d′) and, per env band, the
+cross replay of every agent's GRU over every agent's stream by autograd.  On
+the CPU each runs its plain version.  ``--collect plain`` runs the plain
+learner of the algo and net (``models/ippo.build_train_step``,
+``models/ippo_rnn.build_rnn_train_step`` with ``--net gru``, the per-agent
+collector's plain version for ``--algo seac-ppo`` with the MLP; recurrent
+SEAC-PPO and MAPPO have none).  ``--msg-bits M`` gives every agent
+M message bits (the env's ``MultiDiscrete([5, 2, ..., 2])`` action;
+``train.py:45-49``) and trains the Bernoulli message head: for ``--algo
+ippo`` through the collectors' message mode (K2b) and, per pass, the PPO
+gradient kernel with the message head (K4; K3 has none); for ``--algo mappo``
+on JAX's split path (K4 for the actor, the critic by autograd); for ``--algo
+seac-ppo`` with the MLP through K2d's message mode and JAX's flat update by
+autograd (K8 has no message head), with the GRU through K2d′'s.  The device is
+never chosen for you: ``--device cuda`` without a GPU raises.
+
+``--checkpoint-dir`` writes the final policy with ``torch.save`` to
+``<checkpoint-dir>/policy.pt``, with its net kind under ``net`` and its
+message bits under ``msg_bits``; a MAPPO run adds its central critic under
+the key ``critic``, a SEAC-PPO run holds one network per agent and says how
+many under ``per_agent``.  Every ``--checkpoint-every`` updates, and at the
+end, the whole runner is saved there too (``rware_tpu_torch.checkpoint``,
+the last three kept); ``--resume`` restores the latest and trains on to
+``--updates``, the same updates an unbroken run takes.
 """
 from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import torch
 
 from rware_tpu_torch.core.env import resolve_device
 
-NOT_PORTED = ("not ported yet: the port trains --algo ippo with --net mlp or --net gru, "
-              "--algo mappo with --net mlp and --collect fused, and --algo seac-ppo with "
-              "--net mlp, message bits with --algo ippo and mappo (SEAC A2C, recurrent SEAC, "
-              "recurrent MAPPO and SEAC-PPO with message bits are still to come)")
+NOT_PORTED = ("not ported yet: the port trains --algo ippo and seac-ppo with --net mlp or "
+              "--net gru, --algo mappo with --net mlp, and each of them with message bits "
+              "but --fused-critic-phase; --algo mappo and seac-ppo --net gru only with "
+              "--collect fused (SEAC A2C and recurrent MAPPO are still to come)")
 
 
 def parse_args(argv=None):
@@ -69,7 +81,7 @@ def parse_args(argv=None):
                    help="minibatches of the plain learner (the fused path takes time windows)")
     p.add_argument("--msg-bits", type=int, default=None,
                    help="override the env's message-channel width (ids cannot express it) "
-                        "and train the Bernoulli message head (ippo, mappo)")
+                        "and train the Bernoulli message head")
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
     p.add_argument("--updates", type=int, default=100)
     p.add_argument("--n-envs", type=int, default=256)
@@ -79,6 +91,10 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=50,
+                   help="save the whole runner every N updates (with --checkpoint-dir)")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest runner saved in --checkpoint-dir and train on")
     return p.parse_args(argv)
 
 
@@ -87,24 +103,26 @@ def save_policy(path: str, env_id: str, dims, params: torch.Tensor, updates: int
     """``torch.save`` of the policy: its net kind (``"mlp"``: an
     ``ActorCritic``; ``"gru"``: a ``RecurrentActorCritic``), sizes and state
     dict, and under ``critic`` those of MAPPO's ``CentralCritic``.  An (N, P)
-    ``params`` stack (SEAC) is N ``ActorCritic``, one per agent, saved as one
+    ``params`` stack (SEAC) is N nets of the kind, one per agent, saved as one
     ``nn.ModuleList`` with ``per_agent: N``."""
     from rware_tpu_torch.models.ippo import policy_of
     from rware_tpu_torch.models.ippo_rnn import rnn_policy_of
     from rware_tpu_torch.models.networks import GruDims, arrays_to_critic
-    from rware_tpu_torch.models.seac import seac_policies_of
+    from rware_tpu_torch.models.seac import seac_gru_policies_of, seac_policies_of
 
     ckpt = {"env": env_id, "obs_dim": dims.obs_len, "n_actions": dims.n_actions,
             "msg_bits": dims.msg_bits, "updates": updates}
-    if isinstance(dims, GruDims):
-        model = rnn_policy_of(dims, params.cpu())
+    gru = isinstance(dims, GruDims)
+    if gru:
         ckpt.update(net="gru", hidden=dims.hidden, embed=dims.embed)
-    elif params.dim() == 2:
-        model = seac_policies_of(dims, params.cpu())
-        ckpt.update(net="mlp", hidden=(dims.h1, dims.h2), per_agent=params.shape[0])
     else:
-        model = policy_of(dims, params.cpu())
         ckpt.update(net="mlp", hidden=(dims.h1, dims.h2))
+    if params.dim() == 2:
+        policies_of = seac_gru_policies_of if gru else seac_policies_of
+        model = policies_of(dims, params.cpu())
+        ckpt.update(per_agent=params.shape[0])
+    else:
+        model = (rnn_policy_of if gru else policy_of)(dims, params.cpu())
     ckpt["state_dict"] = model.state_dict()
     if cdims is not None:
         critic = arrays_to_critic(cdims.split(cparams.detach().cpu()))
@@ -116,8 +134,8 @@ def save_policy(path: str, env_id: str, dims, params: torch.Tensor, updates: int
 def load_policy(path: str, device="cpu"):
     """(env id, policy) of a file written by :func:`save_policy`: an
     ``ActorCritic``, for net kind ``"gru"`` a ``RecurrentActorCritic``, and
-    with ``per_agent: N`` an ``nn.ModuleList`` of N ``ActorCritic``, agent i
-    running the i-th (a file without a kind is an MLP's)."""
+    with ``per_agent: N`` an ``nn.ModuleList`` of N of them, agent i running
+    the i-th (a file without a kind is an MLP's)."""
     from torch import nn
 
     from rware_tpu_torch.models.networks import ActorCritic, RecurrentActorCritic
@@ -125,16 +143,17 @@ def load_policy(path: str, device="cpu"):
     ckpt = torch.load(path, map_location="cpu")
     net, msg_bits = ckpt.get("net", "mlp"), ckpt.get("msg_bits", 0)
     if net == "gru":
-        model = RecurrentActorCritic(ckpt["obs_dim"], ckpt["n_actions"], ckpt["hidden"],
-                                     ckpt["embed"], msg_bits)
-    elif net == "mlp" and "per_agent" in ckpt:
-        model = nn.ModuleList(
-            ActorCritic(ckpt["obs_dim"], ckpt["n_actions"], tuple(ckpt["hidden"]))
-            for _ in range(ckpt["per_agent"]))
+        def build():
+            return RecurrentActorCritic(ckpt["obs_dim"], ckpt["n_actions"], ckpt["hidden"],
+                                        ckpt["embed"], msg_bits)
     elif net == "mlp":
-        model = ActorCritic(ckpt["obs_dim"], ckpt["n_actions"], tuple(ckpt["hidden"]), msg_bits)
+        def build():
+            return ActorCritic(ckpt["obs_dim"], ckpt["n_actions"], tuple(ckpt["hidden"]),
+                               msg_bits)
     else:
         raise ValueError(f"{path}: unknown net kind {net!r}")
+    model = nn.ModuleList(build() for _ in range(ckpt["per_agent"])) \
+        if "per_agent" in ckpt else build()
     model.load_state_dict(ckpt["state_dict"])
     return ckpt["env"], model.to(device)
 
@@ -143,8 +162,9 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     mappo, seac, gru = args.algo == "mappo", args.algo == "seac-ppo", args.net == "gru"
     msg = bool(args.msg_bits)
-    if args.algo == "seac" or (mappo and (gru or args.collect != "fused")) \
-            or (seac and (gru or msg)) or (args.fused_critic_phase and (msg or not mappo)):
+    no_plain_learner = mappo or (seac and gru)
+    if args.algo == "seac" or (mappo and gru) or (args.collect != "fused" and no_plain_learner) \
+            or (args.fused_critic_phase and (msg or not mappo)):
         raise NotImplementedError(
             f"--algo {args.algo} --net {args.net} --collect {args.collect}"
             f"{' --fused-critic-phase' * args.fused_critic_phase}"
@@ -152,6 +172,7 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
 
     import rware_tpu_torch
+    from rware_tpu_torch.metrics import MetricLogger
     from rware_tpu_torch.models.ippo import IPPOConfig, build_train_step, init_runner
     from rware_tpu_torch.models.ippo_fused import build_fused_train_step
     from rware_tpu_torch.models.ippo_rnn import (
@@ -162,8 +183,10 @@ def main(argv=None) -> dict:
     from rware_tpu_torch.models.mappo import build_mappo_train_step, init_mappo_runner
     from rware_tpu_torch.models.seac import (
         SEACPPOConfig,
+        build_seac_gru_train_step,
         build_seac_ppo_fused_train_step,
         build_seac_ppo_train_step,
+        init_seac_gru,
         init_seac_ppo,
     )
 
@@ -176,11 +199,15 @@ def main(argv=None) -> dict:
         # train.py:254-259: the run sets the batch, the rollout, lr and ent_coef
         cfg = SEACPPOConfig(n_envs=args.n_envs, rollout_len=args.rollout_len, lr=args.lr,
                             ent_coef=args.ent_coef)
-        runner, dims = init_seac_ppo(env, cfg, args.seed)
-        if args.collect == "fused":
-            train_step = build_seac_ppo_fused_train_step(env, dims, cfg)
+        if gru:
+            runner, dims = init_seac_gru(env, cfg, args.seed)
+            train_step = build_seac_gru_train_step(env, dims, cfg)
         else:
-            train_step = build_seac_ppo_train_step(env, dims, cfg)
+            runner, dims = init_seac_ppo(env, cfg, args.seed)
+            if args.collect == "fused" and not msg:
+                train_step = build_seac_ppo_fused_train_step(env, dims, cfg)
+            else:  # K8 has no message head: JAX's flat update (seac.py:343-345)
+                train_step = build_seac_ppo_train_step(env, dims, cfg, collect=args.collect)
     elif mappo:
         runner, dims, cdims = init_mappo_runner(env, cfg, args.seed)
         train_step = build_mappo_train_step(env, dims, cdims, cfg,
@@ -197,33 +224,41 @@ def main(argv=None) -> dict:
             train_step = build_fused_train_step(env, dims, cfg)
         else:
             train_step = build_train_step(env, dims, cfg)
+    ckpts, start = None, 0
+    if args.checkpoint_dir:
+        from rware_tpu_torch.checkpoint import Checkpointer
+
+        ckpts = Checkpointer(os.path.join(args.checkpoint_dir, "runner"))
+        if args.resume and ckpts.latest_step is not None:
+            runner = ckpts.restore(template=runner)
+            start = runner.update_idx
+            print(f"resumed from update {start}", flush=True)
     env_steps_per_update = cfg.n_envs * cfg.rollout_len
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"training {args.algo} ({args.net}, {env.config.msg_bits} message bits) on {args.env} "
           f"on {dev} ({card}): {args.updates} "
           f"updates x {env_steps_per_update} env-steps, collect {args.collect}", flush=True)
     log_every = max(1, args.log_every)
-    t0 = last_t = time.perf_counter()
-    last_u, step_ms, entry = 0, [], {}
-    for u in range(args.updates):
+    logger = MetricLogger(print_every=1)
+    last_u, step_ms, entry = start, [], {}
+    for u in range(start, args.updates):
         runner, metrics = train_step(runner)
+        if ckpts and (u + 1) % args.checkpoint_every == 0:
+            ckpts.save(u + 1, runner)
         if (u + 1) % log_every and u + 1 != args.updates:
             continue
-        entry = {k: float(v) for k, v in metrics.items()}  # syncs the device
-        now = time.perf_counter()
-        n = u + 1 - last_u
-        if last_u > 0:  # the first window holds the set-up (kernel build, warm-up)
-            step_ms.append((now - last_t) * 1e3 / n)
-        entry.update(wall_s=now - t0, env_steps_per_s=env_steps_per_update * n / (now - last_t))
-        print("  ".join([f"step {u + 1}"] + [f"{k}={v:.4g}" for k, v in entry.items()]),
-              flush=True)
-        last_u, last_t = u + 1, now
+        # one device sync per logged window; the rate is the window's
+        entry = logger.log(u + 1, metrics, env_steps_per_update * (u + 1 - last_u))
+        if last_u > start:  # the first window holds the set-up (kernel build, warm-up)
+            step_ms.append(env_steps_per_update / entry["env_steps_per_s"] * 1e3)
+        last_u = u + 1
     if step_ms:
         ms = sorted(step_ms)[len(step_ms) // 2]
         print(f"timing: {ms:.1f}ms p50 per update "
               f"({env_steps_per_update / ms * 1e3 / 1e6:.2f}M env-steps/s)", flush=True)
     if args.checkpoint_dir:
-        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        if ckpts.latest_step != runner.update_idx:
+            ckpts.save(runner.update_idx, runner)
         path = os.path.join(args.checkpoint_dir, "policy.pt")
         if mappo:
             save_policy(path, args.env, dims, runner.params["actor"], args.updates, cdims,

@@ -7,6 +7,9 @@ JAX) is skipped::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
 """
+import os
+
+import numpy as np
 import pytest
 import torch
 
@@ -20,10 +23,12 @@ from rware_tpu_torch.ops.fused_mappo import (
     build_fused_mappo_update_phase,
 )
 from rware_tpu_torch.models.networks import GruDims, init_recurrent_actor_critic
+from rware_tpu_torch.models.ppo import METRIC_KEYS, loss_grads
 from rware_tpu_torch.ops.fused_gru import build_fused_gru_obs_bwd, build_fused_gru_obs_fwd
 from rware_tpu_torch.ops.fused_rollout import (
     build_fused_collect,
     build_fused_collect_gru,
+    build_fused_collect_gru_per_agent,
     build_fused_collect_per_agent,
     build_fused_rollout,
 )
@@ -436,3 +441,229 @@ def test_message_learners_take_the_per_pass_kernels_on_the_card():
     assert (step.collect.launches, step.grads.actor.launches) == (1, 4)
     for k, v in metrics.items():
         assert bool(torch.isfinite(v.float())), k
+
+
+# --- SEAC-PPO with message bits and recurrent SEAC-PPO: K2d with K2b, K2d′ ---
+
+
+@pytest.mark.parametrize("env_id", ["rware-tiny-2ag-v2", "rware-large-8ag-v2"])
+@pytest.mark.parametrize("m", [0, 2])
+@pytest.mark.parametrize("heads_in_smem", [True, False])
+def test_fused_collect_gru_per_agent_kernel_matches_plain(env_id, m, heads_in_smem):
+    """K2d′ (and its message mode): obs, actions, bits, rewards, done, the
+    final state and the new carry exact from a nonzero carry, value and logp
+    within ATOL; the agents' bias and head blocks in shared or (forced)
+    device memory."""
+    env = rware_tpu_torch.make(env_id, device=DEV, max_steps=20, msg_bits=m)
+    states, _ = batched_reset(env, 1, 1000)
+    length, n = env.config.flattened_obs_length, env.n_agents
+    gen = torch.Generator().manual_seed(3)
+    policies = torch.nn.ModuleList(
+        init_recurrent_actor_critic(length, 5, 128, 128, (3, i), m) for i in range(n))
+    with torch.no_grad():
+        for p in policies.parameters():
+            if p.dim() == 1:
+                p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+    policies = policies.to(DEV)
+    h0 = (torch.rand((1000, n, 128), generator=gen) * 2 - 1).to(torch.bfloat16).to(DEV)
+    collect = build_fused_collect_gru_per_agent(env.config, 32, deterministic=False)
+    assert collect.smem_stacks == n
+    if not heads_in_smem:
+        collect.smem_stacks = 0
+    ks, kh, ktraj = collect(states, policies, 2, h0)
+    ps, ph, ptraj = collect.plain(states, policies, 2, h0)
+    assert collect.launches == 1 and torch.equal(kh, ph)
+    for k in ("obs", "action", "reward", "done") + (("bits",) if m else ()):
+        assert torch.equal(ktraj[k], ptraj[k]), k
+    for k in ("value", "logp"):
+        assert float((ktraj[k] - ptraj[k]).abs().max()) <= ATOL, k
+    for f in MSG_FIELDS:
+        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+
+
+@pytest.mark.parametrize("env_id", ["rware-tiny-2ag-v2", "rware-large-8ag-v2"])
+def test_fused_collect_per_agent_message_mode_matches_plain(env_id):
+    """K2d with K2b (M=2): every agent's stack in shared memory (tiny-2ag)
+    or its dense layers in device memory (large-8ag); obs, actions, bits,
+    rewards, done and the final state exact."""
+    env = rware_tpu_torch.make(env_id, device=DEV, max_steps=20, msg_bits=2)
+    states, _ = batched_reset(env, 1, 1000)
+    length = env.config.flattened_obs_length
+    policies = torch.nn.ModuleList(
+        ActorCritic(length, msg_bits=2) for _ in range(env.n_agents)).to(DEV)
+    collect = build_fused_collect_per_agent(env.config, 32)
+    assert collect.weights_global == (env.n_agents > 3)
+    ks, ktraj = collect(states, policies, 2)
+    ps, ptraj = collect.plain(states, policies, 2)
+    assert collect.launches == 1
+    for k in ("obs", "action", "bits", "reward", "done"):
+        assert torch.equal(ktraj[k], ptraj[k]), k
+    for k in ("value", "logp"):
+        assert float((ktraj[k] - ptraj[k]).abs().max()) <= ATOL, k
+    for f in MSG_FIELDS:
+        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+
+
+def test_new_collectors_raise_rather_than_fall_back():
+    """On CUDA tensors the per-agent collectors launch their kernels and never
+    their plain versions, and refuse what the kernels cannot take."""
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=DEV, msg_bits=1)
+    states, _ = batched_reset(env, 0, 64)
+    length = env.config.flattened_obs_length
+    gru = build_fused_collect_gru_per_agent(env.config, 4)
+    mlp = build_fused_collect_per_agent(env.config, 4)
+    for wrapper in (gru, mlp):
+        wrapper.plain = lambda *args: pytest.fail("a CUDA tensor took the plain version")
+    nets = torch.nn.ModuleList(init_recurrent_actor_critic(length, 5, 128, 128, i, 1)
+                               for i in range(2)).to(DEV)
+    h0 = torch.zeros((64, 2, 128), dtype=torch.bfloat16, device=DEV)
+    gru(states, nets, 0, h0)
+    mlp(states, torch.nn.ModuleList(ActorCritic(length, msg_bits=1) for _ in range(2)).to(DEV), 0)
+    assert gru.launches == mlp.launches == 1
+    with pytest.raises(ValueError, match="h0 must be bf16"):
+        gru(states, nets, 0, h0.cpu())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        build_fused_collect_gru_per_agent(env.config, 4, (12, 128))
+
+
+@pytest.mark.parametrize("m", [0, 2])
+def test_seac_gru_train_step_runs_on_the_card(m):
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=20, msg_bits=m)
+    cfg = seac.SEACPPOConfig(n_envs=1024, rollout_len=16, epochs=2, minibatches=2)
+    runner, dims = seac.init_seac_gru(env, cfg, seed=0)
+    step = seac.build_seac_gru_train_step(env, dims, cfg)
+    step.collect.plain = lambda *args: pytest.fail("the learner took the plain collector")
+    new, metrics = step(runner)
+    new, metrics = step(new)
+    assert step.collect.launches == 2 and not step.remat
+    assert new.params.device.type == "cuda" and new.params.shape == (2, dims.n_params)
+    assert float((new.params - runner.params).abs().max()) > 0
+    assert new.carry.device.type == "cuda" and int(metrics["episodes_done"]) == 1024
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v.float())), k
+
+
+def test_seac_message_learner_takes_k2d_on_the_card():
+    """SEAC-PPO with message bits: K2d with K2b collect and the flat update
+    (K8 has no message head)."""
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=20, msg_bits=2)
+    cfg = seac.SEACPPOConfig(n_envs=1024, rollout_len=16, epochs=2, minibatches=2)
+    runner, dims = seac.init_seac_ppo(env, cfg, seed=0)
+    step = seac.build_seac_ppo_train_step(env, dims, cfg)
+    step.collect.plain = lambda *args: pytest.fail("the learner took the plain collector")
+    new, metrics = step(runner)
+    assert step.collect.launches == 1
+    assert float((new.params - runner.params).abs().max()) > 0
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v.float())), k
+
+
+# The torch-op half of the SEAC learners with message bits or GRUs on the card
+# against the same call on the CPU, which tests/test_torch_seac_gru.py and
+# tests/test_torch_seac.py hold to JAX, with their bounds: heads and values
+# within 2e-2, loss metrics within rtol 2e-2, atol 2e-3, gradients within 5% of
+# each block's largest |value|.  The replay's last carries are held within one
+# bf16 step; over 128 steps each flipped rounding feeds the steps after it, so
+# more entries differ than at the CPU tests' 8 steps (the CPU against JAX on
+# this band: 1.0-1.3% of them), and the card's tanh and exp round otherwise
+# than the CPU's: at most 5%.
+SEAC_METRIC_TOL = dict(rtol=2e-2, atol=2e-3)
+SEAC_GRAD_TOL = 0.05
+
+
+@pytest.fixture
+def all_cpu_threads():
+    """The CPU references at full width take every core."""
+    torch.set_num_threads(os.cpu_count())
+    yield
+    torch.set_num_threads(1)
+
+
+def seac_loss_inputs(rng, lead, n, obs_len, msg_bits):
+    """obs in {0, 0.5, 1} (lead..., N, L), random actions, behaviour logp
+    (lead..., N), old values, advantages and targets (lead..., N, N), bits
+    (lead..., N, M)."""
+    obs = torch.from_numpy((rng.integers(0, 3, lead + (n, obs_len)) * 0.5).astype(np.float32))
+    action = torch.from_numpy(rng.integers(0, 5, lead + (n,)))
+    logp = torch.from_numpy((rng.standard_normal(lead + (n,)) * 0.1 - 1.6 - 0.7 * msg_bits)
+                            .astype(np.float32))
+    cross = tuple(torch.from_numpy(rng.standard_normal(lead + (n, n)).astype(np.float32))
+                  for _ in range(3))
+    bits = torch.from_numpy(rng.integers(0, 2, lead + (n, msg_bits)))
+    return obs, action, logp, cross, bits
+
+
+def assert_loss_grads_close(dims, cfg, loss, params, batch):
+    """``loss``'s metrics and gradient on the card against the CPU's."""
+    grads, metrics = loss_grads(lambda p: loss(cfg, dims, p, batch), params)
+    cuda_batch = tuple(x.to(DEV) for x in batch)
+    cgrads, cmetrics = loss_grads(lambda p: loss(cfg, dims, p, cuda_batch), params.to(DEV))
+    for k in METRIC_KEYS:
+        np.testing.assert_allclose(float(cmetrics[k]), float(metrics[k]), err_msg=k,
+                                   **SEAC_METRIC_TOL)
+    worst = 0.0
+    for i in range(params.shape[0]):
+        for j, (g, w) in enumerate(zip(dims.split(cgrads[i].cpu()), dims.split(grads[i]))):
+            frac = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+            assert frac <= SEAC_GRAD_TOL, (i, j, frac)
+            worst = max(worst, frac)
+    print(f"{loss.__name__} M={dims.msg_bits}: largest gradient difference {worst:.3g} "
+          f"of its block's largest |value|")
+
+
+@pytest.mark.parametrize("reduced", [True, False])
+@pytest.mark.parametrize("m", [0, 2])
+def test_seac_gru_torch_ops_on_the_card_match_the_cpu(m, reduced, all_cpu_threads):
+    """``gru_cross_replay`` and ``seac_gru_loss`` on one env band of phase
+    22's shape (B=4,096 / 4 bands = 1,024 envs, T=128, embed and GRU 128,
+    tiny-2ag, episode ends inside the band, a nonzero carry): on the card
+    the products run through cuBLAS, with PyTorch's default reduced-precision
+    bf16 reductions allowed and without them, on the CPU through another
+    summation order."""
+    flags = torch.backends.cuda.matmul
+    default, flags.allow_bf16_reduced_precision_reduction = \
+        flags.allow_bf16_reduced_precision_reduction, reduced
+    try:
+        check_seac_gru_torch_ops(m, reduced)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = default
+
+
+def check_seac_gru_torch_ops(m, reduced):
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device="cpu", msg_bits=m)
+    runner, dims = seac.init_seac_gru(env, seac.SEACPPOConfig(n_envs=8), seed=3)
+    rng = np.random.default_rng(4)
+    t, b, n = 128, 1024, env.n_agents
+    obs, action, logp, cross, bits = seac_loss_inputs(rng, (t, b), n, dims.obs_len, m)
+    done = torch.from_numpy(rng.random((t, b)) < 1 / 64)
+    h0 = torch.from_numpy(rng.uniform(-1, 1, (b, n, dims.hidden))).to(torch.bfloat16)
+    params = runner.params
+    with torch.no_grad():
+        want = seac.gru_cross_replay(dims, params, obs, done, h0)
+        got = seac.gru_cross_replay(dims, params.to(DEV), obs.to(DEV), done.to(DEV),
+                                    h0.to(DEV))
+    # heads: the logits, and with message bits the message logits
+    pairs = list(zip(got[0], want[0])) if m else [(got[0], want[0])]
+    errs = [float((g.cpu() - w).abs().max()) for g, w in pairs + [(got[1], want[1])]]
+    diff = (got[2].cpu().float() - want[2].float()).abs()
+    share = float((diff > 0).float().mean())
+    print(f"cross replay M={m}, reduced-precision reductions {reduced}: heads and values "
+          f"max_abs_err {errs}, last carry max {float(diff.max()):.3g} on {share:.4g} of the "
+          "entries")
+    assert max(errs) <= 2e-2, errs
+    assert float(diff.max()) <= 2.0 ** -7 + 1e-6 and share <= 5e-2, (float(diff.max()), share)
+    batch = (obs, done, action, logp, *cross, h0) + ((bits,) if m else ())
+    assert_loss_grads_close(dims, seac.SEACPPOConfig(), seac.seac_gru_loss, params, batch)
+
+
+def test_seac_flat_loss_with_bits_on_the_card_matches_the_cpu(all_cpu_threads):
+    """``seac_ppo_loss`` with two message bits (the joint log-prob and
+    entropy) at phase 23's widths (hidden (128, 128), tiny-2ag) on 32,768
+    rows of bf16 observations, as the flat learner hands it a minibatch."""
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device="cpu", msg_bits=2)
+    runner, dims = seac.init_seac_ppo(env, seac.SEACPPOConfig(n_envs=8), seed=5)
+    rng = np.random.default_rng(6)
+    obs, action, logp, cross, bits = seac_loss_inputs(rng, (32768,), env.n_agents,
+                                                      dims.obs_len, 2)
+    batch = (obs.to(torch.bfloat16), action, logp, *cross, bits)
+    assert_loss_grads_close(dims, seac.SEACPPOConfig(), seac.seac_ppo_loss, runner.params, batch)

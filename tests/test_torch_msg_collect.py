@@ -196,10 +196,14 @@ def test_random_bits_follow_sigmoid(net):
 
 
 def test_per_agent_collector_refuses_message_bits():
+    """Both MLP collectors refuse networks without the env's message head
+    (the per-agent one takes message bits since its message mode, K2d with
+    K2b, is ported: ``tests/test_torch_seac_msg.py``)."""
     env = rware_tpu_torch.make("rware-tiny-2ag-v2", msg_bits=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_fused_collect_per_agent(env.config, 4)
-    collect = build_fused_collect(env.config, 2)
     states, _ = batched_reset(env, 0, 4)
+    length = env.config.flattened_obs_length
     with pytest.raises(ValueError, match="msg_bits=1"):
-        collect(states, init_actor_critic(env.config.flattened_obs_length), 0)
+        build_fused_collect_per_agent(env.config, 4)(states, [init_actor_critic(length)] * 2, 0)
+    collect = build_fused_collect(env.config, 2)
+    with pytest.raises(ValueError, match="msg_bits=1"):
+        collect(states, init_actor_critic(length), 0)

@@ -159,6 +159,6 @@ def test_train_mappo_msg_bits_and_refusals(tmp_path):
     ckpt = torch.load(str(tmp_path / "policy.pt"))
     assert ckpt["msg_bits"] == 2 and "critic" in ckpt
     for argv in (["--algo", "mappo", "--fused-critic-phase"], ["--algo", "mappo", "--net", "gru"],
-                 ["--algo", "seac-ppo"]):
+                 ["--algo", "seac"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(argv + ["--msg-bits", "2", "--device", "cpu"])

@@ -180,13 +180,14 @@ def test_train_and_evaluate_entry_points_seac(tmp_path):
 
 
 def test_seac_entry_point_refuses_what_is_not_there():
-    for argv in (["--algo", "seac"], ["--algo", "seac-ppo", "--net", "gru"],
+    for argv in (["--algo", "seac"], ["--algo", "seac", "--net", "gru"],
                  ["--algo", "seac-ppo", "--fused-critic-phase"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(argv + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        seac.init_seac_ppo(rware_tpu_torch.make("rware-tiny-2ag-v2", device="cpu", msg_bits=1),
-                           seac.SEACPPOConfig(n_envs=8), 0)
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device="cpu", msg_bits=1)
+    _, dims = seac.init_seac_ppo(env, seac.SEACPPOConfig(n_envs=8), 0)
+    with pytest.raises(NotImplementedError, match="not ported yet"):  # K8 has no message head
+        seac.build_seac_ppo_fused_train_step(env, dims, seac.SEACPPOConfig(n_envs=8))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--algo", "seac-ppo", "--updates", "1"])

@@ -12,25 +12,30 @@ it.  ``--profile`` adds one torch.profiler window per kernel on tiny-2ag:
 device time by kernel name and the device-busy share of the call's wall
 time.  ``--train-step`` times ``--repeats`` updates of the fused learner
 (``models/ippo_fused.build_fused_train_step``, tiny-2ag, B=16,384, T=128,
-E=4, M=4) and profiles one; with ``--algo mappo`` the learner is
+E=4, M=4), each alone, then twice the mean of three issued back to back (as
+``chip_smoke.py`` times a learner), and profiles one; with ``--algo mappo`` the learner is
 ``models/mappo.build_mappo_train_step``, per pass (K5) and, with
 ``--fused-critic-phase``, whole phase (K7); with ``--net gru`` it is the
 recurrent learner ``models/ippo_rnn.build_rnn_fused_train_step`` (K2c, and
 K9 + K10 per band pass); with ``--algo seac-ppo`` it is the SEAC-PPO learner
-``models/seac.build_seac_ppo_fused_train_step`` (K2d, and K8 per pass), and
-each config also times the per-agent collector kernel (K2d, B=16,384, T=128)
-and the SEAC-PPO gradient kernel (K8, one 32-row window of B=16,384 random
-data).  ``--msg-bits M`` gives every config M message bits: K1 and the GRU
-kernels then run on the longer observation, K2a and K2c in their message
+``models/seac.build_seac_ppo_fused_train_step`` (K2d, and K8 per pass), with
+``--net gru`` the recurrent one ``models/seac.build_seac_gru_train_step``
+(K2d′, and the cross replay by autograd per env band), and each config also
+times the per-agent collector kernels (K2d and K2d′, B=16,384, T=128) and the
+SEAC-PPO gradient kernel (K8, one 32-row window of B=16,384 random data).
+``--msg-bits M`` gives every config M message bits: K1 and the GRU kernels
+then run on the longer observation, K2a, K2c, K2d and K2d′ in their message
 mode (K2b), and each config also times the PPO gradient kernel with the
-message head (K4, one 32-row window of B=16,384 random data); the train step
-is then the message-bit learner of ``--algo`` and ``--net`` (IPPO per pass,
-MAPPO's split path).  Prints
-one JSON object per line, each with the card's name and power limit; ``--out`` also writes them to a file.
+message head (K4, one 32-row window of B=16,384 random data; K8 has none);
+the train step is then the message-bit learner of ``--algo`` and ``--net``
+(IPPO per pass, MAPPO's split path, SEAC-PPO's flat update).  ``--n-envs``
+sets the train step's batch (16,384; BASELINE.md's recurrent SEAC runs
+4,096).  Prints one JSON object per line, each with the card's name and power
+limit; ``--out`` also writes them to a file.
 
 Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-step]
        [--algo ippo|mappo|seac-ppo] [--net mlp|gru] [--fused-critic-phase] [--msg-bits M]
-       [--out FILE]
+       [--n-envs B] [--out FILE]
 """
 import argparse
 import json
@@ -51,12 +56,14 @@ def card() -> str:
     ).stdout.strip()
 
 
-def time_launches(fn, repeats):
+def time_launches(fn, repeats, times=None):
+    """(median, min, max) ms of ``repeats`` calls after a warm-up, each
+    timed alone with a sync after it; ``times`` receives each call's ms."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    times = []
+    times = [] if times is None else times
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -66,6 +73,21 @@ def time_launches(fn, repeats):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), min(times), max(times)
+
+
+def back_to_back_ms(fn, repeats):
+    """Mean ms of ``repeats`` calls issued with no sync between them, as
+    ``chip_smoke.py`` times a learner's three updates."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
 
 
 def profile(fn):
@@ -95,22 +117,39 @@ def profile(fn):
 
 
 def seac_kernels(env, env_id, states, repeats, emit):
-    """K2d on ``states`` (B=16,384, T=128) and K8 on one 32-row window of
-    random data of the same batch, at ``env``'s agent count."""
+    """K2d and K2d′ on ``states`` (B=16,384, T=128), each agent its own
+    network, and (without message bits) K8 on one 32-row window of random
+    data of the same batch, at ``env``'s agent count."""
     import torch
-    from rware_tpu_torch.models.seac import seac_policies_of
-    from rware_tpu_torch.ops.fused_rollout import build_fused_collect_per_agent
+    from rware_tpu_torch.models.networks import init_actor_critic, init_recurrent_actor_critic
+    from rware_tpu_torch.ops.fused_rollout import (
+        build_fused_collect_gru_per_agent,
+        build_fused_collect_per_agent,
+    )
     from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
     from rware_tpu_torch.testing import random_seac_case
 
     b, t, t_mb = states.batch_size, 128, 32
-    dims, params, data = random_seac_case(env_id, b, t_mb, 0, env.device)
-    policies = seac_policies_of(dims, params)
+    n, m, length = env.n_agents, env.config.msg_bits, env.config.flattened_obs_length
+    policies = torch.nn.ModuleList(init_actor_critic(length, 5, (128, 128), (0, 2, i), m)
+                                   for i in range(n)).to(env.device)
     collect = build_fused_collect_per_agent(env.config, t)
     med, lo, hi = time_launches(lambda: collect(states, policies, 1), repeats)
     emit({"kernel": "fused_collect_per_agent", "env": env_id, "B": b, "T": t,
           "weights": "device memory" if collect.weights_global else "shared memory",
           "ms_median": med, "ms_min": lo, "ms_max": hi, "env_steps_per_s": b * t / med * 1e3})
+    grus = torch.nn.ModuleList(init_recurrent_actor_critic(length, 5, 128, 128, (0, 2, i), m)
+                               for i in range(n)).to(env.device)
+    carry = grus[0].initialize_carry((b, n))
+    collect = build_fused_collect_gru_per_agent(env.config, t)
+    med, lo, hi = time_launches(lambda: collect(states, grus, 1, carry), repeats)
+    emit({"kernel": "fused_collect_gru_per_agent", "env": env_id, "B": b, "T": t,
+          "bias_and_heads": "shared memory" if collect.smem_stacks else "device memory",
+          "threads": collect.threads, "ms_median": med, "ms_min": lo, "ms_max": hi,
+          "env_steps_per_s": b * t / med * 1e3})
+    if m:  # K8 has no message head
+        return
+    dims, params, data = random_seac_case(env_id, b, t_mb, 0, env.device)
     k8 = build_fused_seac_grads(dims, env.n_agents, t_mb, clip_eps=0.2, vf_coef=0.5,
                                 ent_coef=0.01, seac_lambda=1.0)
     med, lo, hi = time_launches(lambda: k8(params, data, 0), repeats)
@@ -150,6 +189,7 @@ def main():
     ap.add_argument("--net", choices=["mlp", "gru"], default="mlp")
     ap.add_argument("--fused-critic-phase", action="store_true")
     ap.add_argument("--msg-bits", type=int, default=0)
+    ap.add_argument("--n-envs", type=int, default=16384)
     ap.add_argument("--out")
     args = ap.parse_args()
 
@@ -242,17 +282,24 @@ def main():
         from rware_tpu_torch.models.ippo_fused import build_fused_train_step
 
         env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev, msg_bits=m)
-        cfg = ippo.IPPOConfig(n_envs=16384, rollout_len=128, epochs=4, minibatches=4)
+        cfg = ippo.IPPOConfig(n_envs=args.n_envs, rollout_len=128, epochs=4, minibatches=4)
         if args.algo == "seac-ppo":
-            if args.net != "mlp":
-                raise SystemExit("--algo seac-ppo takes --net mlp")
             from rware_tpu_torch.models import seac
 
             scfg = seac.SEACPPOConfig(n_envs=cfg.n_envs, rollout_len=cfg.rollout_len,
                                       epochs=cfg.epochs, minibatches=cfg.minibatches)
-            runner, dims = seac.init_seac_ppo(env, scfg, 0)
-            step = seac.build_seac_ppo_fused_train_step(env, dims, scfg)
-            what = "seac-ppo (K2d, K8 per pass)"
+            if args.net == "gru":
+                runner, dims = seac.init_seac_gru(env, scfg, 0)
+                step = seac.build_seac_gru_train_step(env, dims, scfg)
+                what = "recurrent seac-ppo (K2d′, cross replay by autograd per band)"
+            elif m:
+                runner, dims = seac.init_seac_ppo(env, scfg, 0)
+                step = seac.build_seac_ppo_train_step(env, dims, scfg)
+                what = "seac-ppo (K2d with K2b, flat update by autograd)"
+            else:
+                runner, dims = seac.init_seac_ppo(env, scfg, 0)
+                step = seac.build_seac_ppo_fused_train_step(env, dims, scfg)
+                what = "seac-ppo (K2d, K8 per pass)"
         elif args.net == "gru":
             if args.algo != "ippo":
                 raise SystemExit("--net gru takes --algo ippo")
@@ -278,11 +325,15 @@ def main():
         def update():
             box[0], _ = step(box[0])
 
-        med, lo, hi = time_launches(update, args.repeats)
+        each = []
+        med, lo, hi = time_launches(update, args.repeats, each)
+        # the same updates timed as chip_smoke.py times them, twice
+        b2b = [back_to_back_ms(update, 3) for _ in range(2)]
         steps = cfg.n_envs * cfg.rollout_len
         emit({"train_step": f"{what}, tiny-2ag", "B": cfg.n_envs, "T": cfg.rollout_len,
               "epochs": cfg.epochs, "minibatches": cfg.minibatches, "ms_median": med,
-              "ms_min": lo, "ms_max": hi, "env_steps_per_s": steps / med * 1e3})
+              "ms_min": lo, "ms_max": hi, "ms_each": each, "ms_back_to_back_of_3": b2b,
+              "env_steps_per_s": steps / med * 1e3})
         top, busy, wall = profile(update)
         emit({"profile": f"{what} train step", "device_ms_by_kernel": top,
               "device_busy_ms": busy, "wall_ms": wall})
