@@ -132,7 +132,23 @@ Phases, one line each:
     128); three updates after one warm-up (exactly 3 K2d with K2b launches,
     and no K8: the learner builds none), the time of an update split into
     collect, cross values with bootstrap and GAE, and the 16 flat minibatches;
-    K2d with K2b timed at that shape beside its plain version.
+    K2d with K2b timed at that shape beside its plain version;
+24. image observations (K2e) in the four collectors against their plain
+    versions on the card: K2a on img-tiny-2ag, imgdict-tiny-2ag,
+    img-Nd-tiny-2ag, every image layer (AGENT_DIRECTION and AGENT_LOAD
+    included) and img-tiny-2ag with M=2; K2c on the first three and every
+    layer with M=2; K2d (weights in shared memory at tiny-2ag and small-4ag,
+    in device memory at large-8ag) and K2d′ on img tiny-2ag, small-4ag and
+    large-8ag; B=1000, T=32, deterministic and random mode, from a nonzero
+    carry; obs, rewards, done, bits, every action, the final state and the
+    carry exact, value and logp within 2e-2;
+25. the image main path at full width on ``rware-img-tiny-2ag-v2`` made with
+    ``make``'s default device: IPPO (hidden (128, 128)) and recurrent IPPO
+    (embed 128, GRU 128), B=16,384, T=128, E=4, M=4, each three updates after
+    one warm-up with launch counters reset before and read after (exactly 3
+    K2a-image + 3 K3 and no K4; 3 K2c-image + 48 K9 + 48 K10), the time of an
+    update split by phase, and both image collectors timed at that shape
+    beside their plain versions and held to them from the runner's state.
 
 Then the card's name and power limit, one JSON line describing each kernel
 (its time beside its plain version's and beside ``bound_ms``, the least time
@@ -373,7 +389,7 @@ def compare_k2(env_id, dev, b, t, deterministic, seed, policy=None, **overrides)
     states, _ = batched_reset(env, seed, b)
     if policy is None:
         torch.manual_seed(seed)
-        policy = ActorCritic(env.config.flattened_obs_length).to(dev)
+        policy = ActorCritic(env.config.policy_obs_length).to(dev)
     collect = build_fused_collect(env.config, t, deterministic=deterministic)
     ks, ktraj = collect(states, policy, seed + 1)
     ps, ptraj = collect.plain(states, policy, seed + 1)
@@ -600,7 +616,7 @@ def compare_k2c(env_id, dev, b, t, deterministic, seed, policy=None, hidden=(128
     states, _ = batched_reset(env, seed, b)
     gen = torch.Generator().manual_seed(seed)
     if policy is None:
-        policy = init_recurrent_actor_critic(env.config.flattened_obs_length, 5, hidden[1],
+        policy = init_recurrent_actor_critic(env.config.policy_obs_length, 5, hidden[1],
                                              hidden[0], seed).to(dev)
         with torch.no_grad():  # nonzero biases: a zero bias hides where it is rounded
             for p in policy.parameters():
@@ -644,7 +660,7 @@ def random_gru_case(env_id, b, t_len, seed, dev, done_rate=0.2, hidden=(128, 128
     from rware_tpu_torch.models.networks import GruDims
 
     cfg = rware_tpu_torch.parse_env_id(env_id)
-    dims = GruDims(cfg.flattened_obs_length, hidden[0], hidden[1], 5)
+    dims = GruDims(cfg.policy_obs_length, hidden[0], hidden[1], 5)
     gen = torch.Generator().manual_seed(seed)
     weights = [(torch.randn(s, generator=gen) * (0.1 if s[0] == 1 else s[0] ** -0.5)).to(dev)
                for s in dims.shapes[:6]]
@@ -716,7 +732,7 @@ def compare_k2d(env_id, dev, b, t, deterministic, seed, policies=None, collect=N
     if policies is None and m:  # each agent its own network with a message head
         gen = torch.Generator().manual_seed(seed)
         policies = torch.nn.ModuleList(
-            init_actor_critic(env.config.flattened_obs_length, 5, (128, 128), (seed, 2, i), m)
+            init_actor_critic(env.config.policy_obs_length, 5, (128, 128), (seed, 2, i), m)
             for i in range(env.n_agents))
         with torch.no_grad():  # nonzero biases: a zero bias hides where it is rounded
             for p in policies.parameters():
@@ -790,7 +806,7 @@ def compare_k2b(env_id, dev, b, t, deterministic, seed, net="mlp", policy=None, 
     from rware_tpu_torch.parallel import batched_reset
 
     env = rware_tpu_torch.make(env_id, device=dev, **overrides)
-    m, length = env.config.msg_bits, env.config.flattened_obs_length
+    m, length = env.config.msg_bits, env.config.policy_obs_length
     if states is None:
         states, _ = batched_reset(env, seed, b)
     gen = torch.Generator().manual_seed(seed)
@@ -925,7 +941,7 @@ def phase5(dev, kind, card, k1_err, k2_err):
     b2, t2 = 16384, 128
     states2, _ = batched_reset(env, 2, b2)
     torch.manual_seed(0)
-    policy = ActorCritic(env.config.flattened_obs_length, hidden=(128, 128)).to(dev)
+    policy = ActorCritic(env.config.policy_obs_length, hidden=(128, 128)).to(dev)
     collect = build_fused_collect(env.config, t2, hidden=(128, 128))
     collect(states2, policy, 3)  # warm-up
     torch.cuda.synchronize()
@@ -951,7 +967,7 @@ def phase5(dev, kind, card, k1_err, k2_err):
     if float(rew.sum()) <= 0 or int(epis.min()) < 2:
         raise AssertionError("fused rollout: no delivery, or an env ended < 2 episodes in 1024 steps")
     check_invariants(env, fs)
-    want = {"obs": (t2, b2, 2, env.config.flattened_obs_length), "action": (t2, b2, 2),
+    want = {"obs": (t2, b2, 2, env.config.policy_obs_length), "action": (t2, b2, 2),
             "logp": (t2, b2, 2), "value": (t2, b2, 2), "reward": (t2, b2, 2), "done": (t2, b2)}
     for k, shape in want.items():
         if tuple(traj[k].shape) != shape:
@@ -972,7 +988,7 @@ def phase5(dev, kind, card, k1_err, k2_err):
     # step's integer work and the Philox draws are charged nothing (see
     # ``bound``'s peaks), so both bounds are floors that no env step reaches.
     k1_bound = bound(2 * state_bytes(states) + tensor_bytes(chain[-1][1], chain[-1][2]))
-    bf, f32 = mlp_flops(env.config.flattened_obs_length, 128, 128, 6,
+    bf, f32 = mlp_flops(env.config.policy_obs_length, 128, 128, 6,
                         b2 * t2 * env.n_agents, False)
     k2_bound = bound(2 * state_bytes(states2) + tensor_bytes(*traj.values())
                      + tensor_bytes(*policy.parameters()), bf, f32)
@@ -1353,7 +1369,7 @@ def phase14(dev, kind, card, k2c_err, n_envs=16384, rollout_len=128):
     k10_bound = bound(seq_in + 2 * tensor_bytes(hseq) + n_w + tensor_bytes(dh0),
                       seq_steps * gru_cell_flops(dims, False))
     return [
-        kernel_entry("fused_collect_gru", "fused_collect_gru.cu",
+        kernel_entry("fused_collect_gru", "collect_gru.cuh",
                      "rware_tpu/ops/pallas_rollout.py:1798", launches["fused_collect_gru"],
                      k2c_err, k2c_ms, k2c_plain_ms, k2c_bound),
         kernel_entry("fused_gru_obs_fwd", "fused_gru_fwd.cu", "rware_tpu/ops/pallas_gru.py:385",
@@ -1662,7 +1678,7 @@ def phase20(dev, kind, card, k2b_err, n_envs=16384, rollout_len=128):
                        steps * env.n_agents * gru_cell_flops(gdims, True),
                        steps * env.n_agents * 2.0 * gdims.hidden
                        * (gdims.n_actions + 1 + gdims.msg_bits))
-    entries.append(kernel_entry("fused_collect_gru (message bits, K2b)", "fused_collect_gru.cu",
+    entries.append(kernel_entry("fused_collect_gru (message bits, K2b)", "collect_gru.cuh",
                                 "rware_tpu/ops/pallas_rollout.py:1537", k2c_launches, k2cm_err,
                                 k2cm_ms, k2cm_plain_ms, k2cm_bound))
 
@@ -1703,7 +1719,7 @@ def compare_k2dp(env_id, dev, b, t, deterministic, seed, policies=None, collect=
     from rware_tpu_torch.parallel import batched_reset
 
     env = rware_tpu_torch.make(env_id, device=dev, **overrides)
-    m, n, length = env.config.msg_bits, env.n_agents, env.config.flattened_obs_length
+    m, n, length = env.config.msg_bits, env.n_agents, env.config.policy_obs_length
     gen = torch.Generator().manual_seed(seed)
     if states is None:
         states, _ = batched_reset(env, seed, b)
@@ -1848,7 +1864,7 @@ def phase22(dev, kind, card, errs, n_envs=4096, rollout_len=128):
                                     float(steps * env.n_agents))
         name = "fused_collect_gru_per_agent" + (" (message bits, K2b)" if m else "")
         replaces = "rware_tpu/ops/pallas_rollout.py:" + ("1537" if m else "1376")
-        entries.append(kernel_entry(name, "fused_collect_gru.cu", replaces, launches,
+        entries.append(kernel_entry(name, "collect_gru.cuh", replaces, launches,
                                     max(err, errs[f"k2dp{m}"]), k_ms, plain_ms, k_bound))
     return entries
 
@@ -1890,6 +1906,203 @@ def phase23(dev, kind, card, errs, n_envs=16384, rollout_len=128):
     return [kernel_entry("fused_collect_per_agent (message bits, K2b)", "fused_collect.cu",
                          "rware_tpu/ops/pallas_rollout.py:1537", launches, errs["k2dm"], k_ms,
                          plain_ms, k_bound)]
+
+
+# K2e: image ids and configs of phase 24 (every layer, AGENT_DIRECTION and
+# AGENT_LOAD included, on a config of its own), each with the collectors it
+# drives; small-4ag keeps K2d's weights in shared memory at 64 threads,
+# large-8ag reads them from device memory.
+IMAGE_ALL_LAYERS = (6, 3, 0, 4, 1, 5, 2)
+K2E_CASES = (
+    ("mlp", "rware-img-tiny-2ag-v2", 0), ("mlp", "rware-imgdict-tiny-2ag-v2", 0),
+    ("mlp", "rware-img-Nd-tiny-2ag-v2", 0), ("mlp", "all-seven-layers", 0),
+    ("mlp", "rware-img-tiny-2ag-v2", 2),
+    ("gru", "rware-img-tiny-2ag-v2", 0), ("gru", "rware-imgdict-tiny-2ag-v2", 0),
+    ("gru", "rware-img-Nd-tiny-2ag-v2", 0), ("gru", "all-seven-layers", 2),
+    ("mlp_per_agent", "rware-img-tiny-2ag-v2", 0), ("mlp_per_agent", "rware-img-small-4ag-v2", 0),
+    ("mlp_per_agent", "rware-img-large-8ag-v2", 0),
+    ("gru_per_agent", "rware-img-tiny-2ag-v2", 0), ("gru_per_agent", "rware-img-small-4ag-v2", 0),
+    ("gru_per_agent", "rware-img-large-8ag-v2", 0),
+)
+K2E_NAMES = {"mlp": "K2a", "gru": "K2c", "mlp_per_agent": "K2d", "gru_per_agent": "K2d′"}
+
+
+def image_env(name, dev, **overrides):
+    """The env of an image id, or of ``all-seven-layers``: imgdict-tiny-2ag
+    with every image layer in an order other than the enum's."""
+    import rware_tpu_torch
+    from rware_tpu_torch.types import ImageLayer
+
+    if name == "all-seven-layers":
+        overrides["image_observation_layers"] = tuple(ImageLayer(k) for k in IMAGE_ALL_LAYERS)
+        name = "rware-imgdict-tiny-2ag-v2"
+    return rware_tpu_torch.make(name, device=dev, **overrides)
+
+
+def image_policy(kind, config, seed, dev):
+    """A network of ``kind`` (one per agent for the per-agent kinds) at the
+    config's policy observation length and message bits, embed and GRU or
+    hidden widths 128, biases off zero."""
+    import torch
+    from rware_tpu_torch.models.networks import init_actor_critic, init_recurrent_actor_critic
+
+    length, m = config.policy_obs_length, config.msg_bits
+    per_agent = kind.endswith("per_agent")
+    init = (lambda i: init_recurrent_actor_critic(length, 5, 128, 128, (seed, i), m)) \
+        if kind.startswith("gru") else (lambda i: init_actor_critic(length, 5, (128, 128),
+                                                                    (seed, i), m))
+    nets = torch.nn.ModuleList(init(i) for i in range(config.n_agents if per_agent else 1))
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in nets.parameters():
+            if p.dim() == 1:
+                p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+    nets = nets.to(dev)
+    return nets if per_agent else nets[0]
+
+
+def compare_k2e(kind, env, b, t, deterministic, seed, states=None, policy=None, h0=None,
+                collect=None):
+    """The image mode (K2e) of the collector ``kind`` against its plain
+    version on the card, from a reset (and a random nonzero carry) unless
+    given: obs, rewards, done, bits, every action, the final state and the
+    carry exact, value and logp within 2e-2; returns (collector, traj,
+    value/logp error)."""
+    import torch
+    from rware_tpu_torch.ops import fused_rollout as fr
+    from rware_tpu_torch.parallel import batched_reset
+
+    dev, cfg, m = env.device, env.config, env.config.msg_bits
+    if states is None:
+        states, _ = batched_reset(env, seed, b)
+    policy = policy if policy is not None else image_policy(kind, cfg, seed, dev)
+    build = {"mlp": fr.build_fused_collect, "gru": fr.build_fused_collect_gru,
+             "mlp_per_agent": fr.build_fused_collect_per_agent,
+             "gru_per_agent": fr.build_fused_collect_gru_per_agent}[kind]
+    collect = collect or build(cfg, t, deterministic=deterministic)
+    args = (states, policy, seed + 1)
+    if kind.startswith("gru"):
+        if h0 is None:
+            gen = torch.Generator().manual_seed(seed)
+            h0 = (torch.rand((b, env.n_agents, 128), generator=gen) * 2 - 1).to(torch.bfloat16)
+        args += (h0.to(dev),)
+    *kout, ktraj = collect(*args)
+    *pout, ptraj = collect.plain(*args)
+    torch.cuda.synchronize()
+    what = f"{K2E_NAMES[kind]} with K2e {cfg.observation_type.name} M={m} " \
+        f"deterministic={deterministic}"
+    require(tuple(ktraj["obs"].shape[-1:]) == (cfg.policy_obs_length,), f"{what}: obs width")
+    for k in ("obs", "reward", "done", "action") + (("bits",) if m else ()):
+        require(torch.equal(ktraj[k], ptraj[k]), f"{what}: {k} differs")
+    bad = state_diff(kout[0], pout[0])
+    require(not bad, f"{what}: final state differs in {bad}")
+    if kind.startswith("gru"):
+        require(torch.equal(kout[1], pout[1]), f"{what}: the new carry differs")
+    err = max(float((ktraj[k] - ptraj[k]).abs().max()) for k in ("value", "logp"))
+    require(err <= VALUE_LOGP_ATOL, f"{what}: value/logp err {err}")
+    for k, v in ktraj.items():
+        require(not v.is_floating_point() or bool(torch.isfinite(v.float()).all()),
+                f"{what}: non-finite {k}")
+    require(float(ktraj["obs"].float().sum()) > 0, f"{what}: the windows are empty")
+    check_invariants(env, kout[0])
+    return collect, ktraj, err
+
+
+def phase24(dev, kind, card):
+    """K2e in the four collectors against their plain versions."""
+    for coll, name, m in K2E_CASES:
+        env = image_env(name, dev, max_steps=20, msg_bits=m)
+        for deterministic in (True, False):
+            collect, traj, err = compare_k2e(coll, env, 1000, 32, deterministic, 5)
+            where = ""
+            if coll == "mlp_per_agent":
+                where = ", weights in " + ("device" if collect.weights_global else "shared") \
+                    + " memory"
+            log(f"phase 24 {K2E_NAMES[coll]} with K2e {name} M={m} B=1000 T=32 "
+                f"deterministic={deterministic}: obs ({traj['obs'].shape[-1]} features)/reward/"
+                f"done/bits/actions/state/carry exact, value/logp err {err} "
+                f"({collect.threads} threads{where})")
+
+
+def phase25(dev, kind, card, n_envs=16384, rollout_len=128):
+    """Image IPPO and image recurrent IPPO at full width; returns the two
+    image collectors' entries."""
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ippo, ippo_rnn
+    from rware_tpu_torch.models.ippo_fused import build_fused_train_step
+
+    env = rware_tpu_torch.make("rware-img-tiny-2ag-v2")  # no device named: the card
+    require(env.device.type == "cuda", f"make's default device is {env.device}")
+    cfg = ippo.IPPOConfig(n_envs=n_envs, rollout_len=rollout_len, epochs=4, minibatches=4)
+    n_passes, steps = cfg.epochs * cfg.minibatches, cfg.n_envs * cfg.rollout_len
+    agent_steps = float(steps * env.n_agents)
+    entries = []
+
+    runner, dims = ippo.init_runner(env, cfg, seed=0)
+    require(dims.obs_len == env.config.policy_obs_length == 45, f"obs_len {dims.obs_len}")
+    step = build_fused_train_step(env, dims, cfg)
+    runner, _ = _time_learner(
+        "image IPPO", step, runner, {"fused_collect": step.collect,
+                                     "fused_ppo_update_phase": step.update_phase,
+                                     "fused_ppo_grads": step.grads},
+        {"fused_collect": 3, "fused_ppo_update_phase": 3, "fused_ppo_grads": 0}, kind, card,
+        cfg, phase=25, msg_bits=0)
+    launches = step.collect.launches
+    collect_ms, (states, traj) = cuda_ms(lambda: step.rollout(runner))
+    gae_ms, (obs, adv, targets) = cuda_ms(lambda: step.advantages(runner, states, traj))
+    dataset = (traj["obs"], traj["action"], traj["logp"], traj["value"], adv, targets)
+    phase_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    log(f"phase 25 image IPPO breakdown of one update: collect (K2a with K2e) {collect_ms:.3f} "
+        f"ms, GAE and last value {gae_ms:.3f} ms, update phase (K3, {n_passes} passes) "
+        f"{phase_ms:.3f} ms [{kind}, {card}]")
+    policy = ippo.policy_of(dims, runner.params)
+    args = (runner.env_states, policy, 7)
+    k_ms, _ = cuda_ms(lambda: step.collect(*args), repeats=2)
+    plain_ms, _ = cuda_ms(lambda: step.collect.plain(*args))
+    _, _, err = compare_k2e("mlp", env, n_envs, rollout_len, False, 7, states=runner.env_states,
+                            policy=policy, collect=step.collect)
+    log(f"phase 25 K2a with K2e at the main shape: {k_ms:.3f} ms/launch (plain {plain_ms:.1f} "
+        f"ms); kernel against plain from the runner's state: obs/reward/done/actions/state "
+        f"exact, value/logp max_abs_err {err} [{kind}, {card}]")
+    bf, f32 = mlp_flops(dims.obs_len, dims.h1, dims.h2, dims.heads, agent_steps, False)
+    entries.append(kernel_entry(
+        "fused_collect (image observations, K2e)", "fused_collect.cu",
+        "rware_tpu/ops/pallas_rollout.py:1109", launches, err, k_ms, plain_ms,
+        bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
+              + 4.0 * runner.params.numel(), bf, f32)))
+
+    runner, dims = ippo_rnn.init_rnn_runner(env, cfg, seed=0)
+    step = ippo_rnn.build_rnn_fused_train_step(env, dims, cfg)
+    runner, _ = _time_learner(
+        "image recurrent IPPO", step, runner,
+        {"fused_collect_gru": step.collect, "fused_gru_obs_fwd": step.gru_fwd,
+         "fused_gru_obs_bwd": step.gru_bwd},
+        {"fused_collect_gru": 3, "fused_gru_obs_fwd": 3 * n_passes,
+         "fused_gru_obs_bwd": 3 * n_passes}, kind, card, cfg, phase=25, msg_bits=0)
+    launches = step.collect.launches
+    collect_ms, (states, new_carry, traj) = cuda_ms(lambda: step.rollout(runner))
+    gae_ms, (obs, adv, targets) = cuda_ms(
+        lambda: step.advantages(runner, states, new_carry, traj))
+    dataset = (traj["obs"], traj["done"], traj["action"], traj["logp"], traj["value"], adv,
+               targets, runner.carry)
+    passes_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    log(f"phase 25 image recurrent IPPO breakdown of one update: collect (K2c with K2e) "
+        f"{collect_ms:.3f} ms, bootstrap and GAE {gae_ms:.3f} ms, {n_passes} band passes (K9 + "
+        f"loss + K10 + optimizer) {passes_ms:.3f} ms [{kind}, {card}]")
+    policy = ippo_rnn.rnn_policy_of(dims, runner.params)
+    args = (runner.env_states, policy, 7, runner.carry)
+    k_ms, _ = cuda_ms(lambda: step.collect(*args), repeats=2)
+    plain_ms, _ = cuda_ms(lambda: step.collect.plain(*args))
+    _, _, err = compare_k2e("gru", env, n_envs, rollout_len, False, 7, states=runner.env_states,
+                            policy=policy, h0=runner.carry, collect=step.collect)
+    log(f"phase 25 K2c with K2e at the main shape: {k_ms:.3f} ms/launch (plain {plain_ms:.1f} "
+        f"ms); kernel against plain from the runner's state and carry: obs/reward/done/actions/"
+        f"state/carry exact, value/logp max_abs_err {err} [{kind}, {card}]")
+    entries.append(kernel_entry(
+        "fused_collect_gru (image observations, K2e)", "fused_collect_gru_image.cu",
+        "rware_tpu/ops/pallas_rollout.py:1109", launches, err, k_ms, plain_ms,
+        gru_collect_bound(dims, states, traj, runner.carry, dims.n_params, agent_steps)))
+    return entries
 
 
 def main() -> int:
@@ -1937,6 +2150,8 @@ def main() -> int:
     errs = phase21(dev, kind, card)
     kernels += phase22(dev, kind, card, errs)
     kernels += phase23(dev, kind, card, errs)
+    phase24(dev, kind, card)
+    kernels += phase25(dev, kind, card)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -30,7 +30,11 @@ import numpy as np
 import torch
 
 from rware_tpu_torch.config import WarehouseConfig
-from rware_tpu_torch.core.observations import build_flattened_obs_fn
+from rware_tpu_torch.core.observations import (
+    build_flattened_obs_fn,
+    build_image_dict_features_fn,
+    build_image_obs_fn,
+)
 from rware_tpu_torch.core.state import WarehouseState
 from rware_tpu_torch.ops.philox import draw_distinct, rand_mod
 from rware_tpu_torch.ops.resolver import resolve_moves
@@ -58,14 +62,42 @@ class StepResult(NamedTuple):
 def build_obs_fn(config: WarehouseConfig) -> Callable[[WarehouseState], Any]:
     """Observation function for the configured observation family.
 
-    DICT shares the FLATTENED function, as in the JAX package.  The image
-    families are not ported yet.
+    DICT shares the FLATTENED function, as in the JAX package; IMAGE gives
+    (B, N, C, w, w) windows and IMAGE_DICT ``{"image": (B, N, C, w, w),
+    "features": (B, N, 6)}``, all float32.
     """
-    if config.observation_type in (ObservationType.FLATTENED, ObservationType.DICT):
+    obs_type = config.observation_type
+    if obs_type in (ObservationType.FLATTENED, ObservationType.DICT):
         return build_flattened_obs_fn(config)
-    raise NotImplementedError(
-        f"observation type {config.observation_type!r} is not ported yet"
-    )
+    if obs_type == ObservationType.IMAGE:
+        return build_image_obs_fn(config)
+    if obs_type == ObservationType.IMAGE_DICT:
+        image_fn = build_image_obs_fn(config)
+        feat_fn = build_image_dict_features_fn(config)
+        return lambda state: {"image": image_fn(state), "features": feat_fn(state)}
+    raise ValueError(f"Unknown observation type: {obs_type}")
+
+
+def build_policy_obs_fn(config: WarehouseConfig,
+                        obs_fn: Optional[Callable[[WarehouseState], Any]] = None
+                        ) -> Callable[[WarehouseState], torch.Tensor]:
+    """Observations as the flat (B, N, L) vectors the networks take, L =
+    ``config.policy_obs_length``: FLATTENED and DICT pass through, IMAGE
+    flattens the (C, w, w) window stack, IMAGE_DICT flattens it and appends
+    the 6 self features (``rware_tpu/models/ippo.py::policy_obs_fn``).
+    ``obs_fn`` is the config's observation function where the caller has it.
+    """
+    obs_fn = obs_fn or build_obs_fn(config)
+    obs_type = config.observation_type
+    if obs_type == ObservationType.IMAGE:
+        return lambda state: obs_fn(state).flatten(2)
+    if obs_type == ObservationType.IMAGE_DICT:
+        def image_dict_obs(state):
+            o = obs_fn(state)
+            return torch.cat([o["image"].flatten(2), o["features"]], dim=-1)
+
+        return image_dict_obs
+    return obs_fn
 
 
 def n_reset_draws(config: WarehouseConfig) -> int:

@@ -26,7 +26,9 @@ from rware_tpu_torch.core.engine import (
     build_step_fn,
     n_reset_draws,
 )
+from rware_tpu_torch.core.observations import build_global_layers_fn
 from rware_tpu_torch.core.state import WarehouseState
+from rware_tpu_torch.types import DEFAULT_GLOBAL_IMAGE_LAYERS
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -62,6 +64,7 @@ class Warehouse:
         self._obs_fn = build_obs_fn(config)
         self._reset_fn = build_reset_fn(config)
         self._step_fn = build_step_fn(config, self._obs_fn)
+        self._global_image = build_global_layers_fn(config, DEFAULT_GLOBAL_IMAGE_LAYERS)
 
     # -- core API --------------------------------------------------------------
 
@@ -88,12 +91,24 @@ class Warehouse:
         result = self.step(state, actions, generator)
         fresh = self.reset_state(generator, state.batch_size)
         next_state = fresh.where(result.done, result.state)
-        obs = torch.where(
-            result.done[:, None, None], self._obs_fn(next_state), result.obs
-        )
+
+        def select(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+            done = result.done.reshape((-1,) + (1,) * (old.dim() - 1))
+            return torch.where(done, new, old)
+
+        fresh_obs = self._obs_fn(next_state)
+        if isinstance(fresh_obs, dict):  # IMAGE_DICT: select leaf by leaf
+            obs = {k: select(v, result.obs[k]) for k, v in fresh_obs.items()}
+        else:
+            obs = select(fresh_obs, result.obs)
         return result._replace(state=next_state, obs=obs)
 
     # -- conveniences ----------------------------------------------------------
+
+    def global_image(self, state: WarehouseState) -> torch.Tensor:
+        """(B, C, H, W) global layer stack over
+        ``DEFAULT_GLOBAL_IMAGE_LAYERS`` (``rware_tpu/core/env.py:103-111``)."""
+        return self._global_image(state)
 
     @property
     def n_agents(self) -> int:

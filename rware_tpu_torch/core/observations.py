@@ -1,7 +1,7 @@
-"""FLATTENED observations (the counterpart of
-``rware_tpu/core/observations.py::build_flattened_obs_fn``).
+"""Observations (the counterpart of ``rware_tpu/core/observations.py``):
+FLATTENED vectors, the global layer stack and the image windows.
 
-Bit layout (must match the reference exactly, incl. quirks —
+FLATTENED bit layout (must match the reference exactly, incl. quirks —
 rware/warehouse.py:631-674):
   self:  [x, y, carrying, dir-onehot(4), on_highway]
   per window cell (row-major, y-outer):
@@ -11,7 +11,7 @@ rware/warehouse.py:631-674):
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from rware_tpu_torch.config import WarehouseConfig
 from rware_tpu_torch.core.state import WarehouseState
+from rware_tpu_torch.types import ImageLayer
 
 
 def window_offsets(sensor_range: int) -> tuple[np.ndarray, np.ndarray]:
@@ -100,3 +101,118 @@ def build_flattened_obs_fn(
         return torch.cat([self_part, sensor_part], dim=-1)
 
     return obs
+
+
+def build_global_layers_fn(
+    config: WarehouseConfig, layers: Tuple[ImageLayer, ...]
+) -> Callable[[WarehouseState], torch.Tensor]:
+    """Returns ``fn(state) -> (B, C, H, W) float32``, the global layer stack.
+
+    The layer semantics of rware/warehouse.py:527-575 / 984-1019 with the
+    reference's ``layer[ag.x, ag.y]`` transposition fixed: every layer is
+    indexed ``[y, x]``.  SHELVES includes carried shelves; AGENT_DIRECTION
+    holds ``dir + 1``; ACCESSIBLE is 1 on every cell without an agent.
+    """
+    layout = config.compile_layout()
+    height, width = layout.grid_size
+    goals_np = np.asarray(layout.goals, dtype=np.int64)
+
+    def global_layers(state: WarehouseState) -> torch.Tensor:
+        dev = state.device
+        b = state.batch_size
+        rows = torch.arange(b, device=dev)[:, None]
+        ax, ay = state.agent_x.long(), state.agent_y.long()
+        sx, sy = state.shelf_x.long(), state.shelf_y.long()
+
+        def scatter(y, x, values, fill=0.0):
+            layer = torch.full((b, height, width), fill, dtype=torch.float32, device=dev)
+            layer[rows.expand_as(y), y, x] = values
+            return layer
+
+        out = []
+        for layer_type in layers:
+            if layer_type == ImageLayer.SHELVES:
+                layer = scatter(sy, sx, 1.0)
+            elif layer_type == ImageLayer.REQUESTS:
+                q = state.request_queue.long()
+                layer = scatter(torch.gather(sy, 1, q), torch.gather(sx, 1, q), 1.0)
+            elif layer_type == ImageLayer.AGENTS:
+                layer = scatter(ay, ax, 1.0)
+            elif layer_type == ImageLayer.AGENT_DIRECTION:
+                layer = scatter(ay, ax, (state.agent_dir + 1).to(torch.float32))
+            elif layer_type == ImageLayer.AGENT_LOAD:
+                layer = scatter(ay, ax, (state.agent_carrying >= 0).to(torch.float32))
+            elif layer_type == ImageLayer.GOALS:
+                goals = torch.as_tensor(goals_np, device=dev)
+                layer = torch.zeros((b, height, width), dtype=torch.float32, device=dev)
+                layer[:, goals[:, 1], goals[:, 0]] = 1.0
+            elif layer_type == ImageLayer.ACCESSIBLE:
+                layer = scatter(ay, ax, 0.0, fill=1.0)
+            else:
+                raise ValueError(f"Unknown image layer type: {layer_type}")
+            out.append(layer)
+        return torch.stack(out, dim=1)
+
+    return global_layers
+
+
+def build_image_obs_fn(
+    config: WarehouseConfig,
+) -> Callable[[WarehouseState], torch.Tensor]:
+    """Returns ``obs(state) -> (B, N, C, w, w) float32`` windowed image obs.
+
+    Reference: rware/warehouse.py:527-596.  The global layer stack is
+    zero-padded by the sensor range (out-of-grid cells are 0 in every
+    layer, ACCESSIBLE included), each agent's window is gathered and, unless
+    the config is non-directional, rotated into the agent's frame with
+    ``rot90`` over the window axes: k = 0 / 2 / 3 / 1 for UP / DOWN / LEFT /
+    RIGHT.
+    """
+    r = config.sensor_range
+    side = config.window_size
+    global_layers = build_global_layers_fn(config, config.image_observation_layers)
+    directional = config.image_observation_directional
+    n_channels = len(config.image_observation_layers)
+
+    def obs(state: WarehouseState) -> torch.Tensor:
+        dev = state.device
+        b, n = state.batch_size, state.n_agents
+        padded = F.pad(global_layers(state), (r, r, r, r))  # (B, C, H + 2r, W + 2r)
+        # the window of the agent at (x, y) starts at padded row y, column x
+        offs = torch.arange(side, device=dev)
+        rows = (state.agent_y.long()[..., None] + offs)[:, :, None, :, None]
+        cols = (state.agent_x.long()[..., None] + offs)[:, :, None, None, :]
+        env = torch.arange(b, device=dev)[:, None, None, None, None]
+        chan = torch.arange(n_channels, device=dev)[None, None, :, None, None]
+        win = padded[env, chan, rows, cols]  # (B, N, C, w, w)
+        if not directional:
+            return win
+        turned = torch.stack([
+            win,  # UP
+            torch.rot90(win, 2, dims=(3, 4)),  # DOWN
+            torch.rot90(win, 3, dims=(3, 4)),  # LEFT
+            torch.rot90(win, 1, dims=(3, 4)),  # RIGHT
+        ])
+        pick = state.agent_dir.long()[None, :, :, None, None, None]
+        return torch.gather(turned, 0, pick.expand((1,) + win.shape))[0]
+
+    return obs
+
+
+def build_image_dict_features_fn(
+    config: WarehouseConfig,
+) -> Callable[[WarehouseState], torch.Tensor]:
+    """(B, N, 6) features of IMAGE_DICT observations: [dir-onehot(4),
+    on_highway, carrying] (reference: rware/warehouse.py:725-742)."""
+    highways_np = config.compile_layout().highways.astype(np.float32)
+
+    def features(state: WarehouseState) -> torch.Tensor:
+        highways = torch.as_tensor(highways_np, device=state.device)
+        on_highway = highways[state.agent_y.long(), state.agent_x.long()]
+        return torch.cat([
+            F.one_hot(state.agent_dir.long(), 4).to(torch.float32),
+            on_highway[..., None],
+            (state.agent_carrying >= 0).to(torch.float32)[..., None],
+        ], dim=-1)
+
+    return features

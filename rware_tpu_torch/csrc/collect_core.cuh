@@ -1,8 +1,8 @@
 // Pieces shared by the fused collector kernels (K2a fused_collect.cu, K2c
-// fused_collect_gru.cu): the FLATTENED observation written into a thread's
-// column of a shared-memory tile, bf16 rounding, the Gumbel-argmax sample
-// with its log-probability, and the message mode (K2b): the Bernoulli
-// message-bit sample with its log-probability.
+// collect_gru.cuh): the FLATTENED observation and the image window (K2e)
+// written into a thread's column of a shared-memory tile, bf16 rounding, the
+// Gumbel-argmax sample with its log-probability, and the message mode (K2b):
+// the Bernoulli message-bit sample with its log-probability.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,8 +13,14 @@
 #define RW_MAX_A 8
 #define RW_JB 8  // hidden outputs computed together per input read
 
+#define RW_MAX_LAYERS 7
+
+// img_*: read by the image instantiations only (K2e).  img_layers packs the
+// ImageLayer id of channel c into bits 4c .. 4c + 3; img_self appends the six
+// IMAGE_DICT self rows.
 struct ObsDims {
   int L, sensor_range, normalised;
+  int img_layers, img_n_layers, img_directional, img_self;
 };
 
 // FLATTENED observation of agent i into this thread's column of `xs`
@@ -62,6 +68,128 @@ static __device__ void build_obs(const EnvState& st, const EnvDims& d, const Env
     if (inq) X(b + 6) = one;
   }
 #undef X
+}
+
+// K2e: the image window.  ImageLayer ids (rware_tpu_torch/types.py).
+enum {
+  RW_SHELVES = 0, RW_REQUESTS = 1, RW_AGENTS = 2, RW_AGENT_DIRECTION = 3, RW_AGENT_LOAD = 4,
+  RW_GOALS = 5, RW_ACCESSIBLE = 6
+};
+
+// Output cell (u, v) of the world offset (oy, ox) from an agent heading
+// `dir`, np.rot90's rotation folded in (pallas_rollout.py::_rot_window_rel):
+// UP (oy+r, ox+r), DOWN (r-oy, r-ox), LEFT (ox+r, r-oy), RIGHT (r-ox, oy+r);
+// unrotated when not directional.  False outside the window.
+static __device__ __forceinline__ bool rot_window_cell(int oy, int ox, int dir, int directional,
+                                                       int r, int* cell) {
+  int u = oy + r, v = ox + r;
+  if (directional && dir == 1) {
+    u = r - oy;
+    v = r - ox;
+  } else if (directional && dir == 2) {
+    u = ox + r;
+    v = r - oy;
+  } else if (directional && dir == 3) {
+    u = r - ox;
+    v = oy + r;
+  }
+  const int side = 2 * r + 1;
+  *cell = u * side + v;
+  return u >= 0 && u < side && v >= 0 && v < side;
+}
+
+// The image observation of agent i (pallas_rollout.py::_build_image_feats;
+// rware_tpu_torch/core/observations.py::build_image_obs_fn) into this
+// thread's column of `xs`: C x w x w rows in (channel, row, column) order,
+// then, for IMAGE_DICT, [dir-onehot(4), on_highway, carrying].  The column is
+// zeroed, ACCESSIBLE set to the in-grid mask (out-of-grid cells are 0 in
+// every layer: the zero pad), then every agent, shelf and goal inside the
+// window is scattered to its rotated cell, one write per channel it shows in.
+// Messages are not observed.
+static __device__ void build_image_obs(const EnvState& st, const EnvDims& d,
+                                       const EnvLayout& lay, const ObsDims& m, int i,
+                                       __nv_bfloat16* xs, int TB, int tid) {
+  const int r = m.sensor_range, side = 2 * r + 1, w2 = side * side, C = m.img_n_layers;
+  const int dir = st.ad[i], dirl = m.img_directional, ax = st.ax[i], ay = st.ay[i];
+  const __nv_bfloat16 one = __float2bfloat16_rn(1.f), zero = __float2bfloat16_rn(0.f);
+#define X(k) xs[(size_t)(k) * TB + tid]
+#define LAYER(c) ((m.img_layers >> (4 * (c))) & 15)
+  for (int c = 0; c < C; ++c) {
+    const bool acc = LAYER(c) == RW_ACCESSIBLE;
+    for (int u = 0; u < side; ++u) {
+      for (int v = 0; v < side; ++v) {
+        bool in_grid = false;
+        if (acc) {  // the world offset that lands on (u, v): the map's inverse
+          int dy = u - r, dx = v - r;
+          if (dirl && dir == 1) {
+            dy = r - u;
+            dx = r - v;
+          } else if (dirl && dir == 2) {
+            dy = r - v;
+            dx = u - r;
+          } else if (dirl && dir == 3) {
+            dy = v - r;
+            dx = r - u;
+          }
+          const int cx = ax + dx, cy = ay + dy;
+          in_grid = cx >= 0 && cx < d.w && cy >= 0 && cy < d.h;
+        }
+        X(c * w2 + u * side + v) = in_grid ? one : zero;
+      }
+    }
+  }
+  for (int j = 0; j < d.n; ++j) {
+    int cell;
+    if (!rot_window_cell(st.ay[j] - ay, st.ax[j] - ax, dir, dirl, r, &cell)) continue;
+    for (int c = 0; c < C; ++c) {
+      const int k = c * w2 + cell;
+      switch (LAYER(c)) {
+        case RW_AGENTS: X(k) = one; break;
+        case RW_AGENT_DIRECTION: X(k) = __float2bfloat16_rn((float)(st.ad[j] + 1)); break;
+        case RW_AGENT_LOAD: X(k) = st.carry[j] >= 0 ? one : zero; break;
+        case RW_ACCESSIBLE: X(k) = zero; break;
+        default: break;
+      }
+    }
+  }
+  for (int s = 0; s < d.s; ++s) {
+    int cell;
+    if (!rot_window_cell(st.scell[s] / d.w - ay, st.scell[s] % d.w - ax, dir, dirl, r, &cell))
+      continue;
+    bool inq = false;
+    for (int q = 0; q < d.r; ++q) inq |= st.q[q] == s;
+    for (int c = 0; c < C; ++c) {
+      const int layer = LAYER(c);
+      if (layer == RW_SHELVES || (layer == RW_REQUESTS && inq)) X(c * w2 + cell) = one;
+    }
+  }
+  for (int g = 0; g < d.g; ++g) {
+    int cell;
+    if (!rot_window_cell(lay.goal_y[g] - ay, lay.goal_x[g] - ax, dir, dirl, r, &cell)) continue;
+    for (int c = 0; c < C; ++c)
+      if (LAYER(c) == RW_GOALS) X(c * w2 + cell) = one;
+  }
+  if (m.img_self) {
+    const int b = C * w2;
+    for (int k = 0; k < 4; ++k) X(b + k) = dir == k ? one : zero;
+    X(b + 4) = lay.highway[ay * d.w + ax] ? one : zero;
+    X(b + 5) = st.carry[i] >= 0 ? one : zero;
+  }
+#undef LAYER
+#undef X
+}
+
+// The observation of agent i into this thread's column of `xs`: the image
+// window (kImage, K2e) or the FLATTENED vector.
+template <bool kMsg, bool kImage>
+static __device__ __forceinline__ void build_agent_obs(const EnvState& st, const EnvDims& d,
+                                                       const EnvLayout& lay, const ObsDims& m,
+                                                       int i, __nv_bfloat16* xs, int TB,
+                                                       int tid) {
+  if (kImage)
+    build_image_obs(st, d, lay, m, i, xs, TB, tid);
+  else
+    build_obs<kMsg>(st, d, lay, m, i, xs, TB, tid);
 }
 
 static __device__ __forceinline__ float bf16_round(float v) {

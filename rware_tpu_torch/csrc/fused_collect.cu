@@ -1,4 +1,4 @@
-// K2a and K2d: the fused MLP-policy collector — per step: FLATTENED
+// K2a and K2d: the fused MLP-policy collector — per step: FLATTENED or image
 // observation, ActorCritic forward, Gumbel-argmax sample, env step, autoreset;
 // the trajectory (obs bf16, action, logp, value, reward, done) is streamed out.
 //
@@ -17,6 +17,13 @@
 // in shared memory or, where the stacks do not fit, in device memory with
 // the dense layers.  The message mode is its own instantiation (kMsg), so
 // K2a and K2d without message bits compile to the code they had before it.
+// Image observations (K2e, IMAGE and IMAGE_DICT; _build_image_feats,
+// pallas_rollout.py:1109) are an instantiation of their own too (kImage):
+// collect_core.cuh::build_image_obs writes the rotated C x w x w window (+ 6
+// self rows) into the same shared-memory column the policy reads, so the
+// observation never leaves the chip before its one store to the trajectory;
+// the layer table, the directional flag and the self rows are run-time
+// arguments of that instantiation only.
 // The two modes are one kernel: `n_stacks` weight stacks (1 or N) and agent i
 // runs stack n_stacks > 1 ? i : 0.  The TPU kernel feeds a whole (L, N*1024) feature tile
 // to the MXU (N small matmuls per agent in K2d); here one thread owns one env
@@ -28,7 +35,7 @@
 // observations), dense_0 and dense_1 are bf16 (in, out) matrices read from
 // device memory through the read-only cache, 16 bytes (eight outputs of one
 // input row) a load, every thread of a warp at the same address, as the
-// recurrent collector (fused_collect_gru.cu) reads its cell; the f32 heads and
+// recurrent collector (collect_gru.cuh) reads its cell; the f32 heads and
 // biases likewise.  Each thread keeps its observation and first hidden layer
 // as bf16 columns of shared-memory tiles, so no thread reads another's data
 // and the only barrier is after the weight load.
@@ -75,7 +82,7 @@ static __device__ __forceinline__ float load_f(const float* p) {
   return kGlobal ? __ldg(p) : *p;
 }
 
-template <bool kGlobal, bool kMsg>
+template <bool kGlobal, bool kMsg, bool kImage>
 __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
                                      const int* __restrict__ layout,
                                      const int* __restrict__ state_in, int* __restrict__ state_out,
@@ -139,7 +146,7 @@ __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
   for (int t = 0; t < T; ++t) {
     for (int i = 0; i < N; ++i) {
       const size_t row = ((size_t)t * B + e) * N + i;
-      build_obs<kMsg>(st, d, lay, m.obs, i, xs, TB, tid);
+      build_agent_obs<kMsg, kImage>(st, d, lay, m.obs, i, xs, TB, tid);
       for (int k = 0; k < L; ++k) obs[row * L + k] = xs[(size_t)k * TB + tid];
 
       // this agent's network: its stack in shared or device memory
@@ -223,14 +230,16 @@ __global__ void fused_collect_kernel(EnvDims d, MlpDims m, int T, int B,
   store_state(st, d, state_out, e, B);
 }
 
+// img_*: the image mode (K2e; ObsDims), img_n_layers = 0 for FLATTENED.
 // weights_global: dense_0 and dense_1 arrive as (in, out) stacks and are read
 // from device memory (kGlobal); else as (out, in) stacks, held in shared memory.
 extern "C" int rw_fused_collect(int n, int s, int r, int g, int h, int w, int reward_type,
                                 int max_steps, int max_inactive, int msg_bits,
                                 unsigned long long seed,
                                 int deterministic, int T, int B, int sensor_range, int normalised,
-                                int L, int H1, int H2, int A, int threads, int smem_bytes,
-                                int n_stacks, int weights_global,
+                                int img_layers, int img_n_layers, int img_directional,
+                                int img_self, int L, int H1, int H2, int A, int threads,
+                                int smem_bytes, int n_stacks, int weights_global,
                                 const void* layout, const void* state_in, void* state_out,
                                 const void* w0, const void* b0, const void* w1, const void* b1,
                                 const void* wp, const void* bp, const void* wv, const void* bv,
@@ -262,13 +271,20 @@ extern "C" int rw_fused_collect(int n, int s, int r, int g, int h, int w, int re
   m.obs.L = L;
   m.obs.sensor_range = sensor_range;
   m.obs.normalised = normalised;
+  m.obs.img_layers = img_layers;
+  m.obs.img_n_layers = img_n_layers;
+  m.obs.img_directional = img_directional;
+  m.obs.img_self = img_self;
   if (A > RW_MAX_A || H1 % RW_JB || H2 % RW_JB || (n_stacks != 1 && n_stacks != n) ||
-      n > RW_MAX_N || msg_bits > RW_MAX_M)
+      n > RW_MAX_N || msg_bits > RW_MAX_M || img_n_layers < 0 || img_n_layers > RW_MAX_LAYERS)
     return (int)cudaErrorInvalidValue;
-  const auto kernel = msg_bits > 0 ? (weights_global ? fused_collect_kernel<true, true>
-                                                      : fused_collect_kernel<false, true>)
-                                    : (weights_global ? fused_collect_kernel<true, false>
-                                                      : fused_collect_kernel<false, false>);
+  // [image][message][weights in device memory]
+  decltype(&fused_collect_kernel<false, false, false>) const kernels[2][2][2] = {
+      {{fused_collect_kernel<false, false, false>, fused_collect_kernel<true, false, false>},
+       {fused_collect_kernel<false, true, false>, fused_collect_kernel<true, true, false>}},
+      {{fused_collect_kernel<false, false, true>, fused_collect_kernel<true, false, true>},
+       {fused_collect_kernel<false, true, true>, fused_collect_kernel<true, true, true>}}};
+  const auto kernel = kernels[img_n_layers > 0][msg_bits > 0][weights_global != 0];
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -1,5 +1,5 @@
 // Shared pieces of the obs-fused GRU sequence kernels (K9 fused_gru_fwd.cu,
-// K10 fused_gru_bwd.cu); the recurrent collector (K2c fused_collect_gru.cu)
+// K10 fused_gru_bwd.cu); the recurrent collector (K2c collect_gru.cuh)
 // takes its bf16 load and its sigmoid from here.
 //
 // A launch works on an env band of the stored (T, B, N, ...) trajectory, read

@@ -92,7 +92,7 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     if args.random:
         env_id = args.env or "rware-tiny-2ag-v2"
-        length = rware_tpu_torch.parse_env_id(env_id).flattened_obs_length
+        length = rware_tpu_torch.parse_env_id(env_id).policy_obs_length
         policy = ActorCritic(length)
         with torch.no_grad():
             for p in policy.parameters():

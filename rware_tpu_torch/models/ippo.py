@@ -20,6 +20,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from rware_tpu_torch.core.engine import build_policy_obs_fn
 from rware_tpu_torch.core.env import Warehouse
 from rware_tpu_torch.core.state import WarehouseState
 from rware_tpu_torch.models.networks import (
@@ -85,6 +86,15 @@ class Transition(NamedTuple):
     value: torch.Tensor  # (T, B, N)
     reward: torch.Tensor  # (T, B, N)
     done: torch.Tensor  # (T, B) bool
+
+
+def policy_obs_fn(env: Warehouse) -> Callable[[WarehouseState], torch.Tensor]:
+    """``obs(states) -> (B, N, L)`` flat observations for the MLP and GRU
+    learners, L = ``config.policy_obs_length`` (the counterpart of
+    ``rware_tpu/models/ippo.py::policy_obs_fn``): FLATTENED and DICT pass
+    through, IMAGE flattens the (C, w, w) window stack, IMAGE_DICT appends
+    the 6 self features [dir-onehot(4), on_highway, carrying]."""
+    return build_policy_obs_fn(env.config, env._obs_fn)
 
 
 def collect_seed(run_seed: int, update_idx: int) -> int:
@@ -204,10 +214,11 @@ def init_runner(env: Warehouse, cfg: IPPOConfig, seed: int,
     ``cfg.n_envs`` env states on ``env.device``."""
     from rware_tpu_torch.parallel import batched_reset
 
-    model = init_actor_critic(env.config.flattened_obs_length, env.n_actions, hidden, seed,
+    model = init_actor_critic(env.config.policy_obs_length, env.n_actions, hidden, seed,
                               env.config.msg_bits)
     params = pack_arrays(params_to_arrays(model)).detach().to(env.device)
-    env_states, obs = batched_reset(env, seed, cfg.n_envs)
+    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    obs = policy_obs_fn(env)(env_states)
     runner = RunnerState(
         params=params, opt_state=optimizer_init(params), env_states=env_states, obs=obs,
         generator=torch.Generator().manual_seed(seed), update_idx=0, seed=seed,
@@ -248,12 +259,13 @@ def build_train_step(env: Warehouse, dims: BlockDims, cfg: IPPOConfig
 
     collect = build_fused_collect(env.config, cfg.rollout_len, (dims.h1, dims.h2))
     model = policy_of(dims, torch.zeros(dims.n_params))
+    obs_fn = policy_obs_fn(env)
 
     def train_step(runner: RunnerState):
         policy = policy_of(dims, runner.params, model.to(runner.params.device))
         seed = collect_seed(runner.seed, runner.update_idx)
         env_states, traj = collect.plain(runner.env_states, policy, seed)
-        obs = env._obs_fn(env_states)
+        obs = obs_fn(env_states)
         adv, targets = compute_gae(cfg, traj["reward"], traj["value"], traj["done"],
                                    last_values(dims, runner.params, obs))
 

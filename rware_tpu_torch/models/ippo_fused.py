@@ -29,6 +29,7 @@ from rware_tpu_torch.models.ippo import (
     last_values,
     mean_metrics,
     optimizer_step,
+    policy_obs_fn,
     policy_of,
     update_metrics,
 )
@@ -132,6 +133,7 @@ class FusedTrainStep:
     def __init__(self, env: Warehouse, dims: BlockDims, cfg: IPPOConfig,
                  deterministic_collect: bool = False, fused_update_phase: bool = True):
         self.env, self.dims, self.cfg = env, dims, cfg
+        self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect(env.config, cfg.rollout_len, (dims.h1, dims.h2),
                                            deterministic=deterministic_collect)
         self.grads = build_fused_ppo_grads(dims, cfg.rollout_len // cfg.minibatches,
@@ -153,7 +155,7 @@ class FusedTrainStep:
 
     def advantages(self, runner: RunnerState, env_states, traj: Dict[str, torch.Tensor]):
         """(obs after the rollout, advantages, targets)."""
-        obs = self.env._obs_fn(env_states)
+        obs = self.policy_obs(env_states)
         adv, targets = compute_gae(self.cfg, traj["reward"], traj["value"], traj["done"],
                                    last_values(self.dims, runner.params, obs))
         return obs, adv, targets

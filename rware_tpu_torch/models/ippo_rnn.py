@@ -39,6 +39,7 @@ from rware_tpu_torch.models.ippo import (
     mean_metrics,
     optimizer_init,
     optimizer_step,
+    policy_obs_fn,
     update_metrics,
 )
 from rware_tpu_torch.models.networks import (
@@ -83,10 +84,11 @@ def init_rnn_runner(env: Warehouse, cfg: IPPOConfig, seed: int, hidden: int = 12
     batch of ``cfg.n_envs`` env states and the zero carry on ``env.device``."""
     from rware_tpu_torch.parallel import batched_reset
 
-    model = init_recurrent_actor_critic(env.config.flattened_obs_length, env.n_actions, hidden,
+    model = init_recurrent_actor_critic(env.config.policy_obs_length, env.n_actions, hidden,
                                         embed, seed, env.config.msg_bits)
     params = pack_arrays(gru_to_arrays(model)).detach().to(env.device)
-    env_states, obs = batched_reset(env, seed, cfg.n_envs)
+    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    obs = policy_obs_fn(env)(env_states)
     runner = RNNRunnerState(
         params=params, opt_state=optimizer_init(params), env_states=env_states, obs=obs,
         carry=model.initialize_carry((cfg.n_envs, env.n_agents), env.device),
@@ -178,6 +180,7 @@ class RnnFusedTrainStep:
                  deterministic_collect: bool = False):
         band_rows(cfg)
         self.env, self.dims, self.cfg = env, dims, cfg
+        self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect_gru(env.config, cfg.rollout_len,
                                                (dims.embed, dims.hidden),
                                                deterministic=deterministic_collect)
@@ -197,7 +200,7 @@ class RnnFusedTrainStep:
     def advantages(self, runner: RNNRunnerState, env_states, new_carry,
                    traj: Dict[str, torch.Tensor]):
         """(obs after the rollout, advantages, targets)."""
-        obs = self.env._obs_fn(env_states)
+        obs = self.policy_obs(env_states)
         last = rnn_last_values(self.dims, runner.params, new_carry, obs)
         adv, targets = compute_gae(self.cfg, traj["reward"], traj["value"], traj["done"], last)
         return obs, adv, targets
@@ -258,6 +261,7 @@ def build_rnn_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig
     start, under autograd."""
     collect = build_fused_collect_gru(env.config, cfg.rollout_len, (dims.embed, dims.hidden))
     model = rnn_policy_of(dims, torch.zeros(dims.n_params))
+    obs_fn = policy_obs_fn(env)
     mb_envs = cfg.n_envs // cfg.minibatches
 
     def loss_fn(params, traj, adv, targets, h0, idx):
@@ -277,7 +281,7 @@ def build_rnn_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig
         policy = rnn_policy_of(dims, runner.params, model.to(runner.params.device))
         seed = collect_seed(runner.seed, runner.update_idx)
         env_states, new_carry, traj = collect.plain(runner.env_states, policy, seed, runner.carry)
-        obs = env._obs_fn(env_states)
+        obs = obs_fn(env_states)
         adv, targets = compute_gae(cfg, traj["reward"], traj["value"], traj["done"],
                                    rnn_last_values(dims, runner.params, new_carry, obs))
         params, opt_state = runner.params, runner.opt_state

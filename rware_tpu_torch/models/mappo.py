@@ -44,6 +44,7 @@ from rware_tpu_torch.models.ippo import (
     compute_gae,
     optimizer_init,
     optimizer_step,
+    policy_obs_fn,
     policy_of,
     update_metrics,
 )
@@ -92,12 +93,13 @@ def init_mappo_runner(env: Warehouse, cfg: IPPOConfig, seed: int,
     ``{"actor", "critic"}`` dicts."""
     from rware_tpu_torch.parallel import batched_reset
 
-    l_obs, n = env.config.flattened_obs_length, env.n_agents
+    l_obs, n = env.config.policy_obs_length, env.n_agents
     actor = init_actor_critic(l_obs, env.n_actions, hidden, seed, env.config.msg_bits)
     critic = init_central_critic(n * l_obs, n, critic_hidden, (seed, 1))
     params = {"actor": pack_arrays(params_to_arrays(actor)).detach().to(env.device),
               "critic": pack_arrays(critic_to_arrays(critic)).detach().to(env.device)}
-    env_states, obs = batched_reset(env, seed, cfg.n_envs)
+    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    obs = policy_obs_fn(env)(env_states)
     runner = RunnerState(
         params=params, opt_state={k: optimizer_init(params[k]) for k in PARTS},
         env_states=env_states, obs=obs, generator=torch.Generator().manual_seed(seed),
@@ -185,6 +187,7 @@ class MappoTrainStep:
     def __init__(self, env: Warehouse, dims: BlockDims, cdims: CriticDims, cfg: IPPOConfig,
                  deterministic_collect: bool = False, fused_critic_phase: bool = False):
         self.env, self.dims, self.cdims, self.cfg = env, dims, cdims, cfg
+        self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect(env.config, cfg.rollout_len, (dims.h1, dims.h2),
                                            deterministic=deterministic_collect)
         self.critic_values = build_fused_critic_values(cdims)
@@ -218,7 +221,7 @@ class MappoTrainStep:
 
     def advantages(self, runner: RunnerState, env_states, traj, values):
         """(obs after the rollout, advantages, targets) on the critic's values."""
-        obs = self.env._obs_fn(env_states)
+        obs = self.policy_obs(env_states)
         last = critic_last_values(self.cdims, runner.params["critic"], obs)
         adv, targets = compute_gae(self.cfg, traj["reward"], values, traj["done"], last)
         return obs, adv, targets

@@ -58,6 +58,7 @@ from rware_tpu_torch.models.ippo import (
     collect_seed,
     mean_metrics,
     optimizer_init,
+    policy_obs_fn,
     policy_of,
     update_metrics,
 )
@@ -126,12 +127,13 @@ def init_seac_ppo(env: Warehouse, cfg: SEACPPOConfig, seed: int,
     ``env.device``."""
     from rware_tpu_torch.parallel import batched_reset
 
-    l_obs = env.config.flattened_obs_length
+    l_obs = env.config.policy_obs_length
     models = [init_actor_critic(l_obs, env.n_actions, hidden, (seed, 2, i), env.config.msg_bits)
               for i in range(env.n_agents)]
     params = torch.stack([pack_arrays(params_to_arrays(m)) for m in models])
     params = params.detach().to(env.device)
-    env_states, obs = batched_reset(env, seed, cfg.n_envs)
+    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    obs = policy_obs_fn(env)(env_states)
     runner = RunnerState(
         params=params, opt_state=optimizer_init(params), env_states=env_states, obs=obs,
         generator=torch.Generator().manual_seed(seed), update_idx=0, seed=seed,
@@ -249,6 +251,7 @@ class SeacTrainStep:
             raise ValueError(f"minibatches={cfg.minibatches} must divide "
                              f"rollout_len={cfg.rollout_len} (time-window minibatches)")
         self.env, self.dims, self.cfg = env, dims, cfg
+        self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect_per_agent(env.config, cfg.rollout_len,
                                                      (dims.h1, dims.h2),
                                                      deterministic=deterministic_collect)
@@ -267,7 +270,7 @@ class SeacTrainStep:
     def advantages(self, runner: RunnerState, env_states, traj):
         """(obs after the rollout, cross values, advantages, targets), the
         cross arrays (N_i, T, B, N_j)."""
-        obs = self.env._obs_fn(env_states)
+        obs = self.policy_obs(env_states)
         values = cross_values(self.dims, runner.params, traj["obs"])
         last = cross_last_values(self.dims, runner.params, obs)
         adv, targets = cross_gae(self.cfg, traj["reward"], values, traj["done"], last)
@@ -325,6 +328,7 @@ class SeacFlatTrainStep:
         if collect not in ("fused", "plain"):
             raise ValueError(f"collect must be 'fused' or 'plain', got {collect!r}")
         self.env, self.dims, self.cfg = env, dims, cfg
+        self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect_per_agent(env.config, cfg.rollout_len,
                                                      (dims.h1, dims.h2),
                                                      deterministic=deterministic_collect)
@@ -343,7 +347,7 @@ class SeacFlatTrainStep:
         """(obs after the rollout, cross values, advantages, targets), the
         cross arrays (N_i, T, B, N_j), values and bootstrap in flax's
         rounding (``seac.py:650-675``)."""
-        obs = self.env._obs_fn(env_states)
+        obs = self.policy_obs(env_states)
         values = cross_values(self.dims, runner.params, traj["obs"], apply_forward)
         last = cross_last_values(self.dims, runner.params, obs)
         adv, targets = cross_gae(self.cfg, traj["reward"], values, traj["done"], last)
@@ -435,11 +439,12 @@ def init_seac_gru(env: Warehouse, cfg: SEACPPOConfig, seed: int, hidden: int = 1
     carry (B, N, Hg) bf16 on ``env.device``."""
     from rware_tpu_torch.parallel import batched_reset
 
-    l_obs = env.config.flattened_obs_length
+    l_obs = env.config.policy_obs_length
     models = [init_recurrent_actor_critic(l_obs, env.n_actions, hidden, embed, (seed, 2, i),
                                           env.config.msg_bits) for i in range(env.n_agents)]
     params = torch.stack([pack_arrays(gru_to_arrays(m)) for m in models]).detach().to(env.device)
-    env_states, obs = batched_reset(env, seed, cfg.n_envs)
+    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    obs = policy_obs_fn(env)(env_states)
     runner = RNNRunnerState(
         params=params, opt_state=optimizer_init(params), env_states=env_states, obs=obs,
         carry=models[0].initialize_carry((cfg.n_envs, env.n_agents), env.device),
@@ -606,6 +611,7 @@ class SeacGruTrainStep:
             raise ValueError(f"minibatches={cfg.minibatches} must divide n_envs={cfg.n_envs} "
                              "(env-band minibatches)")
         self.env, self.dims, self.cfg = env, dims, cfg
+        self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect_gru_per_agent(env.config, cfg.rollout_len,
                                                          (dims.embed, dims.hidden),
                                                          deterministic=deterministic_collect)
@@ -625,7 +631,7 @@ class SeacGruTrainStep:
         the runner's carry, the bootstrap from its last carry, cross GAE
         (``seac.py:1061-1085``)."""
         dims, params = self.dims, runner.params
-        obs = self.env._obs_fn(env_states)
+        obs = self.policy_obs(env_states)
         with torch.no_grad():
             _, values, last_carry = gru_cross_replay(dims, params, traj["obs"], traj["done"],
                                                      runner.carry)

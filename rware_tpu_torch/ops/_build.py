@@ -39,14 +39,16 @@ _MAPPO_DIMS = _PPO_DIMS + [_I] * 8
 _SIGNATURES = {
     # ... scripted T B | layout state_in state_out actions rewards episodes stream
     "rw_fused_rollout": _DIMS + [_I] * 3 + [_P] * 7,
-    # ... deterministic T B sensor_range normalised L H1 H2 A threads smem_bytes
-    # n_stacks weights_global | layout state_in state_out w0 b0 w1 b1 wp bp wv bv
-    # wm bm obs action bits logp value reward done stream
-    "rw_fused_collect": _DIMS + [_I] * 13 + [_P] * 21,
-    # ... deterministic T B sensor_range normalised L E Hg A threads smem_bytes
-    # n_stacks smem_stacks | layout state_in state_out we be wi bi wh bhn wc bc
-    # hbuf obs action bits logp value reward done stream
-    "rw_fused_collect_gru": _DIMS + [_I] * 13 + [_P] * 20,
+    # ... deterministic T B sensor_range normalised img_layers img_n_layers
+    # img_directional img_self L H1 H2 A threads smem_bytes n_stacks
+    # weights_global | layout state_in state_out w0 b0 w1 b1 wp bp wv bv wm bm
+    # obs action bits logp value reward done stream
+    "rw_fused_collect": _DIMS + [_I] * 17 + [_P] * 21,
+    # ... deterministic T B sensor_range normalised img_layers img_n_layers
+    # img_directional img_self L E Hg A threads smem_bytes n_stacks smem_stacks
+    # | layout state_in state_out we be wi bi wh bhn wc bc hbuf obs action bits
+    # logp value reward done stream
+    "rw_fused_collect_gru": _DIMS + [_I] * 17 + [_P] * 20,
     # L E Hg T B N start_env n_env rows_per_thread | obs done h0 we be wi bi wh
     # bhn hseq stream
     "rw_fused_gru_fwd": [_I] * 9 + [_P] * 11,

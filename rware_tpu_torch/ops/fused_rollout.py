@@ -6,7 +6,7 @@ recurrent (K2c), per-agent MLP (K2d) and per-agent recurrent (K2d′).
   launch with random or scripted actions and autoreset, returning the final
   state, per-agent reward sums and episode counts.
 * :func:`build_fused_collect` replaces ``build_pallas_collect`` in mode
-  ``policy="mlp"``, FLATTENED observations: per step the observation, the
+  ``policy="mlp"``: per step the observation, the
   shared :class:`ActorCritic` forward, a Gumbel-argmax sample and the env
   step, with the trajectory streamed out in the ``(T, B, N, ...)`` layout.
 * :func:`build_fused_collect_gru` replaces ``build_pallas_collect`` in mode
@@ -22,6 +22,15 @@ recurrent (K2c), per-agent MLP (K2d) and per-agent recurrent (K2d′).
   step where agent i runs its own :class:`RecurrentActorCritic` i on its own
   slice of the carry.
 
+Image observations (IMAGE and IMAGE_DICT ids, ``-img`` / ``-imgdict`` /
+``-Nd``) are a mode of every collector (K2e, ``_build_image_feats`` of
+``pallas_rollout.py``): the kernel builds each agent's C x w x w window of
+the config's image layers, rotated into its heading unless the id is
+non-directional, plus the 6 self features for IMAGE_DICT, and the trajectory
+holds it flattened, ``policy_obs_length`` features per agent; the plain
+versions take :func:`~rware_tpu_torch.core.engine.build_policy_obs_fn`.
+Messages are then sampled and fed back but not observed.
+
 Message bits (``msg_bits`` M > 0) are a mode of K1 and of every collector
 (K2b, ``_sample_bernoulli`` of ``pallas_rollout.py``): the state carries
 every agent's M bits, the observations show them, K1 sets them from its
@@ -31,9 +40,10 @@ log-probability to the move's and return them as ``traj["bits"]`` (T, B, N,
 M) int32; an episode's end clears them.
 
 Each wrapper launches its CUDA kernel (``csrc/fused_rollout.cu``,
-``csrc/fused_collect.cu`` for K2a and K2d, ``csrc/fused_collect_gru.cu`` for
-K2c and K2d′) for
-tensors on a CUDA device, and runs its plain PyTorch version (``.plain``)
+``csrc/fused_collect.cu`` for K2a and K2d, ``csrc/collect_gru.cuh`` for
+K2c and K2d′, launched from ``csrc/fused_collect_gru.cu``, its image
+instantiations built in ``csrc/fused_collect_gru_image.cu``) for tensors on
+a CUDA device, and runs its plain PyTorch version (``.plain``)
 only for tensors on the CPU; it counts its kernel launches in ``.launches``.  Both draw from the same Philox stream
 (:mod:`rware_tpu_torch.ops.philox`), so kernel and plain version agree bit
 for bit in every mode.  Scripted (K1) and deterministic (K2a) modes draw
@@ -54,7 +64,7 @@ import torch
 
 from rware_tpu_torch.config import WarehouseConfig
 from rware_tpu_torch.core.engine import (
-    build_obs_fn,
+    build_policy_obs_fn,
     build_reset_fn,
     build_transition_fn,
     n_reset_draws,
@@ -71,9 +81,11 @@ from rware_tpu_torch.models.networks import (
 from rware_tpu_torch.ops import philox
 from rware_tpu_torch.types import ObservationType
 
-# Limits of the kernels' per-thread state arrays (csrc/env_core.cuh).
-MAX_AGENTS, MAX_SHELVES, MAX_QUEUE, MAX_MSG_BITS = 32, 512, 64, 8
+# Limits of the kernels' per-thread state arrays (csrc/env_core.cuh) and of
+# the image layer table (csrc/collect_core.cuh).
+MAX_AGENTS, MAX_SHELVES, MAX_QUEUE, MAX_MSG_BITS, MAX_LAYERS = 32, 512, 64, 8, 7
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+IMAGE_TYPES = (ObservationType.IMAGE, ObservationType.IMAGE_DICT)
 TRAJ_KEYS = ("obs", "action", "logp", "value", "reward", "done")
 
 
@@ -296,22 +308,39 @@ def collect_smem_bytes(obs_len: int, hidden: Sequence[int], n_actions: int, thre
     return ((4 * f32 + 15) // 16) * 16 + 2 * bf16
 
 
+def _obs_args(config: WarehouseConfig) -> list:
+    """The collector kernels' observation arguments: sensor range, normalised
+    coordinates, then the image mode's (K2e) layer table packed four bits a
+    channel, its channel count (0: FLATTENED), directional flag and IMAGE_DICT
+    self rows."""
+    layers = config.image_observation_layers if config.observation_type in IMAGE_TYPES else ()
+    return [config.sensor_range, int(config.normalised_coordinates),
+            sum(int(layer) << (4 * c) for c, layer in enumerate(layers)), len(layers),
+            int(config.image_observation_directional),
+            int(config.observation_type == ObservationType.IMAGE_DICT)]
+
+
 class _Collector:
     """What the fused collectors share: the config checks, the block size
-    that fits shared memory, the plain engine, the trajectory buffers."""
+    that fits shared memory, the plain engine, the trajectory buffers.
+
+    Every observation family is taken: FLATTENED and DICT as the FLATTENED
+    vector, IMAGE and IMAGE_DICT (K2e) as the flat ``policy_obs_length``
+    vector of :func:`~rware_tpu_torch.core.engine.build_policy_obs_fn`."""
 
     def __init__(self, config: WarehouseConfig, n_steps: int, hidden: Tuple[int, int],
                  deterministic: bool, smem_bytes, what: str):
         _check_config(config)
-        if config.observation_type not in (ObservationType.FLATTENED, ObservationType.DICT):
-            raise NotImplementedError("the fused collector takes FLATTENED observations")
+        if config.observation_type in IMAGE_TYPES \
+                and not 0 < len(config.image_observation_layers) <= MAX_LAYERS:
+            raise ValueError(f"the fused collector takes 1 to {MAX_LAYERS} image layers")
         if len(hidden) != 2 or any(h % 8 for h in hidden):
             raise ValueError(f"the fused collector takes {what}, multiples of 8")
         self.config = config
         self.n_steps = n_steps
         self.hidden = tuple(hidden)
         self.deterministic = deterministic
-        self.obs_len = config.flattened_obs_length
+        self.obs_len = config.policy_obs_length
         self.launches = 0
         self.threads = next(
             (t for t in (128, 64, 32)
@@ -320,7 +349,7 @@ class _Collector:
         )
         if self.threads is None:
             raise ValueError("observation too long for the collector's shared memory")
-        self._obs = build_obs_fn(config)
+        self._obs = build_policy_obs_fn(config)
         self._transition = build_transition_fn(config)
         self._reset = build_reset_fn(config)
         self._layouts: Dict[torch.device, torch.Tensor] = {}
@@ -470,8 +499,8 @@ class FusedCollect(_Collector):
                                       self.config.msg_bits)
             code = lib.rw_fused_collect(
                 *_dims(self.config), seed, int(self.deterministic), t_len, b,
-                self.config.sensor_range, int(self.config.normalised_coordinates),
-                l_obs, h1, h2, 5, self.threads, smem, self.n_stacks, int(self.weights_global),
+                *_obs_args(self.config), l_obs, h1, h2, 5, self.threads, smem, self.n_stacks,
+                int(self.weights_global),
                 _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
                 *[_ptr(w) for w in weights], *self._traj_ptrs(traj),
                 torch.cuda.current_stream(dev).cuda_stream,
@@ -506,7 +535,7 @@ class FusedCollectPerAgent(FusedCollect):
         # all N networks in shared memory where they fit beside the tiles (up
         # to 3 agents at L=71, hidden (128, 128)); else read from device memory
         self.weights_global = not any(
-            collect_smem_bytes(config.flattened_obs_length, hidden, 5, t, n, config.msg_bits)
+            collect_smem_bytes(config.policy_obs_length, hidden, 5, t, n, config.msg_bits)
             <= SMEM_LIMIT for t in (128, 64, 32))
         super().__init__(config, n_steps, hidden, deterministic)
 
@@ -551,7 +580,7 @@ def build_fused_collect_per_agent(config: WarehouseConfig, n_steps: int,
 def collect_gru_smem_bytes(obs_len: int, embed: int, hidden: int, n_actions: int,
                            threads: int, msg_bits: int = 0, n_stacks: int = 1) -> int:
     """Dynamic shared memory of one recurrent-collector block
-    (csrc/fused_collect_gru.cu) with ``msg_bits`` message logits, holding
+    (csrc/collect_gru.cuh) with ``msg_bits`` message logits, holding
     ``n_stacks`` agents' f32 bias and head blocks (0: read from device
     memory) beside the per-thread tiles."""
     ac = n_actions + 1 + msg_bits
@@ -671,8 +700,7 @@ class FusedCollectGru(_Collector):
             smem = collect_gru_smem_bytes(l_obs, embed, hg, 5, self.threads, m, self.smem_stacks)
             code = lib.rw_fused_collect_gru(
                 *_dims(self.config), seed, int(self.deterministic), t_len, b,
-                self.config.sensor_range, int(self.config.normalised_coordinates),
-                l_obs, embed, hg, 5, self.threads, smem, self.n_stacks,
+                *_obs_args(self.config), l_obs, embed, hg, 5, self.threads, smem, self.n_stacks,
                 self.smem_stacks if self.n_stacks > 1 else 0,
                 _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
                 *[_ptr(w) for w in weights], _ptr(hbuf), *self._traj_ptrs(traj),
@@ -709,7 +737,7 @@ class FusedCollectGruPerAgent(FusedCollectGru):
         # fit beside the tiles (every registered config at embed and GRU
         # width 128 without message bits); else read from device memory
         self.smem_stacks = n if n == 1 or any(
-            collect_gru_smem_bytes(config.flattened_obs_length, *hidden, 5, t,
+            collect_gru_smem_bytes(config.policy_obs_length, *hidden, 5, t,
                                    config.msg_bits, n) <= SMEM_LIMIT
             for t in (128, 64, 32)) else 0
         super().__init__(config, n_steps, hidden, deterministic)

@@ -118,7 +118,7 @@ def random_ppo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device
     from rware_tpu_torch.registry import parse_env_id
 
     cfg = dataclasses.replace(parse_env_id(env_id), msg_bits=msg_bits)
-    l_obs, shape = cfg.flattened_obs_length, (t_full, n_envs, cfg.n_agents)
+    l_obs, shape = cfg.policy_obs_length, (t_full, n_envs, cfg.n_agents)
     model = init_actor_critic(l_obs, 5, (128, 128), seed, msg_bits)
     params = pack_arrays(params_to_arrays(model)).detach().to(device)
     gen = torch.Generator(device=device).manual_seed(seed)

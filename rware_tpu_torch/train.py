@@ -15,6 +15,8 @@ Examples::
     python -m rware_tpu_torch.train --device cuda --algo seac-ppo --net gru --n-envs 4096 \\
         --updates 800 --ent-coef 0.03 [--msg-bits 2]
     python -m rware_tpu_torch.train --device cuda --msg-bits 2 --n-envs 4096 --updates 400
+    python -m rware_tpu_torch.train --device cuda --env rware-img-tiny-2ag-v2 --net gru \\
+        --n-envs 4096 --updates 800 --ent-coef 0.03
     python -m rware_tpu_torch.train --device cpu --n-envs 128 --rollout-len 8 --updates 2
 
 ``--collect fused`` (default) trains through the fused collector (K2a) and,
@@ -39,8 +41,11 @@ ippo`` through the collectors' message mode (K2b) and, per pass, the PPO
 gradient kernel with the message head (K4; K3 has none); for ``--algo mappo``
 on JAX's split path (K4 for the actor, the critic by autograd); for ``--algo
 seac-ppo`` with the MLP through K2d's message mode and JAX's flat update by
-autograd (K8 has no message head), with the GRU through K2d′'s.  The device is
-never chosen for you: ``--device cuda`` without a GPU raises.
+autograd (K8 has no message head), with the GRU through K2d′'s.  Every algo
+and net takes image ids (``-img``, ``-imgdict``, ``-Nd``): the collectors then
+build each agent's window in their image mode (K2e) and the policy takes
+``policy_obs_length`` features.  The device is never chosen for you:
+``--device cuda`` without a GPU raises.
 
 ``--checkpoint-dir`` writes the final policy with ``torch.save`` to
 ``<checkpoint-dir>/policy.pt``, with its net kind under ``net`` and its

@@ -296,7 +296,8 @@ def test_wrappers_check_inputs(case):
 
 @pytest.mark.parametrize("env_id,w0_smem", [
     ("rware-tiny-2ag-v2", True), ("rware-small-4ag-v2", True), ("rware-large-8ag-v2", True),
-    ("rware-tiny-16ag-v2", False), ("rware-3s-tiny-2ag-v2", False)])
+    ("rware-tiny-16ag-v2", False), ("rware-3s-tiny-2ag-v2", False),
+    ("rware-img-tiny-2ag-v2", True)])
 def test_critic_dense0_leaves_shared_memory_where_it_does_not_fit(env_id, w0_smem):
     """The critic's dense_0 (N*L, CH1) in bf16 stays in a block's shared
     memory where it fits beside a tile of samples; else the kernel reads it
@@ -305,7 +306,7 @@ def test_critic_dense0_leaves_shared_memory_where_it_does_not_fit(env_id, w0_sme
     from rware_tpu_torch.ops.fused_update import SMEM_LIMIT, sample_smem
 
     cfg = rware_tpu_torch.parse_env_id(env_id)
-    cdims = type(CDIMS)(cfg.n_agents, cfg.flattened_obs_length, 128, 128)
+    cdims = type(CDIMS)(cfg.n_agents, cfg.policy_obs_length, 128, 128)
     k6 = build_fused_critic_values(cdims)
     assert k6.w0_smem == w0_smem and k6.tile >= 8
     n = cdims.n_agents

@@ -667,3 +667,60 @@ def test_seac_flat_loss_with_bits_on_the_card_matches_the_cpu(all_cpu_threads):
                                                       dims.obs_len, 2)
     batch = (obs.to(torch.bfloat16), action, logp, *cross, bits)
     assert_loss_grads_close(dims, seac.SEACPPOConfig(), seac.seac_ppo_loss, runner.params, batch)
+
+
+def image_policy(kind, config, seed):
+    """A network (or one per agent) of ``kind`` at ``config``'s policy
+    observation length, biases off zero."""
+    gen = torch.Generator().manual_seed(seed)
+    length, n, m = config.policy_obs_length, config.n_agents, config.msg_bits
+    recurrent = kind.startswith("gru")
+
+    def one(i):
+        if recurrent:
+            return init_recurrent_actor_critic(length, 5, 128, 128, (seed, i), m)
+        return ActorCritic(length, msg_bits=m)
+
+    nets = torch.nn.ModuleList(one(i) for i in range(n if kind.endswith("per_agent") else 1))
+    with torch.no_grad():
+        for p in nets.parameters():
+            if p.dim() == 1:
+                p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+    nets = nets.to(DEV)
+    return nets if kind.endswith("per_agent") else nets[0]
+
+
+@pytest.mark.parametrize("kind,env_id,m", [
+    ("mlp", "rware-img-tiny-2ag-v2", 0), ("mlp", "rware-imgdict-tiny-2ag-v2", 2),
+    ("mlp", "rware-img-Nd-tiny-2ag-v2", 0), ("gru", "rware-img-tiny-2ag-v2", 0),
+    ("gru", "rware-imgdict-tiny-2ag-v2", 2), ("mlp_per_agent", "rware-img-tiny-2ag-v2", 0),
+    ("mlp_per_agent", "rware-img-large-8ag-v2", 0),
+    ("gru_per_agent", "rware-img-Nd-small-4ag-v2", 2)])
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_image_collectors_match_plain(kind, env_id, m, deterministic):
+    """K2e in the four collectors: obs, rewards, done, bits, actions, the
+    final state and the carry exact, value and logp within 2e-2."""
+    build = {"mlp": build_fused_collect, "gru": build_fused_collect_gru,
+             "mlp_per_agent": build_fused_collect_per_agent,
+             "gru_per_agent": build_fused_collect_gru_per_agent}[kind]
+    env = rware_tpu_torch.make(env_id, device=DEV, max_steps=20, msg_bits=m)
+    states, _ = batched_reset(env, 1, 1000)
+    policy = image_policy(kind, env.config, 3)
+    collect = build(env.config, 32, deterministic=deterministic)
+    args = (states, policy, 2)
+    if kind.startswith("gru"):
+        gen = torch.Generator().manual_seed(4)
+        h0 = (torch.rand((1000, env.n_agents, 128), generator=gen) * 2 - 1).to(torch.bfloat16)
+        args += (h0.to(DEV),)
+    *kstate, ktraj = collect(*args)
+    *pstate, ptraj = collect.plain(*args)
+    assert collect.launches == 1
+    assert ktraj["obs"].shape[-1] == env.config.policy_obs_length
+    for k in ("obs", "action", "reward", "done") + (("bits",) if m else ()):
+        assert torch.equal(ktraj[k], ptraj[k]), k
+    for k in ("value", "logp"):
+        assert float((ktraj[k] - ptraj[k]).abs().max()) <= ATOL, k
+    for f in FIELDS:
+        assert torch.equal(getattr(kstate[0], f), getattr(pstate[0], f)), f
+    if kind.startswith("gru"):
+        assert torch.equal(kstate[1], pstate[1])  # the carry

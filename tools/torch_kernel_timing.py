@@ -30,12 +30,15 @@ message head (K4, one 32-row window of B=16,384 random data; K8 has none);
 the train step is then the message-bit learner of ``--algo`` and ``--net``
 (IPPO per pass, MAPPO's split path, SEAC-PPO's flat update).  ``--n-envs``
 sets the train step's batch (16,384; BASELINE.md's recurrent SEAC runs
-4,096).  Prints one JSON object per line, each with the card's name and power
+4,096), ``--env`` its env and the profile's (tiny-2ag).  Image ids
+(``-img``, ``-imgdict``, ``-Nd``) are configs like any other: the
+collectors then run in their image mode (K2e) and every policy takes
+``policy_obs_length`` features.  Prints one JSON object per line, each with the card's name and power
 limit; ``--out`` also writes them to a file.
 
 Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-step]
        [--algo ippo|mappo|seac-ppo] [--net mlp|gru] [--fused-critic-phase] [--msg-bits M]
-       [--n-envs B] [--out FILE]
+       [--n-envs B] [--env ID] [--out FILE]
 """
 import argparse
 import json
@@ -130,7 +133,7 @@ def seac_kernels(env, env_id, states, repeats, emit):
     from rware_tpu_torch.testing import random_seac_case
 
     b, t, t_mb = states.batch_size, 128, 32
-    n, m, length = env.n_agents, env.config.msg_bits, env.config.flattened_obs_length
+    n, m, length = env.n_agents, env.config.msg_bits, env.config.policy_obs_length
     policies = torch.nn.ModuleList(init_actor_critic(length, 5, (128, 128), (0, 2, i), m)
                                    for i in range(n)).to(env.device)
     collect = build_fused_collect_per_agent(env.config, t)
@@ -190,6 +193,8 @@ def main():
     ap.add_argument("--fused-critic-phase", action="store_true")
     ap.add_argument("--msg-bits", type=int, default=0)
     ap.add_argument("--n-envs", type=int, default=16384)
+    ap.add_argument("--env", default="rware-tiny-2ag-v2",
+                    help="the train step's and the profile's env (image ids too)")
     ap.add_argument("--out")
     args = ap.parse_args()
 
@@ -232,12 +237,12 @@ def main():
         b, t = 16384, 128
         states, _ = batched_reset(env, 0, b)
         torch.manual_seed(0)
-        policy = ActorCritic(env.config.flattened_obs_length, msg_bits=m).to(dev)
+        policy = ActorCritic(env.config.policy_obs_length, msg_bits=m).to(dev)
         collect = build_fused_collect(env.config, t)
         med, lo, hi = time_launches(lambda: collect(states, policy, 1), args.repeats)
         emit({"kernel": "fused_collect", "env": env_id, "B": b, "T": t, "ms_median": med,
               "ms_min": lo, "ms_max": hi, "env_steps_per_s": b * t / med * 1e3})
-        gru = init_recurrent_actor_critic(env.config.flattened_obs_length, seed=0,
+        gru = init_recurrent_actor_critic(env.config.policy_obs_length, seed=0,
                                           msg_bits=m).to(dev)
         carry = gru.initialize_carry((b, env.n_agents))
         collect_gru = build_fused_collect_gru(env.config, t)
@@ -265,14 +270,14 @@ def main():
             seac_kernels(env, env_id, states, args.repeats, emit)
 
     if args.profile:
-        env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
+        env = rware_tpu_torch.make(args.env, device=dev)
         states, _ = batched_reset(env, 0, 65536)
         roll = build_fused_rollout(env.config, 256)
         top, busy, wall = profile(lambda: roll(states, 1))
         emit({"profile": "fused_rollout call", "device_ms_by_kernel": top,
               "device_busy_ms": busy, "wall_ms": wall})
         states, _ = batched_reset(env, 0, 16384)
-        policy = ActorCritic(env.config.flattened_obs_length).to(dev)
+        policy = ActorCritic(env.config.policy_obs_length).to(dev)
         collect = build_fused_collect(env.config, 128)
         top, busy, wall = profile(lambda: collect(states, policy, 1))
         emit({"profile": "fused_collect call", "device_ms_by_kernel": top,
@@ -281,7 +286,7 @@ def main():
         from rware_tpu_torch.models import ippo
         from rware_tpu_torch.models.ippo_fused import build_fused_train_step
 
-        env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev, msg_bits=m)
+        env = rware_tpu_torch.make(args.env, device=dev, msg_bits=m)
         cfg = ippo.IPPOConfig(n_envs=args.n_envs, rollout_len=128, epochs=4, minibatches=4)
         if args.algo == "seac-ppo":
             from rware_tpu_torch.models import seac
@@ -330,7 +335,7 @@ def main():
         # the same updates timed as chip_smoke.py times them, twice
         b2b = [back_to_back_ms(update, 3) for _ in range(2)]
         steps = cfg.n_envs * cfg.rollout_len
-        emit({"train_step": f"{what}, tiny-2ag", "B": cfg.n_envs, "T": cfg.rollout_len,
+        emit({"train_step": f"{what}, {args.env}", "B": cfg.n_envs, "T": cfg.rollout_len,
               "epochs": cfg.epochs, "minibatches": cfg.minibatches, "ms_median": med,
               "ms_min": lo, "ms_max": hi, "ms_each": each, "ms_back_to_back_of_3": b2b,
               "env_steps_per_s": steps / med * 1e3})
