@@ -148,7 +148,28 @@ Phases, one line each:
     one warm-up with launch counters reset before and read after (exactly 3
     K2a-image + 3 K3 and no K4; 3 K2c-image + 48 K9 + 48 K10), the time of an
     update split by phase, and both image collectors timed at that shape
-    beside their plain versions and held to them from the runner's state.
+    beside their plain versions and held to them from the runner's state;
+26. the iall-fed GRU kernels against their plain versions on the card: the
+    sequence forward (K11), its backward (K12) and the loss-fused backward
+    (K13) on tiny-2ag, sensor range 3 and tiny-16ag at B=1000 with bands that
+    wrap, and on a 4,096-env band of B=16,384, T=128 (embed 128, GRU 128);
+    hseq within one bf16 step on 99.9% of the entries and 8 steps at most,
+    gradients, d_iall and dh0 within 1e-2 of each block's largest |plain|,
+    K13's metric sums within rtol 1e-3 (and 1e-5 of their means), two
+    launches bit-equal; and ``GruSeqScan`` (K11 forward, K12 backward) under
+    autograd on the wrapping tiny-2ag band against the same call on the plain
+    versions: hseq as above, the gradients of wh, bhn, iall and h0 within
+    1e-2 of each one's largest |plain|;
+27. the loss-fused recurrent IPPO update (``fused_loss=True``) at full width:
+    tiny-2ag, B=16,384, T=128, E=4, M=4, embed 128, GRU 128, three updates
+    after one warm-up with launch counters reset before and read after
+    (exactly 3 K2c, 48 K11, 48 K13 and no K9, K10 or K12: no learner calls
+    the sequence backward, so any K12 wrapper's launch counts), the time of
+    an update split by phase, and K11, K12 and K13 timed at the band shape on
+    the trajectory's data beside their plain versions and held to them;
+28. recurrent MAPPO at the same shape with M=0 and M=2 message bits: three
+    updates after one warm-up (exactly 3 K2c, 3 K6, 48 K9, 48 K10 and 48
+    critic-only K5), the time of an update split by phase.
 
 Then the card's name and power limit, one JSON line describing each kernel
 (its time beside its plain version's and beside ``bound_ms``, the least time
@@ -2105,6 +2126,316 @@ def phase25(dev, kind, card, n_envs=16384, rollout_len=128):
     return entries
 
 
+# K11-K13: configs of phase 26 (the kernels read the gates, so the sensor range
+# matters only through the embed that makes them; 16 agents cut the bands
+# across agents).  (env id, B, T, bands)
+SEQ_CASES = (
+    ("rware-tiny-2ag-v2", 1000, 8, ((0, 1000), (900, 500))),
+    ("rware-3s-tiny-2ag-v2", 1000, 8, ((600, 700),)),
+    ("rware-tiny-16ag-v2", 1000, 4, ((950, 100),)),
+)
+SEQ_METRIC_RTOL = 1e-3
+
+
+def compare_gru_seq(dims, a, band, seed, fwd=None, bwd=None, loss=None, what="K11-K13"):
+    """K11, K12 and K13 kernels vs their plain versions on one band of the
+    inputs ``a`` (``random_gru_seq_case``'s keys; K12 and K13 from the plain
+    hseq, so that each comparison is of one kernel alone); two launches of
+    each bit-equal.  Returns (fwd, bwd, loss, max |hseq diff|, max |K12
+    diff|, max |K13 diff|) with the differences in float32."""
+    import torch
+    from rware_tpu_torch.ops.fused_gru import (
+        build_fused_gru_loss_bwd,
+        build_fused_gru_seq_bwd,
+        build_fused_gru_seq_fwd,
+    )
+
+    fwd = fwd or build_fused_gru_seq_fwd(dims)
+    bwd = bwd or build_fused_gru_seq_bwd(dims)
+    loss = loss or build_fused_gru_loss_bwd(dims, 0.2, 0.5, 0.01)
+    tag = f"{what} band {band}"
+    seq = (a["wh"], a["bhn"], a["iall"], a["done"], a["h0"])
+    kh, kh2, ph = fwd(*seq, *band), fwd(*seq, *band), fwd.plain(*seq, *band)
+    torch.cuda.synchronize()
+    require(torch.equal(kh, kh2), f"{tag}: two K11 launches differ")
+    require(bool(torch.isfinite(kh.float()).all()), f"{tag}: non-finite hseq")
+    diff = (kh.float() - ph.float()).abs()
+    share = float((diff <= BF16_STEP).float().mean())
+    require(share >= ACTION_AGREEMENT and float(diff.max()) <= 8 * BF16_STEP,
+            f"{tag}: hseq within a bf16 step on {share}, max {float(diff.max())}")
+
+    def close(got, want, name):
+        err = float((got.float() - want.float()).abs().max())
+        top = max(float(want.float().abs().max()), 1e-12)
+        require(bool(torch.isfinite(got.float()).all()) and err <= GRAD_FRAC * top,
+                f"{tag}: {name} differs by {err} > {GRAD_FRAC} * {top}")
+        return err
+
+    gen = torch.Generator().manual_seed(seed)
+    dh = (torch.randn(ph.shape, generator=gen) * 1e-2).to(torch.bfloat16).to(ph.device)
+    k12, k12b, p12 = (f(*seq, ph, dh, *band) for f in (bwd, bwd, bwd.plain))
+    torch.cuda.synchronize()
+    require(all(torch.equal(x, y) for x, y in zip(k12, k12b)), f"{tag}: two K12 launches differ")
+    e12 = max(close(g, w, n) for g, w, n in zip(k12, p12, ("dWh", "dbhn", "d_iall", "dh0")))
+    largs = (a["wh"], a["bhn"], a["whead"], a["bhead"], a["iall"], a["done"], a["h0"], ph,
+             a["action"], a["logp"], a["value"], a["adv"], a["target"], a["stats"], *band)
+    k13, k13b, p13 = loss(*largs), loss(*largs), loss.plain(*largs)
+    torch.cuda.synchronize()
+    require(all(torch.equal(x, y) for x, y in zip(k13, k13b)), f"{tag}: two K13 launches differ")
+    names = ("d_iall", "dWh", "dbhn", "dW_head", "db_head", "dh0")
+    e13 = max(close(g, w, n) for g, w, n in zip(k13[:6], p13[:6], names))
+    # as K4's check: pg's sum is one of normalised advantages, near 0
+    n = float(ph[..., 0].numel())
+    got, want = k13[6].double() / n, p13[6].double() / n
+    require(bool(((got - want).abs() <= SEQ_METRIC_RTOL * want.abs() + 1e-5).all()),
+            f"{tag}: K13 metric means {got.tolist()} vs {want.tolist()}")
+    return fwd, bwd, loss, float(diff.max()), e12, e13
+
+
+def compare_gru_seq_scan(dims, a, band, seed):
+    """``GruSeqScan`` on the kernels (K11 forward, K12 backward) against the
+    same autograd call on their plain versions, on the card: hseq as
+    :func:`compare_gru_seq` holds it, the gradients of wh, bhn, iall and h0
+    (zero outside the band) within ``GRAD_FRAC`` of each one's largest
+    |plain|.  Returns the largest gradient difference."""
+    import torch
+    from rware_tpu_torch.ops.fused_gru import (
+        GruSeqScan,
+        build_fused_gru_seq_bwd,
+        build_fused_gru_seq_fwd,
+    )
+
+    fwd, bwd = build_fused_gru_seq_fwd(dims), build_fused_gru_seq_bwd(dims)
+    gen = torch.Generator().manual_seed(seed)
+    t_len, n_env, n = a["iall"].shape[:3]
+    w = torch.randn((t_len, n_env, n, dims.hidden), generator=gen).to(a["iall"].device)
+    runs = []
+    for f, b in ((fwd, bwd), (fwd.plain, bwd.plain)):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (a["wh"], a["bhn"], a["iall"], a["h0"])]
+        wh, bhn, iall, h0 = leaves
+        hseq = GruSeqScan.apply(wh, bhn, iall, a["done"], h0, *band, f, b)
+        (hseq.float() * w).sum().backward()
+        runs.append((hseq.detach(), [x.grad for x in leaves]))
+    torch.cuda.synchronize()
+    require(fwd.launches == 1 and bwd.launches == 1,
+            f"GruSeqScan launched K11 {fwd.launches} and K12 {bwd.launches} times, not once each")
+    (kh, kg), (ph, pg) = runs
+    diff = (kh.float() - ph.float()).abs()
+    share = float((diff <= BF16_STEP).float().mean())
+    require(share >= ACTION_AGREEMENT and float(diff.max()) <= 8 * BF16_STEP,
+            f"GruSeqScan band {band}: hseq within a bf16 step on {share}, max {float(diff.max())}")
+    err = 0.0
+    for name, g, want in zip(("wh", "bhn", "iall", "h0"), kg, pg):
+        e = float((g.float() - want.float()).abs().max())
+        top = max(float(want.float().abs().max()), 1e-12)
+        require(bool(torch.isfinite(g.float()).all()) and e <= GRAD_FRAC * top,
+                f"GruSeqScan band {band}: d{name} differs by {e} > {GRAD_FRAC} * {top}")
+        err = max(err, e)
+    return err
+
+
+def seq_bounds(dims, a, band, hseq):
+    """``bound`` of K11, K12 and K13 on one band: each reads its band of the
+    inputs once and writes its outputs once; the products are K11's hidden
+    gates (Hg x 3Hg per sequence-step), K12's recomputed gates, dh and dWh
+    (three times that), K13's as K12's plus the heads, dW_head and the
+    heads' cotangent (3 x Hg x (A + 1))."""
+    hg, a1 = dims.hidden, dims.n_actions + 1
+    share = band[1] / a["done"].shape[1]
+    steps = float(hseq[..., 0].numel())
+    w_in = 2.0 * hg * 3 * hg + 4.0 * hg
+    band_in = share * tensor_bytes(a["done"], a["h0"])
+    seq = tensor_bytes(hseq)
+    mac = 2.0 * steps * hg * 3 * hg
+    grads_out = 4.0 * (hg * 3 * hg + hg) + 4.0 * hseq[0].numel()
+    streams = share * tensor_bytes(*(a[k] for k in ("action", "logp", "value", "adv", "target")))
+    return (
+        bound(tensor_bytes(a["iall"]) + band_in + w_in + seq, mac),
+        bound(tensor_bytes(a["iall"]) + band_in + w_in + 2 * seq + tensor_bytes(a["iall"])
+              + grads_out, 3 * mac),
+        bound(2 * tensor_bytes(a["iall"]) + band_in + w_in + seq + streams
+              + 4.0 * (hg + 1) * a1 * 2 + grads_out + 16.0,
+              3 * mac + 3 * 2.0 * steps * hg * a1),
+    )
+
+
+def phase26(dev, kind, card, n_envs=16384, rollout_len=128):
+    """K11, K12 and K13 against their plain versions."""
+    from rware_tpu_torch.testing import random_gru_seq_case
+
+    for env_id, b, t_len, bands in SEQ_CASES:
+        for band in bands:
+            dims, a = random_gru_seq_case(env_id, b, t_len, band, 29, dev)
+            _, _, _, h_err, e12, e13 = compare_gru_seq(dims, a, band, 31, what=env_id)
+            log(f"phase 26 K11, K12, K13 {env_id} (N={a['h0'].shape[1]}) B={b} T={t_len} band "
+                f"{band}: hseq max_abs_err {h_err}, K12 and K13 within {GRAD_FRAC} of each "
+                f"block (max_abs_err {e12}, {e13}), metric sums within rtol "
+                f"{SEQ_METRIC_RTOL}, two launches bit-equal [{kind}, {card}]")
+    env_id, b, t_len, bands = SEQ_CASES[0]
+    band = bands[-1]
+    dims, a = random_gru_seq_case(env_id, b, t_len, band, 29, dev)
+    scan_err = compare_gru_seq_scan(dims, a, band, 33)
+    log(f"phase 26 GruSeqScan (K11 + K12 under autograd) {env_id} B={b} T={t_len} band {band}: "
+        f"gradients of wh, bhn, iall, h0 within {GRAD_FRAC} of each one's largest |plain| "
+        f"(max_abs_err {scan_err}) [{kind}, {card}]")
+    # the first band of an epoch at row offset 5 (epoch_band_starts): it wraps
+    band = ((n_envs - 5 * 128) % n_envs, n_envs // 4)
+    dims, a = random_gru_seq_case("rware-tiny-2ag-v2", n_envs, rollout_len, band, 37, dev)
+    _, _, _, h_err, e12, e13 = compare_gru_seq(dims, a, band, 41, what="main band")
+    log(f"phase 26 K11, K12, K13 main band tiny-2ag B={n_envs} T={rollout_len} band {band}: hseq "
+        f"max_abs_err {h_err}, K12 and K13 within {GRAD_FRAC} of each block (max_abs_err "
+        f"{e12}, {e13}), two launches bit-equal [{kind}, {card}]")
+
+
+class AllSeqBwdLaunches:
+    """The launches of every K12 wrapper (``FusedGruSeqBwd.all_launches``) as
+    one counter that :func:`_time_learner` can reset and read: the learner
+    builds none, so a launch from anywhere on its path would count."""
+
+    @property
+    def launches(self):
+        from rware_tpu_torch.ops.fused_gru import FusedGruSeqBwd
+
+        return FusedGruSeqBwd.all_launches
+
+    @launches.setter
+    def launches(self, value):
+        from rware_tpu_torch.ops.fused_gru import FusedGruSeqBwd
+
+        FusedGruSeqBwd.all_launches = value
+
+
+def phase27(dev, kind, card, n_envs=16384, rollout_len=128):
+    """The loss-fused recurrent IPPO update at full width; returns the K11,
+    K12 and K13 entries."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ippo, ippo_rnn
+    from rware_tpu_torch.models.networks import gru_embed_gates
+    from rware_tpu_torch.ops.fused_gru import build_fused_gru_seq_bwd
+
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2")  # no device named: the card
+    require(env.device.type == "cuda", f"make's default device is {env.device}")
+    cfg = ippo.IPPOConfig(n_envs=n_envs, rollout_len=rollout_len, epochs=4, minibatches=4)
+    n_passes = cfg.epochs * cfg.minibatches
+    runner, dims = ippo_rnn.init_rnn_runner(env, cfg, seed=0)
+    step = ippo_rnn.build_rnn_fused_train_step(env, dims, cfg, fused_loss=True)
+    counted = {"fused_collect_gru": step.collect, "fused_gru_seq_fwd": step.seq_fwd,
+               "fused_gru_loss_bwd": step.loss_bwd, "fused_gru_obs_fwd": step.gru_fwd,
+               "fused_gru_obs_bwd": step.gru_bwd, "fused_gru_seq_bwd": AllSeqBwdLaunches()}
+    want = {"fused_collect_gru": 3, "fused_gru_seq_fwd": 3 * n_passes,
+            "fused_gru_loss_bwd": 3 * n_passes, "fused_gru_obs_fwd": 0, "fused_gru_obs_bwd": 0,
+            "fused_gru_seq_bwd": 0}
+    params0 = runner.params.clone()
+    runner, _ = _time_learner("fused-loss recurrent IPPO", step, runner, counted, want, kind,
+                              card, cfg, phase=27, msg_bits=0)
+    launches = {k: w.launches for k, w in counted.items()}
+    moved = [float((x - y).abs().max())
+             for x, y in zip(dims.split(runner.params), dims.split(params0))]
+    require(min(moved) > 0, f"the fused-loss update left a block unmoved: {moved}")
+
+    collect_ms, (states, new_carry, traj) = cuda_ms(lambda: step.rollout(runner))
+    gae_ms, (obs, adv, targets) = cuda_ms(
+        lambda: step.advantages(runner, states, new_carry, traj))
+    dataset = (traj["obs"], traj["done"], traj["action"], traj["logp"], traj["value"], adv,
+               targets, runner.carry)
+    passes_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    n_env, starts = ippo_rnn.epoch_band_starts(cfg, 5)
+    band = (starts[0], n_env)  # rows 27..31 and 0..2: a band that wraps
+    grads_ms, _ = cuda_ms(lambda: ippo_rnn.rnn_fused_grads(cfg, dims, runner.params, dataset,
+                                                           band, step.seq_fwd, step.loss_bwd))
+    log(f"phase 27 breakdown of one update: collect (K2c) {collect_ms:.3f} ms, bootstrap and GAE "
+        f"{gae_ms:.3f} ms, {n_passes} band passes (embed and gates + K11 + K13 + input-side "
+        f"products + optimizer) {passes_ms:.3f} ms; one band's rnn_fused_grads {grads_ms:.3f} ms "
+        f"[{kind}, {card}]")
+
+    # Each kernel at the band shape, on the trajectory's data, beside its plain version.
+    we, be, wi, bi, wh, bhn, wc, bc = dims.split(runner.params)
+    x = ippo_rnn.band_slice(traj["obs"], *band).float()
+    with torch.no_grad():
+        iall = gru_embed_gates((we, be, wi, bi), x)[1].to(torch.bfloat16)
+    advb = ippo_rnn.band_slice(adv, *band)
+    a = dict(wh=wh, bhn=bhn, whead=wc, bhead=bc[0], iall=iall, done=traj["done"],
+             h0=runner.carry, action=traj["action"], logp=traj["logp"], value=traj["value"],
+             adv=adv, target=targets,
+             stats=torch.stack([advb.mean(), 1.0 / (advb.std(correction=0) + 1e-8)]))
+    fwd, loss, bwd = step.seq_fwd, step.loss_bwd, build_fused_gru_seq_bwd(dims)
+    seq = (wh, bhn, iall, traj["done"], runner.carry)
+    k11_ms, hseq = cuda_ms(lambda: fwd(*seq, *band), repeats=3)
+    k11_plain_ms, _ = cuda_ms(lambda: fwd.plain(*seq, *band))
+    dh = (torch.randn(hseq.shape, device=dev) * 1e-2).to(torch.bfloat16)
+    k12_ms, _ = cuda_ms(lambda: bwd(*seq, hseq, dh, *band), repeats=3)
+    k12_plain_ms, _ = cuda_ms(lambda: bwd.plain(*seq, hseq, dh, *band))
+    largs = (wh, bhn, wc, bc[0], iall, traj["done"], runner.carry, hseq, traj["action"],
+             traj["logp"], traj["value"], adv, targets, a["stats"], *band)
+    k13_ms, _ = cuda_ms(lambda: loss(*largs), repeats=3)
+    k13_plain_ms, _ = cuda_ms(lambda: loss.plain(*largs))
+    _, _, _, k11_err, k12_err, k13_err = compare_gru_seq(dims, a, band, 43, fwd, bwd, loss,
+                                                         what="K11-K13 at the main shape")
+    log(f"phase 27 kernels at the band shape B={n_envs} band {band}: K11 {k11_ms:.3f} ms/launch "
+        f"(plain {k11_plain_ms:.1f} ms, hseq max_abs_err {k11_err}); K12 {k12_ms:.3f} ms/launch "
+        f"(plain {k12_plain_ms:.1f} ms, max_abs_err {k12_err}); K13 {k13_ms:.3f} ms/launch "
+        f"(plain {k13_plain_ms:.1f} ms, max_abs_err {k13_err}) [{kind}, {card}]")
+    b11, b12, b13 = seq_bounds(dims, a, band, hseq)
+    return [
+        kernel_entry("fused_gru_seq_fwd", "fused_gru_seq_fwd.cu", "rware_tpu/ops/pallas_gru.py:78",
+                     launches["fused_gru_seq_fwd"], k11_err, k11_ms, k11_plain_ms, b11),
+        kernel_entry("fused_gru_seq_bwd", "fused_gru_seq_bwd.cu",
+                     "rware_tpu/ops/pallas_gru.py:172", launches["fused_gru_seq_bwd"], k12_err,
+                     k12_ms, k12_plain_ms, b12),
+        kernel_entry("fused_gru_loss_bwd", "fused_gru_loss_bwd.cu",
+                     "rware_tpu/ops/pallas_gru.py:823", launches["fused_gru_loss_bwd"], k13_err,
+                     k13_ms, k13_plain_ms, b13),
+    ]
+
+
+def phase28(dev, kind, card, n_envs=16384, rollout_len=128):
+    """Recurrent MAPPO at full width, without and with two message bits."""
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ippo, mappo
+
+    for m in (0, 2):
+        env = rware_tpu_torch.make("rware-tiny-2ag-v2", msg_bits=m)  # the card
+        require(env.device.type == "cuda", f"make's default device is {env.device}")
+        cfg = ippo.IPPOConfig(n_envs=n_envs, rollout_len=rollout_len, epochs=4, minibatches=4)
+        n_passes = cfg.epochs * cfg.minibatches
+        runner, dims, cdims = mappo.init_rnn_mappo_runner(env, cfg, seed=0)
+        step = mappo.build_rnn_mappo_train_step(env, dims, cdims, cfg)
+        counted = {"fused_collect_gru": step.collect, "fused_critic_values": step.critic_values,
+                   "fused_gru_obs_fwd": step.gru_fwd, "fused_gru_obs_bwd": step.gru_bwd,
+                   "fused_mappo_grads": step.critic_grads}
+        want = {"fused_collect_gru": 3, "fused_critic_values": 3,
+                "fused_gru_obs_fwd": 3 * n_passes, "fused_gru_obs_bwd": 3 * n_passes,
+                "fused_mappo_grads": 3 * n_passes}
+        params0 = {k: v.clone() for k, v in runner.params.items()}
+        runner, _ = _time_learner(f"recurrent MAPPO M={m}", step, runner, counted, want, kind,
+                                  card, cfg, phase=28, msg_bits=m)
+        new, old = dims.split(runner.params["actor"]), dims.split(params0["actor"])
+        moved = [float((x - y).abs().max()) for x, y in zip(new[:6], old[:6])]
+        moved += [float((new[6][:, :dims.n_actions] - old[6][:, :dims.n_actions]).abs().max())]
+        moved += [float((x - y).abs().max()) for x, y in
+                  zip(cdims.split(runner.params["critic"]), cdims.split(params0["critic"]))]
+        require(min(moved) > 0, f"recurrent MAPPO M={m} left a block unmoved: {moved}")
+        value_moved = float((new[6][:, dims.n_actions] - old[6][:, dims.n_actions]).abs().max())
+        require(value_moved == 0, f"the actor's local value head moved by {value_moved}: MAPPO's "
+                                  f"value term is the critic's (vf_coef = 0 for the actor)")
+        collect_ms, (states, new_carry, traj) = cuda_ms(lambda: step.rollout(runner))
+        values_ms, values = cuda_ms(lambda: step.values(runner, traj))
+        gae_ms, (obs, adv, targets) = cuda_ms(
+            lambda: step.advantages(runner, states, traj, values))
+        dataset = (traj["obs"], traj["done"], traj["action"], traj["logp"], values, adv, targets,
+                   runner.carry) + ((traj["bits"],) if m else ())
+        passes_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+        band = (0, n_envs // cfg.minibatches)
+        band_ms, _ = cuda_ms(lambda: step.band_grads(runner.params, dataset, band))
+        log(f"phase 28 recurrent MAPPO M={m} breakdown of one update: collect (K2c"
+            f"{' with K2b' if m else ''}) {collect_ms:.3f} ms, critic values (K6) "
+            f"{values_ms:.3f} ms, bootstrap and GAE {gae_ms:.3f} ms, {n_passes} band passes "
+            f"(K9 + actor loss + K10, band copy + K5, optimizer) {passes_ms:.3f} ms; one band's "
+            f"gradients {band_ms:.3f} ms [{kind}, {card}]")
+
+
 def main() -> int:
     import torch
 
@@ -2152,6 +2483,9 @@ def main() -> int:
     kernels += phase23(dev, kind, card, errs)
     phase24(dev, kind, card)
     kernels += phase25(dev, kind, card)
+    phase26(dev, kind, card)
+    kernels += phase27(dev, kind, card)
+    phase28(dev, kind, card)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

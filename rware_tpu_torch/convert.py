@@ -295,18 +295,33 @@ def adam_state_from_optax(opt_state: Any, device="cpu", from_flax=params_from_fl
     return AdamState(int(adam.count), from_flax(adam.mu, device), from_flax(adam.nu, device))
 
 
-def mappo_opt_state_from_optax(opt_state: Mapping[str, Any], device="cpu") -> Dict[str, AdamState]:
+def mappo_params_from_flax(params: Mapping[str, Any], device="cpu",
+                           actor_from_flax=params_from_flax) -> Dict[str, torch.Tensor]:
+    """``{"actor", "critic"}`` flat vectors of MAPPO's flax params; recurrent
+    MAPPO's GRU actor (``mappo.py:706-755``) takes
+    ``actor_from_flax=gru_params_from_flax``."""
+    return {"actor": actor_from_flax(params["actor"], device),
+            "critic": critic_params_from_flax(params["critic"], device)}
+
+
+def mappo_opt_state_from_optax(opt_state: Mapping[str, Any], device="cpu",
+                               actor_from_flax=params_from_flax) -> Dict[str, AdamState]:
     """``{"actor", "critic"}`` :class:`AdamState` of the split optax state of
-    ``make_mappo_optimizer`` (``rware_tpu/models/mappo.py:120-150``)."""
-    return {"actor": adam_state_from_optax(opt_state["actor"], device),
+    ``make_mappo_optimizer`` (``rware_tpu/models/mappo.py:120-150``); the
+    actor's moments in the layout of ``actor_from_flax`` (recurrent MAPPO:
+    ``gru_params_from_flax``)."""
+    return {"actor": adam_state_from_optax(opt_state["actor"], device, actor_from_flax),
             "critic": adam_state_from_optax(opt_state["critic"], device,
                                             critic_params_from_flax)}
 
 
-def mappo_opt_state_to_optax(state: Mapping[str, AdamState], dims: BlockDims,
-                             cdims: CriticDims, like: Mapping[str, Any]) -> Dict[str, Any]:
-    """The split optax state of ``state``, in the structure of ``like``."""
-    return {"actor": adam_state_to_optax(state["actor"], dims, like["actor"]),
+def mappo_opt_state_to_optax(state: Mapping[str, AdamState], dims, cdims: CriticDims,
+                             like: Mapping[str, Any],
+                             actor_to_flax=params_to_flax) -> Dict[str, Any]:
+    """The split optax state of ``state``, in the structure of ``like``;
+    ``dims`` is a :class:`BlockDims` or, with ``actor_to_flax=
+    gru_params_to_flax``, a :class:`GruDims`."""
+    return {"actor": adam_state_to_optax(state["actor"], dims, like["actor"], actor_to_flax),
             "critic": adam_state_to_optax(state["critic"], cdims, like["critic"],
                                           critic_params_to_flax)}
 

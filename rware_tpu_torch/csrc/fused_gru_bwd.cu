@@ -18,12 +18,13 @@
 //     dh_prev = dnh z + [dr | dz | dhhn] Wh^T and de = [dr | dz | dn] Wi^T use
 //     transposed weight copies, so they are the same tile product as the
 //     forward's.  dbhn sums the unrounded f32 dhhn: per-block partials.
-//  2. gru_wgrad_kernel, once per stacked block: obs^T dpre (+ the bias row
-//     dbe), e^T [dr | dz | dn] (+ dbi), hprev^T [dr | dz | dhhn]; each block
-//     one 64 x 64 output tile over one chunk of samples, written to its own
-//     partial; the obs rows are read in place through the band.
-//  3. gru_reduce_kernel: the partials summed in a fixed order.  No float
-//     atomics, so two launches give the same bits.
+//  2. gru_wgrad_kernel (gru_wgrad.cuh), once per stacked block: obs^T dpre
+//     (+ the bias row dbe), e^T [dr | dz | dn] (+ dbi), hprev^T [dr | dz |
+//     dhhn]; each block one 64 x 64 output tile over one chunk of samples,
+//     written to its own partial; the obs rows are read in place through the
+//     band.
+//  3. gru_reduce_kernel (gru_wgrad.cuh): the partials summed in a fixed
+//     order.  No float atomics, so two launches give the same bits.
 //
 // Numerics follow the TPU kernel: r and z stay f32 in the derivatives, the
 // candidate is recomputed in bf16 arithmetic, the cotangents are rounded to
@@ -33,10 +34,7 @@
 // at L=71, E=Hg=128 (recomputed forward 107k, dh 49k, de 49k, weight
 // gradients 107k), on the FP32 pipes in this version; the scratch adds about
 // 2.3 KB per sequence-step written and read once.
-#include "gru_core.cuh"
-
-#define GRU_SK 32  // samples per step of the weight-gradient kernel
-#define GRU_TW 64  // weight-gradient output tile, rows and columns
+#include "gru_wgrad.cuh"
 
 struct GruBwdScratch {
   __nv_bfloat16 *hp, *e, *dg3, *dgi, *dpre;  // (T * Q, Hg | E | 3Hg | 3Hg | E)
@@ -220,99 +218,28 @@ struct GruOperand {
   int obs;  // rows addressed through the band (the trajectory's obs)
 };
 
-// partial[chunk][out_off + i * jb + j] = sum over the chunk's samples of
-// A(s, i) * G(s, j) for i < ia (and i == ia with A = 1 when bias), j < jb.
-__global__ void __launch_bounds__(GRU_THREADS)
-    gru_wgrad_kernel(GruSeqDims d, GruOperand a, int ia, int bias, GruOperand g, int jb,
-                     long long n_samples, int chunk, float* __restrict__ partial,
-                     long long out_off, long long n_out) {
-  __shared__ __align__(16) float As[GRU_SK][GRU_TW + 4];
-  __shared__ __align__(16) float Gs[GRU_SK][GRU_TW + 4];
-  __shared__ long long rows_a[GRU_SK];
-  const int tid = threadIdx.x;
-  const int tiles_j = (jb + GRU_TW - 1) / GRU_TW;
-  const int ti0 = (blockIdx.x / tiles_j) * GRU_TW, tj0 = (blockIdx.x % tiles_j) * GRU_TW;
-  const long long c0 = (long long)blockIdx.y * chunk;
-  const long long c1 = c0 + chunk < n_samples ? c0 + chunk : n_samples;
-  const int Q = d.n_env * d.N;
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+// One weight-gradient product's operands (gru_wgrad.cuh): A rows stored per
+// sample, or with a.obs the trajectory's obs rows read through the band, kept
+// as row indices; G rows stored per sample.
+struct GruBwdSrc {
+  using Row = long long;
+  GruOperand a, g;
+  int ia, bias, jb;
 
-  for (long long s0 = c0; s0 < c1; s0 += GRU_SK) {
-    if (tid < GRU_SK) {
-      const long long smp = s0 + tid;
-      long long row = -1;
-      if (smp < c1) {
-        row = smp;
-        if (a.obs) {
-          const long long t = smp / Q;
-          const int q = (int)(smp - t * Q);
-          row = (t * d.B + gru_env(d, q)) * d.N + q % d.N;
-        }
-      }
-      rows_a[tid] = row;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < GRU_SK * GRU_TW; idx += GRU_THREADS) {
-      const int ss = idx / GRU_TW, cc = idx - ss * GRU_TW;
-      const long long ra = rows_a[ss], smp = s0 + ss;
-      const int i = ti0 + cc, j = tj0 + cc;
-      float av = 0.f, gv = 0.f;
-      if (ra >= 0) {
-        if (i < ia) {
-          av = __bfloat162float(a.p[(size_t)ra * a.ld + i]);
-        } else if (i == ia && bias) {
-          av = 1.f;
-        }
-        if (j < jb) gv = __bfloat162float(g.p[(size_t)smp * g.ld + j]);
-      }
-      As[ss][cc] = av;
-      Gs[ss][cc] = gv;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int ss = 0; ss < GRU_SK; ++ss) {
-      const float4 av = *(const float4*)&As[ss][ty * 4];
-      const float4 gv = *(const float4*)&Gs[ss][tx * 4];
-      const float aa[4] = {av.x, av.y, av.z, av.w};
-      const float gg[4] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(aa[r], gg[c], acc[r][c]);
-    }
-    __syncthreads();
+  __device__ Row a_row(const GruSeqDims& d, long long smp) const {
+    if (!a.obs) return smp;
+    const int Q = d.n_env * d.N;
+    const long long t = smp / Q;
+    const int q = (int)(smp - t * Q);
+    return (t * d.B + gru_env(d, q)) * d.N + q % d.N;
   }
-  float* out = partial + (size_t)blockIdx.y * n_out + out_off;
-  const int rows = ia + (bias ? 1 : 0);
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = ti0 + ty * 4 + r, j = tj0 + tx * 4 + c;
-      if (i < rows && j < jb) out[(size_t)i * jb + j] = acc[r][c];
-    }
-}
-
-// grads[e] = sum over chunks of partial[c][e] for e < n_w; the Hg entries
-// after them (dbhn) = sum over the sweep's blocks of part_bhn[b][j].
-__global__ void gru_reduce_kernel(const float* __restrict__ partial, int n_chunks, long long n_w,
-                                  const float* __restrict__ part_bhn, int n_blocks, int Hg,
-                                  float* __restrict__ grads) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_w + Hg) return;
-  float acc = 0.f;
-  if (e < n_w) {
-    for (int c = 0; c < n_chunks; ++c) acc += partial[(size_t)c * n_w + e];
-  } else {
-    for (int b = 0; b < n_blocks; ++b) acc += part_bhn[(size_t)b * Hg + (e - n_w)];
+  __device__ float a_at(Row r, int i) const {
+    return __bfloat162float(a.p[(size_t)r * a.ld + i]);
   }
-  grads[e] = acc;
-}
+  __device__ float g_at(const GruSeqDims&, long long smp, int j) const {
+    return __bfloat162float(g.p[(size_t)smp * g.ld + j]);
+  }
+};
 
 template <int RT>
 static int sweep_launch(const GruSeqDims& d, const void* obs, const void* done, const void* h0,
@@ -332,10 +259,6 @@ static int sweep_launch(const GruSeqDims& d, const void* obs, const void* done, 
       (const float*)be, (const __nv_bfloat16*)wi, (const float*)bi, (const __nv_bfloat16*)wh,
       (const float*)bhn, (const __nv_bfloat16*)wiT, (const __nv_bfloat16*)whT, ws, (float*)dh0);
   return (int)cudaGetLastError();
-}
-
-static dim3 wgrad_grid(int rows, int cols, int n_chunks) {
-  return dim3(((rows + GRU_TW - 1) / GRU_TW) * ((cols + GRU_TW - 1) / GRU_TW), n_chunks);
 }
 
 // rows_per_thread: 1 or 2 (16 or 32 sequences a sweep block); chunk * n_chunks
@@ -378,12 +301,12 @@ extern "C" int rw_fused_gru_bwd(int L, int E, int Hg, int T, int B, int N, int s
   const GruOperand g_dpre = {ws.dpre, E, 0}, g_dgi = {ws.dgi, 3 * Hg, 0},
                    g_dg3 = {ws.dg3, 3 * Hg, 0};
   float* part = (float*)partial;
-  gru_wgrad_kernel<<<wgrad_grid(L + 1, E, n_chunks), GRU_THREADS, 0, stream>>>(
-      d, a_obs, L, 1, g_dpre, E, n_samples, chunk, part, 0, n_w);
-  gru_wgrad_kernel<<<wgrad_grid(E + 1, 3 * Hg, n_chunks), GRU_THREADS, 0, stream>>>(
-      d, a_e, E, 1, g_dgi, 3 * Hg, n_samples, chunk, part, off_wi, n_w);
-  gru_wgrad_kernel<<<wgrad_grid(Hg, 3 * Hg, n_chunks), GRU_THREADS, 0, stream>>>(
-      d, a_hp, Hg, 0, g_dg3, 3 * Hg, n_samples, chunk, part, off_wh, n_w);
+  gru_wgrad_kernel<<<gru_wgrad_grid(L + 1, E, n_chunks), GRU_THREADS, 0, stream>>>(
+      d, GruBwdSrc{a_obs, g_dpre, L, 1, E}, n_samples, chunk, part, 0, n_w);
+  gru_wgrad_kernel<<<gru_wgrad_grid(E + 1, 3 * Hg, n_chunks), GRU_THREADS, 0, stream>>>(
+      d, GruBwdSrc{a_e, g_dgi, E, 1, 3 * Hg}, n_samples, chunk, part, off_wi, n_w);
+  gru_wgrad_kernel<<<gru_wgrad_grid(Hg, 3 * Hg, n_chunks), GRU_THREADS, 0, stream>>>(
+      d, GruBwdSrc{a_hp, g_dg3, Hg, 0, 3 * Hg}, n_samples, chunk, part, off_wh, n_w);
   cudaError_t cerr = cudaGetLastError();
   if (cerr != cudaSuccess) return (int)cerr;
   gru_reduce_kernel<<<(unsigned)((n_w + Hg + 255) / 256), 256, 0, stream>>>(

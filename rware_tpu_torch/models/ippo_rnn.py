@@ -17,7 +17,10 @@ the carry at the rollout's start.
   ``ippo_rnn.py:745-937``): the recurrent collector (K2c), then E epochs of M
   **env-band** minibatches, each one launch of the GRU forward kernel (K9)
   and one of its backward kernel (K10) around the head product and the loss,
-  which autograd differentiates as XLA does there.
+  which autograd differentiates as XLA does there.  With ``fused_loss=True``
+  (JAX's ``fused_loss``, ``ippo_rnn.py:879-893``) each pass is
+  :func:`rnn_fused_grads` instead: the embed and input gates by torch
+  products, the recurrence by K11 and the loss-fused backward by K13.
 
 Parameters are one flat float32 vector in the
 :class:`~rware_tpu_torch.models.networks.GruDims` layout, so the optimizer of
@@ -46,17 +49,21 @@ from rware_tpu_torch.models.networks import (
     GruDims,
     arrays_to_gru,
     gru_apply_step,
+    gru_embed_gates,
     gru_replay_heads,
     gru_replay_step,
     gru_to_arrays,
     init_recurrent_actor_critic,
     pack_arrays,
+    rnd_bf16,
 )
 from rware_tpu_torch.models.ppo import AdamState, clipped_ppo_terms, loss_grads
 from rware_tpu_torch.ops.fused_gru import (
     GruObsScan,
+    build_fused_gru_loss_bwd,
     build_fused_gru_obs_bwd,
     build_fused_gru_obs_fwd,
+    build_fused_gru_seq_fwd,
 )
 from rware_tpu_torch.ops.fused_rollout import build_fused_collect_gru
 
@@ -148,6 +155,50 @@ def rnn_ppo_loss_native(cfg, dims: GruDims, params: torch.Tensor, dataset, band,
     return clipped_ppo_terms(cfg, heads, value, action, logp, value_old, adv, target, bits=bits)
 
 
+FUSED_LOSS_NO_BITS = ("the loss-fused recurrent update takes no message bits: JAX takes it only "
+                      "for 8-entry batches (ippo_rnn.py:879-880) and K13 has no message head")
+
+
+def rnn_fused_grads(cfg, dims: GruDims, params: torch.Tensor, dataset, band, fwd, loss_bwd):
+    """Hand-derived gradients of :func:`rnn_ppo_loss_native` on one env band
+    ``(start_env, n_env)`` (``rnn_fused_grads``, ``ippo_rnn.py:610-742``):
+    the embed and the fused input gates ``iall`` by torch products, rounded
+    to bf16 before the recurrence; the hidden sequence by ``fwd`` (K11); the
+    f32 heads ``[W_policy | W_value]``, the loss and the GRU's reverse sweep
+    by ``loss_bwd`` (K13), with the band's advantage mean and 1 / (std +
+    1e-8); then the three input-side products (dWi, de, dWe).  The products
+    multiply bf16 values as float32 with float32 sums, as JAX's
+    ``preferred_element_type=float32``.  ``dataset`` as for
+    :func:`rnn_ppo_loss_native`, without bits.  Returns (flat float32
+    gradient, metrics)."""
+    if dims.msg_bits:
+        raise ValueError(FUSED_LOSS_NO_BITS)
+    obs, done, action, logp, value_old, adv, target, h0 = dataset[:8]
+    start, n_env = band
+    with torch.no_grad():
+        we, be, wi, bi, wh, bhn, wc, bc = dims.split(params.detach())
+        x = band_slice(obs, start, n_env).float()
+        e, iall = gru_embed_gates((we, be, wi, bi), x)
+        iall = iall.to(torch.bfloat16)
+        hseq = fwd(wh, bhn, iall, done, h0, start, n_env)
+        advb = band_slice(adv, start, n_env)
+        stats = torch.stack([advb.mean(), 1.0 / (advb.std(correction=0) + 1e-8)])
+        d_iall, dwh, dbhn, dwhead, dbhead, _, mets = loss_bwd(
+            wh, bhn, wc, bc[0], iall, done, h0, hseq, action, logp, value_old, adv, target,
+            stats, start, n_env)
+        e2 = e.reshape(-1, dims.embed)
+        dg2 = d_iall.float().reshape(-1, 3 * dims.hidden)
+        dwi, dbi = e2.t() @ dg2, dg2.sum(0)
+        dpre = rnd_bf16((dg2 @ rnd_bf16(wi).t()) * (1.0 - e2 * e2))
+        dwe, dbe = x.reshape(-1, dims.obs_len).t() @ dpre, dpre.sum(0)
+        grads = torch.cat([g.reshape(-1) for g in (dwe, dbe, dwi, dbi, dwh, dbhn, dwhead,
+                                                   dbhead)])
+        inv_n = 1.0 / hseq[..., 0].numel()
+        metrics = {"pg_loss": -mets[0] * inv_n, "v_loss": mets[1] * inv_n,
+                   "entropy": mets[2] * inv_n, "approx_kl": mets[3] * inv_n}
+    return grads, metrics
+
+
 def band_rows(cfg: IPPOConfig) -> Tuple[int, int]:
     """(envs per row, rows) of the env bands: rows of :data:`LANE` envs, M
     dividing their number (``ippo_rnn.py:849-854``).  A batch that small
@@ -170,22 +221,51 @@ def epoch_band_starts(cfg: IPPOConfig, off: int) -> Tuple[int, list]:
     return mb * lane, [((i * mb - off) % rb) * lane for i in range(cfg.minibatches)]
 
 
+def band_passes(cfg: IPPOConfig, runner: RNNRunnerState, offsets: Optional[torch.Tensor],
+                grads_fn, step_fn):
+    """((params, opt_state), metrics) of the E x M env-band passes from the
+    runner's parameters and optimizer state: per epoch one row offset in
+    ``[0, rb)`` (``offsets``, else drawn from the runner's generator) and M
+    bands (:func:`epoch_band_starts`), each ``grads_fn(params, (start_env,
+    n_env)) -> (grads, metrics)`` and then ``step_fn(cfg, params, grads,
+    opt_state)``."""
+    if offsets is None:
+        offsets = torch.randint(0, band_rows(cfg)[1], (cfg.epochs,), generator=runner.generator)
+    params, opt_state = runner.params, runner.opt_state
+    per_pass = []
+    for off in torch.as_tensor(offsets).tolist():
+        n_env, starts = epoch_band_starts(cfg, int(off))
+        for start in starts:
+            grads, metrics = grads_fn(params, (start, n_env))
+            params, opt_state = step_fn(cfg, params, grads, opt_state)
+            per_pass.append(metrics)
+    return (params, opt_state), mean_metrics(per_pass)
+
+
 class RnnFusedTrainStep:
     """``train_step(runner, offsets=None) -> (runner, metrics)``; see
     :func:`build_rnn_fused_train_step`.  The phases are methods so that
     callers can time them: :meth:`rollout`, :meth:`advantages`,
-    :meth:`update`."""
+    :meth:`band_grads`, :meth:`update`."""
 
     def __init__(self, env: Warehouse, dims: GruDims, cfg: IPPOConfig,
-                 deterministic_collect: bool = False):
+                 deterministic_collect: bool = False, fused_loss: bool = False):
         band_rows(cfg)
+        if fused_loss and dims.msg_bits:
+            raise ValueError(FUSED_LOSS_NO_BITS)
         self.env, self.dims, self.cfg = env, dims, cfg
+        self.fused_loss = fused_loss
         self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect_gru(env.config, cfg.rollout_len,
                                                (dims.embed, dims.hidden),
                                                deterministic=deterministic_collect)
         self.gru_fwd = build_fused_gru_obs_fwd(dims)
         self.gru_bwd = build_fused_gru_obs_bwd(dims)
+        self.seq_fwd = self.loss_bwd = None
+        if fused_loss:
+            self.seq_fwd = build_fused_gru_seq_fwd(dims)
+            self.loss_bwd = build_fused_gru_loss_bwd(dims, cfg.clip_eps, cfg.vf_coef,
+                                                     cfg.ent_coef)
         self._policy = None
 
     def rollout(self, runner: RNNRunnerState):
@@ -205,24 +285,22 @@ class RnnFusedTrainStep:
         adv, targets = compute_gae(self.cfg, traj["reward"], traj["value"], traj["done"], last)
         return obs, adv, targets
 
+    def band_grads(self, params: torch.Tensor, dataset, band):
+        """(flat gradient, metrics) of one env band ``(start_env, n_env)``:
+        autograd of the loss around one K9 and one K10 launch, or with
+        ``fused_loss`` :func:`rnn_fused_grads` (one K11 and one K13)."""
+        if self.fused_loss:
+            return rnn_fused_grads(self.cfg, self.dims, params, dataset, band, self.seq_fwd,
+                                   self.loss_bwd)
+        return loss_grads(lambda p: rnn_ppo_loss_native(self.cfg, self.dims, p, dataset, band,
+                                                        self.gru_fwd, self.gru_bwd), params)
+
     def update(self, runner: RNNRunnerState, dataset, offsets: Optional[torch.Tensor] = None):
-        """((params, opt_state), metrics) of the E x M band passes: one K9 and
-        one K10 launch and one optimizer step each."""
-        cfg = self.cfg
-        if offsets is None:
-            offsets = torch.randint(0, band_rows(cfg)[1], (cfg.epochs,),
-                                    generator=runner.generator)
-        params, opt_state = runner.params, runner.opt_state
-        per_pass = []
-        for off in torch.as_tensor(offsets).tolist():
-            n_env, starts = epoch_band_starts(cfg, int(off))
-            for start in starts:
-                grads, metrics = loss_grads(
-                    lambda p: rnn_ppo_loss_native(cfg, self.dims, p, dataset, (start, n_env),
-                                                  self.gru_fwd, self.gru_bwd), params)
-                params, opt_state = optimizer_step(cfg, params, grads, opt_state)
-                per_pass.append(metrics)
-        return (params, opt_state), mean_metrics(per_pass)
+        """((params, opt_state), metrics) of the E x M band passes
+        (:func:`band_passes`): :meth:`band_grads` and one optimizer step
+        each."""
+        return band_passes(self.cfg, runner, offsets,
+                           lambda p, band: self.band_grads(p, dataset, band), optimizer_step)
 
     def __call__(self, runner: RNNRunnerState, offsets: Optional[torch.Tensor] = None
                  ) -> Tuple[RNNRunnerState, dict]:
@@ -240,15 +318,20 @@ class RnnFusedTrainStep:
 
 
 def build_rnn_fused_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig,
-                               deterministic_collect: bool = False) -> RnnFusedTrainStep:
+                               deterministic_collect: bool = False,
+                               fused_loss: bool = False) -> RnnFusedTrainStep:
     """The recurrent learner on the kernels: K2c collect from the runner's
     carry, the bootstrap value by the flax-rounding forward on the new carry,
     GAE, then per epoch one row offset in ``[0, rb)`` and M env-band passes
     (:func:`epoch_band_starts`), each a K9 forward, the loss, a K10 backward
-    and one clip + Adam step.  ``offsets`` of a call overrides the (E,) row
-    offsets drawn from the runner's generator.  On a CUDA runner every kernel
-    runs on the card; on a CPU runner every wrapper runs its plain version."""
-    return RnnFusedTrainStep(env, dims, cfg, deterministic_collect)
+    and one clip + Adam step.  ``fused_loss`` takes each pass's gradient from
+    :func:`rnn_fused_grads` (K11 and K13) instead, as
+    ``build_rnn_pallas_train_step(fused_loss=True)``; with message bits it
+    raises, since JAX then takes the default path.  ``offsets`` of a call
+    overrides the (E,) row offsets drawn from the runner's generator.  On a
+    CUDA runner every kernel runs on the card; on a CPU runner every wrapper
+    runs its plain version."""
+    return RnnFusedTrainStep(env, dims, cfg, deterministic_collect, fused_loss)
 
 
 def build_rnn_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig

@@ -27,6 +27,15 @@ each pass takes the actor's gradient from K4 with the message head and
 ``vf_coef = 0``, and the critic's from autograd of its clipped value loss on
 the window's joint observations (:class:`MappoSplitGrads`), then the split
 optimizer step.
+
+Recurrent MAPPO (``build_rnn_mappo_train_step``, ``mappo.py:706-1012``) pairs
+the GRU actor of :mod:`rware_tpu_torch.models.ippo_rnn` with the central
+critic (:class:`RnnMappoTrainStep`): K2c collects (with K2b under message
+bits), K6 gives the critic's values of the whole trajectory, then per env
+band the actor's gradient of the replay loss with ``vf_coef = 0`` through K9
+and K10, and the critic's from K5 ``with_actor=False`` on a contiguous copy
+of the band's joint observations, values and targets; one split optimizer
+step per band.
 """
 from __future__ import annotations
 
@@ -53,13 +62,24 @@ from rware_tpu_torch.models.ippo_fused import (
     phase_window_starts,
     ppo_update_epochs_native,
 )
+from rware_tpu_torch.models.ippo_rnn import (
+    RNNRunnerState,
+    band_passes,
+    band_rows,
+    band_slice,
+    rnn_policy_of,
+    rnn_ppo_loss_native,
+)
 from rware_tpu_torch.models.networks import (
     BlockDims,
     CriticDims,
+    GruDims,
     critic_apply_forward,
     critic_to_arrays,
+    gru_to_arrays,
     init_actor_critic,
     init_central_critic,
+    init_recurrent_actor_critic,
     joint_obs,
     pack_arrays,
     params_to_arrays,
@@ -70,14 +90,16 @@ from rware_tpu_torch.ops.fused_mappo import (
     build_fused_mappo_grads,
     build_fused_mappo_update_phase,
 )
-from rware_tpu_torch.ops.fused_rollout import build_fused_collect
+from rware_tpu_torch.ops.fused_gru import build_fused_gru_obs_bwd, build_fused_gru_obs_fwd
+from rware_tpu_torch.ops.fused_rollout import build_fused_collect, build_fused_collect_gru
 from rware_tpu_torch.ops.fused_update import build_fused_ppo_grads, metric_means, window_rows
 
 PARTS = ("actor", "critic")
 
 __all__ = [
-    "MappoSplitGrads", "MappoTrainStep", "build_mappo_train_step", "critic_last_values",
-    "init_mappo_runner", "mappo_optimizer_step", "mappo_update_phase_fused",
+    "MappoSplitGrads", "MappoTrainStep", "RnnMappoTrainStep", "build_mappo_train_step",
+    "build_rnn_mappo_train_step", "critic_last_values", "init_mappo_runner",
+    "init_rnn_mappo_runner", "mappo_optimizer_step", "mappo_update_phase_fused",
 ]
 
 
@@ -266,3 +288,129 @@ def build_mappo_train_step(env: Warehouse, dims: BlockDims, cdims: CriticDims, c
     CUDA runner every kernel runs on the card; on a CPU runner every wrapper
     runs its plain version."""
     return MappoTrainStep(env, dims, cdims, cfg, deterministic_collect, fused_critic_phase)
+
+
+def init_rnn_mappo_runner(env: Warehouse, cfg: IPPOConfig, seed: int, hidden: int = 128,
+                          embed: int = 128, critic_hidden: Tuple[int, int] = (128, 128)
+                          ) -> Tuple[RNNRunnerState, GruDims, CriticDims]:
+    """Recurrent MAPPO's runner (``init_rnn_mappo_runner``, ``mappo.py:706-755``):
+    the GRU actor (with a message head where the config has message bits)
+    from ``seed`` and the central critic from the stream ``(seed, 1)``,
+    flax's default init; the split optimizer state, a fresh batch of
+    ``cfg.n_envs`` env states and the zero carry on ``env.device``."""
+    from rware_tpu_torch.parallel import batched_reset
+
+    l_obs, n = env.config.policy_obs_length, env.n_agents
+    actor = init_recurrent_actor_critic(l_obs, env.n_actions, hidden, embed, seed,
+                                        env.config.msg_bits)
+    critic = init_central_critic(n * l_obs, n, critic_hidden, (seed, 1))
+    params = {"actor": pack_arrays(gru_to_arrays(actor)).detach().to(env.device),
+              "critic": pack_arrays(critic_to_arrays(critic)).detach().to(env.device)}
+    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    runner = RNNRunnerState(
+        params=params, opt_state={k: optimizer_init(params[k]) for k in PARTS},
+        env_states=env_states, obs=policy_obs_fn(env)(env_states),
+        carry=actor.initialize_carry((cfg.n_envs, n), env.device),
+        generator=torch.Generator().manual_seed(seed), update_idx=0, seed=seed,
+    )
+    return runner, GruDims.of(actor), CriticDims.of(critic)
+
+
+class RnnMappoTrainStep:
+    """``train_step(runner, offsets=None) -> (runner, metrics)``; see
+    :func:`build_rnn_mappo_train_step`.  The phases are methods so that
+    callers can time them: :meth:`rollout`, :meth:`values`,
+    :meth:`advantages`, :meth:`update`."""
+
+    def __init__(self, env: Warehouse, dims: GruDims, cdims: CriticDims, cfg: IPPOConfig,
+                 deterministic_collect: bool = False):
+        band_rows(cfg)
+        self.env, self.dims, self.cdims, self.cfg = env, dims, cdims, cfg
+        # the actor trains on the clipped surrogate and the entropy only
+        self.actor_cfg = dataclasses.replace(cfg, vf_coef=0.0)
+        self.policy_obs = policy_obs_fn(env)
+        self.collect = build_fused_collect_gru(env.config, cfg.rollout_len,
+                                               (dims.embed, dims.hidden),
+                                               deterministic=deterministic_collect)
+        self.critic_values = build_fused_critic_values(cdims)
+        self.gru_fwd = build_fused_gru_obs_fwd(dims)
+        self.gru_bwd = build_fused_gru_obs_bwd(dims)
+        self.critic_grads = build_fused_mappo_grads(None, cdims, cfg.rollout_len, cfg.clip_eps,
+                                                    cfg.vf_coef, cfg.ent_coef, with_actor=False)
+        self._policy = None
+
+    def rollout(self, runner: RNNRunnerState):
+        """(env_states, new_carry, traj) of one collector launch with the
+        actor's parameters from the runner's carry."""
+        actor = runner.params["actor"]
+        self._policy = rnn_policy_of(self.dims, actor, None if self._policy is None
+                                     else self._policy.to(actor.device))
+        seed = collect_seed(runner.seed, runner.update_idx)
+        return self.collect(runner.env_states, self._policy, seed, runner.carry)
+
+    def values(self, runner: RNNRunnerState, traj: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(T, B, N) values of the central critic over the stored trajectory."""
+        return self.critic_values(runner.params["critic"], traj["obs"])
+
+    def advantages(self, runner: RNNRunnerState, env_states, traj, values):
+        """(obs after the rollout, advantages, targets) on the critic's values."""
+        obs = self.policy_obs(env_states)
+        last = critic_last_values(self.cdims, runner.params["critic"], obs)
+        adv, targets = compute_gae(self.cfg, traj["reward"], values, traj["done"], last)
+        return obs, adv, targets
+
+    def band_grads(self, params, dataset, band):
+        """({"actor", "critic"} gradients, metrics) of one env band
+        ``(start_env, n_env)`` (``mappo.py:930-954``): the actor's by autograd
+        of the replay loss with ``vf_coef = 0`` around K9 and K10, the
+        critic's from one K5 launch on a contiguous copy of the band's
+        observations, critic values and targets, all T rows; ``v_loss`` is
+        the critic's."""
+        ag, metrics = loss_grads(
+            lambda p: rnn_ppo_loss_native(self.actor_cfg, self.dims, p, dataset, band,
+                                          self.gru_fwd, self.gru_bwd), params["actor"])
+        obs, values, targets = (band_slice(dataset[k], *band).contiguous() for k in (0, 4, 6))
+        cg, sums = self.critic_grads(params["critic"], (obs, values, targets), 0)
+        metrics = {**metrics, "v_loss": sums[1] / values.numel()}
+        return {"actor": ag, "critic": cg}, metrics
+
+    def update(self, runner: RNNRunnerState, dataset, offsets: Optional[torch.Tensor] = None):
+        """((params, opt_state), metrics) of the E x M band passes, each
+        :meth:`band_grads` and one split optimizer step
+        (:func:`~rware_tpu_torch.models.ippo_rnn.band_passes`)."""
+        return band_passes(self.cfg, runner, offsets,
+                           lambda p, band: self.band_grads(p, dataset, band),
+                           mappo_optimizer_step)
+
+    def __call__(self, runner: RNNRunnerState, offsets: Optional[torch.Tensor] = None
+                 ) -> Tuple[RNNRunnerState, dict]:
+        env_states, new_carry, traj = self.rollout(runner)
+        values = self.values(runner, traj)
+        obs, adv, targets = self.advantages(runner, env_states, traj, values)
+        dataset = (traj["obs"], traj["done"], traj["action"], traj["logp"], values, adv,
+                   targets, runner.carry)
+        if "bits" in traj:
+            dataset += (traj["bits"],)
+        (params, opt_state), ppo = self.update(runner, dataset, offsets)
+        new = dataclasses.replace(runner, params=params, opt_state=opt_state,
+                                  env_states=env_states, obs=obs, carry=new_carry,
+                                  update_idx=runner.update_idx + 1)
+        return new, update_metrics(self.cfg, traj, ppo)
+
+
+def build_rnn_mappo_train_step(env: Warehouse, dims: GruDims, cdims: CriticDims,
+                               cfg: IPPOConfig,
+                               deterministic_collect: bool = False) -> RnnMappoTrainStep:
+    """Recurrent MAPPO on the kernels (``build_rnn_mappo_train_step``,
+    ``mappo.py:758-1012``, with its default ``fused_critic_update``): K2c
+    collect from the runner's carry (its message mode K2b with message
+    bits), K6 values of the whole trajectory, the critic's bootstrap in
+    flax's rounding, GAE, then per epoch one row offset and M env-band passes
+    (:func:`~rware_tpu_torch.models.ippo_rnn.epoch_band_starts`), each
+    :meth:`RnnMappoTrainStep.band_grads` and the split optimizer step.  With
+    message bits the dataset's 9th entry switches the actor to the joint move
+    + Bernoulli loss; the critic does not see the bits.  ``offsets`` of a call
+    overrides the (E,) row offsets drawn from the runner's generator.  On a
+    CUDA runner every kernel runs on the card; on a CPU runner every wrapper
+    runs its plain version."""
+    return RnnMappoTrainStep(env, dims, cdims, cfg, deterministic_collect)

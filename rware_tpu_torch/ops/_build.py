@@ -56,6 +56,16 @@ _SIGNATURES = {
     # hseq dhseq we be wi bi wh bhn wiT whT, scratch hp e dg3 dgi dpre part_bhn
     # partial, grads dh0 stream
     "rw_fused_gru_bwd": [_I] * 11 + [_P] * 23,
+    # Hg T B N start_env n_env rows_per_thread | iall done h0 wh bhn hseq stream
+    "rw_fused_gru_seq_fwd": [_I] * 7 + [_P] * 7,
+    # Hg T B N start_env n_env rows_per_thread chunk n_chunks | iall done h0 hseq
+    # dhseq wh bhn whT, scratch dhhn part_blk partial, d_iall grads dh0 stream
+    "rw_fused_gru_seq_bwd": [_I] * 9 + [_P] * 15,
+    # Hg A T B N start_env n_env rows_per_thread chunk n_chunks | clip_eps
+    # vf_coef ent_coef inv_n | stats iall done h0 hseq action logp value adv
+    # target wh bhn whT head, scratch dhhn part_blk partial, d_iall grads dh0
+    # stream
+    "rw_fused_gru_loss_bwd": [_I] * 10 + [_F] * 4 + [_P] * 21,
     # ... msg_bits hc | start stats obs action logp value adv target bits params h1
     # h2 dz1 dz2 dcat partial part_mets grads mets stream
     "rw_fused_ppo_grads": _PPO_DIMS + [_I] * 2 + [_P] * 20,

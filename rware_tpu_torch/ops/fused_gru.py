@@ -1,4 +1,6 @@
-"""The obs-fused GRU sequence kernels: forward (K9) and backward (K10).
+"""The GRU sequence kernels: the obs-fused forward (K9) and backward (K10),
+and the iall-fed forward (K11), its backward (K12) and the loss-fused
+backward (K13).
 
 * :func:`build_fused_gru_obs_fwd` replaces
   ``rware_tpu/ops/pallas_gru.py::build_gru_obs_fwd``: the hidden sequence of
@@ -15,10 +17,25 @@ in place: envs ``(start_env + i) % B`` for ``i < n_env``.  The JAX package
 slices a doubled copy of its dataset for the same window; here nothing is
 copied.  Outputs are band-local: ``hseq (T, n_env, N, Hg)``.
 
+The iall-fed kernels take the fused input gates ``iall = bf16(e Wi + bi)``
+(T, n_env, N, 3Hg) of the band, computed by the caller, and run only the
+time recurrence:
+
+* :func:`build_fused_gru_seq_fwd` (K11) replaces ``build_gru_seq_fwd``: the
+  hidden sequence from iall;
+* :func:`build_fused_gru_seq_bwd` (K12) replaces ``build_gru_seq_bwd``: from
+  the hidden sequence's cotangent to (dWh, dbhn, d_iall, dh0);
+* :func:`build_fused_gru_loss_bwd` (K13) replaces ``build_gru_loss_bwd``: the
+  same sweep with the f32 heads, the clipped-PPO loss and its backward inside;
+* :class:`GruSeqScan` joins K11 and K12 as one differentiable function (the
+  ``_gru_scan`` custom VJP of ``rware_tpu/models/ippo_rnn.py:272-405``, on
+  the kernels of ``_gru_seq_kernels``).
+
 Each wrapper launches its CUDA kernel (``csrc/fused_gru_fwd.cu``,
-``csrc/fused_gru_bwd.cu``) for tensors on a CUDA device and runs its plain
-PyTorch version (``.plain``) only for tensors on the CPU; it counts its kernel
-launches in ``.launches``.  ``weights`` are the first six blocks of
+``csrc/fused_gru_bwd.cu``, ``csrc/fused_gru_seq_fwd.cu``,
+``csrc/fused_gru_seq_bwd.cu``, ``csrc/fused_gru_loss_bwd.cu``) for tensors on
+a CUDA device and runs its plain PyTorch version (``.plain``) only for tensors
+on the CPU; it counts its kernel launches in ``.launches``.  ``weights`` are the first six blocks of
 :class:`~rware_tpu_torch.models.networks.GruDims`: ``We (L, E)``, ``be (1,
 E)``, ``Wi (E, 3Hg)``, ``bi (1, 3Hg)``, ``Wh (Hg, 3Hg)``, ``bhn (1, Hg)``,
 float32; the kernels round the matrices to bf16.
@@ -31,10 +48,11 @@ import torch
 
 from rware_tpu_torch.models.networks import (
     GruDims,
-    rnd_bf16,
-    split_gates,
+    gru_replay_cell,
     gru_replay_step,
+    rnd_bf16,
     sigmoid_f32,
+    split_gates,
 )
 
 MAX_WIDTH = 128  # the kernels' embed and hidden widths: multiples of 8 up to this
@@ -309,3 +327,401 @@ class GruObsScan(torch.autograd.Function):
                            *ctx.band)
         dwe, dbe, dwi, dbi, dwh, dbhn = ctx.bwd.split(grads)
         return (dwe, dbe, dwi, dbi, rnd_bf16(dwh), dbhn) + (None,) * 7
+
+
+def _check_seq(dims: GruDims, wh, bhn, iall, done, h0, start_env: int, n_env: int):
+    """The device of an iall-fed call; raises on shapes, types or a band the
+    kernels do not take."""
+    hg = dims.hidden
+    if tuple(wh.shape) != (hg, 3 * hg) or tuple(bhn.shape) != (1, hg):
+        raise ValueError(f"wh and bhn must be ({hg}, {3 * hg}) and (1, {hg})")
+    if iall.dim() != 4 or iall.dtype != torch.bfloat16 or iall.shape[1] != n_env \
+            or iall.shape[3] != 3 * hg:
+        raise ValueError(f"iall must be bf16 (T, {n_env}, N, {3 * hg})")
+    t_len, _, n, _ = iall.shape
+    if done.dim() != 2 or done.shape[0] != t_len or done.dtype != torch.bool:
+        raise ValueError(f"done must be bool ({t_len}, B)")
+    b = done.shape[1]
+    if tuple(h0.shape) != (b, n, hg) or h0.dtype != torch.bfloat16:
+        raise ValueError(f"h0 must be bf16 {(b, n, hg)}")
+    if not 0 <= start_env < b or not 1 <= n_env <= b:
+        raise ValueError(f"band ({start_env}, {n_env}) outside the {b} envs")
+    devices = {x.device for x in (wh, bhn, iall, done, h0)}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {devices}")
+    return devices.pop()
+
+
+def _check_band_seq(name: str, x: torch.Tensor, iall: torch.Tensor, hg: int, dev) -> None:
+    want = tuple(iall.shape[:3]) + (hg,)
+    if tuple(x.shape) != want or x.dtype != torch.bfloat16 or x.device != dev:
+        raise ValueError(f"{name} must be bf16 {want} on {dev}")
+
+
+def _seq_bwd_plain(wh, bhn, iall, done, h0, hseq, dh_out, idx):
+    """The reverse sweep of K12 and K13 step by step (``pallas_gru.py:224-268``
+    = ``:955-1003``): ``dh_out`` (T, n_env, N, Hg) float32 is the cotangent
+    that reaches each step's hidden from outside the recurrence.  r and z stay
+    float32, the candidate is recomputed in bf16, ``[dr | dz | dhhn]`` is
+    rounded to bf16 before the Wh products, ``dbhn`` sums the unrounded
+    ``dhhn``.  Returns (dWh, dbhn (1, Hg), d_iall bf16, dh0 float32)."""
+    whb, bhn = rnd_bf16(wh.detach().float()), bhn.detach().float()
+    hg = whb.shape[0]
+    dwh = torch.zeros_like(whb)
+    dbhn = torch.zeros_like(bhn)
+    d_iall = torch.empty_like(iall)
+    dc = torch.zeros(iall.shape[1:3] + (hg,), dtype=torch.float32, device=iall.device)
+    for t in range(iall.shape[0] - 1, -1, -1):
+        ia_r, ia_z, ia_n = split_gates(iall[t].float())
+        if t == 0:
+            hp = h0[idx].float()
+        else:
+            hp = torch.where(done[t - 1, idx][:, None, None], 0.0, hseq[t - 1].float())
+        hh_r, hh_z, hh_n = split_gates(hp @ whb)
+        r, z = sigmoid_f32(ia_r + hh_r), sigmoid_f32(ia_z + hh_z)
+        hhn = rnd_bf16(hh_n + bhn[0])
+        nn = rnd_bf16(torch.tanh(rnd_bf16(ia_n + rnd_bf16(rnd_bf16(r) * hhn))))
+        dnh = dh_out[t] + torch.where(done[t, idx][:, None, None], 0.0, dc)
+        dz_pre = dnh * (hp - nn) * z * (1.0 - z)
+        dn_pre = dnh * (1.0 - z) * (1.0 - nn * nn)
+        dhhn = dn_pre * r
+        dr_pre = dn_pre * hhn * r * (1.0 - r)
+        dg3 = rnd_bf16(torch.cat([dr_pre, dz_pre, dhhn], -1))
+        d_iall[t] = torch.cat([dr_pre, dz_pre, dn_pre], -1).to(torch.bfloat16)
+        dc = dnh * z + dg3 @ whb.t()
+        dwh += hp.reshape(-1, hg).t() @ dg3.reshape(-1, 3 * hg)
+        dbhn += dhhn.reshape(-1, hg).sum(0, keepdim=True)
+    return dwh, dbhn, d_iall, dc
+
+
+class FusedGruSeqFwd:
+    """``fwd(wh, bhn, iall, done, h0, start_env, n_env) -> hseq``; see
+    :func:`build_fused_gru_seq_fwd`."""
+
+    def __init__(self, dims: GruDims):
+        self.dims = dims
+        self.launches = 0
+
+    def __call__(self, wh, bhn, iall, done, h0, start_env: int, n_env: int) -> torch.Tensor:
+        dev = _check_seq(self.dims, wh, bhn, iall, done, h0, start_env, n_env)
+        if dev.type == "cuda":
+            return self._launch(wh, bhn, iall, done, h0, start_env, n_env)
+        if dev.type == "cpu":
+            return self.plain(wh, bhn, iall, done, h0, start_env, n_env)
+        raise ValueError(f"no GRU sequence forward kernel for device {dev}")
+
+    @torch.no_grad()
+    def plain(self, wh, bhn, iall, done, h0, start_env: int, n_env: int) -> torch.Tensor:
+        """The plain PyTorch version: T steps of
+        :func:`~rware_tpu_torch.models.networks.gru_replay_cell`, the hidden
+        zeroed after a step where ``done``."""
+        _check_seq(self.dims, wh, bhn, iall, done, h0, start_env, n_env)
+        idx = band_index(start_env, n_env, done.shape[1], iall.device)
+        wh, bhn = wh.detach().float(), bhn.detach().float()
+        h = h0[idx].float()
+        out = []
+        for t in range(iall.shape[0]):
+            new_h = gru_replay_cell(wh, bhn, h, iall[t].float())
+            out.append(new_h.to(torch.bfloat16))
+            h = torch.where(done[t, idx][:, None, None], torch.zeros_like(new_h), new_h)
+        return torch.stack(out)
+
+    @torch.no_grad()
+    def _launch(self, wh, bhn, iall, done, h0, start_env, n_env):
+        from rware_tpu_torch.ops._build import check, load_library
+
+        _kernel_dims(self.dims)
+        lib = load_library()
+        dev = iall.device
+        t_len, _, n, _ = iall.shape
+        with torch.cuda.device(dev):
+            args = [iall.contiguous(), done.contiguous(), h0.contiguous(), _bf16(wh), _f32(bhn)]
+            hseq = torch.empty((t_len, n_env, n, self.dims.hidden), dtype=torch.bfloat16,
+                               device=dev)
+            code = lib.rw_fused_gru_seq_fwd(
+                self.dims.hidden, t_len, done.shape[1], n, start_env, n_env,
+                _rows_per_thread(n_env * n), *[a.data_ptr() for a in args], hseq.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+            check(lib, code, "fused_gru_seq_fwd")
+            self.launches += 1
+        return hseq
+
+
+class _SeqBwdLaunch:
+    """The launch shape and scratch of K12 and K13 (``csrc/gru_seq.cuh``)."""
+
+    def __init__(self, dims: GruDims):
+        self.dims = dims
+        self.launches = 0
+        self._scratch: Dict[Tuple, Dict[str, torch.Tensor]] = {}
+
+    def _workspace(self, dev, n_samples: int, n_chunks: int, sweep_blocks: int, n_blk: int):
+        key = (dev, n_samples, n_chunks, sweep_blocks, n_blk)
+        if key not in self._scratch:
+            self._scratch.clear()  # one shape at a time: the buffers are large
+            hg = self.dims.hidden
+            self._scratch[key] = {
+                "dhhn": torch.empty((n_samples, hg), dtype=torch.bfloat16, device=dev),
+                "part_blk": torch.empty((sweep_blocks, n_blk), dtype=torch.float32, device=dev),
+                "partial": torch.empty((n_chunks, hg * 3 * hg), dtype=torch.float32, device=dev),
+            }
+        return self._scratch[key]
+
+    def _run(self, name: str, head_args, tensors, iall, done, start_env: int, n_env: int,
+             n_blk: int):
+        """One launch of ``rw_<name>(Hg, *ints, T, B, N, start_env, n_env,
+        rows_per_thread, chunk, n_chunks, *scalars, *tensors, scratch, d_iall,
+        grads, dh0, stream)`` with ``head_args = (ints, scalars)``; returns
+        (flat grads, d_iall, dh0)."""
+        from rware_tpu_torch.ops._build import check, load_library
+
+        _kernel_dims(self.dims)
+        lib = load_library()
+        dev = iall.device
+        t_len, _, n, _ = iall.shape
+        hg, n_seq = self.dims.hidden, n_env * n
+        n_samples = t_len * n_seq
+        rpt = _rows_per_thread(n_seq)
+        sweep_blocks = -(-n_seq // (16 * rpt))
+        # up to 128 dWh partials, each over a multiple of 32 samples
+        n_chunks = min(128, -(-n_samples // 1024))
+        chunk = 32 * -(-n_samples // (32 * n_chunks))
+        ints, scalars = head_args
+        with torch.cuda.device(dev):
+            ws = self._workspace(dev, n_samples, n_chunks, sweep_blocks, n_blk)
+            d_iall = torch.empty(iall.shape, dtype=torch.bfloat16, device=dev)
+            grads = torch.empty(hg * 3 * hg + n_blk, dtype=torch.float32, device=dev)
+            dh0 = torch.empty((n_env, n, hg), dtype=torch.float32, device=dev)
+            code = getattr(lib, f"rw_{name}")(
+                hg, *ints, t_len, done.shape[1], n, start_env, n_env, rpt, chunk, n_chunks,
+                *scalars, *[x.data_ptr() for x in tensors], ws["dhhn"].data_ptr(),
+                ws["part_blk"].data_ptr(), ws["partial"].data_ptr(), d_iall.data_ptr(),
+                grads.data_ptr(), dh0.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            check(lib, code, name)
+            self.launches += 1
+        return grads, d_iall, dh0
+
+    @staticmethod
+    def _weights(wh, bhn):
+        whb = _bf16(wh)
+        return [whb, _f32(bhn), whb.t().contiguous()]
+
+
+class FusedGruSeqBwd(_SeqBwdLaunch):
+    """``bwd(wh, bhn, iall, done, h0, hseq, dhseq, start_env, n_env) -> (dwh,
+    dbhn, d_iall, dh0)``; see :func:`build_fused_gru_seq_bwd`.  Besides each
+    wrapper's ``.launches``, ``FusedGruSeqBwd.all_launches`` counts the
+    launches of every wrapper, so that a run can show how often any caller
+    (e.g. :class:`GruSeqScan`) reached K12."""
+
+    all_launches = 0
+
+    def _check(self, wh, bhn, iall, done, h0, hseq, dhseq, start_env, n_env):
+        dev = _check_seq(self.dims, wh, bhn, iall, done, h0, start_env, n_env)
+        for name, x in (("hseq", hseq), ("dhseq", dhseq)):
+            _check_band_seq(name, x, iall, self.dims.hidden, dev)
+        return dev
+
+    def __call__(self, wh, bhn, iall, done, h0, hseq, dhseq, start_env: int, n_env: int):
+        dev = self._check(wh, bhn, iall, done, h0, hseq, dhseq, start_env, n_env)
+        if dev.type == "cuda":
+            return self._launch(wh, bhn, iall, done, h0, hseq, dhseq, start_env, n_env)
+        if dev.type == "cpu":
+            return self.plain(wh, bhn, iall, done, h0, hseq, dhseq, start_env, n_env)
+        raise ValueError(f"no GRU sequence backward kernel for device {dev}")
+
+    @torch.no_grad()
+    def plain(self, wh, bhn, iall, done, h0, hseq, dhseq, start_env: int, n_env: int):
+        """The plain PyTorch version: the reverse sweep of
+        ``pallas_gru.py:224-268`` step by step, from ``dhseq``."""
+        self._check(wh, bhn, iall, done, h0, hseq, dhseq, start_env, n_env)
+        idx = band_index(start_env, n_env, done.shape[1], iall.device)
+        return _seq_bwd_plain(wh, bhn, iall, done, h0, hseq, dhseq.float(), idx)
+
+    @torch.no_grad()
+    def _launch(self, wh, bhn, iall, done, h0, hseq, dhseq, start_env, n_env):
+        hg = self.dims.hidden
+        tensors = [x.contiguous() for x in (iall, done, h0, hseq, dhseq)] \
+            + self._weights(wh, bhn)
+        grads, d_iall, dh0 = self._run("fused_gru_seq_bwd", ((), ()), tensors, iall, done,
+                                       start_env, n_env, hg)
+        FusedGruSeqBwd.all_launches += 1
+        n_w = hg * 3 * hg
+        return grads[:n_w].view(hg, 3 * hg), grads[n_w:].view(1, hg), d_iall, dh0
+
+
+class FusedGruLossBwd(_SeqBwdLaunch):
+    """``bwd(wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp, value,
+    adv, target, stats, start_env, n_env) -> (d_iall, dwh, dbhn, dwhead,
+    dbhead, dh0, mets)``; see :func:`build_fused_gru_loss_bwd`."""
+
+    def __init__(self, dims: GruDims, clip_eps: float, vf_coef: float, ent_coef: float):
+        super().__init__(dims)
+        if dims.msg_bits:
+            raise ValueError("the loss-fused GRU backward has no message head (as "
+                             "ippo_rnn.py:879-880: 8-entry batches only)")
+        self.clip_eps, self.vf_coef, self.ent_coef = clip_eps, vf_coef, ent_coef
+
+    @property
+    def n_heads(self) -> int:
+        return self.dims.n_actions + 1
+
+    def _check(self, wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp, value, adv,
+               target, stats, start_env, n_env):
+        dev = _check_seq(self.dims, wh, bhn, iall, done, h0, start_env, n_env)
+        _check_band_seq("hseq", hseq, iall, self.dims.hidden, dev)
+        a1 = self.n_heads
+        if tuple(whead.shape) != (self.dims.hidden, a1) or tuple(bhead.shape) != (a1,):
+            raise ValueError(f"whead and bhead must be ({self.dims.hidden}, {a1}) and ({a1},)")
+        want = (iall.shape[0], done.shape[1], iall.shape[2])
+        for name, x, dtype in (("action", action, torch.int32), ("logp", logp, torch.float32),
+                               ("value", value, torch.float32), ("adv", adv, torch.float32),
+                               ("target", target, torch.float32)):
+            if tuple(x.shape) != want or x.dtype != dtype or x.device != dev:
+                raise ValueError(f"{name} must be {dtype} {want} on {dev}")
+        if tuple(stats.shape) != (2,) or stats.device != dev:
+            raise ValueError(f"stats must be (2,) on {dev}")
+        return dev
+
+    def __call__(self, wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp, value, adv,
+                 target, stats, start_env: int, n_env: int):
+        args = (wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp, value, adv, target,
+                stats, start_env, n_env)
+        dev = self._check(*args)
+        if dev.type == "cuda":
+            return self._launch(*args)
+        if dev.type == "cpu":
+            return self.plain(*args)
+        raise ValueError(f"no loss-fused GRU backward kernel for device {dev}")
+
+    @torch.no_grad()
+    def plain(self, wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp, value, adv,
+              target, stats, start_env: int, n_env: int):
+        """The plain PyTorch version (``pallas_gru.py:886-951``, then the
+        sweep of :class:`FusedGruSeqBwd`): f32 heads of ``hseq``, the
+        clipped-PPO loss's backward with the band's ``stats`` = [adv_mean,
+        1 / (adv_std + 1e-8)], and ``dheads whead^T`` as each step's
+        cotangent."""
+        self._check(wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp, value, adv,
+                    target, stats, start_env, n_env)
+        idx = band_index(start_env, n_env, done.shape[1], iall.device)
+        eps, a = self.clip_eps, self.dims.n_actions
+        inv_n = 1.0 / hseq[..., 0].numel()
+        whead, stats = whead.detach().float(), stats.detach().float()
+        hf = hseq.float()
+        heads = hf @ whead + bhead.detach().float()
+        logits, val = heads[..., :a], heads[..., a]
+        act, old_logp, old_value, advb, tgt = (x[:, idx] for x in (action, logp, value, adv,
+                                                                    target))
+        mx = logits.max(-1, keepdim=True).values
+        sm = torch.exp(logits - mx)
+        zs = sm.sum(-1, keepdim=True)
+        lsm = logits - mx - torch.log(zs)
+        pr = sm / zs
+        onehot = torch.nn.functional.one_hot(act.long(), a).float()
+        lp = lsm.gather(-1, act.long()[..., None])[..., 0]
+        ratio = torch.exp(lp - old_logp)
+        advn = (advb - stats[0]) * stats[1]
+        pg1, pg2 = ratio * advn, torch.clamp(ratio, 1.0 - eps, 1.0 + eps) * advn
+        inside = ((ratio > 1.0 - eps) & (ratio < 1.0 + eps)).float()
+        dobj = torch.where(pg1 <= pg2, advn, advn * inside)
+        ent = -(pr * lsm).sum(-1)
+        dlogits = (-inv_n * dobj * ratio)[..., None] * (onehot - pr) \
+            + (self.ent_coef * inv_n) * pr * (lsm + ent[..., None])
+        vdiff = val - old_value
+        e1 = val - tgt
+        e2 = old_value + torch.clamp(vdiff, -eps, eps) - tgt
+        inside_v = ((vdiff > -eps) & (vdiff < eps)).float()
+        dvalue = (self.vf_coef * inv_n) * torch.where(e1 * e1 >= e2 * e2, e1, e2 * inside_v)
+        dheads = torch.cat([dlogits, dvalue[..., None]], -1)
+        mets = torch.stack([torch.minimum(pg1, pg2).sum(),
+                            (0.5 * torch.maximum(e1 * e1, e2 * e2)).sum(), ent.sum(),
+                            ((ratio - 1.0) - (lp - old_logp)).sum()])
+        a1 = a + 1
+        dwhead = hf.reshape(-1, hf.shape[-1]).t() @ dheads.reshape(-1, a1)
+        dbhead = dheads.reshape(-1, a1).sum(0)
+        dwh, dbhn, d_iall, dh0 = _seq_bwd_plain(wh, bhn, iall, done, h0, hseq,
+                                                dheads @ whead.t(), idx)
+        return d_iall, dwh, dbhn, dwhead, dbhead, dh0, mets
+
+    @torch.no_grad()
+    def _launch(self, wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp, value, adv,
+                target, stats, start_env, n_env):
+        hg, a1 = self.dims.hidden, self.n_heads
+        head = torch.cat([whead.detach().float(), bhead.detach().float()[None]], 0)
+        tensors = [x.contiguous() for x in (stats.float(), iall, done, h0, hseq, action, logp,
+                                            value, adv, target)] \
+            + self._weights(wh, bhn) + [head.contiguous()]
+        scalars = (self.clip_eps, self.vf_coef, self.ent_coef, 1.0 / hseq[..., 0].numel())
+        grads, d_iall, dh0 = self._run("fused_gru_loss_bwd", ((a1 - 1,), scalars), tensors, iall,
+                                       done, start_env, n_env, hg + (hg + 1) * a1 + 4)
+        n_w = hg * 3 * hg
+        o_head = n_w + hg + hg * a1
+        return (d_iall, grads[:n_w].view(hg, 3 * hg), grads[n_w:n_w + hg].view(1, hg),
+                grads[n_w + hg:o_head].view(hg, a1), grads[o_head:o_head + a1], dh0,
+                grads[o_head + a1:])
+
+
+def build_fused_gru_seq_fwd(dims: GruDims) -> FusedGruSeqFwd:
+    """Returns ``fwd(wh, bhn, iall, done, h0, start_env, n_env) -> hseq``:
+    ``wh`` (Hg, 3Hg) and ``bhn`` (1, Hg) float32 (``wh`` rounded to bf16),
+    the band's fused input gates ``iall`` (T, n_env, N, 3Hg) bf16, the whole
+    trajectory's ``done`` (T, B) bool and carry ``h0`` (B, N, Hg) bf16 read
+    through the band; ``hseq`` (T, n_env, N, Hg) bf16 is each step's hidden
+    BEFORE the reset where ``done`` (``pallas_gru.py:78-170``)."""
+    return FusedGruSeqFwd(dims)
+
+
+def build_fused_gru_seq_bwd(dims: GruDims) -> FusedGruSeqBwd:
+    """Returns ``bwd(wh, bhn, iall, done, h0, hseq, dhseq, start_env, n_env) ->
+    (dwh (Hg, 3Hg), dbhn (1, Hg), d_iall (T, n_env, N, 3Hg) bf16 = [dr | dz |
+    dn], dh0 (n_env, N, Hg))``, float32 but ``d_iall``, from the bf16
+    cotangent ``dhseq`` of K11's ``hseq`` (``pallas_gru.py:172-327``).  Two
+    launches give the same bits."""
+    return FusedGruSeqBwd(dims)
+
+
+def build_fused_gru_loss_bwd(dims: GruDims, clip_eps: float, vf_coef: float,
+                             ent_coef: float) -> FusedGruLossBwd:
+    """Returns ``bwd(wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp,
+    value, adv, target, stats, start_env, n_env) -> (d_iall, dwh, dbhn,
+    dwhead, dbhead, dh0, mets)``: K12's sweep with the heads ``[W_policy |
+    W_value]`` (``whead`` (Hg, A+1), ``bhead`` (A+1,) float32, not rounded),
+    the clipped-PPO loss of ``rnn_ppo_loss_native`` and its backward inside
+    (``pallas_gru.py:823-1070``).  ``action`` (T, B, N) int32 and ``logp``,
+    ``value``, ``adv``, ``target`` (T, B, N) float32 are the whole
+    trajectory's, read through the band; ``stats`` = [adv_mean, 1 / (adv_std
+    + 1e-8)] of the band.  ``mets`` = the sums [min(pg1, pg2), 0.5 max(e1^2,
+    e2^2), entropy, (ratio - 1) - log ratio] over the band's T n_env N
+    samples.  Two launches give the same bits."""
+    return FusedGruLossBwd(dims, clip_eps, vf_coef, ent_coef)
+
+
+class GruSeqScan(torch.autograd.Function):
+    """``hseq = GruSeqScan.apply(wh, bhn, iall, done, h0, start_env, n_env,
+    fwd, bwd)``: the forward is ``fwd`` (K11) and the backward ``bwd`` (K12),
+    as ``_gru_scan`` of the JAX package on its sequence kernels.  ``wh``
+    enters in bf16 (``ippo_rnn.py:636-643``), so its gradient is rounded to
+    bf16; ``iall`` gets the bf16 ``d_iall``, ``h0`` (when it asks) ``dh0`` in
+    its band rows and zeros elsewhere; ``done`` gets none."""
+
+    @staticmethod
+    def forward(ctx, wh, bhn, iall, done, h0, start_env, n_env, fwd, bwd):
+        hseq = fwd(wh, bhn, iall, done, h0, start_env, n_env)
+        ctx.save_for_backward(wh, bhn, iall, done, h0, hseq)
+        ctx.band, ctx.bwd = (start_env, n_env), bwd
+        return hseq
+
+    @staticmethod
+    def backward(ctx, dhseq):
+        wh, bhn, iall, done, h0, hseq = ctx.saved_tensors
+        dwh, dbhn, d_iall, dh0 = ctx.bwd(wh, bhn, iall, done, h0, hseq,
+                                         dhseq.to(torch.bfloat16).contiguous(), *ctx.band)
+        dh0_full = None
+        if ctx.needs_input_grad[4]:
+            idx = band_index(*ctx.band, h0.shape[0], h0.device)
+            dh0_full = torch.zeros(h0.shape, dtype=torch.float32, device=h0.device)
+            dh0_full[idx] = dh0
+            dh0_full = dh0_full.to(h0.dtype)
+        return (rnd_bf16(dwh).to(wh.dtype), dbhn.to(bhn.dtype), d_iall.to(iall.dtype), None,
+                dh0_full) + (None,) * 4

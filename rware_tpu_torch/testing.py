@@ -182,6 +182,57 @@ LEFT = Direction.LEFT
 RIGHT = Direction.RIGHT
 
 
+def random_gru_seq_case(env_id: str, n_envs: int, t_len: int, band: Tuple[int, int],
+                        seed: int = 0, device="cpu", hidden: int = 128, embed: int = 128):
+    """``(dims, args)`` of random inputs for the iall-fed GRU kernels (K11,
+    K12, K13) on the env band ``band`` = (start_env, n_env) of a batch of
+    ``n_envs`` at ``env_id``'s observation length and agent count: a
+    flax-initialised recurrent actor with its biases moved off zero; ``iall``
+    (T, n_env, N, 3Hg) bf16, the fused input gates of 0/0.5/1 observations
+    (:func:`~rware_tpu_torch.models.networks.gru_embed_gates`); ``done`` (T,
+    B) at 20%; a nonzero carry ``h0`` (B, N, Hg) bf16; the loss streams of
+    :func:`random_ppo_case` (T, B, N) and the band's advantage ``stats``.
+    ``args`` is a dict keyed by the kernels' argument names (``wh``, ``bhn``,
+    ``whead``, ``bhead``, ``iall``, ``done``, ``h0``, ``action``, ``logp``,
+    ``value``, ``adv``, ``target``, ``stats``)."""
+    from rware_tpu_torch.models.networks import (
+        GruDims,
+        gru_embed_gates,
+        gru_to_arrays,
+        init_recurrent_actor_critic,
+    )
+    from rware_tpu_torch.ops.fused_gru import band_index
+    from rware_tpu_torch.registry import parse_env_id
+
+    cfg = parse_env_id(env_id)
+    l_obs, n = cfg.policy_obs_length, cfg.n_agents
+    model = init_recurrent_actor_critic(l_obs, 5, hidden, embed, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    arrays = [a.detach().to(device) for a in gru_to_arrays(model)]
+    arrays = [a + 0.1 * torch.randn(a.shape, generator=gen, device=device) if a.shape[0] == 1
+              else a for a in arrays]
+    we, be, wi, bi, wh, bhn, wc, bc = arrays
+    start, n_env = band
+    obs = torch.randint(0, 3, (t_len, n_env, n, l_obs), generator=gen, device=device) * 0.5
+    with torch.no_grad():
+        iall = gru_embed_gates((we, be, wi, bi), obs)[1].to(torch.bfloat16)
+    shape = (t_len, n_envs, n)
+    adv = torch.randn(shape, generator=gen, device=device)
+    advb = adv[:, band_index(start, n_env, n_envs, device)]
+    args = dict(
+        wh=wh, bhn=bhn, whead=wc, bhead=bc[0], iall=iall,
+        done=torch.rand((t_len, n_envs), generator=gen, device=device) < 0.2,
+        h0=(torch.rand((n_envs, n, hidden), generator=gen, device=device) * 2 - 1
+            ).to(torch.bfloat16),
+        action=torch.randint(0, 5, shape, generator=gen, device=device, dtype=torch.int32),
+        logp=torch.randn(shape, generator=gen, device=device) * 0.1 - 1.6,
+        value=torch.randn(shape, generator=gen, device=device), adv=adv,
+        target=torch.randn(shape, generator=gen, device=device),
+        stats=torch.stack([advb.mean(), 1.0 / (advb.std(correction=0) + 1e-8)]),
+    )
+    return GruDims.of(model), args
+
+
 def positions(state: WarehouseState, env: int = 0) -> list:
     """[(x, y), ...] per agent of one env — concise assertion helper."""
     return list(zip(state.agent_x[env].tolist(), state.agent_y[env].tolist()))

@@ -1,7 +1,6 @@
-"""Train IPPO (MLP or GRU policy), MAPPO (MLP) or SEAC-PPO (MLP or GRU) on a
-warehouse config — the port's counterpart of ``train.py`` (algo ``ippo`` with
-net ``mlp`` or ``gru``, algo ``mappo`` with net ``mlp``, algo ``seac-ppo``
-with net ``mlp`` or ``gru``).
+"""Train IPPO, MAPPO or SEAC-PPO, each with an MLP or a GRU policy, on a
+warehouse config — the port's counterpart of ``train.py`` (algo ``ippo``,
+``mappo`` or ``seac-ppo`` with net ``mlp`` or ``gru``).
 
 Examples::
 
@@ -9,7 +8,9 @@ Examples::
         --n-envs 4096 --updates 300 --checkpoint-dir ckpts/run1
     python -m rware_tpu_torch.train --device cuda --algo mappo --n-envs 4096 --updates 400
     python -m rware_tpu_torch.train --device cuda --net gru --n-envs 4096 --updates 800 \\
-        --ent-coef 0.03
+        --ent-coef 0.03 [--fused-loss]
+    python -m rware_tpu_torch.train --device cuda --algo mappo --net gru --n-envs 4096 \\
+        --updates 400 --ent-coef 0.03 [--msg-bits 2]
     python -m rware_tpu_torch.train --device cuda --algo seac-ppo --n-envs 4096 --updates 800 \\
         --ent-coef 0.03
     python -m rware_tpu_torch.train --device cuda --algo seac-ppo --net gru --n-envs 4096 \\
@@ -25,7 +26,13 @@ through the critic-values kernel (K6) and one combined actor + critic gradient
 kernel launch (K5) per pass, or with ``--fused-critic-phase`` the
 whole-MAPPO-phase kernel (K7).  ``--net gru`` trains the recurrent policy
 through the recurrent collector (K2c) and, per env-band pass, the GRU
-forward and backward sequence kernels (K9, K10).  ``--algo seac-ppo`` trains
+forward and backward sequence kernels (K9, K10); ``--fused-loss`` takes
+each pass from the iall-fed forward (K11) and the loss-fused backward (K13)
+instead, with the embed and input-gate products in torch (JAX's
+``fused_loss``; no message bits).  ``--algo mappo --net gru`` trains the GRU
+actor as ``--net gru`` does with ``vf_coef = 0`` and the central critic per
+env band through the critic-only gradient kernel (K5), after K2c and K6.
+``--algo seac-ppo`` trains
 one MLP per agent through the per-agent collector (K2d) and, per pass, the
 per-agent SEAC gradient kernel (K8); with ``--net gru`` one GRU per agent
 through the per-agent recurrent collector (K2d′) and, per env band, the
@@ -65,10 +72,10 @@ import torch
 
 from rware_tpu_torch.core.env import resolve_device
 
-NOT_PORTED = ("not ported yet: the port trains --algo ippo and seac-ppo with --net mlp or "
-              "--net gru, --algo mappo with --net mlp, and each of them with message bits "
-              "but --fused-critic-phase; --algo mappo and seac-ppo --net gru only with "
-              "--collect fused (SEAC A2C and recurrent MAPPO are still to come)")
+NOT_PORTED = ("not ported yet: the port trains --algo ippo, mappo and seac-ppo with --net mlp "
+              "or --net gru, and each of them with message bits but --fused-critic-phase "
+              "(MAPPO's MLP only); --algo mappo and seac-ppo --net gru only with --collect "
+              "fused (SEAC A2C is still to come)")
 
 
 def parse_args(argv=None):
@@ -82,6 +89,9 @@ def parse_args(argv=None):
                         "learner of the algo and net")
     p.add_argument("--fused-critic-phase", action="store_true",
                    help="mappo: the whole update phase in the K7 kernel (default: K5 per pass)")
+    p.add_argument("--fused-loss", action="store_true",
+                   help="ippo --net gru: each band pass by K11 and the loss-fused backward K13 "
+                        "(default: K9 and K10 around the loss)")
     p.add_argument("--minibatch-mode", choices=["shuffle", "block"], default="shuffle",
                    help="minibatches of the plain learner (the fused path takes time windows)")
     p.add_argument("--msg-bits", type=int, default=None,
@@ -168,8 +178,11 @@ def main(argv=None) -> dict:
     mappo, seac, gru = args.algo == "mappo", args.algo == "seac-ppo", args.net == "gru"
     msg = bool(args.msg_bits)
     no_plain_learner = mappo or (seac and gru)
-    if args.algo == "seac" or (mappo and gru) or (args.collect != "fused" and no_plain_learner) \
-            or (args.fused_critic_phase and (msg or not mappo)):
+    if args.fused_loss and (args.algo != "ippo" or not gru or args.collect != "fused"):
+        raise ValueError("--fused-loss is the recurrent IPPO learner's option (--net gru "
+                         "--collect fused)")
+    if args.algo == "seac" or (args.collect != "fused" and no_plain_learner) \
+            or (args.fused_critic_phase and (msg or gru or not mappo)):
         raise NotImplementedError(
             f"--algo {args.algo} --net {args.net} --collect {args.collect}"
             f"{' --fused-critic-phase' * args.fused_critic_phase}"
@@ -185,7 +198,12 @@ def main(argv=None) -> dict:
         build_rnn_train_step,
         init_rnn_runner,
     )
-    from rware_tpu_torch.models.mappo import build_mappo_train_step, init_mappo_runner
+    from rware_tpu_torch.models.mappo import (
+        build_mappo_train_step,
+        build_rnn_mappo_train_step,
+        init_mappo_runner,
+        init_rnn_mappo_runner,
+    )
     from rware_tpu_torch.models.seac import (
         SEACPPOConfig,
         build_seac_gru_train_step,
@@ -213,6 +231,9 @@ def main(argv=None) -> dict:
                 train_step = build_seac_ppo_fused_train_step(env, dims, cfg)
             else:  # K8 has no message head: JAX's flat update (seac.py:343-345)
                 train_step = build_seac_ppo_train_step(env, dims, cfg, collect=args.collect)
+    elif mappo and gru:
+        runner, dims, cdims = init_rnn_mappo_runner(env, cfg, args.seed)
+        train_step = build_rnn_mappo_train_step(env, dims, cdims, cfg)
     elif mappo:
         runner, dims, cdims = init_mappo_runner(env, cfg, args.seed)
         train_step = build_mappo_train_step(env, dims, cdims, cfg,
@@ -220,7 +241,7 @@ def main(argv=None) -> dict:
     elif gru:
         runner, dims = init_rnn_runner(env, cfg, args.seed)
         if args.collect == "fused":
-            train_step = build_rnn_fused_train_step(env, dims, cfg)
+            train_step = build_rnn_fused_train_step(env, dims, cfg, fused_loss=args.fused_loss)
         else:
             train_step = build_rnn_train_step(env, dims, cfg)
     else:

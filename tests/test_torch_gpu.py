@@ -15,7 +15,7 @@ import torch
 
 import rware_tpu_torch
 from rware_tpu_torch.models import ActorCritic
-from rware_tpu_torch.models import ippo, ippo_rnn, seac
+from rware_tpu_torch.models import ippo, ippo_rnn, mappo, seac
 from rware_tpu_torch.models.ippo_fused import phase_advstats, phase_window_starts
 from rware_tpu_torch.ops.fused_mappo import (
     build_fused_critic_values,
@@ -24,7 +24,14 @@ from rware_tpu_torch.ops.fused_mappo import (
 )
 from rware_tpu_torch.models.networks import GruDims, init_recurrent_actor_critic
 from rware_tpu_torch.models.ppo import METRIC_KEYS, loss_grads
-from rware_tpu_torch.ops.fused_gru import build_fused_gru_obs_bwd, build_fused_gru_obs_fwd
+from rware_tpu_torch.ops.fused_gru import (
+    GruSeqScan,
+    build_fused_gru_loss_bwd,
+    build_fused_gru_obs_bwd,
+    build_fused_gru_obs_fwd,
+    build_fused_gru_seq_bwd,
+    build_fused_gru_seq_fwd,
+)
 from rware_tpu_torch.ops.fused_rollout import (
     build_fused_collect,
     build_fused_collect_gru,
@@ -38,7 +45,12 @@ from rware_tpu_torch.ops.fused_update import (
     build_fused_ppo_update_phase,
 )
 from rware_tpu_torch.parallel import batched_reset
-from rware_tpu_torch.testing import random_mappo_case, random_ppo_case, random_seac_case
+from rware_tpu_torch.testing import (
+    random_gru_seq_case,
+    random_mappo_case,
+    random_ppo_case,
+    random_seac_case,
+)
 
 torch.set_num_threads(1)
 pytestmark = [
@@ -268,6 +280,96 @@ def test_fused_gru_kernels_match_plain(band):
     for g, w in zip(bwd.split(kg), bwd.split(pg)):
         assert float((g - w).abs().max()) <= 1e-2 * float(w.abs().max())
     assert float((kd - pd).abs().max()) <= 1e-2 * float(pd.abs().max())
+
+
+@pytest.mark.parametrize("env_id,band", [("rware-tiny-2ag-v2", (0, 600)),
+                                         ("rware-tiny-16ag-v2", (450, 300))])
+def test_gru_seq_kernels_match_plain(env_id, band):
+    """K11 within one bf16 step on 99.9% of the entries; K12 and K13 within
+    1e-2 of each block's largest |plain|, K13's metric sums within rtol 1e-3
+    of the means (and 1e-5: pg's is a mean of normalised advantages); two
+    launches bit-equal; a band that wraps."""
+    dims, a = random_gru_seq_case(env_id, 600, 8, band, 3, DEV)
+    fwd, bwd = build_fused_gru_seq_fwd(dims), build_fused_gru_seq_bwd(dims)
+    loss = build_fused_gru_loss_bwd(dims, 0.2, 0.5, 0.01)
+    seq = (a["wh"], a["bhn"], a["iall"], a["done"], a["h0"])
+    kh, kh2, ph = fwd(*seq, *band), fwd(*seq, *band), fwd.plain(*seq, *band)
+    assert fwd.launches == 2 and torch.equal(kh, kh2) and kh.shape == ph.shape
+    diff = (kh.float() - ph.float()).abs()
+    assert float((diff <= 2.0 ** -7).float().mean()) >= 0.999 and float(diff.max()) <= 2.0 ** -4
+    dh = (torch.randn(ph.shape, generator=torch.Generator().manual_seed(1)) * 1e-2)
+    dh = dh.to(torch.bfloat16).to(DEV)
+    k12, k12b, p12 = bwd(*seq, ph, dh, *band), bwd(*seq, ph, dh, *band), \
+        bwd.plain(*seq, ph, dh, *band)
+    largs = (a["wh"], a["bhn"], a["whead"], a["bhead"], *seq[2:], ph, a["action"], a["logp"],
+             a["value"], a["adv"], a["target"], a["stats"], *band)
+    k13, k13b, p13 = loss(*largs), loss(*largs), loss.plain(*largs)
+    assert bwd.launches == loss.launches == 2
+    for got, again, want in ((k12, k12b, p12), (k13[:6], k13b[:6], p13[:6])):
+        for g, g2, w in zip(got, again, want):
+            assert torch.equal(g, g2)
+            assert float((g.float() - w.float()).abs().max()) <= 1e-2 * float(w.float().abs().max())
+    n = float(ph[..., 0].numel())
+    got, want = k13[6].double() / n, p13[6].double() / n
+    assert bool(((got - want).abs() <= 1e-3 * want.abs() + 1e-5).all()), (got, want)
+
+
+def test_gru_seq_scan_on_the_card_matches_the_cpu():
+    """GruSeqScan (K11 forward, K12 backward) under autograd on the card
+    against the same call on the CPU (the plain versions), a band that
+    wraps: hseq as above, the gradients of wh, bhn, iall and h0 within 1e-2
+    of each one's largest |CPU|."""
+    band = (450, 300)
+    dims, a = random_gru_seq_case("rware-tiny-2ag-v2", 600, 8, band, 5, torch.device("cpu"))
+    w = torch.randn((8, band[1], 2, dims.hidden), generator=torch.Generator().manual_seed(2))
+    fwd, bwd = build_fused_gru_seq_fwd(dims), build_fused_gru_seq_bwd(dims)
+    runs = []
+    for dev in (DEV, torch.device("cpu")):
+        leaves = [a[k].detach().to(dev).clone().requires_grad_(True)
+                  for k in ("wh", "bhn", "iall", "h0")]
+        hseq = GruSeqScan.apply(leaves[0], leaves[1], leaves[2], a["done"].to(dev), leaves[3],
+                                *band, fwd, bwd)
+        (hseq.float() * w.to(dev)).sum().backward()
+        runs.append([hseq.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    assert fwd.launches == bwd.launches == 1
+    (kh, *kg), (ph, *pg) = runs
+    diff = (kh.float() - ph.float()).abs()
+    assert float((diff <= 2.0 ** -7).float().mean()) >= 0.999 and float(diff.max()) <= 2.0 ** -4
+    for g, want in zip(kg, pg):
+        err = float((g.float() - want.float()).abs().max())
+        assert err <= 1e-2 * float(want.float().abs().max())
+
+
+def test_fused_loss_train_step_runs_on_the_card():
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=20)
+    cfg = ippo.IPPOConfig(n_envs=1024, rollout_len=16, epochs=2, minibatches=2)
+    runner, dims = ippo_rnn.init_rnn_runner(env, cfg, seed=0)
+    step = ippo_rnn.build_rnn_fused_train_step(env, dims, cfg, fused_loss=True)
+    new, metrics = step(runner)
+    new, metrics = step(new)
+    assert (step.collect.launches, step.seq_fwd.launches, step.loss_bwd.launches,
+            step.gru_fwd.launches, step.gru_bwd.launches) == (2, 8, 8, 0, 0)
+    assert new.params.device.type == "cuda" and float((new.params - runner.params).abs().max()) > 0
+    assert int(metrics["episodes_done"]) == 1024
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v.float())), k
+
+
+@pytest.mark.parametrize("m", [0, 2])
+def test_rnn_mappo_train_step_runs_on_the_card(m):
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=20, msg_bits=m)
+    cfg = ippo.IPPOConfig(n_envs=1024, rollout_len=16, epochs=2, minibatches=2)
+    runner, dims, cdims = mappo.init_rnn_mappo_runner(env, cfg, seed=0)
+    step = mappo.build_rnn_mappo_train_step(env, dims, cdims, cfg)
+    new, metrics = step(runner)
+    new, metrics = step(new)
+    assert (step.collect.launches, step.critic_values.launches, step.gru_fwd.launches,
+            step.gru_bwd.launches, step.critic_grads.launches) == (2, 2, 8, 8, 8)
+    for part in ("actor", "critic"):
+        assert float((new.params[part] - runner.params[part]).abs().max()) > 0, part
+    assert int(metrics["episodes_done"]) == 1024
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v.float())), k
 
 
 def test_gru_kernels_reject_unsupported_widths():

@@ -269,7 +269,8 @@ def test_train_mappo_and_evaluate_entry_points(tmp_path, phase):
 
 
 def test_mappo_entry_point_refuses_what_is_not_there():
-    for argv in (["--algo", "mappo", "--net", "gru"], ["--algo", "mappo", "--collect", "plain"],
+    for argv in (["--algo", "mappo", "--net", "gru", "--collect", "plain"],
+                 ["--algo", "mappo", "--collect", "plain"],
                  ["--algo", "seac"], ["--algo", "seac", "--net", "gru"],
                  ["--fused-critic-phase"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):

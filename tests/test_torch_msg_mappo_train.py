@@ -158,7 +158,8 @@ def test_train_mappo_msg_bits_and_refusals(tmp_path):
     assert np.isfinite(out["v_loss"]) and out["entropy"] > np.log(5)
     ckpt = torch.load(str(tmp_path / "policy.pt"))
     assert ckpt["msg_bits"] == 2 and "critic" in ckpt
-    for argv in (["--algo", "mappo", "--fused-critic-phase"], ["--algo", "mappo", "--net", "gru"],
+    for argv in (["--algo", "mappo", "--fused-critic-phase"],
+                 ["--algo", "mappo", "--net", "gru", "--fused-critic-phase"],
                  ["--algo", "seac"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(argv + ["--msg-bits", "2", "--device", "cpu"])

@@ -212,9 +212,9 @@ def test_entry_points_refuse_what_is_not_there():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train.main(["--algo", "seac", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["--algo", "mappo", "--net", "gru", "--device", "cpu"])
+        train.main(["--algo", "mappo", "--net", "gru", "--collect", "plain", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["--algo", "mappo", "--net", "gru", "--msg-bits", "2", "--device", "cpu"])
+        train.main(["--algo", "mappo", "--net", "gru", "--fused-critic-phase", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--device", "cuda", "--updates", "1"])

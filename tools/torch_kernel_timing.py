@@ -20,7 +20,11 @@ recurrent learner ``models/ippo_rnn.build_rnn_fused_train_step`` (K2c, and
 K9 + K10 per band pass); with ``--algo seac-ppo`` it is the SEAC-PPO learner
 ``models/seac.build_seac_ppo_fused_train_step`` (K2d, and K8 per pass), with
 ``--net gru`` the recurrent one ``models/seac.build_seac_gru_train_step``
-(K2d′, and the cross replay by autograd per env band), and each config also
+(K2d′, and the cross replay by autograd per env band); with ``--algo mappo
+--net gru`` recurrent MAPPO ``models/mappo.build_rnn_mappo_train_step`` (K2c,
+K6, and K9 + K10 + critic-only K5 per band); with ``--net gru --fused-loss``
+the loss-fused recurrent learner (K11 + K13 per band), and each config then
+also times K11, K12 and K13 on the GRU kernels' band; each config also
 times the per-agent collector kernels (K2d and K2d′, B=16,384, T=128) and the
 SEAC-PPO gradient kernel (K8, one 32-row window of B=16,384 random data).
 ``--msg-bits M`` gives every config M message bits: K1 and the GRU kernels
@@ -37,7 +41,8 @@ collectors then run in their image mode (K2e) and every policy takes
 limit; ``--out`` also writes them to a file.
 
 Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-step]
-       [--algo ippo|mappo|seac-ppo] [--net mlp|gru] [--fused-critic-phase] [--msg-bits M]
+       [--algo ippo|mappo|seac-ppo] [--net mlp|gru] [--fused-critic-phase] [--fused-loss]
+       [--msg-bits M]
        [--n-envs B] [--env ID] [--out FILE]
 """
 import argparse
@@ -180,6 +185,37 @@ def ppo_message_head(env_id, b, m, repeats, emit, dev):
     torch.cuda.empty_cache()
 
 
+def seq_kernels(dims, weights, arrays, traj, carry, band, env_id, b, t, repeats, emit, dev,
+                kernels):
+    """K11, K12 and K13 on ``band`` of the collected trajectory: the gates of
+    its observations, random cotangents for K12, random advantages and
+    targets for K13's loss."""
+    import torch
+
+    from rware_tpu_torch.models.ippo_rnn import band_slice
+    from rware_tpu_torch.models.networks import gru_embed_gates
+
+    fwd, bwd, loss = kernels
+    we, be, wi, bi, wh, bhn, wc, bc = (a.detach() for a in arrays)
+    with torch.no_grad():
+        iall = gru_embed_gates((we, be, wi, bi), band_slice(traj["obs"], *band).float())[1]
+    iall = iall.to(torch.bfloat16)
+    seq = (wh, bhn, iall, traj["done"], carry)
+    hseq = fwd(*seq, *band)
+    dh = (torch.randn(hseq.shape, device=dev) * 1e-2).to(torch.bfloat16)
+    adv, target = torch.randn_like(traj["value"]), torch.randn_like(traj["value"])
+    stats = torch.tensor([0.0, 1.0], device=dev)
+    largs = (wh, bhn, wc, bc[0], iall, traj["done"], carry, hseq, traj["action"], traj["logp"],
+             traj["value"], adv, target, stats, *band)
+    for name, fn in (("fused_gru_seq_fwd", lambda: fwd(*seq, *band)),
+                     ("fused_gru_seq_bwd", lambda: bwd(*seq, hseq, dh, *band)),
+                     ("fused_gru_loss_bwd", lambda: loss(*largs))):
+        med, lo, hi = time_launches(fn, repeats)
+        emit({"kernel": name, "env": env_id, "B": b, "T": t, "band": band, "ms_median": med,
+              "ms_min": lo, "ms_max": hi,
+              "sequence_steps_per_s": t * band[1] * hseq.shape[2] / med * 1e3})
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", nargs="*", default=[
@@ -191,6 +227,8 @@ def main():
     ap.add_argument("--algo", choices=["ippo", "mappo", "seac-ppo"], default="ippo")
     ap.add_argument("--net", choices=["mlp", "gru"], default="mlp")
     ap.add_argument("--fused-critic-phase", action="store_true")
+    ap.add_argument("--fused-loss", action="store_true",
+                    help="--net gru: the loss-fused learner; every config times K11-K13")
     ap.add_argument("--msg-bits", type=int, default=0)
     ap.add_argument("--n-envs", type=int, default=16384)
     ap.add_argument("--env", default="rware-tiny-2ag-v2",
@@ -205,7 +243,13 @@ def main():
     import rware_tpu_torch
     from rware_tpu_torch.models import ActorCritic
     from rware_tpu_torch.models.networks import GruDims, gru_to_arrays, init_recurrent_actor_critic
-    from rware_tpu_torch.ops.fused_gru import build_fused_gru_obs_bwd, build_fused_gru_obs_fwd
+    from rware_tpu_torch.ops.fused_gru import (
+        build_fused_gru_loss_bwd,
+        build_fused_gru_obs_bwd,
+        build_fused_gru_obs_fwd,
+        build_fused_gru_seq_bwd,
+        build_fused_gru_seq_fwd,
+    )
     from rware_tpu_torch.ops.fused_rollout import (
         build_fused_collect,
         build_fused_collect_gru,
@@ -263,6 +307,11 @@ def main():
             emit({"kernel": name, "env": env_id, "B": b, "T": t, "band": band, "ms_median": med,
                   "ms_min": lo, "ms_max": hi,
                   "sequence_steps_per_s": t * band[1] * env.n_agents / med * 1e3})
+        if args.fused_loss:
+            seq_kernels(gdims, weights, gru_to_arrays(gru), traj, carry, band, env_id, b, t,
+                        args.repeats, emit, dev, (build_fused_gru_seq_fwd(gdims),
+                                                  build_fused_gru_seq_bwd(gdims),
+                                                  build_fused_gru_loss_bwd(gdims, 0.2, 0.5, 0.01)))
         del traj, hseq, dh, seq
         if m:
             ppo_message_head(env_id, b, m, args.repeats, emit, dev)
@@ -305,14 +354,19 @@ def main():
                 runner, dims = seac.init_seac_ppo(env, scfg, 0)
                 step = seac.build_seac_ppo_fused_train_step(env, dims, scfg)
                 what = "seac-ppo (K2d, K8 per pass)"
+        elif args.net == "gru" and args.algo == "mappo":
+            from rware_tpu_torch.models import mappo
+
+            runner, dims, cdims = mappo.init_rnn_mappo_runner(env, cfg, 0)
+            step = mappo.build_rnn_mappo_train_step(env, dims, cdims, cfg)
+            what = "recurrent mappo (K2c, K6, K9 + K10 + critic-only K5 per band)"
         elif args.net == "gru":
-            if args.algo != "ippo":
-                raise SystemExit("--net gru takes --algo ippo")
             from rware_tpu_torch.models import ippo_rnn
 
             runner, dims = ippo_rnn.init_rnn_runner(env, cfg, 0)
-            step = ippo_rnn.build_rnn_fused_train_step(env, dims, cfg)
-            what = "recurrent ippo (K2c, K9 + K10 per pass)"
+            step = ippo_rnn.build_rnn_fused_train_step(env, dims, cfg, fused_loss=args.fused_loss)
+            what = ("recurrent ippo, loss-fused (K2c, K11 + K13 per pass)" if args.fused_loss
+                    else "recurrent ippo (K2c, K9 + K10 per pass)")
         elif args.algo == "mappo":
             from rware_tpu_torch.models import mappo
 
