@@ -60,10 +60,11 @@ Phases, one line each:
 13. the GRU sequence kernels (K9 forward, K10 backward) against their plain
     versions: random data with ``done`` at 20% and a nonzero initial hidden on
     tiny-2ag, sensor range 3 (351 features: like every width, the embed
-    weights are read from device memory) and tiny-16ag, env bands that wrap;
-    ``hseq`` within one bf16 step on at least 99.9% of the entries, gradients
-    and ``dh0`` within 1e-2 of each block's largest |plain|; two launches
-    bit-equal;
+    weights are read from device memory) and tiny-16ag, env bands that wrap,
+    and tiny-2ag at embed 24 and hidden 40 (multiples of 8 but not of 16:
+    K10's tensor-core tiles padded and masked); ``hseq`` within one bf16 step
+    on at least 99.9% of the entries, gradients and ``dh0`` within 1e-2 of
+    each block's largest |plain|; two launches bit-equal;
 14. the recurrent training main path at full width through
     ``rware_tpu_torch.models.ippo_rnn.build_rnn_fused_train_step`` on an env
     made with ``make``'s default device: tiny-2ag, B=16,384, T=128, E=4, M=4,
@@ -71,7 +72,8 @@ Phases, one line each:
     counters reset before and read after (exactly 3 K2c, 48 K9, 48 K10); the
     time of an update split into collect (K2c), bootstrap and GAE, and the 16
     band passes; K2c, K9 and K10 timed and compared at that shape beside
-    their plain versions;
+    their plain versions, and one more K10 launch split into its prologue,
+    sweep, epilogue and weight gradients by CUDA events;
 15. the per-agent collector kernel (K2d) against its plain version on the
     card: deterministic and random mode on tiny-2ag (all agents' weights in
     shared memory), small-4ag and large-8ag (weights read from device memory)
@@ -1246,11 +1248,14 @@ def phase11(dev, kind, card, n_envs=16384, rollout_len=128):
 
 
 K2C_CONFIGS = ("rware-tiny-2ag-v2", "rware-small-4ag-v2", "rware-tiny-16ag-v2")
-# (env id, envs, steps, bands (first env, envs)): bands that wrap past the last env
+# (env id, envs, steps, bands (first env, envs), (embed, hidden)): bands that
+# wrap past the last env; (24, 40) are multiples of 8 but not of 16, so K10's
+# tensor-core tiles run with padded, masked edges
 GRU_CASES = (
-    ("rware-tiny-2ag-v2", 1000, 8, ((0, 1000), (900, 500))),
-    ("rware-3s-tiny-2ag-v2", 300, 4, ((250, 100),)),
-    ("rware-tiny-16ag-v2", 100, 4, ((60, 80),)),
+    ("rware-tiny-2ag-v2", 1000, 8, ((0, 1000), (900, 500)), (128, 128)),
+    ("rware-3s-tiny-2ag-v2", 300, 4, ((250, 100),), (128, 128)),
+    ("rware-tiny-16ag-v2", 100, 4, ((60, 80),), (128, 128)),
+    ("rware-tiny-2ag-v2", 1000, 8, ((900, 500),), (24, 40)),
 )
 
 
@@ -1281,13 +1286,14 @@ def phase12(dev, kind, card):
 
 def phase13(dev, kind, card):
     """K9 and K10 against their plain versions."""
-    for env_id, b, t_len, bands in GRU_CASES:
-        dims, weights, obs, done, h0 = random_gru_case(env_id, b, t_len, 17, dev)
+    for env_id, b, t_len, bands, hidden in GRU_CASES:
+        dims, weights, obs, done, h0 = random_gru_case(env_id, b, t_len, 17, dev, hidden=hidden)
         _, _, h_err, g_err = compare_gru(dev, dims, weights, obs, done, h0, bands, 19,
-                                         what=f"K9/K10 {env_id}")
-        log(f"phase 13 K9, K10 {env_id} (L={dims.obs_len}, N={obs.shape[2]}) B={b} T={t_len} "
-            f"bands {bands}: hseq max_abs_err {h_err}, gradients and dh0 within {GRAD_FRAC} of "
-            f"each block, max_abs_err {g_err}, two launches bit-equal [{kind}, {card}]")
+                                         what=f"K9/K10 {env_id} {hidden}")
+        log(f"phase 13 K9, K10 {env_id} (L={dims.obs_len}, N={obs.shape[2]}, E={dims.embed}, "
+            f"Hg={dims.hidden}) B={b} T={t_len} bands {bands}: hseq max_abs_err {h_err}, "
+            f"gradients and dh0 within {GRAD_FRAC} of each block, max_abs_err {g_err}, two "
+            f"launches bit-equal [{kind}, {card}]")
 
 
 def phase14(dev, kind, card, k2c_err, n_envs=16384, rollout_len=128):
@@ -1371,6 +1377,13 @@ def phase14(dev, kind, card, k2c_err, n_envs=16384, rollout_len=128):
         f"{k2c_plain_ms:.1f} ms, value/logp max_abs_err {k2c_err}); K9 {k9_ms:.3f} ms/launch "
         f"(plain {k9_plain_ms:.1f} ms, hseq max_abs_err {k9_err}); K10 {k10_ms:.3f} ms/launch "
         f"(plain {k10_plain_ms:.1f} ms, max_abs_err {k10_err}), band {band} [{kind}, {card}]")
+    # one more K10 launch, each of its kernels between CUDA events
+    total_ms, (_, _, split) = cuda_ms(lambda: bwd.timed(*seq, hseq, dh, *band))
+    log(f"phase 14 K10 split at the main shape, one timed launch: prologue "
+        f"{split['prologue']:.3f} ms, sweep {split['sweep']:.3f} ms, epilogue "
+        f"{split['epilogue']:.3f} ms, weight gradients and reduction {split['wgrad']:.3f} ms; "
+        f"{sum(split.values()):.3f} ms together, {total_ms:.3f} ms around the call "
+        f"[{kind}, {card}]")
 
     # Bounds.  K2c moves the state and the carry in and out, writes the
     # trajectory and runs the cell on every agent-step (the env step's integer

@@ -20,7 +20,8 @@
 //
 // Bound on the card: bytes (iall, hseq in, d_iall out, the five streams:
 // 14 Hg + 20 bytes per sequence-step) against 3 x 49k multiply-adds at
-// Hg = 128 plus the heads, run on the FP32 pipes in this version.
+// Hg = 128 plus the heads; the sweep's run on the FP32 pipes in this version,
+// dWh on the tensor cores (gru_wgrad.cuh).
 #include "gru_seq.cuh"
 
 // A = n_actions (A + 1 <= 8); inv_n = 1 / (T n_env N); rows_per_thread,

@@ -6,10 +6,11 @@
 // Replaces rware_tpu/ops/pallas_gru.py::build_gru_seq_bwd (kernel lines
 // 193-274).  It is K13's sweep without the head and loss prologue, the
 // hidden cotangent read in (gru_seq.cuh, kLoss = false): a reverse sweep per
-// block of 16 or 32 sequences, then dWh over every sample in 64 x 64 tiles and
-// a fixed-order reduction.  The TPU kernel accumulates dWh in a VMEM-resident
-// output block across its sequential grid and needs precomputed chunk-boundary
-// rows (hboundary) to avoid a scalar select; neither is carried across.
+// block of 16 or 32 sequences, then dWh over every sample in 128 x 128 tiles
+// on the tensor cores (gru_wgrad.cuh, K10's) and a fixed-order reduction.
+// The TPU kernel accumulates dWh in a VMEM-resident output block across its
+// sequential grid and needs precomputed chunk-boundary rows (hboundary) to
+// avoid a scalar select; neither is carried across.
 //
 // Numerics as the TPU kernel: r and z stay f32 in the derivatives, the
 // candidate is recomputed in bf16 arithmetic, [dr | dz | dhhn] is rounded to
@@ -17,7 +18,8 @@
 //
 // Bound on the card: bytes (iall, hseq, dhseq in, d_iall out: 14 Hg bytes
 // per sequence-step) against 3 x 49k multiply-adds at Hg = 128 (the gate
-// recomputation, dh, dWh), run on the FP32 pipes in this version.
+// recomputation, dh, dWh); the sweep's two run on the FP32 pipes in this
+// version, dWh on the tensor cores.
 #include "gru_seq.cuh"
 
 // rows_per_thread: 1 or 2; chunk, n_chunks and the scratch as gsq_bwd_launch.

@@ -1,6 +1,8 @@
-// Shared pieces of the obs-fused GRU sequence kernels (K9 fused_gru_fwd.cu,
-// K10 fused_gru_bwd.cu); the recurrent collector (K2c collect_gru.cuh)
-// takes its bf16 load and its sigmoid from here.
+// Shared pieces of the obs-fused GRU forward (K9 fused_gru_fwd.cu) and of the
+// iall-fed sweeps (K11-K13 gru_seq.cuh); K10 (fused_gru_bwd.cu, on the tensor
+// cores, gru_mma.cuh) takes the band layout, GruSeqDims and the rounding
+// helpers, the recurrent collector (K2c collect_gru.cuh) the bf16 load and
+// the sigmoid.
 //
 // A launch works on an env band of the stored (T, B, N, ...) trajectory, read
 // in place: envs (start_env + i) % B for i < n_env, wrapping, so no rolled or

@@ -27,10 +27,11 @@
 //     TPU kernel batches this over a time chunk and feeds chunk boundaries
 //     through precomputed hboundary rows, both Mosaic workarounds: a block
 //     here reads hseq[t-1] and done[t-1] directly).
-//  2. gru_wgrad_kernel (gru_wgrad.cuh, K10's): dWh = sum over samples of
-//     hprev^T [dr | dz | dhhn], hprev rebuilt from h0 / hseq / done on the
-//     fly; one 64 x 64 output tile per block over one chunk of samples,
-//     written to its own partial.
+//  2. gru_wgrad_kernel (gru_wgrad.cuh, shared with K10, on the tensor
+//     cores): dWh = sum over samples of hprev^T [dr | dz | dhhn], hprev
+//     rebuilt from h0 / hseq / done on the fly (GruHprevSrc); one 64 x 128
+//     output tile per block over one chunk of samples, written to its own
+//     partial.
 //  3. gru_reduce_kernel (gru_wgrad.cuh): the chunk and block partials summed
 //     in a fixed order.  No float atomics, so two launches give the same bits.
 #pragma once
@@ -358,32 +359,6 @@ __global__ void __launch_bounds__(GRU_THREADS)
   }
 }
 
-// dWh's operands for gru_wgrad_kernel (gru_wgrad.cuh): A = hprev, h0 at t = 0,
-// else hseq[t-1] zeroed where done[t-1] (a null row); G = [dr | dz | dhhn], dr
-// and dz from d_iall's first two thirds, dhhn from its scratch.
-struct GsqWhSrc {
-  using Row = const __nv_bfloat16*;
-  const __nv_bfloat16 *h0, *hseq, *d_iall, *dhhn;
-  const uint8_t* done;
-  int ia, bias, jb;  // Hg, 0, 3Hg
-
-  __device__ Row a_row(const GruSeqDims& d, long long smp) const {
-    const int Q = d.n_env * d.N;
-    const long long t = smp / Q;
-    const int q = (int)(smp - t * Q);
-    if (t == 0) return h0 + ((size_t)gru_env(d, q) * d.N + q % d.N) * d.Hg;
-    if (done[(size_t)(t - 1) * d.B + gru_env(d, q)]) return nullptr;
-    return hseq + (size_t)(smp - Q) * d.Hg;
-  }
-  __device__ float a_at(Row r, int i) const {
-    return r != nullptr ? __bfloat162float(r[i]) : 0.f;
-  }
-  __device__ float g_at(const GruSeqDims& d, long long smp, int j) const {
-    if (j < 2 * d.Hg) return __bfloat162float(d_iall[(size_t)smp * 3 * d.Hg + j]);
-    return __bfloat162float(dhhn[(size_t)smp * d.Hg + j - 2 * d.Hg]);
-  }
-};
-
 // Entries of a sweep block's partial row: dbhn, and for K13 the head
 // gradients and the metric sums.
 inline int gsq_blk_cols(int Hg, int A1, bool loss) {
@@ -439,13 +414,13 @@ int gsq_bwd_launch(const GruSeqDims& d, int rows_per_thread, int chunk, int n_ch
   if (err != 0) return err;
   const long long n_samples = (long long)d.T * Q;
   const long long n_w = (long long)d.Hg * 3 * d.Hg;
-  const GsqWhSrc src = {(const __nv_bfloat16*)h0, (const __nv_bfloat16*)hseq,
-                        (const __nv_bfloat16*)d_iall, (const __nv_bfloat16*)dhhn_s,
-                        (const uint8_t*)done, d.Hg, 0, 3 * d.Hg};
-  gru_wgrad_kernel<<<gru_wgrad_grid(d.Hg, 3 * d.Hg, n_chunks), GRU_THREADS, 0, stream>>>(
-      d, src, n_samples, chunk, (float*)partial, 0, n_w);
-  cudaError_t cerr = cudaGetLastError();
-  if (cerr != cudaSuccess) return (int)cerr;
+  // dWh: A = hprev rebuilt in place, G = [dr | dz] from d_iall, dhhn from its scratch
+  const GruCols g = {(const __nv_bfloat16*)d_iall, 3 * d.Hg, 2 * d.Hg,
+                     (const __nv_bfloat16*)dhhn_s, d.Hg, 0};
+  const GruHprevSrc src = {(const __nv_bfloat16*)h0, (const __nv_bfloat16*)hseq,
+                           (const uint8_t*)done, d.Hg, 0, 3 * d.Hg, g};
+  err = gru_wgrad_launch(d, src, n_samples, chunk, n_chunks, (float*)partial, 0, n_w, stream);
+  if (err != 0) return err;
   gru_reduce_kernel<<<(unsigned)((n_w + n_blk + 255) / 256), 256, 0, stream>>>(
       (const float*)partial, n_chunks, n_w, (const float*)part_blk, sweep_blocks, n_blk,
       (float*)grads);

@@ -52,10 +52,10 @@ _SIGNATURES = {
     # L E Hg T B N start_env n_env rows_per_thread | obs done h0 we be wi bi wh
     # bhn hseq stream
     "rw_fused_gru_fwd": [_I] * 9 + [_P] * 11,
-    # L E Hg T B N start_env n_env rows_per_thread chunk n_chunks | obs done h0
-    # hseq dhseq we be wi bi wh bhn wiT whT, scratch hp e dg3 dgi dpre part_bhn
-    # partial, grads dh0 stream
-    "rw_fused_gru_bwd": [_I] * 11 + [_P] * 23,
+    # L E Hg T B N start_env n_env sweep_rows prologue_smem sweep_smem
+    # epilogue_smem wgrad_smem chunk n_chunks | obs done h0 hseq dhseq we be wi bi
+    # wh bhn, scratch e rz hn dg4 dpre part_bhn partial, grads dh0 split_ms stream
+    "rw_fused_gru_bwd": [_I] * 15 + [_P] * 22,
     # Hg T B N start_env n_env rows_per_thread | iall done h0 wh bhn hseq stream
     "rw_fused_gru_seq_fwd": [_I] * 7 + [_P] * 7,
     # Hg T B N start_env n_env rows_per_thread chunk n_chunks | iall done h0 hseq

@@ -42,7 +42,9 @@ float32; the kernels round the matrices to bf16.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import ctypes
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -56,7 +58,10 @@ from rware_tpu_torch.models.networks import (
 )
 
 MAX_WIDTH = 128  # the kernels' embed and hidden widths: multiples of 8 up to this
-SWEEP_SMS = 132  # blocks of 32 sequences only when they fill the card's SMs
+# the card's SMs: K9 and K11-K13 take blocks of 32 sequences only when they fill
+# them, K10's sweep the lowest tile whose blocks fit them in one wave
+SWEEP_SMS = 132
+SMEM_MAX = 232_448  # bytes of shared memory one block may take on the H100
 
 
 def band_index(start_env: int, n_env: int, b: int, device) -> torch.Tensor:
@@ -91,6 +96,85 @@ def _kernel_dims(dims: GruDims) -> None:
 
 def _rows_per_thread(n_seq: int) -> int:
     return 2 if n_seq >= 32 * SWEEP_SMS else 1
+
+
+# K10's tiles (csrc/fused_gru_bwd.cu, csrc/gru_wgrad.cuh, csrc/gru_mma.cuh)
+_PAD = 8  # bf16 columns added to each shared-memory row
+_TILE, _KC, _SLICE = 64, 64, 16  # prologue / epilogue samples a block, k chunk, gate slice
+# weight gradients: threads, samples a step, buffers, output tile
+_WG_THREADS, _WG_SK, _WG_NS, _WG_TI, _WG_TJ = 512, 64, 3, 128, 128
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class GruBwdPlan:
+    """K10's launch shape for one band: ``n_seq = n_env N`` sequences,
+    ``n_samples = T n_seq`` sequence-steps (row ``t n_seq + q``)."""
+
+    n_seq: int
+    n_samples: int
+    sweep_rows: int  # sequences a sweep block: 16, 32 or 64
+    sweep_blocks: int
+    tile_blocks: int  # prologue and epilogue blocks, 64 samples each
+    smem: Dict[str, int]  # dynamic shared memory of each kernel, bytes
+    chunk: int  # samples a weight-gradient partial
+    n_chunks: int
+    scratch: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
+
+    def sweep_tiles(self) -> List[range]:
+        """The sequences of each sweep block."""
+        return [range(b * self.sweep_rows, min((b + 1) * self.sweep_rows, self.n_seq))
+                for b in range(self.sweep_blocks)]
+
+    def sample_tiles(self) -> List[range]:
+        """The samples of each prologue and epilogue block."""
+        return [range(b * _TILE, min((b + 1) * _TILE, self.n_samples))
+                for b in range(self.tile_blocks)]
+
+    def chunks(self) -> List[range]:
+        """The samples of each weight-gradient partial."""
+        return [range(c * self.chunk, min((c + 1) * self.chunk, self.n_samples))
+                for c in range(self.n_chunks)]
+
+
+def gru_obs_bwd_plan(dims: GruDims, t_len: int, n_agents: int, n_env: int) -> GruBwdPlan:
+    """K10's launch plan for a band of ``n_env`` envs: the sweep's tile height
+    (the smallest of 16, 32, 64 sequences whose blocks fit the card's SMs in
+    one wave, else 64), the grids, each kernel's shared memory (the library
+    refuses other numbers), the weight-gradient chunks and the scratch.
+    Raises ``ValueError`` for widths the kernels do not take."""
+    _kernel_dims(dims)
+    e, hg = dims.embed, dims.hidden
+    n_seq = n_env * n_agents
+    n_samples = t_len * n_seq
+    rows = next((r for r in (16, 32, 64) if -(-n_seq // r) <= SWEEP_SMS), 64)
+    e16, h16, k16 = _r16(e), _r16(hg), _r16(3 * hg)
+    tiles = _TILE * (e16 + _PAD) + _TILE * (h16 + _PAD)
+    embed = 2 * (_TILE * (_KC + _PAD) + _KC * (e16 + _PAD))
+    gates = 2 * (e16 + h16) * (3 * _SLICE + _PAD)
+    smem = {
+        "prologue": 2 * (tiles + max(embed, gates)) + 20 * _TILE,
+        "sweep": 2 * (hg + rows) * (k16 + _PAD) + 4 * (rows * (hg + 4) + 8 * hg) + 8 * rows,
+        "epilogue": 2 * 2 * (_TILE + e) * (_KC + _PAD),
+        "wgrad": 2 * _WG_NS * _WG_SK * ((_WG_TI + _PAD) + (_WG_TJ + _PAD)) + 4 * _WG_THREADS,
+    }
+    # up to 128 weight-gradient partials, each over a multiple of 64 samples
+    n_chunks = min(128, -(-n_samples // 1024))
+    chunk = _WG_SK * -(-n_samples // (_WG_SK * n_chunks))
+    sweep_blocks = -(-n_seq // rows)
+    n_w = sum(r * c for r, c in dims.shapes[:5])
+    bf, f32 = torch.bfloat16, torch.float32
+    scratch = {
+        "e": ((n_samples, e), bf), "rz": ((n_samples, 2 * hg), f32),
+        "hn": ((n_samples, 2 * hg), bf), "dg4": ((n_samples, 4 * hg), bf),
+        "dpre": ((n_samples, e), bf), "part_bhn": ((sweep_blocks, hg), f32),
+        "partial": ((n_chunks, n_w), f32),
+    }
+    return GruBwdPlan(n_seq, n_samples, rows, sweep_blocks, -(-n_samples // _TILE), smem, chunk,
+                      n_chunks, scratch)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -236,53 +320,47 @@ class FusedGruObsBwd:
             dbe += dpre.sum(0, keepdim=True)
         return torch.cat([g.reshape(-1) for g in grads]), dc
 
-    def _workspace(self, dev, n_samples: int, n_chunks: int, sweep_blocks: int):
-        key = (dev, n_samples, n_chunks, sweep_blocks)
+    def _workspace(self, dev, plan: GruBwdPlan) -> Dict[str, torch.Tensor]:
+        key = (dev,) + tuple(shape for shape, _ in plan.scratch.values())
         if key not in self._scratch:
             self._scratch.clear()  # one shape at a time: the buffers are large
-            e, hg = self.dims.embed, self.dims.hidden
-
-            def buf(width):
-                return torch.empty((n_samples, width), dtype=torch.bfloat16, device=dev)
-
-            self._scratch[key] = {
-                "hp": buf(hg), "e": buf(e), "dg3": buf(3 * hg), "dgi": buf(3 * hg), "dpre": buf(e),
-                "part_bhn": torch.empty((sweep_blocks, hg), dtype=torch.float32, device=dev),
-                "partial": torch.empty((n_chunks, self.n_grads - hg), dtype=torch.float32,
-                                       device=dev),
-            }
+            self._scratch[key] = {name: torch.empty(shape, dtype=dtype, device=dev)
+                                  for name, (shape, dtype) in plan.scratch.items()}
         return self._scratch[key]
 
+    def timed(self, weights, obs, done, h0, hseq, dhseq, start_env: int, n_env: int):
+        """One launch on the card that waits for its kernels and returns
+        ``(grads, dh0, ms)``: ``ms`` the milliseconds of the prologue, the
+        sweep, the epilogue and the weight gradients, by CUDA events."""
+        dev = self._check(weights, obs, done, h0, hseq, dhseq, start_env, n_env)
+        if dev.type != "cuda":
+            raise ValueError("the time split is taken on the card")
+        split = (ctypes.c_float * 4)()
+        grads, dh0 = self._launch(weights, obs, done, h0, hseq, dhseq, start_env, n_env, split)
+        return grads, dh0, dict(zip(("prologue", "sweep", "epilogue", "wgrad"), split))
+
     @torch.no_grad()
-    def _launch(self, weights, obs, done, h0, hseq, dhseq, start_env, n_env):
+    def _launch(self, weights, obs, done, h0, hseq, dhseq, start_env, n_env, split=None):
         from rware_tpu_torch.ops._build import check, load_library
 
-        _kernel_dims(self.dims)
-        lib = load_library()
         dev = obs.device
         t_len, b, n, l_obs = obs.shape
+        plan = gru_obs_bwd_plan(self.dims, t_len, n, n_env)
+        lib = load_library()
         we, be, wi, bi, wh, bhn = weights
-        n_seq = n_env * n
-        n_samples = t_len * n_seq
-        rpt = _rows_per_thread(n_seq)
-        sweep_blocks = -(-n_seq // (16 * rpt))
-        # up to 128 weight-gradient partials, each over a multiple of 32 samples
-        n_chunks = min(128, -(-n_samples // 1024))
-        chunk = 32 * -(-n_samples // (32 * n_chunks))
         with torch.cuda.device(dev):
-            ws = self._workspace(dev, n_samples, n_chunks, sweep_blocks)
-            wib, whb = _bf16(wi), _bf16(wh)
+            ws = self._workspace(dev, plan)
             args = [obs.contiguous(), done.contiguous(), h0.contiguous(), hseq.contiguous(),
-                    dhseq.contiguous(), _bf16(we), _f32(be), wib, _f32(bi), whb, _f32(bhn),
-                    wib.t().contiguous(), whb.t().contiguous(),
-                    ws["hp"], ws["e"], ws["dg3"], ws["dgi"], ws["dpre"], ws["part_bhn"],
-                    ws["partial"]]
+                    dhseq.contiguous(), _bf16(we), _f32(be), _bf16(wi), _f32(bi), _bf16(wh),
+                    _f32(bhn)] + [ws[k] for k in plan.scratch]
             grads = torch.empty(self.n_grads, dtype=torch.float32, device=dev)
             dh0 = torch.empty((n_env, n, self.dims.hidden), dtype=torch.float32, device=dev)
+            sm = plan.smem
             code = lib.rw_fused_gru_bwd(
-                l_obs, self.dims.embed, self.dims.hidden, t_len, b, n, start_env, n_env, rpt,
-                chunk, n_chunks, *[a.data_ptr() for a in args], grads.data_ptr(), dh0.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                l_obs, self.dims.embed, self.dims.hidden, t_len, b, n, start_env, n_env,
+                plan.sweep_rows, sm["prologue"], sm["sweep"], sm["epilogue"], sm["wgrad"],
+                plan.chunk, plan.n_chunks, *[a.data_ptr() for a in args], grads.data_ptr(),
+                dh0.data_ptr(), split, torch.cuda.current_stream(dev).cuda_stream)
             check(lib, code, "fused_gru_bwd")
             self.launches += 1
         return grads, dh0
