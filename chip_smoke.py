@@ -18,9 +18,11 @@ Phases, one line each:
    CUDA events beside the plain versions, with launch counters reset just
    before and read just after;
 6. the fused PPO gradient kernel (K4) against its plain version on the card:
-   random data on tiny-2ag, tiny-16ag and sensor ranges 3 and 5 at B=1000,
-   windows that wrap; gradients within 1e-2 of each block's largest |plain|,
-   metrics within rtol 1e-3; two launches bit-equal;
+   random data on tiny-2ag, tiny-16ag and sensor ranges 3 and 5 (dense_0
+   streamed through shared memory) at B=1000, and tiny-2ag at hidden (36, 20)
+   (multiples of 4 but not of 16: the tensor-core tiles padded and the stores
+   masked), windows that wrap; gradients within 1e-2 of each block's largest
+   |plain|, metrics within rtol 1e-3; two launches bit-equal;
 7. the whole-update-phase kernel (K3) against its plain version: E=4, M=4,
    B=4096; parameters within 0.05 * lr * P, moments within 2e-2 of each
    block's largest |plain|, metrics within rtol 1e-2; two launches
@@ -30,12 +32,15 @@ Phases, one line each:
    B=16,384, T=128, E=4, M=4, hidden (128, 128), three updates after one
    warm-up with launch counters reset before and read after, the time of an
    update split into collect (K2a), GAE and last value, and update phase
-   (K3), one update of the per-pass path (K4 and the optimizer), and each
-   PPO kernel timed and compared at that shape beside its plain version;
+   (K3), one update of the per-pass path (K4 and the optimizer), each PPO
+   kernel timed and compared at that shape beside its plain version, and one
+   more K3 launch split by CUDA events into the per-sample kernel, the weight
+   gradients, their reduction and the Adam step;
 9. the critic-values kernel (K6) and the MAPPO gradient kernel (K5, with and
    without the actor) against their plain versions: random data on tiny-2ag,
-   small-4ag, sensor range 3 and tiny-16ag (whose critic dense_0 is read from
-   device memory) at B=1000, windows that wrap; values within 2e-2 (mean
+   small-4ag, sensor range 3 and tiny-16ag (whose critic dense_0 is streamed
+   through shared memory) at B=1000, and tiny-2ag at hidden (36, 20), windows
+   that wrap; values within 2e-2 (mean
    1e-4), gradients within 1e-2 of each block's largest |plain|, metrics
    within rtol 1e-3; the actor's local value head exactly zero; two launches
    bit-equal;
@@ -81,8 +86,9 @@ Phases, one line each:
     and the final state exact, every action equal, value and logp within
     2e-2;
 16. the SEAC-PPO gradient kernel (K8) against its plain version: random data
-    on tiny-2ag (N=2) and small-4ag (N=4) at B=1000, windows that wrap,
-    seac_lambda 1 and 0.5; every agent's gradients within 1e-2 of each block's
+    on tiny-2ag (N=2) and small-4ag (N=4) at B=1000, and tiny-2ag at hidden
+    (36, 20), windows that wrap, seac_lambda 1 and 0.5; every agent's
+    gradients within 1e-2 of each block's
     largest |plain|, metrics within rtol 1e-3; two launches bit-equal;
 17. the SEAC-PPO training main path at full width through
     ``rware_tpu_torch.models.seac.build_seac_ppo_fused_train_step`` on an env
@@ -209,8 +215,8 @@ K2_CONFIGS = (
     ("rware-large-8ag-v2", {"max_steps": 20}),
     ("rware-tiny-16ag-v2", {"max_steps": 20}),
 )
-# Sensor range 5 reads dense_0's weights from device memory (too long for
-# shared memory); the others keep them in shared memory.
+# Sensor range 5 streams dense_0's weights through shared memory (too long to
+# stay there); the others keep them resident.
 K4_CONFIGS = ("rware-tiny-2ag-v2", "rware-tiny-16ag-v2", "rware-3s-tiny-2ag-v2",
               "rware-5s-tiny-2ag-v2")
 VALUE_MEAN_ATOL = 1e-4  # K6: mean |value diff|; a bf16 step of a hidden unit is rare
@@ -218,6 +224,9 @@ GRAD_FRAC = 1e-2  # of each block's largest |plain gradient|
 MOMENT_FRAC = 2e-2  # of each block's largest |plain moment|
 K5_CONFIGS = ("rware-tiny-2ag-v2", "rware-small-4ag-v2", "rware-3s-tiny-2ag-v2",
               "rware-tiny-16ag-v2")
+# Hidden widths that are multiples of 4 but not of 16: the PPO kernels'
+# tensor-core tiles run padded and their stores masked (phases 6, 9, 16).
+PADDED_CASE = ("rware-tiny-2ag-v2", (36, 20))
 # tiny-2ag keeps every agent's weights in shared memory; from 4 agents on they
 # are read from device memory
 K2D_CONFIGS = (("rware-tiny-2ag-v2", {}), ("rware-small-4ag-v2", {"max_steps": 20}),
@@ -459,13 +468,13 @@ def check_metric_sums(got, want, n, rtol, what):
         require(ok, f"{what}: metric {k} {a.tolist()} vs {b.tolist()}")
 
 
-def compare_k4(env_id, dev, b, t_full, t_mb, starts, seed):
+def compare_k4(env_id, dev, b, t_full, t_mb, starts, seed, hidden=(128, 128)):
     """K4 kernel vs plain at each window start; returns max |grad diff|."""
     import torch
     from rware_tpu_torch.ops.fused_update import build_fused_ppo_grads
     from rware_tpu_torch.testing import random_ppo_case
 
-    dims, params, data = random_ppo_case(env_id, b, t_full, seed, dev)
+    dims, params, data = random_ppo_case(env_id, b, t_full, seed, dev, hidden=hidden)
     k4 = build_fused_ppo_grads(dims, t_mb, clip_eps=0.2, vf_coef=0.5, ent_coef=0.01)
     n = t_mb * b * data[1].shape[2]
     err = 0.0
@@ -542,14 +551,14 @@ def compare_k6(dev, cdims, cparams, obs):
     return k6, err
 
 
-def compare_k5(env_id, dev, b, t_full, t_mb, starts, seed):
+def compare_k5(env_id, dev, b, t_full, t_mb, starts, seed, hidden=(128, 128)):
     """K6, and K5 with and without the actor, vs their plain versions at each
     window start; returns (k5, max |value diff|, max |grad diff|)."""
     import torch
     from rware_tpu_torch.ops.fused_mappo import build_fused_mappo_grads
     from rware_tpu_torch.testing import random_mappo_case
 
-    dims, cdims, params, data = random_mappo_case(env_id, b, t_full, seed, dev)
+    dims, cdims, params, data = random_mappo_case(env_id, b, t_full, seed, dev, hidden=hidden)
     _, v_err = compare_k6(dev, cdims, params["critic"], data[0])
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01)
     k5 = build_fused_mappo_grads(dims, cdims, t_mb, **kw)
@@ -784,15 +793,15 @@ def compare_k2d(env_id, dev, b, t, deterministic, seed, policies=None, collect=N
 
 
 def compare_k8(env_id, dev, b, t_full, t_mb, starts, seed, seac_lambda, grads=None, data=None,
-               dims=None, params=None):
-    """K8 kernel vs plain at each window start (random data, or ``data`` with
-    ``dims`` and ``params``); returns (k8, max |grad diff|)."""
+               dims=None, params=None, hidden=(128, 128)):
+    """K8 kernel vs plain at each window start (random data at ``hidden``, or
+    ``data`` with ``dims`` and ``params``); returns (k8, max |grad diff|)."""
     import torch
     from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
     from rware_tpu_torch.testing import random_seac_case
 
     if data is None:
-        dims, params, data = random_seac_case(env_id, b, t_full, seed, dev)
+        dims, params, data = random_seac_case(env_id, b, t_full, seed, dev, hidden=hidden)
     n_agents = params.shape[0]
     k8 = grads or build_fused_seac_grads(dims, n_agents, t_mb, clip_eps=0.2, vf_coef=0.5,
                                          ent_coef=0.01, seac_lambda=seac_lambda)
@@ -1024,12 +1033,14 @@ def phase5(dev, kind, card, k1_err, k2_err):
 
 
 def phase6(dev, kind, card):
-    """K4 against its plain version on four observation lengths and agent counts."""
-    for env_id in K4_CONFIGS:
-        k4, err = compare_k4(env_id, dev, 1000, 8, 4, (0, 3, 7), seed=21)
-        log(f"phase 6 K4 {env_id} B=1000 T=8 window 4 at starts 0, 3, 7: within "
-            f"{GRAD_FRAC} of each block, max_abs_err {err}, two launches bit-equal "
-            f"(tile {k4.tile}, dense_0 in shared memory {k4.w0_smem}) [{kind}, {card}]")
+    """K4 against its plain version on four observation lengths and agent
+    counts, and at hidden (36, 20)."""
+    for env_id, hidden in [(e, (128, 128)) for e in K4_CONFIGS] + [PADDED_CASE]:
+        k4, err = compare_k4(env_id, dev, 1000, 8, 4, (0, 3, 7), seed=21, hidden=hidden)
+        log(f"phase 6 K4 {env_id} hidden {hidden} B=1000 T=8 window 4 at starts 0, 3, 7: "
+            f"within {GRAD_FRAC} of each block, max_abs_err {err}, two launches bit-equal "
+            f"(tile {k4.tile}, dense_0 resident in shared memory {k4.w0_smem}) "
+            f"[{kind}, {card}]")
 
 
 def phase7(dev, kind, card):
@@ -1114,6 +1125,23 @@ def phase8(dev, kind, card, n_envs=16384, rollout_len=128):
     log(f"phase 8 kernels at the main shape: K4 {k4_ms:.3f} ms/launch (plain {k4_plain_ms:.1f} "
         f"ms, max_abs_err {k4_err}); K3 {k3_ms:.3f} ms/launch (plain {k3_plain_ms:.1f} ms, "
         f"params max_abs_err {k3_err}) [{kind}, {card}]")
+    # one more K3 launch at that shape, each of its kernels between CUDA events
+    from rware_tpu_torch.models.ippo_fused import phase_advstats, phase_window_starts
+
+    k3 = step.update_phase
+    starts = phase_window_starts(cfg, cfg.rollout_len, k3.time_block,
+                                 torch.Generator().manual_seed(3)).to(dev)
+    zero = torch.zeros_like(runner.params)
+    args = (runner.params, zero, zero, dataset, starts,
+            phase_advstats(dataset[4], starts, cfg.rollout_len // cfg.minibatches),
+            ippo.adam_hyper(cfg, 0, n_passes).to(dev))
+    total_ms, out = cuda_ms(lambda: k3.timed(*args))
+    split = out[-1]
+    log(f"phase 8 K3 split at the main shape, one timed launch, ms a pass: per-sample kernel "
+        f"{split['sample']:.3f}, weight gradients {split['wgrad']:.3f}, their reduction and the "
+        f"metric sums {split['reduce']:.3f}, the Adam step {split['adam']:.3f}; "
+        f"{sum(split.values()) * n_passes:.3f} ms for {n_passes} passes, {total_ms:.3f} ms "
+        f"around the call [{kind}, {card}]")
     t_mb = cfg.rollout_len // cfg.minibatches
     return [
         kernel_entry("fused_ppo_grads", "fused_ppo_grads.cu", "rware_tpu/ops/pallas_update.py:293",
@@ -1127,14 +1155,15 @@ def phase8(dev, kind, card, n_envs=16384, rollout_len=128):
 
 
 def phase9(dev, kind, card):
-    """K6 and K5 (with and without the actor) against their plain versions."""
-    for env_id in K5_CONFIGS:
-        k5, v_err, err = compare_k5(env_id, dev, 1000, 8, 4, (0, 3, 7), seed=21)
-        log(f"phase 9 K6, K5 {env_id} B=1000 T=8 window 4 at starts 0, 3, 7: values "
-            f"max_abs_err {v_err}; gradients (combined and critic-only) within {GRAD_FRAC} of "
-            f"each block, max_abs_err {err}; the actor's value head exactly 0; two launches "
-            f"bit-equal (critic tile {k5.tile}, its dense_0 in shared memory {k5.w0_smem}) "
-            f"[{kind}, {card}]")
+    """K6 and K5 (with and without the actor) against their plain versions,
+    and at hidden (36, 20)."""
+    for env_id, hidden in [(e, (128, 128)) for e in K5_CONFIGS] + [PADDED_CASE]:
+        k5, v_err, err = compare_k5(env_id, dev, 1000, 8, 4, (0, 3, 7), seed=21, hidden=hidden)
+        log(f"phase 9 K6, K5 {env_id} hidden {hidden} B=1000 T=8 window 4 at starts 0, 3, 7: "
+            f"values max_abs_err {v_err}; gradients (combined and critic-only) within "
+            f"{GRAD_FRAC} of each block, max_abs_err {err}; the actor's value head exactly 0; "
+            f"two launches bit-equal (critic tile {k5.tile}, its dense_0 resident in shared "
+            f"memory {k5.w0_smem}) [{kind}, {card}]")
 
 
 def phase10(dev, kind, card):
@@ -1430,12 +1459,15 @@ def phase15(dev, kind, card):
 
 
 def phase16(dev, kind, card):
-    """K8 against its plain version on two agent counts."""
-    for env_id, seac_lambda in (("rware-tiny-2ag-v2", 1.0), ("rware-small-4ag-v2", 0.5)):
-        k8, err = compare_k8(env_id, dev, 1000, 8, 4, (0, 3, 7), 21, seac_lambda)
-        log(f"phase 16 K8 {env_id} seac_lambda {seac_lambda} B=1000 T=8 window 4 at starts 0, 3, "
-            f"7: every agent within {GRAD_FRAC} of each block, max_abs_err {err}, metrics within "
-            f"rtol 1e-3, two launches bit-equal (tile {k8.tile}) [{kind}, {card}]")
+    """K8 against its plain version on two agent counts, and at hidden (36, 20)."""
+    for env_id, seac_lambda, hidden in (("rware-tiny-2ag-v2", 1.0, (128, 128)),
+                                        ("rware-small-4ag-v2", 0.5, (128, 128)),
+                                        (*PADDED_CASE[:1], 0.5, PADDED_CASE[1])):
+        k8, err = compare_k8(env_id, dev, 1000, 8, 4, (0, 3, 7), 21, seac_lambda, hidden=hidden)
+        log(f"phase 16 K8 {env_id} hidden {hidden} seac_lambda {seac_lambda} B=1000 T=8 window "
+            f"4 at starts 0, 3, 7: every agent within {GRAD_FRAC} of each block, max_abs_err "
+            f"{err}, metrics within rtol 1e-3, two launches bit-equal (tile {k8.tile}) "
+            f"[{kind}, {card}]")
 
 
 def phase17(dev, kind, card, k2d_err, n_envs=16384, rollout_len=128):

@@ -11,14 +11,15 @@
 // the critic's PpoDims (ppo_core.cuh): per (t, b),
 //   h1 = bf16(tanh(bf16(C0^T x + cb0))), h2 = bf16(tanh(bf16(C1^T h1 + cb1))),
 //   v = Cv^T f32(h2) + cbv                       (pallas_update.py:1786-1804)
-// with float32 sums over the input features in ascending order (fmaf).  The
-// plain version sums with torch.matmul in another order, so the two agree to
-// float32 rounding, and to a bf16 step of a hidden unit where a rounding
-// boundary is crossed.
+// with the two bf16 products on the tensor cores (f32 sums) and the head in
+// f32 on the FP32 pipes.  The plain version sums with torch.matmul in another
+// order, so the two agree to float32 rounding, and to a bf16 step of a hidden
+// unit where a rounding boundary is crossed.
 //
-// Bound on the card: the FP32 multiply-adds, N*L*CH1 + CH1*CH2 + CH2*N per
-// (t, b) (34.8k at N=2, L=71, hidden (128, 128)); the traffic is the obs read
-// once (2*N*L bytes per (t, b)) and the values written.
+// Bound on the card: the bytes, the obs read once (2*N*L bytes per (t, b))
+// and the values written; the products, N*L*CH1 + CH1*CH2 bf16 and CH2*N f32
+// multiply-adds per (t, b) (34.8k at N=2, L=71, hidden (128, 128)), take
+// less.
 #include "ppo_sample.cuh"
 
 extern "C" int rw_fused_critic_values(int K0, int CH1, int CH2, int agents, int T, int B,
@@ -26,7 +27,8 @@ extern "C" int rw_fused_critic_values(int K0, int CH1, int CH2, int agents, int 
                                       const void* obs, const void* cparams, void* values,
                                       void* stream) {
   const PpoDims d = critic_dims(K0, CH1, CH2, agents, T, T, B, 0.f, 0.f, 0.f, tile, grid, smem,
-                                w0_smem, 0, 0);
+                                w0_smem, 0, 0, 0);
+  if (ppo_plan_check(d, 0) != 0) return (int)cudaErrorInvalidValue;
   PpoData data = {};
   data.obs = (const __nv_bfloat16*)obs;
   PpoScratch ws = {};

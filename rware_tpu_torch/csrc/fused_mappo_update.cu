@@ -20,26 +20,28 @@
 extern "C" int rw_fused_mappo_update_phase(
     int L, int H1, int H2, int A, int T_full, int T_mb, int B, int N, float clip_eps,
     float vf_coef, float ent_coef, float inv_n, int tile, int grid, int smem, int w0_smem,
-    int chunk, int n_chunks, int c_tile, int c_grid, int c_smem, int c_w0_smem, int c_chunk,
-    int c_n_chunks, int CH1, int CH2, float max_grad_norm, int n_passes, const void* starts,
-    const void* advstats, const void* hyper, const void* obs, const void* action,
-    const void* logp, const void* value, const void* adv, const void* target, void* aparams,
-    void* amu, void* anu, void* cparams, void* cmu, void* cnu, void* a_h1, void* a_h2,
-    void* a_dz1, void* a_dz2, void* a_dcat, void* a_partial, void* a_part_mets, void* c_h1,
-    void* c_h2, void* c_dz1, void* c_dz2, void* c_dcat, void* c_partial, void* c_part_mets,
-    void* agrads, void* cgrads, void* mets, void* stream) {
+    int chunk, int n_chunks, int wgrad_smem, int c_tile, int c_grid, int c_smem, int c_w0_smem,
+    int c_chunk, int c_n_chunks, int c_wgrad_smem, int CH1, int CH2, float max_grad_norm,
+    int n_passes, const void* starts, const void* advstats, const void* hyper, const void* obs,
+    const void* action, const void* logp, const void* value, const void* adv,
+    const void* target, void* aparams, void* amu, void* anu, void* cparams, void* cmu,
+    void* cnu, void* a_h1, void* a_h2, void* a_dz1, void* a_dz2, void* a_part_head,
+    void* a_partial, void* a_part_mets, void* c_h1, void* c_h2, void* c_dz1, void* c_dz2,
+    void* c_part_head, void* c_partial, void* c_part_mets, void* agrads, void* cgrads,
+    void* mets, void* stream) {
   PpoDims da = ppo_dims(L, H1, H2, A, T_full, T_mb, B, N, clip_eps, vf_coef, ent_coef, inv_n,
-                        tile, grid, smem, w0_smem, chunk, n_chunks);
+                        tile, grid, smem, w0_smem, chunk, n_chunks, wgrad_smem);
   da.value_head = 0;
   const PpoDims dc = critic_dims(N * L, CH1, CH2, N, T_full, T_mb, B, clip_eps, vf_coef, inv_n,
-                                 c_tile, c_grid, c_smem, c_w0_smem, c_chunk, c_n_chunks);
+                                 c_tile, c_grid, c_smem, c_w0_smem, c_chunk, c_n_chunks,
+                                 c_wgrad_smem);
   const PpoData data = {(const __nv_bfloat16*)obs, (const int*)action, (const float*)logp,
                         (const float*)value, (const float*)adv, (const float*)target};
   const PpoScratch wsa = {(__nv_bfloat16*)a_h1,  (__nv_bfloat16*)a_h2, (__nv_bfloat16*)a_dz1,
-                          (__nv_bfloat16*)a_dz2, (float*)a_dcat,       (float*)a_partial,
+                          (__nv_bfloat16*)a_dz2, (float*)a_part_head,  (float*)a_partial,
                           (float*)a_part_mets,   nullptr};
   const PpoScratch wsc = {(__nv_bfloat16*)c_h1,  (__nv_bfloat16*)c_h2, (__nv_bfloat16*)c_dz1,
-                          (__nv_bfloat16*)c_dz2, (float*)c_dcat,       (float*)c_partial,
+                          (__nv_bfloat16*)c_dz2, (float*)c_part_head,  (float*)c_partial,
                           (float*)c_part_mets,   nullptr};
   const cudaStream_t st = (cudaStream_t)stream;
   AdamParts parts = {};

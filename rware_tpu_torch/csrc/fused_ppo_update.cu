@@ -16,6 +16,11 @@
 // Bound on the card: the gradient kernels (see fused_ppo_grads.cu).  The
 // optimizer step is one block over about 26k parameters at L=71, hidden
 // (128, 128): a few microseconds.
+//
+// With split_ms (host memory, four floats) not null the call waits for its
+// kernels and writes there the milliseconds, summed over the passes, of the
+// per-sample kernel, the weight-gradient products, their reduction with the
+// metric sums, and the optimizer step, timed by CUDA events between them.
 #include "ppo_core.cuh"
 
 #define ADAM_THREADS 1024
@@ -68,29 +73,48 @@ int ppo_clip_adam_launch(const AdamParts& parts, int n_parts, const float* hyper
 extern "C" int rw_fused_ppo_update_phase(
     int L, int H1, int H2, int A, int T_full, int T_mb, int B, int N, float clip_eps,
     float vf_coef, float ent_coef, float inv_n, int tile, int grid, int smem, int w0_smem,
-    int chunk, int n_chunks, float max_grad_norm, int n_passes, const void* starts,
-    const void* advstats, const void* hyper, const void* obs, const void* action, const void* logp, const void* value,
-    const void* adv, const void* target, void* params, void* mu, void* nu, void* h1, void* h2,
-    void* dz1, void* dz2, void* dcat, void* partial, void* part_mets, void* grads, void* mets,
-    void* stream) {
+    int chunk, int n_chunks, int wgrad_smem, float max_grad_norm, int n_passes,
+    const void* starts, const void* advstats, const void* hyper, const void* obs,
+    const void* action, const void* logp, const void* value, const void* adv,
+    const void* target, void* params, void* mu, void* nu, void* h1, void* h2, void* dz1,
+    void* dz2, void* part_head, void* partial, void* part_mets, void* grads, void* mets,
+    float* split_ms, void* stream) {
   const PpoDims d = ppo_dims(L, H1, H2, A, T_full, T_mb, B, N, clip_eps, vf_coef, ent_coef,
-                             inv_n, tile, grid, smem, w0_smem, chunk, n_chunks);
+                             inv_n, tile, grid, smem, w0_smem, chunk, n_chunks, wgrad_smem);
   const PpoData data = {(const __nv_bfloat16*)obs, (const int*)action, (const float*)logp,
                         (const float*)value, (const float*)adv, (const float*)target};
   const PpoScratch ws = {(__nv_bfloat16*)h1, (__nv_bfloat16*)h2, (__nv_bfloat16*)dz1,
-                         (__nv_bfloat16*)dz2, (float*)dcat, (float*)partial, (float*)part_mets,
-                         nullptr};
+                         (__nv_bfloat16*)dz2, (float*)part_head, (float*)partial,
+                         (float*)part_mets, nullptr};
   const cudaStream_t st = (cudaStream_t)stream;
   AdamParts parts = {};
   parts.part[0] = {(float*)params, (float*)mu, (float*)nu, (const float*)grads,
                    ppo_offsets(d).n};
-  for (int p = 0; p < n_passes; ++p) {
-    int err = ppo_grads_enqueue(d, (const int*)starts + p, (const float*)advstats + 2 * p, data,
-                                (const float*)params, ws, (float*)grads, (float*)mets + 4 * p,
-                                st);
-    if (err != 0) return err;
-    err = ppo_clip_adam_launch(parts, 1, (const float*)hyper + 3 * p, max_grad_norm, st);
-    if (err != 0) return err;
+  // with split_ms: five events a pass, [sample | wgrad | reduce | adam | end]
+  const int n_ev = split_ms != nullptr ? 5 * n_passes : 0;
+  cudaEvent_t* ev = n_ev ? new cudaEvent_t[n_ev] : nullptr;
+  for (int i = 0; i < n_ev; ++i) cudaEventCreate(&ev[i]);
+  int err = 0;
+  for (int p = 0; p < n_passes && err == 0; ++p) {
+    const cudaEvent_t* marks = ev != nullptr ? ev + 5 * p : nullptr;
+    err = ppo_grads_enqueue(d, (const int*)starts + p, (const float*)advstats + 2 * p, data,
+                            (const float*)params, ws, (float*)grads, (float*)mets + 4 * p, st,
+                            marks);
+    if (err == 0)
+      err = ppo_clip_adam_launch(parts, 1, (const float*)hyper + 3 * p, max_grad_norm, st);
+    if (marks != nullptr) cudaEventRecord(marks[4], st);
   }
-  return 0;
+  if (ev != nullptr) {
+    for (int k = 0; k < 4; ++k) split_ms[k] = 0.f;
+    if (err == 0) err = (int)cudaEventSynchronize(ev[n_ev - 1]);
+    for (int p = 0; p < n_passes && err == 0; ++p)
+      for (int k = 0; k < 4 && err == 0; ++k) {
+        float ms = 0.f;
+        err = (int)cudaEventElapsedTime(&ms, ev[5 * p + k], ev[5 * p + k + 1]);
+        split_ms[k] += ms;
+      }
+    for (int i = 0; i < n_ev; ++i) cudaEventDestroy(ev[i]);
+    delete[] ev;
+  }
+  return err;
 }

@@ -111,8 +111,12 @@ static inline int gru_wgrad_smem() {
 // (added from the staged G rows by the first row of tiles, not by a product
 // with a column of ones, so that a 128-wide A takes one tile); each chunk's
 // partial holds n_out floats.  Warp w computes rows 16 (w % 8).. of the tile
-// and columns 64 (w / 8)...
-template <class Src>
+// and columns 64 (w / 8)...  With kStepSums each mma sums its 16 samples from
+// zero and the sum joins the running total by a rounded f32 add, so that the
+// tensor cores' rounding of their f32 sums does not build up over a long
+// chunk (the PPO pass, csrc/fused_ppo_grads.cu); the GRU kernels keep the
+// chained sums.
+template <class Src, bool kStepSums = false>
 __global__ void __launch_bounds__(GW_THREADS)
     gru_wgrad_kernel(GruSeqDims d, Src src, long long n_samples, int chunk,
                      float* __restrict__ partial, long long out_off, long long n_out) {
@@ -225,8 +229,19 @@ __global__ void __launch_bounds__(GW_THREADS)
               if (tj0 + n0 < src.jb) {
                 uint32_t bf[4];
                 gm_frag_b2_kn(bf, gg, ldg, n0, kk);
-                gm_mma(acc[2 * p], af, bf[0], bf[1]);
-                gm_mma(acc[2 * p + 1], af, bf[2], bf[3]);
+                if constexpr (kStepSums) {
+                  float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+                  gm_mma(t0, af, bf[0], bf[1]);
+                  gm_mma(t1, af, bf[2], bf[3]);
+#pragma unroll
+                  for (int q = 0; q < 4; ++q) {
+                    acc[2 * p][q] += t0[q];
+                    acc[2 * p + 1][q] += t1[q];
+                  }
+                } else {
+                  gm_mma(acc[2 * p], af, bf[0], bf[1]);
+                  gm_mma(acc[2 * p + 1], af, bf[2], bf[3]);
+                }
               }
             }
           }
@@ -266,17 +281,17 @@ __global__ void __launch_bounds__(GW_THREADS)
 
 // One gru_wgrad_kernel launch: an (ia + bias, jb) output in 128 x 128 tiles,
 // by n_chunks chunks of samples.
-template <class Src>
+template <class Src, bool kStepSums = false>
 static int gru_wgrad_launch(const GruSeqDims& d, const Src& src, long long n_samples, int chunk,
                             int n_chunks, float* partial, long long out_off, long long n_out,
                             cudaStream_t stream) {
   const int smem = gru_wgrad_smem();
-  cudaError_t err = cudaFuncSetAttribute(gru_wgrad_kernel<Src>,
+  cudaError_t err = cudaFuncSetAttribute(gru_wgrad_kernel<Src, kStepSums>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(((src.ia + GW_TI - 1) / GW_TI) * ((src.jb + GW_TJ - 1) / GW_TJ), n_chunks);
-  gru_wgrad_kernel<Src><<<grid, GW_THREADS, smem, stream>>>(d, src, n_samples, chunk, partial,
-                                                             out_off, n_out);
+  gru_wgrad_kernel<Src, kStepSums><<<grid, GW_THREADS, smem, stream>>>(d, src, n_samples, chunk,
+                                                                        partial, out_off, n_out);
   return (int)cudaGetLastError();
 }
 

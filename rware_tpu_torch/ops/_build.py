@@ -32,10 +32,10 @@ _F = ctypes.c_float
 # n s r g h w reward max_steps max_inactive msg_bits, seed
 _DIMS = [_I] * 10 + [ctypes.c_ulonglong]
 # L H1 H2 A T_full T_mb B N | clip_eps vf_coef ent_coef inv_n |
-# tile grid smem w0_smem chunk n_chunks
-_PPO_DIMS = [_I] * 8 + [_F] * 4 + [_I] * 6
-# ... | c_tile c_grid c_smem c_w0_smem c_chunk c_n_chunks CH1 CH2 (the critic's)
-_MAPPO_DIMS = _PPO_DIMS + [_I] * 8
+# tile grid smem w0_smem chunk n_chunks wgrad_smem (fused_update.PpoPlan.args)
+_PPO_DIMS = [_I] * 8 + [_F] * 4 + [_I] * 7
+# ... | c_tile c_grid c_smem c_w0_smem c_chunk c_n_chunks c_wgrad_smem CH1 CH2 (the critic's)
+_MAPPO_DIMS = _PPO_DIMS + [_I] * 9
 _SIGNATURES = {
     # ... scripted T B | layout state_in state_out actions rewards episodes stream
     "rw_fused_rollout": _DIMS + [_I] * 3 + [_P] * 7,
@@ -67,19 +67,19 @@ _SIGNATURES = {
     # stream
     "rw_fused_gru_loss_bwd": [_I] * 10 + [_F] * 4 + [_P] * 21,
     # ... msg_bits hc | start stats obs action logp value adv target bits params h1
-    # h2 dz1 dz2 dcat partial part_mets grads mets stream
+    # h2 dz1 dz2 part_head partial part_mets grads mets stream
     "rw_fused_ppo_grads": _PPO_DIMS + [_I] * 2 + [_P] * 20,
     # ... seac_lambda | start stats obs action logp value adv target params h1
-    # h2 dz1 dz2 dcat partial part_mets grads mets stream
+    # h2 dz1 dz2 part_head partial part_mets grads mets stream
     "rw_fused_seac_grads": _PPO_DIMS + [_F] + [_P] * 19,
     # ... max_grad_norm n_passes | starts advstats hyper obs action logp value
-    # adv target params mu nu h1 h2 dz1 dz2 dcat partial part_mets grads mets
-    # stream
-    "rw_fused_ppo_update_phase": _PPO_DIMS + [_F, _I] + [_P] * 22,
+    # adv target params mu nu h1 h2 dz1 dz2 part_head partial part_mets grads
+    # mets split_ms stream
+    "rw_fused_ppo_update_phase": _PPO_DIMS + [_F, _I] + [_P] * 23,
     # K0 CH1 CH2 agents T B tile grid smem w0_smem | obs cparams values stream
     "rw_fused_critic_values": [_I] * 10 + [_P] * 4,
     # ... with_actor | start stats obs action logp value adv target aparams
-    # cparams, the actor's then the critic's h1 h2 dz1 dz2 dcat partial
+    # cparams, the actor's then the critic's h1 h2 dz1 dz2 part_head partial
     # part_mets, agrads cgrads mets stream
     "rw_fused_mappo_grads": _MAPPO_DIMS + [_I] + [_P] * 28,
     # ... max_grad_norm n_passes | starts advstats hyper obs action logp value

@@ -50,23 +50,24 @@ from rware_tpu_torch.models.ppo import (
     mappo_loss_native,
 )
 from rware_tpu_torch.ops.fused_update import (
+    N_SMS,
     FusedPPOGrads,
+    PpoPlan,
     _ptr,
-    launch_config,
+    check_widths,
+    device_sms,
     phase_time_block,
     pick_tile,
-    sample_smem,
+    ppo_plan,
     window_advstats,
     window_rows,
-    workspace,
 )
 
 Parts = Dict[str, torch.Tensor]  # {"actor": flat, "critic": flat}
 
 
 def _check_critic_dims(cdims: CriticDims) -> None:
-    if cdims.h1 % 4 or cdims.h2 % 4:
-        raise ValueError("the critic kernels take hidden widths that are multiples of 4")
+    check_widths(cdims.h1, cdims.h2)
 
 
 def _check_flat(x: torch.Tensor, n: int, what: str, device=None) -> None:
@@ -77,19 +78,20 @@ def _check_flat(x: torch.Tensor, n: int, what: str, device=None) -> None:
 
 
 def _critic_tile(cdims: CriticDims) -> Tuple[int, bool]:
-    """(samples per tile, dense_0 in shared memory) of the critic's kernels.
-    dense_0 (N*L, CH1) in bf16 fits a block's shared memory up to about 8
-    agents at L = 71, hidden (128, 128); else it is read from device memory."""
+    """(samples per tile, dense_0 resident in shared memory) of the critic's
+    kernels.  dense_0 (N*L, CH1) in bf16 stays in a block's shared memory up
+    to 8 agents at L = 71, hidden (128, 128); else it is streamed through it."""
     n = cdims.n_agents
     return pick_tile(cdims.joint_len, cdims.h1, cdims.h2, n, n)
 
 
-def _critic_config(cdims: CriticDims, tile: int, w0_smem: bool, device, n_samples: int) -> list:
-    """[tile, grid, smem, w0_smem, chunk, n_chunks] of the critic's kernels
-    over ``n_samples`` samples (t, b)."""
+def critic_plan(cdims: CriticDims, n_samples: int, n_sms: int = N_SMS,
+                backward: bool = True) -> PpoPlan:
+    """:func:`~rware_tpu_torch.ops.fused_update.ppo_plan` of the critic over
+    ``n_samples`` samples (t, b): its input is the joint observation, its
+    heads are the agents' values."""
     n = cdims.n_agents
-    smem = sample_smem(cdims.joint_len, cdims.h1, cdims.h2, n, n, tile, w0_smem)
-    return launch_config(device, n_samples, smem, tile, w0_smem)
+    return ppo_plan(cdims.joint_len, cdims.h1, cdims.h2, n, n, n_samples, n_sms, backward)
 
 
 class FusedCriticValues:
@@ -132,10 +134,11 @@ class FusedCriticValues:
         d = self.cdims
         t, b = obs.shape[:2]
         with torch.cuda.device(dev):
-            cfg = _critic_config(d, self.tile, self.w0_smem, dev, t * b)
+            plan = critic_plan(d, t * b, device_sms(dev), backward=False)
             values = torch.empty((t, b, d.n_agents), dtype=torch.float32, device=dev)
             code = lib.rw_fused_critic_values(
-                d.joint_len, d.h1, d.h2, d.n_agents, t, b, *cfg[:4], _ptr(obs), _ptr(cparams),
+                d.joint_len, d.h1, d.h2, d.n_agents, t, b, *plan.args()[:4], _ptr(obs),
+                _ptr(cparams),
                 _ptr(values), torch.cuda.current_stream(dev).cuda_stream)
             check(lib, code, "fused_critic_values")
             self.launches += 1
@@ -234,11 +237,10 @@ class FusedMappoGrads:
             args, ws_a = self.actor.kernel_args(data, device)
         else:
             args = [l_obs, 0, 0, 0, t_full, self.t_mb, b, n, cfg.clip_eps, cfg.vf_coef,
-                    cfg.ent_coef, 1.0 / (s_c * n), 0, 0, 0, 0, 0, 0]
+                    cfg.ent_coef, 1.0 / (s_c * n), 0, 0, 0, 0, 0, 0, 0]
             ws_a = [None] * 7
-        c_cfg = _critic_config(d, self.tile, self.w0_smem, device, s_c)
-        ws_c = workspace(s_c, d.h1, d.h2, n, d.n_params, c_cfg, device)
-        return args + c_cfg + [d.h1, d.h2], ws_a + ws_c
+        plan = critic_plan(d, s_c, device_sms(device))
+        return args + plan.args() + [d.h1, d.h2], ws_a + plan.workspace(device)
 
     def _launch(self, params, data, start, advstats):
         from rware_tpu_torch.ops._build import check, load_library

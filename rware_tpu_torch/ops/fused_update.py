@@ -21,10 +21,18 @@ for tensors on a CUDA device and runs its plain PyTorch version
 (``.plain``) only for tensors on the CPU; it counts its launches in
 ``.launches``.  Kernel and plain version agree to float32 summation order
 (the bf16 roundings sit at the same places), not bit for bit.
+
+:func:`ppo_plan` is the launch plan of the PPO kernels that K3-K8 share
+(``csrc/ppo_sample.cuh`` and the weight-gradient pass of
+``csrc/gru_wgrad.cuh``): tile, grid and shared memory of each kernel, the
+weight-gradient chunks and the scratch, for one network over one window.
+Every wrapper of those kernels takes its launch numbers from it.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import ctypes
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,7 +49,20 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 SMEM_PER_SM = 233472
 HEAD_ROWS = 8  # PPO_HC of csrc/ppo_core.cuh: A + 1 <= 8
 HEAD_ROWS_MAX = 16  # PPO_HC_MAX: with K4's message head, A + 1 + M <= 16
-WGRAD_CHUNK = 4096  # samples per weight-gradient partial
+MAX_WIDTH = 128  # PPO_HMAX: the widest hidden layer of the tensor-core tiles
+N_SMS = 132  # the H100's SMs, for plans made without a card
+
+# The per-sample kernel's tiles (csrc/ppo_core.cuh, csrc/ppo_sample.cuh):
+# samples a tile, dense_0's k chunk, bf16 columns added to each shared-memory
+# row, blocks an SM (its __launch_bounds__)
+TILE, _KC, _PAD, _BLOCKS_PER_SM = 64, 64, 8, 2
+# The weight-gradient pass (csrc/gru_wgrad.cuh): threads, samples a step,
+# buffers, output tile
+_WG_THREADS, _WG_SK, _WG_NS, _WG_TI, _WG_TJ = 512, 64, 3, 128, 128
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def phase_time_block(t_mb: int) -> int:
@@ -53,21 +74,35 @@ def phase_time_block(t_mb: int) -> int:
     return 1
 
 
-def sample_smem(k0: int, h1: int, h2: int, heads: int, hc: int, tile: int,
+def check_widths(h1: int, h2: int) -> None:
+    """Raise ``ValueError`` for hidden widths the PPO kernels do not take."""
+    if any(h % 4 or h < 4 or h > MAX_WIDTH for h in (h1, h2)):
+        raise ValueError(f"the PPO kernels take hidden widths that are multiples of 4 up to "
+                         f"{MAX_WIDTH}, not ({h1}, {h2})")
+
+
+def sample_smem(k0: int, h1: int, h2: int, heads: int, hc: int, tile: int = TILE,
                 w0_smem: bool = True) -> int:
     """Dynamic shared memory of one block of the per-sample kernel
-    (``ppo_sample_kernel`` in ``csrc/ppo_sample.cuh``) for an input of
-    ``k0`` features, ``heads`` head columns and ``hc`` head rows kept per
-    sample; ``w0_smem`` keeps dense_0's weights there too."""
+    (``ppo_smem`` in ``csrc/ppo_core.cuh``, which the library checks this
+    against) for an input of ``k0`` features, ``heads <= hc`` head columns and
+    ``hc`` head rows kept per sample; ``w0_smem`` keeps dense_0's weights
+    there, else one 64-row chunk of them at a time."""
+    if tile != TILE or heads > hc:
+        raise ValueError(f"the per-sample kernel takes tiles of {TILE} samples and at most "
+                         f"{hc} head columns")
+    h1p, h2p, hcp, k0p = _up(h1, 16), _up(h2, 16), _up(hc, 4), _up(k0, 16)
+    # b0, b1, Wc, Wc^T, bc, the head tile, the sums of dWc and (by sample slot) dbc
+    f32 = h1p + h2p + h2 * hcp + hcp * h2p + hcp + TILE * hcp + h2 * hcp + TILE * hcp
+    bf16 = h1p * (h2p + _PAD) + (k0p if w0_smem else _KC) * (h1p + _PAD) \
+        + TILE * (max(h1p, h2p, _KC) + _PAD)
+    return 4 * f32 + 8 * TILE + 2 * bf16
 
-    def align16(n):
-        return (n + 15) // 16 * 16
 
-    ld = tile + 4
-    f32 = align16(4 * (h1 + h2 + h2 * heads + heads))
-    bf16 = align16(2 * (k0 * h1 * w0_smem + h1 * h2))
-    act = 4 * ((k0 + h1 + max(h1, h2) + h2 + hc) * ld + 4 * tile) + 8 * tile
-    return f32 + bf16 + act
+def wgrad_smem() -> int:
+    """Dynamic shared memory of the weight-gradient kernel
+    (``gru_wgrad_smem`` in ``csrc/gru_wgrad.cuh``)."""
+    return 2 * _WG_NS * _WG_SK * ((_WG_TI + _PAD) + (_WG_TJ + _PAD)) + 4 * _WG_THREADS
 
 
 def head_rows(dims: BlockDims) -> int:
@@ -76,45 +111,91 @@ def head_rows(dims: BlockDims) -> int:
     return HEAD_ROWS if dims.heads <= HEAD_ROWS else HEAD_ROWS_MAX
 
 
-def sample_smem_bytes(dims: BlockDims, tile: int, w0_smem: bool = True) -> int:
-    """:func:`sample_smem` of the actor ``dims``."""
-    return sample_smem(dims.obs_len, dims.h1, dims.h2, dims.heads, head_rows(dims), tile,
-                       w0_smem)
-
-
 def pick_tile(k0: int, h1: int, h2: int, heads: int, hc: int) -> Tuple[int, bool]:
-    """(samples per tile, dense_0 in shared memory) of the per-sample
-    kernel: dense_0's weights stay in shared memory where they fit, else they
-    are read from device memory; the largest tile that fits."""
+    """(samples per tile, dense_0 resident in shared memory) of the
+    per-sample kernel: dense_0's weights stay in shared memory where they
+    fit, else they are streamed through it in 64-row chunks."""
+    check_widths(h1, h2)
     for w0_smem in (True, False):
-        for tile in (32, 16, 8):
-            if sample_smem(k0, h1, h2, heads, hc, tile, w0_smem) <= SMEM_LIMIT:
-                return tile, w0_smem
-    raise ValueError("observation too long for the PPO kernel's shared memory")
+        if sample_smem(k0, h1, h2, heads, hc, TILE, w0_smem) <= SMEM_LIMIT:
+            return TILE, w0_smem
+    raise ValueError("hidden widths too wide for the PPO kernel's shared memory")
 
 
-def launch_config(device, n_samples: int, smem: int, tile: int, w0_smem: bool) -> list:
-    """[tile, grid, smem, w0_smem, chunk, n_chunks] of the per-sample and
-    weight-gradient kernels for ``n_samples`` samples per window."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = max(1, min(4, SMEM_PER_SM // (smem + 1024)))
-    grid = min(-(-n_samples // tile), n_sm * per_sm)
-    return [tile, grid, smem, int(w0_smem), WGRAD_CHUNK, -(-n_samples // WGRAD_CHUNK)]
+def device_sms(device) -> int:
+    """The SMs of the CUDA ``device``, or :data:`N_SMS` for any other."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return N_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def workspace(n_samples: int, h1: int, h2: int, hc: int, n_params: int, cfg: list,
-              device) -> list:
-    """The scratch tensors of one network's window: per-sample h1, h2, dz1,
-    dz2 (bf16) and head gradients (f32), weight-gradient partials, and the
-    per-block metric partials."""
-    bf = dict(dtype=torch.bfloat16, device=device)
-    f32 = dict(dtype=torch.float32, device=device)
-    return [
-        torch.empty((n_samples, h1), **bf), torch.empty((n_samples, h2), **bf),
-        torch.empty((n_samples, h1), **bf), torch.empty((n_samples, h2), **bf),
-        torch.empty((n_samples, hc), **f32), torch.empty((cfg[5], n_params), **f32),
-        torch.empty((cfg[1], 4), **f32),
-    ]
+@dataclasses.dataclass(frozen=True)
+class PpoPlan:
+    """The launch plan of the PPO kernels for one network over one window of
+    ``n_samples`` samples: the per-sample kernel's tile, grid and shared
+    memory, whether dense_0 is resident, the weight-gradient chunks and the
+    scratch (``csrc/fused_ppo_grads.cu`` refuses numbers that are not its
+    own)."""
+
+    n_samples: int
+    tile: int
+    grid: int  # persistent blocks of the per-sample kernel: block b takes tiles b, b + grid, ...
+    w0_smem: bool
+    smem: Dict[str, int]  # "sample", and with a backward "wgrad": dynamic shared memory, bytes
+    chunk: int  # samples a weight-gradient partial (0 without a backward)
+    n_chunks: int
+    scratch: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]  # in the C argument order
+
+    def args(self) -> list:
+        """[tile, grid, smem, w0_smem, chunk, n_chunks, wgrad_smem] of the C
+        entry points."""
+        return [self.tile, self.grid, self.smem["sample"], int(self.w0_smem), self.chunk,
+                self.n_chunks, self.smem.get("wgrad", 0)]
+
+    def block_tiles(self) -> List[List[range]]:
+        """The samples of each tile, block by block."""
+        n_tiles = -(-self.n_samples // self.tile)
+        return [[range(t * self.tile, min((t + 1) * self.tile, self.n_samples))
+                 for t in range(b, n_tiles, self.grid)] for b in range(self.grid)]
+
+    def chunks(self) -> List[range]:
+        """The samples of each weight-gradient partial."""
+        return [range(c * self.chunk, min((c + 1) * self.chunk, self.n_samples))
+                for c in range(self.n_chunks)]
+
+    def workspace(self, device) -> List[torch.Tensor]:
+        """The scratch tensors, in the C argument order."""
+        return [torch.empty(shape, dtype=dtype, device=device)
+                for shape, dtype in self.scratch.values()]
+
+
+def ppo_plan(k0: int, h1: int, h2: int, heads: int, hc: int, n_samples: int,
+             n_sms: int = N_SMS, backward: bool = True) -> PpoPlan:
+    """The plan of the PPO kernels for a network of input ``k0``, hidden
+    ``(h1, h2)``, ``heads`` head columns (``hc`` kept per sample) over
+    ``n_samples`` samples on a card of ``n_sms`` SMs: dense_0 resident where
+    it fits, up to two blocks an SM, the weight gradients in at most 128
+    chunks of a multiple of 64 samples.  ``backward=False`` is the forward
+    alone (K6).  Raises ``ValueError`` for widths the kernels do not take."""
+    tile, w0_smem = pick_tile(k0, h1, h2, heads, hc)
+    smem = {"sample": sample_smem(k0, h1, h2, heads, hc, tile, w0_smem)}
+    per_sm = max(1, min(_BLOCKS_PER_SM, SMEM_PER_SM // (smem["sample"] + 1024)))
+    grid = min(-(-n_samples // tile), n_sms * per_sm)
+    if not backward:
+        return PpoPlan(n_samples, tile, grid, w0_smem, smem, 0, 0, {})
+    smem["wgrad"] = wgrad_smem()
+    chunk = _WG_SK * -(-n_samples // (_WG_SK * min(128, -(-n_samples // 1024))))
+    n_chunks = -(-n_samples // chunk)
+    bf, f32 = torch.bfloat16, torch.float32
+    n_w = (k0 + 1) * h1 + (h1 + 1) * h2  # [dW0 | db0 | dW1 | db1]
+    scratch = {
+        "h1": ((n_samples, _up(h1, 8)), bf), "h2": ((n_samples, _up(h2, 8)), bf),
+        "dz1": ((n_samples, _up(h1, 8)), bf), "dz2": ((n_samples, _up(h2, 8)), bf),
+        "part_head": ((grid, (h2 + 1) * heads), f32), "partial": ((n_chunks, n_w), f32),
+        "part_mets": ((grid, 4), f32),
+    }
+    return PpoPlan(n_samples, tile, grid, w0_smem, smem, chunk, n_chunks, scratch)
 
 
 def window_rows(start, t_mb: int, t_full: int, device) -> torch.Tensor:
@@ -146,16 +227,16 @@ class FusedPPOGrads:
 
     def __init__(self, dims: BlockDims, t_mb: int, clip_eps: float, vf_coef: float,
                  ent_coef: float):
-        if dims.h1 % 4 or dims.h2 % 4 or dims.n_actions + 1 > HEAD_ROWS \
-                or dims.heads > HEAD_ROWS_MAX:
-            raise ValueError("the PPO kernels take hidden widths that are multiples of 4, "
-                             f"at most {HEAD_ROWS - 1} actions and {HEAD_ROWS_MAX} head columns")
+        check_widths(dims.h1, dims.h2)
+        if dims.n_actions + 1 > HEAD_ROWS or dims.heads > HEAD_ROWS_MAX:
+            raise ValueError(f"the PPO kernels take at most {HEAD_ROWS - 1} actions and "
+                             f"{HEAD_ROWS_MAX} head columns")
         self.dims = dims
         self.t_mb = t_mb
         self.cfg = LossCoefs(clip_eps, vf_coef, ent_coef)
         self.hc = head_rows(dims)
-        # dense_0's weights fit in shared memory up to sensor range 4 at
-        # hidden (128, 128)
+        # dense_0's weights stay in shared memory up to sensor range 4 at
+        # hidden (128, 128); from sensor range 5 they are streamed through it
         self.tile, self.w0_smem = pick_tile(dims.obs_len, dims.h1, dims.h2, dims.heads, self.hc)
         self.launches = 0
 
@@ -208,20 +289,20 @@ class FusedPPOGrads:
                             metrics["entropy"] * n, metrics["approx_kl"] * n])
         return grads, sums
 
-    def launch_config(self, device, n_samples: int) -> list:
-        """:func:`launch_config` of this kernel for ``n_samples`` samples."""
-        smem = sample_smem_bytes(self.dims, self.tile, self.w0_smem)
-        return launch_config(device, n_samples, smem, self.tile, self.w0_smem)
+    def plan(self, n_samples: int, n_sms: int = N_SMS) -> PpoPlan:
+        """:func:`ppo_plan` of this network over ``n_samples`` samples."""
+        d = self.dims
+        return ppo_plan(d.obs_len, d.h1, d.h2, d.heads, self.hc, n_samples, n_sms)
 
     def kernel_args(self, data, device) -> Tuple[list, list]:
         """(leading C arguments, workspace tensors) of one window."""
         t_full, b, n, _ = data[0].shape
         d = self.dims
         s = self.t_mb * b * n
-        cfg = self.launch_config(device, s)
+        plan = self.plan(s, device_sms(device))
         args = [d.obs_len, d.h1, d.h2, d.n_actions, t_full, self.t_mb, b, n,
-                self.cfg.clip_eps, self.cfg.vf_coef, self.cfg.ent_coef, 1.0 / s, *cfg]
-        return args, workspace(s, d.h1, d.h2, self.hc, d.n_params, cfg, device)
+                self.cfg.clip_eps, self.cfg.vf_coef, self.cfg.ent_coef, 1.0 / s, *plan.args()]
+        return args, plan.workspace(device)
 
     def _launch(self, params, data, start, advstats):
         from rware_tpu_torch.ops._build import check, load_library
@@ -311,7 +392,21 @@ class FusedPPOUpdatePhase:
             mets.append(sums)
         return params, mu, nu, torch.stack(mets)
 
-    def _launch(self, params, mu, nu, data, starts, advstats, hyper):
+    def timed(self, params, mu, nu, data, starts, advstats, hyper):
+        """One launch on the card that waits for its kernels and returns
+        ``(params, mu, nu, metrics, ms)``: ``ms`` the milliseconds a pass of
+        the per-sample kernel, the weight-gradient products, their reduction
+        with the metric sums, and the optimizer step, by CUDA events between
+        them (means over the passes)."""
+        self._check(params, mu, nu, data, starts, advstats, hyper)
+        if params.device.type != "cuda":
+            raise ValueError("the time split is taken on the card")
+        split = (ctypes.c_float * 4)()
+        out = self._launch(params, mu, nu, data, starts, advstats, hyper, split)
+        keys = ("sample", "wgrad", "reduce", "adam")
+        return out + ({k: v / self.n_passes for k, v in zip(keys, split)},)
+
+    def _launch(self, params, mu, nu, data, starts, advstats, hyper, split=None):
         from rware_tpu_torch.ops._build import check, load_library
 
         lib = load_library()
@@ -327,7 +422,7 @@ class FusedPPOUpdatePhase:
             code = lib.rw_fused_ppo_update_phase(
                 *args, self.max_grad_norm, self.n_passes, _ptr(starts), _ptr(advstats),
                 _ptr(hyper), *[_ptr(x) for x in data], _ptr(params), _ptr(mu),
-                _ptr(nu), *[_ptr(w) for w in ws], _ptr(grads), _ptr(mets),
+                _ptr(nu), *[_ptr(w) for w in ws], _ptr(grads), _ptr(mets), split,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
             check(lib, code, "fused_ppo_update_phase")
@@ -350,6 +445,7 @@ def build_fused_ppo_update_phase(dims: BlockDims, dataset_len: int, epochs: int,
 
 
 __all__ = [
-    "FusedPPOGrads", "FusedPPOUpdatePhase", "METRIC_KEYS", "build_fused_ppo_grads",
-    "build_fused_ppo_update_phase", "metric_means", "phase_time_block", "window_advstats",
+    "FusedPPOGrads", "FusedPPOUpdatePhase", "METRIC_KEYS", "PpoPlan", "build_fused_ppo_grads",
+    "build_fused_ppo_update_phase", "metric_means", "phase_time_block", "ppo_plan",
+    "window_advstats",
 ]

@@ -99,10 +99,10 @@ def make_state(
 
 
 def random_ppo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device="cpu",
-                    msg_bits: int = 0):
+                    msg_bits: int = 0, hidden: Tuple[int, int] = (128, 128)):
     """``(dims, params, data)`` of random inputs for the PPO kernels at
     ``env_id``'s observation length and agent count: flax-initialised
-    parameters at hidden (128, 128), and a ``(T, B, N, ...)`` trajectory of
+    parameters at ``hidden``, and a ``(T, B, N, ...)`` trajectory of
     bf16 0/1 features, actions, logp near log(1/5), and normal values,
     advantages and targets (``torch.Generator`` seeded on ``device``).  With
     ``msg_bits`` M the net has a message head, logp is near log(1/5) + M
@@ -119,7 +119,7 @@ def random_ppo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device
 
     cfg = dataclasses.replace(parse_env_id(env_id), msg_bits=msg_bits)
     l_obs, shape = cfg.policy_obs_length, (t_full, n_envs, cfg.n_agents)
-    model = init_actor_critic(l_obs, 5, (128, 128), seed, msg_bits)
+    model = init_actor_critic(l_obs, 5, hidden, seed, msg_bits)
     params = pack_arrays(params_to_arrays(model)).detach().to(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     data = (
@@ -134,9 +134,10 @@ def random_ppo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device
     return BlockDims.of(model), params, data
 
 
-def random_mappo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device="cpu"):
+def random_mappo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device="cpu",
+                      hidden: Tuple[int, int] = (128, 128)):
     """``(dims, cdims, params, data)``: :func:`random_ppo_case` plus a
-    flax-initialised central critic at hidden (128, 128); ``params`` is the
+    flax-initialised central critic, both at ``hidden``; ``params`` is the
     ``{"actor", "critic"}`` dict of flat vectors."""
     from rware_tpu_torch.models.networks import (
         CriticDims,
@@ -145,26 +146,27 @@ def random_mappo_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, devi
         pack_arrays,
     )
 
-    dims, actor, data = random_ppo_case(env_id, n_envs, t_full, seed, device)
+    dims, actor, data = random_ppo_case(env_id, n_envs, t_full, seed, device, hidden=hidden)
     n = data[1].shape[2]
-    critic = init_central_critic(n * dims.obs_len, n, (128, 128), (seed, 1))
+    critic = init_central_critic(n * dims.obs_len, n, hidden, (seed, 1))
     params = {"actor": actor,
               "critic": pack_arrays(critic_to_arrays(critic)).detach().to(device)}
     return dims, CriticDims.of(critic), params, data
 
 
-def random_seac_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device="cpu"):
+def random_seac_case(env_id: str, n_envs: int, t_full: int, seed: int = 0, device="cpu",
+                     hidden: Tuple[int, int] = (128, 128)):
     """``(dims, params, data)`` of random inputs for SEAC-PPO's gradient
     kernel: the obs, actions and behaviour log-probs of
     :func:`random_ppo_case`, normal old values, advantages and targets as
     ``(N_i, T, B, N_j)`` cross arrays, and N independent flax-initialised
-    networks at hidden (128, 128) stacked into ``(N, P)``, biases off zero."""
+    networks at ``hidden`` stacked into ``(N, P)``, biases off zero."""
     from rware_tpu_torch.models.networks import init_actor_critic, pack_arrays, params_to_arrays
 
-    dims, _, data = random_ppo_case(env_id, n_envs, t_full, seed, device)
+    dims, _, data = random_ppo_case(env_id, n_envs, t_full, seed, device, hidden=hidden)
     n = data[1].shape[2]
     params = torch.stack([
-        pack_arrays(params_to_arrays(init_actor_critic(dims.obs_len, 5, (128, 128), (seed, 2, i))))
+        pack_arrays(params_to_arrays(init_actor_critic(dims.obs_len, 5, hidden, (seed, 2, i))))
         for i in range(n)]).detach().to(device)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     for row in params:

@@ -467,6 +467,44 @@ def test_fused_seac_grads_kernel_matches_plain(env_id, seac_lambda):
     torch.testing.assert_close(ks, ps, rtol=1e-3, atol=1e-2)
 
 
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K6", "K8"])
+def test_ppo_kernels_match_plain_at_padded_widths(kernel):
+    """The PPO kernels at hidden (36, 20), multiples of 4 but not of 16: the
+    tensor-core tiles padded with zeros, the stores masked.  Gradients within
+    1e-2 of each block's largest |plain value| on a window that wraps, values
+    as for K6 above; two launches give the same bits."""
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01)
+    hidden = (36, 20)
+    if kernel == "K8":
+        dims, params, data = random_seac_case("rware-tiny-2ag-v2", 1000, 8, device=DEV,
+                                              hidden=hidden)
+        fn = build_fused_seac_grads(dims, params.shape[0], 4, seac_lambda=0.5, **kw)
+        blocks = [(dims, lambda g, i=i: g[i]) for i in range(params.shape[0])]
+    else:
+        dims, cdims, both, data = random_mappo_case("rware-tiny-2ag-v2", 1000, 8, device=DEV,
+                                                    hidden=hidden)
+        if kernel == "K6":
+            k6 = build_fused_critic_values(cdims)
+            diff = (k6(both["critic"], data[0]) - k6.plain(both["critic"], data[0])).abs()
+            assert float(diff.max()) <= ATOL and float(diff.mean()) <= 1e-4
+            return
+        if kernel == "K4":
+            params, fn = both["actor"], build_fused_ppo_grads(dims, 4, **kw)
+            blocks = [(dims, lambda g: g)]
+        else:
+            params, fn = both, build_fused_mappo_grads(dims, cdims, 4, **kw)
+            blocks = [(dims, lambda g: g["actor"]), (cdims, lambda g: g["critic"])]
+    kg, ks = fn(params, data, 7)
+    kg2, ks2 = fn(params, data, 7)
+    pg, ps = fn.plain(params, data, 7)
+    assert fn.launches == 2 and torch.equal(ks, ks2)
+    for d, part in blocks:
+        assert torch.equal(part(kg), part(kg2))
+        for g, p in zip(d.split(part(kg)), d.split(part(pg))):
+            assert float((g - p).abs().max()) <= 1e-2 * float(p.abs().max()) + 1e-12
+    torch.testing.assert_close(ks, ps, rtol=1e-3, atol=1e-2)
+
+
 def test_seac_fused_train_step_runs_on_the_card():
     env = rware_tpu_torch.make("rware-tiny-2ag-v2", max_steps=20)
     cfg = seac.SEACPPOConfig(n_envs=1024, rollout_len=16, epochs=2, minibatches=2)

@@ -40,10 +40,21 @@ collectors then run in their image mode (K2e) and every policy takes
 ``policy_obs_length`` features.  Prints one JSON object per line, each with the card's name and power
 limit; ``--out`` also writes them to a file.
 
+``--ppo-kernels`` times only the PPO gradient kernels at the main shape on
+random data (tiny-2ag, B=16,384, T=128, E=4, M=4, hidden (128, 128)): K3's
+whole phase, K4 on one window, K8 on one window, K7's whole phase, K5 with
+and without the actor on one window and K6 on the trajectory, each beside
+its plain version where ``--plain`` asks for it, and K3 split into its
+kernels where the checkout times that (``FusedPPOUpdatePhase.timed``).
+``--tree DIR`` imports ``rware_tpu_torch`` from the checkout DIR (an unpacked
+older commit, say) so that two commits are timed by the same script on one
+card: run it as old, new, new, old.
+
 Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-step]
        [--algo ippo|mappo|seac-ppo] [--net mlp|gru] [--fused-critic-phase] [--fused-loss]
        [--msg-bits M]
        [--n-envs B] [--env ID] [--out FILE]
+       python tools/torch_kernel_timing.py --ppo-kernels [--tree DIR] [--plain] [--out FILE]
 """
 import argparse
 import json
@@ -185,6 +196,77 @@ def ppo_message_head(env_id, b, m, repeats, emit, dev):
     torch.cuda.empty_cache()
 
 
+def ppo_kernels(tree, repeats, plain, emit, dev):
+    """K3-K8 at the main shape on random data (see the module's docstring)."""
+    import torch
+    from rware_tpu_torch.models import ippo
+    from rware_tpu_torch.models.ippo_fused import phase_advstats, phase_window_starts
+    from rware_tpu_torch.ops.fused_mappo import (
+        build_fused_critic_values,
+        build_fused_mappo_grads,
+        build_fused_mappo_update_phase,
+    )
+    from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
+    from rware_tpu_torch.ops.fused_update import (
+        build_fused_ppo_grads,
+        build_fused_ppo_update_phase,
+    )
+    from rware_tpu_torch.testing import random_mappo_case, random_seac_case
+
+    b, t_full, epochs, minibatches = 16384, 128, 4, 4
+    t_mb, p = t_full // minibatches, epochs * minibatches
+    cfg = ippo.IPPOConfig(epochs=epochs, minibatches=minibatches)
+    kw = dict(clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef)
+    base = {"tree": tree, "env": "rware-tiny-2ag-v2", "B": b, "T": t_full}
+
+    def timed(name, fn, plain_fn=None, **extra):
+        med, lo, hi = time_launches(fn, repeats)
+        rec = dict(base, kernel=name, ms_median=med, ms_min=lo, ms_max=hi, **extra)
+        if plain and plain_fn is not None:
+            rec["plain_ms"] = time_launches(plain_fn, 1)[0]
+        emit(rec)
+
+    dims, cdims, params, data = random_mappo_case("rware-tiny-2ag-v2", b, t_full, 0, dev)
+    gen = torch.Generator().manual_seed(0)
+    starts = phase_window_starts(cfg, t_full, 4, gen).to(dev)
+    advstats = phase_advstats(data[4], starts, t_mb)
+    hyper = ippo.adam_hyper(cfg, 0, p).to(dev)
+    actor = params["actor"]
+    zero = torch.zeros_like(actor)
+    k3 = build_fused_ppo_update_phase(dims, t_full, epochs, minibatches, cfg.clip_eps,
+                                      cfg.vf_coef, cfg.ent_coef, cfg.max_grad_norm)
+    args = (actor, zero, zero, data, starts, advstats, hyper)
+    timed("fused_ppo_update_phase", lambda: k3(*args), lambda: k3.plain(*args), passes=p)
+    if hasattr(k3, "timed"):
+        k3.timed(*args)
+        split = k3.timed(*args)[-1]
+        emit(dict(base, kernel="fused_ppo_update_phase split, ms a pass", **split))
+    k4 = build_fused_ppo_grads(dims, t_mb, **kw)
+    timed("fused_ppo_grads", lambda: k4(actor, data, 5), lambda: k4.plain(actor, data, 5),
+          T_mb=t_mb)
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    k7 = build_fused_mappo_update_phase(dims, cdims, t_full, epochs, minibatches, cfg.clip_eps,
+                                        cfg.vf_coef, cfg.ent_coef, cfg.max_grad_norm)
+    args7 = (params, zeros, zeros, data, starts, advstats, hyper)
+    timed("fused_mappo_update_phase", lambda: k7(*args7), lambda: k7.plain(*args7), passes=p)
+    k5 = build_fused_mappo_grads(dims, cdims, t_mb, **kw)
+    timed("fused_mappo_grads", lambda: k5(params, data, 5), lambda: k5.plain(params, data, 5),
+          T_mb=t_mb)
+    k5c = build_fused_mappo_grads(None, cdims, t_mb, with_actor=False, **kw)
+    cdata = (data[0], data[3], data[5])
+    timed("fused_mappo_grads (critic only)", lambda: k5c(params["critic"], cdata, 5),
+          lambda: k5c.plain(params["critic"], cdata, 5), T_mb=t_mb)
+    k6 = build_fused_critic_values(cdims)
+    timed("fused_critic_values", lambda: k6(params["critic"], data[0]),
+          lambda: k6.plain(params["critic"], data[0]))
+    del data, args, args7, cdata
+    torch.cuda.empty_cache()
+    dims, sparams, sdata = random_seac_case("rware-tiny-2ag-v2", b, t_mb, 0, dev)
+    k8 = build_fused_seac_grads(dims, sparams.shape[0], t_mb, seac_lambda=1.0, **kw)
+    timed("fused_seac_grads", lambda: k8(sparams, sdata, 0), lambda: k8.plain(sparams, sdata, 0),
+          T_mb=t_mb)
+
+
 def seq_kernels(dims, weights, arrays, traj, carry, band, env_id, b, t, repeats, emit, dev,
                 kernels):
     """K11, K12 and K13 on ``band`` of the collected trajectory: the gates of
@@ -234,7 +316,14 @@ def main():
     ap.add_argument("--env", default="rware-tiny-2ag-v2",
                     help="the train step's and the profile's env (image ids too)")
     ap.add_argument("--out")
+    ap.add_argument("--ppo-kernels", action="store_true",
+                    help="time only K3-K8 at the main shape on random data")
+    ap.add_argument("--tree", help="import rware_tpu_torch from this checkout")
+    ap.add_argument("--plain", action="store_true",
+                    help="--ppo-kernels: time each plain version too")
     args = ap.parse_args()
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
 
     import torch
 
@@ -270,6 +359,9 @@ def main():
         lines.append(json.dumps(rec))
         print(lines[-1], flush=True)
 
+    if args.ppo_kernels:
+        ppo_kernels(args.tree or ".", args.repeats, args.plain, emit, dev)
+        args.configs = []
     for env_id in args.configs:
         env = rware_tpu_torch.make(env_id, device=dev, msg_bits=m)
         b, t = 65536, 256
