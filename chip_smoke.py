@@ -10,8 +10,10 @@ Phases, one line each:
    that is not a multiple of 128, the main-path shape, and the plain
    version on the CPU;
 4. the fused collector kernel (K2a) against its plain version on the card:
-   deterministic and random mode on five configs; obs, rewards and done
-   exact, value and logp within 2e-2, at least 99.9% of actions equal;
+   deterministic and random mode on five configs and on tiny-2ag at hidden
+   (24, 40) (multiples of 8 but not of 16: fewer 8 x 8 register tiles than
+   threads); obs, rewards and done exact, value and logp within 2e-2, at
+   least 99.9% of actions equal;
 5. the main path at full size: ``make`` -> ``batched_reset`` ->
    ``build_fused_rollout`` (B=65,536, T=256, tiny-2ag) and
    ``build_fused_collect`` (B=16,384, T=128, hidden (128, 128)), timed with
@@ -82,8 +84,9 @@ Phases, one line each:
 15. the per-agent collector kernel (K2d) against its plain version on the
     card: deterministic and random mode on tiny-2ag (all agents' weights in
     shared memory), small-4ag and large-8ag (weights read from device memory)
-    at B=1000, T=32, and the main shape B=16,384, T=128; obs, rewards, done
-    and the final state exact, every action equal, value and logp within
+    at B=1000, T=32, tiny-2ag at hidden (24, 40) on both routes (the device
+    memory one forced), and the main shape B=16,384, T=128; obs, rewards,
+    done and the final state exact, every action equal, value and logp within
     2e-2;
 16. the SEAC-PPO gradient kernel (K8) against its plain version: random data
     on tiny-2ag (N=2) and small-4ag (N=4) at B=1000, and tiny-2ag at hidden
@@ -147,9 +150,10 @@ Phases, one line each:
     included) and img-tiny-2ag with M=2; K2c on the first three and every
     layer with M=2; K2d (weights in shared memory at tiny-2ag and small-4ag,
     in device memory at large-8ag) and K2d′ on img tiny-2ag, small-4ag and
-    large-8ag; B=1000, T=32, deterministic and random mode, from a nonzero
-    carry; obs, rewards, done, bits, every action, the final state and the
-    carry exact, value and logp within 2e-2;
+    large-8ag, and K2d on img-tiny-2ag at hidden (24, 40) on both routes;
+    B=1000, T=32, deterministic and random mode, from a nonzero carry; obs,
+    rewards, done, bits, every action, the final state and the carry exact,
+    value and logp within 2e-2;
 25. the image main path at full width on ``rware-img-tiny-2ag-v2`` made with
     ``make``'s default device: IPPO (hidden (128, 128)) and recurrent IPPO
     (embed 128, GRU 128), B=16,384, T=128, E=4, M=4, each three updates after
@@ -178,6 +182,13 @@ Phases, one line each:
 28. recurrent MAPPO at the same shape with M=0 and M=2 message bits: three
     updates after one warm-up (exactly 3 K2c, 3 K6, 48 K9, 48 K10 and 48
     critic-only K5), the time of an update split by phase.
+
+The MLP collector (K2a, with K2b and K2e; K2d) runs a tile of 64 envs a
+block at the main shape: its env threads step, a thread a row builds the
+observations from a view of the state in shared memory, and the hidden layers
+are an FMA block product on the FP32 pipes, bit for bit the plain version's
+sums (``ops/fused_rollout.collect_plan``); phases 4, 15, 18, 21, 24 and 25
+hold it to its plain version.
 
 Then the card's name and power limit, one JSON line describing each kernel
 (its time beside its plain version's and beside ``bound_ms``, the least time
@@ -227,6 +238,9 @@ K5_CONFIGS = ("rware-tiny-2ag-v2", "rware-small-4ag-v2", "rware-3s-tiny-2ag-v2",
 # Hidden widths that are multiples of 4 but not of 16: the PPO kernels'
 # tensor-core tiles run padded and their stores masked (phases 6, 9, 16).
 PADDED_CASE = ("rware-tiny-2ag-v2", (36, 20))
+# Hidden widths that are multiples of 8 but not of 16: the collectors' 8 x 8
+# register tiles cover them, with fewer jobs than threads (phases 4, 15, 24).
+NARROW_CASE = ("rware-tiny-2ag-v2", (24, 40))
 # tiny-2ag keeps every agent's weights in shared memory; from 4 agents on they
 # are read from device memory
 K2D_CONFIGS = (("rware-tiny-2ag-v2", {}), ("rware-small-4ag-v2", {"max_steps": 20}),
@@ -409,8 +423,10 @@ def compare_k1(env_id, dev, b, t, scripted, seed, **overrides):
     return env, ks, kr, ke, float((kr - pr).abs().max())
 
 
-def compare_k2(env_id, dev, b, t, deterministic, seed, policy=None, **overrides):
-    """K2a kernel vs its plain version on the card; returns the stats."""
+def compare_k2(env_id, dev, b, t, deterministic, seed, policy=None, hidden=(128, 128),
+               **overrides):
+    """K2a kernel vs its plain version on the card (a network of ``hidden``
+    unless ``policy`` is given); returns the stats."""
     import torch
     import rware_tpu_torch
     from rware_tpu_torch.models import ActorCritic
@@ -421,8 +437,9 @@ def compare_k2(env_id, dev, b, t, deterministic, seed, policy=None, **overrides)
     states, _ = batched_reset(env, seed, b)
     if policy is None:
         torch.manual_seed(seed)
-        policy = ActorCritic(env.config.policy_obs_length).to(dev)
-    collect = build_fused_collect(env.config, t, deterministic=deterministic)
+        policy = ActorCritic(env.config.policy_obs_length, hidden=hidden).to(dev)
+    collect = build_fused_collect(env.config, t, hidden=policy.hidden,
+                                  deterministic=deterministic)
     ks, ktraj = collect(states, policy, seed + 1)
     ps, ptraj = collect.plain(states, policy, seed + 1)
     torch.cuda.synchronize()
@@ -744,16 +761,17 @@ def compare_gru(dev, dims, weights, obs, done, h0, bands, seed, fwd=None, bwd=No
 
 
 def compare_k2d(env_id, dev, b, t, deterministic, seed, policies=None, collect=None,
-                states=None, **overrides):
+                states=None, hidden=(128, 128), weights_global=None, **overrides):
     """K2d kernel (with its message mode K2b where ``overrides`` give
     ``msg_bits``) vs its plain version on the card, from a reset unless
-    ``states`` are given; returns (env, state, traj, value/logp error,
-    collector)."""
+    ``states`` are given, each agent a network of ``hidden``, the weights in
+    shared or device memory as the plan has it unless ``weights_global``
+    says; returns (env, state, traj, value/logp error, collector)."""
     import torch
     import rware_tpu_torch
     from rware_tpu_torch.models.networks import init_actor_critic
     from rware_tpu_torch.models.seac import seac_policies_of
-    from rware_tpu_torch.ops.fused_rollout import build_fused_collect_per_agent
+    from rware_tpu_torch.ops.fused_rollout import build_fused_collect_per_agent, collect_plan
     from rware_tpu_torch.parallel import batched_reset
     from rware_tpu_torch.testing import random_seac_case
 
@@ -761,10 +779,11 @@ def compare_k2d(env_id, dev, b, t, deterministic, seed, policies=None, collect=N
     m = env.config.msg_bits
     if states is None:
         states, _ = batched_reset(env, seed, b)
-    if policies is None and m:  # each agent its own network with a message head
+    if policies is None and (m or tuple(hidden) != (128, 128)):
+        # each agent its own network (with a message head), biases off zero
         gen = torch.Generator().manual_seed(seed)
         policies = torch.nn.ModuleList(
-            init_actor_critic(env.config.policy_obs_length, 5, (128, 128), (seed, 2, i), m)
+            init_actor_critic(env.config.policy_obs_length, 5, hidden, (seed, 2, i), m)
             for i in range(env.n_agents))
         with torch.no_grad():  # nonzero biases: a zero bias hides where it is rounded
             for p in policies.parameters():
@@ -774,7 +793,12 @@ def compare_k2d(env_id, dev, b, t, deterministic, seed, policies=None, collect=N
     elif policies is None:  # each agent its own network, biases off zero
         dims, params, _ = random_seac_case(env_id, 1, 1, seed)
         policies = seac_policies_of(dims, params).to(dev)
-    collect = collect or build_fused_collect_per_agent(env.config, t, deterministic=deterministic)
+    if collect is None:
+        collect = build_fused_collect_per_agent(env.config, t, policies[0].hidden,
+                                                deterministic=deterministic)
+        if weights_global is not None:
+            collect.plan = collect_plan(env.config, collect.hidden, env.n_agents,
+                                        weights_global=weights_global)
     ks, ktraj = collect(states, policies, seed + 1)
     ps, ptraj = collect.plain(states, policies, seed + 1)
     torch.cuda.synchronize()
@@ -951,6 +975,11 @@ def phase4(dev):
             _, _, traj, agree, err = compare_k2(env_id, dev, 1000, 32, deterministic, 5, **overrides)
             log(f"phase 4 K2a {env_id} {overrides} B=1000 T=32 deterministic={deterministic}: "
                 f"obs/reward/done exact, actions {agree:.6f}, value/logp err {err}")
+    for deterministic in (True, False):
+        _, _, traj, agree, err = compare_k2(NARROW_CASE[0], dev, 1000, 32, deterministic, 5,
+                                            hidden=NARROW_CASE[1])
+        log(f"phase 4 K2a {NARROW_CASE[0]} hidden {NARROW_CASE[1]} B=1000 T=32 deterministic="
+            f"{deterministic}: obs/reward/done exact, actions {agree:.6f}, value/logp err {err}")
     _, _, traj, agree, k2_err = compare_k2("rware-tiny-2ag-v2", dev, 16384, 128, False, 13)
     log(f"phase 4 K2a main shape B=16384 T=128 random: obs/reward/done exact, "
         f"actions {agree:.6f}, value/logp max_abs_err {k2_err}")
@@ -1451,6 +1480,15 @@ def phase15(dev, kind, card):
             log(f"phase 15 K2d {env_id} {overrides} B=1000 T=32 deterministic={deterministic}: "
                 f"obs/reward/done/state/actions exact, value/logp err {err} (weights "
                 f"{'in device memory' if collect.weights_global else 'in shared memory'}, "
+                f"{collect.threads} threads)")
+    for weights_global in (False, True):
+        for deterministic in (True, False):
+            _, _, _, err, collect = compare_k2d(NARROW_CASE[0], dev, 1000, 32, deterministic, 5,
+                                                hidden=NARROW_CASE[1],
+                                                weights_global=weights_global)
+            log(f"phase 15 K2d {NARROW_CASE[0]} hidden {NARROW_CASE[1]} B=1000 T=32 "
+                f"deterministic={deterministic}: obs/reward/done/state/actions exact, value/logp "
+                f"err {err} (weights {'in device' if weights_global else 'in shared'} memory, "
                 f"{collect.threads} threads)")
     _, _, _, err, _ = compare_k2d("rware-tiny-2ag-v2", dev, 16384, 128, False, 13)
     log(f"phase 15 K2d main shape B=16384 T=128 random: obs/reward/done/state/actions exact, "
@@ -1976,8 +2014,8 @@ def phase23(dev, kind, card, errs, n_envs=16384, rollout_len=128):
 
 # K2e: image ids and configs of phase 24 (every layer, AGENT_DIRECTION and
 # AGENT_LOAD included, on a config of its own), each with the collectors it
-# drives; small-4ag keeps K2d's weights in shared memory at 64 threads,
-# large-8ag reads them from device memory.
+# drives; small-4ag keeps K2d's weights in shared memory, large-8ag reads them
+# from device memory.
 IMAGE_ALL_LAYERS = (6, 3, 0, 4, 1, 5, 2)
 K2E_CASES = (
     ("mlp", "rware-img-tiny-2ag-v2", 0), ("mlp", "rware-imgdict-tiny-2ag-v2", 0),
@@ -2005,17 +2043,17 @@ def image_env(name, dev, **overrides):
     return rware_tpu_torch.make(name, device=dev, **overrides)
 
 
-def image_policy(kind, config, seed, dev):
+def image_policy(kind, config, seed, dev, hidden=(128, 128)):
     """A network of ``kind`` (one per agent for the per-agent kinds) at the
-    config's policy observation length and message bits, embed and GRU or
-    hidden widths 128, biases off zero."""
+    config's policy observation length and message bits, embed and GRU widths
+    128 or MLP widths ``hidden``, biases off zero."""
     import torch
     from rware_tpu_torch.models.networks import init_actor_critic, init_recurrent_actor_critic
 
     length, m = config.policy_obs_length, config.msg_bits
     per_agent = kind.endswith("per_agent")
     init = (lambda i: init_recurrent_actor_critic(length, 5, 128, 128, (seed, i), m)) \
-        if kind.startswith("gru") else (lambda i: init_actor_critic(length, 5, (128, 128),
+        if kind.startswith("gru") else (lambda i: init_actor_critic(length, 5, hidden,
                                                                     (seed, i), m))
     nets = torch.nn.ModuleList(init(i) for i in range(config.n_agents if per_agent else 1))
     gen = torch.Generator().manual_seed(seed)
@@ -2088,6 +2126,22 @@ def phase24(dev, kind, card):
                 f"deterministic={deterministic}: obs ({traj['obs'].shape[-1]} features)/reward/"
                 f"done/bits/actions/state/carry exact, value/logp err {err} "
                 f"({collect.threads} threads{where})")
+    from rware_tpu_torch.ops.fused_rollout import build_fused_collect_per_agent, collect_plan
+
+    env = image_env("rware-img-tiny-2ag-v2", dev, max_steps=20)
+    for weights_global in (False, True):
+        for deterministic in (True, False):
+            collect = build_fused_collect_per_agent(env.config, 32, NARROW_CASE[1],
+                                                    deterministic=deterministic)
+            collect.plan = collect_plan(env.config, NARROW_CASE[1], env.n_agents,
+                                        weights_global=weights_global)
+            policy = image_policy("mlp_per_agent", env.config, 5, dev, NARROW_CASE[1])
+            _, traj, err = compare_k2e("mlp_per_agent", env, 1000, 32, deterministic, 5,
+                                       policy=policy, collect=collect)
+            log(f"phase 24 K2d with K2e rware-img-tiny-2ag-v2 hidden {NARROW_CASE[1]} B=1000 "
+                f"T=32 deterministic={deterministic}: obs/reward/done/actions/state exact, "
+                f"value/logp err {err} (weights in {'device' if weights_global else 'shared'} "
+                f"memory, {collect.threads} threads)")
 
 
 def phase25(dev, kind, card, n_envs=16384, rollout_len=128):

@@ -1,6 +1,7 @@
 // Pieces shared by the fused collector kernels (K2a fused_collect.cu, K2c
 // collect_gru.cuh): the FLATTENED observation and the image window (K2e)
-// written into a thread's column of a shared-memory tile, bf16 rounding, the
+// written into a thread's column of a shared-memory tile (from the env state,
+// or for K2a from a compact view of it in shared memory), bf16 rounding, the
 // Gumbel-argmax sample with its log-probability, and the message mode (K2b):
 // the Bernoulli message-bit sample with its log-probability.
 #pragma once
@@ -190,6 +191,170 @@ static __device__ __forceinline__ void build_agent_obs(const EnvState& st, const
     build_image_obs(st, d, lay, m, i, xs, TB, tid);
   else
     build_obs<kMsg>(st, d, lay, m, i, xs, TB, tid);
+}
+
+// ---- observation rows from a compact view of the env (K2a, K2d; one thread
+// a row) ----------------------------------------------------------------------
+//
+// The view of one env in shared memory, written by its env thread after each
+// step (write_obs_view) and read by the threads of its agents' rows: agent j's
+// cell x | y << 16 at word j and dir | carrying << 2 at word N + j, its M
+// message values at 2N + j * M, the queue at 2N + NM, each shelf's x | y << 16
+// at 2N + NM + R + s.  The rows built from it (build_obs_from_view,
+// build_image_obs_from_view) equal build_obs / build_image_obs bit for bit.
+
+// wmagic = ceil(2^32 / W): cell / W for cells below 2^16 without a division.
+template <bool kMsg>
+static __device__ __forceinline__ void write_obs_view(const EnvState& st, const EnvDims& d, uint32_t wmagic,
+                                      int* v) {
+  const int N = d.n, M = kMsg ? d.m : 0, R = d.r, W = d.w;
+  for (int j = 0; j < N; ++j) {
+    v[j] = st.ax[j] | st.ay[j] << 16;
+    v[N + j] = st.ad[j] | (st.carry[j] >= 0 ? 4 : 0);
+  }
+  for (int k = 0; k < N * M; ++k) v[2 * N + k] = st.msg[k];
+  int* q = v + 2 * N + N * M;
+  for (int r = 0; r < R; ++r) q[r] = st.q[r];
+  for (int s = 0; s < d.s; ++s) {
+    const uint32_t c = (uint32_t)st.scell[s], y = __umulhi(c, wmagic);
+    q[R + s] = (int)(c - y * W) | (int)y << 16;
+  }
+}
+
+// FLATTENED observation of agent i (build_obs) from the view `v`.
+template <bool kMsg>
+static __device__ __forceinline__ void build_obs_from_view(const int* v, const EnvDims& d, const EnvLayout& lay,
+                                           const ObsDims& m, int i, __nv_bfloat16* xs, int TB,
+                                           int tid) {
+  const int N = d.n, R = d.r, W = d.w, M = kMsg ? d.m : 0, sr = m.sensor_range;
+  const int side = 2 * sr + 1, w2 = side * side, CF = 7 + M;
+  const int* q = v + 2 * N + N * M;
+  const __nv_bfloat16 one = __float2bfloat16_rn(1.f), zero = __float2bfloat16_rn(0.f);
+#define X(k) xs[(size_t)(k) * TB + tid]
+  const int ax = v[i] & 0xFFFF, ay = v[i] >> 16, info = v[N + i];
+  float fx = (float)ax, fy = (float)ay;
+  if (m.normalised) {
+    fx = __fdiv_rn(fx, (float)(W - 1));
+    fy = __fdiv_rn(fy, (float)(d.h - 1));
+  }
+  X(0) = __float2bfloat16_rn(fx);
+  X(1) = __float2bfloat16_rn(fy);
+  X(2) = info & 4 ? one : zero;
+  for (int k = 0; k < 4; ++k) X(3 + k) = (info & 3) == k ? one : zero;
+  X(7) = lay.highway[ay * W + ax] ? one : zero;
+  for (int c = 0; c < w2; ++c) {
+    const int b = 8 + CF * c;
+    for (int k = 0; k < CF; ++k) X(b + k) = k == 1 ? one : zero;
+  }
+  for (int j = 0; j < N; ++j) {
+    const int rx = (v[j] & 0xFFFF) - ax + sr, ry = (v[j] >> 16) - ay + sr;
+    if (rx < 0 || rx >= side || ry < 0 || ry >= side) continue;
+    const int b = 8 + CF * (ry * side + rx);
+    X(b) = one;
+    X(b + 1) = zero;
+    X(b + 1 + (v[N + j] & 3)) = one;
+    for (int k = 0; k < M; ++k) X(b + 5 + k) = __float2bfloat16_rn((float)v[2 * N + j * M + k]);
+  }
+  for (int s = 0; s < d.s; ++s) {
+    const int cs = q[R + s];
+    const int rx = (cs & 0xFFFF) - ax + sr, ry = (cs >> 16) - ay + sr;
+    if (rx < 0 || rx >= side || ry < 0 || ry >= side) continue;
+    const int b = 8 + CF * (ry * side + rx) + M;
+    X(b + 5) = one;
+    bool inq = false;
+    for (int r = 0; r < R; ++r) inq |= q[r] == s;
+    if (inq) X(b + 6) = one;
+  }
+#undef X
+}
+
+// The image observation of agent i (build_image_obs) from the view `v`.
+static __device__ __forceinline__ void build_image_obs_from_view(const int* v, const EnvDims& d, int M,
+                                                 const EnvLayout& lay, const ObsDims& m, int i,
+                                                 __nv_bfloat16* xs, int TB, int tid) {
+  const int N = d.n, R = d.r, r = m.sensor_range, side = 2 * r + 1, w2 = side * side;
+  const int C = m.img_n_layers, dirl = m.img_directional;
+  const int* q = v + 2 * N + N * M;
+  const int ax = v[i] & 0xFFFF, ay = v[i] >> 16, dir = v[N + i] & 3;
+  const __nv_bfloat16 one = __float2bfloat16_rn(1.f), zero = __float2bfloat16_rn(0.f);
+#define X(k) xs[(size_t)(k) * TB + tid]
+#define LAYER(c) ((m.img_layers >> (4 * (c))) & 15)
+  for (int c = 0; c < C; ++c) {
+    const bool acc = LAYER(c) == RW_ACCESSIBLE;
+    for (int u = 0; u < side; ++u) {
+      for (int w = 0; w < side; ++w) {
+        bool in_grid = false;
+        if (acc) {  // the world offset that lands on (u, w): the map's inverse
+          int dy = u - r, dx = w - r;
+          if (dirl && dir == 1) {
+            dy = r - u;
+            dx = r - w;
+          } else if (dirl && dir == 2) {
+            dy = r - w;
+            dx = u - r;
+          } else if (dirl && dir == 3) {
+            dy = w - r;
+            dx = r - u;
+          }
+          const int cx = ax + dx, cy = ay + dy;
+          in_grid = cx >= 0 && cx < d.w && cy >= 0 && cy < d.h;
+        }
+        X(c * w2 + u * side + w) = in_grid ? one : zero;
+      }
+    }
+  }
+  for (int j = 0; j < N; ++j) {
+    int cell;
+    if (!rot_window_cell((v[j] >> 16) - ay, (v[j] & 0xFFFF) - ax, dir, dirl, r, &cell)) continue;
+    const int info = v[N + j];
+    for (int c = 0; c < C; ++c) {
+      const int k = c * w2 + cell;
+      switch (LAYER(c)) {
+        case RW_AGENTS: X(k) = one; break;
+        case RW_AGENT_DIRECTION: X(k) = __float2bfloat16_rn((float)((info & 3) + 1)); break;
+        case RW_AGENT_LOAD: X(k) = info & 4 ? one : zero; break;
+        case RW_ACCESSIBLE: X(k) = zero; break;
+        default: break;
+      }
+    }
+  }
+  for (int s = 0; s < d.s; ++s) {
+    int cell;
+    const int cs = q[R + s];
+    if (!rot_window_cell((cs >> 16) - ay, (cs & 0xFFFF) - ax, dir, dirl, r, &cell)) continue;
+    bool inq = false;
+    for (int k = 0; k < R; ++k) inq |= q[k] == s;
+    for (int c = 0; c < C; ++c) {
+      const int layer = LAYER(c);
+      if (layer == RW_SHELVES || (layer == RW_REQUESTS && inq)) X(c * w2 + cell) = one;
+    }
+  }
+  for (int g = 0; g < d.g; ++g) {
+    int cell;
+    if (!rot_window_cell(lay.goal_y[g] - ay, lay.goal_x[g] - ax, dir, dirl, r, &cell)) continue;
+    for (int c = 0; c < C; ++c)
+      if (LAYER(c) == RW_GOALS) X(c * w2 + cell) = one;
+  }
+  if (m.img_self) {
+    const int b = C * w2;
+    for (int k = 0; k < 4; ++k) X(b + k) = dir == k ? one : zero;
+    X(b + 4) = lay.highway[ay * d.w + ax] ? one : zero;
+    X(b + 5) = v[N + i] & 4 ? one : zero;
+  }
+#undef LAYER
+#undef X
+}
+
+// The observation row of agent i from the view: the image window (kImage,
+// K2e) or the FLATTENED vector.
+template <bool kMsg, bool kImage>
+static __device__ __forceinline__ void build_row_obs(const int* v, const EnvDims& d,
+                                                     const EnvLayout& lay, const ObsDims& m,
+                                                     int i, __nv_bfloat16* xs, int TB, int tid) {
+  if (kImage)
+    build_image_obs_from_view(v, d, kMsg ? d.m : 0, lay, m, i, xs, TB, tid);
+  else
+    build_obs_from_view<kMsg>(v, d, lay, m, i, xs, TB, tid);
 }
 
 static __device__ __forceinline__ float bf16_round(float v) {

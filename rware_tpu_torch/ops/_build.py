@@ -40,10 +40,10 @@ _SIGNATURES = {
     # ... scripted T B | layout state_in state_out actions rewards episodes stream
     "rw_fused_rollout": _DIMS + [_I] * 3 + [_P] * 7,
     # ... deterministic T B sensor_range normalised img_layers img_n_layers
-    # img_directional img_self L H1 H2 A threads smem_bytes n_stacks
-    # weights_global | layout state_in state_out w0 b0 w1 b1 wp bp wv bv wm bm
-    # obs action bits logp value reward done stream
-    "rw_fused_collect": _DIMS + [_I] * 17 + [_P] * 21,
+    # img_directional img_self L H1 H2 A n_stacks | plan (host int array,
+    # fused_rollout.CollectPlan.args) n_plan | layout state_in state_out w0 b0
+    # w1 b1 wp bp wv bv wm bm obs action bits logp value reward done stream
+    "rw_fused_collect": _DIMS + [_I] * 14 + [_P, _I] + [_P] * 21,
     # ... deterministic T B sensor_range normalised img_layers img_n_layers
     # img_directional img_self L E Hg A threads smem_bytes n_stacks smem_stacks
     # | layout state_in state_out we be wi bi wh bhn wc bc hbuf obs action bits

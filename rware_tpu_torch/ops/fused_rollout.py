@@ -57,6 +57,8 @@ the transposes from and to the public (B, ...) layout live here.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -79,6 +81,7 @@ from rware_tpu_torch.models.networks import (
     sample_bernoulli,
 )
 from rware_tpu_torch.ops import philox
+from rware_tpu_torch.ops.fused_update import SMEM_PER_SM
 from rware_tpu_torch.types import ObservationType
 
 # Limits of the kernels' per-thread state arrays (csrc/env_core.cuh) and of
@@ -296,16 +299,148 @@ def build_fused_rollout(config: WarehouseConfig, n_steps: int, scripted: bool = 
     return FusedRollout(config, n_steps, scripted)
 
 
-def collect_smem_bytes(obs_len: int, hidden: Sequence[int], n_actions: int, threads: int,
-                       n_stacks: int = 1, msg_bits: int = 0) -> int:
-    """Dynamic shared memory of one collector block (csrc/fused_collect.cu)
-    holding ``n_stacks`` networks' weights (0: the weights are read from
-    device memory) with ``msg_bits`` message logits beside the per-thread
-    tiles."""
+# The regions of a collector block's shared memory, in order (csrc/
+# fused_collect.cu): dense_0, dense_1, the policy, value and message heads and
+# their five biases (the weight stacks, empty where they are read from device
+# memory), the observation tile (empty: at the start of ``h``, h1 written over
+# it), the hidden tile, h2 (empty: over h1), a record a row (head outputs,
+# then action, logp, reward, bits), a view of each env's state (agents, queue,
+# shelves: what the observation rows read), and per env done.
+COLLECT_REGIONS = ("w0", "w1", "wp", "wv", "wm", "b0", "b1", "bp", "bv", "bm",
+                   "x", "h", "h2", "out", "view", "done")
+COLLECT_ROWS = 128  # (env, agent) rows a block aims at: 64 envs at 2 agents
+COLLECT_MIN_ROWS = 32  # K2a's smallest tile: the 32 one-env columns of the kernel before
+COLLECT_MAX_THREADS = 512
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectPlan:
+    """The launch plan of the MLP collector (K2a, K2d and their message and
+    image modes): ``te`` envs a block, ``threads``, the tile's ``rows`` (N x
+    te (env, agent) rows, agent-major, padded to 8) and their stride ``rs``
+    in the feature-major tiles, the words ``hrs`` of a row's record and
+    ``vs`` of an env's view, the weight route, the shared-memory carve-out
+    (percent of an SM's) for ``blocks_per_sm`` blocks, and the byte offsets
+    of :data:`COLLECT_REGIONS` with their end (the block's dynamic shared
+    memory).  ``args`` is what ``rw_fused_collect`` takes, which refuses a
+    plan whose regions do not hold what the kernel keeps there."""
+
+    te: int
+    threads: int
+    rows: int
+    rs: int
+    hrs: int
+    vs: int
+    weights_global: bool
+    offsets: Tuple[int, ...]
+
+    @property
+    def smem(self) -> int:
+        return self.offsets[-1]
+
+    def region(self, name: str) -> Tuple[int, int]:
+        """(start, end) in bytes of region ``name``."""
+        k = COLLECT_REGIONS.index(name)
+        return self.offsets[k], self.offsets[k + 1]
+
+    def blocks(self, n_envs: int) -> int:
+        return -(-n_envs // self.te)
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks an SM holds by shared memory and registers (the kernel is
+        built for at most 128 a thread, 65,536 an SM)."""
+        return min(SMEM_PER_SM // (self.smem + 1024), 65536 // (128 * self.threads))
+
+    @property
+    def carveout(self) -> int:
+        """The smallest shared-memory carve-out, in percent of an SM's, that
+        holds ``blocks_per_sm`` blocks: the rest is L1."""
+        return -(-100 * self.blocks_per_sm * (self.smem + 1024) // SMEM_PER_SM)
+
+    def args(self) -> list:
+        return [self.te, self.threads, self.rows, self.rs, self.hrs, self.vs,
+                int(self.weights_global), self.carveout, *self.offsets]
+
+
+def _collect_layout(obs_len: int, hidden: Sequence[int], n_agents: int, msg_bits: int,
+                    view: int, n_stacks: int, weights_global: bool, te: int,
+                    x_in_h: bool) -> Optional[CollectPlan]:
+    """The plan of tile ``te`` with the observation tile under h1 or beside
+    it, or None where that does not fit a block."""
     h1, h2 = hidden
-    f32 = n_stacks * (h1 + h2 + (n_actions + 1 + msg_bits) * (h2 + 1))
-    bf16 = n_stacks * (h1 * obs_len + h2 * h1) + (obs_len + h1) * threads
-    return ((4 * f32 + 15) // 16) * 16 + 2 * bf16
+    rows = _up(n_agents * te, 8)
+    heads = 5 + 1 + msg_bits
+    jobs0, jobs1 = (rows // 8) * (h1 // 8), (rows // 8) * (h2 // 8)  # 8 x 8 register tiles
+    # a thread a job where it can, and 32 more than the rows (they store while
+    # the rows build their observations)
+    threads = _up(max(min(max(jobs0, jobs1), COLLECT_MAX_THREADS), rows + 32, 64), 32)
+    if threads > COLLECT_MAX_THREADS:
+        return None
+    h2_in_h = jobs1 <= threads  # one tile a thread: written over what it reads
+    if x_in_h and jobs0 > threads:
+        return None
+    h_rows = max(h1, obs_len if x_in_h else 0, h2 if h2_in_h else 0)
+    ws = 0 if weights_global else n_stacks
+    sizes = [ws * obs_len * h1 * 2, ws * h1 * h2 * 2, ws * 5 * h2 * 4, ws * h2 * 4,
+             ws * msg_bits * h2 * 4, ws * h1 * 4, ws * h2 * 4, ws * 5 * 4, ws * 4,
+             ws * msg_bits * 4, 0 if x_in_h else obs_len * rows * 2, h_rows * rows * 2,
+             0 if h2_in_h else h2 * rows * 2, rows * (heads | 1) * 4, te * (view | 1) * 4, te]
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + _up(size, 16))
+    if offsets[-1] > SMEM_LIMIT:
+        return None
+    return CollectPlan(te, threads, rows, rows, heads | 1, view | 1, weights_global,
+                       tuple(offsets))
+
+
+def collect_plan(config: WarehouseConfig, hidden: Sequence[int], n_stacks: int = 1,
+                 weights_global: Optional[bool] = None) -> CollectPlan:
+    """The MLP collector's plan for ``config`` (its observation length, agents
+    and message bits), ``hidden`` and ``n_stacks`` weight stacks (1: K2a, N:
+    K2d).  K2d's weights are held in shared memory rather than read from
+    device memory (or ``weights_global`` says which) where all stacks fit
+    beside a tile of 8 envs with the observation tile beside the hidden one:
+    the footprint of the kernel before this one (one thread an env), whose
+    routes this keeps.  The tile aims at :data:`COLLECT_ROWS` rows, with h1
+    written over the observation tile where every job of dense_0 has a
+    thread, and shrinks until two blocks fit an SM, or else takes the largest
+    that fits, down to :data:`COLLECT_MIN_ROWS` rows (K2a) or 8 envs (K2d,
+    whose 8-row groups each run one agent's stack: its smallest tile holds 8
+    N rows, so with many agents its device-memory route takes shorter
+    observations than before, at most about 700 features at 19 agents).
+    Raises ``ValueError`` where no tile fits."""
+    h1, h2 = hidden
+    n, m, length = config.n_agents, config.msg_bits, config.policy_obs_length
+    layout = config.compile_layout()
+    if layout.grid_size[0] * layout.grid_size[1] > 65536:
+        raise ValueError("the collector's env view takes grids of at most 65,536 cells")
+    # an env's view: agent cells and headings, messages, the queue, shelf cells
+    view = 2 * n + n * m + config.request_queue_size + layout.n_shelves
+    step = 8 if n_stacks > 1 else 1  # K2d: whole 8-row groups an agent
+    te_max = max(step, COLLECT_ROWS // n // step * step)
+    te_min = step if n_stacks > 1 else min(te_max, -(-COLLECT_MIN_ROWS // n))
+    if weights_global is None:
+        routes = (False, True) if n_stacks > 1 else (False,)
+    else:
+        routes = (bool(weights_global),)
+    tes = range(te_max, te_min - 1, -step)
+    for glob in routes:
+        if glob != routes[-1] and not any(
+                _collect_layout(length, (h1, h2), n, m, view, n_stacks, glob, te, False)
+                for te in tes):
+            continue  # the stacks do not fit beside a tile of the old footprint
+        plans = [p for te in tes for x_in_h in (True, False)
+                 if (p := _collect_layout(length, (h1, h2), n, m, view, n_stacks, glob, te,
+                                          x_in_h))]
+        if plans:  # the largest tile that keeps two blocks an SM, else the largest
+            return next((p for p in plans if p.blocks_per_sm >= 2), plans[0])
+    raise ValueError("observation too long for the collector's shared memory")
 
 
 def _obs_args(config: WarehouseConfig) -> list:
@@ -321,15 +456,15 @@ def _obs_args(config: WarehouseConfig) -> list:
 
 
 class _Collector:
-    """What the fused collectors share: the config checks, the block size
-    that fits shared memory, the plain engine, the trajectory buffers.
+    """What the fused collectors share: the config checks, the plain engine,
+    the trajectory buffers.
 
     Every observation family is taken: FLATTENED and DICT as the FLATTENED
     vector, IMAGE and IMAGE_DICT (K2e) as the flat ``policy_obs_length``
     vector of :func:`~rware_tpu_torch.core.engine.build_policy_obs_fn`."""
 
     def __init__(self, config: WarehouseConfig, n_steps: int, hidden: Tuple[int, int],
-                 deterministic: bool, smem_bytes, what: str):
+                 deterministic: bool, what: str):
         _check_config(config)
         if config.observation_type in IMAGE_TYPES \
                 and not 0 < len(config.image_observation_layers) <= MAX_LAYERS:
@@ -342,13 +477,6 @@ class _Collector:
         self.deterministic = deterministic
         self.obs_len = config.policy_obs_length
         self.launches = 0
-        self.threads = next(
-            (t for t in (128, 64, 32)
-             if smem_bytes(self.obs_len, *self.hidden, 5, t) <= SMEM_LIMIT),
-            None,
-        )
-        if self.threads is None:
-            raise ValueError("observation too long for the collector's shared memory")
         self._obs = build_policy_obs_fn(config)
         self._transition = build_transition_fn(config)
         self._reset = build_reset_fn(config)
@@ -406,16 +534,21 @@ class FusedCollect(_Collector):
     :func:`build_fused_collect`."""
 
     n_stacks = 1  # weight stacks the kernel takes: one network for all agents
-    weights_global = False  # the weights sit in shared memory
 
     def __init__(self, config: WarehouseConfig, n_steps: int,
                  hidden: Tuple[int, int] = (128, 128), deterministic: bool = False):
-        smem_stacks = 0 if self.weights_global else self.n_stacks
-        super().__init__(config, n_steps, hidden, deterministic,
-                         lambda l, h1, h2, a, t: collect_smem_bytes(l, (h1, h2), a, t,
-                                                                    smem_stacks,
-                                                                    config.msg_bits),
-                         "two hidden layers")
+        super().__init__(config, n_steps, hidden, deterministic, "two hidden layers")
+        self.plan = collect_plan(config, self.hidden, self.n_stacks)
+
+    @property
+    def threads(self) -> int:
+        return self.plan.threads
+
+    @property
+    def weights_global(self) -> bool:
+        """True where the weights are read from device memory, not held in
+        shared memory."""
+        return self.plan.weights_global
 
     def _check_policy(self, policy: ActorCritic):
         m = self.config.msg_bits
@@ -432,7 +565,7 @@ class FusedCollect(_Collector):
         return policy.heads(obs)
 
     def weights(self, policy, dev) -> list:
-        """The kernel's ten weight arrays: dense_0 and dense_1 (out, in) in
+        """The kernel's ten weight arrays: dense_0 and dense_1 as (in, out) in
         bf16, their biases and the heads (policy, value, message) in f32;
         without message bits the message head is empty."""
         d0, d1 = policy.dense
@@ -440,9 +573,9 @@ class FusedCollect(_Collector):
         if policy.msg_bits:
             heads.append(policy.message)
         out = [
-            d0.weight.to(device=dev, dtype=torch.bfloat16).contiguous(),
+            d0.weight.t().to(device=dev, dtype=torch.bfloat16).contiguous(),
             d0.bias.to(device=dev, dtype=torch.float32).contiguous(),
-            d1.weight.to(device=dev, dtype=torch.bfloat16).contiguous(),
+            d1.weight.t().to(device=dev, dtype=torch.bfloat16).contiguous(),
             d1.bias.to(device=dev, dtype=torch.float32).contiguous(),
         ]
         for layer in heads:
@@ -494,13 +627,12 @@ class FusedCollect(_Collector):
             out = torch.empty_like(packed)
             weights = self.weights(policy, dev)
             traj = self._empty_traj(b, dev)
-            smem = collect_smem_bytes(l_obs, self.hidden, 5, self.threads,
-                                      0 if self.weights_global else self.n_stacks,
-                                      self.config.msg_bits)
+            plan = self.plan.args()
+            plan_buf = (ctypes.c_int * len(plan))(*plan)
             code = lib.rw_fused_collect(
                 *_dims(self.config), seed, int(self.deterministic), t_len, b,
-                *_obs_args(self.config), l_obs, h1, h2, 5, self.threads, smem, self.n_stacks,
-                int(self.weights_global),
+                *_obs_args(self.config), l_obs, h1, h2, 5, self.n_stacks,
+                ctypes.addressof(plan_buf), len(plan),
                 _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
                 *[_ptr(w) for w in weights], *self._traj_ptrs(traj),
                 torch.cuda.current_stream(dev).cuda_stream,
@@ -531,12 +663,9 @@ class FusedCollectPerAgent(FusedCollect):
 
     def __init__(self, config: WarehouseConfig, n_steps: int,
                  hidden: Tuple[int, int] = (128, 128), deterministic: bool = False):
-        self.n_stacks = n = config.n_agents
-        # all N networks in shared memory where they fit beside the tiles (up
+        # all N networks in shared memory where they fit beside the tile (up
         # to 3 agents at L=71, hidden (128, 128)); else read from device memory
-        self.weights_global = not any(
-            collect_smem_bytes(config.policy_obs_length, hidden, 5, t, n, config.msg_bits)
-            <= SMEM_LIMIT for t in (128, 64, 32))
+        self.n_stacks = config.n_agents
         super().__init__(config, n_steps, hidden, deterministic)
 
     def _check_policy(self, policies: Sequence[ActorCritic]):
@@ -558,12 +687,10 @@ class FusedCollectPerAgent(FusedCollect):
 
     def weights(self, policies, dev) -> list:
         """The kernel's ten weight arrays, each the agents' stacks back to
-        back: dense_0 and dense_1 in bf16, as (out, in) for shared memory or
-        as (in, out) where they are read from device memory; the heads and
-        biases in f32 (the message head empty without message bits)."""
+        back: dense_0 and dense_1 as (in, out) in bf16, the heads and biases in
+        f32 (the message head empty without message bits)."""
         per_agent = [super(FusedCollectPerAgent, self).weights(p, dev) for p in policies]
-        return [torch.stack([w[k].t() if self.weights_global and k in (0, 2) else w[k]
-                             for w in per_agent]).contiguous() for k in range(10)]
+        return [torch.stack([w[k] for w in per_agent]).contiguous() for k in range(10)]
 
 
 def build_fused_collect_per_agent(config: WarehouseConfig, n_steps: int,
@@ -598,10 +725,15 @@ class FusedCollectGru(_Collector):
 
     def __init__(self, config: WarehouseConfig, n_steps: int, hidden: Tuple[int, int] = (128, 128),
                  deterministic: bool = False):
-        super().__init__(config, n_steps, hidden, deterministic,
-                         lambda l, e, hg, a, t: collect_gru_smem_bytes(
-                             l, e, hg, a, t, config.msg_bits, self.smem_stacks),
-                         "(embed, gru_hidden)")
+        super().__init__(config, n_steps, hidden, deterministic, "(embed, gru_hidden)")
+        self.threads = next(
+            (t for t in (128, 64, 32)
+             if collect_gru_smem_bytes(self.obs_len, *self.hidden, 5, t, config.msg_bits,
+                                       self.smem_stacks) <= SMEM_LIMIT),
+            None,
+        )
+        if self.threads is None:
+            raise ValueError("observation too long for the collector's shared memory")
 
     def _check_net(self, policy) -> bool:
         return isinstance(policy, RecurrentActorCritic) and policy.obs_dim == self.obs_len \

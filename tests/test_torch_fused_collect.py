@@ -18,7 +18,7 @@ from rware_tpu.models import ActorCritic as FlaxActorCritic
 from rware_tpu.ops.pallas_rollout import ENV_BLOCK, build_pallas_collect
 from rware_tpu_torch.convert import actor_critic_from_flax
 from rware_tpu_torch.models import ActorCritic
-from rware_tpu_torch.ops.fused_rollout import build_fused_collect, collect_smem_bytes
+from rware_tpu_torch.ops.fused_rollout import build_fused_collect
 from rware_tpu_torch.parallel import batched_reset
 from tests.torch_ref import jax_states, make_pair, to_port
 
@@ -163,6 +163,7 @@ def test_wrapper_checks_policy_and_shared_memory():
         collect(states, ActorCritic(env.config.flattened_obs_length, hidden=(64, 64)), 0)
     with pytest.raises(ValueError):
         build_fused_collect(env.config, 2, hidden=(128, 100))
-    # hidden (128, 128) at sensor range 1 fits 128 threads per block
-    assert collect.threads == 128
-    assert collect_smem_bytes(71, (128, 128), 5, 128) < 232448
+    # hidden (128, 128) at sensor range 1: a tile of 64 envs (128 rows) on 256
+    # threads, two blocks an SM
+    assert (collect.plan.te, collect.plan.rows, collect.threads) == (64, 128, 256)
+    assert collect.plan.smem < 232448 and collect.plan.blocks_per_sm == 2

@@ -32,7 +32,7 @@ from rware_tpu_torch.models.networks import BlockDims
 from rware_tpu_torch.models.seac import seac_policies_of
 from rware_tpu_torch.ops.fused_rollout import (
     build_fused_collect_per_agent,
-    collect_smem_bytes,
+    collect_plan,
 )
 from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
 from rware_tpu_torch.ops.fused_update import metric_means, window_advstats
@@ -263,11 +263,17 @@ def test_per_agent_collector_checks_and_routes():
         collect(states, [ActorCritic(length), ActorCritic(length, hidden=(64, 64))], 0)
     # all stacks in shared memory up to 3 agents at L=71; 4 or more agents
     # read their weights from device memory
-    assert not collect.weights_global and collect.threads == 128
+    assert not collect.weights_global and collect.threads == 256
     for env_id in ("rware-small-4ag-v2", "rware-large-8ag-v2", "rware-tiny-16ag-v2"):
         big = build_fused_collect_per_agent(rware_tpu_torch.parse_env_id(env_id), 2)
-        assert big.weights_global and big.threads == 128, env_id
-    tiles = collect_smem_bytes(71, (128, 128), 5, 128, 0)
-    assert tiles == 2 * (71 + 128) * 128
-    assert collect_smem_bytes(71, (128, 128), 5, 128, 3) < 232448
-    assert collect_smem_bytes(71, (128, 128), 5, 32, 4) > 232448
+        assert big.weights_global and big.threads == 256 and big.plan.rows == 128, env_id
+    # read from device memory, the weights take no shared memory: the block
+    # holds its 128 rows' observations under h1, then h2, and a record a row
+    tiles = collect_plan(env.config, (128, 128), 2, weights_global=True)
+    assert tiles.region("bm")[1] == 0 and tiles.region("h") == (0, 2 * 128 * 128)
+    # three stacks fit beside a tile of 8 envs with its observation tile
+    # beside the hidden one (the old footprint), four do not
+    three = rware_tpu_torch.parse_env_id("rware-tiny-3ag-v2")
+    assert not collect_plan(three, (128, 128), 3).weights_global
+    assert collect_plan(rware_tpu_torch.parse_env_id("rware-tiny-4ag-v2"), (128, 128),
+                        4).weights_global

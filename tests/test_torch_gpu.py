@@ -22,7 +22,11 @@ from rware_tpu_torch.ops.fused_mappo import (
     build_fused_mappo_grads,
     build_fused_mappo_update_phase,
 )
-from rware_tpu_torch.models.networks import GruDims, init_recurrent_actor_critic
+from rware_tpu_torch.models.networks import (
+    GruDims,
+    init_actor_critic,
+    init_recurrent_actor_critic,
+)
 from rware_tpu_torch.models.ppo import METRIC_KEYS, loss_grads
 from rware_tpu_torch.ops.fused_gru import (
     GruSeqScan,
@@ -38,6 +42,7 @@ from rware_tpu_torch.ops.fused_rollout import (
     build_fused_collect_gru_per_agent,
     build_fused_collect_per_agent,
     build_fused_rollout,
+    collect_plan,
 )
 from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
 from rware_tpu_torch.ops.fused_update import (
@@ -99,6 +104,63 @@ def test_fused_collect_kernel_matches_plain(deterministic):
         assert float((ktraj[k] - ptraj[k]).abs().max()) <= ATOL, k
     for f in FIELDS:
         assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+
+
+# The eight instantiations of csrc/fused_collect.cu (weights in device memory,
+# message bits, image observations): K2a on tiny-2ag, with K2b (M=2), with
+# K2e (img-tiny-2ag) and with both; K2d on tiny-2ag with its weights in
+# shared and (forced) in device memory, each with K2b and K2e.
+COLLECT_CASES = [
+    ("mlp", "rware-tiny-2ag-v2", 0, False), ("mlp", "rware-tiny-2ag-v2", 2, False),
+    ("mlp", "rware-img-tiny-2ag-v2", 0, False), ("mlp", "rware-img-tiny-2ag-v2", 2, False),
+    ("per_agent", "rware-tiny-2ag-v2", 0, False), ("per_agent", "rware-tiny-2ag-v2", 0, True),
+    ("per_agent", "rware-tiny-2ag-v2", 2, True), ("per_agent", "rware-img-tiny-2ag-v2", 0, True),
+    ("per_agent", "rware-img-tiny-2ag-v2", 2, True),
+]
+
+
+@pytest.mark.parametrize("kind,env_id,m,weights_global", COLLECT_CASES)
+@pytest.mark.parametrize("b", [1, 1000])
+@pytest.mark.parametrize("hidden", [(128, 128), (24, 40)])
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_fused_collect_instantiations_match_plain(kind, env_id, m, weights_global, b, hidden,
+                                                  deterministic):
+    """Every instantiation of the MLP collector against its plain version:
+    obs, actions, bits, rewards, done and the final state exact (they feed
+    back), value and logp within ATOL; two launches bit-equal.  Hidden (24,
+    40) is a multiple of 8 but not of 16: fewer 8 x 8 jobs than threads."""
+    env = rware_tpu_torch.make(env_id, device=DEV, max_steps=20, msg_bits=m)
+    states, _ = batched_reset(env, 1, b)
+    gen = torch.Generator().manual_seed(3)
+    nets = torch.nn.ModuleList(
+        init_actor_critic(env.config.policy_obs_length, 5, hidden, (3, i), m)
+        for i in range(env.n_agents if kind == "per_agent" else 1))
+    with torch.no_grad():  # nonzero biases: a zero bias hides where it is rounded
+        for p in nets.parameters():
+            if p.dim() == 1:
+                p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+    nets = nets.to(DEV)
+    if kind == "per_agent":
+        policy = nets
+        collect = build_fused_collect_per_agent(env.config, 16, hidden, deterministic)
+        collect.plan = collect_plan(env.config, hidden, env.n_agents, weights_global)
+    else:
+        policy = nets[0]
+        collect = build_fused_collect(env.config, 16, hidden, deterministic)
+    assert collect.weights_global == weights_global
+    ks, ktraj = collect(states, policy, 2)
+    ks2, ktraj2 = collect(states, policy, 2)
+    ps, ptraj = collect.plain(states, policy, 2)
+    assert collect.launches == 2
+    for k in ktraj:
+        assert torch.equal(ktraj[k], ktraj2[k]), k
+    for k in ("obs", "action", "reward", "done") + (("bits",) if m else ()):
+        assert torch.equal(ktraj[k], ptraj[k]), k
+    for k in ("value", "logp"):
+        assert float((ktraj[k] - ptraj[k]).abs().max()) <= ATOL, k
+    for f in FIELDS + ("agent_message",):
+        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+        assert torch.equal(getattr(ks, f), getattr(ks2, f)), f
 
 
 def test_fused_rollout_kernel_matches_cpu_plain():

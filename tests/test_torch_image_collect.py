@@ -159,18 +159,18 @@ def test_actions_rewards_done_and_state(collect_pair):
 
 def test_wrappers_size_shared_memory_from_the_image_window():
     """The block size comes from ``policy_obs_length``: a 7x7 window (L=245)
-    still fits 128 threads, an 11x11 one (L=605) fits no block of the MLP
+    still fits a tile of 64 envs, an 11x11 one (L=605) fits no block of the MLP
     collector, which raises rather than fall back; an image config with no
     layer, or more than the kernel's table holds, is refused."""
     import dataclasses
 
     import rware_tpu_torch
-    from rware_tpu_torch.ops.fused_rollout import SMEM_LIMIT, collect_smem_bytes
+    from rware_tpu_torch.ops.fused_rollout import SMEM_LIMIT
 
     cfg = rware_tpu_torch.parse_env_id("rware-img-3s-tiny-2ag-v2")
     collect = build_fused_collect(cfg, 2)
-    assert collect.obs_len == cfg.policy_obs_length == 245 and collect.threads == 128
-    assert collect_smem_bytes(245, (128, 128), 5, 128) <= SMEM_LIMIT
+    assert collect.obs_len == cfg.policy_obs_length == 245 and collect.plan.te == 64
+    assert collect.threads == 256 and collect.plan.smem <= SMEM_LIMIT
     per_agent = build_fused_collect_per_agent(rware_tpu_torch.parse_env_id(
         "rware-img-3s-small-4ag-v2"), 2)
     assert per_agent.weights_global  # four stacks at L=245 do not fit beside the tiles

@@ -46,6 +46,12 @@ whole phase, K4 on one window, K8 on one window, K7's whole phase, K5 with
 and without the actor on one window and K6 on the trajectory, each beside
 its plain version where ``--plain`` asks for it, and K3 split into its
 kernels where the checkout times that (``FusedPPOUpdatePhase.timed``).
+``--collect-kernels`` times only the collectors at the main shape (tiny-2ag,
+B=16,384, T=128, hidden (128, 128), random mode): the MLP collector K2a, K2a
+with K2b (two message bits), K2a with K2e (``rware-img-tiny-2ag-v2``), K2d and
+K2d with K2b, each agent its own network, then K1 (B=65,536, T=256), the
+recurrent collector K2c (embed 128, GRU 128) and K2d′ (B=4,096), each beside
+its plain version where ``--plain`` asks for it.
 ``--tree DIR`` imports ``rware_tpu_torch`` from the checkout DIR (an unpacked
 older commit, say) so that two commits are timed by the same script on one
 card: run it as old, new, new, old.
@@ -55,6 +61,7 @@ Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-
        [--msg-bits M]
        [--n-envs B] [--env ID] [--out FILE]
        python tools/torch_kernel_timing.py --ppo-kernels [--tree DIR] [--plain] [--out FILE]
+       python tools/torch_kernel_timing.py --collect-kernels [--tree DIR] [--plain] [--out FILE]
 """
 import argparse
 import json
@@ -267,6 +274,72 @@ def ppo_kernels(tree, repeats, plain, emit, dev):
           T_mb=t_mb)
 
 
+def collect_kernels(tree, repeats, plain, emit, dev):
+    """The collectors at the main shape (see the module's docstring)."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models.networks import init_actor_critic, init_recurrent_actor_critic
+    from rware_tpu_torch.ops.fused_rollout import (
+        build_fused_collect,
+        build_fused_collect_gru,
+        build_fused_collect_gru_per_agent,
+        build_fused_collect_per_agent,
+        build_fused_rollout,
+    )
+    from rware_tpu_torch.parallel import batched_reset
+
+    def timed(name, env_id, b, t, fn, plain_fn, **extra):
+        med, lo, hi = time_launches(fn, repeats)
+        rec = dict(tree=tree, kernel=name, env=env_id, B=b, T=t, ms_median=med, ms_min=lo,
+                   ms_max=hi, env_steps_per_s=b * t / med * 1e3, **extra)
+        if plain:
+            rec["plain_ms"] = time_launches(plain_fn, 1)[0]
+        emit(rec)
+        torch.cuda.empty_cache()
+
+    b, t = 16384, 128
+    for name, env_id, m in (("fused_collect (K2a)", "rware-tiny-2ag-v2", 0),
+                            ("fused_collect (K2a with K2b)", "rware-tiny-2ag-v2", 2),
+                            ("fused_collect (K2a with K2e)", "rware-img-tiny-2ag-v2", 0)):
+        env = rware_tpu_torch.make(env_id, device=dev, msg_bits=m)
+        states, _ = batched_reset(env, 0, b)
+        policy = init_actor_critic(env.config.policy_obs_length, 5, (128, 128), 0, m).to(dev)
+        collect = build_fused_collect(env.config, t)
+        timed(name, env_id, b, t, lambda: collect(states, policy, 1),
+              lambda: collect.plain(states, policy, 1), msg_bits=m)
+    for m in (0, 2):
+        env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev, msg_bits=m)
+        states, _ = batched_reset(env, 0, b)
+        policies = torch.nn.ModuleList(
+            init_actor_critic(env.config.policy_obs_length, 5, (128, 128), (0, 2, i), m)
+            for i in range(env.n_agents)).to(dev)
+        collect = build_fused_collect_per_agent(env.config, t)
+        timed("fused_collect_per_agent (K2d%s)" % (" with K2b" if m else ""),
+              "rware-tiny-2ag-v2", b, t, lambda: collect(states, policies, 1),
+              lambda: collect.plain(states, policies, 1), msg_bits=m,
+              weights="device memory" if collect.weights_global else "shared memory")
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
+    length = env.config.policy_obs_length
+    states, _ = batched_reset(env, 0, 65536)
+    roll = build_fused_rollout(env.config, 256)
+    timed("fused_rollout (K1)", "rware-tiny-2ag-v2", 65536, 256, lambda: roll(states, 1),
+          lambda: roll.plain(states, 1))
+    states, _ = batched_reset(env, 0, b)
+    gru = init_recurrent_actor_critic(length, 5, 128, 128, 0).to(dev)
+    carry = gru.initialize_carry((b, env.n_agents))
+    collect = build_fused_collect_gru(env.config, t)
+    timed("fused_collect_gru (K2c)", "rware-tiny-2ag-v2", b, t,
+          lambda: collect(states, gru, 1, carry), lambda: collect.plain(states, gru, 1, carry))
+    b = 4096
+    states, _ = batched_reset(env, 0, b)
+    grus = torch.nn.ModuleList(init_recurrent_actor_critic(length, 5, 128, 128, (0, 2, i))
+                               for i in range(env.n_agents)).to(dev)
+    carry = grus[0].initialize_carry((b, env.n_agents))
+    collect = build_fused_collect_gru_per_agent(env.config, t)
+    timed("fused_collect_gru_per_agent (K2d′)", "rware-tiny-2ag-v2", b, t,
+          lambda: collect(states, grus, 1, carry), lambda: collect.plain(states, grus, 1, carry))
+
+
 def seq_kernels(dims, weights, arrays, traj, carry, band, env_id, b, t, repeats, emit, dev,
                 kernels):
     """K11, K12 and K13 on ``band`` of the collected trajectory: the gates of
@@ -318,9 +391,12 @@ def main():
     ap.add_argument("--out")
     ap.add_argument("--ppo-kernels", action="store_true",
                     help="time only K3-K8 at the main shape on random data")
+    ap.add_argument("--collect-kernels", action="store_true",
+                    help="time only the collectors (K2a, K2b, K2e, K2d, K1, K2c, K2d′) at the "
+                         "main shape")
     ap.add_argument("--tree", help="import rware_tpu_torch from this checkout")
     ap.add_argument("--plain", action="store_true",
-                    help="--ppo-kernels: time each plain version too")
+                    help="--ppo-kernels, --collect-kernels: time each plain version too")
     args = ap.parse_args()
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -361,6 +437,9 @@ def main():
 
     if args.ppo_kernels:
         ppo_kernels(args.tree or ".", args.repeats, args.plain, emit, dev)
+        args.configs = []
+    if args.collect_kernels:
+        collect_kernels(args.tree or ".", args.repeats, args.plain, emit, dev)
         args.configs = []
     for env_id in args.configs:
         env = rware_tpu_torch.make(env_id, device=dev, msg_bits=m)
