@@ -164,7 +164,9 @@ Phases, one line each:
 26. the iall-fed GRU kernels against their plain versions on the card: the
     sequence forward (K11), its backward (K12) and the loss-fused backward
     (K13) on tiny-2ag, sensor range 3 and tiny-16ag at B=1000 with bands that
-    wrap, and on a 4,096-env band of B=16,384, T=128 (embed 128, GRU 128);
+    wrap, tiny-2ag and tiny-16ag also at embed 24 and hidden 40 (multiples of
+    8 but not of 16: K12's and K13's tensor-core tiles padded and masked), and
+    on a 4,096-env band of B=16,384, T=128 (embed 128, GRU 128);
     hseq within one bf16 step on 99.9% of the entries and 8 steps at most,
     gradients, d_iall and dh0 within 1e-2 of each block's largest |plain|,
     K13's metric sums within rtol 1e-3 (and 1e-5 of their means), two
@@ -178,7 +180,9 @@ Phases, one line each:
     (exactly 3 K2c, 48 K11, 48 K13 and no K9, K10 or K12: no learner calls
     the sequence backward, so any K12 wrapper's launch counts), the time of
     an update split by phase, and K11, K12 and K13 timed at the band shape on
-    the trajectory's data beside their plain versions and held to them;
+    the trajectory's data beside their plain versions and held to them, and
+    one more K13 and K12 launch each split into its prologue, sweep, dWh and
+    reduction by CUDA events (``FusedGruLossBwd.timed``);
 28. recurrent MAPPO at the same shape with M=0 and M=2 message bits: three
     updates after one warm-up (exactly 3 K2c, 3 K6, 48 K9, 48 K10 and 48
     critic-only K5), the time of an update split by phase.
@@ -2227,11 +2231,15 @@ def phase25(dev, kind, card, n_envs=16384, rollout_len=128):
 
 # K11-K13: configs of phase 26 (the kernels read the gates, so the sensor range
 # matters only through the embed that makes them; 16 agents cut the bands
-# across agents).  (env id, B, T, bands)
+# across agents; hidden 40 is a multiple of 8 but not of 16, so K12's and
+# K13's tensor-core tiles run padded and masked).  (env id, B, T, bands,
+# (embed, hidden))
 SEQ_CASES = (
-    ("rware-tiny-2ag-v2", 1000, 8, ((0, 1000), (900, 500))),
-    ("rware-3s-tiny-2ag-v2", 1000, 8, ((600, 700),)),
-    ("rware-tiny-16ag-v2", 1000, 4, ((950, 100),)),
+    ("rware-tiny-2ag-v2", 1000, 8, ((0, 1000), (900, 500)), (128, 128)),
+    ("rware-3s-tiny-2ag-v2", 1000, 8, ((600, 700),), (128, 128)),
+    ("rware-tiny-16ag-v2", 1000, 4, ((950, 100),), (128, 128)),
+    ("rware-tiny-2ag-v2", 1000, 8, ((900, 500),), (24, 40)),
+    ("rware-tiny-16ag-v2", 1000, 4, ((950, 100),), (24, 40)),
 )
 SEQ_METRIC_RTOL = 1e-3
 
@@ -2363,15 +2371,17 @@ def phase26(dev, kind, card, n_envs=16384, rollout_len=128):
     """K11, K12 and K13 against their plain versions."""
     from rware_tpu_torch.testing import random_gru_seq_case
 
-    for env_id, b, t_len, bands in SEQ_CASES:
+    for env_id, b, t_len, bands, (embed, hidden) in SEQ_CASES:
         for band in bands:
-            dims, a = random_gru_seq_case(env_id, b, t_len, band, 29, dev)
-            _, _, _, h_err, e12, e13 = compare_gru_seq(dims, a, band, 31, what=env_id)
-            log(f"phase 26 K11, K12, K13 {env_id} (N={a['h0'].shape[1]}) B={b} T={t_len} band "
-                f"{band}: hseq max_abs_err {h_err}, K12 and K13 within {GRAD_FRAC} of each "
-                f"block (max_abs_err {e12}, {e13}), metric sums within rtol "
+            dims, a = random_gru_seq_case(env_id, b, t_len, band, 29, dev, hidden=hidden,
+                                          embed=embed)
+            _, _, _, h_err, e12, e13 = compare_gru_seq(dims, a, band, 31,
+                                                       what=f"{env_id} hidden {hidden}")
+            log(f"phase 26 K11, K12, K13 {env_id} (N={a['h0'].shape[1]}, Hg={hidden}) B={b} "
+                f"T={t_len} band {band}: hseq max_abs_err {h_err}, K12 and K13 within "
+                f"{GRAD_FRAC} of each block (max_abs_err {e12}, {e13}), metric sums within rtol "
                 f"{SEQ_METRIC_RTOL}, two launches bit-equal [{kind}, {card}]")
-    env_id, b, t_len, bands = SEQ_CASES[0]
+    env_id, b, t_len, bands, _ = SEQ_CASES[0]
     band = bands[-1]
     dims, a = random_gru_seq_case(env_id, b, t_len, band, 29, dev)
     scan_err = compare_gru_seq_scan(dims, a, band, 33)
@@ -2476,6 +2486,13 @@ def phase27(dev, kind, card, n_envs=16384, rollout_len=128):
         f"(plain {k11_plain_ms:.1f} ms, hseq max_abs_err {k11_err}); K12 {k12_ms:.3f} ms/launch "
         f"(plain {k12_plain_ms:.1f} ms, max_abs_err {k12_err}); K13 {k13_ms:.3f} ms/launch "
         f"(plain {k13_plain_ms:.1f} ms, max_abs_err {k13_err}) [{kind}, {card}]")
+    # one more launch of each backward, its kernels between CUDA events
+    for name, kernel, args in (("K13", loss, largs), ("K12", bwd, seq + (hseq, dh) + band)):
+        total_ms, (_, split) = cuda_ms(lambda: kernel.timed(*args))
+        log(f"phase 27 {name} split at the band shape, one timed launch: prologue "
+            f"{split['prologue']:.3f} ms, sweep {split['sweep']:.3f} ms, dWh {split['wgrad']:.3f} "
+            f"ms, reduction {split['reduce']:.3f} ms; {sum(split.values()):.3f} ms together, "
+            f"{total_ms:.3f} ms around the call [{kind}, {card}]")
     b11, b12, b13 = seq_bounds(dims, a, band, hseq)
     return [
         kernel_entry("fused_gru_seq_fwd", "fused_gru_seq_fwd.cu", "rware_tpu/ops/pallas_gru.py:78",

@@ -20,17 +20,13 @@
 //     f32 would be 18 Hg), and e (2 E bytes) for the epilogue and dWi.
 //     hprev is h0 at t = 0, else hseq[t-1] zeroed where done[t-1], read in
 //     place.
-//  2. gru_bwd_sweep_kernel, sequential in t: a block owns 16, 32 or 64
-//     sequences (the lowest tile whose blocks fit the card's SMs in one
-//     wave) and walks t backwards with the hidden adjoint in f32 (cut where
-//     done[t]).  Per step it forms [dr | dz | dhhn | dn] with the plain
-//     version's formulas, a warp to a row so that its loads and stores are
-//     contiguous, writes them once (bf16, 4 Hg a sample), and runs the one
-//     product on the sequential path, [dr | dz | dhhn] Wh^T, with Wh resident
-//     in shared memory for the whole sweep (one copy, 96 KB at Hg = 128, read
-//     as Wh^T by a non-transposing ldmatrix); the product's f32 sums come
-//     back to the rows through shared memory, where dh_prev = dnh z + that.
-//     dbhn sums the unrounded f32 dhhn: per-block partials.
+//  2. gru_bwd_sweep_kernel (gru_bwd.cuh, shared with K12 and K13),
+//     sequential in t: a block owns 16, 32 or 64 sequences and walks t
+//     backwards with the hidden adjoint in f32, fed dhseq (GbCotSeq), writes
+//     [dr | dz | dhhn | dn] once (bf16, 4 Hg a sample: GbOutDg4), and runs the
+//     one product on the sequential path, [dr | dz | dhhn] Wh^T, on the
+//     tensor cores with Wh resident in shared memory.  dbhn sums the
+//     unrounded f32 dhhn: per-block partials.
 //  3. gru_bwd_epilogue_kernel, time-parallel: de = [dr | dz | dn] Wi^T, then
 //     dpre = bf16(de (1 - e^2)).
 //  4. gru_wgrad_kernel (gru_wgrad.cuh, shared with K12 and K13), once per
@@ -51,35 +47,9 @@
 // well above that: the scratch, 4 E + 20 Hg bytes a sequence-step (3 KB at
 // 128) written once and read once or twice, and the prologue's and the
 // sweep's latencies take most of the time (PERF.md).
-#include "gru_wgrad.cuh"
+#include "gru_bwd.cuh"
 
-#define GB_TILE 64   // samples a prologue / epilogue block
-#define GB_KC 64     // k chunk of the embed and the epilogue
-#define GB_SLICE 16  // hidden units a gate slice of the prologue
-
-struct GruBwdScratch {
-  gm_bf16* e;        // (n, E): the embedding
-  float* rz;         // (n, Hg / 2, 4): [r_j, r_j+1, z_j, z_j+1] per pair of hidden units
-  gm_bf16* hn;       // (n, Hg / 2, 4): [hhn_j, hhn_j+1, n_j, n_j+1]
-  gm_bf16* dg4;      // (n, 4 Hg): [dr | dz | dhhn | dn]
-  gm_bf16* dpre;     // (n, E)
-  float* part_bhn;   // (sweep blocks, Hg)
-};
-
-// The hidden before step t of band sample smp = t * Q + q: h0 at t = 0, else
-// hseq[t-1] (band-local), none (a null row: zeros) where done[t-1].
-static __device__ __forceinline__ const gm_bf16* gru_hprev_row(const GruSeqDims& d,
-                                                               const gm_bf16* h0,
-                                                               const gm_bf16* hseq,
-                                                               const uint8_t* done,
-                                                               long long smp) {
-  const int Q = d.n_env * d.N;
-  const long long t = smp / Q;
-  const int q = (int)(smp - t * Q);
-  if (t == 0) return h0 + ((size_t)gru_env(d, q) * d.N + q % d.N) * d.Hg;
-  if (done[(size_t)(t - 1) * d.B + gru_env(d, q)]) return nullptr;
-  return hseq + (size_t)(smp - Q) * d.Hg;
-}
+#define GB_KC 64  // k chunk of the embed and the epilogue
 
 // Dynamic shared memory of each kernel, bytes (the wrapper's plan must agree).
 static int gb_prologue_smem(int E, int Hg) {
@@ -89,12 +59,6 @@ static int gb_prologue_smem(int E, int Hg) {
   const int gates = 2 * (E16 + H16) * (3 * GB_SLICE + GM_PAD);
   // and per row: the obs row offset (8 bytes), hprev's offset (8) and source (4)
   return (tiles + (embed > gates ? embed : gates)) * (int)sizeof(gm_bf16) + GB_TILE * 20;
-}
-
-static int gb_sweep_smem(int Hg, int rows) {
-  const int ldw = gm_r16(3 * Hg) + GM_PAD;
-  return (Hg + rows) * ldw * (int)sizeof(gm_bf16)
-         + (rows * (Hg + 4) + 8 * Hg) * (int)sizeof(float) + 2 * rows * (int)sizeof(int);
 }
 
 static int gb_epilogue_smem(int E) {
@@ -287,209 +251,18 @@ __global__ void __launch_bounds__(GM_THREADS, 2)
       for (int h = 0; h < 2; ++h) {
         const long long smp = s0 + wm * 16 + g + 8 * h;
         if (smp >= n_samples) continue;
-        float rg[2], zg[2], hn[2], nn[2];
+        GbGate gt[2];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int jj = j + u, k = 2 * h + u;
-          const float ir = gru_bf16r(ia[0][k] + bi[jj]);
-          const float iz = gru_bf16r(ia[1][k] + bi[Hg + jj]);
-          const float in = gru_bf16r(ia[2][k] + bi[2 * Hg + jj]);
-          rg[u] = gru_sigmoid(ir + hh[0][k]);
-          zg[u] = gru_sigmoid(iz + hh[1][k]);
-          hn[u] = gru_bf16r(hh[2][k] + bhn[jj]);
-          nn[u] = gru_bf16r(tanhf(gru_bf16r(in + gru_bf16r(gru_bf16r(rg[u]) * hn[u]))));
+          gt[u] = gb_gate(gru_bf16r(ia[0][k] + bi[jj]), gru_bf16r(ia[1][k] + bi[Hg + jj]),
+                          gru_bf16r(ia[2][k] + bi[2 * Hg + jj]), hh[0][k], hh[1][k], hh[2][k],
+                          bhn[jj]);
         }
-        const size_t o = ((size_t)smp * Hg + j) * 2;
-        *(float4*)(ws.rz + o) = make_float4(rg[0], rg[1], zg[0], zg[1]);
-        __nv_bfloat162 p[2] = {gm_pack(hn[0], hn[1]), gm_pack(nn[0], nn[1])};
-        *(uint2*)(ws.hn + o) = *(const uint2*)p;
+        gb_store_gates(ws, smp, Hg, j, gt);
       }
     }
     __syncthreads();  // before the next load overwrites this buffer
-  }
-}
-
-// Two thread layouts.  The elementwise step works on rows: warp w takes rows
-// w, w + 8, ... of the block's S = 16 MT sequences, lane l the hidden units
-// 4l .. 4l + 4, so that every load and store of the step is one contiguous
-// run a warp.  The product takes the mma layout: warp w rows 16 (w % MT)..
-// and the hidden n-tiles w / MT + k (8 / MT) of Hg / 8; its sums reach the
-// row layout through shared memory (acc_s, f32).
-template <int MT>
-__global__ void __launch_bounds__(GM_THREADS, 1)
-    gru_bwd_sweep_kernel(GruSeqDims d, const uint8_t* __restrict__ done,
-                         const gm_bf16* __restrict__ h0, const gm_bf16* __restrict__ hseq,
-                         const gm_bf16* __restrict__ dhseq, const gm_bf16* __restrict__ wh,
-                         GruBwdScratch ws, float* __restrict__ dh0) {
-  constexpr int S = 16 * MT, WN = 8 / MT, NTW = 16 / WN, RW = S / 8;  // RW rows a warp
-  constexpr int RB = RW < 4 ? RW : 4;  // rows a batch: all their loads in flight together
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Hg = d.Hg, G3 = 3 * Hg, K16 = gm_r16(G3), ldw = K16 + GM_PAD, lda = Hg + 4;
-  gm_bf16* whs = (gm_bf16*)smem;                // (Hg, ldw): Wh, row = hidden unit
-  gm_bf16* gs = whs + Hg * ldw;                 // (S, ldw): [dr | dz | dhhn] of a step
-  float* acc_s = (float*)(gs + S * ldw);        // (S, lda): [dr | dz | dhhn] Wh^T of a step
-  float* red = acc_s + S * lda;                 // (8, Hg): the dbhn reduction
-  int* row_env = (int*)(red + 8 * Hg);          // (S,): band env of each row, -1 past Q
-  int* row_h0 = row_env + S;                    // (S,): its row of h0
-  const int Q = d.n_env * d.N, q0 = blockIdx.x * S;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
-  const int wm = warp % MT, wn = warp / MT, n_ht = Hg / 8;
-  const int j4 = 4 * lane;  // the row layout's hidden units
-  const bool lane_on = j4 < Hg;
-
-  for (int idx = tid; idx < Hg * (K16 / 8); idx += GM_THREADS) {
-    const int n = idx / (K16 / 8), col = (idx % (K16 / 8)) * 8;
-    const bool ok = col < G3;
-    gm_cp16(whs + n * ldw + col, ok ? wh + (size_t)n * G3 + col : wh, ok);
-  }
-  gm_cp_commit();
-  for (int idx = tid; idx < S * ldw / 8; idx += GM_THREADS)
-    ((uint4*)gs)[idx] = make_uint4(0, 0, 0, 0);
-  for (int idx = tid; idx < S * lda; idx += GM_THREADS) acc_s[idx] = 0.f;
-  if (tid < S) {
-    const int q = q0 + tid;
-    row_env[tid] = q < Q ? gru_env(d, q) : -1;
-    row_h0[tid] = q < Q ? gru_env(d, q) * d.N + q % d.N : 0;
-  }
-  gm_cp_wait<0>();
-  __syncthreads();
-
-  float dhz[RW][4], dbhn[4];  // dnh z of the thread's rows; dbhn of its units
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    dbhn[u] = 0.f;
-#pragma unroll
-    for (int r = 0; r < RW; ++r) dhz[r][u] = 0.f;
-  }
-
-  for (int t = d.T - 1; t >= 0; --t) {
-#pragma unroll
-    for (int r0 = 0; r0 < RW; r0 += RB) {
-      float4 rz[RB][2], acc[RB];
-      uint4 hn[RB];
-      uint2 hp[RB], din[RB];
-      bool cut[RB], on[RB];
-      uint8_t reset[RB];
-#pragma unroll
-      for (int rr = 0; rr < RB; ++rr) {
-        const int s = warp + 8 * (r0 + rr), env = row_env[s];
-        const size_t row = (size_t)t * Q + q0 + s;
-        on[rr] = env >= 0 && lane_on;
-        // hprev's row is loaded whatever done[t-1] says, and zeroed after: no load waits on another
-        const gm_bf16* hrow = t == 0 ? h0 + (size_t)row_h0[s] * Hg : hseq + (row - Q) * Hg;
-        reset[rr] = on[rr] && t > 0 ? __ldg(done + (size_t)(t - 1) * d.B + env) : 0;
-        cut[rr] = !on[rr] || __ldg(done + (size_t)t * d.B + env) != 0;
-        const size_t o = (row * Hg + j4) * 2;
-        const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
-        rz[rr][0] = on[rr] ? __ldg((const float4*)(ws.rz + o)) : z4;
-        rz[rr][1] = on[rr] ? __ldg((const float4*)(ws.rz + o + 4)) : z4;
-        hn[rr] = on[rr] ? __ldg((const uint4*)(ws.hn + o)) : make_uint4(0, 0, 0, 0);
-        hp[rr] = on[rr] ? __ldg((const uint2*)(hrow + j4)) : make_uint2(0, 0);
-        din[rr] = on[rr] ? __ldg((const uint2*)(dhseq + row * Hg + j4)) : make_uint2(0, 0);
-        acc[rr] = lane_on ? *(const float4*)(acc_s + s * lda + j4) : z4;
-      }
-#pragma unroll
-      for (int rr = 0; rr < RB; ++rr) {
-        const int r = r0 + rr, s = warp + 8 * r;
-        const __nv_bfloat162* hnp = (const __nv_bfloat162*)&hn[rr];
-        const __nv_bfloat162* hpp = (const __nv_bfloat162*)&hp[rr];
-        const __nv_bfloat162* dip = (const __nv_bfloat162*)&din[rr];
-        // units 4l + u: r, z from rz's two pairs, hhn and n from hn's, hp and dhseq
-        const float2 hh01 = __bfloat1622float2(hnp[0]), nn01 = __bfloat1622float2(hnp[1]);
-        const float2 hh23 = __bfloat1622float2(hnp[2]), nn23 = __bfloat1622float2(hnp[3]);
-        const float2 hp01 = reset[rr] ? make_float2(0.f, 0.f) : __bfloat1622float2(hpp[0]);
-        const float2 hp23 = reset[rr] ? make_float2(0.f, 0.f) : __bfloat1622float2(hpp[1]);
-        const float2 di01 = __bfloat1622float2(dip[0]), di23 = __bfloat1622float2(dip[1]);
-        const float rv[4] = {rz[rr][0].x, rz[rr][0].y, rz[rr][1].x, rz[rr][1].y};
-        const float zv[4] = {rz[rr][0].z, rz[rr][0].w, rz[rr][1].z, rz[rr][1].w};
-        const float hv[4] = {hh01.x, hh01.y, hh23.x, hh23.y};
-        const float nv[4] = {nn01.x, nn01.y, nn23.x, nn23.y};
-        const float pv[4] = {hp01.x, hp01.y, hp23.x, hp23.y};
-        const float iv[4] = {di01.x, di01.y, di23.x, di23.y};
-        const float av[4] = {acc[rr].x, acc[rr].y, acc[rr].z, acc[rr].w};
-        float dr[4], dz[4], dhhn[4], dn[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float rg = rv[u], zg = zv[u];
-          const float dc = dhz[r][u] + av[u];  // dh_prev of the step after: dnh z + g3 Wh^T
-          const float dnh = on[rr] ? iv[u] + (cut[rr] ? 0.f : dc) : 0.f;
-          const float dz_pre = dnh * (pv[u] - nv[u]) * zg * (1.f - zg);
-          const float dn_pre = dnh * (1.f - zg) * (1.f - nv[u] * nv[u]);
-          dhhn[u] = dn_pre * rg;
-          dr[u] = dn_pre * hv[u] * rg * (1.f - rg);
-          dz[u] = dz_pre;
-          dn[u] = dn_pre;
-          dhz[r][u] = dnh * zg;
-          dbhn[u] += dhhn[u];
-        }
-        if (lane_on) {
-          __nv_bfloat162 p[4][2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            p[0][h] = gm_pack(dr[2 * h], dr[2 * h + 1]);
-            p[1][h] = gm_pack(dz[2 * h], dz[2 * h + 1]);
-            p[2][h] = gm_pack(dhhn[2 * h], dhhn[2 * h + 1]);
-            p[3][h] = gm_pack(dn[2 * h], dn[2 * h + 1]);
-          }
-          gm_bf16* gr = gs + s * ldw + j4;
-#pragma unroll
-          for (int q = 0; q < 3; ++q) *(uint2*)(gr + q * Hg) = *(const uint2*)p[q];
-          if (on[rr]) {
-            gm_bf16* o4 = ws.dg4 + ((size_t)t * Q + q0 + s) * 4 * Hg + j4;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) *(uint2*)(o4 + q * Hg) = *(const uint2*)p[q];
-          }
-        }
-      }
-    }
-    __syncthreads();  // the step's cotangent tile is complete; acc_s is read
-    float acc[NTW][4];
-#pragma unroll
-    for (int i = 0; i < NTW; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
-    for (int kk = 0; kk < K16; kk += 16) {
-      uint32_t a[4];
-      gm_frag_a(a, gs, ldw, wm * 16, kk);
-#pragma unroll
-      for (int i = 0; i < NTW; ++i) {
-        const int nt = wn + WN * i;
-        if (nt < n_ht) {
-          uint32_t b[2];
-          gm_frag_b_nk(b, whs, ldw, nt * 8, kk);
-          gm_mma(acc[i], a, b[0], b[1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NTW; ++i) {
-      const int nt = wn + WN * i;
-      if (nt >= n_ht) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *(float2*)(acc_s + (wm * 16 + g + 8 * h) * lda + nt * 8 + 2 * c) =
-            make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
-    }
-    __syncthreads();  // acc_s is complete; the tile is read
-  }
-
-  // dh0 = the adjoint of the hidden before step 0; dbhn over the block's rows
-  if (lane_on) {
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const int s = warp + 8 * r, q = q0 + s;
-      if (q >= Q) continue;
-      const float4 a = *(const float4*)(acc_s + s * lda + j4);
-      *(float4*)(dh0 + (size_t)q * Hg + j4) =
-          make_float4(dhz[r][0] + a.x, dhz[r][1] + a.y, dhz[r][2] + a.z, dhz[r][3] + a.w);
-    }
-    *(float4*)(red + warp * Hg + j4) = make_float4(dbhn[0], dbhn[1], dbhn[2], dbhn[3]);
-  }
-  __syncthreads();
-  for (int j = tid; j < Hg; j += GM_THREADS) {
-    float v = 0.f;
-    for (int w = 0; w < 8; ++w) v += red[w * Hg + j];
-    ws.part_bhn[(size_t)blockIdx.x * Hg + j] = v;
   }
 }
 
@@ -585,20 +358,6 @@ __global__ void __launch_bounds__(GM_THREADS)
   }
 }
 
-template <int MT>
-static int sweep_launch(const GruSeqDims& d, int smem, const void* done, const void* h0,
-                        const void* hseq, const void* dhseq, const void* wh,
-                        const GruBwdScratch& ws, void* dh0, cudaStream_t stream) {
-  const int Q = d.n_env * d.N;
-  cudaError_t err = cudaFuncSetAttribute(gru_bwd_sweep_kernel<MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  gru_bwd_sweep_kernel<MT><<<(Q + 16 * MT - 1) / (16 * MT), GM_THREADS, smem, stream>>>(
-      d, (const uint8_t*)done, (const gm_bf16*)h0, (const gm_bf16*)hseq, (const gm_bf16*)dhseq,
-      (const gm_bf16*)wh, ws, (float*)dh0);
-  return (int)cudaGetLastError();
-}
-
 // The plan's numbers (rware_tpu_torch/ops/fused_gru.py::gru_obs_bwd_plan):
 // sweep_rows 16, 32 or 64 sequences a sweep block; each kernel's dynamic
 // shared memory, bytes, which must be what this file computes; chunk *
@@ -625,7 +384,7 @@ extern "C" int rw_fused_gru_bwd(int L, int E, int Hg, int T, int B, int N, int s
       || prologue_smem != gb_prologue_smem(E, Hg) || epilogue_smem != gb_epilogue_smem(E)
       || wgrad_smem != gru_wgrad_smem()
       || (sweep_rows != 16 && sweep_rows != 32 && sweep_rows != 64)
-      || sweep_smem != gb_sweep_smem(Hg, sweep_rows))
+      || sweep_smem != gb_sweep_smem<GbCotSeq>(Hg, sweep_rows))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_p;
   const GruSeqDims d = {L, E, Hg, T, B, N, start_env, n_env, 0};
@@ -655,12 +414,9 @@ extern "C" int rw_fused_gru_bwd(int L, int E, int Hg, int T, int B, int N, int s
   }
   mark(1);
   if (err == 0) {
-    if (sweep_rows == 64)
-      err = sweep_launch<4>(d, sweep_smem, done, h0, hseq, dhseq, wh, ws, dh0, stream);
-    else if (sweep_rows == 32)
-      err = sweep_launch<2>(d, sweep_smem, done, h0, hseq, dhseq, wh, ws, dh0, stream);
-    else
-      err = sweep_launch<1>(d, sweep_smem, done, h0, hseq, dhseq, wh, ws, dh0, stream);
+    const GbCotSeq cot = {(const gm_bf16*)dhseq};
+    const GbOutDg4 out = {ws.dg4};
+    err = gb_sweep(d, sweep_rows, sweep_smem, done, h0, hseq, cot, wh, ws, out, dh0, stream);
   }
   mark(2);
   if (err == 0) {

@@ -1,5 +1,5 @@
 // The weight-gradient pass shared by the GRU backward kernels: K10
-// (fused_gru_bwd.cu) and K12/K13 (gru_seq.cuh).  A product out = A^T G over
+// (fused_gru_bwd.cu) and K12/K13 (gru_seq_bwd.cuh).  A product out = A^T G over
 // every sample of a band launch runs without float atomics, in two kernels:
 //
 //  1. gru_wgrad_kernel: each block one 128 x 128 output tile over one chunk of

@@ -58,14 +58,14 @@ _SIGNATURES = {
     "rw_fused_gru_bwd": [_I] * 15 + [_P] * 22,
     # Hg T B N start_env n_env rows_per_thread | iall done h0 wh bhn hseq stream
     "rw_fused_gru_seq_fwd": [_I] * 7 + [_P] * 7,
-    # Hg T B N start_env n_env rows_per_thread chunk n_chunks | iall done h0 hseq
-    # dhseq wh bhn whT, scratch dhhn part_blk partial, d_iall grads dh0 stream
-    "rw_fused_gru_seq_bwd": [_I] * 9 + [_P] * 15,
-    # Hg A T B N start_env n_env rows_per_thread chunk n_chunks | clip_eps
-    # vf_coef ent_coef inv_n | stats iall done h0 hseq action logp value adv
-    # target wh bhn whT head, scratch dhhn part_blk partial, d_iall grads dh0
-    # stream
-    "rw_fused_gru_loss_bwd": [_I] * 10 + [_F] * 4 + [_P] * 21,
+    # Hg T B N start_env n_env | plan (fused_gru.GruSeqBwdPlan.args) | iall done
+    # h0 hseq dhseq wh bhn, scratch rz hn dhhn part_bhn partial, d_iall grads
+    # dh0 split_ms stream
+    "rw_fused_gru_seq_bwd": [_I] * 13 + [_P] * 17,
+    # Hg A T B N start_env n_env | plan | clip_eps vf_coef ent_coef inv_n | stats
+    # iall done h0 hseq action logp value adv target wh bhn head, scratch rz hn
+    # dhhn dheads part_bhn part_head partial, d_iall grads dh0 split_ms stream
+    "rw_fused_gru_loss_bwd": [_I] * 14 + [_F] * 4 + [_P] * 25,
     # ... msg_bits hc | start stats obs action logp value adv target bits params h1
     # h2 dz1 dz2 part_head partial part_mets grads mets stream
     "rw_fused_ppo_grads": _PPO_DIMS + [_I] * 2 + [_P] * 20,

@@ -26,10 +26,17 @@ time recurrence:
 * :func:`build_fused_gru_seq_bwd` (K12) replaces ``build_gru_seq_bwd``: from
   the hidden sequence's cotangent to (dWh, dbhn, d_iall, dh0);
 * :func:`build_fused_gru_loss_bwd` (K13) replaces ``build_gru_loss_bwd``: the
-  same sweep with the f32 heads, the clipped-PPO loss and its backward inside;
+  same backward with the f32 heads, the clipped-PPO loss and its backward
+  inside;
 * :class:`GruSeqScan` joins K11 and K12 as one differentiable function (the
   ``_gru_scan`` custom VJP of ``rware_tpu/models/ippo_rnn.py:272-405``, on
   the kernels of ``_gru_seq_kernels``).
+
+K10, K12 and K13 are chains of kernels that share K10's reverse sweep
+(``csrc/gru_bwd.cuh``) and weight-gradient pass; their launch plans
+(:func:`gru_obs_bwd_plan`, :func:`gru_seq_bwd_plan`) give tiles, grids,
+shared memory and scratch, and the library refuses numbers that are not the
+plan's.
 
 Each wrapper launches its CUDA kernel (``csrc/fused_gru_fwd.cu``,
 ``csrc/fused_gru_bwd.cu``, ``csrc/fused_gru_seq_fwd.cu``,
@@ -58,8 +65,9 @@ from rware_tpu_torch.models.networks import (
 )
 
 MAX_WIDTH = 128  # the kernels' embed and hidden widths: multiples of 8 up to this
-# the card's SMs: K9 and K11-K13 take blocks of 32 sequences only when they fill
-# them, K10's sweep the lowest tile whose blocks fit them in one wave
+# the card's SMs: K9 and K11 take blocks of 32 sequences only when they fill
+# them, the reverse sweep of K10, K12 and K13 the lowest tile whose blocks fit
+# them in one wave
 SWEEP_SMS = 132
 SMEM_MAX = 232_448  # bytes of shared memory one block may take on the H100
 
@@ -105,8 +113,42 @@ _TILE, _KC, _SLICE = 64, 64, 16  # prologue / epilogue samples a block, k chunk,
 _WG_THREADS, _WG_SK, _WG_NS, _WG_TI, _WG_TJ = 512, 64, 3, 128, 128
 
 
+_WGRAD_SMEM = 2 * _WG_NS * _WG_SK * ((_WG_TI + _PAD) + (_WG_TJ + _PAD)) + 4 * _WG_THREADS
+# K12 and K13 (csrc/gru_seq_bwd.cuh): head columns A + 1 at most, head-gradient
+# outputs (Hg + 1)(A + 1) at most, and prologue blocks at most (each takes a
+# run of tiles, so that K13's per-block head partials stay few)
+_HEADS, _HEAD_OUTS, _PRO_BLOCKS = 8, 1024, 8 * SWEEP_SMS
+
+
 def _r16(x: int) -> int:
     return -(-x // 16) * 16
+
+
+def _sweep_rows(n_seq: int) -> int:
+    """The reverse sweep's tile height: the smallest of 16, 32, 64 sequences
+    whose blocks fit the card's SMs in one wave, else 64."""
+    return next((r for r in (16, 32, 64) if -(-n_seq // r) <= SWEEP_SMS), 64)
+
+
+def _sweep_smem(hg: int, rows: int, cot_floats: int = 0) -> int:
+    """The sweep's shared memory (``csrc/gru_bwd.cuh::gb_sweep_smem``): Wh and
+    the step's cotangent tile in bf16, the product's sums, the dbhn reduction
+    and two ints a row, then ``cot_floats`` of the cotangent's own."""
+    return (2 * (hg + rows) * (_r16(3 * hg) + _PAD) + 4 * (rows * (hg + 4) + 8 * hg) + 8 * rows
+            + 4 * cot_floats)
+
+
+def _wgrad_chunks(n_samples: int) -> Tuple[int, int]:
+    """(chunk, n_chunks): up to 128 weight-gradient partials, each over a
+    multiple of 64 samples."""
+    n_chunks = min(128, -(-n_samples // 1024))
+    return _WG_SK * -(-n_samples // (_WG_SK * n_chunks)), n_chunks
+
+
+def _ranges(size: int, total: int, count: int) -> List[range]:
+    """``count`` consecutive runs of ``size`` out of ``range(total)``, the last
+    cut at ``total``."""
+    return [range(b * size, min((b + 1) * size, total)) for b in range(count)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,18 +168,15 @@ class GruBwdPlan:
 
     def sweep_tiles(self) -> List[range]:
         """The sequences of each sweep block."""
-        return [range(b * self.sweep_rows, min((b + 1) * self.sweep_rows, self.n_seq))
-                for b in range(self.sweep_blocks)]
+        return _ranges(self.sweep_rows, self.n_seq, self.sweep_blocks)
 
     def sample_tiles(self) -> List[range]:
         """The samples of each prologue and epilogue block."""
-        return [range(b * _TILE, min((b + 1) * _TILE, self.n_samples))
-                for b in range(self.tile_blocks)]
+        return _ranges(_TILE, self.n_samples, self.tile_blocks)
 
     def chunks(self) -> List[range]:
         """The samples of each weight-gradient partial."""
-        return [range(c * self.chunk, min((c + 1) * self.chunk, self.n_samples))
-                for c in range(self.n_chunks)]
+        return _ranges(self.chunk, self.n_samples, self.n_chunks)
 
 
 def gru_obs_bwd_plan(dims: GruDims, t_len: int, n_agents: int, n_env: int) -> GruBwdPlan:
@@ -150,20 +189,18 @@ def gru_obs_bwd_plan(dims: GruDims, t_len: int, n_agents: int, n_env: int) -> Gr
     e, hg = dims.embed, dims.hidden
     n_seq = n_env * n_agents
     n_samples = t_len * n_seq
-    rows = next((r for r in (16, 32, 64) if -(-n_seq // r) <= SWEEP_SMS), 64)
-    e16, h16, k16 = _r16(e), _r16(hg), _r16(3 * hg)
+    rows = _sweep_rows(n_seq)
+    e16, h16 = _r16(e), _r16(hg)
     tiles = _TILE * (e16 + _PAD) + _TILE * (h16 + _PAD)
     embed = 2 * (_TILE * (_KC + _PAD) + _KC * (e16 + _PAD))
     gates = 2 * (e16 + h16) * (3 * _SLICE + _PAD)
     smem = {
         "prologue": 2 * (tiles + max(embed, gates)) + 20 * _TILE,
-        "sweep": 2 * (hg + rows) * (k16 + _PAD) + 4 * (rows * (hg + 4) + 8 * hg) + 8 * rows,
+        "sweep": _sweep_smem(hg, rows),
         "epilogue": 2 * 2 * (_TILE + e) * (_KC + _PAD),
-        "wgrad": 2 * _WG_NS * _WG_SK * ((_WG_TI + _PAD) + (_WG_TJ + _PAD)) + 4 * _WG_THREADS,
+        "wgrad": _WGRAD_SMEM,
     }
-    # up to 128 weight-gradient partials, each over a multiple of 64 samples
-    n_chunks = min(128, -(-n_samples // 1024))
-    chunk = _WG_SK * -(-n_samples // (_WG_SK * n_chunks))
+    chunk, n_chunks = _wgrad_chunks(n_samples)
     sweep_blocks = -(-n_seq // rows)
     n_w = sum(r * c for r, c in dims.shapes[:5])
     bf, f32 = torch.bfloat16, torch.float32
@@ -175,6 +212,105 @@ def gru_obs_bwd_plan(dims: GruDims, t_len: int, n_agents: int, n_env: int) -> Gr
     }
     return GruBwdPlan(n_seq, n_samples, rows, sweep_blocks, -(-n_samples // _TILE), smem, chunk,
                       n_chunks, scratch)
+
+
+@dataclasses.dataclass(frozen=True)
+class GruSeqBwdPlan:
+    """K12's or K13's launch shape for one band: ``n_seq = n_env N``
+    sequences, ``n_samples = T n_seq`` sequence-steps (row ``t n_seq
+    + q``) in ``n_tiles`` tiles of 64; prologue block ``b`` takes the tiles
+    ``b tiles_per_block ..`` and, for K13, sums their head gradients and
+    metrics into its own row of ``n_head`` floats."""
+
+    n_seq: int
+    n_samples: int
+    sweep_rows: int  # sequences a sweep block: 16, 32 or 64
+    sweep_blocks: int
+    n_tiles: int
+    tiles_per_block: int
+    prologue_blocks: int
+    smem: Dict[str, int]  # dynamic shared memory of each kernel, bytes
+    chunk: int  # samples a dWh partial
+    n_chunks: int
+    n_head: int  # K13: (Hg + 1)(A + 1) + 4 entries of a prologue block's partial; K12: 0
+    scratch: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
+
+    @property
+    def args(self) -> Tuple[int, ...]:
+        """The numbers the library takes, and checks against its own."""
+        return (self.sweep_rows, self.tiles_per_block, self.smem["prologue"], self.smem["sweep"],
+                self.smem["wgrad"], self.chunk, self.n_chunks)
+
+    def sweep_tiles(self) -> List[range]:
+        """The sequences of each sweep block."""
+        return _ranges(self.sweep_rows, self.n_seq, self.sweep_blocks)
+
+    def sample_tiles(self) -> List[range]:
+        """The samples of each prologue tile."""
+        return _ranges(_TILE, self.n_samples, self.n_tiles)
+
+    def prologue_tiles(self) -> List[range]:
+        """The tiles of each prologue block, in the order it takes them."""
+        return _ranges(self.tiles_per_block, self.n_tiles, self.prologue_blocks)
+
+    def chunks(self) -> List[range]:
+        """The samples of each dWh partial."""
+        return _ranges(self.chunk, self.n_samples, self.n_chunks)
+
+
+def gru_seq_bwd_plan(dims: GruDims, t_len: int, n_agents: int, n_env: int,
+                     loss: bool) -> GruSeqBwdPlan:
+    """K12's or K13's launch plan for a band of ``n_env`` envs: the sweep's
+    tile height (as K10's), the prologue's tiles and blocks, each kernel's
+    shared memory (the library refuses other numbers), the dWh chunks and the
+    scratch (``csrc/gru_seq_bwd.cuh::gsq_bwd_run``).  Raises ``ValueError``
+    for widths the kernels do not take: hidden a multiple of 8 up to 128, and
+    for K13 1 to 7 actions with (hidden + 1)(actions + 1) <= 1024."""
+    _kernel_dims(dims)
+    hg, a1 = dims.hidden, dims.n_actions + 1
+    if loss and not (2 <= a1 <= _HEADS and (hg + 1) * a1 <= _HEAD_OUTS):
+        raise ValueError(f"the loss-fused GRU backward takes 1 to {_HEADS - 1} actions with "
+                         f"(hidden + 1)(actions + 1) <= {_HEAD_OUTS}, not {dims.n_actions} "
+                         f"actions at hidden {hg}")
+    n_seq = n_env * n_agents
+    n_samples = t_len * n_seq
+    rows = _sweep_rows(n_seq)
+    n_tiles = -(-n_samples // _TILE)
+    tiles_per_block = -(-n_tiles // _PRO_BLOCKS)
+    prologue_blocks = -(-n_tiles // tiles_per_block)
+    h16 = _r16(hg)
+    tiles = (2 if loss else 1) * _TILE * (h16 + _PAD) + 2 * (h16 + _TILE) * (3 * _SLICE + _PAD)
+    heads = (hg + 1) * _HEADS + _TILE * _HEADS + _TILE * 4 if loss else 0
+    smem = {
+        "prologue": 2 * tiles + 4 * heads + 12 * _TILE,
+        "sweep": _sweep_smem(hg, rows, _HEADS * MAX_WIDTH if loss else 0),
+        "wgrad": _WGRAD_SMEM,
+    }
+    chunk, n_chunks = _wgrad_chunks(n_samples)
+    sweep_blocks = -(-n_seq // rows)
+    n_head = (hg + 1) * a1 + 4 if loss else 0
+    bf, f32 = torch.bfloat16, torch.float32
+    scratch = {"rz": ((n_samples, 2 * hg), f32), "hn": ((n_samples, 2 * hg), bf),
+               "dhhn": ((n_samples, hg), bf)}
+    if loss:
+        scratch["dheads"] = ((n_samples, _HEADS), f32)
+    scratch["part_bhn"] = ((sweep_blocks, hg), f32)
+    if loss:
+        scratch["part_head"] = ((prologue_blocks, n_head), f32)
+    scratch["partial"] = ((n_chunks, hg * 3 * hg), f32)
+    return GruSeqBwdPlan(n_seq, n_samples, rows, sweep_blocks, n_tiles, tiles_per_block,
+                         prologue_blocks, smem, chunk, n_chunks, n_head, scratch)
+
+
+def _workspace(cache: Dict[Tuple, Dict[str, torch.Tensor]], dev, plan) -> Dict[str, torch.Tensor]:
+    """A plan's scratch on ``dev``, kept in ``cache`` for the next launch of
+    the same shapes (one shape at a time: the buffers are large)."""
+    key = (dev,) + tuple(shape for shape, _ in plan.scratch.values())
+    if key not in cache:
+        cache.clear()
+        cache[key] = {name: torch.empty(shape, dtype=dtype, device=dev)
+                      for name, (shape, dtype) in plan.scratch.items()}
+    return cache[key]
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -320,14 +456,6 @@ class FusedGruObsBwd:
             dbe += dpre.sum(0, keepdim=True)
         return torch.cat([g.reshape(-1) for g in grads]), dc
 
-    def _workspace(self, dev, plan: GruBwdPlan) -> Dict[str, torch.Tensor]:
-        key = (dev,) + tuple(shape for shape, _ in plan.scratch.values())
-        if key not in self._scratch:
-            self._scratch.clear()  # one shape at a time: the buffers are large
-            self._scratch[key] = {name: torch.empty(shape, dtype=dtype, device=dev)
-                                  for name, (shape, dtype) in plan.scratch.items()}
-        return self._scratch[key]
-
     def timed(self, weights, obs, done, h0, hseq, dhseq, start_env: int, n_env: int):
         """One launch on the card that waits for its kernels and returns
         ``(grads, dh0, ms)``: ``ms`` the milliseconds of the prologue, the
@@ -349,7 +477,7 @@ class FusedGruObsBwd:
         lib = load_library()
         we, be, wi, bi, wh, bhn = weights
         with torch.cuda.device(dev):
-            ws = self._workspace(dev, plan)
+            ws = _workspace(self._scratch, dev, plan)
             args = [obs.contiguous(), done.contiguous(), h0.contiguous(), hseq.contiguous(),
                     dhseq.contiguous(), _bf16(we), _f32(be), _bf16(wi), _f32(bi), _bf16(wh),
                     _f32(bhn)] + [ws[k] for k in plan.scratch]
@@ -526,63 +654,56 @@ class FusedGruSeqFwd:
 
 
 class _SeqBwdLaunch:
-    """The launch shape and scratch of K12 and K13 (``csrc/gru_seq.cuh``)."""
+    """The launch of K12 and K13 (``csrc/gru_seq_bwd.cuh``) on
+    :func:`gru_seq_bwd_plan`, its scratch kept between launches."""
+
+    loss = False
 
     def __init__(self, dims: GruDims):
         self.dims = dims
         self.launches = 0
         self._scratch: Dict[Tuple, Dict[str, torch.Tensor]] = {}
 
-    def _workspace(self, dev, n_samples: int, n_chunks: int, sweep_blocks: int, n_blk: int):
-        key = (dev, n_samples, n_chunks, sweep_blocks, n_blk)
-        if key not in self._scratch:
-            self._scratch.clear()  # one shape at a time: the buffers are large
-            hg = self.dims.hidden
-            self._scratch[key] = {
-                "dhhn": torch.empty((n_samples, hg), dtype=torch.bfloat16, device=dev),
-                "part_blk": torch.empty((sweep_blocks, n_blk), dtype=torch.float32, device=dev),
-                "partial": torch.empty((n_chunks, hg * 3 * hg), dtype=torch.float32, device=dev),
-            }
-        return self._scratch[key]
-
-    def _run(self, name: str, head_args, tensors, iall, done, start_env: int, n_env: int,
-             n_blk: int):
+    def _run(self, name: str, ints, scalars, tensors, iall, done, start_env: int, n_env: int,
+             split):
         """One launch of ``rw_<name>(Hg, *ints, T, B, N, start_env, n_env,
-        rows_per_thread, chunk, n_chunks, *scalars, *tensors, scratch, d_iall,
-        grads, dh0, stream)`` with ``head_args = (ints, scalars)``; returns
-        (flat grads, d_iall, dh0)."""
+        *plan.args, *scalars, *tensors, *scratch, d_iall, grads, dh0, split_ms,
+        stream)``; returns (flat grads, d_iall, dh0)."""
         from rware_tpu_torch.ops._build import check, load_library
 
-        _kernel_dims(self.dims)
-        lib = load_library()
         dev = iall.device
         t_len, _, n, _ = iall.shape
-        hg, n_seq = self.dims.hidden, n_env * n
-        n_samples = t_len * n_seq
-        rpt = _rows_per_thread(n_seq)
-        sweep_blocks = -(-n_seq // (16 * rpt))
-        # up to 128 dWh partials, each over a multiple of 32 samples
-        n_chunks = min(128, -(-n_samples // 1024))
-        chunk = 32 * -(-n_samples // (32 * n_chunks))
-        ints, scalars = head_args
+        plan = gru_seq_bwd_plan(self.dims, t_len, n, n_env, self.loss)
+        lib = load_library()
+        hg = self.dims.hidden
         with torch.cuda.device(dev):
-            ws = self._workspace(dev, n_samples, n_chunks, sweep_blocks, n_blk)
+            ws = _workspace(self._scratch, dev, plan)
             d_iall = torch.empty(iall.shape, dtype=torch.bfloat16, device=dev)
-            grads = torch.empty(hg * 3 * hg + n_blk, dtype=torch.float32, device=dev)
+            grads = torch.empty(hg * 3 * hg + hg + plan.n_head, dtype=torch.float32, device=dev)
             dh0 = torch.empty((n_env, n, hg), dtype=torch.float32, device=dev)
             code = getattr(lib, f"rw_{name}")(
-                hg, *ints, t_len, done.shape[1], n, start_env, n_env, rpt, chunk, n_chunks,
-                *scalars, *[x.data_ptr() for x in tensors], ws["dhhn"].data_ptr(),
-                ws["part_blk"].data_ptr(), ws["partial"].data_ptr(), d_iall.data_ptr(),
-                grads.data_ptr(), dh0.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                hg, *ints, t_len, done.shape[1], n, start_env, n_env, *plan.args, *scalars,
+                *[x.data_ptr() for x in tensors], *[ws[k].data_ptr() for k in plan.scratch],
+                d_iall.data_ptr(), grads.data_ptr(), dh0.data_ptr(), split,
+                torch.cuda.current_stream(dev).cuda_stream)
             check(lib, code, name)
             self.launches += 1
         return grads, d_iall, dh0
 
+    def timed(self, *args):
+        """One launch on the card that waits for its kernels and returns
+        ``(out, ms)``: ``out`` what the call returns, ``ms`` the milliseconds
+        of the prologue, the sweep, dWh and the reduction, by CUDA events."""
+        dev = self._check(*args)
+        if dev.type != "cuda":
+            raise ValueError("the time split is taken on the card")
+        split = (ctypes.c_float * 4)()
+        out = self._launch(*args, split=split)
+        return out, dict(zip(("prologue", "sweep", "wgrad", "reduce"), split))
+
     @staticmethod
     def _weights(wh, bhn):
-        whb = _bf16(wh)
-        return [whb, _f32(bhn), whb.t().contiguous()]
+        return [_bf16(wh), _f32(bhn)]
 
 
 class FusedGruSeqBwd(_SeqBwdLaunch):
@@ -617,12 +738,12 @@ class FusedGruSeqBwd(_SeqBwdLaunch):
         return _seq_bwd_plain(wh, bhn, iall, done, h0, hseq, dhseq.float(), idx)
 
     @torch.no_grad()
-    def _launch(self, wh, bhn, iall, done, h0, hseq, dhseq, start_env, n_env):
+    def _launch(self, wh, bhn, iall, done, h0, hseq, dhseq, start_env, n_env, split=None):
         hg = self.dims.hidden
         tensors = [x.contiguous() for x in (iall, done, h0, hseq, dhseq)] \
             + self._weights(wh, bhn)
-        grads, d_iall, dh0 = self._run("fused_gru_seq_bwd", ((), ()), tensors, iall, done,
-                                       start_env, n_env, hg)
+        grads, d_iall, dh0 = self._run("fused_gru_seq_bwd", (), (), tensors, iall, done,
+                                       start_env, n_env, split)
         FusedGruSeqBwd.all_launches += 1
         n_w = hg * 3 * hg
         return grads[:n_w].view(hg, 3 * hg), grads[n_w:].view(1, hg), d_iall, dh0
@@ -632,6 +753,8 @@ class FusedGruLossBwd(_SeqBwdLaunch):
     """``bwd(wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp, value,
     adv, target, stats, start_env, n_env) -> (d_iall, dwh, dbhn, dwhead,
     dbhead, dh0, mets)``; see :func:`build_fused_gru_loss_bwd`."""
+
+    loss = True
 
     def __init__(self, dims: GruDims, clip_eps: float, vf_coef: float, ent_coef: float):
         super().__init__(dims)
@@ -676,21 +799,35 @@ class FusedGruLossBwd(_SeqBwdLaunch):
     def plain(self, wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp, value, adv,
               target, stats, start_env: int, n_env: int):
         """The plain PyTorch version (``pallas_gru.py:886-951``, then the
-        sweep of :class:`FusedGruSeqBwd`): f32 heads of ``hseq``, the
-        clipped-PPO loss's backward with the band's ``stats`` = [adv_mean,
-        1 / (adv_std + 1e-8)], and ``dheads whead^T`` as each step's
-        cotangent."""
+        sweep of :class:`FusedGruSeqBwd`): :meth:`heads_loss_bwd` of the
+        band, and ``dheads whead^T`` as each step's cotangent."""
         self._check(wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp, value, adv,
                     target, stats, start_env, n_env)
         idx = band_index(start_env, n_env, done.shape[1], iall.device)
+        whead = whead.detach().float()
+        streams = [x[:, idx] for x in (action, logp, value, adv, target)]
+        dheads, terms = self.heads_loss_bwd(hseq, whead, bhead, streams, stats)
+        mets = torch.stack([x.sum() for x in terms])
+        hf, a1 = hseq.float(), self.n_heads
+        dwhead = hf.reshape(-1, hf.shape[-1]).t() @ dheads.reshape(-1, a1)
+        dbhead = dheads.reshape(-1, a1).sum(0)
+        dwh, dbhn, d_iall, dh0 = _seq_bwd_plain(wh, bhn, iall, done, h0, hseq,
+                                                dheads @ whead.t(), idx)
+        return d_iall, dwh, dbhn, dwhead, dbhead, dh0, mets
+
+    @torch.no_grad()
+    def heads_loss_bwd(self, hseq, whead, bhead, streams, stats):
+        """The f32 heads of ``hseq`` against ``whead`` (Hg, A+1) and ``bhead``,
+        and the clipped-PPO loss's backward with the band's ``stats`` =
+        [adv_mean, 1 / (adv_std + 1e-8)]; ``streams`` = (action, logp, value,
+        adv, target) of the band.  Returns (dheads (T, n_env, N, A+1), the
+        per-sample terms of the four metric sums)."""
         eps, a = self.clip_eps, self.dims.n_actions
         inv_n = 1.0 / hseq[..., 0].numel()
-        whead, stats = whead.detach().float(), stats.detach().float()
-        hf = hseq.float()
-        heads = hf @ whead + bhead.detach().float()
+        stats = stats.detach().float()
+        heads = hseq.float() @ whead + bhead.detach().float()
         logits, val = heads[..., :a], heads[..., a]
-        act, old_logp, old_value, advb, tgt = (x[:, idx] for x in (action, logp, value, adv,
-                                                                    target))
+        act, old_logp, old_value, advb, tgt = streams
         mx = logits.max(-1, keepdim=True).values
         sm = torch.exp(logits - mx)
         zs = sm.sum(-1, keepdim=True)
@@ -712,27 +849,21 @@ class FusedGruLossBwd(_SeqBwdLaunch):
         inside_v = ((vdiff > -eps) & (vdiff < eps)).float()
         dvalue = (self.vf_coef * inv_n) * torch.where(e1 * e1 >= e2 * e2, e1, e2 * inside_v)
         dheads = torch.cat([dlogits, dvalue[..., None]], -1)
-        mets = torch.stack([torch.minimum(pg1, pg2).sum(),
-                            (0.5 * torch.maximum(e1 * e1, e2 * e2)).sum(), ent.sum(),
-                            ((ratio - 1.0) - (lp - old_logp)).sum()])
-        a1 = a + 1
-        dwhead = hf.reshape(-1, hf.shape[-1]).t() @ dheads.reshape(-1, a1)
-        dbhead = dheads.reshape(-1, a1).sum(0)
-        dwh, dbhn, d_iall, dh0 = _seq_bwd_plain(wh, bhn, iall, done, h0, hseq,
-                                                dheads @ whead.t(), idx)
-        return d_iall, dwh, dbhn, dwhead, dbhead, dh0, mets
+        terms = (torch.minimum(pg1, pg2), 0.5 * torch.maximum(e1 * e1, e2 * e2), ent,
+                 (ratio - 1.0) - (lp - old_logp))
+        return dheads, terms
 
     @torch.no_grad()
     def _launch(self, wh, bhn, whead, bhead, iall, done, h0, hseq, action, logp, value, adv,
-                target, stats, start_env, n_env):
+                target, stats, start_env, n_env, split=None):
         hg, a1 = self.dims.hidden, self.n_heads
         head = torch.cat([whead.detach().float(), bhead.detach().float()[None]], 0)
         tensors = [x.contiguous() for x in (stats.float(), iall, done, h0, hseq, action, logp,
                                             value, adv, target)] \
             + self._weights(wh, bhn) + [head.contiguous()]
         scalars = (self.clip_eps, self.vf_coef, self.ent_coef, 1.0 / hseq[..., 0].numel())
-        grads, d_iall, dh0 = self._run("fused_gru_loss_bwd", ((a1 - 1,), scalars), tensors, iall,
-                                       done, start_env, n_env, hg + (hg + 1) * a1 + 4)
+        grads, d_iall, dh0 = self._run("fused_gru_loss_bwd", (a1 - 1,), scalars, tensors, iall,
+                                       done, start_env, n_env, split)
         n_w = hg * 3 * hg
         o_head = n_w + hg + hg * a1
         return (d_iall, grads[:n_w].view(hg, 3 * hg), grads[n_w:n_w + hg].view(1, hg),

@@ -403,6 +403,37 @@ def test_gru_seq_kernels_match_plain(env_id, band):
     assert bool(((got - want).abs() <= 1e-3 * want.abs() + 1e-5).all()), (got, want)
 
 
+@pytest.mark.parametrize("env_id,band", [("rware-tiny-2ag-v2", (450, 300)),
+                                         ("rware-tiny-16ag-v2", (550, 100))])
+def test_gru_seq_backwards_match_plain_at_hidden_40(env_id, band):
+    """K12 and K13 at embed 24 and hidden 40 (multiples of 8 but not of 16:
+    their tensor-core tiles padded and masked) on bands that wrap: within 1e-2
+    of each block's largest |plain|, K13's metric sums within rtol 1e-3 of the
+    means (and 1e-5); a launch, a second one and a timed one bit-equal, the
+    timed one with a time for each of its four kernels."""
+    dims, a = random_gru_seq_case(env_id, 600, 8, band, 11, DEV, hidden=40, embed=24)
+    fwd, bwd = build_fused_gru_seq_fwd(dims), build_fused_gru_seq_bwd(dims)
+    loss = build_fused_gru_loss_bwd(dims, 0.2, 0.5, 0.01)
+    seq = (a["wh"], a["bhn"], a["iall"], a["done"], a["h0"])
+    ph = fwd.plain(*seq, *band)
+    dh = (torch.randn(ph.shape, generator=torch.Generator().manual_seed(4)) * 1e-2)
+    dh = dh.to(torch.bfloat16).to(DEV)
+    largs = (a["wh"], a["bhn"], a["whead"], a["bhead"], *seq[2:], ph, a["action"], a["logp"],
+             a["value"], a["adv"], a["target"], a["stats"], *band)
+    for kernel, args in ((bwd, seq + (ph, dh) + band), (loss, largs)):
+        got, again = kernel(*args), kernel(*args)
+        (timed, ms), want = kernel.timed(*args), kernel.plain(*args)
+        assert kernel.launches == 3
+        assert set(ms) == {"prologue", "sweep", "wgrad", "reduce"} and min(ms.values()) > 0
+        for g, g2, g3 in zip(got, again, timed):
+            assert torch.equal(g, g2) and torch.equal(g, g3)
+        for g, w in zip(got[:6], want[:6]):  # K13's metric sums below
+            assert float((g.float() - w.float()).abs().max()) <= 1e-2 * float(w.float().abs().max())
+    n = float(ph[..., 0].numel())
+    got, want = got[6].double() / n, want[6].double() / n
+    assert bool(((got - want).abs() <= 1e-3 * want.abs() + 1e-5).all()), (got, want)
+
+
 def test_gru_seq_scan_on_the_card_matches_the_cpu():
     """GruSeqScan (K11 forward, K12 backward) under autograd on the card
     against the same call on the CPU (the plain versions), a band that

@@ -52,6 +52,14 @@ with K2b (two message bits), K2a with K2e (``rware-img-tiny-2ag-v2``), K2d and
 K2d with K2b, each agent its own network, then K1 (B=65,536, T=256), the
 recurrent collector K2c (embed 128, GRU 128) and K2d′ (B=4,096), each beside
 its plain version where ``--plain`` asks for it.
+``--gru-seq-kernels`` times only the iall-fed GRU kernels alone at the band
+shape (tiny-2ag, B=16,384, T=128, a 4,096-env band that wraps, embed 128, GRU
+128, ``testing.random_gru_seq_case``): K11, K12 and K13, each beside its plain
+version where ``--plain`` asks for it, and K12's and K13's split into
+prologue, sweep, dWh and reduction where the checkout times it (the median of
+``--repeats`` timed launches); then it prints a digest of K10's outputs (with
+K9's hidden sequence) on ``chip_smoke.py``'s phase-13 cases, so that two
+checkouts' K10 can be held bit for bit to each other.
 ``--tree DIR`` imports ``rware_tpu_torch`` from the checkout DIR (an unpacked
 older commit, say) so that two commits are timed by the same script on one
 card: run it as old, new, new, old.
@@ -62,6 +70,7 @@ Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-
        [--n-envs B] [--env ID] [--out FILE]
        python tools/torch_kernel_timing.py --ppo-kernels [--tree DIR] [--plain] [--out FILE]
        python tools/torch_kernel_timing.py --collect-kernels [--tree DIR] [--plain] [--out FILE]
+       python tools/torch_kernel_timing.py --gru-seq-kernels [--tree DIR] [--plain] [--out FILE]
 """
 import argparse
 import json
@@ -340,6 +349,67 @@ def collect_kernels(tree, repeats, plain, emit, dev):
           lambda: collect(states, grus, 1, carry), lambda: collect.plain(states, grus, 1, carry))
 
 
+def gru_seq_kernels(tree, repeats, plain, emit, dev):
+    """K11, K12 and K13 at the band shape, and K10's output digests (see the
+    module's docstring)."""
+    import hashlib
+
+    import torch
+    import chip_smoke
+    from rware_tpu_torch.ops.fused_gru import (
+        build_fused_gru_loss_bwd,
+        build_fused_gru_obs_bwd,
+        build_fused_gru_obs_fwd,
+        build_fused_gru_seq_bwd,
+        build_fused_gru_seq_fwd,
+    )
+    from rware_tpu_torch.testing import random_gru_seq_case
+
+    b, t = 16384, 128
+    band = ((b - 5 * 128) % b, b // 4)  # the first band of an epoch at row offset 5: it wraps
+    dims, a = random_gru_seq_case("rware-tiny-2ag-v2", b, t, band, 37, dev)
+    fwd, bwd = build_fused_gru_seq_fwd(dims), build_fused_gru_seq_bwd(dims)
+    loss = build_fused_gru_loss_bwd(dims, 0.2, 0.5, 0.01)
+    seq = (a["wh"], a["bhn"], a["iall"], a["done"], a["h0"])
+    hseq = fwd(*seq, *band)
+    gen = torch.Generator().manual_seed(41)
+    dh = (torch.randn(hseq.shape, generator=gen) * 1e-2).to(torch.bfloat16).to(dev)
+    largs = (a["wh"], a["bhn"], a["whead"], a["bhead"], a["iall"], a["done"], a["h0"], hseq,
+             a["action"], a["logp"], a["value"], a["adv"], a["target"], a["stats"], *band)
+    base = {"tree": tree, "env": "rware-tiny-2ag-v2", "B": b, "T": t, "band": band}
+    for name, kernel, args in (("fused_gru_seq_fwd (K11)", fwd, seq + band),
+                               ("fused_gru_seq_bwd (K12)", bwd, seq + (hseq, dh) + band),
+                               ("fused_gru_loss_bwd (K13)", loss, largs)):
+        med, lo, hi = time_launches(lambda: kernel(*args), repeats)
+        rec = dict(base, kernel=name, ms_median=med, ms_min=lo, ms_max=hi,
+                   sequence_steps_per_s=t * band[1] * hseq.shape[2] / med * 1e3)
+        if plain:
+            rec["plain_ms"] = time_launches(lambda: kernel.plain(*args), 1)[0]
+        emit(rec)
+        if kernel is not fwd and hasattr(kernel, "timed"):
+            splits = [kernel.timed(*args)[-1] for _ in range(repeats + 1)][1:]
+            emit(dict(base, kernel=f"{name} split, ms", **{
+                k: statistics.median(s[k] for s in splits) for k in splits[0]}))
+    del a, seq, hseq, dh, largs
+    torch.cuda.empty_cache()
+    # K10 on chip_smoke's phase-13 cases: a digest of its outputs' bits
+    for env_id, bb, t_len, bands, hidden in chip_smoke.GRU_CASES:
+        dims, weights, obs, done, h0 = chip_smoke.random_gru_case(env_id, bb, t_len, 17, dev,
+                                                                  hidden=hidden)
+        k9, k10 = build_fused_gru_obs_fwd(dims), build_fused_gru_obs_bwd(dims)
+        for band in bands:
+            hseq = k9(weights, obs, done, h0, *band)
+            gen = torch.Generator().manual_seed(19)
+            dh = (torch.randn(hseq.shape, generator=gen) * 1e-3).to(torch.bfloat16).to(dev)
+            grads, dh0 = k10(weights, obs, done, h0, hseq, dh, *band)
+            digest = hashlib.sha256()
+            for x in (hseq, grads, dh0):
+                digest.update(x.float().cpu().numpy().tobytes())
+            emit({"tree": tree, "kernel": "fused_gru_obs_bwd (K10) digest of hseq, grads, dh0",
+                  "env": env_id, "B": bb, "T": t_len, "band": band, "widths": hidden,
+                  "sha256": digest.hexdigest()})
+
+
 def seq_kernels(dims, weights, arrays, traj, carry, band, env_id, b, t, repeats, emit, dev,
                 kernels):
     """K11, K12 and K13 on ``band`` of the collected trajectory: the gates of
@@ -394,9 +464,12 @@ def main():
     ap.add_argument("--collect-kernels", action="store_true",
                     help="time only the collectors (K2a, K2b, K2e, K2d, K1, K2c, K2d′) at the "
                          "main shape")
+    ap.add_argument("--gru-seq-kernels", action="store_true",
+                    help="time only K11, K12 and K13 at the band shape; K10's output digests")
     ap.add_argument("--tree", help="import rware_tpu_torch from this checkout")
     ap.add_argument("--plain", action="store_true",
-                    help="--ppo-kernels, --collect-kernels: time each plain version too")
+                    help="--ppo-kernels, --collect-kernels, --gru-seq-kernels: time each plain "
+                         "version too")
     args = ap.parse_args()
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -440,6 +513,9 @@ def main():
         args.configs = []
     if args.collect_kernels:
         collect_kernels(args.tree or ".", args.repeats, args.plain, emit, dev)
+        args.configs = []
+    if args.gru_seq_kernels:
+        gru_seq_kernels(args.tree or ".", args.repeats, args.plain, emit, dev)
         args.configs = []
     for env_id in args.configs:
         env = rware_tpu_torch.make(env_id, device=dev, msg_bits=m)
