@@ -61,9 +61,11 @@ Phases, one line each:
     versions;
 12. the recurrent collector kernel (K2c) against its plain version on the
     card, from a nonzero carry: deterministic and random mode on tiny-2ag,
-    small-4ag and tiny-16ag at B=1000, and the main shape; obs, rewards, done
-    and the final state exact, value and logp within 2e-2, at least 99.9% of
-    actions equal and of carry entries within one bf16 step (7.8e-3);
+    small-4ag and tiny-16ag at B=1000, tiny-2ag at (embed, hidden) (24, 40)
+    (multiples of 8 but not of 16: fewer jobs than threads) at B=1 and 1000,
+    and the main shape; obs, rewards, done and the final state exact, value
+    and logp within 2e-2, at least 99.9% of actions equal and of carry
+    entries within one bf16 step (7.8e-3);
 13. the GRU sequence kernels (K9 forward, K10 backward) against their plain
     versions: random data with ``done`` at 20% and a nonzero initial hidden on
     tiny-2ag, sensor range 3 (351 features: like every width, the embed
@@ -119,12 +121,14 @@ Phases, one line each:
     before and read after (IPPO: 3 collector, 48 K4, 0 K3; recurrent: 3 K2c,
     48 K9, 48 K10; MAPPO: 3 collector, 48 K4, 0 K5, 0 K7), the time of an
     update split by phase; K2a with K2b and K4 with the message head timed at
-    that shape beside their plain versions;
+    that shape beside their plain versions; K2c with K2b held to its plain
+    version at that shape and on tiny-2ag at (embed, hidden) (24, 40), B=1000;
 21. the per-agent recurrent collector (K2d′) and its message mode (K2d′ with
     K2b) against their plain versions on the card: tiny-2ag, small-4ag and
     large-8ag, deterministic and random mode, M=0 and M=2 at B=1000, T=32
     from a nonzero carry (large-8ag M=2 also with the agents' bias and head
-    blocks read from device memory), then the main shape tiny-2ag B=16,384,
+    blocks read from device memory; tiny-2ag at (embed, hidden) (24, 40) with
+    them in shared and in device memory), then the main shape tiny-2ag B=16,384,
     T=128, embed 128, GRU 128 at M=0 and M=2; obs, rewards, done, bits,
     every action, the final state and the new carry exact, value and logp
     within 2e-2; the per-agent MLP collector's message mode (K2d with K2b) at
@@ -150,7 +154,8 @@ Phases, one line each:
     included) and img-tiny-2ag with M=2; K2c on the first three and every
     layer with M=2; K2d (weights in shared memory at tiny-2ag and small-4ag,
     in device memory at large-8ag) and K2d′ on img tiny-2ag, small-4ag and
-    large-8ag, and K2d on img-tiny-2ag at hidden (24, 40) on both routes;
+    large-8ag, K2c and K2d′ on img-tiny-2ag at (embed, hidden) (24, 40) with
+    M=0 and M=2, and K2d on img-tiny-2ag at hidden (24, 40) on both routes;
     B=1000, T=32, deterministic and random mode, from a nonzero carry; obs,
     rewards, done, bits, every action, the final state and the carry exact,
     value and logp within 2e-2;
@@ -192,7 +197,11 @@ block at the main shape: its env threads step, a thread a row builds the
 observations from a view of the state in shared memory, and the hidden layers
 are an FMA block product on the FP32 pipes, bit for bit the plain version's
 sums (``ops/fused_rollout.collect_plan``); phases 4, 15, 18, 21, 24 and 25
-hold it to its plain version.
+hold it to its plain version.  The recurrent collector (K2c, with K2b and
+K2e; K2d′) runs the same way, its carry a tile in shared memory for the
+whole launch and the embed and both gate products an FMA block product
+(``ops/fused_rollout.collect_gru_plan``); phases 12, 14, 18, 20-22, 24, 25,
+27 and 28 hold it to its plain version or count its launches.
 
 Then the card's name and power limit, one JSON line describing each kernel
 (its time beside its plain version's and beside ``bound_ms``, the least time
@@ -362,6 +371,15 @@ def state_diff(a, b) -> list:
         f for f in state_field_names()
         if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
     ]
+
+
+def tile_note(collect, b) -> str:
+    """The tile a collector launch of ``b`` envs takes: envs and threads a
+    block, and where the MLP's weights or the GRU's f32 bias and head blocks
+    sit (the recurrent collectors plan per batch)."""
+    plan = collect.plan(b) if callable(collect.plan) else collect.plan
+    return (f"{plan.te} envs x {plan.threads} threads a block, "
+            f"{'device' if plan.weights_global else 'shared'} memory")
 
 
 def require(ok, msg: str) -> None:
@@ -852,7 +870,7 @@ MSG_CONFIGS = (("rware-tiny-2ag-v2", 2), ("rware-small-4ag-v2", 1), ("rware-2s-t
 
 
 def compare_k2b(env_id, dev, b, t, deterministic, seed, net="mlp", policy=None, collect=None,
-                states=None, h0=None, **overrides):
+                states=None, h0=None, hidden=(128, 128), **overrides):
     """The message mode K2b of the MLP (K2a) or recurrent (K2c) collector
     against its plain version on the card (``msg_bits`` in ``overrides``;
     from a reset and, for the GRU, a random nonzero carry unless ``states``
@@ -871,8 +889,8 @@ def compare_k2b(env_id, dev, b, t, deterministic, seed, net="mlp", policy=None, 
         states, _ = batched_reset(env, seed, b)
     gen = torch.Generator().manual_seed(seed)
     if policy is None:
-        init = init_actor_critic(length, 5, (128, 128), seed, m) if net == "mlp" else \
-            init_recurrent_actor_critic(length, 5, 128, 128, seed, m)
+        init = init_actor_critic(length, 5, hidden, seed, m) if net == "mlp" else \
+            init_recurrent_actor_critic(length, 5, hidden[1], hidden[0], seed, m)
         with torch.no_grad():  # nonzero biases: a zero bias hides where it is rounded
             for p in init.parameters():
                 if p.dim() == 1:
@@ -880,14 +898,14 @@ def compare_k2b(env_id, dev, b, t, deterministic, seed, net="mlp", policy=None, 
         policy = init.to(dev)
     what = f"K2b ({net}) {env_id} {overrides} deterministic={deterministic}"
     if net == "mlp":
-        collect = collect or build_fused_collect(env.config, t, deterministic=deterministic)
+        collect = collect or build_fused_collect(env.config, t, hidden, deterministic)
         ks, ktraj = collect(states, policy, seed + 1)
         ps, ptraj = collect.plain(states, policy, seed + 1)
     else:
         if h0 is None:
-            h0 = (torch.rand((b, env.n_agents, 128), generator=gen) * 2 - 1).to(torch.bfloat16)
-            h0 = h0.to(dev)
-        collect = collect or build_fused_collect_gru(env.config, t, deterministic=deterministic)
+            h0 = torch.rand((b, env.n_agents, hidden[1]), generator=gen) * 2 - 1
+            h0 = h0.to(torch.bfloat16).to(dev)
+        collect = collect or build_fused_collect_gru(env.config, t, hidden, deterministic)
         ks, kh, ktraj = collect(states, policy, seed + 1, h0)
         ps, ph, ptraj = collect.plain(states, policy, seed + 1, h0)
         torch.cuda.synchronize()
@@ -1339,6 +1357,13 @@ def phase12(dev, kind, card):
             log(f"phase 12 K2c {env_id} max_steps=20 B=1000 T=32 deterministic={deterministic}: "
                 f"obs/reward/done/state exact, actions {agree:.6f}, value/logp err {err}, carry "
                 f"within a bf16 step {h_ok:.6f}")
+    for b in (1, 1000):
+        for deterministic in (True, False):
+            _, _, _, _, agree, err, h_ok = compare_k2c(NARROW_CASE[0], dev, b, 32, deterministic,
+                                                       5, hidden=NARROW_CASE[1], max_steps=20)
+            log(f"phase 12 K2c {NARROW_CASE[0]} (embed, hidden) {NARROW_CASE[1]} B={b} T=32 "
+                f"deterministic={deterministic}: obs/reward/done/state exact, actions "
+                f"{agree:.6f}, value/logp err {err}, carry within a bf16 step {h_ok:.6f}")
     _, _, _, _, agree, err, h_ok = compare_k2c("rware-tiny-2ag-v2", dev, 16384, 128, False, 13)
     log(f"phase 12 K2c main shape B=16384 T=128 random: obs/reward/done/state exact, actions "
         f"{agree:.6f}, value/logp max_abs_err {err}, carry within a bf16 step {h_ok:.6f} "
@@ -1618,7 +1643,7 @@ def phase18(dev, kind, card):
                 log(f"phase 18 K2b ({net}) {env_id} M={m} B=1000 T=32 deterministic="
                     f"{deterministic}: obs/reward/done/bits/actions/state exact, value/logp err "
                     f"{err}, bits set {float(traj['bits'].float().mean()):.4f} "
-                    f"({collect.threads} threads)")
+                    f"({tile_note(collect, 1000)})")
     _, traj, _, k2b_err = compare_k2b("rware-tiny-2ag-v2", dev, 16384, 128, False, 13,
                                       msg_bits=2)
     log(f"phase 18 K2b (mlp) main shape tiny-2ag M=2 B=16384 T=128 random: obs/reward/done/"
@@ -1781,6 +1806,12 @@ def phase20(dev, kind, card, k2b_err, n_envs=16384, rollout_len=128):
         f"runner's state and carry: obs/reward/done/bits/actions/state/carry exact, "
         f"{k2cm_ms:.3f} ms/launch (plain {k2cm_plain_ms:.1f} ms, value/logp max_abs_err "
         f"{k2cm_err}) [{kind}, {card}]")
+    for deterministic in (True, False):
+        _, _, collect, err = compare_k2b(NARROW_CASE[0], dev, 1000, 32, deterministic, 5, "gru",
+                                         hidden=NARROW_CASE[1], msg_bits=2, max_steps=20)
+        log(f"phase 20 K2c with K2b {NARROW_CASE[0]} (embed, hidden) {NARROW_CASE[1]} M=2 "
+            f"B=1000 T=32 deterministic={deterministic}: obs/reward/done/bits/actions/state/carry "
+            f"exact, value/logp err {err} ({tile_note(collect, 1000)})")
     k2cm_bound = bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
                        + 2 * tensor_bytes(runner.carry) + 4.0 * gdims.n_params,
                        steps * env.n_agents * gru_cell_flops(gdims, True),
@@ -1813,11 +1844,12 @@ def phase20(dev, kind, card, k2b_err, n_envs=16384, rollout_len=128):
 
 
 def compare_k2dp(env_id, dev, b, t, deterministic, seed, policies=None, collect=None,
-                 states=None, h0=None, smem_stacks=None, **overrides):
+                 states=None, h0=None, heads_global=None, hidden=(128, 128), **overrides):
     """K2d′ (with its message mode K2b where ``overrides`` give ``msg_bits``)
     against its plain version on the card, from a reset and a random nonzero
-    carry unless ``states`` and ``h0`` are given; ``smem_stacks=0`` reads the
-    agents' bias and head blocks from device memory.  Obs, rewards, done,
+    carry unless ``states`` and ``h0`` are given; ``heads_global`` True reads
+    the agents' bias and head blocks from device memory, False holds them in
+    shared memory (None: the plan's choice).  Obs, rewards, done,
     bits, every action, the final state and the new carry exact; returns
     (env, traj, collector, value/logp error)."""
     import torch
@@ -1832,19 +1864,19 @@ def compare_k2dp(env_id, dev, b, t, deterministic, seed, policies=None, collect=
     if states is None:
         states, _ = batched_reset(env, seed, b)
     if h0 is None:
-        h0 = (torch.rand((b, n, 128), generator=gen) * 2 - 1).to(torch.bfloat16).to(dev)
+        h0 = (torch.rand((b, n, hidden[1]), generator=gen) * 2 - 1).to(torch.bfloat16).to(dev)
     if policies is None:  # each agent its own GRU, biases off zero
         policies = torch.nn.ModuleList(
-            init_recurrent_actor_critic(length, 5, 128, 128, (seed, 2, i), m) for i in range(n))
+            init_recurrent_actor_critic(length, 5, hidden[1], hidden[0], (seed, 2, i), m)
+            for i in range(n))
         with torch.no_grad():
             for p in policies.parameters():
                 if p.dim() == 1:
                     p.copy_(0.3 * torch.randn(p.shape, generator=gen))
         policies = policies.to(dev)
-    collect = collect or build_fused_collect_gru_per_agent(env.config, t,
-                                                           deterministic=deterministic)
-    if smem_stacks is not None:
-        collect.smem_stacks = smem_stacks
+    collect = collect or build_fused_collect_gru_per_agent(env.config, t, hidden, deterministic)
+    if heads_global is not None:
+        collect.heads_global = heads_global
     ks, kh, ktraj = collect(states, policies, seed + 1, h0)
     ps, ph, ptraj = collect.plain(states, policies, seed + 1, h0)
     torch.cuda.synchronize()
@@ -1882,12 +1914,23 @@ def phase21(dev, kind, card):
                                                      msg_bits=m, **overrides)
                 log(f"phase 21 K2d′ {env_id} M={m} B=1000 T=32 deterministic={deterministic}: "
                     f"obs/reward/done/bits/actions/state/carry exact, value/logp err {err} "
-                    f"(bias and head blocks in shared memory, {collect.threads} threads)")
+                    f"(bias and head blocks in {tile_note(collect, 1000)})")
     _, _, collect, err = compare_k2dp("rware-large-8ag-v2", dev, 1000, 32, False, 6,
-                                      smem_stacks=0, msg_bits=2, max_steps=20)
+                                      heads_global=True, msg_bits=2, max_steps=20)
     log(f"phase 21 K2d′ rware-large-8ag-v2 M=2 B=1000 T=32 random, bias and head blocks read "
         f"from device memory: obs/reward/done/bits/actions/state/carry exact, value/logp err "
-        f"{err} ({collect.threads} threads)")
+        f"{err} ({tile_note(collect, 1000)})")
+    for heads_global in (False, True):
+        for m in (0, 2):
+            for deterministic in (True, False):
+                _, _, collect, err = compare_k2dp(NARROW_CASE[0], dev, 1000, 32, deterministic,
+                                                  5, heads_global=heads_global,
+                                                  hidden=NARROW_CASE[1], msg_bits=m,
+                                                  max_steps=20)
+                log(f"phase 21 K2d′ {NARROW_CASE[0]} (embed, hidden) {NARROW_CASE[1]} M={m} "
+                    f"B=1000 T=32 deterministic={deterministic}: obs/reward/done/bits/actions/"
+                    f"state/carry exact, value/logp err {err} (bias and head blocks in "
+                    f"{tile_note(collect, 1000)})")
     errs = {}
     for m in (0, 2):
         _, _, collect, err = compare_k2dp("rware-tiny-2ag-v2", dev, 16384, 128, False, 13,
@@ -2049,14 +2092,15 @@ def image_env(name, dev, **overrides):
 
 def image_policy(kind, config, seed, dev, hidden=(128, 128)):
     """A network of ``kind`` (one per agent for the per-agent kinds) at the
-    config's policy observation length and message bits, embed and GRU widths
-    128 or MLP widths ``hidden``, biases off zero."""
+    config's policy observation length and message bits, MLP widths or (embed,
+    GRU) widths ``hidden``, biases off zero."""
     import torch
     from rware_tpu_torch.models.networks import init_actor_critic, init_recurrent_actor_critic
 
     length, m = config.policy_obs_length, config.msg_bits
     per_agent = kind.endswith("per_agent")
-    init = (lambda i: init_recurrent_actor_critic(length, 5, 128, 128, (seed, i), m)) \
+    init = (lambda i: init_recurrent_actor_critic(length, 5, hidden[1], hidden[0], (seed, i),
+                                                  m)) \
         if kind.startswith("gru") else (lambda i: init_actor_critic(length, 5, hidden,
                                                                     (seed, i), m))
     nets = torch.nn.ModuleList(init(i) for i in range(config.n_agents if per_agent else 1))
@@ -2070,7 +2114,7 @@ def image_policy(kind, config, seed, dev, hidden=(128, 128)):
 
 
 def compare_k2e(kind, env, b, t, deterministic, seed, states=None, policy=None, h0=None,
-                collect=None):
+                collect=None, hidden=(128, 128)):
     """The image mode (K2e) of the collector ``kind`` against its plain
     version on the card, from a reset (and a random nonzero carry) unless
     given: obs, rewards, done, bits, every action, the final state and the
@@ -2083,16 +2127,17 @@ def compare_k2e(kind, env, b, t, deterministic, seed, states=None, policy=None, 
     dev, cfg, m = env.device, env.config, env.config.msg_bits
     if states is None:
         states, _ = batched_reset(env, seed, b)
-    policy = policy if policy is not None else image_policy(kind, cfg, seed, dev)
+    policy = policy if policy is not None else image_policy(kind, cfg, seed, dev, hidden)
     build = {"mlp": fr.build_fused_collect, "gru": fr.build_fused_collect_gru,
              "mlp_per_agent": fr.build_fused_collect_per_agent,
              "gru_per_agent": fr.build_fused_collect_gru_per_agent}[kind]
-    collect = collect or build(cfg, t, deterministic=deterministic)
+    collect = collect or build(cfg, t, hidden, deterministic=deterministic)
     args = (states, policy, seed + 1)
     if kind.startswith("gru"):
         if h0 is None:
             gen = torch.Generator().manual_seed(seed)
-            h0 = (torch.rand((b, env.n_agents, 128), generator=gen) * 2 - 1).to(torch.bfloat16)
+            h0 = torch.rand((b, env.n_agents, hidden[1]), generator=gen) * 2 - 1
+            h0 = h0.to(torch.bfloat16)
         args += (h0.to(dev),)
     *kout, ktraj = collect(*args)
     *pout, ptraj = collect.plain(*args)
@@ -2129,7 +2174,16 @@ def phase24(dev, kind, card):
             log(f"phase 24 {K2E_NAMES[coll]} with K2e {name} M={m} B=1000 T=32 "
                 f"deterministic={deterministic}: obs ({traj['obs'].shape[-1]} features)/reward/"
                 f"done/bits/actions/state/carry exact, value/logp err {err} "
-                f"({collect.threads} threads{where})")
+                f"({tile_note(collect, 1000)}{where})")
+    for coll, m in (("gru", 0), ("gru", 2), ("gru_per_agent", 0), ("gru_per_agent", 2)):
+        env = image_env("rware-img-tiny-2ag-v2", dev, max_steps=20, msg_bits=m)
+        for deterministic in (True, False):
+            collect, traj, err = compare_k2e(coll, env, 1000, 32, deterministic, 5,
+                                             hidden=NARROW_CASE[1])
+            log(f"phase 24 {K2E_NAMES[coll]} with K2e rware-img-tiny-2ag-v2 (embed, hidden) "
+                f"{NARROW_CASE[1]} M={m} B=1000 T=32 deterministic={deterministic}: obs/reward/"
+                f"done/bits/actions/state/carry exact, value/logp err {err} "
+                f"({tile_note(collect, 1000)})")
     from rware_tpu_torch.ops.fused_rollout import build_fused_collect_per_agent, collect_plan
 
     env = image_env("rware-img-tiny-2ag-v2", dev, max_steps=20)

@@ -1,7 +1,8 @@
-// Pieces shared by the fused collector kernels (K2a fused_collect.cu, K2c
-// collect_gru.cuh): the FLATTENED observation and the image window (K2e)
-// written into a thread's column of a shared-memory tile (from the env state,
-// or for K2a from a compact view of it in shared memory), bf16 rounding, the
+// Pieces shared by the fused collector kernels (K2a and K2d fused_collect.cu,
+// K2c and K2d′ collect_gru.cuh): the FLATTENED observation and the image
+// window (K2e) of an agent written into a thread's column of a shared-memory
+// tile from a compact view of its env, bf16 rounding, packing and unpacking
+// bf16 values, the coalesced 16-byte stores of a tile's rows, the
 // Gumbel-argmax sample with its log-probability, and the message mode (K2b):
 // the Bernoulli message-bit sample with its log-probability.
 #pragma once
@@ -12,7 +13,6 @@
 #include "gru_core.cuh"  // gru_sigmoid
 
 #define RW_MAX_A 8
-#define RW_JB 8  // hidden outputs computed together per input read
 
 #define RW_MAX_LAYERS 7
 
@@ -23,53 +23,6 @@ struct ObsDims {
   int L, sensor_range, normalised;
   int img_layers, img_n_layers, img_directional, img_self;
 };
-
-// FLATTENED observation of agent i into this thread's column of `xs`
-// (rware_tpu_torch/core/observations.py; empty cells read dir [1,0,0,0]).
-// A window cell holds 7 + M features: [has_agent, dir(4), message(M),
-// has_shelf, requested], the message that of the agent on the cell before
-// this step's bits are sampled; kMsg = false compiles M = 0.
-template <bool kMsg>
-static __device__ void build_obs(const EnvState& st, const EnvDims& d, const EnvLayout& lay,
-                                 const ObsDims& m, int i, __nv_bfloat16* xs, int TB, int tid) {
-  const int N = d.n, S = d.s, R = d.r, W = d.w, M = kMsg ? d.m : 0, sr = m.sensor_range;
-  const int side = 2 * sr + 1, w2 = side * side, CF = 7 + M;
-  const __nv_bfloat16 one = __float2bfloat16_rn(1.f), zero = __float2bfloat16_rn(0.f);
-#define X(k) xs[(size_t)(k) * TB + tid]
-  float fx = (float)st.ax[i], fy = (float)st.ay[i];
-  if (m.normalised) {
-    fx = __fdiv_rn(fx, (float)(W - 1));
-    fy = __fdiv_rn(fy, (float)(d.h - 1));
-  }
-  X(0) = __float2bfloat16_rn(fx);
-  X(1) = __float2bfloat16_rn(fy);
-  X(2) = st.carry[i] >= 0 ? one : zero;
-  for (int k = 0; k < 4; ++k) X(3 + k) = st.ad[i] == k ? one : zero;
-  X(7) = lay.highway[st.ay[i] * W + st.ax[i]] ? one : zero;
-  for (int c = 0; c < w2; ++c) {
-    const int b = 8 + CF * c;
-    for (int k = 0; k < CF; ++k) X(b + k) = k == 1 ? one : zero;
-  }
-  for (int j = 0; j < N; ++j) {
-    const int rx = st.ax[j] - st.ax[i] + sr, ry = st.ay[j] - st.ay[i] + sr;
-    if (rx < 0 || rx >= side || ry < 0 || ry >= side) continue;
-    const int b = 8 + CF * (ry * side + rx);
-    X(b) = one;
-    X(b + 1) = zero;
-    X(b + 1 + st.ad[j]) = one;
-    for (int k = 0; k < M; ++k) X(b + 5 + k) = __float2bfloat16_rn((float)st.msg[j * M + k]);
-  }
-  for (int s = 0; s < S; ++s) {
-    const int rx = st.scell[s] % W - st.ax[i] + sr, ry = st.scell[s] / W - st.ay[i] + sr;
-    if (rx < 0 || rx >= side || ry < 0 || ry >= side) continue;
-    const int b = 8 + CF * (ry * side + rx) + M;
-    X(b + 5) = one;
-    bool inq = false;
-    for (int r = 0; r < R; ++r) inq |= st.q[r] == s;
-    if (inq) X(b + 6) = one;
-  }
-#undef X
-}
 
 // K2e: the image window.  ImageLayer ids (rware_tpu_torch/types.py).
 enum {
@@ -99,109 +52,15 @@ static __device__ __forceinline__ bool rot_window_cell(int oy, int ox, int dir, 
   return u >= 0 && u < side && v >= 0 && v < side;
 }
 
-// The image observation of agent i (pallas_rollout.py::_build_image_feats;
-// rware_tpu_torch/core/observations.py::build_image_obs_fn) into this
-// thread's column of `xs`: C x w x w rows in (channel, row, column) order,
-// then, for IMAGE_DICT, [dir-onehot(4), on_highway, carrying].  The column is
-// zeroed, ACCESSIBLE set to the in-grid mask (out-of-grid cells are 0 in
-// every layer: the zero pad), then every agent, shelf and goal inside the
-// window is scattered to its rotated cell, one write per channel it shows in.
-// Messages are not observed.
-static __device__ void build_image_obs(const EnvState& st, const EnvDims& d,
-                                       const EnvLayout& lay, const ObsDims& m, int i,
-                                       __nv_bfloat16* xs, int TB, int tid) {
-  const int r = m.sensor_range, side = 2 * r + 1, w2 = side * side, C = m.img_n_layers;
-  const int dir = st.ad[i], dirl = m.img_directional, ax = st.ax[i], ay = st.ay[i];
-  const __nv_bfloat16 one = __float2bfloat16_rn(1.f), zero = __float2bfloat16_rn(0.f);
-#define X(k) xs[(size_t)(k) * TB + tid]
-#define LAYER(c) ((m.img_layers >> (4 * (c))) & 15)
-  for (int c = 0; c < C; ++c) {
-    const bool acc = LAYER(c) == RW_ACCESSIBLE;
-    for (int u = 0; u < side; ++u) {
-      for (int v = 0; v < side; ++v) {
-        bool in_grid = false;
-        if (acc) {  // the world offset that lands on (u, v): the map's inverse
-          int dy = u - r, dx = v - r;
-          if (dirl && dir == 1) {
-            dy = r - u;
-            dx = r - v;
-          } else if (dirl && dir == 2) {
-            dy = r - v;
-            dx = u - r;
-          } else if (dirl && dir == 3) {
-            dy = v - r;
-            dx = r - u;
-          }
-          const int cx = ax + dx, cy = ay + dy;
-          in_grid = cx >= 0 && cx < d.w && cy >= 0 && cy < d.h;
-        }
-        X(c * w2 + u * side + v) = in_grid ? one : zero;
-      }
-    }
-  }
-  for (int j = 0; j < d.n; ++j) {
-    int cell;
-    if (!rot_window_cell(st.ay[j] - ay, st.ax[j] - ax, dir, dirl, r, &cell)) continue;
-    for (int c = 0; c < C; ++c) {
-      const int k = c * w2 + cell;
-      switch (LAYER(c)) {
-        case RW_AGENTS: X(k) = one; break;
-        case RW_AGENT_DIRECTION: X(k) = __float2bfloat16_rn((float)(st.ad[j] + 1)); break;
-        case RW_AGENT_LOAD: X(k) = st.carry[j] >= 0 ? one : zero; break;
-        case RW_ACCESSIBLE: X(k) = zero; break;
-        default: break;
-      }
-    }
-  }
-  for (int s = 0; s < d.s; ++s) {
-    int cell;
-    if (!rot_window_cell(st.scell[s] / d.w - ay, st.scell[s] % d.w - ax, dir, dirl, r, &cell))
-      continue;
-    bool inq = false;
-    for (int q = 0; q < d.r; ++q) inq |= st.q[q] == s;
-    for (int c = 0; c < C; ++c) {
-      const int layer = LAYER(c);
-      if (layer == RW_SHELVES || (layer == RW_REQUESTS && inq)) X(c * w2 + cell) = one;
-    }
-  }
-  for (int g = 0; g < d.g; ++g) {
-    int cell;
-    if (!rot_window_cell(lay.goal_y[g] - ay, lay.goal_x[g] - ax, dir, dirl, r, &cell)) continue;
-    for (int c = 0; c < C; ++c)
-      if (LAYER(c) == RW_GOALS) X(c * w2 + cell) = one;
-  }
-  if (m.img_self) {
-    const int b = C * w2;
-    for (int k = 0; k < 4; ++k) X(b + k) = dir == k ? one : zero;
-    X(b + 4) = lay.highway[ay * d.w + ax] ? one : zero;
-    X(b + 5) = st.carry[i] >= 0 ? one : zero;
-  }
-#undef LAYER
-#undef X
-}
-
-// The observation of agent i into this thread's column of `xs`: the image
-// window (kImage, K2e) or the FLATTENED vector.
-template <bool kMsg, bool kImage>
-static __device__ __forceinline__ void build_agent_obs(const EnvState& st, const EnvDims& d,
-                                                       const EnvLayout& lay, const ObsDims& m,
-                                                       int i, __nv_bfloat16* xs, int TB,
-                                                       int tid) {
-  if (kImage)
-    build_image_obs(st, d, lay, m, i, xs, TB, tid);
-  else
-    build_obs<kMsg>(st, d, lay, m, i, xs, TB, tid);
-}
-
-// ---- observation rows from a compact view of the env (K2a, K2d; one thread
-// a row) ----------------------------------------------------------------------
+// ---- observation rows from a compact view of the env (one thread a row) ----
 //
 // The view of one env in shared memory, written by its env thread after each
 // step (write_obs_view) and read by the threads of its agents' rows: agent j's
 // cell x | y << 16 at word j and dir | carrying << 2 at word N + j, its M
 // message values at 2N + j * M, the queue at 2N + NM, each shelf's x | y << 16
 // at 2N + NM + R + s.  The rows built from it (build_obs_from_view,
-// build_image_obs_from_view) equal build_obs / build_image_obs bit for bit.
+// build_image_obs_from_view) equal the plain versions' observations
+// (rware_tpu_torch/core/observations.py) bit for bit.
 
 // wmagic = ceil(2^32 / W): cell / W for cells below 2^16 without a division.
 template <bool kMsg>
@@ -221,7 +80,10 @@ static __device__ __forceinline__ void write_obs_view(const EnvState& st, const 
   }
 }
 
-// FLATTENED observation of agent i (build_obs) from the view `v`.
+// FLATTENED observation of agent i from the view `v` (empty cells read dir
+// [1,0,0,0]).  A window cell holds 7 + M features: [has_agent, dir(4),
+// message(M), has_shelf, requested], the message that of the agent on the
+// cell before this step's bits are sampled; kMsg = false compiles M = 0.
 template <bool kMsg>
 static __device__ __forceinline__ void build_obs_from_view(const int* v, const EnvDims& d, const EnvLayout& lay,
                                            const ObsDims& m, int i, __nv_bfloat16* xs, int TB,
@@ -268,7 +130,14 @@ static __device__ __forceinline__ void build_obs_from_view(const int* v, const E
 #undef X
 }
 
-// The image observation of agent i (build_image_obs) from the view `v`.
+// The image observation of agent i (pallas_rollout.py::_build_image_feats;
+// rware_tpu_torch/core/observations.py::build_image_obs_fn) from the view
+// `v`: C x w x w rows in (channel, row, column) order, then, for IMAGE_DICT,
+// [dir-onehot(4), on_highway, carrying].  The column is zeroed, ACCESSIBLE
+// set to the in-grid mask (out-of-grid cells are 0 in every layer: the zero
+// pad), then every agent, shelf and goal inside the window is scattered to
+// its rotated cell, one write per channel it shows in.  Messages are not
+// observed.
 static __device__ __forceinline__ void build_image_obs_from_view(const int* v, const EnvDims& d, int M,
                                                  const EnvLayout& lay, const ObsDims& m, int i,
                                                  __nv_bfloat16* xs, int TB, int tid) {
@@ -360,6 +229,88 @@ static __device__ __forceinline__ void build_row_obs(const int* v, const EnvDims
 static __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
+
+// ---- tiles and coalesced stores (K2a, K2c) ---------------------------------
+
+// Eight bf16 values (16 bytes, element 0 in the low half of x) as floats.
+static __device__ __forceinline__ void unpack8(const uint4 v, float* f) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    f[2 * q] = __uint_as_float(w[q] << 16);
+    f[2 * q + 1] = __uint_as_float(w[q] & 0xFFFF0000u);
+  }
+}
+
+static __device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// dst[0 .. n) as 16-byte vector stores where dst is aligned (scalar stores
+// at the ragged ends), vector v by thread v of nt (lane `tid`).  run(q, cnt,
+// out) fills out[0 .. cnt) with elements q .. q + cnt - 1.
+template <typename T, typename Run>
+static __device__ __forceinline__ void store_span(T* dst, int n, int tid, int nt, Run run) {
+  constexpr int V = 16 / sizeof(T);
+  const int head = min(n, (int)(((16 - ((size_t)dst & 15)) & 15) / sizeof(T)));
+  const int nv = (n - head) / V, tail = head + nv * V;
+  for (int q = tid; q < head; q += nt) run(q, 1, dst + q);
+  for (int v = tid; v < nv; v += nt) {
+    union {
+      uint4 u;
+      T e[V];
+    } pk;
+    run(head + v * V, V, pk.e);
+    *reinterpret_cast<uint4*>(dst + head + v * V) = pk.u;
+  }
+  for (int q = tail + tid; q < n; q += nt) run(q, 1, dst + q);
+}
+
+// Elements (g, c) of a feature-major bf16 tile's rows in (env, agent) order,
+// g = e * N + i, `width` features a row: feature c of row i * te + e of the
+// tile (row stride rs), as 16-bit words.
+struct TileRowRun {
+  const unsigned short* tile;
+  int rs, width, N, te;
+  __device__ __forceinline__ void operator()(int q, int cnt, unsigned short* out) const {
+    int g = q / width, c = q - g * width;
+    int e = g / N, i = g - e * N;
+    for (int s = 0; s < cnt; ++s) {
+      out[s] = tile[(size_t)c * rs + i * te + e];
+      if (++c == width) {
+        c = 0;
+        if (++i == N) {
+          i = 0;
+          ++e;
+        }
+      }
+    }
+  }
+};
+
+// Elements (g, c) of the tile's rows in (env, agent) order, g = e * N + i,
+// `width` of them a row: row i * te + e of a per-row array (`stride`
+// elements apart).  T is a 4-byte type.
+template <typename T>
+struct RowRun {
+  const T* base;
+  int stride, width, N, te;
+  __device__ __forceinline__ void operator()(int q, int cnt, T* out) const {
+    int g = q / width, c = q - g * width;
+    int e = g / N, i = g - e * N;
+    for (int s = 0; s < cnt; ++s) {
+      out[s] = base[(i * te + e) * stride + c];
+      if (++c == width) {
+        c = 0;
+        if (++i == N) {
+          i = 0;
+          ++e;
+        }
+      }
+    }
+  }
+};
 
 // Gumbel-argmax over 23-bit uniforms (argmax in deterministic mode; ties go
 // to the lowest action) from the A logits `lg` of agent i of env e at step t,

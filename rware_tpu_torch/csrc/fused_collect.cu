@@ -30,8 +30,8 @@
 //    the env thread writes a compact view of the state (agents, messages,
 //    queue, shelf cells; collect_core.cuh::write_obs_view) to shared memory;
 //  - one thread per (env, agent) row builds its observation from that view
-//    (build_row_obs, the FLATTENED or image row bit for bit as build_obs /
-//    build_image_obs give it) into a feature-major bf16 tile;
+//    (build_row_obs, the FLATTENED or image row bit for bit as the plain
+//    version gives it) into a feature-major bf16 tile;
 //  - the two hidden layers are a block product on the FP32 pipes: each
 //    thread owns 8 rows x 8 outputs of one weight stack in registers and runs
 //    k ascending, reading 8 rows of the tile and the 8 outputs of weight row
@@ -160,21 +160,6 @@ static __device__ __forceinline__ void copy_async(void* dst, const void* src, si
     cp_async16((char*)dst + o, (const char*)src + o);
 }
 
-// Eight bf16 values (16 bytes, element 0 in the low half of x) as floats.
-static __device__ __forceinline__ void unpack8(const uint4 v, float* f) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    f[2 * q] = __uint_as_float(w[q] << 16);
-    f[2 * q + 1] = __uint_as_float(w[q] & 0xFFFF0000u);
-  }
-}
-
-static __device__ __forceinline__ unsigned pack2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
 template <bool kGlobal>
 static __device__ __forceinline__ float load_f(const float* p) {
   return kGlobal ? __ldg(p) : *p;
@@ -239,49 +224,6 @@ static __device__ __forceinline__ void dense_tanh(const __nv_bfloat16* src, int 
     }
   }
 }
-
-// dst[0 .. n) as 16-byte vector stores where dst is aligned (scalar stores
-// at the ragged ends), vector v by thread v of nt (lane `tid`).  run(q, cnt,
-// out) fills out[0 .. cnt) with elements q .. q + cnt - 1.
-template <typename T, typename Run>
-static __device__ __forceinline__ void store_span(T* dst, int n, int tid, int nt, Run run) {
-  constexpr int V = 16 / sizeof(T);
-  const int head = min(n, (int)(((16 - ((size_t)dst & 15)) & 15) / sizeof(T)));
-  const int nv = (n - head) / V, tail = head + nv * V;
-  for (int q = tid; q < head; q += nt) run(q, 1, dst + q);
-  for (int v = tid; v < nv; v += nt) {
-    union {
-      uint4 u;
-      T e[V];
-    } pk;
-    run(head + v * V, V, pk.e);
-    *reinterpret_cast<uint4*>(dst + head + v * V) = pk.u;
-  }
-  for (int q = tail + tid; q < n; q += nt) run(q, 1, dst + q);
-}
-
-// Elements (g, c) of the tile's rows in (env, agent) order, g = e * N + i,
-// `width` of them a row: row i * te + e of a per-row array (`stride`
-// elements apart).  T is a 4-byte type.
-template <typename T>
-struct RowRun {
-  const T* base;
-  int stride, width, N, te;
-  __device__ __forceinline__ void operator()(int q, int cnt, T* out) const {
-    int g = q / width, c = q - g * width;
-    int e = g / N, i = g - e * N;
-    for (int s = 0; s < cnt; ++s) {
-      out[s] = base[(i * te + e) * stride + c];
-      if (++c == width) {
-        c = 0;
-        if (++i == N) {
-          i = 0;
-          ++e;
-        }
-      }
-    }
-  }
-};
 
 template <bool kGlobal, bool kMsg, bool kImage>
 __global__ void __launch_bounds__(RW_COLLECT_MAX_THREADS)
@@ -390,22 +332,8 @@ __global__ void __launch_bounds__(RW_COLLECT_MAX_THREADS)
     // ---- dense_0 + tanh -> h1; before h1 goes over the tile, its obs out
     dense_tanh<kGlobal>(xs, L, W0, B0, H1, hs, R, RS, TE, NS, tid, nt, [&] {
       const size_t row0 = ((size_t)t * B + e0) * N;
-      const unsigned short* x16 = reinterpret_cast<const unsigned short*>(xs);
       store_span(reinterpret_cast<unsigned short*>(obs) + row0 * L, TEv * N * L, tid, nt,
-                 [&](int q, int cnt, unsigned short* o) {
-                   int r = q / L, c = q - r * L;
-                   int e = r / N, i = r - e * N;
-                   for (int s = 0; s < cnt; ++s) {
-                     o[s] = x16[(size_t)c * RS + i * TE + e];
-                     if (++c == L) {
-                       c = 0;
-                       if (++i == N) {
-                         i = 0;
-                         ++e;
-                       }
-                     }
-                   }
-                 });
+                 TileRowRun{reinterpret_cast<const unsigned short*>(xs), RS, L, N, TE});
     });
     __syncthreads();
     RW_COLLECT_MARK(1);

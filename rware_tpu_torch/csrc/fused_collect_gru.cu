@@ -5,23 +5,23 @@
 
 // img_*: the image mode (K2e; ObsDims), img_n_layers = 0 for FLATTENED.
 // n_stacks: weight stacks, 1 (K2c, or one agent) or N (K2d′, agent i runs
-// stack i, each input array the stacks back to back); smem_stacks (K2d′): N
-// where the agents' bias and head blocks fit in shared memory beside the
-// tiles, else 0 (K2c keeps its one block there).
+// stack i, each input array the stacks back to back).  plan: the n_plan ints
+// of ops/fused_rollout.py::GruCollectPlan.args (host memory), which say
+// whether the f32 bias and head blocks are held in shared memory or read
+// from device memory.  h0 and new_h are (B, N, Hg) bf16.
 extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, int reward_type,
                                     int max_steps, int max_inactive, int msg_bits,
-                                    unsigned long long seed,
-                                    int deterministic, int T, int B, int sensor_range,
-                                    int normalised, int img_layers, int img_n_layers,
-                                    int img_directional, int img_self, int L, int E, int Hg,
-                                    int A, int threads, int smem_bytes, int n_stacks,
-                                    int smem_stacks,
-                                    const void* layout, const void* state_in,
+                                    unsigned long long seed, int deterministic, int T, int B,
+                                    int sensor_range, int normalised, int img_layers,
+                                    int img_n_layers, int img_directional, int img_self, int L,
+                                    int E, int Hg, int A, int n_stacks, const int* plan,
+                                    int n_plan, const void* layout, const void* state_in,
                                     void* state_out, const void* we, const void* be,
                                     const void* wi, const void* bi, const void* wh,
-                                    const void* bhn, const void* wc, const void* bc, void* hbuf,
-                                    void* obs, void* action, void* bits, void* logp, void* value,
-                                    void* reward, void* done, void* stream) {
+                                    const void* bhn, const void* wc, const void* bc,
+                                    const void* h0, void* new_h, void* obs, void* action,
+                                    void* bits, void* logp, void* value, void* reward, void* done,
+                                    void* stream) {
   EnvDims d;
   d.n = n;
   d.s = s;
@@ -42,6 +42,7 @@ extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, in
   m.Hg = Hg;
   m.A = A;
   m.deterministic = deterministic;
+  m.n_stacks = n_stacks;
   m.obs.L = L;
   m.obs.sensor_range = sensor_range;
   m.obs.normalised = normalised;
@@ -49,15 +50,16 @@ extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, in
   m.obs.img_n_layers = img_n_layers;
   m.obs.img_directional = img_directional;
   m.obs.img_self = img_self;
-  m.smem_stacks = smem_stacks;
-  if (threads > 128 || A > RW_MAX_A || E % RW_JB || Hg % RW_JB || n > RW_MAX_N ||
-      msg_bits < 0 || msg_bits > RW_MAX_M || (n_stacks != 1 && n_stacks != n) ||
-      (n_stacks > 1 && smem_stacks != 0 && smem_stacks != n_stacks) || img_n_layers < 0 ||
-      img_n_layers > RW_MAX_LAYERS)
+  GruCollectPlan p;
+  if (n_plan * sizeof(int) != sizeof(GruCollectPlan)) return (int)cudaErrorInvalidValue;
+  std::memcpy(&p, plan, sizeof(GruCollectPlan));
+  if (T < 1 || B < 1 || A > RW_MAX_A || n > RW_MAX_N || msg_bits < 0 || msg_bits > RW_MAX_M ||
+      (n_stacks != 1 && n_stacks != n) || img_n_layers < 0 || img_n_layers > RW_MAX_LAYERS ||
+      !collect_gru_plan_ok(p, m, d) || ((size_t)we & 15) || ((size_t)wi & 15) ||
+      ((size_t)wh & 15) || ((size_t)h0 & 15) || ((size_t)new_h & 15))
     return (int)cudaErrorInvalidValue;
   const GruCollectArgs a = {layout, state_in, state_out, we, be, wi, bi, wh, bhn, wc, bc,
-                            hbuf, obs, action, bits, logp, value, reward, done, stream};
-  if (img_n_layers > 0)
-    return launch_collect_gru_image(d, m, T, B, threads, smem_bytes, n_stacks > 1, a);
-  return launch_collect_gru<false>(d, m, T, B, threads, smem_bytes, n_stacks > 1, a);
+                            h0, new_h, obs, action, bits, logp, value, reward, done, stream};
+  if (img_n_layers > 0) return launch_collect_gru_image(d, m, p, T, B, a);
+  return launch_collect_gru<false>(d, m, p, T, B, a);
 }

@@ -4,8 +4,7 @@
 // fused_collect_gru.cu's FLATTENED ones.
 #include "collect_gru.cuh"
 
-int launch_collect_gru_image(const EnvDims& d, const GruCollectDims& m, int T, int B,
-                             int threads, int smem_bytes, bool per_agent,
-                             const GruCollectArgs& a) {
-  return launch_collect_gru<true>(d, m, T, B, threads, smem_bytes, per_agent, a);
+int launch_collect_gru_image(const EnvDims& d, const GruCollectDims& m, const GruCollectPlan& p,
+                             int T, int B, const GruCollectArgs& a) {
+  return launch_collect_gru<true>(d, m, p, T, B, a);
 }

@@ -2,7 +2,7 @@
 // iall-fed forward (K11 gru_seq.cuh); the backward kernels K10, K12 and K13 (on
 // the tensor cores, gru_mma.cuh, gru_bwd.cuh) take the band layout,
 // GruSeqDims and the rounding helpers, the recurrent collector (K2c
-// collect_gru.cuh) the bf16 load and the sigmoid.
+// collect_gru.cuh) the sigmoid.
 //
 // A launch works on an env band of the stored (T, B, N, ...) trajectory, read
 // in place: envs (start_env + i) % B for i < n_env, wrapping, so no rolled or

@@ -45,10 +45,11 @@ _SIGNATURES = {
     # w1 b1 wp bp wv bv wm bm obs action bits logp value reward done stream
     "rw_fused_collect": _DIMS + [_I] * 14 + [_P, _I] + [_P] * 21,
     # ... deterministic T B sensor_range normalised img_layers img_n_layers
-    # img_directional img_self L E Hg A threads smem_bytes n_stacks smem_stacks
-    # | layout state_in state_out we be wi bi wh bhn wc bc hbuf obs action bits
-    # logp value reward done stream
-    "rw_fused_collect_gru": _DIMS + [_I] * 17 + [_P] * 20,
+    # img_directional img_self L E Hg A n_stacks | plan (host int array,
+    # fused_rollout.GruCollectPlan.args) n_plan | layout state_in state_out we
+    # be wi bi wh bhn wc bc h0 new_h obs action bits logp value reward done
+    # stream
+    "rw_fused_collect_gru": _DIMS + [_I] * 14 + [_P, _I] + [_P] * 21,
     # L E Hg T B N start_env n_env rows_per_thread | obs done h0 we be wi bi wh
     # bhn hseq stream
     "rw_fused_gru_fwd": [_I] * 9 + [_P] * 11,

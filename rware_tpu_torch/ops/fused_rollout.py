@@ -342,9 +342,11 @@ class CollectPlan:
     def smem(self) -> int:
         return self.offsets[-1]
 
+    regions = COLLECT_REGIONS
+
     def region(self, name: str) -> Tuple[int, int]:
         """(start, end) in bytes of region ``name``."""
-        k = COLLECT_REGIONS.index(name)
+        k = self.regions.index(name)
         return self.offsets[k], self.offsets[k + 1]
 
     def blocks(self, n_envs: int) -> int:
@@ -704,36 +706,161 @@ def build_fused_collect_per_agent(config: WarehouseConfig, n_steps: int,
     return FusedCollectPerAgent(config, n_steps, hidden, deterministic)
 
 
-def collect_gru_smem_bytes(obs_len: int, embed: int, hidden: int, n_actions: int,
-                           threads: int, msg_bits: int = 0, n_stacks: int = 1) -> int:
-    """Dynamic shared memory of one recurrent-collector block
-    (csrc/collect_gru.cuh) with ``msg_bits`` message logits, holding
-    ``n_stacks`` agents' f32 bias and head blocks (0: read from device
-    memory) beside the per-thread tiles."""
-    ac = n_actions + 1 + msg_bits
-    f32 = n_stacks * (embed + 4 * hidden + hidden * ac + ac)
-    return ((4 * f32 + 15) // 16) * 16 + 2 * (obs_len + embed + hidden) * threads
+# The regions of a recurrent-collector block's shared memory, in order (csrc/
+# collect_gru.cuh): the f32 be, bi, bhn, Wc and bc of the stacks held there
+# (empty where they are read from device memory), the observation tile (the
+# embedding written over it), the carry tile (new h written over it), the
+# weight ring, a record a row, a view an env, done an env.
+COLLECT_GRU_REGIONS = ("be", "bi", "bhn", "wc", "bc", "x", "h", "ring", "out", "view", "done")
+COLLECT_GRU_THREADS = 256  # two blocks an SM at 128 registers a thread
+COLLECT_GRU_MIN_BLOCKS = 128  # about a block for each of the card's 132 SMs
+COLLECT_GRU_MAX_WIDTH = 8 * COLLECT_GRU_THREADS  # an output group of 8 a thread
+COLLECT_GRU_RT = 4  # rows of a thread's register tile
+COLLECT_GRU_KCS = (32, 16, 8, 4, 2, 1)  # weight rows a chunk of the ring, longest first
+COLLECT_GRU_RING = 24576  # bytes the ring's three chunks may take, unless one row of each is more
+
+
+@dataclasses.dataclass(frozen=True)
+class GruCollectPlan(CollectPlan):
+    """The launch plan of the recurrent collector (K2c, K2d′ and their message
+    and image modes), in :class:`CollectPlan`'s fields: ``te`` envs a block,
+    ``threads``, ``rows`` (N x te, agent-major, padded to 8) and their stride
+    ``rs``, ``hrs`` and ``vs``, ``weights_global`` true where the f32 bias and
+    head blocks are read from device memory (We, Wi and Wh always are, through
+    a ring of three chunks of ``kc`` weight rows for ``ring_stacks`` stacks in
+    shared memory), and the byte offsets of :data:`COLLECT_GRU_REGIONS` with
+    their end.  ``args`` is what ``rw_fused_collect_gru`` takes, which refuses
+    a plan whose regions do not hold what the kernel keeps there."""
+
+    kc: int = 32
+    ring_stacks: int = 1
+
+    regions = COLLECT_GRU_REGIONS
+
+    @property
+    def heads_global(self) -> bool:
+        return self.weights_global
+
+    def args(self) -> list:
+        return [self.te, self.threads, self.rows, self.rs, self.hrs, self.vs,
+                int(self.weights_global), self.carveout, self.kc, self.ring_stacks,
+                *self.offsets]
+
+
+def _set_stacks(rows: int, cols: int, threads: int, te: int) -> int:
+    """The most stacks one set of a product's rows spans (K2d′: row r runs
+    stack r // te): sets of as many 4-row groups as give every job of 8
+    output columns a thread (csrc/collect_gru.cuh RowSet)."""
+    nrg = rows // COLLECT_GRU_RT
+    rgs = min(nrg, threads // (cols // 8))
+    return max((min(rg0 + rgs, nrg) * COLLECT_GRU_RT - 1) // te - rg0 * COLLECT_GRU_RT // te + 1
+               for rg0 in range(0, nrg, rgs))
+
+
+def _gru_admitted(length: int, hidden: Sequence[int], msg_bits: int, n_stacks: int) -> bool:
+    """The admission rule of the one-thread-per-env kernel before this plan
+    (32 threads at least, each thread's observation, embedding and hidden a
+    column of the tiles, one stack's f32 blocks beside them, or for several
+    stacks none): the plan refuses what it refused."""
+    embed, hg = hidden
+    heads = 6 + msg_bits
+    f32 = (embed + 4 * hg + hg * heads + heads) if n_stacks == 1 else 0
+    return _up(4 * f32, 16) + 2 * (length + embed + hg) * 32 <= SMEM_LIMIT
+
+
+def _gru_layout(length: int, hidden: Sequence[int], n_agents: int, msg_bits: int, view: int,
+                n_stacks: int, heads_global: bool, te: int, kc: int) -> Optional[GruCollectPlan]:
+    """The plan of tile ``te`` with ring chunks of ``kc`` weight rows, or
+    None where it does not fit a block."""
+    embed, hg = hidden
+    rows = _up(n_agents * te, 8)
+    heads = 5 + 1 + msg_bits
+    threads = _up(max(COLLECT_GRU_THREADS, rows + 32), 32)
+    if threads > COLLECT_MAX_THREADS:
+        return None
+    ws = 0 if heads_global else n_stacks
+    stacks = 1 if n_stacks == 1 else max(_set_stacks(rows, c, threads, te) for c in hidden)
+    if kc > max(1, COLLECT_GRU_RING // (3 * stacks * max(hidden) * 2)):
+        return None
+    sizes = [ws * embed * 4, ws * 3 * hg * 4, ws * hg * 4, ws * hg * heads * 4, ws * heads * 4,
+             max(length, embed) * rows * 2, hg * rows * 2, 3 * stacks * kc * max(hidden) * 2,
+             rows * (heads | 1) * 4, te * (view | 1) * 4, te]
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + _up(size, 16))
+    if offsets[-1] > SMEM_LIMIT:
+        return None
+    return GruCollectPlan(te, threads, rows, rows, heads | 1, view | 1, heads_global,
+                          tuple(offsets), kc, stacks)
+
+
+def collect_gru_plan(config: WarehouseConfig, hidden: Sequence[int], n_stacks: int = 1,
+                     batch: int = 16384, heads_global: Optional[bool] = None) -> GruCollectPlan:
+    """The recurrent collector's plan for ``config`` (its observation length,
+    agents and message bits), ``hidden`` = (embed, GRU width), ``n_stacks``
+    weight stacks (1: K2c, N: K2d′) and ``batch`` envs.  The tile aims at
+    :data:`COLLECT_ROWS` rows, and shrinks until ``batch`` envs give
+    :data:`COLLECT_GRU_MIN_BLOCKS` blocks, down to :data:`COLLECT_MIN_ROWS`
+    rows (K2c) or 8 envs (K2d′, whose 4-row groups each run one agent's
+    stack); from there, the largest tile that keeps two blocks an SM, else
+    the largest that fits a block.  The f32 bias and head blocks of the
+    stacks are held in shared memory unless that costs the tile a block an SM
+    (or ``heads_global`` says which), after the weight ring has taken the
+    longest chunks of :data:`COLLECT_GRU_KCS` that cost it none.  Raises
+    ``ValueError`` where the kernel before this plan refused
+    (:func:`_gru_admitted`) or no tile fits, and for widths above
+    :data:`COLLECT_GRU_MAX_WIDTH`."""
+    embed, hg = hidden
+    n, m, length = config.n_agents, config.msg_bits, config.policy_obs_length
+    if max(embed, hg) > COLLECT_GRU_MAX_WIDTH:
+        raise ValueError(f"the recurrent collector takes widths up to {COLLECT_GRU_MAX_WIDTH}")
+    layout = config.compile_layout()
+    if layout.grid_size[0] * layout.grid_size[1] > 65536:
+        raise ValueError("the collector's env view takes grids of at most 65,536 cells")
+    if not _gru_admitted(length, hidden, m, n_stacks):
+        raise ValueError("observation too long for the collector's shared memory")
+    view = 2 * n + n * m + config.request_queue_size + layout.n_shelves
+    step = 8 if n_stacks > 1 else 1
+    te_max = max(step, COLLECT_ROWS // n // step * step)
+    te_min = step if n_stacks > 1 else min(te_max, -(-COLLECT_MIN_ROWS // n))
+    te_batch = next((te for te in range(te_max, te_min - 1, -step)
+                     if -(-batch // te) >= COLLECT_GRU_MIN_BLOCKS), te_min)
+    routes = (False, True) if heads_global is None else (bool(heads_global),)
+    largest = None
+    for te in range(te_batch, 0, -step):
+        fits = [p for glob in routes for kc in COLLECT_GRU_KCS
+                if (p := _gru_layout(length, hidden, n, m, view, n_stacks, glob, te, kc))]
+        if not fits:
+            continue
+        # the longest chunks, then the f32 blocks in shared memory, that cost
+        # the tile no block an SM
+        plan = max(fits, key=lambda p: (p.blocks_per_sm, p.kc, not p.heads_global))
+        if plan.blocks_per_sm >= 2 and te >= te_min:
+            return plan
+        largest = largest or plan
+    if largest is None:
+        raise ValueError("observation too long for the collector's shared memory")
+    return largest
 
 
 class FusedCollectGru(_Collector):
     """``collect(state, policy, seed, h0) -> (state, new_h, traj)``; see
-    :func:`build_fused_collect_gru`."""
+    :func:`build_fused_collect_gru`.  ``heads_global`` (None: the plan's
+    choice) forces the f32 bias and head blocks into device memory (True) or
+    shared memory (False); :meth:`plan` gives a batch's launch plan."""
 
     n_stacks = 1  # weight stacks the kernel takes: one GRU for all agents
-    smem_stacks = 1  # bias and head blocks held in shared memory
     kernel_name = "fused_collect_gru"
 
     def __init__(self, config: WarehouseConfig, n_steps: int, hidden: Tuple[int, int] = (128, 128),
                  deterministic: bool = False):
         super().__init__(config, n_steps, hidden, deterministic, "(embed, gru_hidden)")
-        self.threads = next(
-            (t for t in (128, 64, 32)
-             if collect_gru_smem_bytes(self.obs_len, *self.hidden, 5, t, config.msg_bits,
-                                       self.smem_stacks) <= SMEM_LIMIT),
-            None,
-        )
-        if self.threads is None:
-            raise ValueError("observation too long for the collector's shared memory")
+        self.heads_global: Optional[bool] = None
+        self.plan(1)  # raises where no tile fits
+
+    def plan(self, batch: int) -> GruCollectPlan:
+        """The launch plan for ``batch`` envs (:func:`collect_gru_plan`)."""
+        return collect_gru_plan(self.config, self.hidden, self.n_stacks, batch, self.heads_global)
 
     def _check_net(self, policy) -> bool:
         return isinstance(policy, RecurrentActorCritic) and policy.obs_dim == self.obs_len \
@@ -822,25 +949,26 @@ class FusedCollectGru(_Collector):
         dev = state.device
         b, t_len, l_obs = state.batch_size, self.n_steps, self.obs_len
         embed, hg = self.hidden
-        m = self.config.msg_bits
         with torch.cuda.device(dev):
             packed = pack_state(state)
             out = torch.empty_like(packed)
             weights = self.weights(policy, dev)
-            hbuf = h0.permute(1, 2, 0).contiguous()  # (N, Hg, B): coalesced over envs
+            h0 = h0.contiguous()
+            new_h = torch.empty_like(h0)
             traj = self._empty_traj(b, dev)
-            smem = collect_gru_smem_bytes(l_obs, embed, hg, 5, self.threads, m, self.smem_stacks)
+            plan = self.plan(b).args()
+            plan_buf = (ctypes.c_int * len(plan))(*plan)
             code = lib.rw_fused_collect_gru(
                 *_dims(self.config), seed, int(self.deterministic), t_len, b,
-                *_obs_args(self.config), l_obs, embed, hg, 5, self.threads, smem, self.n_stacks,
-                self.smem_stacks if self.n_stacks > 1 else 0,
+                *_obs_args(self.config), l_obs, embed, hg, 5, self.n_stacks,
+                ctypes.addressof(plan_buf), len(plan),
                 _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
-                *[_ptr(w) for w in weights], _ptr(hbuf), *self._traj_ptrs(traj),
+                *[_ptr(w) for w in weights], _ptr(h0), _ptr(new_h), *self._traj_ptrs(traj),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
             check(lib, code, self.kernel_name)
             self.launches += 1
-        return unpack_state(out, state), hbuf.permute(2, 0, 1).contiguous(), traj
+        return unpack_state(out, state), new_h, traj
 
 
 def build_fused_collect_gru(config: WarehouseConfig, n_steps: int,
@@ -864,14 +992,7 @@ class FusedCollectGruPerAgent(FusedCollectGru):
 
     def __init__(self, config: WarehouseConfig, n_steps: int, hidden: Tuple[int, int] = (128, 128),
                  deterministic: bool = False):
-        self.n_stacks = n = config.n_agents
-        # the N agents' f32 bias and head blocks in shared memory where they
-        # fit beside the tiles (every registered config at embed and GRU
-        # width 128 without message bits); else read from device memory
-        self.smem_stacks = n if n == 1 or any(
-            collect_gru_smem_bytes(config.policy_obs_length, *hidden, 5, t,
-                                   config.msg_bits, n) <= SMEM_LIMIT
-            for t in (128, 64, 32)) else 0
+        self.n_stacks = config.n_agents
         super().__init__(config, n_steps, hidden, deterministic)
 
     def _check_policy(self, policies: Sequence[RecurrentActorCritic]):

@@ -284,6 +284,69 @@ def test_fused_mappo_update_phase_kernel_matches_plain():
     assert torch.equal(out[3], again[3])
 
 
+# The recurrent collector's instantiations (message bits, image observations,
+# one GRU or one an agent): K2c on tiny-2ag, with K2b (M=2), with K2e
+# (img-tiny-2ag) and with both; K2d′ on tiny-2ag with its bias and head
+# blocks in shared and (forced) in device memory, each with K2b and K2e.
+GRU_COLLECT_CASES = [
+    ("gru", "rware-tiny-2ag-v2", 0, None), ("gru", "rware-tiny-2ag-v2", 2, None),
+    ("gru", "rware-img-tiny-2ag-v2", 0, None), ("gru", "rware-img-tiny-2ag-v2", 2, None),
+    ("gru_per_agent", "rware-tiny-2ag-v2", 0, False),
+    ("gru_per_agent", "rware-tiny-2ag-v2", 0, True),
+    ("gru_per_agent", "rware-tiny-2ag-v2", 2, True),
+    ("gru_per_agent", "rware-img-tiny-2ag-v2", 0, True),
+    ("gru_per_agent", "rware-img-tiny-2ag-v2", 2, False),
+]
+
+
+@pytest.mark.parametrize("kind,env_id,m,heads_global", GRU_COLLECT_CASES)
+@pytest.mark.parametrize("b", [1, 1000])
+@pytest.mark.parametrize("hidden", [(128, 128), (24, 40)])
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_fused_collect_gru_instantiations_match_plain(kind, env_id, m, heads_global, b, hidden,
+                                                      deterministic):
+    """Every instantiation of the recurrent collector against its plain
+    version from a nonzero carry: obs, actions, bits, rewards, done, the
+    final state and the new carry exact (they feed back), value and logp
+    within ATOL; two launches bit-equal.  (E, Hg) = (24, 40) are multiples of
+    8 but not of 16: fewer jobs than threads, one set of rows."""
+    env = rware_tpu_torch.make(env_id, device=DEV, max_steps=20, msg_bits=m)
+    states, _ = batched_reset(env, 1, b)
+    n, length = env.n_agents, env.config.policy_obs_length
+    gen = torch.Generator().manual_seed(3)
+    nets = torch.nn.ModuleList(
+        init_recurrent_actor_critic(length, 5, hidden[1], hidden[0], (3, i), m)
+        for i in range(n if kind == "gru_per_agent" else 1))
+    with torch.no_grad():  # nonzero biases: a zero bias hides where it is rounded
+        for p in nets.parameters():
+            if p.dim() == 1:
+                p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+    nets = nets.to(DEV)
+    h0 = (torch.rand((b, n, hidden[1]), generator=gen) * 2 - 1).to(torch.bfloat16).to(DEV)
+    if kind == "gru_per_agent":
+        policy = nets
+        collect = build_fused_collect_gru_per_agent(env.config, 16, hidden, deterministic)
+        collect.heads_global = heads_global
+    else:
+        policy = nets[0]
+        collect = build_fused_collect_gru(env.config, 16, hidden, deterministic)
+    assert heads_global is None or collect.plan(b).heads_global == heads_global
+    ks, kh, ktraj = collect(states, policy, 2, h0)
+    ks2, kh2, ktraj2 = collect(states, policy, 2, h0)
+    ps, ph, ptraj = collect.plain(states, policy, 2, h0)
+    assert collect.launches == 2
+    assert torch.equal(kh, kh2) and torch.equal(kh, ph)
+    for k in ktraj:
+        assert torch.equal(ktraj[k], ktraj2[k]), k
+    for k in ("obs", "action", "reward", "done") + (("bits",) if m else ()):
+        assert torch.equal(ktraj[k], ptraj[k]), k
+    for k in ("value", "logp"):
+        assert float((ktraj[k] - ptraj[k]).abs().max()) <= ATOL, k
+    for f in FIELDS + ("agent_message",):
+        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+        assert torch.equal(getattr(ks, f), getattr(ks2, f)), f
+
+
 def test_make_builds_on_the_card_by_default():
     assert rware_tpu_torch.make("rware-tiny-2ag-v2").device.type == "cuda"
 
@@ -727,9 +790,8 @@ def test_fused_collect_gru_per_agent_kernel_matches_plain(env_id, m, heads_in_sm
     policies = policies.to(DEV)
     h0 = (torch.rand((1000, n, 128), generator=gen) * 2 - 1).to(torch.bfloat16).to(DEV)
     collect = build_fused_collect_gru_per_agent(env.config, 32, deterministic=False)
-    assert collect.smem_stacks == n
-    if not heads_in_smem:
-        collect.smem_stacks = 0
+    collect.heads_global = not heads_in_smem
+    assert collect.plan(1000).heads_global == (not heads_in_smem)
     ks, kh, ktraj = collect(states, policies, 2, h0)
     ps, ph, ptraj = collect.plain(states, policies, 2, h0)
     assert collect.launches == 1 and torch.equal(kh, ph)

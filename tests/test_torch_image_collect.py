@@ -174,7 +174,9 @@ def test_wrappers_size_shared_memory_from_the_image_window():
     per_agent = build_fused_collect_per_agent(rware_tpu_torch.parse_env_id(
         "rware-img-3s-small-4ag-v2"), 2)
     assert per_agent.weights_global  # four stacks at L=245 do not fit beside the tiles
-    assert build_fused_collect_gru(cfg, 2).threads == 128
+    gru = build_fused_collect_gru(cfg, 2).plan(16384)
+    assert (gru.te, gru.rows, gru.threads, gru.blocks_per_sm) == (64, 128, 256, 2)
+    assert gru.smem <= SMEM_LIMIT
     with pytest.raises(ValueError, match="observation too long"):
         build_fused_collect(rware_tpu_torch.parse_env_id("rware-img-5s-tiny-2ag-v2"), 2)
     assert build_fused_collect_gru(rware_tpu_torch.parse_env_id("rware-img-5s-tiny-2ag-v2"),

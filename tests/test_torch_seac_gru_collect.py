@@ -35,7 +35,7 @@ from rware_tpu_torch.ops.fused_rollout import (
     SMEM_LIMIT,
     build_fused_collect_gru,
     build_fused_collect_gru_per_agent,
-    collect_gru_smem_bytes,
+    collect_gru_plan,
 )
 from rware_tpu_torch.parallel import batched_reset
 from tests.test_torch_seac_gru import stacked_gru_params
@@ -157,17 +157,28 @@ def test_per_agent_collector_checks_and_routes():
         collect(states, [net, init_recurrent_actor_critic(length, 5, 16, 16, msg_bits=1)], 0, h0)
     with pytest.raises(ValueError, match="h0 must be bf16"):
         collect(states, [net, net], 0, h0.float())
-    # every registered config keeps its agents' bias and head blocks in
-    # shared memory at embed and GRU width 128, 128 threads a block (64 for
-    # sixteen agents with eight message bits); past about 227 KB at 32 threads
-    # they are read from device memory
+    # the agents' bias and head blocks sit in shared memory where they cost
+    # the tile no block an SM (two agents without eight message bits), else
+    # they are read from device memory (eight and sixteen at embed and GRU
+    # width 128); every registered config keeps two blocks of 256 threads an
+    # SM at B=16,384
     for env_id in ("rware-tiny-2ag-v2", "rware-large-8ag-v2", "rware-tiny-16ag-v2"):
         for m in (0, 8):
             cfg = dataclasses.replace(rware_tpu_torch.parse_env_id(env_id), msg_bits=m)
             big = build_fused_collect_gru_per_agent(cfg, 2)
-            assert big.smem_stacks == big.n_stacks == cfg.n_agents, (env_id, m)
-            assert big.threads == (64 if (cfg.n_agents, m) == (16, 8) else 128), (env_id, m)
-    assert collect_gru_smem_bytes(143, 128, 128, 5, 64, 8, 16) <= SMEM_LIMIT
-    assert collect_gru_smem_bytes(143, 128, 128, 5, 32, 8, 32) > SMEM_LIMIT
-    assert collect_gru_smem_bytes(71, 128, 128, 5, 128, 0, 1) \
-        == collect_gru_smem_bytes(71, 128, 128, 5, 128)  # K2c's block
+            plan = big.plan(16384)
+            assert big.n_stacks == cfg.n_agents and plan.te % 8 == 0, (env_id, m)
+            assert plan.heads_global == (cfg.n_agents > 2 or m == 8), (env_id, m)
+            assert (plan.threads, plan.blocks_per_sm) == (256, 2), (env_id, m)
+            assert plan.smem <= SMEM_LIMIT
+    # sixteen stacks with eight message bits do not fit beside the smallest
+    # per-agent tile (8 envs, 128 rows), so they are read from device memory;
+    # without message bits they fit, at one block an SM
+    cfg = dataclasses.replace(rware_tpu_torch.parse_env_id("rware-tiny-16ag-v2"), msg_bits=8)
+    with pytest.raises(ValueError, match="observation too long"):
+        collect_gru_plan(cfg, (128, 128), 16, heads_global=False)
+    forced = collect_gru_plan(dataclasses.replace(cfg, msg_bits=0), (128, 128), 16,
+                              heads_global=False)
+    assert not forced.heads_global and forced.blocks_per_sm == 1
+    cfg = rware_tpu_torch.parse_env_id("rware-tiny-2ag-v2")
+    assert build_fused_collect_gru(cfg, 2).plan(16384) == collect_gru_plan(cfg, (128, 128))

@@ -50,8 +50,12 @@ kernels where the checkout times that (``FusedPPOUpdatePhase.timed``).
 B=16,384, T=128, hidden (128, 128), random mode): the MLP collector K2a, K2a
 with K2b (two message bits), K2a with K2e (``rware-img-tiny-2ag-v2``), K2d and
 K2d with K2b, each agent its own network, then K1 (B=65,536, T=256), the
-recurrent collector K2c (embed 128, GRU 128) and K2d′ (B=4,096), each beside
-its plain version where ``--plain`` asks for it.
+recurrent collector K2c (embed 128, GRU 128), K2c with K2b and K2c with K2e,
+and K2d′ and K2d′ with K2b (B=4,096), each beside its plain version where
+``--plain`` asks for it and with the recurrent collector's tile where the
+checkout plans one; then it prints a digest of K2a's outputs on
+``chip_smoke.py``'s phase-4 cases, so that two checkouts' K2a can be held bit
+for bit to each other.
 ``--gru-seq-kernels`` times only the iall-fed GRU kernels alone at the band
 shape (tiny-2ag, B=16,384, T=128, a 4,096-env band that wraps, embed 128, GRU
 128, ``testing.random_gru_seq_case``): K11, K12 and K13, each beside its plain
@@ -151,6 +155,18 @@ def profile(fn):
     return top, busy, wall_ms
 
 
+def gru_tile(collect, b) -> dict:
+    """The tile a recurrent collector takes for ``b`` envs: its launch plan
+    where the checkout has one (``collect.plan``), else the one-thread-per-env
+    kernel's threads and route."""
+    if callable(getattr(collect, "plan", None)):
+        plan = collect.plan(b)
+        return {"te": plan.te, "threads": plan.threads, "blocks": plan.blocks(b),
+                "bias_and_heads": "device memory" if plan.heads_global else "shared memory"}
+    return {"threads": collect.threads,
+            "bias_and_heads": "shared memory" if collect.smem_stacks else "device memory"}
+
+
 def seac_kernels(env, env_id, states, repeats, emit):
     """K2d and K2d′ on ``states`` (B=16,384, T=128), each agent its own
     network, and (without message bits) K8 on one 32-row window of random
@@ -179,8 +195,7 @@ def seac_kernels(env, env_id, states, repeats, emit):
     collect = build_fused_collect_gru_per_agent(env.config, t)
     med, lo, hi = time_launches(lambda: collect(states, grus, 1, carry), repeats)
     emit({"kernel": "fused_collect_gru_per_agent", "env": env_id, "B": b, "T": t,
-          "bias_and_heads": "shared memory" if collect.smem_stacks else "device memory",
-          "threads": collect.threads, "ms_median": med, "ms_min": lo, "ms_max": hi,
+          **gru_tile(collect, b), "ms_median": med, "ms_min": lo, "ms_max": hi,
           "env_steps_per_s": b * t / med * 1e3})
     if m:  # K8 has no message head
         return
@@ -328,25 +343,70 @@ def collect_kernels(tree, repeats, plain, emit, dev):
               lambda: collect.plain(states, policies, 1), msg_bits=m,
               weights="device memory" if collect.weights_global else "shared memory")
     env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
-    length = env.config.policy_obs_length
     states, _ = batched_reset(env, 0, 65536)
     roll = build_fused_rollout(env.config, 256)
     timed("fused_rollout (K1)", "rware-tiny-2ag-v2", 65536, 256, lambda: roll(states, 1),
           lambda: roll.plain(states, 1))
-    states, _ = batched_reset(env, 0, b)
-    gru = init_recurrent_actor_critic(length, 5, 128, 128, 0).to(dev)
-    carry = gru.initialize_carry((b, env.n_agents))
-    collect = build_fused_collect_gru(env.config, t)
-    timed("fused_collect_gru (K2c)", "rware-tiny-2ag-v2", b, t,
-          lambda: collect(states, gru, 1, carry), lambda: collect.plain(states, gru, 1, carry))
-    b = 4096
-    states, _ = batched_reset(env, 0, b)
-    grus = torch.nn.ModuleList(init_recurrent_actor_critic(length, 5, 128, 128, (0, 2, i))
-                               for i in range(env.n_agents)).to(dev)
-    carry = grus[0].initialize_carry((b, env.n_agents))
-    collect = build_fused_collect_gru_per_agent(env.config, t)
-    timed("fused_collect_gru_per_agent (K2d′)", "rware-tiny-2ag-v2", b, t,
-          lambda: collect(states, grus, 1, carry), lambda: collect.plain(states, grus, 1, carry))
+    for name, env_id, m in (("fused_collect_gru (K2c)", "rware-tiny-2ag-v2", 0),
+                            ("fused_collect_gru (K2c with K2b)", "rware-tiny-2ag-v2", 2),
+                            ("fused_collect_gru (K2c with K2e)", "rware-img-tiny-2ag-v2", 0)):
+        env = rware_tpu_torch.make(env_id, device=dev, msg_bits=m)
+        states, _ = batched_reset(env, 0, b)
+        gru = init_recurrent_actor_critic(env.config.policy_obs_length, 5, 128, 128, 0,
+                                          m).to(dev)
+        carry = gru.initialize_carry((b, env.n_agents))
+        collect = build_fused_collect_gru(env.config, t)
+        timed(name, env_id, b, t, lambda: collect(states, gru, 1, carry),
+              lambda: collect.plain(states, gru, 1, carry), msg_bits=m, **gru_tile(collect, b))
+    bs = 4096
+    for m in (0, 2):
+        env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev, msg_bits=m)
+        length = env.config.policy_obs_length
+        states, _ = batched_reset(env, 0, bs)
+        grus = torch.nn.ModuleList(init_recurrent_actor_critic(length, 5, 128, 128, (0, 2, i), m)
+                                   for i in range(env.n_agents)).to(dev)
+        carry = grus[0].initialize_carry((bs, env.n_agents))
+        collect = build_fused_collect_gru_per_agent(env.config, t)
+        timed("fused_collect_gru_per_agent (K2d′%s)" % (" with K2b" if m else ""),
+              "rware-tiny-2ag-v2", bs, t, lambda: collect(states, grus, 1, carry),
+              lambda: collect.plain(states, grus, 1, carry), msg_bits=m,
+              **gru_tile(collect, bs))
+    k2a_digests(tree, emit, dev)
+
+
+def k2a_digests(tree, emit, dev):
+    """A digest of K2a's outputs (trajectory and final state) on the cases of
+    ``chip_smoke.py``'s phase 4, built as ``chip_smoke.compare_k2`` builds
+    them, so that two checkouts' K2a can be held bit for bit to each other."""
+    import hashlib
+
+    import torch
+    import chip_smoke
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ActorCritic
+    from rware_tpu_torch.ops.fused_rollout import build_fused_collect, pack_state
+    from rware_tpu_torch.parallel import batched_reset
+
+    cases = [(env_id, 1000, 32, det, 5, (128, 128), overrides)
+             for env_id, overrides in chip_smoke.K2_CONFIGS for det in (True, False)]
+    cases += [(chip_smoke.NARROW_CASE[0], 1000, 32, det, 5, chip_smoke.NARROW_CASE[1], {})
+              for det in (True, False)]
+    cases.append(("rware-tiny-2ag-v2", 16384, 128, False, 13, (128, 128), {}))
+    for env_id, b, t, det, seed, hidden, overrides in cases:
+        env = rware_tpu_torch.make(env_id, device=dev, **overrides)
+        states, _ = batched_reset(env, seed, b)
+        torch.manual_seed(seed)
+        policy = ActorCritic(env.config.policy_obs_length, hidden=hidden).to(dev)
+        collect = build_fused_collect(env.config, t, hidden=hidden, deterministic=det)
+        ks, ktraj = collect(states, policy, seed + 1)
+        digest = hashlib.sha256()
+        for k in sorted(ktraj):
+            digest.update(ktraj[k].contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        digest.update(pack_state(ks).cpu().numpy().tobytes())
+        emit({"tree": tree, "kernel": "fused_collect (K2a) digest of traj and state",
+              "env": env_id, "B": b, "T": t, "deterministic": det, "widths": hidden,
+              "overrides": overrides, "sha256": digest.hexdigest()})
+        torch.cuda.empty_cache()
 
 
 def gru_seq_kernels(tree, repeats, plain, emit, dev):
@@ -463,7 +523,7 @@ def main():
                     help="time only K3-K8 at the main shape on random data")
     ap.add_argument("--collect-kernels", action="store_true",
                     help="time only the collectors (K2a, K2b, K2e, K2d, K1, K2c, K2d′) at the "
-                         "main shape")
+                         "main shape; K2a's output digests")
     ap.add_argument("--gru-seq-kernels", action="store_true",
                     help="time only K11, K12 and K13 at the band shape; K10's output digests")
     ap.add_argument("--tree", help="import rware_tpu_torch from this checkout")
