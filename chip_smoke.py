@@ -69,11 +69,13 @@ Phases, one line each:
 13. the GRU sequence kernels (K9 forward, K10 backward) against their plain
     versions: random data with ``done`` at 20% and a nonzero initial hidden on
     tiny-2ag, sensor range 3 (351 features: like every width, the embed
-    weights are read from device memory) and tiny-16ag, env bands that wrap,
-    and tiny-2ag at embed 24 and hidden 40 (multiples of 8 but not of 16:
-    K10's tensor-core tiles padded and masked); ``hseq`` within one bf16 step
-    on at least 99.9% of the entries, gradients and ``dh0`` within 1e-2 of
-    each block's largest |plain|; two launches bit-equal;
+    weights stream through shared memory) and tiny-16ag, env bands that wrap,
+    tiny-2ag at embed 24 and hidden 40 (multiples of 8 but not of 16: the
+    tensor-core tiles padded and masked), and the training shape, a 4,096-env
+    band of B=16,384 at T=128 that wraps; each band's K9 tile and grid
+    logged; ``hseq`` within one bf16 step on at least 99.9% of the entries and
+    none past 8 steps, gradients and ``dh0`` within 1e-2 of each block's
+    largest |plain|; two launches bit-equal;
 14. the recurrent training main path at full width through
     ``rware_tpu_torch.models.ippo_rnn.build_rnn_fused_train_step`` on an env
     made with ``make``'s default device: tiny-2ag, B=16,384, T=128, E=4, M=4,
@@ -746,13 +748,19 @@ def compare_gru(dev, dims, weights, obs, done, h0, bands, seed, fwd=None, bwd=No
     """K9 and K10 kernels vs their plain versions on each band (start_env,
     n_env); returns (fwd, bwd, max |hseq diff|, max |grad diff|)."""
     import torch
-    from rware_tpu_torch.ops.fused_gru import build_fused_gru_obs_bwd, build_fused_gru_obs_fwd
+    from rware_tpu_torch.ops.fused_gru import (
+        build_fused_gru_obs_bwd,
+        build_fused_gru_obs_fwd,
+        gru_obs_fwd_plan,
+    )
 
     fwd = fwd or build_fused_gru_obs_fwd(dims)
     bwd = bwd or build_fused_gru_obs_bwd(dims)
     h_err = g_err = 0.0
     for start, n_env in bands:
         tag = f"{what} band ({start}, {n_env})"
+        plan = gru_obs_fwd_plan(dims, obs.shape[2], n_env)
+        log(f"{tag}: K9 launches blocks of {plan.rows} sequences, grid {plan.blocks}")
         kh = fwd(weights, obs, done, h0, start, n_env)
         kh2 = fwd(weights, obs, done, h0, start, n_env)
         ph = fwd.plain(weights, obs, done, h0, start, n_env)
@@ -1336,6 +1344,8 @@ GRU_CASES = (
     ("rware-3s-tiny-2ag-v2", 300, 4, ((250, 100),), (128, 128)),
     ("rware-tiny-16ag-v2", 100, 4, ((60, 80),), (128, 128)),
     ("rware-tiny-2ag-v2", 1000, 8, ((900, 500),), (24, 40)),
+    # the training shape: a 4,096-env band of B=16,384 that wraps
+    ("rware-tiny-2ag-v2", 16384, 128, ((16384 - 2048, 4096),), (128, 128)),
 )
 
 

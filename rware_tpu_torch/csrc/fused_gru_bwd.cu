@@ -387,7 +387,7 @@ extern "C" int rw_fused_gru_bwd(int L, int E, int Hg, int T, int B, int N, int s
       || sweep_smem != gb_sweep_smem<GbCotSeq>(Hg, sweep_rows))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_p;
-  const GruSeqDims d = {L, E, Hg, T, B, N, start_env, n_env, 0};
+  const GruSeqDims d = {L, E, Hg, T, B, N, start_env, n_env};
   const GruBwdScratch ws = {(gm_bf16*)e_s, (float*)rz_s, (gm_bf16*)hn_s, (gm_bf16*)dg4_s,
                             (gm_bf16*)dpre_s, (float*)part_bhn};
   const int Q = n_env * N, sweep_blocks = (Q + sweep_rows - 1) / sweep_rows;

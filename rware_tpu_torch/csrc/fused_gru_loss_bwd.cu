@@ -44,7 +44,7 @@ extern "C" int rw_fused_gru_loss_bwd(int Hg, int A, int T, int B, int N, int sta
                                      void* dh0, float* split_ms, void* stream) {
   if (A < 1 || A + 1 > GB_HEADS || (Hg + 1) * (A + 1) > GSQ_HEAD_OUTS)
     return (int)cudaErrorInvalidValue;
-  const GruSeqDims d = {0, 0, Hg, T, B, N, start_env, n_env, 0};
+  const GruSeqDims d = {0, 0, Hg, T, B, N, start_env, n_env};
   const GsqPlan p = {sweep_rows, tiles_per_block, prologue_smem, sweep_smem, wgrad_smem, chunk,
                      n_chunks};
   const GruBwdScratch ws = {nullptr, (float*)rz_s, (gm_bf16*)hn_s, nullptr, nullptr,

@@ -34,7 +34,7 @@ extern "C" int rw_fused_gru_seq_bwd(int Hg, int T, int B, int N, int start_env, 
                                     const void* bhn, void* rz_s, void* hn_s, void* dhhn_s,
                                     void* part_bhn, void* partial, void* d_iall, void* grads,
                                     void* dh0, float* split_ms, void* stream) {
-  const GruSeqDims d = {0, 0, Hg, T, B, N, start_env, n_env, 0};
+  const GruSeqDims d = {0, 0, Hg, T, B, N, start_env, n_env};
   const GsqPlan p = {sweep_rows, tiles_per_block, prologue_smem, sweep_smem, wgrad_smem, chunk,
                      n_chunks};
   const GruBwdScratch ws = {nullptr, (float*)rz_s, (gm_bf16*)hn_s, nullptr, nullptr,

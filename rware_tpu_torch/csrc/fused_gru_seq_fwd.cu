@@ -111,7 +111,7 @@ extern "C" int rw_fused_gru_seq_fwd(int Hg, int T, int B, int N, int start_env, 
                                     const void* h0, const void* wh, const void* bhn, void* hseq,
                                     void* stream) {
   if (!gsq_widths_ok(Hg, T, B, n_env)) return (int)cudaErrorInvalidValue;
-  const GruSeqDims d = {0, 0, Hg, T, B, N, start_env, n_env, 0};
+  const GruSeqDims d = {0, 0, Hg, T, B, N, start_env, n_env};
   cudaStream_t s = (cudaStream_t)stream;
   if (rows_per_thread == 2) return seq_fwd_launch<2>(d, iall, done, h0, wh, bhn, hseq, s);
   if (rows_per_thread == 1) return seq_fwd_launch<1>(d, iall, done, h0, wh, bhn, hseq, s);

@@ -50,9 +50,9 @@ _SIGNATURES = {
     # be wi bi wh bhn wc bc h0 new_h obs action bits logp value reward done
     # stream
     "rw_fused_collect_gru": _DIMS + [_I] * 14 + [_P, _I] + [_P] * 21,
-    # L E Hg T B N start_env n_env rows_per_thread | obs done h0 we be wi bi wh
-    # bhn hseq stream
-    "rw_fused_gru_fwd": [_I] * 9 + [_P] * 11,
+    # L E Hg T B N start_env n_env rows smem (fused_gru.gru_obs_fwd_plan) | obs
+    # done h0 we be wi bi wh bhn hseq stream
+    "rw_fused_gru_fwd": [_I] * 10 + [_P] * 11,
     # L E Hg T B N start_env n_env sweep_rows prologue_smem sweep_smem
     # epilogue_smem wgrad_smem chunk n_chunks | obs done h0 hseq dhseq we be wi bi
     # wh bhn, scratch e rz hn dg4 dpre part_bhn partial, grads dh0 split_ms stream

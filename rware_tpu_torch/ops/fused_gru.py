@@ -32,11 +32,12 @@ time recurrence:
   ``_gru_scan`` custom VJP of ``rware_tpu/models/ippo_rnn.py:272-405``, on
   the kernels of ``_gru_seq_kernels``).
 
-K10, K12 and K13 are chains of kernels that share K10's reverse sweep
-(``csrc/gru_bwd.cuh``) and weight-gradient pass; their launch plans
-(:func:`gru_obs_bwd_plan`, :func:`gru_seq_bwd_plan`) give tiles, grids,
-shared memory and scratch, and the library refuses numbers that are not the
-plan's.
+K9 runs every product on the tensor cores with Wh resident in shared
+memory.  K10, K12 and K13 are chains of kernels that share K10's reverse sweep
+(``csrc/gru_bwd.cuh``) and weight-gradient pass.  Their launch plans
+(:func:`gru_obs_fwd_plan`, :func:`gru_obs_bwd_plan`, :func:`gru_seq_bwd_plan`)
+give tiles, grids, shared memory and scratch, and the library refuses numbers
+that are not the plan's.
 
 Each wrapper launches its CUDA kernel (``csrc/fused_gru_fwd.cu``,
 ``csrc/fused_gru_bwd.cu``, ``csrc/fused_gru_seq_fwd.cu``,
@@ -65,8 +66,8 @@ from rware_tpu_torch.models.networks import (
 )
 
 MAX_WIDTH = 128  # the kernels' embed and hidden widths: multiples of 8 up to this
-# the card's SMs: K9 and K11 take blocks of 32 sequences only when they fill
-# them, the reverse sweep of K10, K12 and K13 the lowest tile whose blocks fit
+# the card's SMs: K11 takes blocks of 32 sequences only when they fill them,
+# K9 and the reverse sweep of K10, K12 and K13 the lowest tile whose blocks fit
 # them in one wave
 SWEEP_SMS = 132
 SMEM_MAX = 232_448  # bytes of shared memory one block may take on the H100
@@ -136,6 +137,71 @@ def _sweep_smem(hg: int, rows: int, cot_floats: int = 0) -> int:
     and two ints a row, then ``cot_floats`` of the cotangent's own."""
     return (2 * (hg + rows) * (_r16(3 * hg) + _PAD) + 4 * (rows * (hg + 4) + 8 * hg) + 8 * rows
             + 4 * cot_floats)
+
+
+def _fwd_stage(rows: int, l_obs: int) -> int:
+    """Elements of K9's staging buffer: a step's obs rows of a block, as at
+    most two runs of 16-byte chunks, each up to 14 elements past its rows."""
+    return -(-(rows * l_obs + 32) // 8) * 8
+
+
+def _fwd_smem(l_obs: int, e: int, hg: int, rows: int) -> int:
+    """K9's shared memory (``csrc/fused_gru_fwd.cu::gf_layout``): Wh, two
+    hidden tiles, the embedding and obs tiles, the staging buffer and the
+    weight ring (two slots of 16 rows of We or Wi) in bf16, then an int a
+    row."""
+    lde, ldh, ldx = _r16(e) + _PAD, _r16(hg) + _PAD, _r16(l_obs) + _PAD
+    ldw = _r16(3 * hg) + _PAD
+    elems = (_r16(hg) * ldw + rows * (2 * ldh + lde + ldx) + _fwd_stage(rows, l_obs)
+             + 2 * 16 * max(ldw, lde))
+    return 2 * elems + 4 * rows
+
+
+@dataclasses.dataclass(frozen=True)
+class GruFwdPlan:
+    """K9's launch shape for one band: ``n_seq = n_env N`` sequences in
+    blocks of ``rows``."""
+
+    n_seq: int
+    n_agents: int
+    rows: int  # sequences a block: 16, 32 or 64
+    blocks: int
+    smem: int  # dynamic shared memory of a block, bytes
+    stage: int  # elements of a block's obs staging buffer
+
+    def tiles(self) -> List[range]:
+        """The sequences of each block."""
+        return _ranges(self.rows, self.n_seq, self.blocks)
+
+    def obs_runs(self, block: int, start_env: int, b: int) -> List[Tuple[int, int]]:
+        """(first row, rows) of the runs of a step's trajectory rows (env *
+        N + agent) that block ``block`` reads for a band starting at
+        ``start_env`` of ``b`` envs: one, or two where the band wraps
+        (``csrc/fused_gru_fwd.cu::gf_runs``)."""
+        bn, q0 = b * self.n_agents, block * self.rows
+        r1 = (start_env * self.n_agents + q0) % bn
+        n_rows = min(self.rows, self.n_seq - q0)
+        n1 = min(n_rows, bn - r1)
+        return [(r1, n1)] + ([(0, n_rows - n1)] if n_rows > n1 else [])
+
+
+def gru_obs_fwd_plan(dims: GruDims, n_agents: int, n_env: int) -> GruFwdPlan:
+    """K9's launch plan for a band of ``n_env`` envs: blocks of the smallest of
+    16, 32, 64 sequences whose blocks fit the card's SMs in one wave (else
+    64), halved while a block's shared memory would pass ``SMEM_MAX`` (long
+    observation rows).  The library refuses other numbers.  Raises
+    ``ValueError`` for widths the kernel does not take."""
+    _kernel_dims(dims)
+    n_seq = n_env * n_agents
+    fits = [r for r in (16, 32, 64) if r <= _sweep_rows(n_seq)
+            and _fwd_smem(dims.obs_len, dims.embed, dims.hidden, r) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"observations of {dims.obs_len} are too long for the GRU forward "
+                         "kernel's shared memory")
+    rows = fits[-1]
+    return GruFwdPlan(n_seq, n_agents, rows, -(-n_seq // rows),
+                      _fwd_smem(dims.obs_len, dims.embed, dims.hidden, rows),
+                      _fwd_stage(rows, dims.obs_len))
 
 
 def _wgrad_chunks(n_samples: int) -> Tuple[int, int]:
@@ -358,10 +424,10 @@ class FusedGruObsFwd:
     def _launch(self, weights, obs, done, h0, start_env, n_env):
         from rware_tpu_torch.ops._build import check, load_library
 
-        _kernel_dims(self.dims)
-        lib = load_library()
         dev = obs.device
         t_len, b, n, l_obs = obs.shape
+        plan = gru_obs_fwd_plan(self.dims, n, n_env)
+        lib = load_library()
         we, be, wi, bi, wh, bhn = weights
         with torch.cuda.device(dev):
             args = [obs.contiguous(), done.contiguous(), h0.contiguous(), _bf16(we), _f32(be),
@@ -370,7 +436,7 @@ class FusedGruObsFwd:
                                device=dev)
             code = lib.rw_fused_gru_fwd(
                 l_obs, self.dims.embed, self.dims.hidden, t_len, b, n, start_env, n_env,
-                _rows_per_thread(n_env * n), *[a.data_ptr() for a in args], hseq.data_ptr(),
+                plan.rows, plan.smem, *[a.data_ptr() for a in args], hseq.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
             check(lib, code, "fused_gru_fwd")
             self.launches += 1

@@ -38,7 +38,9 @@ class FusedSeacGrads:
         # agent i's pass over the window is K4's: its checks on the sizes, its
         # tile, launch shape and per-sample workspace
         if dims.msg_bits:
-            raise NotImplementedError("SEAC-PPO with message bits is not ported yet")
+            raise NotImplementedError("the SEAC-PPO gradient kernel takes no message head (as "
+                                      "JAX's K8): SEAC-PPO with message bits runs the flat "
+                                      "learner")
         self.ppo = FusedPPOGrads(dims, t_mb, clip_eps, vf_coef, ent_coef)
         self.dims, self.n_agents, self.t_mb, self.tile = dims, n_agents, t_mb, self.ppo.tile
         self.cfg, self.seac_lambda = self.ppo.cfg, seac_lambda

@@ -35,6 +35,7 @@ from rware_tpu_torch.ops.fused_gru import (
     build_fused_gru_obs_fwd,
     build_fused_gru_seq_bwd,
     build_fused_gru_seq_fwd,
+    gru_obs_fwd_plan,
 )
 from rware_tpu_torch.ops.fused_rollout import (
     build_fused_collect,
@@ -375,15 +376,15 @@ def test_fused_collect_gru_kernel_matches_plain(deterministic):
     assert float((kh.float() - ph.float()).abs().max()) <= 2.0 ** -7
 
 
-def _gru_case(b, t_len, seed):
-    dims = GruDims(71, 128, 128, 5)
+def _gru_case(b, t_len, seed, length=71, n_agents=2):
+    dims = GruDims(length, 128, 128, 5)
     gen = torch.Generator().manual_seed(seed)
     weights = [(torch.randn(s, generator=gen) * (0.1 if s[0] == 1 else s[0] ** -0.5)).to(DEV)
                for s in dims.shapes[:6]]
-    obs = (torch.randint(0, 3, (t_len, b, 2, 71), generator=gen) * 0.5).to(torch.bfloat16).to(DEV)
+    obs = (torch.randint(0, 3, (t_len, b, n_agents, length), generator=gen) * 0.5)
     done = (torch.rand((t_len, b), generator=gen) < 0.2).to(DEV)
-    h0 = (torch.rand((b, 2, 128), generator=gen) * 2 - 1).to(torch.bfloat16).to(DEV)
-    return dims, weights, obs, done, h0
+    h0 = (torch.rand((b, n_agents, 128), generator=gen) * 2 - 1).to(torch.bfloat16).to(DEV)
+    return dims, weights, obs.to(torch.bfloat16).to(DEV), done, h0
 
 
 @pytest.mark.parametrize("band", [(0, 600), (450, 300)])
@@ -405,6 +406,27 @@ def test_fused_gru_kernels_match_plain(band):
     for g, w in zip(bwd.split(kg), bwd.split(pg)):
         assert float((g - w).abs().max()) <= 1e-2 * float(w.abs().max())
     assert float((kd - pd).abs().max()) <= 1e-2 * float(pd.abs().max())
+
+
+@pytest.mark.parametrize("env_id,b,t_len,band,rows", [
+    ("rware-tiny-16ag-v2", 4200, 4, (4000, 4096), 64),
+    ("rware-3s-tiny-2ag-v2", 2400, 6, (2300, 2200), 32),
+])
+def test_fused_gru_fwd_matches_plain_on_many_blocks_and_long_obs(env_id, b, t_len, band, rows):
+    """K9 at tiny-16ag on a 4,096-env band (1,024 blocks of 64 sequences) and
+    at sensor range 3 (L=351: blocks of 32, the one-wave tile of 64 does not
+    fit the shared memory), bands that wrap: within one bf16 step on 99.9% of
+    the entries, none past 8 steps, two launches bit-equal."""
+    cfg = rware_tpu_torch.parse_env_id(env_id)
+    dims, weights, obs, done, h0 = _gru_case(b, t_len, 6, cfg.policy_obs_length, cfg.n_agents)
+    plan = gru_obs_fwd_plan(dims, cfg.n_agents, band[1])
+    assert plan.rows == rows
+    fwd = build_fused_gru_obs_fwd(dims)
+    kh, kh2 = fwd(weights, obs, done, h0, *band), fwd(weights, obs, done, h0, *band)
+    ph = fwd.plain(weights, obs, done, h0, *band)
+    assert fwd.launches == 2 and torch.equal(kh, kh2)
+    diff = (kh.float() - ph.float()).abs()
+    assert float((diff <= 2.0 ** -7).float().mean()) >= 0.999 and float(diff.max()) <= 2.0 ** -4
 
 
 @pytest.mark.parametrize("widths,band", [((24, 40), (450, 300)), ((8, 8), (599, 2)),

@@ -171,7 +171,7 @@ def test_kernels_without_a_message_head_refuse_it():
         build_fused_mappo_grads(DIMS, cdims, 4, **KW)
     with pytest.raises(NotImplementedError, match="no message head"):
         build_fused_mappo_update_phase(DIMS, cdims, 8, 2, 2, max_grad_norm=0.5, **KW)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="no message head"):
         FusedSeacGrads(DIMS, N, 4, seac_lambda=1.0, **KW)
     with pytest.raises(ValueError, match="7 tensors"):
         k4 = build_fused_ppo_grads(DIMS, 2, **KW)

@@ -248,5 +248,5 @@ def test_train_and_evaluate_entry_points_seac_msg(tmp_path):
     env = rware_tpu_torch.make("rware-tiny-2ag-v2", device="cpu", msg_bits=1)
     cfg = seac.SEACPPOConfig(n_envs=8, rollout_len=4)
     runner, dims = seac.init_seac_ppo(env, cfg, 0)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="no message head"):
         seac.build_seac_ppo_fused_train_step(env, dims, cfg)

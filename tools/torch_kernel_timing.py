@@ -64,6 +64,10 @@ prologue, sweep, dWh and reduction where the checkout times it (the median of
 ``--repeats`` timed launches); then it prints a digest of K10's outputs (with
 K9's hidden sequence) on ``chip_smoke.py``'s phase-13 cases, so that two
 checkouts' K10 can be held bit for bit to each other.
+``--library-gru`` times ``torch.nn.GRU`` in bf16 at K9's band shape (T=128,
+8,192 sequences, 128 inputs, hidden 128) as a yardstick for K9's recurrence:
+it is not K9's function (no embed, no resets where an episode ends) and the
+port calls it nowhere.
 ``--tree DIR`` imports ``rware_tpu_torch`` from the checkout DIR (an unpacked
 older commit, say) so that two commits are timed by the same script on one
 card: run it as old, new, new, old.
@@ -75,6 +79,7 @@ Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-
        python tools/torch_kernel_timing.py --ppo-kernels [--tree DIR] [--plain] [--out FILE]
        python tools/torch_kernel_timing.py --collect-kernels [--tree DIR] [--plain] [--out FILE]
        python tools/torch_kernel_timing.py --gru-seq-kernels [--tree DIR] [--plain] [--out FILE]
+       python tools/torch_kernel_timing.py --library-gru [--out FILE]
 """
 import argparse
 import json
@@ -501,6 +506,21 @@ def seq_kernels(dims, weights, arrays, traj, carry, band, env_id, b, t, repeats,
               "sequence_steps_per_s": t * band[1] * hseq.shape[2] / med * 1e3})
 
 
+def library_gru(repeats, emit, dev):
+    """``torch.nn.GRU`` in bf16 over T=128 steps of 8,192 sequences, 128 ->
+    128, from a zero hidden: the library's recurrence, beside K9's."""
+    import torch
+
+    torch.manual_seed(0)
+    gru = torch.nn.GRU(128, 128).to(device=dev, dtype=torch.bfloat16)
+    x = torch.randn((128, 8192, 128), device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        med, lo, hi = time_launches(lambda: gru(x), repeats)
+    emit({"kernel": "torch.nn.GRU bf16 (a yardstick, not K9's function)", "T": 128,
+          "sequences": 8192, "input": 128, "hidden": 128, "ms_median": med, "ms_min": lo,
+          "ms_max": hi, "cudnn": torch.backends.cudnn.version()})
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", nargs="*", default=[
@@ -526,6 +546,8 @@ def main():
                          "main shape; K2a's output digests")
     ap.add_argument("--gru-seq-kernels", action="store_true",
                     help="time only K11, K12 and K13 at the band shape; K10's output digests")
+    ap.add_argument("--library-gru", action="store_true",
+                    help="time only torch.nn.GRU in bf16 at K9's band shape")
     ap.add_argument("--tree", help="import rware_tpu_torch from this checkout")
     ap.add_argument("--plain", action="store_true",
                     help="--ppo-kernels, --collect-kernels, --gru-seq-kernels: time each plain "
@@ -576,6 +598,9 @@ def main():
         args.configs = []
     if args.gru_seq_kernels:
         gru_seq_kernels(args.tree or ".", args.repeats, args.plain, emit, dev)
+        args.configs = []
+    if args.library_gru:
+        library_gru(args.repeats, emit, dev)
         args.configs = []
     for env_id in args.configs:
         env = rware_tpu_torch.make(env_id, device=dev, msg_bits=m)
