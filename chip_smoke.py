@@ -173,7 +173,8 @@ Phases, one line each:
     (K13) on tiny-2ag, sensor range 3 and tiny-16ag at B=1000 with bands that
     wrap, tiny-2ag and tiny-16ag also at embed 24 and hidden 40 (multiples of
     8 but not of 16: K12's and K13's tensor-core tiles padded and masked), and
-    on a 4,096-env band of B=16,384, T=128 (embed 128, GRU 128);
+    on a 4,096-env band of B=16,384, T=128 (embed 128, GRU 128), each with
+    K11's tile S, grid and shared memory logged (``gru_seq_fwd_plan``);
     hseq within one bf16 step on 99.9% of the entries and 8 steps at most,
     gradients, d_iall and dh0 within 1e-2 of each block's largest |plain|,
     K13's metric sums within rtol 1e-3 (and 1e-5 of their means), two
@@ -186,8 +187,9 @@ Phases, one line each:
     after one warm-up with launch counters reset before and read after
     (exactly 3 K2c, 48 K11, 48 K13 and no K9, K10 or K12: no learner calls
     the sequence backward, so any K12 wrapper's launch counts), the time of
-    an update split by phase, and K11, K12 and K13 timed at the band shape on
-    the trajectory's data beside their plain versions and held to them, and
+    an update split by phase, and K11 (its tile and grid logged), K12 and K13
+    timed at the band shape on the trajectory's data beside their plain
+    versions and held to them, and
     one more K13 and K12 launch each split into its prologue, sweep, dWh and
     reduction by CUDA events (``FusedGruLossBwd.timed``);
 28. recurrent MAPPO at the same shape with M=0 and M=2 message bits: three
@@ -2308,6 +2310,15 @@ SEQ_CASES = (
 SEQ_METRIC_RTOL = 1e-3
 
 
+def k11_plan(dims, n_agents, n_env):
+    """K11's launch shape on a band, for the log: its tile S, grid and shared
+    memory (``gru_seq_fwd_plan``)."""
+    from rware_tpu_torch.ops.fused_gru import gru_seq_fwd_plan
+
+    plan = gru_seq_fwd_plan(dims, n_agents, n_env)
+    return f"K11 S={plan.rows}, {plan.blocks} blocks, {plan.smem} B shared memory"
+
+
 def compare_gru_seq(dims, a, band, seed, fwd=None, bwd=None, loss=None, what="K11-K13"):
     """K11, K12 and K13 kernels vs their plain versions on one band of the
     inputs ``a`` (``random_gru_seq_case``'s keys; K12 and K13 from the plain
@@ -2442,21 +2453,24 @@ def phase26(dev, kind, card, n_envs=16384, rollout_len=128):
             _, _, _, h_err, e12, e13 = compare_gru_seq(dims, a, band, 31,
                                                        what=f"{env_id} hidden {hidden}")
             log(f"phase 26 K11, K12, K13 {env_id} (N={a['h0'].shape[1]}, Hg={hidden}) B={b} "
-                f"T={t_len} band {band}: hseq max_abs_err {h_err}, K12 and K13 within "
+                f"T={t_len} band {band} ({k11_plan(dims, a['h0'].shape[1], band[1])}): "
+                f"hseq max_abs_err {h_err}, K12 and K13 within "
                 f"{GRAD_FRAC} of each block (max_abs_err {e12}, {e13}), metric sums within rtol "
                 f"{SEQ_METRIC_RTOL}, two launches bit-equal [{kind}, {card}]")
     env_id, b, t_len, bands, _ = SEQ_CASES[0]
     band = bands[-1]
     dims, a = random_gru_seq_case(env_id, b, t_len, band, 29, dev)
     scan_err = compare_gru_seq_scan(dims, a, band, 33)
-    log(f"phase 26 GruSeqScan (K11 + K12 under autograd) {env_id} B={b} T={t_len} band {band}: "
+    log(f"phase 26 GruSeqScan (K11 + K12 under autograd) {env_id} B={b} T={t_len} band {band} "
+        f"({k11_plan(dims, a['h0'].shape[1], band[1])}): "
         f"gradients of wh, bhn, iall, h0 within {GRAD_FRAC} of each one's largest |plain| "
         f"(max_abs_err {scan_err}) [{kind}, {card}]")
     # the first band of an epoch at row offset 5 (epoch_band_starts): it wraps
     band = ((n_envs - 5 * 128) % n_envs, n_envs // 4)
     dims, a = random_gru_seq_case("rware-tiny-2ag-v2", n_envs, rollout_len, band, 37, dev)
     _, _, _, h_err, e12, e13 = compare_gru_seq(dims, a, band, 41, what="main band")
-    log(f"phase 26 K11, K12, K13 main band tiny-2ag B={n_envs} T={rollout_len} band {band}: hseq "
+    log(f"phase 26 K11, K12, K13 main band tiny-2ag B={n_envs} T={rollout_len} band {band} "
+        f"({k11_plan(dims, a['h0'].shape[1], band[1])}): hseq "
         f"max_abs_err {h_err}, K12 and K13 within {GRAD_FRAC} of each block (max_abs_err "
         f"{e12}, {e13}), two launches bit-equal [{kind}, {card}]")
 
@@ -2546,7 +2560,8 @@ def phase27(dev, kind, card, n_envs=16384, rollout_len=128):
     k13_plain_ms, _ = cuda_ms(lambda: loss.plain(*largs))
     _, _, _, k11_err, k12_err, k13_err = compare_gru_seq(dims, a, band, 43, fwd, bwd, loss,
                                                          what="K11-K13 at the main shape")
-    log(f"phase 27 kernels at the band shape B={n_envs} band {band}: K11 {k11_ms:.3f} ms/launch "
+    log(f"phase 27 kernels at the band shape B={n_envs} band {band}: K11 "
+        f"({k11_plan(dims, runner.carry.shape[1], band[1])}) {k11_ms:.3f} ms/launch "
         f"(plain {k11_plain_ms:.1f} ms, hseq max_abs_err {k11_err}); K12 {k12_ms:.3f} ms/launch "
         f"(plain {k12_plain_ms:.1f} ms, max_abs_err {k12_err}); K13 {k13_ms:.3f} ms/launch "
         f"(plain {k13_plain_ms:.1f} ms, max_abs_err {k13_err}) [{kind}, {card}]")

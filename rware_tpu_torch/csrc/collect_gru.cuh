@@ -48,7 +48,7 @@
 //    (read through L1 instead, the kernel was slower on the card; PERF.md).
 //    The lanes of a warp take neighbouring output groups of the same rows.
 //    For the gates a thread owns the same 8 hidden units of all three gates
-//    on both sides (K11's mapping, gru_core.cuh), gate by gate: gi_g and gh_g
+//    on both sides (as a warp in K9 and K11), gate by gate: gi_g and gh_g
 //    are two sums from zero, held together in registers (64 floats) and
 //    joined in f32 as the plain version joins them; r, z and bf16(gi_n +
 //    bin) are then kept as bf16 pairs (16 registers each), so a hidden

@@ -6,114 +6,168 @@
 //
 // Replaces rware_tpu/ops/pallas_gru.py::build_gru_seq_fwd (kernel lines
 // 93-123).  The TPU kernel walks a sequential (env rows, time chunks) grid and
-// carries the hidden in VMEM scratch; here a block owns 16 or 32 sequences
-// for all T steps and loops over time itself, the hidden in shared memory.
-// Per step each thread computes its eight columns of the three hidden gate
-// products h Wh for its rows, reads the same columns of iall, and finishes
-// those hidden units alone (gsq_cell_fwd):
+// carries the hidden in VMEM scratch.  Here a block of sixteen warps owns S =
+// 16, 32 or 64 sequences for all T steps (ops/fused_gru.py::gru_seq_fwd_plan:
+// the smallest S whose blocks fit the card's SMs in one wave, else 64) and
+// runs the forward sweep it shares with K9 (gru_fwd_sweep.cuh): Wh and the
+// hidden resident in shared memory, h Wh on the tensor cores (bf16 mma.sync,
+// f32 sums), warp w owning hidden units 8w .. 8w + 8 of all three gates, the
+// cell in the plain version's rounding:
 //   r, z = bf16(sigmoid(f32(iall) + h Wh)),
-//   n = tanh(iall_n + r * bf16(h Whn + bhn))   (bf16 arithmetic),
-//   new_h = (1 - z) * n + z * h                 (bf16 arithmetic),
+//   n = bf16(tanh(bf16(iall_n + bf16(r * bf16(h Whn + bhn))))),
+//   new_h = bf16(bf16((1 - z) n) + bf16(z h)),
 //   h <- 0 where done[t].
-// Products are on bf16 values with f32 sums (fmaf, k ascending); the plain
-// version sums with torch.matmul in another order, so the two agree to f32
-// rounding and to one bf16 step where a rounding boundary is crossed.  Each
-// sum has one fixed order, so two launches give the same bits.
 //
-// Bound on the card: bytes (iall in, hseq out, 6 Hg + 2 Hg bytes per
-// sequence-step against Hg * 3Hg multiply-adds, 49k at Hg = 128); this
-// version runs the products on the FP32 pipes, so operations limit it.
+// This file is the sweep's input side.  The band's iall is band-local, so a
+// block's rows of a step are one contiguous run of S x 3Hg bf16, 16-byte
+// aligned for every Hg that is a multiple of 8: it goes by 16-byte cp.async
+// into one padded tile of shared memory, no staging and no repack.  At the
+// step's start each warp takes its units' iall from the tile into registers
+// (ldmatrix, already in the accumulator layout of h Wh); after the barrier
+// that follows, the next step's run is issued into the same tile, so it is in
+// flight during this step's h Wh.  A second whole tile would not fit beside
+// Wh at S = 64, Hg = 128 (235,776 of 232,448 bytes).
+//
+// The products differ from the plain version only in the order of their f32
+// sums (a bf16 x bf16 product is exact in f32); each sum has one fixed order
+// and there are no atomics, so two launches give the same bits.
+//
+// Bound on the card: bytes (iall in, hseq out: 6 Hg + 2 Hg bytes a
+// sequence-step against Hg x 3Hg multiply-adds, 49k at Hg = 128, on the
+// tensor cores).
+#include "gru_fwd_sweep.cuh"
 #include "gru_seq.cuh"
 
 namespace {
 
-template <int RT>
-__global__ void __launch_bounds__(GRU_THREADS)
-    gru_seq_fwd_kernel(GruSeqDims d, const __nv_bfloat16* __restrict__ iall,
-                       const uint8_t* __restrict__ done, const __nv_bfloat16* __restrict__ h0,
-                       const __nv_bfloat16* __restrict__ wh, const float* __restrict__ bhn,
-                       __nv_bfloat16* __restrict__ hseq) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int S = 16 * RT;
-  __nv_bfloat16* hs = (__nv_bfloat16*)smem;  // (S, Hg)
-  const int Q = d.n_env * d.N, q0 = blockIdx.x * S;
-  const int tid = threadIdx.x, row0 = (tid / 16) * RT, j0 = (tid % 16) * GRU_CW;
-  const int Hg = d.Hg;
-  const bool active = j0 < Hg;
-  float bh[GRU_CW];
-#pragma unroll
-  for (int jj = 0; jj < GRU_CW; ++jj) bh[jj] = active ? bhn[j0 + jj] : 0.f;
+// A block's shared memory, byte offsets: Wh, the hidden's two buffers, the
+// step's iall tile (rows of gf_ldw), then an int a row.
+struct GsLayout {
+  int ld, whs, hs, tile, flags, bytes;
+};
 
-  for (int idx = tid; idx < S * Hg; idx += GRU_THREADS) {
-    const int s = idx / Hg, j = idx - s * Hg, q = q0 + s;
-    hs[idx] = q < Q ? h0[((size_t)gru_env(d, q) * d.N + q % d.N) * Hg + j]
-                    : __float2bfloat16_rn(0.f);
-  }
-  __syncthreads();
-
-  for (int t = 0; t < d.T; ++t) {
-    float nh[RT][GRU_CW];
-    if (active) {
-      float hh[RT][3 * GRU_CW];
-#pragma unroll
-      for (int r = 0; r < RT; ++r)
-#pragma unroll
-        for (int c = 0; c < 3 * GRU_CW; ++c) hh[r][c] = 0.f;
-      const int col[3] = {j0, Hg + j0, 2 * Hg + j0};
-      gru_tile_gemm<RT, 3>(hh, hs, Hg, row0, Hg, wh, 3 * Hg, col);
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const int q = q0 + row0 + r;
-        float ia[3 * GRU_CW], hp[GRU_CW];
-#pragma unroll
-        for (int c = 0; c < 3 * GRU_CW; ++c) ia[c] = 0.f;
-        if (q < Q) gsq_load_gates(iall, (size_t)t * Q + q, Hg, j0, ia);
-#pragma unroll
-        for (int jj = 0; jj < GRU_CW; ++jj)
-          hp[jj] = __bfloat162float(hs[(size_t)(row0 + r) * Hg + j0 + jj]);
-        gsq_cell_fwd(ia, hh[r], bh, hp, nh[r]);
-      }
-    }
-    __syncthreads();  // every thread has read the old hidden
-    if (active) {
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const int q = q0 + row0 + r;
-        if (q >= Q) continue;
-        gru_store8(hseq + ((size_t)t * Q + q) * Hg + j0, nh[r]);
-        if (done[(size_t)t * d.B + gru_env(d, q)]) {
-#pragma unroll
-          for (int jj = 0; jj < GRU_CW; ++jj) nh[r][jj] = 0.f;
-        }
-        gru_store8(hs + (size_t)(row0 + r) * Hg + j0, nh[r]);
-      }
-    }
-    __syncthreads();
-  }
+static __host__ __device__ __forceinline__ GsLayout gs_layout(int Hg, int S) {
+  GsLayout o;
+  const int b = (int)sizeof(gm_bf16);
+  o.ld = gf_ldw(Hg);
+  o.whs = 0;                                // (H16, ld): Wh, [k][r | z | n]
+  o.hs = o.whs + gm_r16(Hg) * o.ld * b;     // 2 x (S, gf_ldh): the hidden
+  o.tile = o.hs + 2 * S * gf_ldh(Hg) * b;   // (S, ld): iall of the step
+  o.flags = o.tile + S * o.ld * b;          // (S,) ints: done of the step before
+  o.bytes = o.flags + S * (int)sizeof(int);
+  return o;
 }
 
-template <int RT>
-int seq_fwd_launch(const GruSeqDims& d, const void* iall, const void* done, const void* h0,
-                   const void* wh, const void* bhn, void* hseq, cudaStream_t stream) {
-  const int S = 16 * RT, Q = d.n_env * d.N;
-  const size_t smem = (size_t)S * d.Hg * sizeof(__nv_bfloat16);
-  gru_seq_fwd_kernel<RT><<<(Q + S - 1) / S, GRU_THREADS, smem, stream>>>(
-      d, (const __nv_bfloat16*)iall, (const uint8_t*)done, (const __nv_bfloat16*)h0,
-      (const __nv_bfloat16*)wh, (const float*)bhn, (__nv_bfloat16*)hseq);
+static __device__ __forceinline__ __nv_bfloat162 gs_bf2(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
+// K11's input side of gf_sweep: step t's iall run into the tile one step
+// ahead, into the warps' registers at the step's start.
+template <int MT>
+struct GsIallInput {
+  static constexpr int S = 16 * MT;
+  const gm_bf16* iall;
+  gm_bf16* tile;
+  int Hg, T, Q, q0, n_rows, ld;
+
+  __device__ GsIallInput(const GruSeqDims& d, const gm_bf16* iall_, gm_bf16* tile_, int ld_)
+      : iall(iall_), tile(tile_), Hg(d.Hg), T(d.T), Q(d.n_env * d.N), q0(blockIdx.x * S),
+        ld(ld_) {
+    n_rows = min(S, Q - q0);
+  }
+
+  // Step t's rows of the block (band rows t Q + q0 ..) into the tile: warp w
+  // copies rows w, w + 16, .., lane l chunks l and l + 32 of a row; rows past
+  // Q are zeros.
+  __device__ __forceinline__ void issue(int t) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, G3 = 3 * Hg;
+    const gm_bf16* run = iall + ((size_t)t * Q + q0) * G3;
+#pragma unroll
+    for (int i = 0; i < S / GF_WARPS; ++i) {
+      const int s = warp + GF_WARPS * i;
+      const bool ok = s < n_rows;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int cc = (lane + 32 * h) * 8;
+        if (cc < G3) gm_cp16(tile + s * ld + cc, ok ? run + (size_t)s * G3 + cc : iall, ok);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void start() const { issue(0); }
+
+  // The warp's units of the step's iall, from the tile: per m-tile one x4
+  // (r and z, rows 0-7 and 8-15) and one x2 (n).
+  __device__ __forceinline__ void arrived(int, __nv_bfloat162 (&ia)[3][MT][2]) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (8 * warp >= Hg) return;
+    const int mat = lane >> 3, row = 8 * (mat & 1) + (lane & 7);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      uint32_t rz[4], n[2];
+      gm_ldsm4(rz, tile + (16 * m + row) * ld + (mat >> 1) * Hg + 8 * warp);
+      gm_ldsm2(n, tile + (16 * m + row) * ld + 2 * Hg + 8 * warp);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ia[0][m][h] = gs_bf2(rz[h]);
+        ia[1][m][h] = gs_bf2(rz[2 + h]);
+        ia[2][m][h] = gs_bf2(n[h]);
+      }
+    }
+  }
+
+  // After the barrier that follows arrived: every warp has read the tile, so
+  // the next step's run goes into it.
+  template <class Mark>
+  __device__ __forceinline__ void gates(int t, __nv_bfloat162 (&)[3][MT][2], Mark& mark) const {
+    if (t + 1 < T) issue(t + 1);
+    gm_cp_commit();
+    mark(1);
+  }
+};
+
+template <int MT>
+__global__ void __launch_bounds__(GF_THREADS, 1)
+    gru_seq_fwd_kernel(GruSeqDims d, const gm_bf16* __restrict__ iall,
+                       const uint8_t* __restrict__ done, const gm_bf16* __restrict__ h0,
+                       const gm_bf16* __restrict__ wh, const float* __restrict__ bhn,
+                       gm_bf16* __restrict__ hseq) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const GsLayout lo = gs_layout(d.Hg, 16 * MT);
+  GsIallInput<MT> in(d, iall, (gm_bf16*)(smem + lo.tile), lo.ld);
+  gf_sweep<MT>(d, (gm_bf16*)(smem + lo.whs), (gm_bf16*)(smem + lo.hs), (int*)(smem + lo.flags),
+               done, h0, wh, bhn, hseq, in);
+}
+
+template <int MT>
+int gs_launch(const GruSeqDims& d, int smem, const void* iall, const void* done, const void* h0,
+              const void* wh, const void* bhn, void* hseq, cudaStream_t stream) {
+  const int S = 16 * MT, Q = d.n_env * d.N;
+  cudaError_t err = cudaFuncSetAttribute(gru_seq_fwd_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  gru_seq_fwd_kernel<MT><<<(Q + S - 1) / S, GF_THREADS, smem, stream>>>(
+      d, (const gm_bf16*)iall, (const uint8_t*)done, (const gm_bf16*)h0, (const gm_bf16*)wh,
+      (const float*)bhn, (gm_bf16*)hseq);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// rows_per_thread: 1 (16 sequences a block) or 2 (32).
+// The plan's numbers (rware_tpu_torch/ops/fused_gru.py::gru_seq_fwd_plan):
+// rows, 16, 32 or 64 sequences a block, and smem, the block's dynamic shared
+// memory in bytes, which must be what gs_layout gives.
 extern "C" int rw_fused_gru_seq_fwd(int Hg, int T, int B, int N, int start_env, int n_env,
-                                    int rows_per_thread, const void* iall, const void* done,
+                                    int rows, int smem, const void* iall, const void* done,
                                     const void* h0, const void* wh, const void* bhn, void* hseq,
                                     void* stream) {
-  if (!gsq_widths_ok(Hg, T, B, n_env)) return (int)cudaErrorInvalidValue;
+  if (!gsq_widths_ok(Hg, T, B, n_env) || N < 1 || start_env < 0 || start_env >= B
+      || (rows != 16 && rows != 32 && rows != 64) || smem != gs_layout(Hg, rows).bytes)
+    return (int)cudaErrorInvalidValue;
   const GruSeqDims d = {0, 0, Hg, T, B, N, start_env, n_env};
   cudaStream_t s = (cudaStream_t)stream;
-  if (rows_per_thread == 2) return seq_fwd_launch<2>(d, iall, done, h0, wh, bhn, hseq, s);
-  if (rows_per_thread == 1) return seq_fwd_launch<1>(d, iall, done, h0, wh, bhn, hseq, s);
-  return (int)cudaErrorInvalidValue;
+  if (rows == 64) return gs_launch<4>(d, smem, iall, done, h0, wh, bhn, hseq, s);
+  if (rows == 32) return gs_launch<2>(d, smem, iall, done, h0, wh, bhn, hseq, s);
+  return gs_launch<1>(d, smem, iall, done, h0, wh, bhn, hseq, s);
 }

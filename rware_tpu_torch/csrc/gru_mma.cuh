@@ -1,6 +1,7 @@
-// Tensor-core pieces of the GRU sequence kernels: K9 (fused_gru_fwd.cu),
-// K10's prologue, sweep and epilogue (fused_gru_bwd.cu) and the
-// weight-gradient pass that K10, K12 and K13 share (gru_wgrad.cuh).
+// Tensor-core pieces of the GRU sequence kernels: the forward sweep of K9 and
+// K11 (gru_fwd_sweep.cuh), K10's prologue, sweep and epilogue
+// (fused_gru_bwd.cu) and the weight-gradient pass that K10, K12 and K13 share
+// (gru_wgrad.cuh).
 //
 // Every product runs on bf16 operands with f32 sums:
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, its operands read from

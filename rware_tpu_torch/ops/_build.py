@@ -57,8 +57,9 @@ _SIGNATURES = {
     # epilogue_smem wgrad_smem chunk n_chunks | obs done h0 hseq dhseq we be wi bi
     # wh bhn, scratch e rz hn dg4 dpre part_bhn partial, grads dh0 split_ms stream
     "rw_fused_gru_bwd": [_I] * 15 + [_P] * 22,
-    # Hg T B N start_env n_env rows_per_thread | iall done h0 wh bhn hseq stream
-    "rw_fused_gru_seq_fwd": [_I] * 7 + [_P] * 7,
+    # Hg T B N start_env n_env rows smem (fused_gru.gru_seq_fwd_plan) | iall done
+    # h0 wh bhn hseq stream
+    "rw_fused_gru_seq_fwd": [_I] * 8 + [_P] * 7,
     # Hg T B N start_env n_env | plan (fused_gru.GruSeqBwdPlan.args) | iall done
     # h0 hseq dhseq wh bhn, scratch rz hn dhhn part_bhn partial, d_iall grads
     # dh0 split_ms stream

@@ -32,12 +32,13 @@ time recurrence:
   ``_gru_scan`` custom VJP of ``rware_tpu/models/ippo_rnn.py:272-405``, on
   the kernels of ``_gru_seq_kernels``).
 
-K9 runs every product on the tensor cores with Wh resident in shared
-memory.  K10, K12 and K13 are chains of kernels that share K10's reverse sweep
+K9 and K11 share one forward sweep (``csrc/gru_fwd_sweep.cuh``): every
+product on the tensor cores, Wh and the hidden resident in shared memory.
+K10, K12 and K13 are chains of kernels that share K10's reverse sweep
 (``csrc/gru_bwd.cuh``) and weight-gradient pass.  Their launch plans
-(:func:`gru_obs_fwd_plan`, :func:`gru_obs_bwd_plan`, :func:`gru_seq_bwd_plan`)
-give tiles, grids, shared memory and scratch, and the library refuses numbers
-that are not the plan's.
+(:func:`gru_obs_fwd_plan`, :func:`gru_seq_fwd_plan`, :func:`gru_obs_bwd_plan`,
+:func:`gru_seq_bwd_plan`) give tiles, grids, shared memory and scratch, and
+the library refuses numbers that are not the plan's.
 
 Each wrapper launches its CUDA kernel (``csrc/fused_gru_fwd.cu``,
 ``csrc/fused_gru_bwd.cu``, ``csrc/fused_gru_seq_fwd.cu``,
@@ -66,9 +67,8 @@ from rware_tpu_torch.models.networks import (
 )
 
 MAX_WIDTH = 128  # the kernels' embed and hidden widths: multiples of 8 up to this
-# the card's SMs: K11 takes blocks of 32 sequences only when they fill them,
-# K9 and the reverse sweep of K10, K12 and K13 the lowest tile whose blocks fit
-# them in one wave
+# the card's SMs: the forward sweeps of K9 and K11 and the reverse sweep of
+# K10, K12 and K13 take the lowest tile whose blocks fit them in one wave
 SWEEP_SMS = 132
 SMEM_MAX = 232_448  # bytes of shared memory one block may take on the H100
 
@@ -101,10 +101,6 @@ def _kernel_dims(dims: GruDims) -> None:
     if dims.embed % 8 or dims.hidden % 8 or max(dims.embed, dims.hidden) > MAX_WIDTH:
         raise ValueError(f"the GRU kernels take embed and hidden widths that are multiples of 8 "
                          f"up to {MAX_WIDTH}, not {dims.embed} and {dims.hidden}")
-
-
-def _rows_per_thread(n_seq: int) -> int:
-    return 2 if n_seq >= 32 * SWEEP_SMS else 1
 
 
 # K10's tiles (csrc/fused_gru_bwd.cu, csrc/gru_wgrad.cuh, csrc/gru_mma.cuh)
@@ -202,6 +198,39 @@ def gru_obs_fwd_plan(dims: GruDims, n_agents: int, n_env: int) -> GruFwdPlan:
     return GruFwdPlan(n_seq, n_agents, rows, -(-n_seq // rows),
                       _fwd_smem(dims.obs_len, dims.embed, dims.hidden, rows),
                       _fwd_stage(rows, dims.obs_len))
+
+
+def _seq_fwd_smem(hg: int, rows: int) -> int:
+    """K11's shared memory (``csrc/fused_gru_seq_fwd.cu::gs_layout``): Wh,
+    two hidden tiles and the step's iall tile in bf16, then an int a row."""
+    ldw, ldh = _r16(3 * hg) + _PAD, _r16(hg) + _PAD
+    return 2 * (_r16(hg) * ldw + rows * (2 * ldh + ldw)) + 4 * rows
+
+
+@dataclasses.dataclass(frozen=True)
+class GruSeqFwdPlan:
+    """K11's launch shape for one band: ``n_seq = n_env N`` sequences in
+    blocks of ``rows``."""
+
+    n_seq: int
+    rows: int  # sequences a block: 16, 32 or 64
+    blocks: int
+    smem: int  # dynamic shared memory of a block, bytes
+
+    def tiles(self) -> List[range]:
+        """The sequences of each block."""
+        return _ranges(self.rows, self.n_seq, self.blocks)
+
+
+def gru_seq_fwd_plan(dims: GruDims, n_agents: int, n_env: int) -> GruSeqFwdPlan:
+    """K11's launch plan for a band of ``n_env`` envs: blocks of the smallest
+    of 16, 32, 64 sequences whose blocks fit the card's SMs in one wave (else
+    64), and their shared memory; the library refuses other numbers.  Raises
+    ``ValueError`` for widths the kernel does not take."""
+    _kernel_dims(dims)
+    n_seq = n_env * n_agents
+    rows = _sweep_rows(n_seq)
+    return GruSeqFwdPlan(n_seq, rows, -(-n_seq // rows), _seq_fwd_smem(dims.hidden, rows))
 
 
 def _wgrad_chunks(n_samples: int) -> Tuple[int, int]:
@@ -385,6 +414,13 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.detach().to(torch.float32).contiguous()
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous, its data at a 16-byte boundary (a copy where a view
+    starts elsewhere)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 class FusedGruObsFwd:
@@ -702,17 +738,18 @@ class FusedGruSeqFwd:
     def _launch(self, wh, bhn, iall, done, h0, start_env, n_env):
         from rware_tpu_torch.ops._build import check, load_library
 
-        _kernel_dims(self.dims)
-        lib = load_library()
         dev = iall.device
         t_len, _, n, _ = iall.shape
+        plan = gru_seq_fwd_plan(self.dims, n, n_env)
+        lib = load_library()
         with torch.cuda.device(dev):
-            args = [iall.contiguous(), done.contiguous(), h0.contiguous(), _bf16(wh), _f32(bhn)]
+            # the kernel copies iall and h0 in 16-byte chunks
+            args = [_aligned(iall), done.contiguous(), _aligned(h0), _bf16(wh), _f32(bhn)]
             hseq = torch.empty((t_len, n_env, n, self.dims.hidden), dtype=torch.bfloat16,
                                device=dev)
             code = lib.rw_fused_gru_seq_fwd(
-                self.dims.hidden, t_len, done.shape[1], n, start_env, n_env,
-                _rows_per_thread(n_env * n), *[a.data_ptr() for a in args], hseq.data_ptr(),
+                self.dims.hidden, t_len, done.shape[1], n, start_env, n_env, plan.rows,
+                plan.smem, *[a.data_ptr() for a in args], hseq.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
             check(lib, code, "fused_gru_seq_fwd")
             self.launches += 1
