@@ -7,8 +7,12 @@ Phases, one line each:
 2. build the kernels of ``rware_tpu_torch/csrc`` with nvcc for sm_90a;
 3. the fused rollout kernel (K1) against its plain PyTorch version on the
    card, bit for bit: scripted and random mode on five configs at a batch
-   that is not a multiple of 128, the main-path shape, and the plain
-   version on the CPU;
+   that is not a multiple of 128, each route of its launch plan
+   (``ops/fused_rollout.rollout_plan``: the compact env in shared memory, in
+   device memory, and the scan route of the kernel before the shelf map) on
+   tiny-2ag and large-8ag with two message bits, a uint16 shelf map
+   (304 shelves) and a grid that no tile holds (8,192 cells, the scan route by
+   the plan), the main-path shape, and the plain version on the CPU;
 4. the fused collector kernel (K2a) against its plain version on the card:
    deterministic and random mode on five configs and on tiny-2ag at hidden
    (24, 40) (multiples of 8 but not of 16: fewer 8 x 8 register tiles than
@@ -393,8 +397,9 @@ def require(ok, msg: str) -> None:
 
 
 def check_invariants(env, state) -> None:
-    """Agents in the grid on distinct cells; queues distinct and in range;
-    carried shelves under their carriers."""
+    """Agents in the grid on distinct cells; shelves on distinct cells (K1's
+    shelf map keeps one a cell); queues distinct and in range; carried
+    shelves under their carriers."""
     import torch
 
     h, w = env.grid_size
@@ -402,6 +407,8 @@ def check_invariants(env, state) -> None:
     require(((state.agent_x >= 0) & (state.agent_x < w)).all(), "agent x out of grid")
     require(((state.agent_y >= 0) & (state.agent_y < h)).all(), "agent y out of grid")
     require((cells.sort(dim=1).values.diff(dim=1) > 0).all(), "two agents share a cell")
+    shelves = state.shelf_y.long() * w + state.shelf_x.long()
+    require((shelves.sort(dim=1).values.diff(dim=1) > 0).all(), "two shelves share a cell")
     q = state.request_queue.long()
     if q.shape[1]:
         require(((q >= 0) & (q < env.layout.n_shelves)).all(), "queue out of range")
@@ -415,18 +422,37 @@ def check_invariants(env, state) -> None:
     require(ok.all(), "carried shelf not under its carrier")
 
 
-def compare_k1(env_id, dev, b, t, scripted, seed, **overrides):
+def oversize_config():
+    """A 64 x 128 grid (8,192 cells) with 64 shelves and 4 agents: no tile of
+    32 compact envs fits a block's shared memory, so K1's plan takes the scan
+    route."""
+    from rware_tpu_torch.config import WarehouseConfig
+
+    h, w, n_shelves = 64, 128, 64
+    grid = [["."] * w for _ in range(h)]
+    for k in range(n_shelves):  # two racks of 32 slots
+        grid[8 + k % 32][40 + 48 * (k // 32)] = "x"
+    grid[h - 1][60] = grid[h - 1][61] = "g"
+    return WarehouseConfig(layout="\n".join("".join(row) for row in grid), n_agents=4,
+                           request_queue_size=8, max_steps=50)
+
+
+def compare_k1(env_id, dev, b, t, scripted, seed, route=None, config=None, **overrides):
     """K1 kernel vs its plain version on the card (with ``msg_bits`` in
-    ``overrides``, scripted actions carry random bits); returns (env, state,
+    ``overrides``, scripted actions carry random bits; ``route`` forces one of
+    the plan's routes; ``config`` replaces ``env_id``); returns (env, state,
     rewards, episodes, max |reward diff|)."""
     import torch
     import rware_tpu_torch
+    from rware_tpu_torch.core.env import Warehouse
     from rware_tpu_torch.ops.fused_rollout import build_fused_rollout
     from rware_tpu_torch.parallel import batched_reset
 
-    env = rware_tpu_torch.make(env_id, device=dev, **overrides)
+    env = (Warehouse(config, device=dev) if config is not None
+           else rware_tpu_torch.make(env_id, device=dev, **overrides))
     states, _ = batched_reset(env, seed, b)
     roll = build_fused_rollout(env.config, t, scripted=scripted)
+    roll.route = route
     actions = None
     if scripted:
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -442,7 +468,8 @@ def compare_k1(env_id, dev, b, t, scripted, seed, **overrides):
     bad = state_diff(ks, ps)
     if bad or not torch.equal(kr, pr) or not torch.equal(ke, pe):
         raise AssertionError(
-            f"K1 {env_id} scripted={scripted}: kernel != plain (fields {bad}, "
+            f"K1 {env_id} route {roll.plan(b).route} scripted={scripted}: kernel != plain "
+            f"(fields {bad}, "
             f"rewards equal {torch.equal(kr, pr)}, episodes equal {torch.equal(ke, pe)})"
         )
     check_invariants(env, ks)
@@ -982,10 +1009,26 @@ def phase3(dev):
     from rware_tpu_torch.ops.fused_rollout import build_fused_rollout
     from rware_tpu_torch.parallel import batched_reset
 
+    from rware_tpu_torch.ops.fused_rollout import ROLLOUT_ROUTES, rollout_plan
+
     for env_id in K1_CONFIGS:
         for scripted in (True, False):
             env, ks, kr, ke, _ = compare_k1(env_id, dev, 1000, 64, scripted, 7, max_steps=50)
             log(f"phase 3 K1 {env_id} B=1000 T=64 scripted={scripted}: bit-exact "
+                f"(reward sum {float(kr.sum())}, episodes {int(ke.sum())}; route "
+                f"{rollout_plan(env.config, 1000).route}, at B=65536 "
+                f"{rollout_plan(env.config, 65536).route})")
+    cases = [(env_id, route, 2, None) for route in ROLLOUT_ROUTES
+             for env_id in ("rware-tiny-2ag-v2", "rware-large-8ag-v2")]
+    cases += [("rware-4x5-4ag-v2", None, 0, None), ("8,192-cell grid", None, 0, oversize_config())]
+    for env_id, route, m, config in cases:
+        for scripted in (True, False):
+            kw = {} if config is not None else {"max_steps": 50, "msg_bits": m}
+            env, ks, kr, ke, _ = compare_k1(env_id, dev, 1000, 64, scripted, 8, route=route,
+                                            config=config, **kw)
+            plan = rollout_plan(env.config, 1000, route)
+            log(f"phase 3 K1 {env_id} M={m} route {plan.route} (map entries of "
+                f"{plan.map_bytes} bytes) B=1000 T=64 scripted={scripted}: bit-exact "
                 f"(reward sum {float(kr.sum())}, episodes {int(ke.sum())})")
     env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
     states, _ = batched_reset(env, 3, 256)

@@ -1,5 +1,6 @@
 // One warehouse transition for one env, shared by the fused rollout kernel
-// (fused_rollout.cu) and the fused collector kernel (fused_collect.cu).
+// (fused_rollout.cu) and the fused collector kernels (fused_collect.cu,
+// collect_gru.cuh).
 //
 // Replaces the TPU kernels' shared core
 // rware_tpu/ops/pallas_rollout.py::_env_step_core (and its draw helpers
@@ -23,9 +24,20 @@
 // columns or from Philox purpose MESSAGE, the collectors from the sampled
 // bits) and env_step clears them where the episode ends, as autoreset does.
 //
+// env_step is a template over the state's storage: a type per caller with
+// the accessors it uses (agent fields, "the shelf at a cell", the carried
+// shelves' moves, the queue, the counters, the reset).  The collectors keep
+// EnvState, the whole env in the thread's local memory with the shelves as a
+// list of cells, so every lookup is an O(S) scan; K1's map routes keep a
+// compact env with a map from cell to shelf (fused_rollout.cu, RolloutEnv),
+// so a lookup is one load.  The two agree while no two shelves share a cell,
+// which the dynamics keep: a loaded agent is never let onto a standing
+// shelf's cell, agents end a step on distinct cells and a reset puts the
+// shelves on their distinct slots (tests/test_torch_rollout_plan.py).
+//
 // What bounds it on the card: integer work per env-step (O(N^2) resolver,
-// O(S) shelf scans) and local-memory traffic of the per-env state; device
-// memory is read once and written once per launch.
+// and on EnvState the O(S) shelf scans) and the traffic of the per-env
+// state; device memory is read once and written once per launch.
 #pragma once
 
 #include <cstdint>
@@ -70,13 +82,70 @@ static __device__ __forceinline__ EnvLayout make_layout(const EnvDims& d, const 
   return l;
 }
 
-// Per-env state.  Shelves are kept as packed cells y * W + x.
+static __device__ void draw_distinct(const EnvDims& d, uint32_t env, uint32_t step, int slot0,
+                                     int n, int m, int* out);
+
+// Per-env state.  Shelves are kept as packed cells y * W + x.  The methods
+// are env_step's view of it: shelf lookups are scans in ascending shelf order.
 struct EnvState {
   int ax[RW_MAX_N], ay[RW_MAX_N], ad[RW_MAX_N], carry[RW_MAX_N], hd[RW_MAX_N];
   int scell[RW_MAX_S];
   int q[RW_MAX_R];
   int inact, steps;
   int msg[RW_MAX_N * RW_MAX_M];  // agent i's bit m at i * M + m
+
+  __device__ __forceinline__ int agent_x(int i) const { return ax[i]; }
+  __device__ __forceinline__ int agent_y(int i) const { return ay[i]; }
+  __device__ __forceinline__ int agent_dir(int i) const { return ad[i]; }
+  __device__ __forceinline__ int carried(int i) const { return carry[i]; }
+  __device__ __forceinline__ int delivered(int i) const { return hd[i]; }
+  __device__ __forceinline__ void move_to(int i, int x, int y) {
+    ax[i] = x;
+    ay[i] = y;
+  }
+  __device__ __forceinline__ void turn(int i, int dir) { ad[i] = dir; }
+  __device__ __forceinline__ void set_carried(int i, int s) { carry[i] = s; }
+  __device__ __forceinline__ void set_delivered(int i, int v) { hd[i] = v; }
+  // at |= "a shelf stands on cell c" (a scan over all S shelves).
+  __device__ __forceinline__ void any_shelf_at(int S, const int& c, bool& at) const {
+    for (int s = 0; s < S; ++s) at |= scell[s] == c;
+  }
+  // sid = the lowest-index shelf on cell c; left as it is where none is.
+  __device__ __forceinline__ void shelf_at(int S, const int& c, int& sid) const {
+    for (int s = 0; s < S; ++s) {
+      if (scell[s] == c) {
+        sid = s;
+        break;
+      }
+    }
+  }
+  // The shelves carried by the agents that moved ride along (their carriers
+  // left the cells acell).
+  __device__ __forceinline__ void carry_shelves(int N, int W, const bool* moved, const int*) {
+    for (int i = 0; i < N; ++i)
+      if (moved[i] && carry[i] >= 0) scell[carry[i]] = ay[i] * W + ax[i];
+  }
+  __device__ __forceinline__ int queued(int r) const { return q[r]; }
+  __device__ __forceinline__ void set_queued(int r, int s) { q[r] = s; }
+  __device__ __forceinline__ int inactive() const { return inact; }
+  __device__ __forceinline__ int step_count() const { return steps; }
+  __device__ __forceinline__ void set_inactive(int v) { inact = v; }
+  __device__ __forceinline__ void set_step_count(int v) { steps = v; }
+  __device__ __forceinline__ void reset_shelves(const EnvLayout& lay, int S, int W) {
+    for (int s = 0; s < S; ++s) scell[s] = lay.slot_y[s] * W + lay.slot_x[s];
+  }
+  __device__ __forceinline__ void reset_queue(const EnvDims& d, uint32_t env, uint32_t step,
+                                              int slot0, int R, int S) {
+    draw_distinct(d, env, step, slot0, R, S, q);
+  }
+  __device__ __forceinline__ void clear_msg(int n) {
+    for (int k = 0; k < n; ++k) msg[k] = 0;
+  }
+  static constexpr bool kOwnResolver = false;  // env_step calls resolve_moves
+  static __device__ __forceinline__ int n_agents(const EnvDims& d) { return d.n; }
+  static __device__ __forceinline__ void credit(float* rew, int, int aid, float r) {
+    rew[aid] += r;
+  }
 };
 
 // Rows of the packed (ROWS, B) int32 state tensor, env index minor:
@@ -265,6 +334,100 @@ static __device__ void resolve_moves(int n, const int* acell, const int* tcell, 
   }
 }
 
+// resolve_moves' rules for at most K agents with every per-agent set a bitmask
+// in registers (K1's map routes; the arrays above live in local memory, and
+// their dependent loads were most of K1's step).  Per agent: S, its
+// successor (the agent on its target); P, its predecessors; T, the agents
+// with its target.  Padded agents (n <= i < K) have targets no agent shares.
+// - on a cycle: the agents left after peeling, n times, those whose
+//   successor or every predecessor is gone (the tails and the chains into a
+//   sink fall away; a cycle, a self-loop too, stays);
+// - poisoned and cyclic components: the flags spread n times over the
+//   adjacency T | S | P;
+// - depth: 1 + the number of levels d >= 2 holding the agent, level d the
+//   agents with a predecessor in level d - 1 (the longest chain ending there
+//   wherever the component is acyclic, where alone depth is read);
+// - the chain rule: an agent is bad if it is not chosen or its successor is
+//   bad, spread n times.
+template <int K>
+static __device__ __forceinline__ void resolve_moves_masks(int n, const int* acell,
+                                                           const int* tcell, bool* committed) {
+  const uint32_t all = (uint32_t)((1ull << n) - 1ull);
+  int ac[K], tc[K], depth[K];
+  uint32_t S[K], P[K], T[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    ac[i] = i < n ? acell[i] : -1 - i;
+    tc[i] = i < n ? tcell[i] : -1 - K - i;
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    uint32_t hit = 0, same = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      hit |= (uint32_t)(tc[i] == ac[j]) << j;
+      same |= (uint32_t)(tc[i] == tc[j]) << j;
+    }
+    S[i] = hit & (0u - hit);  // the lowest j, as the scan's first hit
+    T[i] = same;
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    uint32_t p = 0;
+#pragma unroll
+    for (int i = 0; i < K; ++i) p |= ((S[i] >> j) & 1u) << i;
+    P[j] = p;
+  }
+  uint32_t on = all;
+  for (int it = 0; it < n; ++it) {
+    uint32_t keep = 0;
+#pragma unroll
+    for (int i = 0; i < K; ++i) keep |= (uint32_t)((S[i] & on) != 0 && (P[i] & on) != 0) << i;
+    on &= keep;
+  }
+  uint32_t poison = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) poison |= (uint32_t)((S[i] & P[i]) != 0 && S[i] != (1u << i)) << i;
+  uint32_t cyc = on;
+  for (int it = 0; it < n; ++it) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const uint32_t adj = T[i] | S[i] | P[i];
+      poison |= (uint32_t)((adj & poison) != 0) << i;
+      cyc |= (uint32_t)((adj & cyc) != 0) << i;
+    }
+  }
+  uint32_t level = all;
+#pragma unroll
+  for (int i = 0; i < K; ++i) depth[i] = 1;
+  for (int d = 1; d < n; ++d) {
+    uint32_t next = 0;
+#pragma unroll
+    for (int i = 0; i < K; ++i) next |= (uint32_t)((P[i] & level) != 0) << i;
+    level = next;
+#pragma unroll
+    for (int i = 0; i < K; ++i) depth[i] += (level >> i) & 1u;
+  }
+  uint32_t bad = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    bool ok = true;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (j != i && ((T[i] >> j) & 1u)) ok &= depth[j] < depth[i] || (depth[j] == depth[i] && j > i);
+    bad |= (uint32_t)!ok << i;
+  }
+  for (int it = 0; it < n; ++it) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) bad |= (uint32_t)((S[i] & bad) != 0) << i;
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    if (i < n)
+      committed[i] = (((on >> i) & 1u) && !((poison >> i) & 1u)) ||
+                     (!((bad >> i) & 1u) && !((cyc >> i) & 1u));
+}
+
 // ---- the transition ------------------------------------------------------------
 
 static __constant__ int RW_DX[4] = {0, 0, -1, 1};
@@ -272,21 +435,31 @@ static __constant__ int RW_DY[4] = {-1, 1, 0, 0};
 static __constant__ int RW_ROT_LEFT[4] = {2, 3, 1, 0};
 static __constant__ int RW_ROT_RIGHT[4] = {3, 2, 0, 1};
 
+// A phase mark that does nothing (K1 hands env_step one that reads the clock
+// where tools/collect_phase_profile.py asks for it).
+struct RwNoMark {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
 // Advance `st` by one step under actions `acts` (modified: failed moves and
 // pre-cancels become NOOP).  Writes per-agent rewards; returns done.  The
-// env is reset in place when done.
-static __device__ bool env_step(EnvState& st, int* acts, float* rew, const EnvDims& d,
-                                const EnvLayout& lay, uint32_t env, uint32_t step) {
-  const int N = d.n, S = d.s, R = d.r, W = d.w, H = d.h;
+// env is reset in place when done.  `St` is the state's storage (EnvState,
+// or K1's RolloutEnv); `mark(k)` closes phase k (1 pre-cancel, 2 resolver,
+// 3 moves and toggles, 4 deliveries, 5 termination and reset).
+template <class St, class Mark = RwNoMark>
+static __device__ bool env_step(St& st, int* acts, float* rew, const EnvDims& d,
+                                const EnvLayout& lay, uint32_t env, uint32_t step,
+                                Mark mark = Mark()) {
+  const int N = St::n_agents(d), S = d.s, R = d.r, W = d.w, H = d.h;
   int acell[RW_MAX_N], tcell[RW_MAX_N], tx[RW_MAX_N], ty[RW_MAX_N];
   bool committed[RW_MAX_N];
 
   for (int i = 0; i < N; ++i) {
     rew[i] = 0.f;
     int fwd = acts[i] == RW_FORWARD;
-    tx[i] = min(max(st.ax[i] + (fwd ? RW_DX[st.ad[i]] : 0), 0), W - 1);
-    ty[i] = min(max(st.ay[i] + (fwd ? RW_DY[st.ad[i]] : 0), 0), H - 1);
-    acell[i] = st.ay[i] * W + st.ax[i];
+    tx[i] = min(max(st.agent_x(i) + (fwd ? RW_DX[st.agent_dir(i)] : 0), 0), W - 1);
+    ty[i] = min(max(st.agent_y(i) + (fwd ? RW_DY[st.agent_dir(i)] : 0), 0), H - 1);
+    acell[i] = st.agent_y(i) * W + st.agent_x(i);
     tcell[i] = ty[i] * W + tx[i];
   }
   // Pre-cancel: a loaded agent moving onto a standing shelf, unless that
@@ -294,23 +467,28 @@ static __device__ bool env_step(EnvState& st, int* acts, float* rew, const EnvDi
   bool cancel[RW_MAX_N];
   for (int i = 0; i < N; ++i) {
     cancel[i] = false;
-    if (st.carry[i] < 0 || tcell[i] == acell[i]) continue;
+    if (st.carried(i) < 0 || tcell[i] == acell[i]) continue;
     bool shelf_at = false;
-    for (int s = 0; s < S; ++s) shelf_at |= st.scell[s] == tcell[i];
+    st.any_shelf_at(S, tcell[i], shelf_at);
     bool tgt_loaded = false;
-    for (int j = 0; j < N; ++j) tgt_loaded |= acell[j] == tcell[i] && st.carry[j] >= 0;
+    for (int j = 0; j < N; ++j) tgt_loaded |= acell[j] == tcell[i] && st.carried(j) >= 0;
     cancel[i] = shelf_at && !tgt_loaded;
   }
   for (int i = 0; i < N; ++i) {
     if (cancel[i]) {
       acts[i] = RW_NOOP;
-      tx[i] = st.ax[i];
-      ty[i] = st.ay[i];
+      tx[i] = st.agent_x(i);
+      ty[i] = st.agent_y(i);
       tcell[i] = acell[i];
     }
   }
+  mark(1);
 
-  resolve_moves(N, acell, tcell, committed);
+  if constexpr (St::kOwnResolver)
+    st.resolve(N, acell, tcell, committed);
+  else
+    resolve_moves(N, acell, tcell, committed);
+  mark(2);
 
   // Movement, rotation; toggles read the PRE-move shelf cells.
   int shelf_under[RW_MAX_N];
@@ -318,51 +496,38 @@ static __device__ bool env_step(EnvState& st, int* acts, float* rew, const EnvDi
   for (int i = 0; i < N; ++i) {
     if (!committed[i]) acts[i] = RW_NOOP;
     moved[i] = acts[i] == RW_FORWARD;
-    if (moved[i]) {
-      st.ax[i] = tx[i];
-      st.ay[i] = ty[i];
-    }
-    if (acts[i] == RW_LEFT) st.ad[i] = RW_ROT_LEFT[st.ad[i]];
-    if (acts[i] == RW_RIGHT) st.ad[i] = RW_ROT_RIGHT[st.ad[i]];
+    if (moved[i]) st.move_to(i, tx[i], ty[i]);
+    if (acts[i] == RW_LEFT) st.turn(i, RW_ROT_LEFT[st.agent_dir(i)]);
+    if (acts[i] == RW_RIGHT) st.turn(i, RW_ROT_RIGHT[st.agent_dir(i)]);
     shelf_under[i] = -1;
     if (acts[i] == RW_TOGGLE) {
-      int c = st.ay[i] * W + st.ax[i];
-      for (int s = 0; s < S; ++s) {
-        if (st.scell[s] == c) {
-          shelf_under[i] = s;
-          break;
-        }
-      }
+      int c = st.agent_y(i) * W + st.agent_x(i);
+      st.shelf_at(S, c, shelf_under[i]);
     }
   }
-  for (int i = 0; i < N; ++i)  // carried shelves ride along
-    if (moved[i] && st.carry[i] >= 0) st.scell[st.carry[i]] = st.ay[i] * W + st.ax[i];
+  st.carry_shelves(N, W, moved, acell);  // carried shelves ride along
   for (int i = 0; i < N; ++i) {
     if (acts[i] != RW_TOGGLE) continue;
-    if (st.carry[i] < 0) {
-      if (shelf_under[i] >= 0) st.carry[i] = shelf_under[i];
-    } else if (!lay.highway[st.ay[i] * W + st.ax[i]]) {
-      if (d.reward_type == RW_TWO_STAGE && st.hd[i]) rew[i] += 0.5f;
-      st.carry[i] = -1;
-      st.hd[i] = 0;
+    if (st.carried(i) < 0) {
+      if (shelf_under[i] >= 0) st.set_carried(i, shelf_under[i]);
+    } else if (!lay.highway[st.agent_y(i) * W + st.agent_x(i)]) {
+      if (d.reward_type == RW_TWO_STAGE && st.delivered(i)) rew[i] += 0.5f;
+      st.set_carried(i, -1);
+      st.set_delivered(i, 0);
     }
   }
+  mark(3);
 
   // Deliveries, queue resample and rewards, goal by goal.
   bool any_delivered = false;
   for (int g = 0; g < d.g && R > 0; ++g) {
     int gcell = lay.goal_y[g] * W + lay.goal_x[g];
     int sid = -1;
-    for (int s = 0; s < S; ++s) {
-      if (st.scell[s] == gcell) {
-        sid = s;
-        break;
-      }
-    }
+    st.shelf_at(S, gcell, sid);
     if (sid < 0) continue;
     int slot = -1;
     for (int r = 0; r < R; ++r) {
-      if (st.q[r] == sid) {
+      if (st.queued(r) == sid) {
         slot = r;
         break;
       }
@@ -373,7 +538,7 @@ static __device__ bool env_step(EnvState& st, int* acts, float* rew, const EnvDi
     int count = 0;
     for (int s = 0; s < S; ++s) {
       bool inq = false;
-      for (int r = 0; r < R; ++r) inq |= st.q[r] == s;
+      for (int r = 0; r < R; ++r) inq |= st.queued(r) == s;
       count += inq ? 0 : 1;
     }
     int repl = sid;
@@ -381,7 +546,7 @@ static __device__ bool env_step(EnvState& st, int* acts, float* rew, const EnvDi
       int k = rand_mod(draw_bits(d, env, step, RW_QUEUE, g), count);
       for (int s = 0; s < S; ++s) {
         bool inq = false;
-        for (int r = 0; r < R; ++r) inq |= st.q[r] == s;
+        for (int r = 0; r < R; ++r) inq |= st.queued(r) == s;
         if (inq) continue;
         if (k == 0) {
           repl = s;
@@ -390,12 +555,12 @@ static __device__ bool env_step(EnvState& st, int* acts, float* rew, const EnvDi
         --k;
       }
     }
-    st.q[slot] = repl;
+    st.set_queued(slot, repl);
     // Credit the agent on the goal; nobody there credits the LAST agent
     // (the reference's rewards[-1] wraparound).
     int aid = N - 1;
     for (int i = 0; i < N; ++i) {
-      if (st.ay[i] * W + st.ax[i] == gcell) {
+      if (st.agent_y(i) * W + st.agent_x(i) == gcell) {
         aid = i;
         break;
       }
@@ -403,34 +568,35 @@ static __device__ bool env_step(EnvState& st, int* acts, float* rew, const EnvDi
     if (d.reward_type == RW_GLOBAL) {
       for (int i = 0; i < N; ++i) rew[i] += 1.f;
     } else if (d.reward_type == RW_INDIVIDUAL) {
-      rew[aid] += 1.f;
+      St::credit(rew, N, aid, 1.f);
     } else {
-      rew[aid] += 0.5f;
-      st.hd[aid] = 1;
+      St::credit(rew, N, aid, 0.5f);
+      st.set_delivered(aid, 1);
     }
     any_delivered = true;
   }
+  mark(4);
 
   // Termination and autoreset.
-  st.inact = any_delivered ? 0 : st.inact + 1;
-  st.steps += 1;
-  bool done = (d.max_inactive > 0 && st.inact >= d.max_inactive) ||
-              (d.max_steps > 0 && st.steps >= d.max_steps);
+  st.set_inactive(any_delivered ? 0 : st.inactive() + 1);
+  st.set_step_count(st.step_count() + 1);
+  bool done = (d.max_inactive > 0 && st.inactive() >= d.max_inactive) ||
+              (d.max_steps > 0 && st.step_count() >= d.max_steps);
   if (done) {
     int cells[RW_MAX_N];
     draw_distinct(d, env, step, 0, N, H * W, cells);
     for (int i = 0; i < N; ++i) {
-      st.ax[i] = cells[i] % W;
-      st.ay[i] = cells[i] / W;
-      st.ad[i] = rand_mod(draw_bits(d, env, step, RW_RESPAWN, N + i), 4);
-      st.carry[i] = -1;
-      st.hd[i] = 0;
+      st.move_to(i, cells[i] % W, cells[i] / W);
+      st.turn(i, rand_mod(draw_bits(d, env, step, RW_RESPAWN, N + i), 4));
+      st.set_carried(i, -1);
+      st.set_delivered(i, 0);
     }
-    for (int s = 0; s < S; ++s) st.scell[s] = lay.slot_y[s] * W + lay.slot_x[s];
-    draw_distinct(d, env, step, 2 * N, R, S, st.q);
-    st.inact = 0;
-    st.steps = 0;
-    for (int k = 0; k < N * d.m; ++k) st.msg[k] = 0;
+    st.reset_shelves(lay, S, W);
+    st.reset_queue(d, env, step, 2 * N, R, S);
+    st.set_inactive(0);
+    st.set_step_count(0);
+    st.clear_msg(N * d.m);
   }
+  mark(5);
   return done;
 }

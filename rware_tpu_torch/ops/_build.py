@@ -37,8 +37,9 @@ _PPO_DIMS = [_I] * 8 + [_F] * 4 + [_I] * 7
 # ... | c_tile c_grid c_smem c_w0_smem c_chunk c_n_chunks c_wgrad_smem CH1 CH2 (the critic's)
 _MAPPO_DIMS = _PPO_DIMS + [_I] * 9
 _SIGNATURES = {
-    # ... scripted T B | layout state_in state_out actions rewards episodes stream
-    "rw_fused_rollout": _DIMS + [_I] * 3 + [_P] * 7,
+    # ... scripted T B | plan (host int array, fused_rollout.RolloutPlan.args)
+    # n_plan | layout state_in state_out actions rewards episodes scratch stream
+    "rw_fused_rollout": _DIMS + [_I] * 3 + [_P, _I] + [_P] * 8,
     # ... deterministic T B sensor_range normalised img_layers img_n_layers
     # img_directional img_self L H1 H2 A n_stacks | plan (host int array,
     # fused_rollout.CollectPlan.args) n_plan | layout state_in state_out w0 b0

@@ -39,6 +39,14 @@ collectors sample them from the policy's Bernoulli message head, add their
 log-probability to the move's and return them as ``traj["bits"]`` (T, B, N,
 M) int32; an episode's end clears them.
 
+K1 runs one thread an env with the env kept compact on the card, a map from
+cell to shelf in place of the shelves' list (:func:`rollout_plan`: a tile of
+envs a block in shared memory, or in device memory where the batch would take
+more than two waves of tiles, or for a grid too large for a tile the env in local
+memory with scans, as the kernel before it).  The map holds one shelf a cell,
+which the dynamics keep: no two shelves ever share a cell in a state that
+``reset`` and ``step`` make, and K1 takes such states.
+
 Each wrapper launches its CUDA kernel (``csrc/fused_rollout.cu``,
 ``csrc/fused_collect.cu`` for K2a and K2d, ``csrc/collect_gru.cuh`` for
 K2c and K2d′, launched from ``csrc/fused_collect_gru.cu``, its image
@@ -206,9 +214,136 @@ class _Draws:
         return self(step, philox.MESSAGE, self.n_msg)
 
 
+# K1's routes (csrc/fused_rollout.cu): the compact env in shared memory, a tile
+# of envs a block; the compact env in device memory; the env in local memory
+# with the shelves as a list of cells, found by scans (the kernel before the map).
+ROLLOUT_ROUTES = ("shared", "global", "scan")
+# The regions of K1's compact env, in rows (a word each, env-minor): agents (two
+# words each), reward sums, queue, the inactive and step counters, the map.
+ROLLOUT_REGIONS = ("agents", "reward", "queue", "count", "map")
+ROLLOUT_TES = (128, 64, 32)  # envs (threads) a block, largest first
+# Waves of tiles the shared route takes a batch in, at most: on an H100 at
+# B=65,536 large-8ag's two waves beat device memory, 5x5-4ag's four lost to it
+# (PERF.md §6).
+ROLLOUT_MAX_WAVES = 2
+SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutPlan:
+    """The launch plan of the fused rollout kernel (K1): the ``route`` (of
+    :data:`ROLLOUT_ROUTES`), ``te`` envs (threads) a block, the bytes of a
+    map entry (1, or 2 from 255 shelves; 0 on the scan route), the
+    ``stride`` in words between two rows of an env (the tile, or the batch
+    rounded up to 32 in device memory), and the first row of each of
+    :data:`ROLLOUT_REGIONS` with their end.  ``args`` is what
+    ``rw_fused_rollout`` takes, which refuses a plan whose regions do not hold
+    what the kernel keeps there."""
+
+    route: str
+    te: int
+    map_bytes: int
+    stride: int
+    offsets: Tuple[int, ...]
+
+    regions = ROLLOUT_REGIONS
+
+    def region(self, name: str) -> Tuple[int, int]:
+        """(first, end) row of region ``name``."""
+        k = self.regions.index(name)
+        return self.offsets[k], self.offsets[k + 1]
+
+    @property
+    def rows(self) -> int:
+        """Words of one env's compact state."""
+        return self.offsets[-1]
+
+    @property
+    def smem(self) -> int:
+        """Bytes of a block's shared memory (the shared route's tile)."""
+        return 4 * self.rows * self.stride if self.route == "shared" else 0
+
+    @property
+    def scratch_words(self) -> int:
+        """Words of device memory the global route keeps the envs in."""
+        return self.rows * self.stride if self.route == "global" else 0
+
+    def blocks(self, n_envs: int) -> int:
+        return -(-n_envs // self.te)
+
+    def waves(self, n_envs: int) -> int:
+        """Rounds of ``blocks_per_sm`` blocks on every SM that ``n_envs`` take."""
+        return -(-self.blocks(n_envs) // (SM_COUNT * self.blocks_per_sm))
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks an SM holds by shared memory, threads and the kernel's
+        128 registers a thread."""
+        per = min(2048 // self.te, 32, 65536 // (128 * self.te))
+        return min(per, SMEM_PER_SM // (self.smem + 1024)) if self.route == "shared" else per
+
+    @property
+    def carveout(self) -> int:
+        """The shared-memory carve-out, in percent of an SM's: what
+        ``blocks_per_sm`` tiles need on the shared route, none (all L1) on the
+        others."""
+        if self.route != "shared":
+            return 0
+        return -(-100 * self.blocks_per_sm * (self.smem + 1024) // SMEM_PER_SM)
+
+    def args(self) -> list:
+        return [ROLLOUT_ROUTES.index(self.route), self.te, self.map_bytes, self.stride,
+                self.carveout, *self.offsets]
+
+
+def rollout_plan(config: WarehouseConfig, batch: int, route: Optional[str] = None) -> RolloutPlan:
+    """K1's plan for ``batch`` envs of ``config``.  The tile is the largest of
+    :data:`ROLLOUT_TES` that gives every SM a block (32 for small batches);
+    the compact env (2N + N + R + 2 words and the map) is kept in shared
+    memory where the batch takes at most :data:`ROLLOUT_MAX_WAVES` waves of
+    such tiles, else in device memory;
+    a grid whose compact env does not fit a tile of 32 in shared memory keeps
+    the scan route.  ``route`` forces one (the scan route takes any config;
+    the shared route only a compact env that fits a tile of 32).  No config
+    the kernel takes is refused."""
+    _check_config(config)
+    if batch < 1:
+        raise ValueError("K1 takes at least one env")
+    if route is not None and route not in ROLLOUT_ROUTES:
+        raise ValueError(f"route must be one of {ROLLOUT_ROUTES}, got {route!r}")
+    layout = config.compile_layout()
+    h, w = layout.grid_size
+    n, s, r = config.n_agents, layout.n_shelves, config.request_queue_size
+    map_bytes = 1 if s < 255 else 2
+    sizes = [2 * n, n, r, 2, -(-h * w * map_bytes // 4)]
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + size)
+    fits = 4 * offsets[-1] * ROLLOUT_TES[-1] <= SMEM_LIMIT and max(h, w) < 65536
+    te = next((te for te in ROLLOUT_TES if -(-batch // te) >= SM_COUNT), ROLLOUT_TES[-1])
+    if route is None:
+        route = "scan"
+        if fits:
+            tile = next((t for t in ROLLOUT_TES if t <= te and 4 * offsets[-1] * t <= SMEM_LIMIT))
+            shared = RolloutPlan("shared", tile, map_bytes, tile, tuple(offsets))
+            route = "shared" if shared.waves(batch) <= ROLLOUT_MAX_WAVES else "global"
+    if route == "scan":
+        return RolloutPlan("scan", te, 0, te, (0,) * (len(ROLLOUT_REGIONS) + 1))
+    if route == "shared":
+        if not fits:
+            raise ValueError("the compact env does not fit a tile of 32 in shared memory")
+        te = next((t for t in ROLLOUT_TES if t <= te and 4 * offsets[-1] * t <= SMEM_LIMIT))
+        return RolloutPlan("shared", te, map_bytes, te, tuple(offsets))
+    if max(h, w) >= 65536:
+        raise ValueError("the compact env takes grids of at most 65,535 rows and columns")
+    return RolloutPlan("global", te, map_bytes, _up(batch, 32), tuple(offsets))
+
+
 class FusedRollout:
     """``rollout(state, seed, actions=None) -> (state, rewards_sum (B, N)
-    f32, episodes (B,) int32)``; see :func:`build_fused_rollout`."""
+    f32, episodes (B,) int32)``; see :func:`build_fused_rollout`.  ``route``
+    (None: the plan's choice) forces one of :data:`ROLLOUT_ROUTES`;
+    :meth:`plan` gives a batch's launch plan."""
 
     def __init__(self, config: WarehouseConfig, n_steps: int, scripted: bool = False):
         _check_config(config)
@@ -216,6 +351,7 @@ class FusedRollout:
         self.n_steps = n_steps
         self.scripted = scripted
         self.launches = 0
+        self.route: Optional[str] = None
         self._transition = build_transition_fn(config)
         self._reset = build_reset_fn(config)
         self._layouts: Dict[torch.device, torch.Tensor] = {}
@@ -263,6 +399,10 @@ class FusedRollout:
             epis = epis + done.to(torch.int32)
         return state, rew, epis
 
+    def plan(self, batch: int) -> RolloutPlan:
+        """The launch plan for ``batch`` envs (:func:`rollout_plan`)."""
+        return rollout_plan(self.config, batch, self.route)
+
     def _launch(self, state, seed, actions):
         from rware_tpu_torch.ops._build import check, load_library
 
@@ -271,19 +411,26 @@ class FusedRollout:
         b, n = state.batch_size, self.config.n_agents
         if dev not in self._layouts:
             self._layouts[dev] = layout_buffer(self.config, dev)
+        plan = self.plan(b)
         with torch.cuda.device(dev):
             packed = pack_state(state)
             out = torch.empty_like(packed)
             acts = None
             if actions is not None:
-                acts = actions.to(torch.int32).reshape(actions.shape[:3] + (-1,))
+                acts = actions.to(torch.int32).reshape(actions.shape[:3] + (1 + self.config.msg_bits,))
                 acts = acts.permute(0, 2, 3, 1).contiguous()  # (T, N, 1 + M, B)
             rewards = torch.empty((n, b), dtype=torch.float32, device=dev)
             episodes = torch.empty(b, dtype=torch.int32, device=dev)
+            scratch = None
+            if plan.scratch_words:
+                scratch = torch.empty(plan.scratch_words, dtype=torch.int32, device=dev)
+            args = plan.args()
+            plan_buf = (ctypes.c_int * len(args))(*args)
             code = lib.rw_fused_rollout(
                 *_dims(self.config), seed, int(self.scripted), self.n_steps, b,
-                _ptr(self._layouts[dev]), _ptr(packed), _ptr(out), _ptr(acts),
-                _ptr(rewards), _ptr(episodes), torch.cuda.current_stream(dev).cuda_stream,
+                ctypes.addressof(plan_buf), len(args), _ptr(self._layouts[dev]), _ptr(packed),
+                _ptr(out), _ptr(acts), _ptr(rewards), _ptr(episodes), _ptr(scratch),
+                torch.cuda.current_stream(dev).cuda_stream,
             )
             check(lib, code, "fused_rollout")
             self.launches += 1

@@ -165,6 +165,81 @@ def test_fused_collect_instantiations_match_plain(kind, env_id, m, weights_globa
         assert torch.equal(getattr(ks, f), getattr(ks2, f)), f
 
 
+def _oversize_config():
+    """A 64 x 128 grid (8,192 cells) with 64 shelves: no tile of 32 compact
+    envs fits a block's shared memory, so K1 takes the scan route."""
+    from rware_tpu_torch.config import WarehouseConfig
+
+    grid = [["."] * 128 for _ in range(64)]
+    for k in range(64):
+        grid[8 + k % 32][40 + 48 * (k // 32)] = "x"
+    grid[63][60] = grid[63][61] = "g"
+    return WarehouseConfig(layout="\n".join("".join(row) for row in grid), n_agents=4,
+                           request_queue_size=8, max_steps=40)
+
+
+@pytest.mark.parametrize("env_id,route,m", [
+    ("rware-tiny-2ag-v2", "shared", 2),
+    ("rware-large-8ag-v2", "global", 2),
+    ("rware-tiny-16ag-v2", "scan", 0),
+    ("rware-4x5-4ag-v2", None, 2),  # 304 shelves: a uint16 map in shared memory
+    ("oversize", None, 0),  # 8,192 cells: the scan route by the plan
+    ("rware-tiny-16ag-v2", None, 2),  # the resolver on bitmasks for 16 agents
+    ("rware-2x3-32ag-v2", None, 0),  # 32 agents: the resolver on local arrays
+])
+@pytest.mark.parametrize("scripted", [True, False])
+def test_fused_rollout_routes_match_plain(env_id, route, m, scripted):
+    """K1 on each route of its plan (ops/fused_rollout.rollout_plan), bit for
+    bit against its plain version, messages included."""
+    from rware_tpu_torch.core.env import Warehouse
+
+    if env_id == "oversize":
+        env = Warehouse(_oversize_config(), device=DEV)
+    else:
+        env = rware_tpu_torch.make(env_id, device=DEV, max_steps=40, msg_bits=m)
+    states, _ = batched_reset(env, 4, 1000)
+    roll = build_fused_rollout(env.config, 64, scripted=scripted)
+    roll.route = route
+    assert roll.plan(1000).route == route or route is None
+    if env_id == "oversize":
+        assert roll.plan(1000).route == "scan"
+    actions = None
+    if scripted:
+        gen = torch.Generator(device=DEV).manual_seed(1)
+        actions = torch.randint(0, 5, (64, 1000, env.n_agents, 1 + m), generator=gen,
+                                device=DEV, dtype=torch.int32)
+        actions[..., 1:] %= 2
+        actions = actions if m else actions[..., 0]
+    ks, kr, ke = roll(states, 3, actions)
+    ps, pr, pe = roll.plain(states, 3, actions)
+    assert roll.launches == 1
+    for f in FIELDS + ("agent_message",):
+        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+    assert torch.equal(kr, pr) and torch.equal(ke, pe)
+
+
+@pytest.mark.parametrize("t_len", [0, 1, 2])
+@pytest.mark.parametrize("scripted", [True, False])
+def test_fused_rollout_messages_of_the_last_step(t_len, scripted):
+    """K1 writes the messages once, from the last step's bits (zero where it
+    ended an episode; as they came in after no step): short launches from a
+    state whose messages are set, with episodes ending every other step."""
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=DEV, max_steps=2, msg_bits=3)
+    states, _ = batched_reset(env, 5, 500)
+    states, _, _ = build_fused_rollout(env.config, 1).plain(states, 6)  # bits set, steps 1
+    roll = build_fused_rollout(env.config, t_len, scripted=scripted)
+    actions = None
+    if scripted:
+        gen = torch.Generator(device=DEV).manual_seed(2)
+        actions = torch.randint(0, 5, (t_len, 500, 2, 4), generator=gen, device=DEV,
+                                dtype=torch.int32)
+    ks, kr, ke = roll(states, 7, actions)
+    ps, pr, pe = roll.plain(states, 7, actions)
+    for f in FIELDS + ("agent_message",):
+        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+    assert torch.equal(kr, pr) and torch.equal(ke, pe)
+
+
 def test_fused_rollout_kernel_matches_cpu_plain():
     """The kernel on the card gives what the plain version gives on the
     CPU: the Philox stream does not depend on the device."""

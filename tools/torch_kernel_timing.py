@@ -64,6 +64,11 @@ prologue, sweep, dWh and reduction where the checkout times it (the median of
 ``--repeats`` timed launches); then it prints a digest of K10's outputs (with
 K9's hidden sequence) on ``chip_smoke.py``'s phase-13 cases, so that two
 checkouts' K10 can be held bit for bit to each other.
+``--rollout-kernels`` times only the fused rollout kernel (K1, random mode)
+at its main shape (B=65,536, T=256) on each of ``--configs`` with no message
+bits and with two, beside its plain version on tiny-2ag where ``--plain``
+asks for it, with its launch plan (route, tile) where the checkout has one;
+``--route`` forces one of the plan's routes on every config.
 ``--library-gru`` times ``torch.nn.GRU`` in bf16 at K9's band shape (T=128,
 8,192 sequences, 128 inputs, hidden 128) as a yardstick for K9's recurrence:
 it is not K9's function (no embed, no resets where an episode ends) and the
@@ -79,6 +84,8 @@ Usage: python tools/torch_kernel_timing.py [--configs ...] [--profile] [--train-
        python tools/torch_kernel_timing.py --ppo-kernels [--tree DIR] [--plain] [--out FILE]
        python tools/torch_kernel_timing.py --collect-kernels [--tree DIR] [--plain] [--out FILE]
        python tools/torch_kernel_timing.py --gru-seq-kernels [--tree DIR] [--plain] [--out FILE]
+       python tools/torch_kernel_timing.py --rollout-kernels [--configs ...] [--route R]
+       [--tree DIR] [--plain] [--out FILE]
        python tools/torch_kernel_timing.py --library-gru [--out FILE]
 """
 import argparse
@@ -170,6 +177,35 @@ def gru_tile(collect, b) -> dict:
                 "bias_and_heads": "device memory" if plan.heads_global else "shared memory"}
     return {"threads": collect.threads,
             "bias_and_heads": "shared memory" if collect.smem_stacks else "device memory"}
+
+
+def rollout_kernels(tree, configs, route, repeats, plain, emit, dev):
+    """K1 alone at its main shape (see the module's docstring)."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.ops.fused_rollout import build_fused_rollout
+    from rware_tpu_torch.parallel import batched_reset
+
+    b, t = 65536, 256
+    for env_id in configs:
+        for m in (0, 2):
+            env = rware_tpu_torch.make(env_id, device=dev, msg_bits=m)
+            states, _ = batched_reset(env, 0, b)
+            roll = build_fused_rollout(env.config, t)
+            rec = {"tree": tree, "kernel": "fused_rollout (K1)", "env": env_id, "msg_bits": m,
+                   "B": b, "T": t}
+            if callable(getattr(roll, "plan", None)):
+                roll.route = route
+                plan = roll.plan(b)
+                rec["plan"] = {"route": plan.route, "te": plan.te, "smem": plan.smem,
+                               "rows": plan.rows}
+            med, lo, hi = time_launches(lambda: roll(states, 1), repeats)
+            rec.update(ms_median=med, ms_min=lo, ms_max=hi, env_steps_per_s=b * t / med * 1e3)
+            if plain and env_id == "rware-tiny-2ag-v2":
+                rec["plain_ms"] = time_launches(lambda: roll.plain(states, 1), 1)[0]
+            emit(rec)
+            del states, roll
+            torch.cuda.empty_cache()
 
 
 def seac_kernels(env, env_id, states, repeats, emit):
@@ -546,12 +582,15 @@ def main():
                          "main shape; K2a's output digests")
     ap.add_argument("--gru-seq-kernels", action="store_true",
                     help="time only K11, K12 and K13 at the band shape; K10's output digests")
+    ap.add_argument("--rollout-kernels", action="store_true",
+                    help="time only K1 at its main shape on each of --configs, M=0 and M=2")
+    ap.add_argument("--route", help="--rollout-kernels: force this route of K1's plan")
     ap.add_argument("--library-gru", action="store_true",
                     help="time only torch.nn.GRU in bf16 at K9's band shape")
     ap.add_argument("--tree", help="import rware_tpu_torch from this checkout")
     ap.add_argument("--plain", action="store_true",
-                    help="--ppo-kernels, --collect-kernels, --gru-seq-kernels: time each plain "
-                         "version too")
+                    help="--ppo-kernels, --collect-kernels, --gru-seq-kernels, "
+                         "--rollout-kernels: time each plain version too")
     args = ap.parse_args()
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -601,6 +640,10 @@ def main():
         args.configs = []
     if args.library_gru:
         library_gru(args.repeats, emit, dev)
+        args.configs = []
+    if args.rollout_kernels:
+        rollout_kernels(args.tree or ".", args.configs, args.route, args.repeats, args.plain,
+                        emit, dev)
         args.configs = []
     for env_id in args.configs:
         env = rware_tpu_torch.make(env_id, device=dev, msg_bits=m)
