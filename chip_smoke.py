@@ -198,7 +198,28 @@ Phases, one line each:
     reduction by CUDA events (``FusedGruLossBwd.timed``);
 28. recurrent MAPPO at the same shape with M=0 and M=2 message bits: three
     updates after one warm-up (exactly 3 K2c, 3 K6, 48 K9, 48 K10 and 48
-    critic-only K5), the time of an update split by phase.
+    critic-only K5), the time of an update split by phase;
+29. the Gym surface, which runs the torch engine and no kernel (JAX's adapter
+    and vector env run XLA ops): the vector env (``gym.make_vec`` after the
+    port's ``register_all``, or where gymnasium is not installed the device
+    program it runs, ``core.host.HostVectorEnv``; a line says which) on
+    tiny-2ag at B=4,096 for 256 steps of numpy-drawn actions with
+    ``max_steps`` 100, its states, obs, rewards, done and info bit for bit
+    those of ``Warehouse.step`` through ``debug.checked_step`` and a reset
+    from the same generator state selected env by env (NEXT_STEP autoreset),
+    obs in the observation space (or of the batch's size) on 4 sampled
+    steps; the four observation types with two message bits at B=1,024; one
+    env (``GymWarehouse``, or ``core.host.HostEnv``) on the card against the
+    CPU on a golden delivery-free scenario of 15 scripted steps: obs,
+    rewards, done, info, the rgb frames and global images byte for byte;
+    exactly one device-to-host copy in a one-env step and in a vector step
+    (torch.profiler), with the host-to-device copies, the device events and
+    the device's busy time beside the profiled wall time; ``checked_step``'s
+    ``throw()`` raising on two agents on one cell and on a carried shelf off
+    its carrier; and the times, host conversion included: env-steps/s of the
+    vector step at B=4,096 (FLATTENED and DICT), ms of a vector reset, steps/s
+    of the one-env step.  ``check_invariants``, which phases 3-25 call, is
+    ``debug.validate_state``.
 
 The MLP collector (K2a, with K2b and K2e; K2d) runs a tile of 64 envs a
 block at the main shape: its env threads step, a thread a row builds the
@@ -397,29 +418,14 @@ def require(ok, msg: str) -> None:
 
 
 def check_invariants(env, state) -> None:
-    """Agents in the grid on distinct cells; shelves on distinct cells (K1's
-    shelf map keeps one a cell); queues distinct and in range; carried
-    shelves under their carriers."""
-    import torch
+    """The engine's invariants on every env of ``state``, by
+    ``rware_tpu_torch.debug``'s device check: agents and shelves in the grid,
+    agents on distinct cells, shelves on distinct cells (K1's shelf map keeps
+    one a cell), carried shelves in range, under their carriers and carried
+    once, queues distinct and in range."""
+    from rware_tpu_torch import debug
 
-    h, w = env.grid_size
-    cells = state.agent_y.long() * w + state.agent_x.long()
-    require(((state.agent_x >= 0) & (state.agent_x < w)).all(), "agent x out of grid")
-    require(((state.agent_y >= 0) & (state.agent_y < h)).all(), "agent y out of grid")
-    require((cells.sort(dim=1).values.diff(dim=1) > 0).all(), "two agents share a cell")
-    shelves = state.shelf_y.long() * w + state.shelf_x.long()
-    require((shelves.sort(dim=1).values.diff(dim=1) > 0).all(), "two shelves share a cell")
-    q = state.request_queue.long()
-    if q.shape[1]:
-        require(((q >= 0) & (q < env.layout.n_shelves)).all(), "queue out of range")
-        require((q.sort(dim=1).values.diff(dim=1) > 0).all(), "queue not distinct")
-    carried = state.agent_carrying.long()
-    idx = carried.clamp(min=0)
-    ok = (carried < 0) | (
-        (torch.gather(state.shelf_x, 1, idx) == state.agent_x)
-        & (torch.gather(state.shelf_y, 1, idx) == state.agent_y)
-    )
-    require(ok.all(), "carried shelf not under its carrier")
+    debug.validate_state(state, env.config)
 
 
 def oversize_config():
@@ -2674,6 +2680,275 @@ def phase28(dev, kind, card, n_envs=16384, rollout_len=128):
             f"gradients {band_ms:.3f} ms [{kind}, {card}]")
 
 
+GYM_ENV = "rware-tiny-2ag-v2"
+GYM_BATCH = 4096  # BASELINE's learning batch (BASELINE.md:203-305)
+GYM_STEPS = 256
+# The golden delivery-free scenario of phase 29 on tiny-2ag: agent 0 on shelf
+# 0's rack cell, agent 1 on the highway; it picks up, carries, turns, bumps the
+# wall, is refused a drop on the highway; agent 1 picks up a shelf and is
+# refused a loaded move onto a standing shelf.  No agent reaches a goal, so no
+# queue is resampled and two devices' generators cannot disagree.
+GYM_SCRIPT = ([4, 1], [1, 2], [3, 1], [1, 3], [1, 1], [3, 0], [1, 4], [4, 2], [1, 1],
+              [2, 1], [1, 4], [0, 1], [2, 1], [1, 0], [1, 0])
+
+
+def gym_vector(env_id, num_envs, dev, have_gym, **overrides):
+    """``gym.make_vec`` of the port's registered id on ``dev``, or without
+    gymnasium the device program it runs (``core.host.HostVectorEnv``)."""
+    import rware_tpu_torch
+    from rware_tpu_torch.core.host import HostVectorEnv
+
+    if have_gym:
+        import gymnasium as gym
+
+        return gym.make_vec(env_id, num_envs=num_envs, device=dev, **overrides)
+    return HostVectorEnv(rware_tpu_torch.make(env_id, device=dev, **overrides), num_envs)
+
+
+def random_gym_actions(rng, config, b):
+    """(B, N) or (B, N, 1 + M) int32 actions from a numpy generator."""
+    import numpy as np
+
+    acts = rng.integers(0, 5, size=(b, config.n_agents), dtype=np.int32)
+    if config.msg_bits:
+        bits = rng.integers(0, 2, size=(b, config.n_agents, config.msg_bits), dtype=np.int32)
+        acts = np.concatenate([acts[..., None], bits], axis=-1)
+    return acts
+
+
+def device_copies(fn):
+    """(device-to-host copies, host-to-device copies, device events, device
+    busy ms, wall ms, fn()) of one call, by torch.profiler's trace of the
+    card; busy is the union of the device events' intervals."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in dev_events]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev_events):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return (sum(n.startswith("Memcpy DtoH") for n in names),
+            sum(n.startswith("Memcpy HtoD") for n in names), len(names), busy_us / 1e3,
+            wall_ms, out)
+
+
+def gym_scenario(config, dev):
+    """Phase 29's golden delivery-free state on ``dev`` (a batch of one)."""
+    from rware_tpu_torch.testing import DOWN, UP, make_state
+
+    return make_state(config, [(1, 1, UP), (4, 3, DOWN)], queue=[0, 5], device=dev)
+
+
+def batch_sizes(obs):
+    """The leading sizes of every leaf of a batched observation tuple."""
+    if isinstance(obs, dict):
+        return {n for v in obs.values() for n in batch_sizes(v)}
+    if isinstance(obs, (tuple, list)):
+        return {n for v in obs for n in batch_sizes(v)}
+    return {obs.shape[0]}
+
+
+def phase29(dev, kind, card, n_envs=GYM_BATCH, n_steps=GYM_STEPS):
+    """The Gym surface on the card: the vector env against the functional
+    engine, the four observation types, one env on the card against the CPU,
+    one device-to-host copy a step, the debug checks, and times.  Without
+    gymnasium the classes' device programs (``core.host.HostVectorEnv``,
+    ``HostEnv``) run alone."""
+    import numpy as np
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch import debug
+    from rware_tpu_torch.core.host import HostEnv, to_host
+    from rware_tpu_torch.core.observations import build_global_layers_fn
+    from rware_tpu_torch.core.state import state_field_names
+    from rware_tpu_torch.rendering import Viewer
+    from rware_tpu_torch.testing import UP, make_state
+    from rware_tpu_torch.types import ObservationType
+
+    try:
+        import gymnasium  # noqa: F401
+        from rware_tpu_torch import gym_adapter
+        have_gym = True
+        gym_adapter.register_all(force=True, image=True)
+    except ImportError as e:
+        have_gym = False
+        log(f"phase 29: the Gym classes were not run on this machine ({e}); their "
+            f"gymnasium-free device programs (core.host.HostVectorEnv, HostEnv), rendering "
+            f"and debug were")
+
+    def space_of(v):
+        return getattr(v, "observation_space", None)
+
+    def in_space(v, obs, b):
+        space = space_of(v)
+        return batch_sizes(obs) == {b} and (space is None or space.contains(obs))
+
+    def one_env(d, **over):
+        if have_gym:
+            return gym_adapter.make_gym(GYM_ENV, device=d, **over)
+        return HostEnv(rware_tpu_torch.make(GYM_ENV, device=d, **over))
+
+    # 1. The vector env at full width against the functional engine with
+    # NEXT_STEP autoreset on the card, from the same generator state; the
+    # reference steps through debug.checked_step.
+    venv = gym_vector(GYM_ENV, n_envs, dev, have_gym, max_steps=100)
+    host = getattr(venv, "_host", venv)
+    env = rware_tpu_torch.make(GYM_ENV, device=dev, max_steps=100)
+    checked = debug.checked_step(env.step, env.config)
+    rng = np.random.default_rng(0)
+    obs, _ = venv.reset(seed=0)
+    require(in_space(venv, obs, n_envs), "phase 29: reset obs outside observation_space")
+    resets = 0
+    for t in range(n_steps):
+        state, prev = host.states, host.prev_done.clone()
+        gen = torch.Generator(device=dev).set_state(host.generator.get_state())
+        acts = random_gym_actions(rng, env.config, n_envs)
+        obs, rew, term, trunc, info = venv.step(acts)
+        err, res = checked(state, torch.from_numpy(acts).to(dev), gen)
+        err.throw()
+        fresh = env.reset_state(gen, n_envs)
+        want = fresh.where(prev, res.state)
+        bad = [f for f in state_field_names()
+               if not torch.equal(getattr(host.states, f), getattr(want, f))]
+        require(not bad, f"phase 29 step {t}: vector states differ from the engine's: {bad}")
+        want_obs = torch.where(prev[:, None, None], env.observe(fresh), res.obs)
+        keep = ~prev
+        w_obs, w_rew, w_term, *w_info = to_host(
+            want_obs, torch.where(keep[:, None], res.rewards, 0.0), res.done & keep,
+            *(torch.where(keep, v, 0) for v in res.info.values()))
+        require(np.array_equal(np.stack(obs, axis=1), w_obs), f"phase 29 step {t}: obs differ")
+        require(np.array_equal(rew, w_rew) and rew.dtype == np.float32 and rew.shape
+                == (n_envs, env.n_agents), f"phase 29 step {t}: rewards differ")
+        require(np.array_equal(term, w_term) and not trunc.any(), f"phase 29 step {t}: done")
+        require(all(np.array_equal(info[k], v) for k, v in zip(res.info, w_info)),
+                f"phase 29 step {t}: info differs")
+        if t % 64 == 63:
+            require(in_space(venv, obs, n_envs), f"phase 29 step {t}: obs outside the space")
+        resets += int(prev.sum())
+    require(resets >= n_envs, f"phase 29: only {resets} autoresets in {n_steps} steps")
+    debug.validate_state(host.states, env.config)
+    log(f"phase 29 vector env {GYM_ENV} B={n_envs} T={n_steps} (max_steps 100): states, obs, "
+        f"rewards, done and info bit for bit the engine's with NEXT_STEP autoreset, {resets} "
+        f"env resets, checked_step raised nothing, obs "
+        f"{'in observation_space' if have_gym else 'of batch ' + str(n_envs)} on 4 sampled "
+        f"steps [{kind}, {card}]")
+
+    # 2. The four observation types with two message bits, B=1,024.
+    for env_id, over in (("rware-tiny-2ag-v2", {}),
+                         ("rware-tiny-2ag-v2", {"observation_type": ObservationType.DICT}),
+                         ("rware-img-tiny-2ag-v2", {}), ("rware-imgdict-tiny-2ag-v2", {})):
+        v = gym_vector(env_id, 1024, dev, have_gym, msg_bits=2, **over)
+        cfg = getattr(v, "_host", v).env.config
+        o, _ = v.reset(seed=1)
+        ok = [in_space(v, o, 1024)]
+        for _ in range(3):
+            o, r, d, _, _ = v.step(random_gym_actions(rng, cfg, 1024))
+            ok.append(in_space(v, o, 1024) and len(o) == 2)
+            require(r.shape == (1024, 2) and np.isfinite(r).all(), f"phase 29 {env_id} rewards")
+        require(all(ok), f"phase 29 {env_id} {over}: obs outside the space {ok}")
+    log(f"phase 29 observation types FLATTENED, DICT, IMAGE, IMAGE_DICT with 2 message bits, "
+        f"B=1024, a reset and 3 steps each: obs "
+        f"{'in their observation_space' if have_gym else 'of batch 1024 (no gymnasium)'}")
+
+    # 3. One env on the card against the CPU on the golden scenario.
+    cfg = rware_tpu_torch.parse_env_id(GYM_ENV)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        one = one_env(d, render_mode="rgb_array")
+        one.reset(seed=0)
+        one.state = gym_scenario(cfg, d)
+        seq = []
+        for acts in GYM_SCRIPT:
+            out = one.step(acts)
+            if have_gym:
+                out += (one.render(), one.get_global_image(),
+                        one.get_global_image(pad_to_shape=(2, 13, 12), recompute=True))
+            else:
+                out += (Viewer(cfg).frame(one.state),
+                        to_host(build_global_layers_fn(cfg, (0, 5))(one.state)[0])[0])
+            seq.append(out)
+        outs.append(seq)
+    for t, (a, b) in enumerate(zip(*outs)):
+        require(all(np.array_equal(x, y) for x, y in zip(a[0], b[0])), f"phase 29 step {t}: obs")
+        require(a[1] == b[1] and a[2] == b[2] and a[3] == b[3], f"phase 29 step {t}: rewards")
+        require(all(np.array_equal(a[4][k], b[4][k]) for k in b[4]), f"phase 29 step {t}: info")
+        require(int(a[4]["deliveries"]) == 0, f"phase 29 step {t}: a delivery in the scenario")
+        require(all(x.tobytes() == y.tobytes() for x, y in zip(a[5:], b[5:])),
+                f"phase 29 step {t}: frame or global image differs")
+    log(f"phase 29 {'GymWarehouse' if have_gym else 'HostEnv'} on the card against the CPU, "
+        f"the golden delivery-free scenario ({len(GYM_SCRIPT)} scripted steps): obs, rewards, "
+        f"done and info equal, rgb frames and global images byte for byte; failed moves "
+        f"{sum(int(x[4]['failed_moves']) for x in outs[0])}")
+
+    # 4. One device-to-host copy a step.
+    one = one_env(dev)
+    one.reset(seed=0)
+    one.step([1, 1])  # warm-up
+    dtoh, htod, events, busy, wall, _ = device_copies(lambda: one.step([1, 4]))
+    require(events > 0, "phase 29: torch.profiler traced no device event")
+    require(dtoh == 1, f"phase 29: a one-env step made {dtoh} device-to-host copies")
+    acts = random_gym_actions(rng, cfg, n_envs)
+    dtoh_v, htod_v, events_v, busy_v, wall_v, _ = device_copies(lambda: venv.step(acts))
+    require(events_v > 0, "phase 29: torch.profiler traced no device event")
+    require(dtoh_v == 1, f"phase 29: a vector step made {dtoh_v} device-to-host copies")
+    log(f"phase 29 copies by torch.profiler: {type(one).__name__}.step {dtoh} DtoH ({htod} HtoD, "
+        f"{events} device events, device busy {busy:.3f} of {wall:.3f} ms profiled); "
+        f"{type(venv).__name__}.step B={n_envs} {dtoh_v} DtoH ({htod_v} HtoD, {events_v} "
+        f"device events, device busy {busy_v:.3f} of {wall_v:.3f} ms profiled) [{kind}, {card}]")
+
+    # 5. checked_step's throw() on broken states on the card.
+    steps = debug.checked_step(env._step_fn, env.config)
+    noop = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    base = make_state(env.config, [(1, 1, UP), (2, 2, UP)], carrying=[0, -1], device=dev)
+    broken = {"two agents share a cell after step": base.set_agent(1, x=1, y=1),
+              "carried shelf not under its carrier": base.set_agent(0, x=0, y=0)}
+    for message, state in broken.items():
+        err, _ = steps(state, noop)
+        try:
+            err.throw()
+        except debug.CheckError as e:
+            require(message in str(e), f"phase 29: checked_step raised {e!r}, not {message!r}")
+        else:
+            raise AssertionError(f"phase 29: checked_step did not raise on: {message}")
+    log("phase 29 debug: checked_step's throw() raised on two agents on one cell and on a "
+        "carried shelf off its carrier; validate_state passed the vector env's states")
+
+    # 6. Times, the host conversion included.
+    times = []
+    for name, over in (("FLATTENED", {}), ("DICT", {"observation_type": ObservationType.DICT})):
+        v = gym_vector(GYM_ENV, n_envs, dev, have_gym, **over)
+        v.reset(seed=2)
+        batch = [random_gym_actions(rng, cfg, n_envs) for _ in range(64)]
+        v.step(batch[0])
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for a in batch:
+            v.step(a)
+        sec = time.perf_counter() - start
+        start = time.perf_counter()
+        for k in range(10):
+            v.reset(seed=k)
+        reset_ms = (time.perf_counter() - start) / 10 * 1e3
+        times.append(f"{name} {n_envs * len(batch) / sec:.6g} env-steps/s "
+                     f"({sec / len(batch) * 1e3:.3f} ms a step), a reset {reset_ms:.3f} ms")
+    one = one_env(dev)
+    one.reset(seed=0)
+    start = time.perf_counter()
+    for t in range(200):
+        one.step([t % 5, (t + 2) % 5])
+    times.append(f"{type(one).__name__}.step {200 / (time.perf_counter() - start):.6g} steps/s")
+    log(f"phase 29 times, host conversion included: {type(venv).__name__} {GYM_ENV} "
+        f"B={n_envs}: " + "; ".join(times) + f" [{kind}, {card}]")
+
+
 def main() -> int:
     import torch
 
@@ -2724,6 +2999,7 @@ def main() -> int:
     phase26(dev, kind, card)
     kernels += phase27(dev, kind, card)
     phase28(dev, kind, card)
+    phase29(dev, kind, card)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

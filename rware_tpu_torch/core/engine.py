@@ -324,7 +324,7 @@ def build_transition_fn(
         )
         info = {
             "deliveries": n_delivered,
-            "failed_moves": (~committed).to(torch.int32).sum(dim=1),
+            "failed_moves": (~committed).sum(dim=1, dtype=torch.int32),
         }
         return new_state, rewards, done, info
 

@@ -24,6 +24,7 @@ from rware_tpu_torch.core.engine import (
     build_obs_fn,
     build_reset_fn,
     build_step_fn,
+    build_transition_fn,
     n_reset_draws,
 )
 from rware_tpu_torch.core.observations import build_global_layers_fn
@@ -64,12 +65,23 @@ class Warehouse:
         self._obs_fn = build_obs_fn(config)
         self._reset_fn = build_reset_fn(config)
         self._step_fn = build_step_fn(config, self._obs_fn)
+        self._transition = build_transition_fn(config)
         self._global_image = build_global_layers_fn(config, DEFAULT_GLOBAL_IMAGE_LAYERS)
 
     # -- core API --------------------------------------------------------------
 
     def reset_state(self, generator: torch.Generator, n_envs: int) -> WarehouseState:
         return self._reset_fn(_bits(generator, (n_envs, n_reset_draws(self.config))))
+
+    def reset_from_seeds(self, seeds) -> WarehouseState:
+        """One env per seed, env i drawn from its own generator seeded
+        ``seeds[i]``: the state a one-env ``reset`` from that generator gives."""
+        bits = [
+            _bits(torch.Generator(device=self.device).manual_seed(int(s)),
+                  (1, n_reset_draws(self.config)))
+            for s in seeds
+        ]
+        return self._reset_fn(torch.cat(bits))
 
     def reset(self, generator: torch.Generator, n_envs: int) -> Tuple[WarehouseState, Any]:
         state = self.reset_state(generator, n_envs)
@@ -102,6 +114,27 @@ class Warehouse:
         else:
             obs = select(fresh_obs, result.obs)
         return result._replace(state=next_state, obs=obs)
+
+    def step_next_autoreset(self, state: WarehouseState, prev_done: torch.Tensor,
+                            actions: torch.Tensor, generator: torch.Generator) -> StepResult:
+        """Gymnasium 1.x ``NEXT_STEP`` autoreset (``rware_tpu/vector.py:94-118``):
+        every env flagged in ``prev_done`` (B,) is reset instead of stepped,
+        its action ignored, with reward 0, ``done`` False and its info
+        zeroed; the others step.  ``generator`` draws the queue resamples,
+        then a reset for every env."""
+        b = state.batch_size
+        new_state, rewards, done, info = self._transition(
+            state, actions, _bits(generator, (b, self.layout.n_goals)))
+        next_state = self.reset_state(generator, b).where(prev_done, new_state)
+        done = done & ~prev_done
+        return StepResult(
+            state=next_state,
+            obs=self._obs_fn(next_state),
+            rewards=torch.where(prev_done[:, None], 0.0, rewards),
+            done=done,
+            truncated=torch.zeros_like(done),
+            info={k: torch.where(prev_done, 0, v) for k, v in info.items()},
+        )
 
     # -- conveniences ----------------------------------------------------------
 
