@@ -218,8 +218,24 @@ Phases, one line each:
     ``throw()`` raising on two agents on one cell and on a carried shelf off
     its carrier; and the times, host conversion included: env-steps/s of the
     vector step at B=4,096 (FLATTENED and DICT), ms of a vector reset, steps/s
-    of the one-env step.  ``check_invariants``, which phases 3-25 call, is
-    ``debug.validate_state``.
+    of the one-env step.  ``check_invariants``, which phases 3-25 and 30 call,
+    is ``debug.validate_state``;
+30. SEAC A2C (``--algo seac``, rollouts of T=5): K2d against its plain
+    version at that length on tiny-2ag at B=256 (deterministic and random)
+    and 16,384, on small-4ag at B=4,096 and with K2b at M=2 on tiny-2ag at
+    B=16,384 (obs, rewards, done, bits, the final state and every action
+    exact, value and logp within 2e-2); ``build_seac_train_step`` on an env
+    made with ``make``'s default device at those three shapes (hidden (128,
+    128) per agent), three updates after one warm-up with the launch counter
+    reset before and read after (exactly 3 K2d launches), every block of every
+    agent moved, one update split into collect, the cross forwards with
+    bootstrap, cross GAE and loss under autograd, and clip + Adam; the update
+    on the card against the same update on the CPU from one K2d trajectory
+    (loss terms within rtol 1e-4, every parameter within 0.05 lr); K2d timed at that shape beside its plain version; and
+    ``train.main(["--algo", "seac", ..., "--profile-dir", DIR])`` at B=256
+    and 16,384, 8 updates, its ``torch.profiler`` trace of updates 3-5 read
+    back: CUDA kernels in it, exactly 3 of them K2d's, and the device's busy
+    share of the traced window.
 
 The MLP collector (K2a, with K2b and K2e; K2d) runs a tile of 64 envs a
 block at the main shape: its env threads step, a thread a row builds the
@@ -1008,6 +1024,15 @@ def seac_bound(dims, data, t_mb):
     return bound(n_bytes, n * bf, n * f32)
 
 
+def collect_per_agent_bound(dims, states, traj, params, agent_steps):
+    """``bound`` of K2d (with K2b): the state in and out, the trajectory
+    written, every agent's weights read, and the policy on every agent-step
+    (integer work charged nothing, as for K2a)."""
+    bf, f32 = mlp_flops(dims.obs_len, dims.h1, dims.h2, dims.heads, agent_steps, False)
+    return bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
+                 + 4.0 * params.numel(), bf, f32)
+
+
 def phase3(dev):
     """K1 against its plain version; returns the main shape's max |error|."""
     import torch
@@ -1667,13 +1692,7 @@ def phase17(dev, kind, card, k2d_err, n_envs=16384, rollout_len=128):
         f"{k2d_plain_ms:.1f} ms, value/logp max_abs_err {k2d_err}); K8 {k8_ms:.3f} ms/launch "
         f"(plain {k8_plain_ms:.1f} ms, max_abs_err {k8_err}) [{kind}, {card}]")
 
-    # Bounds.  K2d moves the state in and out, writes the trajectory, reads
-    # every agent's weights and runs the policy on every agent-step (integer
-    # work charged nothing, as for K2a).  K8: seac_bound.
-    bf, f32 = mlp_flops(dims.obs_len, dims.h1, dims.h2, dims.n_actions + 1,
-                        steps * env.n_agents, False)
-    k2d_bound = bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
-                      + 4.0 * runner.params.numel(), bf, f32)
+    k2d_bound = collect_per_agent_bound(dims, states, traj, runner.params, steps * env.n_agents)
     return [
         kernel_entry("fused_collect_per_agent", "fused_collect.cu",
                      "rware_tpu/ops/pallas_rollout.py:1798", launches["fused_collect_per_agent"],
@@ -1746,11 +1765,14 @@ def phase19(dev, kind, card):
             f"1e-3, two launches bit-equal (tile {k4.tile}, head rows {k4.hc}) [{kind}, {card}]")
 
 
-def _time_learner(name, step, runner, counted, want, kind, card, cfg, phase=20, msg_bits=2):
+def _time_learner(name, step, runner, counted, want, kind, card, cfg, phase=20,
+                  need_reward=True):
     """Three updates after a warm-up with ``counted`` launch counters reset
-    before and read after (they must equal ``want``); returns (runner, ms per
-    update, metrics of the last update)."""
+    before and read after (they must equal ``want``), their metrics finite
+    and, with ``need_reward``, some reward among them; returns (runner, ms
+    per update)."""
     import torch
+    from rware_tpu_torch.registry import SIZES
 
     runner, _ = step(runner)  # warm-up
     torch.cuda.synchronize()
@@ -1770,11 +1792,15 @@ def _time_learner(name, step, runner, counted, want, kind, card, cfg, phase=20, 
         for k, v in metrics.items():
             require(bool(torch.isfinite(v.float())), f"{name} metric {k} is {float(v)}")
     rewards = [float(m["reward_per_env"]) for m in runs]
-    require(sum(rewards) > 0, f"no reward in three {name} updates: {rewards}")
+    require(not need_reward or sum(rewards) > 0, f"no reward in three {name} updates: {rewards}")
     last = {k: round(float(v), 5) for k, v in runs[-1].items()}
     steps = cfg.n_envs * cfg.rollout_len
-    log(f"phase {phase} {name} train step tiny-2ag, {msg_bits} message bits, B={cfg.n_envs} "
-        f"T={cfg.rollout_len} E={cfg.epochs} M={cfg.minibatches}: {update_ms:.3f} ms/update = "
+    passes = f" E={cfg.epochs} M={cfg.minibatches}" if hasattr(cfg, "epochs") else ""
+    env = step.env.config
+    size = {v: k for k, v in SIZES.items()}.get((env.shelf_rows, env.shelf_columns),
+                                                f"{env.shelf_rows}x{env.shelf_columns}")
+    log(f"phase {phase} {name} train step {size}-{env.n_agents}ag, {env.msg_bits} message bits, "
+        f"B={cfg.n_envs} T={cfg.rollout_len}{passes}: {update_ms:.3f} ms/update = "
         f"{steps / update_ms * 1e3:.4g} env-steps/s over 3 updates, "
         f"launches {got}, reward_per_env {rewards}, last metrics {last} [{kind}, {card}]")
     return runner, update_ms
@@ -2044,7 +2070,7 @@ def phase22(dev, kind, card, errs, n_envs=4096, rollout_len=128):
         runner, update_ms = _time_learner(
             "recurrent SEAC-PPO", step, runner,
             {"fused_collect_gru_per_agent": step.collect}, {"fused_collect_gru_per_agent": 3},
-            kind, card, cfg, phase=22, msg_bits=m)
+            kind, card, cfg, phase=22)
         launches = step.collect.launches
         moved = [float((a - b).abs().max()) for i in range(env.n_agents)
                  for a, b in zip(dims.split(runner.params[i]), dims.split(params0[i]))]
@@ -2112,9 +2138,7 @@ def phase23(dev, kind, card, errs, n_envs=16384, rollout_len=128):
     plain_ms, _ = cuda_ms(lambda: step.collect.plain(*args))
     log(f"phase 23 K2d with K2b at the main shape: {k_ms:.3f} ms/launch (plain {plain_ms:.1f} "
         f"ms, value/logp max_abs_err {errs['k2dm']}) [{kind}, {card}]")
-    bf, f32 = mlp_flops(dims.obs_len, dims.h1, dims.h2, dims.heads, steps * env.n_agents, False)
-    k_bound = bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
-                    + 4.0 * runner.params.numel(), bf, f32)
+    k_bound = collect_per_agent_bound(dims, states, traj, runner.params, steps * env.n_agents)
     return [kernel_entry("fused_collect_per_agent (message bits, K2b)", "fused_collect.cu",
                          "rware_tpu/ops/pallas_rollout.py:1537", launches, errs["k2dm"], k_ms,
                          plain_ms, k_bound)]
@@ -2285,7 +2309,7 @@ def phase25(dev, kind, card, n_envs=16384, rollout_len=128):
                                      "fused_ppo_update_phase": step.update_phase,
                                      "fused_ppo_grads": step.grads},
         {"fused_collect": 3, "fused_ppo_update_phase": 3, "fused_ppo_grads": 0}, kind, card,
-        cfg, phase=25, msg_bits=0)
+        cfg, phase=25)
     launches = step.collect.launches
     collect_ms, (states, traj) = cuda_ms(lambda: step.rollout(runner))
     gae_ms, (obs, adv, targets) = cuda_ms(lambda: step.advantages(runner, states, traj))
@@ -2317,7 +2341,7 @@ def phase25(dev, kind, card, n_envs=16384, rollout_len=128):
         {"fused_collect_gru": step.collect, "fused_gru_obs_fwd": step.gru_fwd,
          "fused_gru_obs_bwd": step.gru_bwd},
         {"fused_collect_gru": 3, "fused_gru_obs_fwd": 3 * n_passes,
-         "fused_gru_obs_bwd": 3 * n_passes}, kind, card, cfg, phase=25, msg_bits=0)
+         "fused_gru_obs_bwd": 3 * n_passes}, kind, card, cfg, phase=25)
     launches = step.collect.launches
     collect_ms, (states, new_carry, traj) = cuda_ms(lambda: step.rollout(runner))
     gae_ms, (obs, adv, targets) = cuda_ms(
@@ -2565,7 +2589,7 @@ def phase27(dev, kind, card, n_envs=16384, rollout_len=128):
             "fused_gru_seq_bwd": 0}
     params0 = runner.params.clone()
     runner, _ = _time_learner("fused-loss recurrent IPPO", step, runner, counted, want, kind,
-                              card, cfg, phase=27, msg_bits=0)
+                              card, cfg, phase=27)
     launches = {k: w.launches for k, w in counted.items()}
     moved = [float((x - y).abs().max())
              for x, y in zip(dims.split(runner.params), dims.split(params0))]
@@ -2654,7 +2678,7 @@ def phase28(dev, kind, card, n_envs=16384, rollout_len=128):
                 "fused_mappo_grads": 3 * n_passes}
         params0 = {k: v.clone() for k, v in runner.params.items()}
         runner, _ = _time_learner(f"recurrent MAPPO M={m}", step, runner, counted, want, kind,
-                                  card, cfg, phase=28, msg_bits=m)
+                                  card, cfg, phase=28)
         new, old = dims.split(runner.params["actor"]), dims.split(params0["actor"])
         moved = [float((x - y).abs().max()) for x, y in zip(new[:6], old[:6])]
         moved += [float((new[6][:, :dims.n_actions] - old[6][:, :dims.n_actions]).abs().max())]
@@ -2949,6 +2973,161 @@ def phase29(dev, kind, card, n_envs=GYM_BATCH, n_steps=GYM_STEPS):
         f"B={n_envs}: " + "; ".join(times) + f" [{kind}, {card}]")
 
 
+# K2d at SEAC A2C's shape (T=5): (env id, batch, message bits).  B=256 is
+# train's default batch, 16,384 the training batch of the other phases;
+# small-4ag takes a 4 x 4 cross grid in the update.
+A2C_K2D_CASES = (("rware-tiny-2ag-v2", 256, 0), ("rware-tiny-2ag-v2", 16384, 0),
+                 ("rware-small-4ag-v2", 4096, 0), ("rware-tiny-2ag-v2", 16384, 2))
+A2C_LOSS_RTOL = 1e-4  # the update's loss terms, card against CPU
+A2C_PARAM_LR_FRAC = 0.05  # of lr: every parameter after one step, card against CPU
+
+
+def trace_busy(log_dir):
+    """(device busy ms, traced window ms, K2d kernel events, kernel events)
+    of the one Chrome trace ``profiling.TraceWindow`` wrote into
+    ``log_dir``: busy is the union of the device events' intervals (kernels,
+    copies, sets), the window from the first event's start to the last
+    one's end."""
+    import glob
+    import os
+
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    require(len(files) == 1, f"train --profile-dir wrote {files}, not one trace")
+    with open(files[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in device):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    window_us = max(float(e["ts"]) + float(e["dur"]) for e in events) \
+        - min(float(e["ts"]) for e in events)
+    k2d = [e for e in kernels if "fused_collect_kernel" in e["name"]]
+    return busy_us / 1e3, window_us / 1e3, len(k2d), len(kernels)
+
+
+def phase30(dev, kind, card, n_envs=16384, rollout_len=5):
+    """SEAC A2C (``--algo seac``): K2d at its shape against its plain
+    version, the learner at full width with its update split, the update on
+    the card against the CPU, and ``train --algo seac --profile-dir`` with
+    the trace read; returns K2d's entry at A2C's shape."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch import train
+    from rware_tpu_torch.models import seac
+    from rware_tpu_torch.models.ppo import AdamState, loss_grads
+
+    errs = {}
+    for env_id, b, m in A2C_K2D_CASES:
+        overrides = {"msg_bits": m} if m else {}
+        for deterministic in ((True, False) if b == 256 else (False,)):
+            _, _, _, err, collect = compare_k2d(env_id, dev, b, rollout_len, deterministic, 5,
+                                                **overrides)
+            errs[env_id, b, m] = err
+            log(f"phase 30 K2d{' with K2b' * bool(m)} {env_id} M={m} B={b} T={rollout_len} "
+                f"deterministic={deterministic}: obs/reward/done/state/actions"
+                f"{'/bits' * bool(m)} exact, value/logp err {err} ({tile_note(collect, b)}) "
+                f"[{kind}, {card}]")
+
+    entry = None
+    for env_id, b, m in (("rware-tiny-2ag-v2", n_envs, 0), ("rware-small-4ag-v2", 4096, 0),
+                         ("rware-tiny-2ag-v2", n_envs, 2)):
+        # no device named: the card
+        env = rware_tpu_torch.make(env_id, **({"msg_bits": m} if m else {}))
+        require(env.device.type == "cuda", f"make's default device is {env.device}")
+        cfg = seac.SEACConfig(n_envs=b, rollout_len=rollout_len)
+        runner, dims = seac.init_seac(env, cfg, seed=0)
+        step = seac.build_seac_train_step(env, dims, cfg)
+        params0 = runner.params.clone()
+        name = env_id.replace("rware-", "").replace("-v2", "")
+        # 20 steps from a reset see few deliveries (3 in 16,384 envs of random
+        # tiny-2ag moves), so no reward is required: the update's check against
+        # the CPU below holds the learner's output
+        runner, update_ms = _time_learner(
+            "SEAC A2C", step, runner, {"fused_collect_per_agent": step.collect},
+            {"fused_collect_per_agent": 3}, kind, card, cfg, phase=30,
+            need_reward=False)
+        launches = step.collect.launches
+        moved = [float((a - c).abs().max()) for i in range(env.n_agents)
+                 for a, c in zip(dims.split(runner.params[i]), dims.split(params0[i]))]
+        require(min(moved) > 0, f"the SEAC A2C update left a block unmoved: {moved}")
+
+        # One update, phase by phase.
+        collect_ms, (states, traj) = cuda_ms(lambda: step.rollout(runner))
+        obs_ms, obs = cuda_ms(lambda: step.policy_obs(states))
+        grads_ms, (grads, metrics) = cuda_ms(lambda: loss_grads(
+            lambda p: seac.seac_a2c_loss(cfg, dims, p, traj, obs), runner.params))
+        opt_ms, _ = cuda_ms(lambda: seac.seac_optimizer_step(cfg, runner.params, grads,
+                                                             runner.opt_state))
+        log(f"phase 30 SEAC A2C {name} M={m} B={b} T={rollout_len} breakdown of one update: "
+            f"collect (K2d{' with K2b' * bool(m)}) {collect_ms:.3f} ms, observations after it "
+            f"{obs_ms:.3f} ms, the {env.n_agents} x {env.n_agents} cross forwards, bootstrap, "
+            f"cross GAE and loss with autograd {grads_ms:.3f} ms, clip + Adam {opt_ms:.3f} ms "
+            f"[{kind}, {card}]")
+        if entry is not None:
+            continue
+
+        # The update on the card against the same update on the CPU.
+        (p_dev, _), m_dev = step.update(runner, traj, obs)
+        cpu_runner = dataclasses.replace(
+            runner, params=runner.params.cpu(),
+            opt_state=AdamState(runner.opt_state.count, runner.opt_state.mu.cpu(),
+                                runner.opt_state.nu.cpu()))
+        (p_cpu, _), m_cpu = step.update(cpu_runner, {k: v.cpu() for k, v in traj.items()},
+                                        obs.cpu())
+        rel = 0.0
+        for k in m_cpu:
+            a, c = float(m_dev[k]), float(m_cpu[k])
+            require(abs(a - c) <= A2C_LOSS_RTOL * abs(c) + 1e-6,
+                    f"SEAC A2C update: {k} card {a} CPU {c}")
+            rel = max(rel, abs(a - c) / max(abs(c), 1e-12))
+        diff = float((p_dev.cpu() - p_cpu).abs().max())
+        require(diff <= A2C_PARAM_LR_FRAC * cfg.lr,
+                f"SEAC A2C update: a parameter {diff / cfg.lr} lr from the CPU's, more than "
+                f"{A2C_PARAM_LR_FRAC} lr")
+        log(f"phase 30 SEAC A2C update card against CPU on one K2d trajectory (B={b}): loss "
+            f"terms within rtol {A2C_LOSS_RTOL} (largest relative difference {rel:.3g}; "
+            f"{ {k: round(float(v), 6) for k, v in m_dev.items()} }), "
+            f"every parameter within {A2C_PARAM_LR_FRAC} lr (max |diff| {diff:.4g} = "
+            f"{diff / cfg.lr:.4f} lr) [{kind}, {card}]")
+
+        # K2d at this shape, beside its plain version.
+        policies = seac.seac_policies_of(dims, runner.params)
+        args = (runner.env_states, policies, 7)
+        k_ms, _ = cuda_ms(lambda: step.collect(*args), repeats=5)
+        plain_ms, _ = cuda_ms(lambda: step.collect.plain(*args))
+        k_bound = collect_per_agent_bound(dims, states, traj, runner.params,
+                                          b * rollout_len * env.n_agents)
+        log(f"phase 30 K2d at A2C's shape B={b} T={rollout_len}: {k_ms:.3f} ms/launch (plain "
+            f"{plain_ms:.1f} ms), bound {k_bound[0]:.4f} ms ({k_bound[1]}), "
+            f"{k_ms / update_ms:.1%} of an update [{kind}, {card}]")
+        entry = kernel_entry("fused_collect_per_agent (SEAC A2C, T=5)", "fused_collect.cu",
+                             "rware_tpu/ops/pallas_rollout.py:1798", launches,
+                             errs["rware-tiny-2ag-v2", b, 0], k_ms, plain_ms, k_bound)
+
+    # The entry point, with a torch.profiler window over updates [3, 6).
+    with tempfile.TemporaryDirectory() as tmp:
+        for b in (256, n_envs):
+            prof = os.path.join(tmp, str(b))
+            start = time.perf_counter()
+            out = train.main(["--algo", "seac", "--device", "cuda", "--n-envs", str(b),
+                              "--updates", "8", "--log-every", "4", "--profile-dir", prof])
+            wall_s = time.perf_counter() - start
+            busy, window, k2d, n_kernels = trace_busy(prof)
+            require(n_kernels > 0, f"train --profile-dir B={b}: no CUDA kernel in the trace")
+            require(k2d == 3, f"train --profile-dir B={b}: {k2d} K2d kernels in 3 traced updates")
+            log(f"phase 30 train --algo seac B={b} T=5, 8 updates ({wall_s:.2f} s wall, the "
+                f"last window {out['env_steps_per_s']:.4g} env-steps/s), traced updates 3-5: "
+                f"{n_kernels} kernels, {k2d} of them K2d's, device busy {busy:.3f} of "
+                f"{window:.3f} ms traced ({busy / window:.1%}) [{kind}, {card}]")
+    return [entry]
+
+
 def main() -> int:
     import torch
 
@@ -3000,6 +3179,7 @@ def main() -> int:
     kernels += phase27(dev, kind, card)
     phase28(dev, kind, card)
     phase29(dev, kind, card)
+    kernels += phase30(dev, kind, card)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

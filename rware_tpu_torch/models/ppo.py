@@ -131,6 +131,26 @@ def critic_value_loss(cfg, cdims: CriticDims, cparams: torch.Tensor, batch):
     return cfg.vf_coef * v_loss, {"v_loss": v_loss.detach()}
 
 
+def cross_logp(logits, action, bits=None):
+    """(log pi_i(a_j | o_j), entropy of pi_i on o_j) of agent i's heads on
+    agent j's samples (``cross_logp``, ``seac.py:415-441``; the A2C loss's
+    ``cross_joint_logp``, ``seac.py:142-168``): ``logits`` (..., A) and
+    ``action`` broadcast to the heads' batch shape.  ``bits`` (..., M), the
+    message bits taken (broadcast like ``action``), switches to the joint
+    move + Bernoulli policy: ``logits`` is then ``(logits, msg_logits)`` and
+    both outputs are the joint ones."""
+    if bits is not None:
+        logits, msg_logits = logits
+    lsm = torch.log_softmax(logits, dim=-1)
+    idx = action.long().expand(lsm.shape[:-1])[..., None]
+    logp = lsm.gather(-1, idx)[..., 0]
+    ent_map = -(torch.exp(lsm) * lsm).sum(-1)
+    if bits is not None:
+        logp = logp + bernoulli_logp(msg_logits, bits).sum(-1)
+        ent_map = ent_map + bernoulli_entropy(msg_logits)
+    return logp, ent_map
+
+
 def seac_terms(cfg, seac_lambda: float, logits, value, action, behav_logp, old_value, adv,
                target, i_axis: int, advstats: Optional[torch.Tensor] = None, bits=None):
     """The SEAC-PPO objective (``seac.py:443-480``) on agent i's heads over
@@ -145,24 +165,18 @@ def seac_terms(cfg, seac_lambda: float, logits, value, action, behav_logp, old_v
     message bits taken (broadcast over ``i_axis`` like ``action``), switches
     to the joint move + Bernoulli policy: ``logits`` is then ``(logits,
     msg_logits)`` and the log-prob and the entropy are the joint ones
-    (``cross_logp``, ``seac.py:415-441``).  Returns (total, metrics)."""
+    (:func:`cross_logp`).  Returns (total, metrics)."""
     if advstats is None:
         advn = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
     else:
         advn = (adv - advstats[0]) * advstats[1]
-    if bits is not None:
-        logits, msg_logits = logits
-    lsm = torch.log_softmax(logits, dim=-1)
-    idx = action.long().expand(lsm.shape[:-1])[..., None]
-    logp = lsm.gather(-1, idx)[..., 0]
-    if bits is not None:
-        logp = logp + bernoulli_logp(msg_logits, bits).sum(-1)
+    logp, ent_map = cross_logp(logits, action, bits)
     ratio = torch.exp(logp - behav_logp)
     pg1 = ratio * advn
     pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * advn
     surr = -torch.minimum(pg1, pg2)
-    n = logits.shape[i_axis]
-    eye = torch.eye(n, dtype=torch.float32, device=logits.device)
+    n = logp.shape[i_axis]
+    eye = torch.eye(n, dtype=torch.float32, device=logp.device)
     shape = [1] * surr.ndim
     shape[i_axis] = shape[-1] = n
     weight = (eye + seac_lambda * (1.0 - eye)).reshape(shape)
@@ -170,9 +184,6 @@ def seac_terms(cfg, seac_lambda: float, logits, value, action, behav_logp, old_v
     v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
     v_err = torch.maximum((value - target) ** 2, (v_clipped - target) ** 2)
     v_loss = 0.5 * (v_err * weight).sum(-1).mean()
-    ent_map = -(torch.exp(lsm) * lsm).sum(-1)
-    if bits is not None:
-        ent_map = ent_map + bernoulli_entropy(msg_logits)
     entropy = torch.diagonal(ent_map, dim1=i_axis, dim2=-1).mean()
     total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
     with torch.no_grad():

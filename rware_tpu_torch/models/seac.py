@@ -1,7 +1,8 @@
-"""SEAC-PPO: the shared-experience objective on a PPO trust region (the
-counterpart of ``build_seac_ppo_train_step`` and ``build_seac_gru_train_step``
-in ``rware_tpu/models/seac.py``), with MLP or GRU policies, with or without
-message bits.
+"""SEAC: the shared-experience actor-critic (the counterpart of
+``build_seac_train_step``, ``build_seac_ppo_train_step`` and
+``build_seac_gru_train_step`` in ``rware_tpu/models/seac.py``): A2C with MLP
+policies, and the objective on a PPO trust region with MLP or GRU policies,
+each with or without message bits.
 
 Each agent keeps its OWN actor-critic and learns from every agent's
 experience: for agent i on agent j's sample the ratio ``pi_i / pi_j,behaviour``
@@ -18,6 +19,12 @@ the whole stack (``seac.py:78-81``): one global norm across all agents and a
 constant lr, so :class:`~rware_tpu_torch.models.ppo.AdamState` and
 :func:`~rware_tpu_torch.models.ppo.clip_adam` serve unchanged.
 
+* :func:`build_seac_train_step` is SEAC A2C (``seac.py:101-276``, the
+  algorithm of Christianos et al., NeurIPS 2020): short rollouts (T=5 by
+  default) of the per-agent collector (K2d, with its message mode K2b), then
+  one autograd of :func:`seac_a2c_loss` (cross forwards in flax's rounding,
+  cross GAE, the unclipped importance-weighted terms without advantage
+  normalisation) and one optimizer step.
 * :func:`build_seac_ppo_fused_train_step` is the MLP learner on the kernels
   (``collect_mode="pallas", update_mode="fused"``, ``seac.py:482-605``): the
   per-agent collector (K2d), the cross values and GAE, then E x M time-window
@@ -36,9 +43,9 @@ constant lr, so :class:`~rware_tpu_torch.models.ppo.AdamState` and
   (:func:`gru_cross_replay`) for the old values and the bootstrap, cross GAE,
   then E x M env-band minibatches, each autograd of :func:`seac_gru_loss`.
 
-The cross arrays (old values, advantages, targets) of the time-window learner
-are ``(N_i, T, B, N_j)``: agent i's critic on agent j's experience, slab i one
-``(T, B, N)`` array in the trajectory's own layout.  The recurrent learner's
+The cross arrays (old values, advantages, targets) of the A2C and
+time-window learners are ``(N_i, T, B, N_j)``: agent i's critic on agent j's
+experience, slab i one ``(T, B, N)`` array in the trajectory's own layout.  The recurrent learner's
 are ``(T, B, N_i, N_j)``, JAX's layout, so that an env band is one slice of
 axis 1 of every array.
 """
@@ -78,6 +85,7 @@ from rware_tpu_torch.models.networks import (
 from rware_tpu_torch.models.ppo import (
     AdamState,
     clip_adam,
+    cross_logp,
     loss_grads,
     seac_loss_native,
     seac_terms,
@@ -92,12 +100,29 @@ from rware_tpu_torch.ops.fused_update import metric_means
 CROSS_CHUNK = 1 << 20  # samples per chunk of the cross-value forward
 
 __all__ = [
-    "SEACPPOConfig", "SeacFlatTrainStep", "SeacGruTrainStep", "SeacTrainStep",
-    "build_seac_gru_train_step", "build_seac_ppo_fused_train_step", "build_seac_ppo_train_step",
-    "cross_gae", "cross_last_values", "cross_values", "gru_cross_replay", "init_seac_gru",
-    "init_seac_ppo", "seac_gru_loss", "seac_gru_policies_of", "seac_loss_native",
+    "SEACConfig", "SEACPPOConfig", "SeacA2CTrainStep", "SeacFlatTrainStep", "SeacGruTrainStep",
+    "SeacTrainStep", "build_seac_gru_train_step", "build_seac_ppo_fused_train_step",
+    "build_seac_ppo_train_step", "build_seac_train_step", "cross_gae", "cross_last_values",
+    "cross_values", "gru_cross_replay", "init_seac", "init_seac_gru", "init_seac_ppo",
+    "seac_a2c_loss", "seac_gru_loss", "seac_gru_policies_of", "seac_loss_native",
     "seac_optimizer_step", "seac_policies_of", "seac_ppo_loss", "seac_window_starts",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class SEACConfig:
+    """Ported copy of ``rware_tpu.models.seac.SEACConfig``: short n-step
+    rollouts, as in the paper."""
+
+    n_envs: int = 256
+    rollout_len: int = 5
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    seac_lambda: float = 1.0  # weight of the shared-experience terms
+    vf_coef: float = 0.5
+    ent_coef: float = 0.01
+    lr: float = 3e-4
+    max_grad_norm: float = 0.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,8 +143,8 @@ class SEACPPOConfig:
     max_grad_norm: float = 0.5
 
 
-def init_seac_ppo(env: Warehouse, cfg: SEACPPOConfig, seed: int,
-                  hidden: Tuple[int, int] = (128, 128)) -> Tuple[RunnerState, BlockDims]:
+def init_seac(env: Warehouse, cfg: SEACConfig, seed: int,
+              hidden: Tuple[int, int] = (128, 128)) -> Tuple[RunnerState, BlockDims]:
     """N independent flax-default inits (``seac.py:61-98``), agent i's drawn
     from ``numpy.random.default_rng((seed, 2, i))`` (with a message head where
     the config has message bits), stacked into ``(N, P)``; the optimizer
@@ -141,10 +166,19 @@ def init_seac_ppo(env: Warehouse, cfg: SEACPPOConfig, seed: int,
     return runner, BlockDims.of(models[0])
 
 
-def seac_optimizer_step(cfg: SEACPPOConfig, params, grads, opt_state: AdamState):
+def init_seac_ppo(env: Warehouse, cfg: SEACPPOConfig, seed: int,
+                  hidden: Tuple[int, int] = (128, 128)) -> Tuple[RunnerState, BlockDims]:
+    """The runner of :func:`init_seac` for the batch of ``cfg``
+    (``seac.py:296-307``)."""
+    return init_seac(env, SEACConfig(n_envs=cfg.n_envs, rollout_len=cfg.rollout_len, lr=cfg.lr,
+                                     max_grad_norm=cfg.max_grad_norm), seed, hidden)
+
+
+def seac_optimizer_step(cfg, params, grads, opt_state: AdamState):
     """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr,
     eps=1e-5))`` over the whole (N, P) stack: one global norm across all
-    agents, a constant lr.  Returns (params, opt_state)."""
+    agents, a constant lr (``cfg`` a :class:`SEACConfig` or
+    :class:`SEACPPOConfig`).  Returns (params, opt_state)."""
     hyper = adam_hyper(IPPOConfig(lr=cfg.lr), opt_state.count, 1)[0].to(params.device)
     params, mu, nu = clip_adam(params, grads, opt_state.mu, opt_state.nu, hyper,
                                cfg.max_grad_norm)
@@ -317,14 +351,14 @@ def build_seac_ppo_fused_train_step(env: Warehouse, dims: BlockDims, cfg: SEACPP
     return SeacTrainStep(env, dims, cfg, deterministic_collect)
 
 
-class SeacFlatTrainStep:
-    """``train_step(runner, offsets=None) -> (runner, metrics)``; see
-    :func:`build_seac_ppo_train_step`.  The phases are methods so that
-    callers can time them: :meth:`rollout`, :meth:`advantages`,
-    :meth:`update`."""
+class _PerAgentRollout:
+    """The MLP learners' collection by autoreset rollouts of the per-agent
+    collector: through its kernel (K2d, and K2b with message bits) on a CUDA
+    runner with ``collect="fused"``, its plain version on a CPU runner or with
+    ``collect="plain"``."""
 
-    def __init__(self, env: Warehouse, dims: BlockDims, cfg: SEACPPOConfig, collect: str,
-                 deterministic_collect: bool):
+    def __init__(self, env: Warehouse, dims: BlockDims, cfg, collect: str,
+                 deterministic_collect: bool = False):
         if collect not in ("fused", "plain"):
             raise ValueError(f"collect must be 'fused' or 'plain', got {collect!r}")
         self.env, self.dims, self.cfg = env, dims, cfg
@@ -342,6 +376,13 @@ class SeacFlatTrainStep:
         seed = collect_seed(runner.seed, runner.update_idx)
         collect = self.collect.plain if self.plain_collect else self.collect
         return collect(runner.env_states, self._policies, seed)
+
+
+class SeacFlatTrainStep(_PerAgentRollout):
+    """``train_step(runner, offsets=None) -> (runner, metrics)``; see
+    :func:`build_seac_ppo_train_step`.  The phases are methods so that
+    callers can time them: :meth:`rollout`, :meth:`advantages`,
+    :meth:`update`."""
 
     def advantages(self, runner: RunnerState, env_states, traj):
         """(obs after the rollout, cross values, advantages, targets), the
@@ -418,6 +459,98 @@ def build_seac_ppo_train_step(env: Warehouse, dims: BlockDims, cfg: SEACPPOConfi
     learner SEAC-PPO with message bits trains on, since K8 has no message
     head."""
     return SeacFlatTrainStep(env, dims, cfg, collect, deterministic_collect)
+
+
+# ---------------------------------------------------------------------------
+# SEAC A2C (``seac.py:101-276``): every agent's network on every agent's
+# experience, one unclipped importance-weighted update per short rollout.
+# ---------------------------------------------------------------------------
+
+
+def seac_a2c_loss(cfg: SEACConfig, dims: BlockDims, params: torch.Tensor, traj: dict,
+                  last_obs: torch.Tensor):
+    """SEAC A2C's loss (``loss_fn``, ``seac.py:170-231``) on a rollout
+    ``traj`` (obs (T, B, N, L), action, behaviour logp, reward (T, B, N), done
+    (T, B), and the bits (T, B, N, M) where ``dims`` has message bits) and
+    the observations after it ``last_obs`` (B, N, L), for ``params`` (N, P):
+
+    * agent i's network on every agent j's observations, with gradients, in
+      flax's rounding (:func:`apply_forward`): heads and values (N_i, T, B,
+      N_j);
+    * bootstrap values by :func:`cross_last_values`, then :func:`cross_gae`
+      of agent j's rewards under agent i's detached values (JAX stops the
+      gradient of the advantages and targets);
+    * ``w_ij = exp(sg(log pi_i(a_j|o_j)) - log pi_j,behaviour(a_j|o_j))``,
+      pair weight 1 on the diagonal and ``seac_lambda * w`` off it;
+    * the policy and value terms summed over (N_i, T, B, N_j) and divided by
+      ``T * B * N``, the advantages not normalised; the entropy of each
+      agent's own policy (the diagonal).  With message bits the log-prob and
+      the entropy are the joint ones over (move, bits).
+
+    Returns (total, metrics) with JAX's names: ``pg_loss``, ``v_loss``,
+    ``entropy``, ``mean_is_weight`` (the mean of w over every pair)."""
+    obs, action, behav_logp, reward, done = (traj[k] for k in ("obs", "action", "logp",
+                                                                "reward", "done"))
+    t_len, b, n = reward.shape
+    heads = [apply_forward(dims.split(p), obs, dims.msg_bits) for p in params]
+    values = torch.stack([h[1] for h in heads])  # (N_i, T, B, N_j)
+    if dims.msg_bits:
+        logits = (torch.stack([h[0][0] for h in heads]), torch.stack([h[0][1] for h in heads]))
+        bits = traj["bits"][None]
+    else:
+        logits, bits = torch.stack([h[0] for h in heads]), None
+    last = cross_last_values(dims, params, last_obs)
+    adv, target = cross_gae(cfg, reward, values.detach(), done, last)
+    logp, ent_map = cross_logp(logits, action[None], bits)  # (N_i, T, B, N_j)
+    w = torch.exp(logp.detach() - behav_logp[None])
+    eye = torch.eye(n, dtype=torch.float32, device=obs.device)[:, None, None, :]
+    weight = eye + cfg.seac_lambda * w * (1.0 - eye)
+    pg_loss = -(weight * logp * adv).sum() / (t_len * b * n)
+    v_loss = 0.5 * (weight * (values - target) ** 2).sum() / (t_len * b * n)
+    entropy = torch.diagonal(ent_map, dim1=0, dim2=-1).mean()
+    total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
+    return total, {"pg_loss": pg_loss.detach(), "v_loss": v_loss.detach(),
+                   "entropy": entropy.detach(), "mean_is_weight": w.mean()}
+
+
+class SeacA2CTrainStep(_PerAgentRollout):
+    """``train_step(runner) -> (runner, metrics)``; see
+    :func:`build_seac_train_step`.  The phases are methods so that callers
+    can time them and hand in a trajectory of their own: :meth:`rollout`,
+    :meth:`update`."""
+
+    def update(self, runner: RunnerState, traj: dict, last_obs: torch.Tensor):
+        """((params, opt_state), metrics) of one autograd of
+        :func:`seac_a2c_loss` on ``traj`` and ``last_obs`` and one clip +
+        Adam step over the stack."""
+        grads, metrics = loss_grads(
+            lambda p: seac_a2c_loss(self.cfg, self.dims, p, traj, last_obs), runner.params)
+        return seac_optimizer_step(self.cfg, runner.params, grads, runner.opt_state), metrics
+
+    def __call__(self, runner: RunnerState) -> Tuple[RunnerState, dict]:
+        env_states, traj = self.rollout(runner)
+        obs = self.policy_obs(env_states)
+        (params, opt_state), metrics = self.update(runner, traj, obs)
+        new = dataclasses.replace(runner, params=params, opt_state=opt_state,
+                                  env_states=env_states, obs=obs,
+                                  update_idx=runner.update_idx + 1)
+        return new, update_metrics(self.cfg, traj, metrics)
+
+
+def build_seac_train_step(env: Warehouse, dims: BlockDims, cfg: SEACConfig,
+                          collect: str = "fused") -> SeacA2CTrainStep:
+    """SEAC A2C (``build_seac_train_step``, ``seac.py:101-276``):
+    ``train_step(runner) -> (runner, metrics)``.  Collects ``cfg.rollout_len``
+    autoreset steps with the per-agent collector, by default through its
+    kernel (K2d, and K2b with message bits, on a CUDA runner; its plain
+    version on a CPU runner), or with ``collect="plain"`` through its plain
+    version on any runner (the route of JAX's XLA collect; Philox draws keyed
+    by :func:`collect_seed`); the behaviour log-probs are the collector's.
+    Then one autograd of :func:`seac_a2c_loss` and one clip + Adam step over
+    the (N, P) stack.  The metrics are JAX's: ``pg_loss``, ``v_loss``,
+    ``entropy``, ``mean_is_weight``, ``reward_per_env`` and
+    ``episodes_done``."""
+    return SeacA2CTrainStep(env, dims, cfg, collect)
 
 
 # ---------------------------------------------------------------------------

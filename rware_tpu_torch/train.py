@@ -1,6 +1,7 @@
-"""Train IPPO, MAPPO or SEAC-PPO, each with an MLP or a GRU policy, on a
-warehouse config — the port's counterpart of ``train.py`` (algo ``ippo``,
-``mappo`` or ``seac-ppo`` with net ``mlp`` or ``gru``).
+"""Train IPPO, MAPPO or SEAC-PPO, each with an MLP or a GRU policy, or SEAC
+A2C with MLP policies, on a warehouse config — the port's counterpart of
+``train.py`` (algo ``ippo``, ``mappo`` or ``seac-ppo`` with net ``mlp`` or
+``gru``; algo ``seac``).
 
 Examples::
 
@@ -15,6 +16,8 @@ Examples::
         --ent-coef 0.03
     python -m rware_tpu_torch.train --device cuda --algo seac-ppo --net gru --n-envs 4096 \\
         --updates 800 --ent-coef 0.03 [--msg-bits 2]
+    python -m rware_tpu_torch.train --device cuda --algo seac --n-envs 1024 --updates 2000 \\
+        --profile-dir traces/seac
     python -m rware_tpu_torch.train --device cuda --msg-bits 2 --n-envs 4096 --updates 400
     python -m rware_tpu_torch.train --device cuda --env rware-img-tiny-2ag-v2 --net gru \\
         --n-envs 4096 --updates 800 --ent-coef 0.03
@@ -36,30 +39,44 @@ env band through the critic-only gradient kernel (K5), after K2c and K6.
 one MLP per agent through the per-agent collector (K2d) and, per pass, the
 per-agent SEAC gradient kernel (K8); with ``--net gru`` one GRU per agent
 through the per-agent recurrent collector (K2d′) and, per env band, the
-cross replay of every agent's GRU over every agent's stream by autograd.  On
-the CPU each runs its plain version.  ``--collect plain`` runs the plain
+cross replay of every agent's GRU over every agent's stream by autograd.
+``--algo seac`` trains SEAC A2C: one MLP per agent, rollouts of 5 steps
+(``--rollout-len``'s default for it; 128 for the others) through the
+per-agent collector (K2d), then one update by autograd of the cross
+forwards; SEAC A2C has MLP policies only, and ``--net gru`` raises.  On the
+CPU each runs its plain version.  ``--collect plain`` runs the plain
 learner of the algo and net (``models/ippo.build_train_step``,
 ``models/ippo_rnn.build_rnn_train_step`` with ``--net gru``, the per-agent
-collector's plain version for ``--algo seac-ppo`` with the MLP; recurrent
-SEAC-PPO and MAPPO have none).  ``--msg-bits M`` gives every agent
-M message bits (the env's ``MultiDiscrete([5, 2, ..., 2])`` action;
+collector's plain version for ``--algo seac-ppo`` with the MLP and for
+``--algo seac``; recurrent SEAC-PPO and MAPPO have none).  ``--msg-bits M``
+gives every agent M message bits (the env's ``MultiDiscrete([5, 2, ...,
+2])`` action;
 ``train.py:45-49``) and trains the Bernoulli message head: for ``--algo
 ippo`` through the collectors' message mode (K2b) and, per pass, the PPO
 gradient kernel with the message head (K4; K3 has none); for ``--algo mappo``
 on JAX's split path (K4 for the actor, the critic by autograd); for ``--algo
 seac-ppo`` with the MLP through K2d's message mode and JAX's flat update by
-autograd (K8 has no message head), with the GRU through K2d′'s.  Every algo
+autograd (K8 has no message head), with the GRU through K2d′'s; for ``--algo
+seac`` through K2d's message mode.  Every algo
 and net takes image ids (``-img``, ``-imgdict``, ``-Nd``): the collectors then
 build each agent's window in their image mode (K2e) and the policy takes
 ``policy_obs_length`` features.  The device is never chosen for you:
 ``--device cuda`` without a GPU raises.
 
+The log prints every ``--log-every`` updates (one device sync each) and, at
+the end, ``timing: X ms p50 / Y ms p95 per update (Z M env-steps/s)`` over
+the logged windows after the first (``profiling.StepTimer``).
+``--profile-dir DIR`` traces updates ``[start + 3, start + 6)`` with
+``torch.profiler`` (the card's kernels and copies too on a CUDA device) into
+``DIR/<host>_<pid>.<ns>.pt.trace.json`` (``profiling.TraceWindow``); the
+windows that hold traced updates are left out of the timing line.
+
 ``--checkpoint-dir`` writes the final policy with ``torch.save`` to
 ``<checkpoint-dir>/policy.pt``, with its net kind under ``net`` and its
 message bits under ``msg_bits``; a MAPPO run adds its central critic under
-the key ``critic``, a SEAC-PPO run holds one network per agent and says how
-many under ``per_agent``.  Every ``--checkpoint-every`` updates, and at the
-end, the whole runner is saved there too (``rware_tpu_torch.checkpoint``,
+the key ``critic``, a SEAC run (A2C or PPO) holds one network per agent and
+says how many under ``per_agent``.  Every ``--checkpoint-every`` updates, and
+at the end, the whole runner is saved there too (``rware_tpu_torch.checkpoint``,
 the last three kept); ``--resume`` restores the latest and trains on to
 ``--updates``, the same updates an unbroken run takes.
 """
@@ -73,9 +90,9 @@ import torch
 from rware_tpu_torch.core.env import resolve_device
 
 NOT_PORTED = ("not ported yet: the port trains --algo ippo, mappo and seac-ppo with --net mlp "
-              "or --net gru, and each of them with message bits but --fused-critic-phase "
-              "(MAPPO's MLP only); --algo mappo and seac-ppo --net gru only with --collect "
-              "fused (SEAC A2C is still to come)")
+              "or --net gru and --algo seac with --net mlp, and each of them with message "
+              "bits but --fused-critic-phase (MAPPO's MLP only); --algo mappo and seac-ppo "
+              "--net gru only with --collect fused")
 
 
 def parse_args(argv=None):
@@ -100,7 +117,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
     p.add_argument("--updates", type=int, default=100)
     p.add_argument("--n-envs", type=int, default=256)
-    p.add_argument("--rollout-len", type=int, default=128)
+    p.add_argument("--rollout-len", type=int, default=None,
+                   help="steps per rollout (default: 5 for --algo seac, else 128)")
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--ent-coef", type=float, default=0.01)
     p.add_argument("--seed", type=int, default=0)
@@ -110,6 +128,8 @@ def parse_args(argv=None):
                    help="save the whole runner every N updates (with --checkpoint-dir)")
     p.add_argument("--resume", action="store_true",
                    help="restore the latest runner saved in --checkpoint-dir and train on")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of updates [start+3, start+6) here")
     return p.parse_args(argv)
 
 
@@ -175,13 +195,16 @@ def load_policy(path: str, device="cpu"):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    mappo, seac, gru = args.algo == "mappo", args.algo == "seac-ppo", args.net == "gru"
-    msg = bool(args.msg_bits)
+    mappo, seac, a2c = args.algo == "mappo", args.algo == "seac-ppo", args.algo == "seac"
+    gru, msg = args.net == "gru", bool(args.msg_bits)
     no_plain_learner = mappo or (seac and gru)
     if args.fused_loss and (args.algo != "ippo" or not gru or args.collect != "fused"):
         raise ValueError("--fused-loss is the recurrent IPPO learner's option (--net gru "
                          "--collect fused)")
-    if args.algo == "seac" or (args.collect != "fused" and no_plain_learner) \
+    if a2c and gru:
+        raise ValueError("--algo seac (SEAC A2C) has MLP policies only (seac.py:61-98); "
+                         "recurrent SEAC is --algo seac-ppo --net gru")
+    if (args.collect != "fused" and no_plain_learner) \
             or (args.fused_critic_phase and (msg or gru or not mappo)):
         raise NotImplementedError(
             f"--algo {args.algo} --net {args.net} --collect {args.collect}"
@@ -205,22 +228,33 @@ def main(argv=None) -> dict:
         init_rnn_mappo_runner,
     )
     from rware_tpu_torch.models.seac import (
+        SEACConfig,
         SEACPPOConfig,
         build_seac_gru_train_step,
         build_seac_ppo_fused_train_step,
         build_seac_ppo_train_step,
+        build_seac_train_step,
+        init_seac,
         init_seac_gru,
         init_seac_ppo,
     )
+    from rware_tpu_torch.profiling import StepTimer, TraceWindow
 
     overrides = {} if args.msg_bits is None else {"msg_bits": args.msg_bits}
     env = rware_tpu_torch.make(args.env, device=dev, **overrides)
-    cfg = IPPOConfig(n_envs=args.n_envs, rollout_len=args.rollout_len, lr=args.lr,
+    rollout_len = args.rollout_len or (5 if a2c else 128)  # train.py:107, 283
+    cfg = IPPOConfig(n_envs=args.n_envs, rollout_len=rollout_len, lr=args.lr,
                      ent_coef=args.ent_coef, minibatch_mode=args.minibatch_mode)
     cdims = None
-    if seac:
+    if a2c:
+        # train.py:274-288: the run sets the batch, the rollout, lr and ent_coef
+        cfg = SEACConfig(n_envs=args.n_envs, rollout_len=rollout_len, lr=args.lr,
+                         ent_coef=args.ent_coef)
+        runner, dims = init_seac(env, cfg, args.seed)
+        train_step = build_seac_train_step(env, dims, cfg, collect=args.collect)
+    elif seac:
         # train.py:254-259: the run sets the batch, the rollout, lr and ent_coef
-        cfg = SEACPPOConfig(n_envs=args.n_envs, rollout_len=args.rollout_len, lr=args.lr,
+        cfg = SEACPPOConfig(n_envs=args.n_envs, rollout_len=rollout_len, lr=args.lr,
                             ent_coef=args.ent_coef)
         if gru:
             runner, dims = init_seac_gru(env, cfg, args.seed)
@@ -266,8 +300,14 @@ def main(argv=None) -> dict:
           f"updates x {env_steps_per_update} env-steps, collect {args.collect}", flush=True)
     log_every = max(1, args.log_every)
     logger = MetricLogger(print_every=1)
-    last_u, step_ms, entry = start, [], {}
+    timer = StepTimer(skip_first=1)  # the first window holds the kernel build and warm-up
+    tracer = TraceWindow(args.profile_dir, start=start + 3, device=dev) \
+        if args.profile_dir else None
+    last_u, entry = start, {}
+    timer.tick()
     for u in range(start, args.updates):
+        if tracer:
+            tracer.step(u)
         runner, metrics = train_step(runner)
         if ckpts and (u + 1) % args.checkpoint_every == 0:
             ckpts.save(u + 1, runner)
@@ -275,13 +315,17 @@ def main(argv=None) -> dict:
             continue
         # one device sync per logged window; the rate is the window's
         entry = logger.log(u + 1, metrics, env_steps_per_update * (u + 1 - last_u))
-        if last_u > start:  # the first window holds the set-up (kernel build, warm-up)
-            step_ms.append(env_steps_per_update / entry["env_steps_per_s"] * 1e3)
+        # a window holding traced updates carries torch.profiler's overhead
+        traced = tracer is not None and last_u < tracer.stop and u + 1 > tracer.start
+        timer.tick(n_steps=u + 1 - last_u, record=not traced)
         last_u = u + 1
-    if step_ms:
-        ms = sorted(step_ms)[len(step_ms) // 2]
-        print(f"timing: {ms:.1f}ms p50 per update "
-              f"({env_steps_per_update / ms * 1e3 / 1e6:.2f}M env-steps/s)", flush=True)
+    if tracer:
+        tracer.close()
+    stats = timer.summary()
+    if stats:
+        print(f"timing: {stats['step_ms_p50']:.1f}ms p50 / {stats['step_ms_p95']:.1f}ms p95 "
+              f"per update ({stats['steps_per_s'] * env_steps_per_update / 1e6:.2f}M "
+              f"env-steps/s{'; traced updates left out' if tracer else ''})", flush=True)
     if args.checkpoint_dir:
         if ckpts.latest_step != runner.update_idx:
             ckpts.save(runner.update_idx, runner)

@@ -271,10 +271,11 @@ def test_train_mappo_and_evaluate_entry_points(tmp_path, phase):
 def test_mappo_entry_point_refuses_what_is_not_there():
     for argv in (["--algo", "mappo", "--net", "gru", "--collect", "plain"],
                  ["--algo", "mappo", "--collect", "plain"],
-                 ["--algo", "seac"], ["--algo", "seac", "--net", "gru"],
                  ["--fused-critic-phase"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(argv + ["--device", "cpu"])
+    with pytest.raises(ValueError, match="MLP policies only"):
+        train.main(["--algo", "seac", "--net", "gru", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--algo", "mappo", "--updates", "1"])

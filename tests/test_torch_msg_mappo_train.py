@@ -159,7 +159,8 @@ def test_train_mappo_msg_bits_and_refusals(tmp_path):
     ckpt = torch.load(str(tmp_path / "policy.pt"))
     assert ckpt["msg_bits"] == 2 and "critic" in ckpt
     for argv in (["--algo", "mappo", "--fused-critic-phase"],
-                 ["--algo", "mappo", "--net", "gru", "--fused-critic-phase"],
-                 ["--algo", "seac"]):
+                 ["--algo", "mappo", "--net", "gru", "--fused-critic-phase"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(argv + ["--msg-bits", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="MLP policies only"):
+        train.main(["--algo", "seac", "--net", "gru", "--msg-bits", "2", "--device", "cpu"])

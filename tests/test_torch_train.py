@@ -209,8 +209,8 @@ def test_mean_return_counts_until_the_first_episode_end():
 
 
 def test_entry_points_refuse_what_is_not_there():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["--algo", "seac", "--device", "cpu"])
+    with pytest.raises(ValueError, match="MLP policies only"):
+        train.main(["--algo", "seac", "--net", "gru", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train.main(["--algo", "mappo", "--net", "gru", "--collect", "plain", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
