@@ -235,7 +235,29 @@ Phases, one line each:
     ``train.main(["--algo", "seac", ..., "--profile-dir", DIR])`` at B=256
     and 16,384, 8 updates, its ``torch.profiler`` trace of updates 3-5 read
     back: CUDA kernels in it, exactly 3 of them K2d's, and the device's busy
-    share of the traced window.
+    share of the traced window;
+31. distribution (``rware_tpu_torch.distributed``, ``parallel.sharding``):
+    (a) K1 (tiny-2ag, B=65,536, T=256) and K2a (B=16,384, T=128, hidden
+    (128, 128)) launched on rows [8,192, 16,384) with ``env_offset=8192``
+    equal the global launch's rows bit for bit, and their plain versions by
+    phases 3-4's rules; K2c and K2d′ likewise at B=2,048, T=32; (b)
+    ``initialize`` over NCCL at world size 1, then IPPO through the mesh at
+    full width (tiny-2ag, B=16,384, T=128, E=4, M=4, hidden (128, 128), 3
+    updates) bit for bit against the same learner without a mesh (per-pass
+    K4), E * M + 1 all-reduces an update and none in the collect, ms per
+    update of both, and the collectives' share of an update; (c) two gloo
+    ranks on the one card (subprocesses that load the library built in phase
+    2 and never build it): IPPO at a global B=16,384 (8,192 a rank) for 3
+    updates, and recurrent IPPO (with and without the fused loss), MAPPO,
+    recurrent MAPPO and recurrent SEAC-PPO at a global B=2,048, T=32 for one
+    update each; each rank's first trajectory equal to its rows of the
+    1-rank global collect, the parameters bit-equal across ranks and equal to
+    an in-process emulation of the two ranks (``testing.emulate_mesh``) bit
+    for bit (sha256 digests), the same collective counts; (d) ``python -m
+    torch.distributed.run --nproc-per-node 1 -m rware_tpu_torch.train
+    --distributed --mesh`` for 4 updates with a checkpoint every 2, then
+    ``--resume`` to 6, equal to an unbroken 6-update run's runner bit for
+    bit.
 
 The MLP collector (K2a, with K2b and K2e; K2d) runs a tile of 64 envs a
 block at the main shape: its env threads step, a thread a row builds the
@@ -257,6 +279,7 @@ null), and as the last line ``{"ok": true, "device": {...}}``.  Any failure rais
 and the script exits non-zero without that line.
 
 Usage: python3 chip_smoke.py
+(``python3 chip_smoke.py --dp-rank SPEC RANK`` is phase 31's rank process.)
 """
 from __future__ import annotations
 
@@ -3128,6 +3151,312 @@ def phase30(dev, kind, card, n_envs=16384, rollout_len=5):
     return [entry]
 
 
+# ---- phase 31: distribution ---------------------------------------------------
+
+DP_GLOBAL = 16384  # IPPO's global batch across the ranks (phase 8's)
+DP_SMALL = (2048, 32)  # the other learners' global batch and rollout
+DP_LO = 8192  # the first global row of the shard in (a)
+
+
+def digest(tree) -> str:
+    """sha256 of every tensor of ``tree`` (``rware_tpu_torch.testing.digest``)."""
+    from rware_tpu_torch.testing import digest as tree_digest
+
+    return tree_digest(tree)
+
+
+def _rows(tree, lo, hi, axis):
+    from rware_tpu_torch.parallel.sharding import tree_map
+
+    return tree_map(lambda x: x.narrow(axis, lo, hi - lo), tree)
+
+
+def _offset_case(what, launch, plain, states, lo, hi, h0=None):
+    """``launch`` on rows [lo, hi) with ``env_offset=lo`` against the global
+    launch's rows (bit for bit, every output) and against the plain version
+    on those rows: exact where the result feeds back (K1: everything;
+    collectors: obs, reward, done, the state, the carry within a bf16 step
+    and actions by phase 4's agreement, value and logp within 2e-2)."""
+    import torch
+
+    args = () if h0 is None else (h0,)
+    part = _rows(states, lo, hi, 0)
+    pargs = () if h0 is None else (h0[lo:hi],)
+    whole = launch(states, *args)
+    got = launch(part, *pargs, env_offset=lo)
+    ref = plain(part, *pargs, env_offset=lo)
+    torch.cuda.synchronize()
+    for i, (w, g) in enumerate(zip(whole, got)):
+        axis = 1 if isinstance(w, dict) else 0  # the trajectory is (T, B, ...)
+        require(digest(_rows(w, lo, hi, axis)) == digest(g), f"{what}: output {i} of the "
+                f"shard != the global launch's rows")
+    if not isinstance(whole[-1], dict):  # K1: the plain version is exact
+        require(digest(got) == digest(ref), f"{what}: shard kernel != plain")
+        return 0.0
+    kt, pt = got[-1], ref[-1]
+    for k in ("obs", "reward", "done"):
+        require(torch.equal(kt[k], pt[k]), f"{what}: {k} differs from plain")
+    require(not state_diff(got[0], ref[0]), f"{what}: final state differs from plain")
+    agree = float((kt["action"] == pt["action"]).float().mean())
+    err = max(float((kt[k] - pt[k]).abs().max()) for k in ("value", "logp"))
+    require(agree >= ACTION_AGREEMENT and err <= VALUE_LOGP_ATOL,
+            f"{what}: plain agreement {agree}, value/logp err {err}")
+    if h0 is not None:
+        h_ok = float(((got[1].float() - ref[1].float()).abs() <= BF16_STEP).float().mean())
+        require(h_ok >= ACTION_AGREEMENT, f"{what}: carry within a bf16 step {h_ok}")
+    return err
+
+
+def phase31a(dev):
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ActorCritic
+    from rware_tpu_torch.models.networks import init_recurrent_actor_critic
+    from rware_tpu_torch.ops.fused_rollout import (
+        build_fused_collect,
+        build_fused_collect_gru,
+        build_fused_collect_gru_per_agent,
+        build_fused_rollout,
+    )
+    from rware_tpu_torch.parallel import batched_reset
+
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
+    out = []
+    states, _ = batched_reset(env, 31, 65536)
+    roll = build_fused_rollout(env.config, 256)
+    _offset_case("K1 B=65536 T=256", lambda s, **kw: roll(s, 7, **kw),
+                 lambda s, **kw: roll.plain(s, 7, **kw), states, DP_LO, 2 * DP_LO)
+    out.append("K1 B=65,536 T=256")
+    states, _ = batched_reset(env, 32, 16384)
+    torch.manual_seed(31)
+    policy = ActorCritic(env.config.policy_obs_length, hidden=(128, 128)).to(dev)
+    collect = build_fused_collect(env.config, 128, hidden=(128, 128))
+    err = _offset_case("K2a B=16384 T=128", lambda s, **kw: collect(s, policy, 8, **kw),
+                       lambda s, **kw: collect.plain(s, policy, 8, **kw), states, DP_LO,
+                       2 * DP_LO)
+    out.append(f"K2a B=16,384 T=128 (plain value/logp err {err:.3g})")
+    b, t = DP_SMALL
+    states, _ = batched_reset(env, 33, b)
+    gen = torch.Generator().manual_seed(31)
+    h0 = (torch.rand((b, env.n_agents, 128), generator=gen) * 2 - 1).to(torch.bfloat16).to(dev)
+    nets = [init_recurrent_actor_critic(env.config.policy_obs_length, 5, 128, 128, (31, i))
+            .to(dev) for i in range(env.n_agents)]
+    for name, build, pol in (("K2c", build_fused_collect_gru, nets[0]),
+                             ("K2d'", build_fused_collect_gru_per_agent, nets)):
+        collect = build(env.config, t, (128, 128))
+        err = _offset_case(f"{name} B={b} T={t}", lambda s, h, **kw: collect(s, pol, 9, h, **kw),
+                           lambda s, h, **kw: collect.plain(s, pol, 9, h, **kw), states,
+                           b // 2, b, h0)
+        out.append(f"{name} B={b:,} T={t} (plain value/logp err {err:.3g})")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _timed_updates(step, runner, n):
+    """Wall milliseconds per update over ``n`` more updates from ``runner``."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(n):
+        runner, _ = step(runner)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / n
+
+
+def phase31b(dev, kind, card):
+    """World size 1 under NCCL: IPPO through the mesh equals IPPO without."""
+    import torch
+    import torch.distributed as dist
+    import rware_tpu_torch
+    from rware_tpu_torch.distributed import initialize
+    from rware_tpu_torch.models.ippo import IPPOConfig
+    from rware_tpu_torch.parallel.sharding import make_mesh
+    from rware_tpu_torch.testing import dp_learner, dp_run
+
+    rank_world = initialize(f"localhost:{_free_port()}", 1, 0, device=dev)
+    require(rank_world == (0, 1) and dist.get_backend() == "nccl", f"initialize: {rank_world}")
+    mesh = make_mesh(device=dev)
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
+    cfg = IPPOConfig(n_envs=DP_GLOBAL, rollout_len=128, epochs=4, minibatches=4)
+    runs = {}
+    for name, m in (("mesh", mesh), ("plain", None)):
+        runner, step = dp_learner("ippo", env, cfg, 21, m)
+        runs[name] = (dp_run(step, runner, 3, m), step)
+    a, b = runs["mesh"][0], runs["plain"][0]
+    # mesh, plain, plain, mesh: 3 updates each from the checked runners
+    times = {"mesh": [], "plain": []}
+    for name in ("mesh", "plain", "plain", "mesh"):
+        out, step = runs[name]
+        times[name].append(_timed_updates(step, out["runner"], 3))
+    ms_mesh = sum(times["mesh"]) / 2
+    require(digest(a["traj"]) == digest(b["traj"]), "31b: the collects differ")
+    from rware_tpu_torch.checkpoint import pack
+
+    require(digest(pack(a["runner"])) == digest(pack(b["runner"])),
+            "31b: the world-1 mesh run != the run without a mesh")
+    per_update = cfg.epochs * cfg.minibatches + 1
+    require(a["collect_counts"]["all_reduce"] == 0
+            and all(c["all_reduce"] == per_update for c in a["update_counts"]),
+            f"31b: collectives {a['collect_counts']} / {a['update_counts']}")
+    # the collectives alone: E*M packed gradient all-reduces and one psum
+    grads = (torch.zeros(a["runner"].params.numel(), device=dev), torch.zeros(4, device=dev))
+    sums = (torch.zeros((), device=dev), torch.zeros((), dtype=torch.int64, device=dev))
+
+    def collectives():
+        for _ in range(cfg.epochs * cfg.minibatches):
+            mesh.all_reduce_mean(grads)
+        mesh.psum(sums)
+
+    collectives()
+    coll_ms, _ = cuda_ms(collectives, repeats=10)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    collectives()  # the host's time to issue them, without waiting for the device
+    host_ms = (time.perf_counter() - start) * 1e3
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    log(f"phase 31b NCCL world 1, IPPO tiny-2ag B={DP_GLOBAL} T=128 E=4 M=4 through the mesh: "
+        f"bit-equal to the run without a mesh over 3 updates; all-reduces {per_update} an "
+        f"update, 0 in the collect; ms/update with the mesh {times['mesh'][0]:.3f}, "
+        f"{times['mesh'][1]:.3f}, without {times['plain'][0]:.3f}, {times['plain'][1]:.3f} "
+        f"(mesh, plain, plain, mesh); the {per_update} collectives alone {coll_ms:.3f} ms "
+        f"({100 * coll_ms / ms_mesh:.2f}% of an update; issued by the host in {host_ms:.3f} "
+        f"ms; packed gradient "
+        f"{4 * (grads[0].numel() + 4)} bytes) [{kind}, {card}]")
+
+
+DP_TASK = {"kind": "learner", "env_id": "rware-tiny-2ag-v2", "seed": 31, "hidden": 128,
+           "digest": True}
+
+
+def dp_tasks():
+    """Phase 31c's learner tasks (``testing.dp_task``): IPPO at the main
+    shape for 3 updates, the other mesh learners at DP_SMALL for one."""
+    big = dict(n_envs=DP_GLOBAL, rollout_len=128, epochs=4, minibatches=4)
+    small = dict(n_envs=DP_SMALL[0], rollout_len=DP_SMALL[1], epochs=4, minibatches=4)
+    return ([dict(DP_TASK, name="ippo", learner="ippo", cfg=big, n_updates=3)]
+            + [dict(DP_TASK, name=name, learner=name, cfg=small, n_updates=1) for name in
+               ("rnn_ippo", "rnn_ippo_fused_loss", "mappo", "rnn_mappo", "seac_gru")])
+
+
+def phase31c(dev, kind, card):
+    """Two gloo ranks on the one card against the in-process emulation, and
+    per-rank checkpoints of two IPPO updates against the same two updates
+    unbroken."""
+    import os
+    import tempfile
+
+    import torch
+    from rware_tpu_torch.testing import dp_results, dp_spawn, dp_task, emulate_mesh
+
+    start = time.perf_counter()
+    learners = dp_tasks()
+    small = learners[1]["cfg"]
+    ckpt = dict(DP_TASK, kind="checkpoint", name="checkpoint", cfg=small, n_updates=2)
+    unbroken = dict(ckpt, kind="learner", name="unbroken")
+    with tempfile.TemporaryDirectory(prefix="dp31-") as tmp:
+        procs = dp_spawn((sys.executable, os.path.abspath(__file__), "--dp-rank"),
+                         learners + [ckpt], 2, tmp, dev)
+        try:
+            emulated = emulate_mesh(lambda mesh: {t["name"]: dp_task(t, mesh, dev)
+                                                  for t in learners + [unbroken]}, 2, dev)
+            whole = {t["name"]: dp_task(dict(t, digest=False), None, dev) for t in learners}
+        except BaseException:
+            for p in procs:
+                p.kill()
+            raise
+        res = dp_results(procs, learners + [ckpt], tmp, timeout=900)
+    torch.cuda.synchronize()
+    lines = []
+    for task in learners:
+        name, cfg = task["name"], task["cfg"]
+        per_update = cfg["epochs"] * cfg["minibatches"] + 1
+        b = cfg["n_envs"] // 2
+        ranks = res[name]
+        for r in range(2):
+            got, emu = ranks[r], emulated[r][name]
+            rows = {k: v[:, r * b:(r + 1) * b] for k, v in whole[name]["traj"].items()}
+            require(got["traj"] == digest(rows), f"31c {name} rank {r}: trajectory != its "
+                    "rows of the global collect")
+            require(got["runner"] == emu["runner"] and got["metrics"] == emu["metrics"],
+                    f"31c {name} rank {r}: != the in-process emulation")
+            require(got["collect_counts"]["all_reduce"] == 0
+                    and all(c["all_reduce"] == per_update for c in got["update_counts"]),
+                    f"31c {name} rank {r}: collectives {got['collect_counts']} "
+                    f"{got['update_counts']}")
+        require(ranks[0]["replicated"] == ranks[1]["replicated"],
+                f"31c {name}: the ranks' parameters differ")
+        lines.append(f"{name} B={cfg['n_envs']} T={cfg['rollout_len']} x{task['n_updates']}")
+    files = sorted(f"{s}.rank{r}-of2.pt" for s in (1, 2) for r in (0, 1))
+    for r, out in enumerate(res["checkpoint"]):
+        require(out["steps"] == [1, 2] and sorted(out["files"]) == files,
+                f"31c checkpoint rank {r}: steps {out['steps']}, files {out['files']}")
+        require("this run has world size 1" in out["refused"],
+                f"31c checkpoint rank {r}: a restore at world size 1 was not refused")
+        require(out["restored"] == out["saved"] == emulated[r]["unbroken"]["runner"],
+                f"31c checkpoint rank {r}: the restored shard != the unbroken emulated run")
+    log(f"phase 31c gloo, 2 ranks on one card: {'; '.join(lines)}: each rank's trajectory = "
+        f"its rows of the global collect, parameters bit-equal across ranks and to the "
+        f"in-process emulation, E*M+1 all-reduces an update, the collectives on CUDA tensors; "
+        f"IPPO B={small['n_envs']} x2 saved per rank ({', '.join(files)}) and restored = the "
+        f"unbroken emulated run bit for bit, a world-1 restore refused; "
+        f"{time.perf_counter() - start:.1f} s [{kind}, {card}]")
+
+
+def phase31d(kind, card):
+    import os
+    import tempfile
+
+    import torch
+
+    base = ["--distributed", "--mesh", "--device", "cuda", "--n-envs", "4096",
+            "--checkpoint-every", "2", "--log-every", "2"]
+
+    def torchrun(*args):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+               "--master-port", str(_free_port()), "-m", "rware_tpu_torch.train", *base, *args]
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
+        require(out.returncode == 0, f"31d {' '.join(args)}: rc {out.returncode}\n"
+                f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        return out.stdout
+
+    from rware_tpu_torch import train
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dp31d-") as tmp:
+        first = torchrun("--updates", "4", "--checkpoint-dir", f"{tmp}/a")
+        resumed = torchrun("--updates", "6", "--resume", "--checkpoint-dir", f"{tmp}/a")
+        train.main(base[2:] + ["--updates", "6", "--checkpoint-dir", f"{tmp}/b"])  # unbroken
+        a, b = (torch.load(f"{tmp}/{d}/runner/6.pt", weights_only=True) for d in "ab")
+    require("distributed: process 0/1" in first and "resumed from update 4" in resumed,
+            "31d: the runs did not say what they did")
+    require(digest(a) == digest(b), "31d: the resumed run != the unbroken run")
+    log(f"phase 31d torchrun --nproc-per-node 1 train --distributed --mesh (NCCL, world 1): 4 "
+        f"updates, --resume to 6 = an unbroken 6-update run of train.main bit for bit; "
+        f"{time.perf_counter() - start:.1f} s [{kind}, {card}]")
+
+
+def phase31(dev, kind, card):
+    start = time.perf_counter()
+    cases = phase31a(dev)
+    log(f"phase 31a env_offset: {'; '.join(cases)}, rows [{DP_LO}, {2 * DP_LO}) of K1 and "
+        f"K2a, the second half of K2c and K2d': = the global launch's rows bit for bit and = "
+        f"the plain versions "
+        f"({time.perf_counter() - start:.1f} s) [{kind}, {card}]")
+    phase31b(dev, kind, card)
+    phase31c(dev, kind, card)
+    phase31d(kind, card)
+
+
 def main() -> int:
     import torch
 
@@ -3180,6 +3509,7 @@ def main() -> int:
     phase28(dev, kind, card)
     phase29(dev, kind, card)
     kernels += phase30(dev, kind, card)
+    phase31(dev, kind, card)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3188,4 +3518,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank process of phase 31c
+        from rware_tpu_torch.testing import dp_rank_main
+
+        dp_rank_main(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
     sys.exit(main())

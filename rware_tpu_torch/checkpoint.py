@@ -9,11 +9,18 @@ scalars, written with ``torch.save`` to ``<directory>/<step>.pt``; restoring
 it into a template runner puts every tensor back on the template's device,
 so resuming a run reproduces the updates it would have taken unbroken, bit
 for bit on one device (``tests/test_torch_checkpoint.py``).
+
+In a data-parallel run of world size W > 1 each rank writes its own file for
+a step, ``<step>.rank<r>-of<W>.pt``: its runner holds its env shard, and the
+replicated parts are the same in every file.  A step is complete once every
+rank's file exists; only complete steps are listed and restored, and a
+directory written at another world size is refused.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 from typing import Any, Optional
 
 import torch
@@ -59,22 +66,44 @@ def unpack(saved: Any, template: Any) -> Any:
     return saved
 
 
+_NAME = re.compile(r"^(\d+)(?:\.rank(\d+)-of(\d+))?\.pt$")
+
+
 class Checkpointer:
     """Numbered step checkpoints under one directory; the oldest beyond
-    ``max_to_keep`` (None: all kept) are deleted."""
+    ``max_to_keep`` (None: all kept) are deleted.  ``rank`` of ``world``
+    (1: one file a step) is the writer's place in a data-parallel run."""
 
-    def __init__(self, directory: str, max_to_keep: Optional[int] = 3):
+    def __init__(self, directory: str, max_to_keep: Optional[int] = 3, rank: int = 0,
+                 world: int = 1):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} is not in a world of {world}")
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.rank, self.world = rank, world
         os.makedirs(self.directory, exist_ok=True)
 
-    def _path(self, step: int) -> str:
-        return os.path.join(self.directory, f"{step}.pt")
+    def _path(self, step: int, rank: Optional[int] = None) -> str:
+        if self.world == 1:
+            return os.path.join(self.directory, f"{step}.pt")
+        rank = self.rank if rank is None else rank
+        return os.path.join(self.directory, f"{step}.rank{rank}-of{self.world}.pt")
+
+    def _files(self) -> dict:
+        """{world size: {step: set of ranks}} of the files in the directory."""
+        out: dict = {}
+        for name in os.listdir(self.directory):
+            m = _NAME.match(name)
+            if m:
+                world = int(m.group(3) or 1)
+                out.setdefault(world, {}).setdefault(int(m.group(1)), set()).add(
+                    int(m.group(2) or 0))
+        return out
 
     def steps(self) -> list:
-        """The saved steps, in ascending order."""
-        return sorted(int(name[:-3]) for name in os.listdir(self.directory)
-                      if name.endswith(".pt") and name[:-3].isdigit())
+        """The complete steps (every rank's file written), in ascending order."""
+        mine = self._files().get(self.world, {})
+        return sorted(step for step, ranks in mine.items() if len(ranks) == self.world)
 
     @property
     def latest_step(self) -> Optional[int]:
@@ -82,19 +111,26 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def save(self, step: int, runner: Any) -> None:
-        """Write ``runner`` as step ``step`` (atomically: a temporary file
-        renamed into place)."""
+        """Write this rank's ``runner`` as step ``step`` (atomically: a
+        temporary file renamed into place); delete this rank's files of the
+        steps before the last ``max_to_keep``."""
         tmp = self._path(step) + ".tmp"
         torch.save(pack(runner), tmp)
         os.replace(tmp, self._path(step))
         if self.max_to_keep is not None:
-            for old in self.steps()[:-self.max_to_keep]:
+            own = sorted(s for s, ranks in self._files().get(self.world, {}).items()
+                         if self.rank in ranks)
+            for old in own[:-self.max_to_keep]:
                 os.remove(self._path(old))
 
     def restore(self, step: Optional[int] = None, template: Any = None) -> Any:
         """The runner saved at ``step`` (the latest if None), in the
         structure and on the devices of ``template``; without a template,
         the nested dicts :func:`pack` wrote, on the CPU."""
+        other = sorted(w for w in self._files() if w != self.world)
+        if other and not self.steps():
+            raise ValueError(f"{self.directory} holds checkpoints of world size {other[0]}; "
+                             f"this run has world size {self.world}")
         if step is None:
             step = self.latest_step
             if step is None:

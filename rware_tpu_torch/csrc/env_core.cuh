@@ -60,6 +60,7 @@ struct EnvDims {
   int m;             // message bits per agent
   int scripted;      // every draw is 0
   uint32_t seed_lo, seed_hi;
+  uint32_t env_offset;  // global index of the launch's env 0 (a shard's first row)
 };
 
 // Layout constants in one int32 buffer:
@@ -208,11 +209,13 @@ static __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint
   return c;
 }
 
-// Raw uint32 draw `slot` of `purpose` for env `env` at step `step`.
+// Raw uint32 draw `slot` of `purpose` for the launch's env `env` at step
+// `step`; the counter holds the env's global index env_offset + env.
 static __device__ __forceinline__ uint32_t draw_bits(const EnvDims& d, uint32_t env, uint32_t step,
                                                      uint32_t purpose, uint32_t slot) {
   if (d.scripted) return 0u;
-  uint4 o = philox4x32_10(make_uint4(env, step, purpose, slot >> 2), d.seed_lo, d.seed_hi);
+  uint4 o = philox4x32_10(make_uint4(d.env_offset + env, step, purpose, slot >> 2), d.seed_lo,
+                          d.seed_hi);
   switch (slot & 3u) {
     case 0: return o.x;
     case 1: return o.y;

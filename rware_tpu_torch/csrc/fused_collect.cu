@@ -428,7 +428,8 @@ __global__ void __launch_bounds__(RW_COLLECT_MAX_THREADS)
 // memory or read from device memory (kGlobal).
 extern "C" int rw_fused_collect(int n, int s, int r, int g, int h, int w, int reward_type,
                                 int max_steps, int max_inactive, int msg_bits,
-                                unsigned long long seed, int deterministic, int T, int B,
+                                unsigned long long seed, unsigned int env_offset,
+                                int deterministic, int T, int B,
                                 int sensor_range, int normalised, int img_layers, int img_n_layers,
                                 int img_directional, int img_self, int L, int H1, int H2, int A,
                                 int n_stacks, const int* plan, int n_plan, const void* layout,
@@ -451,6 +452,7 @@ extern "C" int rw_fused_collect(int n, int s, int r, int g, int h, int w, int re
   d.scripted = deterministic;
   d.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   d.seed_hi = (uint32_t)(seed >> 32);
+  d.env_offset = env_offset;
   MlpDims m;
   m.L = L;
   m.H1 = H1;

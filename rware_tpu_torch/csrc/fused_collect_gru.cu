@@ -11,7 +11,8 @@
 // from device memory.  h0 and new_h are (B, N, Hg) bf16.
 extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, int reward_type,
                                     int max_steps, int max_inactive, int msg_bits,
-                                    unsigned long long seed, int deterministic, int T, int B,
+                                    unsigned long long seed, unsigned int env_offset,
+                                    int deterministic, int T, int B,
                                     int sensor_range, int normalised, int img_layers,
                                     int img_n_layers, int img_directional, int img_self, int L,
                                     int E, int Hg, int A, int n_stacks, const int* plan,
@@ -36,6 +37,7 @@ extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, in
   d.scripted = deterministic;
   d.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   d.seed_hi = (uint32_t)(seed >> 32);
+  d.env_offset = env_offset;
   GruCollectDims m;
   m.L = L;
   m.E = E;

@@ -72,7 +72,8 @@ struct RolloutPlan {
 static __device__ __forceinline__ uint4 draw4(const EnvDims& d, uint32_t env, uint32_t step,
                                               uint32_t purpose, uint32_t group) {
   if (d.scripted) return make_uint4(0u, 0u, 0u, 0u);
-  return philox4x32_10(make_uint4(env, step, purpose, group), d.seed_lo, d.seed_hi);
+  return philox4x32_10(make_uint4(d.env_offset + env, step, purpose, group), d.seed_lo,
+                       d.seed_hi);
 }
 
 // The compact env of the map routes (see the head of the file); kBig: more
@@ -352,10 +353,10 @@ static bool rollout_plan_ok(const RolloutPlan& p, const EnvDims& d, int B, const
 
 extern "C" int rw_fused_rollout(int n, int s, int r, int g, int h, int w, int reward_type,
                                 int max_steps, int max_inactive, int m, unsigned long long seed,
-                                int scripted, int T, int B, const int* plan, int n_plan,
-                                const void* layout, const void* state_in, void* state_out,
-                                const void* actions, void* rewards, void* episodes,
-                                void* scratch, void* stream) {
+                                unsigned int env_offset, int scripted, int T, int B,
+                                const int* plan, int n_plan, const void* layout,
+                                const void* state_in, void* state_out, const void* actions,
+                                void* rewards, void* episodes, void* scratch, void* stream) {
   EnvDims d;
   d.n = n;
   d.s = s;
@@ -370,6 +371,7 @@ extern "C" int rw_fused_rollout(int n, int s, int r, int g, int h, int w, int re
   d.scripted = scripted;
   d.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   d.seed_hi = (uint32_t)(seed >> 32);
+  d.env_offset = env_offset;
   RolloutPlan p;
   if (n_plan * sizeof(int) != sizeof(RolloutPlan)) return (int)cudaErrorInvalidValue;
   std::memcpy(&p, plan, sizeof(RolloutPlan));

@@ -207,17 +207,28 @@ def ppo_update_epochs(cfg: IPPOConfig, dims: BlockDims, params, opt_state, datas
     return (params, opt_state), per_pass
 
 
-def init_runner(env: Warehouse, cfg: IPPOConfig, seed: int,
-                hidden: Tuple[int, int] = (128, 128)) -> Tuple[RunnerState, BlockDims]:
-    """Parameters (flax's default init, from ``seed``; a message head where
-    the config has message bits), optimizer and a fresh batch of
-    ``cfg.n_envs`` env states on ``env.device``."""
+def reset_envs(env: Warehouse, seed: int, n_envs: int, mesh=None) -> WarehouseState:
+    """A fresh batch of ``n_envs`` env states from ``seed``; with a mesh
+    (:class:`~rware_tpu_torch.parallel.sharding.Mesh`) only this rank's rows
+    of it, keyed by their global indices."""
+    from rware_tpu_torch.distributed import global_env_batch
     from rware_tpu_torch.parallel import batched_reset
 
+    return global_env_batch(lambda start, count: batched_reset(env, seed, count, start)[0],
+                            n_envs, mesh)
+
+
+def init_runner(env: Warehouse, cfg: IPPOConfig, seed: int,
+                hidden: Tuple[int, int] = (128, 128), mesh=None
+                ) -> Tuple[RunnerState, BlockDims]:
+    """Parameters (flax's default init, from ``seed``; a message head where
+    the config has message bits), optimizer and a fresh batch of
+    ``cfg.n_envs`` env states on ``env.device`` (with a mesh this rank's
+    rows of it, :func:`reset_envs`)."""
     model = init_actor_critic(env.config.policy_obs_length, env.n_actions, hidden, seed,
                               env.config.msg_bits)
     params = pack_arrays(params_to_arrays(model)).detach().to(env.device)
-    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    env_states = reset_envs(env, seed, cfg.n_envs, mesh)
     obs = policy_obs_fn(env)(env_states)
     runner = RunnerState(
         params=params, opt_state=optimizer_init(params), env_states=env_states, obs=obs,
@@ -239,11 +250,18 @@ def last_values(dims: BlockDims, params: torch.Tensor, obs: torch.Tensor) -> tor
         return apply_forward(dims.split(params), obs, dims.msg_bits)[1]
 
 
-def update_metrics(cfg: IPPOConfig, traj: Dict[str, torch.Tensor], ppo_metrics) -> dict:
-    """The train step's metrics, as ``rware_tpu`` names them (device scalars)."""
+def update_metrics(cfg: IPPOConfig, traj: Dict[str, torch.Tensor], ppo_metrics,
+                   mesh=None) -> dict:
+    """The train step's metrics, as ``rware_tpu`` names them (device
+    scalars).  With a mesh the reward and episode sums are the whole
+    batch's, one packed all-reduce (JAX's two ``psum``), and ``cfg.n_envs``
+    is the global batch."""
+    from rware_tpu_torch.parallel.sharding import psum
+
+    reward_sum, episodes = psum((traj["reward"].sum(), traj["done"].sum()), mesh)
     return {
-        "reward_per_env": traj["reward"].sum() / cfg.n_envs,
-        "episodes_done": traj["done"].sum(),
+        "reward_per_env": reward_sum / cfg.n_envs,
+        "episodes_done": episodes,
         **ppo_metrics,
     }
 

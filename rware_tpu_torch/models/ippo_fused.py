@@ -11,6 +11,15 @@ over all envs and agents, with a fresh random rotation per epoch drawn in
 :func:`~rware_tpu_torch.ops.fused_update.phase_time_block` units (the
 windows of the JAX package's fused path).  ``compute_gae_native`` of the JAX
 package is :func:`~rware_tpu_torch.models.ippo.compute_gae` here.
+
+With a :class:`~rware_tpu_torch.parallel.sharding.Mesh` the learner is data
+parallel (``build_pallas_train_step(mesh=...)``): this rank collects its own
+rows of the global batch (the collector keyed by their global indices), runs
+GAE on them, and each pass's K4 gradients and metric sums leave as their mean
+over the ranks (:func:`~rware_tpu_torch.parallel.sharding.data_parallel`);
+K4 normalises the advantages over the window's rows of this shard, as JAX's
+kernel does inside ``shard_map``.  K3 runs Adam inside the kernel, so it is
+refused under a mesh.
 """
 from __future__ import annotations
 
@@ -42,6 +51,11 @@ from rware_tpu_torch.ops.fused_update import (
     metric_means,
     phase_time_block,
 )
+from rware_tpu_torch.parallel.sharding import Mesh, data_parallel, refuse_under_mesh
+
+# ippo_pallas.py:546-549 (and mappo.py:388-392 for K7)
+WHOLE_PHASE_UNDER_MESH = ("the whole-phase kernel runs the optimizer in-kernel, so it is "
+                          "incompatible with the per-minibatch gradient pmean of the mesh path")
 
 __all__ = [
     "FusedTrainStep", "build_fused_train_step", "clipped_ppo_terms", "phase_window_starts",
@@ -131,8 +145,15 @@ class FusedTrainStep:
     can time them: :meth:`rollout`, :meth:`advantages`, :meth:`update`."""
 
     def __init__(self, env: Warehouse, dims: BlockDims, cfg: IPPOConfig,
-                 deterministic_collect: bool = False, fused_update_phase: bool = True):
-        self.env, self.dims, self.cfg = env, dims, cfg
+                 deterministic_collect: bool = False,
+                 fused_update_phase: Optional[bool] = None, mesh: Optional[Mesh] = None):
+        if fused_update_phase is None:
+            fused_update_phase = mesh is None
+        if fused_update_phase and not dims.msg_bits:
+            refuse_under_mesh(mesh, "the whole-update-phase kernel (K3)",
+                              WHOLE_PHASE_UNDER_MESH)
+        self.env, self.dims, self.cfg, self.mesh = env, dims, cfg, mesh
+        self.env_offset = 0 if mesh is None else mesh.env_offset(cfg.n_envs)
         self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect(env.config, cfg.rollout_len, (dims.h1, dims.h2),
                                            deterministic=deterministic_collect)
@@ -151,7 +172,7 @@ class FusedTrainStep:
                                  None if self._policy is None
                                  else self._policy.to(runner.params.device))
         seed = collect_seed(runner.seed, runner.update_idx)
-        return self.collect(runner.env_states, self._policy, seed)
+        return self.collect(runner.env_states, self._policy, seed, self.env_offset)
 
     def advantages(self, runner: RunnerState, env_states, traj: Dict[str, torch.Tensor]):
         """(obs after the rollout, advantages, targets)."""
@@ -166,7 +187,8 @@ class FusedTrainStep:
             return ppo_update_phase_fused(self.cfg, runner.params, runner.opt_state, dataset,
                                           runner.generator, self.update_phase, starts)
         return ppo_update_epochs_native(self.cfg, runner.params, runner.opt_state, dataset,
-                                        runner.generator, self.grads, starts)
+                                        runner.generator, data_parallel(self.grads, self.mesh),
+                                        starts)
 
     def __call__(self, runner: RunnerState, starts: Optional[torch.Tensor] = None
                  ) -> Tuple[RunnerState, dict]:
@@ -179,19 +201,23 @@ class FusedTrainStep:
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs,
                                   update_idx=runner.update_idx + 1)
-        return new, update_metrics(self.cfg, traj, ppo)
+        return new, update_metrics(self.cfg, traj, ppo, self.mesh)
 
 
 def build_fused_train_step(env: Warehouse, dims: BlockDims, cfg: IPPOConfig,
                            deterministic_collect: bool = False,
-                           fused_update_phase: bool = True) -> FusedTrainStep:
+                           fused_update_phase: Optional[bool] = None,
+                           mesh: Optional[Mesh] = None) -> FusedTrainStep:
     """The fused learner (``build_pallas_train_step`` with ``native=True``,
     ``ippo_pallas.py:488-598``): K2a collect, GAE, then the update phase.
 
-    ``fused_update_phase`` (default) runs all E x M passes in the K3 kernel;
-    otherwise, and always with message bits, each pass takes the K4
-    gradient, then the optimizer step.
+    ``fused_update_phase`` (the default without a mesh) runs all E x M
+    passes in the K3 kernel; otherwise, and always with message bits, each
+    pass takes the K4 gradient, then the optimizer step.  ``mesh`` makes the
+    step data parallel over the mesh's ranks (the module's head): the runner
+    holds this rank's envs, ``cfg.n_envs`` is the global batch, and asking
+    for K3 raises.
     ``starts`` of a call overrides the (P,) window starts drawn from the
     runner's generator.  On a CUDA runner every kernel runs on
     the card; on a CPU runner every wrapper runs its plain version."""
-    return FusedTrainStep(env, dims, cfg, deterministic_collect, fused_update_phase)
+    return FusedTrainStep(env, dims, cfg, deterministic_collect, fused_update_phase, mesh)

@@ -25,6 +25,13 @@ the carry at the rollout's start.
 Parameters are one flat float32 vector in the
 :class:`~rware_tpu_torch.models.networks.GruDims` layout, so the optimizer of
 :mod:`rware_tpu_torch.models.ppo` serves unchanged.
+
+With a :class:`~rware_tpu_torch.parallel.sharding.Mesh` the fused learner is
+data parallel (``build_rnn_pallas_train_step(mesh=...)``): K2c collects this
+rank's rows keyed by their global indices, the band plan is the shard's
+(``rb = n_local / LANE``, ``ippo_rnn.py:826``), each band normalises its
+advantages over its own envs, and each pass's gradients and metrics leave
+as their mean over the ranks.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from rware_tpu_torch.models.ippo import (
     optimizer_init,
     optimizer_step,
     policy_obs_fn,
+    reset_envs,
     update_metrics,
 )
 from rware_tpu_torch.models.networks import (
@@ -66,6 +74,7 @@ from rware_tpu_torch.ops.fused_gru import (
     build_fused_gru_seq_fwd,
 )
 from rware_tpu_torch.ops.fused_rollout import build_fused_collect_gru
+from rware_tpu_torch.parallel.sharding import Mesh, data_parallel
 
 LANE = 128  # envs per row of a band (the JAX package's tile width)
 
@@ -86,19 +95,19 @@ class RNNRunnerState:
 
 
 def init_rnn_runner(env: Warehouse, cfg: IPPOConfig, seed: int, hidden: int = 128,
-                    embed: int = 128) -> Tuple[RNNRunnerState, GruDims]:
+                    embed: int = 128, mesh: Optional[Mesh] = None
+                    ) -> Tuple[RNNRunnerState, GruDims]:
     """Parameters (flax's default init, from ``seed``), optimizer, a fresh
-    batch of ``cfg.n_envs`` env states and the zero carry on ``env.device``."""
-    from rware_tpu_torch.parallel import batched_reset
-
+    batch of ``cfg.n_envs`` env states and the zero carry on ``env.device``
+    (with a mesh this rank's rows, :func:`~rware_tpu_torch.models.ippo.reset_envs`)."""
     model = init_recurrent_actor_critic(env.config.policy_obs_length, env.n_actions, hidden,
                                         embed, seed, env.config.msg_bits)
     params = pack_arrays(gru_to_arrays(model)).detach().to(env.device)
-    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    env_states = reset_envs(env, seed, cfg.n_envs, mesh)
     obs = policy_obs_fn(env)(env_states)
     runner = RNNRunnerState(
         params=params, opt_state=optimizer_init(params), env_states=env_states, obs=obs,
-        carry=model.initialize_carry((cfg.n_envs, env.n_agents), env.device),
+        carry=model.initialize_carry((env_states.batch_size, env.n_agents), env.device),
         generator=torch.Generator().manual_seed(seed), update_idx=0, seed=seed,
     )
     return runner, GruDims.of(model)
@@ -249,11 +258,16 @@ class RnnFusedTrainStep:
     :meth:`band_grads`, :meth:`update`."""
 
     def __init__(self, env: Warehouse, dims: GruDims, cfg: IPPOConfig,
-                 deterministic_collect: bool = False, fused_loss: bool = False):
-        band_rows(cfg)
+                 deterministic_collect: bool = False, fused_loss: bool = False,
+                 mesh: Optional[Mesh] = None):
+        self.env_offset = 0 if mesh is None else mesh.env_offset(cfg.n_envs)
+        n_local = cfg.n_envs if mesh is None else mesh.n_local(cfg.n_envs)
+        # the band plan of this rank's envs (ippo_rnn.py:826, rb = n_local // LANE)
+        self.local_cfg = dataclasses.replace(cfg, n_envs=n_local)
+        band_rows(self.local_cfg)
         if fused_loss and dims.msg_bits:
             raise ValueError(FUSED_LOSS_NO_BITS)
-        self.env, self.dims, self.cfg = env, dims, cfg
+        self.env, self.dims, self.cfg, self.mesh = env, dims, cfg, mesh
         self.fused_loss = fused_loss
         self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect_gru(env.config, cfg.rollout_len,
@@ -275,7 +289,7 @@ class RnnFusedTrainStep:
                                      None if self._policy is None
                                      else self._policy.to(runner.params.device))
         seed = collect_seed(runner.seed, runner.update_idx)
-        return self.collect(runner.env_states, self._policy, seed, runner.carry)
+        return self.collect(runner.env_states, self._policy, seed, runner.carry, self.env_offset)
 
     def advantages(self, runner: RNNRunnerState, env_states, new_carry,
                    traj: Dict[str, torch.Tensor]):
@@ -297,10 +311,10 @@ class RnnFusedTrainStep:
 
     def update(self, runner: RNNRunnerState, dataset, offsets: Optional[torch.Tensor] = None):
         """((params, opt_state), metrics) of the E x M band passes
-        (:func:`band_passes`): :meth:`band_grads` and one optimizer step
-        each."""
-        return band_passes(self.cfg, runner, offsets,
-                           lambda p, band: self.band_grads(p, dataset, band), optimizer_step)
+        (:func:`band_passes`): :meth:`band_grads` (with a mesh, its mean over
+        the ranks) and one optimizer step each."""
+        grads_fn = data_parallel(lambda p, band: self.band_grads(p, dataset, band), self.mesh)
+        return band_passes(self.local_cfg, runner, offsets, grads_fn, optimizer_step)
 
     def __call__(self, runner: RNNRunnerState, offsets: Optional[torch.Tensor] = None
                  ) -> Tuple[RNNRunnerState, dict]:
@@ -314,12 +328,13 @@ class RnnFusedTrainStep:
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs, carry=new_carry,
                                   update_idx=runner.update_idx + 1)
-        return new, update_metrics(self.cfg, traj, ppo)
+        return new, update_metrics(self.cfg, traj, ppo, self.mesh)
 
 
 def build_rnn_fused_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig,
                                deterministic_collect: bool = False,
-                               fused_loss: bool = False) -> RnnFusedTrainStep:
+                               fused_loss: bool = False,
+                               mesh: Optional[Mesh] = None) -> RnnFusedTrainStep:
     """The recurrent learner on the kernels: K2c collect from the runner's
     carry, the bootstrap value by the flax-rounding forward on the new carry,
     GAE, then per epoch one row offset in ``[0, rb)`` and M env-band passes
@@ -328,10 +343,12 @@ def build_rnn_fused_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig,
     :func:`rnn_fused_grads` (K11 and K13) instead, as
     ``build_rnn_pallas_train_step(fused_loss=True)``; with message bits it
     raises, since JAX then takes the default path.  ``offsets`` of a call
-    overrides the (E,) row offsets drawn from the runner's generator.  On a
+    overrides the (E,) row offsets drawn from the runner's generator.
+    ``mesh`` makes the step data parallel (the module's head): the runner
+    holds this rank's envs and ``cfg.n_envs`` is the global batch.  On a
     CUDA runner every kernel runs on the card; on a CPU runner every wrapper
     runs its plain version."""
-    return RnnFusedTrainStep(env, dims, cfg, deterministic_collect, fused_loss)
+    return RnnFusedTrainStep(env, dims, cfg, deterministic_collect, fused_loss, mesh)
 
 
 def build_rnn_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig

@@ -36,6 +36,13 @@ band the actor's gradient of the replay loss with ``vf_coef = 0`` through K9
 and K10, and the critic's from K5 ``with_actor=False`` on a contiguous copy
 of the band's joint observations, values and targets; one split optimizer
 step per band.
+
+Both learners take a :class:`~rware_tpu_torch.parallel.sharding.Mesh`
+(``mesh=`` of ``mappo.py:205, 767``): this rank collects its own rows of the
+global batch, K6 and GAE run on them, and each pass's gradients (both parts)
+and metrics leave as their mean over the ranks.  The whole-phase kernel K7
+(``fused_critic_phase``) is refused under a mesh, as JAX refuses it
+(``mappo.py:388-392``).
 """
 from __future__ import annotations
 
@@ -55,9 +62,11 @@ from rware_tpu_torch.models.ippo import (
     optimizer_step,
     policy_obs_fn,
     policy_of,
+    reset_envs,
     update_metrics,
 )
 from rware_tpu_torch.models.ippo_fused import (
+    WHOLE_PHASE_UNDER_MESH,
     phase_advstats,
     phase_window_starts,
     ppo_update_epochs_native,
@@ -93,6 +102,7 @@ from rware_tpu_torch.ops.fused_mappo import (
 from rware_tpu_torch.ops.fused_gru import build_fused_gru_obs_bwd, build_fused_gru_obs_fwd
 from rware_tpu_torch.ops.fused_rollout import build_fused_collect, build_fused_collect_gru
 from rware_tpu_torch.ops.fused_update import build_fused_ppo_grads, metric_means, window_rows
+from rware_tpu_torch.parallel.sharding import Mesh, data_parallel, refuse_under_mesh
 
 PARTS = ("actor", "critic")
 
@@ -105,22 +115,20 @@ __all__ = [
 
 def init_mappo_runner(env: Warehouse, cfg: IPPOConfig, seed: int,
                       hidden: Tuple[int, int] = (128, 128),
-                      critic_hidden: Tuple[int, int] = (128, 128)
+                      critic_hidden: Tuple[int, int] = (128, 128), mesh: Optional[Mesh] = None
                       ) -> Tuple[RunnerState, BlockDims, CriticDims]:
     """Actor (with a message head where the config has message bits) and
     central-critic parameters (flax's default init: the actor
     from ``seed``, the critic from the stream ``(seed, 1)``), the split
     optimizer state and a fresh batch of ``cfg.n_envs`` env states on
-    ``env.device``; ``runner.params`` and ``runner.opt_state`` are
-    ``{"actor", "critic"}`` dicts."""
-    from rware_tpu_torch.parallel import batched_reset
-
+    ``env.device`` (with a mesh this rank's rows); ``runner.params`` and
+    ``runner.opt_state`` are ``{"actor", "critic"}`` dicts."""
     l_obs, n = env.config.policy_obs_length, env.n_agents
     actor = init_actor_critic(l_obs, env.n_actions, hidden, seed, env.config.msg_bits)
     critic = init_central_critic(n * l_obs, n, critic_hidden, (seed, 1))
     params = {"actor": pack_arrays(params_to_arrays(actor)).detach().to(env.device),
               "critic": pack_arrays(critic_to_arrays(critic)).detach().to(env.device)}
-    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    env_states = reset_envs(env, seed, cfg.n_envs, mesh)
     obs = policy_obs_fn(env)(env_states)
     runner = RunnerState(
         params=params, opt_state={k: optimizer_init(params[k]) for k in PARTS},
@@ -207,8 +215,13 @@ class MappoTrainStep:
     :meth:`update`."""
 
     def __init__(self, env: Warehouse, dims: BlockDims, cdims: CriticDims, cfg: IPPOConfig,
-                 deterministic_collect: bool = False, fused_critic_phase: bool = False):
-        self.env, self.dims, self.cdims, self.cfg = env, dims, cdims, cfg
+                 deterministic_collect: bool = False, fused_critic_phase: bool = False,
+                 mesh: Optional[Mesh] = None):
+        if fused_critic_phase:
+            refuse_under_mesh(mesh, "fused_critic_phase (the whole-MAPPO-phase kernel K7)",
+                              WHOLE_PHASE_UNDER_MESH)
+        self.env, self.dims, self.cdims, self.cfg, self.mesh = env, dims, cdims, cfg, mesh
+        self.env_offset = 0 if mesh is None else mesh.env_offset(cfg.n_envs)
         self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect(env.config, cfg.rollout_len, (dims.h1, dims.h2),
                                            deterministic=deterministic_collect)
@@ -235,7 +248,7 @@ class MappoTrainStep:
         self._policy = policy_of(self.dims, actor,
                                  None if self._policy is None else self._policy.to(actor.device))
         seed = collect_seed(runner.seed, runner.update_idx)
-        return self.collect(runner.env_states, self._policy, seed)
+        return self.collect(runner.env_states, self._policy, seed, self.env_offset)
 
     def values(self, runner: RunnerState, traj: Dict[str, torch.Tensor]) -> torch.Tensor:
         """(T, B, N) values of the central critic over the stored trajectory."""
@@ -254,8 +267,8 @@ class MappoTrainStep:
             return mappo_update_phase_fused(self.cfg, runner.params, runner.opt_state, dataset,
                                             runner.generator, self.update_phase, starts)
         return ppo_update_epochs_native(self.cfg, runner.params, runner.opt_state, dataset,
-                                        runner.generator, self.grads, starts,
-                                        step_fn=mappo_optimizer_step)
+                                        runner.generator, data_parallel(self.grads, self.mesh),
+                                        starts, step_fn=mappo_optimizer_step)
 
     def __call__(self, runner: RunnerState, starts: Optional[torch.Tensor] = None
                  ) -> Tuple[RunnerState, dict]:
@@ -269,12 +282,13 @@ class MappoTrainStep:
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs,
                                   update_idx=runner.update_idx + 1)
-        return new, update_metrics(self.cfg, traj, ppo)
+        return new, update_metrics(self.cfg, traj, ppo, self.mesh)
 
 
 def build_mappo_train_step(env: Warehouse, dims: BlockDims, cdims: CriticDims, cfg: IPPOConfig,
                            deterministic_collect: bool = False,
-                           fused_critic_phase: bool = False) -> MappoTrainStep:
+                           fused_critic_phase: bool = False,
+                           mesh: Optional[Mesh] = None) -> MappoTrainStep:
     """The MAPPO learner on the combined path of ``build_mappo_train_step``
     (``mappo.py:192-235``): K2a collect, K6 critic values, GAE, then the
     update phase.
@@ -284,33 +298,35 @@ def build_mappo_train_step(env: Warehouse, dims: BlockDims, cdims: CriticDims, c
     the K5 gradients, then the split optimizer step.  With message bits each
     pass takes :class:`MappoSplitGrads` (K4 and the critic's autograd)
     instead of K5, and ``fused_critic_phase`` raises.  ``starts`` of a call
-    overrides the (P,) window starts drawn from the runner's generator.  On a
-    CUDA runner every kernel runs on the card; on a CPU runner every wrapper
-    runs its plain version."""
-    return MappoTrainStep(env, dims, cdims, cfg, deterministic_collect, fused_critic_phase)
+    overrides the (P,) window starts drawn from the runner's generator.
+    ``mesh`` makes the step data parallel (the module's head; with it
+    ``fused_critic_phase`` raises).  On a CUDA runner every kernel runs on
+    the card; on a CPU runner every wrapper runs its plain version."""
+    return MappoTrainStep(env, dims, cdims, cfg, deterministic_collect, fused_critic_phase,
+                          mesh)
 
 
 def init_rnn_mappo_runner(env: Warehouse, cfg: IPPOConfig, seed: int, hidden: int = 128,
-                          embed: int = 128, critic_hidden: Tuple[int, int] = (128, 128)
+                          embed: int = 128, critic_hidden: Tuple[int, int] = (128, 128),
+                          mesh: Optional[Mesh] = None
                           ) -> Tuple[RNNRunnerState, GruDims, CriticDims]:
     """Recurrent MAPPO's runner (``init_rnn_mappo_runner``, ``mappo.py:706-755``):
     the GRU actor (with a message head where the config has message bits)
     from ``seed`` and the central critic from the stream ``(seed, 1)``,
     flax's default init; the split optimizer state, a fresh batch of
-    ``cfg.n_envs`` env states and the zero carry on ``env.device``."""
-    from rware_tpu_torch.parallel import batched_reset
-
+    ``cfg.n_envs`` env states and the zero carry on ``env.device`` (with a
+    mesh this rank's rows)."""
     l_obs, n = env.config.policy_obs_length, env.n_agents
     actor = init_recurrent_actor_critic(l_obs, env.n_actions, hidden, embed, seed,
                                         env.config.msg_bits)
     critic = init_central_critic(n * l_obs, n, critic_hidden, (seed, 1))
     params = {"actor": pack_arrays(gru_to_arrays(actor)).detach().to(env.device),
               "critic": pack_arrays(critic_to_arrays(critic)).detach().to(env.device)}
-    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    env_states = reset_envs(env, seed, cfg.n_envs, mesh)
     runner = RNNRunnerState(
         params=params, opt_state={k: optimizer_init(params[k]) for k in PARTS},
         env_states=env_states, obs=policy_obs_fn(env)(env_states),
-        carry=actor.initialize_carry((cfg.n_envs, n), env.device),
+        carry=actor.initialize_carry((env_states.batch_size, n), env.device),
         generator=torch.Generator().manual_seed(seed), update_idx=0, seed=seed,
     )
     return runner, GruDims.of(actor), CriticDims.of(critic)
@@ -323,9 +339,12 @@ class RnnMappoTrainStep:
     :meth:`advantages`, :meth:`update`."""
 
     def __init__(self, env: Warehouse, dims: GruDims, cdims: CriticDims, cfg: IPPOConfig,
-                 deterministic_collect: bool = False):
-        band_rows(cfg)
-        self.env, self.dims, self.cdims, self.cfg = env, dims, cdims, cfg
+                 deterministic_collect: bool = False, mesh: Optional[Mesh] = None):
+        self.env_offset = 0 if mesh is None else mesh.env_offset(cfg.n_envs)
+        n_local = cfg.n_envs if mesh is None else mesh.n_local(cfg.n_envs)
+        self.local_cfg = dataclasses.replace(cfg, n_envs=n_local)  # the shard's band plan
+        band_rows(self.local_cfg)
+        self.env, self.dims, self.cdims, self.cfg, self.mesh = env, dims, cdims, cfg, mesh
         # the actor trains on the clipped surrogate and the entropy only
         self.actor_cfg = dataclasses.replace(cfg, vf_coef=0.0)
         self.policy_obs = policy_obs_fn(env)
@@ -346,7 +365,7 @@ class RnnMappoTrainStep:
         self._policy = rnn_policy_of(self.dims, actor, None if self._policy is None
                                      else self._policy.to(actor.device))
         seed = collect_seed(runner.seed, runner.update_idx)
-        return self.collect(runner.env_states, self._policy, seed, runner.carry)
+        return self.collect(runner.env_states, self._policy, seed, runner.carry, self.env_offset)
 
     def values(self, runner: RNNRunnerState, traj: Dict[str, torch.Tensor]) -> torch.Tensor:
         """(T, B, N) values of the central critic over the stored trajectory."""
@@ -378,9 +397,8 @@ class RnnMappoTrainStep:
         """((params, opt_state), metrics) of the E x M band passes, each
         :meth:`band_grads` and one split optimizer step
         (:func:`~rware_tpu_torch.models.ippo_rnn.band_passes`)."""
-        return band_passes(self.cfg, runner, offsets,
-                           lambda p, band: self.band_grads(p, dataset, band),
-                           mappo_optimizer_step)
+        grads_fn = data_parallel(lambda p, band: self.band_grads(p, dataset, band), self.mesh)
+        return band_passes(self.local_cfg, runner, offsets, grads_fn, mappo_optimizer_step)
 
     def __call__(self, runner: RNNRunnerState, offsets: Optional[torch.Tensor] = None
                  ) -> Tuple[RNNRunnerState, dict]:
@@ -395,12 +413,12 @@ class RnnMappoTrainStep:
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs, carry=new_carry,
                                   update_idx=runner.update_idx + 1)
-        return new, update_metrics(self.cfg, traj, ppo)
+        return new, update_metrics(self.cfg, traj, ppo, self.mesh)
 
 
 def build_rnn_mappo_train_step(env: Warehouse, dims: GruDims, cdims: CriticDims,
-                               cfg: IPPOConfig,
-                               deterministic_collect: bool = False) -> RnnMappoTrainStep:
+                               cfg: IPPOConfig, deterministic_collect: bool = False,
+                               mesh: Optional[Mesh] = None) -> RnnMappoTrainStep:
     """Recurrent MAPPO on the kernels (``build_rnn_mappo_train_step``,
     ``mappo.py:758-1012``, with its default ``fused_critic_update``): K2c
     collect from the runner's carry (its message mode K2b with message
@@ -410,7 +428,8 @@ def build_rnn_mappo_train_step(env: Warehouse, dims: GruDims, cdims: CriticDims,
     :meth:`RnnMappoTrainStep.band_grads` and the split optimizer step.  With
     message bits the dataset's 9th entry switches the actor to the joint move
     + Bernoulli loss; the critic does not see the bits.  ``offsets`` of a call
-    overrides the (E,) row offsets drawn from the runner's generator.  On a
-    CUDA runner every kernel runs on the card; on a CPU runner every wrapper
-    runs its plain version."""
-    return RnnMappoTrainStep(env, dims, cdims, cfg, deterministic_collect)
+    overrides the (E,) row offsets drawn from the runner's generator.
+    ``mesh`` makes the step data parallel (the module's head).  On a CUDA
+    runner every kernel runs on the card; on a CPU runner every wrapper runs
+    its plain version."""
+    return RnnMappoTrainStep(env, dims, cdims, cfg, deterministic_collect, mesh)

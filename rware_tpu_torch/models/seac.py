@@ -42,6 +42,12 @@ constant lr, so :class:`~rware_tpu_torch.models.ppo.AdamState` and
   replay of every agent's GRU over every agent's observation stream
   (:func:`gru_cross_replay`) for the old values and the bootstrap, cross GAE,
   then E x M env-band minibatches, each autograd of :func:`seac_gru_loss`.
+  With a :class:`~rware_tpu_torch.parallel.sharding.Mesh` it is data parallel
+  (``seac.py:855``): K2d′ collects this rank's rows keyed by their global
+  indices, the cross replay and GAE run on them, the env bands are the
+  shard's, and each band's gradients and metrics leave as their mean over the
+  ranks before the one clip + Adam step over the stack.  The other SEAC
+  learners have no mesh, as JAX's (``seac.py:310``).
 
 The cross arrays (old values, advantages, targets) of the A2C and
 time-window learners are ``(N_i, T, B, N_j)``: agent i's critic on agent j's
@@ -67,6 +73,7 @@ from rware_tpu_torch.models.ippo import (
     optimizer_init,
     policy_obs_fn,
     policy_of,
+    reset_envs,
     update_metrics,
 )
 from rware_tpu_torch.models.ippo_rnn import RNNRunnerState, band_slice, rnn_policy_of
@@ -96,6 +103,7 @@ from rware_tpu_torch.ops.fused_rollout import (
 )
 from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
 from rware_tpu_torch.ops.fused_update import metric_means
+from rware_tpu_torch.parallel.sharding import Mesh, data_parallel
 
 CROSS_CHUNK = 1 << 20  # samples per chunk of the cross-value forward
 
@@ -563,24 +571,23 @@ def build_seac_train_step(env: Warehouse, dims: BlockDims, cfg: SEACConfig,
 
 
 def init_seac_gru(env: Warehouse, cfg: SEACPPOConfig, seed: int, hidden: int = 128,
-                  embed: int = 128) -> Tuple[RNNRunnerState, GruDims]:
+                  embed: int = 128, mesh: Optional[Mesh] = None
+                  ) -> Tuple[RNNRunnerState, GruDims]:
     """N independent flax-default inits of the recurrent actor-critic
     (``init_seac_gru``, ``seac.py:763-803``), agent i's drawn from
     ``numpy.random.default_rng((seed, 2, i))`` (with a message head where the
     config has message bits), stacked into ``(N, P)``; the optimizer state
     over the stack, a fresh batch of ``cfg.n_envs`` env states and the zero
-    carry (B, N, Hg) bf16 on ``env.device``."""
-    from rware_tpu_torch.parallel import batched_reset
-
+    carry (B, N, Hg) bf16 on ``env.device`` (with a mesh this rank's rows)."""
     l_obs = env.config.policy_obs_length
     models = [init_recurrent_actor_critic(l_obs, env.n_actions, hidden, embed, (seed, 2, i),
                                           env.config.msg_bits) for i in range(env.n_agents)]
     params = torch.stack([pack_arrays(gru_to_arrays(m)) for m in models]).detach().to(env.device)
-    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    env_states = reset_envs(env, seed, cfg.n_envs, mesh)
     obs = policy_obs_fn(env)(env_states)
     runner = RNNRunnerState(
         params=params, opt_state=optimizer_init(params), env_states=env_states, obs=obs,
-        carry=models[0].initialize_carry((cfg.n_envs, env.n_agents), env.device),
+        carry=models[0].initialize_carry((env_states.batch_size, env.n_agents), env.device),
         generator=torch.Generator().manual_seed(seed), update_idx=0, seed=seed,
     )
     return runner, GruDims.of(models[0])
@@ -739,16 +746,20 @@ class SeacGruTrainStep:
     :meth:`update`."""
 
     def __init__(self, env: Warehouse, dims: GruDims, cfg: SEACPPOConfig,
-                 deterministic_collect: bool):
-        if cfg.n_envs % cfg.minibatches:
-            raise ValueError(f"minibatches={cfg.minibatches} must divide n_envs={cfg.n_envs} "
-                             "(env-band minibatches)")
-        self.env, self.dims, self.cfg = env, dims, cfg
+                 deterministic_collect: bool, mesh: Optional[Mesh] = None):
+        self.env_offset = 0 if mesh is None else mesh.env_offset(cfg.n_envs)
+        self.n_local = cfg.n_envs if mesh is None else mesh.n_local(cfg.n_envs)
+        if self.n_local % cfg.minibatches:
+            raise ValueError(f"minibatches={cfg.minibatches} must divide the {self.n_local} "
+                             "envs of a shard (env-band minibatches)")
+        self.env, self.dims, self.cfg, self.mesh = env, dims, cfg, mesh
         self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect_gru_per_agent(env.config, cfg.rollout_len,
                                                          (dims.embed, dims.hidden),
                                                          deterministic=deterministic_collect)
-        self.remat = seac_gru_remat(cfg, dims, env.n_agents)
+        # the shard's band (seac.py:901-909 read n_local)
+        self.remat = seac_gru_remat(dataclasses.replace(cfg, n_envs=self.n_local), dims,
+                                    env.n_agents)
         self._policies = None
 
     def rollout(self, runner: RNNRunnerState):
@@ -756,7 +767,8 @@ class SeacGruTrainStep:
         launch from the runner's carry with this update's key."""
         self._policies = seac_gru_policies_of(self.dims, runner.params, self._policies)
         seed = collect_seed(runner.seed, runner.update_idx)
-        return self.collect(runner.env_states, self._policies, seed, runner.carry)
+        return self.collect(runner.env_states, self._policies, seed, runner.carry,
+                            self.env_offset)
 
     def advantages(self, runner: RNNRunnerState, env_states, traj):
         """(obs after the rollout, cross values, advantages, targets), the
@@ -781,10 +793,14 @@ class SeacGruTrainStep:
         ``offsets[e]`` in [0, B) (drawn from the runner's generator if None)
         and band m takes envs ``(m * B / M - offsets[e]) % B`` onwards
         (``seac.py:1108-1128``); each band is one autograd of
-        :func:`seac_gru_loss` and one optimizer step over the stack."""
+        :func:`seac_gru_loss` (with a mesh, its mean over the ranks) and one
+        optimizer step over the stack.  B is this rank's envs."""
         cfg, dims = self.cfg, self.dims
-        b = cfg.n_envs
+        b = self.n_local
         mb = b // cfg.minibatches
+        grads_fn = data_parallel(
+            lambda p, band: loss_grads(lambda q: seac_gru_loss(cfg, dims, q, band, self.remat),
+                                       p), self.mesh)
         if offsets is None:
             offsets = torch.randint(0, b, (cfg.epochs,), generator=runner.generator)
         params, opt_state = runner.params, runner.opt_state
@@ -794,8 +810,7 @@ class SeacGruTrainStep:
                 start = (m * mb - int(off)) % b
                 band = [band_slice(x, start, mb) for x in dataset]
                 band[7] = band_slice(dataset[7][None], start, mb)[0]  # the carry: (B, N, Hg)
-                grads, metrics = loss_grads(
-                    lambda p: seac_gru_loss(cfg, dims, p, band, self.remat), params)
+                grads, metrics = grads_fn(params, band)
                 params, opt_state = seac_optimizer_step(cfg, params, grads, opt_state)
                 per_pass.append(metrics)
         return (params, opt_state), mean_metrics(per_pass)
@@ -812,11 +827,12 @@ class SeacGruTrainStep:
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs, carry=new_carry,
                                   update_idx=runner.update_idx + 1)
-        return new, update_metrics(self.cfg, traj, ppo)
+        return new, update_metrics(self.cfg, traj, ppo, self.mesh)
 
 
 def build_seac_gru_train_step(env: Warehouse, dims: GruDims, cfg: SEACPPOConfig,
-                              deterministic_collect: bool = False) -> SeacGruTrainStep:
+                              deterministic_collect: bool = False,
+                              mesh: Optional[Mesh] = None) -> SeacGruTrainStep:
     """The recurrent SEAC-PPO learner (``build_seac_gru_train_step``,
     ``seac.py:846-1173``, ``collect_mode="pallas"``): K2d′ collect from the
     runner's carry (its plain version on a CPU runner), the old policies'
@@ -826,5 +842,7 @@ def build_seac_gru_train_step(env: Warehouse, dims: GruDims, cfg: SEACPPOConfig,
     and one clip + Adam step over the stack.  ``offsets`` of a call
     overrides the (E,) offsets drawn from the runner's generator.  With
     message bits the collector runs its message mode (K2b) and the loss is
-    the joint one."""
-    return SeacGruTrainStep(env, dims, cfg, deterministic_collect)
+    the joint one.  ``mesh`` makes the step data parallel (the module's
+    head): the runner holds this rank's envs and ``cfg.n_envs`` is the global
+    batch."""
+    return SeacGruTrainStep(env, dims, cfg, deterministic_collect, mesh)

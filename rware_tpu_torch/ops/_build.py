@@ -29,8 +29,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# n s r g h w reward max_steps max_inactive msg_bits, seed
-_DIMS = [_I] * 10 + [ctypes.c_ulonglong]
+# n s r g h w reward max_steps max_inactive msg_bits, seed, env_offset
+_DIMS = [_I] * 10 + [ctypes.c_ulonglong, ctypes.c_uint]
 # L H1 H2 A T_full T_mb B N | clip_eps vf_coef ent_coef inv_n |
 # tile grid smem w0_smem chunk n_chunks wgrad_smem (fused_update.PpoPlan.args)
 _PPO_DIMS = [_I] * 8 + [_F] * 4 + [_I] * 7

@@ -54,7 +54,11 @@ instantiations built in ``csrc/fused_collect_gru_image.cu``) for tensors on
 a CUDA device, and runs its plain PyTorch version (``.plain``)
 only for tensors on the CPU; it counts its kernel launches in ``.launches``.  Both draw from the same Philox stream
 (:mod:`rware_tpu_torch.ops.philox`), so kernel and plain version agree bit
-for bit in every mode.  Scripted (K1) and deterministic (K2a) modes draw
+for bit in every mode.  Every launch takes ``env_offset``, the global index of
+its first env: env i draws from the counter of env ``env_offset + i``, so a
+launch on rows ``[o, o + b)`` of a batch with ``env_offset = o`` equals those
+rows of the launch on the whole batch, bit for bit (data-parallel training
+runs each rank's shard so).  Scripted (K1) and deterministic (K2a) modes draw
 zeros: lowest-index queue replacement, agent i respawning at cell i facing
 UP, the queue restarting as 0..R-1 — the TPU kernels' scripted rules.
 
@@ -128,6 +132,15 @@ def _check_seed(seed) -> int:
     return seed
 
 
+def _check_env_offset(env_offset, b: int) -> int:
+    """The launch's first global env index (the counter's env word is
+    ``env_offset + i``, 32 bits)."""
+    env_offset = int(env_offset)
+    if not (0 <= env_offset and env_offset + b <= 2**32):
+        raise ValueError(f"env_offset={env_offset} with {b} envs leaves the 32-bit env word")
+    return env_offset
+
+
 def pack_state(state: WarehouseState) -> torch.Tensor:
     """(ROWS, B) int32, env index minor; the N * M message rows last,
     agent-major."""
@@ -188,12 +201,14 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 class _Draws:
-    """Per-step draws of the plain versions: Philox, or zeros when the mode
-    is scripted / deterministic."""
+    """Per-step draws of the plain versions: Philox keyed by the envs' global
+    indices ``env_offset + i``, or zeros when the mode is scripted /
+    deterministic."""
 
-    def __init__(self, config: WarehouseConfig, seed: int, zero: bool, b: int, device):
+    def __init__(self, config: WarehouseConfig, seed: int, zero: bool, b: int, device,
+                 env_offset: int = 0):
         self.seed, self.zero, self.b = seed, zero, b
-        self.envs = torch.arange(b, device=device)
+        self.envs = philox.env_ids(b, env_offset, device)
         self.n_goals = config.compile_layout().n_goals
         self.n_reset = n_reset_draws(config)
         self.n_msg = config.n_agents * config.msg_bits
@@ -366,23 +381,26 @@ class FusedRollout:
             if tuple(actions.shape) != want or actions.device != state.device:
                 raise ValueError(f"actions must be {want} on {state.device}")
 
-    def __call__(self, state: WarehouseState, seed, actions: Optional[torch.Tensor] = None):
+    def __call__(self, state: WarehouseState, seed, actions: Optional[torch.Tensor] = None,
+                 env_offset: int = 0):
         _check_state(self.config, state)
         self._check_actions(state, actions)
         seed = _check_seed(seed)
+        env_offset = _check_env_offset(env_offset, state.batch_size)
         if state.device.type == "cuda":
-            return self._launch(state, seed, actions)
+            return self._launch(state, seed, actions, env_offset)
         if state.device.type == "cpu":
-            return self.plain(state, seed, actions)
+            return self.plain(state, seed, actions, env_offset)
         raise ValueError(f"no fused rollout for device {state.device}")
 
-    def plain(self, state: WarehouseState, seed, actions: Optional[torch.Tensor] = None):
+    def plain(self, state: WarehouseState, seed, actions: Optional[torch.Tensor] = None,
+              env_offset: int = 0):
         """The plain PyTorch version: T steps of the batched engine with the
         kernel's draws."""
         self._check_actions(state, actions)
         seed = _check_seed(seed)
         b, n = state.batch_size, self.config.n_agents
-        draws = _Draws(self.config, seed, self.scripted, b, state.device)
+        draws = _Draws(self.config, seed, self.scripted, b, state.device, env_offset)
         rew = torch.zeros((b, n), dtype=torch.float32, device=state.device)
         epis = torch.zeros(b, dtype=torch.int32, device=state.device)
         for t in range(self.n_steps):
@@ -403,7 +421,7 @@ class FusedRollout:
         """The launch plan for ``batch`` envs (:func:`rollout_plan`)."""
         return rollout_plan(self.config, batch, self.route)
 
-    def _launch(self, state, seed, actions):
+    def _launch(self, state, seed, actions, env_offset):
         from rware_tpu_torch.ops._build import check, load_library
 
         lib = load_library()
@@ -427,7 +445,7 @@ class FusedRollout:
             args = plan.args()
             plan_buf = (ctypes.c_int * len(args))(*args)
             code = lib.rw_fused_rollout(
-                *_dims(self.config), seed, int(self.scripted), self.n_steps, b,
+                *_dims(self.config), seed, env_offset, int(self.scripted), self.n_steps, b,
                 ctypes.addressof(plan_buf), len(args), _ptr(self._layouts[dev]), _ptr(packed),
                 _ptr(out), _ptr(acts), _ptr(rewards), _ptr(episodes), _ptr(scratch),
                 torch.cuda.current_stream(dev).cuda_stream,
@@ -438,11 +456,13 @@ class FusedRollout:
 
 
 def build_fused_rollout(config: WarehouseConfig, n_steps: int, scripted: bool = False) -> FusedRollout:
-    """Returns ``rollout(state, seed, actions=None) -> (state, rewards_sum
-    (B, N) f32, episodes (B,) int32)`` (the contract of
+    """Returns ``rollout(state, seed, actions=None, env_offset=0) -> (state,
+    rewards_sum (B, N) f32, episodes (B,) int32)`` (the contract of
     ``pallas_rollout.py:666-677``).  Random mode takes no actions; scripted
     mode takes (T, B, N) int actions, or (T, B, N, 1 + M) with message bits
-    (move in column 0).  ``seed`` keys the Philox stream."""
+    (move in column 0).  ``seed`` keys the Philox stream; env i draws as env
+    ``env_offset + i`` of a global batch, so a shard's launch equals those
+    rows of the global launch."""
     return FusedRollout(config, n_steps, scripted)
 
 
@@ -679,7 +699,7 @@ class _Collector:
 
 
 class FusedCollect(_Collector):
-    """``collect(state, policy, seed) -> (state, traj)``; see
+    """``collect(state, policy, seed, env_offset=0) -> (state, traj)``; see
     :func:`build_fused_collect`."""
 
     n_stacks = 1  # weight stacks the kernel takes: one network for all agents
@@ -734,24 +754,25 @@ class FusedCollect(_Collector):
             out += [torch.empty(0, device=dev), torch.empty(0, device=dev)]
         return out
 
-    def __call__(self, state: WarehouseState, policy, seed):
+    def __call__(self, state: WarehouseState, policy, seed, env_offset: int = 0):
         _check_state(self.config, state)
         self._check_policy(policy)
         seed = _check_seed(seed)
+        env_offset = _check_env_offset(env_offset, state.batch_size)
         if state.device.type == "cuda":
-            return self._launch(state, policy, seed)
+            return self._launch(state, policy, seed, env_offset)
         if state.device.type == "cpu":
-            return self.plain(state, policy, seed)
+            return self.plain(state, policy, seed, env_offset)
         raise ValueError(f"no fused collector for device {state.device}")
 
     @torch.no_grad()
-    def plain(self, state: WarehouseState, policy, seed):
+    def plain(self, state: WarehouseState, policy, seed, env_offset: int = 0):
         """The plain PyTorch version: observe -> ActorCritic -> sample ->
         step, with the kernel's draws."""
         self._check_policy(policy)
         seed = _check_seed(seed)
         b = state.batch_size
-        draws = _Draws(self.config, seed, self.deterministic, b, state.device)
+        draws = _Draws(self.config, seed, self.deterministic, b, state.device, env_offset)
         out = {k: [] for k in self.traj_keys}
         for t in range(self.n_steps):
             obs = self._obs(state).to(torch.bfloat16)
@@ -764,7 +785,7 @@ class FusedCollect(_Collector):
         return state, {k: torch.stack(v) for k, v in out.items()}
 
     @torch.no_grad()
-    def _launch(self, state, policy, seed):
+    def _launch(self, state, policy, seed, env_offset):
         from rware_tpu_torch.ops._build import check, load_library
 
         lib = load_library()
@@ -779,7 +800,7 @@ class FusedCollect(_Collector):
             plan = self.plan.args()
             plan_buf = (ctypes.c_int * len(plan))(*plan)
             code = lib.rw_fused_collect(
-                *_dims(self.config), seed, int(self.deterministic), t_len, b,
+                *_dims(self.config), seed, env_offset, int(self.deterministic), t_len, b,
                 *_obs_args(self.config), l_obs, h1, h2, 5, self.n_stacks,
                 ctypes.addressof(plan_buf), len(plan),
                 _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
@@ -794,7 +815,7 @@ class FusedCollect(_Collector):
 def build_fused_collect(config: WarehouseConfig, n_steps: int,
                         hidden: Tuple[int, int] = (128, 128),
                         deterministic: bool = False) -> FusedCollect:
-    """Returns ``collect(state, policy, seed) -> (state, traj)`` with ``traj``
+    """Returns ``collect(state, policy, seed, env_offset=0) -> (state, traj)`` with ``traj``
     = obs (T, B, N, L) bf16; action (T, B, N) int32; logp, value, reward
     (T, B, N) f32; done (T, B) bool — the ``native_traj=False`` layout of
     ``pallas_rollout.py:1812-1815`` — and with message bits (``config.msg_bits``
@@ -806,7 +827,7 @@ def build_fused_collect(config: WarehouseConfig, n_steps: int,
 
 
 class FusedCollectPerAgent(FusedCollect):
-    """``collect(state, policies, seed) -> (state, traj)``; see
+    """``collect(state, policies, seed, env_offset=0) -> (state, traj)``; see
     :func:`build_fused_collect_per_agent`.  K2a's wrapper with one weight
     stack per agent."""
 
@@ -845,7 +866,7 @@ class FusedCollectPerAgent(FusedCollect):
 def build_fused_collect_per_agent(config: WarehouseConfig, n_steps: int,
                                   hidden: Tuple[int, int] = (128, 128),
                                   deterministic: bool = False) -> FusedCollectPerAgent:
-    """Returns ``collect(state, policies, seed) -> (state, traj)`` with
+    """Returns ``collect(state, policies, seed, env_offset=0) -> (state, traj)`` with
     ``policies`` a sequence of N :class:`ActorCritic` with ``hidden`` and the
     config's ``msg_bits``, agent i running ``policies[i]``
     (``pallas_rollout.py:1316-1373``), and ``traj`` as
@@ -991,7 +1012,7 @@ def collect_gru_plan(config: WarehouseConfig, hidden: Sequence[int], n_stacks: i
 
 
 class FusedCollectGru(_Collector):
-    """``collect(state, policy, seed, h0) -> (state, new_h, traj)``; see
+    """``collect(state, policy, seed, h0, env_offset=0) -> (state, new_h, traj)``; see
     :func:`build_fused_collect_gru`.  ``heads_global`` (None: the plan's
     choice) forces the f32 bias and head blocks into device memory (True) or
     shared memory (False); :meth:`plan` gives a batch's launch plan."""
@@ -1046,23 +1067,26 @@ class FusedCollectGru(_Collector):
                 None if msg_logits is None else msg_logits.reshape(b, n, m),
                 new_h.reshape(b, n, hg))
 
-    def __call__(self, state: WarehouseState, policy, seed, h0: torch.Tensor):
+    def __call__(self, state: WarehouseState, policy, seed, h0: torch.Tensor,
+                 env_offset: int = 0):
         self._check(state, policy, h0)
         seed = _check_seed(seed)
+        env_offset = _check_env_offset(env_offset, state.batch_size)
         if state.device.type == "cuda":
-            return self._launch(state, policy, seed, h0)
+            return self._launch(state, policy, seed, h0, env_offset)
         if state.device.type == "cpu":
-            return self.plain(state, policy, seed, h0)
+            return self.plain(state, policy, seed, h0, env_offset)
         raise ValueError(f"no fused collector for device {state.device}")
 
     @torch.no_grad()
-    def plain(self, state: WarehouseState, policy, seed, h0: torch.Tensor):
+    def plain(self, state: WarehouseState, policy, seed, h0: torch.Tensor, env_offset: int = 0):
         """The plain PyTorch version: observe -> the collector-rounding cell
         (:func:`gru_collect_step`) -> sample -> step, with the kernel's
         draws; the carry is zeroed where an episode ends."""
         self._check(state, policy, h0)
         seed = _check_seed(seed)
-        draws = _Draws(self.config, seed, self.deterministic, state.batch_size, state.device)
+        draws = _Draws(self.config, seed, self.deterministic, state.batch_size, state.device,
+                       env_offset)
         arrays = self._arrays(policy, state.device)
         h = h0.to(torch.float32)
         out = {k: [] for k in self.traj_keys}
@@ -1089,7 +1113,7 @@ class FusedCollectGru(_Collector):
         ]
 
     @torch.no_grad()
-    def _launch(self, state, policy, seed, h0):
+    def _launch(self, state, policy, seed, h0, env_offset):
         from rware_tpu_torch.ops._build import check, load_library
 
         lib = load_library()
@@ -1106,7 +1130,7 @@ class FusedCollectGru(_Collector):
             plan = self.plan(b).args()
             plan_buf = (ctypes.c_int * len(plan))(*plan)
             code = lib.rw_fused_collect_gru(
-                *_dims(self.config), seed, int(self.deterministic), t_len, b,
+                *_dims(self.config), seed, env_offset, int(self.deterministic), t_len, b,
                 *_obs_args(self.config), l_obs, embed, hg, 5, self.n_stacks,
                 ctypes.addressof(plan_buf), len(plan),
                 _ptr(self._layout(dev)), _ptr(packed), _ptr(out),
@@ -1121,7 +1145,7 @@ class FusedCollectGru(_Collector):
 def build_fused_collect_gru(config: WarehouseConfig, n_steps: int,
                             hidden: Tuple[int, int] = (128, 128),
                             deterministic: bool = False) -> FusedCollectGru:
-    """Returns ``collect(state, policy, seed, h0) -> (state, new_h, traj)``:
+    """Returns ``collect(state, policy, seed, h0, env_offset=0) -> (state, new_h, traj)``:
     ``policy`` is a :class:`RecurrentActorCritic` with ``hidden`` = (embed,
     gru_hidden), ``h0`` and ``new_h`` the (B, N, Hg) bf16 carry before and
     after the rollout (zero after an episode's last step), ``traj`` as
@@ -1131,7 +1155,7 @@ def build_fused_collect_gru(config: WarehouseConfig, n_steps: int,
 
 
 class FusedCollectGruPerAgent(FusedCollectGru):
-    """``collect(state, policies, seed, h0) -> (state, new_h, traj)``; see
+    """``collect(state, policies, seed, h0, env_offset=0) -> (state, new_h, traj)``; see
     :func:`build_fused_collect_gru_per_agent`.  K2c's wrapper with one weight
     stack per agent (K2d′)."""
 
@@ -1172,7 +1196,7 @@ class FusedCollectGruPerAgent(FusedCollectGru):
 def build_fused_collect_gru_per_agent(config: WarehouseConfig, n_steps: int,
                                       hidden: Tuple[int, int] = (128, 128),
                                       deterministic: bool = False) -> FusedCollectGruPerAgent:
-    """Returns ``collect(state, policies, seed, h0) -> (state, new_h, traj)``
+    """Returns ``collect(state, policies, seed, h0, env_offset=0) -> (state, new_h, traj)``
     with ``policies`` a sequence of N :class:`RecurrentActorCritic` with
     ``hidden`` = (embed, gru_hidden) and the config's ``msg_bits``, agent i
     running ``policies[i]`` on its own slice ``h0[:, i]`` of the carry

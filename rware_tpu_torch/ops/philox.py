@@ -12,7 +12,10 @@ Counter layout, one 128-bit counter per group of four draws::
 
     (env, step, purpose, slot // 4) -> word slot % 4
 
-``env`` is the env's index in the batch, ``step`` the step within one call,
+``env`` is the env's global index: its index in the launch's batch plus the
+launch's ``env_offset`` (a shard of rows ``[o, o + b)`` of a global batch,
+launched with ``env_offset = o``, draws what those rows of the global launch
+draw); ``step`` the step within one call,
 ``purpose`` one of the constants below and ``slot`` the draw's index within
 that purpose.  The key is the 64-bit ``seed``.
 
@@ -57,6 +60,14 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int, rounds: int = 10):
         hi1, lo1 = _mulhilo(c2, M1)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
     return c0, c1, c2, c3
+
+
+def env_ids(n: int, env_offset: int = 0, device=None) -> torch.Tensor:
+    """(n,) int64 global env indices ``env_offset .. env_offset + n - 1``: the
+    counter's env word of a launch over ``n`` envs at ``env_offset``."""
+    if not (0 <= env_offset and env_offset + n <= 2**32):
+        raise ValueError(f"env_offset={env_offset} with {n} envs leaves the 32-bit env word")
+    return torch.arange(env_offset, env_offset + n, dtype=torch.int64, device=device)
 
 
 def uniform_bits(seed: int, env: torch.Tensor, step: int, purpose: int,

@@ -96,10 +96,12 @@ def build_batched_rollout_fn(
     return rollout
 
 
-def batched_reset(env: Warehouse, seed: int, n_envs: int):
+def batched_reset(env: Warehouse, seed: int, n_envs: int, env_offset: int = 0):
     """(states, obs) for ``n_envs`` parallel envs on ``env.device`` from one
-    seed (Philox purpose RESET)."""
-    envs = torch.arange(n_envs, device=env.device)
+    seed (Philox purpose RESET), env i keyed by its global index ``env_offset
+    + i``: a shard's reset equals those rows of the global reset bit for
+    bit."""
+    envs = philox.env_ids(n_envs, env_offset, env.device)
     bits = philox.uniform_bits(seed, envs, 0, philox.RESET, n_reset_draws(env.config))
     states = env._reset_fn(bits)
     return states, env._obs_fn(states)

@@ -4,15 +4,28 @@
 with shelves at their home slots unless overridden — the functional form of
 the reference's "mutate agents and shelves, then ``_recalc_grid()``" test
 pattern (reference tests/test_movement.py:14-61).
+
+For data parallelism: :func:`emulate_mesh` runs the ranks of a mesh as
+threads of one process (the in-process emulation the tests and
+``chip_smoke.py`` hold a process group's run to), :func:`dp_learner` builds
+each of the five mesh learners, :func:`dp_run` runs one and returns what
+the checks compare, and :func:`dp_task` runs one task of a data-parallel
+check on a rank.  :func:`dp_spawn` starts the rank processes of a process
+group on a list of tasks (each runs :func:`dp_rank_main`) and
+:func:`dp_results` collects what they wrote.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
+import subprocess
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from rware_tpu_torch.config import WarehouseConfig
 from rware_tpu_torch.core.state import WarehouseState
+from rware_tpu_torch.parallel.sharding import Mesh
 from rware_tpu_torch.types import Direction
 
 
@@ -238,3 +251,322 @@ def random_gru_seq_case(env_id: str, n_envs: int, t_len: int, band: Tuple[int, i
 def positions(state: WarehouseState, env: int = 0) -> list:
     """[(x, y), ...] per agent of one env — concise assertion helper."""
     return list(zip(state.agent_x[env].tolist(), state.agent_y[env].tolist()))
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism in one process: the learners of a mesh, rank by rank
+# ---------------------------------------------------------------------------
+
+DP_LEARNERS = ("ippo", "rnn_ippo", "rnn_ippo_fused_loss", "mappo", "rnn_mappo", "seac_gru")
+
+
+class _ThreadGroup:
+    """The collectives of ``world`` threads of one process: each deposits its
+    tensor, and every one combines the deposits (a sum in rank order: two
+    ranks' sum is the same in either order, as gloo's and NCCL's)."""
+
+    def __init__(self, world: int, timeout: float):
+        import threading
+
+        self.barrier = threading.Barrier(world, timeout=timeout)
+        self.slots = [None] * world
+
+    def exchange(self, rank: int, buf: torch.Tensor, combine) -> None:
+        self.slots[rank] = buf.clone()
+        self.barrier.wait()
+        out = combine(self.slots)
+        self.barrier.wait()  # every rank has read the deposits before the next exchange
+        buf.copy_(out)
+
+
+class ThreadMesh(Mesh):
+    """A :class:`~rware_tpu_torch.parallel.sharding.Mesh` whose collectives
+    run between the threads of :func:`emulate_mesh` (``group`` a
+    ``_ThreadGroup``)."""
+
+    def _run(self, kind, buf, **kw):
+        self.counts[kind] += 1
+        if kind == "all_reduce":
+            def combine(slots):
+                out = slots[0].clone()
+                for other in slots[1:]:
+                    out += other
+                return out
+        else:
+            def combine(slots):
+                return slots[kw.get("src", 0)]
+        self.group.exchange(self.rank, buf, combine)
+
+
+def emulate_mesh(fn, world: int, device="cpu", timeout: float = 600.0) -> list:
+    """``[fn(mesh_r) for r in range(world)]``, the ranks run as threads of
+    this process whose collectives (the same packing, a sum in rank order)
+    stand in for a process group's: the in-process emulation of a
+    data-parallel run.  A rank that waits ``timeout`` seconds for the others
+    raises ``threading.BrokenBarrierError``."""
+    import threading
+
+    group = _ThreadGroup(world, timeout)
+    out, errors = [None] * world, []
+
+    def run(rank):
+        try:
+            out[rank] = fn(ThreadMesh(group, rank, world, torch.device(device)))
+        except Exception as exc:  # re-raised in the caller's thread below
+            errors.append(exc)
+            group.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def dp_learner(name: str, env, cfg, seed: int, mesh=None, deterministic: bool = False,
+               hidden: int = 128):
+    """(runner, train step) of one of :data:`DP_LEARNERS` built with
+    ``mesh`` (this rank's envs of ``cfg.n_envs``; None: all of them) at
+    hidden width ``hidden``; IPPO and MAPPO take their per-pass kernels (K4,
+    K5).  ``cfg`` is an ``IPPOConfig`` (a ``SEACPPOConfig`` for
+    ``seac_gru``)."""
+    from rware_tpu_torch.models import ippo, ippo_fused, ippo_rnn, mappo, seac
+
+    h2 = (hidden, hidden)
+    if name == "ippo":
+        runner, dims = ippo.init_runner(env, cfg, seed, h2, mesh=mesh)
+        step = ippo_fused.build_fused_train_step(env, dims, cfg, deterministic,
+                                                 fused_update_phase=False, mesh=mesh)
+    elif name in ("rnn_ippo", "rnn_ippo_fused_loss"):
+        runner, dims = ippo_rnn.init_rnn_runner(env, cfg, seed, hidden, hidden, mesh=mesh)
+        step = ippo_rnn.build_rnn_fused_train_step(env, dims, cfg, deterministic,
+                                                   fused_loss=name.endswith("fused_loss"),
+                                                   mesh=mesh)
+    elif name == "mappo":
+        runner, dims, cdims = mappo.init_mappo_runner(env, cfg, seed, h2, h2, mesh=mesh)
+        step = mappo.build_mappo_train_step(env, dims, cdims, cfg, deterministic, mesh=mesh)
+    elif name == "rnn_mappo":
+        runner, dims, cdims = mappo.init_rnn_mappo_runner(env, cfg, seed, hidden, hidden, h2,
+                                                          mesh=mesh)
+        step = mappo.build_rnn_mappo_train_step(env, dims, cdims, cfg, deterministic,
+                                                mesh=mesh)
+    elif name == "seac_gru":
+        runner, dims = seac.init_seac_gru(env, cfg, seed, hidden, hidden, mesh=mesh)
+        step = seac.build_seac_gru_train_step(env, dims, cfg, deterministic, mesh=mesh)
+    else:
+        raise ValueError(f"unknown learner {name!r}; one of {DP_LEARNERS}")
+    return runner, step
+
+
+def dp_run(step, runner, n_updates: int, mesh=None, windows=None) -> dict:
+    """Run ``n_updates`` updates of ``step`` from ``runner`` (``windows[u]``
+    the u-th update's window starts or epoch offsets, else drawn from the
+    runner's generator) and return what a data-parallel check compares: the
+    first update's trajectory, the collectives of its collect alone and of
+    each update (with a mesh, zeroed first), each update's metrics, and the
+    final runner."""
+    if mesh is not None:
+        mesh.reset_counts()
+    traj = step.rollout(runner)[-1]
+    collect_counts = dict(mesh.counts) if mesh is not None else {}
+    per_update, metrics = [], []
+    for u in range(n_updates):
+        if mesh is not None:
+            mesh.reset_counts()
+        arg = None if windows is None else torch.as_tensor(windows[u])
+        runner, m = step(runner, arg)
+        per_update.append(dict(mesh.counts) if mesh is not None else {})
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"traj": traj, "collect_counts": collect_counts, "update_counts": per_update,
+            "metrics": metrics, "runner": runner}
+
+
+def digest(tree) -> str:
+    """sha256 of every tensor of ``tree`` (dicts in key order), its bytes as
+    they lie on the CPU."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        elif isinstance(node, torch.Tensor):
+            h.update(str((node.dtype, tuple(node.shape))).encode())
+            h.update(node.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy()
+                     .tobytes())
+
+    walk(tree)
+    return h.hexdigest()
+
+
+def _task_learner(task, mesh, device):
+    """(runner, step) of a task's learner on this rank, its parameters
+    and optimizer state (and, with ``override``, its env states and carry:
+    this rank's rows of a given global runner's) replicated from rank 0."""
+    import rware_tpu_torch
+    from rware_tpu_torch.models.ippo import IPPOConfig, policy_obs_fn
+    from rware_tpu_torch.models.seac import SEACPPOConfig
+    from rware_tpu_torch.parallel.sharding import replicate, shard_env_batch
+
+    env = rware_tpu_torch.make(task["env_id"], device=device, **task.get("env_overrides", {}))
+    name = task.get("learner", "ippo")
+    cfg = (SEACPPOConfig if name == "seac_gru" else IPPOConfig)(**task["cfg"])
+    runner, step = dp_learner(name, env, cfg, task["seed"], mesh,
+                              task.get("deterministic", False), task["hidden"])
+    over = task.get("override")
+    if over:
+        def local(x):
+            return x if mesh is None else shard_env_batch(x, mesh)
+
+        states = local(over["env_states"])
+        runner = dataclasses.replace(runner, params=over["params"], opt_state=over["opt_state"],
+                                     env_states=states, obs=policy_obs_fn(env)(states))
+        if "carry" in over:
+            runner = dataclasses.replace(runner, carry=local(over["carry"]))
+    if mesh is not None:
+        runner = dataclasses.replace(runner, params=replicate(runner.params, mesh),
+                                     opt_state=replicate(runner.opt_state, mesh))
+    return runner, step
+
+
+def dp_task(task: dict, mesh: Optional[Mesh] = None, device="cpu", tmp_dir: str = "") -> dict:
+    """One task of a data-parallel check on this rank (``mesh``; None: the
+    whole batch in one process), on ``device``.  ``task["kind"]``:
+
+    * ``learner``: :func:`dp_learner` of ``task["learner"]`` at ``cfg``,
+      ``seed`` and ``hidden`` (``override``: the parameters, optimizer state,
+      env states and carry of a given global runner), then :func:`dp_run` of
+      ``n_updates`` updates (``windows``: their window starts or offsets).
+      The runner comes back packed; with ``digest`` the trajectory, the
+      runner and its replicated part (parameters and optimizer state) come
+      back as :func:`digest` strings.
+    * ``checkpoint``: ``n_updates`` (default 2) updates of that learner, its
+      runner saved after each by a ``Checkpointer(rank, world)`` under
+      ``tmp_dir``, then restored, and a restore at world size 1 refused; a
+      process group's ranks only.
+    * ``aggregate``: ``profiling.aggregate_across_hosts`` of metrics that
+      differ by rank.
+    """
+    from rware_tpu_torch.checkpoint import Checkpointer, pack
+
+    if task["kind"] == "learner":
+        runner, step = _task_learner(task, mesh, device)
+        out = dp_run(step, runner, task["n_updates"], mesh, task.get("windows"))
+        out["runner"] = pack(out["runner"])
+        if task.get("digest"):
+            out["replicated"] = digest({k: out["runner"][k] for k in ("params", "opt_state")})
+            out["runner"], out["traj"] = digest(out["runner"]), digest(out["traj"])
+        return out
+    if task["kind"] == "checkpoint":
+        import torch.distributed as dist
+
+        runner, step = _task_learner(task, mesh, device)
+        directory = os.path.join(tmp_dir, task["name"])
+        ckpt = Checkpointer(directory, rank=mesh.rank, world=mesh.world)
+        for u in range(task.get("n_updates", 2)):
+            runner, _ = step(runner)
+            ckpt.save(u + 1, runner)
+        dist.barrier()
+        restored = ckpt.restore(template=runner)
+        files = sorted(os.listdir(directory))
+        refused = ""
+        try:
+            Checkpointer(directory).restore(template=runner)
+        except ValueError as exc:
+            refused = str(exc)
+        dist.barrier()
+        saved, restored = pack(runner), pack(restored)
+        if task.get("digest"):
+            saved, restored = digest(saved), digest(restored)
+        return {"steps": ckpt.steps(), "files": files, "refused": refused, "saved": saved,
+                "restored": restored}
+    if task["kind"] == "aggregate":
+        from rware_tpu_torch.profiling import aggregate_across_hosts
+
+        metrics = {"rank": float(mesh.rank), "same": 2.5}
+        return {"mean": aggregate_across_hosts(metrics),
+                "sum": aggregate_across_hosts(metrics, reduce="sum")}
+    raise ValueError(f"unknown task kind {task['kind']!r}")
+
+
+def dp_rank_main(spec: str, rank: int) -> None:
+    """A rank process of :func:`dp_spawn`: joins the spec's gloo process
+    group (through the file store ``store``, ``world`` ranks) as
+    ``rank``, runs every task on the spec's ``device`` and writes each
+    task's result to ``<out>/<task name>.rank<rank>.pt``.  On a CUDA device
+    it loads the kernels' library built by the parent and refuses to build
+    it."""
+    from rware_tpu_torch.distributed import initialize
+    from rware_tpu_torch.parallel.sharding import make_mesh
+
+    job = torch.load(spec, weights_only=False)
+    if job.get("threads"):
+        torch.set_num_threads(job["threads"])
+    device = torch.device(job["device"])
+    if device.type == "cuda":
+        from rware_tpu_torch.ops._build import load_library
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if load_library().build_seconds:
+            raise RuntimeError("a rank process built the kernels: the parent builds them first")
+    world = job["world"]
+    if initialize(f"file://{job['store']}", world, rank, device=device,
+                  backend="gloo") != (rank, world):
+        raise RuntimeError(f"rank {rank} of {world} did not join its process group")
+    mesh = make_mesh(device=device)
+    for task in job["tasks"]:
+        result = dp_task(task, mesh, device, os.path.dirname(job["out"]))
+        torch.save(result, os.path.join(job["out"], f"{task['name']}.rank{rank}.pt"))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def dp_spawn(entry: Sequence[str], tasks: list, world: int, tmp_dir: str, device="cpu",
+             threads: Optional[int] = None) -> list:
+    """Start ``world`` rank processes, ``[*entry, SPEC, RANK]`` (a program
+    that calls :func:`dp_rank_main` with them), on ``tasks`` in a gloo
+    process group on ``device`` (NCCL needs a GPU a rank), with ``threads``
+    CPU threads each (None: torch's default), their files under
+    ``tmp_dir``; returns their ``Popen``."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = os.path.join(tmp_dir, "spec.pt")
+    out = os.path.join(tmp_dir, "out")
+    os.makedirs(out, exist_ok=True)
+    torch.save({"tasks": tasks, "world": world, "device": str(device),
+                "store": os.path.join(tmp_dir, "store"), "out": out, "threads": threads},
+               spec)
+    env = dict(os.environ, PYTHONPATH=repo)
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    return [subprocess.Popen([*entry, spec, str(r)], cwd=repo, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def dp_results(procs: list, tasks: list, tmp_dir: str, timeout: float = 900) -> dict:
+    """{task name: [rank 0's result, rank 1's, ...]} once every rank of
+    :func:`dp_spawn` exits; kills the ranks and raises with a rank's output
+    if one failed or ran past ``timeout`` seconds."""
+    try:
+        for rank, proc in enumerate(procs):
+            text = proc.communicate(timeout=timeout)[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"rank {rank} exited with {proc.returncode}:\n{text[-4000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = os.path.join(tmp_dir, "out")
+    return {t["name"]: [torch.load(os.path.join(out, f"{t['name']}.rank{r}.pt"),
+                                   weights_only=False) for r in range(len(procs))]
+            for t in tasks}

@@ -79,16 +79,39 @@ says how many under ``per_agent``.  Every ``--checkpoint-every`` updates, and
 at the end, the whole runner is saved there too (``rware_tpu_torch.checkpoint``,
 the last three kept); ``--resume`` restores the latest and trains on to
 ``--updates``, the same updates an unbroken run takes.
+
+``--distributed`` joins a ``torch.distributed`` process group
+(``rware_tpu_torch.distributed.initialize``: ``RWARE_COORD_ADDR`` /
+``RWARE_NUM_PROCS`` / ``RWARE_PROC_ID``, else torchrun's environment; NCCL
+on a CUDA device, gloo on the CPU), one process a GPU, each on
+``cuda:LOCAL_RANK``, and reduces the logged metrics across the processes
+(``profiling.aggregate_across_hosts``).  ``--mesh`` then trains data
+parallel over them (``parallel.sharding``): each rank holds ``--n-envs /
+world`` envs, and every pass all-reduces the gradients.  Over more than one
+process ``--distributed`` needs ``--mesh``.  It takes the five
+learners JAX builds with ``mesh=`` (IPPO per pass, recurrent IPPO with or
+without ``--fused-loss``, MAPPO per pass, recurrent MAPPO, recurrent
+SEAC-PPO); ``--collect plain``, SEAC-PPO's MLP and SEAC A2C raise, and at
+world size 1 ``--mesh`` changes nothing.  Only rank 0 prints the log and
+writes ``policy.pt``; every rank writes its runner shard
+(``<step>.rank<r>-of<W>.pt``)::
+
+    python -m torch.distributed.run --nproc-per-node 2 -m rware_tpu_torch.train \
+        --distributed --mesh --device cuda --n-envs 32768 --updates 300
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import torch
 
 from rware_tpu_torch.core.env import resolve_device
 
+MESH_NOT_PORTED = ("data-parallel training of the learners JAX shards only by placement "
+                   "(train.py:291-303) is not ported yet (ROADMAP queue 1, item 21): --mesh "
+                   "takes --collect fused with --algo ippo, mappo, or seac-ppo --net gru")
 NOT_PORTED = ("not ported yet: the port trains --algo ippo, mappo and seac-ppo with --net mlp "
               "or --net gru and --algo seac with --net mlp, and each of them with message "
               "bits but --fused-critic-phase (MAPPO's MLP only); --algo mappo and seac-ppo "
@@ -130,7 +153,24 @@ def parse_args(argv=None):
                    help="restore the latest runner saved in --checkpoint-dir and train on")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of updates [start+3, start+6) here")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed process group (torchrun or RWARE_* variables)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard the envs over the process group's ranks (data parallel)")
     return p.parse_args(argv)
+
+
+def distributed_device(dev: torch.device) -> torch.device:
+    """This process's device in a distributed run: ``cuda:LOCAL_RANK`` for a
+    CUDA device given without an index, refused where that index is not
+    there."""
+    if dev.type != "cuda":
+        return dev
+    index = dev.index if dev.index is not None else int(os.environ.get("LOCAL_RANK", "0"))
+    if not 0 <= index < torch.cuda.device_count():
+        raise ValueError(f"cuda:{index} does not exist: {torch.cuda.device_count()} device(s)")
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
 
 
 def save_policy(path: str, env_id: str, dims, params: torch.Tensor, updates: int,
@@ -211,6 +251,23 @@ def main(argv=None) -> dict:
             f"{' --fused-critic-phase' * args.fused_critic_phase}"
             f"{f' --msg-bits {args.msg_bits}' * msg}: {NOT_PORTED}")
     dev = resolve_device(args.device)
+    rank, world, mesh = 0, 1, None
+    if args.distributed:
+        from rware_tpu_torch.distributed import initialize
+
+        dev = distributed_device(dev)
+        rank, world = initialize(device=dev)
+        print(f"distributed: process {rank}/{world}", flush=True)
+    if world > 1 and not args.mesh:
+        raise ValueError(f"--distributed over {world} processes needs --mesh: without it every "
+                         "process would train the whole batch and write the same checkpoints")
+    if args.mesh and world > 1:
+        if args.collect != "fused" or a2c or (seac and not gru):
+            raise ValueError(f"--mesh --algo {args.algo} --net {args.net} --collect "
+                             f"{args.collect}: {MESH_NOT_PORTED}")
+        from rware_tpu_torch.parallel.sharding import make_mesh
+
+        mesh = make_mesh(device=dev)
 
     import rware_tpu_torch
     from rware_tpu_torch.metrics import MetricLogger
@@ -238,7 +295,7 @@ def main(argv=None) -> dict:
         init_seac_gru,
         init_seac_ppo,
     )
-    from rware_tpu_torch.profiling import StepTimer, TraceWindow
+    from rware_tpu_torch.profiling import StepTimer, TraceWindow, aggregate_across_hosts
 
     overrides = {} if args.msg_bits is None else {"msg_bits": args.msg_bits}
     env = rware_tpu_torch.make(args.env, device=dev, **overrides)
@@ -257,8 +314,8 @@ def main(argv=None) -> dict:
         cfg = SEACPPOConfig(n_envs=args.n_envs, rollout_len=rollout_len, lr=args.lr,
                             ent_coef=args.ent_coef)
         if gru:
-            runner, dims = init_seac_gru(env, cfg, args.seed)
-            train_step = build_seac_gru_train_step(env, dims, cfg)
+            runner, dims = init_seac_gru(env, cfg, args.seed, mesh=mesh)
+            train_step = build_seac_gru_train_step(env, dims, cfg, mesh=mesh)
         else:
             runner, dims = init_seac_ppo(env, cfg, args.seed)
             if args.collect == "fused" and not msg:
@@ -266,40 +323,56 @@ def main(argv=None) -> dict:
             else:  # K8 has no message head: JAX's flat update (seac.py:343-345)
                 train_step = build_seac_ppo_train_step(env, dims, cfg, collect=args.collect)
     elif mappo and gru:
-        runner, dims, cdims = init_rnn_mappo_runner(env, cfg, args.seed)
-        train_step = build_rnn_mappo_train_step(env, dims, cdims, cfg)
+        runner, dims, cdims = init_rnn_mappo_runner(env, cfg, args.seed, mesh=mesh)
+        train_step = build_rnn_mappo_train_step(env, dims, cdims, cfg, mesh=mesh)
     elif mappo:
-        runner, dims, cdims = init_mappo_runner(env, cfg, args.seed)
+        runner, dims, cdims = init_mappo_runner(env, cfg, args.seed, mesh=mesh)
         train_step = build_mappo_train_step(env, dims, cdims, cfg,
-                                            fused_critic_phase=args.fused_critic_phase)
+                                            fused_critic_phase=args.fused_critic_phase,
+                                            mesh=mesh)
     elif gru:
-        runner, dims = init_rnn_runner(env, cfg, args.seed)
+        runner, dims = init_rnn_runner(env, cfg, args.seed, mesh=mesh)
         if args.collect == "fused":
-            train_step = build_rnn_fused_train_step(env, dims, cfg, fused_loss=args.fused_loss)
+            train_step = build_rnn_fused_train_step(env, dims, cfg, fused_loss=args.fused_loss,
+                                                    mesh=mesh)
         else:
             train_step = build_rnn_train_step(env, dims, cfg)
     else:
-        runner, dims = init_runner(env, cfg, args.seed)
+        runner, dims = init_runner(env, cfg, args.seed, mesh=mesh)
         if args.collect == "fused":
-            train_step = build_fused_train_step(env, dims, cfg)
+            train_step = build_fused_train_step(env, dims, cfg, mesh=mesh)
         else:
             train_step = build_train_step(env, dims, cfg)
-    ckpts, start = None, 0
+    if mesh is not None:
+        from rware_tpu_torch.parallel.sharding import replicate
+
+        # train.py:291-303: the parameters and the optimizer state as rank 0 has them
+        runner = dataclasses.replace(runner, params=replicate(runner.params, mesh),
+                                     opt_state=replicate(runner.opt_state, mesh))
+        print(f"sharded {args.n_envs} envs over {world} processes", flush=True)
+    ckpts, start, saved = None, 0, None
     if args.checkpoint_dir:
         from rware_tpu_torch.checkpoint import Checkpointer
 
-        ckpts = Checkpointer(os.path.join(args.checkpoint_dir, "runner"))
-        if args.resume and ckpts.latest_step is not None:
-            runner = ckpts.restore(template=runner)
-            start = runner.update_idx
-            print(f"resumed from update {start}", flush=True)
+        ckpts = Checkpointer(os.path.join(args.checkpoint_dir, "runner"),
+                             rank=mesh.rank if mesh else 0, world=mesh.world if mesh else 1)
+        if args.resume:
+            try:
+                runner = ckpts.restore(template=runner)
+            except FileNotFoundError:
+                pass
+            else:
+                start = saved = runner.update_idx
+                print(f"resumed from update {start}", flush=True)
     env_steps_per_update = cfg.n_envs * cfg.rollout_len
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"training {args.algo} ({args.net}, {env.config.msg_bits} message bits) on {args.env} "
-          f"on {dev} ({card}): {args.updates} "
-          f"updates x {env_steps_per_update} env-steps, collect {args.collect}", flush=True)
+    lead = rank == 0  # the process that prints the log and writes policy.pt
+    if lead:
+        print(f"training {args.algo} ({args.net}, {env.config.msg_bits} message bits) on "
+              f"{args.env} on {dev} ({card}): {args.updates} updates x {env_steps_per_update} "
+              f"env-steps, collect {args.collect}", flush=True)
     log_every = max(1, args.log_every)
-    logger = MetricLogger(print_every=1)
+    logger = MetricLogger(print_every=1 if lead else 0)
     timer = StepTimer(skip_first=1)  # the first window holds the kernel build and warm-up
     tracer = TraceWindow(args.profile_dir, start=start + 3, device=dev) \
         if args.profile_dir else None
@@ -311,8 +384,11 @@ def main(argv=None) -> dict:
         runner, metrics = train_step(runner)
         if ckpts and (u + 1) % args.checkpoint_every == 0:
             ckpts.save(u + 1, runner)
+            saved = u + 1
         if (u + 1) % log_every and u + 1 != args.updates:
             continue
+        if args.distributed:  # train.py:343-345
+            metrics = aggregate_across_hosts({k: float(v) for k, v in metrics.items()})
         # one device sync per logged window; the rate is the window's
         entry = logger.log(u + 1, metrics, env_steps_per_update * (u + 1 - last_u))
         # a window holding traced updates carries torch.profiler's overhead
@@ -322,13 +398,13 @@ def main(argv=None) -> dict:
     if tracer:
         tracer.close()
     stats = timer.summary()
-    if stats:
+    if stats and lead:
         print(f"timing: {stats['step_ms_p50']:.1f}ms p50 / {stats['step_ms_p95']:.1f}ms p95 "
               f"per update ({stats['steps_per_s'] * env_steps_per_update / 1e6:.2f}M "
               f"env-steps/s{'; traced updates left out' if tracer else ''})", flush=True)
-    if args.checkpoint_dir:
-        if ckpts.latest_step != runner.update_idx:
-            ckpts.save(runner.update_idx, runner)
+    if args.checkpoint_dir and saved != runner.update_idx:
+        ckpts.save(runner.update_idx, runner)
+    if args.checkpoint_dir and lead:
         path = os.path.join(args.checkpoint_dir, "policy.pt")
         if mappo:
             save_policy(path, args.env, dims, runner.params["actor"], args.updates, cdims,
@@ -336,8 +412,11 @@ def main(argv=None) -> dict:
         else:
             save_policy(path, args.env, dims, runner.params, args.updates)
         print(f"saved {path}", flush=True)
-    print("done:", {k: round(v, 4) for k, v in entry.items()
-                    if "loss" in k or "reward" in k or "env_steps" in k}, flush=True)
+    if lead:
+        print("done:", {k: round(v, 4) for k, v in entry.items()
+                        if "loss" in k or "reward" in k or "env_steps" in k}, flush=True)
+    if args.distributed and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return entry
 
 

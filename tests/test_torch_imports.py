@@ -31,7 +31,8 @@ names = [m.name for m in pkgutil.walk_packages(rware_tpu_torch.__path__, "rware_
 for name in names:
     importlib.import_module(name)
 for must in ("gym_adapter", "vector", "utils", "utils.spaces", "utils.wrappers", "rendering",
-             "debug", "human_play", "core.host", "profiling"):
+             "debug", "human_play", "core.host", "profiling", "distributed",
+             "parallel.sharding"):
     assert "rware_tpu_torch." + must in names, must
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "rware_tpu" or m.startswith("rware_tpu."))
