@@ -3271,47 +3271,53 @@ def _timed_updates(step, runner, n):
     return (time.perf_counter() - start) * 1e3 / n
 
 
-def phase31b(dev, kind, card):
-    """World size 1 under NCCL: IPPO through the mesh equals IPPO without."""
+# phase 31b's learners through a world-1 NCCL mesh, (name, config fields): IPPO
+# and SEAC-PPO at phases 8's and 17's shape, SEAC A2C at phase 30's
+DP_WORLD1 = (("ippo", dict(n_envs=DP_GLOBAL, rollout_len=128, epochs=4, minibatches=4)),
+             ("seac", dict(n_envs=DP_GLOBAL, rollout_len=128, epochs=4, minibatches=4)),
+             ("seac_a2c", dict(n_envs=DP_GLOBAL, rollout_len=5)))
+
+
+def _world1_case(name, cfg, env, mesh, dev, kind, card):
+    """One learner through the world-1 mesh against the run without:
+    bit for bit over 3 updates, its all-reduces counted, ms per update (mesh,
+    plain, plain, mesh) and its collectives alone.  Returns the log line."""
     import torch
-    import torch.distributed as dist
-    import rware_tpu_torch
-    from rware_tpu_torch.distributed import initialize
-    from rware_tpu_torch.models.ippo import IPPOConfig
-    from rware_tpu_torch.parallel.sharding import make_mesh
+    from rware_tpu_torch.checkpoint import pack
     from rware_tpu_torch.testing import dp_learner, dp_run
 
-    rank_world = initialize(f"localhost:{_free_port()}", 1, 0, device=dev)
-    require(rank_world == (0, 1) and dist.get_backend() == "nccl", f"initialize: {rank_world}")
-    mesh = make_mesh(device=dev)
-    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
-    cfg = IPPOConfig(n_envs=DP_GLOBAL, rollout_len=128, epochs=4, minibatches=4)
     runs = {}
-    for name, m in (("mesh", mesh), ("plain", None)):
-        runner, step = dp_learner("ippo", env, cfg, 21, m)
-        runs[name] = (dp_run(step, runner, 3, m), step)
+    for which, m in (("mesh", mesh), ("plain", None)):
+        runner, step = dp_learner(name, env, cfg, 21, m)
+        runs[which] = (dp_run(step, runner, 3, m), step)
     a, b = runs["mesh"][0], runs["plain"][0]
     # mesh, plain, plain, mesh: 3 updates each from the checked runners
     times = {"mesh": [], "plain": []}
-    for name in ("mesh", "plain", "plain", "mesh"):
-        out, step = runs[name]
-        times[name].append(_timed_updates(step, out["runner"], 3))
+    for which in ("mesh", "plain", "plain", "mesh"):
+        out, step = runs[which]
+        times[which].append(_timed_updates(step, out["runner"], 3))
     ms_mesh = sum(times["mesh"]) / 2
-    require(digest(a["traj"]) == digest(b["traj"]), "31b: the collects differ")
-    from rware_tpu_torch.checkpoint import pack
-
-    require(digest(pack(a["runner"])) == digest(pack(b["runner"])),
-            "31b: the world-1 mesh run != the run without a mesh")
-    per_update = cfg.epochs * cfg.minibatches + 1
+    require(digest(a["traj"]) == digest(b["traj"]), f"31b {name}: the collects differ")
+    require(digest(pack(a["runner"])) == digest(pack(b["runner"]))
+            and a["metrics"] == b["metrics"],
+            f"31b {name}: the world-1 mesh run != the run without a mesh")
+    passes = getattr(cfg, "epochs", 1) * getattr(cfg, "minibatches", 1)
+    per_update = 2 if name == "seac_a2c" else passes + 1
     require(a["collect_counts"]["all_reduce"] == 0
             and all(c["all_reduce"] == per_update for c in a["update_counts"]),
-            f"31b: collectives {a['collect_counts']} / {a['update_counts']}")
-    # the collectives alone: E*M packed gradient all-reduces and one psum
+            f"31b {name}: collectives {a['collect_counts']} / {a['update_counts']}")
+    if name == "seac":
+        require(a["launches"] == b["launches"] == {"collect": 3, "grads": 3 * passes},
+                f"31b seac: launches {a['launches']} / {b['launches']}")
+    # the collectives alone: per pass one packed float32 all-reduce of the
+    # gradients and four metrics; one float64 all-reduce (IPPO: the reward
+    # sums; SEAC-PPO: every window's moments and the sums; A2C: the sums)
     grads = (torch.zeros(a["runner"].params.numel(), device=dev), torch.zeros(4, device=dev))
-    sums = (torch.zeros((), device=dev), torch.zeros((), dtype=torch.int64, device=dev))
+    sums = (torch.zeros((passes if name == "seac" else 0, 3), dtype=torch.float64, device=dev),
+            (torch.zeros((), device=dev), torch.zeros((), dtype=torch.int64, device=dev)))
 
     def collectives():
-        for _ in range(cfg.epochs * cfg.minibatches):
+        for _ in range(passes):
             mesh.all_reduce_mean(grads)
         mesh.psum(sums)
 
@@ -3322,15 +3328,37 @@ def phase31b(dev, kind, card):
     collectives()  # the host's time to issue them, without waiting for the device
     host_ms = (time.perf_counter() - start) * 1e3
     torch.cuda.synchronize()
+    shape = f"B={cfg.n_envs} T={cfg.rollout_len}" + (f" E={cfg.epochs} M={cfg.minibatches}"
+                                                     if passes > 1 else "")
+    return (f"{name} tiny-2ag {shape}: bit-equal to the run without a mesh over 3 updates; "
+            f"all-reduces {per_update} an update, 0 in the collect"
+            + (f"; launches an update K2d 1, K8 {passes}" if name == "seac" else "")
+            + f"; ms/update in the order timed: mesh {times['mesh'][0]:.3f}, plain "
+            f"{times['plain'][0]:.3f}, plain {times['plain'][1]:.3f}, mesh {times['mesh'][1]:.3f}"
+            f" (mesh {100 * (ms_mesh / (sum(times['plain']) / 2) - 1):+.2f}%); the {per_update} "
+            f"collectives alone {coll_ms:.3f} ms "
+            f"({100 * coll_ms / ms_mesh:.2f}% of an update; issued by the host in "
+            f"{host_ms:.3f} ms; packed gradient {4 * (grads[0].numel() + 4)} bytes) "
+            f"[{kind}, {card}]")
+
+
+def phase31b(dev, kind, card):
+    """World size 1 under NCCL: IPPO, SEAC-PPO (K2d + K8) and SEAC A2C
+    through the mesh equal the same learners without."""
+    import torch.distributed as dist
+    import rware_tpu_torch
+    from rware_tpu_torch.distributed import initialize
+    from rware_tpu_torch.parallel.sharding import make_mesh
+    from rware_tpu_torch.testing import dp_config
+
+    rank_world = initialize(f"localhost:{_free_port()}", 1, 0, device=dev)
+    require(rank_world == (0, 1) and dist.get_backend() == "nccl", f"initialize: {rank_world}")
+    mesh = make_mesh(device=dev)
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
+    lines = [_world1_case(name, dp_config(name, **fields), env, mesh, dev, kind, card)
+             for name, fields in DP_WORLD1]
     dist.destroy_process_group()
-    log(f"phase 31b NCCL world 1, IPPO tiny-2ag B={DP_GLOBAL} T=128 E=4 M=4 through the mesh: "
-        f"bit-equal to the run without a mesh over 3 updates; all-reduces {per_update} an "
-        f"update, 0 in the collect; ms/update with the mesh {times['mesh'][0]:.3f}, "
-        f"{times['mesh'][1]:.3f}, without {times['plain'][0]:.3f}, {times['plain'][1]:.3f} "
-        f"(mesh, plain, plain, mesh); the {per_update} collectives alone {coll_ms:.3f} ms "
-        f"({100 * coll_ms / ms_mesh:.2f}% of an update; issued by the host in {host_ms:.3f} "
-        f"ms; packed gradient "
-        f"{4 * (grads[0].numel() + 4)} bytes) [{kind}, {card}]")
+    log(f"phase 31b NCCL world 1 through the mesh: {' | '.join(lines)}")
 
 
 DP_TASK = {"kind": "learner", "env_id": "rware-tiny-2ag-v2", "seed": 31, "hidden": 128,
@@ -3339,12 +3367,54 @@ DP_TASK = {"kind": "learner", "env_id": "rware-tiny-2ag-v2", "seed": 31, "hidden
 
 def dp_tasks():
     """Phase 31c's learner tasks (``testing.dp_task``): IPPO at the main
-    shape for 3 updates, the other mesh learners at DP_SMALL for one."""
+    shape for 3 updates, the other mesh learners at DP_SMALL for one, and
+    the learners JAX only places on a mesh (``testing.DP_PLACED``) at
+    DP_SMALL (SEAC A2C at T=5, SEAC-PPO's flat learner with two message
+    bits) for one."""
+    from rware_tpu_torch.testing import DP_PLACED
+
     big = dict(n_envs=DP_GLOBAL, rollout_len=128, epochs=4, minibatches=4)
     small = dict(n_envs=DP_SMALL[0], rollout_len=DP_SMALL[1], epochs=4, minibatches=4)
+    placed = [dict(DP_TASK, name=name, learner=name, n_updates=1,
+                   cfg=dict(small, rollout_len=5) if name == "seac_a2c" else small,
+                   env_overrides={"msg_bits": 2} if name == "seac_flat" else {})
+              for name in DP_PLACED]
     return ([dict(DP_TASK, name="ippo", learner="ippo", cfg=big, n_updates=3)]
             + [dict(DP_TASK, name=name, learner=name, cfg=small, n_updates=1) for name in
-               ("rnn_ippo", "rnn_ippo_fused_loss", "mappo", "rnn_mappo", "seac_gru")])
+               ("rnn_ippo", "rnn_ippo_fused_loss", "mappo", "rnn_mappo", "seac_gru")]
+            + placed)
+
+
+PLACED_PARAM_LR_FRAC = 0.05  # of lr * P: the parameters, two ranks against one rank
+PLACED_METRIC_TOL = dict(rtol=1e-2, atol=1e-4)  # the metrics, two ranks against one rank
+
+
+def _placed_check(name, ranks, whole, passes):
+    """Two ranks of a learner with whole-batch statistics against the
+    one-rank run of the same global batch on the card, within the CPU tests'
+    tolerances (``tests/test_torch_dp_placement.py``: parameters within
+    0.05 * lr * P, rtol 1e-3; metrics rtol 1e-2, atol 1e-4); K8's launches
+    from its counter.  Returns the log's words for it."""
+    import torch
+
+    lr, p = 3e-4, passes if name != "seac_a2c" else 1
+    want = whole["params"].float()
+    worst = 0.0
+    for r, got in enumerate(ranks):
+        err = (got["params"].float() - want).abs()
+        bound = PLACED_PARAM_LR_FRAC * lr * p + 1e-3 * want.abs()
+        worst = max(worst, float((err / bound).max()))
+        require(bool((err <= bound).all()), f"31c {name} rank {r}: parameters "
+                f"{float(err.max())} from the one-rank update")
+        for k, v in got["metrics"][0].items():
+            w = whole["metrics"][0][k]
+            require(abs(v - w) <= PLACED_METRIC_TOL["atol"] + PLACED_METRIC_TOL["rtol"] * abs(w),
+                    f"31c {name} rank {r}: metric {k} {v} != the one-rank {w}")
+        if name == "seac":
+            require(got["launches"].get("grads") == passes == whole["launches"]["grads"],
+                    f"31c seac rank {r}: K8 launches {got['launches']}, not {passes}")
+    return (f"{name} parameters within {worst:.3f} of the bound"
+            + (f", K8 {passes} launches an update on each rank" if name == "seac" else ""))
 
 
 def phase31c(dev, kind, card):
@@ -3355,7 +3425,7 @@ def phase31c(dev, kind, card):
     import tempfile
 
     import torch
-    from rware_tpu_torch.testing import dp_results, dp_spawn, dp_task, emulate_mesh
+    from rware_tpu_torch.testing import DP_PLACED, dp_results, dp_spawn, dp_task, emulate_mesh
 
     start = time.perf_counter()
     learners = dp_tasks()
@@ -3375,10 +3445,11 @@ def phase31c(dev, kind, card):
             raise
         res = dp_results(procs, learners + [ckpt], tmp, timeout=900)
     torch.cuda.synchronize()
-    lines = []
+    lines, placed = [], []
     for task in learners:
         name, cfg = task["name"], task["cfg"]
-        per_update = cfg["epochs"] * cfg["minibatches"] + 1
+        passes = cfg["epochs"] * cfg["minibatches"]
+        per_update = 2 if name == "seac_a2c" else passes + 1
         b = cfg["n_envs"] // 2
         ranks = res[name]
         for r in range(2):
@@ -3395,6 +3466,8 @@ def phase31c(dev, kind, card):
         require(ranks[0]["replicated"] == ranks[1]["replicated"],
                 f"31c {name}: the ranks' parameters differ")
         lines.append(f"{name} B={cfg['n_envs']} T={cfg['rollout_len']} x{task['n_updates']}")
+        if name in DP_PLACED:  # whole-batch statistics: the one-rank update of the batch
+            placed.append(_placed_check(name, ranks, whole[name], passes))
     files = sorted(f"{s}.rank{r}-of2.pt" for s in (1, 2) for r in (0, 1))
     for r, out in enumerate(res["checkpoint"]):
         require(out["steps"] == [1, 2] and sorted(out["files"]) == files,
@@ -3405,7 +3478,9 @@ def phase31c(dev, kind, card):
                 f"31c checkpoint rank {r}: the restored shard != the unbroken emulated run")
     log(f"phase 31c gloo, 2 ranks on one card: {'; '.join(lines)}: each rank's trajectory = "
         f"its rows of the global collect, parameters bit-equal across ranks and to the "
-        f"in-process emulation, E*M+1 all-reduces an update, the collectives on CUDA tensors; "
+        f"in-process emulation, E*M+1 all-reduces an update (SEAC A2C 2), the collectives on "
+        f"CUDA tensors; the learners JAX only places on a mesh against the one-rank update of "
+        f"the global batch on the card: {'; '.join(placed)}; "
         f"IPPO B={small['n_envs']} x2 saved per rank ({', '.join(files)}) and restored = the "
         f"unbroken emulated run bit for bit, a world-1 restore refused; "
         f"{time.perf_counter() - start:.1f} s [{kind}, {card}]")

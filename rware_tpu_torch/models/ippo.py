@@ -11,12 +11,14 @@ per-pass learner and the whole-update-phase kernel of
 The loss and the optimizer step are those of
 :mod:`rware_tpu_torch.models.ppo`.  Every random choice (minibatch permutations, epoch
 rotations) comes from the runner's ``torch.Generator``; the collector's
-random stream is keyed by :func:`collect_seed`.
+random stream is keyed by :func:`collect_seed`.  The plain learner takes a
+:class:`~rware_tpu_torch.parallel.sharding.Mesh` with the whole batch's
+statistics, as JAX only places its step on a mesh (``train.py:291-303``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,13 +26,14 @@ from rware_tpu_torch.core.engine import build_policy_obs_fn
 from rware_tpu_torch.core.env import Warehouse
 from rware_tpu_torch.core.state import WarehouseState
 from rware_tpu_torch.models.networks import (
+    DENSE_CAST_BLOCKS,
     BlockDims,
     apply_forward,
     arrays_to_params,
     init_actor_critic,
     pack_arrays,
     params_to_arrays,
-    train_forward,
+    round_grad_blocks,
 )
 from rware_tpu_torch.models.ppo import (
     ADAM_B1,
@@ -123,14 +126,20 @@ def compute_gae(cfg: IPPOConfig, rewards, values, dones, last_value):
     return advantages, advantages + values
 
 
-def ppo_loss(cfg: IPPOConfig, dims: BlockDims, params: torch.Tensor, batch):
+def ppo_loss(cfg: IPPOConfig, dims: BlockDims, params: torch.Tensor, batch,
+             advstats: Optional[torch.Tensor] = None, count: Optional[torch.Tensor] = None):
     """Clipped-PPO loss on a flat (M, N, ...) minibatch
     ``(obs, action, old_logp, old_value, adv, target)``, and the bits (M, N,
-    M_bits) as a 7th entry where ``dims`` has message bits."""
+    M_bits) as a 7th entry where ``dims`` has message bits; ``advstats`` and
+    ``count`` as in :func:`clipped_ppo_terms` (a rank's part of a whole
+    minibatch).  The network is JAX's ``model.apply`` in flax's rounding
+    (:func:`apply_forward`, as ``ippo.py:127``); the hidden weights' and
+    biases' gradients are float32 sums, which :func:`ppo_update_epochs`
+    rounds to bf16 once the whole minibatch's sum is taken."""
     obs, action, old_logp, old_value, adv, target = batch[:6]
-    heads, value = train_forward(dims.split(params), obs, dims.msg_bits)
+    heads, value = apply_forward(dims.split(params), obs, dims.msg_bits)
     return clipped_ppo_terms(cfg, heads, value, action, old_logp, old_value, adv, target,
-                             bits=batch[6] if dims.msg_bits else None)
+                             advstats, batch[6] if dims.msg_bits else None, count)
 
 
 def make_lr_schedule(cfg: IPPOConfig) -> Callable[[int], torch.Tensor]:
@@ -179,31 +188,50 @@ def mean_metrics(per_pass) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([m[k] for m in per_pass]).mean() for k in METRIC_KEYS}
 
 
-def ppo_update_epochs(cfg: IPPOConfig, dims: BlockDims, params, opt_state, dataset,
-                      generator: torch.Generator):
+def minibatch_rows(cfg: IPPOConfig, n_data: int, generator: torch.Generator,
+                   draws=None) -> List[torch.Tensor]:
+    """The E x M minibatches of an update as global row indices into the
+    ``n_data`` rows (``ippo.py:186-223``): per epoch a permutation
+    (``shuffle``; its first M * mb entries, M slices) or an offset in [0,
+    n_data) (``block``: the rows rolled by it, M contiguous slices).
+    ``draws`` holds the E permutations or offsets; None draws them from
+    ``generator``, the same on every rank."""
+    e, m = cfg.epochs, cfg.minibatches
+    mb = n_data // m
+    if cfg.minibatch_mode == "shuffle":
+        if draws is None:
+            draws = [torch.randperm(n_data, generator=generator) for _ in range(e)]
+        return [r for perm in draws
+                for r in torch.as_tensor(perm, dtype=torch.int64)[:mb * m].reshape(m, mb)]
+    if cfg.minibatch_mode == "block":
+        if draws is None:
+            draws = [int(torch.randint(0, n_data, (), generator=generator)) for _ in range(e)]
+        return [(torch.arange(mb) + i * mb - int(off)) % n_data
+                for off in draws for i in range(m)]
+    raise ValueError(f"unknown minibatch_mode {cfg.minibatch_mode!r}")
+
+
+def ppo_update_epochs(cfg: IPPOConfig, dims: BlockDims, params, opt_state, dataset, passes,
+                      advstats, counts, mesh=None):
     """E epochs x M minibatches of SGD over a flat dataset tuple (leading
-    axis T*B); ``cfg.minibatch_mode`` picks the minibatches.  Returns
-    ((params, opt_state), per-pass metric dicts)."""
-    n_data = dataset[0].shape[0]
-    mb = n_data // cfg.minibatches
-    dev = params.device
+    axis T*B, this rank's rows): pass p takes the rows ``passes[p]`` (this
+    rank's part of the p-th whole minibatch, maybe none), normalised by
+    ``advstats[p]``, its loss a partial sum over ``counts[p]``; with a mesh
+    its gradients and metrics are summed over the ranks, and the hidden
+    layers' gradients rounded to bf16 (JAX's cast, :func:`round_grad_blocks`).
+    Returns ((params, opt_state), per-pass metric dicts)."""
+    from rware_tpu_torch.parallel.sharding import data_parallel
+
+    grads_fn = data_parallel(
+        lambda p, batch, stats, n: loss_grads(lambda q: ppo_loss(cfg, dims, q, batch, stats, n),
+                                              p), mesh, "sum")
     per_pass = []
-    for _ in range(cfg.epochs):
-        if cfg.minibatch_mode == "block":
-            off = int(torch.randint(0, n_data, (), generator=generator))
-            rolled = tuple(torch.roll(x, off, dims=0) for x in dataset)
-            batches = [tuple(x[i * mb:(i + 1) * mb] for x in rolled)
-                       for i in range(cfg.minibatches)]
-        elif cfg.minibatch_mode == "shuffle":
-            perm = torch.randperm(n_data, generator=generator)[: mb * cfg.minibatches]
-            idxs = perm.reshape(cfg.minibatches, mb).to(dev)
-            batches = [tuple(x[i] for x in dataset) for i in idxs]
-        else:
-            raise ValueError(f"unknown minibatch_mode {cfg.minibatch_mode!r}")
-        for batch in batches:
-            grads, metrics = loss_grads(lambda p: ppo_loss(cfg, dims, p, batch), params)
-            params, opt_state = optimizer_step(cfg, params, grads, opt_state)
-            per_pass.append(metrics)
+    for idx, stats, n in zip(passes, advstats, counts):
+        idx = idx.to(params.device)
+        grads, metrics = grads_fn(params, tuple(x[idx] for x in dataset), stats, n)
+        grads = round_grad_blocks(dims, grads, DENSE_CAST_BLOCKS)  # the whole sum's
+        params, opt_state = optimizer_step(cfg, params, grads, opt_state)
+        per_pass.append(metrics)
     return (params, opt_state), per_pass
 
 
@@ -250,15 +278,21 @@ def last_values(dims: BlockDims, params: torch.Tensor, obs: torch.Tensor) -> tor
         return apply_forward(dims.split(params), obs, dims.msg_bits)[1]
 
 
+def reward_sums(traj: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(reward sum, episodes) of ``traj`` on this rank."""
+    return traj["reward"].sum(), traj["done"].sum()
+
+
 def update_metrics(cfg: IPPOConfig, traj: Dict[str, torch.Tensor], ppo_metrics,
-                   mesh=None) -> dict:
+                   mesh=None, sums=None) -> dict:
     """The train step's metrics, as ``rware_tpu`` names them (device
     scalars).  With a mesh the reward and episode sums are the whole
     batch's, one packed all-reduce (JAX's two ``psum``), and ``cfg.n_envs``
-    is the global batch."""
+    is the global batch; ``sums`` gives them already summed (the
+    ``whole_batch_stats`` of ``parallel.sharding``)."""
     from rware_tpu_torch.parallel.sharding import psum
 
-    reward_sum, episodes = psum((traj["reward"].sum(), traj["done"].sum()), mesh)
+    reward_sum, episodes = sums if sums is not None else psum(reward_sums(traj), mesh)
     return {
         "reward_per_env": reward_sum / cfg.n_envs,
         "episodes_done": episodes,
@@ -266,38 +300,83 @@ def update_metrics(cfg: IPPOConfig, traj: Dict[str, torch.Tensor], ppo_metrics,
     }
 
 
-def build_train_step(env: Warehouse, dims: BlockDims, cfg: IPPOConfig
-                     ) -> Callable[[RunnerState], Tuple[RunnerState, dict]]:
-    """The plain learner: ``train_step(runner) -> (runner, metrics)``.
+class PlainTrainStep:
+    """``train_step(runner, draws=None) -> (runner, metrics)``; see
+    :func:`build_train_step`.  The phases are methods so that callers can
+    time them: :meth:`rollout`, :meth:`advantages`, :meth:`update`."""
 
-    Collects with the plain engine and policy (the plain version of the
-    fused collector, Philox draws keyed by :func:`collect_seed`), then GAE
-    and E x M minibatched PPO on the flattened (T*B, N, ...) dataset."""
-    from rware_tpu_torch.ops.fused_rollout import build_fused_collect
+    def __init__(self, env: Warehouse, dims: BlockDims, cfg: IPPOConfig, mesh=None):
+        from rware_tpu_torch.ops.fused_rollout import build_fused_collect
 
-    collect = build_fused_collect(env.config, cfg.rollout_len, (dims.h1, dims.h2))
-    model = policy_of(dims, torch.zeros(dims.n_params))
-    obs_fn = policy_obs_fn(env)
+        self.env_offset = 0 if mesh is None else mesh.env_offset(cfg.n_envs)
+        self.env, self.dims, self.cfg, self.mesh = env, dims, cfg, mesh
+        self.collect = build_fused_collect(env.config, cfg.rollout_len, (dims.h1, dims.h2))
+        self.model = policy_of(dims, torch.zeros(dims.n_params))
+        self.obs_fn = policy_obs_fn(env)
 
-    def train_step(runner: RunnerState):
-        policy = policy_of(dims, runner.params, model.to(runner.params.device))
+    def rollout(self, runner: RunnerState):
+        """(env_states, traj) of the collector's plain version with this
+        update's key, on this rank's envs at their global indices."""
+        policy = policy_of(self.dims, runner.params, self.model.to(runner.params.device))
         seed = collect_seed(runner.seed, runner.update_idx)
-        env_states, traj = collect.plain(runner.env_states, policy, seed)
-        obs = obs_fn(env_states)
-        adv, targets = compute_gae(cfg, traj["reward"], traj["value"], traj["done"],
-                                   last_values(dims, runner.params, obs))
+        return self.collect.plain(runner.env_states, policy, seed, self.env_offset)
+
+    def advantages(self, runner: RunnerState, env_states, traj):
+        """(obs after the rollout, advantages, targets)."""
+        obs = self.obs_fn(env_states)
+        adv, targets = compute_gae(self.cfg, traj["reward"], traj["value"], traj["done"],
+                                   last_values(self.dims, runner.params, obs))
+        return obs, adv, targets
+
+    def update(self, runner: RunnerState, traj, adv, targets, draws=None):
+        """((params, opt_state), metrics, (reward sum, episodes)) of the E x
+        M passes over the flattened (T * B, N, ...) dataset: the whole
+        batch's minibatches (:func:`minibatch_rows`, ``draws`` as there),
+        this rank's rows of each, their statistics and the reward sums in
+        one float64 all-reduce, then :func:`ppo_update_epochs`."""
+        from rware_tpu_torch.parallel.sharding import rank_rows, row_moments, whole_batch_stats
+
+        cfg, mesh = self.cfg, self.mesh
 
         def flat(x):
             return x.reshape((-1,) + x.shape[2:])
 
         dataset = tuple(flat(x) for x in (traj["obs"].float(), traj["action"], traj["logp"],
                                           traj["value"], adv, targets)
-                        + ((traj["bits"],) if dims.msg_bits else ()))
+                        + ((traj["bits"],) if self.dims.msg_bits else ()))
+        passes = [rank_rows(idx, cfg.n_envs, mesh) for idx in
+                  minibatch_rows(cfg, cfg.rollout_len * cfg.n_envs, runner.generator, draws)]
+        advstats, counts, sums = whole_batch_stats(row_moments(dataset[4]), passes,
+                                                   reward_sums(traj), mesh)
         (params, opt_state), per_pass = ppo_update_epochs(
-            cfg, dims, runner.params, runner.opt_state, dataset, runner.generator)
+            cfg, self.dims, runner.params, runner.opt_state, dataset, passes, advstats, counts,
+            mesh)
+        return (params, opt_state), mean_metrics(per_pass), sums
+
+    def __call__(self, runner: RunnerState, draws=None) -> Tuple[RunnerState, dict]:
+        env_states, traj = self.rollout(runner)
+        obs, adv, targets = self.advantages(runner, env_states, traj)
+        (params, opt_state), ppo, sums = self.update(runner, traj, adv, targets, draws)
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs,
                                   update_idx=runner.update_idx + 1)
-        return new, update_metrics(cfg, traj, mean_metrics(per_pass))
+        return new, update_metrics(self.cfg, traj, ppo, sums=sums)
 
-    return train_step
+
+def build_train_step(env: Warehouse, dims: BlockDims, cfg: IPPOConfig, mesh=None
+                     ) -> PlainTrainStep:
+    """The plain learner: ``train_step(runner, draws=None) -> (runner,
+    metrics)``.
+
+    Collects with the plain engine and policy (the plain version of the
+    fused collector, Philox draws keyed by :func:`collect_seed`), then GAE
+    and E x M minibatched PPO on the flattened (T*B, N, ...) dataset, each
+    minibatch's advantages normalised over it, the loss in flax's rounding
+    as JAX's (:func:`ppo_loss`).  ``draws`` of a call gives
+    the update's E permutations or offsets (:func:`minibatch_rows`).
+    ``mesh`` (a :class:`~rware_tpu_torch.parallel.sharding.Mesh`) makes it
+    data parallel with the whole batch's statistics, as JAX's step placed on
+    a device mesh (``train.py:291-303``): the runner holds this rank's envs,
+    ``cfg.n_envs`` is the global batch, and every pass's gradient is the
+    one-rank gradient of the whole minibatch."""
+    return PlainTrainStep(env, dims, cfg, mesh)

@@ -31,12 +31,15 @@ data parallel (``build_rnn_pallas_train_step(mesh=...)``): K2c collects this
 rank's rows keyed by their global indices, the band plan is the shard's
 (``rb = n_local / LANE``, ``ippo_rnn.py:826``), each band normalises its
 advantages over its own envs, and each pass's gradients and metrics leave
-as their mean over the ranks.
+as their mean over the ranks.  The plain learner takes a mesh too, as JAX only
+places its step on one (``train.py:291-303``): every minibatch of envs is the
+whole batch's, its statistics and gradients summed over the ranks
+(:mod:`rware_tpu_torch.parallel.sharding`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,6 +54,7 @@ from rware_tpu_torch.models.ippo import (
     optimizer_step,
     policy_obs_fn,
     reset_envs,
+    reward_sums,
     update_metrics,
 )
 from rware_tpu_torch.models.networks import (
@@ -64,6 +68,7 @@ from rware_tpu_torch.models.networks import (
     init_recurrent_actor_critic,
     pack_arrays,
     rnd_bf16,
+    round_grad_blocks,
 )
 from rware_tpu_torch.models.ppo import AdamState, clipped_ppo_terms, loss_grads
 from rware_tpu_torch.ops.fused_gru import (
@@ -77,6 +82,7 @@ from rware_tpu_torch.ops.fused_rollout import build_fused_collect_gru
 from rware_tpu_torch.parallel.sharding import Mesh, data_parallel
 
 LANE = 128  # envs per row of a band (the JAX package's tile width)
+HEAD_BLOCK = 6  # Wc in the GruDims layout: the replay casts it to bf16 (gru_replay_heads)
 
 
 @dataclasses.dataclass
@@ -351,52 +357,111 @@ def build_rnn_fused_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig,
     return RnnFusedTrainStep(env, dims, cfg, deterministic_collect, fused_loss, mesh)
 
 
-def build_rnn_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig
-                         ) -> Callable[[RNNRunnerState], Tuple[RNNRunnerState, dict]]:
-    """The plain recurrent learner: ``train_step(runner) -> (runner,
-    metrics)``.  Collects with the plain version of the recurrent collector
-    (Philox draws keyed by :func:`collect_seed`, the carry zeroed at episode
-    ends), then GAE and E epochs of M minibatches of shuffled envs, each the
-    per-step replay (:func:`gru_replay_step`) from the carry at the rollout's
-    start, under autograd."""
-    collect = build_fused_collect_gru(env.config, cfg.rollout_len, (dims.embed, dims.hidden))
-    model = rnn_policy_of(dims, torch.zeros(dims.n_params))
-    obs_fn = policy_obs_fn(env)
-    mb_envs = cfg.n_envs // cfg.minibatches
+class RnnPlainTrainStep:
+    """``train_step(runner, draws=None) -> (runner, metrics)``; see
+    :func:`build_rnn_train_step`.  The phases are methods so that callers
+    can time them: :meth:`rollout`, :meth:`advantages`, :meth:`update`."""
 
-    def loss_fn(params, traj, adv, targets, h0, idx):
+    def __init__(self, env: Warehouse, dims: GruDims, cfg: IPPOConfig,
+                 mesh: Optional[Mesh] = None):
+        self.env_offset = 0 if mesh is None else mesh.env_offset(cfg.n_envs)
+        self.env, self.dims, self.cfg, self.mesh = env, dims, cfg, mesh
+        self.collect = build_fused_collect_gru(env.config, cfg.rollout_len,
+                                               (dims.embed, dims.hidden))
+        self.model = rnn_policy_of(dims, torch.zeros(dims.n_params))
+        self.obs_fn = policy_obs_fn(env)
+
+    def rollout(self, runner: RNNRunnerState):
+        """(env_states, new_carry, traj) of the recurrent collector's plain
+        version from the runner's carry with this update's key, on this
+        rank's envs at their global indices."""
+        policy = rnn_policy_of(self.dims, runner.params, self.model.to(runner.params.device))
+        seed = collect_seed(runner.seed, runner.update_idx)
+        return self.collect.plain(runner.env_states, policy, seed, runner.carry,
+                                  self.env_offset)
+
+    def advantages(self, runner: RNNRunnerState, env_states, new_carry, traj):
+        """(obs after the rollout, advantages, targets)."""
+        obs = self.obs_fn(env_states)
+        adv, targets = compute_gae(self.cfg, traj["reward"], traj["value"], traj["done"],
+                                   rnn_last_values(self.dims, runner.params, new_carry, obs))
+        return obs, adv, targets
+
+    def loss(self, params, traj, adv, targets, h0, idx, advstats, count):
+        """The per-step replay (:func:`gru_replay_step`) of the envs ``idx``
+        from their carry ``h0[idx]`` and the clipped-PPO loss on them, a
+        partial sum over ``count``; the head weights' gradient stays float32
+        (:meth:`update` rounds the whole sum's)."""
+        dims, t_len = self.dims, traj["done"].shape[0]
         arrays = dims.split(params)
         h = h0[idx].float()
         hseq = []
-        for t in range(cfg.rollout_len):
+        for t in range(t_len):
             new_h = gru_replay_step(arrays[:6], h, traj["obs"][t, idx])
             hseq.append(new_h)
             h = torch.where(traj["done"][t, idx][:, None, None], torch.zeros_like(new_h), new_h)
-        heads, value = gru_replay_heads(arrays[6], arrays[7], torch.stack(hseq), dims.msg_bits)
+        heads, value = gru_replay_heads(arrays[6], arrays[7], torch.stack(hseq), dims.msg_bits,
+                                        round_grads=False)
         bits = traj["bits"][:, idx] if dims.msg_bits else None
-        return clipped_ppo_terms(cfg, heads, value, traj["action"][:, idx], traj["logp"][:, idx],
-                                 traj["value"][:, idx], adv[:, idx], targets[:, idx], bits=bits)
+        return clipped_ppo_terms(self.cfg, heads, value, traj["action"][:, idx],
+                                 traj["logp"][:, idx], traj["value"][:, idx], adv[:, idx],
+                                 targets[:, idx], advstats, bits, count)
 
-    def train_step(runner: RNNRunnerState):
-        policy = rnn_policy_of(dims, runner.params, model.to(runner.params.device))
-        seed = collect_seed(runner.seed, runner.update_idx)
-        env_states, new_carry, traj = collect.plain(runner.env_states, policy, seed, runner.carry)
-        obs = obs_fn(env_states)
-        adv, targets = compute_gae(cfg, traj["reward"], traj["value"], traj["done"],
-                                   rnn_last_values(dims, runner.params, new_carry, obs))
+    def update(self, runner: RNNRunnerState, traj, adv, targets, draws=None):
+        """((params, opt_state), metrics, (reward sum, episodes)) of E epochs
+        of M minibatches of envs: per epoch a permutation of the whole
+        batch's B envs (``draws``, else drawn from the runner's generator,
+        the same on every rank), M slices of B / M envs, this rank's envs of
+        each replayed from their carry; every minibatch's statistics and the
+        reward sums in one float64 all-reduce, each pass's gradients and
+        metrics summed over the ranks (``ippo_rnn.py:198-220``)."""
+        from rware_tpu_torch.parallel.sharding import rank_rows, row_moments, whole_batch_stats
+
+        cfg, mesh = self.cfg, self.mesh
+        mb = cfg.n_envs // cfg.minibatches
+        if draws is None:
+            draws = [torch.randperm(cfg.n_envs, generator=runner.generator)
+                     for _ in range(cfg.epochs)]
+        passes = [rank_rows(idx, cfg.n_envs, mesh) for perm in draws for idx in
+                  torch.as_tensor(perm, dtype=torch.int64)[:mb * cfg.minibatches]
+                  .reshape(cfg.minibatches, mb)]
+        advstats, counts, sums = whole_batch_stats(row_moments(adv, 1), passes,
+                                                   reward_sums(traj), mesh)
+        grads_fn = data_parallel(
+            lambda p, idx, stats, n: loss_grads(
+                lambda q: self.loss(q, traj, adv, targets, runner.carry, idx, stats, n), p),
+            mesh, "sum")
         params, opt_state = runner.params, runner.opt_state
         per_pass = []
-        for _ in range(cfg.epochs):
-            perm = torch.randperm(cfg.n_envs, generator=runner.generator)
-            for idx in perm[: mb_envs * cfg.minibatches].reshape(cfg.minibatches, mb_envs):
-                idx = idx.to(params.device)
-                grads, metrics = loss_grads(
-                    lambda p: loss_fn(p, traj, adv, targets, runner.carry, idx), params)
-                params, opt_state = optimizer_step(cfg, params, grads, opt_state)
-                per_pass.append(metrics)
+        for idx, stats, n in zip(passes, advstats, counts):
+            grads, metrics = grads_fn(params, idx.to(params.device), stats, n)
+            grads = round_grad_blocks(self.dims, grads, (HEAD_BLOCK,))  # the whole sum's
+            params, opt_state = optimizer_step(cfg, params, grads, opt_state)
+            per_pass.append(metrics)
+        return (params, opt_state), mean_metrics(per_pass), sums
+
+    def __call__(self, runner: RNNRunnerState, draws=None) -> Tuple[RNNRunnerState, dict]:
+        env_states, new_carry, traj = self.rollout(runner)
+        obs, adv, targets = self.advantages(runner, env_states, new_carry, traj)
+        (params, opt_state), ppo, sums = self.update(runner, traj, adv, targets, draws)
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs, carry=new_carry,
                                   update_idx=runner.update_idx + 1)
-        return new, update_metrics(cfg, traj, mean_metrics(per_pass))
+        return new, update_metrics(self.cfg, traj, ppo, sums=sums)
 
-    return train_step
+
+def build_rnn_train_step(env: Warehouse, dims: GruDims, cfg: IPPOConfig,
+                         mesh: Optional[Mesh] = None) -> RnnPlainTrainStep:
+    """The plain recurrent learner: ``train_step(runner, draws=None) ->
+    (runner, metrics)``.  Collects with the plain version of the recurrent
+    collector (Philox draws keyed by :func:`collect_seed`, the carry zeroed
+    at episode ends), then GAE and E epochs of M minibatches of shuffled
+    envs, each the per-step replay (:func:`gru_replay_step`) from the carry
+    at the rollout's start, under autograd, its advantages normalised over
+    the minibatch.  ``draws`` of a call gives the update's E permutations of
+    the envs.  ``mesh`` makes it data parallel with the whole batch's
+    statistics, as JAX's step placed on a device mesh (``train.py:291-303``):
+    the runner holds this rank's envs, ``cfg.n_envs`` is the global batch,
+    and every pass's gradient is the one-rank gradient of the whole
+    minibatch."""
+    return RnnPlainTrainStep(env, dims, cfg, mesh)

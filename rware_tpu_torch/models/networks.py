@@ -331,13 +331,40 @@ def apply_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor, msg_bits: i
     :func:`train_forward` once the biases are nonzero: there the f32 bias
     joins the f32 sum before the one rounding.  The learners' bootstrap
     value (``model.apply`` at ``ippo_pallas.py:612``) reads it.  Returns
-    (heads, value) as :func:`split_heads`."""
+    (heads, value) as :func:`split_heads`.
+
+    JAX differentiates the bf16 casts of the hidden weights and biases, so
+    their gradients are the batch's sums rounded to bf16.  Here they stay
+    float32 sums: a caller that takes a gradient rounds them
+    (:func:`round_grad_blocks` with :data:`DENSE_CAST_BLOCKS`) once they are
+    summed over every rank's rows."""
     return split_heads(_apply_heads(arrays, obs), msg_bits)
+
+
+# the blocks of a BlockDims vector whose gradient JAX's bf16 Dense rounds
+DENSE_CAST_BLOCKS = (0, 1, 2, 3)
+
+
+def round_grad_blocks(dims: _FlatBlocks, grads: torch.Tensor, blocks: Sequence[int]
+                      ) -> torch.Tensor:
+    """``grads`` (a flat vector in ``dims``'s layout, or an (N, P) stack of
+    them) with the blocks ``blocks`` rounded to bf16: the gradient of a
+    weight cast to bf16 for its product, as JAX's cast is differentiated,
+    rounded once the whole batch's sum is taken."""
+    rows = grads if grads.dim() == 2 else grads[None]
+    parts = list(torch.split(rows, [r * c for r, c in dims.shapes], dim=1))
+    for i in blocks:
+        parts[i] = rnd_bf16(parts[i])
+    out = torch.cat(parts, 1)
+    return out if grads.dim() == 2 else out[0]
 
 
 def _apply_heads(arrays: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """Two flax bf16 ``Dense`` + tanh layers and the float32 head block on
-    ``x`` (..., K): the head outputs (..., J)."""
+    ``x`` (..., K): the head outputs (..., J).  The hidden weights and biases
+    are cast by :func:`bf16_round`, so their gradients stay float32 sums (a
+    gradient-taking caller rounds them through ``round_grad_blocks(dims,
+    grads, DENSE_CAST_BLOCKS)``)."""
     w0, b0, w1, b1, wc, bc = arrays
 
     def rnd(v):
@@ -347,7 +374,7 @@ def _apply_heads(arrays: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tenso
     for w, b in ((w0, b0), (w1, b1)):
         # bf16(tanh) whose gradient reads the bf16 output, as JAX's bf16
         # tanh does: zero where a unit saturates to +-1
-        h = _Bf16Tanh.apply(rnd(rnd(h @ rnd(w)) + rnd(b)))
+        h = _Bf16Tanh.apply(rnd(rnd(h @ bf16_round(w)) + bf16_round(b)))
     return (h @ wc + bc).reshape(x.shape[:-1] + (wc.shape[1],))
 
 
@@ -711,12 +738,18 @@ def gru_replay_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch.
     return gru_replay_cell(arrays[4], arrays[5], h.float(), iall)
 
 
-def gru_replay_heads(wc: torch.Tensor, bc: torch.Tensor, hseq: torch.Tensor, msg_bits: int = 0):
+def gru_replay_heads(wc: torch.Tensor, bc: torch.Tensor, hseq: torch.Tensor, msg_bits: int = 0,
+                     round_grads: bool = True):
     """(logits, value) from the bf16 hidden sequence as the replay computes
     them (``ippo_rnn.py:546-560``): head weights rounded to bf16, float32
     sums, float32 biases; the logits are ``(logits, msg_logits)`` with
-    ``msg_bits``.  The collector's heads keep float32 weights."""
-    return split_heads(hseq.float() @ bf16_param(wc) + bc[0], msg_bits)
+    ``msg_bits``.  The collector's heads keep float32 weights.  The head
+    weights' gradient is rounded to bf16 (:func:`bf16_param`); with
+    ``round_grads=False`` it stays float32 and the caller rounds it
+    (:func:`round_grad_blocks`, block 6 of :class:`GruDims`) once the whole
+    batch's sum is taken."""
+    w = bf16_param(wc) if round_grads else bf16_round(wc)
+    return split_heads(hseq.float() @ w + bc[0], msg_bits)
 
 
 def gru_apply_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch.Tensor,

@@ -52,8 +52,14 @@ class AdamState:
     nu: torch.Tensor
 
 
+def _mean(x: torch.Tensor, count: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x``'s mean, or with ``count`` its sum over ``count``."""
+    return x.mean() if count is None else x.sum() / count
+
+
 def clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, target,
-                      advstats: Optional[torch.Tensor] = None, bits=None):
+                      advstats: Optional[torch.Tensor] = None, bits=None,
+                      count: Optional[torch.Tensor] = None):
     """The clipped-PPO objective (surrogate, clipped value loss, entropy
     bonus) from policy logits and values of any source; returns
     ``(total, metrics)`` with the metrics as means.  ``cfg`` holds
@@ -61,6 +67,10 @@ def clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, targ
 
     ``advstats`` [mean, 1/std] normalises the advantages as the fused
     kernels do; None takes the mean and population std of ``adv`` itself.
+    ``count``, the number of advantage elements of the whole minibatch of
+    which ``adv`` is this rank's part, makes every term and metric this
+    part's sum over ``count``: summed over the ranks they are the whole
+    minibatch's means (``advstats`` then the whole minibatch's too).
 
     ``bits`` (..., M), the message bits taken, switches to the joint move +
     Bernoulli policy: ``logits`` is then ``(logits, msg_logits)``, and the
@@ -78,16 +88,16 @@ def clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, targ
     ratio = torch.exp(logp - old_logp)
     pg1 = ratio * advn
     pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * advn
-    pg_loss = -torch.minimum(pg1, pg2).mean()
+    pg_loss = -_mean(torch.minimum(pg1, pg2), count)
     v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
-    v_loss = 0.5 * torch.maximum((value - target) ** 2, (v_clipped - target) ** 2).mean()
+    v_loss = 0.5 * _mean(torch.maximum((value - target) ** 2, (v_clipped - target) ** 2), count)
     entropy = -(torch.exp(logp_all) * logp_all).sum(-1)
     if bits is not None:
         entropy = entropy + bernoulli_entropy(msg_logits)
-    entropy = entropy.mean()
+    entropy = _mean(entropy, count)
     total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
     with torch.no_grad():
-        approx_kl = ((ratio - 1) - (logp - old_logp)).mean()
+        approx_kl = _mean((ratio - 1) - (logp - old_logp), count)
     metrics = {"pg_loss": pg_loss.detach(), "v_loss": v_loss.detach(),
                "entropy": entropy.detach(), "approx_kl": approx_kl}
     return total, metrics
@@ -152,7 +162,8 @@ def cross_logp(logits, action, bits=None):
 
 
 def seac_terms(cfg, seac_lambda: float, logits, value, action, behav_logp, old_value, adv,
-               target, i_axis: int, advstats: Optional[torch.Tensor] = None, bits=None):
+               target, i_axis: int, advstats: Optional[torch.Tensor] = None, bits=None,
+               count: Optional[torch.Tensor] = None):
     """The SEAC-PPO objective (``seac.py:443-480``) on agent i's heads over
     agent j's samples: ``logits`` (..., A) and ``value`` with the agent axes
     at ``i_axis`` (agent i, whose network ran) and last (agent j, whose
@@ -165,7 +176,10 @@ def seac_terms(cfg, seac_lambda: float, logits, value, action, behav_logp, old_v
     message bits taken (broadcast over ``i_axis`` like ``action``), switches
     to the joint move + Bernoulli policy: ``logits`` is then ``(logits,
     msg_logits)`` and the log-prob and the entropy are the joint ones
-    (:func:`cross_logp`).  Returns (total, metrics)."""
+    (:func:`cross_logp`).  ``count``, the number of advantage elements of the
+    whole minibatch of which these are this rank's part, makes every term
+    and metric this part's sum over ``count / N`` (the pairs are summed over
+    j), as :func:`clipped_ppo_terms`.  Returns (total, metrics)."""
     if advstats is None:
         advn = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
     else:
@@ -176,19 +190,20 @@ def seac_terms(cfg, seac_lambda: float, logits, value, action, behav_logp, old_v
     pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * advn
     surr = -torch.minimum(pg1, pg2)
     n = logp.shape[i_axis]
+    rows = None if count is None else count / n
     eye = torch.eye(n, dtype=torch.float32, device=logp.device)
     shape = [1] * surr.ndim
     shape[i_axis] = shape[-1] = n
     weight = (eye + seac_lambda * (1.0 - eye)).reshape(shape)
-    pg_loss = (surr * weight).sum(-1).mean()
+    pg_loss = _mean((surr * weight).sum(-1), rows)
     v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
     v_err = torch.maximum((value - target) ** 2, (v_clipped - target) ** 2)
-    v_loss = 0.5 * (v_err * weight).sum(-1).mean()
-    entropy = torch.diagonal(ent_map, dim1=i_axis, dim2=-1).mean()
+    v_loss = 0.5 * _mean((v_err * weight).sum(-1), rows)
+    entropy = _mean(torch.diagonal(ent_map, dim1=i_axis, dim2=-1), rows)
     total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
     with torch.no_grad():
         own = torch.diagonal(ratio, dim1=i_axis, dim2=-1)
-        approx_kl = ((own - 1) - torch.log(own)).mean()
+        approx_kl = _mean((own - 1) - torch.log(own), rows)
     metrics = {"pg_loss": pg_loss.detach(), "v_loss": v_loss.detach(),
                "entropy": entropy.detach(), "approx_kl": approx_kl}
     return total, metrics

@@ -46,8 +46,17 @@ constant lr, so :class:`~rware_tpu_torch.models.ppo.AdamState` and
   (``seac.py:855``): K2d′ collects this rank's rows keyed by their global
   indices, the cross replay and GAE run on them, the env bands are the
   shard's, and each band's gradients and metrics leave as their mean over the
-  ranks before the one clip + Adam step over the stack.  The other SEAC
-  learners have no mesh, as JAX's (``seac.py:310``).
+  ranks before the one clip + Adam step over the stack.
+
+The other three learners JAX builds without a mesh and only places on one
+(``seac.py:101, 310``; ``train.py:291-303``), so under a mesh they keep their
+one-device meaning: each rank collects its rows of the global batch at their
+global indices, every pass's advantage statistics are its whole minibatch's
+(one float64 all-reduce of every pass's moments and the reward sums before
+the first pass), and each pass's gradients and metrics leave in one packed
+all-reduce: the mean of the ranks' equal time windows for K8, the sum of the
+ranks' partial sums over the global count for the flat minibatches, and for
+A2C, whose loss has no statistic, the mean of the ranks' equal rollouts.
 
 The cross arrays (old values, advantages, targets) of the A2C and
 time-window learners are ``(N_i, T, B, N_j)``: agent i's critic on agent j's
@@ -74,10 +83,12 @@ from rware_tpu_torch.models.ippo import (
     policy_obs_fn,
     policy_of,
     reset_envs,
+    reward_sums,
     update_metrics,
 )
 from rware_tpu_torch.models.ippo_rnn import RNNRunnerState, band_slice, rnn_policy_of
 from rware_tpu_torch.models.networks import (
+    DENSE_CAST_BLOCKS,
     BlockDims,
     GruDims,
     apply_forward,
@@ -86,6 +97,7 @@ from rware_tpu_torch.models.networks import (
     init_recurrent_actor_critic,
     pack_arrays,
     params_to_arrays,
+    round_grad_blocks,
     split_heads,
     train_forward,
 )
@@ -102,8 +114,14 @@ from rware_tpu_torch.ops.fused_rollout import (
     build_fused_collect_per_agent,
 )
 from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
-from rware_tpu_torch.ops.fused_update import metric_means
-from rware_tpu_torch.parallel.sharding import Mesh, data_parallel
+from rware_tpu_torch.ops.fused_update import metric_means, window_rows
+from rware_tpu_torch.parallel.sharding import (
+    Mesh,
+    data_parallel,
+    rank_rows,
+    row_moments,
+    whole_batch_stats,
+)
 
 CROSS_CHUNK = 1 << 20  # samples per chunk of the cross-value forward
 
@@ -152,20 +170,20 @@ class SEACPPOConfig:
 
 
 def init_seac(env: Warehouse, cfg: SEACConfig, seed: int,
-              hidden: Tuple[int, int] = (128, 128)) -> Tuple[RunnerState, BlockDims]:
+              hidden: Tuple[int, int] = (128, 128), mesh: Optional[Mesh] = None
+              ) -> Tuple[RunnerState, BlockDims]:
     """N independent flax-default inits (``seac.py:61-98``), agent i's drawn
     from ``numpy.random.default_rng((seed, 2, i))`` (with a message head where
     the config has message bits), stacked into ``(N, P)``; the optimizer
     state over the stack and a fresh batch of ``cfg.n_envs`` env states on
-    ``env.device``."""
-    from rware_tpu_torch.parallel import batched_reset
-
+    ``env.device`` (with a mesh this rank's rows, keyed by their global
+    indices)."""
     l_obs = env.config.policy_obs_length
     models = [init_actor_critic(l_obs, env.n_actions, hidden, (seed, 2, i), env.config.msg_bits)
               for i in range(env.n_agents)]
     params = torch.stack([pack_arrays(params_to_arrays(m)) for m in models])
     params = params.detach().to(env.device)
-    env_states, _ = batched_reset(env, seed, cfg.n_envs)
+    env_states = reset_envs(env, seed, cfg.n_envs, mesh)
     obs = policy_obs_fn(env)(env_states)
     runner = RunnerState(
         params=params, opt_state=optimizer_init(params), env_states=env_states, obs=obs,
@@ -175,11 +193,12 @@ def init_seac(env: Warehouse, cfg: SEACConfig, seed: int,
 
 
 def init_seac_ppo(env: Warehouse, cfg: SEACPPOConfig, seed: int,
-                  hidden: Tuple[int, int] = (128, 128)) -> Tuple[RunnerState, BlockDims]:
+                  hidden: Tuple[int, int] = (128, 128), mesh: Optional[Mesh] = None
+                  ) -> Tuple[RunnerState, BlockDims]:
     """The runner of :func:`init_seac` for the batch of ``cfg``
     (``seac.py:296-307``)."""
     return init_seac(env, SEACConfig(n_envs=cfg.n_envs, rollout_len=cfg.rollout_len, lr=cfg.lr,
-                                     max_grad_norm=cfg.max_grad_norm), seed, hidden)
+                                     max_grad_norm=cfg.max_grad_norm), seed, hidden, mesh)
 
 
 def seac_optimizer_step(cfg, params, grads, opt_state: AdamState):
@@ -258,15 +277,20 @@ def seac_window_starts(cfg: SEACPPOConfig, offsets) -> torch.Tensor:
     return ((torch.arange(m)[None, :] * (t_len // m) - offs) % t_len).reshape(-1)
 
 
-def seac_ppo_loss(cfg: SEACPPOConfig, dims: BlockDims, params: torch.Tensor, batch):
+def seac_ppo_loss(cfg: SEACPPOConfig, dims: BlockDims, params: torch.Tensor, batch,
+                  advstats: Optional[torch.Tensor] = None, count: Optional[torch.Tensor] = None):
     """The flat learner's minibatch loss in flax's rounding
     (``minibatch_loss``, ``seac.py:443-480``; each agent's network is
     :func:`apply_forward`) on a flat minibatch ``(obs (M, N_j, L), action,
     behaviour logp (M, N_j), old_value, adv, target (M, N_i, N_j))``, and the
     bits (M, N_j, M_bits) as a 7th entry where ``dims`` has message bits
     (the joint log-prob and entropy of ``cross_logp``, ``seac.py:415-441``);
-    the advantages normalised over the minibatch.  Returns (total,
-    metrics)."""
+    the advantages normalised over the minibatch; ``advstats`` and ``count``
+    as in :func:`~rware_tpu_torch.models.ppo.seac_terms` (a rank's part of a
+    whole minibatch).  The hidden weights' and biases' gradients are float32
+    sums: the learner rounds the whole batch's to bf16 (JAX's cast,
+    :func:`~rware_tpu_torch.models.networks.round_grad_blocks`).  Returns
+    (total, metrics)."""
     obs, action, behav_logp, old_value, adv, target = batch[:6]
     heads = [apply_forward(dims.split(params[i]), obs, dims.msg_bits)
              for i in range(params.shape[0])]
@@ -278,7 +302,7 @@ def seac_ppo_loss(cfg: SEACPPOConfig, dims: BlockDims, params: torch.Tensor, bat
         logits = torch.stack([h[0] for h in heads], dim=1)  # (M, N_i, N_j, A)
     bits = batch[6][:, None] if dims.msg_bits else None
     return seac_terms(cfg, cfg.seac_lambda, logits, value, action[:, None], behav_logp[:, None],
-                      old_value, adv, target, 1, bits=bits)
+                      old_value, adv, target, 1, advstats, bits, count)
 
 
 class SeacTrainStep:
@@ -288,11 +312,12 @@ class SeacTrainStep:
     :meth:`update`."""
 
     def __init__(self, env: Warehouse, dims: BlockDims, cfg: SEACPPOConfig,
-                 deterministic_collect: bool = False):
+                 deterministic_collect: bool = False, mesh: Optional[Mesh] = None):
         if cfg.rollout_len % cfg.minibatches:
             raise ValueError(f"minibatches={cfg.minibatches} must divide "
                              f"rollout_len={cfg.rollout_len} (time-window minibatches)")
-        self.env, self.dims, self.cfg = env, dims, cfg
+        self.env_offset = 0 if mesh is None else mesh.env_offset(cfg.n_envs)
+        self.env, self.dims, self.cfg, self.mesh = env, dims, cfg, mesh
         self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect_per_agent(env.config, cfg.rollout_len,
                                                      (dims.h1, dims.h2),
@@ -307,7 +332,7 @@ class SeacTrainStep:
         update's key."""
         self._policies = seac_policies_of(self.dims, runner.params, self._policies)
         seed = collect_seed(runner.seed, runner.update_idx)
-        return self.collect(runner.env_states, self._policies, seed)
+        return self.collect(runner.env_states, self._policies, seed, self.env_offset)
 
     def advantages(self, runner: RunnerState, env_states, traj):
         """(obs after the rollout, cross values, advantages, targets), the
@@ -318,45 +343,66 @@ class SeacTrainStep:
         adv, targets = cross_gae(self.cfg, traj["reward"], values, traj["done"], last)
         return obs, values, adv, targets
 
-    def update(self, runner: RunnerState, dataset, offsets: Optional[Sequence[int]] = None):
-        """((params, opt_state), metrics) of the E x M passes: one K8 launch
-        and one optimizer step each."""
-        cfg = self.cfg
+    def update(self, runner: RunnerState, dataset, offsets: Optional[Sequence[int]] = None,
+               sums=()):
+        """((params, opt_state), metrics, sums) of the E x M passes: every
+        window's advantage statistics over all its pairs and the whole
+        batch's envs and the tensors of ``sums`` (this rank's reward sums)
+        in one float64 all-reduce, then per window one K8 launch with those
+        statistics (with a mesh its gradients and metrics averaged over the
+        ranks' equal windows) and one optimizer step; ``sums`` returns
+        summed over the ranks."""
+        cfg, mesh = self.cfg, self.mesh
         if offsets is None:
             offsets = torch.randint(0, cfg.rollout_len, (cfg.epochs,), generator=runner.generator)
-        params, opt_state = runner.params, runner.opt_state
+        starts = seac_window_starts(cfg, offsets).tolist()
+        windows = [window_rows(start, self.grads.t_mb, cfg.rollout_len, "cpu")
+                   for start in starts]
+        advstats, _, sums = whole_batch_stats(row_moments(dataset[4], 1), windows, sums, mesh)
         n = self.grads.t_mb * dataset[1].shape[1] * dataset[1].shape[2]
+
+        def window_grads(params, start, stats):
+            grads, metric_sums = self.grads(params, dataset, start, stats)
+            return grads, metric_means(metric_sums, n)
+
+        grads_fn = data_parallel(window_grads, mesh)
+        params, opt_state = runner.params, runner.opt_state
         per_pass = []
-        for start in seac_window_starts(cfg, offsets).tolist():
-            grads, sums = self.grads(params, dataset, start)
+        for start, stats in zip(starts, advstats):
+            grads, metrics = grads_fn(params, start, stats)
             params, opt_state = seac_optimizer_step(cfg, params, grads, opt_state)
-            per_pass.append(metric_means(sums, n))
-        return (params, opt_state), mean_metrics(per_pass)
+            per_pass.append(metrics)
+        return (params, opt_state), mean_metrics(per_pass), sums
 
     def __call__(self, runner: RunnerState, offsets: Optional[Sequence[int]] = None
                  ) -> Tuple[RunnerState, dict]:
         env_states, traj = self.rollout(runner)
         obs, values, adv, targets = self.advantages(runner, env_states, traj)
         dataset = (traj["obs"], traj["action"], traj["logp"], values, adv, targets)
-        (params, opt_state), ppo = self.update(runner, dataset, offsets)
+        (params, opt_state), ppo, sums = self.update(runner, dataset, offsets,
+                                                  reward_sums(traj))
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs,
                                   update_idx=runner.update_idx + 1)
-        return new, update_metrics(self.cfg, traj, ppo)
+        return new, update_metrics(self.cfg, traj, ppo, sums=sums)
 
 
 def build_seac_ppo_fused_train_step(env: Warehouse, dims: BlockDims, cfg: SEACPPOConfig,
-                                    deterministic_collect: bool = False) -> SeacTrainStep:
+                                    deterministic_collect: bool = False,
+                                    mesh: Optional[Mesh] = None) -> SeacTrainStep:
     """The SEAC-PPO learner on the kernels (``build_seac_ppo_train_step`` with
     ``collect_mode="pallas", update_mode="fused"``): K2d collect with each
     agent's own network, cross values in the kernels' rounding, bootstrap
     values in flax's, cross GAE, then per epoch one offset in [0, T) and M
     time windows ``(m * t_mb - off) % T`` read in place, each one K8 launch
     for all agents and one clip + Adam step over the stack.  ``offsets`` of a
-    call overrides the (E,) offsets drawn from the runner's generator.  On a
-    CUDA runner every kernel runs on the card; on a CPU runner every wrapper
-    runs its plain version."""
-    return SeacTrainStep(env, dims, cfg, deterministic_collect)
+    call overrides the (E,) offsets drawn from the runner's generator.  Each
+    window's advantages are normalised over the window's pairs and envs.
+    ``mesh`` makes it data parallel with the whole batch's statistics (the
+    module's head): the runner holds this rank's envs and ``cfg.n_envs`` is
+    the global batch.  On a CUDA runner every kernel runs on the card; on a
+    CPU runner every wrapper runs its plain version."""
+    return SeacTrainStep(env, dims, cfg, deterministic_collect, mesh)
 
 
 class _PerAgentRollout:
@@ -366,10 +412,11 @@ class _PerAgentRollout:
     ``collect="plain"``."""
 
     def __init__(self, env: Warehouse, dims: BlockDims, cfg, collect: str,
-                 deterministic_collect: bool = False):
+                 deterministic_collect: bool = False, mesh: Optional[Mesh] = None):
         if collect not in ("fused", "plain"):
             raise ValueError(f"collect must be 'fused' or 'plain', got {collect!r}")
-        self.env, self.dims, self.cfg = env, dims, cfg
+        self.env_offset = 0 if mesh is None else mesh.env_offset(cfg.n_envs)
+        self.env, self.dims, self.cfg, self.mesh = env, dims, cfg, mesh
         self.policy_obs = policy_obs_fn(env)
         self.collect = build_fused_collect_per_agent(env.config, cfg.rollout_len,
                                                      (dims.h1, dims.h2),
@@ -379,11 +426,12 @@ class _PerAgentRollout:
 
     def rollout(self, runner: RunnerState):
         """(env_states, traj) of the per-agent collector (or its plain
-        version) with this update's key."""
+        version) with this update's key, on this rank's envs at their global
+        indices."""
         self._policies = seac_policies_of(self.dims, runner.params, self._policies)
         seed = collect_seed(runner.seed, runner.update_idx)
         collect = self.collect.plain if self.plain_collect else self.collect
-        return collect(runner.env_states, self._policies, seed)
+        return collect(runner.env_states, self._policies, seed, self.env_offset)
 
 
 class SeacFlatTrainStep(_PerAgentRollout):
@@ -402,38 +450,51 @@ class SeacFlatTrainStep(_PerAgentRollout):
         adv, targets = cross_gae(self.cfg, traj["reward"], values, traj["done"], last)
         return obs, values, adv, targets
 
-    def update(self, runner: RunnerState, dataset, offsets: Optional[Sequence[int]] = None):
-        """((params, opt_state), metrics) of the E x M flat minibatches over
-        the ``T * B`` rows of ``dataset`` (obs, action, logp (T, B, N, ...),
-        the cross arrays (N_i, T, B, N_j), and the bits with message bits):
-        epoch e rolls the rows by ``offsets[e]`` in [0, T * B) (drawn from
-        the runner's generator if None), then each minibatch is one autograd
-        of :func:`seac_ppo_loss` and one optimizer step."""
-        cfg, dims = self.cfg, self.dims
+    def update(self, runner: RunnerState, dataset, offsets: Optional[Sequence[int]] = None,
+               sums=()):
+        """((params, opt_state), metrics, sums) of the E x M flat minibatches
+        over the whole batch's ``T * B`` rows (``dataset``: obs, action,
+        logp (T, B, N, ...), the cross arrays (N_i, T, B, N_j), and the bits
+        with message bits; this rank's envs): epoch e rolls the
+        rows by ``offsets[e]`` in [0, T * B) (drawn from the runner's
+        generator if None, the same on every rank), then each minibatch is
+        this rank's rows of it, one autograd of :func:`seac_ppo_loss` (its
+        advantages normalised over the whole minibatch, a partial sum over
+        its count; with a mesh its gradients and metrics summed over the
+        ranks) and one optimizer step.  Every minibatch's statistics and the
+        tensors of ``sums`` (this rank's reward sums) leave in one float64
+        all-reduce first; ``sums`` returns summed over the ranks."""
+        cfg, dims, mesh = self.cfg, self.dims, self.mesh
         d = cfg.rollout_len * cfg.n_envs
         mb = d // cfg.minibatches
         if offsets is None:
             offsets = torch.randint(0, d, (cfg.epochs,), generator=runner.generator)
 
         def flat(x):  # (T, B, ...) -> (T * B, ...)
-            return x.reshape((d,) + x.shape[2:])
+            return x.reshape((-1,) + x.shape[2:])
 
         obs, action, logp, values, adv, targets = dataset[:6]
         # the cross arrays (N_i, T, B, N_j) -> (T * B, N_i, N_j)
         rows = (flat(obs), flat(action), flat(logp),
                 *(flat(x.permute(1, 2, 0, 3)) for x in (values, adv, targets)),
                 *(flat(x) for x in dataset[6:]))
+        # roll(x, off)[m * mb:(m + 1) * mb]: global rows (m * mb - off + k) % d
+        passes = [rank_rows((torch.arange(mb) + m * mb - int(off)) % d, cfg.n_envs, mesh)
+                  for off in torch.as_tensor(offsets).tolist() for m in range(cfg.minibatches)]
+        advstats, counts, sums = whole_batch_stats(row_moments(rows[4]), passes, sums, mesh)
+        grads_fn = data_parallel(
+            lambda p, batch, stats, n: loss_grads(
+                lambda q: seac_ppo_loss(cfg, dims, q, batch, stats, n), p),
+            mesh, "sum")
         params, opt_state = runner.params, runner.opt_state
         per_pass = []
-        for off in torch.as_tensor(offsets).tolist():
-            for m in range(cfg.minibatches):
-                # roll(x, off)[m * mb:(m + 1) * mb], read in place unless it wraps
-                start = (m * mb - int(off)) % d
-                batch = tuple(band_slice(x[None], start, mb)[0] for x in rows)
-                grads, metrics = loss_grads(lambda p: seac_ppo_loss(cfg, dims, p, batch), params)
-                params, opt_state = seac_optimizer_step(cfg, params, grads, opt_state)
-                per_pass.append(metrics)
-        return (params, opt_state), mean_metrics(per_pass)
+        for idx, stats, n in zip(passes, advstats, counts):
+            idx = idx.to(params.device)
+            grads, metrics = grads_fn(params, tuple(x[idx] for x in rows), stats, n)
+            grads = round_grad_blocks(dims, grads, DENSE_CAST_BLOCKS)  # the whole sum's
+            params, opt_state = seac_optimizer_step(cfg, params, grads, opt_state)
+            per_pass.append(metrics)
+        return (params, opt_state), mean_metrics(per_pass), sums
 
     def __call__(self, runner: RunnerState, offsets: Optional[Sequence[int]] = None
                  ) -> Tuple[RunnerState, dict]:
@@ -442,16 +503,17 @@ class SeacFlatTrainStep(_PerAgentRollout):
         dataset = (traj["obs"], traj["action"], traj["logp"], values, adv, targets)
         if self.dims.msg_bits:
             dataset += (traj["bits"],)
-        (params, opt_state), ppo = self.update(runner, dataset, offsets)
+        (params, opt_state), ppo, sums = self.update(runner, dataset, offsets,
+                                                  reward_sums(traj))
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs,
                                   update_idx=runner.update_idx + 1)
-        return new, update_metrics(self.cfg, traj, ppo)
+        return new, update_metrics(self.cfg, traj, ppo, sums=sums)
 
 
 def build_seac_ppo_train_step(env: Warehouse, dims: BlockDims, cfg: SEACPPOConfig,
-                              collect: str = "fused", deterministic_collect: bool = False
-                              ) -> SeacFlatTrainStep:
+                              collect: str = "fused", deterministic_collect: bool = False,
+                              mesh: Optional[Mesh] = None) -> SeacFlatTrainStep:
     """The flat SEAC-PPO learner (``build_seac_ppo_train_step`` with
     ``update_mode="xla"``): ``train_step(runner, offsets=None) -> (runner,
     metrics)``.  Collects with the per-agent collector, by default through
@@ -465,8 +527,10 @@ def build_seac_ppo_train_step(env: Warehouse, dims: BlockDims, cfg: SEACPPOConfi
     :func:`seac_ppo_loss` and one optimizer step.  ``offsets`` of a call
     overrides the (E,) offsets drawn from the runner's generator.  The
     learner SEAC-PPO with message bits trains on, since K8 has no message
-    head."""
-    return SeacFlatTrainStep(env, dims, cfg, collect, deterministic_collect)
+    head.  ``mesh`` makes it data parallel with the whole batch's statistics
+    (the module's head): the runner holds this rank's envs and
+    ``cfg.n_envs`` is the global batch."""
+    return SeacFlatTrainStep(env, dims, cfg, collect, deterministic_collect, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -495,8 +559,11 @@ def seac_a2c_loss(cfg: SEACConfig, dims: BlockDims, params: torch.Tensor, traj: 
       agent's own policy (the diagonal).  With message bits the log-prob and
       the entropy are the joint ones over (move, bits).
 
-    Returns (total, metrics) with JAX's names: ``pg_loss``, ``v_loss``,
-    ``entropy``, ``mean_is_weight`` (the mean of w over every pair)."""
+    The hidden weights' and biases' gradients are float32 sums: the learner
+    rounds the whole batch's to bf16 (JAX's cast,
+    :func:`~rware_tpu_torch.models.networks.round_grad_blocks`).  Returns
+    (total, metrics) with JAX's names: ``pg_loss``, ``v_loss``, ``entropy``,
+    ``mean_is_weight`` (the mean of w over every pair)."""
     obs, action, behav_logp, reward, done = (traj[k] for k in ("obs", "action", "logp",
                                                                 "reward", "done"))
     t_len, b, n = reward.shape
@@ -529,10 +596,14 @@ class SeacA2CTrainStep(_PerAgentRollout):
 
     def update(self, runner: RunnerState, traj: dict, last_obs: torch.Tensor):
         """((params, opt_state), metrics) of one autograd of
-        :func:`seac_a2c_loss` on ``traj`` and ``last_obs`` and one clip +
-        Adam step over the stack."""
-        grads, metrics = loss_grads(
-            lambda p: seac_a2c_loss(self.cfg, self.dims, p, traj, last_obs), runner.params)
+        :func:`seac_a2c_loss` on ``traj`` and ``last_obs`` (with a mesh its
+        gradients and metrics averaged over the ranks' equal rollouts, the
+        whole batch's, as the loss takes no statistic over the batch) and one
+        clip + Adam step over the stack."""
+        grads_fn = data_parallel(lambda params: loss_grads(
+            lambda p: seac_a2c_loss(self.cfg, self.dims, p, traj, last_obs), params), self.mesh)
+        grads, metrics = grads_fn(runner.params)
+        grads = round_grad_blocks(self.dims, grads, DENSE_CAST_BLOCKS)  # the whole sum's
         return seac_optimizer_step(self.cfg, runner.params, grads, runner.opt_state), metrics
 
     def __call__(self, runner: RunnerState) -> Tuple[RunnerState, dict]:
@@ -542,11 +613,12 @@ class SeacA2CTrainStep(_PerAgentRollout):
         new = dataclasses.replace(runner, params=params, opt_state=opt_state,
                                   env_states=env_states, obs=obs,
                                   update_idx=runner.update_idx + 1)
-        return new, update_metrics(self.cfg, traj, metrics)
+        return new, update_metrics(self.cfg, traj, metrics, self.mesh)
 
 
 def build_seac_train_step(env: Warehouse, dims: BlockDims, cfg: SEACConfig,
-                          collect: str = "fused") -> SeacA2CTrainStep:
+                          collect: str = "fused", mesh: Optional[Mesh] = None
+                          ) -> SeacA2CTrainStep:
     """SEAC A2C (``build_seac_train_step``, ``seac.py:101-276``):
     ``train_step(runner) -> (runner, metrics)``.  Collects ``cfg.rollout_len``
     autoreset steps with the per-agent collector, by default through its
@@ -557,8 +629,11 @@ def build_seac_train_step(env: Warehouse, dims: BlockDims, cfg: SEACConfig,
     Then one autograd of :func:`seac_a2c_loss` and one clip + Adam step over
     the (N, P) stack.  The metrics are JAX's: ``pg_loss``, ``v_loss``,
     ``entropy``, ``mean_is_weight``, ``reward_per_env`` and
-    ``episodes_done``."""
-    return SeacA2CTrainStep(env, dims, cfg, collect)
+    ``episodes_done``.  ``mesh`` makes it data parallel (the module's head):
+    the runner holds this rank's envs, ``cfg.n_envs`` is the global batch,
+    and an update takes two all-reduces (the gradients and metrics, the
+    reward sums)."""
+    return SeacA2CTrainStep(env, dims, cfg, collect, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

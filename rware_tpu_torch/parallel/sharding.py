@@ -1,23 +1,38 @@
 """Data parallelism over the env batch with ``torch.distributed`` (the
 counterpart of ``rware_tpu/parallel/sharding.py``).
 
-The JAX package shards the env axis of a device ``Mesh`` and lets
-``shard_map`` place the collectives.  Here one process drives one device
-(``rank`` of ``world``) and holds a contiguous shard of the global env batch;
-parameters, optimizer state and the runner's generator are the same on every
-rank.  A learner built with a :class:`Mesh` collects and computes advantages
-on its own rows with no collective, then, per minibatch pass, leaves its
-gradients and the pass's metrics through :func:`data_parallel`: one packed
-all-reduce of their mean, so every rank takes the same optimizer step.  The
-update's reward and episode sums leave through :meth:`Mesh.psum`, one
-all-reduce.  As inside JAX's ``shard_map``, every statistic a learner takes
-over its batch (the advantages' mean and std) is the shard's own.
+The JAX package shards the env axis of a device ``Mesh``.  Here one process
+drives one device (``rank`` of ``world``) and holds a contiguous shard of the
+global env batch; parameters, optimizer state and the runner's generator are
+the same on every rank.  A learner built with a :class:`Mesh` collects its own
+rows (keyed by their global env indices) with no collective, and its
+statistics follow JAX's, which differ by learner:
+
+* The five learners JAX builds with ``mesh=`` run under ``shard_map``, where
+  every statistic a learner takes over its batch (the advantages' mean and
+  std) is the shard's own: each minibatch pass leaves its gradients and
+  metrics through :func:`data_parallel`, one packed all-reduce of their mean
+  over the ranks, and the update's reward and episode sums through
+  :func:`psum`.
+* The learners JAX only places on the mesh (plain IPPO, plain recurrent
+  IPPO, SEAC-PPO's two MLP learners, SEAC A2C) keep their single-device
+  meaning under XLA's partitioner: every statistic is the whole batch's.  A
+  pass's minibatch is drawn from the global batch (the same generator on
+  every rank) and :func:`rank_rows` picks this rank's rows of it; each
+  pass's advantage moments (:func:`row_moments`) and the update's reward and
+  episode sums leave in one float64 all-reduce before the first pass
+  (:func:`whole_batch_stats`); a rank's loss is its partial sum over the
+  global count, and each pass's gradients and metrics leave as their sum
+  over the ranks (:func:`data_parallel` with ``reduce="sum"``).  SEAC-PPO's
+  time windows and SEAC A2C's rollout split evenly, so their shard means
+  average to the whole batch's.
 
 Every collective of a learner goes through a :class:`Mesh` and adds one to
 its ``counts``, which tests and ``chip_smoke.py`` zero before a run.  The
 collectives take the tensors on the mesh's device, CUDA tensors under NCCL
 and gloo alike, and raise what the backend raises.  The backend is the
-process group's own: nothing here picks one.
+process group's own: nothing here picks one.  Without a mesh a learner is a
+world of one: the same formulas, no collective.
 """
 from __future__ import annotations
 
@@ -133,6 +148,12 @@ class Mesh:
             at += x.numel()
         return _rebuild(tree, out)
 
+    def all_reduce_sum(self, tree: Any) -> Any:
+        """Every tensor of ``tree`` (float32 partial gradients and metrics)
+        replaced by its sum over the ranks: one all-reduce of them packed
+        together."""
+        return self._reduce(tree, False, None)
+
     def all_reduce_mean(self, tree: Any) -> Any:
         """Every tensor of ``tree`` (float32 gradients and metrics) replaced
         by its mean over the ranks: one all-reduce of them packed together
@@ -196,19 +217,69 @@ def replicate(tree: Any, mesh: Mesh) -> Any:
     return walk(tree)
 
 
-def data_parallel(grads_fn: Callable[..., Tuple[Any, Any]], mesh: Optional[Mesh]
-                  ) -> Callable[..., Tuple[Any, Any]]:
+def data_parallel(grads_fn: Callable[..., Tuple[Any, Any]], mesh: Optional[Mesh],
+                  reduce: str = "mean") -> Callable[..., Tuple[Any, Any]]:
     """``grads_fn(...) -> (grads, metrics)`` of one minibatch pass on this
-    rank's shard, wrapped so that its gradients and metrics leave as their
-    mean over the mesh, one packed all-reduce (JAX's per-pass ``pmean`` of
-    the gradients and of the metrics).  Without a mesh, ``grads_fn``."""
+    rank's shard, wrapped so that its gradients and metrics leave as one
+    packed all-reduce.  ``reduce="mean"`` takes their mean over the ranks:
+    JAX's per-pass ``pmean`` inside ``shard_map`` (the five mesh learners,
+    each shard with its own statistics), and the exact whole-batch mean where
+    every rank holds an equal share of the pass (SEAC-PPO's time windows,
+    SEAC A2C).  ``reduce="sum"`` takes their sum, for a loss that is already
+    a partial sum over the global count (plain IPPO, plain recurrent IPPO,
+    SEAC-PPO's flat minibatches).  Without a mesh, ``grads_fn``."""
+    if reduce not in ("mean", "sum"):
+        raise ValueError(f"reduce must be 'mean' or 'sum', got {reduce!r}")
     if mesh is None:
         return grads_fn
+    combine = mesh.all_reduce_mean if reduce == "mean" else mesh.all_reduce_sum
 
     def fn(*args, **kwargs):
-        return mesh.all_reduce_mean(grads_fn(*args, **kwargs))
+        return combine(grads_fn(*args, **kwargs))
 
     return fn
+
+
+def rank_rows(idx: torch.Tensor, n_envs: int, mesh: Optional[Mesh]) -> torch.Tensor:
+    """This rank's rows of a minibatch of global rows ``idx`` (row ``t *
+    n_envs + b`` is env b at time t; a minibatch of envs has t = 0), as
+    indices into its own ``(T * n_local)`` rows, in ``idx``'s order; empty
+    where it holds none.  Without a mesh, ``idx``."""
+    if mesh is None:
+        return idx
+    n, lo = mesh.n_local(n_envs), mesh.env_offset(n_envs)
+    t, b = idx // n_envs, idx % n_envs - lo
+    keep = (b >= 0) & (b < n)
+    return t[keep] * n + b[keep]
+
+
+def row_moments(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``(x.shape[dim], 3)`` float64: [count, sum, sum of squares] of the
+    elements of each row of ``x`` along ``dim``; a pass's advantage moments
+    are the sum of its rows'."""
+    rows = x.detach().movedim(dim, 0).reshape(x.shape[dim], -1).double()
+    count = torch.full((rows.shape[0],), float(rows.shape[1]), dtype=torch.float64,
+                       device=x.device)
+    return torch.stack([count, rows.sum(1), (rows * rows).sum(1)], 1)
+
+
+def whole_batch_stats(moments: torch.Tensor, passes: List[torch.Tensor], sums: Any,
+                      mesh: Optional[Mesh]):
+    """The one float64 all-reduce of an update with whole-batch statistics:
+    every pass's advantage moments on this rank (the rows ``passes[p]`` of
+    the per-row ``moments`` of :func:`row_moments`, summed) and the tensors
+    of ``sums`` (a learner's reward and episode sums on this rank), packed
+    (:func:`psum`).  Returns ``(advstats, counts, sums)``: each pass's
+    [mean, 1 / (std + 1e-8)] (P, 2) float32 over its whole minibatch
+    (population std), its element count (P,) float32, and ``sums`` over the
+    whole batch."""
+    per_pass = torch.stack([moments.index_select(0, idx.to(moments.device)).sum(0)
+                            for idx in passes])
+    per_pass, sums = psum((per_pass, sums), mesh)
+    n, mean = per_pass[:, 0], per_pass[:, 1] / per_pass[:, 0]
+    std = (per_pass[:, 2] / n - mean * mean).clamp(min=0).sqrt()
+    advstats = torch.stack([mean, 1.0 / (std + 1e-8)], 1).to(torch.float32)
+    return advstats, n.to(torch.float32), sums
 
 
 def psum(tree: Any, mesh: Optional[Mesh]) -> Any:

@@ -8,7 +8,7 @@ pattern (reference tests/test_movement.py:14-61).
 For data parallelism: :func:`emulate_mesh` runs the ranks of a mesh as
 threads of one process (the in-process emulation the tests and
 ``chip_smoke.py`` hold a process group's run to), :func:`dp_learner` builds
-each of the five mesh learners, :func:`dp_run` runs one and returns what
+each learner that trains under a mesh, :func:`dp_run` runs one and returns what
 the checks compare, and :func:`dp_task` runs one task of a data-parallel
 check on a rank.  :func:`dp_spawn` starts the rank processes of a process
 group on a list of tasks (each runs :func:`dp_rank_main`) and
@@ -257,7 +257,11 @@ def positions(state: WarehouseState, env: int = 0) -> list:
 # Data parallelism in one process: the learners of a mesh, rank by rank
 # ---------------------------------------------------------------------------
 
-DP_LEARNERS = ("ippo", "rnn_ippo", "rnn_ippo_fused_loss", "mappo", "rnn_mappo", "seac_gru")
+# the five learners JAX builds with mesh= (per-shard statistics), then the
+# five it only places on a mesh (whole-batch statistics)
+DP_LEARNERS = ("ippo", "rnn_ippo", "rnn_ippo_fused_loss", "mappo", "rnn_mappo", "seac_gru",
+               "ippo_plain", "rnn_ippo_plain", "seac", "seac_flat", "seac_a2c")
+DP_PLACED = DP_LEARNERS[6:]
 
 
 class _ThreadGroup:
@@ -331,8 +335,9 @@ def dp_learner(name: str, env, cfg, seed: int, mesh=None, deterministic: bool = 
     """(runner, train step) of one of :data:`DP_LEARNERS` built with
     ``mesh`` (this rank's envs of ``cfg.n_envs``; None: all of them) at
     hidden width ``hidden``; IPPO and MAPPO take their per-pass kernels (K4,
-    K5).  ``cfg`` is an ``IPPOConfig`` (a ``SEACPPOConfig`` for
-    ``seac_gru``)."""
+    K5); ``ippo_plain`` and ``rnn_ippo_plain`` are the plain learners,
+    ``seac`` SEAC-PPO on K8, ``seac_flat`` its flat learner, ``seac_a2c``
+    SEAC A2C.  ``cfg`` is the learner's config (:func:`dp_config`)."""
     from rware_tpu_torch.models import ippo, ippo_fused, ippo_rnn, mappo, seac
 
     h2 = (hidden, hidden)
@@ -356,32 +361,67 @@ def dp_learner(name: str, env, cfg, seed: int, mesh=None, deterministic: bool = 
     elif name == "seac_gru":
         runner, dims = seac.init_seac_gru(env, cfg, seed, hidden, hidden, mesh=mesh)
         step = seac.build_seac_gru_train_step(env, dims, cfg, deterministic, mesh=mesh)
+    elif name == "ippo_plain":
+        runner, dims = ippo.init_runner(env, cfg, seed, h2, mesh=mesh)
+        step = ippo.build_train_step(env, dims, cfg, mesh=mesh)
+    elif name == "rnn_ippo_plain":
+        runner, dims = ippo_rnn.init_rnn_runner(env, cfg, seed, hidden, hidden, mesh=mesh)
+        step = ippo_rnn.build_rnn_train_step(env, dims, cfg, mesh=mesh)
+    elif name == "seac":
+        runner, dims = seac.init_seac_ppo(env, cfg, seed, h2, mesh=mesh)
+        step = seac.build_seac_ppo_fused_train_step(env, dims, cfg, deterministic, mesh=mesh)
+    elif name == "seac_flat":
+        runner, dims = seac.init_seac_ppo(env, cfg, seed, h2, mesh=mesh)
+        step = seac.build_seac_ppo_train_step(env, dims, cfg, deterministic_collect=deterministic,
+                                              mesh=mesh)
+    elif name == "seac_a2c":
+        runner, dims = seac.init_seac(env, cfg, seed, h2, mesh=mesh)
+        step = seac.build_seac_train_step(env, dims, cfg, mesh=mesh)
     else:
         raise ValueError(f"unknown learner {name!r}; one of {DP_LEARNERS}")
     return runner, step
 
 
+def dp_config(name: str, **fields):
+    """The config of learner ``name`` of :data:`DP_LEARNERS` from
+    ``fields`` (an ``IPPOConfig``'s; SEAC A2C takes the batch and rollout
+    of them, SEAC-PPO all it has)."""
+    from rware_tpu_torch.models.ippo import IPPOConfig
+    from rware_tpu_torch.models.seac import SEACConfig, SEACPPOConfig
+
+    kind = {"seac_gru": SEACPPOConfig, "seac": SEACPPOConfig, "seac_flat": SEACPPOConfig,
+            "seac_a2c": SEACConfig}.get(name, IPPOConfig)
+    names = {f.name for f in dataclasses.fields(kind)}
+    return kind(**{k: v for k, v in fields.items() if k in names})
+
+
 def dp_run(step, runner, n_updates: int, mesh=None, windows=None) -> dict:
     """Run ``n_updates`` updates of ``step`` from ``runner`` (``windows[u]``
-    the u-th update's window starts or epoch offsets, else drawn from the
-    runner's generator) and return what a data-parallel check compares: the
-    first update's trajectory, the collectives of its collect alone and of
-    each update (with a mesh, zeroed first), each update's metrics, and the
-    final runner."""
+    the u-th update's window starts, epoch offsets or permutations, else
+    drawn from the runner's generator) and return what a data-parallel
+    check compares: the first update's trajectory, the collectives of its
+    collect alone and of each update (with a mesh, zeroed first), each
+    update's metrics, the launches of the step's kernel wrappers over the
+    updates (by attribute name), and the final runner."""
     if mesh is not None:
         mesh.reset_counts()
     traj = step.rollout(runner)[-1]
     collect_counts = dict(mesh.counts) if mesh is not None else {}
+    wrappers = {k: v for k, v in vars(step).items() if hasattr(v, "launches")}
+    before = {k: v.launches for k, v in wrappers.items()}
     per_update, metrics = [], []
     for u in range(n_updates):
         if mesh is not None:
             mesh.reset_counts()
-        arg = None if windows is None else torch.as_tensor(windows[u])
-        runner, m = step(runner, arg)
+        if windows is None:
+            runner, m = step(runner)
+        else:
+            runner, m = step(runner, torch.as_tensor(windows[u]))
         per_update.append(dict(mesh.counts) if mesh is not None else {})
         metrics.append({k: float(v) for k, v in m.items()})
     return {"traj": traj, "collect_counts": collect_counts, "update_counts": per_update,
-            "metrics": metrics, "runner": runner}
+            "metrics": metrics, "runner": runner,
+            "launches": {k: v.launches - before[k] for k, v in wrappers.items()}}
 
 
 def digest(tree) -> str:
@@ -412,13 +452,12 @@ def _task_learner(task, mesh, device):
     and optimizer state (and, with ``override``, its env states and carry:
     this rank's rows of a given global runner's) replicated from rank 0."""
     import rware_tpu_torch
-    from rware_tpu_torch.models.ippo import IPPOConfig, policy_obs_fn
-    from rware_tpu_torch.models.seac import SEACPPOConfig
+    from rware_tpu_torch.models.ippo import policy_obs_fn
     from rware_tpu_torch.parallel.sharding import replicate, shard_env_batch
 
     env = rware_tpu_torch.make(task["env_id"], device=device, **task.get("env_overrides", {}))
     name = task.get("learner", "ippo")
-    cfg = (SEACPPOConfig if name == "seac_gru" else IPPOConfig)(**task["cfg"])
+    cfg = dp_config(name, **task["cfg"])
     runner, step = dp_learner(name, env, cfg, task["seed"], mesh,
                               task.get("deterministic", False), task["hidden"])
     over = task.get("override")
@@ -445,15 +484,18 @@ def dp_task(task: dict, mesh: Optional[Mesh] = None, device="cpu", tmp_dir: str 
       ``seed`` and ``hidden`` (``override``: the parameters, optimizer state,
       env states and carry of a given global runner), then :func:`dp_run` of
       ``n_updates`` updates (``windows``: their window starts or offsets).
-      The runner comes back packed; with ``digest`` the trajectory, the
-      runner and its replicated part (parameters and optimizer state) come
-      back as :func:`digest` strings.
+      The runner comes back packed, and its parameters under ``params``;
+      with ``digest`` the trajectory, the runner and its replicated part
+      (parameters and optimizer state) come back as :func:`digest` strings.
     * ``checkpoint``: ``n_updates`` (default 2) updates of that learner, its
       runner saved after each by a ``Checkpointer(rank, world)`` under
       ``tmp_dir``, then restored, and a restore at world size 1 refused; a
       process group's ranks only.
     * ``aggregate``: ``profiling.aggregate_across_hosts`` of metrics that
       differ by rank.
+    * ``train``: ``train.main(task["argv"])`` in this rank's process group
+      (``--distributed``, which keeps the group); returns its last log entry
+      and what it printed.
     """
     from rware_tpu_torch.checkpoint import Checkpointer, pack
 
@@ -461,6 +503,7 @@ def dp_task(task: dict, mesh: Optional[Mesh] = None, device="cpu", tmp_dir: str 
         runner, step = _task_learner(task, mesh, device)
         out = dp_run(step, runner, task["n_updates"], mesh, task.get("windows"))
         out["runner"] = pack(out["runner"])
+        out["params"] = out["runner"]["params"]
         if task.get("digest"):
             out["replicated"] = digest({k: out["runner"][k] for k in ("params", "opt_state")})
             out["runner"], out["traj"] = digest(out["runner"]), digest(out["traj"])
@@ -488,6 +531,16 @@ def dp_task(task: dict, mesh: Optional[Mesh] = None, device="cpu", tmp_dir: str 
             saved, restored = digest(saved), digest(restored)
         return {"steps": ckpt.steps(), "files": files, "refused": refused, "saved": saved,
                 "restored": restored}
+    if task["kind"] == "train":
+        import contextlib
+        import io
+
+        from rware_tpu_torch import train
+
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            entry = train.main(task["argv"])
+        return {"entry": entry, "printed": printed.getvalue()}
     if task["kind"] == "aggregate":
         from rware_tpu_torch.profiling import aggregate_across_hosts
 

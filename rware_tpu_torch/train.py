@@ -88,13 +88,19 @@ on a CUDA device, gloo on the CPU), one process a GPU, each on
 (``profiling.aggregate_across_hosts``).  ``--mesh`` then trains data
 parallel over them (``parallel.sharding``): each rank holds ``--n-envs /
 world`` envs, and every pass all-reduces the gradients.  Over more than one
-process ``--distributed`` needs ``--mesh``.  It takes the five
-learners JAX builds with ``mesh=`` (IPPO per pass, recurrent IPPO with or
-without ``--fused-loss``, MAPPO per pass, recurrent MAPPO, recurrent
-SEAC-PPO); ``--collect plain``, SEAC-PPO's MLP and SEAC A2C raise, and at
-world size 1 ``--mesh`` changes nothing.  Only rank 0 prints the log and
-writes ``policy.pt``; every rank writes its runner shard
-(``<step>.rank<r>-of<W>.pt``)::
+process ``--distributed`` needs ``--mesh``.  It takes every learner JAX's
+``train.py`` puts on a mesh, with JAX's statistics: the five JAX builds with
+``mesh=`` (IPPO per pass, recurrent IPPO with or without ``--fused-loss``,
+MAPPO per pass, recurrent MAPPO, recurrent SEAC-PPO) normalise each shard's
+advantages over the shard, as ``shard_map`` does; the ones JAX only places
+on the mesh (``--collect plain`` with ``--net mlp`` or ``gru``, ``--algo
+seac-ppo`` with the MLP, with or without ``--msg-bits``, and ``--algo
+seac``) take every statistic over the whole batch, so that an update over
+the ranks is the one-process update of the global batch.  What JAX refuses
+under a mesh stays refused: K3 (the mesh takes IPPO per pass) and
+``--fused-critic-phase`` (K7).  At world size 1 ``--mesh`` changes nothing.
+Only rank 0 prints the log and writes ``policy.pt``; every rank writes its
+runner shard (``<step>.rank<r>-of<W>.pt``)::
 
     python -m torch.distributed.run --nproc-per-node 2 -m rware_tpu_torch.train \
         --distributed --mesh --device cuda --n-envs 32768 --updates 300
@@ -109,9 +115,6 @@ import torch
 
 from rware_tpu_torch.core.env import resolve_device
 
-MESH_NOT_PORTED = ("data-parallel training of the learners JAX shards only by placement "
-                   "(train.py:291-303) is not ported yet (ROADMAP queue 1, item 21): --mesh "
-                   "takes --collect fused with --algo ippo, mappo, or seac-ppo --net gru")
 NOT_PORTED = ("not ported yet: the port trains --algo ippo, mappo and seac-ppo with --net mlp "
               "or --net gru and --algo seac with --net mlp, and each of them with message "
               "bits but --fused-critic-phase (MAPPO's MLP only); --algo mappo and seac-ppo "
@@ -251,20 +254,20 @@ def main(argv=None) -> dict:
             f"{' --fused-critic-phase' * args.fused_critic_phase}"
             f"{f' --msg-bits {args.msg_bits}' * msg}: {NOT_PORTED}")
     dev = resolve_device(args.device)
-    rank, world, mesh = 0, 1, None
+    rank, world, mesh, own_group = 0, 1, None, False
     if args.distributed:
+        import torch.distributed as dist
+
         from rware_tpu_torch.distributed import initialize
 
         dev = distributed_device(dev)
+        own_group = not dist.is_initialized()  # a caller's group is kept (initialize)
         rank, world = initialize(device=dev)
         print(f"distributed: process {rank}/{world}", flush=True)
     if world > 1 and not args.mesh:
         raise ValueError(f"--distributed over {world} processes needs --mesh: without it every "
                          "process would train the whole batch and write the same checkpoints")
     if args.mesh and world > 1:
-        if args.collect != "fused" or a2c or (seac and not gru):
-            raise ValueError(f"--mesh --algo {args.algo} --net {args.net} --collect "
-                             f"{args.collect}: {MESH_NOT_PORTED}")
         from rware_tpu_torch.parallel.sharding import make_mesh
 
         mesh = make_mesh(device=dev)
@@ -307,8 +310,8 @@ def main(argv=None) -> dict:
         # train.py:274-288: the run sets the batch, the rollout, lr and ent_coef
         cfg = SEACConfig(n_envs=args.n_envs, rollout_len=rollout_len, lr=args.lr,
                          ent_coef=args.ent_coef)
-        runner, dims = init_seac(env, cfg, args.seed)
-        train_step = build_seac_train_step(env, dims, cfg, collect=args.collect)
+        runner, dims = init_seac(env, cfg, args.seed, mesh=mesh)
+        train_step = build_seac_train_step(env, dims, cfg, collect=args.collect, mesh=mesh)
     elif seac:
         # train.py:254-259: the run sets the batch, the rollout, lr and ent_coef
         cfg = SEACPPOConfig(n_envs=args.n_envs, rollout_len=rollout_len, lr=args.lr,
@@ -317,11 +320,12 @@ def main(argv=None) -> dict:
             runner, dims = init_seac_gru(env, cfg, args.seed, mesh=mesh)
             train_step = build_seac_gru_train_step(env, dims, cfg, mesh=mesh)
         else:
-            runner, dims = init_seac_ppo(env, cfg, args.seed)
+            runner, dims = init_seac_ppo(env, cfg, args.seed, mesh=mesh)
             if args.collect == "fused" and not msg:
-                train_step = build_seac_ppo_fused_train_step(env, dims, cfg)
+                train_step = build_seac_ppo_fused_train_step(env, dims, cfg, mesh=mesh)
             else:  # K8 has no message head: JAX's flat update (seac.py:343-345)
-                train_step = build_seac_ppo_train_step(env, dims, cfg, collect=args.collect)
+                train_step = build_seac_ppo_train_step(env, dims, cfg, collect=args.collect,
+                                                       mesh=mesh)
     elif mappo and gru:
         runner, dims, cdims = init_rnn_mappo_runner(env, cfg, args.seed, mesh=mesh)
         train_step = build_rnn_mappo_train_step(env, dims, cdims, cfg, mesh=mesh)
@@ -336,13 +340,13 @@ def main(argv=None) -> dict:
             train_step = build_rnn_fused_train_step(env, dims, cfg, fused_loss=args.fused_loss,
                                                     mesh=mesh)
         else:
-            train_step = build_rnn_train_step(env, dims, cfg)
+            train_step = build_rnn_train_step(env, dims, cfg, mesh=mesh)
     else:
         runner, dims = init_runner(env, cfg, args.seed, mesh=mesh)
         if args.collect == "fused":
             train_step = build_fused_train_step(env, dims, cfg, mesh=mesh)
         else:
-            train_step = build_train_step(env, dims, cfg)
+            train_step = build_train_step(env, dims, cfg, mesh=mesh)
     if mesh is not None:
         from rware_tpu_torch.parallel.sharding import replicate
 
@@ -415,7 +419,7 @@ def main(argv=None) -> dict:
     if lead:
         print("done:", {k: round(v, 4) for k, v in entry.items()
                         if "loss" in k or "reward" in k or "env_steps" in k}, flush=True)
-    if args.distributed and torch.distributed.is_initialized():
+    if own_group and torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
     return entry
 

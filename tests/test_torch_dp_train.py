@@ -10,15 +10,19 @@ the global env batch.
   tiny-2ag, B=2,048, T=8, E=1, M=2.  Tolerances as
   ``tests/test_torch_train.py``'s: parameters within 0.05 * lr * P, rtol
   1e-3; metrics rtol 1e-2.
-* The five mesh learners (IPPO, recurrent IPPO with and without the fused
-  loss, MAPPO, recurrent MAPPO, recurrent SEAC-PPO) in random mode against
-  the in-process emulation of two ranks (``testing.emulate_mesh``: the same
-  kernels' plain versions on each shard, the gradients averaged, the same
-  optimizer step), bit for bit; the parameters bit-equal across ranks; each
-  rank's first trajectory equal to its rows of the 1-rank global collect; E *
-  M + 1 all-reduces an update and none in the collect.
+* Every learner that trains under a mesh (``testing.DP_LEARNERS``): the five
+  JAX builds with ``mesh=`` (IPPO, recurrent IPPO with and without the fused
+  loss, MAPPO, recurrent MAPPO, recurrent SEAC-PPO; per-shard statistics)
+  and the five it only places on a mesh (plain IPPO, plain recurrent IPPO,
+  SEAC-PPO on K8, SEAC-PPO's flat learner with two message bits, SEAC A2C;
+  whole-batch statistics), in random mode against the in-process emulation
+  of two ranks (``testing.emulate_mesh``: the same kernels' plain versions on
+  each shard, the same collectives, the same optimizer step), bit for bit;
+  the parameters bit-equal across ranks; each rank's first trajectory equal
+  to its rows of the 1-rank global collect; E * M + 1 all-reduces an update
+  (SEAC A2C: 2) and none in the collect.
 * The refusals: K3 and ``fused_critic_phase`` under a mesh, and ``train
-  --mesh`` for the learners JAX shards only by placement.
+  --distributed`` over two processes without ``--mesh``.
 """
 import dataclasses
 
@@ -112,8 +116,11 @@ def jax_rnn_case():
 
 
 def random_task(learner):
+    overrides = {"max_steps": 6}  # episodes end inside both updates
+    if learner == "seac_flat":
+        overrides["msg_bits"] = 2  # the learner SEAC-PPO with message bits trains on
     return {"kind": "learner", "name": learner, "learner": learner, "env_id": ENV,
-            "env_overrides": {"max_steps": 6},  # episodes end inside both updates
+            "env_overrides": overrides,
             "cfg": dict(n_envs=RB, rollout_len=T_LEN, epochs=R_EPOCHS, minibatches=MINIBATCHES),
             "seed": 4, "hidden": HG, "n_updates": N_UPDATES}
 
@@ -193,9 +200,11 @@ def test_rank_trajectory_is_its_rows_of_the_global_collect(runs, name):
 @pytest.mark.parametrize("name", DP_LEARNERS + ("ippo_jax", "rnn_ippo_jax"))
 def test_collectives_per_update(runs, name):
     epochs = EPOCHS if name.endswith("_jax") else R_EPOCHS
+    # SEAC A2C: the gradients and metrics, then the reward sums
+    per_update = 2 if name == "seac_a2c" else epochs * MINIBATCHES + 1
     for out in runs["ranks"][name]:
         assert out["collect_counts"] == {"all_reduce": 0, "broadcast": 0}
-        assert all(c == {"all_reduce": epochs * MINIBATCHES + 1, "broadcast": 0}
+        assert all(c == {"all_reduce": per_update, "broadcast": 0}
                    for c in out["update_counts"])
 
 
@@ -217,16 +226,6 @@ def test_whole_phase_kernels_are_refused_under_a_mesh():
         mappo.build_mappo_train_step(env, adims, cdims, cfg, fused_critic_phase=True, mesh=mesh)
     with pytest.raises(ValueError, match="not divisible by the world size 2"):
         build_fused_train_step(env, dims, dataclasses.replace(cfg, n_envs=63), mesh=mesh)
-
-
-@pytest.mark.parametrize("extra", [["--algo", "seac"], ["--algo", "seac-ppo"],
-                                   ["--collect", "plain"], ["--net", "gru", "--collect", "plain"]])
-def test_train_mesh_refuses_the_placement_learners(monkeypatch, extra):
-    import rware_tpu_torch.distributed as distributed
-
-    monkeypatch.setattr(distributed, "initialize", lambda **kw: (0, 2))
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 21"):
-        train.main(["--device", "cpu", "--distributed", "--mesh", "--n-envs", "64"] + extra)
 
 
 def test_train_distributed_over_ranks_needs_the_mesh(monkeypatch, tmp_path):
