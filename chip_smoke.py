@@ -257,18 +257,36 @@ Phases, one line each:
     torch.distributed.run --nproc-per-node 1 -m rware_tpu_torch.train
     --distributed --mesh`` for 4 updates with a checkpoint every 2, then
     ``--resume`` to 6, equal to an unbroken 6-update run's runner bit for
-    bit.
+    bit;
+32. the long-observation ids (sensor range 4 and 5, ``register_full``) on
+    the collectors' new routes, each against its plain version by phases 4,
+    15, 18, 21 and 24's rules (obs, rewards, done, bits, state and carry bit
+    for bit) and two launches bit-equal: K2a with its weights in device
+    memory on ``rware-5s-tiny-2ag-v2`` (L = 855) in both modes at B=1,000,
+    T=128 (a ragged last tile) and at B=16,384, timed; with K2b on
+    ``rware-4s-tiny-2ag-v2`` (M=2, L = 737) and with K2e on
+    ``rware-img-5s-tiny-2ag-v2`` and ``rware-imgdict-5s-tiny-2ag-v2`` (B=1,000,
+    T=32); K2d with its observation tile in chunks at 17 and 19 agents and
+    K2d′ at 16, M=0 and M=2, B=1,024, T=128, and the chunked image
+    instantiations (K2d′ on ``rware-img-5s-tiny-19ag-v2``, K2d on
+    ``rware-imgdict-tiny-2ag-v2`` with chunks forced); then through the learners' entry points on
+    ``make``'s default device, counters zeroed before and read after: three
+    MAPPO updates (K2a + K6 + 16 x K5) at sensor range 5, B=16,384, T=128,
+    E=4, M=4, with one update split into its phases, one IPPO update (K2a +
+    K3) at that shape, one SEAC-PPO update (chunked K2d + 16 x K8) at 17
+    agents, B=1,024, and one recurrent SEAC-PPO update (chunked K2d′) at 16
+    agents, B=256.
 
 The MLP collector (K2a, with K2b and K2e; K2d) runs a tile of 64 envs a
 block at the main shape: its env threads step, a thread a row builds the
 observations from a view of the state in shared memory, and the hidden layers
 are an FMA block product on the FP32 pipes, bit for bit the plain version's
-sums (``ops/fused_rollout.collect_plan``); phases 4, 15, 18, 21, 24 and 25
-hold it to its plain version.  The recurrent collector (K2c, with K2b and
+sums (``ops/fused_rollout.collect_plan``); phases 4, 15, 18, 21, 24, 25 and
+32 hold it to its plain version.  The recurrent collector (K2c, with K2b and
 K2e; K2d′) runs the same way, its carry a tile in shared memory for the
 whole launch and the embed and both gate products an FMA block product
 (``ops/fused_rollout.collect_gru_plan``); phases 12, 14, 18, 20-22, 24, 25,
-27 and 28 hold it to its plain version or count its launches.
+27, 28 and 32 hold it to its plain version or count its launches.
 
 Then the card's name and power limit, one JSON line describing each kernel
 (its time beside its plain version's and beside ``bound_ms``, the least time
@@ -1185,7 +1203,7 @@ def phase5(dev, kind, card, k1_err, k2_err):
     return [
         kernel_entry("fused_rollout", "fused_rollout.cu", "rware_tpu/ops/pallas_rollout.py:657",
                      launches["fused_rollout"], k1_err, k1_ms, k1_plain_ms, k1_bound),
-        kernel_entry("fused_collect", "fused_collect.cu", "rware_tpu/ops/pallas_rollout.py:1798",
+        kernel_entry("fused_collect", "collect_mlp.cuh", "rware_tpu/ops/pallas_rollout.py:1798",
                      launches["fused_collect"], k2_err, k2_ms, k2_plain_ms, k2_bound),
     ]
 
@@ -1717,7 +1735,7 @@ def phase17(dev, kind, card, k2d_err, n_envs=16384, rollout_len=128):
 
     k2d_bound = collect_per_agent_bound(dims, states, traj, runner.params, steps * env.n_agents)
     return [
-        kernel_entry("fused_collect_per_agent", "fused_collect.cu",
+        kernel_entry("fused_collect_per_agent", "collect_mlp.cuh",
                      "rware_tpu/ops/pallas_rollout.py:1798", launches["fused_collect_per_agent"],
                      k2d_err, k2d_ms, k2d_plain_ms, k2d_bound),
         kernel_entry("fused_seac_grads", "fused_seac_grads.cu",
@@ -1822,6 +1840,8 @@ def _time_learner(name, step, runner, counted, want, kind, card, cfg, phase=20,
     env = step.env.config
     size = {v: k for k, v in SIZES.items()}.get((env.shelf_rows, env.shelf_columns),
                                                 f"{env.shelf_rows}x{env.shelf_columns}")
+    if env.sensor_range != 1:
+        size = f"{env.sensor_range}s-{size}"
     log(f"phase {phase} {name} train step {size}-{env.n_agents}ag, {env.msg_bits} message bits, "
         f"B={cfg.n_envs} T={cfg.rollout_len}{passes}: {update_ms:.3f} ms/update = "
         f"{steps / update_ms * 1e3:.4g} env-steps/s over 3 updates, "
@@ -1876,7 +1896,7 @@ def phase20(dev, kind, card, k2b_err, n_envs=16384, rollout_len=128):
     k2b_bound = bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
                       + 4.0 * dims.n_params, bf, f32)
     entries = [
-        kernel_entry("fused_collect (message bits, K2b)", "fused_collect.cu",
+        kernel_entry("fused_collect (message bits, K2b)", "collect_mlp.cuh",
                      "rware_tpu/ops/pallas_rollout.py:1537", collect_launches, k2b_err, k2b_ms,
                      k2b_plain_ms, k2b_bound),
         kernel_entry("fused_ppo_grads (message head)", "fused_ppo_grads.cu",
@@ -2162,7 +2182,7 @@ def phase23(dev, kind, card, errs, n_envs=16384, rollout_len=128):
     log(f"phase 23 K2d with K2b at the main shape: {k_ms:.3f} ms/launch (plain {plain_ms:.1f} "
         f"ms, value/logp max_abs_err {errs['k2dm']}) [{kind}, {card}]")
     k_bound = collect_per_agent_bound(dims, states, traj, runner.params, steps * env.n_agents)
-    return [kernel_entry("fused_collect_per_agent (message bits, K2b)", "fused_collect.cu",
+    return [kernel_entry("fused_collect_per_agent (message bits, K2b)", "collect_mlp.cuh",
                          "rware_tpu/ops/pallas_rollout.py:1537", launches, errs["k2dm"], k_ms,
                          plain_ms, k_bound)]
 
@@ -2352,7 +2372,7 @@ def phase25(dev, kind, card, n_envs=16384, rollout_len=128):
         f"exact, value/logp max_abs_err {err} [{kind}, {card}]")
     bf, f32 = mlp_flops(dims.obs_len, dims.h1, dims.h2, dims.heads, agent_steps, False)
     entries.append(kernel_entry(
-        "fused_collect (image observations, K2e)", "fused_collect.cu",
+        "fused_collect (image observations, K2e)", "collect_mlp.cuh",
         "rware_tpu/ops/pallas_rollout.py:1109", launches, err, k_ms, plain_ms,
         bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
               + 4.0 * runner.params.numel(), bf, f32)))
@@ -3129,7 +3149,7 @@ def phase30(dev, kind, card, n_envs=16384, rollout_len=5):
         log(f"phase 30 K2d at A2C's shape B={b} T={rollout_len}: {k_ms:.3f} ms/launch (plain "
             f"{plain_ms:.1f} ms), bound {k_bound[0]:.4f} ms ({k_bound[1]}), "
             f"{k_ms / update_ms:.1%} of an update [{kind}, {card}]")
-        entry = kernel_entry("fused_collect_per_agent (SEAC A2C, T=5)", "fused_collect.cu",
+        entry = kernel_entry("fused_collect_per_agent (SEAC A2C, T=5)", "collect_mlp.cuh",
                              "rware_tpu/ops/pallas_rollout.py:1798", launches,
                              errs["rware-tiny-2ag-v2", b, 0], k_ms, plain_ms, k_bound)
 
@@ -3532,6 +3552,326 @@ def phase31(dev, kind, card):
     phase31d(kind, card)
 
 
+# Phase 32: the long-observation ids (sensor range 4 and 5, ``register_full``)
+# on the fused collectors' new routes.  (env id, overrides, envs, steps): K2a's
+# device-memory weight route (with K2b and K2e) compared at 1,000 envs, a
+# ragged last tile, and timed at the training batch; K2d and K2d′ with the
+# observation tile in chunks.
+LONG_K2A = ("rware-5s-tiny-2ag-v2", {}, 16384, 128)
+LONG_K2A_MODES = (("mlp", "rware-4s-tiny-2ag-v2", {"msg_bits": 2}),
+                  ("mlp", "rware-img-5s-tiny-2ag-v2", {}),
+                  ("mlp", "rware-imgdict-5s-tiny-2ag-v2", {}))
+LONG_MODES_T = 32  # steps of the K2b and K2e cases: their plain versions are launch-bound
+LONG_COMPARE_B = 1000
+LONG_K2D = tuple((f"rware-5s-tiny-{n}ag-v2", {"msg_bits": m}, 1024, 128)
+                 for n in (17, 19) for m in (0, 2))
+LONG_K2DP = tuple(("rware-5s-tiny-16ag-v2", {"msg_bits": m}, 1024, 128) for m in (0, 2))
+# The chunked image instantiations: K2d′ on img-5s at 19 agents (its plan's
+# chunks) and K2d on imgdict-tiny-2ag with chunks of 32 forced (no registered
+# id needs them at hidden (128, 128)); (kind, env id, forced chunk, envs, steps)
+LONG_IMAGE = (("gru_per_agent", "rware-img-5s-tiny-19ag-v2", None, 256, 32),
+              ("mlp_per_agent", "rware-imgdict-tiny-2ag-v2", 32, 1000, 32))
+LONG_SEAC_B = 1024  # SEAC-PPO at 17 agents (chunked K2d + 16 x K8)
+LONG_SEAC_GRU_B = 256  # recurrent SEAC-PPO at 16 agents (chunked K2d′): its torch replay is N^2
+
+
+def long_case(kind, env_id, overrides, b, seed, dev):
+    """(env, collector, launch arguments) of collector ``kind`` (``image_policy``'s
+    kinds) on ``b`` envs of ``env_id`` reset from ``seed``, a network of hidden
+    (128, 128) a stack, biases off zero, and for the GRU a random nonzero carry."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.ops import fused_rollout as fr
+    from rware_tpu_torch.parallel import batched_reset
+
+    env = rware_tpu_torch.make(env_id, device=dev, **overrides)
+    states, _ = batched_reset(env, seed, b)
+    build = {"mlp": fr.build_fused_collect, "gru": fr.build_fused_collect_gru,
+             "mlp_per_agent": fr.build_fused_collect_per_agent,
+             "gru_per_agent": fr.build_fused_collect_gru_per_agent}[kind]
+    args = (states, image_policy(kind, env.config, seed, dev), seed + 1)
+    if kind.startswith("gru"):
+        gen = torch.Generator().manual_seed(seed)
+        h0 = torch.rand((b, env.n_agents, 128), generator=gen) * 2 - 1
+        args += (h0.to(torch.bfloat16).to(dev),)
+    return env, build, args
+
+
+def route_check(what, env, collect, args, actions_exact=True):
+    """The kernel launched twice (the second timed) and its plain version
+    (timed) on the same inputs, by phases 4, 15, 18, 21 and 24's rules: obs,
+    rewards, done, bits, the final state and the carry bit for bit, every
+    action too unless ``actions_exact`` is False (K2a's rule: 99.9%), value
+    and logp within 2e-2; the two launches bit-equal.  Returns (ms, plain ms,
+    max |value/logp error|, the timed launch's outputs)."""
+    import torch
+
+    first = collect(*args)
+    k_ms, out = cuda_ms(lambda: collect(*args))
+    p_ms, plain = cuda_ms(lambda: collect.plain(*args))
+    *k_state, k_traj = out
+    *p_state, p_traj = plain
+    for a, b in ((first, out), (out, plain)):
+        same = a is first
+        tag = "two launches" if same else "kernel != plain"
+        require(not state_diff(a[0], b[0]), f"{what}: {tag}: final state differs")
+        if len(a) == 3:
+            require(torch.equal(a[1], b[1]), f"{what}: {tag}: the new carry differs")
+        exact = ("obs", "reward", "done") + (("bits",) if "bits" in a[-1] else ()) \
+            + (("action",) if actions_exact or same else ())
+        for k in (a[-1] if same else exact):
+            require(torch.equal(a[-1][k], b[-1][k]), f"{what}: {tag}: {k} differs")
+    agree = float((k_traj["action"] == p_traj["action"]).float().mean())
+    require(agree >= ACTION_AGREEMENT, f"{what}: action agreement {agree}")
+    err = max(float((k_traj[k] - p_traj[k]).abs().max()) for k in ("value", "logp"))
+    require(err <= VALUE_LOGP_ATOL, f"{what}: value/logp err {err}")
+    for k, v in k_traj.items():
+        require(not v.is_floating_point() or bool(torch.isfinite(v.float()).all()),
+                f"{what}: non-finite {k}")
+    check_invariants(env, k_state[0])
+    return k_ms, p_ms, err, out
+
+
+def phase32_routes(dev, kind, card):
+    """K2a on its device-memory weight route (with K2b and K2e), chunked K2d
+    and chunked K2d′ against their plain versions; returns {route: (ms, plain
+    ms, error, bound)}."""
+    from rware_tpu_torch.models.networks import BlockDims, GruDims
+    from rware_tpu_torch.ops.fused_rollout import collect_plan
+
+    out = {}
+    # K2a at sensor range 5: both modes at 1,000 envs, then the training batch
+    env_id, overrides, b, t = LONG_K2A
+    for det in (True, False):
+        env, build, args = long_case("mlp", env_id, overrides, LONG_COMPARE_B, 40, dev)
+        collect = build(env.config, t, deterministic=det)
+        plan = collect.plan
+        require(plan.weights_global and not plan.kx, f"K2a {env_id}: plan {plan}")
+        _, _, err, _ = route_check(f"K2a {env_id} det={det}", env, collect, args, False)
+        log(f"phase 32 K2a device-memory weights {env_id} (L={env.config.policy_obs_length}) "
+            f"B={LONG_COMPARE_B} T={t} deterministic={det}: obs/reward/done/state exact, two "
+            f"launches bit-equal, value/logp err {err} ({tile_note(collect, LONG_COMPARE_B)}, "
+            f"{plan.blocks_per_sm} blocks an SM, {plan.smem} bytes)")
+    env, build, args = long_case("mlp", env_id, overrides, b, 41, dev)
+    collect = build(env.config, t)
+    k_ms, p_ms, err, (states, traj) = route_check(f"K2a {env_id} B={b}", env, collect, args,
+                                                  False)
+    n = env.n_agents
+    bf, f32 = mlp_flops(env.config.policy_obs_length, 128, 128, 6, b * t * n, False)
+    k_bound = bound(2 * state_bytes(args[0]) + tensor_bytes(*traj.values())
+                    + tensor_bytes(*args[1].parameters()), bf, f32)
+    out["k2a"] = (k_ms, p_ms, err, k_bound)
+    log(f"phase 32 K2a device-memory weights {env_id} B={b} T={t} random: obs/reward/done/state "
+        f"exact, two launches bit-equal, {k_ms:.3f} ms/launch = {b * t / k_ms * 1e3:.4g} "
+        f"env-steps/s (plain {p_ms:.1f} ms, value/logp max_abs_err {err}; bound "
+        f"{k_bound[0]:.4f} ms by {k_bound[1]}) [{kind}, {card}]")
+    for mode, env_id, overrides in LONG_K2A_MODES:
+        for det in (True, False):
+            env, build, args = long_case(mode, env_id, overrides, LONG_COMPARE_B, 42, dev)
+            collect = build(env.config, LONG_MODES_T, deterministic=det)
+            require(collect.plan.weights_global and not collect.plan.kx,
+                    f"K2a {env_id}: plan {collect.plan}")
+            k_ms, p_ms, err, _ = route_check(f"K2a {env_id} {overrides} det={det}", env, collect,
+                                             args)
+            log(f"phase 32 K2a device-memory weights with "
+                f"{'K2b' if env.config.msg_bits else 'K2e'} {env_id} "
+                f"(L={env.config.policy_obs_length}) {overrides} B={LONG_COMPARE_B} T={LONG_MODES_T} "
+                f"deterministic={det}: obs/reward/done/bits/actions/state exact, two launches "
+                f"bit-equal, {k_ms:.3f} ms (plain {p_ms:.1f} ms), value/logp err {err} "
+                f"({tile_note(collect, LONG_COMPARE_B)})")
+    # K2d, the observation tile in chunks
+    for env_id, overrides, b, t in LONG_K2D:
+        env, build, args = long_case("mlp_per_agent", env_id, overrides, b, 43, dev)
+        collect = build(env.config, t)
+        plan = collect.plan
+        require(plan.kx > 0 and plan.weights_global, f"K2d {env_id}: plan {plan}")
+        k_ms, p_ms, err, (states, traj) = route_check(f"K2d chunked {env_id} {overrides}", env,
+                                                      collect, args)
+        dims = BlockDims(env.config.policy_obs_length, 128, 128, 5, env.config.msg_bits)
+        params = torch_stack_params(args[1])
+        k_bound = collect_per_agent_bound(dims, args[0], traj, params, float(b * t * env.n_agents))
+        key = f"k2d{env.n_agents}m{env.config.msg_bits}"
+        out[key] = (k_ms, p_ms, err, k_bound)
+        log(f"phase 32 K2d chunked {env_id} (L={env.config.policy_obs_length}) {overrides} B={b} "
+            f"T={t} random: obs/reward/done/bits/actions/state exact, two launches bit-equal, "
+            f"{k_ms:.3f} ms/launch (plain {p_ms:.1f} ms, value/logp max_abs_err {err}; chunks of "
+            f"{plan.kx} features, {tile_note(collect, b)}, {plan.blocks_per_sm} blocks an SM, "
+            f"{plan.smem} bytes; bound {k_bound[0]:.4f} ms by {k_bound[1]}) [{kind}, {card}]")
+    # K2d′, the observation tile in chunks
+    for env_id, overrides, b, t in LONG_K2DP:
+        env, build, args = long_case("gru_per_agent", env_id, overrides, b, 44, dev)
+        collect = build(env.config, t)
+        plan = collect.plan(b)
+        require(plan.kx > 0, f"K2d′ {env_id}: plan {plan}")
+        k_ms, p_ms, err, (states, carry, traj) = route_check(
+            f"K2d′ chunked {env_id} {overrides}", env, collect, args)
+        m = env.config.msg_bits
+        dims = GruDims(env.config.policy_obs_length, 128, 128, 5, m)
+        n_params = sum(p.numel() for p in args[1].parameters())
+        k_bound = gru_collect_bound(dims, args[0], traj, args[3], n_params,
+                                    float(b * t * env.n_agents))
+        out[f"k2dp{m}"] = (k_ms, p_ms, err, k_bound)
+        log(f"phase 32 K2d′ chunked {env_id} (L={env.config.policy_obs_length}) {overrides} "
+            f"B={b} T={t} random: obs/reward/done/bits/actions/state/carry exact, two launches "
+            f"bit-equal, {k_ms:.3f} ms/launch (plain {p_ms:.1f} ms, value/logp max_abs_err {err}; "
+            f"chunks of {plan.kx} features, ring of {plan.kc} rows, {tile_note(collect, b)}, "
+            f"{plan.blocks_per_sm} blocks an SM, {plan.smem} bytes; bound {k_bound[0]:.4f} ms by "
+            f"{k_bound[1]}) [{kind}, {card}]")
+    for mode, env_id, chunk, b, t in LONG_IMAGE:
+        env, build, args = long_case(mode, env_id, {}, b, 45, dev)
+        collect = build(env.config, t)
+        if mode.startswith("gru"):
+            plan = collect.plan(b)
+        else:
+            plan = collect.plan = collect_plan(env.config, collect.hidden, env.n_agents,
+                                               chunk=chunk)
+        require(plan.kx > 0, f"{mode} {env_id}: plan {plan}")
+        k_ms, p_ms, err, _ = route_check(f"{K2E_NAMES[mode]} chunked with K2e {env_id}", env,
+                                         collect, args)
+        log(f"phase 32 {K2E_NAMES[mode]} chunked with K2e {env_id} "
+            f"(L={env.config.policy_obs_length}) B={b} T={t} random: obs/reward/done/actions/"
+            f"state{'/carry' if mode.startswith('gru') else ''} exact, two launches bit-equal, "
+            f"{k_ms:.3f} ms (plain {p_ms:.1f} ms), value/logp err {err} (chunks of {plan.kx} "
+            f"features{', forced' if chunk else ''})")
+    return out
+
+
+def torch_stack_params(policies):
+    """The (N, P) float32 stack of per-agent networks' parameters (what
+    ``collect_per_agent_bound`` counts)."""
+    import torch
+
+    return torch.stack([torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+                        for net in policies])
+
+
+def phase32_learners(dev, kind, card, n_envs=16384, rollout_len=128):
+    """MAPPO (3 updates) and IPPO (1) at sensor range 5, SEAC-PPO at 17
+    agents and recurrent SEAC-PPO at 16 (1 each), through the learners'
+    entry points on ``make``'s default device; returns the collectors' launch
+    counts {route: launches}, each counter zeroed just before and read just
+    after its learner's updates."""
+    import torch
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ippo, mappo, seac
+    from rware_tpu_torch.models.ippo_fused import build_fused_train_step
+
+    counts = {}
+    env = rware_tpu_torch.make("rware-5s-tiny-2ag-v2")  # no device named: the card
+    require(env.device.type == "cuda", f"make's default device is {env.device}")
+    cfg = ippo.IPPOConfig(n_envs=n_envs, rollout_len=rollout_len, epochs=4, minibatches=4)
+    n_passes = cfg.epochs * cfg.minibatches
+    runner, dims, cdims = mappo.init_mappo_runner(env, cfg, seed=0)
+    step = mappo.build_mappo_train_step(env, dims, cdims, cfg)
+    require(step.collect.plan.weights_global and not step.collect.plan.kx,
+            f"MAPPO's collector plan {step.collect.plan}")
+    counted = {"fused_collect": step.collect, "fused_critic_values": step.critic_values,
+               "fused_mappo_grads": step.grads}
+    runner, _ = _time_learner("MAPPO", step, runner, counted,
+                              {"fused_collect": 3, "fused_critic_values": 3,
+                               "fused_mappo_grads": 3 * n_passes}, kind, card, cfg, phase=32,
+                              need_reward=False)
+    counts["k2a"] = step.collect.launches
+    collect_ms, (states, traj) = cuda_ms(lambda: step.rollout(runner))
+    k6_ms, values = cuda_ms(lambda: step.values(runner, traj))
+    gae_ms, (obs, adv, targets) = cuda_ms(lambda: step.advantages(runner, states, traj, values))
+    dataset = (traj["obs"], traj["action"], traj["logp"], values, adv, targets)
+    passes_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    log(f"phase 32 MAPPO breakdown of one update at sensor range 5 (L=855): collect (K2a, "
+        f"device-memory weights) {collect_ms:.3f} ms, critic values (K6) {k6_ms:.3f} ms, GAE and "
+        f"bootstrap {gae_ms:.3f} ms, update phase (K5 + optimizer, {n_passes} passes) "
+        f"{passes_ms:.3f} ms [{kind}, {card}]")
+    del step, runner, states, traj, values, obs, adv, targets, dataset
+    torch.cuda.empty_cache()
+
+    runner, dims = ippo.init_runner(env, cfg, seed=0)
+    step = build_fused_train_step(env, dims, cfg)
+    step.collect.launches = step.update_phase.launches = 0
+    update_ms, (runner, metrics) = cuda_ms(lambda: step(runner))
+    got = {"fused_collect": step.collect.launches,
+           "fused_ppo_update_phase": step.update_phase.launches}
+    require(got == {"fused_collect": 1, "fused_ppo_update_phase": 1},
+            f"one IPPO update launched {got}")
+    require(all(bool(torch.isfinite(v.float())) for v in metrics.values()),
+            f"IPPO metrics {metrics}")
+    counts["k2a"] += got["fused_collect"]
+    collect_ms, (states, traj) = cuda_ms(lambda: step.rollout(runner))
+    gae_ms, (obs, adv, targets) = cuda_ms(lambda: step.advantages(runner, states, traj))
+    dataset = (traj["obs"], traj["action"], traj["logp"], traj["value"], adv, targets)
+    phase_ms, _ = cuda_ms(lambda: step.update(runner, dataset))
+    log(f"phase 32 IPPO train step rware-5s-tiny-2ag-v2 B={cfg.n_envs} T={cfg.rollout_len} E=4 "
+        f"M=4: {update_ms:.3f} ms for one update (the first: with its warm-up), launches {got}; "
+        f"an update's phases: collect (K2a) {collect_ms:.3f} ms, GAE and last value "
+        f"{gae_ms:.3f} ms, update phase (K3) {phase_ms:.3f} ms [{kind}, {card}]")
+    del step, runner, states, traj, obs, adv, targets, dataset
+    torch.cuda.empty_cache()
+
+    env = rware_tpu_torch.make("rware-5s-tiny-17ag-v2")
+    scfg = seac.SEACPPOConfig(n_envs=LONG_SEAC_B, rollout_len=rollout_len, epochs=4,
+                              minibatches=4)
+    runner, sdims = seac.init_seac_ppo(env, scfg, seed=0)
+    step = seac.build_seac_ppo_fused_train_step(env, sdims, scfg)
+    require(step.collect.plan.kx > 0, f"SEAC-PPO's collector plan {step.collect.plan}")
+    step.collect.launches = step.grads.launches = 0
+    update_ms, (runner, metrics) = cuda_ms(lambda: step(runner))
+    got = {"fused_collect_per_agent": step.collect.launches,
+           "fused_seac_grads": step.grads.launches}
+    require(got == {"fused_collect_per_agent": 1, "fused_seac_grads": n_passes},
+            f"one SEAC-PPO update launched {got}")
+    require(all(bool(torch.isfinite(v.float())) for v in metrics.values()),
+            f"SEAC-PPO metrics {metrics}")
+    counts["k2d"] = got["fused_collect_per_agent"]
+    log(f"phase 32 SEAC-PPO train step rware-5s-tiny-17ag-v2 B={scfg.n_envs} T={rollout_len} "
+        f"E=4 M=4: "
+        f"{update_ms:.3f} ms for one update (the first), launches {got} (K2d chunks of "
+        f"{step.collect.plan.kx} features) [{kind}, {card}]")
+    del step, runner
+    torch.cuda.empty_cache()
+
+    env = rware_tpu_torch.make("rware-5s-tiny-16ag-v2")
+    gcfg = seac.SEACPPOConfig(n_envs=LONG_SEAC_GRU_B, rollout_len=rollout_len, epochs=4,
+                              minibatches=4)
+    runner, gdims = seac.init_seac_gru(env, gcfg, seed=0)
+    step = seac.build_seac_gru_train_step(env, gdims, gcfg)
+    plan = step.collect.plan(gcfg.n_envs)
+    require(plan.kx > 0, f"recurrent SEAC-PPO's collector plan {plan}")
+    step.collect.launches = 0
+    update_ms, (runner, metrics) = cuda_ms(lambda: step(runner))
+    got = {"fused_collect_gru_per_agent": step.collect.launches}
+    require(got == {"fused_collect_gru_per_agent": 1}, f"one recurrent SEAC-PPO update: {got}")
+    require(all(bool(torch.isfinite(v.float())) for v in metrics.values()),
+            f"recurrent SEAC-PPO metrics {metrics}")
+    counts["k2dp"] = got["fused_collect_gru_per_agent"]
+    log(f"phase 32 recurrent SEAC-PPO train step rware-5s-tiny-16ag-v2 B={gcfg.n_envs} "
+        f"T={rollout_len} E=4 M=4: {update_ms:.3f} ms for one update (the first), launches "
+        f"{got} (K2d′ chunks of {plan.kx} features) [{kind}, {card}]")
+    del step, runner
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase32(dev, kind, card):
+    """The long-observation ids on the collectors' new routes; returns their
+    kernel entries."""
+    start = time.perf_counter()
+    routes = phase32_routes(dev, kind, card)
+    counts = phase32_learners(dev, kind, card)
+    log(f"phase 32 took {time.perf_counter() - start:.1f} s [{kind}, {card}]")
+    replaces = "rware_tpu/ops/pallas_rollout.py:1798"
+    entries = []
+    for name, source, key, count in (
+            ("fused_collect (device-memory weights, sensor range 5)", "collect_mlp.cuh", "k2a",
+             "k2a"),
+            ("fused_collect_per_agent (chunked observation tile, 17 agents)",
+             "fused_collect_chunked.cu", "k2d17m0", "k2d"),
+            ("fused_collect_gru_per_agent (chunked observation tile, 16 agents)",
+             "fused_collect_gru_chunked.cu", "k2dp0", "k2dp")):
+        k_ms, p_ms, err, k_bound = routes[key]
+        entries.append(kernel_entry(name, source, replaces, counts[count], err, k_ms, p_ms,
+                                    k_bound))
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -3585,6 +3925,7 @@ def main() -> int:
     phase29(dev, kind, card)
     kernels += phase30(dev, kind, card)
     phase31(dev, kind, card)
+    kernels += phase32(dev, kind, card)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

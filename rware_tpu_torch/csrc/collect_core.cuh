@@ -226,6 +226,184 @@ static __device__ __forceinline__ void build_row_obs(const int* v, const EnvDims
     build_obs_from_view<kMsg>(v, d, lay, m, i, xs, TB, tid);
 }
 
+// ---- observation chunks (the chunked route of K2d and K2d′) -----------------
+//
+// Features k0 .. k0 + kn - 1 of the row build_row_obs writes, written to
+// xs[(k - k0) * TB + tid]: the same values, from the same view, in the same
+// order of writes to a feature, each write kept where it lands in the chunk.
+// The defaults of the chunk are set directly (a FLATTENED window cell reads
+// [0, 1, 0, 0, 0, 0 ...]; an image window the in-grid mask in its ACCESSIBLE
+// channels and 0 elsewhere), then the scatters of build_obs_from_view /
+// build_image_obs_from_view run with every write outside the chunk dropped.
+
+template <bool kMsg>
+static __device__ __forceinline__ void build_obs_chunk_from_view(
+    const int* v, const EnvDims& d, const EnvLayout& lay, const ObsDims& m, int i,
+    __nv_bfloat16* xs, int TB, int tid, int k0, int kn) {
+  const int N = d.n, R = d.r, W = d.w, M = kMsg ? d.m : 0, sr = m.sensor_range;
+  const int side = 2 * sr + 1, CF = 7 + M, k1 = k0 + kn;
+  const int* q = v + 2 * N + N * M;
+  const __nv_bfloat16 one = __float2bfloat16_rn(1.f), zero = __float2bfloat16_rn(0.f);
+#define X(k) xs[(size_t)((k) - k0) * TB + tid]
+#define SET(k, val)                                   \
+  do {                                                \
+    const int k_ = (k);                               \
+    if (k_ >= k0 && k_ < k1) X(k_) = (val);           \
+  } while (0)
+  for (int k = k0; k < k1; ++k) X(k) = zero;
+  // the dir-0 one of every window cell (feature 8 + CF c + 1) in the chunk
+  for (int k = k0 <= 9 ? 9 : 9 + (k0 - 9 + CF - 1) / CF * CF; k < k1; k += CF) X(k) = one;
+  const int ax = v[i] & 0xFFFF, ay = v[i] >> 16, info = v[N + i];
+  if (k0 < 8) {
+    float fx = (float)ax, fy = (float)ay;
+    if (m.normalised) {
+      fx = __fdiv_rn(fx, (float)(W - 1));
+      fy = __fdiv_rn(fy, (float)(d.h - 1));
+    }
+    SET(0, __float2bfloat16_rn(fx));
+    SET(1, __float2bfloat16_rn(fy));
+    SET(2, info & 4 ? one : zero);
+    for (int k = 0; k < 4; ++k) SET(3 + k, (info & 3) == k ? one : zero);
+    SET(7, lay.highway[ay * W + ax] ? one : zero);
+  }
+  for (int j = 0; j < N; ++j) {
+    const int rx = (v[j] & 0xFFFF) - ax + sr, ry = (v[j] >> 16) - ay + sr;
+    if (rx < 0 || rx >= side || ry < 0 || ry >= side) continue;
+    const int b = 8 + CF * (ry * side + rx);
+    if (b + CF <= k0 || b >= k1) continue;
+    SET(b, one);
+    SET(b + 1, zero);
+    SET(b + 1 + (v[N + j] & 3), one);
+    for (int k = 0; k < M; ++k) SET(b + 5 + k, __float2bfloat16_rn((float)v[2 * N + j * M + k]));
+  }
+  for (int s = 0; s < d.s; ++s) {
+    const int cs = q[R + s];
+    const int rx = (cs & 0xFFFF) - ax + sr, ry = (cs >> 16) - ay + sr;
+    if (rx < 0 || rx >= side || ry < 0 || ry >= side) continue;
+    const int b = 8 + CF * (ry * side + rx) + M;
+    if (b + 7 <= k0 || b + 5 >= k1) continue;
+    SET(b + 5, one);
+    bool inq = false;
+    for (int r = 0; r < R; ++r) inq |= q[r] == s;
+    if (inq) SET(b + 6, one);
+  }
+#undef SET
+#undef X
+}
+
+static __device__ __forceinline__ void build_image_obs_chunk_from_view(
+    const int* v, const EnvDims& d, int M, const EnvLayout& lay, const ObsDims& m, int i,
+    __nv_bfloat16* xs, int TB, int tid, int k0, int kn) {
+  const int N = d.n, R = d.r, r = m.sensor_range, side = 2 * r + 1, w2 = side * side;
+  const int C = m.img_n_layers, dirl = m.img_directional, k1 = k0 + kn;
+  const int* q = v + 2 * N + N * M;
+  const int ax = v[i] & 0xFFFF, ay = v[i] >> 16, dir = v[N + i] & 3;
+  const __nv_bfloat16 one = __float2bfloat16_rn(1.f), zero = __float2bfloat16_rn(0.f);
+#define X(k) xs[(size_t)((k) - k0) * TB + tid]
+#define SET(k, val)                                   \
+  do {                                                \
+    const int k_ = (k);                               \
+    if (k_ >= k0 && k_ < k1) X(k_) = (val);           \
+  } while (0)
+#define LAYER(c) ((m.img_layers >> (4 * (c))) & 15)
+  for (int k = k0; k < k1; ++k) {
+    const int c = k / w2;
+    bool in_grid = false;
+    if (c < C && LAYER(c) == RW_ACCESSIBLE) {  // the world offset that lands on (u, w)
+      const int cell = k - c * w2, u = cell / side, w = cell - u * side;
+      int dy = u - r, dx = w - r;
+      if (dirl && dir == 1) {
+        dy = r - u;
+        dx = r - w;
+      } else if (dirl && dir == 2) {
+        dy = r - w;
+        dx = u - r;
+      } else if (dirl && dir == 3) {
+        dy = w - r;
+        dx = r - u;
+      }
+      const int cx = ax + dx, cy = ay + dy;
+      in_grid = cx >= 0 && cx < d.w && cy >= 0 && cy < d.h;
+    }
+    X(k) = in_grid ? one : zero;
+  }
+  for (int j = 0; j < N; ++j) {
+    int cell;
+    if (!rot_window_cell((v[j] >> 16) - ay, (v[j] & 0xFFFF) - ax, dir, dirl, r, &cell)) continue;
+    const int info = v[N + j];
+    for (int c = 0; c < C; ++c) {
+      const int k = c * w2 + cell;
+      switch (LAYER(c)) {
+        case RW_AGENTS: SET(k, one); break;
+        case RW_AGENT_DIRECTION: SET(k, __float2bfloat16_rn((float)((info & 3) + 1))); break;
+        case RW_AGENT_LOAD: SET(k, info & 4 ? one : zero); break;
+        case RW_ACCESSIBLE: SET(k, zero); break;
+        default: break;
+      }
+    }
+  }
+  for (int s = 0; s < d.s; ++s) {
+    int cell;
+    const int cs = q[R + s];
+    if (!rot_window_cell((cs >> 16) - ay, (cs & 0xFFFF) - ax, dir, dirl, r, &cell)) continue;
+    bool inq = false;
+    for (int k = 0; k < R; ++k) inq |= q[k] == s;
+    for (int c = 0; c < C; ++c) {
+      const int layer = LAYER(c);
+      if (layer == RW_SHELVES || (layer == RW_REQUESTS && inq)) SET(c * w2 + cell, one);
+    }
+  }
+  for (int g = 0; g < d.g; ++g) {
+    int cell;
+    if (!rot_window_cell(lay.goal_y[g] - ay, lay.goal_x[g] - ax, dir, dirl, r, &cell)) continue;
+    for (int c = 0; c < C; ++c)
+      if (LAYER(c) == RW_GOALS) SET(c * w2 + cell, one);
+  }
+  if (m.img_self && C * w2 + 6 > k0) {
+    const int b = C * w2;
+    for (int k = 0; k < 4; ++k) SET(b + k, dir == k ? one : zero);
+    SET(b + 4, lay.highway[ay * d.w + ax] ? one : zero);
+    SET(b + 5, v[N + i] & 4 ? one : zero);
+  }
+#undef LAYER
+#undef SET
+#undef X
+}
+
+// Features k0 .. k0 + kn - 1 of agent i's observation row (build_row_obs's)
+// into a thread's column of a chunk tile; a row of no env (pad) zero.
+template <bool kMsg, bool kImage>
+static __device__ __forceinline__ void build_row_chunk(const int* v, const EnvDims& d,
+                                                       const EnvLayout& lay, const ObsDims& m,
+                                                       int i, bool pad, __nv_bfloat16* xs,
+                                                       int TB, int tid, int k0, int kn) {
+  if (pad)
+    for (int k = 0; k < kn; ++k) xs[(size_t)k * TB + tid] = __float2bfloat16_rn(0.f);
+  else if (kImage)
+    build_image_obs_chunk_from_view(v, d, kMsg ? d.m : 0, lay, m, i, xs, TB, tid, k0, kn);
+  else
+    build_obs_chunk_from_view<kMsg>(v, d, lay, m, i, xs, TB, tid, k0, kn);
+}
+
+// Features k0 .. k0 + kn - 1 of tile rows [r0, r1) (agent-major, row i * te +
+// e; rows of no env, i >= N or e >= tev, skipped) from a feature-major chunk
+// tile (row stride rs) to the trajectory's obs rows out + (e * N + i) * L:
+// runs of 8 features of a row a thread, neighbouring threads on neighbouring
+// runs.
+static __device__ __forceinline__ void store_chunk_rows(unsigned short* out, int L, int k0,
+                                                        int kn, const unsigned short* tile,
+                                                        int rs, int r0, int r1, int N, int te,
+                                                        int tev, int tid, int nt) {
+  const int runs = (kn + 7) / 8, n = (r1 - r0) * runs;
+  for (int q = tid; q < n; q += nt) {
+    const int rr = q / runs, c0 = (q - rr * runs) * 8, r = r0 + rr, i = r / te, e = r - i * te;
+    if (i >= N || e >= tev) continue;
+    unsigned short* dst = out + ((size_t)e * N + i) * L + k0;
+    const int c1 = min(c0 + 8, kn);
+    for (int c = c0; c < c1; ++c) dst[c] = tile[(size_t)c * rs + r];
+  }
+}
+
 static __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }

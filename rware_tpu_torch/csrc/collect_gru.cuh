@@ -81,6 +81,16 @@
 // carve-out, every shared-memory offset) comes from collect_gru_plan;
 // collect_gru_plan_ok refuses a plan whose regions do not hold what the
 // kernel keeps there.
+// Where a tile of 8 envs cannot hold its rows' whole observations (K2d′ at 16
+// agents and sensor range 5: 128 rows x 855 features), the chunked route
+// (kChunk, per agent only, built in fused_collect_gru_chunked.cu and
+// fused_collect_gru_chunked_image.cu) keeps kx features of the tile and the
+// embedding in a region of its own (embed_rows_chunked): for each set of rows
+// the rows build each chunk from their env's view (collect_core.cuh::
+// build_row_chunk), the block stores it to the trajectory, and the set's
+// sums carry from chunk to chunk through tile_fma_acc, the chunk's rows of We
+// brought through the ring from a multiple of kc, so each sum is the same FMA
+// chain as the whole tile's.
 //
 // Numerics follow _gru_forward (pallas_rollout.py:1472-1486), which
 // _gru_forward_per_agent repeats per agent, in the order and formulas of
@@ -140,17 +150,18 @@ struct GruCollectDims {
 // rs (row stride of the feature-major tiles), hrs (words of a row's record),
 // vs (words of an env's view), heads_global (the f32 biases and head blocks
 // read from device memory), the shared-memory carve-out (percent) to ask
-// for, kc (weight rows a chunk of the ring) and ring_stacks (stacks a chunk
-// holds: the most one set of rows runs), then the byte offsets of the
+// for, kc (weight rows a chunk of the ring), ring_stacks (stacks a chunk
+// holds: the most one set of rows runs) and kx (observation features a chunk
+// of the tile holds; 0: the whole row), then the byte offsets of the
 // shared-memory regions and their end: the f32 be, bi, bhn, Wc, bc of the
-// stacks held there, the observation tile (e written over it), the carry
-// tile, the weight ring (three chunks), a record a row, a view an env, done
-// an env.
+// stacks held there, the observation tile (e written over it, unless chunked),
+// the embedding (chunked only), the carry tile, the weight ring (three
+// chunks), a record a row, a view an env, done an env.
 struct GruCollectPlan {
-  int te, threads, rows, rs, hrs, vs, heads_global, carveout, kc, ring_stacks;
-  int be, bi, bhn, wc, bc, x, h, ring, out, view, done, end;
+  int te, threads, rows, rs, hrs, vs, heads_global, carveout, kc, ring_stacks, kx;
+  int be, bi, bhn, wc, bc, x, e, h, ring, out, view, done, end;
 };
-#define RW_GRU_REGIONS 11
+#define RW_GRU_REGIONS 12
 
 // Stacks the rows of one set span, for sets of `rgs` 4-row groups starting
 // at multiples of rgs (K2d′: row r runs stack r / te).
@@ -175,7 +186,8 @@ static bool collect_gru_plan_ok(const GruCollectPlan& p, const GruCollectDims& m
              rs = p.rs, rows = p.rows, xr = m.L > E ? m.L : E;
   const long wc_ = E > Hg ? E : Hg;
   const long need[RW_GRU_REGIONS] = {ws * E * 4,  ws * 3 * Hg * 4, ws * Hg * 4,
-                                     ws * Hg * AC * 4, ws * AC * 4,  xr * rs * 2,
+                                     ws * Hg * AC * 4, ws * AC * 4,
+                                     (p.kx ? p.kx : xr) * rs * 2, p.kx ? E * rs * 2 : 0,
                                      Hg * rs * 2, 3L * p.ring_stacks * p.kc * wc_ * 2,
                                      rows * p.hrs * 4, (long)p.te * p.vs * 4, p.te};
   // a thread for each output group of a row set, and whole row groups
@@ -194,7 +206,11 @@ static bool collect_gru_plan_ok(const GruCollectPlan& p, const GruCollectDims& m
          p.threads % 32 == 0 && p.threads <= RW_GRU_MAX_THREADS && p.threads >= rows + 32 &&
          (m.n_stacks == 1 || (p.te % 8 == 0 && rows == N * p.te)) && p.kc >= 1 &&
          p.ring_stacks >= spans && p.carveout >= 0 && p.carveout <= 100 &&
-         p.end <= RW_GRU_SMEM_LIMIT;
+         p.end <= RW_GRU_SMEM_LIMIT &&
+         // a chunk: whole 16-byte runs of features and of the ring's chunks,
+         // per agent (the chunked instantiations)
+         (p.kx == 0 ||
+          (p.kx > 0 && p.kx % 8 == 0 && p.kx % p.kc == 0 && m.n_stacks > 1));
 }
 
 // Four bf16 values (8 bytes, element 0 in the low half of x) as floats.
@@ -229,19 +245,16 @@ struct Ring {
   int kc, s0, ns;
 };
 
-// acc[a][c] = sum over k < K of src[k][a] * W[k][c0 + c], k ascending, an
+// acc[a][c] += sum over k < K of src[k][a] * W[k][c0 + c], k ascending, an
 // FMA a term: src the 4 rows of a feature-major bf16 tile (row stride rs),
 // W stack `stack`'s weight rows of the slice, staged through the ring.
 // Every thread of the block calls this together (the ring's barriers);
 // inactive threads only stage.
-static __device__ __forceinline__ void tile_fma(float (&acc)[4][8], const __nv_bfloat16* src,
-                                                int rs, bool active, int stack, int c0,
-                                                const WSlice& ws, const Ring& ring, int tid,
-                                                int nt) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+static __device__ __forceinline__ void tile_fma_acc(float (&acc)[4][8],
+                                                    const __nv_bfloat16* src, int rs,
+                                                    bool active, int stack, int c0,
+                                                    const WSlice& ws, const Ring& ring, int tid,
+                                                    int nt) {
   const int K = ws.K, C = ws.C, kc = ring.kc, nch = (K + kc - 1) / kc, vr = C / 8;
   const size_t chunk = (size_t)ring.ns * kc * C;  // elements a chunk
   auto issue = [&](int ch) {  // chunk ch into buffer ch % 3, one commit group
@@ -283,6 +296,18 @@ static __device__ __forceinline__ void tile_fma(float (&acc)[4][8], const __nv_b
       }
     }
   }
+}
+
+// tile_fma_acc's sums from zero.
+static __device__ __forceinline__ void tile_fma(float (&acc)[4][8], const __nv_bfloat16* src,
+                                                int rs, bool active, int stack, int c0,
+                                                const WSlice& ws, const Ring& ring, int tid,
+                                                int nt) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+  tile_fma_acc(acc, src, rs, active, stack, c0, ws, ring, tid, nt);
 }
 
 // The rows of a product, walked in sets of whole 4-row groups: job tid of a
@@ -332,6 +357,61 @@ static __device__ __forceinline__ void embed_rows(__nv_bfloat16* xs, int L, int 
 #pragma unroll
         for (int a = 0; a < 4; ++a) v[a] = tanhf(bf16_round(__fadd_rn(acc[a][c], bj)));
         *reinterpret_cast<uint2*>(xs + (size_t)(c0 + c) * RS + r0) =
+            make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
+      }
+    }
+  }
+}
+
+// The embed with the observation tile in chunks (the chunked route, kx > 0):
+// for each set of rows, for each chunk of kx features in ascending k, the set's
+// rows build their features of the chunk from their env's view
+// (build_row_chunk), the block stores them to the trajectory's obs (obs_rows:
+// the step's rows of the block's first env), and the set's jobs carry their
+// sums in registers on to the next chunk (tile_fma_acc over the chunk's rows
+// of We, which start at a multiple of the ring's kc); each sum stays one FMA
+// chain from k = 0 to L - 1, as in embed_rows.  e goes to es, its own region.
+template <bool kPerAgent, bool kMsg, bool kImage>
+static __device__ __forceinline__ void embed_rows_chunked(
+    const int* views, const EnvDims& d, const EnvLayout& lay, const GruCollectDims& m,
+    const GruCollectPlan& p, int TEv, const __nv_bfloat16* we, const float* be,
+    __nv_bfloat16* xs, __nv_bfloat16* es, unsigned short* obs_rows, const Ring& ring, int tid,
+    int nt) {
+  const int L = m.L, E = m.E, N = d.n, R = p.rows, RS = p.rs, TE = p.te, KX = p.kx;
+  const RowSet s(R, E, nt);
+  for (int rg0 = 0; rg0 < s.nrg; rg0 += s.rgs) {
+    const int rg = rg0 + tid / s.ncg, c0 = (tid % s.ncg) * 8, r0 = rg * RW_GRU_RT;
+    const bool active = tid < s.rgs * s.ncg && rg < s.nrg;
+    const int stack = kPerAgent && active ? r0 / TE : 0;
+    const int ra = rg0 * RW_GRU_RT, rb = min(rg0 + s.rgs, s.nrg) * RW_GRU_RT;
+    const Ring sr = s.ring(ring, rg0, kPerAgent, TE);
+    float acc[4][8];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+    for (int k0 = 0; k0 < L; k0 += KX) {
+      const int kn = min(KX, L - k0);
+      __syncthreads();  // the last chunk's readers are done with the tile
+      if (tid >= ra && tid < rb) {
+        const int e = tid % TE, i = tid / TE;
+        build_row_chunk<kMsg, kImage>(views + e * p.vs, d, lay, m.obs, i, i >= N || e >= TEv,
+                                      xs, RS, tid, k0, kn);
+      }
+      __syncthreads();
+      store_chunk_rows(obs_rows, L, k0, kn, reinterpret_cast<const unsigned short*>(xs), RS, ra,
+                       rb, N, TE, TEv, tid, nt);
+      tile_fma_acc(acc, xs + r0, RS, active, stack, c0,
+                   WSlice{we + (size_t)k0 * E, kn, E, 0, E, (size_t)L * E}, sr, tid, nt);
+    }
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float bj = be[stack * E + c0 + c];
+        float v[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) v[a] = tanhf(bf16_round(__fadd_rn(acc[a][c], bj)));
+        *reinterpret_cast<uint2*>(es + (size_t)(c0 + c) * RS + r0) =
             make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
       }
     }
@@ -423,9 +503,10 @@ static __device__ __forceinline__ void cell_rows(const __nv_bfloat16* es,
 
 // kM: message bits per agent, 0 without the message head; kPerAgent: agent i
 // runs weight stack i (K2d′), else every agent runs the one stack (K2c);
-// kImage: image observations (K2e), else FLATTENED.  h0 and new_h are (B, N,
-// Hg) bf16.
-template <int kM, bool kPerAgent, bool kImage>
+// kImage: image observations (K2e), else FLATTENED; kChunk: the observation
+// tile in chunks of kx features (K2d′ only), the embedding in a region of its
+// own.  h0 and new_h are (B, N, Hg) bf16.
+template <int kM, bool kPerAgent, bool kImage, bool kChunk>
 __global__ void __launch_bounds__(RW_GRU_MAX_THREADS)
     fused_collect_gru_kernel(EnvDims d, GruCollectDims m, GruCollectPlan p, int T, int B,
                              const int* __restrict__ layout, const int* __restrict__ state_in,
@@ -451,9 +532,11 @@ __global__ void __launch_bounds__(RW_GRU_MAX_THREADS)
   float* const sbhn = (float*)(smem + p.bhn);
   float* const swc = (float*)(smem + p.wc);
   float* const sbc = (float*)(smem + p.bc);
-  // The tiles, feature-major (., RS): the observations, e written over them;
-  // the carry, new h written over it.
+  // The tiles, feature-major (., RS): the observations, e written over them
+  // (chunked: a chunk of them, e in a tile of its own); the carry, new h
+  // written over it.
   __nv_bfloat16* const xs = (__nv_bfloat16*)(smem + p.x);
+  __nv_bfloat16* const es = kChunk ? (__nv_bfloat16*)(smem + p.e) : xs;
   __nv_bfloat16* const hs = (__nv_bfloat16*)(smem + p.h);
   // A row's record (HRS words): the A logits, the value at A, the M message
   // logits after it; once sampled, the action (int) at 0, logp at 1, after
@@ -516,15 +599,15 @@ __global__ void __launch_bounds__(RW_GRU_MAX_THREADS)
 
   for (int t = 0; t < T; ++t) {
     // ---- observations of step t, one thread a row, from its env's view
-    // (rows of no env zero); the carry of an env whose episode ended at t-1
-    // restarts at zero | step t-1's rewards, done
+    // (rows of no env zero; chunked: in the embed); the carry of an env whose
+    // episode ended at t-1 restarts at zero | step t-1's rewards, done
     if (tid < R) {
       const int e = tid % TE, i = tid / TE;
       if (i < N && e < TEv) {
-        build_row_obs<kMsg, kImage>(views + e * VS, d, lay, m.obs, i, xs, RS, tid);
+        if (!kChunk) build_row_obs<kMsg, kImage>(views + e * VS, d, lay, m.obs, i, xs, RS, tid);
         if (dones[e])
           for (int k = 0; k < Hg; ++k) hs[(size_t)k * RS + tid] = zero;
-      } else {
+      } else if (!kChunk) {
         for (int c = 0; c < L; ++c) xs[(size_t)c * RS + tid] = zero;
       }
     } else if (t > 0) {
@@ -534,15 +617,21 @@ __global__ void __launch_bounds__(RW_GRU_MAX_THREADS)
     RW_COLLECT_GRU_MARK(0);
     // ---- embed -> e over the observations; before it goes over them, the
     // step's obs out
-    embed_rows<kPerAgent>(xs, L, E, we, Be, R, RS, TE, ring, tid, nt, [&] {
-      store_span(reinterpret_cast<unsigned short*>(obs) + ((size_t)t * B + e0) * N * L,
-                 TEv * N * L, tid, nt,
-                 TileRowRun{reinterpret_cast<const unsigned short*>(xs), RS, L, N, TE});
-    });
+    if (kChunk) {
+      embed_rows_chunked<kPerAgent, kMsg, kImage>(
+          views, d, lay, m, p, TEv, we, Be, xs, es,
+          reinterpret_cast<unsigned short*>(obs) + ((size_t)t * B + e0) * N * L, ring, tid, nt);
+    } else {
+      embed_rows<kPerAgent>(xs, L, E, we, Be, R, RS, TE, ring, tid, nt, [&] {
+        store_span(reinterpret_cast<unsigned short*>(obs) + ((size_t)t * B + e0) * N * L,
+                   TEv * N * L, tid, nt,
+                   TileRowRun{reinterpret_cast<const unsigned short*>(xs), RS, L, N, TE});
+      });
+    }
     __syncthreads();
     RW_COLLECT_GRU_MARK(1);
     // ---- the cell -> new h over the carry
-    cell_rows<kPerAgent>(xs, hs, E, Hg, wi, Bi, wh, Bhn, R, RS, TE, ring, tid, nt);
+    cell_rows<kPerAgent>(es, hs, E, Hg, wi, Bi, wh, Bhn, R, RS, TE, ring, tid, nt);
     __syncthreads();
     RW_COLLECT_GRU_MARK(2);
     // ---- heads: 4 rows x 1 head row a job, f32, hidden ascending, then the
@@ -640,22 +729,27 @@ struct GruCollectArgs {
   void *new_h, *obs, *action, *bits, *logp, *value, *reward, *done, *stream;
 };
 
-// Launches the instantiation of (kImage, per agent, message width).
-template <bool kImage>
+// Launches the instantiation of (kImage, kChunk, per agent, message width);
+// the chunked instantiations are per agent only (the plan's rule).
+template <bool kImage, bool kChunk>
 static int launch_collect_gru(const EnvDims& d, const GruCollectDims& m, const GruCollectPlan& p,
                               int T, int B, const GruCollectArgs& a) {
   static_assert(RW_MAX_M == 8, "one instantiation per message width");
 #define RW_WIDTHS(P)                                                                             \
-  {fused_collect_gru_kernel<0, P, kImage>, fused_collect_gru_kernel<1, P, kImage>,               \
-   fused_collect_gru_kernel<2, P, kImage>, fused_collect_gru_kernel<3, P, kImage>,               \
-   fused_collect_gru_kernel<4, P, kImage>, fused_collect_gru_kernel<5, P, kImage>,               \
-   fused_collect_gru_kernel<6, P, kImage>, fused_collect_gru_kernel<7, P, kImage>,               \
-   fused_collect_gru_kernel<8, P, kImage>}
-  // [per agent][message width]
-  decltype(&fused_collect_gru_kernel<0, false, kImage>) const kernels[2][RW_MAX_M + 1] = {
-      RW_WIDTHS(false), RW_WIDTHS(true)};
+  {fused_collect_gru_kernel<0, P, kImage, kChunk>, fused_collect_gru_kernel<1, P, kImage, kChunk>, \
+   fused_collect_gru_kernel<2, P, kImage, kChunk>, fused_collect_gru_kernel<3, P, kImage, kChunk>, \
+   fused_collect_gru_kernel<4, P, kImage, kChunk>, fused_collect_gru_kernel<5, P, kImage, kChunk>, \
+   fused_collect_gru_kernel<6, P, kImage, kChunk>, fused_collect_gru_kernel<7, P, kImage, kChunk>, \
+   fused_collect_gru_kernel<8, P, kImage, kChunk>}
+  // [message width], per agent and (without chunks) one stack
+  using Kernel = decltype(&fused_collect_gru_kernel<0, false, kImage, kChunk>);
+  const Kernel per_agent[RW_MAX_M + 1] = RW_WIDTHS(true);
+  Kernel kernel = per_agent[d.m];
+  if constexpr (!kChunk) {
+    const Kernel shared[RW_MAX_M + 1] = RW_WIDTHS(false);
+    if (m.n_stacks == 1) kernel = shared[d.m];
+  }
 #undef RW_WIDTHS
-  const auto kernel = kernels[m.n_stacks > 1 ? 1 : 0][d.m];
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.end);
   if (err == cudaSuccess)
@@ -673,6 +767,12 @@ static int launch_collect_gru(const EnvDims& d, const GruCollectDims& m, const G
   return (int)cudaGetLastError();
 }
 
-// The image instantiations' launcher (fused_collect_gru_image.cu).
+// The launchers of the image instantiations (fused_collect_gru_image.cu) and
+// of the chunked ones (fused_collect_gru_chunked.cu, FLATTENED and image).
 int launch_collect_gru_image(const EnvDims& d, const GruCollectDims& m, const GruCollectPlan& p,
                              int T, int B, const GruCollectArgs& a);
+int launch_collect_gru_chunked(const EnvDims& d, const GruCollectDims& m,
+                               const GruCollectPlan& p, int T, int B, const GruCollectArgs& a);
+int launch_collect_gru_chunked_image(const EnvDims& d, const GruCollectDims& m,
+                                     const GruCollectPlan& p, int T, int B,
+                                     const GruCollectArgs& a);

@@ -1,6 +1,8 @@
 // The recurrent collector's launcher: K2c (one GRU for all agents) and K2d′
 // (agent i runs GRU i), FLATTENED instantiations here, image ones (K2e) in
-// fused_collect_gru_image.cu.  The kernel and its design: collect_gru.cuh.
+// fused_collect_gru_image.cu, K2d′'s chunked ones in fused_collect_gru_chunked.cu
+// and fused_collect_gru_chunked_image.cu.  The kernel and its design:
+// collect_gru.cuh.
 #include "collect_gru.cuh"
 
 // img_*: the image mode (K2e; ObsDims), img_n_layers = 0 for FLATTENED.
@@ -8,7 +10,8 @@
 // stack i, each input array the stacks back to back).  plan: the n_plan ints
 // of ops/fused_rollout.py::GruCollectPlan.args (host memory), which say
 // whether the f32 bias and head blocks are held in shared memory or read
-// from device memory.  h0 and new_h are (B, N, Hg) bf16.
+// from device memory, and whether the observation tile is chunked.  h0 and
+// new_h are (B, N, Hg) bf16.
 extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, int reward_type,
                                     int max_steps, int max_inactive, int msg_bits,
                                     unsigned long long seed, unsigned int env_offset,
@@ -62,6 +65,8 @@ extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, in
     return (int)cudaErrorInvalidValue;
   const GruCollectArgs a = {layout, state_in, state_out, we, be, wi, bi, wh, bhn, wc, bc,
                             h0, new_h, obs, action, bits, logp, value, reward, done, stream};
+  if (p.kx) return img_n_layers > 0 ? launch_collect_gru_chunked_image(d, m, p, T, B, a)
+                                    : launch_collect_gru_chunked(d, m, p, T, B, a);
   if (img_n_layers > 0) return launch_collect_gru_image(d, m, p, T, B, a);
-  return launch_collect_gru<false>(d, m, p, T, B, a);
+  return launch_collect_gru<false, false>(d, m, p, T, B, a);
 }

@@ -7,7 +7,7 @@ tanh taken on that bf16 value; the f32 heads read the bf16 hidden.
 
 Every product is accumulated in one fixed order — input feature 0 first,
 one rounded multiply and one rounded add per term, no fused multiply-add —
-which is the order the fused collector kernel (``csrc/fused_collect.cu``)
+which is the order the fused collector kernel (``csrc/collect_mlp.cuh``)
 uses, so on the card the two agree bit for bit.
 
 The recurrent policy (:class:`RecurrentActorCritic`, embed + GRU cell + f32
@@ -45,11 +45,12 @@ def ordered_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) ->
     ascending order with separately rounded multiplies and adds.
 
     ``x`` (M, K) and ``weight`` (J, K) hold float32 values (bf16-exact where
-    the recipe calls for bf16)."""
-    acc = torch.zeros((x.shape[0], weight.shape[0]), dtype=torch.float32, device=x.device)
-    w_t = weight.t()
-    for k in range(x.shape[1]):
-        acc = acc + x[:, k : k + 1] * w_t[k]
+    the recipe calls for bf16).  Leading axes broadcast: ``x`` (N, M, K),
+    ``weight`` (N, J, K) and ``bias`` (N, 1, J) run N products in one loop."""
+    acc = torch.zeros(x.shape[:-1] + (weight.shape[-2],), dtype=torch.float32, device=x.device)
+    w_t = weight.transpose(-1, -2)
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k : k + 1] * w_t[..., k : k + 1, :]
     return acc + bias
 
 
@@ -99,6 +100,30 @@ class ActorCritic(nn.Module):
     def forward(self, obs: torch.Tensor):
         logits, value, msg = self.heads(obs)
         return (logits if msg is None else (logits, msg)), value
+
+
+def stacked_heads(policies: Sequence[ActorCritic], obs: torch.Tensor):
+    """``policies[i].heads(obs[i])`` for every i, stacked on a leading axis:
+    ``obs`` (N, ..., L) -> (logits (N, ..., A), value (N, ...), msg_logits
+    (N, ..., M) or None).  The same casts and roundings, every sum in
+    :func:`ordered_linear`'s order, so each value equals the per-network
+    call's bit for bit; the N networks share one loop over the features."""
+    n, lead, p0 = len(policies), obs.shape[1:-1], policies[0]
+    x = obs.reshape(n, -1, obs.shape[-1]).to(torch.bfloat16).to(torch.float32)
+
+    def layer(get, bf16=False):
+        w = torch.stack([get(p).weight for p in policies]).float()
+        w = w.to(torch.bfloat16).to(torch.float32) if bf16 else w
+        return w, torch.stack([get(p).bias for p in policies]).float()[:, None]
+
+    for d in range(len(p0.dense)):
+        x = bf16_tanh(ordered_linear(x, *layer(lambda p: p.dense[d], bf16=True)))
+    logits = ordered_linear(x, *layer(lambda p: p.policy))
+    value = ordered_linear(x, *layer(lambda p: p.value))
+    msg = None
+    if p0.msg_bits:
+        msg = ordered_linear(x, *layer(lambda p: p.message)).reshape((n,) + lead + (p0.msg_bits,))
+    return logits.reshape((n,) + lead + (p0.n_actions,)), value.reshape((n,) + lead), msg
 
 
 def sample_action(
@@ -518,10 +543,12 @@ def rnd_bf16(x: torch.Tensor) -> torch.Tensor:
 def ordered_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in float32 for ``x`` (M, K) and ``w`` (K, J), summed over k
     in ascending order with separately rounded multiplies and adds: the
-    order of the collector kernels (see :func:`ordered_linear`)."""
-    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
-    for k in range(x.shape[1]):
-        acc = acc + x[:, k : k + 1] * w[k]
+    order of the collector kernels (see :func:`ordered_linear`).  Leading
+    axes broadcast: ``x`` (N, M, K) and ``w`` (N, K, J) run N products in one
+    loop."""
+    acc = torch.zeros(x.shape[:-1] + (w.shape[-1],), dtype=torch.float32, device=x.device)
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k : k + 1] * w[..., k : k + 1, :]
     return acc
 
 
@@ -685,7 +712,9 @@ def gru_collect_step(arrays: Sequence[torch.Tensor], h: torch.Tensor, obs: torch
     (``pallas_rollout.py::_gru_forward``): ``h`` (M, Hg) and ``obs`` (M, L)
     hold bf16 values; returns (logits (M, A) f32, value (M,) f32, new_h (M,
     Hg) float32 holding bf16 values), the logits ``(logits, msg_logits)``
-    with ``msg_bits``.
+    with ``msg_bits``.  With a leading axis of N stacks on every array
+    (``h`` (N, M, Hg), ``obs`` (N, M, L), the blocks (N, ...)) it runs the N
+    cells at once, each output the one-stack call's.
 
     Input and hidden products are summed separately in float32 and added
     before the sigmoid; the candidate adds two bf16-rounded terms in bf16;

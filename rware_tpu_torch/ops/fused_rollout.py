@@ -22,6 +22,14 @@ recurrent (K2c), per-agent MLP (K2d) and per-agent recurrent (K2d′).
   step where agent i runs its own :class:`RecurrentActorCritic` i on its own
   slice of the carry.
 
+Every registered id takes every collector, the sensor ranges 2-5 of
+``register_full`` (up to 1,097 features a row) included: where a block cannot
+hold the shared network beside its smallest tile, K2a reads its weights from
+device memory (:func:`collect_plan`), and where it cannot hold the tile's
+whole observation rows (K2d and K2d′ with many agents at sensor range 4 and
+5), the kernel builds and sums the observation in chunks of features, each
+sum the same FMA chain as the whole row's.
+
 Image observations (IMAGE and IMAGE_DICT ids, ``-img`` / ``-imgdict`` /
 ``-Nd``) are a mode of every collector (K2e, ``_build_image_feats`` of
 ``pallas_rollout.py``): the kernel builds each agent's C x w x w window of
@@ -48,9 +56,13 @@ which the dynamics keep: no two shelves ever share a cell in a state that
 ``reset`` and ``step`` make, and K1 takes such states.
 
 Each wrapper launches its CUDA kernel (``csrc/fused_rollout.cu``,
-``csrc/fused_collect.cu`` for K2a and K2d, ``csrc/collect_gru.cuh`` for
-K2c and K2d′, launched from ``csrc/fused_collect_gru.cu``, its image
-instantiations built in ``csrc/fused_collect_gru_image.cu``) for tensors on
+``csrc/collect_mlp.cuh`` for K2a and K2d, launched from
+``csrc/fused_collect.cu``, its chunked instantiations built in
+``csrc/fused_collect_chunked.cu``; ``csrc/collect_gru.cuh`` for K2c and
+K2d′, launched from ``csrc/fused_collect_gru.cu``, its image and chunked
+instantiations built in ``csrc/fused_collect_gru_image.cu``,
+``csrc/fused_collect_gru_chunked.cu`` and
+``csrc/fused_collect_gru_chunked_image.cu``) for tensors on
 a CUDA device, and runs its plain PyTorch version (``.plain``)
 only for tensors on the CPU; it counts its kernel launches in ``.launches``.  Both draw from the same Philox stream
 (:mod:`rware_tpu_torch.ops.philox`), so kernel and plain version agree bit
@@ -91,6 +103,7 @@ from rware_tpu_torch.models.networks import (
     gru_to_arrays,
     sample_action,
     sample_bernoulli,
+    stacked_heads,
 )
 from rware_tpu_torch.ops import philox
 from rware_tpu_torch.ops.fused_update import SMEM_PER_SM
@@ -467,17 +480,23 @@ def build_fused_rollout(config: WarehouseConfig, n_steps: int, scripted: bool = 
 
 
 # The regions of a collector block's shared memory, in order (csrc/
-# fused_collect.cu): dense_0, dense_1, the policy, value and message heads and
+# collect_mlp.cuh): dense_0, dense_1, the policy, value and message heads and
 # their five biases (the weight stacks, empty where they are read from device
 # memory), the observation tile (empty: at the start of ``h``, h1 written over
-# it), the hidden tile, h2 (empty: over h1), a record a row (head outputs,
-# then action, logp, reward, bits), a view of each env's state (agents, queue,
-# shelves: what the observation rows read), and per env done.
+# it; ``kx`` features of it where the plan chunks it), the hidden tile, h2
+# (empty: over h1), a record a row (head outputs, then action, logp, reward,
+# bits), a view of each env's state (agents, queue, shelves: what the
+# observation rows read), and per env done.
 COLLECT_REGIONS = ("w0", "w1", "wp", "wv", "wm", "b0", "b1", "bp", "bv", "bm",
                    "x", "h", "h2", "out", "view", "done")
 COLLECT_ROWS = 128  # (env, agent) rows a block aims at: 64 envs at 2 agents
 COLLECT_MIN_ROWS = 32  # K2a's smallest tile: the 32 one-env columns of the kernel before
 COLLECT_MAX_THREADS = 512
+# Observation features a chunk of the tile holds where the whole tile does not
+# fit a block, longest first: multiples of 32, so a chunk's rows go to the
+# trajectory in whole runs of 8 features (16 bytes) and line up with the
+# recurrent collector's weight ring (chunks of up to 32 rows)
+COLLECT_CHUNKS = (256, 128, 64, 32)
 
 
 def _up(x: int, m: int) -> int:
@@ -491,10 +510,12 @@ class CollectPlan:
     te (env, agent) rows, agent-major, padded to 8) and their stride ``rs``
     in the feature-major tiles, the words ``hrs`` of a row's record and
     ``vs`` of an env's view, the weight route, the shared-memory carve-out
-    (percent of an SM's) for ``blocks_per_sm`` blocks, and the byte offsets
+    (percent of an SM's) for ``blocks_per_sm`` blocks, the byte offsets
     of :data:`COLLECT_REGIONS` with their end (the block's dynamic shared
-    memory).  ``args`` is what ``rw_fused_collect`` takes, which refuses a
-    plan whose regions do not hold what the kernel keeps there."""
+    memory), and ``kx``, the observation features a chunk of the tile holds
+    (0: the whole row; else the kernel builds and sums dense_0 chunk by chunk).
+    ``args`` is what ``rw_fused_collect`` takes, which refuses a plan whose
+    regions do not hold what the kernel keeps there."""
 
     te: int
     threads: int
@@ -504,6 +525,7 @@ class CollectPlan:
     vs: int
     weights_global: bool
     offsets: Tuple[int, ...]
+    kx: int = 0
 
     @property
     def smem(self) -> int:
@@ -533,14 +555,16 @@ class CollectPlan:
 
     def args(self) -> list:
         return [self.te, self.threads, self.rows, self.rs, self.hrs, self.vs,
-                int(self.weights_global), self.carveout, *self.offsets]
+                int(self.weights_global), self.carveout, self.kx, *self.offsets]
 
 
 def _collect_layout(obs_len: int, hidden: Sequence[int], n_agents: int, msg_bits: int,
                     view: int, n_stacks: int, weights_global: bool, te: int,
-                    x_in_h: bool) -> Optional[CollectPlan]:
+                    x_in_h: bool, kx: int = 0) -> Optional[CollectPlan]:
     """The plan of tile ``te`` with the observation tile under h1 or beside
-    it, or None where that does not fit a block."""
+    it (``kx`` > 0: a chunk of ``kx`` features of it beside h1, every job of
+    dense_0 a thread of its own, whose sums stay in registers over the
+    chunks), or None where that does not fit a block."""
     h1, h2 = hidden
     rows = _up(n_agents * te, 8)
     heads = 5 + 1 + msg_bits
@@ -551,13 +575,14 @@ def _collect_layout(obs_len: int, hidden: Sequence[int], n_agents: int, msg_bits
     if threads > COLLECT_MAX_THREADS:
         return None
     h2_in_h = jobs1 <= threads  # one tile a thread: written over what it reads
-    if x_in_h and jobs0 > threads:
+    if (x_in_h or kx) and jobs0 > threads:
         return None
     h_rows = max(h1, obs_len if x_in_h else 0, h2 if h2_in_h else 0)
     ws = 0 if weights_global else n_stacks
+    x_rows = kx or (0 if x_in_h else obs_len)
     sizes = [ws * obs_len * h1 * 2, ws * h1 * h2 * 2, ws * 5 * h2 * 4, ws * h2 * 4,
              ws * msg_bits * h2 * 4, ws * h1 * 4, ws * h2 * 4, ws * 5 * 4, ws * 4,
-             ws * msg_bits * 4, 0 if x_in_h else obs_len * rows * 2, h_rows * rows * 2,
+             ws * msg_bits * 4, x_rows * rows * 2, h_rows * rows * 2,
              0 if h2_in_h else h2 * rows * 2, rows * (heads | 1) * 4, te * (view | 1) * 4, te]
     offsets = [0]
     for size in sizes:
@@ -565,24 +590,29 @@ def _collect_layout(obs_len: int, hidden: Sequence[int], n_agents: int, msg_bits
     if offsets[-1] > SMEM_LIMIT:
         return None
     return CollectPlan(te, threads, rows, rows, heads | 1, view | 1, weights_global,
-                       tuple(offsets))
+                       tuple(offsets), kx)
 
 
 def collect_plan(config: WarehouseConfig, hidden: Sequence[int], n_stacks: int = 1,
-                 weights_global: Optional[bool] = None) -> CollectPlan:
+                 weights_global: Optional[bool] = None, chunk: Optional[int] = None) -> CollectPlan:
     """The MLP collector's plan for ``config`` (its observation length, agents
     and message bits), ``hidden`` and ``n_stacks`` weight stacks (1: K2a, N:
     K2d).  K2d's weights are held in shared memory rather than read from
     device memory (or ``weights_global`` says which) where all stacks fit
     beside a tile of 8 envs with the observation tile beside the hidden one:
     the footprint of the kernel before this one (one thread an env), whose
-    routes this keeps.  The tile aims at :data:`COLLECT_ROWS` rows, with h1
-    written over the observation tile where every job of dense_0 has a
-    thread, and shrinks until two blocks fit an SM, or else takes the largest
-    that fits, down to :data:`COLLECT_MIN_ROWS` rows (K2a) or 8 envs (K2d,
-    whose 8-row groups each run one agent's stack: its smallest tile holds 8
-    N rows, so with many agents its device-memory route takes shorter
-    observations than before, at most about 700 features at 19 agents).
+    routes this keeps.  K2a's are read from device memory only where no tile
+    holds them (sensor range 4 and 5).  The tile aims at
+    :data:`COLLECT_ROWS` rows, with h1 written over the observation tile
+    where every job of dense_0 has a thread, and shrinks until two blocks fit
+    an SM, or else takes the largest that fits, down to
+    :data:`COLLECT_MIN_ROWS` rows (K2a) or 8 envs (K2d, whose 8-row groups
+    each run one agent's stack).  Where no route holds the whole observation
+    tile (K2d's smallest tile holds 8 N rows: at 17 agents and sensor range
+    5 the tile alone passes a block's shared memory), the weights are read
+    from device memory and the tile is built and summed in chunks of
+    :data:`COLLECT_CHUNKS` features, the longest that keeps two blocks an
+    SM.  ``chunk`` 0 asks for the whole tile, a length for that chunk.
     Raises ``ValueError`` where no tile fits."""
     h1, h2 = hidden
     n, m, length = config.n_agents, config.msg_bits, config.policy_obs_length
@@ -594,13 +624,10 @@ def collect_plan(config: WarehouseConfig, hidden: Sequence[int], n_stacks: int =
     step = 8 if n_stacks > 1 else 1  # K2d: whole 8-row groups an agent
     te_max = max(step, COLLECT_ROWS // n // step * step)
     te_min = step if n_stacks > 1 else min(te_max, -(-COLLECT_MIN_ROWS // n))
-    if weights_global is None:
-        routes = (False, True) if n_stacks > 1 else (False,)
-    else:
-        routes = (bool(weights_global),)
+    routes = (False, True) if weights_global is None else (bool(weights_global),)
     tes = range(te_max, te_min - 1, -step)
-    for glob in routes:
-        if glob != routes[-1] and not any(
+    for glob in routes if not chunk else ():
+        if n_stacks > 1 and glob != routes[-1] and not any(
                 _collect_layout(length, (h1, h2), n, m, view, n_stacks, glob, te, False)
                 for te in tes):
             continue  # the stacks do not fit beside a tile of the old footprint
@@ -608,6 +635,13 @@ def collect_plan(config: WarehouseConfig, hidden: Sequence[int], n_stacks: int =
                  if (p := _collect_layout(length, (h1, h2), n, m, view, n_stacks, glob, te,
                                           x_in_h))]
         if plans:  # the largest tile that keeps two blocks an SM, else the largest
+            return next((p for p in plans if p.blocks_per_sm >= 2), plans[0])
+    if chunk != 0 and routes[-1]:  # the tile in chunks, the weights in device memory
+        kxs = [k for k in COLLECT_CHUNKS if k < length] if chunk is None else [chunk]
+        plans = [p for te in tes for kx in kxs
+                 if (p := _collect_layout(length, (h1, h2), n, m, view, n_stacks, True, te,
+                                          False, kx))]
+        if plans:
             return next((p for p in plans if p.blocks_per_sm >= 2), plans[0])
     raise ValueError("observation too long for the collector's shared memory")
 
@@ -849,11 +883,11 @@ class FusedCollectPerAgent(FusedCollect):
             )
 
     def _forward(self, policies, obs: torch.Tensor):
-        """Agent i's network on agent i's observation."""
-        heads = [policy.heads(obs[:, i]) for i, policy in enumerate(policies)]
-        msg = None if heads[0][2] is None else torch.stack([h[2] for h in heads], dim=1)
-        return (torch.stack([h[0] for h in heads], dim=1),
-                torch.stack([h[1] for h in heads], dim=1), msg)
+        """Agent i's network on agent i's observation, the agents stacked
+        (:func:`stacked_heads`)."""
+        logits, value, msg = stacked_heads(policies, obs.transpose(0, 1))
+        return (logits.transpose(0, 1), value.transpose(0, 1),
+                None if msg is None else msg.transpose(0, 1))
 
     def weights(self, policies, dev) -> list:
         """The kernel's ten weight arrays, each the agents' stacks back to
@@ -877,9 +911,12 @@ def build_fused_collect_per_agent(config: WarehouseConfig, n_steps: int,
 # The regions of a recurrent-collector block's shared memory, in order (csrc/
 # collect_gru.cuh): the f32 be, bi, bhn, Wc and bc of the stacks held there
 # (empty where they are read from device memory), the observation tile (the
-# embedding written over it), the carry tile (new h written over it), the
-# weight ring, a record a row, a view an env, done an env.
-COLLECT_GRU_REGIONS = ("be", "bi", "bhn", "wc", "bc", "x", "h", "ring", "out", "view", "done")
+# embedding written over it; ``kx`` features of it where the plan chunks it),
+# the embedding (empty unless the observation is chunked), the carry tile (new
+# h written over it), the weight ring, a record a row, a view an env, done an
+# env.
+COLLECT_GRU_REGIONS = ("be", "bi", "bhn", "wc", "bc", "x", "e", "h", "ring", "out", "view",
+                       "done")
 COLLECT_GRU_THREADS = 256  # two blocks an SM at 128 registers a thread
 COLLECT_GRU_MIN_BLOCKS = 128  # about a block for each of the card's 132 SMs
 COLLECT_GRU_MAX_WIDTH = 8 * COLLECT_GRU_THREADS  # an output group of 8 a thread
@@ -896,9 +933,11 @@ class GruCollectPlan(CollectPlan):
     ``rs``, ``hrs`` and ``vs``, ``weights_global`` true where the f32 bias and
     head blocks are read from device memory (We, Wi and Wh always are, through
     a ring of three chunks of ``kc`` weight rows for ``ring_stacks`` stacks in
-    shared memory), and the byte offsets of :data:`COLLECT_GRU_REGIONS` with
-    their end.  ``args`` is what ``rw_fused_collect_gru`` takes, which refuses
-    a plan whose regions do not hold what the kernel keeps there."""
+    shared memory), the byte offsets of :data:`COLLECT_GRU_REGIONS` with
+    their end, and ``kx``, the observation features a chunk of the tile holds
+    (0: the whole row).  ``args`` is what ``rw_fused_collect_gru`` takes,
+    which refuses a plan whose regions do not hold what the kernel keeps
+    there."""
 
     kc: int = 32
     ring_stacks: int = 1
@@ -911,7 +950,7 @@ class GruCollectPlan(CollectPlan):
 
     def args(self) -> list:
         return [self.te, self.threads, self.rows, self.rs, self.hrs, self.vs,
-                int(self.weights_global), self.carveout, self.kc, self.ring_stacks,
+                int(self.weights_global), self.carveout, self.kc, self.ring_stacks, self.kx,
                 *self.offsets]
 
 
@@ -937,21 +976,25 @@ def _gru_admitted(length: int, hidden: Sequence[int], msg_bits: int, n_stacks: i
 
 
 def _gru_layout(length: int, hidden: Sequence[int], n_agents: int, msg_bits: int, view: int,
-                n_stacks: int, heads_global: bool, te: int, kc: int) -> Optional[GruCollectPlan]:
-    """The plan of tile ``te`` with ring chunks of ``kc`` weight rows, or
-    None where it does not fit a block."""
+                n_stacks: int, heads_global: bool, te: int, kc: int,
+                kx: int = 0) -> Optional[GruCollectPlan]:
+    """The plan of tile ``te`` with ring chunks of ``kc`` weight rows (and
+    ``kx`` > 0: the observation tile in chunks of ``kx`` features, a multiple
+    of ``kc``, the embedding in a region of its own), or None where it does
+    not fit a block."""
     embed, hg = hidden
     rows = _up(n_agents * te, 8)
     heads = 5 + 1 + msg_bits
     threads = _up(max(COLLECT_GRU_THREADS, rows + 32), 32)
-    if threads > COLLECT_MAX_THREADS:
+    if threads > COLLECT_MAX_THREADS or kx % kc:
         return None
     ws = 0 if heads_global else n_stacks
     stacks = 1 if n_stacks == 1 else max(_set_stacks(rows, c, threads, te) for c in hidden)
     if kc > max(1, COLLECT_GRU_RING // (3 * stacks * max(hidden) * 2)):
         return None
     sizes = [ws * embed * 4, ws * 3 * hg * 4, ws * hg * 4, ws * hg * heads * 4, ws * heads * 4,
-             max(length, embed) * rows * 2, hg * rows * 2, 3 * stacks * kc * max(hidden) * 2,
+             (kx or max(length, embed)) * rows * 2, embed * rows * 2 if kx else 0,
+             hg * rows * 2, 3 * stacks * kc * max(hidden) * 2,
              rows * (heads | 1) * 4, te * (view | 1) * 4, te]
     offsets = [0]
     for size in sizes:
@@ -959,11 +1002,12 @@ def _gru_layout(length: int, hidden: Sequence[int], n_agents: int, msg_bits: int
     if offsets[-1] > SMEM_LIMIT:
         return None
     return GruCollectPlan(te, threads, rows, rows, heads | 1, view | 1, heads_global,
-                          tuple(offsets), kc, stacks)
+                          tuple(offsets), kx, kc, stacks)
 
 
 def collect_gru_plan(config: WarehouseConfig, hidden: Sequence[int], n_stacks: int = 1,
-                     batch: int = 16384, heads_global: Optional[bool] = None) -> GruCollectPlan:
+                     batch: int = 16384, heads_global: Optional[bool] = None,
+                     chunk: Optional[int] = None) -> GruCollectPlan:
     """The recurrent collector's plan for ``config`` (its observation length,
     agents and message bits), ``hidden`` = (embed, GRU width), ``n_stacks``
     weight stacks (1: K2c, N: K2d′) and ``batch`` envs.  The tile aims at
@@ -974,9 +1018,13 @@ def collect_gru_plan(config: WarehouseConfig, hidden: Sequence[int], n_stacks: i
     the largest that fits a block.  The f32 bias and head blocks of the
     stacks are held in shared memory unless that costs the tile a block an SM
     (or ``heads_global`` says which), after the weight ring has taken the
-    longest chunks of :data:`COLLECT_GRU_KCS` that cost it none.  Raises
-    ``ValueError`` where the kernel before this plan refused
-    (:func:`_gru_admitted`) or no tile fits, and for widths above
+    longest chunks of :data:`COLLECT_GRU_KCS` that cost it none.  Where no
+    tile holds the whole observation (K2d′ at 16 agents and sensor range 5),
+    K2d′ builds and embeds it in chunks of :data:`COLLECT_CHUNKS` features,
+    the embedding in a region of its own, by the same rules with the longest
+    chunk after the ring's; ``chunk`` 0 asks for the whole tile, a length for
+    that chunk.  Raises ``ValueError`` where the kernel before this plan
+    refused (:func:`_gru_admitted`) or no tile fits, and for widths above
     :data:`COLLECT_GRU_MAX_WIDTH`."""
     embed, hg = hidden
     n, m, length = config.n_agents, config.msg_bits, config.policy_obs_length
@@ -994,21 +1042,25 @@ def collect_gru_plan(config: WarehouseConfig, hidden: Sequence[int], n_stacks: i
     te_batch = next((te for te in range(te_max, te_min - 1, -step)
                      if -(-batch // te) >= COLLECT_GRU_MIN_BLOCKS), te_min)
     routes = (False, True) if heads_global is None else (bool(heads_global),)
-    largest = None
-    for te in range(te_batch, 0, -step):
-        fits = [p for glob in routes for kc in COLLECT_GRU_KCS
-                if (p := _gru_layout(length, hidden, n, m, view, n_stacks, glob, te, kc))]
-        if not fits:
-            continue
-        # the longest chunks, then the f32 blocks in shared memory, that cost
-        # the tile no block an SM
-        plan = max(fits, key=lambda p: (p.blocks_per_sm, p.kc, not p.heads_global))
-        if plan.blocks_per_sm >= 2 and te >= te_min:
-            return plan
-        largest = largest or plan
-    if largest is None:
-        raise ValueError("observation too long for the collector's shared memory")
-    return largest
+    # the whole tile first; the chunked route (K2d′'s instantiations) only
+    # where no tile holds it
+    chunked = [k for k in COLLECT_CHUNKS if k < length] if chunk is None else [chunk]
+    for chunks in ([0] if not chunk else [], chunked if n_stacks > 1 and chunk != 0 else []):
+        largest = None
+        for te in range(te_batch, 0, -step) if chunks else ():
+            fits = [p for glob in routes for kc in COLLECT_GRU_KCS for kx in chunks
+                    if (p := _gru_layout(length, hidden, n, m, view, n_stacks, glob, te, kc, kx))]
+            if not fits:
+                continue
+            # the longest chunks, then the f32 blocks in shared memory, that
+            # cost the tile no block an SM
+            plan = max(fits, key=lambda p: (p.blocks_per_sm, p.kc, p.kx, not p.heads_global))
+            if plan.blocks_per_sm >= 2 and te >= te_min:
+                return plan
+            largest = largest or plan
+        if largest is not None:
+            return largest
+    raise ValueError("observation too long for the collector's shared memory")
 
 
 class FusedCollectGru(_Collector):
@@ -1183,14 +1235,13 @@ class FusedCollectGruPerAgent(FusedCollectGru):
 
     def _cell(self, arrays, h: torch.Tensor, obs: torch.Tensor):
         """Agent i's cell (``_gru_forward_per_agent``) on agent i's slice of
-        the carry and agent i's observation."""
+        the carry and agent i's observation, the agents' stacks run at once
+        (:func:`gru_collect_step` on a leading agent axis)."""
         m = self.config.msg_bits
-        outs = [gru_collect_step([a[i] for a in arrays], h[:, i], obs[:, i], m)
-                for i in range(h.shape[1])]
-        logits = [o[0][0] if m else o[0] for o in outs]
-        return (torch.stack(logits, dim=1), torch.stack([o[1] for o in outs], dim=1),
-                torch.stack([o[0][1] for o in outs], dim=1) if m else None,
-                torch.stack([o[2] for o in outs], dim=1))
+        heads, value, new_h = gru_collect_step(arrays, h.transpose(0, 1), obs.transpose(0, 1), m)
+        logits, msg = heads if m else (heads, None)
+        return (logits.transpose(0, 1), value.transpose(0, 1),
+                None if msg is None else msg.transpose(0, 1), new_h.transpose(0, 1))
 
 
 def build_fused_collect_gru_per_agent(config: WarehouseConfig, n_steps: int,

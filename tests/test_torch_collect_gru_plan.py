@@ -21,7 +21,8 @@ has its own stack; its regions hold what the kernel keeps there within the
 GRU) (128, 128), it admits and refuses exactly as the one-thread-per-env
 kernel's wrapper did (copied below as ``old_rule``); at other widths it
 admits what that rule admitted; past the registered ids it refuses what that
-rule refused and narrows only where the per-agent tile of 8 envs does not fit.
+rule refused and admits what it admitted, the per-agent mode with its
+observation tile in chunks where a tile of 8 envs does not hold it whole.
 The main shape runs two blocks an SM, B = 4,096 at least 128 blocks.
 """
 import dataclasses
@@ -234,10 +235,12 @@ def check_plan(plan, cfg, hidden, n_stacks):
     ac = 5 + 1 + m
     ws = 0 if plan.heads_global else n_stacks
     need = dict(be=ws * embed * 4, bi=ws * 3 * hg * 4, bhn=ws * hg * 4, wc=ws * hg * ac * 4,
-                bc=ws * ac * 4, x=max(length, embed) * plan.rs * 2, h=hg * plan.rs * 2,
+                bc=ws * ac * 4, x=(plan.kx or max(length, embed)) * plan.rs * 2,
+                e=embed * plan.rs * 2 if plan.kx else 0, h=hg * plan.rs * 2,
                 ring=3 * plan.ring_stacks * plan.kc * max(embed, hg) * 2,
                 out=plan.rows * plan.hrs * 4, view=plan.te * plan.vs * 4, done=plan.te)
     assert plan.offsets[0] == 0 and len(plan.offsets) == len(COLLECT_GRU_REGIONS) + 1
+    assert list(plan.offsets) == sorted(plan.offsets)  # no region overlaps the next
     for name in COLLECT_GRU_REGIONS:
         start, end = plan.region(name)
         assert start % 16 == 0 and end - start >= need[name], name
@@ -262,6 +265,9 @@ def check_plan(plan, cfg, hidden, n_stacks):
     assert plan.ring_stacks >= spans
     if n_stacks > 1:
         assert plan.te % 8 == 0 and plan.rows == n * plan.te
+    if plan.kx:  # per agent only: whole 16-byte runs of features and whole ring chunks
+        assert n_stacks > 1 and plan.kx % 8 == 0 and plan.kx % plan.kc == 0
+        assert 0 < plan.kx < length
 
 
 @pytest.mark.parametrize("prefix", PREFIXES)
@@ -287,14 +293,11 @@ def test_plan_admits_what_the_old_rule_admitted_at_other_widths(hidden):
                     check_plan(collect_gru_plan(cfg, hidden, n_stacks), cfg, hidden, n_stacks)
 
 
-# Past the registered ids (sensor range 1), where the per-agent mode's
-# smallest tile (8 envs, 8 N rows, each a column of both tiles) does not fit
-# a block beside its views: many agents and a long observation.
-NARROWED = {("rware-4s-tiny-16ag-v2", 2), ("rware-4s-tiny-19ag-v2", 2),
-            ("rware-5s-tiny-16ag-v2", 0), ("rware-5s-tiny-16ag-v2", 2),
-            ("rware-5s-tiny-19ag-v2", 0), ("rware-5s-tiny-19ag-v2", 2),
-            ("rware-img-5s-tiny-19ag-v2", 0), ("rware-img-5s-tiny-19ag-v2", 2),
-            ("rware-imgdict-5s-tiny-19ag-v2", 0), ("rware-imgdict-5s-tiny-19ag-v2", 2)}
+# Past the registered ids (sensor range 1): nothing the old rule admitted is
+# refused; where the per-agent mode's smallest tile (8 envs, 8 N rows, each a
+# column of both tiles) does not fit a block beside its views (many agents and
+# a long observation), its observation tile goes in chunks.
+NARROWED = set()
 
 
 def test_plan_at_longer_sensor_ranges_refuses_as_the_old_rule_with_stated_narrowing():

@@ -11,12 +11,16 @@ The plan: for B = 1, 1,000 and 16,384 its tiles cover each env once and each
 (env, agent) row once, 8-row groups within one agent where every agent has
 its own stack; its regions hold what the kernel keeps there within the
 232,448 bytes a block may take; h1 goes over the observation tile and h2
-over h1 only where every 8 x 8 job of the layer has a thread of its own.  Over every id ``register_all`` registers (images
+over h1 only where every 8 x 8 job of the layer has a thread of its own; a
+chunked observation tile holds whole 16-byte runs of features beside h1, every
+job of dense_0 a thread of its own.  Over every id ``register_all`` registers (images
 included) with 0 and 2 message bits, one stack and N, at hidden (128, 128),
 it admits and routes exactly as the one-thread-per-env kernel's rule did
 (copied below as ``old_rule``); at other widths it admits what that rule
-admitted; it refuses what that rule refused, sensor range 5 among them.  The
-main shape runs two blocks an SM.
+admitted.  What that rule refused, sensor range 5 among them, the shared
+network now takes with its weights in device memory, and K2d at many agents
+with its observation tile in chunks (``tests/test_torch_collect_long_obs.py``
+sweeps every sensor range).  The main shape runs two blocks an SM.
 """
 import dataclasses
 
@@ -128,10 +132,11 @@ def check_plan(plan, cfg, hidden, n_stacks):
     jobs0, jobs1 = (plan.rows // 8) * (h1 // 8), (plan.rows // 8) * (h2 // 8)
     x_in_h = plan.region("x")[0] == plan.region("x")[1]  # the obs tile under h1
     h2_in_h = plan.region("h2")[0] == plan.region("h2")[1]  # h2 written over h1
-    need["x"] = 0 if x_in_h else length * plan.rs * 2
+    need["x"] = plan.kx * plan.rs * 2 if plan.kx else 0 if x_in_h else length * plan.rs * 2
     need["h"] = max(h1, length if x_in_h else 0, h2 if h2_in_h else 0) * plan.rs * 2
     need["h2"] = 0 if h2_in_h else h2 * plan.rs * 2
     assert plan.offsets[0] == 0 and len(plan.offsets) == len(COLLECT_REGIONS) + 1
+    assert list(plan.offsets) == sorted(plan.offsets)  # no region overlaps the next
     for name in COLLECT_REGIONS:
         start, end = plan.region(name)
         assert start % 16 == 0 and end - start >= need[name], name
@@ -147,6 +152,10 @@ def check_plan(plan, cfg, hidden, n_stacks):
     assert 0 < plan.carveout <= 100
     if n_stacks > 1:
         assert plan.te % 8 == 0
+    if plan.kx:  # a chunk of whole 16-byte runs beside h1, the weights in device
+        # memory, a thread for each job of dense_0 (its sums stay in registers)
+        assert plan.kx % 8 == 0 and 0 < plan.kx < length and not x_in_h
+        assert plan.weights_global and plan.threads >= jobs0
 
 
 @pytest.mark.parametrize("prefix", PREFIXES)
@@ -178,29 +187,37 @@ def test_plan_admits_what_the_old_rule_admitted_at_other_widths(hidden):
 @pytest.mark.parametrize("m", [0, 2])
 def test_plan_refuses_what_the_old_rule_refused(env_id, m):
     """The shared network's weights and a smallest tile do not fit a block:
-    the collector raises rather than falls back."""
+    the shared-memory route still refuses, and the plan takes the
+    device-memory weight route, the whole tile, two blocks an SM; the
+    collector builds on it."""
     cfg = dataclasses.replace(parse_env_id(env_id), msg_bits=m)
     assert not old_rule(cfg.policy_obs_length, (128, 128), cfg.n_agents, m, False)[0]
     with pytest.raises(ValueError, match="observation too long"):
-        collect_plan(cfg, (128, 128))
-    with pytest.raises(ValueError, match="observation too long"):
-        build_fused_collect(cfg, 2)
+        collect_plan(cfg, (128, 128), weights_global=False)
+    plan = collect_plan(cfg, (128, 128))
+    assert plan.weights_global and plan.kx == 0 and plan.blocks_per_sm == 2
+    check_plan(plan, cfg, (128, 128), 1)
+    assert build_fused_collect(cfg, 2).plan == plan
 
 
-# Past the registered ids (sensor range 1), where the tiles decide: K2a's
-# smallest tile (32 rows) plus its records and env views, K2d's (8 N rows), or
-# the observation tile under h1, set the limit, not the old 32 one-env columns.
-NARROWED = {("rware-4s-tiny-3ag-v2", 0, False), ("rware-4s-tiny-19ag-v2", 2, True),
-            ("rware-5s-tiny-16ag-v2", 2, True), ("rware-5s-tiny-19ag-v2", 0, True),
-            ("rware-5s-tiny-19ag-v2", 2, True)}
-WIDENED = {("rware-img-5s-tiny-8ag-v2", 0, False), ("rware-img-5s-tiny-16ag-v2", 0, False)}
+# Past the registered ids (sensor range 1): nothing the old rule admitted is
+# refused (K2d's smallest tile, 8 N rows, takes its observation in chunks where
+# the whole tile does not fit); the shared network takes what it refused (its
+# smallest tile plus the weights at sensor range 5, and 4 with two message
+# bits) with its weights in device memory.
+SWEEP_AGENTS = (1, 2, 3, 4, 8, 16, 19)
+NARROWED = set()
+WIDENED = ({(f"{prefix}-5s-tiny-{n}ag-v2", m, False) for prefix in ("rware", "rware-img",
+                                                                    "rware-imgdict")
+            for n in SWEEP_AGENTS for m in (0, 2)}
+           | {(f"rware-4s-tiny-{n}ag-v2", 2, False) for n in SWEEP_AGENTS})
 
 
 def test_plan_at_longer_sensor_ranges_admits_as_the_old_rule_with_stated_exceptions():
     narrowed, widened = set(), set()
     for sensor in (2, 3, 4, 5):
         for prefix in ("rware", "rware-img", "rware-imgdict"):
-            for n in (1, 2, 3, 4, 8, 16, 19):
+            for n in SWEEP_AGENTS:
                 env_id = f"{prefix}-{sensor}s-tiny-{n}ag-v2"
                 base = parse_env_id(env_id)
                 for m in (0, 2):

@@ -160,12 +160,13 @@ def test_actions_rewards_done_and_state(collect_pair):
 def test_wrappers_size_shared_memory_from_the_image_window():
     """The block size comes from ``policy_obs_length``: a 7x7 window (L=245)
     still fits a tile of 64 envs, an 11x11 one (L=605) fits no block of the MLP
-    collector, which raises rather than fall back; an image config with no
-    layer, or more than the kernel's table holds, is refused."""
+    collector with the weights in shared memory, so that route raises and the
+    plan reads them from device memory; an image config with no layer, or
+    more than the kernel's table holds, is refused."""
     import dataclasses
 
     import rware_tpu_torch
-    from rware_tpu_torch.ops.fused_rollout import SMEM_LIMIT
+    from rware_tpu_torch.ops.fused_rollout import SMEM_LIMIT, collect_plan
 
     cfg = rware_tpu_torch.parse_env_id("rware-img-3s-tiny-2ag-v2")
     collect = build_fused_collect(cfg, 2)
@@ -177,8 +178,11 @@ def test_wrappers_size_shared_memory_from_the_image_window():
     gru = build_fused_collect_gru(cfg, 2).plan(16384)
     assert (gru.te, gru.rows, gru.threads, gru.blocks_per_sm) == (64, 128, 256, 2)
     assert gru.smem <= SMEM_LIMIT
+    img5 = rware_tpu_torch.parse_env_id("rware-img-5s-tiny-2ag-v2")
     with pytest.raises(ValueError, match="observation too long"):
-        build_fused_collect(rware_tpu_torch.parse_env_id("rware-img-5s-tiny-2ag-v2"), 2)
+        collect_plan(img5, (128, 128), weights_global=False)
+    k2a = build_fused_collect(img5, 2)
+    assert k2a.weights_global and k2a.plan.kx == 0 and k2a.plan.blocks_per_sm == 2
     assert build_fused_collect_gru(rware_tpu_torch.parse_env_id("rware-img-5s-tiny-2ag-v2"),
                                    2).obs_len == 605
     for layers in ((), tuple(range(7)) + (0,)):

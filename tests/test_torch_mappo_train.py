@@ -4,7 +4,9 @@ deterministic_collect=True, fused_critic_update=True)``, per pass (K5) and
 whole phase (K7), from the same env states, parameters and split optimizer
 state, with the JAX update's window starts injected; three chained updates of
 both, each carrying its own runner across episode ends; and the port's
-``train --algo mappo`` / ``evaluate`` entry points on the CPU.
+``train --algo mappo`` / ``evaluate`` entry points on the CPU
+(``tests/test_torch_long_obs_mappo_train.py`` runs the chained per-pass
+updates at sensor range 5).
 """
 import jax
 import jax.numpy as jnp
@@ -79,14 +81,12 @@ def _jax_starts(jcfg, jrunner):
     return torch.from_numpy(np.array(starts)).to(torch.int64)
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["per-pass", "whole-phase"])
-def chained_pair(request):
+def _chained_pair(env_id, phase):
     """N_UPDATES updates of each learner, each carrying its own runner (env
     states, observations, both parts' parameters and optimizer state, update
     index) from one update to the next; only the window starts go from JAX to
     the port."""
-    phase = request.param
-    jenv, env = make_pair(rware_tpu.make("rware-tiny-2ag-v2", max_steps=MAX_STEPS).config)
+    jenv, env = make_pair(rware_tpu.make(env_id, max_steps=MAX_STEPS).config)
     jcfg, cfg = _configs()
     jrunner, actor, critic, tx = jax_mappo.init_mappo_runner(jenv, jcfg, jax.random.key(1))
     ts = compile_bf16_exact(
@@ -105,6 +105,11 @@ def chained_pair(request):
         runner, metrics = step(runner, starts)
         history.append((jrunner, jmetrics, runner, metrics))
     return cfg, history, first, step, phase
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["per-pass", "whole-phase"])
+def chained_pair(request):
+    return _chained_pair("rware-tiny-2ag-v2", request.param)
 
 
 def test_chained_updates_cross_episode_ends(chained_pair):

@@ -3,7 +3,9 @@ JAX package's ``build_pallas_train_step(interpret=True,
 deterministic_collect=True)``, from the same env states, parameters and
 optimizer state, with the JAX update's window starts injected; several
 chained updates of both, each carrying its own runner across episode ends;
-and the port's ``train`` / ``evaluate`` entry points on the CPU.
+and the port's ``train`` / ``evaluate`` entry points on the CPU
+(``tests/test_torch_long_obs_train.py`` runs the single update's checks at
+sensor range 5).
 """
 import jax
 import numpy as np
@@ -38,9 +40,8 @@ T_LEN, EPOCHS, MINIBATCHES = 8, 2, 2
 N_UPDATES, MAX_STEPS = 3, 12
 
 
-@pytest.fixture(scope="module")
-def step_pair():
-    jenv, env = make_pair("rware-tiny-2ag-v2")
+def _step_pair(env_id):
+    jenv, env = make_pair(env_id)
     jcfg = JaxConfig(n_envs=ENV_BLOCK, rollout_len=T_LEN, epochs=EPOCHS,
                      minibatches=MINIBATCHES)
     jrunner, model, tx = jax_native.init_pallas_runner(jenv, jcfg, jax.random.key(0))
@@ -78,6 +79,11 @@ def step_pair():
                 last=ippo.last_values(dims, theta, obs), step=step, cfg=cfg)
 
 
+@pytest.fixture(scope="module")
+def step_pair():
+    return _step_pair("rware-tiny-2ag-v2")
+
+
 def test_trajectory_equals_jax(step_pair):
     traj, jtraj = step_pair["traj"], step_pair["jtraj"]
     np.testing.assert_array_equal(traj["obs"].float().numpy(),
@@ -87,19 +93,23 @@ def test_trajectory_equals_jax(step_pair):
     np.testing.assert_array_equal(traj["done"].numpy(), np.asarray(jtraj["done"]).astype(bool))
 
 
-def test_advantages_match_jax(step_pair):
-    """Advantages within 1e-5 in every env whose stored and last values
-    agree with JAX's to 1e-6.  The two collectors sum the MLP in different
-    orders, so a hidden unit's bf16 rounding flips now and then (a value
-    moves by up to a few 1e-4); such envs are few, and bounded by that."""
+def _check_advantages(step_pair, last_atol):
     vdiff = np.abs(step_pair["traj"]["value"].numpy() - np.asarray(step_pair["jtraj"]["value"]))
     ldiff = np.abs(step_pair["last"].numpy() - np.asarray(step_pair["jlast"]))
-    assert vdiff.mean() < 1e-6 and vdiff.max() < 1e-3 and ldiff.max() < 1e-5
+    assert vdiff.mean() < 1e-6 and vdiff.max() < 1e-3 and ldiff.max() < last_atol
     agree = (vdiff.max(axis=(0, 2)) < 1e-6) & (ldiff.max(axis=1) < 1e-6)
     assert agree.mean() > 0.98, agree.mean()
     adiff = np.abs(step_pair["adv"].numpy() - np.asarray(step_pair["jadv"]))
     assert adiff[:, agree].max() < 1e-5
     assert adiff.max() < 1e-3
+
+
+def test_advantages_match_jax(step_pair):
+    """Advantages within 1e-5 in every env whose stored and last values
+    agree with JAX's to 1e-6.  The two collectors sum the MLP in different
+    orders, so a hidden unit's bf16 rounding flips now and then (a value
+    moves by up to a few 1e-4); such envs are few, and bounded by that."""
+    _check_advantages(step_pair, 1e-5)
 
 
 def test_update_matches_jax(step_pair):

@@ -104,11 +104,15 @@ extern "C" int FN(unsigned long long* out) {
 # (source with the hooks, the line after which the counters go, macro prefix,
 # counters' symbol, {source: accessor} reading that symbol in its unit)
 PATCHES = [
-    ("fused_collect.cu", '#include "collect_core.cuh"\n', "RW_COLLECT_MARK", "g_collect_prof",
-     {"fused_collect.cu": "rw_collect_prof"}),
+    ("collect_mlp.cuh", '#include "collect_core.cuh"\n', "RW_COLLECT_MARK", "g_collect_prof",
+     {"fused_collect.cu": "rw_collect_prof",
+      "fused_collect_chunked.cu": "rw_collect_chunked_prof"}),
     ("collect_gru.cuh", '#include "gru_core.cuh"  // gru_sigmoid\n', "RW_COLLECT_GRU_MARK",
      "g_collect_gru_prof", {"fused_collect_gru.cu": "rw_collect_gru_prof",
-                            "fused_collect_gru_image.cu": "rw_collect_gru_image_prof"}),
+                            "fused_collect_gru_image.cu": "rw_collect_gru_image_prof",
+                            "fused_collect_gru_chunked.cu": "rw_collect_gru_chunked_prof",
+                            "fused_collect_gru_chunked_image.cu":
+                                "rw_collect_gru_chunked_image_prof"}),
 ]
 
 ROLLOUT_PHASES = ["draws", "pre-cancel", "resolver", "moves and toggles", "deliveries",
