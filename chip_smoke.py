@@ -12,7 +12,8 @@ Phases, one line each:
    device memory, and the scan route of the kernel before the shelf map) on
    tiny-2ag and large-8ag with two message bits, a uint16 shelf map
    (304 shelves) and a grid that no tile holds (8,192 cells, the scan route by
-   the plan), the main-path shape, and the plain version on the CPU;
+   the plan), and the plain version on the CPU (phase 5 holds the main-path
+   shape);
 4. the fused collector kernel (K2a) against its plain version on the card:
    deterministic and random mode on five configs and on tiny-2ag at hidden
    (24, 40) (multiples of 8 but not of 16: fewer 8 x 8 register tiles than
@@ -21,8 +22,9 @@ Phases, one line each:
 5. the main path at full size: ``make`` -> ``batched_reset`` ->
    ``build_fused_rollout`` (B=65,536, T=256, tiny-2ag) and
    ``build_fused_collect`` (B=16,384, T=128, hidden (128, 128)), timed with
-   CUDA events beside the plain versions, with launch counters reset just
-   before and read just after;
+   CUDA events beside the plain versions and held to them (K1's first
+   chained launch bit for bit, K2a by phase 4's rules), with launch counters
+   reset just before and read just after;
 6. the fused PPO gradient kernel (K4) against its plain version on the card:
    random data on tiny-2ag, tiny-16ag and sensor ranges 3 and 5 (dense_0
    streamed through shared memory) at B=1000, and tiny-2ag at hidden (36, 20)
@@ -92,9 +94,9 @@ Phases, one line each:
 15. the per-agent collector kernel (K2d) against its plain version on the
     card: deterministic and random mode on tiny-2ag (all agents' weights in
     shared memory), small-4ag and large-8ag (weights read from device memory)
-    at B=1000, T=32, tiny-2ag at hidden (24, 40) on both routes (the device
-    memory one forced), and the main shape B=16,384, T=128; obs, rewards,
-    done and the final state exact, every action equal, value and logp within
+    at B=1000, T=16, tiny-2ag at hidden (24, 40) on both routes (the device
+    memory one forced) (phase 17 holds the main shape); obs, rewards, done
+    and the final state exact, every action equal, value and logp within
     2e-2;
 16. the SEAC-PPO gradient kernel (K8) against its plain version: random data
     on tiny-2ag (N=2) and small-4ag (N=4) at B=1000, and tiny-2ag at hidden
@@ -112,10 +114,11 @@ Phases, one line each:
 18. message bits (``msg_bits`` M > 0): K1 (scripted and random) and the
     collectors' message mode K2b in K2a and K2c (deterministic and random)
     against their plain versions on the card, on tiny-2ag M=2, small-4ag M=1
-    and sensor range 2 M=3 at B=1000, T=32, then K2a with K2b at the main shape
-    B=16,384, T=128, and K1 with messages at its main shape B=65,536, T=256;
-    obs, rewards, done, the final state (messages included), bits and actions
-    exact, value and logp within 2e-2;
+    and sensor range 2 M=3 at B=1000, T=16 (phase 20 holds K2a with K2b at the
+    main shape), and K1 with messages at its main shape B=65,536, T=256, timed
+    and its first launch held to its plain version; obs, rewards, done, the
+    final state (messages included), bits and actions exact, value and logp
+    within 2e-2;
 19. the PPO gradient kernel with the message head (K4, M=2) against its plain
     version: tiny-2ag and tiny-16ag at B=1000, windows that wrap; gradients
     within 1e-2 of each block's largest |plain|, metrics within rtol 1e-3, two
@@ -126,12 +129,12 @@ Phases, one line each:
     GRU 128; each three updates after one warm-up with launch counters reset
     before and read after (IPPO: 3 collector, 48 K4, 0 K3; recurrent: 3 K2c,
     48 K9, 48 K10; MAPPO: 3 collector, 48 K4, 0 K5, 0 K7), the time of an
-    update split by phase; K2a with K2b and K4 with the message head timed at
-    that shape beside their plain versions; K2c with K2b held to its plain
+    update split by phase; K2a with K2b (held to it) and K4 with the message
+    head timed at that shape beside their plain versions; K2c with K2b held to its plain
     version at that shape and on tiny-2ag at (embed, hidden) (24, 40), B=1000;
 21. the per-agent recurrent collector (K2d′) and its message mode (K2d′ with
     K2b) against their plain versions on the card: tiny-2ag, small-4ag and
-    large-8ag, deterministic and random mode, M=0 and M=2 at B=1000, T=32
+    large-8ag, deterministic and random mode, M=0 and M=2 at B=1000, T=16
     from a nonzero carry (large-8ag M=2 also with the agents' bias and head
     blocks read from device memory; tiny-2ag at (embed, hidden) (24, 40) with
     them in shared and in device memory), then the main shape tiny-2ag B=16,384,
@@ -139,7 +142,7 @@ Phases, one line each:
     every action, the final state and the new carry exact, value and logp
     within 2e-2; the per-agent MLP collector's message mode (K2d with K2b) at
     M=2 on tiny-2ag (weights in shared memory) and large-8ag (in device
-    memory) and at the main shape, held the same way;
+    memory), held the same way (phase 23 holds it at the main shape);
 22. recurrent SEAC-PPO at full width through
     ``rware_tpu_torch.models.seac.build_seac_gru_train_step`` on an env made
     with ``make``'s default device: tiny-2ag, B=4,096, T=128, E=4, M=4,
@@ -153,7 +156,8 @@ Phases, one line each:
     128); three updates after one warm-up (exactly 3 K2d with K2b launches,
     and no K8: the learner builds none), the time of an update split into
     collect, cross values with bootstrap and GAE, and the 16 flat minibatches;
-    K2d with K2b timed at that shape beside its plain version;
+    K2d with K2b timed at that shape beside its plain version and held to it
+    by phase 21's rules;
 24. image observations (K2e) in the four collectors against their plain
     versions on the card: K2a on img-tiny-2ag, imgdict-tiny-2ag,
     img-Nd-tiny-2ag, every image layer (AGENT_DIRECTION and AGENT_LOAD
@@ -162,7 +166,7 @@ Phases, one line each:
     in device memory at large-8ag) and K2d′ on img tiny-2ag, small-4ag and
     large-8ag, K2c and K2d′ on img-tiny-2ag at (embed, hidden) (24, 40) with
     M=0 and M=2, and K2d on img-tiny-2ag at hidden (24, 40) on both routes;
-    B=1000, T=32, deterministic and random mode, from a nonzero carry; obs,
+    B=1000, T=16, deterministic and random mode, from a nonzero carry; obs,
     rewards, done, bits, every action, the final state and the carry exact,
     value and logp within 2e-2;
 25. the image main path at full width on ``rware-img-tiny-2ag-v2`` made with
@@ -203,7 +207,7 @@ Phases, one line each:
     and vector env run XLA ops): the vector env (``gym.make_vec`` after the
     port's ``register_all``, or where gymnasium is not installed the device
     program it runs, ``core.host.HostVectorEnv``; a line says which) on
-    tiny-2ag at B=4,096 for 256 steps of numpy-drawn actions with
+    tiny-2ag at B=4,096 for 128 steps of numpy-drawn actions with
     ``max_steps`` 100, its states, obs, rewards, done and info bit for bit
     those of ``Warehouse.step`` through ``debug.checked_step`` and a reset
     from the same generator state selected env by env (NEXT_STEP autoreset),
@@ -256,18 +260,19 @@ Phases, one line each:
     for bit (sha256 digests), the same collective counts; (d) ``python -m
     torch.distributed.run --nproc-per-node 1 -m rware_tpu_torch.train
     --distributed --mesh`` for 4 updates with a checkpoint every 2, then
-    ``--resume`` to 6, equal to an unbroken 6-update run's runner bit for
-    bit;
+    ``--resume`` to 6 (both launched beside (c), which times nothing), equal
+    to an unbroken 6-update run's runner bit for bit;
 32. the long-observation ids (sensor range 4 and 5, ``register_full``) on
     the collectors' new routes, each against its plain version by phases 4,
     15, 18, 21 and 24's rules (obs, rewards, done, bits, state and carry bit
     for bit) and two launches bit-equal: K2a with its weights in device
     memory on ``rware-5s-tiny-2ag-v2`` (L = 855) in both modes at B=1,000,
-    T=128 (a ragged last tile) and at B=16,384, timed; with K2b on
+    T=32 (a ragged last tile) and at B=16,384, T=128, timed; with K2b on
     ``rware-4s-tiny-2ag-v2`` (M=2, L = 737) and with K2e on
     ``rware-img-5s-tiny-2ag-v2`` and ``rware-imgdict-5s-tiny-2ag-v2`` (B=1,000,
     T=32); K2d with its observation tile in chunks at 17 and 19 agents and
-    K2d′ at 16, M=0 and M=2, B=1,024, T=128, and the chunked image
+    K2d′ at 16, M=0 and M=2, B=1,024, T=128 at 17 and 16 agents with M=0 (the
+    kernel line's cases) and T=32 for the others, and the chunked image
     instantiations (K2d′ on ``rware-img-5s-tiny-19ag-v2``, K2d on
     ``rware-imgdict-tiny-2ag-v2`` with chunks forced); then through the learners' entry points on
     ``make``'s default device, counters zeroed before and read after: three
@@ -276,6 +281,25 @@ Phases, one line each:
     K3) at that shape, one SEAC-PPO update (chunked K2d + 16 x K8) at 17
     agents, B=1,024, and one recurrent SEAC-PPO update (chunked K2d′) at 16
     agents, B=256.
+33. the learners of JAX's ``collect_mode="xla"`` (``train --collect
+    plain``), which run no kernel: MAPPO at B=16,384 and recurrent SEAC-PPO
+    at B=4,096 (JAX's recurrent SEAC batch), T=128, E=4, M=4, hidden
+    (128, 128) / embed and GRU 128, M=0 and M=2: a warm-up (one update of
+    the same learner and batch at T=8), then two updates
+    split into collect, values + GAE and passes, with every kernel launch
+    counter zeroed before and read after and every call into the kernel
+    library counted (none); ``check_invariants`` on the collected states;
+    the plain collect's move, bit and reward frequencies within 5 sigma of
+    the fused collector's (K2a, K2d′) from the same parameters, states and
+    carry; the second half of the batch collected at ``env_offset`` = B/2
+    equal to the global collect's rows in at least 99% of its envs, ``logp``
+    within 1e-5 there (cuBLAS's products depend on the batch's shape: phase
+    31c holds these two learners' ranks bit for bit to the emulated ranks
+    instead); one pass of the update (E = M = 1, one optimizer step) on the
+    first 512 (MAPPO) or 128 envs on the card against the CPU, from the
+    card's trajectory and the same window: the loss terms within 1e-4
+    relative (and 1e-5 absolute: pg_loss and approx_kl cancel to 1e-3) and
+    every parameter within 0.05 lr (phase 30's bounds).
 
 The MLP collector (K2a, with K2b and K2e; K2d) runs a tile of 64 envs a
 block at the main shape: its env threads step, a thread a row builds the
@@ -287,6 +311,10 @@ K2e; K2d′) runs the same way, its carry a tile in shared memory for the
 whole launch and the embed and both gate products an FMA block product
 (``ops/fused_rollout.collect_gru_plan``); phases 12, 14, 18, 20-22, 24, 25,
 27, 28 and 32 hold it to its plain version or count its launches.
+
+Away from the main shape, phases 3-24 run their comparisons for 16 steps
+with episodes of 10 steps where they end episodes, so that every env ends one
+and steps on from its reset (``BREADTH_T``).
 
 Then the card's name and power limit, one JSON line describing each kernel
 (its time beside its plain version's and beside ``bound_ms``, the least time
@@ -301,10 +329,13 @@ Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+
+SCRIPT_START = time.perf_counter()
 
 VALUE_LOGP_ATOL = 2e-2  # bf16 hidden layers; the same bound as the JAX tests
 ACTION_AGREEMENT = 0.999
@@ -316,14 +347,19 @@ K1_CONFIGS = (
     "rware-large-8ag-v2",
     "rware-tiny-16ag-v2",
 )
+# The comparisons of phases 3-24 away from the main shape: B=1,000 envs for
+# BREADTH_T steps with episodes of BREADTH_MAX_STEPS, so that every env ends
+# one and steps on from its reset.  The plain versions take 15-30 ms a step
+# whatever the batch, so these lengths set the script's time.
+BREADTH_T, BREADTH_MAX_STEPS = 16, 10
 # The largest per-env states (224 shelves; 16 agents with a queue of 16) spill
 # to local memory in the kernels; they are covered here as well as tiny-2ag.
 K2_CONFIGS = (
     ("rware-tiny-2ag-v2", {}),
-    ("rware-small-4ag-v2", {"max_steps": 20}),
+    ("rware-small-4ag-v2", {"max_steps": BREADTH_MAX_STEPS}),
     ("rware-2s-tiny-2ag-v2", {"normalised_coordinates": True}),
-    ("rware-large-8ag-v2", {"max_steps": 20}),
-    ("rware-tiny-16ag-v2", {"max_steps": 20}),
+    ("rware-large-8ag-v2", {"max_steps": BREADTH_MAX_STEPS}),
+    ("rware-tiny-16ag-v2", {"max_steps": BREADTH_MAX_STEPS}),
 )
 # Sensor range 5 streams dense_0's weights through shared memory (too long to
 # stay there); the others keep them resident.
@@ -342,8 +378,9 @@ PADDED_CASE = ("rware-tiny-2ag-v2", (36, 20))
 NARROW_CASE = ("rware-tiny-2ag-v2", (24, 40))
 # tiny-2ag keeps every agent's weights in shared memory; from 4 agents on they
 # are read from device memory
-K2D_CONFIGS = (("rware-tiny-2ag-v2", {}), ("rware-small-4ag-v2", {"max_steps": 20}),
-               ("rware-large-8ag-v2", {"max_steps": 20}))
+K2D_CONFIGS = (("rware-tiny-2ag-v2", {}),
+               ("rware-small-4ag-v2", {"max_steps": BREADTH_MAX_STEPS}),
+               ("rware-large-8ag-v2", {"max_steps": BREADTH_MAX_STEPS}))
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).
 PEAK_BYTES = 3.35e12  # device memory, bytes/s
 PEAK_BF16 = 989e12  # tensor cores, FLOP/s on bf16 values
@@ -497,7 +534,7 @@ def oversize_config():
         grid[8 + k % 32][40 + 48 * (k // 32)] = "x"
     grid[h - 1][60] = grid[h - 1][61] = "g"
     return WarehouseConfig(layout="\n".join("".join(row) for row in grid), n_agents=4,
-                           request_queue_size=8, max_steps=50)
+                           request_queue_size=8, max_steps=BREADTH_MAX_STEPS)
 
 
 def compare_k1(env_id, dev, b, t, scripted, seed, route=None, config=None, **overrides):
@@ -1075,7 +1112,8 @@ def collect_per_agent_bound(dims, states, traj, params, agent_steps):
 
 
 def phase3(dev):
-    """K1 against its plain version; returns the main shape's max |error|."""
+    """K1 against its plain version away from the main shape (phase 5 holds
+    it at the main shape)."""
     import torch
     import rware_tpu_torch
     from rware_tpu_torch.ops.fused_rollout import build_fused_rollout
@@ -1085,8 +1123,9 @@ def phase3(dev):
 
     for env_id in K1_CONFIGS:
         for scripted in (True, False):
-            env, ks, kr, ke, _ = compare_k1(env_id, dev, 1000, 64, scripted, 7, max_steps=50)
-            log(f"phase 3 K1 {env_id} B=1000 T=64 scripted={scripted}: bit-exact "
+            env, ks, kr, ke, _ = compare_k1(env_id, dev, 1000, BREADTH_T, scripted, 7,
+                                            max_steps=BREADTH_MAX_STEPS)
+            log(f"phase 3 K1 {env_id} B=1000 T={BREADTH_T} scripted={scripted}: bit-exact "
                 f"(reward sum {float(kr.sum())}, episodes {int(ke.sum())}; route "
                 f"{rollout_plan(env.config, 1000).route}, at B=65536 "
                 f"{rollout_plan(env.config, 65536).route})")
@@ -1095,12 +1134,13 @@ def phase3(dev):
     cases += [("rware-4x5-4ag-v2", None, 0, None), ("8,192-cell grid", None, 0, oversize_config())]
     for env_id, route, m, config in cases:
         for scripted in (True, False):
-            kw = {} if config is not None else {"max_steps": 50, "msg_bits": m}
-            env, ks, kr, ke, _ = compare_k1(env_id, dev, 1000, 64, scripted, 8, route=route,
+            kw = {} if config is not None else {"max_steps": BREADTH_MAX_STEPS, "msg_bits": m}
+            env, ks, kr, ke, _ = compare_k1(env_id, dev, 1000, BREADTH_T, scripted, 8,
+                                            route=route,
                                             config=config, **kw)
             plan = rollout_plan(env.config, 1000, route)
             log(f"phase 3 K1 {env_id} M={m} route {plan.route} (map entries of "
-                f"{plan.map_bytes} bytes) B=1000 T=64 scripted={scripted}: bit-exact "
+                f"{plan.map_bytes} bytes) B=1000 T={BREADTH_T} scripted={scripted}: bit-exact "
                 f"(reward sum {float(kr.sum())}, episodes {int(ke.sum())})")
     env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev)
     states, _ = batched_reset(env, 3, 256)
@@ -1109,32 +1149,30 @@ def phase3(dev):
     cpu_s, cpu_r, cpu_e = roll.plain(states.map(lambda x: x.cpu()), 5)
     if state_diff(ks, cpu_s) or not torch.equal(kr.cpu(), cpu_r) or not torch.equal(ke.cpu(), cpu_e):
         raise AssertionError("K1 kernel on the card != plain version on the CPU")
-    _, ks, kr, ke, k1_err = compare_k1("rware-tiny-2ag-v2", dev, 65536, 256, False, 11)
-    log(f"phase 3 K1 main shape B=65536 T=256 random: bit-exact, max_abs_err {k1_err} "
-        f"(reward sum {float(kr.sum())}, episodes {int(ke.sum())}); card == CPU plain at B=256")
-    return k1_err
+    log("phase 3 K1 tiny-2ag B=256 T=32 random: the card == the plain version on the CPU")
 
 
 def phase4(dev):
-    """K2a against its plain version; returns the main shape's max |error|."""
+    """K2a against its plain version away from the main shape (phase 5 holds
+    it at the main shape)."""
     for env_id, overrides in K2_CONFIGS:
         for deterministic in (True, False):
-            _, _, traj, agree, err = compare_k2(env_id, dev, 1000, 32, deterministic, 5, **overrides)
-            log(f"phase 4 K2a {env_id} {overrides} B=1000 T=32 deterministic={deterministic}: "
+            _, _, traj, agree, err = compare_k2(env_id, dev, 1000, BREADTH_T, deterministic, 5,
+                                                **overrides)
+            log(f"phase 4 K2a {env_id} {overrides} B=1000 T={BREADTH_T} "
+                f"deterministic={deterministic}: "
                 f"obs/reward/done exact, actions {agree:.6f}, value/logp err {err}")
     for deterministic in (True, False):
-        _, _, traj, agree, err = compare_k2(NARROW_CASE[0], dev, 1000, 32, deterministic, 5,
+        _, _, traj, agree, err = compare_k2(NARROW_CASE[0], dev, 1000, BREADTH_T, deterministic, 5,
                                             hidden=NARROW_CASE[1])
-        log(f"phase 4 K2a {NARROW_CASE[0]} hidden {NARROW_CASE[1]} B=1000 T=32 deterministic="
+        log(f"phase 4 K2a {NARROW_CASE[0]} hidden {NARROW_CASE[1]} B=1000 T={BREADTH_T} "
+            f"deterministic="
             f"{deterministic}: obs/reward/done exact, actions {agree:.6f}, value/logp err {err}")
-    _, _, traj, agree, k2_err = compare_k2("rware-tiny-2ag-v2", dev, 16384, 128, False, 13)
-    log(f"phase 4 K2a main shape B=16384 T=128 random: obs/reward/done exact, "
-        f"actions {agree:.6f}, value/logp max_abs_err {k2_err}")
-    return k2_err
 
 
-def phase5(dev, kind, card, k1_err, k2_err):
-    """The PR-1 main path (K1, K2a) at full size; returns their kernel entries."""
+def phase5(dev, kind, card):
+    """The PR-1 main path (K1, K2a) at full size, each launch held to its
+    plain version; returns their kernel entries."""
     import torch
     import rware_tpu_torch
     from rware_tpu_torch.models import ActorCritic
@@ -1164,8 +1202,14 @@ def phase5(dev, kind, card, k1_err, k2_err):
     launches = {"fused_rollout": rollout.launches, "fused_collect": collect.launches}
     if min(launches.values()) <= 0:
         raise AssertionError(f"main path launched no kernel: {launches}")
-    k1_plain_ms, _ = cuda_ms(lambda: rollout.plain(states, 4))
-    k2_plain_ms, _ = cuda_ms(lambda: collect.plain(states2, policy, 5))
+    # the plain versions on the first chained launch's inputs and on K2a's
+    k1_plain_ms, (ps, pr, pe) = cuda_ms(lambda: rollout.plain(states, 5))
+    k2_plain_ms, plain2 = cuda_ms(lambda: collect.plain(states2, policy, 5))
+    ks, kr, ke = chain[1]
+    if state_diff(ks, ps) or not torch.equal(kr, pr) or not torch.equal(ke, pe):
+        raise AssertionError("K1 main shape: kernel != plain")
+    k1_err = float((kr - pr).abs().max())
+    k2_err = check_collect("K2a main shape", env, (fs2, traj), plain2, actions_exact=False)
 
     fs = chain[-1][0]
     rew = torch.stack([c[1] for c in chain[1:]]).sum(0)
@@ -1186,10 +1230,12 @@ def phase5(dev, kind, card, k1_err, k2_err):
         raise AssertionError("fused collect: a negative reward, or no delivery at all")
     check_invariants(env, fs2)
     log(f"phase 5 main path K1 tiny-2ag B={b1} T={t1}: {k1_ms:.3f} ms/launch = "
-        f"{b1 * t1 / k1_ms * 1e3:.4g} env-steps/s (plain {k1_plain_ms:.1f} ms), "
+        f"{b1 * t1 / k1_ms * 1e3:.4g} env-steps/s (plain {k1_plain_ms:.1f} ms; the first "
+        f"launch bit-exact against it, max_abs_err {k1_err}), "
         f"reward checksum {float(rew.sum())}, episodes {int(epis.sum())} [{kind}, {card}]")
     log(f"phase 5 main path K2a tiny-2ag B={b2} T={t2} hidden (128, 128): {k2_ms:.3f} ms/launch = "
-        f"{b2 * t2 / k2_ms * 1e3:.4g} env-steps/s (plain {k2_plain_ms:.1f} ms), "
+        f"{b2 * t2 / k2_ms * 1e3:.4g} env-steps/s (plain {k2_plain_ms:.1f} ms; against it "
+        f"obs/reward/done/state exact, value/logp max_abs_err {k2_err}), "
         f"reward checksum {float(traj['reward'].sum())}, launches {launches} [{kind}, {card}]")
     # K1 moves the state in and out and writes reward sums and counts.  K2a
     # also writes the trajectory and runs the policy on every agent.  The env
@@ -1479,16 +1525,20 @@ def phase12(dev, kind, card):
     """K2c against its plain version; returns the main shape's max |error|."""
     for env_id in K2C_CONFIGS:
         for deterministic in (True, False):
-            _, _, _, _, agree, err, h_ok = compare_k2c(env_id, dev, 1000, 32, deterministic, 5,
-                                                       max_steps=20)
-            log(f"phase 12 K2c {env_id} max_steps=20 B=1000 T=32 deterministic={deterministic}: "
+            _, _, _, _, agree, err, h_ok = compare_k2c(env_id, dev, 1000, BREADTH_T,
+                                                       deterministic, 5,
+                                                       max_steps=BREADTH_MAX_STEPS)
+            log(f"phase 12 K2c {env_id} max_steps={BREADTH_MAX_STEPS} B=1000 T={BREADTH_T} "
+                f"deterministic={deterministic}: "
                 f"obs/reward/done/state exact, actions {agree:.6f}, value/logp err {err}, carry "
                 f"within a bf16 step {h_ok:.6f}")
     for b in (1, 1000):
         for deterministic in (True, False):
-            _, _, _, _, agree, err, h_ok = compare_k2c(NARROW_CASE[0], dev, b, 32, deterministic,
-                                                       5, hidden=NARROW_CASE[1], max_steps=20)
-            log(f"phase 12 K2c {NARROW_CASE[0]} (embed, hidden) {NARROW_CASE[1]} B={b} T=32 "
+            _, _, _, _, agree, err, h_ok = compare_k2c(NARROW_CASE[0], dev, b, BREADTH_T,
+                                                       deterministic, 5, hidden=NARROW_CASE[1],
+                                                       max_steps=BREADTH_MAX_STEPS)
+            log(f"phase 12 K2c {NARROW_CASE[0]} (embed, hidden) {NARROW_CASE[1]} B={b} "
+                f"T={BREADTH_T} "
                 f"deterministic={deterministic}: obs/reward/done/state exact, actions "
                 f"{agree:.6f}, value/logp err {err}, carry within a bf16 step {h_ok:.6f}")
     _, _, _, _, agree, err, h_ok = compare_k2c("rware-tiny-2ag-v2", dev, 16384, 128, False, 13)
@@ -1628,28 +1678,27 @@ def phase14(dev, kind, card, k2c_err, n_envs=16384, rollout_len=128):
 
 
 def phase15(dev, kind, card):
-    """K2d against its plain version; returns the main shape's max |error|."""
+    """K2d against its plain version away from the main shape (phase 17 holds
+    it at the main shape)."""
     for env_id, overrides in K2D_CONFIGS:
         for deterministic in (True, False):
-            _, _, _, err, collect = compare_k2d(env_id, dev, 1000, 32, deterministic, 5,
+            _, _, _, err, collect = compare_k2d(env_id, dev, 1000, BREADTH_T, deterministic, 5,
                                                 **overrides)
-            log(f"phase 15 K2d {env_id} {overrides} B=1000 T=32 deterministic={deterministic}: "
+            log(f"phase 15 K2d {env_id} {overrides} B=1000 T={BREADTH_T} "
+                f"deterministic={deterministic}: "
                 f"obs/reward/done/state/actions exact, value/logp err {err} (weights "
                 f"{'in device memory' if collect.weights_global else 'in shared memory'}, "
                 f"{collect.threads} threads)")
     for weights_global in (False, True):
         for deterministic in (True, False):
-            _, _, _, err, collect = compare_k2d(NARROW_CASE[0], dev, 1000, 32, deterministic, 5,
+            _, _, _, err, collect = compare_k2d(NARROW_CASE[0], dev, 1000, BREADTH_T,
+                                                deterministic, 5,
                                                 hidden=NARROW_CASE[1],
                                                 weights_global=weights_global)
-            log(f"phase 15 K2d {NARROW_CASE[0]} hidden {NARROW_CASE[1]} B=1000 T=32 "
+            log(f"phase 15 K2d {NARROW_CASE[0]} hidden {NARROW_CASE[1]} B=1000 T={BREADTH_T} "
                 f"deterministic={deterministic}: obs/reward/done/state/actions exact, value/logp "
                 f"err {err} (weights {'in device' if weights_global else 'in shared'} memory, "
                 f"{collect.threads} threads)")
-    _, _, _, err, _ = compare_k2d("rware-tiny-2ag-v2", dev, 16384, 128, False, 13)
-    log(f"phase 15 K2d main shape B=16384 T=128 random: obs/reward/done/state/actions exact, "
-        f"value/logp max_abs_err {err} [{kind}, {card}]")
-    return err
 
 
 def phase16(dev, kind, card):
@@ -1664,7 +1713,7 @@ def phase16(dev, kind, card):
             f"[{kind}, {card}]")
 
 
-def phase17(dev, kind, card, k2d_err, n_envs=16384, rollout_len=128):
+def phase17(dev, kind, card, n_envs=16384, rollout_len=128):
     """The SEAC-PPO training main path at full width; returns the K2d and K8
     entries."""
     import torch
@@ -1722,8 +1771,7 @@ def phase17(dev, kind, card, k2d_err, n_envs=16384, rollout_len=128):
     policies = seac.seac_policies_of(dims, runner.params)
     k2d = step.collect
     args = (runner.env_states, policies, 7)
-    k2d_ms, _ = cuda_ms(lambda: k2d(*args), repeats=2)
-    k2d_plain_ms, _ = cuda_ms(lambda: k2d.plain(*args))
+    k2d_ms, k2d_plain_ms, k2d_err, _ = route_check("K2d main shape", env, k2d, args)
     k8 = step.grads
     k8_ms, _ = cuda_ms(lambda: k8(runner.params, dataset, 0), repeats=3)
     k8_plain_ms, _ = cuda_ms(lambda: k8.plain(runner.params, dataset, 0))
@@ -1746,29 +1794,27 @@ def phase17(dev, kind, card, k2d_err, n_envs=16384, rollout_len=128):
 
 def phase18(dev, kind, card):
     """K1 with messages and K2b in both collectors against their plain
-    versions; returns the K1 message-mode entry and K2b's main-shape error."""
+    versions; returns the K1 message-mode entry."""
+    import torch
     import rware_tpu_torch
     from rware_tpu_torch.ops.fused_rollout import build_fused_rollout
     from rware_tpu_torch.parallel import batched_reset
 
     for env_id, m in MSG_CONFIGS:
         for scripted in (True, False):
-            _, _, kr, ke, _ = compare_k1(env_id, dev, 1000, 32, scripted, 7, msg_bits=m,
-                                         max_steps=20)
-            log(f"phase 18 K1 {env_id} M={m} B=1000 T=32 scripted={scripted}: bit-exact, "
+            _, _, kr, ke, _ = compare_k1(env_id, dev, 1000, BREADTH_T, scripted, 7, msg_bits=m,
+                                         max_steps=BREADTH_MAX_STEPS)
+            log(f"phase 18 K1 {env_id} M={m} B=1000 T={BREADTH_T} scripted={scripted}: bit-exact, "
                 f"messages included (reward sum {float(kr.sum())}, episodes {int(ke.sum())})")
         for net in ("mlp", "gru"):
             for deterministic in (True, False):
-                _, traj, collect, err = compare_k2b(env_id, dev, 1000, 32, deterministic, 5, net,
-                                                    msg_bits=m, max_steps=20)
-                log(f"phase 18 K2b ({net}) {env_id} M={m} B=1000 T=32 deterministic="
+                _, traj, collect, err = compare_k2b(env_id, dev, 1000, BREADTH_T,
+                                                    deterministic, 5, net,
+                                                    msg_bits=m, max_steps=BREADTH_MAX_STEPS)
+                log(f"phase 18 K2b ({net}) {env_id} M={m} B=1000 T={BREADTH_T} deterministic="
                     f"{deterministic}: obs/reward/done/bits/actions/state exact, value/logp err "
                     f"{err}, bits set {float(traj['bits'].float().mean()):.4f} "
                     f"({tile_note(collect, 1000)})")
-    _, traj, _, k2b_err = compare_k2b("rware-tiny-2ag-v2", dev, 16384, 128, False, 13,
-                                      msg_bits=2)
-    log(f"phase 18 K2b (mlp) main shape tiny-2ag M=2 B=16384 T=128 random: obs/reward/done/"
-        f"bits/actions/state exact, value/logp max_abs_err {k2b_err} [{kind}, {card}]")
 
     # K1 with messages at its main shape: chained launches from one reset,
     # counted from just before to just after.
@@ -1776,25 +1822,28 @@ def phase18(dev, kind, card):
     b1, t1 = 65536, 256
     states, _ = batched_reset(env, 0, b1)
     roll = build_fused_rollout(env.config, t1)
-    _, _, _, _, k1_err = compare_k1("rware-tiny-2ag-v2", dev, b1, t1, False, 11, msg_bits=2)
     roll(states, 1)  # warm-up
     roll.launches = 0
     chain = [(states, None, None)]
     k1_ms, _ = cuda_ms(lambda: chain.append(roll(chain[-1][0], 4 + len(chain))), repeats=4)
     launches = roll.launches
     require(launches == 4, f"K1 with messages launched {launches} times, not 4")
-    k1_plain_ms, _ = cuda_ms(lambda: roll.plain(states, 4))
+    k1_plain_ms, (ps, pr, pe) = cuda_ms(lambda: roll.plain(states, 5))  # the first launch's
+    ks, kr, ke = chain[1]
+    require(not state_diff(ks, ps) and torch.equal(kr, pr) and torch.equal(ke, pe),
+            "K1 with messages at the main shape: kernel != plain")
+    k1_err = float((kr - pr).abs().max())
     final = chain[-1][0]
     share = float(final.agent_message.mean())
     require(abs(share - 0.5) < 0.01, f"K1 random message bits set {share}, not one half")
     check_invariants(env, final)
     log(f"phase 18 K1 with messages tiny-2ag M=2 B={b1} T={t1}: {k1_ms:.3f} ms/launch = "
-        f"{b1 * t1 / k1_ms * 1e3:.4g} env-steps/s (plain {k1_plain_ms:.1f} ms), bit-exact at "
-        f"that shape, message bits set {share:.4f}, launches {launches} [{kind}, {card}]")
+        f"{b1 * t1 / k1_ms * 1e3:.4g} env-steps/s (plain {k1_plain_ms:.1f} ms), the first "
+        f"launch bit-exact against it (messages included), message bits set {share:.4f}, launches {launches} [{kind}, {card}]")
     k1_bound = bound(2 * state_bytes(states) + tensor_bytes(chain[-1][1], chain[-1][2]))
-    return k2b_err, kernel_entry("fused_rollout (message bits)", "fused_rollout.cu",
-                                 "rware_tpu/ops/pallas_rollout.py:657", launches, k1_err, k1_ms,
-                                 k1_plain_ms, k1_bound)
+    return kernel_entry("fused_rollout (message bits)", "fused_rollout.cu",
+                        "rware_tpu/ops/pallas_rollout.py:657", launches, k1_err, k1_ms,
+                        k1_plain_ms, k1_bound)
 
 
 def phase19(dev, kind, card):
@@ -1849,7 +1898,7 @@ def _time_learner(name, step, runner, counted, want, kind, card, cfg, phase=20,
     return runner, update_ms
 
 
-def phase20(dev, kind, card, k2b_err, n_envs=16384, rollout_len=128):
+def phase20(dev, kind, card, n_envs=16384, rollout_len=128):
     """The three learners with message bits at full width; returns the K2b
     entries of both collectors and K4's message-mode entry."""
     import torch
@@ -1881,8 +1930,8 @@ def phase20(dev, kind, card, k2b_err, n_envs=16384, rollout_len=128):
         f"optimizer) {passes_ms:.3f} ms [{kind}, {card}]")
     policy = ippo.policy_of(dims, runner.params)
     k2b = step.collect
-    k2b_ms, _ = cuda_ms(lambda: k2b(runner.env_states, policy, 7), repeats=2)
-    k2b_plain_ms, _ = cuda_ms(lambda: k2b.plain(runner.env_states, policy, 7))
+    k2b_ms, k2b_plain_ms, k2b_err, _ = route_check("K2a with K2b main shape", env, k2b,
+                                                   (runner.env_states, policy, 7))
     k4 = step.grads
     k4_ms, _ = cuda_ms(lambda: k4(runner.params, dataset, 0), repeats=3)
     k4_plain_ms, _ = cuda_ms(lambda: k4.plain(runner.params, dataset, 0))
@@ -1937,10 +1986,12 @@ def phase20(dev, kind, card, k2b_err, n_envs=16384, rollout_len=128):
         f"{k2cm_ms:.3f} ms/launch (plain {k2cm_plain_ms:.1f} ms, value/logp max_abs_err "
         f"{k2cm_err}) [{kind}, {card}]")
     for deterministic in (True, False):
-        _, _, collect, err = compare_k2b(NARROW_CASE[0], dev, 1000, 32, deterministic, 5, "gru",
-                                         hidden=NARROW_CASE[1], msg_bits=2, max_steps=20)
+        _, _, collect, err = compare_k2b(NARROW_CASE[0], dev, 1000, BREADTH_T, deterministic, 5,
+                                         "gru", hidden=NARROW_CASE[1], msg_bits=2,
+                                         max_steps=BREADTH_MAX_STEPS)
         log(f"phase 20 K2c with K2b {NARROW_CASE[0]} (embed, hidden) {NARROW_CASE[1]} M=2 "
-            f"B=1000 T=32 deterministic={deterministic}: obs/reward/done/bits/actions/state/carry "
+            f"B=1000 T={BREADTH_T} deterministic={deterministic}: obs/reward/done/bits/actions/"
+            f"state/carry "
             f"exact, value/logp err {err} ({tile_note(collect, 1000)})")
     k2cm_bound = bound(2 * state_bytes(states) + tensor_bytes(*traj.values())
                        + 2 * tensor_bytes(runner.carry) + 4.0 * gdims.n_params,
@@ -2030,8 +2081,8 @@ def compare_k2dp(env_id, dev, b, t, deterministic, seed, policies=None, collect=
     return env, ktraj, collect, err
 
 
-K2DP_CONFIGS = (("rware-tiny-2ag-v2", {}), ("rware-small-4ag-v2", {"max_steps": 20}),
-                ("rware-large-8ag-v2", {"max_steps": 20}))
+K2DP_CONFIGS = (("rware-tiny-2ag-v2", {}), ("rware-small-4ag-v2", {"max_steps": BREADTH_MAX_STEPS}),
+                ("rware-large-8ag-v2", {"max_steps": BREADTH_MAX_STEPS}))
 
 
 def phase21(dev, kind, card):
@@ -2040,25 +2091,29 @@ def phase21(dev, kind, card):
     for env_id, overrides in K2DP_CONFIGS:
         for m in (0, 2):
             for deterministic in (True, False):
-                _, traj, collect, err = compare_k2dp(env_id, dev, 1000, 32, deterministic, 5,
+                _, traj, collect, err = compare_k2dp(env_id, dev, 1000, BREADTH_T, deterministic, 5,
                                                      msg_bits=m, **overrides)
-                log(f"phase 21 K2d′ {env_id} M={m} B=1000 T=32 deterministic={deterministic}: "
+                log(f"phase 21 K2d′ {env_id} M={m} B=1000 T={BREADTH_T} "
+                    f"deterministic={deterministic}: "
                     f"obs/reward/done/bits/actions/state/carry exact, value/logp err {err} "
                     f"(bias and head blocks in {tile_note(collect, 1000)})")
-    _, _, collect, err = compare_k2dp("rware-large-8ag-v2", dev, 1000, 32, False, 6,
-                                      heads_global=True, msg_bits=2, max_steps=20)
-    log(f"phase 21 K2d′ rware-large-8ag-v2 M=2 B=1000 T=32 random, bias and head blocks read "
+    _, _, collect, err = compare_k2dp("rware-large-8ag-v2", dev, 1000, BREADTH_T, False, 6,
+                                      heads_global=True, msg_bits=2, max_steps=BREADTH_MAX_STEPS)
+    log(f"phase 21 K2d′ rware-large-8ag-v2 M=2 B=1000 T={BREADTH_T} random, bias and head "
+        f"blocks read "
         f"from device memory: obs/reward/done/bits/actions/state/carry exact, value/logp err "
         f"{err} ({tile_note(collect, 1000)})")
     for heads_global in (False, True):
         for m in (0, 2):
             for deterministic in (True, False):
-                _, _, collect, err = compare_k2dp(NARROW_CASE[0], dev, 1000, 32, deterministic,
+                _, _, collect, err = compare_k2dp(NARROW_CASE[0], dev, 1000, BREADTH_T,
+                                                  deterministic,
                                                   5, heads_global=heads_global,
                                                   hidden=NARROW_CASE[1], msg_bits=m,
-                                                  max_steps=20)
+                                                  max_steps=BREADTH_MAX_STEPS)
                 log(f"phase 21 K2d′ {NARROW_CASE[0]} (embed, hidden) {NARROW_CASE[1]} M={m} "
-                    f"B=1000 T=32 deterministic={deterministic}: obs/reward/done/bits/actions/"
+                    f"B=1000 T={BREADTH_T} deterministic={deterministic}: obs/reward/done/bits/"
+                    f"actions/"
                     f"state/carry exact, value/logp err {err} (bias and head blocks in "
                     f"{tile_note(collect, 1000)})")
     errs = {}
@@ -2069,17 +2124,14 @@ def phase21(dev, kind, card):
         log(f"phase 21 K2d′ main shape tiny-2ag M={m} B=16384 T=128 random: obs/reward/done/"
             f"bits/actions/state/carry exact, value/logp max_abs_err {err} [{kind}, {card}]")
     for env_id, overrides in (("rware-tiny-2ag-v2", {}), ("rware-large-8ag-v2",
-                                                         {"max_steps": 20})):
+                                                         {"max_steps": BREADTH_MAX_STEPS})):
         for deterministic in (True, False):
-            _, _, _, err, collect = compare_k2d(env_id, dev, 1000, 32, deterministic, 5,
+            _, _, _, err, collect = compare_k2d(env_id, dev, 1000, BREADTH_T, deterministic, 5,
                                                 msg_bits=2, **overrides)
-            log(f"phase 21 K2d with K2b {env_id} M=2 B=1000 T=32 deterministic={deterministic}: "
+            log(f"phase 21 K2d with K2b {env_id} M=2 B=1000 T={BREADTH_T} "
+                f"deterministic={deterministic}: "
                 f"obs/reward/done/bits/actions/state exact, value/logp err {err} (weights "
                 f"{'in device memory' if collect.weights_global else 'in shared memory'})")
-    _, _, _, err, _ = compare_k2d("rware-tiny-2ag-v2", dev, 16384, 128, False, 13, msg_bits=2)
-    errs["k2dm"] = err
-    log(f"phase 21 K2d with K2b main shape tiny-2ag M=2 B=16384 T=128 random: obs/reward/done/"
-        f"bits/actions/state exact, value/logp max_abs_err {err} [{kind}, {card}]")
     return errs
 
 
@@ -2132,11 +2184,8 @@ def phase22(dev, kind, card, errs, n_envs=4096, rollout_len=128):
         # K2d′ at the main path's shape, from the runner's state and carry
         policies = seac.seac_gru_policies_of(dims, runner.params)
         args = (runner.env_states, policies, 7, runner.carry)
-        k_ms, _ = cuda_ms(lambda: step.collect(*args), repeats=2)
-        plain_ms, _ = cuda_ms(lambda: step.collect.plain(*args))
-        _, _, _, err = compare_k2dp("rware-tiny-2ag-v2", dev, n_envs, rollout_len, False, 8,
-                                    policies, step.collect, runner.env_states, runner.carry,
-                                    msg_bits=m)
+        k_ms, plain_ms, err, _ = route_check(f"K2d′ M={m} main path's shape", env,
+                                             step.collect, args)
         log(f"phase 22 K2d′ M={m} at the main path's shape B={n_envs} T={rollout_len} random, "
             f"from the runner's state and carry: obs/reward/done/bits/actions/state/carry exact, "
             f"{k_ms:.3f} ms/launch (plain {plain_ms:.1f} ms, value/logp max_abs_err {err}; at "
@@ -2150,7 +2199,7 @@ def phase22(dev, kind, card, errs, n_envs=4096, rollout_len=128):
     return entries
 
 
-def phase23(dev, kind, card, errs, n_envs=16384, rollout_len=128):
+def phase23(dev, kind, card, n_envs=16384, rollout_len=128):
     """SEAC-PPO with two message bits at full width; returns the K2d with
     K2b entry."""
     import rware_tpu_torch
@@ -2177,13 +2226,13 @@ def phase23(dev, kind, card, errs, n_envs=16384, rollout_len=128):
         f"{passes_ms:.3f} ms; K8 launches 0 (not built) [{kind}, {card}]")
     policies = seac.seac_policies_of(dims, runner.params)
     args = (runner.env_states, policies, 7)
-    k_ms, _ = cuda_ms(lambda: step.collect(*args), repeats=2)
-    plain_ms, _ = cuda_ms(lambda: step.collect.plain(*args))
+    k_ms, plain_ms, err, _ = route_check("K2d with K2b main shape", env, step.collect, args)
     log(f"phase 23 K2d with K2b at the main shape: {k_ms:.3f} ms/launch (plain {plain_ms:.1f} "
-        f"ms, value/logp max_abs_err {errs['k2dm']}) [{kind}, {card}]")
+        f"ms; against it obs/reward/done/bits/actions/state exact, value/logp max_abs_err "
+        f"{err}) [{kind}, {card}]")
     k_bound = collect_per_agent_bound(dims, states, traj, runner.params, steps * env.n_agents)
     return [kernel_entry("fused_collect_per_agent (message bits, K2b)", "collect_mlp.cuh",
-                         "rware_tpu/ops/pallas_rollout.py:1537", launches, errs["k2dm"], k_ms,
+                         "rware_tpu/ops/pallas_rollout.py:1537", launches, err, k_ms,
                          plain_ms, k_bound)]
 
 
@@ -2292,40 +2341,42 @@ def compare_k2e(kind, env, b, t, deterministic, seed, states=None, policy=None, 
 def phase24(dev, kind, card):
     """K2e in the four collectors against their plain versions."""
     for coll, name, m in K2E_CASES:
-        env = image_env(name, dev, max_steps=20, msg_bits=m)
+        env = image_env(name, dev, max_steps=BREADTH_MAX_STEPS, msg_bits=m)
         for deterministic in (True, False):
-            collect, traj, err = compare_k2e(coll, env, 1000, 32, deterministic, 5)
+            collect, traj, err = compare_k2e(coll, env, 1000, BREADTH_T, deterministic, 5)
             where = ""
             if coll == "mlp_per_agent":
                 where = ", weights in " + ("device" if collect.weights_global else "shared") \
                     + " memory"
-            log(f"phase 24 {K2E_NAMES[coll]} with K2e {name} M={m} B=1000 T=32 "
+            log(f"phase 24 {K2E_NAMES[coll]} with K2e {name} M={m} B=1000 T={BREADTH_T} "
                 f"deterministic={deterministic}: obs ({traj['obs'].shape[-1]} features)/reward/"
                 f"done/bits/actions/state/carry exact, value/logp err {err} "
                 f"({tile_note(collect, 1000)}{where})")
     for coll, m in (("gru", 0), ("gru", 2), ("gru_per_agent", 0), ("gru_per_agent", 2)):
-        env = image_env("rware-img-tiny-2ag-v2", dev, max_steps=20, msg_bits=m)
+        env = image_env("rware-img-tiny-2ag-v2", dev, max_steps=BREADTH_MAX_STEPS, msg_bits=m)
         for deterministic in (True, False):
-            collect, traj, err = compare_k2e(coll, env, 1000, 32, deterministic, 5,
+            collect, traj, err = compare_k2e(coll, env, 1000, BREADTH_T, deterministic, 5,
                                              hidden=NARROW_CASE[1])
             log(f"phase 24 {K2E_NAMES[coll]} with K2e rware-img-tiny-2ag-v2 (embed, hidden) "
-                f"{NARROW_CASE[1]} M={m} B=1000 T=32 deterministic={deterministic}: obs/reward/"
+                f"{NARROW_CASE[1]} M={m} B=1000 T={BREADTH_T} deterministic={deterministic}: "
+                f"obs/reward/"
                 f"done/bits/actions/state/carry exact, value/logp err {err} "
                 f"({tile_note(collect, 1000)})")
     from rware_tpu_torch.ops.fused_rollout import build_fused_collect_per_agent, collect_plan
 
-    env = image_env("rware-img-tiny-2ag-v2", dev, max_steps=20)
+    env = image_env("rware-img-tiny-2ag-v2", dev, max_steps=BREADTH_MAX_STEPS)
     for weights_global in (False, True):
         for deterministic in (True, False):
-            collect = build_fused_collect_per_agent(env.config, 32, NARROW_CASE[1],
+            collect = build_fused_collect_per_agent(env.config, BREADTH_T, NARROW_CASE[1],
                                                     deterministic=deterministic)
             collect.plan = collect_plan(env.config, NARROW_CASE[1], env.n_agents,
                                         weights_global=weights_global)
             policy = image_policy("mlp_per_agent", env.config, 5, dev, NARROW_CASE[1])
-            _, traj, err = compare_k2e("mlp_per_agent", env, 1000, 32, deterministic, 5,
+            _, traj, err = compare_k2e("mlp_per_agent", env, 1000, BREADTH_T, deterministic, 5,
                                        policy=policy, collect=collect)
             log(f"phase 24 K2d with K2e rware-img-tiny-2ag-v2 hidden {NARROW_CASE[1]} B=1000 "
-                f"T=32 deterministic={deterministic}: obs/reward/done/actions/state exact, "
+                f"T={BREADTH_T} deterministic={deterministic}: obs/reward/done/actions/state "
+                f"exact, "
                 f"value/logp err {err} (weights in {'device' if weights_global else 'shared'} "
                 f"memory, {collect.threads} threads)")
 
@@ -2405,7 +2456,7 @@ def phase25(dev, kind, card, n_envs=16384, rollout_len=128):
         f"ms); kernel against plain from the runner's state and carry: obs/reward/done/actions/"
         f"state/carry exact, value/logp max_abs_err {err} [{kind}, {card}]")
     entries.append(kernel_entry(
-        "fused_collect_gru (image observations, K2e)", "fused_collect_gru_image.cu",
+        "fused_collect_gru (image observations, K2e)", "fused_collect_gru_image_one_stack.cu",
         "rware_tpu/ops/pallas_rollout.py:1109", launches, err, k_ms, plain_ms,
         gru_collect_bound(dims, states, traj, runner.carry, dims.n_params, agent_steps)))
     return entries
@@ -2749,7 +2800,7 @@ def phase28(dev, kind, card, n_envs=16384, rollout_len=128):
 
 GYM_ENV = "rware-tiny-2ag-v2"
 GYM_BATCH = 4096  # BASELINE's learning batch (BASELINE.md:203-305)
-GYM_STEPS = 256
+GYM_STEPS = 128
 # The golden delivery-free scenario of phase 29 on tiny-2ag: agent 0 on shelf
 # 0's rack cell, agent 1 on the highway; it picks up, carries, turns, bumps the
 # wall, is refused a drop on the highway; agent 1 picks up a shelf and is
@@ -2897,7 +2948,7 @@ def phase29(dev, kind, card, n_envs=GYM_BATCH, n_steps=GYM_STEPS):
         require(np.array_equal(term, w_term) and not trunc.any(), f"phase 29 step {t}: done")
         require(all(np.array_equal(info[k], v) for k, v in zip(res.info, w_info)),
                 f"phase 29 step {t}: info differs")
-        if t % 64 == 63:
+        if t % (n_steps // 4) == n_steps // 4 - 1:
             require(in_space(venv, obs, n_envs), f"phase 29 step {t}: obs outside the space")
         resets += int(prev.sum())
     require(resets >= n_envs, f"phase 29: only {resets} autoresets in {n_steps} steps")
@@ -3391,7 +3442,7 @@ def dp_tasks():
     the learners JAX only places on a mesh (``testing.DP_PLACED``) at
     DP_SMALL (SEAC A2C at T=5, SEAC-PPO's flat learner with two message
     bits) for one."""
-    from rware_tpu_torch.testing import DP_PLACED
+    from rware_tpu_torch.testing import DP_LEARNERS, DP_PLACED
 
     big = dict(n_envs=DP_GLOBAL, rollout_len=128, epochs=4, minibatches=4)
     small = dict(n_envs=DP_SMALL[0], rollout_len=DP_SMALL[1], epochs=4, minibatches=4)
@@ -3400,11 +3451,19 @@ def dp_tasks():
                    env_overrides={"msg_bits": 2} if name == "seac_flat" else {})
               for name in DP_PLACED]
     return ([dict(DP_TASK, name="ippo", learner="ippo", cfg=big, n_updates=3)]
-            + [dict(DP_TASK, name=name, learner=name, cfg=small, n_updates=1) for name in
-               ("rnn_ippo", "rnn_ippo_fused_loss", "mappo", "rnn_mappo", "seac_gru")]
+            + [dict(DP_TASK, name=name, learner=name, cfg=small, n_updates=1)
+               for name in DP_LEARNERS[1:] if name not in DP_PLACED]
             + placed)
 
 
+# The learners whose collect is torch ops on the card (JAX's XLA collect): cuBLAS's
+# float32 products depend on the batch's shape, so a rank's trajectory is held bit
+# for bit to the emulated rank's (the same shapes) and to the global collect's rows
+# within bounds (phase 33); on the CPU tests/test_torch_dp_train.py holds them equal.
+TORCH_COLLECT = ("mappo_plain", "seac_gru_plain")
+# Phase 31d's ``train`` arguments; its unbroken run in this process drops the first two
+TORCHRUN_BASE = ["--distributed", "--mesh", "--device", "cuda", "--n-envs", "4096",
+                 "--checkpoint-every", "2", "--log-every", "2"]
 PLACED_PARAM_LR_FRAC = 0.05  # of lr * P: the parameters, two ranks against one rank
 PLACED_METRIC_TOL = dict(rtol=1e-2, atol=1e-4)  # the metrics, two ranks against one rank
 
@@ -3474,9 +3533,13 @@ def phase31c(dev, kind, card):
         ranks = res[name]
         for r in range(2):
             got, emu = ranks[r], emulated[r][name]
-            rows = {k: v[:, r * b:(r + 1) * b] for k, v in whole[name]["traj"].items()}
-            require(got["traj"] == digest(rows), f"31c {name} rank {r}: trajectory != its "
-                    "rows of the global collect")
+            if name in TORCH_COLLECT:  # the global rows: phase 33, within their bounds
+                require(got["traj"] == emu["traj"], f"31c {name} rank {r}: trajectory != the "
+                        "emulated rank's")
+            else:
+                rows = {k: v[:, r * b:(r + 1) * b] for k, v in whole[name]["traj"].items()}
+                require(got["traj"] == digest(rows), f"31c {name} rank {r}: trajectory != its "
+                        "rows of the global collect")
             require(got["runner"] == emu["runner"] and got["metrics"] == emu["metrics"],
                     f"31c {name} rank {r}: != the in-process emulation")
             require(got["collect_counts"]["all_reduce"] == 0
@@ -3497,7 +3560,8 @@ def phase31c(dev, kind, card):
         require(out["restored"] == out["saved"] == emulated[r]["unbroken"]["runner"],
                 f"31c checkpoint rank {r}: the restored shard != the unbroken emulated run")
     log(f"phase 31c gloo, 2 ranks on one card: {'; '.join(lines)}: each rank's trajectory = "
-        f"its rows of the global collect, parameters bit-equal across ranks and to the "
+        f"its rows of the global collect ({', '.join(TORCH_COLLECT)}: = the emulated rank's), "
+        f"parameters bit-equal across ranks and to the "
         f"in-process emulation, E*M+1 all-reduces an update (SEAC A2C 2), the collectives on "
         f"CUDA tensors; the learners JAX only places on a mesh against the one-rank update of "
         f"the global batch on the card: {'; '.join(placed)}; "
@@ -3506,41 +3570,80 @@ def phase31c(dev, kind, card):
         f"{time.perf_counter() - start:.1f} s [{kind}, {card}]")
 
 
-def phase31d(kind, card):
+def phase31d_start(tmp):
+    """Phase 31d's two torchrun launches (4 updates with a checkpoint every 2,
+    then ``--resume`` to 6) into ``tmp``, one after the other in a thread, so
+    that they run beside phase 31c, which times nothing; returns (the thread,
+    {launch: (rc, stdout, stderr)}, the launches' processes)."""
     import os
-    import tempfile
+    import threading
 
-    import torch
-
-    base = ["--distributed", "--mesh", "--device", "cuda", "--n-envs", "4096",
-            "--checkpoint-every", "2", "--log-every", "2"]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    outs, procs = {}, []
 
     def torchrun(*args):
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
-               "--master-port", str(_free_port()), "-m", "rware_tpu_torch.train", *base, *args]
-        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
-        require(out.returncode == 0, f"31d {' '.join(args)}: rc {out.returncode}\n"
-                f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
-        return out.stdout
+               "--master-port", str(_free_port()), "-m", "rware_tpu_torch.train", *TORCHRUN_BASE,
+               *args]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env=env)
+        procs.append(proc)
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            return -9, out, "timed out after 600 s\n" + err
+        return proc.returncode, out, err
 
+    def run():
+        outs["first"] = torchrun("--updates", "4", "--checkpoint-dir", f"{tmp}/a")
+        if outs["first"][0] == 0:
+            outs["resumed"] = torchrun("--updates", "6", "--resume", "--checkpoint-dir",
+                                       f"{tmp}/a")
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, outs, procs
+
+
+def phase31d_stop(launches):
+    """Kill phase 31d's launches still running and wait for the thread."""
+    thread, _, procs = launches
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+    thread.join()
+
+
+def phase31d(kind, card, tmp, launches, start):
+    """``train.main`` unbroken for 6 updates in this process against phase
+    31d's torchrun launches (``phase31d_start``), which ``--resume``'d to 6."""
+    import torch
     from rware_tpu_torch import train
 
-    start = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="dp31d-") as tmp:
-        first = torchrun("--updates", "4", "--checkpoint-dir", f"{tmp}/a")
-        resumed = torchrun("--updates", "6", "--resume", "--checkpoint-dir", f"{tmp}/a")
-        train.main(base[2:] + ["--updates", "6", "--checkpoint-dir", f"{tmp}/b"])  # unbroken
-        a, b = (torch.load(f"{tmp}/{d}/runner/6.pt", weights_only=True) for d in "ab")
-    require("distributed: process 0/1" in first and "resumed from update 4" in resumed,
+    train.main(TORCHRUN_BASE[2:] + ["--updates", "6", "--checkpoint-dir", f"{tmp}/b"])
+    thread, outs, _ = launches
+    thread.join(timeout=900)
+    require(not thread.is_alive(), "31d: the torchrun launches ran past 900 s")
+    for name in ("first", "resumed"):
+        require(name in outs, f"31d: no {name} launch ({outs})")
+        rc, out, err = outs[name]
+        require(rc == 0, f"31d {name}: rc {rc}\n{out[-2000:]}\n{err[-3000:]}")
+    a, b = (torch.load(f"{tmp}/{d}/runner/6.pt", weights_only=True) for d in "ab")
+    require("distributed: process 0/1" in outs["first"][1]
+            and "resumed from update 4" in outs["resumed"][1],
             "31d: the runs did not say what they did")
     require(digest(a) == digest(b), "31d: the resumed run != the unbroken run")
     log(f"phase 31d torchrun --nproc-per-node 1 train --distributed --mesh (NCCL, world 1): 4 "
         f"updates, --resume to 6 = an unbroken 6-update run of train.main bit for bit; "
-        f"{time.perf_counter() - start:.1f} s [{kind}, {card}]")
+        f"{time.perf_counter() - start:.1f} s from the first launch, beside phase 31c "
+        f"[{kind}, {card}]")
 
 
 def phase31(dev, kind, card):
+    import tempfile
+
     start = time.perf_counter()
     cases = phase31a(dev)
     log(f"phase 31a env_offset: {'; '.join(cases)}, rows [{DP_LO}, {2 * DP_LO}) of K1 and "
@@ -3548,8 +3651,14 @@ def phase31(dev, kind, card):
         f"the plain versions "
         f"({time.perf_counter() - start:.1f} s) [{kind}, {card}]")
     phase31b(dev, kind, card)
-    phase31c(dev, kind, card)
-    phase31d(kind, card)
+    with tempfile.TemporaryDirectory(prefix="dp31d-") as tmp:
+        start = time.perf_counter()
+        launches = phase31d_start(tmp)
+        try:
+            phase31c(dev, kind, card)
+            phase31d(kind, card, tmp, launches, start)
+        finally:
+            phase31d_stop(launches)
 
 
 # Phase 32: the long-observation ids (sensor range 4 and 5, ``register_full``)
@@ -3561,11 +3670,15 @@ LONG_K2A = ("rware-5s-tiny-2ag-v2", {}, 16384, 128)
 LONG_K2A_MODES = (("mlp", "rware-4s-tiny-2ag-v2", {"msg_bits": 2}),
                   ("mlp", "rware-img-5s-tiny-2ag-v2", {}),
                   ("mlp", "rware-imgdict-5s-tiny-2ag-v2", {}))
-LONG_MODES_T = 32  # steps of the K2b and K2e cases: their plain versions are launch-bound
+LONG_MODES_T = 32  # steps of the cases off the kernel line: their plain versions are launch-bound
 LONG_COMPARE_B = 1000
-LONG_K2D = tuple((f"rware-5s-tiny-{n}ag-v2", {"msg_bits": m}, 1024, 128)
-                 for n in (17, 19) for m in (0, 2))
-LONG_K2DP = tuple(("rware-5s-tiny-16ag-v2", {"msg_bits": m}, 1024, 128) for m in (0, 2))
+# (env id, overrides, envs, steps): the kernel line's case (17 agents, M=0;
+# 16 agents, M=0 for K2d′) at T=128, the others at T=32, as their plain
+# versions take about 85 ms a step
+LONG_K2D = tuple((f"rware-5s-tiny-{n}ag-v2", {"msg_bits": m}, 1024, 128 if (n, m) == (17, 0)
+                  else LONG_MODES_T) for n in (17, 19) for m in (0, 2))
+LONG_K2DP = tuple(("rware-5s-tiny-16ag-v2", {"msg_bits": m}, 1024, LONG_MODES_T if m else 128)
+                  for m in (0, 2))
 # The chunked image instantiations: K2d′ on img-5s at 19 agents (its plan's
 # chunks) and K2d on imgdict-tiny-2ag with chunks of 32 forced (no registered
 # id needs them at hidden (128, 128)); (kind, env id, forced chunk, envs, steps)
@@ -3597,21 +3710,18 @@ def long_case(kind, env_id, overrides, b, seed, dev):
     return env, build, args
 
 
-def route_check(what, env, collect, args, actions_exact=True):
-    """The kernel launched twice (the second timed) and its plain version
-    (timed) on the same inputs, by phases 4, 15, 18, 21 and 24's rules: obs,
+def check_collect(what, env, out, plain, actions_exact=True, first=None):
+    """A collector launch's outputs ``out`` against its plain version's
+    ``plain`` on the same inputs, by phases 4, 15, 18, 21 and 24's rules: obs,
     rewards, done, bits, the final state and the carry bit for bit, every
     action too unless ``actions_exact`` is False (K2a's rule: 99.9%), value
-    and logp within 2e-2; the two launches bit-equal.  Returns (ms, plain ms,
-    max |value/logp error|, the timed launch's outputs)."""
+    and logp within 2e-2; ``first``, an earlier launch's outputs, bit-equal to
+    ``out``.  Returns max |value/logp error|."""
     import torch
 
-    first = collect(*args)
-    k_ms, out = cuda_ms(lambda: collect(*args))
-    p_ms, plain = cuda_ms(lambda: collect.plain(*args))
     *k_state, k_traj = out
     *p_state, p_traj = plain
-    for a, b in ((first, out), (out, plain)):
+    for a, b in (((first, out),) if first is not None else ()) + ((out, plain),):
         same = a is first
         tag = "two launches" if same else "kernel != plain"
         require(not state_diff(a[0], b[0]), f"{what}: {tag}: final state differs")
@@ -3629,7 +3739,18 @@ def route_check(what, env, collect, args, actions_exact=True):
         require(not v.is_floating_point() or bool(torch.isfinite(v.float()).all()),
                 f"{what}: non-finite {k}")
     check_invariants(env, k_state[0])
-    return k_ms, p_ms, err, out
+    return err
+
+
+def route_check(what, env, collect, args, actions_exact=True):
+    """The kernel launched twice (the second timed) and its plain version
+    (timed) on the same inputs, held by ``check_collect``; the two launches
+    bit-equal.  Returns (ms, plain ms, max |value/logp error|, the timed
+    launch's outputs)."""
+    first = collect(*args)
+    k_ms, out = cuda_ms(lambda: collect(*args))
+    p_ms, plain = cuda_ms(lambda: collect.plain(*args))
+    return k_ms, p_ms, check_collect(what, env, out, plain, actions_exact, first), out
 
 
 def phase32_routes(dev, kind, card):
@@ -3644,12 +3765,12 @@ def phase32_routes(dev, kind, card):
     env_id, overrides, b, t = LONG_K2A
     for det in (True, False):
         env, build, args = long_case("mlp", env_id, overrides, LONG_COMPARE_B, 40, dev)
-        collect = build(env.config, t, deterministic=det)
+        collect = build(env.config, LONG_MODES_T, deterministic=det)
         plan = collect.plan
         require(plan.weights_global and not plan.kx, f"K2a {env_id}: plan {plan}")
         _, _, err, _ = route_check(f"K2a {env_id} det={det}", env, collect, args, False)
         log(f"phase 32 K2a device-memory weights {env_id} (L={env.config.policy_obs_length}) "
-            f"B={LONG_COMPARE_B} T={t} deterministic={det}: obs/reward/done/state exact, two "
+            f"B={LONG_COMPARE_B} T={LONG_MODES_T} deterministic={det}: obs/reward/done/state exact, two "
             f"launches bit-equal, value/logp err {err} ({tile_note(collect, LONG_COMPARE_B)}, "
             f"{plan.blocks_per_sm} blocks an SM, {plan.smem} bytes)")
     env, build, args = long_case("mlp", env_id, overrides, b, 41, dev)
@@ -3872,6 +3993,326 @@ def phase32(dev, kind, card):
     return entries
 
 
+# Phase 33: the learners of JAX's collect_mode="xla" (``train --collect plain``
+# for MAPPO and recurrent SEAC-PPO): torch ops only, no kernel.  (learner, envs):
+# MAPPO at its training batch, recurrent SEAC-PPO at JAX's (BASELINE.md:224-231).
+PLAIN_LEARNERS = (("mappo", 16384), ("seac_gru", 4096))
+PLAIN_CPU_ENVS = {"mappo": 512, "seac_gru": 128}  # the first envs of the card-vs-CPU update
+PLAIN_LOSS_RTOL = A2C_LOSS_RTOL  # phase 30's bounds: loss terms, relative
+# pg_loss and approx_kl are means of order-one terms (normalised advantages,
+# ratios) that cancel to about 1e-3; a bf16 rounding that flips between the
+# card's and the CPU's products moves them by about 1e-6 (1.3e-6 in recurrent
+# SEAC's one pass), so each term is also given 1e-5 of its terms' scale
+PLAIN_LOSS_ATOL = 1e-5
+PLAIN_PARAM_LR_FRAC = A2C_PARAM_LR_FRAC  # of lr: every parameter after one step
+PLAIN_SIGMAS = 5.0
+PLAIN_WARM_T = 8  # steps of the warm-up update: every op of the update once, at a 16th the cost
+PLAIN_OFFSET_SHARE = 0.99  # of the envs: a shard's plain collect = the global rows
+PLAIN_OFFSET_LOGP = 1e-5
+
+
+def kernel_wrappers() -> list:
+    """Every live kernel wrapper of the port: an object of a
+    ``rware_tpu_torch.ops`` class with a launch counter."""
+    import gc
+
+    out = []
+    for o in gc.get_objects():
+        module = getattr(type(o), "__module__", None)  # not a str on some extension types
+        if isinstance(module, str) and module.startswith("rware_tpu_torch.ops.") \
+                and isinstance(getattr(o, "launches", None), int):
+            out.append(o)
+    return out
+
+
+@contextlib.contextmanager
+def library_calls():
+    """``{entry point: calls}`` of every call into the kernel library's
+    launch entry points (``_build._SIGNATURES``) made inside the context."""
+    from rware_tpu_torch.ops._build import _SIGNATURES, load_library
+
+    lib, calls = load_library(), {}
+    originals = {n: getattr(lib, n) for n in _SIGNATURES}
+    for n, fn in originals.items():
+        def counted(*args, _n=n, _fn=fn):
+            calls[_n] = calls.get(_n, 0) + 1
+            return _fn(*args)
+
+        setattr(lib, n, counted)
+    try:
+        yield calls
+    finally:
+        for n, fn in originals.items():
+            setattr(lib, n, fn)
+
+
+def _frequency_gap(a, b, what):
+    """|freq(a) - freq(b)| of two 0/1 tensors of one shape over the
+    binomial deviation of their difference; fails past PLAIN_SIGMAS."""
+    n = a.numel()
+    fa, fb = float(a.double().mean()), float(b.double().mean())
+    p = (fa + fb) / 2
+    sigma = (p * (1 - p) * 2 / n) ** 0.5
+    require(abs(fa - fb) <= PLAIN_SIGMAS * sigma + 1e-12,
+            f"{what}: frequency {fa:.6g} against the fused collector's {fb:.6g} "
+            f"({abs(fa - fb) / max(sigma, 1e-30):.2f} sigma)")
+    return abs(fa - fb) / sigma if sigma > 0 else 0.0
+
+
+def _timed_phases(step, names, n_updates, runner):
+    """``n_updates`` updates of ``step`` with CUDA events around each of its
+    phase methods ``names``; returns (runner, ms per update, {name: ms per
+    update}, the last update's metrics and phase outputs)."""
+    import torch
+
+    events, outputs, originals = {n: [] for n in names}, {}, {}
+    for name in names:
+        originals[name] = getattr(step, name)
+
+        def timed(*args, _name=name, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = originals[_name](*args, **kw)
+            end.record()
+            events[_name].append((start, end))
+            outputs[_name] = out
+            return out
+
+        setattr(step, name, timed)
+    try:
+        metrics = None
+
+        def updates():
+            nonlocal runner, metrics
+            for _ in range(n_updates):
+                runner, metrics = step(runner)
+
+        total_ms, _ = cuda_ms(updates)
+    finally:
+        for name in names:
+            delattr(step, name)
+    split = {n: sum(s.elapsed_time(e) for s, e in ev) / n_updates for n, ev in events.items()}
+    return runner, total_ms / n_updates, split, metrics, outputs
+
+
+def _plain_case(name, m, dev, n_envs, rollout_len, **passes):
+    """(env, cfg, runner, step, dims) of one plain learner on ``dev``;
+    ``passes`` overrides the config's epochs and minibatches."""
+    import rware_tpu_torch
+    from rware_tpu_torch.models import ippo, mappo, seac
+
+    env = rware_tpu_torch.make("rware-tiny-2ag-v2", device=dev, **({"msg_bits": m} if m else {}))
+    if name == "mappo":
+        cfg = ippo.IPPOConfig(n_envs=n_envs, rollout_len=rollout_len, **passes)
+        runner, dims, cdims = mappo.init_mappo_runner(env, cfg, seed=33)
+        step = mappo.build_mappo_train_step(env, dims, cdims, cfg, collect="plain")
+    else:
+        cfg = seac.SEACPPOConfig(n_envs=n_envs, rollout_len=rollout_len, **passes)
+        runner, dims = seac.init_seac_gru(env, cfg, seed=33)
+        step = seac.build_seac_gru_train_step(env, dims, cfg, collect="plain")
+    return env, cfg, runner, step, dims
+
+
+def _plain_vs_fused(name, env, cfg, runner, dims, ours):
+    """The plain collect's sampling law (``ours``, the trajectory of
+    ``step.rollout(runner)``) against the fused collector's (K2a for MAPPO's
+    actor, K2d′ for recurrent SEAC) from the same parameters, states and
+    carry, another Philox seed: each move's and bit's frequency and the share
+    of env-steps with a reward; returns the largest gap in sigmas and the two
+    reward shares."""
+    from rware_tpu_torch.models import seac
+    from rware_tpu_torch.models.ippo import policy_of
+    from rware_tpu_torch.ops.fused_rollout import (
+        build_fused_collect,
+        build_fused_collect_gru_per_agent,
+    )
+
+    if name == "mappo":
+        fused = build_fused_collect(env.config, cfg.rollout_len, (dims.h1, dims.h2))
+        actor = runner.params["actor"]
+        _, theirs = fused(runner.env_states, policy_of(dims, actor), 331)
+    else:
+        fused = build_fused_collect_gru_per_agent(env.config, cfg.rollout_len,
+                                                  (dims.embed, dims.hidden))
+        _, _, theirs = fused(runner.env_states, seac.seac_gru_policies_of(dims, runner.params),
+                             331, runner.carry)
+    require(fused.launches == 1, f"the fused collector launched {fused.launches} times")
+    gaps = [_frequency_gap(ours["action"] == a, theirs["action"] == a, f"{name} move {a}")
+            for a in range(5)]
+    gaps += [_frequency_gap(ours["bits"][..., k] == 1, theirs["bits"][..., k] == 1,
+                            f"{name} bit {k}") for k in range(env.config.msg_bits)]
+    rewarded = [t["reward"].sum(-1) > 0 for t in (ours, theirs)]
+    gaps.append(_frequency_gap(*rewarded, f"{name} reward share"))
+    return max(gaps), [float(r.double().mean()) for r in rewarded]
+
+
+def _plain_offset_check(name, step, runner, whole):
+    """The plain collect of the batch's second half at ``env_offset`` = B/2
+    against ``whole``, the global collect's trajectory (``step.rollout(runner)``),
+    in its rows: every integer output (obs, moves,
+    bits, rewards, done) equal in at least PLAIN_OFFSET_SHARE of the envs
+    (cuBLAS's products, unlike the kernels' FMA chains, depend on the batch's
+    shape, so a near tie may sample otherwise) and ``logp`` within
+    PLAIN_OFFSET_LOGP there; returns (the share, the largest logp gap)."""
+    import torch
+    from rware_tpu_torch.models.ippo import collect_seed
+
+    b, seed = runner.env_states.batch_size, collect_seed(runner.seed, runner.update_idx)
+    lo = b // 2
+    half = runner.env_states.map(lambda x: x[lo:])
+    if name == "mappo":
+        part = step.collect(half, runner.params["actor"], seed, env_offset=lo)[-1]
+    else:
+        part = step.collect(half, runner.params, seed, runner.carry[lo:], env_offset=lo)[-1]
+    t_len = part["done"].shape[0]
+    same = torch.ones(b - lo, dtype=torch.bool, device=part["done"].device)
+    for k, v in part.items():
+        if k != "logp":
+            same &= (v == whole[k][:, lo:]).reshape(t_len, b - lo, -1).all(-1).all(0)
+    share = float(same.float().mean())
+    require(share >= PLAIN_OFFSET_SHARE, f"{name}: the second half at env_offset={lo} equals "
+            f"the global collect's rows in {share:.4f} of its envs")
+    err = float((part["logp"] - whole["logp"][:, lo:])[:, same].abs().max())
+    require(err <= PLAIN_OFFSET_LOGP, f"{name}: logp at env_offset={lo} {err} from the global "
+            "collect's")
+    return share, err
+
+
+def _plain_card_vs_cpu(name, m, dev, cfg, runner, out):
+    """One pass of the update (E = M = 1: one autograd and one optimizer
+    step, as phase 30's A2C update) on the first PLAIN_CPU_ENVS envs on the
+    card and on the CPU, from the same trajectory (``out``, the card's plain
+    collect ``step.rollout(runner)``, handed to both) and the same window;
+    returns (the largest loss-term gap over its bound, the largest parameter
+    gap in lr)."""
+    import dataclasses
+
+    import torch
+    from rware_tpu_torch.models.ppo import AdamState
+
+    n = PLAIN_CPU_ENVS[name]
+    rows = (lambda x: x[:, :n].contiguous())
+    states = out[0].map(lambda x: x[:n].contiguous())
+    traj = {k: rows(v) for k, v in out[-1].items()}
+    collected = (states, out[1][:n].contiguous(), traj) if name == "seac_gru" else (states, traj)
+    gen = torch.Generator().manual_seed(33)
+    if name == "mappo":  # the pass's window start
+        windows = torch.randint(0, cfg.rollout_len, (1,), generator=gen)
+    else:  # the epoch's env offset
+        windows = torch.randint(0, n, (1,), generator=gen).tolist()
+
+    def cpu(x):
+        if isinstance(x, AdamState):
+            return AdamState(x.count, x.mu.cpu(), x.nu.cpu())
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(cpu(v) for v in x)
+        return x.map(lambda t: t.cpu()) if hasattr(x, "map") else x.cpu()
+
+    results = []  # the card's, then the CPU's
+    for where in (dev, torch.device("cpu")):
+        env, _, _, cut_step, _ = _plain_case(name, m, where, n, cfg.rollout_len, epochs=1,
+                                             minibatches=1)
+        on = cpu if results else (lambda x: x)
+        cut_runner = dataclasses.replace(
+            runner, params=on(runner.params), opt_state=on(runner.opt_state),
+            env_states=on(states), obs=None,
+            **({"carry": on(runner.carry[:n].contiguous())} if name == "seac_gru" else {}))
+        cut_step.rollout = (lambda r, c=on(collected): c)
+        new, metrics = cut_step(cut_runner, windows)
+        results.append((new.params, {k: float(v) for k, v in metrics.items()}))
+    (p_dev, m_dev), (p_cpu, m_cpu) = results
+    rel = 0.0
+    for k, c in m_cpu.items():
+        a = m_dev[k]
+        require(abs(a - c) <= PLAIN_LOSS_RTOL * abs(c) + PLAIN_LOSS_ATOL,
+                f"{name} M={m} update: {k} card {a} CPU {c}")
+        rel = max(rel, abs(a - c) / (PLAIN_LOSS_RTOL * abs(c) + PLAIN_LOSS_ATOL))
+    p_dev, p_cpu = (torch.cat([v.reshape(-1) for v in p.values()]) if isinstance(p, dict)
+                    else p.reshape(-1) for p in (p_dev, p_cpu))
+    diff = float((p_dev.cpu() - p_cpu).abs().max())
+    require(diff <= PLAIN_PARAM_LR_FRAC * cfg.lr,
+            f"{name} M={m} update: a parameter {diff / cfg.lr:.4f} lr from the CPU's, more than "
+            f"{PLAIN_PARAM_LR_FRAC} lr")
+    return rel, diff / cfg.lr
+
+
+def phase33(dev, kind, card, rollout_len=128, learners=PLAIN_LEARNERS):
+    """MAPPO and recurrent SEAC-PPO on JAX's XLA collect (``collect="plain"``)
+    at full width, M=0 and M=2: a warm-up (one update at T=PLAIN_WARM_T) and
+    two updates split into collect,
+    values + GAE and passes with every kernel launch counter at 0 across them,
+    the collected states' invariants, the plain collect's sampling law against
+    the fused collector's, and one update on the card against the CPU."""
+    import torch
+
+    start = time.perf_counter()
+    for name, n_envs in learners:
+        for m in (0, 2):
+            env, cfg, runner, step, dims = _plain_case(name, m, dev, n_envs, rollout_len)
+            require(env.device == dev, f"the learner's env is on {env.device}")
+            require(not [k for k, v in vars(step).items() if hasattr(v, "launches")],
+                    f"the plain {name} step holds a kernel wrapper")
+            params0 = runner.params
+            # warm-up: one update of the same learner and batch at T=PLAIN_WARM_T
+            warm = _plain_case(name, m, dev, n_envs, PLAIN_WARM_T)
+            warm[3](warm[2])
+            del warm
+            wrappers = kernel_wrappers()
+            for w in wrappers:
+                w.launches = 0
+            names = ("rollout", "values", "advantages", "update") if name == "mappo" \
+                else ("rollout", "advantages", "update")
+            with library_calls() as calls:
+                runner, update_ms, split, metrics, outputs = _timed_phases(step, names, 2,
+                                                                           runner)
+            launched = {type(w).__name__: w.launches for w in wrappers if w.launches}
+            require(not launched and not calls,
+                    f"the plain {name} updates launched kernels: {launched} {calls}")
+            check_invariants(env, outputs["rollout"][0])
+            for k, v in metrics.items():
+                require(bool(torch.isfinite(v.float())), f"plain {name} metric {k} is {float(v)}")
+            flat = (lambda p: torch.cat([v.reshape(-1) for v in p.values()])
+                    if isinstance(p, dict) else p.reshape(-1))
+            require(float((flat(runner.params) - flat(params0)).abs().max()) > 0,
+                    f"the plain {name} updates left the parameters unmoved")
+            values_ms = split.get("values", 0.0) + split["advantages"]
+            label = f"plain {'MAPPO' if name == 'mappo' else 'recurrent SEAC-PPO'} M={m}"
+            log(f"phase 33 {label} (JAX's collect_mode=xla) tiny-2ag B={n_envs} "
+                f"T={rollout_len} E={cfg.epochs} M={cfg.minibatches}: {update_ms:.3f} ms/update "
+                f"over 2 updates after a warm-up = {n_envs * rollout_len / update_ms * 1e3:.4g} "
+                f"env-steps/s: collect {split['rollout']:.3f} ms, values + GAE "
+                f"{values_ms:.3f} ms, {cfg.epochs * cfg.minibatches} passes "
+                f"{split['update']:.3f} ms; {len(wrappers)} kernel counters all 0 and no call "
+                f"into the kernel library; invariants hold; last metrics "
+                f"{ {k: round(float(v), 5) for k, v in metrics.items()} } [{kind}, {card}]")
+            checks_start = time.perf_counter()
+            out = step.rollout(runner)  # the next update's plain collect, checked three ways
+            check_invariants(env, out[0])
+            gap, rewards = _plain_vs_fused(name, env, cfg, runner, dims, out[-1])
+            share, logp_gap = _plain_offset_check(name, step, runner, out[-1])
+            rel, lr_gap = _plain_card_vs_cpu(name, m, dev, cfg, runner, out)
+            log(f"phase 33 {label}: sampling law against the fused collector within {gap:.2f} "
+                f"sigma (reward shares {rewards[0]:.3g} / {rewards[1]:.3g}); the second half "
+                f"at env_offset = B/2 equal to the global collect's rows in {share:.4f} of its "
+                f"envs, logp within {logp_gap:.3g} there; one pass of the "
+                f"update on {PLAIN_CPU_ENVS[name]} envs card against CPU: loss terms within "
+                f"{rel:.3g} of their bound (rtol {PLAIN_LOSS_RTOL}, atol {PLAIN_LOSS_ATOL}), "
+                f"every parameter within {lr_gap:.4f} lr; these checks "
+                f"{time.perf_counter() - checks_start:.1f} s [{kind}, {card}]")
+    log(f"phase 33 took {time.perf_counter() - start:.1f} s [{kind}, {card}]")
+
+
+def timed(fn, *args):
+    """``fn(*args)``, logging its seconds and the script's seconds so far."""
+    start = time.perf_counter()
+    out = fn(*args)
+    end = time.perf_counter()
+    log(f"{fn.__name__}: {end - start:.1f} s, {end - SCRIPT_START:.1f} s since the start")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3896,36 +4337,37 @@ def main() -> int:
     log(f"phase 2 build: nvcc sm_90a {lib.build_seconds:.1f} s (load {time.perf_counter() - start:.1f} s); "
         + " ; ".join(ptxas))
 
-    k1_err = phase3(dev)
-    k2_err = phase4(dev)
-    kernels = phase5(dev, kind, card, k1_err, k2_err)
-    phase6(dev, kind, card)
-    phase7(dev, kind, card)
-    kernels += phase8(dev, kind, card)
-    phase9(dev, kind, card)
-    phase10(dev, kind, card)
-    kernels += phase11(dev, kind, card)
-    k2c_err = phase12(dev, kind, card)
-    phase13(dev, kind, card)
-    kernels += phase14(dev, kind, card, k2c_err)
-    k2d_err = phase15(dev, kind, card)
-    phase16(dev, kind, card)
-    kernels += phase17(dev, kind, card, k2d_err)
-    k2b_err, k1m_entry = phase18(dev, kind, card)
-    phase19(dev, kind, card)
-    kernels += [k1m_entry] + phase20(dev, kind, card, k2b_err)
-    errs = phase21(dev, kind, card)
-    kernels += phase22(dev, kind, card, errs)
-    kernels += phase23(dev, kind, card, errs)
-    phase24(dev, kind, card)
-    kernels += phase25(dev, kind, card)
-    phase26(dev, kind, card)
-    kernels += phase27(dev, kind, card)
-    phase28(dev, kind, card)
-    phase29(dev, kind, card)
-    kernels += phase30(dev, kind, card)
-    phase31(dev, kind, card)
-    kernels += phase32(dev, kind, card)
+    timed(phase3, dev)
+    timed(phase4, dev)
+    kernels = timed(phase5, dev, kind, card)
+    timed(phase6, dev, kind, card)
+    timed(phase7, dev, kind, card)
+    kernels += timed(phase8, dev, kind, card)
+    timed(phase9, dev, kind, card)
+    timed(phase10, dev, kind, card)
+    kernels += timed(phase11, dev, kind, card)
+    k2c_err = timed(phase12, dev, kind, card)
+    timed(phase13, dev, kind, card)
+    kernels += timed(phase14, dev, kind, card, k2c_err)
+    timed(phase15, dev, kind, card)
+    timed(phase16, dev, kind, card)
+    kernels += timed(phase17, dev, kind, card)
+    k1m_entry = timed(phase18, dev, kind, card)
+    timed(phase19, dev, kind, card)
+    kernels += [k1m_entry] + timed(phase20, dev, kind, card)
+    errs = timed(phase21, dev, kind, card)
+    kernels += timed(phase22, dev, kind, card, errs)
+    kernels += timed(phase23, dev, kind, card)
+    timed(phase24, dev, kind, card)
+    kernels += timed(phase25, dev, kind, card)
+    timed(phase26, dev, kind, card)
+    kernels += timed(phase27, dev, kind, card)
+    timed(phase28, dev, kind, card)
+    timed(phase29, dev, kind, card)
+    kernels += timed(phase30, dev, kind, card)
+    timed(phase31, dev, kind, card)
+    kernels += timed(phase32, dev, kind, card)
+    timed(phase33, dev, kind, card)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,10 +10,12 @@
 // _make_collect_kernel) and policy="gru_per_agent" (K2d′: agent i runs its
 // own GRU i on its own carry; _gru_forward_per_agent, :1376).  Both take
 // image observations (K2e, IMAGE and IMAGE_DICT; pallas_rollout.py:1109) in
-// an instantiation of their own (kImage), built in
-// fused_collect_gru_image.cu, a translation unit of its own, so that nvcc
-// compiles them beside fused_collect_gru.cu's FLATTENED ones (one nvcc
-// process per source, all started together).  Both carry the message mode
+// an instantiation of their own (kImage).  The instantiations are spread
+// over translation units of about equal build time, so that nvcc compiles
+// them side by side (one nvcc process per source, all started together):
+// K2d′'s FLATTENED ones in fused_collect_gru.cu, K2c's in
+// fused_collect_gru_one_stack.cu, the image ones in fused_collect_gru_image.cu
+// (K2d′) and fused_collect_gru_image_one_stack.cu (K2c).  Both carry the message mode
 // K2b (msg_bits M > 0): the head block becomes [policy | value | message]
 // (Hg, A + 1 + M), and the bits are sampled, streamed out and fed back as in
 // K2a (pallas_rollout.py:1487-1491, 1944-1947, 2017-2035); images do not
@@ -729,27 +731,25 @@ struct GruCollectArgs {
   void *new_h, *obs, *action, *bits, *logp, *value, *reward, *done, *stream;
 };
 
-// Launches the instantiation of (kImage, kChunk, per agent, message width);
+// Launches the instantiation of (per agent, kImage, kChunk, message width);
 // the chunked instantiations are per agent only (the plan's rule).
-template <bool kImage, bool kChunk>
+template <bool kPerAgent, bool kImage, bool kChunk>
 static int launch_collect_gru(const EnvDims& d, const GruCollectDims& m, const GruCollectPlan& p,
                               int T, int B, const GruCollectArgs& a) {
   static_assert(RW_MAX_M == 8, "one instantiation per message width");
-#define RW_WIDTHS(P)                                                                             \
-  {fused_collect_gru_kernel<0, P, kImage, kChunk>, fused_collect_gru_kernel<1, P, kImage, kChunk>, \
-   fused_collect_gru_kernel<2, P, kImage, kChunk>, fused_collect_gru_kernel<3, P, kImage, kChunk>, \
-   fused_collect_gru_kernel<4, P, kImage, kChunk>, fused_collect_gru_kernel<5, P, kImage, kChunk>, \
-   fused_collect_gru_kernel<6, P, kImage, kChunk>, fused_collect_gru_kernel<7, P, kImage, kChunk>, \
-   fused_collect_gru_kernel<8, P, kImage, kChunk>}
-  // [message width], per agent and (without chunks) one stack
-  using Kernel = decltype(&fused_collect_gru_kernel<0, false, kImage, kChunk>);
-  const Kernel per_agent[RW_MAX_M + 1] = RW_WIDTHS(true);
-  Kernel kernel = per_agent[d.m];
-  if constexpr (!kChunk) {
-    const Kernel shared[RW_MAX_M + 1] = RW_WIDTHS(false);
-    if (m.n_stacks == 1) kernel = shared[d.m];
-  }
-#undef RW_WIDTHS
+  static_assert(kPerAgent || !kChunk, "the chunked route is per agent only");
+  using Kernel = decltype(&fused_collect_gru_kernel<0, kPerAgent, kImage, kChunk>);
+  const Kernel widths[RW_MAX_M + 1] = {
+      fused_collect_gru_kernel<0, kPerAgent, kImage, kChunk>,
+      fused_collect_gru_kernel<1, kPerAgent, kImage, kChunk>,
+      fused_collect_gru_kernel<2, kPerAgent, kImage, kChunk>,
+      fused_collect_gru_kernel<3, kPerAgent, kImage, kChunk>,
+      fused_collect_gru_kernel<4, kPerAgent, kImage, kChunk>,
+      fused_collect_gru_kernel<5, kPerAgent, kImage, kChunk>,
+      fused_collect_gru_kernel<6, kPerAgent, kImage, kChunk>,
+      fused_collect_gru_kernel<7, kPerAgent, kImage, kChunk>,
+      fused_collect_gru_kernel<8, kPerAgent, kImage, kChunk>};
+  const Kernel kernel = widths[d.m];
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.end);
   if (err == cudaSuccess)
@@ -767,8 +767,15 @@ static int launch_collect_gru(const EnvDims& d, const GruCollectDims& m, const G
   return (int)cudaGetLastError();
 }
 
-// The launchers of the image instantiations (fused_collect_gru_image.cu) and
-// of the chunked ones (fused_collect_gru_chunked.cu, FLATTENED and image).
+// The launchers of the instantiations built in the other translation units:
+// K2c FLATTENED (fused_collect_gru_one_stack.cu), K2d′ and K2c on images
+// (fused_collect_gru_image.cu, fused_collect_gru_image_one_stack.cu), and the
+// chunked ones (fused_collect_gru_chunked.cu, FLATTENED and image).
+int launch_collect_gru_one_stack(const EnvDims& d, const GruCollectDims& m,
+                                 const GruCollectPlan& p, int T, int B, const GruCollectArgs& a);
+int launch_collect_gru_image_one_stack(const EnvDims& d, const GruCollectDims& m,
+                                       const GruCollectPlan& p, int T, int B,
+                                       const GruCollectArgs& a);
 int launch_collect_gru_image(const EnvDims& d, const GruCollectDims& m, const GruCollectPlan& p,
                              int T, int B, const GruCollectArgs& a);
 int launch_collect_gru_chunked(const EnvDims& d, const GruCollectDims& m,

@@ -1,7 +1,9 @@
 // The recurrent collector's launcher: K2c (one GRU for all agents) and K2d′
-// (agent i runs GRU i), FLATTENED instantiations here, image ones (K2e) in
-// fused_collect_gru_image.cu, K2d′'s chunked ones in fused_collect_gru_chunked.cu
-// and fused_collect_gru_chunked_image.cu.  The kernel and its design:
+// (agent i runs GRU i), K2d′'s FLATTENED instantiations here, K2c's in
+// fused_collect_gru_one_stack.cu, the image ones (K2e) in
+// fused_collect_gru_image.cu (K2d′) and fused_collect_gru_image_one_stack.cu
+// (K2c), K2d′'s chunked ones in fused_collect_gru_chunked.cu and
+// fused_collect_gru_chunked_image.cu.  The kernel and its design:
 // collect_gru.cuh.
 #include "collect_gru.cuh"
 
@@ -67,6 +69,9 @@ extern "C" int rw_fused_collect_gru(int n, int s, int r, int g, int h, int w, in
                             h0, new_h, obs, action, bits, logp, value, reward, done, stream};
   if (p.kx) return img_n_layers > 0 ? launch_collect_gru_chunked_image(d, m, p, T, B, a)
                                     : launch_collect_gru_chunked(d, m, p, T, B, a);
-  if (img_n_layers > 0) return launch_collect_gru_image(d, m, p, T, B, a);
-  return launch_collect_gru<false, false>(d, m, p, T, B, a);
+  if (img_n_layers > 0)
+    return m.n_stacks == 1 ? launch_collect_gru_image_one_stack(d, m, p, T, B, a)
+                           : launch_collect_gru_image(d, m, p, T, B, a);
+  return m.n_stacks == 1 ? launch_collect_gru_one_stack(d, m, p, T, B, a)
+                         : launch_collect_gru<true, false, false>(d, m, p, T, B, a);
 }

@@ -6,5 +6,5 @@
 
 int launch_collect_gru_chunked(const EnvDims& d, const GruCollectDims& m,
                                const GruCollectPlan& p, int T, int B, const GruCollectArgs& a) {
-  return launch_collect_gru<false, true>(d, m, p, T, B, a);
+  return launch_collect_gru<true, false, true>(d, m, p, T, B, a);
 }

@@ -7,5 +7,5 @@
 int launch_collect_gru_chunked_image(const EnvDims& d, const GruCollectDims& m,
                                      const GruCollectPlan& p, int T, int B,
                                      const GruCollectArgs& a) {
-  return launch_collect_gru<true, true>(d, m, p, T, B, a);
+  return launch_collect_gru<true, true, true>(d, m, p, T, B, a);
 }

@@ -86,7 +86,8 @@ def ppo_update_epochs_native(cfg: IPPOConfig, params, opt_state: AdamState, data
 
     ``grads_fn(params, dataset, start) -> (grads, sums)`` takes the full
     trajectory and a window start (:class:`FusedPPOGrads`); it normalises
-    the advantages by each window's own mean and std.  ``step_fn(cfg,
+    the advantages by each window's own mean and std.  In place of the (4,)
+    metric sums it may return the metrics' means as a dict.  ``step_fn(cfg,
     params, grads, opt_state) -> (params, opt_state)`` is the optimizer
     step.  Returns ((params, opt_state), metrics)."""
     t_len = dataset[1].shape[0]
@@ -100,7 +101,7 @@ def ppo_update_epochs_native(cfg: IPPOConfig, params, opt_state: AdamState, data
     for start in starts.tolist():
         grads, sums = grads_fn(params, dataset, start)
         params, opt_state = step_fn(cfg, params, grads, opt_state)
-        per_pass.append(metric_means(sums, n))
+        per_pass.append(sums if isinstance(sums, dict) else metric_means(sums, n))
     return (params, opt_state), mean_metrics(per_pass)
 
 

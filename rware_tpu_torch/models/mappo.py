@@ -37,12 +37,24 @@ and K10, and the critic's from K5 ``with_actor=False`` on a contiguous copy
 of the band's joint observations, values and targets; one split optimizer
 step per band.
 
-Both learners take a :class:`~rware_tpu_torch.parallel.sharding.Mesh`
+JAX's ``collect_mode="xla"`` learner (``build_mappo_train_step(...,
+collect="plain")``, :class:`MappoPlainTrainStep`; ``train --collect plain``)
+runs no kernel: the plain collect of
+:func:`~rware_tpu_torch.parallel.rollout.build_scan_collect` with the actor in
+flax's rounding (``actor.apply``, ``mappo.py:289-310``), the critic's values
+in ``_critic_native_forward``'s (``mappo.py:600-604``), GAE, then E x M
+time-window passes of :class:`MappoLossGrads`, autograd of
+:func:`~rware_tpu_torch.models.ppo.mappo_loss_native` (the joint loss with
+message bits) with the tanh's gradient as JAX's autodiff gives it and the
+hidden kernels' gradients rounded to bf16, each followed by the split
+optimizer step.
+
+All three learners take a :class:`~rware_tpu_torch.parallel.sharding.Mesh`
 (``mesh=`` of ``mappo.py:205, 767``): this rank collects its own rows of the
-global batch, K6 and GAE run on them, and each pass's gradients (both parts)
-and metrics leave as their mean over the ranks.  The whole-phase kernel K7
-(``fused_critic_phase``) is refused under a mesh, as JAX refuses it
-(``mappo.py:388-392``).
+global batch, the critic's values and GAE run on them, and each pass's
+gradients (both parts) and metrics leave as their mean over the ranks.  The
+whole-phase kernel K7 (``fused_critic_phase``) is refused under a mesh, as JAX
+refuses it (``mappo.py:388-392``).
 """
 from __future__ import annotations
 
@@ -83,8 +95,10 @@ from rware_tpu_torch.models.networks import (
     BlockDims,
     CriticDims,
     GruDims,
+    apply_forward,
     critic_apply_forward,
     critic_to_arrays,
+    critic_train_forward,
     gru_to_arrays,
     init_actor_critic,
     init_central_critic,
@@ -92,8 +106,14 @@ from rware_tpu_torch.models.networks import (
     joint_obs,
     pack_arrays,
     params_to_arrays,
+    round_grad_blocks,
 )
-from rware_tpu_torch.models.ppo import AdamState, critic_value_loss, loss_grads
+from rware_tpu_torch.models.ppo import (
+    AdamState,
+    critic_value_loss,
+    loss_grads,
+    mappo_loss_native,
+)
 from rware_tpu_torch.ops.fused_mappo import (
     build_fused_critic_values,
     build_fused_mappo_grads,
@@ -102,12 +122,17 @@ from rware_tpu_torch.ops.fused_mappo import (
 from rware_tpu_torch.ops.fused_gru import build_fused_gru_obs_bwd, build_fused_gru_obs_fwd
 from rware_tpu_torch.ops.fused_rollout import build_fused_collect, build_fused_collect_gru
 from rware_tpu_torch.ops.fused_update import build_fused_ppo_grads, metric_means, window_rows
+from rware_tpu_torch.parallel.rollout import build_scan_collect
 from rware_tpu_torch.parallel.sharding import Mesh, data_parallel, refuse_under_mesh
 
 PARTS = ("actor", "critic")
+# the blocks whose gradient JAX's ``_native_trunk`` rounds to bf16: the hidden
+# kernels, cast to bf16 for their products (the biases join the f32 sums)
+TRUNK_CAST_BLOCKS = (0, 2)
 
 __all__ = [
-    "MappoSplitGrads", "MappoTrainStep", "RnnMappoTrainStep", "build_mappo_train_step",
+    "MappoLossGrads", "MappoPlainTrainStep", "MappoSplitGrads", "MappoTrainStep",
+    "RnnMappoTrainStep", "build_mappo_train_step",
     "build_rnn_mappo_train_step", "critic_last_values", "init_mappo_runner",
     "init_rnn_mappo_runner", "mappo_optimizer_step", "mappo_update_phase_fused",
 ]
@@ -285,10 +310,74 @@ class MappoTrainStep:
         return new, update_metrics(self.cfg, traj, ppo, self.mesh)
 
 
+class MappoLossGrads:
+    """``grads(params, dataset, start) -> ({"actor", "critic"} grads,
+    metrics)`` of one time window on JAX's XLA path (``mappo.py:572-578``):
+    autograd of :func:`~rware_tpu_torch.models.ppo.mappo_loss_native` over
+    the dataset's rows ``(start + t) % T`` (the bits as its 7th entry with
+    message bits), both parts' hidden kernels' gradients then rounded to
+    bf16 (:data:`TRUNK_CAST_BLOCKS`), as JAX differentiates their casts."""
+
+    def __init__(self, dims: BlockDims, cdims: CriticDims, cfg: IPPOConfig):
+        self.t_mb = cfg.rollout_len // cfg.minibatches
+        self.dims, self.cdims, self.cfg = dims, cdims, cfg
+
+    def __call__(self, params, dataset, start):
+        rows = window_rows(start, self.t_mb, dataset[0].shape[0], dataset[0].device)
+        batch = tuple(x.index_select(0, rows) for x in dataset)
+        grads, metrics = loss_grads(
+            lambda p: mappo_loss_native(self.cfg, self.dims, self.cdims, p, batch,
+                                        xla_grad=True), params)
+        return {k: round_grad_blocks(d, grads[k], TRUNK_CAST_BLOCKS)
+                for k, d in zip(PARTS, (self.dims, self.cdims))}, metrics
+
+
+class MappoPlainTrainStep(MappoTrainStep):
+    """``train_step(runner, starts=None) -> (runner, metrics)``; see
+    :func:`build_mappo_train_step` with ``collect="plain"``.  The phases
+    are :class:`MappoTrainStep`'s methods."""
+
+    def __init__(self, env: Warehouse, dims: BlockDims, cdims: CriticDims, cfg: IPPOConfig,
+                 mesh: Optional[Mesh] = None):
+        self.env, self.dims, self.cdims, self.cfg, self.mesh = env, dims, cdims, cfg, mesh
+        self.env_offset = 0 if mesh is None else mesh.env_offset(cfg.n_envs)
+        self.policy_obs = policy_obs_fn(env)
+        self.collect = build_scan_collect(env, cfg.rollout_len, self.forward)
+        self.grads = MappoLossGrads(dims, cdims, cfg)
+
+    def forward(self, actor: torch.Tensor, obs: torch.Tensor, carry=None):
+        """The actor's heads on ``obs`` by flax's ``actor.apply`` recipe
+        (:func:`~rware_tpu_torch.models.networks.apply_forward`); no carry."""
+        return apply_forward(self.dims.split(actor), obs, self.dims.msg_bits)[0], None
+
+    def rollout(self, runner: RunnerState):
+        """(env_states, traj) of the plain collect with the actor's
+        parameters and this update's key, on this rank's envs at their
+        global indices."""
+        seed = collect_seed(runner.seed, runner.update_idx)
+        return self.collect(runner.env_states, runner.params["actor"], seed,
+                            env_offset=self.env_offset)
+
+    def values(self, runner: RunnerState, traj: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(T, B, N) values of the central critic over the stored trajectory
+        in the rounding of ``_critic_native_forward`` (``mappo.py:600-604``)."""
+        with torch.no_grad():
+            return critic_train_forward(self.cdims.split(runner.params["critic"]),
+                                        joint_obs(traj["obs"]))
+
+    def update(self, runner: RunnerState, dataset, starts: Optional[torch.Tensor] = None):
+        """((params, opt_state), metrics) of the E x M time-window passes,
+        each :class:`MappoLossGrads` (with a mesh, their mean over the ranks)
+        and the split optimizer step."""
+        return ppo_update_epochs_native(self.cfg, runner.params, runner.opt_state, dataset,
+                                        runner.generator, data_parallel(self.grads, self.mesh),
+                                        starts, step_fn=mappo_optimizer_step)
+
+
 def build_mappo_train_step(env: Warehouse, dims: BlockDims, cdims: CriticDims, cfg: IPPOConfig,
                            deterministic_collect: bool = False,
                            fused_critic_phase: bool = False,
-                           mesh: Optional[Mesh] = None) -> MappoTrainStep:
+                           mesh: Optional[Mesh] = None, collect: str = "fused"):
     """The MAPPO learner on the combined path of ``build_mappo_train_step``
     (``mappo.py:192-235``): K2a collect, K6 critic values, GAE, then the
     update phase.
@@ -301,7 +390,27 @@ def build_mappo_train_step(env: Warehouse, dims: BlockDims, cdims: CriticDims, c
     overrides the (P,) window starts drawn from the runner's generator.
     ``mesh`` makes the step data parallel (the module's head; with it
     ``fused_critic_phase`` raises).  On a CUDA runner every kernel runs on
-    the card; on a CPU runner every wrapper runs its plain version."""
+    the card; on a CPU runner every wrapper runs its plain version.
+
+    ``collect="plain"`` builds JAX's ``collect_mode="xla"`` learner
+    (:class:`MappoPlainTrainStep`, ``mappo.py:271-346, 572-578``), which
+    runs no kernel on any device: the plain collect with the actor in flax's
+    rounding (:func:`~rware_tpu_torch.parallel.rollout.build_scan_collect`,
+    Philox draws keyed by :func:`collect_seed` and the global env index),
+    the critic's values in ``_critic_native_forward``'s rounding, GAE, then
+    E x M passes of :class:`MappoLossGrads` over time windows, each
+    followed by the split optimizer step; with message bits the same, the
+    loss the joint one.  Under a mesh each shard normalises its own
+    advantages and each pass's gradients are averaged over the ranks, as
+    ``shard_map`` does.  ``fused_critic_phase`` and ``deterministic_collect``
+    raise with it."""
+    if collect == "plain":
+        if fused_critic_phase or deterministic_collect:
+            raise ValueError("collect='plain' is JAX's XLA learner: no whole-MAPPO-phase "
+                             "kernel (mappo.py:386-393) and no deterministic collect")
+        return MappoPlainTrainStep(env, dims, cdims, cfg, mesh)
+    if collect != "fused":
+        raise ValueError(f"collect must be 'fused' or 'plain', got {collect!r}")
     return MappoTrainStep(env, dims, cdims, cfg, deterministic_collect, fused_critic_phase,
                           mesh)
 

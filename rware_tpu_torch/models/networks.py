@@ -348,6 +348,24 @@ class _Bf16Tanh(torch.autograd.Function):
         return rnd(rnd(g) * rnd(1.0 - rnd(h * h)))
 
 
+class _XlaBf16Tanh(_Bf16Tanh):
+    """``h = bf16(tanh(u))`` whose gradient is the one JAX's autodiff gives a
+    bf16 ``tanh``: the transpose of the JVP ``(g + g h)(1 - h)`` of
+    ``tanh_p`` (``jax/_src/lax/lax.py``), every op rounded to bf16 on the bf16
+    cotangent g, ``j = bf16(g bf16(1 - h))`` then ``bf16(j + bf16(j h))``
+    (XLA's CPU program, equal bit for bit on 100,000 draws)."""
+
+    @staticmethod
+    def backward(ctx, g):
+        (h,) = ctx.saved_tensors
+
+        def rnd(v):
+            return v.to(torch.bfloat16).to(torch.float32)
+
+        j = rnd(rnd(g) * rnd(1.0 - h))
+        return rnd(j + rnd(j * h))
+
+
 def apply_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor, msg_bits: int = 0):
     """The JAX package's ``ActorCritic.__call__`` on the six blocks (flax
     ``Dense`` with ``dtype=bfloat16``): each hidden layer's product rounded
@@ -403,17 +421,22 @@ def _apply_heads(arrays: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tenso
     return (h @ wc + bc).reshape(x.shape[:-1] + (wc.shape[1],))
 
 
-def _train_heads(arrays: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def _train_heads(arrays: Sequence[torch.Tensor], x: torch.Tensor,
+                 xla_grad: bool = False) -> torch.Tensor:
     """The ``_native_trunk`` recipe and the float32 head block on ``x``
-    (..., K), differentiable: the head outputs (..., J)."""
+    (..., K), differentiable: the head outputs (..., J).  The tanh's
+    gradient is the fused kernels' (:class:`_Bf16Tanh`), with ``xla_grad``
+    JAX's autodiff's (:class:`_XlaBf16Tanh`)."""
     w0, b0, w1, b1, wc, bc = arrays
+    tanh = _XlaBf16Tanh if xla_grad else _Bf16Tanh
     h = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).to(torch.float32)
-    h = _Bf16Tanh.apply(bf16_round(h @ bf16_round(w0) + b0))
-    h = _Bf16Tanh.apply(bf16_round(h @ bf16_round(w1) + b1))
+    h = tanh.apply(bf16_round(h @ bf16_round(w0) + b0))
+    h = tanh.apply(bf16_round(h @ bf16_round(w1) + b1))
     return (h @ wc + bc).reshape(x.shape[:-1] + (wc.shape[1],))
 
 
-def train_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor, msg_bits: int = 0):
+def train_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor, msg_bits: int = 0,
+                  xla_grad: bool = False):
     """Differentiable ActorCritic forward on the six blocks: obs (..., L)
     -> (logits (..., A), value (...,)), all float32; with ``msg_bits`` the
     logits are ``(logits, msg_logits (..., M))`` (:func:`split_heads`).
@@ -421,7 +444,7 @@ def train_forward(arrays: Sequence[torch.Tensor], obs: torch.Tensor, msg_bits: i
     The ``_native_trunk`` recipe: bf16 inputs and hidden weights, f32 sums
     (``torch.matmul`` on bf16-exact float32 values), the f32 bias added and
     the sum rounded to bf16, tanh rounded to bf16, f32 heads."""
-    return split_heads(_train_heads(arrays, obs), msg_bits)
+    return split_heads(_train_heads(arrays, obs, xla_grad), msg_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -517,10 +540,12 @@ def joint_obs(obs: torch.Tensor) -> torch.Tensor:
     return obs.reshape(obs.shape[:-2] + (obs.shape[-2] * obs.shape[-1],))
 
 
-def critic_train_forward(arrays: Sequence[torch.Tensor], joint: torch.Tensor) -> torch.Tensor:
+def critic_train_forward(arrays: Sequence[torch.Tensor], joint: torch.Tensor,
+                         xla_grad: bool = False) -> torch.Tensor:
     """Differentiable critic forward in the kernels' rounding
-    (``pallas_update.py:1350-1366``): joint obs (..., N*L) -> (..., N)."""
-    return _train_heads(arrays, joint)
+    (``pallas_update.py:1350-1366``): joint obs (..., N*L) -> (..., N);
+    ``xla_grad`` as in :func:`train_forward`."""
+    return _train_heads(arrays, joint, xla_grad)
 
 
 def critic_apply_forward(arrays: Sequence[torch.Tensor], joint: torch.Tensor) -> torch.Tensor:

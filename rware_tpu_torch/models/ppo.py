@@ -116,18 +116,22 @@ def ppo_loss_native(cfg, dims: BlockDims, params: torch.Tensor, batch,
 
 
 def mappo_loss_native(cfg, dims: BlockDims, cdims: CriticDims, params, batch,
-                      advstats: Optional[torch.Tensor] = None):
+                      advstats: Optional[torch.Tensor] = None, xla_grad: bool = False):
     """Clipped MAPPO loss (``mappo.py:100-117``) on a ``(T, B, N, ...)``
-    minibatch ``(obs, action, old_logp, old_value, adv, target)``: the
-    policy terms from the actor ``params["actor"]``, the value term from the
-    central critic ``params["critic"]`` on the joint observation.
-    ``old_value``, ``adv`` and ``target`` are the critic's; the actor's
-    local value head takes no part.  Returns (total, metrics)."""
-    obs, action, old_logp, old_value, adv, target = batch
-    logits, _ = train_forward(dims.split(params["actor"]), obs)
-    value = critic_train_forward(cdims.split(params["critic"]), joint_obs(obs))
-    return clipped_ppo_terms(cfg, logits, value, action, old_logp, old_value, adv, target,
-                             advstats)
+    minibatch ``(obs, action, old_logp, old_value, adv, target)``, with a
+    7th entry, the bits (T, B, N, M), where ``dims`` has message bits: the
+    policy terms from the actor ``params["actor"]`` (the joint move +
+    Bernoulli policy with bits), the value term from the central critic
+    ``params["critic"]`` on the joint observation.  ``old_value``, ``adv``
+    and ``target`` are the critic's; the actor's local value head takes no
+    part.  ``xla_grad`` takes the tanh's gradient as JAX's autodiff gives it
+    (:func:`~rware_tpu_torch.models.networks.train_forward`), not as the
+    kernels do.  Returns (total, metrics)."""
+    obs, action, old_logp, old_value, adv, target = batch[:6]
+    heads, _ = train_forward(dims.split(params["actor"]), obs, dims.msg_bits, xla_grad)
+    value = critic_train_forward(cdims.split(params["critic"]), joint_obs(obs), xla_grad)
+    return clipped_ppo_terms(cfg, heads, value, action, old_logp, old_value, adv, target,
+                             advstats, batch[6] if dims.msg_bits else None)
 
 
 def critic_value_loss(cfg, cdims: CriticDims, cparams: torch.Tensor, batch):

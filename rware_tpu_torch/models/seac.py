@@ -41,7 +41,10 @@ constant lr, so :class:`~rware_tpu_torch.models.ppo.AdamState` and
   (``seac.py:846-1173``): the per-agent recurrent collector (K2d′), the cross
   replay of every agent's GRU over every agent's observation stream
   (:func:`gru_cross_replay`) for the old values and the bootstrap, cross GAE,
-  then E x M env-band minibatches, each autograd of :func:`seac_gru_loss`.
+  then E x M env-band minibatches, each autograd of :func:`seac_gru_loss`;
+  with ``collect="plain"`` JAX's ``collect_mode="xla"`` (``train --collect
+  plain``): the plain collect with each agent's GRU in the flax module's
+  rounding in place of K2d′, no kernel on any device.
   With a :class:`~rware_tpu_torch.parallel.sharding.Mesh` it is data parallel
   (``seac.py:855``): K2d′ collects this rank's rows keyed by their global
   indices, the cross replay and GAE run on them, the env bands are the
@@ -92,6 +95,7 @@ from rware_tpu_torch.models.networks import (
     BlockDims,
     GruDims,
     apply_forward,
+    gru_apply_step,
     gru_to_arrays,
     init_actor_critic,
     init_recurrent_actor_critic,
@@ -115,6 +119,7 @@ from rware_tpu_torch.ops.fused_rollout import (
 )
 from rware_tpu_torch.ops.fused_seac import build_fused_seac_grads
 from rware_tpu_torch.ops.fused_update import metric_means, window_rows
+from rware_tpu_torch.parallel.rollout import ScanCollect, build_scan_collect
 from rware_tpu_torch.parallel.sharding import (
     Mesh,
     data_parallel,
@@ -821,7 +826,12 @@ class SeacGruTrainStep:
     :meth:`update`."""
 
     def __init__(self, env: Warehouse, dims: GruDims, cfg: SEACPPOConfig,
-                 deterministic_collect: bool, mesh: Optional[Mesh] = None):
+                 deterministic_collect: bool, mesh: Optional[Mesh] = None,
+                 collect: str = "fused"):
+        if collect not in ("fused", "plain"):
+            raise ValueError(f"collect must be 'fused' or 'plain', got {collect!r}")
+        if collect == "plain" and deterministic_collect:
+            raise ValueError("collect='plain' is JAX's XLA collect: it has no deterministic mode")
         self.env_offset = 0 if mesh is None else mesh.env_offset(cfg.n_envs)
         self.n_local = cfg.n_envs if mesh is None else mesh.n_local(cfg.n_envs)
         if self.n_local % cfg.minibatches:
@@ -829,19 +839,37 @@ class SeacGruTrainStep:
                              "envs of a shard (env-band minibatches)")
         self.env, self.dims, self.cfg, self.mesh = env, dims, cfg, mesh
         self.policy_obs = policy_obs_fn(env)
-        self.collect = build_fused_collect_gru_per_agent(env.config, cfg.rollout_len,
-                                                         (dims.embed, dims.hidden),
-                                                         deterministic=deterministic_collect)
+        if collect == "plain":
+            self.collect = build_scan_collect(env, cfg.rollout_len, self.forward)
+        else:
+            self.collect = build_fused_collect_gru_per_agent(env.config, cfg.rollout_len,
+                                                             (dims.embed, dims.hidden),
+                                                             deterministic=deterministic_collect)
         # the shard's band (seac.py:901-909 read n_local)
         self.remat = seac_gru_remat(dataclasses.replace(cfg, n_envs=self.n_local), dims,
                                     env.n_agents)
         self._policies = None
 
+    def forward(self, params: torch.Tensor, obs: torch.Tensor, carry: torch.Tensor):
+        """(heads, new carry) of every agent's GRU one step on its own
+        observations (B, N, L) from its own carry (B, N, Hg), in the flax
+        module's rounding (:func:`~rware_tpu_torch.models.networks.
+        gru_apply_step`, ``apply_own`` of ``seac.py:939-944``)."""
+        h, heads, _ = zip(*(gru_apply_step(self.dims.split(params[i]), carry[:, i], obs[:, i],
+                                           self.dims.msg_bits) for i in range(params.shape[0])))
+        if self.dims.msg_bits:  # (logits, msg_logits) of each agent
+            return tuple(torch.stack(x, 1) for x in zip(*heads)), torch.stack(h, 1)
+        return torch.stack(heads, 1), torch.stack(h, 1)
+
     def rollout(self, runner: RNNRunnerState):
         """(env_states, new_carry, traj) of one per-agent recurrent collector
-        launch from the runner's carry with this update's key."""
-        self._policies = seac_gru_policies_of(self.dims, runner.params, self._policies)
+        launch (or the plain collect) from the runner's carry with this
+        update's key."""
         seed = collect_seed(runner.seed, runner.update_idx)
+        if isinstance(self.collect, ScanCollect):
+            return self.collect(runner.env_states, runner.params, seed, runner.carry,
+                                self.env_offset)
+        self._policies = seac_gru_policies_of(self.dims, runner.params, self._policies)
         return self.collect(runner.env_states, self._policies, seed, runner.carry,
                             self.env_offset)
 
@@ -907,7 +935,8 @@ class SeacGruTrainStep:
 
 def build_seac_gru_train_step(env: Warehouse, dims: GruDims, cfg: SEACPPOConfig,
                               deterministic_collect: bool = False,
-                              mesh: Optional[Mesh] = None) -> SeacGruTrainStep:
+                              mesh: Optional[Mesh] = None,
+                              collect: str = "fused") -> SeacGruTrainStep:
     """The recurrent SEAC-PPO learner (``build_seac_gru_train_step``,
     ``seac.py:846-1173``, ``collect_mode="pallas"``): K2d′ collect from the
     runner's carry (its plain version on a CPU runner), the old policies'
@@ -919,5 +948,13 @@ def build_seac_gru_train_step(env: Warehouse, dims: GruDims, cfg: SEACPPOConfig,
     message bits the collector runs its message mode (K2b) and the loss is
     the joint one.  ``mesh`` makes the step data parallel (the module's
     head): the runner holds this rank's envs and ``cfg.n_envs`` is the global
-    batch."""
-    return SeacGruTrainStep(env, dims, cfg, deterministic_collect, mesh)
+    batch.
+
+    ``collect="plain"`` is JAX's ``collect_mode="xla"`` (``seac.py:939-960,
+    1048-1059``): the plain collect
+    (:func:`~rware_tpu_torch.parallel.rollout.build_scan_collect`, Philox
+    draws keyed by :func:`collect_seed` and the global env index) with
+    each agent's GRU in the flax module's rounding
+    (:meth:`SeacGruTrainStep.forward`) in place of K2d′; the rest is the
+    same, and no kernel runs on any device."""
+    return SeacGruTrainStep(env, dims, cfg, deterministic_collect, mesh, collect)

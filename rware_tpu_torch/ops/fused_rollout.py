@@ -59,8 +59,11 @@ Each wrapper launches its CUDA kernel (``csrc/fused_rollout.cu``,
 ``csrc/collect_mlp.cuh`` for K2a and K2d, launched from
 ``csrc/fused_collect.cu``, its chunked instantiations built in
 ``csrc/fused_collect_chunked.cu``; ``csrc/collect_gru.cuh`` for K2c and
-K2d′, launched from ``csrc/fused_collect_gru.cu``, its image and chunked
-instantiations built in ``csrc/fused_collect_gru_image.cu``,
+K2d′, launched from ``csrc/fused_collect_gru.cu``, which builds K2d′'s
+FLATTENED instantiations, the others built in
+``csrc/fused_collect_gru_one_stack.cu`` (K2c),
+``csrc/fused_collect_gru_image.cu`` and
+``csrc/fused_collect_gru_image_one_stack.cu`` (K2d′ and K2c on images),
 ``csrc/fused_collect_gru_chunked.cu`` and
 ``csrc/fused_collect_gru_chunked_image.cu``) for tensors on
 a CUDA device, and runs its plain PyTorch version (``.plain``)

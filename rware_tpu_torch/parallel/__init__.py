@@ -4,6 +4,7 @@ from rware_tpu_torch.parallel.rollout import (
     autoreset_select,
     batched_reset,
     build_batched_rollout_fn,
+    build_scan_collect,
     random_policy,
 )
 from rware_tpu_torch.parallel.sharding import (
@@ -23,6 +24,7 @@ __all__ = [
     "autoreset_select",
     "batched_reset",
     "build_batched_rollout_fn",
+    "build_scan_collect",
     "data_parallel",
     "make_mesh",
     "psum",

@@ -257,11 +257,13 @@ def positions(state: WarehouseState, env: int = 0) -> list:
 # Data parallelism in one process: the learners of a mesh, rank by rank
 # ---------------------------------------------------------------------------
 
-# the five learners JAX builds with mesh= (per-shard statistics), then the
-# five it only places on a mesh (whole-batch statistics)
+# the learners JAX builds with mesh= (per-shard statistics: its five, MAPPO and
+# recurrent SEAC-PPO also on the plain collect of its collect_mode="xla"), then
+# the five it only places on a mesh (whole-batch statistics)
 DP_LEARNERS = ("ippo", "rnn_ippo", "rnn_ippo_fused_loss", "mappo", "rnn_mappo", "seac_gru",
+               "mappo_plain", "seac_gru_plain",
                "ippo_plain", "rnn_ippo_plain", "seac", "seac_flat", "seac_a2c")
-DP_PLACED = DP_LEARNERS[6:]
+DP_PLACED = DP_LEARNERS[8:]
 
 
 class _ThreadGroup:
@@ -335,7 +337,9 @@ def dp_learner(name: str, env, cfg, seed: int, mesh=None, deterministic: bool = 
     """(runner, train step) of one of :data:`DP_LEARNERS` built with
     ``mesh`` (this rank's envs of ``cfg.n_envs``; None: all of them) at
     hidden width ``hidden``; IPPO and MAPPO take their per-pass kernels (K4,
-    K5); ``ippo_plain`` and ``rnn_ippo_plain`` are the plain learners,
+    K5); ``mappo_plain`` and ``seac_gru_plain`` are MAPPO and recurrent
+    SEAC-PPO on JAX's XLA collect (``collect="plain"``, which has no
+    deterministic mode); ``ippo_plain`` and ``rnn_ippo_plain`` are the plain learners,
     ``seac`` SEAC-PPO on K8, ``seac_flat`` its flat learner, ``seac_a2c``
     SEAC A2C.  ``cfg`` is the learner's config (:func:`dp_config`)."""
     from rware_tpu_torch.models import ippo, ippo_fused, ippo_rnn, mappo, seac
@@ -358,9 +362,14 @@ def dp_learner(name: str, env, cfg, seed: int, mesh=None, deterministic: bool = 
                                                           mesh=mesh)
         step = mappo.build_rnn_mappo_train_step(env, dims, cdims, cfg, deterministic,
                                                 mesh=mesh)
-    elif name == "seac_gru":
+    elif name == "mappo_plain":
+        runner, dims, cdims = mappo.init_mappo_runner(env, cfg, seed, h2, h2, mesh=mesh)
+        step = mappo.build_mappo_train_step(env, dims, cdims, cfg, mesh=mesh, collect="plain")
+    elif name in ("seac_gru", "seac_gru_plain"):
         runner, dims = seac.init_seac_gru(env, cfg, seed, hidden, hidden, mesh=mesh)
-        step = seac.build_seac_gru_train_step(env, dims, cfg, deterministic, mesh=mesh)
+        plain = name.endswith("plain")
+        step = seac.build_seac_gru_train_step(env, dims, cfg, deterministic and not plain,
+                                              mesh=mesh, collect="plain" if plain else "fused")
     elif name == "ippo_plain":
         runner, dims = ippo.init_runner(env, cfg, seed, h2, mesh=mesh)
         step = ippo.build_train_step(env, dims, cfg, mesh=mesh)
@@ -389,8 +398,8 @@ def dp_config(name: str, **fields):
     from rware_tpu_torch.models.ippo import IPPOConfig
     from rware_tpu_torch.models.seac import SEACConfig, SEACPPOConfig
 
-    kind = {"seac_gru": SEACPPOConfig, "seac": SEACPPOConfig, "seac_flat": SEACPPOConfig,
-            "seac_a2c": SEACConfig}.get(name, IPPOConfig)
+    kind = {"seac_gru": SEACPPOConfig, "seac_gru_plain": SEACPPOConfig, "seac": SEACPPOConfig,
+            "seac_flat": SEACPPOConfig, "seac_a2c": SEACConfig}.get(name, IPPOConfig)
     names = {f.name for f in dataclasses.fields(kind)}
     return kind(**{k: v for k, v in fields.items() if k in names})
 

@@ -22,6 +22,8 @@ Examples::
     python -m rware_tpu_torch.train --device cuda --env rware-img-tiny-2ag-v2 --net gru \\
         --n-envs 4096 --updates 800 --ent-coef 0.03
     python -m rware_tpu_torch.train --device cpu --n-envs 128 --rollout-len 8 --updates 2
+    python -m rware_tpu_torch.train --device cpu --algo mappo --collect plain --n-envs 128 \
+        --rollout-len 8 --updates 2 [--msg-bits 2]
 
 ``--collect fused`` (default) trains through the fused collector (K2a) and,
 for ``--algo ippo``, the whole-update-phase kernel (K3); for ``--algo mappo``
@@ -48,7 +50,15 @@ CPU each runs its plain version.  ``--collect plain`` runs the plain
 learner of the algo and net (``models/ippo.build_train_step``,
 ``models/ippo_rnn.build_rnn_train_step`` with ``--net gru``, the per-agent
 collector's plain version for ``--algo seac-ppo`` with the MLP and for
-``--algo seac``; recurrent SEAC-PPO and MAPPO have none).  ``--msg-bits M``
+``--algo seac``), and for ``--algo mappo`` and ``--algo seac-ppo --net gru``
+JAX's ``--collect xla`` learners (``train.py:199-212, 230-243``), which run no
+kernel on any device: the plain collect of
+``parallel/rollout.build_scan_collect`` with the actor, or each agent's GRU,
+in flax's rounding, then MAPPO's critic values, GAE and E x M time-window
+passes by autograd (``models/mappo.MappoPlainTrainStep``), or recurrent
+SEAC-PPO's cross replay and band passes as with K2d′.  Recurrent MAPPO has
+no such learner, in JAX either (``train.py:170-173``), and
+``--fused-critic-phase`` is the fused path's.  ``--msg-bits M``
 gives every agent M message bits (the env's ``MultiDiscrete([5, 2, ...,
 2])`` action;
 ``train.py:45-49``) and trains the Bernoulli message head: for ``--algo
@@ -89,13 +99,14 @@ on a CUDA device, gloo on the CPU), one process a GPU, each on
 parallel over them (``parallel.sharding``): each rank holds ``--n-envs /
 world`` envs, and every pass all-reduces the gradients.  Over more than one
 process ``--distributed`` needs ``--mesh``.  It takes every learner JAX's
-``train.py`` puts on a mesh, with JAX's statistics: the five JAX builds with
+``train.py`` puts on a mesh, with JAX's statistics: the ones JAX builds with
 ``mesh=`` (IPPO per pass, recurrent IPPO with or without ``--fused-loss``,
-MAPPO per pass, recurrent MAPPO, recurrent SEAC-PPO) normalise each shard's
-advantages over the shard, as ``shard_map`` does; the ones JAX only places
-on the mesh (``--collect plain`` with ``--net mlp`` or ``gru``, ``--algo
-seac-ppo`` with the MLP, with or without ``--msg-bits``, and ``--algo
-seac``) take every statistic over the whole batch, so that an update over
+MAPPO per pass, recurrent MAPPO, recurrent SEAC-PPO; MAPPO and recurrent
+SEAC-PPO with ``--collect plain`` too) normalise each shard's advantages over
+the shard, as ``shard_map`` does; the ones JAX only places
+on the mesh (``--collect plain`` for ``--algo ippo`` with ``--net mlp`` or
+``gru``, ``--algo seac-ppo`` with the MLP, with or without ``--msg-bits``, and
+``--algo seac``) take every statistic over the whole batch, so that an update over
 the ranks is the one-process update of the global batch.  What JAX refuses
 under a mesh stays refused: K3 (the mesh takes IPPO per pass) and
 ``--fused-critic-phase`` (K7).  At world size 1 ``--mesh`` changes nothing.
@@ -115,10 +126,10 @@ import torch
 
 from rware_tpu_torch.core.env import resolve_device
 
-NOT_PORTED = ("not ported yet: the port trains --algo ippo, mappo and seac-ppo with --net mlp "
-              "or --net gru and --algo seac with --net mlp, and each of them with message "
-              "bits but --fused-critic-phase (MAPPO's MLP only); --algo mappo and seac-ppo "
-              "--net gru only with --collect fused")
+NO_LEARNER = ("no such learner, in the JAX package either: --fused-critic-phase is MAPPO's "
+              "whole-phase kernel, for --algo mappo --net mlp --collect fused without message "
+              "bits (mappo.py:386-393), and --collect plain is JAX's --collect xla, which "
+              "recurrent MAPPO does not have (train.py:170-173)")
 
 
 def parse_args(argv=None):
@@ -240,19 +251,18 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     mappo, seac, a2c = args.algo == "mappo", args.algo == "seac-ppo", args.algo == "seac"
     gru, msg = args.net == "gru", bool(args.msg_bits)
-    no_plain_learner = mappo or (seac and gru)
     if args.fused_loss and (args.algo != "ippo" or not gru or args.collect != "fused"):
         raise ValueError("--fused-loss is the recurrent IPPO learner's option (--net gru "
                          "--collect fused)")
     if a2c and gru:
         raise ValueError("--algo seac (SEAC A2C) has MLP policies only (seac.py:61-98); "
                          "recurrent SEAC is --algo seac-ppo --net gru")
-    if (args.collect != "fused" and no_plain_learner) \
-            or (args.fused_critic_phase and (msg or gru or not mappo)):
+    if (args.collect == "plain" and mappo and gru) or (args.fused_critic_phase and (
+            msg or gru or not mappo or args.collect == "plain")):
         raise NotImplementedError(
             f"--algo {args.algo} --net {args.net} --collect {args.collect}"
             f"{' --fused-critic-phase' * args.fused_critic_phase}"
-            f"{f' --msg-bits {args.msg_bits}' * msg}: {NOT_PORTED}")
+            f"{f' --msg-bits {args.msg_bits}' * msg}: {NO_LEARNER}")
     dev = resolve_device(args.device)
     rank, world, mesh, own_group = 0, 1, None, False
     if args.distributed:
@@ -318,7 +328,8 @@ def main(argv=None) -> dict:
                             ent_coef=args.ent_coef)
         if gru:
             runner, dims = init_seac_gru(env, cfg, args.seed, mesh=mesh)
-            train_step = build_seac_gru_train_step(env, dims, cfg, mesh=mesh)
+            train_step = build_seac_gru_train_step(env, dims, cfg, mesh=mesh,
+                                                   collect=args.collect)
         else:
             runner, dims = init_seac_ppo(env, cfg, args.seed, mesh=mesh)
             if args.collect == "fused" and not msg:
@@ -333,7 +344,7 @@ def main(argv=None) -> dict:
         runner, dims, cdims = init_mappo_runner(env, cfg, args.seed, mesh=mesh)
         train_step = build_mappo_train_step(env, dims, cdims, cfg,
                                             fused_critic_phase=args.fused_critic_phase,
-                                            mesh=mesh)
+                                            mesh=mesh, collect=args.collect)
     elif gru:
         runner, dims = init_rnn_runner(env, cfg, args.seed, mesh=mesh)
         if args.collect == "fused":

@@ -160,7 +160,7 @@ def test_train_mappo_msg_bits_and_refusals(tmp_path):
     assert ckpt["msg_bits"] == 2 and "critic" in ckpt
     for argv in (["--algo", "mappo", "--fused-critic-phase"],
                  ["--algo", "mappo", "--net", "gru", "--fused-critic-phase"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(NotImplementedError, match="no such learner"):
             train.main(argv + ["--msg-bits", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="MLP policies only"):
         train.main(["--algo", "seac", "--net", "gru", "--msg-bits", "2", "--device", "cpu"])

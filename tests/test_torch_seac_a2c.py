@@ -252,7 +252,7 @@ def test_train_seac_a2c_msg_bits_and_refusals(tmp_path):
     assert ckpt["per_agent"] == 2 and ckpt["msg_bits"] == 2
     with pytest.raises(ValueError, match="MLP policies only"):
         train.main(["--algo", "seac", "--net", "gru", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="no such learner"):
         train.main(["--algo", "seac", "--fused-critic-phase", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

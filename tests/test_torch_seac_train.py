@@ -180,7 +180,7 @@ def test_train_and_evaluate_entry_points_seac(tmp_path):
 
 
 def test_seac_entry_point_refuses_what_is_not_there():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="no such learner"):
         train.main(["--algo", "seac-ppo", "--fused-critic-phase", "--device", "cpu"])
     with pytest.raises(ValueError, match="MLP policies only"):
         train.main(["--algo", "seac", "--net", "gru", "--device", "cpu"])

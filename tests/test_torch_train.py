@@ -221,9 +221,9 @@ def test_mean_return_counts_until_the_first_episode_end():
 def test_entry_points_refuse_what_is_not_there():
     with pytest.raises(ValueError, match="MLP policies only"):
         train.main(["--algo", "seac", "--net", "gru", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="no such learner"):
         train.main(["--algo", "mappo", "--net", "gru", "--collect", "plain", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="no such learner"):
         train.main(["--algo", "mappo", "--net", "gru", "--fused-critic-phase", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -109,7 +109,10 @@ PATCHES = [
       "fused_collect_chunked.cu": "rw_collect_chunked_prof"}),
     ("collect_gru.cuh", '#include "gru_core.cuh"  // gru_sigmoid\n', "RW_COLLECT_GRU_MARK",
      "g_collect_gru_prof", {"fused_collect_gru.cu": "rw_collect_gru_prof",
+                            "fused_collect_gru_one_stack.cu": "rw_collect_gru_one_stack_prof",
                             "fused_collect_gru_image.cu": "rw_collect_gru_image_prof",
+                            "fused_collect_gru_image_one_stack.cu":
+                                "rw_collect_gru_image_one_stack_prof",
                             "fused_collect_gru_chunked.cu": "rw_collect_gru_chunked_prof",
                             "fused_collect_gru_chunked_image.cu":
                                 "rw_collect_gru_chunked_image_prof"}),
@@ -331,7 +334,8 @@ def main():
 
     dev = torch.device("cuda:0")
     lib = load_library()
-    for fn in ("rw_collect_prof", "rw_collect_gru_prof", "rw_collect_gru_image_prof"):
+    for fn in ("rw_collect_prof", "rw_collect_gru_prof", "rw_collect_gru_one_stack_prof",
+               "rw_collect_gru_image_one_stack_prof"):
         getattr(lib, fn).argtypes = [ctypes.c_void_p]
     counts = (ctypes.c_ulonglong * 6)()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -358,7 +362,9 @@ def main():
                        else build_fused_collect_gru)(env.config, t)
             plan = collect.plan(b)
             extra = (nets[0].initialize_carry((b, n)).to(dev),)
-            read = lib.rw_collect_gru_image_prof if "K2e" in name else lib.rw_collect_gru_prof
+            # the accessor of the unit that holds the instantiation (K2d′ or K2c's)
+            read = getattr(lib, "rw_collect_gru" + ("_image" if "K2e" in name else "")
+                           + ("" if per_agent else "_one_stack") + "_prof")
             phases = GRU_PHASES
         else:
             nets = [init_actor_critic(length, 5, (128, 128), (0, 2, i), m)
